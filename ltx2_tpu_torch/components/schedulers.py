@@ -1,0 +1,5 @@
+"""Sigma schedules (counterpart of ltx2_tpu/components/schedulers.py)."""
+
+DISTILLED_SIGMA_VALUES = [
+    1.0, 0.99375, 0.9875, 0.98125, 0.975, 0.909375, 0.725, 0.421875, 0.0,
+]

@@ -1,0 +1,26 @@
+"""Video VAE tensor ops (counterpart of ltx2_tpu/models/video_vae/ops.py).
+
+The channel packing order (c, p, r_w, r_h) of the 5D un-patchify matches the
+checkpoint's einops pattern and is parity-critical."""
+
+from __future__ import annotations
+
+import torch
+
+from ltx2_tpu_torch.ops import common
+
+
+def unpatchify(x: torch.Tensor, patch_size_hw: int, patch_size_t: int = 1) -> torch.Tensor:
+    """Depth-to-space on (B, C*p*r*r, F, H, W) -> (B, C, F*p, H*r, W*r)."""
+    if patch_size_hw == 1 and patch_size_t == 1:
+        return x
+    b, c_packed, f, h, w = x.shape
+    p, r = patch_size_t, patch_size_hw
+    c = c_packed // (p * r * r)
+    x = x.reshape(b, c, p, r, r, f, h, w).permute(0, 1, 5, 2, 6, 4, 7, 3)
+    return x.reshape(b, c, f * p, h * r, w * r)
+
+
+def pixel_norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm across the (channels-last) channel axis, fp32 math."""
+    return common.pixel_norm(x, dim, eps)

@@ -1,0 +1,101 @@
+"""Where the time of the distilled video slice goes on one GPU.
+
+    python -m ltx2_tpu_torch.profile_slice [--layers 48]
+
+Traces, with torch.profiler, one step of the entry's denoise loop (the DiT
+forward, modality rebuild and fp32 Euler step at 512x768x121f = 6144 tokens,
+plus the loop's once-per-clip RoPE tables; random weights, bf16) and the
+entry's decode of one 7-latent-frame chunk to uint8 frames, each after a
+warm-up run. The model, inputs and decode come from generate.py's own
+helpers. Prints one JSON line per phase: device time by kernel class (the
+flash-attention kernel, matrix products, convolutions, the rest), the top
+kernels, the host wall time of the traced run and the device's busy share of
+it. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from ltx2_tpu_torch.core import resolve_device
+from ltx2_tpu_torch.generate import (
+    decode_chunked, distilled_sigmas, make_decoder, make_dit, make_distilled_loop, make_latent_tools, make_request,
+)
+
+
+def _kernel_class(name: str) -> str:
+    n = name.lower()
+    if "flash_fwd_kernel" in n:
+        return "flash_attention"
+    if "fprop" in n or "conv" in n or "dgrad" in n or "implicit" in n:
+        return "convolution"
+    if "gemm" in n or "nvjet" in n or "cutlass" in n or "xmma" in n or "matmul" in n:
+        return "matmul"
+    return "other"
+
+
+def _traced(fn, device: torch.device) -> dict:
+    fn()  # warm-up: kernel build, cuDNN/cuBLAS heuristics, allocator
+    torch.cuda.synchronize(device)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_class: dict = {}
+    kernels = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", 0.0)
+        if dev_us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        cls = _kernel_class(e.key)
+        by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3
+        kernels.append((dev_us / 1e3, e.count, e.key[:90]))
+    device_ms = sum(by_class.values())
+    kernels.sort(reverse=True)
+    return {
+        "wall_ms": wall_ms,
+        "device_ms": device_ms,
+        "busy_share": device_ms / wall_ms if wall_ms else None,
+        "device_ms_by_class": by_class,
+        "top_kernels": [{"ms": ms, "count": c, "name": n} for ms, c, n in kernels[:8]],
+    }
+
+
+@torch.no_grad()
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--layers", type=int, default=48)
+    args = ap.parse_args(argv)
+    device = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = torch.cuda.get_device_name(0)
+
+    dit = make_dit(args.layers, device)
+    tools = make_latent_tools(dit.cfg, 512, 768, 121)
+    state, context = make_request(dit.cfg, tools, 0, device)
+    loop, sigmas = make_distilled_loop(dit.cfg), distilled_sigmas(1)
+    step = _traced(lambda: loop(dit, state, sigmas, context), device)
+    print(json.dumps({"phase": "denoise_step", "layers": args.layers, "tokens": tools.target_shape.tokens,
+                      "card": card, **step}), flush=True)
+    compute_dtype, latent_dtype = dit.cfg.compute_dtype, dit.cfg.dtype
+    del dit, loop, state, context
+    torch.cuda.empty_cache()
+
+    decoder = make_decoder(compute_dtype, device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    shape = tools.target_shape
+    chunk = torch.randn(1, shape.channels, 7, shape.height, shape.width, generator=gen, device=device)
+    chunk = chunk.to(latent_dtype)
+    dec = _traced(lambda: decode_chunked(chunk, decoder, 0), device)
+    print(json.dumps({"phase": "decode_chunk", "latent_frames": 7, "card": card, **dec}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,64 @@
+"""Shared helpers for the PyTorch-port parity tests (tests/test_torch_port_*.py).
+
+Inputs are made with numpy from a seed and handed to both packages; JAX
+runs on the CPU, the port with device="cpu", both in float32.
+"""
+
+from __future__ import annotations
+
+import jax
+import numpy as np
+import torch
+
+from ltx2_tpu.models.transformer import model as jmodel
+from ltx2_tpu_torch.models.transformer import model
+
+# Relative tolerance of the float32 parity tests: the two packages sum in
+# different orders, nothing else differs.
+RTOL = 1e-4
+
+# The small DiT of the parity tests: 2 layers, 2 heads x 128, 16 latent
+# channels, 256-d text context.
+JCFG = jmodel.LTXModelConfig(
+    model_type=jmodel.LTXModelType.VideoOnly, num_attention_heads=2, attention_head_dim=128,
+    in_channels=16, out_channels=16, num_layers=2, cross_attention_dim=256,
+    caption_channels=None, compute_dtype="float32", remat=False,
+)
+CFG = model.LTXModelConfig(
+    num_attention_heads=2, attention_head_dim=128, in_channels=16, out_channels=16,
+    num_layers=2, cross_attention_dim=256, compute_dtype="float32",
+)
+
+
+def assert_close(port, ref, rtol: float = RTOL, msg: str = "") -> None:
+    """|port - ref| <= rtol * max|ref| elementwise (a relative bound on the
+    tensor's scale, so entries near zero do not dominate)."""
+    a = port.detach().cpu().numpy() if isinstance(port, torch.Tensor) else np.asarray(port)
+    b = np.asarray(ref)
+    assert a.shape == b.shape, f"{msg}: shape {a.shape} vs {b.shape}"
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    scale = max(np.abs(b).max(), 1e-12)
+    err = np.abs(a - b).max()
+    assert err <= rtol * scale, f"{msg}: max abs err {err:.3e} > {rtol} * {scale:.3e}"
+
+
+def t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32) if np.asarray(x).dtype.kind == "f" else np.array(x))
+
+
+def numpy_tree(tree, seed: int, randomize=("scale_shift_table", "norm", "statistics")):
+    """JAX param tree -> numpy tree; leaves whose path names one of
+    `randomize` (zero/one-initialised tables, norms, VAE statistics) get
+    random values so those code paths are exercised."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, x):
+        x = np.asarray(x, dtype=np.float32)
+        name = jax.tree_util.keystr(path)
+        if any(r in name for r in randomize):
+            if "std_of_means" in name:
+                return rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
+            return (rng.standard_normal(x.shape) * 0.3 + (1.0 if "norm" in name else 0.0)).astype(np.float32)
+        return x
+
+    return jax.tree_util.tree_map_with_path(leaf, tree)
