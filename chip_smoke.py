@@ -5,16 +5,30 @@ card and nvcc; it exits non-zero without them, and without the package
 `ltx2_tpu_torch` beside it. Phases, each fatal on failure:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compile the flash-attention kernel from csrc/ with nvcc;
-3. kernel check: the kernel against `flash_attention_plain` on the card in
+2. build: compile the flash-attention forward and backward kernels from
+   csrc/ with nvcc, one process per source, started together;
+3. kernel check: the forward against `flash_attention_plain` on the card in
    bf16, at the DiT's self-attention (1, 32, 6144, 128), its text
    cross-attention (6144 queries x 1024 keys) and a ragged key-masked case,
    within limits relative to the plain output that two planted faults must
    fail; with kernel, plain, bound and scaled_dot_product_attention times;
-4. main path: `generate_videos` at full width and depth (48 layers, bf16,
+4. serving path: `generate_videos` at full width and depth (48 layers, bf16,
    512x768x121f = 6144 tokens, 8 distilled steps, VAE decode in 7-frame
    chunks) for 2 requests of different seeds; checks the frames, the
-   latents and that every attention call went through the kernel.
+   latents and that every attention call went through the forward kernel
+   (and none through a backward kernel);
+5. backward check: at the same three cases, the forward's residuals l, m
+   against `flash_attention_residuals_plain`, and dq, dk, dv from the dkv and
+   dq kernels against `flash_attention_bwd_plain` and against autograd of
+   `flash_attention_plain` in fp32, within relative limits that planted
+   faults (dq x 1.03, a 64-key tile left out of dk and dv) must fail; with
+   kernel, plain, bound and SDPA-backward times;
+6. training path: (a) `ltx2_tpu_torch.train.main` for 3 LoRA steps of the
+   full-width 48-block DiT at 6144 tokens, checking finite losses, non-zero
+   lora_B after step 1, a bit-identical base and the launch counts; (b) the
+   step's time, TF/s and peak memory at scripts/bench_train.py's shape (1024
+   text tokens); (c) adapter gradients of 2 full-width blocks through the
+   kernels against the same model on plain attention.
 
 The second-to-last line of output is the kernels' JSON record, the last the
 device record.
@@ -23,6 +37,7 @@ device record.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -34,11 +49,24 @@ import time
 # 64-key tile dropped from the softmax and the output off by 3 %.
 TOL_MAX_REL = 2e-2  # max|kernel - plain| / max|plain|
 TOL_RMS_REL = 1e-2  # rms(kernel - plain) / rms(plain)
+# The backward kernels round P and dS to bf16 as product operands and write
+# bf16 gradients; limits relative to the fp32 reference, as above.
+TOL_BWD_MAX_REL = 2e-2
+TOL_BWD_RMS_REL = 1e-2
+# l and m are fp32 sums and maxima that differ from the plain version only
+# in summation order (measured at most 1.1e-6 relative).
+TOL_RES_REL = 1e-4
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FRAMES, HEIGHT, WIDTH, STEPS, LAYERS = 121, 512, 768, 8, 48
 SEEDS = (1, 2)
 LAUNCHES_PER_CLIP = 2 * LAYERS * STEPS  # self + text cross-attention in every block and step
+TRAIN_STEPS = 3
+# Adapter gradients of 2 full-width blocks, kernels against plain attention:
+# both runs share every other op, so the difference is the kernels' bf16 P,
+# dS and output rounding carried through two blocks.
+TOL_GRAD_MAX_REL = 2e-2
+TOL_GRAD_RMS_REL = 2e-2
 
 
 def log(msg: str) -> None:
@@ -63,15 +91,20 @@ def phase_device():
 
 
 def phase_build():
-    from ltx2_tpu_torch.ops.attention import _library, build_flash_attention
+    from ltx2_tpu_torch.ops.attention import _kernel, _LIB_OF, build_kernels
 
-    info = build_flash_attention()
-    _library()
-    ptxas = [ln for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln]
-    log(f"build: {info['path'].name} in {info['seconds']:.1f} s")
-    for ln in ptxas:
-        log(f"  ptxas: {ln.strip()}")
-    return info["seconds"]
+    t0 = time.perf_counter()
+    info = build_kernels()  # one nvcc per source, started together
+    wall = time.perf_counter() - t0
+    for fn in _LIB_OF:
+        _kernel(fn)
+    for name, rec in info.items():
+        log(f"build {name}: {rec['path'].name} in {rec['seconds']:.1f} s")
+        for ln in rec["log"].splitlines():
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+                log(f"  ptxas: {ln.strip()}")
+    log(f"build: wall {wall:.1f} s")
+    return wall
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -103,8 +136,8 @@ def _mismatch(out, ref) -> dict:
     }
 
 
-def _accepted(m: dict) -> bool:
-    return m["finite"] and m["max_rel_err"] <= TOL_MAX_REL and m["rms_rel_err"] <= TOL_RMS_REL
+def _accepted(m: dict, max_rel: float = TOL_MAX_REL, rms_rel: float = TOL_RMS_REL) -> bool:
+    return m["finite"] and m["max_rel_err"] <= max_rel and m["rms_rel_err"] <= rms_rel
 
 
 def _check_case(name, b, h, t_q, t_k, d, n_valid, gen):
@@ -184,6 +217,142 @@ def phase_kernels():
     return recs
 
 
+def _bwd_inputs(b, h, t_q, t_k, d, n_valid, gen):
+    import torch
+
+    dev = torch.device("cuda")
+    # Token-major (B, T, H*D) storage viewed as (B, H, T, D), as the DiT
+    # hands the kernels its activations and gets gradients back.
+    q, k, v, do = (torch.randn(b, t, h * d, device=dev, generator=gen).to(torch.bfloat16).view(b, t, h, d)
+                   .transpose(1, 2) for t in (t_q, t_k, t_k, t_q))
+    kv_valid = None
+    if n_valid is not None:
+        kv_valid = torch.zeros(b, t_k, dtype=torch.bool, device=dev)
+        kv_valid[:, :n_valid] = True
+        kv_valid[1:, n_valid // 2:] = True
+    return q, k, v, do, kv_valid
+
+
+def _bwd_case(name, b, h, t_q, t_k, d, n_valid, gen):
+    import torch
+    import torch.nn.functional as F
+
+    from ltx2_tpu_torch.ops import attention as A
+
+    q, k, v, do, kv_valid = _bwd_inputs(b, h, t_q, t_k, d, n_valid, gen)
+    scale = d ** -0.5
+
+    # Forward residuals: kernel against plain.
+    o, l, m = A.flash_attention_residuals(q, k, v, scale, kv_valid)
+    o_ref, l_ref, m_ref = A.flash_attention_residuals_plain(q, k, v, scale, kv_valid)
+    res = {"l": _mismatch(l, l_ref), "m": _mismatch(m, m_ref)}
+    del o_ref
+
+    grads = A.flash_attention_bwd(q, k, v, o, l, m, do, scale, kv_valid)
+    torch.cuda.synchronize()
+    # Reference 1: the plain backward from the plain forward's residuals.
+    ref1 = A.flash_attention_bwd_plain(q, k, v, *A.flash_attention_residuals_plain(q, k, v, scale, kv_valid),
+                                       do, scale, kv_valid)
+    checks = {f"{g}_vs_plain_bwd": _mismatch(x, r) for g, x, r in zip(("dq", "dk", "dv"), grads, ref1)}
+    del ref1
+    # Reference 2: autograd of the plain forward in fp32.
+    leaves = [x.float().requires_grad_() for x in (q, k, v)]
+    out = A.flash_attention_plain(*leaves, scale, kv_valid)
+    ref2 = torch.autograd.grad(out, leaves, do.float())
+    del out, leaves
+    checks.update({f"{g}_vs_autograd": _mismatch(x, r) for g, x, r in zip(("dq", "dk", "dv"), grads, ref2)})
+
+    # Planted faults, held to the same limits: dq x 1.03, and one 64-key
+    # tile left out of dk and dv.
+    dq, dk, dv = grads
+    dk_drop, dv_drop = dk.clone(), dv.clone()
+    dk_drop[:, :, 64:128] = 0
+    dv_drop[:, :, 64:128] = 0
+    planted = {
+        "dq_scaled_1.03": _mismatch(dq.float() * 1.03, ref2[0]),
+        "dk_tile_dropped": _mismatch(dk_drop, ref2[1]),
+        "dv_tile_dropped": _mismatch(dv_drop, ref2[2]),
+    }
+    del ref2, dk_drop, dv_drop
+    torch.cuda.synchronize()
+
+    di = (o.float() * do.float()).sum(-1).contiguous()
+    dkv_ms = _time_ms(lambda: A.flash_attention_bwd_dkv(q, k, v, do, l, m, di, scale, kv_valid), 10)
+    dq_ms = _time_ms(lambda: A.flash_attention_bwd_dq(q, k, v, do, l, m, di, scale, kv_valid), 10)
+    bwd_ms = _time_ms(lambda: A.flash_attention_bwd(q, k, v, o, l, m, do, scale, kv_valid), 10)
+    plain_ms = _time_ms(lambda: A.flash_attention_bwd_plain(q, k, v, o, l, m, do, scale, kv_valid), 2)
+    # Library yardstick, never called by the port: the backward alone of
+    # scaled_dot_product_attention on the same (contiguous) inputs.
+    qc, kc, vc = (x.contiguous().requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(
+        qc, kc, vc, attn_mask=None if kv_valid is None else kv_valid[:, None, None, :], scale=scale)
+    doc = do.contiguous()
+    library_ms = _time_ms(lambda: torch.autograd.grad(lib_out, (qc, kc, vc), doc, retain_graph=True), 10)
+    del lib_out, qc, kc, vc
+
+    keys = t_k * b if kv_valid is None else int(kv_valid.sum().item())
+    unit = 2.0 * h * t_q * d * keys  # FLOP of one (T_q x keys x D) product over the batch
+    elems_q, elems_k = b * h * t_q * d, b * h * t_k * d
+    stats_bytes = 3 * 4 * b * h * t_q + (0 if kv_valid is None else b * t_k)
+
+    def bound(products, nbytes):
+        t_ops, t_bytes = products * unit / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+        return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+    # The whole backward: five products (S, dP, dV, dK, dQ); reads q, k, v,
+    # o, dO, l, m and writes dq, dk, dv. Each kernel on its own: dkv does
+    # four products (S, dP, dV, dK), dq three (S, dP, dQ).
+    bwd_bound = bound(5, 2.0 * (3 * elems_q + 2 * elems_k) + 2.0 * (elems_q + 2 * elems_k) + stats_bytes
+                      - 4 * b * h * t_q)  # Di is made inside
+    dkv_bound = bound(4, 2.0 * (2 * elems_q + 2 * elems_k) + stats_bytes + 2.0 * 2 * elems_k)
+    dq_bound = bound(3, 2.0 * (2 * elems_q + 2 * elems_k) + stats_bytes + 2.0 * elems_q)
+    rec = {
+        "case": name, "shape": [b, h, t_q, t_k, d], "valid_keys": keys,
+        "residuals": {k_: {x: r[x] for x in ("max_rel_err", "rms_rel_err", "max_abs_err")} for k_, r in res.items()},
+        "grads": {k_: {x: r[x] for x in ("max_rel_err", "rms_rel_err", "max_abs_err")} for k_, r in checks.items()},
+        "tol_max_rel": TOL_BWD_MAX_REL, "tol_rms_rel": TOL_BWD_RMS_REL, "tol_residuals_rel": TOL_RES_REL,
+        "planted_rms_rel": {k_: p["rms_rel_err"] for k_, p in planted.items()},
+        "bwd_ms": bwd_ms, "dkv_ms": dkv_ms, "dq_ms": dq_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bwd_bound_ms": bwd_bound[0], "bwd_bound_by": bwd_bound[1],
+        "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1],
+        "dq_bound_ms": dq_bound[0], "dq_bound_by": dq_bound[1],
+        "bwd_tflops": 5 * unit / bwd_ms / 1e9,
+        "max_abs_err_dkv": max(checks[f"{g}_vs_autograd"]["max_abs_err"] for g in ("dk", "dv")),
+        "max_abs_err_dq": checks["dq_vs_autograd"]["max_abs_err"],
+        "max_abs_err_fwd_residuals": max(r["max_abs_err"] for r in res.values()),
+    }
+    log(f"backward check {name}: {json.dumps(rec)}")
+    for what, r in res.items():
+        if not _accepted(r, TOL_RES_REL, TOL_RES_REL):
+            raise AssertionError(f"flash residual {name} {what}: {r} outside {TOL_RES_REL} relative")
+    for what, r in checks.items():
+        if not _accepted(r, TOL_BWD_MAX_REL, TOL_BWD_RMS_REL):
+            raise AssertionError(f"flash backward {name} {what}: {r} outside max_rel {TOL_BWD_MAX_REL}, "
+                                 f"rms_rel {TOL_BWD_RMS_REL}")
+    for fault, p in planted.items():
+        if _accepted(p, TOL_BWD_MAX_REL, TOL_BWD_RMS_REL):
+            raise AssertionError(f"flash backward {name}: the check accepts a planted fault {fault}: {p}")
+    return rec
+
+
+def phase_bwd_kernels():
+    import torch
+
+    from ltx2_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    counters = (A.flash_attention, A.flash_attention_bwd_dkv, A.flash_attention_bwd_dq)
+    before = [c.launches for c in counters]
+    recs = []
+    for case in (("self", 1, 32, 6144, 6144, 128, None), ("cross", 1, 32, 6144, 1024, 128, None),
+                 ("masked_ragged", 2, 32, 1000, 333, 128, 200)):
+        recs.append(_bwd_case(*case, gen))
+        torch.cuda.empty_cache()
+    for c, n in zip(counters, before):  # comparison launches are not the main path's
+        c.launches = n
+    return recs
+
+
 def phase_main_path(smi: str):
     import numpy as np
     import torch
@@ -228,6 +397,168 @@ def phase_main_path(smi: str):
     return launches
 
 
+def _reset_counts():
+    from ltx2_tpu_torch.ops import attention as A
+
+    for c in (A.flash_attention, A.flash_attention_bwd_dkv, A.flash_attention_bwd_dq):
+        c.launches = 0
+
+
+def _counts() -> dict:
+    from ltx2_tpu_torch.ops import attention as A
+
+    return {"fwd": A.flash_attention.launches, "dkv": A.flash_attention_bwd_dkv.launches,
+            "dq": A.flash_attention_bwd_dq.launches}
+
+
+def _adapter_grads(model) -> dict:
+    return {n: p.grad.detach().float().clone() for n, p in model.named_parameters() if p.requires_grad}
+
+
+def phase_train_steps(smi: str):
+    """(a) the entry: 3 full-width, full-depth LoRA steps through
+    `ltx2_tpu_torch.train.main`; finite losses, non-zero lora_B after step 1,
+    a bit-identical base, and the launch counts the code implies."""
+    import torch
+
+    from ltx2_tpu_torch import train as T
+
+    zero_b_after_step1 = []
+
+    def on_step(i, model, loss):
+        if i == 0:
+            zero_b_after_step1.extend(n for n, p in model.named_parameters()
+                                      if n.endswith(".lora_B") and not bool(p.detach().abs().amax() > 0))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = T.main(["--synthetic", *map(str, T.BENCH_SHAPE), "--lora-rank", "16", "--steps", str(TRAIN_STEPS),
+                  "--layers", str(LAYERS), "--device", "cuda", "--log-every", "1"], on_step=on_step)
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    model = res["model"]
+    log(f"train entry: {TRAIN_STEPS} steps, {LAYERS} layers, {res['adapters']} adapters, losses {res['losses']}, "
+        f"step s {res['step_s']}, wall {wall:.1f} s, peak {peak_gb:.1f} GB, launches {counts} | {smi}")
+
+    if len(res["losses"]) != TRAIN_STEPS or not all(math.isfinite(x) for x in res["losses"]):
+        raise AssertionError(f"training losses {res['losses']}")
+    if res["adapters"] != 10 * LAYERS:  # q, k, v, out of both attentions + the two FF linears
+        raise AssertionError(f"{res['adapters']} adapters, expected 10 linears x {LAYERS} blocks")
+    if zero_b_after_step1:
+        raise AssertionError(f"lora_B still zero after step 1: {zero_b_after_step1[:4]}")
+    # With adapters on to_q/to_k/to_v of both attentions every attention call
+    # needs dq, dk and dv: each step runs 2 * LAYERS forward launches, the
+    # remat recompute 2 * LAYERS more, and one dkv and one dq launch per call.
+    expected = {"fwd": TRAIN_STEPS * 4 * LAYERS, "dkv": TRAIN_STEPS * 2 * LAYERS, "dq": TRAIN_STEPS * 2 * LAYERS}
+    if counts != expected:
+        raise AssertionError(f"training launches {counts}, expected {expected}")
+    # The base: the same random weights drawn again must be bit-identical.
+    fresh = dict(T.make_model(LAYERS, torch.device("cuda"), seed=0).named_parameters())
+    changed = [n for n, p in model.named_parameters() if n in fresh and not torch.equal(p, fresh[n])]
+    missing = [n for n, _ in model.named_parameters() if n not in fresh and not n.endswith(("lora_A", "lora_B"))]
+    del fresh
+    torch.cuda.empty_cache()
+    if changed or missing:
+        raise AssertionError(f"base weights changed by training: {changed[:4]} {missing[:4]}")
+    log(f"train entry checks: losses finite, every lora_B non-zero after step 1, base bit-identical, "
+        f"launches as reckoned {expected}")
+    return model, counts
+
+
+def phase_train_timing(model, smi: str) -> dict:
+    """(b) the step at scripts/bench_train.py's shape (6144 tokens, 1024
+    text tokens, uniform sigmas): 1 warm-up + 4 timed steps."""
+    import torch
+
+    from ltx2_tpu_torch import train as T
+
+    dev = torch.device("cuda")
+    step, batch, flops = T.bench_step(model, dev)
+    loss = step(batch, torch.Generator(device=dev).manual_seed(3))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(4):
+        loss = step(batch, torch.Generator(device=dev).manual_seed(4 + i))
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / 4
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tokens = batch.x0.shape[1]
+    rec = {"layers": model.cfg.num_layers, "tokens": tokens, "text_tokens": batch.context.shape[1],
+           "ms_per_step": sec * 1e3, "tflops": flops / sec / 1e12,
+           "pct_of_bf16_peak": 100 * flops / sec / PEAK_BF16_FLOPS, "peak_memory_gb": peak_gb,
+           "loss": float(loss), "card": smi}
+    log(f"train step timing: {json.dumps(rec)}")
+    if not math.isfinite(rec["loss"]):
+        raise AssertionError(f"train step loss {rec['loss']}")
+    return rec
+
+
+def phase_train_gradcheck(smi: str) -> dict:
+    """(c) adapter gradients of one loss on 2 full-width blocks at 6144
+    tokens (1024 text tokens), through the kernels against the same model
+    with attention through autograd of `flash_attention_plain`."""
+    import torch
+
+    from ltx2_tpu_torch import train as T
+    from ltx2_tpu_torch.ops import attention as A
+    from ltx2_tpu_torch.training import TrainConfig, rectified_flow_loss
+    from ltx2_tpu_torch.training.lora import add_lora_params_, lora_trainable_mask
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    model = T.make_model(2, dev, seed=5)
+    add_lora_params_(model, gen, rank=16, alpha=16.0)
+    lora_trainable_mask(model)
+    with torch.no_grad():  # random B, so that A gets a gradient too
+        for n, p in model.named_parameters():
+            if n.endswith("lora_B"):
+                p.normal_(generator=gen).mul_(0.02)
+    arrays = T.synthetic_dataset(*T.BENCH_SHAPE, 1, model.cfg, seed=1, context_tokens=T.BENCH_CONTEXT_TOKENS)
+    batch = T.make_batch(arrays, [0], dev)
+    sigmas = torch.tensor([0.6], device=dev)
+    noise = torch.randn(batch.x0.shape, generator=gen, device=dev)
+    tc = TrainConfig()
+
+    def grads():
+        loss = rectified_flow_loss(model, batch, None, tc, sigmas, noise)
+        loss.backward()
+        g = _adapter_grads(model)
+        model.zero_grad(set_to_none=True)
+        return float(loss.detach()), g
+
+    _reset_counts()
+    loss_k, g_k = grads()
+    counts = _counts()
+    kernel = A.flash_attention
+    A.flash_attention = lambda q, k, v, scale=None, kv_valid=None: A.flash_attention_plain(q, k, v, scale, kv_valid)
+    try:
+        loss_p, g_p = grads()
+    finally:
+        A.flash_attention = kernel
+    flat_k = torch.cat([g_k[n].flatten() for n in sorted(g_k)])
+    flat_p = torch.cat([g_p[n].flatten() for n in sorted(g_p)])
+    overall = _mismatch(flat_k, flat_p)
+    per_tensor = {n: _mismatch(g_k[n], g_p[n]) for n in sorted(g_k)}
+    worst = max(per_tensor, key=lambda n: per_tensor[n]["rms_rel_err"])
+    rec = {"loss_kernels": loss_k, "loss_plain": loss_p, "tensors": len(g_k), "launches": counts,
+           "max_rel_err": overall["max_rel_err"], "rms_rel_err": overall["rms_rel_err"],
+           "worst_tensor": worst, "worst_rms_rel_err": per_tensor[worst]["rms_rel_err"],
+           "worst_max_rel_err": per_tensor[worst]["max_rel_err"],
+           "tol_max_rel": TOL_GRAD_MAX_REL, "tol_rms_rel": TOL_GRAD_RMS_REL}
+    log(f"train gradient check (2 blocks, kernels vs plain attention): {json.dumps(rec)}")
+    del model
+    torch.cuda.empty_cache()
+    if counts != {"fwd": 8, "dkv": 4, "dq": 4}:
+        raise AssertionError(f"gradient check launches {counts}")
+    if not all(_accepted(per_tensor[n], TOL_GRAD_MAX_REL, TOL_GRAD_RMS_REL) for n in per_tensor):
+        raise AssertionError(f"adapter gradients through the kernels disagree: {worst} {per_tensor[worst]}")
+    return rec
+
+
 def main():
     from pathlib import Path
 
@@ -240,25 +571,64 @@ def main():
     smi = phase_device()
     phase_build()
     recs = phase_kernels()
-    launches = phase_main_path(smi)
+    serve_counts = dict.fromkeys(("fwd", "dkv", "dq"), 0)
+    _reset_counts()
+    serve_counts["fwd"] = phase_main_path(smi)
+    serve_counts.update({k: v for k, v in _counts().items() if k != "fwd"})
+    if serve_counts["dkv"] or serve_counts["dq"]:
+        raise AssertionError(f"serving launched a backward kernel: {serve_counts}")
 
     import torch
 
-    self_rec = recs[0]
-    record = {"kernels": [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "ltx2_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "ltx2_tpu/ops/attention.py:188",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in recs),
-        "ms": self_rec["ms"],
-        "plain_ms": self_rec["plain_ms"],
-        "bound_ms": self_rec["bound_ms"],
-        "bound_by": self_rec["bound_by"],
-        "library_ms": self_rec["library_ms"],
-        "cases": recs,
-    }]}
+    torch.cuda.empty_cache()
+    bwd = phase_bwd_kernels()
+    model, train_counts = phase_train_steps(smi)
+    timing = phase_train_timing(model, smi)
+    del model
+    torch.cuda.empty_cache()
+    gradcheck = phase_train_gradcheck(smi)
+
+    self_rec, self_bwd = recs[0], bwd[0]
+    common = {"route": "cuda", "plain_ms": self_bwd["plain_ms"], "library_ms": self_bwd["library_ms"],
+              "cases": bwd}
+    record = {"kernels": [
+        {
+            "name": "flash_attention_fwd",
+            "route": "cuda",
+            "source": "ltx2_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "ltx2_tpu/ops/attention.py:188",
+            "launches": serve_counts["fwd"] + train_counts["fwd"],
+            "launches_by_path": {"serve": serve_counts["fwd"], "train": train_counts["fwd"]},
+            "max_abs_err": max(max(r["max_abs_err"] for r in recs),
+                               max(r["max_abs_err_fwd_residuals"] for r in bwd)),
+            "ms": self_rec["ms"],
+            "plain_ms": self_rec["plain_ms"],
+            "bound_ms": self_rec["bound_ms"],
+            "bound_by": self_rec["bound_by"],
+            "library_ms": self_rec["library_ms"],
+            "cases": recs,
+        },
+        {
+            "name": "flash_attention_bwd_dkv",
+            "source": "ltx2_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941 (_flash_attention_bwd_dkv, "
+                        "pallas_call :1121; reached from ltx2_tpu/ops/attention.py:188)",
+            "launches": train_counts["dkv"],
+            "max_abs_err": max(r["max_abs_err_dkv"] for r in bwd),
+            "ms": self_bwd["dkv_ms"], "bound_ms": self_bwd["dkv_bound_ms"], "bound_by": self_bwd["dkv_bound_by"],
+            **common,
+        },
+        {
+            "name": "flash_attention_bwd_dq",
+            "source": "ltx2_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 (_flash_attention_bwd_dq, "
+                        "pallas_call :1456; reached from ltx2_tpu/ops/attention.py:188)",
+            "launches": train_counts["dq"],
+            "max_abs_err": max(r["max_abs_err_dq"] for r in bwd),
+            "ms": self_bwd["dq_ms"], "bound_ms": self_bwd["dq_bound_ms"], "bound_by": self_bwd["dq_bound_by"],
+            **common,
+        },
+    ], "train": {"timing": timing, "gradcheck": gradcheck}}
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -10,6 +10,12 @@
 // invalid keys get a score of -inf. A query row whose keys are all invalid
 // gets an output of 0.
 //
+// On request (non-null l and m) it also writes the softmax residuals that the
+// backward (flash_attention_bwd.cu) reads, as Pallas's `save_residuals=True`
+// does (also the counterpart of ltx2_tpu/parallel/ring_attention.py:165
+// `_flash_impl_residuals`): m = the row max of the scaled logits, l = the row
+// sum of exp(s - m), fp32 (B, H, T_q). Without them the launch is unchanged.
+//
 // Bound on an H100 SXM at the DiT's video self-attention (B=1, H=32,
 // T=6144, D=128): the two products are 4*H*T^2*D = 6.2e11 FLOP against about
 // 200 MB of Q/K/V/O traffic, i.e. 0.63 ms of bf16 tensor-core time
@@ -34,12 +40,11 @@
 // cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a head
 // dimension it was not built for.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace ltx_flash;
 
 constexpr int kBlockM = 128;  // query rows per block: 8 warps x 16 rows
 constexpr int kBlockN = 64;   // keys per shared-memory tile
@@ -52,6 +57,8 @@ struct Params {
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
   const uint8_t* kv_valid;  // (B, T_k) with batch stride kv_sb, or null
+  float* l;                 // (B, H, T_q) softmax row sums, or null
+  float* m;                 // (B, H, T_q) row maxima of the scaled logits, or null
   int64_t q_sb, q_st, q_sh;
   int64_t k_sb, k_st, k_sh;
   int64_t v_sb, v_st, v_sh;
@@ -61,81 +68,8 @@ struct Params {
   float scale_log2;  // scale * log2(e): the softmax runs on exp2
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Byte offset of 16-byte chunk `c` of row `r` in a tile of kChunks chunks a
-// row. The chunk index is XORed with (r % 8): the 8 rows one ldmatrix phase
-// reads then sit in 8 different bank groups.
-template <int kChunks>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return static_cast<uint32_t>((r * kChunks + (c ^ (r & 7))) * 16);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
-  const int n = pred ? 16 : 0;  // 0 source bytes: the chunk is zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// c += A (16x16, row-major fragment) * B (16x8, column-major fragment).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low 16 bits
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy ROWS rows of D bf16 values (row stride `stride` elements) into a
-// swizzled shared tile; rows at or past `valid` are zero-filled.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* g, int64_t stride,
-                                          int valid, int tid) {
-  constexpr int kChunks = D / 8;
-  static_assert((ROWS * kChunks) % kThreads == 0, "tile must split evenly over the block");
-#pragma unroll
-  for (int it = 0; it < ROWS * kChunks / kThreads; ++it) {
-    const int i = it * kThreads + tid;
-    const int r = i / kChunks, c = i % kChunks;
-    const bool ok = r < valid;
-    cp_async16(tile + swz<kChunks>(r, c), ok ? g + r * stride + c * 8 : g, ok);
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const Params p) {
-  constexpr int kChunks = D / 8;
   constexpr uint32_t kTileQ = kBlockM * D * 2;
   constexpr uint32_t kTileKV = kBlockN * D * 2;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -153,9 +87,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const Params p) 
   const uint8_t* valid = p.kv_valid ? p.kv_valid + b * p.kv_sb : nullptr;
   const int n_tiles = (p.t_k + kBlockN - 1) / kBlockN;
 
-  load_tile<D, kBlockM>(s_q, q, p.q_st, p.t_q - m0, tid);
-  load_tile<D, kBlockN>(s_kv, k, p.k_st, p.t_k, tid);
-  load_tile<D, kBlockN>(s_kv + kTileKV, v, p.v_st, p.t_k, tid);
+  load_tile<D, kBlockM, kThreads>(s_q, q, p.q_st, p.t_q - m0, tid);
+  load_tile<D, kBlockN, kThreads>(s_kv, k, p.k_st, p.t_k, tid);
+  load_tile<D, kBlockN, kThreads>(s_kv + kTileKV, v, p.v_st, p.t_k, tid);
   cp_async_commit();
 
   float o[D / 8][4];
@@ -171,8 +105,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const Params p) 
     if (j + 1 < n_tiles) {
       const uint32_t nk = s_kv + ((j + 1) & 1) * 2 * kTileKV;
       const int n1 = n0 + kBlockN;
-      load_tile<D, kBlockN>(nk, k + int64_t(n1) * p.k_st, p.k_st, p.t_k - n1, tid);
-      load_tile<D, kBlockN>(nk + kTileKV, v + int64_t(n1) * p.v_st, p.v_st, p.t_k - n1, tid);
+      load_tile<D, kBlockN, kThreads>(nk, k + int64_t(n1) * p.k_st, p.k_st, p.t_k - n1, tid);
+      load_tile<D, kBlockN, kThreads>(nk + kTileKV, v + int64_t(n1) * p.v_st, p.v_st, p.t_k - n1, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -184,19 +118,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const Params p) 
     float s[kBlockN / 8][4];
 #pragma unroll
     for (int jn = 0; jn < kBlockN / 8; ++jn) s[jn][0] = s[jn][1] = s[jn][2] = s[jn][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      ldmatrix_x4(a, s_q + swz<kChunks>(wrow + (lane % 16), kk * 2 + lane / 16));
-#pragma unroll
-      for (int np = 0; np < kBlockN / 16; ++np) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, s_k + swz<kChunks>(np * 16 + (lane % 8) + 8 * (lane / 16),
-                                            kk * 2 + (lane / 8) % 2));
-        mma_bf16(s[2 * np], a, bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
-      }
-    }
+    mma_abt<D, kBlockN>(s, s_q, wrow, s_k, 0, lane);
 
 #pragma unroll
     for (int jn = 0; jn < kBlockN / 8; ++jn)
@@ -248,21 +170,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const Params p) 
     }
 
     // O += P V. Two adjacent score n-tiles form one 16x16 A fragment.
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const uint32_t a[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, s_v + swz<kChunks>(kk * 16 + (lane % 8) + 8 * ((lane / 8) % 2),
-                                                  dp * 2 + lane / 16));
-        mma_bf16(o[2 * dp], a, bv[0], bv[1]);
-        mma_bf16(o[2 * dp + 1], a, bv[2], bv[3]);
-      }
-    }
+    mma_pb<D, kBlockN>(o, s, s_v, 0, lane);
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
@@ -280,6 +188,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const Params p) 
       for (int nt = 0; nt < D / 8; ++nt)
         *reinterpret_cast<__nv_bfloat162*>(dst + nt * 8) =
             __floats2bfloat162_rn(o[nt][2 * i] * inv, o[nt][2 * i + 1] * inv);
+      // Residuals for the backward, in Pallas's convention: m in units of
+      // the scaled logits (m_i is in log2 units), l = sum exp(s - m) after the
+      // last rescale. A row with no valid key keeps l = 0, m = -inf.
+      if (p.l != nullptr && t4 == 0) {
+        const int64_t at = (int64_t(b) * gridDim.y + h) * p.t_q + row;
+        p.l[at] = l;
+        p.m[at] = m_i[i] * 0.6931471805599453f;
+      }
     }
   }
 }
@@ -298,7 +214,8 @@ cudaError_t launch(const Params& p, int batch, int heads, cudaStream_t stream) {
 }  // namespace
 
 extern "C" int ltx_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                       const void* kv_valid, int batch, int heads, int t_q,
+                                       const void* kv_valid, void* l, void* m, int batch,
+                                       int heads, int t_q,
                                        int t_k, int head_dim, int64_t q_sb, int64_t q_st,
                                        int64_t q_sh, int64_t k_sb, int64_t k_st, int64_t k_sh,
                                        int64_t v_sb, int64_t v_st, int64_t v_sh, int64_t o_sb,
@@ -310,6 +227,8 @@ extern "C" int ltx_flash_attention_fwd(const void* q, const void* k, const void*
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
   p.kv_valid = static_cast<const uint8_t*>(kv_valid);
+  p.l = static_cast<float*>(l);
+  p.m = static_cast<float*>(m);
   p.q_sb = q_sb; p.q_st = q_st; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_st = k_st; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_st = v_st; p.v_sh = v_sh;

@@ -48,10 +48,11 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def make_dit(layers: int, device: torch.device) -> LTXModel:
-    """The full-width video DiT at `layers` depth, random weights from seed 0."""
-    dit = LTXModel(dataclasses.replace(LTXModelConfig(), num_layers=layers), device=device)
-    return init_ltx_model_(dit, torch.Generator(device=device).manual_seed(0))
+def make_dit(layers: int, device: torch.device, seed: int = 0, base: LTXModelConfig = LTXModelConfig()) -> LTXModel:
+    """The video DiT of config `base` (default: full width) at `layers`
+    depth, random weights drawn on the device from `seed`."""
+    dit = LTXModel(dataclasses.replace(base, num_layers=layers), device=device)
+    return init_ltx_model_(dit, torch.Generator(device=device).manual_seed(seed))
 
 
 def make_decoder(compute_dtype: str, device: torch.device) -> VideoDecoder:

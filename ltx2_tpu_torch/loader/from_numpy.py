@@ -18,6 +18,7 @@ import torch
 
 from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelConfig
 from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoder, VideoDecoderConfig
+from ltx2_tpu_torch.training.lora import attach_lora_
 
 
 def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -45,7 +46,10 @@ def _load(module: torch.nn.Module, flat: Dict[str, np.ndarray]) -> None:
 
 
 def dit_from_numpy(tree: Mapping, cfg: LTXModelConfig, device=None) -> LTXModel:
-    """A video DiT parameter tree (stacked blocks) -> LTXModel on `device`."""
+    """A video DiT parameter tree (stacked blocks) -> LTXModel on `device`.
+
+    LoRA leaves of the tree (training/lora.py's stacked (L, r, in) `lora_A`,
+    (L, out, r) `lora_B` and (L,) `lora_scale`) become each block's adapters."""
     flat: Dict[str, np.ndarray] = {}
     for key, arr in flatten_tree(tree).items():
         head, _, rest = key.partition(".")
@@ -57,8 +61,33 @@ def dit_from_numpy(tree: Mapping, cfg: LTXModelConfig, device=None) -> LTXModel:
         for i in range(cfg.num_layers):
             flat[f"transformer_blocks.{i}.{rest}"] = arr[i]
     model = LTXModel(cfg, device=device)
+    for key, arr in flat.items():
+        if key.endswith(".lora_A"):
+            attach_lora_(model.get_submodule(key[: -len(".lora_A")]), rank=arr.shape[0])
     _load(model, flat)
     return model
+
+
+def trainable_to_numpy(model: LTXModel) -> Dict[str, np.ndarray]:
+    """The reverse direction for the trainable parameters (`requires_grad`):
+    {dotted key: fp32 array} in the JAX tree's layout, the blocks' leaves
+    stacked on a leading layer axis ("transformer_blocks.attn1.to_q.lora_A"
+    -> (L, r, in)), so they compare with `flatten_tree` of a JAX tree."""
+    stacked: Dict[str, list] = {}
+    flat: Dict[str, np.ndarray] = {}
+    for name, p in model.named_parameters():
+        if not p.requires_grad:
+            continue
+        arr = p.detach().float().cpu().numpy()
+        head, _, rest = name.partition(".")
+        if head == "transformer_blocks":
+            index, _, leaf = rest.partition(".")
+            stacked.setdefault(f"transformer_blocks.{leaf}", []).append((int(index), arr))
+        else:
+            flat[name] = arr
+    for key, items in stacked.items():
+        flat[key] = np.stack([arr for _, arr in sorted(items, key=lambda item: item[0])])
+    return flat
 
 
 def video_decoder_from_numpy(tree: Mapping, cfg: VideoDecoderConfig, device=None) -> VideoDecoder:

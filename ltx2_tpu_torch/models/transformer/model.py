@@ -2,7 +2,9 @@
 
 The video-only model: patchify projection, AdaLN-single timestep embedding,
 an `nn.ModuleList` of blocks run in a Python loop (the JAX package stacks
-them on a leading layer axis and scans), final LayerNorm + scale/shift +
+them on a leading layer axis and scans), each block rematerialised in the
+backward when `remat` is on and a gradient is being recorded (as
+`jax.checkpoint` around the JAX scan body), final LayerNorm + scale/shift +
 projection, and the x0 (denoised) wrapper. Not ported yet: the audio and
 audio-video models, V2 (cross-attention AdaLN, gated attention, prompt
 AdaLN), the caption projection, STG perturbations, text-KV caching and the
@@ -17,6 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ltx2_tpu_torch.models.transformer.blocks import StreamArgs, StreamConfig, VideoBlock, av_block_apply
 from ltx2_tpu_torch.ops.common import Linear, init_linear_, layer_norm, linear
@@ -57,6 +60,7 @@ class LTXModelConfig:
     timestep_scale_multiplier: int = 1000
     use_middle_indices_grid: bool = True
     compute_dtype: str = "bfloat16"
+    remat: bool = True  # checkpoint each block when gradients are recorded
 
     @property
     def video_inner_dim(self) -> int:
@@ -169,6 +173,11 @@ def _process_output(
     return linear(proj, out.to(x.dtype))
 
 
+def _block_x(block: VideoBlock, x: torch.Tensor, args: StreamArgs, stream: StreamConfig, eps: float):
+    """One block on hidden states `x`: the unit that remat recomputes."""
+    return av_block_apply(block, args.replace(x=x), stream, eps).x
+
+
 def ltx_model_apply(
     model: LTXModel,
     video: Modality,
@@ -178,8 +187,13 @@ def ltx_model_apply(
     cfg = model.cfg
     args = prepare_stream_args(model, video, video_pe)
     stream = cfg.video_stream_config()
+    remat = cfg.remat and torch.is_grad_enabled()
     for block in model.transformer_blocks:
-        args = av_block_apply(block, args, stream, cfg.norm_eps)
+        if remat:
+            args = args.replace(x=checkpoint(_block_x, block, args.x, args, stream, cfg.norm_eps,
+                                             use_reentrant=False))
+        else:
+            args = av_block_apply(block, args, stream, cfg.norm_eps)
     return _process_output(
         model.scale_shift_table, cfg.norm_eps, model.proj_out, args.x, args.embedded_timestep
     ).float()

@@ -1,14 +1,25 @@
-"""Scaled dot-product attention for the H100.
+"""Scaled dot-product attention for the H100, forward and backward.
 
 Counterpart of ltx2_tpu/ops/attention.py. Every attention call goes through
-one hand-written CUDA kernel, `csrc/flash_attention.cu` (the port of the
-Pallas TPU flash-attention forward, plain and key-masked), for a CUDA
-tensor, and through its plain PyTorch version `flash_attention_plain` for a
-CPU tensor. There is no fallback between the two: a CUDA tensor the kernel
-cannot take raises.
+hand-written CUDA kernels for a CUDA tensor, and through their plain
+PyTorch versions for a CPU tensor; there is no fallback between the two: a
+CUDA tensor the kernels cannot take raises.
 
-The kernel is built from the repository's source with nvcc into
-`ltx2_tpu_torch/_build/` on first use and loaded with ctypes.
+- `csrc/flash_attention.cu`: the forward (port of the Pallas TPU flash
+  forward, plain and key-masked), optionally writing the softmax residuals
+  l and m (`flash_attention_residuals`, the counterpart of
+  `ltx2_tpu/parallel/ring_attention.py::_flash_impl_residuals`);
+- `csrc/flash_attention_bwd.cu`: the backward, split as Pallas splits it
+  into a dK/dV kernel (`flash_attention_bwd_dkv`) and a dQ kernel
+  (`flash_attention_bwd_dq`).
+
+`flash_attention` is differentiable through `FlashAttention`, an autograd
+Function whose forward saves (q, k, v, o, l, m) and whose backward launches
+the two backward kernels; without a gradient to compute it launches the
+forward alone, without residuals. Each kernel is built from the repository's
+source with nvcc into `ltx2_tpu_torch/_build/` on first use (the sources
+are compiled concurrently) and loaded with ctypes. Each wrapper counts its
+launches in its `launches` attribute.
 """
 
 from __future__ import annotations
@@ -19,12 +30,17 @@ import os
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-FLASH_SOURCE = _PKG / "csrc" / "flash_attention.cu"
+_CSRC = _PKG / "csrc"
+KERNEL_SOURCES = {
+    "fwd": _CSRC / "flash_attention.cu",
+    "bwd": _CSRC / "flash_attention_bwd.cu",
+}
+_HEADERS = (_CSRC / "flash_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -37,56 +53,122 @@ _HEAD_DIMS = (64, 128)
 # exactly as the JAX package binarizes it into flash segment ids.
 _MASK_VALID_THRESHOLD = -1e30
 
-_lib: Optional[ctypes.CDLL] = None
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_ARGTYPES = {
+    # q, k, v, o, kv_valid, l, m; batch, heads, t_q, t_k, head_dim; 13 strides; scale, stream
+    "ltx_flash_attention_fwd": [_P] * 7 + [_I] * 5 + [_I64] * 13 + [ctypes.c_float, _P],
+    # q, k, v, dO, dQ, dK, dV, l, m, Di, kv_valid; batch, heads, t_q, t_k, head_dim;
+    # 22 strides; scale, stream
+    "ltx_flash_attention_bwd_dkv": [_P] * 11 + [_I] * 5 + [ctypes.POINTER(_I64), ctypes.c_float, _P],
+    "ltx_flash_attention_bwd_dq": [_P] * 11 + [_I] * 5 + [ctypes.POINTER(_I64), ctypes.c_float, _P],
+}
+_LIB_OF = {"ltx_flash_attention_fwd": "fwd", "ltx_flash_attention_bwd_dkv": "bwd",
+           "ltx_flash_attention_bwd_dq": "bwd"}
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME): nvcc is needed to build the kernel")
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME): nvcc is needed to build the kernels")
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build_flash_attention() -> dict:
-    """Compile csrc/flash_attention.cu for sm_90a unless a library built from
-    the same source exists. Returns {"path", "seconds", "log"}; raises with
-    the compiler's output if nvcc fails."""
-    digest = hashlib.sha256(FLASH_SOURCE.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"libltx_flash_attention_{digest}.so"
-    if out.exists():
-        return {"path": out, "seconds": 0.0, "log": ""}
+def _library_path(name: str) -> Path:
+    digest = hashlib.sha256(
+        b"".join(f.read_bytes() for f in (KERNEL_SOURCES[name], *_HEADERS))
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"libltx_flash_{name}_{digest}.so"
+
+
+def build_kernels() -> Dict[str, dict]:
+    """Compile every source in KERNEL_SOURCES for sm_90a into its own shared
+    library, one nvcc per source, all started together, unless a library
+    built from the same sources exists. Returns {name: {"path", "seconds",
+    "log"}}; raises with the compiler's output if any nvcc fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(FLASH_SOURCE)],
-        capture_output=True, text=True,
-    )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {FLASH_SOURCE.name}:\n"
-            f"{proc.stdout}\n{proc.stderr}"
+    info, running = {}, {}
+    for name, src in KERNEL_SOURCES.items():
+        out = _library_path(name)
+        if out.exists():
+            info[name] = {"path": out, "seconds": 0.0, "log": ""}
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-    os.replace(tmp, out)
-    return {"path": out, "seconds": seconds, "log": proc.stdout + proc.stderr}
+        running[name] = (proc, tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in running.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) building {KERNEL_SOURCES[name].name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+        info[name] = {"path": out, "seconds": seconds, "log": log}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return info
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_flash_attention()["path"]))
-        fn = lib.ltx_flash_attention_fwd
-        fn.argtypes = (
-            [ctypes.c_void_p] * 5
-            + [ctypes.c_int] * 5
-            + [ctypes.c_int64] * 13
-            + [ctypes.c_float, ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def _kernel(fn_name: str):
+    """The C entry `fn_name`, building and loading its library on first use."""
+    name = _LIB_OF[fn_name]
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build_kernels()[name]["path"]))
+        for fn, lib_name in _LIB_OF.items():
+            if lib_name == name:
+                getattr(lib, fn).argtypes = _ARGTYPES[fn]
+                getattr(lib, fn).restype = ctypes.c_int
+        _libs[name] = lib
+    return getattr(_libs[name], fn_name)
+
+
+def _accum_dtype(x: torch.Tensor) -> torch.dtype:
+    """fp32 for bf16/fp16/fp32 inputs, float64 for float64 (gradcheck)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _scores(q, k, scale, kv_valid):
+    acc = _accum_dtype(q)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * scale
+    if kv_valid is not None:
+        s = s.masked_fill(~kv_valid.bool()[:, None, None, :], float("-inf"))
+    return s
+
+
+def _finite_max(m: torch.Tensor) -> torch.Tensor:
+    """The row max with -inf (a row with no valid key) replaced by 0."""
+    return torch.where(torch.isinf(m), torch.zeros_like(m), m)
+
+
+def flash_attention_residuals_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: Optional[float] = None,
+    kv_valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward kernel's contract in plain PyTorch: (B, H, T_q, D) x
+    (B, H, T_k, D) -> (o in q's dtype, l, m), with fp32 scores and softmax.
+
+    m is the row max of the scaled logits and l the row sum of exp(s - m),
+    both fp32 (B, H, T_q) (Pallas's residuals). kv_valid: optional bool/uint8
+    (B, T_k); invalid keys get no weight. A query row with no valid key gets
+    o = 0, l = 0 and m = -inf."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = _scores(q, k, scale, kv_valid)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - _finite_max(m).detach()[..., None])
+    l = p.sum(dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.to(p.dtype))
+    # l >= 1 wherever a key is valid; l = 0 (and out = 0) where none is.
+    out = out * (1.0 / l.clamp_min(1.0))[..., None]
+    return out.to(q.dtype), l, m
 
 
 def flash_attention_plain(
@@ -96,23 +178,39 @@ def flash_attention_plain(
     scale: Optional[float] = None,
     kv_valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The kernel's contract in plain PyTorch: (B, H, T_q, D) x (B, H, T_k, D)
-    -> (B, H, T_q, D) in q's dtype, with fp32 scores and fp32 softmax.
+    """The forward's output alone: see flash_attention_residuals_plain."""
+    return flash_attention_residuals_plain(q, k, v, scale, kv_valid)[0]
 
-    kv_valid: optional bool/uint8 (B, T_k); invalid keys get no weight. A
-    query row with no valid key returns 0."""
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    l: torch.Tensor,
+    m: torch.Tensor,
+    do: torch.Tensor,
+    scale: Optional[float] = None,
+    kv_valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' contract in plain PyTorch, the math of the
+    upstream `mha_reference_bwd`: P = exp(s - m) / l from the forward's
+    residuals, Di = rowsum(dO * O), dS = P * (dO V^T - Di); returns
+    (dQ, dK, dV) = (dS K * scale, dS^T Q * scale, P^T dO) in the inputs'
+    dtypes, computed in fp32 (float64 for float64 inputs)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    if kv_valid is not None:
-        s = s.masked_fill(~kv_valid.bool()[:, None, None, :], float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)
-    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
-    out = out * torch.where(l > 0, 1.0 / l, torch.zeros_like(l))
-    return out.to(q.dtype)
+    s = _scores(q, k, scale, kv_valid)
+    acc = s.dtype
+    p = torch.exp(s - _finite_max(m.to(acc))[..., None]) * (1.0 / l.to(acc).clamp_min(1.0))[..., None]
+    dof = do.to(acc)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.to(acc))
+    di = (o.to(acc) * dof).sum(dim=-1, keepdim=True)
+    ds = p * (dp - di)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.to(acc)) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.to(acc)) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check_operand(name: str, x: torch.Tensor, device: torch.device) -> None:
@@ -129,28 +227,9 @@ def _check_operand(name: str, x: torch.Tensor, device: torch.device) -> None:
         )
 
 
-def flash_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    scale: Optional[float] = None,
-    kv_valid: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Non-causal attention over (B, H, T, D) bf16 tensors, T_q may differ
-    from T_k, with an optional key-valid mask (B, T_k).
-
-    A CPU tensor takes `flash_attention_plain`; a CUDA tensor launches the
-    kernel on the current stream or raises. Any (B, H, T) strides are taken
-    (D must be unit-stride), so token-major (B, T, H*D) activations viewed as
-    (B, H, T, D) go in without a copy. The output is a (B, H, T_q, D) view of
-    token-major storage, so merging heads back costs nothing.
-    """
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale, kv_valid)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+def _check_shapes(q, k, v, kv_valid) -> int:
+    """Validates q, k, v and kv_valid for the kernels; returns kv_valid's
+    batch stride (0 without one)."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, x, q.device)
     b, h, t_q, d = q.shape
@@ -165,31 +244,189 @@ def flash_attention(
         raise ValueError("flash_attention: empty sequence")
     if h > 65535 or b > 65535:
         raise ValueError(f"flash_attention: batch or heads too large for the launch grid {tuple(q.shape)}")
-    kv_ptr, kv_sb = None, 0
-    if kv_valid is not None:
-        if kv_valid.device != q.device or kv_valid.dtype not in (torch.bool, torch.uint8):
-            raise TypeError("flash_attention: kv_valid must be bool/uint8 on q's device")
-        if kv_valid.shape != (b, t_k) or kv_valid.stride(1) != 1:
-            raise ValueError(f"flash_attention: kv_valid must be a unit-stride ({b}, {t_k}) tensor")
-        kv_ptr, kv_sb = kv_valid.data_ptr(), kv_valid.stride(0)
+    if kv_valid is None:
+        return 0
+    if kv_valid.device != q.device or kv_valid.dtype not in (torch.bool, torch.uint8):
+        raise TypeError("flash_attention: kv_valid must be bool/uint8 on q's device")
+    if kv_valid.shape != (b, t_k) or kv_valid.stride(1) != 1:
+        raise ValueError(f"flash_attention: kv_valid must be a unit-stride ({b}, {t_k}) tensor")
+    return kv_valid.stride(0)
 
-    lib = _library()
-    out = torch.empty((b, t_q, h, d), dtype=torch.bfloat16, device=q.device).transpose(1, 2)
+
+def _token_major(b: int, h: int, t: int, d: int, device) -> torch.Tensor:
+    """An empty bf16 (B, H, T, D) view of token-major (B, T, H, D) storage."""
+    return torch.empty((b, t, h, d), dtype=torch.bfloat16, device=device).transpose(1, 2)
+
+
+def _bth(x: Optional[torch.Tensor]) -> Tuple[int, int, int]:
+    """(batch, token, head) strides of a (B, H, T, D) tensor, in elements."""
+    return (0, 0, 0) if x is None else (x.stride(0), x.stride(2), x.stride(1))
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch_fwd(q, k, v, scale, kv_valid, residuals: bool):
+    kv_sb = _check_shapes(q, k, v, kv_valid)
+    b, h, t_q, d = q.shape
+    fn = _kernel("ltx_flash_attention_fwd")
+    out = _token_major(b, h, t_q, d, q.device)
+    l = m = None
+    if residuals:
+        l = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device)
+        m = torch.empty_like(l)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.ltx_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), kv_ptr,
-            b, h, t_q, t_k, d,
-            q.stride(0), q.stride(2), q.stride(1),
-            k.stride(0), k.stride(2), k.stride(1),
-            v.stride(0), v.stride(2), v.stride(1),
-            out.stride(0), out.stride(2), out.stride(1),
-            kv_sb, float(scale), stream,
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(kv_valid), _ptr(l), _ptr(m),
+            b, h, t_q, k.shape[2], d, *_bth(q), *_bth(k), *_bth(v), *_bth(out), kv_sb,
+            float(scale), _stream(q.device),
         )
     if err != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {err}")
     flash_attention.launches += 1
-    return out
+    return out, l, m
+
+
+def flash_attention_residuals(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: Optional[float] = None,
+    kv_valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(o, l, m) of non-causal attention over (B, H, T, D) bf16 tensors: the
+    output and the softmax residuals (see flash_attention_residuals_plain),
+    the counterpart of ring_attention.py's `_flash_impl_residuals`. A CPU
+    tensor takes the plain version; a CUDA tensor launches the forward
+    kernel with residuals or raises. Not differentiable itself."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_residuals_plain(q, k, v, scale, kv_valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return _launch_fwd(q, k, v, scale, kv_valid, residuals=True)
+
+
+def _check_stats(name: str, x: torch.Tensor, q: torch.Tensor) -> None:
+    b, h, t_q, _ = q.shape
+    if x.device != q.device or x.dtype != torch.float32 or x.shape != (b, h, t_q) or not x.is_contiguous():
+        raise ValueError(f"flash_attention backward: {name} must be contiguous fp32 ({b}, {h}, {t_q}) on "
+                         f"{q.device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
+
+
+def _launch_bwd(fn_name, q, k, v, do, l, m, di, scale, kv_valid, dq, dk, dv) -> None:
+    kv_sb = _check_shapes(q, k, v, kv_valid)
+    _check_operand("dO", do, q.device)
+    if do.shape != q.shape:
+        raise ValueError(f"flash_attention backward: dO {tuple(do.shape)} for q {tuple(q.shape)}")
+    for name, x in (("l", l), ("m", m), ("Di", di)):
+        _check_stats(name, x, q)
+    b, h, t_q, d = q.shape
+    strides = (_I64 * 22)(*_bth(q), *_bth(k), *_bth(v), *_bth(do), *_bth(dq), *_bth(dk), *_bth(dv), kv_sb)
+    with torch.cuda.device(q.device):
+        err = _kernel(fn_name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), _ptr(dq), _ptr(dk), _ptr(dv),
+            l.data_ptr(), m.data_ptr(), di.data_ptr(), _ptr(kv_valid),
+            b, h, t_q, k.shape[2], d, strides, float(scale), _stream(q.device),
+        )
+    if err != 0:
+        raise RuntimeError(f"{fn_name}: kernel launch failed with CUDA error {err}")
+
+
+def flash_attention_bwd_dkv(q, k, v, do, l, m, di, scale, kv_valid=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) from the dK/dV kernel on CUDA (B, H, T, D) bf16 tensors; l, m
+    are the forward's residuals and di = rowsum(dO * O), fp32 (B, H, T_q).
+    The outputs are views of token-major storage."""
+    b, h, t_k, d = k.shape
+    dk, dv = _token_major(b, h, t_k, d, k.device), _token_major(b, h, t_k, d, k.device)
+    _launch_bwd("ltx_flash_attention_bwd_dkv", q, k, v, do, l, m, di, scale, kv_valid, None, dk, dv)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, do, l, m, di, scale, kv_valid=None) -> torch.Tensor:
+    """dQ from the dQ kernel; arguments as flash_attention_bwd_dkv."""
+    dq = _token_major(*q.shape, q.device)
+    _launch_bwd("ltx_flash_attention_bwd_dq", q, k, v, do, l, m, di, scale, kv_valid, dq, None, None)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, l, m, do, scale=None, kv_valid=None):
+    """(dQ, dK, dV) of flash attention from the forward's saved tensors and
+    residuals. A CPU tensor takes flash_attention_bwd_plain; a CUDA tensor
+    computes Di = rowsum(dO * O) with torch ops (upstream does it outside
+    its kernels too), then launches the dK/dV and the dQ kernels, or raises."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, l, m, do, scale, kv_valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if do.stride(-1) != 1 or any(s % 8 for s in do.stride()[:3]) or do.data_ptr() % 16:
+        do = do.contiguous()  # an upstream op handed back a layout the kernels cannot read
+    di = (o.float() * do.float()).sum(dim=-1).contiguous()
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, l, m, di, scale, kv_valid)
+    dq = flash_attention_bwd_dq(q, k, v, do, l, m, di, scale, kv_valid)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: the forward kernel with residuals,
+    then the two backward kernels (plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, kv_valid):
+        o, l, m = flash_attention_residuals(q, k, v, scale, kv_valid)
+        ctx.save_for_backward(q, k, v, o, l, m, kv_valid)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, l, m, kv_valid = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, l, m, do, ctx.scale, kv_valid)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: Optional[float] = None,
+    kv_valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Non-causal attention over (B, H, T, D) bf16 tensors, T_q may differ
+    from T_k, with an optional key-valid mask (B, T_k). Differentiable.
+
+    A CPU tensor takes the plain versions; a CUDA tensor launches the
+    kernels on the current stream or raises. With a gradient to compute it
+    goes through FlashAttention (forward with residuals, backward kernels);
+    without one it launches the forward alone and writes no residuals. Any
+    (B, H, T) strides are taken (D must be unit-stride), so token-major
+    (B, T, H*D) activations viewed as (B, H, T, D) go in without a copy. The
+    output is a (B, H, T_q, D) view of token-major storage, so merging heads
+    back costs nothing.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, scale, kv_valid)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale, kv_valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return _launch_fwd(q, k, v, scale, kv_valid, residuals=False)[0]
 
 
 flash_attention.launches = 0

@@ -1,8 +1,10 @@
 """NN primitives (counterpart of ltx2_tpu/ops/common.py).
 
 Linear weights are stored [out_features, in_features] as in the checkpoint,
-which is already F.linear's layout. Not ported yet: fp8 `weight_scale`,
-int8 `weight_cscale` and the runtime-LoRA branch of `linear`.
+which is already F.linear's layout. A Linear may carry LoRA adapters
+(`lora_A` (r, in), `lora_B` (out, r) parameters and a `lora_scale` buffer,
+added by training/lora.py), which `linear` applies at run time. Not ported
+yet: fp8 `weight_scale` and int8 `weight_cscale`.
 """
 
 from __future__ import annotations
@@ -31,13 +33,20 @@ class Linear(nn.Module):
 
 def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
     """y = x @ W^T + b in x's dtype; weights of another float dtype are cast
-    to x's, as the JAX package does."""
+    to x's, as the JAX package does. With LoRA adapters on `p`, adds
+    scale * (x A^T) B^T, A and B cast to x's dtype (ops/common.py:78-93 of
+    the JAX package)."""
     w, b = p.weight, p.bias
     if w.dtype != x.dtype:
         w = w.to(x.dtype)
     if b is not None and b.dtype != x.dtype:
         b = b.to(x.dtype)
-    return F.linear(x, w, b)
+    y = F.linear(x, w, b)
+    lora_a = getattr(p, "lora_A", None)
+    if lora_a is not None:
+        low = F.linear(F.linear(x, lora_a.to(x.dtype)), p.lora_B.to(x.dtype))
+        y = y + low * p.lora_scale.to(x.dtype)
+    return y
 
 
 @torch.no_grad()

@@ -100,3 +100,11 @@ def precompute_freqs_cis(
     indices = torch.from_numpy(_freq_grid(float(theta), n_pos_dims, dim)).to(indices_grid.device)
     freqs = generate_freqs(indices, indices_grid, max_pos, use_middle_indices_grid)
     return split_freqs_cis(freqs, dim // 2 - freqs.shape[-1], num_attention_heads)
+
+
+def create_position_grid(batch_size: int, frames: int, height: int, width: int) -> torch.Tensor:
+    """(B, 3, F*H*W) int32 integer position grid, frame-major (the training
+    data's latent positions; ltx2_tpu/ops/rope.py:237-248)."""
+    t_grid, h_grid, w_grid = np.meshgrid(np.arange(frames), np.arange(height), np.arange(width), indexing="ij")
+    positions = np.stack([t_grid.ravel(), h_grid.ravel(), w_grid.ravel()], axis=0).astype(np.int32)
+    return torch.from_numpy(positions)[None].expand(batch_size, -1, -1).contiguous()

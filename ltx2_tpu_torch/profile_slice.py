@@ -1,16 +1,21 @@
-"""Where the time of the distilled video slice goes on one GPU.
+"""Where the time of the distilled video slice, or of a LoRA train step,
+goes on one GPU.
 
     python -m ltx2_tpu_torch.profile_slice [--layers 48]
+    python -m ltx2_tpu_torch.profile_slice --train [--layers 48]
 
 Traces, with torch.profiler, one step of the entry's denoise loop (the DiT
 forward, modality rebuild and fp32 Euler step at 512x768x121f = 6144 tokens,
 plus the loop's once-per-clip RoPE tables; random weights, bf16) and the
 entry's decode of one 7-latent-frame chunk to uint8 frames, each after a
 warm-up run. The model, inputs and decode come from generate.py's own
-helpers. Prints one JSON line per phase: device time by kernel class (the
-flash-attention kernel, matrix products, convolutions, the rest), the top
-kernels, the host wall time of the traced run and the device's busy share of
-it. Needs a CUDA card.
+helpers. With --train it traces instead one rank-16 LoRA train step of the
+full-width DiT at scripts/bench_train.py's shape (6144 tokens, 1024 text
+tokens: forward, remat recompute, backward and AdamW), after a warm-up step,
+built by train.py's own helpers. Prints one JSON line per phase: device time
+by kernel class (the flash-attention forward and backward kernels, matrix
+products, convolutions, the rest), the top kernels, the host wall time of
+the traced run and the device's busy share of it. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import time
 
 import torch
 
+from ltx2_tpu_torch import train
 from ltx2_tpu_torch.core import resolve_device
 from ltx2_tpu_torch.generate import (
     decode_chunked, distilled_sigmas, make_decoder, make_dit, make_distilled_loop, make_latent_tools, make_request,
@@ -30,7 +36,11 @@ from ltx2_tpu_torch.generate import (
 def _kernel_class(name: str) -> str:
     n = name.lower()
     if "flash_fwd_kernel" in n:
-        return "flash_attention"
+        return "flash_attention_fwd"
+    if "flash_bwd_dkv_kernel" in n:
+        return "flash_attention_bwd_dkv"
+    if "flash_bwd_dq_kernel" in n:
+        return "flash_attention_bwd_dq"
     if "fprop" in n or "conv" in n or "dgrad" in n or "implicit" in n:
         return "convolution"
     if "gemm" in n or "nvjet" in n or "cutlass" in n or "xmma" in n or "matmul" in n:
@@ -67,22 +77,24 @@ def _traced(fn, device: torch.device) -> dict:
     }
 
 
-@torch.no_grad()
-def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--layers", type=int, default=48)
-    args = ap.parse_args(argv)
-    device = resolve_device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = torch.cuda.get_device_name(0)
+def _train_step(layers: int, device: torch.device, card: str) -> None:
+    dit = train.make_model(layers, device, seed=0)
+    train.select_trainable(dit, train.build_parser().parse_args(["--lora-rank", "16"]), device)
+    step, batch, flops = train.bench_step(dit, device)
+    gen = torch.Generator(device=device)
+    rec = _traced(lambda: step(batch, gen.manual_seed(0)), device)
+    print(json.dumps({"phase": "train_step", "layers": layers, "tokens": batch.x0.shape[1],
+                      "text_tokens": batch.context.shape[1], "lora_rank": 16,
+                      "tflops_per_s_wall": flops / rec["wall_ms"] / 1e9, "card": card, **rec}), flush=True)
 
-    dit = make_dit(args.layers, device)
+
+def _serving(layers: int, device: torch.device, card: str) -> None:
+    dit = make_dit(layers, device)
     tools = make_latent_tools(dit.cfg, 512, 768, 121)
     state, context = make_request(dit.cfg, tools, 0, device)
     loop, sigmas = make_distilled_loop(dit.cfg), distilled_sigmas(1)
     step = _traced(lambda: loop(dit, state, sigmas, context), device)
-    print(json.dumps({"phase": "denoise_step", "layers": args.layers, "tokens": tools.target_shape.tokens,
+    print(json.dumps({"phase": "denoise_step", "layers": layers, "tokens": tools.target_shape.tokens,
                       "card": card, **step}), flush=True)
     compute_dtype, latent_dtype = dit.cfg.compute_dtype, dit.cfg.dtype
     del dit, loop, state, context
@@ -96,6 +108,22 @@ def main(argv=None) -> None:
     dec = _traced(lambda: decode_chunked(chunk, decoder, 0), device)
     print(json.dumps({"phase": "decode_chunk", "latent_frames": 7, "card": card, **dec}), flush=True)
 
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--layers", type=int, default=48)
+    ap.add_argument("--train", action="store_true", help="trace a LoRA train step instead of the serving path")
+    args = ap.parse_args(argv)
+    device = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = torch.cuda.get_device_name(0)
+    if args.train:
+        _train_step(args.layers, device, card)
+        return
+    with torch.no_grad():
+        _serving(args.layers, device, card)
 
 if __name__ == "__main__":
     main()

@@ -1,0 +1,62 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked `gpu` and skips without a CUDA card. The file
+imports neither JAX nor the tests package, so it runs on a machine that has
+only PyTorch and the CUDA toolkit:
+
+    python -m pytest -m gpu tests/test_torch_port_gpu.py
+
+Limits are relative to the reference, as chip_smoke.py states them.
+"""
+
+import pytest
+import torch
+
+from ltx2_tpu_torch.ops import attention
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc; run on the GPU with python -m pytest -m gpu")
+
+
+@pytest.mark.gpu
+def test_flash_kernel_matches_plain_on_gpu():
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(2, 100, 4 * 128, device="cuda", generator=gen).bfloat16()
+    kv = torch.randn(2, 333, 4 * 128, device="cuda", generator=gen).bfloat16()
+    qh, kh = q.view(2, 100, 4, 128).transpose(1, 2), kv.view(2, 333, 4, 128).transpose(1, 2)
+    valid = torch.ones(2, 333, dtype=torch.bool, device="cuda")
+    valid[0, 200:] = False
+    for mask in (None, valid):
+        out = attention.flash_attention(qh, kh, kh, kv_valid=mask)
+        ref = attention.flash_attention_plain(qh, kh, kh, kv_valid=mask)
+        out, ref = out.float(), ref.float()  # limits relative to the output, as chip_smoke.py states them
+        assert (out - ref).abs().max() <= 2e-2 * ref.abs().max()
+        assert (out - ref).square().mean().sqrt() <= 1e-2 * ref.square().mean().sqrt()
+    with pytest.raises(TypeError):
+        attention.flash_attention(qh.float(), kh.float(), kh.float())
+
+
+@pytest.mark.gpu
+def test_backward_kernels_match_plain_on_gpu():
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, h, d = 2, 4, 128
+    x = {n: torch.randn(b, t_, h * d, device="cuda", generator=gen).bfloat16().view(b, t_, h, d).transpose(1, 2)
+         for n, t_ in (("q", 100), ("k", 333), ("v", 333), ("do", 100))}
+    valid = torch.ones(b, 333, dtype=torch.bool, device="cuda")
+    valid[0, 200:] = False
+    for mask in (None, valid):
+        leaves = [x[n].float().requires_grad_() for n in ("q", "k", "v")]
+        ref = torch.autograd.grad(attention.flash_attention_plain(*leaves, None, mask), leaves, x["do"].float())
+        o, l, m = attention.flash_attention_residuals(x["q"], x["k"], x["v"], None, mask)
+        _, l_ref, m_ref = attention.flash_attention_residuals_plain(x["q"], x["k"], x["v"], None, mask)
+        assert (l - l_ref).abs().max() <= 1e-4 * l_ref.abs().max()
+        assert (m - m_ref).abs().max() <= 1e-4 * m_ref.abs().max()
+        grads = attention.flash_attention_bwd(x["q"], x["k"], x["v"], o, l, m, x["do"], None, mask)
+        for g, r in zip(grads, ref):  # limits relative to the reference, as chip_smoke.py states them
+            g = g.float()
+            assert (g - r).abs().max() <= 2e-2 * r.abs().max()
+            assert (g - r).square().mean().sqrt() <= 1e-2 * r.square().mean().sqrt()

@@ -4,8 +4,8 @@ JAX package, in float32 on the CPU, to a relative 1e-4.
 `sdpa` on a CPU tensor runs the flash kernel's plain PyTorch version
 (`flash_attention_plain`); it is held against JAX `sdpa` (its einsum path on
 the CPU) with and without a key mask, for T_q != T_k and ragged T. The CUDA
-kernel itself is checked against the same plain version by the one test
-here marked `gpu`, and by chip_smoke.py.
+kernel itself is checked against the same plain version by the `gpu`-marked
+tests in tests/test_torch_port_gpu.py, and by chip_smoke.py.
 """
 
 import jax.numpy as jnp
@@ -145,22 +145,3 @@ def test_cpu_dispatch_counts_no_launch():
     attention.flash_attention(q, q, q)
     assert attention.flash_attention.launches == before
 
-
-@pytest.mark.gpu
-def test_flash_kernel_matches_plain_on_gpu():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card and nvcc; run on the GPU with python -m pytest -m gpu")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn(2, 100, 4 * 128, device="cuda", generator=gen).bfloat16()
-    kv = torch.randn(2, 333, 4 * 128, device="cuda", generator=gen).bfloat16()
-    qh, kh = q.view(2, 100, 4, 128).transpose(1, 2), kv.view(2, 333, 4, 128).transpose(1, 2)
-    valid = torch.ones(2, 333, dtype=torch.bool, device="cuda")
-    valid[0, 200:] = False
-    for mask in (None, valid):
-        out = attention.flash_attention(qh, kh, kh, kv_valid=mask)
-        ref = attention.flash_attention_plain(qh, kh, kh, kv_valid=mask)
-        out, ref = out.float(), ref.float()  # limits relative to the output, as chip_smoke.py states them
-        assert (out - ref).abs().max() <= 2e-2 * ref.abs().max()
-        assert (out - ref).square().mean().sqrt() <= 1e-2 * ref.square().mean().sqrt()
-    with pytest.raises(TypeError):
-        attention.flash_attention(qh.float(), kh.float(), kh.float())
