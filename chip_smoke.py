@@ -5,25 +5,43 @@ card and nvcc; it exits non-zero without them, and without the package
 `ltx2_tpu_torch` beside it. Phases, each fatal on failure:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compile the flash-attention forward and backward kernels from
-   csrc/ with nvcc, one process per source, started together;
-3. kernel check: the forward against `flash_attention_plain` on the card in
-   bf16, at the DiT's self-attention (1, 32, 6144, 128), its text
+2. build: compile the three kernel libraries from csrc/ with nvcc (flash
+   forward, flash backward, conv3d), one process per source, started
+   together;
+3. kernel check: the flash forward against `flash_attention_plain` on the
+   card in bf16, at the DiT's self-attention (1, 32, 6144, 128), its text
    cross-attention (6144 queries x 1024 keys) and a ragged key-masked case,
    within limits relative to the plain output that two planted faults must
    fail; with kernel, plain, bound and scaled_dot_product_attention times;
-4. serving path: `generate_videos` at full width and depth (48 layers, bf16,
+4. conv kernel check: the implicit-GEMM conv against `conv3d_plain` at the
+   serving paths' shapes (the decoder's stages S4 and S3 and its conv_out on
+   a decode tile in bf16 with reflect/replicate padding, a causal case with
+   ragged H and W, the upscaler's 1024 -> 1024 conv and its per-frame
+   1024 -> 4096 resampler in fp32 with zero padding), within relative limits
+   that two planted faults (a tap left out, the output x 1.03) must fail;
+   with kernel, plain, bound and cuDNN (F.conv3d) times; a shape the kernel
+   does not take must raise;
+5. serving path: `generate_videos` at full width and depth (48 layers, bf16,
    512x768x121f = 6144 tokens, 8 distilled steps, VAE decode in 7-frame
    chunks) for 2 requests of different seeds; checks the frames, the
    latents and that every attention call went through the forward kernel
-   (and none through a backward kernel);
-5. backward check: at the same three cases, the forward's residuals l, m
+   (none through a backward kernel) and every decoder conv through the conv
+   kernel;
+6. two-stage path: `generate_videos_distilled` (stage 1 at 256x384, the
+   fp32 spatial upscaler, stage 2 at 512x768 on the 3-sigma tail, tiled VAE
+   decode) at full width and depth for 2 requests; checks the frames,
+   finite latents after each stage, 1056 flash launches a clip, the conv
+   launches the code implies (19 in the upscaler, 45 per decoder call and
+   tile) and two distinct clips; then the same recipe at a small size
+   (2-layer DiT, 128x128x17, tiled decode) through the kernels against the
+   same pipeline with every flash and conv call on its plain version;
+7. backward check: at the flash cases, the forward's residuals l, m
    against `flash_attention_residuals_plain`, and dq, dk, dv from the dkv and
    dq kernels against `flash_attention_bwd_plain` and against autograd of
    `flash_attention_plain` in fp32, within relative limits that planted
    faults (dq x 1.03, a 64-key tile left out of dk and dv) must fail; with
    kernel, plain, bound and SDPA-backward times;
-6. training path: (a) `ltx2_tpu_torch.train.main` for 3 LoRA steps of the
+8. training path: (a) `ltx2_tpu_torch.train.main` for 3 LoRA steps of the
    full-width 48-block DiT at 6144 tokens, checking finite losses, non-zero
    lora_B after step 1, a bit-identical base and the launch counts; (b) the
    step's time, TF/s and peak memory at scripts/bench_train.py's shape (1024
@@ -57,10 +75,25 @@ TOL_BWD_RMS_REL = 1e-2
 # in summation order (measured at most 1.1e-6 relative).
 TOL_RES_REL = 1e-4
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
+PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (data sheet)
+# The conv kernel and its plain version both sum exact products in fp32 and
+# round once; they differ in summation order only, which in bf16 can move an
+# output by one rounding step (2^-8 relative). Limits relative to the plain
+# output: (max|err| / max|plain|, rms(err) / rms(plain)). Planted faults (a
+# tap left out, the output x 1.03) must fail them.
+CONV_TOL = {"bfloat16": (1e-2, 5e-3), "float32": (1e-4, 1e-4)}
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FRAMES, HEIGHT, WIDTH, STEPS, LAYERS = 121, 512, 768, 8, 48
 SEEDS = (1, 2)
 LAUNCHES_PER_CLIP = 2 * LAYERS * STEPS  # self + text cross-attention in every block and step
+# The two-stage recipe: 8 distilled steps at half resolution, then 3 at full.
+TWO_STAGE_LAUNCHES_PER_CLIP = 2 * LAYERS * (8 + 3)
+# The two-stage recipe at a small size, kernels against plain versions on
+# the card: the kernels' bf16 rounding (attention P and O, one rounding step
+# per conv) carried through 11 DiT steps, the upscaler and the decoder
+# (measured: latents rms 0.20-0.23 %, frames 0.46 levels on average).
+TOL_SMALL_LATENT_RMS_REL = 1e-2
+TOL_SMALL_MEAN_LEVELS = 2.0
 TRAIN_STEPS = 3
 # Adapter gradients of 2 full-width blocks, kernels against plain attention:
 # both runs share every other op, so the difference is the kernels' bf16 P,
@@ -91,13 +124,15 @@ def phase_device():
 
 
 def phase_build():
-    from ltx2_tpu_torch.ops.attention import _kernel, _LIB_OF, build_kernels
+    from ltx2_tpu_torch.ops._build import KERNEL_FUNCTIONS, build_kernels, kernel
 
     t0 = time.perf_counter()
     info = build_kernels()  # one nvcc per source, started together
     wall = time.perf_counter() - t0
-    for fn in _LIB_OF:
-        _kernel(fn)
+    if set(info) != {"fwd", "bwd", "conv3d"}:
+        raise AssertionError(f"built libraries {sorted(info)}")
+    for fn in KERNEL_FUNCTIONS:
+        kernel(fn)
     for name, rec in info.items():
         log(f"build {name}: {rec['path'].name} in {rec['seconds']:.1f} s")
         for ln in rec["log"].splitlines():
@@ -214,6 +249,110 @@ def phase_kernels():
         _check_case("masked_ragged", 2, 32, 1000, 333, 128, 200, gen),
     ]
     flash_attention.launches = before  # comparison launches are not the main path's
+    return recs
+
+
+# Conv cases: (name, x shape (B, T, H, W, Cin), Cout, kT, dtype, causal,
+# spatial mode, temporal mode), at the shapes the two serving paths give
+# the kernel.
+CONV_CASES = (
+    ("S4", (1, 121, 128, 192, 128), 128, 3, "bfloat16", False, "reflect", "replicate"),
+    ("S3", (1, 61, 64, 96, 256), 256, 3, "bfloat16", False, "reflect", "replicate"),
+    ("conv_out_tile", (1, 57, 128, 128, 128), 48, 3, "bfloat16", False, "reflect", "replicate"),
+    ("causal_ragged", (2, 7, 30, 44, 128), 128, 3, "bfloat16", True, "reflect", "replicate"),
+    ("upscaler", (1, 16, 16, 24, 1024), 1024, 3, "float32", False, "zeros", "zeros"),
+    ("resampler", (1, 16, 8, 12, 1024), 4096, 1, "float32", False, "zeros", "zeros"),
+)
+
+
+def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal_mode, gen):
+    import torch
+    import torch.nn.functional as F
+
+    from ltx2_tpu_torch.ops.conv3d import conv3d_ndhwc_kernel, conv3d_plain, kernel_layout
+
+    dev, dtype = torch.device("cuda"), getattr(torch, dtype_name)
+    b, t, h, w, cin = shape
+    bound_w = (cin * kt * 9) ** -0.5  # the models' init: U(+-1/sqrt(fan_in))
+    x = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    weight = ((torch.rand(cout, cin, kt, 3, 3, device=dev, generator=gen) * 2 - 1) * bound_w).to(dtype)
+    bias = (torch.rand(cout, device=dev, generator=gen) * 2 - 1) * bound_w
+    wk = kernel_layout(weight)
+    args = (causal, spatial_mode, temporal_mode)
+
+    out = conv3d_ndhwc_kernel(x, wk, bias, *args)
+    ref = conv3d_plain(x, wk, bias, *args)
+    m = _mismatch(out, ref)
+    del out
+    # Planted faults, held to the same limits: one tap left out, and the
+    # output off by 3 %.
+    dropped = wk.clone()
+    dropped[kt // 2, 1, 1] = 0
+    planted = {"tap_dropped": _mismatch(conv3d_plain(x, dropped, bias, *args), ref),
+               "scaled_1.03": _mismatch(ref.float() * 1.03, ref)}
+    del dropped, ref
+    torch.cuda.synchronize()
+
+    ms = _time_ms(lambda: conv3d_ndhwc_kernel(x, wk, bias, *args), 10)
+    plain_ms = _time_ms(lambda: conv3d_plain(x, wk, bias, *args), 2)
+    # Library yardstick, never called by the port: cuDNN's conv3d in the same
+    # dtype (TF32 off), on the NCDHW view of the channels-last input. Zero
+    # padding is its own; reflect/replicate padding is applied beforehand and
+    # not timed.
+    if spatial_mode == "zeros" and temporal_mode == "zeros":
+        lib_in, lib_pad = x.permute(0, 4, 1, 2, 3), ((kt - 1) // 2, 1, 1)
+    else:
+        from ltx2_tpu_torch.ops.conv3d import _pad
+
+        lib_in, lib_pad = _pad(x, kt, causal, spatial_mode, temporal_mode).permute(0, 4, 1, 2, 3), 0
+    lib_b = bias.to(dtype)
+    library_ms = _time_ms(lambda: F.conv3d(lib_in, weight, lib_b, padding=lib_pad), 10)
+    del lib_in
+
+    flops = 2.0 * b * t * h * w * cin * cout * kt * 9
+    nbytes = x.element_size() * (x.numel() + wk.numel() + b * t * h * w * cout) + 4 * cout
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    bound_ms = max(flops / peak, nbytes / PEAK_BYTES_PER_S) * 1e3
+    tol = CONV_TOL[dtype_name]
+    rec = {
+        "case": name, "shape": list(shape), "cout": cout, "kt": kt, "dtype": dtype_name, "causal": causal,
+        "spatial_mode": spatial_mode, "temporal_mode": temporal_mode,
+        **{k: m[k] for k in m if k != "finite"}, "tol_max_rel": tol[0], "tol_rms_rel": tol[1],
+        "planted_rms_rel": {k: p["rms_rel_err"] for k, p in planted.items()},
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+        "bound_by": "operations" if flops / peak >= nbytes / PEAK_BYTES_PER_S else "bytes",
+        "tflops": flops / ms / 1e9,
+    }
+    log(f"conv kernel check {name}: {json.dumps(rec)}")
+    if not _accepted(m, *tol):
+        raise AssertionError(f"conv3d {name}: {m} outside max_rel {tol[0]}, rms_rel {tol[1]}")
+    for fault, p in planted.items():
+        if _accepted(p, *tol):
+            raise AssertionError(f"conv3d {name}: the check accepts a planted fault {fault}: {p}")
+    del x, weight, wk
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_conv_kernels():
+    import torch
+
+    from ltx2_tpu_torch.ops.conv3d import conv3d_ndhwc_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    before = conv3d_ndhwc_kernel.launches
+    recs = [_conv_case(*case, gen) for case in CONV_CASES]
+    # A shape the kernel does not take raises on the card; nothing falls back.
+    from ltx2_tpu_torch.ops.conv3d import conv3d
+
+    x = torch.zeros(1, 2, 4, 4, 24, device="cuda", dtype=torch.bfloat16)
+    try:
+        conv3d(x, torch.zeros(3, 3, 3, 24, 8, device="cuda", dtype=torch.bfloat16))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("conv3d accepted Cin = 24 on the card")
+    conv3d_ndhwc_kernel.launches = before  # comparison launches are not the main path's
     return recs
 
 
@@ -357,23 +496,28 @@ def phase_main_path(smi: str):
     import numpy as np
     import torch
 
-    from ltx2_tpu_torch.generate import generate_videos
+    from ltx2_tpu_torch.generate import TEMPORAL_CHUNK, generate_videos
+    from ltx2_tpu_torch.models.video_vae.chunking import temporal_chunks
+    from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoderConfig, conv_launches
     from ltx2_tpu_torch.ops.attention import flash_attention
 
+    # Every decoder call runs 45 convs; the decode runs one call per chunk.
+    convs_per_clip = conv_launches(VideoDecoderConfig()) * len(temporal_chunks((FRAMES - 1) // 8 + 1, TEMPORAL_CHUNK))
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     frames, stats = generate_videos(
         list(SEEDS), height=HEIGHT, width=WIDTH, frames=FRAMES, steps=STEPS,
         layers=LAYERS, device="cuda",
     )
     wall = time.perf_counter() - t0
+    counts = _counts()
     launches = flash_attention.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     for s in stats:
         log(f"request seed={s['seed']}: denoise {s['denoise_s']:.3f} s, decode {s['decode_s']:.3f} s, "
-            f"attention launches {s['attention_launches']} | {smi}")
+            f"attention launches {s['attention_launches']}, conv launches {s['conv_launches']} | {smi}")
     log(f"main path: {len(SEEDS)} requests {WIDTH}x{HEIGHT}x{FRAMES}f, {LAYERS} layers, {STEPS} steps, "
         f"wall {wall:.1f} s (weight init {stats[0]['dit_init_s']:.1f} s + decoder init "
         f"{stats[0]['decoder_init_s']:.1f} s included), peak memory {peak_gb:.1f} GB | {smi}")
@@ -387,28 +531,182 @@ def phase_main_path(smi: str):
         if s["attention_launches"] != LAUNCHES_PER_CLIP:
             raise AssertionError(f"seed {s['seed']}: {s['attention_launches']} attention launches, "
                                  f"expected {LAUNCHES_PER_CLIP}")
+        if s["conv_launches"] != convs_per_clip:
+            raise AssertionError(f"seed {s['seed']}: {s['conv_launches']} conv launches, expected {convs_per_clip}")
     if launches != LAUNCHES_PER_CLIP * len(SEEDS):
         raise AssertionError(f"{launches} kernel launches in the main path")
+    if counts["conv"] != convs_per_clip * len(SEEDS) or counts["dkv"] or counts["dq"]:
+        raise AssertionError(f"launches in the main path {counts}")
     if np.array_equal(frames[0], frames[1]):
         raise AssertionError("the two requests produced identical clips")
     log(f"frames: {[f.shape for f in frames]} uint8, latent std {[s['latent_std'] for s in stats]}, "
         f"frame mean/std {[(float(f.mean()), float(f.std())) for f in frames]}, mean |clip 1 - clip 2| "
         f"{float(np.abs(frames[0].astype(np.int16) - frames[1]).mean())} levels")
-    return launches
+    return counts
+
+
+def phase_two_stage(smi: str):
+    """The two-stage distilled recipe through `generate_videos_distilled` at
+    full width and depth for 2 requests of different seeds: frames, finite
+    latents after each stage, the launches the code implies, distinct clips."""
+    import numpy as np
+    import torch
+
+    from ltx2_tpu_torch.generate import generate_videos_distilled
+    from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscalerConfig
+    from ltx2_tpu_torch.models.upscaler.spatial import conv_launches as upscaler_convs
+    from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoderConfig, conv_launches
+    from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, generate_tile_specs
+
+    latent_shape = (1, 128, (FRAMES - 1) // 8 + 1, HEIGHT // 32, WIDTH // 32)
+    tiles = len(generate_tile_specs(latent_shape, TilingConfig.default()))  # 6144 voxels > 4000: tiled
+    expected = {"upscale": upscaler_convs(SpatialUpscalerConfig()),
+                "decode": conv_launches(VideoDecoderConfig()) * tiles}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    frames, stats = generate_videos_distilled(list(SEEDS), height=HEIGHT, width=WIDTH, frames=FRAMES,
+                                              layers=LAYERS, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for s in stats:
+        log(f"two-stage request seed={s['seed']}: stage 1 {s['stage1_s']:.3f} s, upscale {s['upscale_s']:.3f} s, "
+            f"stage 2 {s['stage2_s']:.3f} s, decode {s['decode_s']:.3f} s ({s['decode_tiles']} tiles), "
+            f"attention launches {s['attention_launches']}, conv launches {s['upscale_conv_launches']} upscale + "
+            f"{s['decode_conv_launches']} decode | {smi}")
+    log(f"two-stage path: {len(SEEDS)} requests {WIDTH}x{HEIGHT}x{FRAMES}f (stage 1 {WIDTH // 2}x{HEIGHT // 2}), "
+        f"{LAYERS} layers, wall {wall:.1f} s (init DiT {stats[0]['dit_init_s']:.1f} s, upscaler "
+        f"{stats[0]['upscaler_init_s']:.1f} s, decoder {stats[0]['decoder_init_s']:.1f} s), peak memory "
+        f"{peak_gb:.1f} GB, launches {counts} | {smi}")
+
+    for f in frames:
+        if f.shape != (FRAMES, HEIGHT, WIDTH, 3) or f.dtype != np.uint8:
+            raise AssertionError(f"two-stage frames {f.shape} {f.dtype}")
+    for s in stats:
+        if not (s["stage1_latent_finite"] and s["stage2_latent_finite"]):
+            raise AssertionError(f"seed {s['seed']}: non-finite latent {s}")
+        got = {"attention": s["attention_launches"], "upscale": s["upscale_conv_launches"],
+               "decode": s["decode_conv_launches"], "tiles": s["decode_tiles"]}
+        want = {"attention": TWO_STAGE_LAUNCHES_PER_CLIP, **expected, "tiles": tiles}
+        if got != want:
+            raise AssertionError(f"seed {s['seed']}: launches {got}, expected {want}")
+    per_clip = {"fwd": TWO_STAGE_LAUNCHES_PER_CLIP, "dkv": 0, "dq": 0, "conv": expected["upscale"] + expected["decode"]}
+    if counts != {k: v * len(SEEDS) for k, v in per_clip.items()}:
+        raise AssertionError(f"two-stage launches {counts}, expected {per_clip} a clip")
+    if np.array_equal(frames[0], frames[1]):
+        raise AssertionError("the two two-stage requests produced identical clips")
+    log(f"two-stage frames: {[f.shape for f in frames]} uint8, latent std {[s['latent_std'] for s in stats]}, "
+        f"frame mean/std {[(float(f.mean()), float(f.std())) for f in frames]}, mean |clip 1 - clip 2| "
+        f"{float(np.abs(frames[0].astype(np.int16) - frames[1]).mean())} levels")
+    return counts, stats, peak_gb
+
+
+def phase_two_stage_small(smi: str) -> dict:
+    """The two-stage recipe end to end (decode included, tiled into 2 x 3 x 3
+    tiles) at a small size, through the kernels, against the same pipeline
+    on the same card with every flash and conv call on its plain version
+    (whose agreement with the JAX package the CPU tests show): a 2-layer DiT
+    of 2 x 128-wide heads, a mid-16 upscaler, a base-16 bf16 decoder,
+    128x128x17. A run from another seed must fail the same limits."""
+    import numpy as np
+    import torch
+
+    from ltx2_tpu_torch.generate import make_dit
+    from ltx2_tpu_torch.models.transformer.model import LTXModelConfig
+    from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscaler, SpatialUpscalerConfig, init_spatial_upscaler_
+    from ltx2_tpu_torch.models.upscaler.spatial import conv_launches as upscaler_convs
+    from ltx2_tpu_torch.models.video_vae import conv as vae_conv
+    from ltx2_tpu_torch.models.video_vae.decoder import (
+        VideoDecoder, VideoDecoderConfig, conv_launches, init_video_decoder_,
+    )
+    from ltx2_tpu_torch.models.video_vae.tiling import (
+        SpatialTilingConfig, TemporalTilingConfig, TilingConfig, generate_tile_specs,
+    )
+    from ltx2_tpu_torch.ops import attention as A
+    from ltx2_tpu_torch.ops.conv3d import conv3d_plain
+    from ltx2_tpu_torch.pipelines.distilled import DistilledConfig, DistilledPipeline
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    dit = make_dit(2, dev, seed=22, base=LTXModelConfig(num_attention_heads=2, in_channels=16, out_channels=16,
+                                                         cross_attention_dim=256))
+    up_cfg = SpatialUpscalerConfig(16, 16, 1, 4)
+    dec_cfg = VideoDecoderConfig(base_channels=16, latent_channels=16, compute_dtype="bfloat16")
+    up = init_spatial_upscaler_(SpatialUpscaler(up_cfg, device=dev), gen)
+    dec = init_video_decoder_(VideoDecoder(dec_cfg, device=dev), gen)
+    with torch.no_grad():
+        dec.per_channel_statistics.mean_of_means.normal_(generator=gen).mul_(0.3)
+        dec.per_channel_statistics.std_of_means.uniform_(0.5, 1.5, generator=gen)
+    pipe = DistilledPipeline(dit, up, video_decoder=dec)
+    context = torch.randn(1, 16, 256, generator=gen, device=dev) * 0.02
+    tiling = TilingConfig(SpatialTilingConfig(64, 32), TemporalTilingConfig(16, 8))
+
+    def run(seed):
+        latents = {}
+        config = DistilledConfig(height=128, width=128, num_frames=17, seed=seed, dtype="bfloat16",
+                                 latent_channels=16, tiling_config=tiling)
+        frames = pipe(context, config, callback=lambda phase, z: latents.setdefault(phase, z.float()))
+        return frames, latents
+
+    _reset_counts()
+    frames_k, lat_k = run(5)
+    counts = _counts()
+    kernel_flash, kernel_conv = A.flash_attention, vae_conv.conv3d
+    A.flash_attention = lambda q, k, v, scale=None, kv_valid=None: A.flash_attention_plain(q, k, v, scale, kv_valid)
+    vae_conv.conv3d = conv3d_plain
+    try:
+        frames_p, lat_p = run(5)
+        frames_other, _ = run(6)
+    finally:
+        A.flash_attention, vae_conv.conv3d = kernel_flash, kernel_conv
+
+    def frame_diff(a, b):
+        d = np.abs(a.astype(np.int16) - b)
+        return {"mean_levels": float(d.mean()), "max_levels": int(d.max())}
+
+    rec = {"launches": counts, "frames": list(frames_k.shape),
+           "latents": {k: {x: v for x, v in _mismatch(lat_k[k], lat_p[k]).items() if x != "ref_rms"} for k in lat_k},
+           "frames_vs_plain": frame_diff(frames_k, frames_p),
+           "planted_other_seed": frame_diff(frames_other, frames_p),
+           "tol_latent_rms_rel": TOL_SMALL_LATENT_RMS_REL, "tol_mean_levels": TOL_SMALL_MEAN_LEVELS}
+    log(f"two-stage small-input check (kernels vs plain on the card): {json.dumps(rec)} | {smi}")
+    del pipe, dit, up, dec
+    torch.cuda.empty_cache()
+    # 8 + 3 steps x 2 layers x (self + cross attention); the upscaler's convs
+    # and 45 a decoder call, one call a tile.
+    tiles = len(generate_tile_specs((1, 16, 3, 4, 4), tiling))
+    want = {"fwd": 2 * 2 * (8 + 3), "dkv": 0, "dq": 0,
+            "conv": upscaler_convs(up_cfg) + conv_launches(dec_cfg) * tiles}
+    if counts != want:
+        raise AssertionError(f"small two-stage launches {counts}, expected {want}")
+    if frames_k.shape != (17, 128, 128, 3) or any(not r["finite"] for r in rec["latents"].values()):
+        raise AssertionError(f"small two-stage output {rec}")
+    if any(r["rms_rel_err"] > TOL_SMALL_LATENT_RMS_REL for r in rec["latents"].values()):
+        raise AssertionError(f"small two-stage latents disagree with the plain path: {rec['latents']}")
+    if rec["frames_vs_plain"]["mean_levels"] > TOL_SMALL_MEAN_LEVELS:
+        raise AssertionError(f"small two-stage frames disagree with the plain path: {rec['frames_vs_plain']}")
+    if rec["planted_other_seed"]["mean_levels"] <= TOL_SMALL_MEAN_LEVELS:
+        raise AssertionError(f"the small two-stage check accepts another seed's clip: {rec}")
+    return rec
+
+
+def _counters():
+    from ltx2_tpu_torch.ops import attention as A
+    from ltx2_tpu_torch.ops.conv3d import conv3d_ndhwc_kernel
+
+    return {"fwd": A.flash_attention, "dkv": A.flash_attention_bwd_dkv, "dq": A.flash_attention_bwd_dq,
+            "conv": conv3d_ndhwc_kernel}
 
 
 def _reset_counts():
-    from ltx2_tpu_torch.ops import attention as A
-
-    for c in (A.flash_attention, A.flash_attention_bwd_dkv, A.flash_attention_bwd_dq):
+    for c in _counters().values():
         c.launches = 0
 
 
 def _counts() -> dict:
-    from ltx2_tpu_torch.ops import attention as A
-
-    return {"fwd": A.flash_attention.launches, "dkv": A.flash_attention_bwd_dkv.launches,
-            "dq": A.flash_attention_bwd_dq.launches}
+    return {k: c.launches for k, c in _counters().items()}
 
 
 def _adapter_grads(model) -> dict:
@@ -452,7 +750,8 @@ def phase_train_steps(smi: str):
     # With adapters on to_q/to_k/to_v of both attentions every attention call
     # needs dq, dk and dv: each step runs 2 * LAYERS forward launches, the
     # remat recompute 2 * LAYERS more, and one dkv and one dq launch per call.
-    expected = {"fwd": TRAIN_STEPS * 4 * LAYERS, "dkv": TRAIN_STEPS * 2 * LAYERS, "dq": TRAIN_STEPS * 2 * LAYERS}
+    expected = {"fwd": TRAIN_STEPS * 4 * LAYERS, "dkv": TRAIN_STEPS * 2 * LAYERS, "dq": TRAIN_STEPS * 2 * LAYERS,
+                "conv": 0}
     if counts != expected:
         raise AssertionError(f"training launches {counts}, expected {expected}")
     # The base: the same random weights drawn again must be bit-identical.
@@ -552,7 +851,7 @@ def phase_train_gradcheck(smi: str) -> dict:
     log(f"train gradient check (2 blocks, kernels vs plain attention): {json.dumps(rec)}")
     del model
     torch.cuda.empty_cache()
-    if counts != {"fwd": 8, "dkv": 4, "dq": 4}:
+    if counts != {"fwd": 8, "dkv": 4, "dq": 4, "conv": 0}:
         raise AssertionError(f"gradient check launches {counts}")
     if not all(_accepted(per_tensor[n], TOL_GRAD_MAX_REL, TOL_GRAD_RMS_REL) for n in per_tensor):
         raise AssertionError(f"adapter gradients through the kernels disagree: {worst} {per_tensor[worst]}")
@@ -571,16 +870,15 @@ def main():
     smi = phase_device()
     phase_build()
     recs = phase_kernels()
-    serve_counts = dict.fromkeys(("fwd", "dkv", "dq"), 0)
-    _reset_counts()
-    serve_counts["fwd"] = phase_main_path(smi)
-    serve_counts.update({k: v for k, v in _counts().items() if k != "fwd"})
-    if serve_counts["dkv"] or serve_counts["dq"]:
-        raise AssertionError(f"serving launched a backward kernel: {serve_counts}")
+    conv_recs = phase_conv_kernels()
+    serve_counts = phase_main_path(smi)
 
     import torch
 
     torch.cuda.empty_cache()
+    two_stage_counts, two_stage_stats, two_stage_peak_gb = phase_two_stage(smi)
+    torch.cuda.empty_cache()
+    two_stage_small = phase_two_stage_small(smi)
     bwd = phase_bwd_kernels()
     model, train_counts = phase_train_steps(smi)
     timing = phase_train_timing(model, smi)
@@ -597,8 +895,9 @@ def main():
             "route": "cuda",
             "source": "ltx2_tpu_torch/csrc/flash_attention.cu",
             "replaces": "ltx2_tpu/ops/attention.py:188",
-            "launches": serve_counts["fwd"] + train_counts["fwd"],
-            "launches_by_path": {"serve": serve_counts["fwd"], "train": train_counts["fwd"]},
+            "launches": serve_counts["fwd"] + two_stage_counts["fwd"] + train_counts["fwd"],
+            "launches_by_path": {"serve": serve_counts["fwd"], "serve_two_stage": two_stage_counts["fwd"],
+                                 "train": train_counts["fwd"]},
             "max_abs_err": max(max(r["max_abs_err"] for r in recs),
                                max(r["max_abs_err_fwd_residuals"] for r in bwd)),
             "ms": self_rec["ms"],
@@ -628,7 +927,26 @@ def main():
             "ms": self_bwd["dq_ms"], "bound_ms": self_bwd["dq_bound_ms"], "bound_by": self_bwd["dq_bound_by"],
             **common,
         },
-    ], "train": {"timing": timing, "gradcheck": gradcheck}}
+        {
+            "name": "conv3d_implicit_gemm",
+            "route": "cuda",
+            "source": "ltx2_tpu_torch/csrc/conv3d.cu",
+            "replaces": "scripts/bench_conv_pallas.py:116 (conv3d_pallas, pallas_call :140); "
+                        "scripts/bench_conv_pallas.py:223 (conv3d_pallas_v2, pallas_call :247); "
+                        "scripts/bench_conv_pallas.py:357 (conv3d_pallas_v3, pallas_call :378)",
+            "launches": serve_counts["conv"] + two_stage_counts["conv"],
+            "launches_by_path": {"serve": serve_counts["conv"], "serve_two_stage": two_stage_counts["conv"]},
+            "max_abs_err": max(r["max_abs_err"] for r in conv_recs),
+            "ms": conv_recs[0]["ms"],
+            "plain_ms": conv_recs[0]["plain_ms"],
+            "bound_ms": conv_recs[0]["bound_ms"],
+            "bound_by": conv_recs[0]["bound_by"],
+            "library_ms": conv_recs[0]["library_ms"],
+            "cases": conv_recs,
+        },
+    ], "train": {"timing": timing, "gradcheck": gradcheck},
+        "two_stage": {"requests": two_stage_stats, "peak_memory_gb": two_stage_peak_gb,
+                      "small_input_check": two_stage_small}}
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

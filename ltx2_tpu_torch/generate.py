@@ -1,16 +1,29 @@
 """Distilled text-to-video generation, video only, on one GPU.
 
-The same steps as the JAX package's `scripts/bench_e2e.py` (and the second
-stage of `generate.py --pipeline distilled`): Gaussian noise -> 8-sigma
-distilled Euler loop with CFGGuider(1.0) and uniform timesteps over the
-video DiT -> un-patchify -> VAE decode in temporal chunks -> uint8 frames.
+Two flows, chosen with `--pipeline`:
+
+- `bench-e2e` (the default; `generate_videos`): the steps of the JAX
+  package's `scripts/bench_e2e.py`: Gaussian noise -> 8-sigma distilled
+  Euler loop with CFGGuider(1.0) and uniform timesteps over the video DiT at
+  full resolution -> un-patchify -> VAE decode in temporal chunks -> uint8
+  frames.
+- `distilled` (`generate_videos_distilled`): the two-stage recipe of the
+  JAX package's `scripts/generate.py --pipeline distilled`
+  (pipelines/distilled.py): stage 1 at half resolution with the 8 distilled
+  sigmas -> 2x spatial upscaler -> stage 2 at full resolution on the 3-sigma
+  tail -> tiled VAE decode.
+
 Weights are random, drawn on the device from a seed; the text context is
 the dummy embedding of `generate.py --no-gemma` (normal * 0.02, 1024 x 4096).
+Every attention call runs the flash kernel and every VAE and upscaler conv
+the implicit-GEMM conv kernel.
 
-From Python: `generate_video(seed=0)` or `generate_videos([0, 1, ...])`.
-From the shell (N clips in one process, seeds seed..seed+N-1):
+From Python: `generate_video(seed=0)`, `generate_videos([0, 1, ...])` or
+`generate_videos_distilled([0, 1, ...])`. From the shell (N clips in one
+process, seeds seed..seed+N-1):
 
     python -m ltx2_tpu_torch.generate --requests 2
+    python -m ltx2_tpu_torch.generate --pipeline distilled --requests 2
 """
 
 from __future__ import annotations
@@ -32,10 +45,17 @@ from ltx2_tpu_torch.components.schedulers import DISTILLED_SIGMA_VALUES
 from ltx2_tpu_torch.conditioning.tools import VideoLatentTools
 from ltx2_tpu_torch.core import resolve_device
 from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelConfig, init_ltx_model_
+from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscaler, SpatialUpscalerConfig, init_spatial_upscaler_
 from ltx2_tpu_torch.models.video_vae.chunking import decode_latent
-from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoder, VideoDecoderConfig, init_video_decoder_
+from ltx2_tpu_torch.models.video_vae.decoder import (
+    PerChannelStatistics, VideoDecoder, VideoDecoderConfig, init_video_decoder_,
+)
+from ltx2_tpu_torch.models.video_vae.tiling import generate_tile_specs
 from ltx2_tpu_torch.ops.attention import flash_attention
+from ltx2_tpu_torch.ops.conv3d import conv3d_ndhwc_kernel
+from ltx2_tpu_torch.pipelines.common import decode_video
 from ltx2_tpu_torch.pipelines.denoise import DenoiseLoopConfig, make_video_denoise_loop
+from ltx2_tpu_torch.pipelines.distilled import DistilledConfig, DistilledPipeline, stage_seeds
 from ltx2_tpu_torch.types import LatentState, VideoLatentShape, VideoPixelShape
 
 CONTEXT_TOKENS = 1024
@@ -46,6 +66,21 @@ TEMPORAL_CHUNK = 7  # latent frames per decode chunk, the JAX bench's setting
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _timed(device: torch.device, make):
+    """(make(), the seconds it took, synchronised)."""
+    t0 = time.perf_counter()
+    out = make()
+    _sync(device)
+    return out, time.perf_counter() - t0
+
+
+def _free(device: torch.device) -> None:
+    """Return released modules' device memory to the allocator's pool."""
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def make_dit(layers: int, device: torch.device, seed: int = 0, base: LTXModelConfig = LTXModelConfig()) -> LTXModel:
@@ -59,6 +94,13 @@ def make_decoder(compute_dtype: str, device: torch.device) -> VideoDecoder:
     """The full-width video decoder, random weights from seed 1."""
     decoder = VideoDecoder(VideoDecoderConfig(compute_dtype=compute_dtype), device=device)
     return init_video_decoder_(decoder, torch.Generator(device=device).manual_seed(1))
+
+
+def make_upscaler(device: torch.device) -> SpatialUpscaler:
+    """The full-width spatial upscaler (mid 1024), fp32 as in the JAX
+    package, random weights from seed 2."""
+    upscaler = SpatialUpscaler(SpatialUpscalerConfig(), device=device)
+    return init_spatial_upscaler_(upscaler, torch.Generator(device=device).manual_seed(2))
 
 
 def make_latent_tools(cfg: LTXModelConfig, height: int, width: int, frames: int) -> VideoLatentTools:
@@ -92,9 +134,14 @@ def make_request(
     `seed` unless given (context first, then noise)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     if context is None:
-        context = torch.randn(1, CONTEXT_TOKENS, cfg.cross_attention_dim, generator=gen, device=device) * 0.02
+        context = dummy_context(cfg, gen, device)
     state = GaussianNoiser()(gen, tools.create_initial_state(dtype=cfg.dtype, device=device), 1.0, noise=noise)
     return state, context
+
+
+def dummy_context(cfg: LTXModelConfig, generator: torch.Generator, device: torch.device) -> torch.Tensor:
+    """The `--no-gemma` text context: normal * 0.02, (1, 1024, context dim)."""
+    return torch.randn(1, CONTEXT_TOKENS, cfg.cross_attention_dim, generator=generator, device=device) * 0.02
 
 
 def generate_videos(
@@ -127,10 +174,7 @@ def generate_videos(
 
     stats = [{"seed": seed, "dit_init_s": 0.0, "decoder_init_s": 0.0} for seed in seeds]
     if dit is None:
-        t0 = time.perf_counter()
-        dit = make_dit(layers, device)
-        _sync(device)
-        stats[0]["dit_init_s"] = time.perf_counter() - t0
+        dit, stats[0]["dit_init_s"] = _timed(device, lambda: make_dit(layers, device))
     cfg = dit.cfg
     tools = make_latent_tools(cfg, height, width, frames)
     loop = make_distilled_loop(cfg)
@@ -154,21 +198,18 @@ def generate_videos(
         latents.append(latent)
 
     del dit, loop
-    gc.collect()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
+    _free(device)
 
     if decoder is None:
-        t0 = time.perf_counter()
-        decoder = make_decoder(cfg.compute_dtype, device)
-        _sync(device)
-        stats[0]["decoder_init_s"] = time.perf_counter() - t0
+        decoder, stats[0]["decoder_init_s"] = _timed(device, lambda: make_decoder(cfg.compute_dtype, device))
 
     videos = []
     for latent, st in zip(latents, stats):
+        convs = conv3d_ndhwc_kernel.launches
         t0 = time.perf_counter()
         videos.append(decode_chunked(latent, decoder, st["seed"]))
         st["decode_s"] = time.perf_counter() - t0  # decode_latent returns host frames: synchronised
+        st["conv_launches"] = conv3d_ndhwc_kernel.launches - convs
     return videos, stats
 
 
@@ -181,6 +222,94 @@ def decode_chunked(latent: torch.Tensor, decoder: VideoDecoder, seed: int) -> np
     )
 
 
+def generate_videos_distilled(
+    seeds: Sequence[int],
+    *,
+    height: int = 512,
+    width: int = 768,
+    frames: int = 121,
+    layers: int = 48,
+    device=None,
+    dit: Optional[LTXModel] = None,
+    upscaler: Optional[SpatialUpscaler] = None,
+    decoder: Optional[VideoDecoder] = None,
+    contexts: Optional[Sequence[torch.Tensor]] = None,
+    noises: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+) -> Tuple[List[np.ndarray], List[dict]]:
+    """The two-stage distilled recipe, one clip per seed; returns (uint8
+    (frames, height, width, 3) arrays, per-request stats).
+
+    The DiT and the upscaler serve both stages of every request; then they
+    are released and the decoder decodes each clip (tiled above 4000 latent
+    voxels, as `DistilledConfig.effective_tiling` decides), so the decoder
+    never shares device memory with them. `dit`, `upscaler`, `decoder`, `contexts` and `noises` (each
+    request's (stage-1, stage-2) noise) replace the random weights, the
+    dummy text context and the noise drawn from the request's seed. Random
+    weights come from seeds 0 (DiT), 2 (upscaler) and 1 (decoder); the
+    upscale bracket uses `decoder`'s statistics, or the defaults (0, 1) that
+    a random decoder holds. Stats per request: seconds of stage 1, upscale,
+    stage 2 and decode, attention launches, conv launches of the upscale and
+    the decode, decode tiles, and the latents' finiteness after each stage.
+    """
+    device = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stats = [{"seed": seed, "dit_init_s": 0.0, "upscaler_init_s": 0.0, "decoder_init_s": 0.0} for seed in seeds]
+    if dit is None:
+        dit, stats[0]["dit_init_s"] = _timed(device, lambda: make_dit(layers, device))
+    if upscaler is None:
+        upscaler, stats[0]["upscaler_init_s"] = _timed(device, lambda: make_upscaler(device))
+    cfg = dit.cfg
+    statistics = (decoder.per_channel_statistics if decoder is not None
+                  else PerChannelStatistics(cfg.in_channels, device=device))
+    pipe = DistilledPipeline(dit, upscaler, statistics=statistics)
+
+    configs, latents = [], []
+    for i, (seed, st) in enumerate(zip(seeds, stats)):
+        config = DistilledConfig(height=height, width=width, num_frames=frames, seed=seed, dtype=cfg.compute_dtype,
+                                 latent_channels=cfg.in_channels)
+        context = contexts[i] if contexts is not None else dummy_context(
+            cfg, torch.Generator(device=device).manual_seed(seed), device)
+        _sync(device)
+        marks = {"t": time.perf_counter(), "attention": flash_attention.launches,
+                 "conv": conv3d_ndhwc_kernel.launches}
+
+        def on_phase(phase: str, latent: torch.Tensor, st=st, marks=marks) -> None:
+            """Times the phase that just ended and checks its latent."""
+            _sync(device)
+            now = time.perf_counter()
+            st[f"{phase}_s"] = now - marks["t"]
+            marks["t"] = now
+            if phase == "upscale":
+                st["upscale_conv_launches"] = conv3d_ndhwc_kernel.launches - marks["conv"]
+            else:
+                st[f"{phase}_latent_finite"] = bool(torch.isfinite(latent.float()).all())
+
+        latent = pipe(context, config, callback=on_phase, skip_decode=True,
+                      noises=None if noises is None else noises[i])
+        st["attention_launches"] = flash_attention.launches - marks["attention"]
+        st["latent_std"] = float(latent.float().std())
+        configs.append(config)
+        latents.append(latent)
+
+    del dit, upscaler, pipe
+    _free(device)
+
+    if decoder is None:
+        decoder, stats[0]["decoder_init_s"] = _timed(device, lambda: make_decoder(cfg.compute_dtype, device))
+
+    videos = []
+    for latent, config, st in zip(latents, configs, stats):
+        tiling_used = config.effective_tiling()
+        st["decode_tiles"] = len(generate_tile_specs(tuple(latent.shape), tiling_used)) if tiling_used else 0
+        convs = conv3d_ndhwc_kernel.launches
+        t0 = time.perf_counter()
+        videos.append(decode_video(latent, decoder, tiling_used, stage_seeds(config.seed)[2]))
+        st["decode_s"] = time.perf_counter() - t0  # host frames: synchronised
+        st["decode_conv_launches"] = conv3d_ndhwc_kernel.launches - convs
+    return videos, stats
+
+
 def generate_video(seed: int = 0, **kwargs) -> np.ndarray:
     """One clip: uint8 (frames, height, width, 3). See generate_videos."""
     videos, _ = generate_videos([seed], **kwargs)
@@ -189,19 +318,24 @@ def generate_video(seed: int = 0, **kwargs) -> np.ndarray:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--pipeline", choices=("bench-e2e", "distilled"), default="bench-e2e",
+                    help="bench-e2e: one stage at full resolution, chunked decode; distilled: the two-stage "
+                         "recipe (half-resolution stage 1, 2x upscaler, 3-sigma stage 2, tiled decode)")
     ap.add_argument("--height", type=int, default=512)
     ap.add_argument("--width", type=int, default=768)
     ap.add_argument("--frames", type=int, default=121)
-    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=8, help="bench-e2e only: distilled steps")
     ap.add_argument("--layers", type=int, default=48)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--requests", type=int, default=1, help="clips to generate, seeds seed..seed+N-1")
     args = ap.parse_args(argv)
-    videos, stats = generate_videos(
-        [args.seed + i for i in range(args.requests)], height=args.height, width=args.width,
-        frames=args.frames, steps=args.steps, layers=args.layers, device=args.device,
-    )
+    seeds = [args.seed + i for i in range(args.requests)]
+    common = dict(height=args.height, width=args.width, frames=args.frames, layers=args.layers, device=args.device)
+    if args.pipeline == "distilled":
+        videos, stats = generate_videos_distilled(seeds, **common)
+    else:
+        videos, stats = generate_videos(seeds, steps=args.steps, **common)
     for video, st in zip(videos, stats):
         print(json.dumps({**st, "frames": list(video.shape), "dtype": str(video.dtype)}))
 

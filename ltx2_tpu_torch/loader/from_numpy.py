@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelConfig
+from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscaler, SpatialUpscalerConfig
 from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoder, VideoDecoderConfig
 from ltx2_tpu_torch.training.lora import attach_lora_
 
@@ -95,3 +96,12 @@ def video_decoder_from_numpy(tree: Mapping, cfg: VideoDecoderConfig, device=None
     decoder = VideoDecoder(cfg, device=device)
     _load(decoder, flatten_tree(tree))
     return decoder
+
+
+def spatial_upscaler_from_numpy(tree: Mapping, cfg: SpatialUpscalerConfig, device=None) -> SpatialUpscaler:
+    """A spatial-upscaler parameter tree (`initial_conv`, `initial_norm`,
+    `res_blocks.{i}`, `upsampler.conv` with its per-frame 4D weight,
+    `post_upsample_res_blocks.{i}`, `final_conv`) -> fp32 SpatialUpscaler."""
+    upscaler = SpatialUpscaler(cfg, device=device)
+    _load(upscaler, flatten_tree(tree))
+    return upscaler

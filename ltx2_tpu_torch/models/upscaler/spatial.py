@@ -1,0 +1,146 @@
+"""2x spatial latent upscaler (counterpart of
+ltx2_tpu/models/upscaler/spatial.py).
+
+conv3d 128 -> 1024 -> GroupNorm(32) over (C/g, T, H, W) -> SiLU -> 4 res
+blocks -> rational resampler (per-frame 3 x 3 conv 1024 -> 4096 -> 2x pixel
+shuffle; the stride-1 blur is the identity) -> 4 res blocks -> conv3d ->
+128. Applied to un-normalized latents. Channels-last inside; every conv has
+zero padding in space and time and runs through `ops/conv3d.py` (the
+hand-written kernel on a CUDA tensor), the resampler's with a temporal
+extent of 1. The JAX package runs it in fp32 (its weights load as fp32 and
+the un-normalized latent is fp32), and so does the port.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ltx2_tpu_torch.models.video_vae.conv import Conv3d, conv3d_ndhwc, from_ndhwc, to_ndhwc
+
+
+@dataclass(frozen=True)
+class SpatialUpscalerConfig:
+    in_channels: int = 128
+    mid_channels: int = 1024
+    num_blocks_per_stage: int = 4
+    num_groups: int = 32
+    scale: int = 2
+
+
+class _Norm(nn.Module):
+    def __init__(self, channels: int, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels, device=device, dtype=dtype), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(channels, device=device, dtype=dtype), requires_grad=False)
+
+
+class _ResBlock(nn.Module):
+    def __init__(self, channels: int, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self.conv1 = Conv3d(channels, channels, device=device, dtype=dtype)
+        self.norm1 = _Norm(channels, device=device, dtype=dtype)
+        self.conv2 = Conv3d(channels, channels, device=device, dtype=dtype)
+        self.norm2 = _Norm(channels, device=device, dtype=dtype)
+
+
+class _Resampler(nn.Module):
+    def __init__(self, channels: int, scale: int, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self.conv = Conv3d(channels, scale * scale * channels, per_frame=True, device=device, dtype=dtype)
+
+
+class SpatialUpscaler(nn.Module):
+    """Upscaler parameters, named as in the checkpoint and the JAX tree."""
+
+    def __init__(self, cfg: SpatialUpscalerConfig, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        mid = cfg.mid_channels
+        self.initial_conv = Conv3d(cfg.in_channels, mid, device=device, dtype=dtype)
+        self.initial_norm = _Norm(mid, device=device, dtype=dtype)
+        self.res_blocks = nn.ModuleList(
+            _ResBlock(mid, device=device, dtype=dtype) for _ in range(cfg.num_blocks_per_stage))
+        self.upsampler = _Resampler(mid, cfg.scale, device=device, dtype=dtype)
+        self.post_upsample_res_blocks = nn.ModuleList(
+            _ResBlock(mid, device=device, dtype=dtype) for _ in range(cfg.num_blocks_per_stage))
+        self.final_conv = Conv3d(mid, cfg.in_channels, device=device, dtype=dtype)
+
+
+@torch.no_grad()
+def init_spatial_upscaler_(upscaler: SpatialUpscaler, generator: torch.Generator) -> SpatialUpscaler:
+    """Random weights in place with ltx2_tpu's init_spatial_upscaler
+    distributions: every conv U(+-1/sqrt(inC * taps)), norms ones and zeros."""
+    for m in upscaler.modules():
+        if isinstance(m, Conv3d):
+            bound = 1.0 / math.sqrt(m.weight[0].numel())
+            m.weight.uniform_(-bound, bound, generator=generator)
+            m.bias.uniform_(-bound, bound, generator=generator)
+        elif isinstance(m, _Norm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+    return upscaler
+
+
+def group_norm_video(x: torch.Tensor, num_groups: int, weight: torch.Tensor, bias: torch.Tensor,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over (C/g, T, H, W) of channels-last (B, T, H, W, C), fp32
+    statistics (biased variance), x's dtype out."""
+    b, t, h, w, c = x.shape
+    xf = x.float().reshape(b, t, h, w, num_groups, c // num_groups)
+    var, mean = torch.var_mean(xf, dim=(1, 2, 3, 5), keepdim=True, correction=0)
+    xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, t, h, w, c)
+    return (xf * weight.float() + bias.float()).to(x.dtype)
+
+
+def _conv(p: Conv3d, x: torch.Tensor) -> torch.Tensor:
+    return conv3d_ndhwc(p, x, causal=False, spatial_mode="zeros", temporal_mode="zeros")
+
+
+def _res_block(p: _ResBlock, x: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """conv -> norm -> SiLU -> conv -> norm -> SiLU(x + residual)."""
+    h = group_norm_video(_conv(p.conv1, x), num_groups, p.norm1.weight, p.norm1.bias)
+    h = F.silu(h.float()).to(x.dtype)
+    h = group_norm_video(_conv(p.conv2, h), num_groups, p.norm2.weight, p.norm2.bias)
+    return F.silu((h + x).float()).to(x.dtype)
+
+
+def _pixel_shuffle_2d(x: torch.Tensor, r: int) -> torch.Tensor:
+    """(N, H, W, C*r*r) -> (N, H*r, W*r, C), channel packing (C, r_h, r_w)."""
+    n, h, w, c = x.shape
+    c_out = c // (r * r)
+    x = x.reshape(n, h, w, c_out, r, r).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(n, h * r, w * r, c_out)
+
+
+def _rational_resampler(p: _Resampler, x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Per-frame 3 x 3 conv (a conv with temporal extent 1) -> pixel shuffle."""
+    b, t = x.shape[:2]
+    y = _conv(p.conv, x)
+    y = _pixel_shuffle_2d(y.reshape(b * t, *y.shape[2:]), scale)
+    return y.reshape(b, t, *y.shape[1:])
+
+
+def spatial_upscaler_apply(upscaler: SpatialUpscaler, latent: torch.Tensor) -> torch.Tensor:
+    """(B, 128, F, H, W) un-normalized latent -> (B, 128, F, 2H, 2W), in
+    the latent's dtype."""
+    cfg = upscaler.cfg
+    x = _conv(upscaler.initial_conv, to_ndhwc(latent))
+    x = group_norm_video(x, cfg.num_groups, upscaler.initial_norm.weight, upscaler.initial_norm.bias)
+    x = F.silu(x.float()).to(latent.dtype)
+    for block in upscaler.res_blocks:
+        x = _res_block(block, x, cfg.num_groups)
+    x = _rational_resampler(upscaler.upsampler, x, cfg.scale)
+    for block in upscaler.post_upsample_res_blocks:
+        x = _res_block(block, x, cfg.num_groups)
+    return from_ndhwc(_conv(upscaler.final_conv, x))
+
+
+def conv_launches(cfg: SpatialUpscalerConfig) -> int:
+    """Conv launches of one spatial_upscaler_apply: initial and final convs,
+    two per res block, the resampler."""
+    return 2 + 2 * 2 * cfg.num_blocks_per_stage + 1

@@ -60,17 +60,15 @@ def decode_latent(
         return video_decoder_apply(decoder, chunk, timestep=timestep, noise=noise, causal=causal)
 
     t_latent = latent.shape[2]
-    if temporal_chunk_size <= 0 or t_latent <= temporal_chunk_size:
+    chunks = temporal_chunks(t_latent, temporal_chunk_size, temporal_overlap)
+    if len(chunks) == 1:
         video = decode(latent)
     else:
         n_up = decoder.cfg.num_temporal_upsamples
         total_pixel_frames = latent_t_to_pixel_t(t_latent, n_up)
         overlap_pixel_ref = latent_t_to_pixel_t(temporal_overlap, n_up)
-        stride = temporal_chunk_size - temporal_overlap
         video = None
-        t = 0
-        while True:
-            end = min(t + temporal_chunk_size, t_latent)
+        for t, end in chunks:
             cur = decode(latent[:, :, t:end])
             if video is None:
                 video = cur
@@ -82,8 +80,20 @@ def decode_latent(
                     ramp = torch.linspace(0.0, 1.0, overlap, device=cur.device).view(1, 1, -1, 1, 1)
                     blended = video[:, :, -overlap:] * (1.0 - ramp) + cur[:, :, :overlap] * ramp
                     video = torch.cat([video[:, :, :-overlap], blended, cur[:, :, overlap:]], dim=2)
-            if end >= t_latent:
-                break
-            t += stride
         video = video[:, :, :total_pixel_frames]
     return _to_uint8_frames(video).cpu().numpy()
+
+
+def temporal_chunks(t_latent: int, temporal_chunk_size: int = 0, temporal_overlap: int = 2):
+    """The (start, end) latent-frame ranges decode_latent decodes: one pass
+    when temporal_chunk_size is 0 or covers the clip, else overlapping
+    chunks at a stride of temporal_chunk_size - temporal_overlap."""
+    if temporal_chunk_size <= 0 or t_latent <= temporal_chunk_size:
+        return [(0, t_latent)]
+    chunks, t = [], 0
+    while True:
+        end = min(t + temporal_chunk_size, t_latent)
+        chunks.append((t, end))
+        if end >= t_latent:
+            return chunks
+        t += temporal_chunk_size - temporal_overlap

@@ -112,7 +112,10 @@ class _Upsample(nn.Module):
         self.conv = Conv3d(in_channels, out_channels, device=device, dtype=dtype)
 
 
-class _Statistics(nn.Module):
+class PerChannelStatistics(nn.Module):
+    """The latent's per-channel mean_of_means and std_of_means (defaults 0
+    and 1, the values of a decoder with random weights)."""
+
     def __init__(self, channels: int, *, device=None):
         super().__init__()
         self.register_buffer("mean_of_means", torch.zeros(channels, device=device))
@@ -127,7 +130,7 @@ class VideoDecoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         dtype = cfg.dtype
-        self.per_channel_statistics = _Statistics(cfg.latent_channels, device=device)
+        self.per_channel_statistics = PerChannelStatistics(cfg.latent_channels, device=device)
         self.conv_in = Conv3d(cfg.latent_channels, cfg.base_channels * 8, device=device, dtype=dtype)
         blocks = []
         for kind, spec, channels in cfg.plan():
@@ -158,6 +161,12 @@ def init_video_decoder_(decoder: VideoDecoder, generator: torch.Generator) -> Vi
         elif isinstance(m, Linear):
             init_linear_(m, generator)
     return decoder
+
+
+def conv_launches(cfg: VideoDecoderConfig) -> int:
+    """Conv launches of one video_decoder_apply: conv_in, two per res block,
+    one per upsampler, conv_out."""
+    return 2 + sum(2 * spec[0] if kind == "res" else 1 for kind, spec, _ in cfg.plan())
 
 
 def decoder_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int = 256) -> torch.Tensor:

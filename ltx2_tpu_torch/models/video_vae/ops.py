@@ -1,4 +1,5 @@
-"""Video VAE tensor ops (counterpart of ltx2_tpu/models/video_vae/ops.py).
+"""Video VAE tensor ops (counterpart of ltx2_tpu/models/video_vae/ops.py):
+un-patchify, pixel norm, and the per-channel latent (un-)normalization.
 
 The channel packing order (c, p, r_w, r_h) of the 5D un-patchify matches the
 checkpoint's einops pattern and is parity-critical."""
@@ -24,3 +25,15 @@ def unpatchify(x: torch.Tensor, patch_size_hw: int, patch_size_t: int = 1) -> to
 def pixel_norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-6) -> torch.Tensor:
     """RMS norm across the (channels-last) channel axis, fp32 math."""
     return common.pixel_norm(x, dim, eps)
+
+
+def normalize_latent(x: torch.Tensor, stats) -> torch.Tensor:
+    """(x - mean_of_means) / std_of_means over the channels of a
+    (B, C, F, H, W) latent; `stats` holds the two (C,) vectors (the
+    decoder's `per_channel_statistics`). fp32 statistics promote x."""
+    return (x - stats.mean_of_means.view(1, -1, 1, 1, 1)) / stats.std_of_means.view(1, -1, 1, 1, 1)
+
+
+def un_normalize_latent(x: torch.Tensor, stats) -> torch.Tensor:
+    """The inverse: x * std_of_means + mean_of_means."""
+    return x * stats.std_of_means.view(1, -1, 1, 1, 1) + stats.mean_of_means.view(1, -1, 1, 1, 1)

@@ -17,35 +17,20 @@ CUDA tensor the kernels cannot take raises.
 Function whose forward saves (q, k, v, o, l, m) and whose backward launches
 the two backward kernels; without a gradient to compute it launches the
 forward alone, without residuals. Each kernel is built from the repository's
-source with nvcc into `ltx2_tpu_torch/_build/` on first use (the sources
-are compiled concurrently) and loaded with ctypes. Each wrapper counts its
+source with nvcc into `ltx2_tpu_torch/_build/` on first use and loaded with
+ctypes (`ops/_build.py`, shared with the conv kernel). Each wrapper counts its
 launches in its `launches` attribute.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import time
-from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-_CSRC = _PKG / "csrc"
-KERNEL_SOURCES = {
-    "fwd": _CSRC / "flash_attention.cu",
-    "bwd": _CSRC / "flash_attention_bwd.cu",
-}
-_HEADERS = (_CSRC / "flash_common.cuh",)
-BUILD_DIR = _PKG / "_build"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from ltx2_tpu_torch.ops._build import kernel
+
 _HEAD_DIMS = (64, 128)
 
 # Additive masks are binary: 0 = attend, <= -1e30 = masked (the models write
@@ -53,78 +38,7 @@ _HEAD_DIMS = (64, 128)
 # exactly as the JAX package binarizes it into flash segment ids.
 _MASK_VALID_THRESHOLD = -1e30
 
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-_ARGTYPES = {
-    # q, k, v, o, kv_valid, l, m; batch, heads, t_q, t_k, head_dim; 13 strides; scale, stream
-    "ltx_flash_attention_fwd": [_P] * 7 + [_I] * 5 + [_I64] * 13 + [ctypes.c_float, _P],
-    # q, k, v, dO, dQ, dK, dV, l, m, Di, kv_valid; batch, heads, t_q, t_k, head_dim;
-    # 22 strides; scale, stream
-    "ltx_flash_attention_bwd_dkv": [_P] * 11 + [_I] * 5 + [ctypes.POINTER(_I64), ctypes.c_float, _P],
-    "ltx_flash_attention_bwd_dq": [_P] * 11 + [_I] * 5 + [ctypes.POINTER(_I64), ctypes.c_float, _P],
-}
-_LIB_OF = {"ltx_flash_attention_fwd": "fwd", "ltx_flash_attention_bwd_dkv": "bwd",
-           "ltx_flash_attention_bwd_dq": "bwd"}
-_libs: Dict[str, ctypes.CDLL] = {}
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME): nvcc is needed to build the kernels")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def _library_path(name: str) -> Path:
-    digest = hashlib.sha256(
-        b"".join(f.read_bytes() for f in (KERNEL_SOURCES[name], *_HEADERS))
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"libltx_flash_{name}_{digest}.so"
-
-
-def build_kernels() -> Dict[str, dict]:
-    """Compile every source in KERNEL_SOURCES for sm_90a into its own shared
-    library, one nvcc per source, all started together, unless a library
-    built from the same sources exists. Returns {name: {"path", "seconds",
-    "log"}}; raises with the compiler's output if any nvcc fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    info, running = {}, {}
-    for name, src in KERNEL_SOURCES.items():
-        out = _library_path(name)
-        if out.exists():
-            info[name] = {"path": out, "seconds": 0.0, "log": ""}
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen(
-            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        running[name] = (proc, tmp, out, time.perf_counter())
-    failed = []
-    for name, (proc, tmp, out, t0) in running.items():
-        log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}) building {KERNEL_SOURCES[name].name}:\n{log}")
-            continue
-        os.replace(tmp, out)
-        info[name] = {"path": out, "seconds": seconds, "log": log}
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return info
-
-
-def _kernel(fn_name: str):
-    """The C entry `fn_name`, building and loading its library on first use."""
-    name = _LIB_OF[fn_name]
-    if name not in _libs:
-        lib = ctypes.CDLL(str(build_kernels()[name]["path"]))
-        for fn, lib_name in _LIB_OF.items():
-            if lib_name == name:
-                getattr(lib, fn).argtypes = _ARGTYPES[fn]
-                getattr(lib, fn).restype = ctypes.c_int
-        _libs[name] = lib
-    return getattr(_libs[name], fn_name)
+_I64 = ctypes.c_int64
 
 
 def _accum_dtype(x: torch.Tensor) -> torch.dtype:
@@ -274,7 +188,7 @@ def _stream(device: torch.device) -> int:
 def _launch_fwd(q, k, v, scale, kv_valid, residuals: bool):
     kv_sb = _check_shapes(q, k, v, kv_valid)
     b, h, t_q, d = q.shape
-    fn = _kernel("ltx_flash_attention_fwd")
+    fn = kernel("ltx_flash_attention_fwd")
     out = _token_major(b, h, t_q, d, q.device)
     l = m = None
     if residuals:
@@ -330,7 +244,7 @@ def _launch_bwd(fn_name, q, k, v, do, l, m, di, scale, kv_valid, dq, dk, dv) -> 
     b, h, t_q, d = q.shape
     strides = (_I64 * 22)(*_bth(q), *_bth(k), *_bth(v), *_bth(do), *_bth(dq), *_bth(dk), *_bth(dv), kv_sb)
     with torch.cuda.device(q.device):
-        err = _kernel(fn_name)(
+        err = kernel(fn_name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), _ptr(dq), _ptr(dk), _ptr(dv),
             l.data_ptr(), m.data_ptr(), di.data_ptr(), _ptr(kv_valid),
             b, h, t_q, k.shape[2], d, strides, float(scale), _stream(q.device),

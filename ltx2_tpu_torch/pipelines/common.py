@@ -1,10 +1,18 @@
-"""Shared pipeline utilities (counterpart of ltx2_tpu/pipelines/common.py)."""
+"""Shared pipeline utilities (counterpart of ltx2_tpu/pipelines/common.py),
+and the video decode the pipelines share (`decode_video`, the counterpart of
+`OneStagePipeline._decode_video` in ltx2_tpu/pipelines/one_stage.py)."""
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
 from ltx2_tpu_torch.models.transformer.model import Modality
+from ltx2_tpu_torch.models.video_vae.chunking import _to_uint8_frames, decode_latent
+from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoder, video_decoder_apply
+from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, decode_tiled
 from ltx2_tpu_torch.types import LatentState
 
 
@@ -47,3 +55,23 @@ def modality_from_state(
         sigma=sigma_arr,
         token_mask=token_mask,
     )
+
+
+@torch.no_grad()
+def decode_video(latent: torch.Tensor, decoder: VideoDecoder, tiling: Optional[TilingConfig],
+                 seed: int) -> np.ndarray:
+    """One clip's (1, C, T, H, W) latent -> uint8 (T', H', W', 3) frames on
+    the host: a tiled decode when `tiling` is set, else one pass of
+    `decode_latent`, as the JAX package's `_decode_video` chooses (meshes
+    aside). Decode noise comes from `seed`; in a tiled decode every tile
+    draws it from the same seed, as the JAX package hands every tile the
+    same key."""
+    if tiling is None:
+        return decode_latent(latent, decoder, generator=torch.Generator(device=latent.device).manual_seed(seed))
+
+    def decode_tile(tile: torch.Tensor, timestep: Optional[float] = 0.05) -> torch.Tensor:
+        gen = torch.Generator(device=tile.device).manual_seed(seed)
+        noise = torch.randn(tile.shape, generator=gen, dtype=torch.float32, device=tile.device)
+        return video_decoder_apply(decoder, tile, timestep=timestep, noise=noise)
+
+    return _to_uint8_frames(decode_tiled(latent, decode_tile, tiling)).cpu().numpy()

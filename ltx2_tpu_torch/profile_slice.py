@@ -6,16 +6,19 @@ goes on one GPU.
 
 Traces, with torch.profiler, one step of the entry's denoise loop (the DiT
 forward, modality rebuild and fp32 Euler step at 512x768x121f = 6144 tokens,
-plus the loop's once-per-clip RoPE tables; random weights, bf16) and the
-entry's decode of one 7-latent-frame chunk to uint8 frames, each after a
+plus the loop's once-per-clip RoPE tables; random weights, bf16), the
+bench-e2e decode of one 7-latent-frame chunk to uint8 frames, the
+two-stage recipe's decode of one default tile (8 x 16 x 16 latent voxels)
+and its fp32 spatial-upscaler call on the stage-1 latent, each after a
 warm-up run. The model, inputs and decode come from generate.py's own
 helpers. With --train it traces instead one rank-16 LoRA train step of the
 full-width DiT at scripts/bench_train.py's shape (6144 tokens, 1024 text
 tokens: forward, remat recompute, backward and AdamW), after a warm-up step,
 built by train.py's own helpers. Prints one JSON line per phase: device time
-by kernel class (the flash-attention forward and backward kernels, matrix
-products, convolutions, the rest), the top kernels, the host wall time of
-the traced run and the device's busy share of it. Needs a CUDA card.
+by kernel class (the flash-attention forward and backward kernels, the
+implicit-GEMM conv kernel, matrix products, library convolutions, the
+rest), the top kernels, the host wall time of the traced run and the
+device's busy share of it. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -30,7 +33,11 @@ from ltx2_tpu_torch import train
 from ltx2_tpu_torch.core import resolve_device
 from ltx2_tpu_torch.generate import (
     decode_chunked, distilled_sigmas, make_decoder, make_dit, make_distilled_loop, make_latent_tools, make_request,
+    make_upscaler,
 )
+from ltx2_tpu_torch.models.upscaler.spatial import spatial_upscaler_apply
+from ltx2_tpu_torch.models.video_vae.decoder import video_decoder_apply
+from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, generate_tile_specs
 
 
 def _kernel_class(name: str) -> str:
@@ -41,6 +48,8 @@ def _kernel_class(name: str) -> str:
         return "flash_attention_bwd_dkv"
     if "flash_bwd_dq_kernel" in n:
         return "flash_attention_bwd_dq"
+    if "conv3d_bf16_kernel" in n or "conv3d_f32_kernel" in n:
+        return "conv3d_implicit_gemm"
     if "fprop" in n or "conv" in n or "dgrad" in n or "implicit" in n:
         return "convolution"
     if "gemm" in n or "nvjet" in n or "cutlass" in n or "xmma" in n or "matmul" in n:
@@ -107,6 +116,26 @@ def _serving(layers: int, device: torch.device, card: str) -> None:
     chunk = chunk.to(latent_dtype)
     dec = _traced(lambda: decode_chunked(chunk, decoder, 0), device)
     print(json.dumps({"phase": "decode_chunk", "latent_frames": 7, "card": card, **dec}), flush=True)
+
+    # The two-stage recipe's decode: one tile of TilingConfig.default() (8 x
+    # 16 x 16 latent voxels), decoded as pipelines/common.decode_video does.
+    spec = generate_tile_specs(shape.to_tuple(), TilingConfig.default())[0]
+    tile_shape = (1, shape.channels, spec.in_t_end - spec.in_t_start, spec.in_h_end - spec.in_h_start,
+                  spec.in_w_end - spec.in_w_start)
+    tile = torch.randn(tile_shape, generator=gen, device=device).to(latent_dtype)
+    noise = torch.randn(tile_shape, generator=gen, device=device)
+    rec = _traced(lambda: video_decoder_apply(decoder, tile, timestep=0.05, noise=noise), device)
+    print(json.dumps({"phase": "decode_tile", "latent_shape": list(tile_shape), "card": card, **rec}), flush=True)
+    del decoder
+    torch.cuda.empty_cache()
+
+    # The two-stage recipe's upscale: one fp32 spatial-upscaler call on the
+    # stage-1 latent (16 x 8 x 12 voxels at 256x384x121).
+    upscaler = make_upscaler(device)
+    latent = torch.randn(1, shape.channels, shape.frames, shape.height // 2, shape.width // 2, generator=gen,
+                         device=device)
+    rec = _traced(lambda: spatial_upscaler_apply(upscaler, latent), device)
+    print(json.dumps({"phase": "upscale", "latent_shape": list(latent.shape), "card": card, **rec}), flush=True)
 
 
 

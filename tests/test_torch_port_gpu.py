@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (flash attention forward and backward, the
+implicit-GEMM conv) against their plain PyTorch versions, on the card.
 
 Every test here is marked `gpu` and skips without a CUDA card. The file
 imports neither JAX nor the tests package, so it runs on a machine that has
@@ -60,3 +61,42 @@ def test_backward_kernels_match_plain_on_gpu():
             g = g.float()
             assert (g - r).abs().max() <= 2e-2 * r.abs().max()
             assert (g - r).square().mean().sqrt() <= 1e-2 * r.square().mean().sqrt()
+
+
+@pytest.mark.gpu
+def test_conv_kernel_matches_plain_on_gpu():
+    _need_card()
+    from ltx2_tpu_torch.ops import conv3d as C
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # (x shape, Cout, kT, dtype, causal, spatial, temporal, limits relative to the plain output)
+    cases = [
+        ((2, 5, 30, 44, 64), 128, 3, torch.bfloat16, True, "reflect", "replicate", (1e-2, 5e-3)),
+        ((1, 3, 9, 13, 128), 48, 3, torch.bfloat16, False, "reflect", "replicate", (1e-2, 5e-3)),
+        ((1, 4, 6, 7, 32), 40, 3, torch.float32, False, "zeros", "zeros", (1e-4, 1e-4)),
+        ((1, 3, 5, 6, 48), 64, 1, torch.float32, False, "zeros", "zeros", (1e-4, 1e-4)),
+        ((1, 1, 4, 4, 16), 8, 3, torch.bfloat16, False, "reflect", "replicate", (1e-2, 5e-3)),
+    ]
+    for shape, cout, kt, dtype, causal, sm, tm, (max_rel, rms_rel) in cases:
+        x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+        w = (torch.randn(kt, 3, 3, shape[-1], cout, device="cuda", generator=gen) * 0.05).to(dtype)
+        b = torch.randn(cout, device="cuda", generator=gen)
+        before = C.conv3d_ndhwc_kernel.launches
+        out = C.conv3d(x, w, b, causal, sm, tm).float()
+        assert C.conv3d_ndhwc_kernel.launches == before + 1
+        ref = C.conv3d_plain(x, w, b, causal, sm, tm).float()
+        torch.cuda.synchronize()
+        assert out.shape == ref.shape == (*shape[:4], cout)
+        assert (out - ref).abs().max() <= max_rel * ref.abs().max(), (shape, dtype)
+        assert (out - ref).square().mean().sqrt() <= rms_rel * ref.square().mean().sqrt(), (shape, dtype)
+    # What the kernel does not take raises on the card; nothing falls back.
+    x = torch.randn(1, 2, 4, 4, 24, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="Cin % 16"):
+        C.conv3d(x, torch.zeros(3, 3, 3, 24, 8, device="cuda").bfloat16())
+    x = torch.randn(1, 2, 4, 4, 16, device="cuda")
+    with pytest.raises(ValueError, match="Cout % 8"):
+        C.conv3d(x, torch.zeros(3, 3, 3, 16, 12, device="cuda"))
+    with pytest.raises(TypeError):
+        C.conv3d(x.half(), torch.zeros(3, 3, 3, 16, 8, device="cuda").half())
+    with pytest.raises(ValueError, match="contiguous"):
+        C.conv3d(x.transpose(2, 3), torch.zeros(3, 3, 3, 16, 8, device="cuda"))
