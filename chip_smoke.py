@@ -36,11 +36,13 @@ card and nvcc; it exits non-zero without them, and without the package
    (2-layer DiT, 128x128x17, tiled decode) through the kernels against the
    same pipeline with every flash and conv call on its plain version;
 7. backward check: at the flash cases, the forward's residuals l, m
-   against `flash_attention_residuals_plain`, and dq, dk, dv from the dkv and
-   dq kernels against `flash_attention_bwd_plain` and against autograd of
+   against `flash_attention_residuals_plain`, and dq, dk, dv from the fused
+   backward kernel against `flash_attention_bwd_plain` and against autograd of
    `flash_attention_plain` in fp32, within relative limits that planted
    faults (dq x 1.03, a 64-key tile left out of dk and dv) must fail; with
-   kernel, plain, bound and SDPA-backward times;
+   the kernel's own device time, the whole backward's (Di, accumulator,
+   kernel, dQ conversion), the five-product bound, the plain version's and
+   SDPA's backward (and the names of the kernels SDPA ran);
 8. training path: (a) `ltx2_tpu_torch.train.main` for 3 LoRA steps of the
    full-width 48-block DiT at 6144 tokens, checking finite losses, non-zero
    lora_B after step 1, a bit-identical base and the launch counts; (b) the
@@ -136,7 +138,7 @@ def phase_build():
     for name, rec in info.items():
         log(f"build {name}: {rec['path'].name} in {rec['seconds']:.1f} s")
         for ln in rec["log"].splitlines():
-            if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln or "C75" in ln:
                 log(f"  ptxas: {ln.strip()}")
     log(f"build: wall {wall:.1f} s")
     return wall
@@ -154,6 +156,25 @@ def _time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters: int) -> dict:
+    """{kernel name: (device ms per call, launches per call)} of `iters`
+    calls of fn, from one torch.profiler pass after a warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", 0.0)
+        if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.key] = (dev_us / 1e3 / iters, e.count / iters)
+    return out
 
 
 def _mismatch(out, ref) -> dict:
@@ -415,49 +436,46 @@ def _bwd_case(name, b, h, t_q, t_k, d, n_valid, gen):
     del ref2, dk_drop, dv_drop
     torch.cuda.synchronize()
 
-    di = (o.float() * do.float()).sum(-1).contiguous()
-    dkv_ms = _time_ms(lambda: A.flash_attention_bwd_dkv(q, k, v, do, l, m, di, scale, kv_valid), 10)
-    dq_ms = _time_ms(lambda: A.flash_attention_bwd_dq(q, k, v, do, l, m, di, scale, kv_valid), 10)
     bwd_ms = _time_ms(lambda: A.flash_attention_bwd(q, k, v, o, l, m, do, scale, kv_valid), 10)
+    # The fused kernel's own device time, apart from the accumulator's
+    # zeroing, the dQ conversion and Di, from one profiled pass.
+    by_kernel = _device_ms(lambda: A.flash_attention_bwd(q, k, v, o, l, m, do, scale, kv_valid), 5)
+    kernel_ms = sum(ms for n, (ms, _) in by_kernel.items() if "flash_bwd_kernel" in n)
     plain_ms = _time_ms(lambda: A.flash_attention_bwd_plain(q, k, v, o, l, m, do, scale, kv_valid), 2)
     # Library yardstick, never called by the port: the backward alone of
-    # scaled_dot_product_attention on the same (contiguous) inputs.
+    # scaled_dot_product_attention on the same (contiguous) inputs, and the
+    # kernels it ran.
     qc, kc, vc = (x.contiguous().requires_grad_() for x in (q, k, v))
     lib_out = F.scaled_dot_product_attention(
         qc, kc, vc, attn_mask=None if kv_valid is None else kv_valid[:, None, None, :], scale=scale)
     doc = do.contiguous()
-    library_ms = _time_ms(lambda: torch.autograd.grad(lib_out, (qc, kc, vc), doc, retain_graph=True), 10)
+    lib_bwd = lambda: torch.autograd.grad(lib_out, (qc, kc, vc), doc, retain_graph=True)  # noqa: E731
+    library_ms = _time_ms(lib_bwd, 10)
+    library_kernels = {n[:100]: round(ms, 4) for n, (ms, _) in sorted(_device_ms(lib_bwd, 3).items(),
+                                                                        key=lambda kv: -kv[1][0])[:4]}
     del lib_out, qc, kc, vc
 
     keys = t_k * b if kv_valid is None else int(kv_valid.sum().item())
     unit = 2.0 * h * t_q * d * keys  # FLOP of one (T_q x keys x D) product over the batch
     elems_q, elems_k = b * h * t_q * d, b * h * t_k * d
     stats_bytes = 3 * 4 * b * h * t_q + (0 if kv_valid is None else b * t_k)
-
-    def bound(products, nbytes):
-        t_ops, t_bytes = products * unit / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
-        return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
-
     # The whole backward: five products (S, dP, dV, dK, dQ); reads q, k, v,
-    # o, dO, l, m and writes dq, dk, dv. Each kernel on its own: dkv does
-    # four products (S, dP, dV, dK), dq three (S, dP, dQ).
-    bwd_bound = bound(5, 2.0 * (3 * elems_q + 2 * elems_k) + 2.0 * (elems_q + 2 * elems_k) + stats_bytes
-                      - 4 * b * h * t_q)  # Di is made inside
-    dkv_bound = bound(4, 2.0 * (2 * elems_q + 2 * elems_k) + stats_bytes + 2.0 * 2 * elems_k)
-    dq_bound = bound(3, 2.0 * (2 * elems_q + 2 * elems_k) + stats_bytes + 2.0 * elems_q)
+    # o, dO, l, m and writes dq, dk, dv (Di is made inside).
+    flops = 5 * unit
+    nbytes = 2.0 * (3 * elems_q + 2 * elems_k) + 2.0 * (elems_q + 2 * elems_k) + stats_bytes - 4 * b * h * t_q
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
     rec = {
         "case": name, "shape": [b, h, t_q, t_k, d], "valid_keys": keys,
         "residuals": {k_: {x: r[x] for x in ("max_rel_err", "rms_rel_err", "max_abs_err")} for k_, r in res.items()},
         "grads": {k_: {x: r[x] for x in ("max_rel_err", "rms_rel_err", "max_abs_err")} for k_, r in checks.items()},
         "tol_max_rel": TOL_BWD_MAX_REL, "tol_rms_rel": TOL_BWD_RMS_REL, "tol_residuals_rel": TOL_RES_REL,
         "planted_rms_rel": {k_: p["rms_rel_err"] for k_, p in planted.items()},
-        "bwd_ms": bwd_ms, "dkv_ms": dkv_ms, "dq_ms": dq_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bwd_bound_ms": bwd_bound[0], "bwd_bound_by": bwd_bound[1],
-        "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1],
-        "dq_bound_ms": dq_bound[0], "dq_bound_by": dq_bound[1],
-        "bwd_tflops": 5 * unit / bwd_ms / 1e9,
-        "max_abs_err_dkv": max(checks[f"{g}_vs_autograd"]["max_abs_err"] for g in ("dk", "dv")),
-        "max_abs_err_dq": checks["dq_vs_autograd"]["max_abs_err"],
+        "bwd_ms": bwd_ms, "kernel_ms": kernel_ms,
+        "device_ms_by_kernel": {n[:80]: v_[0] for n, v_ in by_kernel.items()},
+        "plain_ms": plain_ms, "library_ms": library_ms, "library_kernels": library_kernels,
+        "bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bwd_tflops": flops / bwd_ms / 1e9, "kernel_tflops": flops / kernel_ms / 1e9 if kernel_ms else None,
+        "max_abs_err_grads": max(checks[f"{g}_vs_autograd"]["max_abs_err"] for g in ("dq", "dk", "dv")),
         "max_abs_err_fwd_residuals": max(r["max_abs_err"] for r in res.values()),
     }
     log(f"backward check {name}: {json.dumps(rec)}")
@@ -480,7 +498,7 @@ def phase_bwd_kernels():
     from ltx2_tpu_torch.ops import attention as A
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    counters = (A.flash_attention, A.flash_attention_bwd_dkv, A.flash_attention_bwd_dq)
+    counters = (A.flash_attention, A.flash_attention_bwd_kernel)
     before = [c.launches for c in counters]
     recs = []
     for case in (("self", 1, 32, 6144, 6144, 128, None), ("cross", 1, 32, 6144, 1024, 128, None),
@@ -535,7 +553,7 @@ def phase_main_path(smi: str):
             raise AssertionError(f"seed {s['seed']}: {s['conv_launches']} conv launches, expected {convs_per_clip}")
     if launches != LAUNCHES_PER_CLIP * len(SEEDS):
         raise AssertionError(f"{launches} kernel launches in the main path")
-    if counts["conv"] != convs_per_clip * len(SEEDS) or counts["dkv"] or counts["dq"]:
+    if counts["conv"] != convs_per_clip * len(SEEDS) or counts["bwd"]:
         raise AssertionError(f"launches in the main path {counts}")
     if np.array_equal(frames[0], frames[1]):
         raise AssertionError("the two requests produced identical clips")
@@ -592,7 +610,7 @@ def phase_two_stage(smi: str):
         want = {"attention": TWO_STAGE_LAUNCHES_PER_CLIP, **expected, "tiles": tiles}
         if got != want:
             raise AssertionError(f"seed {s['seed']}: launches {got}, expected {want}")
-    per_clip = {"fwd": TWO_STAGE_LAUNCHES_PER_CLIP, "dkv": 0, "dq": 0, "conv": expected["upscale"] + expected["decode"]}
+    per_clip = {"fwd": TWO_STAGE_LAUNCHES_PER_CLIP, "bwd": 0, "conv": expected["upscale"] + expected["decode"]}
     if counts != {k: v * len(SEEDS) for k, v in per_clip.items()}:
         raise AssertionError(f"two-stage launches {counts}, expected {per_clip} a clip")
     if np.array_equal(frames[0], frames[1]):
@@ -677,7 +695,7 @@ def phase_two_stage_small(smi: str) -> dict:
     # 8 + 3 steps x 2 layers x (self + cross attention); the upscaler's convs
     # and 45 a decoder call, one call a tile.
     tiles = len(generate_tile_specs((1, 16, 3, 4, 4), tiling))
-    want = {"fwd": 2 * 2 * (8 + 3), "dkv": 0, "dq": 0,
+    want = {"fwd": 2 * 2 * (8 + 3), "bwd": 0,
             "conv": upscaler_convs(up_cfg) + conv_launches(dec_cfg) * tiles}
     if counts != want:
         raise AssertionError(f"small two-stage launches {counts}, expected {want}")
@@ -696,8 +714,7 @@ def _counters():
     from ltx2_tpu_torch.ops import attention as A
     from ltx2_tpu_torch.ops.conv3d import conv3d_ndhwc_kernel
 
-    return {"fwd": A.flash_attention, "dkv": A.flash_attention_bwd_dkv, "dq": A.flash_attention_bwd_dq,
-            "conv": conv3d_ndhwc_kernel}
+    return {"fwd": A.flash_attention, "bwd": A.flash_attention_bwd_kernel, "conv": conv3d_ndhwc_kernel}
 
 
 def _reset_counts():
@@ -749,9 +766,8 @@ def phase_train_steps(smi: str):
         raise AssertionError(f"lora_B still zero after step 1: {zero_b_after_step1[:4]}")
     # With adapters on to_q/to_k/to_v of both attentions every attention call
     # needs dq, dk and dv: each step runs 2 * LAYERS forward launches, the
-    # remat recompute 2 * LAYERS more, and one dkv and one dq launch per call.
-    expected = {"fwd": TRAIN_STEPS * 4 * LAYERS, "dkv": TRAIN_STEPS * 2 * LAYERS, "dq": TRAIN_STEPS * 2 * LAYERS,
-                "conv": 0}
+    # remat recompute 2 * LAYERS more, and one fused backward launch per call.
+    expected = {"fwd": TRAIN_STEPS * 4 * LAYERS, "bwd": TRAIN_STEPS * 2 * LAYERS, "conv": 0}
     if counts != expected:
         raise AssertionError(f"training launches {counts}, expected {expected}")
     # The base: the same random weights drawn again must be bit-identical.
@@ -851,7 +867,7 @@ def phase_train_gradcheck(smi: str) -> dict:
     log(f"train gradient check (2 blocks, kernels vs plain attention): {json.dumps(rec)}")
     del model
     torch.cuda.empty_cache()
-    if counts != {"fwd": 8, "dkv": 4, "dq": 4, "conv": 0}:
+    if counts != {"fwd": 8, "bwd": 4, "conv": 0}:
         raise AssertionError(f"gradient check launches {counts}")
     if not all(_accepted(per_tensor[n], TOL_GRAD_MAX_REL, TOL_GRAD_RMS_REL) for n in per_tensor):
         raise AssertionError(f"adapter gradients through the kernels disagree: {worst} {per_tensor[worst]}")
@@ -887,8 +903,6 @@ def main():
     gradcheck = phase_train_gradcheck(smi)
 
     self_rec, self_bwd = recs[0], bwd[0]
-    common = {"route": "cuda", "plain_ms": self_bwd["plain_ms"], "library_ms": self_bwd["library_ms"],
-              "cases": bwd}
     record = {"kernels": [
         {
             "name": "flash_attention_fwd",
@@ -908,24 +922,21 @@ def main():
             "cases": recs,
         },
         {
-            "name": "flash_attention_bwd_dkv",
+            "name": "flash_attention_bwd",
+            "route": "cuda",
             "source": "ltx2_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941 (_flash_attention_bwd_dkv, "
-                        "pallas_call :1121; reached from ltx2_tpu/ops/attention.py:188)",
-            "launches": train_counts["dkv"],
-            "max_abs_err": max(r["max_abs_err_dkv"] for r in bwd),
-            "ms": self_bwd["dkv_ms"], "bound_ms": self_bwd["dkv_bound_ms"], "bound_by": self_bwd["dkv_bound_by"],
-            **common,
-        },
-        {
-            "name": "flash_attention_bwd_dq",
-            "source": "ltx2_tpu_torch/csrc/flash_attention_bwd.cu",
-            "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 (_flash_attention_bwd_dq, "
-                        "pallas_call :1456; reached from ltx2_tpu/ops/attention.py:188)",
-            "launches": train_counts["dq"],
-            "max_abs_err": max(r["max_abs_err_dq"] for r in bwd),
-            "ms": self_bwd["dq_ms"], "bound_ms": self_bwd["dq_bound_ms"], "bound_by": self_bwd["dq_bound_by"],
-            **common,
+                        "pallas_call :1121) and :1287 (_flash_attention_bwd_dq, pallas_call :1456); reached from "
+                        "ltx2_tpu/ops/attention.py:188",
+            "launches": train_counts["bwd"],
+            "max_abs_err": max(r["max_abs_err_grads"] for r in bwd),
+            "ms": self_bwd["kernel_ms"],
+            "whole_bwd_ms": self_bwd["bwd_ms"],
+            "plain_ms": self_bwd["plain_ms"],
+            "bound_ms": self_bwd["bound_ms"],
+            "bound_by": self_bwd["bound_by"],
+            "library_ms": self_bwd["library_ms"],
+            "cases": bwd,
         },
         {
             "name": "conv3d_implicit_gemm",

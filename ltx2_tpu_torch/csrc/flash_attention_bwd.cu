@@ -6,387 +6,394 @@
 // Replaces the Pallas TPU backward that the custom VJP of the upstream
 // flash attention reaches from ltx2_tpu/ops/attention.py (`_flash_attention`
 // :188 and `_flash_attention_masked` :222, made differentiable by
-// `_full_block_sizes` :165): `_flash_attention_bwd_dkv` and
-// `_flash_attention_bwd_dq` of jax/experimental/pallas/ops/tpu/
-// flash_attention.py. As there, the work is split into two kernels, and the
-// probabilities are recomputed from the forward's residuals instead of being
-// stored: P = exp(S - m) / l, dP = dO V^T, dS = P * (dP - Di) with
-// Di = rowsum(dO * O) (computed by the caller, as upstream does outside its
-// kernels), dV = P^T dO, dK = dS^T Q * scale, dQ = dS K * scale.
-//   - dkv kernel: one block owns 64 keys of one (batch, head) and walks every
-//     query tile, so dK and dV accumulate in registers and are written once;
-//   - dq kernel: one block owns 128 query rows and walks every key tile, the
-//     forward's loop order, so dQ is written once.
-// Neither kernel uses atomics, so the gradients are deterministic.
+// `_full_block_sizes` :165): both `_flash_attention_bwd_dkv` (:941,
+// pallas_call :1121) and `_flash_attention_bwd_dq` (:1287, pallas_call
+// :1456) of jax/experimental/pallas/ops/tpu/flash_attention.py, in one
+// kernel. The probabilities are recomputed from the forward's residuals:
+// P = exp(S - m) / l, dP = dO V^T, dS = P * (dP - Di) with Di = rowsum(dO * O)
+// (computed by the caller, as upstream does outside its kernels),
+// dV = P^T dO, dK = dS^T Q * scale, dQ = dS K * scale.
 //
 // Bound on an H100 SXM at the DiT's video self-attention (B=1, H=32,
-// T=6144, D=128): five products of 2*H*T^2*D FLOP each (S and dP in both
-// kernels count once: the dq kernel recomputes them, which is not in the
-// bound) = 1.55e12 FLOP, 1.56 ms at 989 TFLOP/s, against about 350 MB of
-// Q/K/V/O/dO/dQ/dK/dV traffic, 0.1 ms at 3.35 TB/s: compute-bound. So every
-// product runs on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
-// accumulate); P and dS live in registers and are rounded to bf16 only as
-// the A operand of the next product (the accumulator fragment of one product
-// is the A fragment of the next); Q/dO (dkv) and K/V (dq) tiles are
-// double-buffered with cp.async in XOR-swizzled shared memory. Any T_q, T_k:
-// ragged tiles are zero-filled, padded queries get P = 0 through an infinite
-// normaliser, padded and invalid keys through a zero P. Tensors are addressed
-// through (batch, token, head) strides, so the DiT's token-major activations
-// go in and the gradients come out without transposes. Left for later work,
-// as for the forward: wgmma + TMA with warp specialisation.
+// T=6144, D=128): five products of 2*H*T^2*D FLOP each = 1.55e12 FLOP,
+// 1.56 ms at 989 TFLOP/s, against about 350 MB of Q/K/V/O/dO/dQ/dK/dV
+// traffic, 0.1 ms at 3.35 TB/s: compute-bound. Pallas splits the work so
+// that each gradient is written once without atomics, which recomputes S
+// and dP in the dq kernel (seven products). Here one CTA owns 128 keys of
+// one (batch, head) and walks every 64-row query tile, running the five
+// products once each on wgmma (bf16 in, fp32 accumulate):
+//   S^T = K Q^T, dP^T = V dO^T     (m64n64 a warpgroup, K-major operands)
+//   P^T = exp2(S^T scale log2(e) - lse2[q]), dS^T = P^T (dP^T - Di[q]),
+//   rounded to bf16 in registers; dS^T also into shared memory
+//   dV += P^T dO, dK += dS^T Q     (m64n{D}; A from registers, dO and Q
+//                                   read through the transpose bit)
+//   dQ_part = dS K                 (m64n64; dS^T and K read transposed)
+// dK and dV stay in registers and are stored once per CTA; each key block's
+// dQ_part (times scale) is added into a token-major fp32 accumulator by
+// TMA bulk reduce-add, which the caller zeroes first and rounds to bf16
+// after. So dK and dV are bitwise reproducible, while dQ's fp32 sum runs over
+// the key blocks in the order the CTAs finish, which changes from run to run
+// (within the tolerances; the Pallas kernels are deterministic). Registers
+// are the constraint: dK and dV hold 128 fp32 a thread, so dV and dK finish
+// before the dQ product starts, and no branch surrounds a wgmma at D = 128;
+// otherwise ptxas spilled and serialised the products.
 //
-// C interface, for ctypes: ltx_flash_attention_bwd_dkv / _dq launch one
-// kernel each and return the launch's cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue for a head dimension they were not built for.
+// Roles: warpgroup 0 is the producer (one warp issues the TMA loads: K and
+// V once, Q and dO tiles into a ring of kStages stages guarded by full/empty
+// mbarriers, and writes each tile's lse2 and Di rows); warpgroups 1 and 2
+// are consumers, each owning 64 of the block's keys, with the producer's
+// registers moved to them by setmaxnreg. The two consumers split dQ_part's
+// D columns (at D = 64 the first takes them all). Any T_q, T_k: TMA
+// zero-fills the ragged tiles, padded and all-masked query rows get
+// lse2 = +inf (P = 0), padded and invalid keys P = 0, and the reduce-add
+// drops rows past T_q. Q, K, V and dO are read through 4-D tensor maps over
+// their (batch, token, head) strides, so the DiT's token-major activations
+// go in without transposes, and dK, dV come out in the strides given.
+//
+// C interface, for ctypes: ltx_flash_attention_bwd launches the kernel and
+// returns the launch's cudaGetLastError() (0 = launched), or
+// cudaErrorInvalidValue for a head dimension it was not built for or a
+// tensor TMA cannot address.
 
 #include "flash_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
-using namespace ltx_flash;
+using namespace ltx_sm90;
 
-constexpr int kDkvKeys = 64;  // keys per dkv block: 4 warps x 16 rows
-constexpr int kDkvQ = 64;     // queries per dkv tile
-constexpr int kDkvThreads = kDkvKeys / 16 * 32;
-constexpr int kDqRows = 128;  // query rows per dq block: 8 warps x 16 rows
-constexpr int kDqKeys = 64;   // keys per dq tile
-constexpr int kDqThreads = kDqRows / 16 * 32;
+constexpr int kKeys = 128;     // keys per CTA: two consumer warpgroups x 64
+constexpr int kQTile = 64;     // query rows per tile
+constexpr int kStages = 2;     // Q/dO ring depth
+constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr uint32_t kPanelKV = kKeys * 128;  // one 64-column panel of K or V
+constexpr uint32_t kPanelQ = kQTile * 128;  // one 64-column panel of Q or dO
+constexpr uint32_t kDsTile = kKeys * kQTile * 2;  // dS^T, bf16
+constexpr uint32_t kDqBox = kQTile * 128;         // 64 rows x 32 fp32
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory layout (byte offsets from a 1024-aligned base).
+template <int D>
+struct Smem {
+  static constexpr uint32_t kKV = kPanelKV * (D / 64);
+  static constexpr uint32_t kQ = kPanelQ * (D / 64);
+  static constexpr int kDqGroups = D / 64;  // consumer warpgroups that compute dQ_part
+  static constexpr uint32_t k = 0;
+  static constexpr uint32_t v = kKV;
+  static constexpr uint32_t qdo = 2 * kKV;  // stage s: Q at qdo + 2 s kQ, dO kQ after
+  static constexpr uint32_t ds = qdo + kStages * 2 * kQ;  // two dS^T buffers
+  static constexpr uint32_t dq = ds + 2 * kDsTile;         // per dQ warpgroup: two fp32 boxes
+  static constexpr uint32_t stats = dq + kDqGroups * 2 * kDqBox;  // lse2[kStages][64], Di[kStages][64]
+  static constexpr uint32_t bars = stats + kStages * 2 * kQTile * 4;  // kv_full, q_full[], q_empty[]
+  static constexpr uint32_t bytes = bars + (1 + 2 * kStages) * 8 + 1024;  // + alignment slack
+};
+
+struct Maps {
+  CUtensorMap q, k, v, dout;  // bf16, dims (D, T, H, B), boxes of 64 columns
+  CUtensorMap dq;             // fp32 accumulator, token-major (B, T_q, H, D), boxes of 32 x 64
+};
 
 struct BwdParams {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* dout;
-  __nv_bfloat16* dq;
-  __nv_bfloat16* dk;
-  __nv_bfloat16* dv;
   const float* l;   // (B, H, T_q) forward residuals
   const float* m;
   const float* di;  // (B, H, T_q) rowsum(dO * O)
   const uint8_t* kv_valid;  // (B, T_k) with batch stride kv_sb, or null
-  int64_t q_sb, q_st, q_sh;
-  int64_t k_sb, k_st, k_sh;
-  int64_t v_sb, v_st, v_sh;
-  int64_t do_sb, do_st, do_sh;
-  int64_t dq_sb, dq_st, dq_sh;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  int64_t kv_sb;
   int64_t dk_sb, dk_st, dk_sh;
   int64_t dv_sb, dv_st, dv_sh;
-  int64_t kv_sb;
   int t_q, t_k;
   float scale;       // softmax scale: dQ and dK carry it
   float scale_log2;  // scale * log2(e)
 };
 
-// Store a warp's 16 x D fp32 accumulator rows (row0 + g, row0 + g + 8) as
-// bf16, times `mul`, skipping rows at or past `rows`.
+// Store a warpgroup's 64 x D fp32 accumulator as bf16 rows, times `mul`,
+// skipping keys at or past t_k.
 template <int D>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* base, int64_t stride, int row0, int rows,
-                                           const float (&acc)[D / 8][4], float mul, int lane) {
-  const int g = lane / 4, t4 = lane % 4;
+                                           const float (&acc)[D / 2], float mul, int g, int t4) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + g + 8 * i;
     if (row >= rows) continue;
     __nv_bfloat16* dst = base + int64_t(row) * stride + 2 * t4;
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(dst + nt * 8) =
-          __floats2bfloat162_rn(acc[nt][2 * i] * mul, acc[nt][2 * i + 1] * mul);
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * i] * mul, acc[4 * j + 2 * i + 1] * mul);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kDkvThreads, 1) flash_bwd_dkv_kernel(const BwdParams p) {
-  constexpr uint32_t kTileK = kDkvKeys * D * 2;
-  constexpr uint32_t kTileQ = kDkvQ * D * 2;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float s_lse[2][kDkvQ];  // per query of the staged tile: log2 normaliser
-  __shared__ float s_di[2][kDkvQ];   // and Di
-  const uint32_t s_k = smem_addr(smem);
-  const uint32_t s_v = s_k + kTileK;
-  const uint32_t s_qdo = s_v + kTileK;  // stage s: Q at s_qdo + 2*s*kTileQ, dO right after
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_kernel(const __grid_constant__ Maps maps,
+                                                                const BwdParams p) {
+  using L = Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (ltx_flash::smem_addr(smem_raw) + 1023) & ~1023u;
+  unsigned char* base_ptr = smem_raw + (base - ltx_flash::smem_addr(smem_raw));
+  float* s_lse = reinterpret_cast<float*>(base_ptr + L::stats);  // [kStages][64]
+  float* s_di = s_lse + kStages * kQTile;                         // [kStages][64]
+  const uint32_t bar_kv = base + L::bars;
+  const uint32_t bar_full = bar_kv + 8;                // + 8 s
+  const uint32_t bar_empty = bar_full + 8 * kStages;   // + 8 s
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int n0 = blockIdx.x * kDkvKeys, h = blockIdx.y, b = blockIdx.z;
-  const int wrow = warp * 16;
+  const int n0 = blockIdx.x * kKeys, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (p.t_q + kQTile - 1) / kQTile;
+  const int wg = threadIdx.x / 128;
 
-  const __nv_bfloat16* q = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* dout = p.dout + b * p.do_sb + h * p.do_sh;
-  const int64_t stats = (int64_t(b) * gridDim.y + h) * p.t_q;
-  const float* l = p.l + stats;
-  const float* m = p.m + stats;
-  const float* di = p.di + stats;
-
-  // This thread's two key rows; a padded or invalid key has P = 0, so its
-  // dK and dV rows stay 0.
-  bool key_ok[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = n0 + wrow + g + 8 * i;
-    key_ok[i] = key < p.t_k && (p.kv_valid == nullptr || p.kv_valid[b * p.kv_sb + key] != 0);
-  }
-
-  load_tile<D, kDkvKeys, kDkvThreads>(s_k, p.k + b * p.k_sb + h * p.k_sh + int64_t(n0) * p.k_st,
-                                      p.k_st, p.t_k - n0, tid);
-  load_tile<D, kDkvKeys, kDkvThreads>(s_v, p.v + b * p.v_sb + h * p.v_sh + int64_t(n0) * p.v_st,
-                                      p.v_st, p.t_k - n0, tid);
-  load_tile<D, kDkvQ, kDkvThreads>(s_qdo, q, p.q_st, p.t_q, tid);
-  load_tile<D, kDkvQ, kDkvThreads>(s_qdo + kTileQ, dout, p.do_st, p.t_q, tid);
-  cp_async_commit();
-  if (tid < kDkvQ) {
-    const bool ok = tid < p.t_q;
-    s_lse[0][tid] = ok ? row_lse2(l[tid], m[tid]) : INFINITY;
-    s_di[0][tid] = ok ? di[tid] : 0.f;
-  }
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[nt][e] = dv[nt][e] = 0.f;
-
-  const int n_tiles = (p.t_q + kDkvQ - 1) / kDkvQ;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j & 1;
-    const uint32_t s_q = s_qdo + st * 2 * kTileQ;
-    const uint32_t s_do = s_q + kTileQ;
-    if (j + 1 < n_tiles) {
-      const int q1 = (j + 1) * kDkvQ;
-      const uint32_t nq = s_qdo + (st ^ 1) * 2 * kTileQ;
-      load_tile<D, kDkvQ, kDkvThreads>(nq, q + int64_t(q1) * p.q_st, p.q_st, p.t_q - q1, tid);
-      load_tile<D, kDkvQ, kDkvThreads>(nq + kTileQ, dout + int64_t(q1) * p.do_st, p.do_st,
-                                       p.t_q - q1, tid);
-      cp_async_commit();
-      if (tid < kDkvQ) {
-        const int r = q1 + tid;
-        const bool ok = r < p.t_q;
-        s_lse[st ^ 1][tid] = ok ? row_lse2(l[r], m[r]) : INFINITY;
-        s_di[st ^ 1][tid] = ok ? di[r] : 0.f;
-      }
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2 * 128);
     }
-    __syncthreads();
-
-    // P^T = exp2(K Q^T * scale * log2(e) - lse2[query]): this warp's 16 keys
-    // x 64 queries. A padded query has lse2 = +inf, so its column is 0.
-    float pt[kDkvQ / 8][4];
-#pragma unroll
-    for (int jn = 0; jn < kDkvQ / 8; ++jn) pt[jn][0] = pt[jn][1] = pt[jn][2] = pt[jn][3] = 0.f;
-    mma_abt<D, kDkvQ>(pt, s_k, wrow, s_q, 0, lane);
-#pragma unroll
-    for (int jn = 0; jn < kDkvQ / 8; ++jn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = jn * 8 + 2 * t4 + (e & 1);
-        pt[jn][e] = key_ok[e >> 1] ? exp2f(pt[jn][e] * p.scale_log2 - s_lse[st][col]) : 0.f;
-      }
-
-    // dV += P^T dO.
-    mma_pb<D, kDkvQ>(dv, pt, s_do, 0, lane);
-
-    // dS^T = P^T * (V dO^T - Di[query]), in place of dP^T.
-    float ds[kDkvQ / 8][4];
-#pragma unroll
-    for (int jn = 0; jn < kDkvQ / 8; ++jn) ds[jn][0] = ds[jn][1] = ds[jn][2] = ds[jn][3] = 0.f;
-    mma_abt<D, kDkvQ>(ds, s_v, wrow, s_do, 0, lane);
-#pragma unroll
-    for (int jn = 0; jn < kDkvQ / 8; ++jn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = jn * 8 + 2 * t4 + (e & 1);
-        ds[jn][e] = pt[jn][e] * (ds[jn][e] - s_di[st][col]);
-      }
-
-    // dK += dS^T Q (the scale is applied once, at the store).
-    mma_pb<D, kDkvQ>(dk, ds, s_q, 0, lane);
-    __syncthreads();  // every warp is done with this stage before it is refilled
+    fence_mbar_init();
   }
+  __syncthreads();
 
-  const int rows = p.t_k - n0;
-  store_rows<D>(p.dk + b * p.dk_sb + h * p.dk_sh + int64_t(n0) * p.dk_st, p.dk_st, wrow, rows, dk,
-                p.scale, lane);
-  store_rows<D>(p.dv + b * p.dv_sb + h * p.dv_sh + int64_t(n0) * p.dv_st, p.dv_st, wrow, rows, dv,
-                1.f, lane);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kDqThreads, 1) flash_bwd_dq_kernel(const BwdParams p) {
-  constexpr uint32_t kTileQ = kDqRows * D * 2;
-  constexpr uint32_t kTileKV = kDqKeys * D * 2;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t s_q = smem_addr(smem);
-  const uint32_t s_do = s_q + kTileQ;
-  const uint32_t s_kv = s_do + kTileQ;  // stage s: K at s_kv + 2*s*kTileKV, V right after
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int m0 = blockIdx.x * kDqRows, h = blockIdx.y, b = blockIdx.z;
-  const int wrow = warp * 16;
-
-  const __nv_bfloat16* k = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* v = p.v + b * p.v_sb + h * p.v_sh;
-  const uint8_t* valid = p.kv_valid ? p.kv_valid + b * p.kv_sb : nullptr;
-  const int64_t stats = (int64_t(b) * gridDim.y + h) * p.t_q;
-
-  load_tile<D, kDqRows, kDqThreads>(s_q, p.q + b * p.q_sb + h * p.q_sh + int64_t(m0) * p.q_st,
-                                    p.q_st, p.t_q - m0, tid);
-  load_tile<D, kDqRows, kDqThreads>(s_do, p.dout + b * p.do_sb + h * p.do_sh + int64_t(m0) * p.do_st,
-                                    p.do_st, p.t_q - m0, tid);
-  load_tile<D, kDqKeys, kDqThreads>(s_kv, k, p.k_st, p.t_k, tid);
-  load_tile<D, kDqKeys, kDqThreads>(s_kv + kTileKV, v, p.v_st, p.t_k, tid);
-  cp_async_commit();
-
-  // This thread's two query rows: log2 normaliser and Di. A padded row gets
-  // lse2 = +inf (P = 0) and is never stored.
-  float lse2[2], di[2];
+  if (wg == 0) {
+    // ---- producer ----
+    warpgroup_reg_dealloc<24>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        prefetch_tensor_map(&maps.q);
+        prefetch_tensor_map(&maps.dout);
+        mbar_arrive_expect_tx(bar_kv, 2 * L::kKV);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(base + L::k + c * kPanelKV, &maps.k, bar_kv, 64 * c, n0, h, b);
+          tma_load_4d(base + L::v + c * kPanelKV, &maps.v, bar_kv, 64 * c, n0, h, b);
+        }
+      }
+      const int64_t stats = (int64_t(b) * gridDim.y + h) * p.t_q;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kStages;
+        mbar_wait(bar_empty + 8 * st, ((j / kStages) & 1) ^ 1);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = m0 + wrow + g + 8 * i;
-    const bool ok = row < p.t_q;
-    lse2[i] = ok ? row_lse2(p.l[stats + row], p.m[stats + row]) : INFINITY;
-    di[i] = ok ? p.di[stats + row] : 0.f;
-  }
-
-  float dq[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) dq[nt][0] = dq[nt][1] = dq[nt][2] = dq[nt][3] = 0.f;
-
-  const int n_tiles = (p.t_k + kDqKeys - 1) / kDqKeys;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int n0 = j * kDqKeys;
-    const uint32_t s_k = s_kv + (j & 1) * 2 * kTileKV;
-    const uint32_t s_v = s_k + kTileKV;
-    if (j + 1 < n_tiles) {
-      const uint32_t nk = s_kv + ((j + 1) & 1) * 2 * kTileKV;
-      const int n1 = n0 + kDqKeys;
-      load_tile<D, kDqKeys, kDqThreads>(nk, k + int64_t(n1) * p.k_st, p.k_st, p.t_k - n1, tid);
-      load_tile<D, kDqKeys, kDqThreads>(nk + kTileKV, v + int64_t(n1) * p.v_st, p.v_st, p.t_k - n1,
-                                        tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+        for (int i = 0; i < 2; ++i) {
+          const int r = j * kQTile + lane + 32 * i;
+          const bool ok = r < p.t_q;
+          s_lse[st * kQTile + lane + 32 * i] = ok ? ltx_flash::row_lse2(p.l[stats + r], p.m[stats + r]) : INFINITY;
+          s_di[st * kQTile + lane + 32 * i] = ok ? p.di[stats + r] : 0.f;
+        }
+        __syncwarp();
+        if (lane == 0) {
+          const uint32_t s_q = base + L::qdo + st * 2 * L::kQ;
+          mbar_arrive_expect_tx(bar_full + 8 * st, 2 * L::kQ);
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load_4d(s_q + c * kPanelQ, &maps.q, bar_full + 8 * st, 64 * c, j * kQTile, h, b);
+            tma_load_4d(s_q + L::kQ + c * kPanelQ, &maps.dout, bar_full + 8 * st, 64 * c, j * kQTile, h, b);
+          }
+        }
+      }
     }
-    __syncthreads();
+  } else {
+    // ---- consumers ----
+    warpgroup_reg_alloc<240>();
+    const int cw = wg - 1;  // this warpgroup owns keys n0 + 64 cw .. + 63
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const int row0 = 64 * cw + 16 * warp;  // this warp's first key row in the block
+    const bool dq_group = L::kDqGroups == 2 || cw == 0;  // constant at D = 128: no branch around wgmma
 
-    // P = exp2(Q K^T * scale * log2(e) - lse2[row]): this warp's 16 rows x
-    // 64 keys; padded and invalid keys get 0.
-    float pr[kDqKeys / 8][4];
+    // A padded or invalid key has P = 0, so its dK, dV and dS rows are 0.
+    bool key_ok[2];
 #pragma unroll
-    for (int jn = 0; jn < kDqKeys / 8; ++jn) pr[jn][0] = pr[jn][1] = pr[jn][2] = pr[jn][3] = 0.f;
-    mma_abt<D, kDqKeys>(pr, s_q, wrow, s_k, 0, lane);
-    const bool edge = n0 + kDqKeys > p.t_k || valid != nullptr;
+    for (int i = 0; i < 2; ++i) {
+      const int key = n0 + row0 + g + 8 * i;
+      key_ok[i] = key < p.t_k && (p.kv_valid == nullptr || p.kv_valid[b * p.kv_sb + key] != 0);
+    }
+
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-    for (int jn = 0; jn < kDqKeys / 8; ++jn)
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    mbar_wait(bar_kv, 0);
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % kStages;
+      mbar_wait(bar_full + 8 * st, (j / kStages) & 1);
+      // Addresses are rebuilt every tile from an opaque base: hoisted out of
+      // the loop, the descriptors would hold registers the accumulators need.
+      const uint32_t tile = opaque(base);
+      const uint32_t s_k = tile + L::k, s_v = tile + L::v;
+      const uint32_t s_q = tile + L::qdo + st * 2 * L::kQ;
+      const uint32_t s_do = s_q + L::kQ;
+      const uint32_t s_ds = tile + L::ds + (j & 1) * kDsTile;
+
+      // S^T = K Q^T and dP^T = V dO^T over D, this warpgroup's 64 keys x 64
+      // queries (K-major operands: a k-step is 32 bytes inside a panel).
+      float s[32], dp[32];
+      wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n0 + jn * 8 + 2 * t4 + (e & 1);
-        const bool ok = !edge || (col < p.t_k && (valid == nullptr || valid[col] != 0));
-        pr[jn][e] = ok ? exp2f(pr[jn][e] * p.scale_log2 - lse2[e >> 1]) : 0.f;
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t a = (kk / 4) * kPanelKV + 64 * cw * 128 + (kk % 4) * 32;
+        const uint32_t bq = (kk / 4) * kPanelQ + (kk % 4) * 32;
+        wgmma_ss_m64n64<0, 0>(s, wgmma_desc(s_k + a, 16, 1024), wgmma_desc(s_q + bq, 16, 1024), kk > 0);
       }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t a = (kk / 4) * kPanelKV + 64 * cw * 128 + (kk % 4) * 32;
+        const uint32_t bq = (kk / 4) * kPanelQ + (kk % 4) * 32;
+        wgmma_ss_m64n64<0, 0>(dp, wgmma_desc(s_v + a, 16, 1024), wgmma_desc(s_do + bq, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
 
-    // dS = P * (dO V^T - Di[row]).
-    float ds[kDqKeys / 8][4];
+      // P^T = exp2(S^T scale log2(e) - lse2[q]) and dS^T = P^T (dP^T - Di[q]),
+      // rounded to bf16 as the register A operands of dV and dK (columns
+      // 16 kk .. 16 kk + 15 of the accumulator layout make k-step kk), and
+      // dS^T also into this warpgroup's rows of the dS^T tile (128 keys x 64
+      // queries, 128-byte swizzle) for the dQ product.
+      const float* lse = s_lse + st * kQTile;
+      const float* di = s_di + st * kQTile;
+      uint32_t pa[4][4], da[4][4];
 #pragma unroll
-    for (int jn = 0; jn < kDqKeys / 8; ++jn) ds[jn][0] = ds[jn][1] = ds[jn][2] = ds[jn][3] = 0.f;
-    mma_abt<D, kDqKeys>(ds, s_do, wrow, s_v, 0, lane);
+      for (int jn = 0; jn < 8; ++jn)
 #pragma unroll
-    for (int jn = 0; jn < kDqKeys / 8; ++jn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ds[jn][e] = pr[jn][e] * (ds[jn][e] - di[e >> 1]);
+        for (int i = 0; i < 2; ++i) {
+          const int e = 4 * jn + 2 * i, col = 8 * jn + 2 * t4;
+          const float p0 = key_ok[i] ? exp2_approx(s[e] * p.scale_log2 - lse[col]) : 0.f;
+          const float p1 = key_ok[i] ? exp2_approx(s[e + 1] * p.scale_log2 - lse[col + 1]) : 0.f;
+          const int r = row0 + g + 8 * i;
+          pa[jn / 2][(jn % 2) * 2 + i] = pack_bf16x2(p0, p1);
+          da[jn / 2][(jn % 2) * 2 + i] = pack_bf16x2(p0 * (dp[e] - di[col]), p1 * (dp[e + 1] - di[col + 1]));
+          st_shared_b32(s_ds + r * 128 + ((jn ^ (r & 7)) << 4) + t4 * 4, da[jn / 2][(jn % 2) * 2 + i]);
+        }
+      fence_proxy_async();
 
-    // dQ += dS K (the scale is applied once, at the store).
-    mma_pb<D, kDqKeys>(dq, ds, s_k, 0, lane);
-    __syncthreads();  // every warp is done with this stage before it is refilled
+      // dV += P^T dO and dK += dS^T Q, A from registers, B = the dO / Q tile
+      // read MN-major (a k-step is 16 query rows; LBO is the panel stride).
+      // They finish before dQ starts, so the A operands are dead by the time
+      // the dQ accumulator is live: with both at once ptxas spilled and
+      // serialised the products.
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<D, 1>(dv, pa[kk], wgmma_desc(s_do + kk * 2048, kPanelQ, 1024));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<D, 1>(dk, da[kk], wgmma_desc(s_q + kk * 2048, kPanelQ, 1024));
+      wgmma_commit();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(pa);
+      fence_regs(da);
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(pa);
+      fence_regs(da);
+      mbar_arrive(bar_empty + 8 * st);  // dQ reads no Q, dO, lse2 or Di of this stage
+      named_barrier_sync(1, 256);       // both halves of dS^T are in place
+
+      // dQ_part = dS K over the block's 128 keys, this warpgroup's 64 columns:
+      // A = dS^T read MN-major, B = the K panel read MN-major (k-step = 16 keys).
+      float dq[32];
+      if (dq_group) {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk)
+          wgmma_ss_m64n64<1, 1>(dq, wgmma_desc(s_ds + kk * 2048, kPanelQ, 1024),
+                                wgmma_desc(s_k + cw * kPanelKV + kk * 2048, kPanelKV, 1024), kk > 0);
+        wgmma_commit();
+      }
+      fence_regs(dq);
+      wgmma_wait<0>();
+      fence_regs(dq);
+
+      if (dq_group) {
+        // Stage dQ_part * scale as two fp32 boxes of 64 rows x 32 columns
+        // (128-byte swizzle) and add them into the accumulator.
+        const uint32_t s_dq = tile + L::dq + cw * 2 * kDqBox;
+        if (tid == 0) bulk_wait_read();  // the previous tile's reduce has read the staging
+        named_barrier_sync(2 + cw, 128);
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int r = 16 * warp + g + 8 * i;
+            const int chunk = 2 * (jn % 4) + t4 / 2;
+            const uint32_t addr = s_dq + (jn / 4) * kDqBox + r * 128 + ((chunk ^ (r & 7)) << 4) + (t4 % 2) * 8;
+            st_shared_v2_f32(addr, dq[4 * jn + 2 * i] * p.scale, dq[4 * jn + 2 * i + 1] * p.scale);
+          }
+        fence_proxy_async();
+        named_barrier_sync(2 + cw, 128);
+        if (tid == 0) {
+          tma_reduce_add_4d(&maps.dq, s_dq, 64 * cw, j * kQTile, h, b);
+          tma_reduce_add_4d(&maps.dq, s_dq + kDqBox, 64 * cw + 32, j * kQTile, h, b);
+          bulk_commit();
+        }
+      }
+    }
+    if (dq_group && tid == 0) bulk_wait();  // the staging stays until the last reduce has run
+
+    store_rows<D>(p.dk + b * p.dk_sb + h * p.dk_sh + int64_t(n0) * p.dk_st, p.dk_st, row0, p.t_k - n0, dk, p.scale,
+                  g, t4);
+    store_rows<D>(p.dv + b * p.dv_sb + h * p.dv_sh + int64_t(n0) * p.dv_st, p.dv_st, row0, p.t_k - n0, dv, 1.f, g,
+                  t4);
   }
+}
 
-  store_rows<D>(p.dq + b * p.dq_sb + h * p.dq_sh + int64_t(m0) * p.dq_st, p.dq_st, wrow,
-                p.t_q - m0, dq, p.scale, lane);
+// Tensor map of a bf16 (B, H, T, D) tensor with (batch, token, head)
+// element strides, read in boxes of `rows` tokens x 64 columns.
+bool bf16_map(CUtensorMap* map, const void* ptr, int batch, int heads, int t, int d, const int64_t* s, int rows) {
+  const uint64_t dims[4] = {uint64_t(d), uint64_t(t), uint64_t(heads), uint64_t(batch)};
+  const uint64_t strides[3] = {uint64_t(s[1]) * 2, uint64_t(s[2]) * 2, uint64_t(s[0]) * 2};
+  const uint32_t box[4] = {64, uint32_t(rows), 1, 1};
+  return encode_tensor_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, dims, strides, box);
 }
 
 template <int D>
-cudaError_t launch_dkv(const BwdParams& p, int batch, int heads, cudaStream_t stream) {
-  constexpr int kSmem = 2 * kDkvKeys * D * 2 + 4 * kDkvQ * D * 2;  // K, V + 2 stages of Q and dO
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout, void* dq_acc,
+                   const BwdParams& p, int batch, int heads, const int64_t* s, cudaStream_t stream) {
+  Maps maps;
+  const uint64_t acc_dims[4] = {uint64_t(D), uint64_t(p.t_q), uint64_t(heads), uint64_t(batch)};
+  const uint64_t acc_strides[3] = {uint64_t(heads) * D * 4, uint64_t(D) * 4, uint64_t(p.t_q) * heads * D * 4};
+  const uint32_t acc_box[4] = {32, kQTile, 1, 1};
+  if (!bf16_map(&maps.q, q, batch, heads, p.t_q, D, s, kQTile) ||
+      !bf16_map(&maps.k, k, batch, heads, p.t_k, D, s + 3, kKeys) ||
+      !bf16_map(&maps.v, v, batch, heads, p.t_k, D, s + 6, kKeys) ||
+      !bf16_map(&maps.dout, dout, batch, heads, p.t_q, D, s + 9, kQTile) ||
+      !encode_tensor_map_4d(&maps.dq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, dq_acc, acc_dims, acc_strides, acc_box))
+    return cudaErrorInvalidValue;
+  constexpr int kSmem = Smem<D>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.t_k + kDkvKeys - 1) / kDkvKeys, heads, batch);
-  flash_bwd_dkv_kernel<D><<<grid, kDkvThreads, kSmem, stream>>>(p);
+  const dim3 grid((p.t_k + kKeys - 1) / kKeys, heads, batch);  // the key blocks of one head run together
+  flash_bwd_kernel<D><<<grid, kThreads, kSmem, stream>>>(maps, p);
   return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_dq(const BwdParams& p, int batch, int heads, cudaStream_t stream) {
-  constexpr int kSmem = 2 * kDqRows * D * 2 + 4 * kDqKeys * D * 2;  // Q, dO + 2 stages of K and V
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.t_q + kDqRows - 1) / kDqRows, heads, batch);
-  flash_bwd_dq_kernel<D><<<grid, kDqThreads, kSmem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-BwdParams make_params(const void* q, const void* k, const void* v, const void* dout, void* dq,
-                      void* dk, void* dv, const void* l, const void* m, const void* di,
-                      const void* kv_valid, int t_q, int t_k, const int64_t* s, float scale) {
-  BwdParams p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.dout = static_cast<const __nv_bfloat16*>(dout);
-  p.dq = static_cast<__nv_bfloat16*>(dq);
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
-  p.l = static_cast<const float*>(l);
-  p.m = static_cast<const float*>(m);
-  p.di = static_cast<const float*>(di);
-  p.kv_valid = static_cast<const uint8_t*>(kv_valid);
-  p.q_sb = s[0]; p.q_st = s[1]; p.q_sh = s[2];
-  p.k_sb = s[3]; p.k_st = s[4]; p.k_sh = s[5];
-  p.v_sb = s[6]; p.v_st = s[7]; p.v_sh = s[8];
-  p.do_sb = s[9]; p.do_st = s[10]; p.do_sh = s[11];
-  p.dq_sb = s[12]; p.dq_st = s[13]; p.dq_sh = s[14];
-  p.dk_sb = s[15]; p.dk_st = s[16]; p.dk_sh = s[17];
-  p.dv_sb = s[18]; p.dv_st = s[19]; p.dv_sh = s[20];
-  p.kv_sb = s[21];
-  p.t_q = t_q;
-  p.t_k = t_k;
-  p.scale = scale;
-  p.scale_log2 = scale * 1.4426950408889634f;
-  return p;
 }
 
 }  // namespace
 
-// strides: 22 int64 = (batch, token, head) strides of q, k, v, dO, dQ, dK, dV
-// in elements, then the batch stride of kv_valid.
-extern "C" int ltx_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
-                                           const void* dout, void* dq, void* dk, void* dv,
-                                           const void* l, const void* m, const void* di,
-                                           const void* kv_valid, int batch, int heads, int t_q,
-                                           int t_k, int head_dim, const int64_t* strides,
-                                           float scale, void* stream) {
-  const BwdParams p = make_params(q, k, v, dout, dq, dk, dv, l, m, di, kv_valid, t_q, t_k, strides,
-                                  scale);
+// strides: 19 int64 = (batch, token, head) strides of q, k, v, dO, dK, dV in
+// elements, then the batch stride of kv_valid. dq_acc: zeroed contiguous fp32
+// (B, T_q, H, D), to which the kernel adds dQ (scale included).
+extern "C" int ltx_flash_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
+                                       void* dq_acc, void* dk, void* dv, const void* l, const void* m,
+                                       const void* di, const void* kv_valid, int batch, int heads, int t_q,
+                                       int t_k, int head_dim, const int64_t* strides, float scale,
+                                       void* stream) {
+  BwdParams p;
+  p.l = static_cast<const float*>(l);
+  p.m = static_cast<const float*>(m);
+  p.di = static_cast<const float*>(di);
+  p.kv_valid = static_cast<const uint8_t*>(kv_valid);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.dk_sb = strides[12]; p.dk_st = strides[13]; p.dk_sh = strides[14];
+  p.dv_sb = strides[15]; p.dv_st = strides[16]; p.dv_sh = strides[17];
+  p.kv_sb = strides[18];
+  p.t_q = t_q;
+  p.t_k = t_k;
+  p.scale = scale;
+  p.scale_log2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 128) return static_cast<int>(launch_dkv<128>(p, batch, heads, s));
-  if (head_dim == 64) return static_cast<int>(launch_dkv<64>(p, batch, heads, s));
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-extern "C" int ltx_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
-                                          const void* dout, void* dq, void* dk, void* dv,
-                                          const void* l, const void* m, const void* di,
-                                          const void* kv_valid, int batch, int heads, int t_q,
-                                          int t_k, int head_dim, const int64_t* strides,
-                                          float scale, void* stream) {
-  const BwdParams p = make_params(q, k, v, dout, dq, dk, dv, l, m, di, kv_valid, t_q, t_k, strides,
-                                  scale);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 128) return static_cast<int>(launch_dq<128>(p, batch, heads, s));
-  if (head_dim == 64) return static_cast<int>(launch_dq<64>(p, batch, heads, s));
+  if (head_dim == 128) return static_cast<int>(launch<128>(q, k, v, dout, dq_acc, p, batch, heads, strides, s));
+  if (head_dim == 64) return static_cast<int>(launch<64>(q, k, v, dout, dq_acc, p, batch, heads, strides, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,7 +1,9 @@
-// Device helpers shared by the flash-attention forward (flash_attention.cu)
-// and backward (flash_attention_bwd.cu) kernels for Hopper (sm_90a):
+// Device helpers of the mma.sync kernels for Hopper (sm_90a), the
+// flash-attention forward (flash_attention.cu) and the conv (conv3d.cu):
 // cp.async tile loads into XOR-swizzled shared memory, ldmatrix, and the
-// mma.sync m16n8k16 bf16 product with fp32 accumulation.
+// mma.sync m16n8k16 bf16 product with fp32 accumulation; and the softmax
+// normaliser convention (`row_lse2`) the backward (flash_attention_bwd.cu,
+// built on sm90_common.cuh) reads the forward's residuals with.
 //
 // Fragment conventions of mma.sync.m16n8k16 used by both files: an fp32
 // accumulator tile of 16 rows x 8 columns holds, in lane (g = lane / 4,

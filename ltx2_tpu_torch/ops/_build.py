@@ -26,7 +26,7 @@ KERNEL_SOURCES = {
     "bwd": _CSRC / "flash_attention_bwd.cu",
     "conv3d": _CSRC / "conv3d.cu",
 }
-_HEADERS = (_CSRC / "flash_common.cuh",)
+_HEADERS = (_CSRC / "flash_common.cuh", _CSRC / "sm90_common.cuh")
 BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,10 +39,9 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 KERNEL_FUNCTIONS = {
     # q, k, v, o, kv_valid, l, m; batch, heads, t_q, t_k, head_dim; 13 strides; scale, stream
     "ltx_flash_attention_fwd": ("fwd", [_P] * 7 + [_I] * 5 + [_I64] * 13 + [ctypes.c_float, _P]),
-    # q, k, v, dO, dQ, dK, dV, l, m, Di, kv_valid; batch, heads, t_q, t_k, head_dim;
-    # 22 strides; scale, stream
-    "ltx_flash_attention_bwd_dkv": ("bwd", [_P] * 11 + [_I] * 5 + [ctypes.POINTER(_I64), ctypes.c_float, _P]),
-    "ltx_flash_attention_bwd_dq": ("bwd", [_P] * 11 + [_I] * 5 + [ctypes.POINTER(_I64), ctypes.c_float, _P]),
+    # q, k, v, dO, dQ accumulator (fp32), dK, dV, l, m, Di, kv_valid; batch, heads,
+    # t_q, t_k, head_dim; 19 strides; scale, stream
+    "ltx_flash_attention_bwd": ("bwd", [_P] * 11 + [_I] * 5 + [ctypes.POINTER(_I64), ctypes.c_float, _P]),
     # x, w, bias, out; fp32 flag, batch, t, h, w, cin, cout, kt, causal,
     # spatial zeros, temporal zeros; stream
     "ltx_conv3d_ndhwc": ("conv3d", [_P] * 4 + [_I] * 11 + [_P]),

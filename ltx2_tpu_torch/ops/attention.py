@@ -9,13 +9,14 @@ CUDA tensor the kernels cannot take raises.
   forward, plain and key-masked), optionally writing the softmax residuals
   l and m (`flash_attention_residuals`, the counterpart of
   `ltx2_tpu/parallel/ring_attention.py::_flash_impl_residuals`);
-- `csrc/flash_attention_bwd.cu`: the backward, split as Pallas splits it
-  into a dK/dV kernel (`flash_attention_bwd_dkv`) and a dQ kernel
-  (`flash_attention_bwd_dq`).
+- `csrc/flash_attention_bwd.cu`: the backward, one fused wgmma + TMA kernel
+  for both Pallas backward kernels (dK/dV and dQ): dK and dV are written
+  once per key block, dQ is added across key blocks into an fp32
+  accumulator (`flash_attention_bwd_kernel`).
 
 `flash_attention` is differentiable through `FlashAttention`, an autograd
 Function whose forward saves (q, k, v, o, l, m) and whose backward launches
-the two backward kernels; without a gradient to compute it launches the
+the backward kernel; without a gradient to compute it launches the
 forward alone, without residuals. Each kernel is built from the repository's
 source with nvcc into `ltx2_tpu_torch/_build/` on first use and loaded with
 ctypes (`ops/_build.py`, shared with the conv kernel). Each wrapper counts its
@@ -234,7 +235,13 @@ def _check_stats(name: str, x: torch.Tensor, q: torch.Tensor) -> None:
                          f"{q.device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
 
 
-def _launch_bwd(fn_name, q, k, v, do, l, m, di, scale, kv_valid, dq, dk, dv) -> None:
+def flash_attention_bwd_kernel(q, k, v, do, l, m, di, scale, kv_valid=None):
+    """(dQ, dK, dV) from the fused backward kernel on CUDA (B, H, T, D) bf16
+    tensors; l, m are the forward's residuals and di = rowsum(dO * O), fp32
+    (B, H, T_q). The kernel adds each key block's share of dQ (scale
+    included) into a zeroed fp32 token-major (B, T_q, H, D) accumulator,
+    rounded to bf16 here by one cast; the outputs are views of token-major
+    storage. Raises on what the kernel does not take."""
     kv_sb = _check_shapes(q, k, v, kv_valid)
     _check_operand("dO", do, q.device)
     if do.shape != q.shape:
@@ -242,45 +249,30 @@ def _launch_bwd(fn_name, q, k, v, do, l, m, di, scale, kv_valid, dq, dk, dv) -> 
     for name, x in (("l", l), ("m", m), ("Di", di)):
         _check_stats(name, x, q)
     b, h, t_q, d = q.shape
-    strides = (_I64 * 22)(*_bth(q), *_bth(k), *_bth(v), *_bth(do), *_bth(dq), *_bth(dk), *_bth(dv), kv_sb)
+    t_k = k.shape[2]
+    dk, dv = _token_major(b, h, t_k, d, k.device), _token_major(b, h, t_k, d, k.device)
+    dq_acc = torch.zeros((b, t_q, h, d), dtype=torch.float32, device=q.device)
+    strides = (_I64 * 19)(*_bth(q), *_bth(k), *_bth(v), *_bth(do), *_bth(dk), *_bth(dv), kv_sb)
     with torch.cuda.device(q.device):
-        err = kernel(fn_name)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), _ptr(dq), _ptr(dk), _ptr(dv),
-            l.data_ptr(), m.data_ptr(), di.data_ptr(), _ptr(kv_valid),
-            b, h, t_q, k.shape[2], d, strides, float(scale), _stream(q.device),
+        err = kernel("ltx_flash_attention_bwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), l.data_ptr(), m.data_ptr(), di.data_ptr(), _ptr(kv_valid),
+            b, h, t_q, t_k, d, strides, float(scale), _stream(q.device),
         )
     if err != 0:
-        raise RuntimeError(f"{fn_name}: kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"flash_attention backward: kernel launch failed with CUDA error {err}")
+    flash_attention_bwd_kernel.launches += 1
+    return dq_acc.to(torch.bfloat16).transpose(1, 2), dk, dv
 
 
-def flash_attention_bwd_dkv(q, k, v, do, l, m, di, scale, kv_valid=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dK, dV) from the dK/dV kernel on CUDA (B, H, T, D) bf16 tensors; l, m
-    are the forward's residuals and di = rowsum(dO * O), fp32 (B, H, T_q).
-    The outputs are views of token-major storage."""
-    b, h, t_k, d = k.shape
-    dk, dv = _token_major(b, h, t_k, d, k.device), _token_major(b, h, t_k, d, k.device)
-    _launch_bwd("ltx_flash_attention_bwd_dkv", q, k, v, do, l, m, di, scale, kv_valid, None, dk, dv)
-    flash_attention_bwd_dkv.launches += 1
-    return dk, dv
-
-
-def flash_attention_bwd_dq(q, k, v, do, l, m, di, scale, kv_valid=None) -> torch.Tensor:
-    """dQ from the dQ kernel; arguments as flash_attention_bwd_dkv."""
-    dq = _token_major(*q.shape, q.device)
-    _launch_bwd("ltx_flash_attention_bwd_dq", q, k, v, do, l, m, di, scale, kv_valid, dq, None, None)
-    flash_attention_bwd_dq.launches += 1
-    return dq
-
-
-flash_attention_bwd_dkv.launches = 0
-flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_kernel.launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, l, m, do, scale=None, kv_valid=None):
     """(dQ, dK, dV) of flash attention from the forward's saved tensors and
     residuals. A CPU tensor takes flash_attention_bwd_plain; a CUDA tensor
     computes Di = rowsum(dO * O) with torch ops (upstream does it outside
-    its kernels too), then launches the dK/dV and the dQ kernels, or raises."""
+    its kernels too), then launches the fused backward kernel, or raises."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
@@ -288,16 +280,14 @@ def flash_attention_bwd(q, k, v, o, l, m, do, scale=None, kv_valid=None):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if do.stride(-1) != 1 or any(s % 8 for s in do.stride()[:3]) or do.data_ptr() % 16:
-        do = do.contiguous()  # an upstream op handed back a layout the kernels cannot read
-    di = (o.float() * do.float()).sum(dim=-1).contiguous()
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, l, m, di, scale, kv_valid)
-    dq = flash_attention_bwd_dq(q, k, v, do, l, m, di, scale, kv_valid)
-    return dq, dk, dv
+        do = do.contiguous()  # an upstream op handed back a layout the kernel cannot read
+    di = (o.float() * do).sum(dim=-1).contiguous()  # fp32 products: do is promoted inside the multiply
+    return flash_attention_bwd_kernel(q, k, v, do, l, m, di, scale, kv_valid)
 
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention: the forward kernel with residuals,
-    then the two backward kernels (plain versions on the CPU)."""
+    then the backward kernel (plain versions on the CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, kv_valid):
@@ -325,7 +315,7 @@ def flash_attention(
 
     A CPU tensor takes the plain versions; a CUDA tensor launches the
     kernels on the current stream or raises. With a gradient to compute it
-    goes through FlashAttention (forward with residuals, backward kernels);
+    goes through FlashAttention (forward with residuals, backward kernel);
     without one it launches the forward alone and writes no residuals. Any
     (B, H, T) strides are taken (D must be unit-stride), so token-major
     (B, T, H*D) activations viewed as (B, H, T, D) go in without a copy. The

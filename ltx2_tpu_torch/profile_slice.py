@@ -44,10 +44,8 @@ def _kernel_class(name: str) -> str:
     n = name.lower()
     if "flash_fwd_kernel" in n:
         return "flash_attention_fwd"
-    if "flash_bwd_dkv_kernel" in n:
-        return "flash_attention_bwd_dkv"
-    if "flash_bwd_dq_kernel" in n:
-        return "flash_attention_bwd_dq"
+    if "flash_bwd_kernel" in n:
+        return "flash_attention_bwd"
     if "conv3d_bf16_kernel" in n or "conv3d_f32_kernel" in n:
         return "conv3d_implicit_gemm"
     if "fprop" in n or "conv" in n or "dgrad" in n or "implicit" in n:

@@ -103,3 +103,80 @@ def test_no_residuals_without_a_gradient():
     with torch.no_grad():
         assert attention.flash_attention(q.requires_grad_(), q, q).grad_fn is None
 
+
+
+LOG2E = 1.4426950408889634
+
+
+def _kernel_order_bwd(q, k, v, o, l, m, do, scale, kv_valid=None):
+    """The backward in the fused CUDA kernel's own order, in fp32: 128-key
+    blocks outer, 64-row query tiles inner (both zero-padded at the ragged
+    end); lse2 = m log2(e) + log2(l), +inf for a padded or all-masked row;
+    P = 0 for padded and invalid keys; dK and dV accumulated per key block,
+    dQ * scale added across key blocks into an fp32 accumulator."""
+    b, h, t_q, d = q.shape
+    t_k = k.shape[2]
+    di = (o * do).sum(-1)
+    lse2 = torch.where(l > 0, m * LOG2E + torch.log2(l), torch.full_like(l, float("inf")))
+    valid = torch.ones(b, t_k, dtype=torch.bool) if kv_valid is None else kv_valid.bool()
+
+    def pad(x, n, rows, value=0.0):  # rows n .. n + rows of the token axis (-2 for tiles, -1 for rows)
+        axis = x.ndim - 2 if x.ndim == 4 else x.ndim - 1
+        part = x.narrow(axis, n, min(rows, x.shape[axis] - n))
+        shape = list(part.shape)
+        shape[axis] = rows - part.shape[axis]
+        return torch.cat([part, torch.full(shape, value, dtype=x.dtype)], axis)
+
+    dq_acc = torch.zeros(b, h, t_q, d)
+    dk, dv = torch.zeros(b, h, t_k, d), torch.zeros(b, h, t_k, d)
+    for n0 in range(0, t_k, 128):
+        kb, vb = pad(k, n0, 128), pad(v, n0, 128)
+        key_ok = pad(valid, n0, 128, False)[:, None, :, None]
+        dkb, dvb = torch.zeros(b, h, 128, d), torch.zeros(b, h, 128, d)
+        for q0 in range(0, t_q, 64):
+            qt, dot = pad(q, q0, 64), pad(do, q0, 64)
+            lse_t, di_t = pad(lse2, q0, 64, float("inf")), pad(di, q0, 64)
+            st = kb @ qt.transpose(-1, -2)
+            pt = torch.where(key_ok, torch.exp2(st * (scale * LOG2E) - lse_t[:, :, None, :]), torch.zeros(()))
+            dst = pt * (vb @ dot.transpose(-1, -2) - di_t[:, :, None, :])
+            dvb += pt @ dot
+            dkb += dst @ qt
+            rows = min(64, t_q - q0)
+            dq_acc[:, :, q0:q0 + rows] += (dst.transpose(-1, -2) @ kb * scale)[:, :, :rows]
+        rows = min(128, t_k - n0)
+        dk[:, :, n0:n0 + rows] = dkb[:, :, :rows] * scale
+        dv[:, :, n0:n0 + rows] = dvb[:, :, :rows]
+    return dq_acc, dk, dv
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("masked", [False, True])
+def test_kernel_order_matches_jax(d, masked):
+    b, h, t_q, t_k = 2, 2, 100, 333
+    q, k, v, do = randn(b, h, t_q, d), randn(b, h, t_k, d), randn(b, h, t_k, d), randn(b, h, t_q, d)
+    valid, mask = _key_mask(b, t_k, 3) if masked else (None, None)
+    jmask = None if mask is None else jnp.asarray(mask)
+
+    def jloss(q, k, v):
+        return jnp.sum(jattn.sdpa(q, k, v, mask=jmask) * jnp.asarray(do))
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    kv_valid = None if valid is None else torch.from_numpy(valid)
+    scale = d ** -0.5
+    o, l, m = attention.flash_attention_residuals_plain(t(q), t(k), t(v), scale, kv_valid)
+    grads = _kernel_order_bwd(t(q), t(k), t(v), o, l, m, t(do), scale, kv_valid)
+    for name, g, jg in zip(("dq", "dk", "dv"), grads, jgrads):
+        assert_close(g, jg, msg=f"d={d} masked={masked} {name}")
+
+
+def test_kernel_order_all_masked_row_gives_zero_grads():
+    q, k, v, do = (t(randn(2, 2, n, 64)) for n in (70, 130, 130, 70))
+    valid = torch.ones(2, 130, dtype=torch.bool)
+    valid[1] = False
+    o, l, m = attention.flash_attention_residuals_plain(q, k, v, 0.125, valid)
+    grads = _kernel_order_bwd(q, k, v, o, l, m, do, 0.125, valid)
+    plain = attention.flash_attention_bwd_plain(q, k, v, o, l, m, do, 0.125, valid)
+    for g, p in zip(grads, plain):
+        assert torch.isfinite(g).all()
+        assert torch.equal(g[1], torch.zeros_like(g[1]))
+        assert_close(g[0], p[0])

@@ -44,23 +44,38 @@ def test_flash_kernel_matches_plain_on_gpu():
 def test_backward_kernels_match_plain_on_gpu():
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    b, h, d = 2, 4, 128
-    x = {n: torch.randn(b, t_, h * d, device="cuda", generator=gen).bfloat16().view(b, t_, h, d).transpose(1, 2)
-         for n, t_ in (("q", 100), ("k", 333), ("v", 333), ("do", 100))}
-    valid = torch.ones(b, 333, dtype=torch.bool, device="cuda")
-    valid[0, 200:] = False
-    for mask in (None, valid):
-        leaves = [x[n].float().requires_grad_() for n in ("q", "k", "v")]
-        ref = torch.autograd.grad(attention.flash_attention_plain(*leaves, None, mask), leaves, x["do"].float())
-        o, l, m = attention.flash_attention_residuals(x["q"], x["k"], x["v"], None, mask)
-        _, l_ref, m_ref = attention.flash_attention_residuals_plain(x["q"], x["k"], x["v"], None, mask)
-        assert (l - l_ref).abs().max() <= 1e-4 * l_ref.abs().max()
-        assert (m - m_ref).abs().max() <= 1e-4 * m_ref.abs().max()
-        grads = attention.flash_attention_bwd(x["q"], x["k"], x["v"], o, l, m, x["do"], None, mask)
-        for g, r in zip(grads, ref):  # limits relative to the reference, as chip_smoke.py states them
-            g = g.float()
-            assert (g - r).abs().max() <= 2e-2 * r.abs().max()
-            assert (g - r).square().mean().sqrt() <= 1e-2 * r.square().mean().sqrt()
+    b, h = 2, 4
+    for d in (128, 64):
+        x = {n: torch.randn(b, t_, h * d, device="cuda", generator=gen).bfloat16().view(b, t_, h, d).transpose(1, 2)
+             for n, t_ in (("q", 100), ("k", 333), ("v", 333), ("do", 100))}
+        valid = torch.ones(b, 333, dtype=torch.bool, device="cuda")
+        valid[0, 200:] = False
+        for mask in (None, valid):
+            leaves = [x[n].float().requires_grad_() for n in ("q", "k", "v")]
+            ref = torch.autograd.grad(attention.flash_attention_plain(*leaves, None, mask), leaves, x["do"].float())
+            o, l, m = attention.flash_attention_residuals(x["q"], x["k"], x["v"], None, mask)
+            _, l_ref, m_ref = attention.flash_attention_residuals_plain(x["q"], x["k"], x["v"], None, mask)
+            assert (l - l_ref).abs().max() <= 1e-4 * l_ref.abs().max()
+            assert (m - m_ref).abs().max() <= 1e-4 * m_ref.abs().max()
+            before = attention.flash_attention_bwd_kernel.launches
+            grads = attention.flash_attention_bwd(x["q"], x["k"], x["v"], o, l, m, x["do"], None, mask)
+            again = attention.flash_attention_bwd(x["q"], x["k"], x["v"], o, l, m, x["do"], None, mask)
+            torch.cuda.synchronize()
+            assert attention.flash_attention_bwd_kernel.launches == before + 2  # one fused launch a call
+            for g, r in zip(grads, ref):  # limits relative to the reference, as chip_smoke.py states them
+                g = g.float()
+                assert (g - r).abs().max() <= 2e-2 * r.abs().max(), d
+                assert (g - r).square().mean().sqrt() <= 1e-2 * r.square().mean().sqrt(), d
+            # dK and dV are written once per key block: bitwise reproducible.
+            # dQ is summed over key blocks in fp32 in the order they finish.
+            assert torch.equal(grads[1], again[1]) and torch.equal(grads[2], again[2])
+            dq, dq2 = grads[0].float(), again[0].float()
+            assert (dq - dq2).abs().max() <= 1e-2 * dq.abs().max()
+    # What the kernel does not take raises on the card; nothing falls back.
+    q = torch.randn(1, 2, 64, 96, device="cuda").bfloat16()
+    l = torch.ones(1, 2, 64, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        attention.flash_attention_bwd(q, q, q, q, l, l, q)
 
 
 @pytest.mark.gpu
