@@ -7,20 +7,22 @@ card and nvcc; it exits non-zero without them, and without the package
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile the three kernel libraries from csrc/ with nvcc (flash
    forward, flash backward, conv3d), one process per source, started
-   together;
+   together; ptxas's registers and spill for each kernel (the bf16 conv
+   kernel must not spill) and HGMMA (wgmma) in the bf16 conv kernel's SASS;
 3. kernel check: the flash forward against `flash_attention_plain` on the
    card in bf16, at the DiT's self-attention (1, 32, 6144, 128), its text
    cross-attention (6144 queries x 1024 keys) and a ragged key-masked case,
    within limits relative to the plain output that two planted faults must
    fail; with kernel, plain, bound and scaled_dot_product_attention times;
 4. conv kernel check: the implicit-GEMM conv against `conv3d_plain` at the
-   serving paths' shapes (the decoder's stages S4 and S3 and its conv_out on
-   a decode tile in bf16 with reflect/replicate padding, a causal case with
-   ragged H and W, the upscaler's 1024 -> 1024 conv and its per-frame
-   1024 -> 4096 resampler in fp32 with zero padding), within relative limits
-   that two planted faults (a tap left out, the output x 1.03) must fail;
-   with kernel, plain, bound and cuDNN (F.conv3d) times; a shape the kernel
-   does not take must raise;
+   serving paths' shapes (the decoder's stages S4 and S3, its conv_out on a
+   decode tile, and on a two-stage decode tile a stage-1 res conv and the
+   stage-2 upsample conv, in bf16 with reflect/replicate padding; a causal
+   case with ragged H and W; the upscaler's 1024 -> 1024 conv and its
+   per-frame 1024 -> 4096 resampler in fp32 with zero padding), within
+   relative limits that two planted faults (a tap left out, the output
+   x 1.03) must fail; with kernel (also its own device time), plain, bound
+   and cuDNN (F.conv3d) times; a shape the kernel does not take must raise;
 5. serving path: `generate_videos` at full width and depth (48 layers, bf16,
    512x768x121f = 6144 tokens, 8 distilled steps, VAE decode in 7-frame
    chunks) for 2 requests of different seeds; checks the frames, the
@@ -141,7 +143,37 @@ def phase_build():
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln or "C75" in ln:
                 log(f"  ptxas: {ln.strip()}")
     log(f"build: wall {wall:.1f} s")
+    _check_conv_build(info["conv3d"])
     return wall
+
+
+def _check_conv_build(rec) -> None:
+    """The bf16 conv kernel (every N-tile instantiation) spills nothing, and
+    its SASS runs the products on wgmma (HGMMA). A log from a cached build
+    is empty: the spill check then rests on the build that made it."""
+    from ltx2_tpu_torch.ops._build import cuda_tool
+
+    entry, spills = None, {}
+    for ln in rec["log"].splitlines():
+        if "Compiling entry" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln
+        elif "spill stores" in ln and entry is not None and "conv3d_wgmma_kernel" in entry:
+            spills[entry] = ln.strip()
+    if rec["log"] and (len(spills) != 3 or any(not v.startswith("0 bytes stack frame, 0 bytes spill stores")
+                                                 for v in spills.values())):
+        raise AssertionError(f"bf16 conv kernel: ptxas spill lines {spills}")
+    sass = subprocess.run([cuda_tool("cuobjdump"), "-sass", str(rec["path"])], capture_output=True, text=True,
+                          check=True).stdout
+    fn, hgmma = None, {}
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+        elif "HGMMA" in ln and fn is not None:
+            hgmma[fn] = hgmma.get(fn, 0) + 1
+    wgmma = {k: v for k, v in hgmma.items() if "conv3d_wgmma_kernel" in k}
+    log(f"conv3d SASS: HGMMA instructions per kernel {wgmma}; ptxas {list(spills.values())}")
+    if len(wgmma) != 3:
+        raise AssertionError(f"bf16 conv kernel: HGMMA missing from its SASS ({hgmma})")
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -175,6 +207,24 @@ def _device_ms(fn, iters: int) -> dict:
         if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
             out[e.key] = (dev_us / 1e3 / iters, e.count / iters)
     return out
+
+
+def _kernel_ms(fn, kernel_name: str, iters: int, events_fn=None) -> tuple:
+    """(device ms per call of the kernels named `kernel_name`, how it was
+    timed, the profile by kernel) over `iters` calls of fn. The profiler
+    may record no device event at all (CUPTI is shared with whatever else
+    traces the card): after a second empty pass the time comes from CUDA
+    events around `events_fn` (default fn), which must launch little but
+    the kernel. A profile with device events but none of the kernel fails."""
+    for _ in range(2):
+        by_kernel = _device_ms(fn, iters)
+        if by_kernel:
+            ms = sum(ms_ for n, (ms_, _) in by_kernel.items() if kernel_name in n)
+            if not ms:
+                raise AssertionError(f"no {kernel_name} in the profile {sorted(by_kernel)}")
+            return ms, "profiler", by_kernel
+    log(f"profiler recorded no device events; {kernel_name} timed with CUDA events")
+    return _time_ms(events_fn or fn, iters), "cuda_events", {}
 
 
 def _mismatch(out, ref) -> dict:
@@ -281,6 +331,8 @@ CONV_CASES = (
     ("S3", (1, 61, 64, 96, 256), 256, 3, "bfloat16", False, "reflect", "replicate"),
     ("conv_out_tile", (1, 57, 128, 128, 128), 48, 3, "bfloat16", False, "reflect", "replicate"),
     ("causal_ragged", (2, 7, 30, 44, 128), 128, 3, "bfloat16", True, "reflect", "replicate"),
+    ("S1_tile_res", (1, 8, 16, 16, 1024), 1024, 3, "bfloat16", False, "reflect", "replicate"),
+    ("S2_tile_up", (1, 15, 32, 32, 512), 2048, 3, "bfloat16", False, "reflect", "replicate"),
     ("upscaler", (1, 16, 16, 24, 1024), 1024, 3, "float32", False, "zeros", "zeros"),
     ("resampler", (1, 16, 8, 12, 1024), 4096, 1, "float32", False, "zeros", "zeros"),
 )
@@ -290,7 +342,7 @@ def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal
     import torch
     import torch.nn.functional as F
 
-    from ltx2_tpu_torch.ops.conv3d import conv3d_ndhwc_kernel, conv3d_plain, kernel_layout
+    from ltx2_tpu_torch.ops.conv3d import conv3d_ndhwc_kernel, conv3d_plain, kernel_layout, wgmma_tile
 
     dev, dtype = torch.device("cuda"), getattr(torch, dtype_name)
     b, t, h, w, cin = shape
@@ -298,7 +350,7 @@ def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal
     x = torch.randn(shape, device=dev, generator=gen).to(dtype)
     weight = ((torch.rand(cout, cin, kt, 3, 3, device=dev, generator=gen) * 2 - 1) * bound_w).to(dtype)
     bias = (torch.rand(cout, device=dev, generator=gen) * 2 - 1) * bound_w
-    wk = kernel_layout(weight)
+    wk = kernel_layout(weight, k_major=dtype == torch.bfloat16)  # the order the kernel reads, as cached
     args = (causal, spatial_mode, temporal_mode)
 
     out = conv3d_ndhwc_kernel(x, wk, bias, *args)
@@ -315,6 +367,10 @@ def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal
     torch.cuda.synchronize()
 
     ms = _time_ms(lambda: conv3d_ndhwc_kernel(x, wk, bias, *args), 10)
+    kernel_name = "conv3d_wgmma_kernel" if dtype == torch.bfloat16 else "conv3d_f32_kernel"
+    # The wrapper launches the kernel alone (the weights are already in the
+    # order it reads), so CUDA events can stand in for the profiler.
+    kernel_ms, kernel_timed_by, _ = _kernel_ms(lambda: conv3d_ndhwc_kernel(x, wk, bias, *args), kernel_name, 3)
     plain_ms = _time_ms(lambda: conv3d_plain(x, wk, bias, *args), 2)
     # Library yardstick, never called by the port: cuDNN's conv3d in the same
     # dtype (TF32 off), on the NCDHW view of the channels-last input. Zero
@@ -340,9 +396,11 @@ def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal
         "spatial_mode": spatial_mode, "temporal_mode": temporal_mode,
         **{k: m[k] for k in m if k != "finite"}, "tol_max_rel": tol[0], "tol_rms_rel": tol[1],
         "planted_rms_rel": {k: p["rms_rel_err"] for k, p in planted.items()},
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+        "kernel": kernel_name, "tile": list(wgmma_tile(cout)) if dtype == torch.bfloat16 else [128, 128],
+        "ms": ms, "kernel_ms": kernel_ms, "kernel_timed_by": kernel_timed_by, "plain_ms": plain_ms,
+        "library_ms": library_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if flops / peak >= nbytes / PEAK_BYTES_PER_S else "bytes",
-        "tflops": flops / ms / 1e9,
+        "tflops": flops / ms / 1e9, "library_tflops": flops / library_ms / 1e9,
     }
     log(f"conv kernel check {name}: {json.dumps(rec)}")
     if not _accepted(m, *tol):
@@ -438,9 +496,13 @@ def _bwd_case(name, b, h, t_q, t_k, d, n_valid, gen):
 
     bwd_ms = _time_ms(lambda: A.flash_attention_bwd(q, k, v, o, l, m, do, scale, kv_valid), 10)
     # The fused kernel's own device time, apart from the accumulator's
-    # zeroing, the dQ conversion and Di, from one profiled pass.
-    by_kernel = _device_ms(lambda: A.flash_attention_bwd(q, k, v, o, l, m, do, scale, kv_valid), 5)
-    kernel_ms = sum(ms for n, (ms, _) in by_kernel.items() if "flash_bwd_kernel" in n)
+    # zeroing, the dQ conversion and Di, from one profiled pass (CUDA events
+    # around the wrapper, Di computed beforehand, if the profiler sees none).
+    di = (o.float() * do).sum(dim=-1).contiguous()
+    kernel_ms, kernel_timed_by, by_kernel = _kernel_ms(
+        lambda: A.flash_attention_bwd(q, k, v, o, l, m, do, scale, kv_valid), "flash_bwd_kernel", 5,
+        lambda: A.flash_attention_bwd_kernel(q, k, v, do, l, m, di, scale, kv_valid))
+    del di
     plain_ms = _time_ms(lambda: A.flash_attention_bwd_plain(q, k, v, o, l, m, do, scale, kv_valid), 2)
     # Library yardstick, never called by the port: the backward alone of
     # scaled_dot_product_attention on the same (contiguous) inputs, and the
@@ -470,7 +532,7 @@ def _bwd_case(name, b, h, t_q, t_k, d, n_valid, gen):
         "grads": {k_: {x: r[x] for x in ("max_rel_err", "rms_rel_err", "max_abs_err")} for k_, r in checks.items()},
         "tol_max_rel": TOL_BWD_MAX_REL, "tol_rms_rel": TOL_BWD_RMS_REL, "tol_residuals_rel": TOL_RES_REL,
         "planted_rms_rel": {k_: p["rms_rel_err"] for k_, p in planted.items()},
-        "bwd_ms": bwd_ms, "kernel_ms": kernel_ms,
+        "bwd_ms": bwd_ms, "kernel_ms": kernel_ms, "kernel_timed_by": kernel_timed_by,
         "device_ms_by_kernel": {n[:80]: v_[0] for n, v_ in by_kernel.items()},
         "plain_ms": plain_ms, "library_ms": library_ms, "library_kernels": library_kernels,
         "bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -942,6 +1004,7 @@ def main():
             "name": "conv3d_implicit_gemm",
             "route": "cuda",
             "source": "ltx2_tpu_torch/csrc/conv3d.cu",
+            "kernels": {"bfloat16": "conv3d_wgmma_kernel", "float32": "conv3d_f32_kernel"},
             "replaces": "scripts/bench_conv_pallas.py:116 (conv3d_pallas, pallas_call :140); "
                         "scripts/bench_conv_pallas.py:223 (conv3d_pallas_v2, pallas_call :247); "
                         "scripts/bench_conv_pallas.py:357 (conv3d_pallas_v3, pallas_call :378)",

@@ -16,39 +16,77 @@
 // temporal extent of 1 for the resampler's per-frame conv (:81-100).
 //
 // GEMM view: M = output voxels (B*T*H*W, a tile of consecutive voxels in
-// NDHWC order), N = Cout, K = taps x Cin in the weight layout
-// (kT, kH, kW, Cin, Cout) that the Pallas wrapper builds as `w_flat` (:134);
-// the caller reorders the weights once, not per call. Padding is index math
-// in the gather (reflect i < 0 -> -i, i >= n -> 2n - 2 - i; replicate clamps;
-// zeros is a predicated zero fill of cp.async), so no padded copy of the
-// input is made, unlike the Pallas wrapper's jnp.pad (:126-131).
+// NDHWC order), N = Cout, K = taps x Cin. Padding is index math in the
+// gather (reflect i < 0 -> -i, i >= n -> 2n - 2 - i; replicate clamps; zeros
+// is a zero-filled cp.async), so no padded copy of the input is made, unlike
+// the Pallas wrapper's jnp.pad (:126-131); TMA's im2col mode could only pad
+// with zeros.
 //
 // Bound on an H100 SXM: at the decoder's last stage (121 x 128 x 192 voxels,
 // 128 -> 128 channels) a conv is 2.6 TFLOP against 190 MB of input and
 // output, 2.7 ms of bf16 tensor-core time against 0.06 ms of memory time;
-// every conv of the decoder and the upscaler is bound by operations.
-//   - bf16 (the decoder): mma.sync m16n8k16 with fp32 accumulators, a 128 x
-//     128 output tile per block of 8 warps (each 64 x 32), K in steps of 64
-//     channels of one tap, three cp.async stages in XOR-swizzled shared
-//     memory (the helpers of flash_common.cuh);
-//   - fp32 (the upscaler, which the JAX package runs in fp32): the same
-//     tiling with an FFMA inner product, 128 x 128 per block, each thread an
-//     8 x 8 register tile, K in steps of 8 channels.
-// Left for later work: wgmma, TMA and warp specialisation.
+// every conv of the decoder and the upscaler is bound by operations. What
+// holds a kernel back is the operand traffic into the SMs: every K step
+// brings a BM x 64 input tile and a BN x 64 weight tile from L2 (the input,
+// re-read once per tap, is far larger than what L2 could serve from one
+// read), and the tensor cores read both again from shared memory.
 //
-// C interface, for ctypes: ltx_conv3d_ndhwc returns the launch's
-// cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a shape
-// it does not take (kT not 1 or 3, Cin % 16 != 0, Cout % 8 != 0).
+// bf16 (the decoder), `conv3d_wgmma_kernel`: warp-specialised, persistent
+// (one CTA per SM walks output tiles, M tiles fastest, so the input rows the
+// CTAs share stay in L2), 3 warpgroups:
+//   - a producer warpgroup (setmaxnreg down) fills a ring of kRing stages
+//     guarded by full/empty mbarriers. Per tile it builds a row table in
+//     shared memory: for each voxel row the frame, row and column parts of
+//     the input voxel index that each temporal, vertical and horizontal tap
+//     reads (padding is separable, so 9 entries serve 27 taps; kPad where
+//     zeros are read). Per K step (one tap, 64 channels) each thread sums
+//     three entries for each of its rows and issues 16-byte cp.async into a
+//     128-byte-swizzled [BM][64] A tile, zero-filling padding and channels
+//     past Cin; the stage's full barrier counts the copies' completion
+//     (cp.async.mbarrier.arrive.noinc). One thread loads the B tile by TMA:
+//     a box of the K-major (taps, Cout, Cin) weights, zero past Cout and Cin.
+//   - two consumer warpgroups (setmaxnreg up) each own BM / 2 rows and run
+//     wgmma m64nBNk16 with both operands K-major in shared memory, one
+//     product group in flight; fence.proxy.async after each full barrier,
+//     as the cp.async writes are generic-proxy writes. A stage is released
+//     once the next step's products are issued and its own have completed.
+//   - the epilogue adds the fp32 bias and rounds once to bf16, straight
+//     from the accumulator fragment, while the producer fills the next
+//     tile's stages.
+// Tiles (BM x BN), the N tile fitted to Cout: 256 x 48 for Cout <= 48
+// (conv_out), 128 x 256 where Cout % 256 == 0 (S1-S3 res convs, the
+// upsample convs), else 256 x 128. 256 rows (or 256 outputs) a CTA halve
+// the weight (or input) bytes per product against a 128 x 128 tile: 85
+// FLOP per byte brought into shared memory instead of 64.
+// Left for later: with the products alone or the loads alone the kernel
+// runs near the card's bf16 peak or L2's rate, together they overlap only
+// in part (probe_conv.py; PERF.md). Reusing the gathered input across the
+// 9 spatial taps would cut the bytes the most; a 2-CTA weight multicast and
+// L1-cached gathers did not help.
+//
+// fp32 (the upscaler, which the JAX package runs in fp32),
+// `conv3d_f32_kernel`: a 128 x 128 output tile per block of 8 warps, each
+// thread an 8 x 8 register tile of FFMA, K in steps of 8 channels, three
+// cp.async stages; TF32 wgmma would compute another function.
+//
+// C interface, for ctypes: ltx_conv3d_ndhwc takes the weights as
+// (kT, 3, 3, Cin, Cout) for fp32 and K-major (kT, 3, 3, Cout, Cin) for bf16;
+// it returns the launch's cudaGetLastError() (0 = launched), or
+// cudaErrorInvalidValue for a shape it does not take (kT not 1 or 3,
+// Cin % 16 != 0, Cout % 8 != 0, 2^31 output voxels or more in bf16) or
+// weights TMA cannot address.
 
 #include "flash_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
 using namespace ltx_flash;
+using namespace ltx_sm90;
 
 struct ConvParams {
   const void* x;      // (B, T, H, W, Cin)
-  const void* wgt;    // (kT, 3, 3, Cin, Cout)
+  const void* wgt;    // (kT, 3, 3, Cin, Cout) for fp32, (kT, 3, 3, Cout, Cin) for bf16
   const float* bias;  // (Cout), or null
   void* out;          // (B, T, H, W, Cout)
   int t, h, w, cin, cout, kt;
@@ -101,119 +139,212 @@ __device__ __forceinline__ int64_t tap_offset(const ConvParams& p, const Voxel& 
   return ((int64_t(v.bt0 + ti) * p.h + hi) * p.w + wi) * p.cin;
 }
 
-constexpr int kStages = 3;
-constexpr int kThreads = 256;
-
 // ---------------------------------------------------------------- bf16
-constexpr int kBM = 128, kBN = 128, kBK = 64;
-constexpr uint32_t kTileA = kBM * kBK * 2;  // [128 voxels][64 channels], 8 chunks a row
-constexpr uint32_t kTileB = kBK * kBN * 2;  // [64 channels][128 outputs], 16 chunks a row
-constexpr int kSmemBf16 = kStages * (kTileA + kTileB);
+// Warp-specialised implicit GEMM on wgmma (see the note above). A CTA walks
+// output tiles of BM voxels x BN output channels: tile blockIdx.x, then
+// every gridDim.x-th, M tiles fastest. K runs in steps of 64 channels of
+// one tap, taps outermost.
+// Probes of what sets the pace (probe_conv.py), wrong results by design:
+// 1 = loads only (no products), 2 = products only (no loads).
+#ifndef LTX_CONV_PROBE
+#define LTX_CONV_PROBE 0
+#endif
+constexpr int kRing = 4;         // shared-memory stages of A and B
+constexpr int kWgThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int kProducerRegs = 56, kConsumerRegs = 224;
+constexpr int kPad = INT32_MIN;  // a row-table entry that reads zero padding
 
-__global__ void __launch_bounds__(kThreads) conv3d_bf16_kernel(const ConvParams p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t s_a = smem_addr(smem);
-  const uint32_t s_b = s_a + kStages * kTileA;
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
-  const __nv_bfloat16* wt = static_cast<const __nv_bfloat16*>(p.wgt);
+template <int BM, int BN>
+struct WgTile {
+  static constexpr int kRowsPerThread = BM / 16;  // producer: 8 threads a row, 16 rows a pass
+  static constexpr int kMI = BM / 128;            // m64 products per consumer warpgroup
+  static constexpr uint32_t kA = BM * 128;        // [BM voxels][64 channels], 128-byte swizzle
+  static constexpr uint32_t kB = BN * 128;        // [BN outputs][64 channels], 128-byte swizzle
+  static constexpr uint32_t kStage = kA + kB;
+  static constexpr uint32_t kTable = kRing * kStage;     // int32 [9][BM]: frame, row, column parts
+  static constexpr uint32_t kBars = kTable + 9 * BM * 4;  // full[kRing], empty[kRing]
+  static constexpr uint32_t kBytes = kBars + 2 * kRing * 8 + 1024;  // + alignment slack
+  static_assert(kStage % 1024 == 0, "stages must keep the 1024-byte swizzle alignment");
+};
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int64_t m0 = int64_t(blockIdx.x) * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;  // this warp's 64 x 32 output tile
+// Reflect (n >= 2) or, with zeros, kPad for an index outside [0, n).
+__device__ __forceinline__ int pad_index(int i, int n, bool zeros) {
+  if (i >= 0 && i < n) return i;
+  if (zeros) return kPad;
+  return i < 0 ? -i : 2 * n - 2 - i;
+}
 
-  // This thread's A chunks: voxels tid / 8 + 32 * i, channels 8 * (tid % 8)
-  // of the K step; its B chunks: K rows tid / 16 + 16 * i, outputs
-  // 8 * (tid % 16).
-  const int a_c = tid % 8, b_c = tid % 16;
-  Voxel rows[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) rows[i] = voxel_of(p, m0 + tid / 8 + 32 * i);
-  const int k_steps = (p.cin + kBK - 1) / kBK;
-  const int n_iter = p.kt * 9 * k_steps;
+template <int BM, int BN>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap wmap, const ConvParams p, int m_tiles, int tiles) {
+  using L = WgTile<BM, BN>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  int* s_tab = reinterpret_cast<int*>(smem_raw + (base - smem_addr(smem_raw)) + L::kTable);
+  const uint32_t bar_full = base + L::kBars, bar_empty = bar_full + 8 * kRing;
+  const int taps = p.kt * 9, k_chunks = (p.cin + 63) / 64, n_iter = taps * k_chunks;
+  const int wg = threadIdx.x / 128;
 
-  auto load = [&](int it, int stage) {
-    const int tap = it / k_steps, c0 = (it - tap * k_steps) * kBK;
-    const int dt = tap / 9, dh = (tap / 3) % 3, dw = tap % 3;
-    const uint32_t sa = s_a + stage * kTileA, sb = s_b + stage * kTileB;
-    const int ch = c0 + a_c * 8;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      bool ok;
-      const int64_t off = tap_offset(p, rows[i], dt, dh, dw, ok);
-      ok = ok && ch < p.cin;
-      cp_async16(sa + swz<8>(tid / 8 + 32 * i, a_c), ok ? x + off + ch : x, ok);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(bar_full + 8 * s, 128 + 1);  // a cp.async arrival per producer thread + the TMA's
+      mbar_init(bar_empty + 8 * s, 8);       // every consumer warp
     }
-    const int n = n0 + b_c * 8;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = tid / 16 + 16 * i;
-      const bool ok = c0 + r < p.cin && n < p.cout;
-      cp_async16(sb + swz<16>(r, b_c), ok ? wt + (int64_t(tap) * p.cin + c0 + r) * p.cout + n : wt, ok);
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_iter) load(s, s);
-    cp_async_commit();
+    fence_mbar_init();
   }
-  for (int it = 0; it < n_iter; ++it) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // step it has landed; every warp is done with step it - 1's stage
-    const int next = it + kStages - 1;
-    if (next < n_iter) load(next, next % kStages);
-    cp_async_commit();
+  __syncthreads();
 
-    const int stage = it % kStages;
-    const uint32_t sa = s_a + stage * kTileA, sb = s_b + stage * kTileB;
+  if (wg == 0) {
+    // ---- producer: A gathered by cp.async, B by TMA ----
+    warpgroup_reg_dealloc<kProducerRegs>();
+    const int tid = threadIdx.x, chunk = tid % 8, row0 = tid / 8;
+    // Row row0 + 16 i, chunk `chunk` of a stage's A tile (row % 8 = row0 % 8).
+    const uint32_t a_off = row0 * 128 + ((chunk ^ (row0 & 7)) << 4);
+    const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
+    if (tid == 0) prefetch_tensor_map(&wmap);
+    const int hw = p.h * p.w;
+    uint32_t it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int64_t m0 = int64_t(tile % m_tiles) * BM;
+      const int n0 = (tile / m_tiles) * BN;
+      // Row table: for each voxel row, the frame, row and column parts of
+      // the input voxel index each tap reads (separable, so 9 entries cover
+      // 27 taps); kPad where the tap reads zeros, and for rows past M.
+      named_barrier_sync(1, 128);  // the previous tile's table is no longer read
+      for (int r = tid; r < BM; r += 128) {
+        const int64_t m = m0 + r;
+        int f[3] = {kPad, kPad, kPad}, hh[3] = {kPad, kPad, kPad}, ww[3] = {kPad, kPad, kPad};
+        if (m < p.m) {
+          const int w = static_cast<int>(m % p.w);
+          const int64_t q = m / p.w;
+          const int h = static_cast<int>(q % p.h);
+          const int bt = static_cast<int>(q / p.h);
+          const int t = bt % p.t, bt0 = bt - t;
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t a[4][4];
+          for (int d = 0; d < 3; ++d) {
+            int ti = t + d - p.t_front;
+            if (ti < 0 || ti >= p.t) ti = p.temporal_zeros ? kPad : (ti < 0 ? 0 : p.t - 1);
+            f[d] = ti == kPad ? kPad : (bt0 + ti) * hw;
+            const int hi = pad_index(h + d - 1, p.h, p.spatial_zeros);
+            hh[d] = hi == kPad ? kPad : hi * p.w;
+            ww[d] = pad_index(w + d - 1, p.w, p.spatial_zeros);
+          }
+        }
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldmatrix_x4(a[mt], sa + swz<8>(wm + mt * 16 + (lane % 16), kk * 2 + lane / 16));
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, sb + swz<16>(kk * 16 + (lane % 8) + 8 * ((lane / 8) % 2),
-                                          wn / 8 + np * 2 + lane / 16));
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          mma_bf16(acc[mt][2 * np], a[mt], b[0], b[1]);
-          mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
+        for (int d = 0; d < 3; ++d) {
+          s_tab[d * BM + r] = f[d];
+          s_tab[(3 + d) * BM + r] = hh[d];
+          s_tab[(6 + d) * BM + r] = ww[d];
         }
       }
-    }
-  }
-  cp_async_wait<0>();
-
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+      named_barrier_sync(1, 128);
+      for (int k = 0; k < n_iter; ++k, ++it) {
+        const int tap = k / k_chunks, c0 = (k - tap * k_chunks) * 64;
+        const int dt = tap / 9, dh = (tap / 3) % 3, dw = tap % 3;
+        int vox[L::kRowsPerThread];
+        uint32_t ok = 0;
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int n = n0 + wn + nt * 8 + 2 * t4;
-    if (n >= p.cout) continue;  // Cout % 8 == 0: n + 1 is in range with n
-    const float b0 = p.bias ? p.bias[n] : 0.f, b1 = p.bias ? p.bias[n + 1] : 0.f;
+        for (int i = 0; i < L::kRowsPerThread; ++i) {
+          const int r = row0 + 16 * i;
+          const int a = s_tab[dt * BM + r], b = s_tab[(3 + dh) * BM + r], c = s_tab[(6 + dw) * BM + r];
+          vox[i] = a + b + c;
+          ok |= static_cast<uint32_t>((a | b | c) >= 0) << i;
+        }
+        const int ch = c0 + chunk * 8;
+        if (ch >= p.cin) ok = 0;  // channels past Cin: zero-filled
+        const int st = it % kRing;
+        const uint32_t s_a = base + st * L::kStage;
+        mbar_wait(bar_empty + 8 * st, ((it / kRing) & 1) ^ 1);
+#if LTX_CONV_PROBE == 2
+        if (tid == 0) mbar_arrive(bar_full + 8 * st);
+#else
+        if (tid == 0) {
+          mbar_arrive_expect_tx(bar_full + 8 * st, L::kB);
+          tma_load_4d(s_a + L::kA, &wmap, bar_full + 8 * st, c0, n0, tap, 0);
+        }
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int64_t m = m0 + wm + mt * 16 + g + 8 * half;
-        if (m >= p.m) continue;
-        *reinterpret_cast<__nv_bfloat162*>(out + m * p.cout + n) =
-            __floats2bfloat162_rn(acc[mt][nt][2 * half] + b0, acc[mt][nt][2 * half + 1] + b1);
+        for (int i = 0; i < L::kRowsPerThread; ++i) {
+          const bool oki = (ok >> i) & 1;
+          cp_async16(s_a + a_off + i * 2048, oki ? x + int64_t(vox[i]) * p.cin + ch : x, oki);
+        }
+#endif
+        cp_async_mbar_arrive_noinc(bar_full + 8 * st);
       }
+    }
+    cp_async_wait_all();
+  } else {
+    // ---- consumers: wgmma m64nBNk16, both operands K-major ----
+    warpgroup_reg_alloc<kConsumerRegs>();
+    const int cw = wg - 1;  // this warpgroup's rows: cw * 64 kMI .. + 64 kMI - 1
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+    // A stage is free once every consumer warp has read it.
+    auto release = [&](uint32_t stage) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * stage);
+    };
+    uint32_t it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int64_t m0 = int64_t(tile % m_tiles) * BM;
+      const int n0 = (tile / m_tiles) * BN;
+      float acc[L::kMI][BN / 2];
+#pragma unroll
+      for (int mi = 0; mi < L::kMI; ++mi)
+#pragma unroll
+        for (int j = 0; j < BN / 2; ++j) acc[mi][j] = 0.f;
+
+      for (int k = 0; k < n_iter; ++k, ++it) {
+        const int st = it % kRing;
+        mbar_wait(bar_full + 8 * st, (it / kRing) & 1);
+        fence_proxy_async();  // the cp.async (generic-proxy) writes, to wgmma's async proxy
+        // Addresses are rebuilt every step from an opaque base, so the
+        // descriptors do not hold registers across the loop.
+        const uint32_t s_a = opaque(base) + st * L::kStage, s_b = s_a + L::kA;
+        wgmma_fence();
+#if LTX_CONV_PROBE != 1
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int mi = 0; mi < L::kMI; ++mi)
+            wgmma_ss<BN>(acc[mi], wgmma_desc(s_a + (cw * L::kMI + mi) * 8192 + kk * 32, 16, 1024),
+                         wgmma_desc(s_b + kk * 32, 16, 1024));
+#endif
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous step's products have read their stage
+        if (k > 0) release((it - 1) % kRing);
+      }
+#pragma unroll
+      for (int mi = 0; mi < L::kMI; ++mi) fence_regs(acc[mi]);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int mi = 0; mi < L::kMI; ++mi) fence_regs(acc[mi]);
+      release((it - 1) % kRing);
+
+      // Epilogue: + bias in fp32, rounded once to bf16, straight from the
+      // accumulator fragment (row 16 warp + g + 8 half, column 8 j + 2 t4).
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int n = n0 + 8 * j + 2 * t4;
+        if (n >= p.cout) continue;  // Cout % 8 == 0: n + 1 is in range with n
+        const float b0 = p.bias ? p.bias[n] : 0.f, b1 = p.bias ? p.bias[n + 1] : 0.f;
+#pragma unroll
+        for (int mi = 0; mi < L::kMI; ++mi)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int64_t m = m0 + (cw * L::kMI + mi) * 64 + 16 * warp + g + 8 * half;
+            if (m >= p.m) continue;
+            *reinterpret_cast<__nv_bfloat162*>(out + m * p.cout + n) =
+                __floats2bfloat162_rn(acc[mi][4 * j + 2 * half] + b0, acc[mi][4 * j + 2 * half + 1] + b1);
+          }
+      }
+    }
   }
 }
 
 // ---------------------------------------------------------------- fp32
+constexpr int kStages = 3;
+constexpr int kThreads = 256;
 constexpr int kFBM = 128, kFBN = 128, kFBK = 8;
 constexpr uint32_t kFTileA = kFBM * kFBK * 4;  // [128 voxels][8 channels]
 constexpr uint32_t kFTileB = kFBK * kFBN * 4;  // [8 channels][128 outputs]
@@ -309,6 +440,32 @@ __global__ void __launch_bounds__(kThreads) conv3d_f32_kernel(const ConvParams p
   }
 }
 
+// The bf16 weights as a tensor map over (Cin, Cout, taps), innermost first,
+// read in boxes of 64 channels x BN outputs; channels past Cin and outputs
+// past Cout read as zero.
+template <int BM, int BN>
+cudaError_t launch_wgmma(const ConvParams& p, cudaStream_t stream) {
+  CUtensorMap wmap;
+  const int taps = p.kt * 9;
+  const uint64_t dims[4] = {uint64_t(p.cin), uint64_t(p.cout), uint64_t(taps), 1};
+  const uint64_t strides[3] = {uint64_t(p.cin) * 2, uint64_t(p.cout) * p.cin * 2, uint64_t(taps) * p.cout * p.cin * 2};
+  const uint32_t box[4] = {64, BN, 1, 1};
+  if (!encode_tensor_map_4d(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.wgt, dims, strides, box))
+    return cudaErrorInvalidValue;
+  constexpr int kSmem = WgTile<BM, BN>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(conv3d_wgmma_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kSmem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
+  const int m_tiles = static_cast<int>((p.m + BM - 1) / BM);
+  const int tiles = m_tiles * ((p.cout + BN - 1) / BN);
+  // Persistent: one CTA per SM (its shared memory allows no second).
+  conv3d_wgmma_kernel<BM, BN><<<tiles < sms ? tiles : sms, kWgThreads, kSmem, stream>>>(wmap, p, m_tiles, tiles);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ltx_conv3d_ndhwc(const void* x, const void* w, const void* bias, void* out, int fp32,
@@ -337,10 +494,8 @@ extern "C" int ltx_conv3d_ndhwc(const void* x, const void* w, const void* bias, 
     conv3d_f32_kernel<<<grid, kThreads, kSmemF32, s>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
-  cudaError_t err = cudaFuncSetAttribute(conv3d_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kSmemBf16);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((p.m + kBM - 1) / kBM), (cout + kBN - 1) / kBN);
-  conv3d_bf16_kernel<<<grid, kThreads, kSmemBf16, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  if (p.m >= (int64_t(1) << 31)) return static_cast<int>(cudaErrorInvalidValue);  // int32 voxel indices
+  if (cout <= 48) return static_cast<int>(launch_wgmma<256, 48>(p, s));
+  if (cout % 256 == 0) return static_cast<int>(launch_wgmma<128, 256>(p, s));
+  return static_cast<int>(launch_wgmma<256, 128>(p, s));
 }

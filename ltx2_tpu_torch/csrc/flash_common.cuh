@@ -1,11 +1,11 @@
-// Device helpers of the mma.sync kernels for Hopper (sm_90a), the
-// flash-attention forward (flash_attention.cu) and the conv (conv3d.cu):
-// cp.async tile loads into XOR-swizzled shared memory, ldmatrix, and the
-// mma.sync m16n8k16 bf16 product with fp32 accumulation; and the softmax
-// normaliser convention (`row_lse2`) the backward (flash_attention_bwd.cu,
-// built on sm90_common.cuh) reads the forward's residuals with.
+// Device helpers of the mma.sync flash-attention forward for Hopper
+// (sm_90a, flash_attention.cu): cp.async tile loads into XOR-swizzled shared
+// memory (also the fp32 conv's, conv3d.cu), ldmatrix, and the mma.sync
+// m16n8k16 bf16 product with fp32 accumulation; and the softmax normaliser
+// convention (`row_lse2`) the backward (flash_attention_bwd.cu, built on
+// sm90_common.cuh) reads the forward's residuals with.
 //
-// Fragment conventions of mma.sync.m16n8k16 used by both files: an fp32
+// Fragment conventions of mma.sync.m16n8k16: an fp32
 // accumulator tile of 16 rows x 8 columns holds, in lane (g = lane / 4,
 // t4 = lane % 4), the elements (g, 2*t4 + e) in c[e] and (g + 8, 2*t4 + e) in
 // c[2 + e], e = 0, 1. Two adjacent accumulator tiles, rounded to bf16, form

@@ -21,7 +21,9 @@ from ltx2_tpu_torch.ops.conv3d import conv3d, kernel_layout
 class Conv3d(nn.Module):
     """Parameter holder: weight (outC, inC, 3, 3, 3), or (outC, inC, 3, 3)
     when `per_frame`; bias (outC,). The kernel's (kT, kH, kW, inC, outC)
-    reordering of the weight is made once and kept until the weight changes."""
+    reordering of the weight (in bf16 a view of K-major (kT, kH, kW, outC,
+    inC) storage, the order the bf16 kernel reads) is made once and kept
+    until the weight changes."""
 
     def __init__(self, in_channels: int, out_channels: int, *, per_frame: bool = False, device=None,
                  dtype=torch.float32):
@@ -37,7 +39,7 @@ class Conv3d(nn.Module):
         w = self.weight
         key = (w.data_ptr(), w._version, w.device, dtype)
         if self._kernel_weight_key != key:
-            self._kernel_weight = kernel_layout(w.detach().to(dtype))
+            self._kernel_weight = kernel_layout(w.detach().to(dtype), k_major=dtype == torch.bfloat16)
             self._kernel_weight_key = key
         return self._kernel_weight
 

@@ -49,12 +49,13 @@ KERNEL_FUNCTIONS = {
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """The path of a CUDA toolkit program (nvcc, cuobjdump)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME is None:
         raise RuntimeError("no CUDA toolkit found (set CUDA_HOME): nvcc is needed to build the kernels")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
+    return os.path.join(CUDA_HOME, "bin", name)
 
 
 def _library_path(name: str) -> Path:
@@ -78,7 +79,7 @@ def build_kernels() -> Dict[str, dict]:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)],
+            [cuda_tool("nvcc"), *_NVCC_FLAGS, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         running[name] = (proc, tmp, out, time.perf_counter())

@@ -10,10 +10,14 @@ plus bias, output in x's dtype. Padding: spatial "reflect" (the VAE) or
 causal, else split around the clip) or "zeros". kT is 3, or 1 for a
 per-frame 3 x 3 conv (the upscaler's resampler).
 
-Weights are taken in the kernel's layout (kT, 3, 3, Cin, Cout) (the Pallas
-wrapper's `w_flat`); `kernel_layout` reorders a checkpoint-shaped
-(Cout, Cin, kT, 3, 3) or (Cout, Cin, 3, 3) weight into it, once per module
-(models/video_vae/conv.py caches it).
+Weights are taken in the layout (kT, 3, 3, Cin, Cout) (the Pallas wrapper's
+`w_flat`); `kernel_layout` reorders a checkpoint-shaped (Cout, Cin, kT, 3, 3)
+or (Cout, Cin, 3, 3) weight into it, once per module (models/video_vae/conv.py
+caches it). The fp32 kernel reads that layout contiguous. The bf16 kernel
+reads the weights K-major, stored as (kT, 3, 3, Cout, Cin): a weight whose
+`transpose(3, 4)` is contiguous (`kernel_layout(..., k_major=True)`, the
+form the module caches for bf16) goes in as it is, any other is copied into
+that order on each call.
 
 `conv3d` dispatches on the input's device: a CPU tensor takes
 `conv3d_plain`; a CUDA tensor launches the kernel (`conv3d_ndhwc_kernel`,
@@ -34,12 +38,26 @@ SPATIAL_MODES = ("reflect", "zeros")
 TEMPORAL_MODES = ("replicate", "zeros")
 
 
-def kernel_layout(weight: torch.Tensor) -> torch.Tensor:
+def kernel_layout(weight: torch.Tensor, k_major: bool = False) -> torch.Tensor:
     """(Cout, Cin, kT, kH, kW) or per-frame (Cout, Cin, kH, kW) ->
-    contiguous (kT, kH, kW, Cin, Cout), kT = 1 for the per-frame form."""
+    (kT, kH, kW, Cin, Cout), kT = 1 for the per-frame form: contiguous, or
+    with `k_major` a view of contiguous (kT, kH, kW, Cout, Cin) storage, the
+    order the bf16 kernel reads."""
     if weight.ndim == 4:
         weight = weight[:, :, None]
+    if k_major:
+        return weight.permute(2, 3, 4, 0, 1).contiguous().transpose(3, 4)
     return weight.permute(2, 3, 4, 1, 0).contiguous()
+
+
+def wgmma_tile(cout: int) -> tuple:
+    """(BM voxels, BN outputs) of the bf16 kernel's output tile for `cout`
+    outputs, as the C entry picks it: an N tile fitted to Cout."""
+    if cout <= 48:
+        return 256, 48
+    if cout % 256 == 0:
+        return 128, 256
+    return 256, 128
 
 
 def _check_modes(spatial_mode: str, temporal_mode: str) -> None:
@@ -122,10 +140,11 @@ def conv3d_ndhwc_kernel(
     temporal_mode: str = "replicate",
 ) -> torch.Tensor:
     """Launch the implicit-GEMM kernel on CUDA tensors: x (B, T, H, W, Cin)
-    contiguous bf16 or fp32, w (kT, 3, 3, Cin, Cout) contiguous in x's
-    dtype, b (Cout,) any float dtype (added in fp32). Raises for anything the
-    kernel does not take: another device or dtype, Cin % 16 != 0,
-    Cout % 8 != 0, a non-contiguous or misaligned operand."""
+    contiguous bf16 or fp32, w (kT, 3, 3, Cin, Cout) in x's dtype
+    (contiguous for fp32; for bf16 read through its K-major transpose, see
+    the module note), b (Cout,) any float dtype (added in fp32). Raises for
+    anything the kernel does not take: another device or dtype,
+    Cin % 16 != 0, Cout % 8 != 0, a non-contiguous or misaligned operand."""
     _check_modes(spatial_mode, temporal_mode)
     _check_shapes(x, w, b, spatial_mode)
     if x.device.type != "cuda" or w.device != x.device or (b is not None and b.device != x.device):
@@ -136,11 +155,15 @@ def conv3d_ndhwc_kernel(
     cin, cout = w.shape[3], w.shape[4]
     if cin % 16 or cout % 8:
         raise ValueError(f"conv3d kernel: needs Cin % 16 == 0 and Cout % 8 == 0, got Cin {cin}, Cout {cout}")
+    if x.dtype == torch.bfloat16:
+        w = w.transpose(3, 4)  # the K-major storage (kT, 3, 3, Cout, Cin)
+        if not w.is_contiguous():
+            w = w.contiguous()
     if not (x.is_contiguous() and w.is_contiguous()) or x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("conv3d kernel: x and w must be contiguous with 16-byte aligned bases")
     bsz, t, h, wd, _ = x.shape
-    if bsz * t * h * wd >= 2 ** 31 * 128:
-        raise ValueError(f"conv3d kernel: too many output voxels for the launch grid {tuple(x.shape)}")
+    if bsz * t * h * wd >= 2 ** 31:
+        raise ValueError(f"conv3d kernel: too many output voxels for 32-bit voxel indices {tuple(x.shape)}")
     bias = None if b is None else b.to(torch.float32).contiguous()
     out = torch.empty((bsz, t, h, wd, cout), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):

@@ -46,7 +46,7 @@ def _kernel_class(name: str) -> str:
         return "flash_attention_fwd"
     if "flash_bwd_kernel" in n:
         return "flash_attention_bwd"
-    if "conv3d_bf16_kernel" in n or "conv3d_f32_kernel" in n:
+    if "conv3d_wgmma_kernel" in n or "conv3d_f32_kernel" in n:
         return "conv3d_implicit_gemm"
     if "fprop" in n or "conv" in n or "dgrad" in n or "implicit" in n:
         return "convolution"

@@ -125,3 +125,116 @@ def test_no_library_conv_or_attention_in_the_port():
     found = [(str(f.relative_to(pkg.parent)), c) for f in sorted(pkg.rglob("*.py")) for c in calls
              if c in f.read_text()]
     assert not found, found
+
+
+# ---- the bf16 kernel's own order -------------------------------------------
+# csrc/conv3d.cu's `conv3d_wgmma_kernel` cannot run here; this is its tiling
+# in numpy, fp32: output tiles of BM voxels x BN outputs (M tiles fastest),
+# per tile the producer's separable row table (frame, row and column parts
+# of the input voxel index, kPad where zeros are read or past M), then K in
+# steps of 64 channels of one tap: the A tile gathered row by row (zero
+# where the table says kPad or the channel is past Cin), the B tile a box of
+# the K-major (taps, Cout, Cin) weights (zero past Cout and Cin, as TMA
+# fills it), A B^T summed into the tile's accumulator; bias added once.
+KPAD = -2 ** 31
+
+
+def _pad_index(i, n, zeros):
+    if 0 <= i < n:
+        return i
+    if zeros:
+        return KPAD
+    return -i if i < 0 else 2 * n - 2 - i
+
+
+def _row_table(m0, bm, dims, kt, causal, spatial_zeros, temporal_zeros):
+    b, t, h, w = dims
+    t_front = kt - 1 if causal else (kt - 1) // 2
+    tab = np.full((9, bm), KPAD, np.int64)
+    for r in range(bm):
+        m = m0 + r
+        if m >= b * t * h * w:
+            continue
+        col, q = m % w, m // w
+        row, bt = q % h, q // h
+        frame = bt % t
+        for d in range(3):
+            ti = frame + d - t_front
+            if not 0 <= ti < t:
+                ti = KPAD if temporal_zeros else min(max(ti, 0), t - 1)
+            tab[d, r] = KPAD if ti == KPAD else (bt - frame + ti) * h * w
+            hi = _pad_index(row + d - 1, h, spatial_zeros)
+            tab[3 + d, r] = KPAD if hi == KPAD else hi * w
+            tab[6 + d, r] = _pad_index(col + d - 1, w, spatial_zeros)
+    return tab
+
+
+def _kernel_order_conv(x, w, bias, causal, spatial_mode, temporal_mode):
+    """x (B, T, H, W, Cin), w (kT, 3, 3, Cin, Cout), numpy fp32, in the
+    kernel's order. Returns the output and the tiles' batch/frame/row spans."""
+    bsz, t, h, wd, cin = x.shape
+    kt, cout = w.shape[0], w.shape[4]
+    bm, bn = C.wgmma_tile(cout)
+    w_nk = w.transpose(0, 1, 2, 4, 3).reshape(kt * 9, cout, cin)  # the K-major storage
+    xf = x.reshape(-1, cin)
+    m_total = bsz * t * h * wd
+    m_tiles, n_tiles, k_chunks = -(-m_total // bm), -(-cout // bn), -(-cin // 64)
+    out = np.zeros((m_total, cout), np.float32)
+    spans = []
+    for tile in range(m_tiles * n_tiles):
+        m0, n0 = (tile % m_tiles) * bm, (tile // m_tiles) * bn
+        tab = _row_table(m0, bm, (bsz, t, h, wd), kt, causal, spatial_mode == "zeros", temporal_mode == "zeros")
+        acc = np.zeros((bm, bn), np.float32)
+        for k in range(kt * 9 * k_chunks):
+            tap, c0 = k // k_chunks, (k % k_chunks) * 64
+            dt, dh, dw = tap // 9, (tap // 3) % 3, tap % 3
+            parts = tab[dt], tab[3 + dh], tab[6 + dw]
+            ok = (parts[0] >= 0) & (parts[1] >= 0) & (parts[2] >= 0)
+            vox = parts[0] + parts[1] + parts[2]
+            ch = min(64, cin - c0)
+            a = np.zeros((bm, 64), np.float32)
+            a[ok, :ch] = xf[vox[ok], c0:c0 + ch]
+            nb = min(bn, cout - n0)
+            b_tile = np.zeros((bn, 64), np.float32)
+            b_tile[:nb, :ch] = w_nk[tap, n0:n0 + nb, c0:c0 + ch]
+            acc += a @ b_tile.T
+        rows, cols = min(bm, m_total - m0), min(bn, cout - n0)
+        out[m0:m0 + rows, n0:n0 + cols] = acc[:rows, :cols] + bias[n0:n0 + cols]
+        spans.append((m0 // (t * h * wd) != (m0 + rows - 1) // (t * h * wd),
+                      m0 // (h * wd) != (m0 + rows - 1) // (h * wd), m0 // wd != (m0 + rows - 1) // wd))
+    return out.reshape(bsz, t, h, wd, cout), spans
+
+
+# (name, x shape, Cout, kT, causal, spatial mode, temporal mode): Cin = 16
+# and Cout = 48 (the small decoder's conv_out), M tiles across rows, frames
+# and batches with ragged tails, W = 44 (not a multiple of anything the
+# kernel tiles by), Cin = 80 (a partly filled channel step), Cout 136 and
+# 256 (two N tiles with a ragged one; BN = 256), kT = 1.
+ORDER_CASES = [
+    ("reflect_replicate_causal_cin16_cout48", (1, 4, 5, 6, 16), 48, 3, True, "reflect", "replicate"),
+    ("reflect_replicate_symmetric_batch2", (2, 3, 7, 9, 32), 24, 3, False, "reflect", "replicate"),
+    ("zeros_zeros_cin80_cout136", (1, 3, 5, 6, 80), 136, 3, False, "zeros", "zeros"),
+    ("causal_w44", (1, 2, 6, 44, 16), 48, 3, True, "reflect", "replicate"),
+    ("kt1_zeros_cout256", (1, 3, 4, 5, 16), 256, 1, False, "zeros", "zeros"),
+]
+
+
+@pytest.mark.parametrize("name,shape,cout,kt,causal,spatial_mode,temporal_mode", ORDER_CASES,
+                         ids=[c[0] for c in ORDER_CASES])
+def test_kernel_order_matches_jax(name, shape, cout, kt, causal, spatial_mode, temporal_mode):
+    rng = np.random.default_rng(sum(map(ord, name)))
+    x = rng.standard_normal(shape).astype(np.float32)
+    w, b = _weights(rng, cout, shape[-1], kt)
+    out, spans = _kernel_order_conv(x, w.transpose(2, 3, 4, 1, 0), b, causal, spatial_mode, temporal_mode)
+    if kt == 1:  # the resampler's per-frame conv (models/upscaler/spatial.py:81-100)
+        ref = jax.lax.conv_general_dilated(
+            jnp.asarray(x.reshape(-1, *shape[2:])), jnp.asarray(w[:, :, 0].transpose(2, 3, 1, 0)), (1, 1),
+            [(1, 1), (1, 1)], dimension_numbers=("NHWC", "HWIO", "NHWC"), precision=jax.lax.Precision.HIGHEST,
+        ).reshape(*shape[:4], cout) + b
+    else:
+        ref = jconv.conv3d_ndhwc({"weight": jnp.asarray(w), "bias": jnp.asarray(b)}, jnp.asarray(x), causal=causal,
+                                 spatial_mode=spatial_mode, temporal_mode=temporal_mode)
+    assert_close(out, ref, msg=name)
+    # The M tiles cross frame and row boundaries (and batches where there are two).
+    assert any(frame for _, frame, _ in spans) and any(row for _, _, row in spans)
+    assert any(batch for batch, _, _ in spans) == (shape[0] > 1)

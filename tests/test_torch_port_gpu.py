@@ -84,10 +84,18 @@ def test_conv_kernel_matches_plain_on_gpu():
     from ltx2_tpu_torch.ops import conv3d as C
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # (x shape, Cout, kT, dtype, causal, spatial, temporal, limits relative to the plain output)
+    # (x shape, Cout, kT, dtype, causal, spatial, temporal, limits relative to the plain output):
+    # every bf16 N tile (48, 128, 256), the two-stage decode tile's stage-1
+    # res conv and stage-2 upsample conv, Cin = 16 with Cout = 48, ragged W,
+    # a partly filled channel step (Cin = 80), bf16 with zero padding and kT = 1.
     cases = [
         ((2, 5, 30, 44, 64), 128, 3, torch.bfloat16, True, "reflect", "replicate", (1e-2, 5e-3)),
         ((1, 3, 9, 13, 128), 48, 3, torch.bfloat16, False, "reflect", "replicate", (1e-2, 5e-3)),
+        ((1, 8, 16, 16, 1024), 1024, 3, torch.bfloat16, False, "reflect", "replicate", (1e-2, 5e-3)),
+        ((1, 15, 32, 32, 512), 2048, 3, torch.bfloat16, False, "reflect", "replicate", (1e-2, 5e-3)),
+        ((1, 5, 12, 44, 16), 48, 3, torch.bfloat16, True, "reflect", "replicate", (1e-2, 5e-3)),
+        ((2, 3, 5, 6, 80), 136, 3, torch.bfloat16, False, "zeros", "zeros", (1e-2, 5e-3)),
+        ((1, 3, 4, 5, 32), 256, 1, torch.bfloat16, False, "zeros", "zeros", (1e-2, 5e-3)),
         ((1, 4, 6, 7, 32), 40, 3, torch.float32, False, "zeros", "zeros", (1e-4, 1e-4)),
         ((1, 3, 5, 6, 48), 64, 1, torch.float32, False, "zeros", "zeros", (1e-4, 1e-4)),
         ((1, 1, 4, 4, 16), 8, 3, torch.bfloat16, False, "reflect", "replicate", (1e-2, 5e-3)),
