@@ -7,13 +7,18 @@ card and nvcc; it exits non-zero without them, and without the package
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile the three kernel libraries from csrc/ with nvcc (flash
    forward, flash backward, conv3d), one process per source, started
-   together; ptxas's registers and spill for each kernel (the bf16 conv
-   kernel must not spill) and HGMMA (wgmma) in the bf16 conv kernel's SASS;
+   together; ptxas's registers and spill for each kernel; the flash forward
+   (both head dims) and the bf16 conv kernel (three N tiles) must show 0
+   bytes of spill, no C7512 (wgmma serialised) warning and HGMMA (wgmma) in
+   their SASS;
 3. kernel check: the flash forward against `flash_attention_plain` on the
    card in bf16, at the DiT's self-attention (1, 32, 6144, 128), its text
-   cross-attention (6144 queries x 1024 keys) and a ragged key-masked case,
-   within limits relative to the plain output that two planted faults must
-   fail; with kernel, plain, bound and scaled_dot_product_attention times;
+   cross-attention (6144 queries x 1024 keys), a ragged key-masked case,
+   head dim 64 (1, 32, 2048, 64) and the two-stage recipe's stage-1
+   self-attention (1, 32, 1536, 128), within limits relative to the plain
+   output that two planted faults must fail; with the wrapper's and the
+   kernel's own device time, plain, bound and scaled_dot_product_attention
+   times;
 4. conv kernel check: the implicit-GEMM conv against `conv3d_plain` at the
    serving paths' shapes (the decoder's stages S4 and S3, its conv_out on a
    decode tile, and on a two-stage decode tile a stage-1 res conv and the
@@ -143,25 +148,30 @@ def phase_build():
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln or "C75" in ln:
                 log(f"  ptxas: {ln.strip()}")
     log(f"build: wall {wall:.1f} s")
-    _check_conv_build(info["conv3d"])
+    _check_wgmma_build(info["fwd"], "flash_fwd_kernel", 2)  # head dims 64 and 128
+    _check_wgmma_build(info["conv3d"], "conv3d_wgmma_kernel", 3)  # N tiles 48, 128, 256
     return wall
 
 
-def _check_conv_build(rec) -> None:
-    """The bf16 conv kernel (every N-tile instantiation) spills nothing, and
-    its SASS runs the products on wgmma (HGMMA). A log from a cached build
-    is empty: the spill check then rests on the build that made it."""
+def _check_wgmma_build(rec, kernel_name: str, instances: int) -> None:
+    """Every instantiation of a wgmma kernel spills nothing, ptxas did not
+    serialise its products (warning C7512), and its SASS runs them on wgmma
+    (HGMMA). A log from a cached build is empty: the ptxas checks then rest
+    on the build that made it."""
     from ltx2_tpu_torch.ops._build import cuda_tool
 
     entry, spills = None, {}
     for ln in rec["log"].splitlines():
         if "Compiling entry" in ln:
             entry = ln.split("'")[1] if "'" in ln else ln
-        elif "spill stores" in ln and entry is not None and "conv3d_wgmma_kernel" in entry:
+        elif "spill stores" in ln and entry is not None and kernel_name in entry:
             spills[entry] = ln.strip()
-    if rec["log"] and (len(spills) != 3 or any(not v.startswith("0 bytes stack frame, 0 bytes spill stores")
-                                                 for v in spills.values())):
-        raise AssertionError(f"bf16 conv kernel: ptxas spill lines {spills}")
+    if rec["log"] and (len(spills) != instances or any(
+            not v.startswith("0 bytes stack frame, 0 bytes spill stores") for v in spills.values())):
+        raise AssertionError(f"{kernel_name}: ptxas spill lines {spills}")
+    serialised = [ln.strip() for ln in rec["log"].splitlines() if "C7512" in ln]
+    if serialised:
+        raise AssertionError(f"{kernel_name}: ptxas serialised wgmma: {serialised}")
     sass = subprocess.run([cuda_tool("cuobjdump"), "-sass", str(rec["path"])], capture_output=True, text=True,
                           check=True).stdout
     fn, hgmma = None, {}
@@ -170,10 +180,10 @@ def _check_conv_build(rec) -> None:
             fn = ln.split("Function :")[1].strip()
         elif "HGMMA" in ln and fn is not None:
             hgmma[fn] = hgmma.get(fn, 0) + 1
-    wgmma = {k: v for k, v in hgmma.items() if "conv3d_wgmma_kernel" in k}
-    log(f"conv3d SASS: HGMMA instructions per kernel {wgmma}; ptxas {list(spills.values())}")
-    if len(wgmma) != 3:
-        raise AssertionError(f"bf16 conv kernel: HGMMA missing from its SASS ({hgmma})")
+    wgmma = {k: v for k, v in hgmma.items() if kernel_name in k}
+    log(f"{kernel_name} SASS: HGMMA instructions per kernel {wgmma}; ptxas {list(spills.values())}")
+    if len(wgmma) != instances:
+        raise AssertionError(f"{kernel_name}: HGMMA missing from its SASS ({hgmma})")
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -280,6 +290,10 @@ def _check_case(name, b, h, t_q, t_k, d, n_valid, gen):
     torch.cuda.synchronize()
 
     ms = _time_ms(lambda: flash_attention(qh, kh, vh, scale, kv_valid), 20)
+    # The wrapper launches the kernel alone (and allocates the output), so
+    # CUDA events can stand in for the profiler.
+    kernel_ms, kernel_timed_by, _ = _kernel_ms(lambda: flash_attention(qh, kh, vh, scale, kv_valid),
+                                               "flash_fwd_kernel", 10)
     plain_ms = _time_ms(lambda: flash_attention_plain(qh, kh, vh, scale, kv_valid), 3)
     qc, kc, vc = (x.contiguous() for x in (qh, kh, vh))
     lib_mask = None if kv_valid is None else kv_valid[:, None, None, :]
@@ -295,8 +309,9 @@ def _check_case(name, b, h, t_q, t_k, d, n_valid, gen):
         "case": name, "shape": [b, h, t_q, t_k, d], **{k: m[k] for k in m if k != "finite"},
         "tol_max_rel": TOL_MAX_REL, "tol_rms_rel": TOL_RMS_REL,
         "planted_rms_rel": {k: p["rms_rel_err"] for k, p in planted.items()},
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms, "tflops": flops / ms / 1e9,
+        "ms": ms, "kernel_ms": kernel_ms, "kernel_timed_by": kernel_timed_by, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, "tflops": flops / ms / 1e9,
+        "kernel_tflops": flops / kernel_ms / 1e9,
     }
     log(f"kernel check {name}: {json.dumps(rec)}")
     if not _accepted(m):
@@ -318,6 +333,8 @@ def phase_kernels():
         _check_case("self", 1, 32, 6144, 6144, 128, None, gen),
         _check_case("cross", 1, 32, 6144, 1024, 128, None, gen),
         _check_case("masked_ragged", 2, 32, 1000, 333, 128, 200, gen),
+        _check_case("d64", 1, 32, 2048, 2048, 64, None, gen),
+        _check_case("stage1_self", 1, 32, 1536, 1536, 128, None, gen),
     ]
     flash_attention.launches = before  # comparison launches are not the main path's
     return recs
@@ -977,6 +994,7 @@ def main():
             "max_abs_err": max(max(r["max_abs_err"] for r in recs),
                                max(r["max_abs_err_fwd_residuals"] for r in bwd)),
             "ms": self_rec["ms"],
+            "kernel_ms": self_rec["kernel_ms"],
             "plain_ms": self_rec["plain_ms"],
             "bound_ms": self_rec["bound_ms"],
             "bound_by": self_rec["bound_by"],

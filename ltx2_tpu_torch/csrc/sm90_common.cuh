@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's kernels: mbarriers, TMA
-// tensor loads and reduce-adds, cp.async completion on an mbarrier, wgmma
-// matrix descriptors and products, warpgroup register reallocation, and the
-// host-side tensor-map encoder.
+// tensor loads, stores and reduce-adds, cp.async completion on an mbarrier,
+// named barriers, wgmma matrix descriptors and products, warpgroup register
+// reallocation, and the host-side tensor-map encoder.
 //
 // Conventions. A bf16 tile in shared memory is stored as "panels" of 64
 // columns (128 bytes a row), each written by one TMA box with the 128-byte
@@ -15,7 +15,14 @@
 //     panels; a 16-deep k-step is +16 rows = +2048 bytes.
 // The fp32 accumulator fragment of m64nNk16 gives thread (warp w of the
 // warpgroup, lane = 4 g + t4) the elements d[4 j + c] at row 16 w + g +
-// 8 (c / 2) and column 8 j + 2 t4 + (c % 2).
+// 8 (c / 2) and column 8 j + 2 t4 + (c % 2). A register A operand (bf16,
+// m64k16) has the same row and column pattern: a[0] holds columns 2 t4,
+// 2 t4 + 1 of row g, a[1] the same columns of row g + 8, a[2] and a[3]
+// columns 8 + 2 t4, 8 + 2 t4 + 1 of rows g and g + 8 (16 w added to each row),
+// two bf16 each, the lower column in the low half. So accumulator columns
+// 16 kk .. 16 kk + 15 rounded in place, a[i] = pack_bf16x2(d[8 kk + 2 i],
+// d[8 kk + 2 i + 1]), are k-step kk of a product whose reduction runs over
+// those columns, without passing through shared memory.
 
 #pragma once
 
@@ -72,6 +79,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// Store one box of shared memory into a 4-D tensor map's global tensor
+// (elements outside the tensor are not written).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // Add one box of shared memory into a 4-D tensor map's global tensor
 // (element type from the map; rows outside the tensor are dropped).
 __device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2,
@@ -123,6 +140,11 @@ __device__ __forceinline__ void st_shared_v2_f32(uint32_t addr, float x, float y
 
 __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Count this thread's arrival at barrier `id` without waiting for it.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---- register reallocation between warpgroups -------------------------------
@@ -202,7 +224,7 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t desc_a,
 }
 
 // d += A B, m64n64k16, A from registers (a bf16 16-column slice of an
-// accumulator, see acc_to_a), B from shared memory.
+// accumulator, as in the conventions above), B from shared memory.
 template <int kTransB>
 __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
   asm volatile(
@@ -213,7 +235,7 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (
 }
 
 // d += A B, m64n128k16, A from registers (a bf16 16-column slice of an
-// accumulator, see acc_to_a), B from shared memory.
+// accumulator, as in the conventions above), B from shared memory.
 template <int kTransB>
 __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
   asm volatile(
@@ -243,13 +265,20 @@ __device__ __forceinline__ void wgmma_ss_m64n48(float (&d)[24], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "n"(1));
 }
 
-// d += A B, m64n128k16, A and B K-major in shared memory (descriptors).
-__device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+// d (+)= A B, m64n128k16, A and B K-major in shared memory (descriptors);
+// d is overwritten where scale_d is 0.
+__device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                                 int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "n"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d += A B, m64n128k16, A and B K-major in shared memory (descriptors).
+__device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  wgmma_ss_m64n128(d, desc_a, desc_b, 1);
 }
 
 // d += A B, m64n256k16, A and B K-major in shared memory (descriptors).

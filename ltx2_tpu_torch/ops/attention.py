@@ -6,8 +6,9 @@ PyTorch versions for a CPU tensor; there is no fallback between the two: a
 CUDA tensor the kernels cannot take raises.
 
 - `csrc/flash_attention.cu`: the forward (port of the Pallas TPU flash
-  forward, plain and key-masked), optionally writing the softmax residuals
-  l and m (`flash_attention_residuals`, the counterpart of
+  forward, plain and key-masked), one warp-specialised wgmma + TMA kernel,
+  optionally writing the softmax residuals l and m
+  (`flash_attention_residuals`, the counterpart of
   `ltx2_tpu/parallel/ring_attention.py::_flash_impl_residuals`);
 - `csrc/flash_attention_bwd.cu`: the backward, one fused wgmma + TMA kernel
   for both Pallas backward kernels (dK/dV and dQ): dK and dV are written

@@ -6,7 +6,8 @@ goes on one GPU.
 
 Traces, with torch.profiler, one step of the entry's denoise loop (the DiT
 forward, modality rebuild and fp32 Euler step at 512x768x121f = 6144 tokens,
-plus the loop's once-per-clip RoPE tables; random weights, bf16), the
+plus the loop's once-per-clip RoPE tables; random weights, bf16), the same
+step at the two-stage recipe's stage-1 size (256x384x121f, 1536 tokens), the
 bench-e2e decode of one 7-latent-frame chunk to uint8 frames, the
 two-stage recipe's decode of one default tile (8 x 16 x 16 latent voxels)
 and its fp32 spatial-upscaler call on the stage-1 latent, each after a
@@ -95,16 +96,25 @@ def _train_step(layers: int, device: torch.device, card: str) -> None:
                       "tflops_per_s_wall": flops / rec["wall_ms"] / 1e9, "card": card, **rec}), flush=True)
 
 
-def _serving(layers: int, device: torch.device, card: str) -> None:
-    dit = make_dit(layers, device)
-    tools = make_latent_tools(dit.cfg, 512, 768, 121)
+def _denoise_step(dit, height: int, width: int, phase: str, device: torch.device, card: str):
+    """One traced step of the distilled loop at height x width x 121f;
+    returns the latent tools."""
+    tools = make_latent_tools(dit.cfg, height, width, 121)
     state, context = make_request(dit.cfg, tools, 0, device)
     loop, sigmas = make_distilled_loop(dit.cfg), distilled_sigmas(1)
     step = _traced(lambda: loop(dit, state, sigmas, context), device)
-    print(json.dumps({"phase": "denoise_step", "layers": layers, "tokens": tools.target_shape.tokens,
+    print(json.dumps({"phase": phase, "layers": dit.cfg.num_layers, "tokens": tools.target_shape.tokens,
                       "card": card, **step}), flush=True)
+    return tools
+
+
+def _serving(layers: int, device: torch.device, card: str) -> None:
+    dit = make_dit(layers, device)
+    tools = _denoise_step(dit, 512, 768, "denoise_step", device, card)
+    # The two-stage recipe's stage 1: the same loop at half resolution (1536 tokens).
+    _denoise_step(dit, 256, 384, "stage1_step", device, card)
     compute_dtype, latent_dtype = dit.cfg.compute_dtype, dit.cfg.dtype
-    del dit, loop, state, context
+    del dit
     torch.cuda.empty_cache()
 
     decoder = make_decoder(compute_dtype, device)
@@ -151,6 +161,7 @@ def main(argv=None) -> None:
         return
     with torch.no_grad():
         _serving(args.layers, device, card)
+
 
 if __name__ == "__main__":
     main()

@@ -1,6 +1,7 @@
 """Parity of the port's video DiT (ltx2_tpu_torch.models.transformer) with
 the JAX package on the same weights, in float32 on the CPU, to a relative
-1e-4: 2 layers, 2 heads x 128, 12 tokens, 16 text tokens.
+1e-4: 2 layers, 2 heads x 128, 12 tokens, 16 text tokens. One test runs both
+in bfloat16, the card's dtype, to a relative 1e-2.
 
 Weights come from JAX `init_ltx_model` (tables and norms randomised) and
 reach the port through loader/from_numpy.py.
@@ -12,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from ltx2_tpu.components.patchifiers import VideoLatentPatchifier as JPatchifier
 from ltx2_tpu.conditioning.tools import VideoLatentTools as JTools
@@ -27,8 +29,12 @@ RNG = np.random.default_rng(1)
 
 
 @pytest.fixture(scope="module")
-def weights():
-    tree = numpy_tree(jmodel.init_ltx_model(jax.random.PRNGKey(0), JCFG), seed=2)
+def tree():
+    return numpy_tree(jmodel.init_ltx_model(jax.random.PRNGKey(0), JCFG), seed=2)
+
+
+@pytest.fixture(scope="module")
+def weights(tree):
     return jax.tree_util.tree_map(jnp.asarray, tree), dit_from_numpy(tree, CFG)
 
 
@@ -103,6 +109,26 @@ def test_x0_model(weights, inputs, per_token, masked):
     out = model.x0_model_apply(port, pm)
     assert_close(out, ref, msg="x0")
     assert_close(model.ltx_model_apply(port, pm), jmodel.ltx_model_apply(jp, JCFG, video=jm), msg="velocity")
+
+
+def test_x0_model_bf16(tree, inputs):
+    """bf16 compute in both packages on the same fp32 tree (the port stores
+    its weights in bf16, JAX casts them at use): the dtype placement of
+    docs/PARITY.md (fp32 AdaLN, softmax, RoPE and step math), which the fp32
+    tests cannot see. The port's bf16 x0 against JAX's fp32 and JAX's bf16, to
+    1e-2 of max|x0| (bf16 rounding through 2 blocks: measured 2.7e-3 and
+    3.6e-3; JAX rounds its logits and probabilities to bf16 off the flash
+    route, the port keeps them in fp32)."""
+    jp = jax.tree_util.tree_map(jnp.asarray, tree)
+    jcfg16 = dataclasses.replace(JCFG, compute_dtype="bfloat16")
+    port16 = dit_from_numpy(tree, dataclasses.replace(CFG, compute_dtype="bfloat16"))
+    assert port16.transformer_blocks[0].attn1.to_q.weight.dtype == torch.bfloat16
+    jm, pm = _modalities(inputs, per_token=False, masked=True)
+    out = model.x0_model_apply(port16, pm).float()
+    assert torch.isfinite(out).all()
+    assert_close(out, jmodel.x0_model_apply(jp, JCFG, video=jm), rtol=1e-2, msg="port bf16 vs JAX fp32")
+    assert_close(out, jnp.asarray(jmodel.x0_model_apply(jp, jcfg16, video=jm), jnp.float32), rtol=1e-2,
+                 msg="port bf16 vs JAX bf16")
 
 
 def test_from_numpy_checks_layer_count():

@@ -25,19 +25,34 @@ def _need_card():
 def test_flash_kernel_matches_plain_on_gpu():
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn(2, 100, 4 * 128, device="cuda", generator=gen).bfloat16()
-    kv = torch.randn(2, 333, 4 * 128, device="cuda", generator=gen).bfloat16()
-    qh, kh = q.view(2, 100, 4, 128).transpose(1, 2), kv.view(2, 333, 4, 128).transpose(1, 2)
-    valid = torch.ones(2, 333, dtype=torch.bool, device="cuda")
-    valid[0, 200:] = False
-    for mask in (None, valid):
-        out = attention.flash_attention(qh, kh, kh, kv_valid=mask)
-        ref = attention.flash_attention_plain(qh, kh, kh, kv_valid=mask)
-        out, ref = out.float(), ref.float()  # limits relative to the output, as chip_smoke.py states them
-        assert (out - ref).abs().max() <= 2e-2 * ref.abs().max()
-        assert (out - ref).square().mean().sqrt() <= 1e-2 * ref.square().mean().sqrt()
+    b, h = 2, 4
+    # Both head dims; T_q and T_k multiples of neither the 128-row query tile
+    # nor the 128-key tile, and a T_k shorter than one key tile.
+    for d in (128, 64):
+        for t_q, t_k in ((100, 333), (300, 77)):
+            q = torch.randn(b, t_q, h * d, device="cuda", generator=gen).bfloat16()
+            kv = torch.randn(b, t_k, h * d, device="cuda", generator=gen).bfloat16()
+            qh, kh = q.view(b, t_q, h, d).transpose(1, 2), kv.view(b, t_k, h, d).transpose(1, 2)
+            valid = torch.ones(b, t_k, dtype=torch.bool, device="cuda")
+            valid[0, t_k // 2:] = False
+            for mask in (None, valid):
+                out = attention.flash_attention(qh, kh, kh, kv_valid=mask)
+                ref = attention.flash_attention_plain(qh, kh, kh, kv_valid=mask)
+                out, ref = out.float(), ref.float()  # limits relative to the output, as chip_smoke.py states them
+                assert (out - ref).abs().max() <= 2e-2 * ref.abs().max(), (d, t_q, t_k)
+                assert (out - ref).square().mean().sqrt() <= 1e-2 * ref.square().mean().sqrt(), (d, t_q, t_k)
+                # The residuals differ from the plain version in summation order only.
+                o, l, m = attention.flash_attention_residuals(qh, kh, kh, None, mask)
+                _, l_ref, m_ref = attention.flash_attention_residuals_plain(qh, kh, kh, None, mask)
+                assert torch.equal(o, attention.flash_attention(qh, kh, kh, kv_valid=mask))
+                assert (l - l_ref).abs().max() <= 1e-4 * l_ref.abs().max(), (d, t_q, t_k)
+                assert (m - m_ref).abs().max() <= 1e-4 * m_ref.abs().max(), (d, t_q, t_k)
+    # What the kernel does not take raises on the card; nothing falls back.
     with pytest.raises(TypeError):
         attention.flash_attention(qh.float(), kh.float(), kh.float())
+    x = torch.randn(1, 2, 64, 96, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="head dim"):
+        attention.flash_attention(x, x, x)
 
 
 @pytest.mark.gpu
