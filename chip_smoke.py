@@ -8,9 +8,9 @@ card and nvcc; it exits non-zero without them, and without the package
 2. build: compile the three kernel libraries from csrc/ with nvcc (flash
    forward, flash backward, conv3d), one process per source, started
    together; ptxas's registers and spill for each kernel; the flash forward
-   (both head dims) and the bf16 conv kernel (three N tiles) must show 0
-   bytes of spill, no C7512 (wgmma serialised) warning and HGMMA (wgmma) in
-   their SASS;
+   (both head dims), the bf16 conv kernel (three N tiles) and the fp32 conv
+   kernel (3xTF32) must show 0 bytes of spill, no C7512 (wgmma serialised)
+   warning and HGMMA (wgmma) in their SASS;
 3. kernel check: the flash forward against `flash_attention_plain` on the
    card in bf16, at the DiT's self-attention (1, 32, 6144, 128), its text
    cross-attention (6144 queries x 1024 keys), a ragged key-masked case,
@@ -19,15 +19,21 @@ card and nvcc; it exits non-zero without them, and without the package
    output that two planted faults must fail; with the wrapper's and the
    kernel's own device time, plain, bound and scaled_dot_product_attention
    times;
-4. conv kernel check: the implicit-GEMM conv against `conv3d_plain` at the
-   serving paths' shapes (the decoder's stages S4 and S3, its conv_out on a
-   decode tile, and on a two-stage decode tile a stage-1 res conv and the
-   stage-2 upsample conv, in bf16 with reflect/replicate padding; a causal
-   case with ragged H and W; the upscaler's 1024 -> 1024 conv and its
-   per-frame 1024 -> 4096 resampler in fp32 with zero padding), within
-   relative limits that two planted faults (a tap left out, the output
-   x 1.03) must fail; with kernel (also its own device time), plain, bound
-   and cuDNN (F.conv3d) times; a shape the kernel does not take must raise;
+4. conv kernel check: the implicit-GEMM convs against `conv3d_plain` at
+   the serving paths' shapes (the decoder's stages S4 and S3, its conv_out
+   on a decode tile, and on a two-stage decode tile a stage-1 res conv and
+   the stage-2 upsample conv, in bf16 with reflect/replicate padding; a
+   causal case with ragged H and W; in fp32 with zero padding the spatial
+   upscaler's five conv shapes: 1024 -> 1024 at both resolutions, the
+   per-frame 1024 -> 4096 resampler, the initial 128 -> 1024 and the final
+   1024 -> 128), within relative limits that two planted faults (a tap left
+   out, the output x 1.03) must fail; the fp32 kernel also within fp32
+   accuracy of the plain version in float64, a limit single-pass TF32 must
+   fail, and bitwise equal over two runs; with kernel (also its own device
+   time), plain, bound (fp32: 3xTF32 and FFMA) and cuDNN (F.conv3d) times;
+   a shape the kernel does not take must raise. Then the fp32 cases' times
+   x their launches in a clip against the conv time of one traced upscaler
+   call, within 10 %;
 5. serving path: `generate_videos` at full width and depth (48 layers, bf16,
    512x768x121f = 6144 tokens, 8 distilled steps, VAE decode in 7-frame
    chunks) for 2 requests of different seeds; checks the frames, the
@@ -85,12 +91,21 @@ TOL_BWD_RMS_REL = 1e-2
 TOL_RES_REL = 1e-4
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (data sheet)
-# The conv kernel and its plain version both sum exact products in fp32 and
-# round once; they differ in summation order only, which in bf16 can move an
-# output by one rounding step (2^-8 relative). Limits relative to the plain
-# output: (max|err| / max|plain|, rms(err) / rms(plain)). Planted faults (a
-# tap left out, the output x 1.03) must fail them.
+# The conv kernels and their plain version sum in fp32 and round once; the
+# bf16 kernel differs from the plain version in summation order only, which
+# in bf16 can move an output by one rounding step (2^-8 relative); the fp32
+# kernel's 3xTF32 products carry about 22 bits of each operand. Limits
+# relative to the plain output: (max|err| / max|plain|, rms(err) /
+# rms(plain)). Planted faults (a tap left out, the output x 1.03) must fail
+# them.
 CONV_TOL = {"bfloat16": (1e-2, 5e-3), "float32": (1e-4, 1e-4)}
+# The fp32 kernel is also held to fp32 accuracy against the plain version
+# in float64 on the same inputs: (max, rms) relative, a few times the fp32
+# plain version's own error at the upscaler's K and 150x below single-pass
+# TF32's, which is planted (x and w rounded to TF32, the plain version in
+# fp32) and must fail.
+CONV_TOL_F64 = (1e-5, 2e-6)
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 (data sheet); 3xTF32 runs three products
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FRAMES, HEIGHT, WIDTH, STEPS, LAYERS = 121, 512, 768, 8, 48
 SEEDS = (1, 2)
@@ -150,6 +165,7 @@ def phase_build():
     log(f"build: wall {wall:.1f} s")
     _check_wgmma_build(info["fwd"], "flash_fwd_kernel", 2)  # head dims 64 and 128
     _check_wgmma_build(info["conv3d"], "conv3d_wgmma_kernel", 3)  # N tiles 48, 128, 256
+    _check_wgmma_build(info["conv3d"], "conv3d_tf32x3_kernel", 1)
     return wall
 
 
@@ -237,10 +253,11 @@ def _kernel_ms(fn, kernel_name: str, iters: int, events_fn=None) -> tuple:
     return _time_ms(events_fn or fn, iters), "cuda_events", {}
 
 
-def _mismatch(out, ref) -> dict:
+def _mismatch(out, ref, dtype=None) -> dict:
     import torch
 
-    out, ref = out.float(), ref.float()
+    dtype = dtype or torch.float32
+    out, ref = out.to(dtype), ref.to(dtype)
     diff = out - ref
     ref_rms = ref.square().mean().sqrt().item()
     return {
@@ -352,42 +369,69 @@ CONV_CASES = (
     ("S2_tile_up", (1, 15, 32, 32, 512), 2048, 3, "bfloat16", False, "reflect", "replicate"),
     ("upscaler", (1, 16, 16, 24, 1024), 1024, 3, "float32", False, "zeros", "zeros"),
     ("resampler", (1, 16, 8, 12, 1024), 4096, 1, "float32", False, "zeros", "zeros"),
+    ("upscaler_in", (1, 16, 8, 12, 128), 1024, 3, "float32", False, "zeros", "zeros"),
+    ("upscaler_lowres", (1, 16, 8, 12, 1024), 1024, 3, "float32", False, "zeros", "zeros"),
+    ("upscaler_out", (1, 16, 16, 24, 1024), 128, 3, "float32", False, "zeros", "zeros"),
 )
+# The spatial upscaler's convs in one two-stage clip (all fp32): the
+# initial conv, 8 res convs before and 8 after the resampler, the final.
+UPSCALER_LAUNCHES = {"upscaler_in": 1, "upscaler_lowres": 8, "resampler": 1, "upscaler": 8, "upscaler_out": 1}
+TOL_UPSCALER_CONV_TIME = 0.10  # the cases' times x launches against a traced upscaler call
 
 
 def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal_mode, gen):
     import torch
     import torch.nn.functional as F
 
-    from ltx2_tpu_torch.ops.conv3d import conv3d_ndhwc_kernel, conv3d_plain, kernel_layout, wgmma_tile
+    from ltx2_tpu_torch.ops.conv3d import (
+        conv3d_ndhwc_kernel, conv3d_plain, kernel_layout, tf32_round, tf32x3_plan, tf32x3_split, wgmma_tile,
+    )
 
     dev, dtype = torch.device("cuda"), getattr(torch, dtype_name)
+    fp32 = dtype == torch.float32
     b, t, h, w, cin = shape
     bound_w = (cin * kt * 9) ** -0.5  # the models' init: U(+-1/sqrt(fan_in))
     x = torch.randn(shape, device=dev, generator=gen).to(dtype)
     weight = ((torch.rand(cout, cin, kt, 3, 3, device=dev, generator=gen) * 2 - 1) * bound_w).to(dtype)
     bias = (torch.rand(cout, device=dev, generator=gen) * 2 - 1) * bound_w
-    wk = kernel_layout(weight, k_major=dtype == torch.bfloat16)  # the order the kernel reads, as cached
+    wk = kernel_layout(weight, k_major=not fp32)  # bf16: the order the kernel reads, as cached
     args = (causal, spatial_mode, temporal_mode)
+    split = tf32x3_split(wk) if fp32 else None  # fp32: the TF32 parts the module caches
 
-    out = conv3d_ndhwc_kernel(x, wk, bias, *args)
+    def call():
+        return conv3d_ndhwc_kernel(x, wk, bias, *args, w_split=split)
+
+    out = call()
     ref = conv3d_plain(x, wk, bias, *args)
     m = _mismatch(out, ref)
-    del out
     # Planted faults, held to the same limits: one tap left out, and the
     # output off by 3 %.
     dropped = wk.clone()
     dropped[kt // 2, 1, 1] = 0
     planted = {"tap_dropped": _mismatch(conv3d_plain(x, dropped, bias, *args), ref),
                "scaled_1.03": _mismatch(ref.float() * 1.03, ref)}
-    del dropped, ref
+    del dropped
+    f64 = {}
+    if fp32:
+        # fp32 accuracy: the kernel and the fp32 plain version against the
+        # plain version in float64; single-pass TF32 planted against it too.
+        ref64 = conv3d_plain(x.double(), wk.double(), bias.double(), *args)
+        f64 = {"kernel": _mismatch(out, ref64, torch.float64), "plain_fp32": _mismatch(ref, ref64, torch.float64),
+               "single_pass_tf32": _mismatch(conv3d_plain(tf32_round(x), tf32_round(wk), bias, *args), ref64,
+                                             torch.float64)}
+        del ref64
+        # The K ranges are summed in a fixed order: two runs agree bitwise.
+        f64["bitwise_reproducible"] = bool(torch.equal(call(), out))
+    del out, ref
     torch.cuda.synchronize()
 
-    ms = _time_ms(lambda: conv3d_ndhwc_kernel(x, wk, bias, *args), 10)
-    kernel_name = "conv3d_wgmma_kernel" if dtype == torch.bfloat16 else "conv3d_f32_kernel"
+    ms = _time_ms(call, 10)
+    # fp32: the kernel and, when K is split, the sum of the ranges.
+    kernel_name = "conv3d_tf32x3" if fp32 else "conv3d_wgmma_kernel"
     # The wrapper launches the kernel alone (the weights are already in the
-    # order it reads), so CUDA events can stand in for the profiler.
-    kernel_ms, kernel_timed_by, _ = _kernel_ms(lambda: conv3d_ndhwc_kernel(x, wk, bias, *args), kernel_name, 3)
+    # order it reads), or the fp32 kernel and its sum, so CUDA events can
+    # stand in for the profiler.
+    kernel_ms, kernel_timed_by, _ = _kernel_ms(call, kernel_name, 3)
     plain_ms = _time_ms(lambda: conv3d_plain(x, wk, bias, *args), 2)
     # Library yardstick, never called by the port: cuDNN's conv3d in the same
     # dtype (TF32 off), on the NCDHW view of the channels-last input. Zero
@@ -405,27 +449,47 @@ def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal
 
     flops = 2.0 * b * t * h * w * cin * cout * kt * 9
     nbytes = x.element_size() * (x.numel() + wk.numel() + b * t * h * w * cout) + 4 * cout
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    bound_ms = max(flops / peak, nbytes / PEAK_BYTES_PER_S) * 1e3
+    # fp32 work runs as three TF32 products; the FFMA bound is kept beside it.
+    op_s = 3 * flops / PEAK_TF32_FLOPS if fp32 else flops / PEAK_BF16_FLOPS
+    bound_ms = max(op_s, nbytes / PEAK_BYTES_PER_S) * 1e3
     tol = CONV_TOL[dtype_name]
     rec = {
         "case": name, "shape": list(shape), "cout": cout, "kt": kt, "dtype": dtype_name, "causal": causal,
         "spatial_mode": spatial_mode, "temporal_mode": temporal_mode,
         **{k: m[k] for k in m if k != "finite"}, "tol_max_rel": tol[0], "tol_rms_rel": tol[1],
         "planted_rms_rel": {k: p["rms_rel_err"] for k, p in planted.items()},
-        "kernel": kernel_name, "tile": list(wgmma_tile(cout)) if dtype == torch.bfloat16 else [128, 128],
+        "kernel": "conv3d_tf32x3_kernel" if fp32 else "conv3d_wgmma_kernel",
+        "tile": [128, 128] if fp32 else list(wgmma_tile(cout)),
         "ms": ms, "kernel_ms": kernel_ms, "kernel_timed_by": kernel_timed_by, "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": bound_ms,
-        "bound_by": "operations" if flops / peak >= nbytes / PEAK_BYTES_PER_S else "bytes",
+        "bound_by": "operations" if op_s >= nbytes / PEAK_BYTES_PER_S else "bytes",
         "tflops": flops / ms / 1e9, "library_tflops": flops / library_ms / 1e9,
     }
+    if fp32:
+        rec.update({
+            "k_ranges": tf32x3_plan(b * t * h * w, cout, cin, kt, torch.cuda.get_device_properties(0)
+                                    .multi_processor_count)[0],
+            "ffma_bound_ms": max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3,
+            "launches_a_clip": UPSCALER_LAUNCHES.get(name),
+            "f64": {k: v if isinstance(v, bool) else {"max_rel": v["max_rel_err"], "rms_rel": v["rms_rel_err"]}
+                    for k, v in f64.items()},
+            "tol_f64_max_rel": CONV_TOL_F64[0], "tol_f64_rms_rel": CONV_TOL_F64[1],
+        })
     log(f"conv kernel check {name}: {json.dumps(rec)}")
     if not _accepted(m, *tol):
         raise AssertionError(f"conv3d {name}: {m} outside max_rel {tol[0]}, rms_rel {tol[1]}")
     for fault, p in planted.items():
         if _accepted(p, *tol):
             raise AssertionError(f"conv3d {name}: the check accepts a planted fault {fault}: {p}")
-    del x, weight, wk
+    if fp32:
+        if not _accepted(f64["kernel"], *CONV_TOL_F64):
+            raise AssertionError(f"conv3d {name}: {f64['kernel']} against float64 outside {CONV_TOL_F64}")
+        if _accepted(f64["single_pass_tf32"], *CONV_TOL_F64):
+            raise AssertionError(f"conv3d {name}: the float64 check accepts single-pass TF32 "
+                                 f"{f64['single_pass_tf32']}")
+        if not f64["bitwise_reproducible"]:
+            raise AssertionError(f"conv3d {name}: two runs of the fp32 kernel differ")
+    del x, weight, wk, split
     torch.cuda.empty_cache()
     return rec
 
@@ -450,6 +514,53 @@ def phase_conv_kernels():
         raise AssertionError("conv3d accepted Cin = 24 on the card")
     conv3d_ndhwc_kernel.launches = before  # comparison launches are not the main path's
     return recs
+
+
+def phase_upscaler_conv_time(conv_recs, smi: str) -> dict:
+    """The fp32 cases' kernel times x their launches a clip against the
+    conv kernels' device time in one traced call of the full-width spatial
+    upscaler on a stage-1 latent (as profile_slice.py's upscale phase runs
+    it), within TOL_UPSCALER_CONV_TIME. Its launches are not the main
+    path's. Where the profiler records no device event, the comparison is
+    reported as not measured."""
+    import torch
+
+    from ltx2_tpu_torch.generate import make_upscaler
+    from ltx2_tpu_torch.models.upscaler.spatial import spatial_upscaler_apply
+    from ltx2_tpu_torch.ops.conv3d import conv3d_ndhwc_kernel
+
+    before = conv3d_ndhwc_kernel.launches
+    upscaler = make_upscaler(torch.device("cuda"))
+    latent = torch.randn(1, 128, (FRAMES - 1) // 8 + 1, HEIGHT // 64, WIDTH // 64, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(3))
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated()
+    by_kernel = {}
+    for _ in range(2):
+        by_kernel = _device_ms(lambda: spatial_upscaler_apply(upscaler, latent), 1)
+        if by_kernel:
+            break
+    cache = torch.cuda.memory_allocated() - weights  # what the first call left: the TF32 split of every conv
+    del upscaler
+    torch.cuda.empty_cache()
+    conv3d_ndhwc_kernel.launches = before
+    predicted = sum(r["kernel_ms"] * r["launches_a_clip"] for r in conv_recs if r["case"] in UPSCALER_LAUNCHES)
+    rec = {"cases_ms_x_launches": predicted, "traced_conv_ms": None, "traced_conv_launches": None,
+           "traced_device_ms": None, "weights_and_latent_gb": weights / 1e9, "tf32x3_cache_gb": cache / 1e9}
+    if not by_kernel:
+        log(f"upscaler conv time: profiler recorded no device events; not measured | {smi}")
+        return rec
+    rec["traced_conv_ms"] = sum(ms for n, (ms, _) in by_kernel.items() if "conv3d_tf32x3_kernel" in n or
+                                "conv3d_tf32x3_sum" in n)
+    rec["traced_conv_launches"] = sum(c for n, (_, c) in by_kernel.items() if "conv3d_tf32x3_kernel" in n)
+    rec["traced_device_ms"] = sum(ms for ms, _ in by_kernel.values())
+    log(f"upscaler conv time: {json.dumps(rec)} | {smi}")
+    if abs(predicted / rec["traced_conv_ms"] - 1) > TOL_UPSCALER_CONV_TIME:
+        raise AssertionError(f"upscaler conv time {rec['traced_conv_ms']} ms traced, {predicted} ms from the "
+                             f"cases: outside {TOL_UPSCALER_CONV_TIME:.0%}")
+    if rec["traced_conv_launches"] != sum(UPSCALER_LAUNCHES.values()):
+        raise AssertionError(f"{rec['traced_conv_launches']} fp32 conv kernels in the traced upscaler call")
+    return rec
 
 
 def _bwd_inputs(b, h, t_q, t_k, d, n_valid, gen):
@@ -752,7 +863,7 @@ def phase_two_stage_small(smi: str) -> dict:
     counts = _counts()
     kernel_flash, kernel_conv = A.flash_attention, vae_conv.conv3d
     A.flash_attention = lambda q, k, v, scale=None, kv_valid=None: A.flash_attention_plain(q, k, v, scale, kv_valid)
-    vae_conv.conv3d = conv3d_plain
+    vae_conv.conv3d = lambda x, w, b, causal, sm, tm, w_split=None: conv3d_plain(x, w, b, causal, sm, tm)
     try:
         frames_p, lat_p = run(5)
         frames_other, _ = run(6)
@@ -966,6 +1077,7 @@ def main():
     phase_build()
     recs = phase_kernels()
     conv_recs = phase_conv_kernels()
+    upscaler_conv = phase_upscaler_conv_time(conv_recs, smi)
     serve_counts = phase_main_path(smi)
 
     import torch
@@ -982,6 +1094,12 @@ def main():
     gradcheck = phase_train_gradcheck(smi)
 
     self_rec, self_bwd = recs[0], bwd[0]
+    bf16_recs = [r for r in conv_recs if r["dtype"] == "bfloat16"]
+    fp32_recs = [r for r in conv_recs if r["dtype"] == "float32"]  # "upscaler" first
+    upscale_launches = sum(s["upscale_conv_launches"] for s in two_stage_stats)
+    conv_replaces = ("scripts/bench_conv_pallas.py:116 (conv3d_pallas, pallas_call :140); "
+                     "scripts/bench_conv_pallas.py:223 (conv3d_pallas_v2, pallas_call :247); "
+                     "scripts/bench_conv_pallas.py:357 (conv3d_pallas_v3, pallas_call :378)")
     record = {"kernels": [
         {
             "name": "flash_attention_fwd",
@@ -1022,19 +1140,36 @@ def main():
             "name": "conv3d_implicit_gemm",
             "route": "cuda",
             "source": "ltx2_tpu_torch/csrc/conv3d.cu",
-            "kernels": {"bfloat16": "conv3d_wgmma_kernel", "float32": "conv3d_f32_kernel"},
-            "replaces": "scripts/bench_conv_pallas.py:116 (conv3d_pallas, pallas_call :140); "
-                        "scripts/bench_conv_pallas.py:223 (conv3d_pallas_v2, pallas_call :247); "
-                        "scripts/bench_conv_pallas.py:357 (conv3d_pallas_v3, pallas_call :378)",
-            "launches": serve_counts["conv"] + two_stage_counts["conv"],
-            "launches_by_path": {"serve": serve_counts["conv"], "serve_two_stage": two_stage_counts["conv"]},
-            "max_abs_err": max(r["max_abs_err"] for r in conv_recs),
-            "ms": conv_recs[0]["ms"],
-            "plain_ms": conv_recs[0]["plain_ms"],
-            "bound_ms": conv_recs[0]["bound_ms"],
-            "bound_by": conv_recs[0]["bound_by"],
-            "library_ms": conv_recs[0]["library_ms"],
-            "cases": conv_recs,
+            "kernel": "conv3d_wgmma_kernel",
+            "replaces": conv_replaces,
+            "launches": serve_counts["conv"] + two_stage_counts["conv"] - upscale_launches,
+            "launches_by_path": {"serve": serve_counts["conv"],
+                                 "serve_two_stage": two_stage_counts["conv"] - upscale_launches},
+            "max_abs_err": max(r["max_abs_err"] for r in bf16_recs),
+            "ms": bf16_recs[0]["ms"],
+            "plain_ms": bf16_recs[0]["plain_ms"],
+            "bound_ms": bf16_recs[0]["bound_ms"],
+            "bound_by": bf16_recs[0]["bound_by"],
+            "library_ms": bf16_recs[0]["library_ms"],
+            "cases": bf16_recs,
+        },
+        {
+            "name": "conv3d_tf32x3",
+            "route": "cuda",
+            "source": "ltx2_tpu_torch/csrc/conv3d.cu",
+            "kernel": "conv3d_tf32x3_kernel",
+            "replaces": conv_replaces,
+            "launches": upscale_launches,
+            "launches_by_path": {"serve_two_stage": upscale_launches},
+            "max_abs_err": max(r["max_abs_err"] for r in fp32_recs),
+            "ms": fp32_recs[0]["ms"],
+            "plain_ms": fp32_recs[0]["plain_ms"],
+            "bound_ms": fp32_recs[0]["bound_ms"],
+            "bound_by": fp32_recs[0]["bound_by"],
+            "ffma_bound_ms": fp32_recs[0]["ffma_bound_ms"],
+            "library_ms": fp32_recs[0]["library_ms"],
+            "upscaler_conv_time": upscaler_conv,
+            "cases": fp32_recs,
         },
     ], "train": {"timing": timing, "gradcheck": gradcheck},
         "two_stage": {"requests": two_stage_stats, "peak_memory_gb": two_stage_peak_gb,

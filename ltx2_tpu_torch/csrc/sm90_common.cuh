@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's kernels: mbarriers, TMA
 // tensor loads, stores and reduce-adds, cp.async completion on an mbarrier,
-// named barriers, wgmma matrix descriptors and products, warpgroup register
-// reallocation, and the host-side tensor-map encoder.
+// named barriers, wgmma matrix descriptors and products (bf16, and TF32 with
+// A from registers), rounding to TF32, warpgroup register reallocation, and
+// the host-side tensor-map encoder.
 //
 // Conventions. A bf16 tile in shared memory is stored as "panels" of 64
 // columns (128 bytes a row), each written by one TMA box with the 128-byte
@@ -307,6 +308,32 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uin
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low 16 bits
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- TF32 --------------------------------------------------------------------
+
+// a rounded to TF32 (10 explicit mantissa bits, to nearest, ties away from
+// zero): the fp32 bit pattern with its low 13 bits zero.
+__device__ __forceinline__ uint32_t tf32_rna(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
+  return r;
+}
+
+// d (+)= A B, m64n128k8 in TF32 (the tensor core reads the top 19 bits of
+// each 32-bit operand), A from registers, B K-major in shared memory (a
+// 128-byte-swizzled panel of 32 fp32 a row; a k8 step is +32 bytes). The A
+// fragment of thread (warp w, lane = 4 g + t4): a[0] row g, column t4; a[1]
+// row g + 8, column t4; a[2] and a[3] the same rows, column t4 + 4 (16 w
+// added to each row). d is the accumulator fragment of the conventions above
+// and is overwritten where scale_d is 0. TF32 takes both operands K-major only.
+__device__ __forceinline__ void wgmma_rs_m64n128k8_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
+                                                        int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 // ---- host: tensor maps -------------------------------------------------------

@@ -15,15 +15,16 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from ltx2_tpu_torch.ops.conv3d import conv3d, kernel_layout
+from ltx2_tpu_torch.ops.conv3d import conv3d, kernel_layout, tf32x3_split
 
 
 class Conv3d(nn.Module):
     """Parameter holder: weight (outC, inC, 3, 3, 3), or (outC, inC, 3, 3)
-    when `per_frame`; bias (outC,). The kernel's (kT, kH, kW, inC, outC)
-    reordering of the weight (in bf16 a view of K-major (kT, kH, kW, outC,
-    inC) storage, the order the bf16 kernel reads) is made once and kept
-    until the weight changes."""
+    when `per_frame`; bias (outC,). What the kernels read is made once and
+    kept until the weight changes: the (kT, kH, kW, inC, outC) reordering
+    (in bf16 a view of K-major (kT, kH, kW, outC, inC) storage, the order
+    the bf16 kernel reads), and for the fp32 kernel the weight's TF32 hi and
+    lo parts (`tf32x3_split`, twice the fp32 weight's bytes)."""
 
     def __init__(self, in_channels: int, out_channels: int, *, per_frame: bool = False, device=None,
                  dtype=torch.float32):
@@ -33,6 +34,8 @@ class Conv3d(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_channels, device=device, dtype=dtype), requires_grad=False)
         self._kernel_weight = None
         self._kernel_weight_key = None
+        self._tf32x3 = None
+        self._tf32x3_key = None
 
     def kernel_weight(self, dtype: torch.dtype) -> torch.Tensor:
         """The weight as (kT, kH, kW, inC, outC) in `dtype`, cached."""
@@ -42,6 +45,15 @@ class Conv3d(nn.Module):
             self._kernel_weight = kernel_layout(w.detach().to(dtype), k_major=dtype == torch.bfloat16)
             self._kernel_weight_key = key
         return self._kernel_weight
+
+    def tf32x3_weight(self) -> torch.Tensor:
+        """The weight's TF32 split (2, kT * 9, outC, inC), cached."""
+        w = self.weight
+        key = (w.data_ptr(), w._version, w.device)
+        if self._tf32x3_key != key:
+            self._tf32x3 = tf32x3_split(kernel_layout(w.detach(), copy=False))
+            self._tf32x3_key = key
+        return self._tf32x3
 
 
 def conv3d_ndhwc(
@@ -54,9 +66,14 @@ def conv3d_ndhwc(
     w_halo_axis=None,
 ) -> torch.Tensor:
     """Conv over (B, T, H, W, C) with the JAX package's padding rules and
-    defaults; stride 1, 'same' output size."""
+    defaults; stride 1, 'same' output size. An fp32 CUDA input goes in with
+    the cached TF32 split, the only form of the weight the fp32 kernel
+    reads, beside a view of the weight for the wrapper's checks."""
     if tuple(stride) != (1, 1, 1) or w_halo_axis is not None:
         raise NotImplementedError("conv3d_ndhwc: strides and the W-sharded halo exchange are not ported")
+    if x.device.type == "cuda" and x.dtype == torch.float32:
+        w = kernel_layout(p.weight.detach().float(), copy=False)
+        return conv3d(x.contiguous(), w, p.bias, causal, spatial_mode, temporal_mode, w_split=p.tf32x3_weight())
     return conv3d(x.contiguous(), p.kernel_weight(x.dtype), p.bias, causal, spatial_mode, temporal_mode)
 
 

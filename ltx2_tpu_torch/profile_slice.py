@@ -17,9 +17,10 @@ full-width DiT at scripts/bench_train.py's shape (6144 tokens, 1024 text
 tokens: forward, remat recompute, backward and AdamW), after a warm-up step,
 built by train.py's own helpers. Prints one JSON line per phase: device time
 by kernel class (the flash-attention forward and backward kernels, the
-implicit-GEMM conv kernel, matrix products, library convolutions, the
-rest), the top kernels, the host wall time of the traced run and the
-device's busy share of it. Needs a CUDA card.
+implicit-GEMM conv kernels with the fp32 one's split-K sum, matrix
+products, library convolutions, the rest), the top kernels, the host wall
+time of the traced run and the device's busy share of it. Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ def _kernel_class(name: str) -> str:
         return "flash_attention_fwd"
     if "flash_bwd_kernel" in n:
         return "flash_attention_bwd"
-    if "conv3d_wgmma_kernel" in n or "conv3d_f32_kernel" in n:
+    if "conv3d_wgmma_kernel" in n or "conv3d_tf32x3" in n:
         return "conv3d_implicit_gemm"
     if "fprop" in n or "conv" in n or "dgrad" in n or "implicit" in n:
         return "convolution"

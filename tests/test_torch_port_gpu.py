@@ -99,10 +99,16 @@ def test_conv_kernel_matches_plain_on_gpu():
     from ltx2_tpu_torch.ops import conv3d as C
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     # (x shape, Cout, kT, dtype, causal, spatial, temporal, limits relative to the plain output):
     # every bf16 N tile (48, 128, 256), the two-stage decode tile's stage-1
     # res conv and stage-2 upsample conv, Cin = 16 with Cout = 48, ragged W,
     # a partly filled channel step (Cin = 80), bf16 with zero padding and kT = 1.
+    # fp32 (3xTF32): Cin = 1024 with kT = 3 and kT = 1 (K split into 8
+    # ranges), Cin = 128 (the upscaler's first conv: 4 ranges, the last
+    # ending in phantom steps), tiles enough to fill the card (one range),
+    # ragged M and N tiles (Cout = 136) with a partly filled channel step
+    # (Cin = 48) and reflect/replicate padding, Cin = 16 with kT = 1.
     cases = [
         ((2, 5, 30, 44, 64), 128, 3, torch.bfloat16, True, "reflect", "replicate", (1e-2, 5e-3)),
         ((1, 3, 9, 13, 128), 48, 3, torch.bfloat16, False, "reflect", "replicate", (1e-2, 5e-3)),
@@ -114,7 +120,14 @@ def test_conv_kernel_matches_plain_on_gpu():
         ((1, 4, 6, 7, 32), 40, 3, torch.float32, False, "zeros", "zeros", (1e-4, 1e-4)),
         ((1, 3, 5, 6, 48), 64, 1, torch.float32, False, "zeros", "zeros", (1e-4, 1e-4)),
         ((1, 1, 4, 4, 16), 8, 3, torch.bfloat16, False, "reflect", "replicate", (1e-2, 5e-3)),
+        ((1, 4, 6, 8, 1024), 64, 3, torch.float32, False, "zeros", "zeros", (1e-4, 1e-4)),
+        ((1, 3, 6, 8, 1024), 256, 1, torch.float32, False, "zeros", "zeros", (1e-4, 1e-4)),
+        ((1, 16, 8, 12, 128), 1024, 3, torch.float32, False, "zeros", "zeros", (1e-4, 1e-4)),
+        ((1, 8, 16, 24, 64), 1024, 3, torch.float32, True, "zeros", "replicate", (1e-4, 1e-4)),
+        ((2, 3, 9, 13, 48), 136, 3, torch.float32, False, "reflect", "replicate", (1e-4, 1e-4)),
+        ((1, 2, 3, 5, 16), 8, 1, torch.float32, False, "zeros", "zeros", (1e-4, 1e-4)),
     ]
+    plans = set()
     for shape, cout, kt, dtype, causal, sm, tm, (max_rel, rms_rel) in cases:
         x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
         w = (torch.randn(kt, 3, 3, shape[-1], cout, device="cuda", generator=gen) * 0.05).to(dtype)
@@ -127,6 +140,17 @@ def test_conv_kernel_matches_plain_on_gpu():
         assert out.shape == ref.shape == (*shape[:4], cout)
         assert (out - ref).abs().max() <= max_rel * ref.abs().max(), (shape, dtype)
         assert (out - ref).square().mean().sqrt() <= rms_rel * ref.square().mean().sqrt(), (shape, dtype)
+        if dtype == torch.float32:
+            # 3xTF32 is held to fp32 accuracy: against float64, rms 2e-6 and
+            # max 1e-5 relative (single-pass TF32 errs by about 3e-4).
+            ref64 = C.conv3d_plain(x.double(), w.double(), b.double(), causal, sm, tm)
+            err = out.double() - ref64
+            assert err.square().mean().sqrt() <= 2e-6 * ref64.square().mean().sqrt(), shape
+            assert err.abs().max() <= 1e-5 * ref64.abs().max(), shape
+            # The split-K partials are summed in a fixed order: bitwise reproducible.
+            assert torch.equal(C.conv3d(x, w, b, causal, sm, tm), out)
+            plans.add(C.tf32x3_plan(shape[0] * shape[1] * shape[2] * shape[3], cout, shape[-1], kt, sms)[0])
+    assert 1 in plans and len(plans) > 1, plans  # one K range and split K both ran
     # What the kernel does not take raises on the card; nothing falls back.
     x = torch.randn(1, 2, 4, 4, 24, device="cuda").bfloat16()
     with pytest.raises(ValueError, match="Cin % 16"):
@@ -138,3 +162,5 @@ def test_conv_kernel_matches_plain_on_gpu():
         C.conv3d(x.half(), torch.zeros(3, 3, 3, 16, 8, device="cuda").half())
     with pytest.raises(ValueError, match="contiguous"):
         C.conv3d(x.transpose(2, 3), torch.zeros(3, 3, 3, 16, 8, device="cuda"))
+    with pytest.raises(ValueError, match="TF32 split"):
+        C.conv3d(x, torch.zeros(3, 3, 3, 16, 8, device="cuda"), w_split=torch.zeros(2, 27, 16, 8, device="cuda"))
