@@ -40,15 +40,28 @@ card and nvcc; it exits non-zero without them, and without the package
    latents and that every attention call went through the forward kernel
    (none through a backward kernel) and every decoder conv through the conv
    kernel;
-6. two-stage path: `generate_videos_distilled` (stage 1 at 256x384, the
-   fp32 spatial upscaler, stage 2 at 512x768 on the 3-sigma tail, tiled VAE
-   decode) at full width and depth for 2 requests; checks the frames,
-   finite latents after each stage, 1056 flash launches a clip, the conv
-   launches the code implies (19 in the upscaler, 45 per decoder call and
-   tile) and two distinct clips; then the same recipe at a small size
-   (2-layer DiT, 128x128x17, tiled decode) through the kernels against the
-   same pipeline with every flash and conv call on its plain version;
-7. backward check: at the flash cases, the forward's residuals l, m
+6. text encode: the full-width fp32 Gemma-3-12B (48 layers, 3840 wide) and
+   the V1 text encoder (feature extractor over 49 states, 2-block 30 x 128
+   connector) built on the card, one request's 2 x 1024 prompt tokens
+   encoded twice (the second call timed), with init seconds, peak memory,
+   finiteness, the FLOP and bound of an encode, and no kernel launch (the
+   encode is plain torch ops, as the JAX package runs it outside Pallas);
+   then a 2-layer, full-width Gemma (sliding then full, window 16) and the
+   V1 encoder at 2 x 64 tokens on the card against the same weights on the
+   CPU, within relative rms 1e-5 and max 1e-4;
+7. two-stage path: `generate_videos_distilled(text_encoder=True)` (each
+   request's prompts encoded by the full-width Gemma and V1 encoder, which
+   are then released; the DiT with its caption projection; stage 1 at
+   256x384, the fp32 spatial upscaler, stage 2 at 512x768 on the 3-sigma
+   tail, tiled VAE decode) at full width and depth for 2 requests; checks
+   the frames, finite contexts and latents after each stage, 1056 flash
+   launches a clip, the conv launches the code implies (19 in the
+   upscaler, 45 per decoder call and tile) and two distinct clips, with
+   each phase's seconds and peak memory; then the same recipe at a small
+   size (2-layer DiT, 128x128x17, tiled decode, dummy context) through the
+   kernels against the same pipeline with every flash and conv call on its
+   plain version;
+8. backward check: at the flash cases, the forward's residuals l, m
    against `flash_attention_residuals_plain`, and dq, dk, dv from the fused
    backward kernel against `flash_attention_bwd_plain` and against autograd of
    `flash_attention_plain` in fp32, within relative limits that planted
@@ -56,15 +69,16 @@ card and nvcc; it exits non-zero without them, and without the package
    the kernel's own device time, the whole backward's (Di, accumulator,
    kernel, dQ conversion), the five-product bound, the plain version's and
    SDPA's backward (and the names of the kernels SDPA ran);
-8. training path: (a) `ltx2_tpu_torch.train.main` for 3 LoRA steps of the
+9. training path: (a) `ltx2_tpu_torch.train.main` for 3 LoRA steps of the
    full-width 48-block DiT at 6144 tokens, checking finite losses, non-zero
    lora_B after step 1, a bit-identical base and the launch counts; (b) the
    step's time, TF/s and peak memory at scripts/bench_train.py's shape (1024
    text tokens); (c) adapter gradients of 2 full-width blocks through the
    kernels against the same model on plain attention.
 
-The second-to-last line of output is the kernels' JSON record, the last the
-device record.
+The second-to-last line of output is the kernels' JSON record (with the
+text encode's, the two-stage flow's and training's records beside the
+kernels), the last the device record.
 """
 
 from __future__ import annotations
@@ -119,6 +133,10 @@ TWO_STAGE_LAUNCHES_PER_CLIP = 2 * LAYERS * (8 + 3)
 TOL_SMALL_LATENT_RMS_REL = 1e-2
 TOL_SMALL_MEAN_LEVELS = 2.0
 TRAIN_STEPS = 3
+# The text encoder on the card against the CPU (fp32 both, TF32 off): they
+# differ in summation order only.
+TOL_ENCODE_RMS_REL = 1e-5
+TOL_ENCODE_MAX_REL = 1e-4
 # Adapter gradients of 2 full-width blocks, kernels against plain attention:
 # both runs share every other op, so the difference is the kernels' bf16 P,
 # dS and output rounding carried through two blocks.
@@ -753,10 +771,135 @@ def phase_main_path(smi: str):
     return counts
 
 
+def encode_flops(gemma_cfg, te_cfg, batch: int, tokens: int) -> dict:
+    """FLOP of one encode by part, reckoned from the configs: Gemma's
+    linears, its attention (dense: the plain route computes every masked
+    logit too), the feature extractor's projection and the connector
+    (linears and attention over `tokens`, as registers fill up to 1024)."""
+    g, n = gemma_cfg, batch * tokens
+    qd, kvd = g.num_attention_heads * g.head_dim, g.num_key_value_heads * g.head_dim
+    per_layer = g.hidden_size * (2 * qd + 2 * kvd) + 3 * g.hidden_size * g.intermediate_size
+    c = te_cfg.connector
+    conn_tokens = batch * max(tokens, c.min_sequence_length)
+    return {
+        "gemma_linears": 2.0 * n * per_layer * g.num_hidden_layers,
+        "gemma_attention": 4.0 * batch * g.num_attention_heads * tokens ** 2 * g.head_dim * g.num_hidden_layers,
+        "extractor": 2.0 * n * te_cfg.hidden_dim * te_cfg.num_gemma_layers * te_cfg.hidden_dim,
+        "connector": c.num_layers * (2.0 * conn_tokens * 12 * c.inner_dim ** 2
+                                     + 4.0 * conn_tokens * max(tokens, c.min_sequence_length) * c.inner_dim),
+    }
+
+
+def _rel_err(x, ref) -> dict:
+    """Relative rms and max error of x against ref (on ref's device), float64."""
+    err = x.detach().to(ref.device).double() - ref.double()
+    return {"rms_rel": (err.square().mean().sqrt() / ref.double().square().mean().sqrt()).item(),
+            "max_rel": (err.abs().max() / ref.double().abs().max()).item()}
+
+
+def phase_text_encode_check(smi: str) -> dict:
+    """A 2-layer, full-width Gemma-3 (sliding, window 16, then full) and the
+    V1 encoder over its 3 states at 2 x 64 tokens (lengths 64 and 23,
+    left-padded) on the card against the same weights on the CPU."""
+    import torch
+
+    from ltx2_tpu_torch.generate import make_gemma, make_text_encoder
+    from ltx2_tpu_torch.models.text_encoder import (
+        Gemma3, Gemma3Config, TextEncoderConfig, VideoTextEncoder, gemma3_apply, video_text_encoder_apply,
+    )
+
+    dev = torch.device("cuda")
+    cfg = Gemma3Config(num_hidden_layers=2, sliding_window=16, layer_types=("sliding_attention", "full_attention"))
+    te_cfg = TextEncoderConfig(num_gemma_layers=3)
+    gemma, enc = make_gemma(dev, seed=7, cfg=cfg), make_text_encoder(dev, seed=8, cfg=te_cfg)
+    gemma_cpu, enc_cpu = Gemma3(cfg, device="cpu"), VideoTextEncoder(te_cfg, device="cpu")
+    gemma_cpu.load_state_dict(gemma.state_dict())
+    enc_cpu.load_state_dict(enc.state_dict())
+    gen = torch.Generator().manual_seed(9)
+    ids = torch.randint(3, cfg.vocab_size, (2, 64), generator=gen)
+    mask = torch.ones(2, 64, dtype=torch.long)
+    mask[1, :64 - 23] = 0
+    ids[mask == 0] = 0
+    _, hidden = gemma3_apply(gemma, ids.to(dev), mask.to(dev))
+    out = video_text_encoder_apply(enc, hidden, mask.to(dev)).video_encoding
+    t0 = time.perf_counter()
+    _, hidden_ref = gemma3_apply(gemma_cpu, ids, mask)
+    ref = video_text_encoder_apply(enc_cpu, hidden_ref, mask).video_encoding
+    cpu_s = time.perf_counter() - t0
+    errs = {f"state_{i}": _rel_err(hidden[i], hidden_ref[i]) for i in range(hidden.shape[0])}
+    errs["encoding"] = _rel_err(out, ref)
+    finite = bool(torch.isfinite(out).all() and torch.isfinite(hidden).all())
+    rec = {"tokens": [2, 64], "lengths": [64, 23], "encoding_shape": list(out.shape), "errors": errs,
+           "finite": finite, "cpu_s": cpu_s, "tol_rms_rel": TOL_ENCODE_RMS_REL, "tol_max_rel": TOL_ENCODE_MAX_REL}
+    log(f"text encode check (2-layer full-width Gemma + V1 encoder, card vs CPU): {json.dumps(rec)} | {smi}")
+    del gemma, enc, hidden, out
+    torch.cuda.empty_cache()
+    outside = [k for k, e in errs.items() if e["rms_rel"] > TOL_ENCODE_RMS_REL or e["max_rel"] > TOL_ENCODE_MAX_REL]
+    if not finite or outside:
+        raise AssertionError(f"the text encoder on the card disagrees with the CPU: {errs}")
+    return rec
+
+
+def phase_text_encode(smi: str) -> dict:
+    """The full-width fp32 Gemma-3-12B and V1 encoder on the card: init,
+    two encodes of one request's 2 x 1024 prompt tokens (the second timed),
+    peak memory, finiteness, and the encode's bound; no kernel launches."""
+    import torch
+
+    from ltx2_tpu_torch.generate import CONTEXT_TOKENS, encode_prompts, make_gemma, make_text_encoder
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    gemma = make_gemma(dev)
+    torch.cuda.synchronize()
+    gemma_init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enc = make_text_encoder(dev)
+    torch.cuda.synchronize()
+    te_init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size() for m in (gemma, enc) for p in m.parameters())
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    stats = [{"seed": SEEDS[0]}, {"seed": SEEDS[0]}]
+    contexts = encode_prompts([SEEDS[0]] * 2, gemma, enc, dev, stats)
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    flops = encode_flops(gemma.cfg, enc.cfg, 2, CONTEXT_TOKENS)
+    total = sum(flops.values())
+    t_ops, t_bytes = total / PEAK_FP32_FLOPS, weight_bytes / PEAK_BYTES_PER_S
+    encode_s = stats[1]["text_encode_s"]
+    repeat = _rel_err(contexts[1], contexts[0])
+    rec = {"gemma_params": sum(p.numel() for p in gemma.parameters()),
+           "text_encoder_params": sum(p.numel() for p in enc.parameters()),
+           "gemma_init_s": gemma_init_s, "text_encoder_init_s": te_init_s, "weights_gb": weights_gb,
+           "encode_s": encode_s, "first_encode_s": stats[0]["text_encode_s"], "peak_memory_gb": peak_gb,
+           "tokens": [2, CONTEXT_TOKENS], "prompt_tokens": stats[0]["prompt_tokens"],
+           "negative_tokens": stats[0]["negative_tokens"], "context_shape": list(contexts[0].shape),
+           "context_finite": all(s["context_finite"] for s in stats), "context_std": stats[1]["context_std"],
+           "repeat_rel_err": repeat, "tflop": {k: v / 1e12 for k, v in flops.items()}, "tflop_total": total / 1e12,
+           "bound_s": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "bytes_bound_s": t_bytes, "tflops_achieved": total / encode_s / 1e12, "launches": counts,
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32, "card": smi}
+    log(f"text encode (full-width fp32 Gemma-3-12B + V1 encoder, 2 x {CONTEXT_TOKENS} tokens): {json.dumps(rec)}")
+    del gemma, enc, contexts
+    torch.cuda.empty_cache()
+    if not rec["context_finite"] or rec["context_shape"] != [1, CONTEXT_TOKENS, 3840]:
+        raise AssertionError(f"text encode output {rec}")
+    if any(counts.values()) or rec["allow_tf32"]:
+        raise AssertionError(f"the encode launched a kernel or ran TF32: {counts}")
+    if repeat["max_rel"] > TOL_ENCODE_MAX_REL:
+        raise AssertionError(f"two encodes of the same tokens differ: {repeat}")
+    rec["card_vs_cpu"] = phase_text_encode_check(smi)
+    return rec
+
+
 def phase_two_stage(smi: str):
-    """The two-stage distilled recipe through `generate_videos_distilled` at
-    full width and depth for 2 requests of different seeds: frames, finite
-    latents after each stage, the launches the code implies, distinct clips."""
+    """The two-stage distilled recipe through `generate_videos_distilled`
+    with text encoding at full width and depth for 2 requests of different
+    seeds: frames, finite contexts and latents after each stage, the
+    launches the code implies, distinct clips."""
     import numpy as np
     import torch
 
@@ -775,26 +918,32 @@ def phase_two_stage(smi: str):
     _reset_counts()
     t0 = time.perf_counter()
     frames, stats = generate_videos_distilled(list(SEEDS), height=HEIGHT, width=WIDTH, frames=FRAMES,
-                                              layers=LAYERS, device="cuda")
+                                              layers=LAYERS, device="cuda", text_encoder=True)
     wall = time.perf_counter() - t0
     counts = _counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    phase_peaks = {k: max(s[k] for s in stats if s.get(k) is not None)
+                   for k in ("text_encode_peak_gb", "stage1_peak_gb", "upscale_peak_gb", "stage2_peak_gb",
+                             "decode_peak_gb")}
+    peak_gb = max(phase_peaks.values())
     for s in stats:
-        log(f"two-stage request seed={s['seed']}: stage 1 {s['stage1_s']:.3f} s, upscale {s['upscale_s']:.3f} s, "
-            f"stage 2 {s['stage2_s']:.3f} s, decode {s['decode_s']:.3f} s ({s['decode_tiles']} tiles), "
-            f"attention launches {s['attention_launches']}, conv launches {s['upscale_conv_launches']} upscale + "
-            f"{s['decode_conv_launches']} decode | {smi}")
+        log(f"two-stage request seed={s['seed']}: text encode {s['text_encode_s']:.3f} s "
+            f"({s['prompt_tokens']} + {s['negative_tokens']} tokens), stage 1 {s['stage1_s']:.3f} s, upscale "
+            f"{s['upscale_s']:.3f} s, stage 2 {s['stage2_s']:.3f} s, decode {s['decode_s']:.3f} s "
+            f"({s['decode_tiles']} tiles), attention launches {s['attention_launches']}, conv launches "
+            f"{s['upscale_conv_launches']} upscale + {s['decode_conv_launches']} decode, context std "
+            f"{s['context_std']:.4f} | {smi}")
     log(f"two-stage path: {len(SEEDS)} requests {WIDTH}x{HEIGHT}x{FRAMES}f (stage 1 {WIDTH // 2}x{HEIGHT // 2}), "
-        f"{LAYERS} layers, wall {wall:.1f} s (init DiT {stats[0]['dit_init_s']:.1f} s, upscaler "
-        f"{stats[0]['upscaler_init_s']:.1f} s, decoder {stats[0]['decoder_init_s']:.1f} s), peak memory "
-        f"{peak_gb:.1f} GB, launches {counts} | {smi}")
+        f"{LAYERS} layers, text encoder on, wall {wall:.1f} s (init Gemma {stats[0]['gemma_init_s']:.1f} s, text "
+        f"encoder {stats[0]['text_encoder_init_s']:.1f} s, DiT {stats[0]['dit_init_s']:.1f} s, upscaler "
+        f"{stats[0]['upscaler_init_s']:.1f} s, decoder {stats[0]['decoder_init_s']:.1f} s), peak memory by phase "
+        f"{json.dumps(phase_peaks)} GB, launches {counts} | {smi}")
 
     for f in frames:
         if f.shape != (FRAMES, HEIGHT, WIDTH, 3) or f.dtype != np.uint8:
             raise AssertionError(f"two-stage frames {f.shape} {f.dtype}")
     for s in stats:
-        if not (s["stage1_latent_finite"] and s["stage2_latent_finite"]):
-            raise AssertionError(f"seed {s['seed']}: non-finite latent {s}")
+        if not (s["context_finite"] and s["stage1_latent_finite"] and s["stage2_latent_finite"]):
+            raise AssertionError(f"seed {s['seed']}: non-finite context or latent {s}")
         got = {"attention": s["attention_launches"], "upscale": s["upscale_conv_launches"],
                "decode": s["decode_conv_launches"], "tiles": s["decode_tiles"]}
         want = {"attention": TWO_STAGE_LAUNCHES_PER_CLIP, **expected, "tiles": tiles}
@@ -808,7 +957,7 @@ def phase_two_stage(smi: str):
     log(f"two-stage frames: {[f.shape for f in frames]} uint8, latent std {[s['latent_std'] for s in stats]}, "
         f"frame mean/std {[(float(f.mean()), float(f.std())) for f in frames]}, mean |clip 1 - clip 2| "
         f"{float(np.abs(frames[0].astype(np.int16) - frames[1]).mean())} levels")
-    return counts, stats, peak_gb
+    return counts, stats, phase_peaks
 
 
 def phase_two_stage_small(smi: str) -> dict:
@@ -1083,7 +1232,8 @@ def main():
     import torch
 
     torch.cuda.empty_cache()
-    two_stage_counts, two_stage_stats, two_stage_peak_gb = phase_two_stage(smi)
+    text_encode = phase_text_encode(smi)
+    two_stage_counts, two_stage_stats, two_stage_peaks = phase_two_stage(smi)
     torch.cuda.empty_cache()
     two_stage_small = phase_two_stage_small(smi)
     bwd = phase_bwd_kernels()
@@ -1172,7 +1322,8 @@ def main():
             "cases": fp32_recs,
         },
     ], "train": {"timing": timing, "gradcheck": gradcheck},
-        "two_stage": {"requests": two_stage_stats, "peak_memory_gb": two_stage_peak_gb,
+        "text_encode": text_encode,
+        "two_stage": {"requests": two_stage_stats, "peak_memory_gb_by_phase": two_stage_peaks,
                       "small_input_check": two_stage_small}}
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -13,17 +13,25 @@ Two flows, chosen with `--pipeline`:
   sigmas -> 2x spatial upscaler -> stage 2 at full resolution on the 3-sigma
   tail -> tiled VAE decode.
 
-Weights are random, drawn on the device from a seed; the text context is
-the dummy embedding of `generate.py --no-gemma` (normal * 0.02, 1024 x 4096).
-Every attention call runs the flash kernel and every VAE and upscaler conv
-the implicit-GEMM conv kernel.
+Weights are random, drawn on the device from a seed. The text context is
+the dummy embedding of `generate.py --no-gemma` (normal * 0.02, 1024 x 4096),
+except in the two-stage recipe with `--text-encoder`: there each request's
+prompt and negative prompt, token ids drawn from the request's seed and
+left-padded to 1024 (there is no tokenizer here), go through the fp32
+Gemma-3-12B and the V1 text encoder (feature extractor, 1D connector) in
+one batch of 2, and the DiT's caption projection maps the encoding (1024 x
+3840) to its width. Every DiT attention call runs the flash kernel, every
+VAE and upscaler conv the implicit-GEMM conv kernel; Gemma's and the
+connector's fp32 attention runs as plain torch ops, as the JAX package runs
+it outside Pallas.
 
 From Python: `generate_video(seed=0)`, `generate_videos([0, 1, ...])` or
-`generate_videos_distilled([0, 1, ...])`. From the shell (N clips in one
-process, seeds seed..seed+N-1):
+`generate_videos_distilled([0, 1, ...], text_encoder=True)`. From the shell
+(N clips in one process, seeds seed..seed+N-1):
 
     python -m ltx2_tpu_torch.generate --requests 2
     python -m ltx2_tpu_torch.generate --pipeline distilled --requests 2
+    python -m ltx2_tpu_torch.generate --pipeline distilled --text-encoder --requests 2
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ import dataclasses
 import gc
 import json
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -44,6 +52,10 @@ from ltx2_tpu_torch.components.patchifiers import VideoLatentPatchifier
 from ltx2_tpu_torch.components.schedulers import DISTILLED_SIGMA_VALUES
 from ltx2_tpu_torch.conditioning.tools import VideoLatentTools
 from ltx2_tpu_torch.core import resolve_device
+from ltx2_tpu_torch.models.text_encoder import (
+    Gemma3, Gemma3Config, TextEncoderConfig, VideoTextEncoder, gemma3_apply, init_gemma3_, init_text_encoder_,
+    video_text_encoder_apply,
+)
 from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelConfig, init_ltx_model_
 from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscaler, SpatialUpscalerConfig, init_spatial_upscaler_
 from ltx2_tpu_torch.models.video_vae.chunking import decode_latent
@@ -59,6 +71,12 @@ from ltx2_tpu_torch.pipelines.distilled import DistilledConfig, DistilledPipelin
 from ltx2_tpu_torch.types import LatentState, VideoLatentShape, VideoPixelShape
 
 CONTEXT_TOKENS = 1024
+# A request's prompt and negative prompt lengths in tokens, drawn from its
+# seed in [low, high); token ids: BOS, then uniform over the vocabulary
+# above the special ids; padding id 0 on the left.
+PROMPT_TOKENS = (128, 512)
+NEGATIVE_TOKENS = (32, 160)
+PAD_ID, BOS_ID, FIRST_TEXT_ID = 0, 2, 3
 FPS = 24.0
 TEMPORAL_CHUNK = 7  # latent frames per decode chunk, the JAX bench's setting
 
@@ -83,6 +101,15 @@ def _free(device: torch.device) -> None:
         torch.cuda.empty_cache()
 
 
+def _peak_gb(device: torch.device) -> Optional[float]:
+    """Peak device memory since the last call, GB (None off CUDA); resets it."""
+    if device.type != "cuda":
+        return None
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    torch.cuda.reset_peak_memory_stats(device)
+    return peak
+
+
 def make_dit(layers: int, device: torch.device, seed: int = 0, base: LTXModelConfig = LTXModelConfig()) -> LTXModel:
     """The video DiT of config `base` (default: full width) at `layers`
     depth, random weights drawn on the device from `seed`."""
@@ -101,6 +128,71 @@ def make_upscaler(device: torch.device) -> SpatialUpscaler:
     package, random weights from seed 2."""
     upscaler = SpatialUpscaler(SpatialUpscalerConfig(), device=device)
     return init_spatial_upscaler_(upscaler, torch.Generator(device=device).manual_seed(2))
+
+
+def make_gemma(device: torch.device, seed: int = 3, cfg: Gemma3Config = Gemma3Config()) -> Gemma3:
+    """Gemma-3 of config `cfg` (default: the full-width 12B, 48 layers,
+    fp32), random weights drawn on the device from `seed`."""
+    return init_gemma3_(Gemma3(cfg, device=device), torch.Generator(device=device).manual_seed(seed))
+
+
+def make_text_encoder(device: torch.device, seed: int = 4, cfg: TextEncoderConfig = TextEncoderConfig()
+                      ) -> VideoTextEncoder:
+    """The V1 text encoder above Gemma (feature extractor over 49 states of
+    3840, 2-block 30 x 128 connector), fp32, random weights from `seed`."""
+    return init_text_encoder_(VideoTextEncoder(cfg, device=device), torch.Generator(device=device).manual_seed(seed))
+
+
+def prompt_tokens(seed: int, vocab_size: int, length: int = CONTEXT_TOKENS) -> Tuple[torch.Tensor, torch.Tensor, list]:
+    """A request's (prompt, negative prompt) token batch, drawn from `seed`
+    on the CPU: ids (2, length) int64 and mask (2, length), left-padded, and
+    the two real lengths."""
+    gen = torch.Generator().manual_seed(seed)
+    lengths = [int(torch.randint(low, high, (1,), generator=gen)) for low, high in (PROMPT_TOKENS, NEGATIVE_TOKENS)]
+    ids = torch.full((2, length), PAD_ID, dtype=torch.long)
+    mask = torch.zeros(2, length, dtype=torch.long)
+    for row, n in enumerate(lengths):
+        ids[row, length - n] = BOS_ID
+        ids[row, length - n + 1:] = torch.randint(FIRST_TEXT_ID, vocab_size, (n - 1,), generator=gen)
+        mask[row, length - n:] = 1
+    return ids, mask, lengths
+
+
+def encode_prompts(seeds: Sequence[int], gemma: Gemma3, text_encoder: VideoTextEncoder, device: torch.device,
+                   stats: Sequence[dict]) -> List[torch.Tensor]:
+    """Each request's prompt and negative prompt through Gemma and the text
+    encoder as one batch of 2; returns the prompts' (1, S, 3840) contexts and
+    writes into each request's stats the encode's seconds, the token lengths
+    used and the context's finiteness and std."""
+    contexts = []
+    for seed, st in zip(seeds, stats):
+        ids, mask, (st["prompt_tokens"], st["negative_tokens"]) = prompt_tokens(seed, gemma.cfg.vocab_size)
+        ids, mask = ids.to(device), mask.to(device)
+        _sync(device)
+        t0 = time.perf_counter()
+        _, hidden = gemma3_apply(gemma, ids, mask)
+        encoding = video_text_encoder_apply(text_encoder, hidden, mask).video_encoding
+        _sync(device)
+        st["text_encode_s"] = time.perf_counter() - t0
+        del hidden
+        context = encoding[0:1]
+        st["context_finite"] = bool(torch.isfinite(encoding).all())
+        st["context_std"] = float(context.std())
+        contexts.append(context)
+    return contexts
+
+
+def _encode_phase(seeds, stats, device, gemma: Optional[Gemma3], text_encoder: Optional[VideoTextEncoder]):
+    """The encode phase of the two-stage recipe: builds what is not given,
+    encodes every request and returns the contexts; the modules it built
+    are released when it returns."""
+    if gemma is None:
+        gemma, stats[0]["gemma_init_s"] = _timed(device, lambda: make_gemma(device))
+    if text_encoder is None:
+        text_encoder, stats[0]["text_encoder_init_s"] = _timed(device, lambda: make_text_encoder(device))
+    contexts = encode_prompts(seeds, gemma, text_encoder, device, stats)
+    stats[0]["text_encode_peak_gb"] = _peak_gb(device)
+    return contexts
 
 
 def make_latent_tools(cfg: LTXModelConfig, height: int, width: int, frames: int) -> VideoLatentTools:
@@ -235,28 +327,54 @@ def generate_videos_distilled(
     decoder: Optional[VideoDecoder] = None,
     contexts: Optional[Sequence[torch.Tensor]] = None,
     noises: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+    text_encoder: Union[bool, VideoTextEncoder] = False,
+    gemma: Optional[Gemma3] = None,
 ) -> Tuple[List[np.ndarray], List[dict]]:
     """The two-stage distilled recipe, one clip per seed; returns (uint8
     (frames, height, width, 3) arrays, per-request stats).
 
-    The DiT and the upscaler serve both stages of every request; then they
-    are released and the decoder decodes each clip (tiled above 4000 latent
-    voxels, as `DistilledConfig.effective_tiling` decides), so the decoder
-    never shares device memory with them. `dit`, `upscaler`, `decoder`, `contexts` and `noises` (each
-    request's (stage-1, stage-2) noise) replace the random weights, the
-    dummy text context and the noise drawn from the request's seed. Random
-    weights come from seeds 0 (DiT), 2 (upscaler) and 1 (decoder); the
-    upscale bracket uses `decoder`'s statistics, or the defaults (0, 1) that
-    a random decoder holds. Stats per request: seconds of stage 1, upscale,
-    stage 2 and decode, attention launches, conv launches of the upscale and
-    the decode, decode tiles, and the latents' finiteness after each stage.
+    With `text_encoder` (True, or a VideoTextEncoder to use) every request's
+    prompts are encoded first (`encode_prompts`), by a full-width fp32
+    Gemma-3-12B (or `gemma`) and the V1 text encoder; both are then released
+    before the DiT, built with a 3840-channel caption projection, is made
+    (fp32 Gemma alone holds 47 GB). Without it each request gets the dummy
+    context. The DiT and the upscaler serve both stages of every request;
+    then they are released and the decoder decodes each clip (tiled above
+    4000 latent voxels, as `DistilledConfig.effective_tiling` decides), so
+    the decoder never shares device memory with them. `dit`, `upscaler`,
+    `decoder`, `contexts` and `noises` (each request's (stage-1, stage-2)
+    noise) replace the random weights, the text context and the noise drawn
+    from the request's seed. Random weights come from seeds 3 (Gemma), 4
+    (text encoder), 0 (DiT), 2 (upscaler) and 1 (decoder); the upscale
+    bracket uses `decoder`'s statistics, or the defaults (0, 1) that a
+    random decoder holds. Stats per request: seconds of the text encode,
+    stage 1, upscale, stage 2 and decode, attention launches, conv launches
+    of the upscale and the decode, decode tiles, the latents' finiteness
+    after each stage, the context's finiteness and std, and on the card
+    each phase's peak memory (GB).
     """
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    encode = text_encoder is True or isinstance(text_encoder, VideoTextEncoder)
+    if gemma is not None and not encode:
+        raise ValueError("gemma is given but text encoding is off (text_encoder=False)")
+    if encode and contexts is not None:
+        raise ValueError("contexts and text_encoder are exclusive: the encoder makes the contexts")
     stats = [{"seed": seed, "dit_init_s": 0.0, "upscaler_init_s": 0.0, "decoder_init_s": 0.0} for seed in seeds]
+    _peak_gb(device)
+    if encode:
+        contexts = _encode_phase(seeds, stats, device, gemma,
+                                 text_encoder if isinstance(text_encoder, VideoTextEncoder) else None)
+        gemma = text_encoder = None
+        _free(device)
+        _peak_gb(device)  # the next phase's peak starts from what is left
     if dit is None:
-        dit, stats[0]["dit_init_s"] = _timed(device, lambda: make_dit(layers, device))
+        base = LTXModelConfig(caption_channels=contexts[0].shape[-1]) if encode else LTXModelConfig()
+        dit, stats[0]["dit_init_s"] = _timed(device, lambda: make_dit(layers, device, base=base))
+    if encode and dit.cfg.caption_channels != contexts[0].shape[-1]:
+        raise ValueError(f"the DiT's caption_channels {dit.cfg.caption_channels} do not take the "
+                         f"{contexts[0].shape[-1]}-channel text encoding")
     if upscaler is None:
         upscaler, stats[0]["upscaler_init_s"] = _timed(device, lambda: make_upscaler(device))
     cfg = dit.cfg
@@ -279,6 +397,7 @@ def generate_videos_distilled(
             _sync(device)
             now = time.perf_counter()
             st[f"{phase}_s"] = now - marks["t"]
+            st[f"{phase}_peak_gb"] = _peak_gb(device)
             marks["t"] = now
             if phase == "upscale":
                 st["upscale_conv_launches"] = conv3d_ndhwc_kernel.launches - marks["conv"]
@@ -294,6 +413,7 @@ def generate_videos_distilled(
 
     del dit, upscaler, pipe
     _free(device)
+    _peak_gb(device)
 
     if decoder is None:
         decoder, stats[0]["decoder_init_s"] = _timed(device, lambda: make_decoder(cfg.compute_dtype, device))
@@ -306,6 +426,7 @@ def generate_videos_distilled(
         t0 = time.perf_counter()
         videos.append(decode_video(latent, decoder, tiling_used, stage_seeds(config.seed)[2]))
         st["decode_s"] = time.perf_counter() - t0  # host frames: synchronised
+        st["decode_peak_gb"] = _peak_gb(device)
         st["decode_conv_launches"] = conv3d_ndhwc_kernel.launches - convs
     return videos, stats
 
@@ -329,11 +450,16 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--requests", type=int, default=1, help="clips to generate, seeds seed..seed+N-1")
+    ap.add_argument("--text-encoder", action="store_true",
+                    help="distilled only: encode each request's prompt tokens (drawn from its seed) with the fp32 "
+                         "Gemma-3-12B and V1 text encoder (random weights) in place of the dummy context")
     args = ap.parse_args(argv)
+    if args.text_encoder and args.pipeline != "distilled":
+        ap.error("--text-encoder needs --pipeline distilled")
     seeds = [args.seed + i for i in range(args.requests)]
     common = dict(height=args.height, width=args.width, frames=args.frames, layers=args.layers, device=args.device)
     if args.pipeline == "distilled":
-        videos, stats = generate_videos_distilled(seeds, **common)
+        videos, stats = generate_videos_distilled(seeds, text_encoder=args.text_encoder, **common)
     else:
         videos, stats = generate_videos(seeds, steps=args.steps, **common)
     for video, st in zip(videos, stats):

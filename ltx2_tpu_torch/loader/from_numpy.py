@@ -3,10 +3,11 @@
 The JAX package keeps parameters as nested dicts (and lists) whose leaf
 names follow the checkpoint; the port's modules use the same names, so a
 tree flattens to a state dict with dotted keys. The DiT's
-`transformer_blocks` leaves carry a leading layer axis L (the JAX package
-stacks its blocks to scan them), which is split into the L entries of the
-port's `nn.ModuleList`. Loading is strict: a leaf the module has no place
-for, or a parameter the tree does not give, raises.
+`transformer_blocks` and Gemma's `layers` leaves carry a leading layer axis
+L (the JAX package stacks them to scan them), which is split into the L
+entries of the port's `nn.ModuleList`; the connector's blocks are a list in
+both. Loading is strict: a leaf the module has no place for, or a parameter
+the tree does not give, raises.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from ltx2_tpu_torch.models.text_encoder.encoder import TextEncoderConfig, VideoTextEncoder
+from ltx2_tpu_torch.models.text_encoder.gemma3 import Gemma3, Gemma3Config
 from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelConfig
 from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscaler, SpatialUpscalerConfig
 from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoder, VideoDecoderConfig
@@ -46,27 +49,52 @@ def _load(module: torch.nn.Module, flat: Dict[str, np.ndarray]) -> None:
     module.load_state_dict({k: _to_tensor(v) for k, v in flat.items()}, strict=True)
 
 
-def dit_from_numpy(tree: Mapping, cfg: LTXModelConfig, device=None) -> LTXModel:
-    """A video DiT parameter tree (stacked blocks) -> LTXModel on `device`.
-
-    LoRA leaves of the tree (training/lora.py's stacked (L, r, in) `lora_A`,
-    (L, out, r) `lora_B` and (L,) `lora_scale`) become each block's adapters."""
+def _unstack(tree: Mapping, stacked: str, layers: int) -> Dict[str, np.ndarray]:
+    """flatten_tree, with each leaf under `stacked` split along its leading
+    layer axis into `stacked.{i}.<rest>`."""
     flat: Dict[str, np.ndarray] = {}
     for key, arr in flatten_tree(tree).items():
         head, _, rest = key.partition(".")
-        if head != "transformer_blocks":
+        if head != stacked:
             flat[key] = arr
             continue
-        if arr.shape[0] != cfg.num_layers:
-            raise ValueError(f"{key}: leading axis {arr.shape[0]} != num_layers {cfg.num_layers}")
-        for i in range(cfg.num_layers):
-            flat[f"transformer_blocks.{i}.{rest}"] = arr[i]
+        if arr.shape[0] != layers:
+            raise ValueError(f"{key}: leading axis {arr.shape[0]} != num_layers {layers}")
+        for i in range(layers):
+            flat[f"{stacked}.{i}.{rest}"] = arr[i]
+    return flat
+
+
+def dit_from_numpy(tree: Mapping, cfg: LTXModelConfig, device=None) -> LTXModel:
+    """A video DiT parameter tree (stacked blocks) -> LTXModel on `device`;
+    a `caption_projection` in the tree needs `cfg.caption_channels`.
+
+    LoRA leaves of the tree (training/lora.py's stacked (L, r, in) `lora_A`,
+    (L, out, r) `lora_B` and (L,) `lora_scale`) become each block's adapters."""
+    flat = _unstack(tree, "transformer_blocks", cfg.num_layers)
     model = LTXModel(cfg, device=device)
     for key, arr in flat.items():
         if key.endswith(".lora_A"):
             attach_lora_(model.get_submodule(key[: -len(".lora_A")]), rank=arr.shape[0])
     _load(model, flat)
     return model
+
+
+def gemma3_from_numpy(tree: Mapping, cfg: Gemma3Config, device=None) -> Gemma3:
+    """A Gemma-3 parameter tree (`embed_tokens`, stacked `layers`, `norm`)
+    -> Gemma3 on `device`."""
+    model = Gemma3(cfg, device=device)
+    _load(model, _unstack(tree, "layers", cfg.num_hidden_layers))
+    return model
+
+
+def text_encoder_from_numpy(tree: Mapping, cfg: TextEncoderConfig, device=None) -> VideoTextEncoder:
+    """A V1 text-encoder tree (`feature_extractor.aggregate_embed`,
+    `embeddings_connector` with its block list and registers) ->
+    VideoTextEncoder on `device`."""
+    encoder = VideoTextEncoder(cfg, device=device)
+    _load(encoder, flatten_tree(tree))
+    return encoder
 
 
 def trainable_to_numpy(model: LTXModel) -> Dict[str, np.ndarray]:

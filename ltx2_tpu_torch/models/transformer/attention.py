@@ -2,9 +2,11 @@
 ltx2_tpu/models/transformer/attention.py).
 
 QKV linears with bias, RMSNorm over the FULL inner dim of Q and K (not per
-head), SPLIT RoPE on Q/K, then `sdpa_tokens`, which on the GPU is the
-hand-written flash-attention kernel. Not ported yet: V2 gated attention,
-cached text K/V, and the sequence- and tensor-parallel paths.
+head), RoPE on Q/K (SPLIT in the DiT, INTERLEAVED in the text connector),
+then `sdpa_tokens`, which on the GPU is the hand-written flash-attention
+kernel for the DiT's bf16 attention (the connector's fp32 attention takes
+`sdpa`'s plain route). Not ported yet: V2 gated attention, cached text K/V,
+and the sequence- and tensor-parallel paths.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch.nn.functional as F
 from ltx2_tpu_torch.core import rms_norm
 from ltx2_tpu_torch.ops.attention import sdpa_tokens
 from ltx2_tpu_torch.ops.common import Linear, linear
-from ltx2_tpu_torch.ops.rope import apply_split_rotary_emb
+from ltx2_tpu_torch.ops.rope import LTXRopeType, apply_rotary_emb
 
 
 @dataclass(frozen=True)
@@ -29,6 +31,7 @@ class AttentionConfig:
     heads: int = 8
     dim_head: int = 64
     norm_eps: float = 1e-6
+    rope_type: LTXRopeType = LTXRopeType.SPLIT
 
     @property
     def inner_dim(self) -> int:
@@ -68,8 +71,8 @@ def attention_apply(
     k = rms_norm(linear(p.to_k, ctx), p.k_norm.weight, cfg.norm_eps)
     v = linear(p.to_v, ctx)
     if pe is not None:
-        q = apply_split_rotary_emb(q, *pe)
-        k = apply_split_rotary_emb(k, *pe)
+        q = apply_rotary_emb(q, pe, cfg.rope_type)
+        k = apply_rotary_emb(k, pe, cfg.rope_type)
     out = sdpa_tokens(q, k, v, cfg.heads, cfg.dim_head, mask=mask)
     return linear(p.to_out, out)
 

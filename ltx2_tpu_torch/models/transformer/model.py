@@ -5,9 +5,11 @@ an `nn.ModuleList` of blocks run in a Python loop (the JAX package stacks
 them on a leading layer axis and scans), each block rematerialised in the
 backward when `remat` is on and a gradient is being recorded (as
 `jax.checkpoint` around the JAX scan body), final LayerNorm + scale/shift +
-projection, and the x0 (denoised) wrapper. Not ported yet: the audio and
-audio-video models, V2 (cross-attention AdaLN, gated attention, prompt
-AdaLN), the caption projection, STG perturbations, text-KV caching and the
+projection, and the x0 (denoised) wrapper; with `caption_channels` set,
+the V1 caption projection (linear -> gelu-tanh -> linear) maps the text
+encoder's output to the model's width before the blocks. Not ported yet:
+the audio and audio-video models, V2 (cross-attention AdaLN, gated
+attention, prompt AdaLN), STG perturbations, text-KV caching and the
 parallel variants.
 """
 
@@ -19,6 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ltx2_tpu_torch.models.transformer.blocks import StreamArgs, StreamConfig, VideoBlock, av_block_apply
@@ -46,7 +49,10 @@ class Modality:
 @dataclass(frozen=True)
 class LTXModelConfig:
     """Static video-DiT architecture config. The defaults are the LTX-2.0
-    video model with direct 4096-d text context (no caption projection)."""
+    video model fed a 4096-d text context directly (`caption_channels`
+    None, as scripts/bench_e2e.py sets it); with `caption_channels` (3840
+    for the V1 text encoder, the JAX dataclass's default) a caption
+    projection maps that many channels to the model's width."""
 
     num_attention_heads: int = 32
     attention_head_dim: int = 128
@@ -55,6 +61,7 @@ class LTXModelConfig:
     num_layers: int = 48
     cross_attention_dim: int = 4096
     norm_eps: float = 1e-6
+    caption_channels: Optional[int] = None
     positional_embedding_theta: float = 10000.0
     positional_embedding_max_pos: Tuple[int, ...] = (20, 2048, 2048)
     timestep_scale_multiplier: int = 1000
@@ -91,6 +98,10 @@ class LTXModel(nn.Module):
         inner, dtype = cfg.video_inner_dim, cfg.dtype
         self.patchify_proj = Linear(cfg.in_channels, inner, device=device, dtype=dtype)
         self.adaln_single = AdaLayerNormSingle(inner, 6, device=device)
+        if cfg.caption_channels is not None:
+            self.caption_projection = nn.Module()
+            self.caption_projection.linear_1 = Linear(cfg.caption_channels, inner, device=device, dtype=dtype)
+            self.caption_projection.linear_2 = Linear(inner, inner, device=device, dtype=dtype)
         self.scale_shift_table = nn.Parameter(
             torch.zeros(2, inner, device=device, dtype=torch.float32), requires_grad=False
         )
@@ -147,7 +158,11 @@ def prepare_stream_args(
     timestep_emb, embedded = _prepare_timestep(
         model.adaln_single, video.timesteps, inner, batch, cfg.timestep_scale_multiplier
     )
-    context = video.context.to(dtype).reshape(batch, -1, inner)
+    context = video.context.to(dtype)
+    if cfg.caption_channels is not None:
+        proj = model.caption_projection
+        context = linear(proj.linear_2, F.gelu(linear(proj.linear_1, context), approximate="tanh"))
+    context = context.reshape(batch, -1, inner)
     if video_pe is None:
         video_pe = precompute_freqs_cis(
             video.positions, dim=inner, theta=cfg.positional_embedding_theta,

@@ -1,7 +1,7 @@
 """Scaled dot-product attention for the H100, forward and backward.
 
-Counterpart of ltx2_tpu/ops/attention.py. Every attention call goes through
-hand-written CUDA kernels for a CUDA tensor, and through their plain
+Counterpart of ltx2_tpu/ops/attention.py. Every flash-attention call goes
+through hand-written CUDA kernels for a CUDA tensor, and through their plain
 PyTorch versions for a CPU tensor; there is no fallback between the two: a
 CUDA tensor the kernels cannot take raises.
 
@@ -22,6 +22,12 @@ forward alone, without residuals. Each kernel is built from the repository's
 source with nvcc into `ltx2_tpu_torch/_build/` on first use and loaded with
 ctypes (`ops/_build.py`, shared with the conv kernel). Each wrapper counts its
 launches in its `launches` attribute.
+
+`sdpa` sends a call to the kernels or to plain torch ops by contract alone
+(`attention_route`), never because a kernel failed: the plain route takes
+what the JAX package computes outside Pallas (query-dependent masks, and
+operands the kernels do not take where it takes its einsum route, such as
+Gemma's and the text connector's fp32 attention).
 """
 
 from __future__ import annotations
@@ -34,6 +40,14 @@ import torch
 from ltx2_tpu_torch.ops._build import kernel
 
 _HEAD_DIMS = (64, 128)
+
+# The JAX package runs its Pallas flash kernel on the TPU only where the
+# query count reaches FLASH_MIN_TOKENS, the token counts and the head dim
+# are multiples of 128 and, without a mask, T_q == T_k; every other call,
+# and every query-dependent mask, takes its einsum route
+# (ltx2_tpu/ops/attention.py:27,201-211,231-245).
+_JAX_FLASH_MIN_TOKENS = 2048
+_JAX_FLASH_TILE = 128
 
 # Additive masks are binary: 0 = attend, <= -1e30 = masked (the models write
 # -0.7 * finfo.max). A key-only mask is binarized into key-valid flags here,
@@ -337,6 +351,66 @@ def flash_attention(
 flash_attention.launches = 0
 
 
+def mask_kind(mask: Optional[torch.Tensor]) -> Optional[str]:
+    """None, "key" for a key-only additive mask (B|1, 1, 1, S), or "query"
+    for any other (causal, windowed, per head)."""
+    if mask is None:
+        return None
+    return "key" if mask.ndim == 4 and mask.shape[1] == 1 and mask.shape[2] == 1 else "query"
+
+
+def attention_route(dtype: torch.dtype, t_q: int, t_k: int, head_dim: int, kind: Optional[str]) -> str:
+    """Which implementation computes an `sdpa` call, decided by the call's
+    contract alone (the same on the CPU and the card):
+
+    - "kernel": bf16 operands, no mask or a key-only mask, head dim 64 or
+      128: the flash kernels (their plain versions on a CPU tensor);
+    - "plain": a query-dependent mask, or operands the kernels do not take
+      (fp32, or another head dim) at a call where the JAX package takes its
+      einsum route: `sdpa_plain`, plain torch ops on either device, as the
+      JAX package computes it outside any Pallas kernel;
+    - anything else raises ValueError: operands the kernels do not take
+      where the JAX package runs its flash kernel (e.g. fp32 unmasked at
+      T >= 2048)."""
+    if kind not in (None, "key", "query"):
+        raise ValueError(f"attention_route: unknown mask kind {kind!r}")
+    if kind == "query":
+        return "plain"
+    if dtype == torch.bfloat16 and head_dim in _HEAD_DIMS:
+        return "kernel"
+    jax_flash = (
+        t_q >= _JAX_FLASH_MIN_TOKENS
+        and t_q % _JAX_FLASH_TILE == 0 and t_k % _JAX_FLASH_TILE == 0 and head_dim % _JAX_FLASH_TILE == 0
+        and (kind == "key" or t_q == t_k)
+    )
+    if jax_flash:
+        raise ValueError(
+            f"sdpa: {dtype} attention at T_q={t_q}, T_k={t_k}, D={head_dim} is the JAX package's flash "
+            f"route, and the flash kernels take bfloat16 at head dims {_HEAD_DIMS} only"
+        )
+    return "plain"
+
+
+def sdpa_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The JAX package's einsum route (ltx2_tpu/ops/attention.py:306-316):
+    logits in the inputs' dtype, the additive mask added in fp32, fp32
+    softmax, probabilities cast to q's dtype for the product with V. A row
+    whose keys are all masked by a finite mask averages V."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = (torch.einsum("bhqd,bhkd->bhqk", q, k) * scale).float()
+    if mask is not None:
+        logits = logits + mask.float()
+    weights = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", weights, v)
+
+
 def sdpa(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -345,16 +419,14 @@ def sdpa(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Multi-head SDPA over (B, H, T, D) tensors with an optional additive
-    key-only mask (B|1, 1, 1, S): 0 = attend, <= -1e30 = masked.
-
-    A query-dependent mask raises NotImplementedError: the kernel takes key
-    masks only, and no caller of this slice passes another kind."""
+    mask broadcasting against (B, H, T_q, T_k): 0 = attend, <= -1e30 =
+    masked. `attention_route` picks the flash kernels (a key-only mask
+    becomes their key-valid flags) or `sdpa_plain`, or raises."""
+    route = attention_route(q.dtype, q.shape[2], k.shape[2], q.shape[-1], mask_kind(mask))
+    if route == "plain":
+        return sdpa_plain(q, k, v, mask, scale)
     kv_valid = None
     if mask is not None:
-        if mask.ndim != 4 or mask.shape[1] != 1 or mask.shape[2] != 1:
-            raise NotImplementedError(
-                f"sdpa: only key-only (B, 1, 1, S) masks are supported, got {tuple(mask.shape)}"
-            )
         kv_valid = (mask[:, 0, 0, :] > _MASK_VALID_THRESHOLD).expand(q.shape[0], k.shape[2])
         kv_valid = kv_valid.contiguous()
     return flash_attention(q, k, v, scale, kv_valid)

@@ -75,6 +75,11 @@ def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
     return out.to(x.dtype)
 
 
+def silu_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """silu(a) * b (the gate of Gemma's MLP)."""
+    return F.silu(a) * b
+
+
 def pixel_norm(x: torch.Tensor, dim: int = 1, eps: float = 1e-6) -> torch.Tensor:
     """RMS normalization across one (channel) axis, fp32 math."""
     xf = x.float()

@@ -1,19 +1,52 @@
-"""3D rotary position embeddings, SPLIT layout (counterpart of
-ltx2_tpu/ops/rope.py).
+"""Rotary position embeddings (counterpart of ltx2_tpu/ops/rope.py).
 
-The LTX-2 DiT rotates the first half of each head against the second half
-(SPLIT). Frequencies come from a float32 log-spaced grid; positions are
-fractional midpoints scaled to [-1, 1]; rotation runs in fp32. Not ported
-yet: the INTERLEAVED layout and the float64 grid of V2.3.
+Two layouts: the LTX-2 DiT rotates the first half of each head against the
+second half (SPLIT); the text connector rotates adjacent pairs over the
+whole inner dim (INTERLEAVED). Frequencies come from a log-spaced grid
+(float32, or float64 rounded to float32 as V2.3 checkpoints ask); positions
+are fractions of max_pos scaled to [-1, 1]; rotation runs in fp32.
+
+The connector's positions are raw token indices over max_pos (1,), so the
+rotation angles reach 3.2e7, where one fp32 ulp is 2-4 radians: the angle
+is built op by op in fp32 in the JAX package's order (fraction * 2, - 1,
+* grid), never reassociated or contracted to an FMA (no torch.compile
+here), or cos and sin change by O(1).
 """
 
 from __future__ import annotations
 
 import math
+from enum import Enum
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+
+
+class LTXRopeType(Enum):
+    INTERLEAVED = "interleaved"
+    SPLIT = "split"
+
+
+def apply_rotary_emb(
+    x: torch.Tensor, freqs_cis: Tuple[torch.Tensor, torch.Tensor], rope_type: LTXRopeType
+) -> torch.Tensor:
+    if rope_type == LTXRopeType.INTERLEAVED:
+        return apply_interleaved_rotary_emb(x, *freqs_cis)
+    if rope_type == LTXRopeType.SPLIT:
+        return apply_split_rotary_emb(x, *freqs_cis)
+    raise ValueError(f"invalid rope type {rope_type}")
+
+
+def apply_interleaved_rotary_emb(
+    x: torch.Tensor, cos_freqs: torch.Tensor, sin_freqs: torch.Tensor
+) -> torch.Tensor:
+    """Pair rotation: (x0, x1), (x2, x3), ... rotate together. x is (..., D),
+    cos/sin broadcast against it. Rotation in fp32, x's dtype out."""
+    xf = x.float()
+    pairs = xf.unflatten(-1, (-1, 2))
+    rotated = torch.stack([-pairs[..., 1], pairs[..., 0]], dim=-1).flatten(-2)
+    return (xf * cos_freqs.float() + rotated * sin_freqs.float()).to(x.dtype)
 
 
 def apply_split_rotary_emb(
@@ -37,12 +70,14 @@ def apply_split_rotary_emb(
     return out.reshape(b, t, -1).to(x.dtype)
 
 
-def _freq_grid(theta: float, max_pos_count: int, inner_dim: int) -> np.ndarray:
-    """Log-spaced frequency indices * pi/2, float32 (rope.py:100-112)."""
+def _freq_grid(theta: float, max_pos_count: int, inner_dim: int, use_double_precision: bool = False) -> np.ndarray:
+    """Log-spaced frequency indices * pi/2, computed in float32 or float64,
+    returned as float32 (rope.py:101-112)."""
     num = inner_dim // (2 * max_pos_count)
+    dtype = np.float64 if use_double_precision else np.float32
     log_start = np.log(1.0) / np.log(theta)
     log_end = np.log(theta) / np.log(theta)
-    pow_indices = np.power(theta, np.linspace(log_start, log_end, num, dtype=np.float32))
+    pow_indices = np.power(theta, np.linspace(log_start, log_end, num, dtype=dtype))
     return (pow_indices * math.pi / 2).astype(np.float32)
 
 
@@ -65,6 +100,7 @@ def generate_freqs(
         indices_grid = (indices_grid[..., 0] + indices_grid[..., 1]) / 2.0
     elif indices_grid.ndim == 4:
         indices_grid = indices_grid[..., 0]
+    # Op by op in fp32, in the JAX package's order (see the module docstring).
     scaled = get_fractional_positions(indices_grid, max_pos) * 2 - 1  # (B, T, n_dims) in [-1, 1]
     freqs = indices.view(1, 1, 1, -1) * scaled[..., None]  # (B, T, n_dims, n_freq)
     return freqs.transpose(2, 3).reshape(freqs.shape[0], freqs.shape[1], -1)
@@ -85,6 +121,18 @@ def split_freqs_cis(
     return cos_freq, sin_freq
 
 
+def interleaved_freqs_cis(freqs: torch.Tensor, pad_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin for INTERLEAVED: each frequency twice, identity padding at
+    the FRONT, (B, T, dim)."""
+    cos_freq = torch.cos(freqs).repeat_interleave(2, dim=-1)
+    sin_freq = torch.sin(freqs).repeat_interleave(2, dim=-1)
+    if pad_size:
+        b, t, _ = cos_freq.shape
+        cos_freq = torch.cat([cos_freq.new_ones(b, t, pad_size), cos_freq], dim=-1)
+        sin_freq = torch.cat([sin_freq.new_zeros(b, t, pad_size), sin_freq], dim=-1)
+    return cos_freq, sin_freq
+
+
 def precompute_freqs_cis(
     indices_grid: torch.Tensor,
     dim: int,
@@ -92,14 +140,21 @@ def precompute_freqs_cis(
     max_pos: Optional[List[int]] = None,
     use_middle_indices_grid: bool = False,
     num_attention_heads: int = 32,
+    rope_type: LTXRopeType = LTXRopeType.SPLIT,
+    use_double_precision: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """SPLIT RoPE tables (cos, sin), each (B, H, T, dim/H/2) fp32."""
+    """RoPE tables (cos, sin), fp32: SPLIT (B, H, T, dim/H/2) or INTERLEAVED
+    (B, T, dim). The default layout is SPLIT, the DiT's (the JAX package's
+    default is INTERLEAVED)."""
     if max_pos is None:
         max_pos = [20, 2048, 2048]
     n_pos_dims = indices_grid.shape[1]
-    indices = torch.from_numpy(_freq_grid(float(theta), n_pos_dims, dim)).to(indices_grid.device)
+    grid = _freq_grid(float(theta), n_pos_dims, dim, use_double_precision)
+    indices = torch.from_numpy(grid).to(indices_grid.device)
     freqs = generate_freqs(indices, indices_grid, max_pos, use_middle_indices_grid)
-    return split_freqs_cis(freqs, dim // 2 - freqs.shape[-1], num_attention_heads)
+    if rope_type == LTXRopeType.SPLIT:
+        return split_freqs_cis(freqs, dim // 2 - freqs.shape[-1], num_attention_heads)
+    return interleaved_freqs_cis(freqs, dim % (2 * n_pos_dims))
 
 
 def create_position_grid(batch_size: int, frames: int, height: int, width: int) -> torch.Tensor:

@@ -4,7 +4,11 @@ goes on one GPU.
     python -m ltx2_tpu_torch.profile_slice [--layers 48]
     python -m ltx2_tpu_torch.profile_slice --train [--layers 48]
 
-Traces, with torch.profiler, one step of the entry's denoise loop (the DiT
+Traces, with torch.profiler, one text encode of the two-stage recipe's
+`--text-encoder` flow (the full-width fp32 Gemma-3-12B and V1 encoder on one
+request's 2 x 1024 prompt tokens; its device time also by the op that
+launched each kernel: matrix products, the plain attention's products and
+softmax, the rest), one step of the entry's denoise loop (the DiT
 forward, modality rebuild and fp32 Euler step at 512x768x121f = 6144 tokens,
 plus the loop's once-per-clip RoPE tables; random weights, bf16), the same
 step at the two-stage recipe's stage-1 size (256x384x121f, 1536 tokens), the
@@ -34,9 +38,10 @@ import torch
 from ltx2_tpu_torch import train
 from ltx2_tpu_torch.core import resolve_device
 from ltx2_tpu_torch.generate import (
-    decode_chunked, distilled_sigmas, make_decoder, make_dit, make_distilled_loop, make_latent_tools, make_request,
-    make_upscaler,
+    decode_chunked, distilled_sigmas, make_decoder, make_dit, make_distilled_loop, make_gemma, make_latent_tools,
+    make_request, make_text_encoder, make_upscaler, prompt_tokens,
 )
+from ltx2_tpu_torch.models.text_encoder import gemma3_apply, video_text_encoder_apply
 from ltx2_tpu_torch.models.upscaler.spatial import spatial_upscaler_apply
 from ltx2_tpu_torch.models.video_vae.decoder import video_decoder_apply
 from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, generate_tile_specs
@@ -57,7 +62,18 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def _traced(fn, device: torch.device) -> dict:
+def _encode_op_class(op: str) -> str:
+    """The class of the device time an op launched, in the text encode:
+    `sdpa_plain`'s products (bmm) and softmax, the linears' products, the
+    rest (norms, RoPE, masks, the extractor's normalisation, casts)."""
+    if op in ("aten::bmm", "aten::_softmax"):
+        return "attention_plain"
+    if op in ("aten::mm", "aten::addmm"):
+        return "matmul"
+    return "elementwise"
+
+
+def _traced(fn, device: torch.device, op_class=None) -> dict:
     fn()  # warm-up: kernel build, cuDNN/cuBLAS heuristics, allocator
     torch.cuda.synchronize(device)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -77,13 +93,42 @@ def _traced(fn, device: torch.device) -> dict:
         kernels.append((dev_us / 1e3, e.count, e.key[:90]))
     device_ms = sum(by_class.values())
     kernels.sort(reverse=True)
-    return {
+    rec = {
         "wall_ms": wall_ms,
         "device_ms": device_ms,
         "busy_share": device_ms / wall_ms if wall_ms else None,
         "device_ms_by_class": by_class,
         "top_kernels": [{"ms": ms, "count": c, "name": n} for ms, c, n in kernels[:8]],
     }
+    if op_class is not None:
+        # Device time by the aten op that launched each kernel (its own
+        # kernels only). Runtime events such as "Command Buffer Full" (the
+        # host waiting for room in the launch queue) carry copies of their
+        # op's kernels and are left out; the sum must equal device_ms.
+        by_op: dict = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CPU and e.kernels and e.name.startswith("aten::"):
+                by_op[e.name] = by_op.get(e.name, 0.0) + sum(k.duration for k in e.kernels) / 1e3
+        by_op_class: dict = {}
+        for name, ms in by_op.items():
+            by_op_class[op_class(name)] = by_op_class.get(op_class(name), 0.0) + ms
+        rec["device_ms_by_op_class"] = by_op_class
+        rec["device_ms_attributed"] = sum(by_op.values())
+        rec["top_ops"] = [{"op": n, "ms": ms} for n, ms in sorted(by_op.items(), key=lambda kv: -kv[1])[:8]]
+    return rec
+
+
+def _text_encode(device: torch.device, card: str) -> None:
+    gemma, encoder = make_gemma(device), make_text_encoder(device)
+    ids, mask, lengths = prompt_tokens(0, gemma.cfg.vocab_size)
+    ids, mask = ids.to(device), mask.to(device)
+
+    def encode():
+        return video_text_encoder_apply(encoder, gemma3_apply(gemma, ids, mask)[1], mask)
+
+    rec = _traced(encode, device, op_class=_encode_op_class)
+    print(json.dumps({"phase": "text_encode", "tokens": list(ids.shape), "prompt_tokens": lengths, "card": card,
+                      **rec}), flush=True)
 
 
 def _train_step(layers: int, device: torch.device, card: str) -> None:
@@ -110,6 +155,8 @@ def _denoise_step(dit, height: int, width: int, phase: str, device: torch.device
 
 
 def _serving(layers: int, device: torch.device, card: str) -> None:
+    _text_encode(device, card)  # first: fp32 Gemma holds 47 GB, and the recipe releases it before the DiT
+    torch.cuda.empty_cache()
     dit = make_dit(layers, device)
     tools = _denoise_step(dit, 512, 768, "denoise_step", device, card)
     # The two-stage recipe's stage 1: the same loop at half resolution (1536 tokens).

@@ -1,11 +1,13 @@
 """Parity of the port's primitives (ltx2_tpu_torch.core, ops.*) with the
 JAX package, in float32 on the CPU, to a relative 1e-4.
 
-`sdpa` on a CPU tensor runs the flash kernel's plain PyTorch version
-(`flash_attention_plain`); it is held against JAX `sdpa` (its einsum path on
-the CPU) with and without a key mask, for T_q != T_k and ragged T. The CUDA
-kernel itself is checked against the same plain version by the `gpu`-marked
-tests in tests/test_torch_port_gpu.py, and by chip_smoke.py.
+`sdpa` in fp32 at these sizes takes its plain route (`sdpa_plain`, the JAX
+package's einsum route), and `flash_attention` on a CPU tensor runs the
+flash kernel's plain PyTorch version (`flash_attention_plain`); both are
+held against JAX `sdpa` (its einsum path on the CPU) with and without a key
+mask, for T_q != T_k and ragged T. The CUDA kernel itself is checked against
+the same plain version by the `gpu`-marked tests in
+tests/test_torch_port_gpu.py, and by chip_smoke.py.
 """
 
 import jax.numpy as jnp
@@ -112,7 +114,7 @@ def test_timestep_embedding_and_adaln():
 def test_sdpa_plain_path_matches_jax(t_q, t_k, masked):
     b, h, d = 2, 2, 128
     q, k, v = randn(b, h, t_q, d), randn(b, h, t_k, d), randn(b, h, t_k, d)
-    mask = None
+    mask = valid = None
     if masked:
         valid = np.ones((b, t_k), bool)
         valid[0, t_k // 3:] = False
@@ -121,6 +123,8 @@ def test_sdpa_plain_path_matches_jax(t_q, t_k, masked):
     ref = jattn.sdpa(*(jnp.asarray(a) for a in (q, k, v)), mask=None if mask is None else jnp.asarray(mask))
     out = attention.sdpa(t(q), t(k), t(v), mask=None if mask is None else t(mask))
     assert_close(out, ref, msg=f"sdpa masked={masked}")
+    flash = attention.flash_attention(t(q), t(k), t(v), kv_valid=None if valid is None else torch.from_numpy(valid))
+    assert_close(flash, ref, msg=f"flash_attention plain version masked={masked}")
 
 
 def test_sdpa_tokens_matches_jax():
@@ -135,8 +139,12 @@ def test_flash_plain_contract_edges():
     valid = torch.zeros(1, 4, dtype=torch.bool)
     out = attention.flash_attention_plain(q, k, v, kv_valid=valid)
     assert torch.equal(out, torch.zeros_like(out)), "a row with no valid key returns 0"
-    with pytest.raises(NotImplementedError):
-        attention.sdpa(q, k, v, mask=torch.zeros(1, 1, 4, 4))
+    # A query-dependent mask takes the plain route; fp32 where the JAX package
+    # runs its flash kernel has no route and raises.
+    assert torch.equal(attention.sdpa(q, k, v, mask=torch.zeros(1, 1, 4, 4)), attention.sdpa_plain(q, k, v))
+    long = torch.zeros(1, 1, 2048, 128)
+    with pytest.raises(ValueError, match="flash route"):
+        attention.sdpa(long, long, long)
 
 
 def test_cpu_dispatch_counts_no_launch():
