@@ -101,9 +101,11 @@ def _free(device: torch.device) -> None:
         torch.cuda.empty_cache()
 
 
-def _peak_gb(device: torch.device) -> Optional[float]:
-    """Peak device memory since the last call, GB (None off CUDA); resets it."""
-    if device.type != "cuda":
+def _phase_peak(device: torch.device, on: bool) -> Optional[float]:
+    """With `on`, on the card: the peak device memory since the last reset,
+    GB, and resets it (the process's peak statistics, which the caller owns).
+    Otherwise None, and nothing is reset."""
+    if not on or device.type != "cuda":
         return None
     peak = torch.cuda.max_memory_allocated(device) / 1e9
     torch.cuda.reset_peak_memory_stats(device)
@@ -182,7 +184,8 @@ def encode_prompts(seeds: Sequence[int], gemma: Gemma3, text_encoder: VideoTextE
     return contexts
 
 
-def _encode_phase(seeds, stats, device, gemma: Optional[Gemma3], text_encoder: Optional[VideoTextEncoder]):
+def _encode_phase(seeds, stats, device, gemma: Optional[Gemma3], text_encoder: Optional[VideoTextEncoder],
+                  phase_peaks: bool):
     """The encode phase of the two-stage recipe: builds what is not given,
     encodes every request and returns the contexts; the modules it built
     are released when it returns."""
@@ -191,7 +194,7 @@ def _encode_phase(seeds, stats, device, gemma: Optional[Gemma3], text_encoder: O
     if text_encoder is None:
         text_encoder, stats[0]["text_encoder_init_s"] = _timed(device, lambda: make_text_encoder(device))
     contexts = encode_prompts(seeds, gemma, text_encoder, device, stats)
-    stats[0]["text_encode_peak_gb"] = _peak_gb(device)
+    stats[0]["text_encode_peak_gb"] = _phase_peak(device, phase_peaks)
     return contexts
 
 
@@ -329,6 +332,7 @@ def generate_videos_distilled(
     noises: Optional[Sequence[Sequence[torch.Tensor]]] = None,
     text_encoder: Union[bool, VideoTextEncoder] = False,
     gemma: Optional[Gemma3] = None,
+    phase_peaks: bool = False,
 ) -> Tuple[List[np.ndarray], List[dict]]:
     """The two-stage distilled recipe, one clip per seed; returns (uint8
     (frames, height, width, 3) arrays, per-request stats).
@@ -350,8 +354,10 @@ def generate_videos_distilled(
     random decoder holds. Stats per request: seconds of the text encode,
     stage 1, upscale, stage 2 and decode, attention launches, conv launches
     of the upscale and the decode, decode tiles, the latents' finiteness
-    after each stage, the context's finiteness and std, and on the card
-    each phase's peak memory (GB).
+    after each stage, the context's finiteness and std, and, with
+    `phase_peaks` on the card, each phase's peak memory (GB; None
+    otherwise). `phase_peaks` resets the process's peak memory statistics at
+    every phase boundary, so only a caller that owns them asks for it.
     """
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -362,13 +368,13 @@ def generate_videos_distilled(
     if encode and contexts is not None:
         raise ValueError("contexts and text_encoder are exclusive: the encoder makes the contexts")
     stats = [{"seed": seed, "dit_init_s": 0.0, "upscaler_init_s": 0.0, "decoder_init_s": 0.0} for seed in seeds]
-    _peak_gb(device)
+    _phase_peak(device, phase_peaks)
     if encode:
         contexts = _encode_phase(seeds, stats, device, gemma,
-                                 text_encoder if isinstance(text_encoder, VideoTextEncoder) else None)
+                                 text_encoder if isinstance(text_encoder, VideoTextEncoder) else None, phase_peaks)
         gemma = text_encoder = None
         _free(device)
-        _peak_gb(device)  # the next phase's peak starts from what is left
+        _phase_peak(device, phase_peaks)  # the next phase's peak starts from what is left
     if dit is None:
         base = LTXModelConfig(caption_channels=contexts[0].shape[-1]) if encode else LTXModelConfig()
         dit, stats[0]["dit_init_s"] = _timed(device, lambda: make_dit(layers, device, base=base))
@@ -397,7 +403,7 @@ def generate_videos_distilled(
             _sync(device)
             now = time.perf_counter()
             st[f"{phase}_s"] = now - marks["t"]
-            st[f"{phase}_peak_gb"] = _peak_gb(device)
+            st[f"{phase}_peak_gb"] = _phase_peak(device, phase_peaks)
             marks["t"] = now
             if phase == "upscale":
                 st["upscale_conv_launches"] = conv3d_ndhwc_kernel.launches - marks["conv"]
@@ -413,7 +419,7 @@ def generate_videos_distilled(
 
     del dit, upscaler, pipe
     _free(device)
-    _peak_gb(device)
+    _phase_peak(device, phase_peaks)
 
     if decoder is None:
         decoder, stats[0]["decoder_init_s"] = _timed(device, lambda: make_decoder(cfg.compute_dtype, device))
@@ -426,7 +432,7 @@ def generate_videos_distilled(
         t0 = time.perf_counter()
         videos.append(decode_video(latent, decoder, tiling_used, stage_seeds(config.seed)[2]))
         st["decode_s"] = time.perf_counter() - t0  # host frames: synchronised
-        st["decode_peak_gb"] = _peak_gb(device)
+        st["decode_peak_gb"] = _phase_peak(device, phase_peaks)
         st["decode_conv_launches"] = conv3d_ndhwc_kernel.launches - convs
     return videos, stats
 
@@ -459,7 +465,7 @@ def main(argv=None) -> None:
     seeds = [args.seed + i for i in range(args.requests)]
     common = dict(height=args.height, width=args.width, frames=args.frames, layers=args.layers, device=args.device)
     if args.pipeline == "distilled":
-        videos, stats = generate_videos_distilled(seeds, text_encoder=args.text_encoder, **common)
+        videos, stats = generate_videos_distilled(seeds, text_encoder=args.text_encoder, phase_peaks=True, **common)
     else:
         videos, stats = generate_videos(seeds, steps=args.steps, **common)
     for video, st in zip(videos, stats):

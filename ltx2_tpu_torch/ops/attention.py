@@ -26,8 +26,9 @@ launches in its `launches` attribute.
 `sdpa` sends a call to the kernels or to plain torch ops by contract alone
 (`attention_route`), never because a kernel failed: the plain route takes
 what the JAX package computes outside Pallas (query-dependent masks, and
-operands the kernels do not take where it takes its einsum route, such as
-Gemma's and the text connector's fp32 attention).
+fp32 operands where it takes its einsum route, such as Gemma's and the text
+connector's attention). A bf16 call without a query-dependent mask always
+goes to the kernels, which raise on a CUDA tensor they cannot take.
 """
 
 from __future__ import annotations
@@ -363,20 +364,20 @@ def attention_route(dtype: torch.dtype, t_q: int, t_k: int, head_dim: int, kind:
     """Which implementation computes an `sdpa` call, decided by the call's
     contract alone (the same on the CPU and the card):
 
-    - "kernel": bf16 operands, no mask or a key-only mask, head dim 64 or
-      128: the flash kernels (their plain versions on a CPU tensor);
-    - "plain": a query-dependent mask, or operands the kernels do not take
-      (fp32, or another head dim) at a call where the JAX package takes its
-      einsum route: `sdpa_plain`, plain torch ops on either device, as the
-      JAX package computes it outside any Pallas kernel;
-    - anything else raises ValueError: operands the kernels do not take
-      where the JAX package runs its flash kernel (e.g. fp32 unmasked at
-      T >= 2048)."""
+    - "kernel": bf16 operands with no mask or a key-only mask, at any head
+      dim: the flash kernels (their plain versions on a CPU tensor). On a
+      CUDA tensor they take head dims 64 and 128 and raise on any other;
+    - "plain": a query-dependent mask, or operands of another dtype (fp32)
+      at a call where the JAX package takes its einsum route: `sdpa_plain`,
+      plain torch ops on either device, as the JAX package computes it
+      outside any Pallas kernel;
+    - anything else raises ValueError: operands of another dtype where the
+      JAX package runs its flash kernel (e.g. fp32 unmasked at T >= 2048)."""
     if kind not in (None, "key", "query"):
         raise ValueError(f"attention_route: unknown mask kind {kind!r}")
     if kind == "query":
         return "plain"
-    if dtype == torch.bfloat16 and head_dim in _HEAD_DIMS:
+    if dtype == torch.bfloat16:
         return "kernel"
     jax_flash = (
         t_q >= _JAX_FLASH_MIN_TOKENS
@@ -386,7 +387,7 @@ def attention_route(dtype: torch.dtype, t_q: int, t_k: int, head_dim: int, kind:
     if jax_flash:
         raise ValueError(
             f"sdpa: {dtype} attention at T_q={t_q}, T_k={t_k}, D={head_dim} is the JAX package's flash "
-            f"route, and the flash kernels take bfloat16 at head dims {_HEAD_DIMS} only"
+            f"route, and the flash kernels take bfloat16 only"
         )
     return "plain"
 

@@ -23,7 +23,7 @@ from ltx2_tpu.models.transformer import model as jmodel
 from ltx2_tpu.types import VideoLatentShape as JShape
 from ltx2_tpu_torch.loader.from_numpy import dit_from_numpy
 from ltx2_tpu_torch.models.transformer import attention, blocks, model
-from tests.torch_port_util import CFG, JCFG, assert_close, numpy_tree, t
+from tests.torch_port_util import CFG, JCFG, assert_close, force_flash_route, numpy_tree, t
 
 RNG = np.random.default_rng(1)
 
@@ -109,6 +109,18 @@ def test_x0_model(weights, inputs, per_token, masked):
     out = model.x0_model_apply(port, pm)
     assert_close(out, ref, msg="x0")
     assert_close(model.ltx_model_apply(port, pm), jmodel.ltx_model_apply(jp, JCFG, video=jm), msg="velocity")
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_x0_model_on_the_flash_route(weights, inputs, monkeypatch, masked):
+    """The fp32 model through the flash kernels' plain versions, the route
+    the card takes in bf16 (fp32 `sdpa` at these sizes takes sdpa_plain)."""
+    seen = force_flash_route(monkeypatch)
+    jp, port = weights
+    jm, pm = _modalities(inputs, per_token=True, masked=masked)
+    out = model.x0_model_apply(port, pm)
+    assert seen["forward"] == 2 * CFG.num_layers  # self- and cross-attention of each block
+    assert_close(out, jmodel.x0_model_apply(jp, JCFG, video=jm), msg="x0")
 
 
 def test_x0_model_bf16(tree, inputs):

@@ -168,46 +168,31 @@ def test_conv_kernel_matches_plain_on_gpu():
         C.conv3d(x, torch.zeros(3, 3, 3, 16, 8, device="cuda"), w_split=torch.zeros(2, 27, 16, 8, device="cuda"))
 
 
-def _rel(x: torch.Tensor, ref: torch.Tensor):
-    """(rms(x - ref) / rms(ref), max|x - ref| / max|ref|), x moved to ref's device."""
-    err = x.detach().to(ref.device).double() - ref.double()
-    return (err.square().mean().sqrt() / ref.double().square().mean().sqrt()).item(), \
-        (err.abs().max() / ref.double().abs().max()).item()
+@pytest.mark.gpu
+def test_sdpa_raises_on_head_dims_the_kernels_do_not_take_on_gpu():
+    """bf16 attention without a query-dependent mask goes to the kernels at
+    any head dim; on the card they refuse D outside {64, 128} and nothing
+    takes over."""
+    _need_card()
+    for d in (32, 256):
+        q = torch.zeros(1, 2, 128, d, dtype=torch.bfloat16, device="cuda")
+        with pytest.raises(ValueError, match="head dim"):
+            attention.sdpa(q, q, q)
+        with pytest.raises(ValueError, match="head dim"):
+            attention.sdpa(q, q, q, mask=torch.zeros(1, 1, 1, 128, device="cuda"))
 
 
 @pytest.mark.gpu
 def test_text_encoder_matches_cpu_on_gpu():
-    """A 2-layer, full-width Gemma-3 (a sliding layer, window 16, then a full
-    one) and the V1 encoder over its 3 states, 2 x 64 tokens left-padded to
-    lengths 64 and 23, in fp32 (TF32 off) on the card against the same
-    weights on the CPU: every Gemma state and the encoding within relative
-    rms 1e-5 and max 1e-4. chip_smoke.py's same check measured, on an
-    NVIDIA H100 80GB HBM3 at 700 W, the states within 1.2e-7 rms and 2.1e-7
-    max, the encoding 1.3e-6 rms and 4.6e-6 max."""
+    """A 2-layer, full-width Gemma-3 and the V1 encoder on the card against
+    the same weights on the CPU, every state and the encoding within
+    relative rms 1e-5 and max 1e-4 (ltx2_tpu_torch/models/text_encoder/
+    card_check.py, which chip_smoke.py runs too; its run on an NVIDIA H100
+    80GB HBM3 at 700 W measured the states within 1.2e-7 rms and 2.1e-7 max,
+    the encoding 1.3e-6 rms and 4.6e-6 max)."""
     _need_card()
-    from ltx2_tpu_torch.generate import make_gemma, make_text_encoder
-    from ltx2_tpu_torch.models.text_encoder import (
-        Gemma3, Gemma3Config, TextEncoderConfig, VideoTextEncoder, gemma3_apply, video_text_encoder_apply,
-    )
+    from ltx2_tpu_torch.models.text_encoder.card_check import encoder_against_cpu
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = Gemma3Config(num_hidden_layers=2, sliding_window=16, layer_types=("sliding_attention", "full_attention"))
-    te_cfg = TextEncoderConfig(num_gemma_layers=3)
-    gemma, enc = make_gemma(torch.device("cuda"), cfg=cfg), make_text_encoder(torch.device("cuda"), cfg=te_cfg)
-    gemma_cpu, enc_cpu = Gemma3(cfg, device="cpu"), VideoTextEncoder(te_cfg, device="cpu")
-    gemma_cpu.load_state_dict(gemma.state_dict())
-    enc_cpu.load_state_dict(enc.state_dict())
-    gen = torch.Generator().manual_seed(0)
-    ids = torch.randint(3, cfg.vocab_size, (2, 64), generator=gen)
-    mask = torch.ones(2, 64, dtype=torch.long)
-    mask[1, :64 - 23] = 0
-    ids[mask == 0] = 0
-
-    _, hidden = gemma3_apply(gemma, ids.cuda(), mask.cuda())
-    out = video_text_encoder_apply(enc, hidden, mask.cuda()).video_encoding
-    _, hidden_ref = gemma3_apply(gemma_cpu, ids, mask)
-    ref = video_text_encoder_apply(enc_cpu, hidden_ref, mask).video_encoding
-    assert out.shape == ref.shape == (2, 1024, 3840)  # registers appended up to 1024 tokens
-    for name, x, r in [(f"state {i}", hidden[i], hidden_ref[i]) for i in range(3)] + [("encoding", out, ref)]:
-        rms_rel, max_rel = _rel(x, r)
-        assert torch.isfinite(x).all() and rms_rel <= 1e-5 and max_rel <= 1e-4, (name, rms_rel, max_rel)
+    rec = encoder_against_cpu("cuda")
+    assert rec["encoding_shape"] == rec["reference_shape"] == [2, 1024, 3840]  # registers up to 1024 tokens
+    assert rec["ok"], rec["errors"]

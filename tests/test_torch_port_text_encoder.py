@@ -146,27 +146,30 @@ def test_build_masks(padded):
 
 BF16, F32 = torch.bfloat16, torch.float32
 ROUTES = [
-    # bf16, no mask or a key-only mask, D 64/128: the kernel, at any length.
+    # bf16, no mask or a key-only mask: the kernel, at any length.
     ((BF16, 6144, 6144, 128, None), "kernel"),
     ((BF16, 6144, 1024, 128, None), "kernel"),
     ((BF16, 1536, 1536, 128, None), "kernel"),
     ((BF16, 1000, 333, 64, "key"), "kernel"),
+    # ... at any head dim too: the kernel raises on a card for D not in {64, 128}
+    # (test_kernel_route_raises_for_other_head_dims), it never gives way to plain ops.
+    ((BF16, 1024, 1024, 256, None), "kernel"),
+    ((BF16, 64, 64, 32, "key"), "kernel"),  # train.py's placeholder heads
+    ((BF16, 2048, 2048, 256, None), "kernel"),
     # A query-dependent mask: plain, in any dtype (Gemma in bf16 or fp32).
     ((BF16, 1024, 1024, 256, "query"), "plain"),
     ((F32, 1024, 1024, 256, "query"), "plain"),
     ((F32, 4096, 4096, 128, "query"), "plain"),
-    # Operands the kernels do not take, where the JAX package takes its einsum route.
+    # fp32 operands where the JAX package takes its einsum route.
     ((F32, 1024, 1024, 128, "key"), "plain"),  # the connector
     ((F32, 1024, 1024, 128, None), "plain"),
     ((F32, 4096, 1024, 128, None), "plain"),  # T_q != T_k without a mask
     ((F32, 2000, 2000, 128, None), "plain"),  # not a multiple of 128
     ((F32, 2048, 2048, 64, None), "plain"),  # D not a multiple of 128
-    ((BF16, 1024, 1024, 256, None), "plain"),
-    ((BF16, 64, 64, 32, "key"), "plain"),  # train.py's placeholder heads
-    # Everything else raises: the JAX package's flash route on operands the kernels do not take.
+    # Everything else raises: the JAX package's flash route on fp32 operands.
     ((F32, 2048, 2048, 128, None), ValueError),
     ((F32, 6144, 1024, 128, "key"), ValueError),
-    ((BF16, 2048, 2048, 256, None), ValueError),
+    ((F32, 2048, 2048, 256, None), ValueError),
     ((F32, 64, 64, 64, "causal"), ValueError),  # not a mask kind
 ]
 
@@ -195,6 +198,18 @@ def test_route_is_the_contract_not_a_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="failed to launch"):
         attention.sdpa(q, q, q, mask=torch.zeros(1, 1, 1, 8))
     assert attention.sdpa(q, q, q, mask=torch.zeros(1, 1, 8, 8)).shape == q.shape  # plain: no kernel called
+
+
+@pytest.mark.parametrize("d", [32, 256])
+def test_kernel_route_raises_for_other_head_dims(d):
+    """bf16 attention at a head dim the kernels do not take goes to them all
+    the same: on the CPU their plain version computes it, and the launch's
+    checks (which run before any kernel is built) refuse it, as on a card."""
+    q = torch.zeros(1, 2, 8, d, dtype=torch.bfloat16)
+    assert attention.attention_route(q.dtype, 8, 8, d, attention.mask_kind(None)) == "kernel"
+    assert attention.sdpa(q, q, q).shape == q.shape
+    with pytest.raises(ValueError, match="head dim"):
+        attention._launch_fwd(q, q, q, d ** -0.5, None, residuals=False)
 
 
 @pytest.mark.parametrize("case", ["causal", "sliding", "padded_rows"])
@@ -384,3 +399,15 @@ def test_text_encoder_entry_needs_cuda_unless_told(monkeypatch):
         generate.main(["--text-encoder", "--device", "cpu"])  # bench-e2e has no text encoder
     with pytest.raises(ValueError, match="gemma"):
         generate.generate_videos_distilled([0], device="cpu", gemma=object())
+
+
+def test_phase_peaks_reset_only_when_asked(monkeypatch):
+    """The serving entry leaves the process's peak memory statistics to its
+    caller unless asked for each phase's peak (phase_peaks=True)."""
+    resets = []
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda device=None: 2.5e9)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda device=None: resets.append(device))
+    cuda = torch.device("cuda")
+    assert generate._phase_peak(cuda, False) is None and resets == []
+    assert generate._phase_peak(torch.device("cpu"), True) is None and resets == []
+    assert generate._phase_peak(cuda, True) == 2.5 and resets == [cuda]

@@ -27,7 +27,7 @@ from ltx2_tpu_torch.loader.from_numpy import dit_from_numpy, flatten_tree, train
 from ltx2_tpu_torch.models.transformer import model
 from ltx2_tpu_torch.ops import common, rope
 from ltx2_tpu_torch.training import lora, trainer
-from tests.torch_port_util import CFG, JCFG, assert_close, numpy_tree, t
+from tests.torch_port_util import CFG, JCFG, assert_close, force_flash_route, numpy_tree, t
 
 RANK, ALPHA = 4, 8.0
 ADAPTER_LEAVES = ("lora_A", "lora_B")
@@ -157,6 +157,32 @@ def test_loss_and_adapter_grads_match_jax(lora_tree, masked):
         got = np.stack([dit.get_parameter(f"transformer_blocks.{i}.{leaf}").grad.numpy()
                         for i in range(CFG.num_layers)])
         assert np.abs(ref).max() > 0
+        assert_close(got, ref, msg=f"grad {key_}")
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_adapter_grads_on_the_flash_route_match_jax(lora_tree, monkeypatch, remat):
+    """The loss and adapter gradients through FlashAttention's custom
+    backward (the kernels' plain versions), the card's bf16 route, with and
+    without remat; fp32 `sdpa` at these sizes takes sdpa_plain."""
+    seen = force_flash_route(monkeypatch)
+    tree, _ = lora_tree
+    jb, pb = _batches(masked=True)
+    tc = jtrainer.TrainConfig()
+    key = jax.random.PRNGKey(9)
+    jp = jax.tree_util.tree_map(jnp.asarray, tree)
+    jloss, jgrads = jax.value_and_grad(lambda p: jtrainer.rectified_flow_loss(p, JCFG, jb, key, tc))(jp)
+
+    dit = _port(tree, remat=remat)
+    sigmas, noise = _jax_draws(key, pb.x0.shape, tc)
+    loss = trainer.rectified_flow_loss(dit, pb, None, trainer.TrainConfig(), sigmas, noise)
+    loss.backward()
+    assert seen["backward"] == 2 * CFG.num_layers  # self- and cross-attention of each block
+    assert_close(loss, jloss, msg="loss")
+    for key_, ref in _adapters(flatten_tree(jgrads)).items():
+        leaf = key_[len("transformer_blocks."):]
+        got = np.stack([dit.get_parameter(f"transformer_blocks.{i}.{leaf}").grad.numpy()
+                        for i in range(CFG.num_layers)])
         assert_close(got, ref, msg=f"grad {key_}")
 
 

@@ -12,6 +12,7 @@ import torch
 
 from ltx2_tpu.models.transformer import model as jmodel
 from ltx2_tpu_torch.models.transformer import model
+from ltx2_tpu_torch.ops import attention
 
 # Relative tolerance of the float32 parity tests: the two packages sum in
 # different orders, nothing else differs.
@@ -62,3 +63,28 @@ def numpy_tree(tree, seed: int, randomize=("scale_shift_table", "norm", "statist
         return x
 
     return jax.tree_util.tree_map_with_path(leaf, tree)
+
+
+def force_flash_route(monkeypatch) -> dict:
+    """Sends every `sdpa` call without a query-dependent mask to the flash
+    kernels' route whatever its dtype, the route the card takes for the
+    DiT's bf16 attention, so that an fp32 model on the CPU runs the kernels'
+    plain versions (forward, and FlashAttention's backward under a gradient)
+    in place of `sdpa_plain`. Returns the counts of the calls it sees, by
+    "forward" and "backward"."""
+    seen = {"forward": 0, "backward": 0}
+    fwd, bwd = attention.flash_attention, attention.flash_attention_bwd
+
+    def forward(*args, **kwargs):
+        seen["forward"] += 1
+        return fwd(*args, **kwargs)
+
+    def backward(*args, **kwargs):
+        seen["backward"] += 1
+        return bwd(*args, **kwargs)
+
+    monkeypatch.setattr(attention, "attention_route", lambda dtype, t_q, t_k, d, kind:
+                        "plain" if kind == "query" else "kernel")
+    monkeypatch.setattr(attention, "flash_attention", forward)
+    monkeypatch.setattr(attention, "flash_attention_bwd", backward)
+    return seen
