@@ -34,12 +34,15 @@ card and nvcc; it exits non-zero without them, and without the package
    a shape the kernel does not take must raise. Then the fp32 cases' times
    x their launches in a clip against the conv time of one traced upscaler
    call, within 10 %;
-5. serving path: `generate_videos` at full width and depth (48 layers, bf16,
-   512x768x121f = 6144 tokens, 8 distilled steps, VAE decode in 7-frame
-   chunks) for 2 requests of different seeds; checks the frames, the
-   latents and that every attention call went through the forward kernel
-   (none through a backward kernel) and every decoder conv through the conv
-   kernel;
+5. serving path: `generate_videos` at full width and depth (48 layers, the
+   DiT's weights kept in fp8 as scripts/bench_e2e.py keeps them: E4M3 codes
+   with a per-tensor scale, dequantized at use, about 12.9 GB; bf16
+   compute, 512x768x121f = 6144 tokens, 8 distilled steps, VAE decode in
+   7-frame chunks) for 2 requests of different seeds; checks the frames, the
+   latents, the DiT's bytes and that every attention call went through the
+   forward kernel (none through a backward kernel) and every decoder conv
+   through the conv kernel; then one traced step of the loop with the fp8
+   weights beside the same weights in bf16 (profile_slice.denoise_step);
 6. text encode: the full-width fp32 Gemma-3-12B (48 layers, 3840 wide) and
    the V1 text encoder (feature extractor over 49 states, 2-block 30 x 128
    connector) built on the card, one request's 2 x 1024 prompt tokens
@@ -48,8 +51,25 @@ card and nvcc; it exits non-zero without them, and without the package
    the fp32 conv), and no kernel launch (the encode is plain torch ops, as
    the JAX package runs it outside Pallas); then a 2-layer, full-width Gemma (sliding then full, window 16) and the
    V1 encoder at 2 x 64 tokens on the card against the same weights on the
-   CPU, within relative rms 1e-5 and max 1e-4;
-7. two-stage path: `generate_videos_distilled(text_encoder=True)` (each
+   CPU, within relative rms 1e-5 and max 1e-4; then the 48-layer Gemma
+   quantized in memory to fp8 as `load_gemma3_params(quantize_fp8=True)`
+   quantizes it, the encode timed with its weights and peak memory, and the
+   2-layer check again with Gemma in fp8, at the same limits;
+7. checkpoint phase: into a fresh temporary directory (its free space
+   checked first, the files deleted at the end) the port's writers put a
+   full-width, full-depth V1 video DiT in the reference `-fp8` layout with
+   the VAE decoder, its statistics, the V1 text projection and video
+   connector (about 14 GB), the spatial upscaler (v1.1 names), a 2-layer
+   full-width bf16 Gemma-3 in two shards and a rank-16 LoRA; the DiT is
+   loaded through `ModelLedger` kept in fp8, dequantized, and dequantized
+   with the LoRA fused (seconds, GB read, GB/s, peak memory each); the kept
+   codes and scales must equal the file's bit for bit, three fused weights
+   the CPU's bf16(f32(bf16(f32(code) * scale)) + strength * B A) bit for
+   bit, and one x0 forward at 6144 tokens of the kept model the dequantized
+   one within 1e-2 of max|x0|; then 2 requests of the two-stage recipe from
+   the files (`--fp8-serving`, the files' Gemma, `--text-encoder`): frames,
+   finite contexts and latents, 1056 flash and 19 + 270 conv launches a clip;
+8. two-stage path: `generate_videos_distilled(text_encoder=True)` (each
    request's prompts encoded by the full-width Gemma and V1 encoder, which
    are then released; the DiT with its caption projection; stage 1 at
    256x384, the fp32 spatial upscaler, stage 2 at 512x768 on the 3-sigma
@@ -61,7 +81,7 @@ card and nvcc; it exits non-zero without them, and without the package
    size (2-layer DiT, 128x128x17, tiled decode, dummy context) through the
    kernels against the same pipeline with every flash and conv call on its
    plain version;
-8. backward check: at the flash cases, the forward's residuals l, m
+9. backward check: at the flash cases, the forward's residuals l, m
    against `flash_attention_residuals_plain`, and dq, dk, dv from the fused
    backward kernel against `flash_attention_bwd_plain` and against autograd of
    `flash_attention_plain` in fp32, within relative limits that planted
@@ -69,7 +89,7 @@ card and nvcc; it exits non-zero without them, and without the package
    the kernel's own device time, the whole backward's (Di, accumulator,
    kernel, dQ conversion), the five-product bound, the plain version's and
    SDPA's backward (and the names of the kernels SDPA ran);
-9. training path: (a) `ltx2_tpu_torch.train.main` for 3 LoRA steps of the
+10. training path: (a) `ltx2_tpu_torch.train.main` for 3 LoRA steps of the
    full-width 48-block DiT at 6144 tokens, checking finite losses, non-zero
    lora_B after step 1, a bit-identical base and the launch counts; (b) the
    step's time, TF/s and peak memory at scripts/bench_train.py's shape (1024
@@ -77,8 +97,8 @@ card and nvcc; it exits non-zero without them, and without the package
    kernels against the same model on plain attention.
 
 The second-to-last line of output is the kernels' JSON record (with the
-text encode's, the two-stage flow's and training's records beside the
-kernels), the last the device record.
+bench-e2e, fp8 step, text encode, checkpoint, two-stage and training
+records beside the kernels), the last the device record.
 """
 
 from __future__ import annotations
@@ -133,6 +153,9 @@ TWO_STAGE_LAUNCHES_PER_CLIP = 2 * LAYERS * (8 + 3)
 TOL_SMALL_LATENT_RMS_REL = 1e-2
 TOL_SMALL_MEAN_LEVELS = 2.0
 TRAIN_STEPS = 3
+# bench-e2e's DiT kept in fp8: 12.9 G E4M3 weights plus the fp32 AdaLN and
+# tables (25.8 GB in bf16).
+FP8_DIT_GB = (12.0, 14.0)
 # Two encodes of the same tokens on the card (fp32, TF32 off): the same
 # kernels in the same order, so at most summation-order noise.
 TOL_ENCODE_REPEAT_MAX_REL = 1e-4
@@ -255,18 +278,19 @@ def _device_ms(fn, iters: int) -> dict:
 def _kernel_ms(fn, kernel_name: str, iters: int, events_fn=None) -> tuple:
     """(device ms per call of the kernels named `kernel_name`, how it was
     timed, the profile by kernel) over `iters` calls of fn. The profiler
-    may record no device event at all (CUPTI is shared with whatever else
-    traces the card): after a second empty pass the time comes from CUDA
-    events around `events_fn` (default fn), which must launch little but
-    the kernel. A profile with device events but none of the kernel fails."""
-    for _ in range(2):
+    may record no device event at all, or only some of a call's kernels
+    (CUPTI is shared with whatever else traces the card; seen on the
+    backward's pass): after three passes without the kernel the time comes
+    from CUDA events around `events_fn` (default fn), which must launch
+    little but the kernel. That the kernel launched is the callers' check
+    (their wrappers' launch counts and outputs), not the profile's."""
+    for _ in range(3):
         by_kernel = _device_ms(fn, iters)
-        if by_kernel:
-            ms = sum(ms_ for n, (ms_, _) in by_kernel.items() if kernel_name in n)
-            if not ms:
-                raise AssertionError(f"no {kernel_name} in the profile {sorted(by_kernel)}")
+        ms = sum(ms_ for n, (ms_, _) in by_kernel.items() if kernel_name in n)
+        if ms:
             return ms, "profiler", by_kernel
-    log(f"profiler recorded no device events; {kernel_name} timed with CUDA events")
+        log(f"profiler pass without {kernel_name}: {sorted(by_kernel)[:4]}")
+    log(f"{kernel_name} timed with CUDA events")
     return _time_ms(events_fn or fn, iters), "cuda_events", {}
 
 
@@ -743,9 +767,12 @@ def phase_main_path(smi: str):
     for s in stats:
         log(f"request seed={s['seed']}: denoise {s['denoise_s']:.3f} s, decode {s['decode_s']:.3f} s, "
             f"attention launches {s['attention_launches']}, conv launches {s['conv_launches']} | {smi}")
-    log(f"main path: {len(SEEDS)} requests {WIDTH}x{HEIGHT}x{FRAMES}f, {LAYERS} layers, {STEPS} steps, "
-        f"wall {wall:.1f} s (weight init {stats[0]['dit_init_s']:.1f} s + decoder init "
-        f"{stats[0]['decoder_init_s']:.1f} s included), peak memory {peak_gb:.1f} GB | {smi}")
+    log(f"main path: {len(SEEDS)} requests {WIDTH}x{HEIGHT}x{FRAMES}f, {LAYERS} layers, {STEPS} steps, fp8 DiT "
+        f"weights {stats[0]['dit_weight_gb']:.2f} GB on the card, wall {wall:.1f} s (weight init "
+        f"{stats[0]['dit_init_s']:.1f} s + decoder init {stats[0]['decoder_init_s']:.1f} s included), peak memory "
+        f"{peak_gb:.1f} GB | {smi}")
+    if not FP8_DIT_GB[0] < stats[0]["dit_weight_gb"] < FP8_DIT_GB[1]:
+        raise AssertionError(f"bench-e2e's DiT holds {stats[0]['dit_weight_gb']} GB: not the fp8 DiT")
 
     for f in frames:
         if f.shape != (FRAMES, HEIGHT, WIDTH, 3) or f.dtype != np.uint8:
@@ -767,7 +794,38 @@ def phase_main_path(smi: str):
     log(f"frames: {[f.shape for f in frames]} uint8, latent std {[s['latent_std'] for s in stats]}, "
         f"frame mean/std {[(float(f.mean()), float(f.std())) for f in frames]}, mean |clip 1 - clip 2| "
         f"{float(np.abs(frames[0].astype(np.int16) - frames[1]).mean())} levels")
-    return counts
+    return counts, {"dit_weight_gb": stats[0]["dit_weight_gb"], "dit_init_s": stats[0]["dit_init_s"],
+                    "denoise_s": [s["denoise_s"] for s in stats], "decode_s": [s["decode_s"] for s in stats],
+                    "peak_memory_gb": peak_gb, "wall_s": wall, "card": smi}
+
+
+def phase_fp8_step(smi: str) -> dict:
+    """One traced step of bench-e2e's loop at 6144 tokens with the DiT's
+    weights kept in fp8 (dequantized at use), then with the same weights in
+    bf16 (profile_slice.denoise_step): device time, its busy share and the
+    weights' bytes; the difference is the dequantization's cost."""
+    import torch
+
+    from ltx2_tpu_torch.generate import make_dit
+    from ltx2_tpu_torch.profile_slice import denoise_step
+
+    dev, card = torch.device("cuda"), torch.cuda.get_device_name(0)
+    recs = {}
+    for name, fp8 in (("fp8", True), ("bf16", False)):
+        torch.cuda.empty_cache()
+        dit = make_dit(LAYERS, dev, fp8=fp8)
+        with torch.no_grad():
+            recs[name] = denoise_step(dit, HEIGHT, WIDTH, f"denoise_step_{name}", dev, card)[1]
+        del dit
+    torch.cuda.empty_cache()
+    rec = {name: {k: r[k] for k in ("weight_gb", "device_ms", "wall_ms", "busy_share", "device_ms_by_class")}
+           for name, r in recs.items()}
+    rec["dequant_ms"] = rec["fp8"]["device_ms"] - rec["bf16"]["device_ms"]
+    rec["card"] = smi
+    log(f"fp8 vs bf16 DiT step ({LAYERS} layers, 6144 tokens): {json.dumps(rec)}")
+    if not rec["fp8"]["weight_gb"] < 0.55 * rec["bf16"]["weight_gb"]:
+        raise AssertionError(f"the fp8 DiT is not half the bf16 one: {rec}")
+    return rec
 
 
 def encode_flops(gemma_cfg, te_cfg, batch: int, tokens: int) -> dict:
@@ -789,16 +847,18 @@ def encode_flops(gemma_cfg, te_cfg, batch: int, tokens: int) -> dict:
     }
 
 
-def phase_text_encode_check(smi: str) -> dict:
+def phase_text_encode_check(smi: str, fp8: bool = False) -> dict:
     """The fp32 text encoder on the card against the CPU at a small size
-    (ltx2_tpu_torch/models/text_encoder/card_check.py)."""
+    (ltx2_tpu_torch/models/text_encoder/card_check.py), Gemma's weights
+    in fp8 with `fp8`."""
     import torch
 
     from ltx2_tpu_torch.models.text_encoder.card_check import encoder_against_cpu
 
-    rec = encoder_against_cpu("cuda")
+    rec = encoder_against_cpu("cuda", fp8=fp8)
     torch.cuda.empty_cache()
-    log(f"text encode check (2-layer full-width Gemma + V1 encoder, card vs CPU): {json.dumps(rec)} | {smi}")
+    log(f"text encode check (2-layer full-width {'fp8' if fp8 else 'fp32'} Gemma + V1 encoder, card vs CPU): "
+        f"{json.dumps(rec)} | {smi}")
     if not rec["ok"]:
         raise AssertionError(f"the text encoder on the card disagrees with the CPU: {rec['errors']}")
     return rec
@@ -854,6 +914,7 @@ def phase_text_encode(smi: str) -> dict:
            "tflops_achieved": total / encode_s / 1e12, "launches": counts,
            "allow_tf32": torch.backends.cuda.matmul.allow_tf32, "card": smi}
     log(f"text encode (full-width fp32 Gemma-3-12B + V1 encoder, 2 x {CONTEXT_TOKENS} tokens): {json.dumps(rec)}")
+    rec["fp8"] = _fp8_encode(gemma, enc, contexts[1], smi)
     del gemma, enc, contexts
     torch.cuda.empty_cache()
     if not rec["context_finite"] or rec["context_shape"] != [1, CONTEXT_TOKENS, 3840]:
@@ -863,6 +924,38 @@ def phase_text_encode(smi: str) -> dict:
     if repeat["max_rel"] > TOL_ENCODE_REPEAT_MAX_REL:
         raise AssertionError(f"two encodes of the same tokens differ: {repeat}")
     rec["card_vs_cpu"] = phase_text_encode_check(smi)
+    rec["card_vs_cpu_fp8"] = phase_text_encode_check(smi, fp8=True)
+    return rec
+
+
+def _fp8_encode(gemma, enc, fp32_context, smi: str) -> dict:
+    """The same Gemma quantized in memory as `load_gemma3_params(
+    quantize_fp8=True)` quantizes it, then the same request encoded twice
+    (the second timed): weights, peak memory, time, and the context against
+    the fp32 one."""
+    import torch
+
+    from ltx2_tpu_torch.generate import encode_prompts
+    from ltx2_tpu_torch.loader.fp8 import weight_bytes
+    from ltx2_tpu_torch.models.text_encoder.card_check import relative_error
+    from ltx2_tpu_torch.models.text_encoder.gemma3 import quantize_gemma_fp8_
+
+    t0 = time.perf_counter()
+    quantize_gemma_fp8_(gemma)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stats = [{"seed": SEEDS[0]}, {"seed": SEEDS[0]}]
+    contexts = encode_prompts([SEEDS[0]] * 2, gemma, enc, torch.device("cuda"), stats)
+    rec = {"quantize_s": quantize_s, "gemma_weight_gb": weight_bytes(gemma) / 1e9,
+           "memory_gb": torch.cuda.memory_allocated() / 1e9, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "encode_s": stats[1]["text_encode_s"], "first_encode_s": stats[0]["text_encode_s"],
+           "context_finite": all(s["context_finite"] for s in stats),
+           "vs_fp32_context": relative_error(contexts[1], fp32_context), "card": smi}
+    log(f"text encode with fp8 Gemma (quantized in memory): {json.dumps(rec)}")
+    if not rec["context_finite"] or gemma.layers[0].mlp.up_proj.weight.dtype != torch.float8_e4m3fn:
+        raise AssertionError(f"fp8 text encode {rec}")
     return rec
 
 
@@ -929,6 +1022,254 @@ def phase_two_stage(smi: str):
         f"frame mean/std {[(float(f.mean()), float(f.std())) for f in frames]}, mean |clip 1 - clip 2| "
         f"{float(np.abs(frames[0].astype(np.int16) - frames[1]).mean())} levels")
     return counts, stats, phase_peaks
+
+
+CKPT_DISK_GB = 24.0  # the files below take about 21 GB
+GEMMA_FILE_LAYERS = 2
+LORA_RANK, LORA_STRENGTH = 16, 0.8
+FUSED_CHECKED = ("transformer_blocks.0.attn1.to_q.weight", "transformer_blocks.23.attn2.to_k.weight",
+                 "transformer_blocks.47.ff.project_out.weight")
+TOL_FP8_X0_REL = 1e-2  # kept fp8 (scale rounded to bf16 at use) vs dequantized in fp32 then bf16
+
+
+def _write_checkpoints(directory: str, dev) -> dict:
+    """The files of the checkpoint phase, by the port's writers: a
+    full-width, full-depth V1 video DiT in the reference `-fp8` layout (E4M3
+    codes, per-tensor F32 scales) with the VAE decoder, its statistics, the
+    V1 text projection and video connector (for a 2-layer Gemma); the
+    spatial upscaler under the v1.1 names; a 2-layer full-width bf16 Gemma-3
+    in two shards under `language_model.model.`; a rank-16 LoRA of every
+    block's attention and FFN linears from `export_lora_checkpoint`."""
+    import os
+
+    import torch
+
+    from ltx2_tpu_torch.generate import make_decoder, make_dit, make_gemma, make_text_encoder, make_upscaler
+    from ltx2_tpu_torch.loader.export import iter_fp8_checkpoint_specs
+    from ltx2_tpu_torch.loader.safetensors_io import write_safetensors, write_safetensors_streaming
+    from ltx2_tpu_torch.models.text_encoder import GEMMA3_LAYER_TYPES, Gemma3Config, TextEncoderConfig
+    from ltx2_tpu_torch.models.text_encoder.encoder import text_encoder_to_checkpoint
+    from ltx2_tpu_torch.models.text_encoder.gemma3 import gemma_to_checkpoint
+    from ltx2_tpu_torch.models.transformer.model import LTXModelConfig
+    from ltx2_tpu_torch.models.upscaler.spatial import upscaler_to_checkpoint
+    from ltx2_tpu_torch.models.video_vae.decoder import DEFAULT_DECODER_BLOCKS
+    from ltx2_tpu_torch.models.video_vae.weights import decoder_to_checkpoint
+    from ltx2_tpu_torch.training.lora import add_lora_params_, export_lora_checkpoint
+
+    paths = {"checkpoint": os.path.join(directory, "ltx-2-video-fp8.safetensors"),
+             "upscaler": os.path.join(directory, "spatial-upscaler.safetensors"),
+             "gemma": os.path.join(directory, "gemma"), "lora": os.path.join(directory, "lora.safetensors")}
+    gen = torch.Generator(device=dev).manual_seed(41)
+    decoder = make_decoder("bfloat16", dev)
+    with torch.no_grad():
+        decoder.per_channel_statistics.mean_of_means.normal_(generator=gen).mul_(0.1)
+        decoder.per_channel_statistics.std_of_means.uniform_(0.5, 1.5, generator=gen)
+    others = decoder_to_checkpoint(decoder)
+    del decoder
+    others.update(text_encoder_to_checkpoint(make_text_encoder(
+        dev, cfg=TextEncoderConfig(num_gemma_layers=GEMMA_FILE_LAYERS + 1))))
+    blocks = [["res_x", {"num_layers": b[1]}] if b[0] == "res_x" else [b[0], {"multiplier": b[1], "residual": b[2]}]
+              for b in DEFAULT_DECODER_BLOCKS]
+    metadata = {"model_version": "2.0.0", "config": json.dumps(
+        {"transformer": {"num_attention_heads": 32, "attention_head_dim": 128}, "vae": {"decoder_blocks": blocks}})}
+    dit = make_dit(LAYERS, dev, seed=42, base=LTXModelConfig(caption_channels=3840), fp8=True)
+    t0 = time.perf_counter()
+    write_safetensors_streaming(paths["checkpoint"], [
+        *iter_fp8_checkpoint_specs(dit),
+        *((k, v.dtype, tuple(v.shape), (lambda v=v: v)) for k, v in others.items()),
+    ], metadata=metadata)
+    write_s = time.perf_counter() - t0
+    del others
+    add_lora_params_(dit, gen, rank=LORA_RANK)
+    with torch.no_grad():
+        for m in dit.modules():
+            if hasattr(m, "lora_B"):
+                m.lora_B.normal_(generator=gen).mul_(0.02)
+    export_lora_checkpoint(paths["lora"], dit)
+    del dit
+    torch.cuda.empty_cache()
+    write_safetensors(paths["upscaler"], upscaler_to_checkpoint(make_upscaler(dev), v11=True))
+    gemma = make_gemma(dev, cfg=Gemma3Config(num_hidden_layers=GEMMA_FILE_LAYERS,
+                                             layer_types=GEMMA3_LAYER_TYPES[:GEMMA_FILE_LAYERS]))
+    tensors = {k: v.to(torch.bfloat16) for k, v in gemma_to_checkpoint(gemma).items()}
+    del gemma
+    os.makedirs(paths["gemma"])
+    first = {k: v for k, v in tensors.items() if "embed_tokens" in k or ".layers.0." in k}
+    write_safetensors(os.path.join(paths["gemma"], "model-00001-of-00002.safetensors"), first)
+    write_safetensors(os.path.join(paths["gemma"], "model-00002-of-00002.safetensors"),
+                      {k: v for k, v in tensors.items() if k not in first})
+    torch.cuda.empty_cache()
+    sizes = {name: sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(p) for f in fs)
+             if os.path.isdir(p) else os.path.getsize(p) for name, p in paths.items()}
+    return {"paths": paths, "gb": {k: v / 1e9 for k, v in sizes.items()}, "checkpoint_write_s": write_s}
+
+
+def _timed_load(make) -> tuple:
+    """(make(), seconds, peak GB above what was allocated before)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = make()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def phase_checkpoint(smi: str) -> tuple:
+    """The checkpoint layer at full width on the card: writes the files of
+    `_write_checkpoints` into a fresh temporary directory (its free space
+    first), loads the DiT through `ModelLedger` kept in fp8, dequantized to
+    bf16, and dequantized with the LoRA fused (seconds, GB read, GB/s, peak
+    memory of each); checks the kept codes and scales against the file bit
+    for bit, the fused weights against the CPU's bf16(f32(bf16(f32(code) *
+    scale)) + strength * B A), and one x0 forward at 6144 tokens of the kept
+    fp8 model against the dequantized one; then runs 2 requests of the
+    two-stage recipe from the files (`--fp8-serving`, the files' Gemma,
+    `--text-encoder`). The files are deleted at the end. Returns (the
+    record, the two-stage run's launches, its per-request stats)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ltx2_tpu_torch.generate import generate_videos_distilled, make_latent_tools, make_request
+    from ltx2_tpu_torch.loader.convert import fp8_e4m3_dequant
+    from ltx2_tpu_torch.loader.export import inverse_rewrite
+    from ltx2_tpu_torch.loader.lora import LoRAConfig, compute_lora_delta, load_lora_weights
+    from ltx2_tpu_torch.loader.safetensors_io import SafetensorsFile
+    from ltx2_tpu_torch.loader.weight_loader import DIFFUSION_PREFIX, convert_checkpoint_key
+    from ltx2_tpu_torch.models.text_encoder.card_check import relative_error
+    from ltx2_tpu_torch.models.transformer.model import x0_model_apply
+    from ltx2_tpu_torch.pipelines.common import modality_from_state
+    from ltx2_tpu_torch.utils.model_ledger import ModelLedger
+
+    dev = torch.device("cuda")
+    directory = tempfile.mkdtemp(prefix="ltx2_ckpt_")
+    free_gb = shutil.disk_usage(directory).free / 1e9
+    log(f"checkpoint phase: {directory} has {free_gb:.1f} GB free, the files need {CKPT_DISK_GB} GB")
+    if free_gb < CKPT_DISK_GB:
+        shutil.rmtree(directory, ignore_errors=True)
+        raise AssertionError(f"{directory}: {free_gb:.1f} GB free, the checkpoint phase needs {CKPT_DISK_GB} GB")
+    rec = {"directory_free_gb": free_gb, "card": smi}
+    try:
+        files = _write_checkpoints(directory, dev)
+        paths = files["paths"]
+        rec.update(files_gb=files["gb"], checkpoint_write_s=files["checkpoint_write_s"])
+        log(f"checkpoint files written: {json.dumps(rec)}")
+        f = SafetensorsFile(paths["checkpoint"])
+        dit_bytes = sum(f.nbytes(k) for k in f.keys() if k.startswith(DIFFUSION_PREFIX)
+                        and convert_checkpoint_key(k[len(DIFFUSION_PREFIX):]) is not None)
+        loads = {}
+
+        def load(name, ledger):
+            model, seconds, peak = _timed_load(ledger.transformer)
+            loads[name] = {"s": seconds, "gb_read": dit_bytes / 1e9, "gb_per_s": dit_bytes / 1e9 / seconds,
+                           "peak_gb": peak, "weight_gb": sum(t.numel() * t.element_size() for t in
+                                                             (*model.parameters(), *model.buffers())) / 1e9}
+            log(f"DiT load ({name}): {json.dumps(loads[name])} | {smi}")
+            return model
+
+        kept = load("kept_fp8", ModelLedger(paths["checkpoint"], keep_fp8=True, device=dev))
+        mismatched = []
+        for name, t in (*kept.named_parameters(), *kept.named_buffers()):
+            if t.dtype == torch.float8_e4m3fn or name.endswith("weight_scale"):
+                written = f.get(DIFFUSION_PREFIX + inverse_rewrite(name)).to(dev)
+                if not torch.equal(t.reshape(-1).view(torch.uint8), written.reshape(-1).view(torch.uint8)):
+                    mismatched.append(name)
+        rec["kept_tensors_checked"] = sum(1 for n, t in kept.named_parameters() if t.dtype == torch.float8_e4m3fn)
+        rec["kept_mismatched"] = mismatched
+
+        # One x0 forward at 6144 tokens: kept fp8 against dequantized bf16.
+        tools = make_latent_tools(kept.cfg, HEIGHT, WIDTH, FRAMES)
+        state, context = make_request(kept.cfg, tools, SEEDS[0], dev)
+        video = modality_from_state(state, context, torch.tensor([0.7], device=dev), uniform_timesteps=True)
+        with torch.no_grad():
+            x0_kept = x0_model_apply(kept, video)
+        del kept
+        torch.cuda.empty_cache()
+        deq = load("dequantized_bf16", ModelLedger(paths["checkpoint"], device=dev))
+        with torch.no_grad():
+            x0_deq = x0_model_apply(deq, video)
+        rec["x0_kept_vs_dequantized"] = relative_error(x0_kept, x0_deq)
+        rec["x0_finite"] = bool(torch.isfinite(x0_kept).all() and torch.isfinite(x0_deq).all())
+        del deq, x0_kept, x0_deq
+        torch.cuda.empty_cache()
+
+        ledger = ModelLedger(paths["checkpoint"], keep_fp8=True, device=dev)
+        fused = load("dequantized_bf16_lora_fused", ledger.with_loras([LoRAConfig(paths["lora"], LORA_STRENGTH)]))
+        lora_weights = load_lora_weights(paths["lora"])
+        fused_mismatch = {}
+        for name in FUSED_CHECKED:
+            key = DIFFUSION_PREFIX + inverse_rewrite(name)
+            scale = float(f.get(key[: -len(".weight")] + ".weight_scale"))
+            base = fp8_e4m3_dequant(f.get(key), scale, torch.bfloat16)  # on the CPU
+            lora_base = "diffusion_model." + inverse_rewrite(name)[: -len(".weight")]
+            delta = compute_lora_delta(lora_weights, lora_base + ".lora_A.weight", lora_base + ".lora_B.weight",
+                                       LORA_STRENGTH, device="cpu")
+            want = (base.float() + delta).to(torch.bfloat16)
+            got = fused.get_parameter(name).detach().cpu()
+            fused_mismatch[name] = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+            if torch.equal(got, base):
+                fused_mismatch[name] = -1  # the LoRA changed nothing
+        rec["fused_mismatched_elements"] = fused_mismatch
+        rec["loads"] = loads
+        del fused
+        torch.cuda.empty_cache()
+        f.close()
+
+        # The two-stage recipe from the files.
+        _reset_counts()
+        t0 = time.perf_counter()
+        frames, stats = generate_videos_distilled(
+            list(SEEDS), height=HEIGHT, width=WIDTH, frames=FRAMES, device="cuda", text_encoder=True,
+            phase_peaks=True, ledger=ModelLedger(paths["checkpoint"], gemma_path=paths["gemma"],
+                                                 spatial_upscaler_path=paths["upscaler"], keep_fp8=True,
+                                                 decoder_dtype="bfloat16", device=dev))
+        wall = time.perf_counter() - t0
+        counts = _counts()
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+    phases = ("text_encode", "stage1", "upscale", "stage2", "decode")
+    rec["two_stage"] = {
+        "wall_s": wall, "launches": counts,
+        "init_s": {k: stats[0].get(f"{k}_init_s") for k in ("gemma", "text_encoder", "dit", "upscaler", "decoder")},
+        "dit_weight_gb": stats[0]["dit_weight_gb"],
+        "seconds": {p: [s[f"{p}_s"] for s in stats] for p in phases},
+        "peak_gb": {p: max(s[f"{p}_peak_gb"] for s in stats if s.get(f"{p}_peak_gb") is not None) for p in phases},
+        "frames": [list(v.shape) for v in frames], "card": smi,
+    }
+    log(f"checkpoint phase: {json.dumps(rec)}")
+
+    from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscalerConfig
+    from ltx2_tpu_torch.models.upscaler.spatial import conv_launches as upscaler_convs
+    from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoderConfig, conv_launches
+    from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, generate_tile_specs
+
+    if mismatched or rec["kept_tensors_checked"] != 48 * 10 + 4:
+        raise AssertionError(f"kept fp8 tensors differ from the file: {mismatched[:4]}, "
+                             f"{rec['kept_tensors_checked']} fp8 weights")
+    if any(v != 0 for v in fused_mismatch.values()):
+        raise AssertionError(f"fused weights differ from the CPU's: {fused_mismatch}")
+    if not rec["x0_finite"] or rec["x0_kept_vs_dequantized"]["max_rel"] > TOL_FP8_X0_REL:
+        raise AssertionError(f"x0 kept fp8 vs dequantized: {rec['x0_kept_vs_dequantized']}")
+    tiles = len(generate_tile_specs((1, 128, (FRAMES - 1) // 8 + 1, HEIGHT // 32, WIDTH // 32), TilingConfig.default()))
+    per_clip = {"fwd": TWO_STAGE_LAUNCHES_PER_CLIP, "bwd": 0,
+                "conv": upscaler_convs(SpatialUpscalerConfig()) + conv_launches(VideoDecoderConfig()) * tiles}
+    if counts != {k: v * len(SEEDS) for k, v in per_clip.items()}:
+        raise AssertionError(f"two-stage from files: launches {counts}, expected {per_clip} a clip")
+    for v in frames:
+        if v.shape != (FRAMES, HEIGHT, WIDTH, 3) or v.dtype != np.uint8:
+            raise AssertionError(f"two-stage from files: frames {v.shape} {v.dtype}")
+    for st in stats:
+        if not (st["context_finite"] and st["stage1_latent_finite"] and st["stage2_latent_finite"]):
+            raise AssertionError(f"two-stage from files: non-finite context or latent {st}")
+    if not FP8_DIT_GB[0] < stats[0]["dit_weight_gb"] < FP8_DIT_GB[1] + 0.5:
+        raise AssertionError(f"the two-stage DiT from the fp8 file holds {stats[0]['dit_weight_gb']} GB")
+    return rec, counts, stats
 
 
 def phase_two_stage_small(smi: str) -> dict:
@@ -1198,13 +1539,23 @@ def main():
     recs = phase_kernels()
     conv_recs = phase_conv_kernels()
     upscaler_conv = phase_upscaler_conv_time(conv_recs, smi)
-    serve_counts = phase_main_path(smi)
+    serve_counts, serve = phase_main_path(smi)
 
     import torch
 
     torch.cuda.empty_cache()
+    fp8_step = phase_fp8_step(smi)
     text_encode = phase_text_encode(smi)
+    checkpoint, file_counts, file_stats = phase_checkpoint(smi)
+    torch.cuda.empty_cache()
     two_stage_counts, two_stage_stats, two_stage_peaks = phase_two_stage(smi)
+    phases = ("text_encode", "stage1", "upscale", "stage2", "decode")
+    checkpoint["two_stage"]["bf16_random_seconds"] = {p: [s[f"{p}_s"] for s in two_stage_stats] for p in phases}
+    checkpoint["two_stage"]["bf16_random_peak_gb"] = {p: two_stage_peaks[f"{p}_peak_gb"] for p in phases}
+    side_by_side = {k: checkpoint["two_stage"][k]
+                    for k in ("seconds", "peak_gb", "bf16_random_seconds", "bf16_random_peak_gb")}
+    log(f"two-stage from the files (fp8 DiT, 2-layer Gemma) beside the bf16 random-weight flow: "
+        f"{json.dumps(side_by_side)} | {smi}")
     torch.cuda.empty_cache()
     two_stage_small = phase_two_stage_small(smi)
     bwd = phase_bwd_kernels()
@@ -1218,6 +1569,7 @@ def main():
     bf16_recs = [r for r in conv_recs if r["dtype"] == "bfloat16"]
     fp32_recs = [r for r in conv_recs if r["dtype"] == "float32"]  # "upscaler" first
     upscale_launches = sum(s["upscale_conv_launches"] for s in two_stage_stats)
+    file_upscale_launches = sum(s["upscale_conv_launches"] for s in file_stats)
     conv_replaces = ("scripts/bench_conv_pallas.py:116 (conv3d_pallas, pallas_call :140); "
                      "scripts/bench_conv_pallas.py:223 (conv3d_pallas_v2, pallas_call :247); "
                      "scripts/bench_conv_pallas.py:357 (conv3d_pallas_v3, pallas_call :378)")
@@ -1227,9 +1579,9 @@ def main():
             "route": "cuda",
             "source": "ltx2_tpu_torch/csrc/flash_attention.cu",
             "replaces": "ltx2_tpu/ops/attention.py:188",
-            "launches": serve_counts["fwd"] + two_stage_counts["fwd"] + train_counts["fwd"],
+            "launches": serve_counts["fwd"] + two_stage_counts["fwd"] + file_counts["fwd"] + train_counts["fwd"],
             "launches_by_path": {"serve": serve_counts["fwd"], "serve_two_stage": two_stage_counts["fwd"],
-                                 "train": train_counts["fwd"]},
+                                 "serve_two_stage_from_files": file_counts["fwd"], "train": train_counts["fwd"]},
             "max_abs_err": max(max(r["max_abs_err"] for r in recs),
                                max(r["max_abs_err_fwd_residuals"] for r in bwd)),
             "ms": self_rec["ms"],
@@ -1263,9 +1615,11 @@ def main():
             "source": "ltx2_tpu_torch/csrc/conv3d.cu",
             "kernel": "conv3d_wgmma_kernel",
             "replaces": conv_replaces,
-            "launches": serve_counts["conv"] + two_stage_counts["conv"] - upscale_launches,
+            "launches": (serve_counts["conv"] + two_stage_counts["conv"] - upscale_launches
+                         + file_counts["conv"] - file_upscale_launches),
             "launches_by_path": {"serve": serve_counts["conv"],
-                                 "serve_two_stage": two_stage_counts["conv"] - upscale_launches},
+                                 "serve_two_stage": two_stage_counts["conv"] - upscale_launches,
+                                 "serve_two_stage_from_files": file_counts["conv"] - file_upscale_launches},
             "max_abs_err": max(r["max_abs_err"] for r in bf16_recs),
             "ms": bf16_recs[0]["ms"],
             "plain_ms": bf16_recs[0]["plain_ms"],
@@ -1280,8 +1634,9 @@ def main():
             "source": "ltx2_tpu_torch/csrc/conv3d.cu",
             "kernel": "conv3d_tf32x3_kernel",
             "replaces": conv_replaces,
-            "launches": upscale_launches,
-            "launches_by_path": {"serve_two_stage": upscale_launches},
+            "launches": upscale_launches + file_upscale_launches,
+            "launches_by_path": {"serve_two_stage": upscale_launches,
+                                 "serve_two_stage_from_files": file_upscale_launches},
             "max_abs_err": max(r["max_abs_err"] for r in fp32_recs),
             "ms": fp32_recs[0]["ms"],
             "plain_ms": fp32_recs[0]["plain_ms"],
@@ -1293,6 +1648,7 @@ def main():
             "cases": fp32_recs,
         },
     ], "train": {"timing": timing, "gradcheck": gradcheck},
+        "bench_e2e": serve, "fp8_step": fp8_step, "checkpoint": checkpoint,
         "text_encode": text_encode,
         "two_stage": {"requests": two_stage_stats, "peak_memory_gb_by_phase": two_stage_peaks,
                       "small_input_check": two_stage_small}}

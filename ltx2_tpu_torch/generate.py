@@ -5,15 +5,23 @@ Two flows, chosen with `--pipeline`:
 - `bench-e2e` (the default; `generate_videos`): the steps of the JAX
   package's `scripts/bench_e2e.py`: Gaussian noise -> 8-sigma distilled
   Euler loop with CFGGuider(1.0) and uniform timesteps over the video DiT at
-  full resolution -> un-patchify -> VAE decode in temporal chunks -> uint8
-  frames.
+  full resolution, its weights kept in fp8 on the card (E4M3 codes with a
+  per-tensor scale, dequantized at use; 12.9 GB instead of 25.8 GB in bf16)
+  -> un-patchify -> VAE decode in temporal chunks -> uint8 frames.
 - `distilled` (`generate_videos_distilled`): the two-stage recipe of the
   JAX package's `scripts/generate.py --pipeline distilled`
   (pipelines/distilled.py): stage 1 at half resolution with the 8 distilled
   sigmas -> 2x spatial upscaler -> stage 2 at full resolution on the 3-sigma
   tail -> tiled VAE decode.
 
-Weights are random, drawn on the device from a seed. The text context is
+Weights are random, drawn on the device from a seed, unless the two-stage
+recipe is given a reference-format checkpoint (`--checkpoint`, with
+`--spatial-upscaler` and, for `--text-encoder`, `--gemma-dir`): then every
+component comes from the files through `ModelLedger` (utils/model_ledger.py),
+with `--fp8-serving` (the file's fp8 DiT weights stay fp8 on the card),
+`--gemma-fp8` (Gemma's matmul weights quantized to fp8 at load) and
+`--lora PATH[:STRENGTH]` (repeatable; fused into the DiT at load). The text
+context is
 the dummy embedding of `generate.py --no-gemma` (normal * 0.02, 1024 x 4096),
 except in the two-stage recipe with `--text-encoder`: there each request's
 prompt and negative prompt, token ids drawn from the request's seed and
@@ -32,6 +40,8 @@ From Python: `generate_video(seed=0)`, `generate_videos([0, 1, ...])` or
     python -m ltx2_tpu_torch.generate --requests 2
     python -m ltx2_tpu_torch.generate --pipeline distilled --requests 2
     python -m ltx2_tpu_torch.generate --pipeline distilled --text-encoder --requests 2
+    python -m ltx2_tpu_torch.generate --pipeline distilled --checkpoint ltx-2.safetensors \
+        --spatial-upscaler upscaler.safetensors --gemma-dir gemma-3-12b --text-encoder --fp8-serving --gemma-fp8
 """
 
 from __future__ import annotations
@@ -52,10 +62,13 @@ from ltx2_tpu_torch.components.patchifiers import VideoLatentPatchifier
 from ltx2_tpu_torch.components.schedulers import DISTILLED_SIGMA_VALUES
 from ltx2_tpu_torch.conditioning.tools import VideoLatentTools
 from ltx2_tpu_torch.core import resolve_device
+from ltx2_tpu_torch.loader.fp8 import quantize_params_fp8, weight_bytes
+from ltx2_tpu_torch.loader.lora import LoRAConfig
 from ltx2_tpu_torch.models.text_encoder import (
     Gemma3, Gemma3Config, TextEncoderConfig, VideoTextEncoder, gemma3_apply, init_gemma3_, init_text_encoder_,
     video_text_encoder_apply,
 )
+from ltx2_tpu_torch.models.transformer.blocks import VideoBlock
 from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelConfig, init_ltx_model_
 from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscaler, SpatialUpscalerConfig, init_spatial_upscaler_
 from ltx2_tpu_torch.models.video_vae.chunking import decode_latent
@@ -63,12 +76,14 @@ from ltx2_tpu_torch.models.video_vae.decoder import (
     PerChannelStatistics, VideoDecoder, VideoDecoderConfig, init_video_decoder_,
 )
 from ltx2_tpu_torch.models.video_vae.tiling import generate_tile_specs
+from ltx2_tpu_torch.models.video_vae.weights import load_per_channel_statistics
 from ltx2_tpu_torch.ops.attention import flash_attention
 from ltx2_tpu_torch.ops.conv3d import conv3d_ndhwc_kernel
 from ltx2_tpu_torch.pipelines.common import decode_video
 from ltx2_tpu_torch.pipelines.denoise import DenoiseLoopConfig, make_video_denoise_loop
 from ltx2_tpu_torch.pipelines.distilled import DistilledConfig, DistilledPipeline, stage_seeds
 from ltx2_tpu_torch.types import LatentState, VideoLatentShape, VideoPixelShape
+from ltx2_tpu_torch.utils.model_ledger import ModelLedger
 
 CONTEXT_TOKENS = 1024
 # A request's prompt and negative prompt lengths in tokens, drawn from its
@@ -112,11 +127,24 @@ def _phase_peak(device: torch.device, on: bool) -> Optional[float]:
     return peak
 
 
-def make_dit(layers: int, device: torch.device, seed: int = 0, base: LTXModelConfig = LTXModelConfig()) -> LTXModel:
+def make_dit(layers: int, device: torch.device, seed: int = 0, base: LTXModelConfig = LTXModelConfig(),
+             fp8: bool = False) -> LTXModel:
     """The video DiT of config `base` (default: full width) at `layers`
-    depth, random weights drawn on the device from `seed`."""
-    dit = LTXModel(dataclasses.replace(base, num_layers=layers), device=device)
-    return init_ltx_model_(dit, torch.Generator(device=device).manual_seed(seed))
+    depth, random weights drawn on the device from `seed`. With `fp8` its
+    linears are then kept in fp8 (`quantize_params_fp8`), as
+    scripts/bench_e2e.py does; each block is drawn and quantized before the
+    next is drawn, so the model in `base`'s dtype never exists whole, and
+    the draws are those of the model without `fp8`."""
+    cfg = dataclasses.replace(base, num_layers=layers)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if not fp8:
+        return init_ltx_model_(LTXModel(cfg, device=device), gen)
+    dit = quantize_params_fp8(init_ltx_model_(LTXModel(dataclasses.replace(cfg, num_layers=0), device=device), gen))
+    for i in range(layers):
+        block = VideoBlock(cfg.video_stream_config(), cfg.norm_eps, device=device, dtype=cfg.dtype)
+        dit.transformer_blocks.append(quantize_params_fp8(init_ltx_model_(block, gen), f"transformer_blocks.{i}"))
+    dit.cfg = cfg
+    return dit
 
 
 def make_decoder(compute_dtype: str, device: torch.device) -> VideoDecoder:
@@ -235,8 +263,10 @@ def make_request(
 
 
 def dummy_context(cfg: LTXModelConfig, generator: torch.Generator, device: torch.device) -> torch.Tensor:
-    """The `--no-gemma` text context: normal * 0.02, (1, 1024, context dim)."""
-    return torch.randn(1, CONTEXT_TOKENS, cfg.cross_attention_dim, generator=generator, device=device) * 0.02
+    """The `--no-gemma` text context: normal * 0.02, (1, 1024, the DiT's
+    text input width: its caption projection's, else its context dim)."""
+    width = cfg.caption_channels or cfg.cross_attention_dim
+    return torch.randn(1, CONTEXT_TOKENS, width, generator=generator, device=device) * 0.02
 
 
 def generate_videos(
@@ -260,7 +290,10 @@ def generate_videos(
     built, so the two never hold device memory together. `dit`, `decoder`,
     `contexts` and `noises` replace the random weights, the dummy text
     context and the initial noise (the tests hand in the JAX package's).
-    Random weights are drawn from seed 0 (DiT) and 1 (decoder).
+    Random weights are drawn from seed 0 (DiT, kept in fp8 as
+    scripts/bench_e2e.py keeps it) and 1 (decoder). Stats per request: the
+    denoise and decode seconds, the kernels' launches, the latent's
+    finiteness and std; the first also the DiT's weight bytes (GB).
     """
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -269,7 +302,8 @@ def generate_videos(
 
     stats = [{"seed": seed, "dit_init_s": 0.0, "decoder_init_s": 0.0} for seed in seeds]
     if dit is None:
-        dit, stats[0]["dit_init_s"] = _timed(device, lambda: make_dit(layers, device))
+        dit, stats[0]["dit_init_s"] = _timed(device, lambda: make_dit(layers, device, fp8=True))
+    stats[0]["dit_weight_gb"] = weight_bytes(dit) / 1e9
     cfg = dit.cfg
     tools = make_latent_tools(cfg, height, width, frames)
     loop = make_distilled_loop(cfg)
@@ -333,6 +367,7 @@ def generate_videos_distilled(
     text_encoder: Union[bool, VideoTextEncoder] = False,
     gemma: Optional[Gemma3] = None,
     phase_peaks: bool = False,
+    ledger: Optional[ModelLedger] = None,
 ) -> Tuple[List[np.ndarray], List[dict]]:
     """The two-stage distilled recipe, one clip per seed; returns (uint8
     (frames, height, width, 3) arrays, per-request stats).
@@ -351,8 +386,14 @@ def generate_videos_distilled(
     from the request's seed. Random weights come from seeds 3 (Gemma), 4
     (text encoder), 0 (DiT), 2 (upscaler) and 1 (decoder); the upscale
     bracket uses `decoder`'s statistics, or the defaults (0, 1) that a
-    random decoder holds. Stats per request: seconds of the text encode,
-    stage 1, upscale, stage 2 and decode, attention launches, conv launches
+    random decoder holds. With `ledger` every component comes from its
+    files instead (`ModelLedger`: Gemma and the text encoder, the DiT, the
+    upscaler, the decoder and the upscale bracket's statistics), each
+    released from the ledger when its phase is over; then none of `dit`,
+    `upscaler`, `decoder`, `gemma` or a text encoder module may be given,
+    and the tokens still come from each request's seed. Stats per request:
+    seconds of the text encode, stage 1, upscale, stage 2 and decode (the
+    first also the DiT's weight bytes), attention launches, conv launches
     of the upscale and the decode, decode tiles, the latents' finiteness
     after each stage, the context's finiteness and std, and, with
     `phase_peaks` on the card, each phase's peak memory (GB; None
@@ -367,25 +408,44 @@ def generate_videos_distilled(
         raise ValueError("gemma is given but text encoding is off (text_encoder=False)")
     if encode and contexts is not None:
         raise ValueError("contexts and text_encoder are exclusive: the encoder makes the contexts")
+    modules = (dit, upscaler, decoder, gemma, text_encoder if isinstance(text_encoder, VideoTextEncoder) else None)
+    if ledger is not None and any(m is not None for m in modules):
+        raise ValueError("with a ledger every component comes from its files: pass no module")
     stats = [{"seed": seed, "dit_init_s": 0.0, "upscaler_init_s": 0.0, "decoder_init_s": 0.0} for seed in seeds]
     _phase_peak(device, phase_peaks)
     if encode:
+        if ledger is not None:
+            gemma, stats[0]["gemma_init_s"] = _timed(device, ledger.gemma)
+            text_encoder, stats[0]["text_encoder_init_s"] = _timed(device, ledger.text_encoder)
+            ledger.clear_model("gemma")
+            ledger.clear_model("text_encoder")
         contexts = _encode_phase(seeds, stats, device, gemma,
                                  text_encoder if isinstance(text_encoder, VideoTextEncoder) else None, phase_peaks)
         gemma = text_encoder = None
         _free(device)
         _phase_peak(device, phase_peaks)  # the next phase's peak starts from what is left
-    if dit is None:
+    if dit is None and ledger is not None:
+        dit, stats[0]["dit_init_s"] = _timed(device, ledger.transformer)
+    elif dit is None:
         base = LTXModelConfig(caption_channels=contexts[0].shape[-1]) if encode else LTXModelConfig()
         dit, stats[0]["dit_init_s"] = _timed(device, lambda: make_dit(layers, device, base=base))
+    stats[0]["dit_weight_gb"] = weight_bytes(dit) / 1e9
     if encode and dit.cfg.caption_channels != contexts[0].shape[-1]:
         raise ValueError(f"the DiT's caption_channels {dit.cfg.caption_channels} do not take the "
                          f"{contexts[0].shape[-1]}-channel text encoding")
-    if upscaler is None:
+    if upscaler is None and ledger is not None:
+        upscaler, stats[0]["upscaler_init_s"] = _timed(device, ledger.spatial_upscaler)
+        if upscaler is None:
+            raise ValueError("the two-stage recipe needs the spatial upscaler's file (spatial_upscaler_path)")
+    elif upscaler is None:
         upscaler, stats[0]["upscaler_init_s"] = _timed(device, lambda: make_upscaler(device))
     cfg = dit.cfg
-    statistics = (decoder.per_channel_statistics if decoder is not None
-                  else PerChannelStatistics(cfg.in_channels, device=device))
+    if decoder is not None:
+        statistics = decoder.per_channel_statistics
+    elif ledger is not None:
+        statistics = load_per_channel_statistics(ledger.checkpoint_path, cfg.in_channels, device)
+    else:
+        statistics = PerChannelStatistics(cfg.in_channels, device=device)
     pipe = DistilledPipeline(dit, upscaler, statistics=statistics)
 
     configs, latents = [], []
@@ -418,10 +478,15 @@ def generate_videos_distilled(
         latents.append(latent)
 
     del dit, upscaler, pipe
+    if ledger is not None:
+        ledger.clear_model("transformer")
+        ledger.clear_model("spatial_upscaler")
     _free(device)
     _phase_peak(device, phase_peaks)
 
-    if decoder is None:
+    if decoder is None and ledger is not None:
+        decoder, stats[0]["decoder_init_s"] = _timed(device, ledger.video_decoder)
+    elif decoder is None:
         decoder, stats[0]["decoder_init_s"] = _timed(device, lambda: make_decoder(cfg.compute_dtype, device))
 
     videos = []
@@ -443,7 +508,17 @@ def generate_video(seed: int = 0, **kwargs) -> np.ndarray:
     return videos[0]
 
 
-def main(argv=None) -> None:
+def parse_lora_spec(spec: str) -> LoRAConfig:
+    """'path[:strength]' -> LoRAConfig (strength 1 when absent)."""
+    if ":" in spec:
+        path, strength = spec.rsplit(":", 1)
+        return LoRAConfig(path=path, strength=float(strength))
+    return LoRAConfig(path=spec)
+
+
+def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
+    """The command line; prints one JSON line per request and returns
+    (frames, stats) as the generate functions do."""
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--pipeline", choices=("bench-e2e", "distilled"), default="bench-e2e",
                     help="bench-e2e: one stage at full resolution, chunked decode; distilled: the two-stage "
@@ -459,17 +534,46 @@ def main(argv=None) -> None:
     ap.add_argument("--text-encoder", action="store_true",
                     help="distilled only: encode each request's prompt tokens (drawn from its seed) with the fp32 "
                          "Gemma-3-12B and V1 text encoder (random weights) in place of the dummy context")
+    ap.add_argument("--checkpoint", default=None,
+                    help="distilled only: a unified LTX-2 safetensors checkpoint (DiT, VAE decoder, text projection "
+                         "and connector), loaded through ModelLedger in place of the random weights")
+    ap.add_argument("--spatial-upscaler", default=None, help="with --checkpoint: the spatial upscaler's safetensors")
+    ap.add_argument("--gemma-dir", default=None,
+                    help="with --checkpoint --text-encoder: the directory of Gemma-3's model-*.safetensors shards")
+    ap.add_argument("--fp8-serving", action="store_true",
+                    help="with --checkpoint: keep the file's fp8 DiT weights fp8 on the card (dequantized at use)")
+    ap.add_argument("--gemma-fp8", action="store_true",
+                    help="with --gemma-dir: quantize Gemma's matmul weights to fp8 at load (embeddings bf16)")
+    ap.add_argument("--lora", action="append", default=[], metavar="PATH[:STRENGTH]",
+                    help="with --checkpoint: a LoRA file fused into the DiT at load, repeatable")
     args = ap.parse_args(argv)
     if args.text_encoder and args.pipeline != "distilled":
         ap.error("--text-encoder needs --pipeline distilled")
+    if args.checkpoint and args.pipeline != "distilled":
+        ap.error("--checkpoint needs --pipeline distilled")
+    file_flags = {"--spatial-upscaler": args.spatial_upscaler, "--gemma-dir": args.gemma_dir,
+                  "--fp8-serving": args.fp8_serving, "--gemma-fp8": args.gemma_fp8, "--lora": args.lora}
+    if not args.checkpoint and any(file_flags.values()):
+        ap.error(f"{', '.join(k for k, v in file_flags.items() if v)} need --checkpoint")
+    if args.gemma_fp8 and not args.gemma_dir:
+        ap.error("--gemma-fp8 needs --gemma-dir")
     seeds = [args.seed + i for i in range(args.requests)]
     common = dict(height=args.height, width=args.width, frames=args.frames, layers=args.layers, device=args.device)
     if args.pipeline == "distilled":
-        videos, stats = generate_videos_distilled(seeds, text_encoder=args.text_encoder, phase_peaks=True, **common)
+        ledger = None
+        if args.checkpoint:
+            ledger = ModelLedger(
+                checkpoint_path=args.checkpoint, gemma_path=args.gemma_dir, spatial_upscaler_path=args.spatial_upscaler,
+                loras=[parse_lora_spec(spec) for spec in args.lora], keep_fp8=args.fp8_serving,
+                gemma_fp8=args.gemma_fp8, decoder_dtype="bfloat16", device=args.device,
+            )
+        videos, stats = generate_videos_distilled(seeds, text_encoder=args.text_encoder, phase_peaks=True,
+                                                  ledger=ledger, **common)
     else:
         videos, stats = generate_videos(seeds, steps=args.steps, **common)
     for video, st in zip(videos, stats):
         print(json.dumps({**st, "frames": list(video.shape), "dtype": str(video.dtype)}))
+    return videos, stats
 
 
 if __name__ == "__main__":

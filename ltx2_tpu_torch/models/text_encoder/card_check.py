@@ -3,8 +3,10 @@
 A 2-layer, full-width Gemma-3 (a sliding layer, window 16, then a full one)
 and the V1 encoder over its 3 states, 2 x 64 tokens left-padded to lengths
 64 and 23, TF32 off: every Gemma state and the encoding are held to a
-relative rms of 1e-5 and a relative max of 1e-4. chip_smoke.py and the
-`gpu`-marked tests run it:
+relative rms of 1e-5 and a relative max of 1e-4. With `fp8` both copies
+first get the fp8 Gemma of `load_gemma3_params(quantize_fp8=True)`
+(`quantize_gemma_fp8_`: the same codes on both devices), held to the same
+limits. chip_smoke.py and the `gpu`-marked tests run it:
 
     from ltx2_tpu_torch.models.text_encoder.card_check import encoder_against_cpu
     rec = encoder_against_cpu()   # rec["ok"], rec["errors"]
@@ -19,7 +21,9 @@ import torch
 from ltx2_tpu_torch.models.text_encoder.encoder import (
     TextEncoderConfig, VideoTextEncoder, init_text_encoder_, video_text_encoder_apply,
 )
-from ltx2_tpu_torch.models.text_encoder.gemma3 import Gemma3, Gemma3Config, gemma3_apply, init_gemma3_
+from ltx2_tpu_torch.models.text_encoder.gemma3 import (
+    Gemma3, Gemma3Config, gemma3_apply, init_gemma3_, quantize_gemma_fp8_,
+)
 
 RMS_REL_LIMIT = 1e-5
 MAX_REL_LIMIT = 1e-4
@@ -35,11 +39,12 @@ def relative_error(x: torch.Tensor, ref: torch.Tensor) -> dict:
             "max_rel": (err.abs().max() / ref.double().abs().max()).item()}
 
 
-def encoder_against_cpu(device="cuda", seed: int = 7) -> dict:
+def encoder_against_cpu(device="cuda", seed: int = 7, fp8: bool = False) -> dict:
     """Runs the check on `device`; returns the token shape and lengths, the
     encoding's shape, each state's and the encoding's errors, finiteness,
     the CPU's seconds, the limits and "ok". Weights come from `seed` (Gemma)
-    and seed + 1 (encoder), the token ids from seed + 2."""
+    and seed + 1 (encoder), the token ids from seed + 2; with `fp8` Gemma's
+    matmul weights are quantized on each device."""
     device = torch.device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = Gemma3Config(num_hidden_layers=2, sliding_window=16, layer_types=("sliding_attention", "full_attention"))
@@ -50,6 +55,9 @@ def encoder_against_cpu(device="cuda", seed: int = 7) -> dict:
     gemma_cpu, enc_cpu = Gemma3(cfg, device="cpu"), VideoTextEncoder(te_cfg, device="cpu")
     gemma_cpu.load_state_dict(gemma.state_dict())
     enc_cpu.load_state_dict(enc.state_dict())
+    if fp8:
+        quantize_gemma_fp8_(gemma)
+        quantize_gemma_fp8_(gemma_cpu)
 
     gen = torch.Generator().manual_seed(seed + 2)
     ids = torch.randint(3, cfg.vocab_size, (len(LENGTHS), TOKENS), generator=gen)
@@ -69,6 +77,6 @@ def encoder_against_cpu(device="cuda", seed: int = 7) -> dict:
     errors["encoding"] = relative_error(out, ref)
     finite = bool(torch.isfinite(out).all() and torch.isfinite(hidden).all())
     within = all(e["rms_rel"] <= RMS_REL_LIMIT and e["max_rel"] <= MAX_REL_LIMIT for e in errors.values())
-    return {"tokens": [len(LENGTHS), TOKENS], "lengths": list(LENGTHS), "encoding_shape": list(out.shape),
+    return {"fp8": fp8, "tokens": [len(LENGTHS), TOKENS], "lengths": list(LENGTHS), "encoding_shape": list(out.shape),
             "reference_shape": list(ref.shape), "errors": errors, "finite": finite, "cpu_s": cpu_s,
             "tol_rms_rel": RMS_REL_LIMIT, "tol_max_rel": MAX_REL_LIMIT, "ok": finite and within}

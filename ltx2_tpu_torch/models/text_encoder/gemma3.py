@@ -17,19 +17,28 @@ turning to NaN. Each mask is query-dependent, so every attention takes
 `sdpa`'s plain route, as the JAX package takes its einsum route.
 
 The JAX package stacks the layers and scans them; here they are an
-`nn.ModuleList` run in a Python loop. Not ported yet: fp8 weights
-(`quantize_fp8`), the HF shard loader and greedy generation.
+`nn.ModuleList` run in a Python loop. `load_gemma3_params` reads the HF
+shards, optionally with fp8 matmul weights (E4M3 codes and per-tensor scales
+dequantized at use by `linear`, embeddings in bf16; 12B in about 12.8 GB
+instead of 47 GB in fp32). Not ported yet: greedy generation.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ltx2_tpu_torch.core import resolve_device
+from ltx2_tpu_torch.loader.convert import to_dtype
+from ltx2_tpu_torch.loader.fp8 import FP8_DTYPE, FP8_MAX, set_fp8_weight_
+from ltx2_tpu_torch.loader.modules import assign_, require_loaded
+from ltx2_tpu_torch.loader.safetensors_io import SafetensorsFile
 from ltx2_tpu_torch.models.transformer.attention import NormWeight
 from ltx2_tpu_torch.ops.attention import sdpa
 from ltx2_tpu_torch.ops.common import Linear, linear, silu_mul
@@ -239,3 +248,107 @@ def gemma3_apply(model: Gemma3, input_ids: torch.Tensor, attention_mask: Optiona
         x = _layer(layer, cfg, x, mask, *tables[kind])
     hidden[-1] = gemma_rms_norm(x, model.norm.weight, cfg.rms_norm_eps)
     return hidden[-1], hidden
+
+
+def quantize_gemma_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A Gemma matmul weight -> (E4M3 codes, fp32 0-d scale), as the JAX
+    package's Gemma loader computes them: the scale max(amax / 448, 1e-12)
+    in float64 on the host, rounded to fp32, and the codes w / scale in
+    fp32."""
+    a32 = w.to(torch.float32)
+    scale = torch.tensor(max(float(a32.abs().amax()) / FP8_MAX, 1e-12), dtype=torch.float32, device=w.device)
+    return (a32 / scale).to(FP8_DTYPE), scale
+
+
+@torch.no_grad()
+def gemma_tensor_(model: Gemma3, name: str, t: torch.Tensor, target: torch.dtype, quantize_fp8: bool) -> None:
+    """Put tensor `name` into `model` by the loader's policy: with
+    `quantize_fp8` every `*proj.weight` becomes E4M3 with its scale and the
+    embedding bf16; everything else goes to `target`."""
+    if quantize_fp8 and name.endswith("proj.weight"):
+        set_fp8_weight_(model.get_submodule(name[: -len(".weight")]), *quantize_gemma_weight(t))
+    elif quantize_fp8 and "embed_tokens" in name:
+        assign_(model, name, to_dtype(t, torch.bfloat16))
+    else:
+        assign_(model, name, to_dtype(t, target))
+
+
+@torch.no_grad()
+def quantize_gemma_fp8_(model: Gemma3) -> Gemma3:
+    """`load_gemma3_params(quantize_fp8=True)`'s policy applied in place to
+    a Gemma already in memory."""
+    names = [name for name, _ in model.named_parameters() if name.endswith("proj.weight") or "embed_tokens" in name]
+    for name in names:  # by name: each old weight is freed as its replacement lands
+        p = model.get_parameter(name)
+        gemma_tensor_(model, name, p.detach(), p.dtype, True)
+    return model
+
+
+def _shards(weights_dir: str):
+    shards = sorted(Path(weights_dir).glob("model-*.safetensors"))
+    if not shards:
+        raise FileNotFoundError(f"No safetensors files found in {weights_dir}")
+    keys = SafetensorsFile(str(shards[0])).keys()
+    # Multimodal Gemma-3 bundles use `language_model.model.*`, text-only
+    # checkpoints `model.*`.
+    prefix = "language_model.model." if any(k.startswith("language_model.model.") for k in keys) else "model."
+    return shards, prefix
+
+
+def gemma_config_from_checkpoint(weights_dir: str, compute_dtype: str = "float32") -> Gemma3Config:
+    """Gemma-3's architecture read off the shards' tensors: vocabulary and
+    widths from their shapes, the layer count from their names, every 6th
+    layer full attention; window and RoPE as Gemma-3-12B's. For the 12B
+    shards this is `Gemma3Config()`."""
+    shards, prefix = _shards(weights_dir)
+    shapes, layers = {}, set()
+    for shard in shards:
+        f = SafetensorsFile(str(shard))
+        for key in f.keys():
+            if key.startswith(prefix):
+                shapes[key[len(prefix):]] = f.info(key)[1]
+                m = re.match(r"layers\.(\d+)\.", key[len(prefix):])
+                if m:
+                    layers.add(int(m.group(1)))
+    vocab, hidden = shapes["embed_tokens.weight"]
+    head_dim = shapes["layers.0.self_attn.q_norm.weight"][0]
+    n = max(layers) + 1
+    return Gemma3Config(
+        vocab_size=vocab, hidden_size=hidden, intermediate_size=shapes["layers.0.mlp.gate_proj.weight"][0],
+        num_hidden_layers=n, num_attention_heads=shapes["layers.0.self_attn.q_proj.weight"][0] // head_dim,
+        num_key_value_heads=shapes["layers.0.self_attn.k_proj.weight"][0] // head_dim, head_dim=head_dim,
+        layer_types=tuple("sliding_attention" if i % 6 != 5 else "full_attention" for i in range(n)),
+        compute_dtype=compute_dtype,
+    )
+
+
+@torch.no_grad()
+def load_gemma3_params(weights_dir: str, cfg: Optional[Gemma3Config] = None, target_dtype: str = "float32",
+                       quantize_fp8: bool = False, device=None) -> Gemma3:
+    """Gemma-3 from the HF shards `model-*.safetensors` of `weights_dir`
+    (sorted; `language_model.model.*` or `model.*` keys) on `device`
+    (default cuda), streamed shard by shard and tensor by tensor: each
+    tensor is read, moved to the device and converted there (`gemma_tensor_`).
+    `cfg` defaults to `gemma_config_from_checkpoint`."""
+    device = resolve_device(device)
+    shards, prefix = _shards(weights_dir)
+    if cfg is None:
+        cfg = gemma_config_from_checkpoint(weights_dir)
+    target = getattr(torch, target_dtype)
+    model = Gemma3(cfg, device="meta")
+    for shard in shards:
+        f = SafetensorsFile(str(shard))
+        try:
+            for key in f.keys():
+                if key.startswith(prefix):
+                    gemma_tensor_(model, key[len(prefix):], f.get(key).to(device, copy=True), target, quantize_fp8)
+        finally:
+            f.close()
+    require_loaded(model, weights_dir, "Gemma")
+    return model
+
+
+def gemma_to_checkpoint(model: Gemma3, prefix: str = "language_model.model.") -> dict:
+    """Gemma's tensors on the CPU under their HF names (one shard's worth;
+    split the dict to write several)."""
+    return {prefix + name: p.detach().cpu() for name, p in model.named_parameters()}

@@ -8,18 +8,24 @@ shuffle; the stride-1 blur is the identity) -> 4 res blocks -> conv3d ->
 zero padding in space and time and runs through `ops/conv3d.py` (the
 hand-written kernel on a CUDA tensor), the resampler's with a temporal
 extent of 1. The JAX package runs it in fp32 (its weights load as fp32 and
-the un-normalized latent is fp32), and so does the port.
+the un-normalized latent is fp32), and so does the port. Its checkpoint is a
+file of its own, named as the module, with the resampler's conv under
+`upsampler.conv.*` (v1.0) or `upsampler.0.*` (v1.1).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Dict
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ltx2_tpu_torch.core import resolve_device
+from ltx2_tpu_torch.loader.modules import assign_, require_loaded
+from ltx2_tpu_torch.loader.safetensors_io import SafetensorsFile
 from ltx2_tpu_torch.models.video_vae.conv import Conv3d, conv3d_ndhwc, from_ndhwc, to_ndhwc
 
 
@@ -144,3 +150,48 @@ def conv_launches(cfg: SpatialUpscalerConfig) -> int:
     """Conv launches of one spatial_upscaler_apply: initial and final convs,
     two per res block, the resampler."""
     return 2 + 2 * 2 * cfg.num_blocks_per_stage + 1
+
+
+def _count_blocks(f: SafetensorsFile, prefix: str) -> int:
+    i = 0
+    while f"{prefix}.{i}.conv1.weight" in f:
+        i += 1
+    return i
+
+
+def _v11_name(name: str) -> str:
+    return name.replace("upsampler.conv.", "upsampler.0.", 1)
+
+
+@torch.no_grad()
+def load_spatial_upscaler_params(path: str, device=None) -> SpatialUpscaler:
+    """The fp32 upscaler of the file at `path` on `device` (default cuda),
+    under either naming of the resampler; the widths and the res blocks of
+    each stage are read off the file (both stages must have as many)."""
+    device = resolve_device(device)
+    f = SafetensorsFile(path)
+    try:
+        v11 = "upsampler.0.weight" in f
+        mid, in_channels = f.info("initial_conv.weight")[1][:2]
+        counts = [_count_blocks(f, stage) for stage in ("res_blocks", "post_upsample_res_blocks")]
+        if counts[0] != counts[1]:
+            raise ValueError(f"{path}: {counts[0]} res blocks before the resampler, {counts[1]} after; the port's "
+                             "upscaler has as many in each stage")
+        up_out = f.info("upsampler.0.weight" if v11 else "upsampler.conv.weight")[1][0]
+        cfg = SpatialUpscalerConfig(in_channels=in_channels, mid_channels=mid, num_blocks_per_stage=counts[0],
+                                    scale=math.isqrt(up_out // mid))
+        upscaler = SpatialUpscaler(cfg, device="meta")
+        for name, _t in upscaler.named_parameters():
+            key = _v11_name(name) if v11 else name
+            if key in f:
+                assign_(upscaler, name, f.get(key).to(device, torch.float32, copy=True))
+    finally:
+        f.close()
+    require_loaded(upscaler, path, "spatial upscaler")
+    return upscaler
+
+
+def upscaler_to_checkpoint(upscaler: SpatialUpscaler, v11: bool = True) -> Dict[str, torch.Tensor]:
+    """The upscaler's tensors on the CPU under their file names, the
+    resampler's under the v1.1 names (`upsampler.0.*`) or the v1.0 ones."""
+    return {(_v11_name(name) if v11 else name): t.detach().cpu() for name, t in upscaler.named_parameters()}

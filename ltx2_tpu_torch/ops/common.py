@@ -1,10 +1,12 @@
 """NN primitives (counterpart of ltx2_tpu/ops/common.py).
 
 Linear weights are stored [out_features, in_features] as in the checkpoint,
-which is already F.linear's layout. A Linear may carry LoRA adapters
-(`lora_A` (r, in), `lora_B` (out, r) parameters and a `lora_scale` buffer,
-added by training/lora.py), which `linear` applies at run time. Not ported
-yet: fp8 `weight_scale` and int8 `weight_cscale`.
+which is already F.linear's layout. A Linear may hold its weight as
+fp8-E4M3 codes with a per-tensor `weight_scale` buffer (fp8 serving,
+loader/fp8.py), which `linear` dequantizes at use, and may carry LoRA
+adapters (`lora_A` (r, in), `lora_B` (out, r) parameters and a `lora_scale`
+buffer, added by training/lora.py), which `linear` applies at run time. Not
+ported yet: the int8 W8A8 `weight_cscale` (it raises).
 """
 
 from __future__ import annotations
@@ -33,12 +35,19 @@ class Linear(nn.Module):
 
 def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
     """y = x @ W^T + b in x's dtype; weights of another float dtype are cast
-    to x's, as the JAX package does. With LoRA adapters on `p`, adds
-    scale * (x A^T) B^T, A and B cast to x's dtype (ops/common.py:78-93 of
-    the JAX package)."""
+    to x's, as the JAX package does. An fp8 weight with its `weight_scale`
+    dequantizes in the JAX package's order: the codes cast to x's dtype,
+    then times the scale rounded to x's dtype, in x's dtype. With LoRA
+    adapters on `p`, adds scale * (x A^T) B^T, A and B cast to x's dtype
+    (ops/common.py:45-93 of the JAX package)."""
+    if getattr(p, "weight_cscale", None) is not None:
+        raise NotImplementedError("int8 W8A8 weights (weight_cscale) are not ported yet: ROADMAP.md §1 item 6")
     w, b = p.weight, p.bias
     if w.dtype != x.dtype:
         w = w.to(x.dtype)
+    scale = getattr(p, "weight_scale", None)
+    if scale is not None:
+        w = w * scale.to(x.dtype)
     if b is not None and b.dtype != x.dtype:
         b = b.to(x.dtype)
     y = F.linear(x, w, b)

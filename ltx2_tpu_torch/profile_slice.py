@@ -10,7 +10,8 @@ request's 2 x 1024 prompt tokens; its device time also by the op that
 launched each kernel: matrix products, the plain attention's products and
 softmax, the rest), one step of the entry's denoise loop (the DiT
 forward, modality rebuild and fp32 Euler step at 512x768x121f = 6144 tokens,
-plus the loop's once-per-clip RoPE tables; random weights, bf16), the same
+plus the loop's once-per-clip RoPE tables; random weights kept in fp8 as the
+entry keeps them, then the same weights in bf16), the bf16
 step at the two-stage recipe's stage-1 size (256x384x121f, 1536 tokens), the
 bench-e2e decode of one 7-latent-frame chunk to uint8 frames, the
 two-stage recipe's decode of one default tile (8 x 16 x 16 latent voxels)
@@ -37,6 +38,7 @@ import torch
 
 from ltx2_tpu_torch import train
 from ltx2_tpu_torch.core import resolve_device
+from ltx2_tpu_torch.loader.fp8 import weight_bytes
 from ltx2_tpu_torch.generate import (
     decode_chunked, distilled_sigmas, make_decoder, make_dit, make_distilled_loop, make_gemma, make_latent_tools,
     make_request, make_text_encoder, make_upscaler, prompt_tokens,
@@ -142,25 +144,30 @@ def _train_step(layers: int, device: torch.device, card: str) -> None:
                       "tflops_per_s_wall": flops / rec["wall_ms"] / 1e9, "card": card, **rec}), flush=True)
 
 
-def _denoise_step(dit, height: int, width: int, phase: str, device: torch.device, card: str):
-    """One traced step of the distilled loop at height x width x 121f;
-    returns the latent tools."""
+def denoise_step(dit, height: int, width: int, phase: str, device: torch.device, card: str):
+    """One traced step of the distilled loop at height x width x 121f,
+    printed; returns (the latent tools, the step's record)."""
     tools = make_latent_tools(dit.cfg, height, width, 121)
     state, context = make_request(dit.cfg, tools, 0, device)
     loop, sigmas = make_distilled_loop(dit.cfg), distilled_sigmas(1)
     step = _traced(lambda: loop(dit, state, sigmas, context), device)
-    print(json.dumps({"phase": phase, "layers": dit.cfg.num_layers, "tokens": tools.target_shape.tokens,
-                      "card": card, **step}), flush=True)
-    return tools
+    rec = {"phase": phase, "layers": dit.cfg.num_layers, "tokens": tools.target_shape.tokens,
+           "weight_gb": weight_bytes(dit) / 1e9, "card": card, **step}
+    print(json.dumps(rec), flush=True)
+    return tools, rec
 
 
 def _serving(layers: int, device: torch.device, card: str) -> None:
     _text_encode(device, card)  # first: fp32 Gemma holds 47 GB, and the recipe releases it before the DiT
     torch.cuda.empty_cache()
+    dit = make_dit(layers, device, fp8=True)
+    denoise_step(dit, 512, 768, "denoise_step", device, card)
+    del dit
+    torch.cuda.empty_cache()
     dit = make_dit(layers, device)
-    tools = _denoise_step(dit, 512, 768, "denoise_step", device, card)
+    tools, _ = denoise_step(dit, 512, 768, "denoise_step_bf16", device, card)
     # The two-stage recipe's stage 1: the same loop at half resolution (1536 tokens).
-    _denoise_step(dit, 256, 384, "stage1_step", device, card)
+    denoise_step(dit, 256, 384, "stage1_step", device, card)
     compute_dtype, latent_dtype = dit.cfg.compute_dtype, dit.cfg.dtype
     del dit
     torch.cuda.empty_cache()

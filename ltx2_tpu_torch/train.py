@@ -18,14 +18,22 @@ context tokens (as scripts/train.py builds it).
 
 The model is the full-width LTX-2.0 video DiT (`--layers` blocks, 48 by
 default); `--placeholder` takes scripts/train.py's tiny config instead (4
-heads x 32, 128-d context). Not ported yet, so absent: loading and saving
-checkpoints (`--checkpoint`, `--save`, `--save-state`, `--resume`), the fp8
-frozen base, audio, and the TP/DP/ZeRO/FSDP mesh flags.
+heads x 32, 128-d context); `--checkpoint` loads the base DiT from a
+reference-format checkpoint through `ModelLedger` (bf16, remat on).
+`--save` writes, with `--lora-rank`, the adapters as a reference-format LoRA
+file (`generate.py --lora` fuses it back), otherwise the trained DiT as a
+reference-format checkpoint carrying the source checkpoint's other tensors
+and metadata. Not ported yet, so absent: `--save-state` / `--resume`, the
+fp8 frozen base, audio, and the TP/DP/ZeRO/FSDP mesh flags.
+
+    python -m ltx2_tpu_torch.train --checkpoint ltx-2.safetensors --data lat.npz --lora-rank 16 \
+        --save adapter.safetensors
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import time
@@ -36,6 +44,8 @@ import torch
 
 from ltx2_tpu_torch.core import resolve_device
 from ltx2_tpu_torch.generate import make_dit
+from ltx2_tpu_torch.loader.export import export_transformer_checkpoint
+from ltx2_tpu_torch.loader.safetensors_io import read_metadata
 from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelConfig
 from ltx2_tpu_torch.ops.rope import create_position_grid
 from ltx2_tpu_torch.training import (
@@ -49,7 +59,8 @@ from ltx2_tpu_torch.training import (
     make_train_step,
     trainable_mask,
 )
-from ltx2_tpu_torch.training.lora import add_lora_params_, lora_trainable_mask
+from ltx2_tpu_torch.training.lora import add_lora_params_, export_lora_checkpoint, lora_trainable_mask
+from ltx2_tpu_torch.utils.model_ledger import ModelLedger
 
 # scripts/train.py's --placeholder DiT.
 PLACEHOLDER_CONFIG = LTXModelConfig(num_attention_heads=4, attention_head_dim=32, num_layers=4,
@@ -63,6 +74,10 @@ BENCH_SHAPE, BENCH_CONTEXT_TOKENS = (16, 16, 24), 1024
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--placeholder", action="store_true", help="tiny random DiT (CPU tests)")
+    p.add_argument("--checkpoint", type=str, default=None,
+                   help="reference-format checkpoint of the base DiT (loaded in bf16 through ModelLedger)")
+    p.add_argument("--save", type=str, default=None,
+                   help="write the LoRA adapter (with --lora-rank) or the fine-tuned checkpoint here")
     p.add_argument("--layers", type=int, default=None, help="DiT blocks (default: 48, placeholder 4)")
     p.add_argument("--device", default=None, help="default: cuda")
     p.add_argument("--data", type=str, default=None, help=".npz with x0/positions/context arrays")
@@ -91,11 +106,28 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def make_model(layers: Optional[int], device: torch.device, seed: int, placeholder: bool = False) -> LTXModel:
-    """The DiT to train: full width (or the placeholder), random weights
-    from `seed`, remat on."""
+def make_model(layers: Optional[int], device: torch.device, seed: int, placeholder: bool = False,
+               checkpoint: Optional[str] = None) -> LTXModel:
+    """The DiT to train, remat on: from `checkpoint` (bf16), else full width
+    (or the placeholder) with random weights from `seed`."""
+    if checkpoint:
+        model = ModelLedger(checkpoint_path=checkpoint, device=device).transformer()
+        model.cfg = dataclasses.replace(model.cfg, remat=True)
+        return model
     base = PLACEHOLDER_CONFIG if placeholder else LTXModelConfig()
     return make_dit(base.num_layers if layers is None else layers, device, seed=seed, base=base)
+
+
+def save(args, model: LTXModel) -> None:
+    """--save: the adapters as a LoRA file with --lora-rank, else the whole
+    DiT as a reference-format checkpoint carrying the source checkpoint's
+    other tensors and metadata."""
+    if args.lora_rank:
+        export_lora_checkpoint(args.save, model)
+    else:
+        metadata = read_metadata(args.checkpoint) if args.checkpoint else None
+        export_transformer_checkpoint(args.save, model, metadata=metadata or None, carry_from=args.checkpoint)
+    _log({"saved": args.save, "kind": "lora" if args.lora_rank else "checkpoint"})
 
 
 def synthetic_dataset(frames: int, height: int, width: int, samples: int, cfg: LTXModelConfig, seed: int,
@@ -107,7 +139,8 @@ def synthetic_dataset(frames: int, height: int, width: int, samples: int, cfg: L
     pos = np.stack([grid, grid + 1], axis=-1)
     x0s = rng.randn(samples, frames * height * width, cfg.in_channels).astype(np.float32)
     poss = np.repeat(pos, samples, axis=0)
-    ctxs = rng.randn(samples, context_tokens, cfg.cross_attention_dim).astype(np.float32) * 0.1
+    ctx_width = cfg.caption_channels or cfg.cross_attention_dim  # the DiT's text input
+    ctxs = rng.randn(samples, context_tokens, ctx_width).astype(np.float32) * 0.1
     return x0s, poss, ctxs
 
 
@@ -184,7 +217,9 @@ def main(argv=None, on_step: Optional[Callable[[int, LTXModel, float], None]] = 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    model = make_model(args.layers, device, args.seed, args.placeholder)
+    if args.checkpoint and (args.placeholder or args.layers is not None):
+        raise SystemExit("--checkpoint sets the model: drop --placeholder and --layers")
+    model = make_model(args.layers, device, args.seed, args.placeholder, args.checkpoint)
     names, n_adapters = select_trainable(model, args, device)
     params = [p for p in model.parameters() if p.requires_grad]
     _log({"model_layers": model.cfg.num_layers, "width": model.cfg.video_inner_dim, "adapters": n_adapters,
@@ -246,6 +281,8 @@ def main(argv=None, on_step: Optional[Callable[[int, LTXModel, float], None]] = 
         with torch.no_grad():
             for p, e in zip(params, ema_params(ema, params)):
                 p.copy_(e)
+    if args.save:
+        save(args, model)
     return {"model": model, "trainable": names, "adapters": n_adapters, "losses": losses,
             "step_s": step_s, "val_losses": val_losses}
 

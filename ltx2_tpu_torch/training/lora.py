@@ -6,18 +6,21 @@ Low-rank adapters attach to selected `Linear`s of the DiT as `lora_A`
 present. B starts at zero (the adapted model starts exactly at the base
 model), A at N(0, 1/r). Linears are matched by their dotted module names,
 which are the checkpoint's names (`transformer_blocks.3.attn1.to_q`).
-Not ported yet: `export_lora_checkpoint` (it needs the port's safetensors
-writer and the inverse key rules of the loader).
+`export_lora_checkpoint` writes trained adapters as a reference-format LoRA
+file, which `generate.py --lora` fuses back (loader/lora.py).
 """
 
 from __future__ import annotations
 
 import math
 import re
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
 
+from ltx2_tpu_torch.loader.export import inverse_rewrite
+from ltx2_tpu_torch.loader.safetensors_io import write_safetensors
 from ltx2_tpu_torch.ops.common import Linear
 from ltx2_tpu_torch.training.trainer import trainable_mask
 
@@ -72,3 +75,23 @@ def strip_lora_params(model: nn.Module) -> nn.Module:
         if isinstance(mod, Linear) and hasattr(mod, "lora_A"):
             del mod.lora_A, mod.lora_B, mod.lora_scale
     return model
+
+
+@torch.no_grad()
+def export_lora_checkpoint(path: str, model: nn.Module, metadata: Optional[Dict[str, str]] = None) -> None:
+    """Write the trained adapters as a reference-format LoRA file: keys
+    `diffusion_model.<reference base key>.lora_A.weight` / `.lora_B.weight`,
+    fp32, the alpha / rank scale baked into B, so that the standard fuse
+    W += strength * (B @ A) gives the trained model at strength 1."""
+    tensors: Dict[str, torch.Tensor] = {}
+    for name, mod in model.named_modules():
+        if not (isinstance(mod, Linear) and hasattr(mod, "lora_A")):
+            continue
+        # The rewrite rules match with a trailing dot, as in full keys.
+        base = f"diffusion_model.{inverse_rewrite(name + '.')[:-1]}"
+        tensors[f"{base}.lora_A.weight"] = mod.lora_A.detach().to("cpu", torch.float32, copy=True)
+        tensors[f"{base}.lora_B.weight"] = (mod.lora_B.detach().to("cpu", torch.float32)
+                                            * mod.lora_scale.to("cpu", torch.float32))
+    if not tensors:
+        raise ValueError("no LoRA adapters found in the model")
+    write_safetensors(path, tensors, metadata=metadata)

@@ -1,0 +1,151 @@
+"""Lazy loading of every component from one checkpoint (counterpart of
+ltx2_tpu/utils/model_ledger.py).
+
+One object loads and caches the transformer, the video decoder, the text
+encoder, Gemma and the spatial upscaler from a unified checkpoint (and the
+Gemma shards and upscaler file beside it), with LoRAs fused into the
+transformer at load, per-component release and a `with_loras` view. Each
+component is the port's module, on `device`, with its config on it. The
+architectures are read off the files (their shapes and metadata), where the
+JAX package assumes the published widths. Unported components raise
+NotImplementedError naming their ROADMAP.md items.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+from ltx2_tpu_torch.core import resolve_device
+from ltx2_tpu_torch.loader.lora import LoRAConfig, fuse_lora_into_params
+from ltx2_tpu_torch.loader.weight_loader import (
+    AUDIO_NOT_PORTED, INT8_NOT_PORTED, V2_NOT_PORTED, is_v2_model, load_transformer_params, read_checkpoint_config,
+)
+
+
+@dataclass
+class ModelLedger:
+    """Factory and cache of the LTX-2 components of one checkpoint."""
+
+    checkpoint_path: str
+    gemma_path: Optional[str] = None
+    spatial_upscaler_path: Optional[str] = None
+    loras: List[LoRAConfig] = field(default_factory=list)
+    target_dtype: str = "bfloat16"
+    include_audio: bool = False
+    keep_fp8: bool = False  # serving: the file's fp8 weights stay E4M3 on the card
+    int8: bool = False
+    gemma_fp8: bool = False  # Gemma's matmul weights quantized to fp8 at load
+    decoder_dtype: str = "float32"  # the video decoder's compute dtype (the JAX package's is fp32)
+    device: object = None  # default cuda
+    _cache: Dict[str, object] = field(default_factory=dict, repr=False)
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        if self.include_audio:
+            raise NotImplementedError(AUDIO_NOT_PORTED)
+        if self.int8:
+            raise NotImplementedError(INT8_NOT_PORTED)
+
+    def _get(self, name: str, loader, force_reload: bool = False):
+        if force_reload or name not in self._cache:
+            self._cache[name] = loader()
+        return self._cache[name]
+
+    @property
+    def is_v2(self) -> bool:
+        return is_v2_model(self.checkpoint_path)
+
+    @property
+    def checkpoint_config(self) -> dict:
+        return read_checkpoint_config(self.checkpoint_path)
+
+    def transformer(self, force_reload: bool = False):
+        """The video DiT (V1: caption projection, SPLIT RoPE on the f32 grid,
+        no remat) in `target_dtype`, LoRAs fused at load. LoRAs need
+        dequantized weights, so with LoRAs the fp8 weights are dequantized
+        even under `keep_fp8`."""
+
+        def load():
+            model = load_transformer_params(self.checkpoint_path, target_dtype=self.target_dtype,
+                                            device=self.device, keep_fp8=self.keep_fp8 and not self.loras)
+            if self.loras:
+                fuse_lora_into_params(model, self.loras)
+            return model
+
+        return self._get("transformer", load, force_reload)
+
+    def video_decoder(self, force_reload: bool = False):
+        def load():
+            from ltx2_tpu_torch.models.video_vae.weights import (
+                decoder_config_from_checkpoint, load_video_decoder_params,
+            )
+
+            cfg = decoder_config_from_checkpoint(self.checkpoint_path, self.decoder_dtype)
+            return load_video_decoder_params(self.checkpoint_path, cfg, device=self.device)
+
+        return self._get("video_decoder", load, force_reload)
+
+    def text_encoder(self, force_reload: bool = False):
+        def load():
+            from ltx2_tpu_torch.models.text_encoder.encoder import load_text_encoder_params
+
+            if self.is_v2:
+                raise NotImplementedError(V2_NOT_PORTED)
+            return load_text_encoder_params(self.checkpoint_path, device=self.device)
+
+        return self._get("text_encoder", load, force_reload)
+
+    def gemma(self, force_reload: bool = False):
+        def load():
+            from ltx2_tpu_torch.models.text_encoder.gemma3 import load_gemma3_params
+
+            if self.gemma_path is None:
+                raise ValueError("gemma_path required for the Gemma text encoder")
+            return load_gemma3_params(self.gemma_path, quantize_fp8=self.gemma_fp8, device=self.device)
+
+        return self._get("gemma", load, force_reload)
+
+    def spatial_upscaler(self, force_reload: bool = False):
+        """The spatial upscaler, or None without `spatial_upscaler_path`."""
+
+        def load():
+            from ltx2_tpu_torch.models.upscaler.spatial import load_spatial_upscaler_params
+
+            if self.spatial_upscaler_path is None:
+                return None
+            return load_spatial_upscaler_params(self.spatial_upscaler_path, device=self.device)
+
+        return self._get("spatial_upscaler", load, force_reload)
+
+    def video_encoder(self, force_reload: bool = False):
+        raise NotImplementedError("the video VAE encoder is not ported yet: ROADMAP.md §1 item 3")
+
+    def audio_encoder(self, force_reload: bool = False):
+        raise NotImplementedError(AUDIO_NOT_PORTED)
+
+    def audio_decoder(self, force_reload: bool = False):
+        raise NotImplementedError(AUDIO_NOT_PORTED)
+
+    def vocoder(self, force_reload: bool = False):
+        raise NotImplementedError(AUDIO_NOT_PORTED)
+
+    def temporal_upscaler(self, force_reload: bool = False):
+        raise NotImplementedError("the temporal upscaler is not ported yet: ROADMAP.md §1 item 6")
+
+    def clear_model(self, model_name: str) -> None:
+        self._cache.pop(model_name, None)
+
+    def clear_all_models(self) -> None:
+        self._cache.clear()
+
+    def with_loras(self, loras: List[LoRAConfig]) -> "ModelLedger":
+        """A view with another LoRA set: a fresh transformer, every other
+        setting carried over, the LoRA-independent components shared."""
+        return ModelLedger(
+            checkpoint_path=self.checkpoint_path, gemma_path=self.gemma_path,
+            spatial_upscaler_path=self.spatial_upscaler_path, loras=list(loras), target_dtype=self.target_dtype,
+            include_audio=self.include_audio, keep_fp8=self.keep_fp8, int8=self.int8, gemma_fp8=self.gemma_fp8,
+            decoder_dtype=self.decoder_dtype,
+            device=self.device, _cache={k: v for k, v in self._cache.items() if k != "transformer"},
+        )

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (flash attention forward and backward, the
-implicit-GEMM conv) against their plain PyTorch versions, and the fp32 text
-encoder (Gemma-3 at full width, 2 layers, and the V1 encoder) against the
-same modules on the CPU, on the card.
+implicit-GEMM conv) against their plain PyTorch versions, the fp32 text
+encoder (Gemma-3 at full width, 2 layers, and the V1 encoder; also with
+Gemma in fp8) against the same modules on the CPU, and a full-width DiT
+block loaded kept in fp8 onto the card, on the card.
 
 Every test here is marked `gpu` and skips without a CUDA card. The file
 imports neither JAX nor the tests package, so it runs on a machine that has
@@ -196,3 +197,46 @@ def test_text_encoder_matches_cpu_on_gpu():
     rec = encoder_against_cpu("cuda")
     assert rec["encoding_shape"] == rec["reference_shape"] == [2, 1024, 3840]  # registers up to 1024 tokens
     assert rec["ok"], rec["errors"]
+
+
+@pytest.mark.gpu
+def test_text_encoder_matches_cpu_on_gpu_fp8():
+    """The same check with Gemma's matmul weights kept in fp8 on both
+    devices (the same codes: the quantization is exact arithmetic), at the
+    same limits."""
+    _need_card()
+    from ltx2_tpu_torch.models.text_encoder.card_check import encoder_against_cpu
+
+    rec = encoder_against_cpu("cuda", fp8=True)
+    assert rec["fp8"] and rec["ok"], rec["errors"]
+
+
+@pytest.mark.gpu
+def test_fp8_block_loaded_onto_the_card(tmp_path):
+    """A full-width block written in the reference `-fp8` layout and loaded
+    kept in fp8 onto the card keeps float8_e4m3fn weights (no bf16 copy),
+    and its linears give on the card what the same file gives on the CPU."""
+    _need_card()
+    from ltx2_tpu_torch.generate import make_dit
+    from ltx2_tpu_torch.loader.export import iter_fp8_checkpoint_specs
+    from ltx2_tpu_torch.loader.safetensors_io import write_safetensors_streaming
+    from ltx2_tpu_torch.loader.weight_loader import load_transformer_params
+    from ltx2_tpu_torch.ops.common import linear
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    path = str(tmp_path / "block-fp8.safetensors")
+    dit = make_dit(1, torch.device("cuda"), seed=1, fp8=True)
+    write_safetensors_streaming(path, iter_fp8_checkpoint_specs(dit),
+                                metadata={"config": '{"num_attention_heads": 32}'})
+    del dit
+    card = load_transformer_params(path, keep_fp8=True, device="cuda")
+    cpu = load_transformer_params(path, keep_fp8=True, device="cpu")
+    block, block_cpu = card.transformer_blocks[0], cpu.transformer_blocks[0]
+    for name, lin in (("attn1.to_q", block.attn1.to_q), ("ff.project_in.proj", block.ff.project_in.proj)):
+        assert lin.weight.dtype == torch.float8_e4m3fn and lin.weight.is_cuda, name
+        ref = block_cpu.get_submodule(name)
+        assert torch.equal(lin.weight.cpu().view(torch.uint8), ref.weight.view(torch.uint8))
+        x = torch.randn(2, 64, lin.weight.shape[1], generator=torch.Generator().manual_seed(2)).bfloat16()
+        out, want = linear(lin, x.cuda()).float().cpu(), linear(ref, x).float()
+        # bf16 products summed in another order: a bf16 rounding of the output.
+        assert (out - want).abs().max() <= 1e-2 * want.abs().max(), name

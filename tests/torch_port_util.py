@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ltx2_tpu.models.transformer import model as jmodel
+from ltx2_tpu_torch.loader.from_numpy import flatten_tree
 from ltx2_tpu_torch.models.transformer import model
 from ltx2_tpu_torch.ops import attention
 
@@ -88,3 +89,41 @@ def force_flash_route(monkeypatch) -> dict:
     monkeypatch.setattr(attention, "flash_attention", forward)
     monkeypatch.setattr(attention, "flash_attention_bwd", backward)
     return seen
+
+
+def bits(x):
+    """(dtype name, shape, raw bytes) of a torch tensor or numpy/JAX array."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().contiguous()
+        return str(x.dtype).rsplit(".", 1)[-1], tuple(x.shape), x.reshape(-1).view(torch.uint8).numpy()
+    a = np.asarray(x)  # (np.ascontiguousarray would make a 0-d array 1-d)
+    return a.dtype.name, a.shape, np.ascontiguousarray(a.reshape(-1)).view(np.uint8)
+
+
+def assert_bitwise(port, ref, msg=""):
+    (pd, ps, pb), (rd, rs, rb) = bits(port), bits(ref)
+    assert (pd, ps) == (rd, rs), f"{msg}: {pd}{ps} vs {rd}{rs}"
+    assert np.array_equal(pb, rb), f"{msg}: bits differ"
+
+
+def jax_leaves(tree, stacked="transformer_blocks"):
+    """A JAX tree -> {port name: numpy leaf}, stacked leaves split per block."""
+    out = {}
+    for key, a in flatten_tree(tree).items():
+        head, _, rest = key.partition(".")
+        if head == stacked:
+            out.update({f"{stacked}.{i}.{rest}": a[i] for i in range(a.shape[0])})
+        else:
+            out[key] = a
+    return out
+
+
+def port_leaves(module):
+    return dict((*module.named_parameters(), *module.named_buffers()))
+
+
+def assert_module_matches_tree(module, tree, stacked="transformer_blocks"):
+    ref, got = jax_leaves(tree, stacked), port_leaves(module)
+    assert set(got) == set(ref), sorted(set(got) ^ set(ref))[:6]
+    for name, leaf in got.items():
+        assert_bitwise(leaf, ref[name], name)
