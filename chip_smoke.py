@@ -26,7 +26,10 @@ card and nvcc; it exits non-zero without them, and without the package
    causal case with ragged H and W; in fp32 with zero padding the spatial
    upscaler's five conv shapes: 1024 -> 1024 at both resolutions, the
    per-frame 1024 -> 4096 resampler, the initial 128 -> 1024 and the final
-   1024 -> 128), within relative limits that two planted faults (a tap left
+   1024 -> 128; with causal zero/replicate padding the video encoder's
+   conv_in 48 -> 128, a 512 res conv, conv_out 1024 -> 129 through the
+   module's padding to 136 outputs, and a split-K 1024 res conv), within
+   relative limits that two planted faults (a tap left
    out, the output x 1.03) must fail; the fp32 kernel also within fp32
    accuracy of the plain version in float64, a limit single-pass TF32 must
    fail, and bitwise equal over two runs; with kernel (also its own device
@@ -81,7 +84,20 @@ card and nvcc; it exits non-zero without them, and without the package
    size (2-layer DiT, 128x128x17, tiled decode, dummy context) through the
    kernels against the same pipeline with every flash and conv call on its
    plain version;
-9. backward check: at the flash cases, the forward's residuals l, m
+9. image-to-video: an 8-bit PNG (1000 x 600, every row filter) written
+   from a seed; (a) the full-width fp32 video encoder (published plan) on a
+   256x384 and a 512x768 frame: seconds, the 3xTF32 bound, peak memory, 46
+   fp32 conv launches an encode, and the 256x384 frame against the CPU
+   within 1e-5 rms and 1e-4 max relative; (b) the two-stage recipe with
+   the image at frame 0 (strength 0.95), 512x768x121, 48 layers: each
+   phase's seconds and peaks, 1056 flash, 2 x 46 + 19 fp32 and 270 bf16
+   conv launches; (c) the one-stage CFG* pipeline at the JAX defaults
+   (480x704x97, 30 steps, cfg 3.0, rescale 0.7) with the image: 2880 flash
+   launches, 46 fp32 and the tiled decode's bf16 conv launches; (d) at 2
+   blocks and 128x128x9, strength 1.0 keeps frame 0 of the final latent
+   the encoder's bit for bit, and a planted strength 0.9 run must fail the
+   check; (e) `generate.main --pipeline text-to-video --image` on the card;
+10. backward check: at the flash cases, the forward's residuals l, m
    against `flash_attention_residuals_plain`, and dq, dk, dv from the fused
    backward kernel against `flash_attention_bwd_plain` and against autograd of
    `flash_attention_plain` in fp32, within relative limits that planted
@@ -89,7 +105,7 @@ card and nvcc; it exits non-zero without them, and without the package
    the kernel's own device time, the whole backward's (Di, accumulator,
    kernel, dQ conversion), the five-product bound, the plain version's and
    SDPA's backward (and the names of the kernels SDPA ran);
-10. training path: (a) `ltx2_tpu_torch.train.main` for 3 LoRA steps of the
+11. training path: (a) `ltx2_tpu_torch.train.main` for 3 LoRA steps of the
    full-width 48-block DiT at 6144 tokens, checking finite losses, non-zero
    lora_B after step 1, a bit-identical base and the launch counts; (b) the
    step's time, TF/s and peak memory at scripts/bench_train.py's shape (1024
@@ -97,8 +113,8 @@ card and nvcc; it exits non-zero without them, and without the package
    kernels against the same model on plain attention.
 
 The second-to-last line of output is the kernels' JSON record (with the
-bench-e2e, fp8 step, text encode, checkpoint, two-stage and training
-records beside the kernels), the last the device record.
+bench-e2e, fp8 step, text encode, checkpoint, image-to-video, two-stage and
+training records beside the kernels), the last the device record.
 """
 
 from __future__ import annotations
@@ -413,6 +429,15 @@ CONV_CASES = (
     ("upscaler_in", (1, 16, 8, 12, 128), 1024, 3, "float32", False, "zeros", "zeros"),
     ("upscaler_lowres", (1, 16, 8, 12, 1024), 1024, 3, "float32", False, "zeros", "zeros"),
     ("upscaler_out", (1, 16, 16, 24, 1024), 128, 3, "float32", False, "zeros", "zeros"),
+    # The video VAE encoder (fp32, causal, zero spatial and replicate
+    # temporal padding) on one 512x768 frame: conv_in (Cin 48, a K step and
+    # a half), a 512-wide res conv, conv_out's 129 outputs (through the
+    # module's padding to 136), and at 256x384 a 1024-wide res conv over 96
+    # voxels, which splits K.
+    ("enc_in", (1, 1, 128, 192, 48), 128, 3, "float32", True, "zeros", "replicate"),
+    ("enc_res512", (1, 1, 64, 96, 512), 512, 3, "float32", True, "zeros", "replicate"),
+    ("enc_out", (1, 1, 16, 24, 1024), 129, 3, "float32", True, "zeros", "replicate"),
+    ("enc_res1024_split", (1, 1, 8, 12, 1024), 1024, 3, "float32", True, "zeros", "replicate"),
 )
 # The spatial upscaler's convs in one two-stage clip (all fp32): the
 # initial conv, 8 res convs before and 8 after the resampler, the final.
@@ -424,6 +449,7 @@ def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal
     import torch
     import torch.nn.functional as F
 
+    from ltx2_tpu_torch.models.video_vae.conv import Conv3d, conv3d_ndhwc
     from ltx2_tpu_torch.ops.conv3d import (
         conv3d_ndhwc_kernel, conv3d_plain, kernel_layout, tf32_round, tf32x3_plan, tf32x3_split, wgmma_tile,
     )
@@ -437,10 +463,22 @@ def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal
     bias = (torch.rand(cout, device=dev, generator=gen) * 2 - 1) * bound_w
     wk = kernel_layout(weight, k_major=not fp32)  # bf16: the order the kernel reads, as cached
     args = (causal, spatial_mode, temporal_mode)
-    split = tf32x3_split(wk) if fp32 else None  # fp32: the TF32 parts the module caches
+    if cout % 8:
+        # A Cout the kernel does not take runs through the module, which pads
+        # its weight and bias with zero outputs and slices them off.
+        module = Conv3d(cin, cout, device=dev, dtype=dtype)
+        with torch.no_grad():
+            module.weight.copy_(weight)
+            module.bias.copy_(bias)
+        split = module.tf32x3_weight() if fp32 else None
 
-    def call():
-        return conv3d_ndhwc_kernel(x, wk, bias, *args, w_split=split)
+        def call():
+            return conv3d_ndhwc(module, x, *args)
+    else:
+        split = tf32x3_split(wk) if fp32 else None  # fp32: the TF32 parts the module caches
+
+        def call():
+            return conv3d_ndhwc_kernel(x, wk, bias, *args, w_split=split)
 
     out = call()
     ref = conv3d_plain(x, wk, bias, *args)
@@ -499,7 +537,7 @@ def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal
         "spatial_mode": spatial_mode, "temporal_mode": temporal_mode,
         **{k: m[k] for k in m if k != "finite"}, "tol_max_rel": tol[0], "tol_rms_rel": tol[1],
         "planted_rms_rel": {k: p["rms_rel_err"] for k, p in planted.items()},
-        "kernel": "conv3d_tf32x3_kernel" if fp32 else "conv3d_wgmma_kernel",
+        "kernel": "conv3d_tf32x3_kernel" if fp32 else "conv3d_wgmma_kernel", "kernel_cout": -(-cout // 8) * 8,
         "tile": [128, 128] if fp32 else list(wgmma_tile(cout)),
         "ms": ms, "kernel_ms": kernel_ms, "kernel_timed_by": kernel_timed_by, "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": bound_ms,
@@ -508,7 +546,7 @@ def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal
     }
     if fp32:
         rec.update({
-            "k_ranges": tf32x3_plan(b * t * h * w, cout, cin, kt, torch.cuda.get_device_properties(0)
+            "k_ranges": tf32x3_plan(b * t * h * w, -(-cout // 8) * 8, cin, kt, torch.cuda.get_device_properties(0)
                                     .multi_processor_count)[0],
             "ffma_bound_ms": max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3,
             "launches_a_clip": UPSCALER_LAUNCHES.get(name),
@@ -1361,6 +1399,325 @@ def phase_two_stage_small(smi: str) -> dict:
     return rec
 
 
+# Image-to-video. The conditioning image is a PNG written here from the
+# seed, 1000 x 600, so that every target size resizes and crops it.
+IMAGE_SIZE, IMAGE_SEED, IMAGE_STRENGTH = (600, 1000), 11, 0.95
+# The one-stage CFG pipeline at the JAX package's OneStageCFGConfig defaults.
+ONE_STAGE = {"height": 480, "width": 704, "frames": 97, "steps": 30, "cfg_scale": 3.0, "rescale_scale": 0.7}
+# The exactness gate: a 2-block DiT at 128x128x9, 3 steps.
+GATE = {"layers": 2, "height": 128, "width": 128, "frames": 9, "steps": 3}
+
+
+def _write_png(path: str, seed: int, size) -> str:
+    """An 8-bit RGB PNG of a smooth pattern with noise from `seed`, written
+    with zlib and struct; row y is filtered with filter y % 5 (None, Sub,
+    Up, Average, Paeth), so the reader meets all five."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w = size
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([np.sin(xx / (17.0 + 9 * c)) + np.cos(yy / (23.0 + 7 * c)) for c in range(3)], axis=-1)
+    px = np.clip(base * 60 + 128 + rng.normal(0, 12, (h, w, 3)), 0, 255).astype(np.uint8)
+    cur = px.reshape(h, w * 3).astype(np.int64)
+    up = np.vstack([np.zeros((1, w * 3), np.int64), cur[:-1]])
+    left = np.hstack([np.zeros((h, 3), np.int64), cur[:, :-3]])
+    upleft = np.hstack([np.zeros((h, 3), np.int64), up[:, :-3]])
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    preds = [np.zeros_like(cur), left, up, (left + up) >> 1,
+             np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))]
+    raw = b"".join(bytes([y % 5]) + ((cur[y] - preds[y % 5][y]) & 255).astype(np.uint8).tobytes() for y in range(h))
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+    with open(path, "wb") as fh:
+        fh.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                 + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+    return path
+
+
+def encoder_flops(cfg, height: int, width: int) -> float:
+    """FLOP of one encode of a single frame as the kernels compute it: every
+    conv's 27 taps (the causal padding repeats the one frame), over the
+    voxels it runs on (a temporal-stride-2 down block's conv sees the frame
+    replicated: 2 frames)."""
+    h, w, c = height // cfg.patch_size, width // cfg.patch_size, cfg.plan[0][1]
+    total = 2.0 * h * w * 3 * cfg.patch_size ** 2 * 27 * c
+    for kind, c_in, arg, stride in cfg.plan:
+        if kind == "res":
+            total += 2 * arg * 2.0 * h * w * c_in * 27 * c_in
+        else:
+            total += 2.0 * stride[0] * h * w * c_in * 27 * (arg // math.prod(stride))
+            h, w = h // stride[1], w // stride[2]
+    return total + 2.0 * h * w * cfg.final_channels * 27 * (cfg.latent_channels + 1)
+
+
+def phase_encoder(smi: str, image: str) -> dict:
+    """The full-width fp32 video encoder (the published plan, random
+    weights) on the card: init, one frame at 256x384 and one at 512x768
+    (each encoded twice, the second timed; the first makes the TF32 split),
+    peak memory, the conv launches an encode (the plan's count, every one
+    on the fp32 kernel), the 3xTF32 bound, and the 256x384 frame against
+    the same weights on the CPU within 1e-5 rms and 1e-4 max relative."""
+    import torch
+
+    from ltx2_tpu_torch.generate import make_encoder
+    from ltx2_tpu_torch.models.video_vae.card_check import encoder_against_cpu
+    from ltx2_tpu_torch.models.video_vae.encoder import conv_launches, video_encoder_apply
+    from ltx2_tpu_torch.pipelines.common import load_image_tensor
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    enc = make_encoder(dev)
+    torch.cuda.synchronize()
+    rec = {"init_s": time.perf_counter() - t0, "weights_gb": torch.cuda.memory_allocated() / 1e9,
+           "params": sum(p.numel() for p in enc.parameters()), "expected_launches": conv_launches(enc.cfg),
+           "frames": {}, "card": smi}
+    for h, w in ((256, 384), (512, 768)):
+        pixels = load_image_tensor(image, h, w, device=dev)
+        times, launches = [], []
+        for _ in range(2):
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                latent = video_encoder_apply(enc, pixels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            launches.append(_counts())
+        flops = encoder_flops(enc.cfg, h, w)
+        bound_s = 3 * flops / PEAK_TF32_FLOPS
+        rec["frames"][f"{h}x{w}"] = {
+            "first_s": times[0], "encode_s": times[1], "launches": launches[1], "tflop": flops / 1e12,
+            "bound_s": bound_s, "pct_of_bound": 100 * bound_s / times[1], "latent_shape": list(latent.shape),
+            "finite": bool(torch.isfinite(latent).all()), "latent_std": float(latent.std())}
+    rec["tf32x3_split_gb"] = torch.cuda.memory_allocated() / 1e9 - rec["weights_gb"]
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["card_vs_cpu"] = encoder_against_cpu(enc, load_image_tensor(image, 256, 384))
+    log(f"video encoder (full-width fp32, published plan): {json.dumps(rec)}")
+    del enc
+    torch.cuda.empty_cache()
+    for name, f in rec["frames"].items():
+        want = {"fwd": 0, "bwd": 0, "conv": rec["expected_launches"]}
+        if f["launches"] != want or not f["finite"]:
+            raise AssertionError(f"encode at {name}: launches {f['launches']}, expected {want}; finite {f['finite']}")
+    if not rec["card_vs_cpu"]["ok"]:
+        raise AssertionError(f"the encoder on the card disagrees with the CPU: {rec['card_vs_cpu']}")
+    return rec
+
+
+def phase_image_two_stage(smi: str, image: str):
+    """The two-stage distilled recipe with one image at frame 0 (strength
+    0.95) at full width and depth, 512x768x121, one request: each phase's
+    seconds and peak memory, the frames, and the launches: 1056 flash, the
+    encoder's convs at both stages and the upscaler's 19 on the fp32 kernel,
+    the tiled decode's on the bf16 kernel."""
+    import numpy as np
+    import torch
+
+    from ltx2_tpu_torch.generate import generate_videos_distilled
+    from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscalerConfig
+    from ltx2_tpu_torch.models.upscaler.spatial import conv_launches as upscaler_convs
+    from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoderConfig
+    from ltx2_tpu_torch.models.video_vae.decoder import conv_launches as decoder_convs
+    from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoderConfig
+    from ltx2_tpu_torch.models.video_vae.encoder import conv_launches as encoder_convs
+    from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, generate_tile_specs
+    from ltx2_tpu_torch.pipelines.common import ImageCondition
+
+    tiles = len(generate_tile_specs((1, 128, (FRAMES - 1) // 8 + 1, HEIGHT // 32, WIDTH // 32),
+                                    TilingConfig.default()))
+    want = {"stage1_image_encode": encoder_convs(VideoEncoderConfig()), "stage1": 0,
+            "upscale": upscaler_convs(SpatialUpscalerConfig()),
+            "stage2_image_encode": encoder_convs(VideoEncoderConfig()), "stage2": 0,
+            "decode": decoder_convs(VideoDecoderConfig()) * tiles}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    frames, stats = generate_videos_distilled(
+        [SEEDS[0]], height=HEIGHT, width=WIDTH, frames=FRAMES, layers=LAYERS, device="cuda", phase_peaks=True,
+        images=[ImageCondition(image, 0, IMAGE_STRENGTH)])
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    st = stats[0]
+    phases = ("stage1_image_encode", "stage1", "upscale", "stage2_image_encode", "stage2", "decode")
+    rec = {"seconds": {p: st[f"{p}_s"] for p in phases}, "peak_gb": {p: st[f"{p}_peak_gb"] for p in phases},
+           "conv_launches": {p: st[f"{p}_conv_launches"] for p in phases}, "attention_launches":
+           st["attention_launches"], "launches": counts, "decode_tiles": st["decode_tiles"],
+           "init_s": {k: st[k] for k in ("dit_init_s", "encoder_init_s", "upscaler_init_s", "decoder_init_s")},
+           "frames": list(frames[0].shape), "latent_std": st["latent_std"], "wall_s": wall, "card": smi}
+    log(f"image-to-video two-stage ({WIDTH}x{HEIGHT}x{FRAMES}f, {LAYERS} layers, image at frame 0, strength "
+        f"{IMAGE_STRENGTH}): {json.dumps(rec)}")
+    if frames[0].shape != (FRAMES, HEIGHT, WIDTH, 3) or frames[0].dtype != np.uint8:
+        raise AssertionError(f"image-to-video two-stage frames {frames[0].shape} {frames[0].dtype}")
+    if not all(st[f"{p}_latent_finite"] for p in phases[:-1]):
+        raise AssertionError(f"non-finite image-to-video latents {st}")
+    if rec["conv_launches"] != want or st["attention_launches"] != TWO_STAGE_LAUNCHES_PER_CLIP:
+        raise AssertionError(f"image-to-video two-stage launches {rec['conv_launches']} (expected {want}), "
+                             f"attention {st['attention_launches']}")
+    if counts != {"fwd": TWO_STAGE_LAUNCHES_PER_CLIP, "bwd": 0, "conv": sum(want.values())}:
+        raise AssertionError(f"image-to-video two-stage launches {counts}")
+    fp32 = want["stage1_image_encode"] + want["stage2_image_encode"] + want["upscale"]
+    return {"fwd": counts["fwd"], "conv_fp32": fp32, "conv_bf16": want["decode"]}, rec
+
+
+def phase_one_stage(smi: str, image: str):
+    """The one-stage CFG pipeline at the JAX package's defaults (480x704x97,
+    30 steps, CFG* at 3.0 with rescale 0.7: two guidance rows) with one
+    image at frame 0, full width and depth, one request: image encode,
+    denoise (and a step) and decode seconds, peaks, frames, and the
+    launches: 2 x 48 x 30 flash (batch 2), the encoder's convs on the fp32
+    kernel, the tiled decode's on the bf16 kernel."""
+    import numpy as np
+    import torch
+
+    from ltx2_tpu_torch.generate import generate_videos_one_stage
+    from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoderConfig
+    from ltx2_tpu_torch.models.video_vae.decoder import conv_launches as decoder_convs
+    from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoderConfig
+    from ltx2_tpu_torch.models.video_vae.encoder import conv_launches as encoder_convs
+    from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, generate_tile_specs
+    from ltx2_tpu_torch.pipelines.common import ImageCondition
+
+    c = ONE_STAGE
+    latent_shape = (1, 128, (c["frames"] - 1) // 8 + 1, c["height"] // 32, c["width"] // 32)
+    tiles = len(generate_tile_specs(latent_shape, TilingConfig.default()))  # 4290 voxels > 4000: tiled
+    want = {"image_encode": encoder_convs(VideoEncoderConfig()), "denoise": 0,
+            "decode": decoder_convs(VideoDecoderConfig()) * tiles}
+    flash = 2 * LAYERS * c["steps"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    frames, stats = generate_videos_one_stage(
+        [SEEDS[0]], height=c["height"], width=c["width"], frames=c["frames"], steps=c["steps"],
+        cfg_scale=c["cfg_scale"], rescale_scale=c["rescale_scale"], layers=LAYERS, device="cuda", phase_peaks=True,
+        images=[ImageCondition(image, 0, IMAGE_STRENGTH)])
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    st = stats[0]
+    phases = ("image_encode", "denoise", "decode")
+    rec = {"config": c, "tokens": math.prod(latent_shape[2:]), "seconds": {p: st[f"{p}_s"] for p in phases},
+           "denoise_step_s": st["denoise_step_s"], "peak_gb": {p: st[f"{p}_peak_gb"] for p in phases},
+           "conv_launches": {p: st[f"{p}_conv_launches"] for p in phases}, "attention_launches":
+           st["attention_launches"], "launches": counts, "decode_tiles": st["decode_tiles"],
+           "init_s": {k: st[k] for k in ("dit_init_s", "encoder_init_s", "decoder_init_s")},
+           "frames": list(frames[0].shape), "latent_std": st["latent_std"], "wall_s": wall, "card": smi}
+    log(f"one-stage CFG* with an image ({c['width']}x{c['height']}x{c['frames']}f, {LAYERS} layers, {c['steps']} "
+        f"steps): {json.dumps(rec)}")
+    if frames[0].shape != (c["frames"], c["height"], c["width"], 3) or frames[0].dtype != np.uint8:
+        raise AssertionError(f"one-stage frames {frames[0].shape} {frames[0].dtype}")
+    if not (st["denoise_latent_finite"] and st["image_encode_latent_finite"]):
+        raise AssertionError(f"non-finite one-stage latents {st}")
+    if rec["conv_launches"] != want or st["attention_launches"] != flash:
+        raise AssertionError(f"one-stage launches {rec['conv_launches']} (expected {want}), attention "
+                             f"{st['attention_launches']} (expected {flash})")
+    if counts != {"fwd": flash, "bwd": 0, "conv": sum(want.values())}:
+        raise AssertionError(f"one-stage launches {counts}")
+    return {"fwd": counts["fwd"], "conv_fp32": want["image_encode"], "conv_bf16": want["decode"]}, rec
+
+
+def phase_image_gate(smi: str, image: str) -> dict:
+    """Exactness: the one-stage pipeline (a 2-block full-width bf16 DiT, the
+    full-width encoder, 128x128x9, 3 steps) with the image at strength 1.0
+    keeps the denoise mask at 0 on frame 0, so the final latent's frame 0 is
+    the encoder's latent (in the latent's bf16) bit for bit; a planted run
+    at strength 0.9 must fail the same check."""
+    import torch
+
+    from ltx2_tpu_torch.generate import dummy_context, make_dit, make_encoder
+    from ltx2_tpu_torch.models.video_vae.encoder import video_encoder_apply
+    from ltx2_tpu_torch.pipelines.common import ImageCondition, load_image_tensor
+    from ltx2_tpu_torch.pipelines.one_stage import OneStageCFGConfig, OneStagePipeline
+
+    dev, g = torch.device("cuda"), GATE
+    dit, enc = make_dit(g["layers"], dev), make_encoder(dev)
+    pipe = OneStagePipeline(dit, video_encoder=enc)
+    gen = torch.Generator(device=dev).manual_seed(IMAGE_SEED)
+    pos, neg = dummy_context(dit.cfg, gen, dev), dummy_context(dit.cfg, gen, dev)
+    config = OneStageCFGConfig(height=g["height"], width=g["width"], num_frames=g["frames"], seed=IMAGE_SEED,
+                               num_inference_steps=g["steps"], dtype=dit.cfg.compute_dtype)
+    with torch.no_grad():
+        encoded = video_encoder_apply(enc, load_image_tensor(image, g["height"], g["width"], dit.cfg.dtype, dev))
+    rec = {"config": g, "card": smi}
+    _reset_counts()
+    for strength in (1.0, 0.9):
+        latent, _ = pipe(pos, neg, config, images=[ImageCondition(image, 0, strength)], skip_decode=True)
+        frame0 = latent[:, :, :1]
+        rec[f"strength_{strength}"] = {
+            "bitwise_equal": bool(torch.equal(frame0, encoded.to(latent.dtype))),
+            "max_abs_diff": float((frame0.float() - encoded.to(latent.dtype).float()).abs().max())}
+    rec["launches"] = _counts()
+    log(f"image exactness gate (2-block DiT, strength 1.0 frame 0 vs the encoder's latent): {json.dumps(rec)}")
+    del pipe, dit, enc
+    torch.cuda.empty_cache()
+    if not rec["strength_1.0"]["bitwise_equal"]:
+        raise AssertionError(f"strength 1.0 did not keep frame 0 the encoder's latent: {rec}")
+    if rec["strength_0.9"]["bitwise_equal"]:
+        raise AssertionError(f"the exactness gate accepts the planted strength 0.9 run: {rec}")
+    if not (rec["launches"]["fwd"] and rec["launches"]["conv"]):
+        raise AssertionError(f"the gate's runs launched no kernel: {rec['launches']}")
+    return rec
+
+
+def phase_cli_image(smi: str, image: str) -> dict:
+    """`generate.main` with `--pipeline text-to-video --image` at 2 blocks,
+    2 steps and 128x128x9 on the card: frames and launches (flash: 2 blocks
+    x 2 attention calls x 2 steps; the encoder's convs and one decoder call)."""
+    import torch
+
+    from ltx2_tpu_torch import generate
+    from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoderConfig
+    from ltx2_tpu_torch.models.video_vae.decoder import conv_launches as decoder_convs
+    from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoderConfig
+    from ltx2_tpu_torch.models.video_vae.encoder import conv_launches as encoder_convs
+
+    torch.cuda.empty_cache()
+    _reset_counts()
+    videos, stats = generate.main(["--pipeline", "text-to-video", "--image", f"{image}:0:{IMAGE_STRENGTH}",
+                                   "--layers", "2", "--num-inference-steps", "2", "--height", "128", "--width",
+                                   "128", "--frames", "9", "--seed", str(IMAGE_SEED)])
+    counts = _counts()
+    want = {"fwd": 2 * 2 * 2, "bwd": 0,
+            "conv": encoder_convs(VideoEncoderConfig()) + decoder_convs(VideoDecoderConfig())}
+    rec = {"frames": list(videos[0].shape), "launches": counts, "expected": want, "card": smi,
+           "seconds": {p: stats[0][f"{p}_s"] for p in ("image_encode", "denoise", "decode")}}
+    log(f"generate.main --pipeline text-to-video --image (2 blocks, 2 steps, 128x128x9): {json.dumps(rec)}")
+    torch.cuda.empty_cache()
+    if rec["frames"] != [9, 128, 128, 3] or counts != want:
+        raise AssertionError(f"the CLI's image-to-video run {rec}")
+    return rec
+
+
+def phase_image_to_video(smi: str):
+    """(a) the encoder alone, (b) the two-stage recipe with an image, (c) the
+    one-stage CFG pipeline with an image, (d) the exactness gate, (e) the
+    CLI route; the PNG is written into a fresh temporary directory and
+    deleted at the end."""
+    import shutil
+    import tempfile
+
+    directory = tempfile.mkdtemp(prefix="chip_smoke_image_")
+    try:
+        image = _write_png(f"{directory}/image.png", IMAGE_SEED, IMAGE_SIZE)
+        rec = {"encoder": phase_encoder(smi, image)}
+        two_stage_counts, rec["two_stage"] = phase_image_two_stage(smi, image)
+        one_stage_counts, rec["one_stage"] = phase_one_stage(smi, image)
+        rec["exactness_gate"] = phase_image_gate(smi, image)
+        rec["cli"] = phase_cli_image(smi, image)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    return two_stage_counts, one_stage_counts, rec
+
+
 def _counters():
     from ltx2_tpu_torch.ops import attention as A
     from ltx2_tpu_torch.ops.conv3d import conv3d_ndhwc_kernel
@@ -1558,6 +1915,8 @@ def main():
         f"{json.dumps(side_by_side)} | {smi}")
     torch.cuda.empty_cache()
     two_stage_small = phase_two_stage_small(smi)
+    i2v_two_stage, i2v_one_stage, image_to_video = phase_image_to_video(smi)
+    torch.cuda.empty_cache()
     bwd = phase_bwd_kernels()
     model, train_counts = phase_train_steps(smi)
     timing = phase_train_timing(model, smi)
@@ -1579,9 +1938,12 @@ def main():
             "route": "cuda",
             "source": "ltx2_tpu_torch/csrc/flash_attention.cu",
             "replaces": "ltx2_tpu/ops/attention.py:188",
-            "launches": serve_counts["fwd"] + two_stage_counts["fwd"] + file_counts["fwd"] + train_counts["fwd"],
+            "launches": (serve_counts["fwd"] + two_stage_counts["fwd"] + file_counts["fwd"] + i2v_two_stage["fwd"]
+                         + i2v_one_stage["fwd"] + train_counts["fwd"]),
             "launches_by_path": {"serve": serve_counts["fwd"], "serve_two_stage": two_stage_counts["fwd"],
-                                 "serve_two_stage_from_files": file_counts["fwd"], "train": train_counts["fwd"]},
+                                 "serve_two_stage_from_files": file_counts["fwd"],
+                                 "image_to_video_two_stage": i2v_two_stage["fwd"],
+                                 "one_stage": i2v_one_stage["fwd"], "train": train_counts["fwd"]},
             "max_abs_err": max(max(r["max_abs_err"] for r in recs),
                                max(r["max_abs_err_fwd_residuals"] for r in bwd)),
             "ms": self_rec["ms"],
@@ -1616,10 +1978,13 @@ def main():
             "kernel": "conv3d_wgmma_kernel",
             "replaces": conv_replaces,
             "launches": (serve_counts["conv"] + two_stage_counts["conv"] - upscale_launches
-                         + file_counts["conv"] - file_upscale_launches),
+                         + file_counts["conv"] - file_upscale_launches + i2v_two_stage["conv_bf16"]
+                         + i2v_one_stage["conv_bf16"]),
             "launches_by_path": {"serve": serve_counts["conv"],
                                  "serve_two_stage": two_stage_counts["conv"] - upscale_launches,
-                                 "serve_two_stage_from_files": file_counts["conv"] - file_upscale_launches},
+                                 "serve_two_stage_from_files": file_counts["conv"] - file_upscale_launches,
+                                 "image_to_video_two_stage": i2v_two_stage["conv_bf16"],
+                                 "one_stage": i2v_one_stage["conv_bf16"]},
             "max_abs_err": max(r["max_abs_err"] for r in bf16_recs),
             "ms": bf16_recs[0]["ms"],
             "plain_ms": bf16_recs[0]["plain_ms"],
@@ -1634,9 +1999,12 @@ def main():
             "source": "ltx2_tpu_torch/csrc/conv3d.cu",
             "kernel": "conv3d_tf32x3_kernel",
             "replaces": conv_replaces,
-            "launches": upscale_launches + file_upscale_launches,
+            "launches": (upscale_launches + file_upscale_launches + i2v_two_stage["conv_fp32"]
+                         + i2v_one_stage["conv_fp32"]),
             "launches_by_path": {"serve_two_stage": upscale_launches,
-                                 "serve_two_stage_from_files": file_upscale_launches},
+                                 "serve_two_stage_from_files": file_upscale_launches,
+                                 "image_to_video_two_stage": i2v_two_stage["conv_fp32"],
+                                 "one_stage": i2v_one_stage["conv_fp32"]},
             "max_abs_err": max(r["max_abs_err"] for r in fp32_recs),
             "ms": fp32_recs[0]["ms"],
             "plain_ms": fp32_recs[0]["plain_ms"],
@@ -1649,7 +2017,7 @@ def main():
         },
     ], "train": {"timing": timing, "gradcheck": gradcheck},
         "bench_e2e": serve, "fp8_step": fp8_step, "checkpoint": checkpoint,
-        "text_encode": text_encode,
+        "text_encode": text_encode, "image_to_video": image_to_video,
         "two_stage": {"requests": two_stage_stats, "peak_memory_gb_by_phase": two_stage_peaks,
                       "small_input_check": two_stage_small}}
     log(json.dumps(record))

@@ -31,6 +31,11 @@ def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None, eps: float 
     return out.to(x.dtype)
 
 
+def to_velocity(sample: torch.Tensor, sigma: Scalar, denoised_sample: torch.Tensor) -> torch.Tensor:
+    """velocity = (x - x0) / sigma, computed in fp32, the sample's dtype out."""
+    return ((sample.float() - denoised_sample.float()) / sigma).to(sample.dtype)
+
+
 def to_denoised(sample: torch.Tensor, velocity: torch.Tensor, sigma: Scalar) -> torch.Tensor:
     """x0 = x - sigma * v, computed in fp32."""
     return (sample.float() - velocity.float() * sigma).to(sample.dtype)

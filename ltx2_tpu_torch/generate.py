@@ -1,6 +1,6 @@
-"""Distilled text-to-video generation, video only, on one GPU.
+"""Text- and image-to-video generation, video only, on one GPU.
 
-Two flows, chosen with `--pipeline`:
+Four flows, chosen with `--pipeline`:
 
 - `bench-e2e` (the default; `generate_videos`): the steps of the JAX
   package's `scripts/bench_e2e.py`: Gaussian noise -> 8-sigma distilled
@@ -13,25 +13,37 @@ Two flows, chosen with `--pipeline`:
   (pipelines/distilled.py): stage 1 at half resolution with the 8 distilled
   sigmas -> 2x spatial upscaler -> stage 2 at full resolution on the 3-sigma
   tail -> tiled VAE decode.
+- `one-stage` and `text-to-video` (`generate_videos_one_stage`): the JAX
+  package's single-stage CFG pipelines (pipelines/one_stage.py,
+  text_to_video.py): LTX2Scheduler sigmas, `--num-inference-steps` Euler
+  steps with the prompt and the negative prompt as two guidance rows
+  (CFG* at `--cfg-scale` when `--rescale-scale` > 0; text-to-video is plain
+  CFG), VAE decode (tiled above 4000 latent voxels).
+
+`--image PATH[:FRAME[:STRENGTH]]` (repeatable; frame 0 and `--image-strength`
+by default) conditions the distilled and the CFG flows on 8-bit PNGs: each is
+resized to the stage's size, encoded by the fp32 video VAE encoder and
+written over its latent frame (image-to-video).
 
 Weights are random, drawn on the device from a seed, unless the two-stage
-recipe is given a reference-format checkpoint (`--checkpoint`, with
-`--spatial-upscaler` and, for `--text-encoder`, `--gemma-dir`): then every
-component comes from the files through `ModelLedger` (utils/model_ledger.py),
+recipe or a CFG flow is given a reference-format checkpoint (`--checkpoint`,
+with `--spatial-upscaler` for the two-stage recipe and, for
+`--text-encoder`, `--gemma-dir`): then every component comes from the files
+through `ModelLedger` (utils/model_ledger.py),
 with `--fp8-serving` (the file's fp8 DiT weights stay fp8 on the card),
 `--gemma-fp8` (Gemma's matmul weights quantized to fp8 at load) and
 `--lora PATH[:STRENGTH]` (repeatable; fused into the DiT at load). The text
 context is
-the dummy embedding of `generate.py --no-gemma` (normal * 0.02, 1024 x 4096),
-except in the two-stage recipe with `--text-encoder`: there each request's
-prompt and negative prompt, token ids drawn from the request's seed and
-left-padded to 1024 (there is no tokenizer here), go through the fp32
-Gemma-3-12B and the V1 text encoder (feature extractor, 1D connector) in
-one batch of 2, and the DiT's caption projection maps the encoding (1024 x
-3840) to its width. Every DiT attention call runs the flash kernel, every
-VAE and upscaler conv the implicit-GEMM conv kernel; Gemma's and the
-connector's fp32 attention runs as plain torch ops, as the JAX package runs
-it outside Pallas.
+the dummy embedding of `generate.py --no-gemma` (normal * 0.02, 1024 x 4096;
+the CFG flows draw a negative one after it), except with `--text-encoder`
+(the two-stage and the CFG flows): there each request's prompt and negative
+prompt, token ids drawn from the request's seed and left-padded to 1024
+(there is no tokenizer here), go through the fp32 Gemma-3-12B and the V1
+text encoder (feature extractor, 1D connector) in one batch of 2, and the
+DiT's caption projection maps the encoding (1024 x 3840) to its width.
+Every DiT attention call runs the flash kernel, every VAE and upscaler conv
+the implicit-GEMM conv kernel; Gemma's and the connector's fp32 attention
+runs as plain torch ops, as the JAX package runs it outside Pallas.
 
 From Python: `generate_video(seed=0)`, `generate_videos([0, 1, ...])` or
 `generate_videos_distilled([0, 1, ...], text_encoder=True)`. From the shell
@@ -40,6 +52,9 @@ From Python: `generate_video(seed=0)`, `generate_videos([0, 1, ...])` or
     python -m ltx2_tpu_torch.generate --requests 2
     python -m ltx2_tpu_torch.generate --pipeline distilled --requests 2
     python -m ltx2_tpu_torch.generate --pipeline distilled --text-encoder --requests 2
+    python -m ltx2_tpu_torch.generate --pipeline distilled --image cat.png:0:0.95
+    python -m ltx2_tpu_torch.generate --pipeline one-stage --height 480 --width 704 --frames 97 --image cat.png
+    python -m ltx2_tpu_torch.generate --pipeline text-to-video --num-inference-steps 30 --cfg-scale 5
     python -m ltx2_tpu_torch.generate --pipeline distilled --checkpoint ltx-2.safetensors \
         --spatial-upscaler upscaler.safetensors --gemma-dir gemma-3-12b --text-encoder --fp8-serving --gemma-fp8
 """
@@ -71,6 +86,7 @@ from ltx2_tpu_torch.models.text_encoder import (
 from ltx2_tpu_torch.models.transformer.blocks import VideoBlock
 from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelConfig, init_ltx_model_
 from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscaler, SpatialUpscalerConfig, init_spatial_upscaler_
+from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoder, VideoEncoderConfig, init_video_encoder_
 from ltx2_tpu_torch.models.video_vae.chunking import decode_latent
 from ltx2_tpu_torch.models.video_vae.decoder import (
     PerChannelStatistics, VideoDecoder, VideoDecoderConfig, init_video_decoder_,
@@ -79,9 +95,11 @@ from ltx2_tpu_torch.models.video_vae.tiling import generate_tile_specs
 from ltx2_tpu_torch.models.video_vae.weights import load_per_channel_statistics
 from ltx2_tpu_torch.ops.attention import flash_attention
 from ltx2_tpu_torch.ops.conv3d import conv3d_ndhwc_kernel
-from ltx2_tpu_torch.pipelines.common import decode_video
+from ltx2_tpu_torch.pipelines.common import ImageCondition, decode_video
 from ltx2_tpu_torch.pipelines.denoise import DenoiseLoopConfig, make_video_denoise_loop
 from ltx2_tpu_torch.pipelines.distilled import DistilledConfig, DistilledPipeline, stage_seeds
+from ltx2_tpu_torch.pipelines.one_stage import OneStageCFGConfig, OneStagePipeline
+from ltx2_tpu_torch.pipelines.text_to_video import TextToVideoConfig, TextToVideoPipeline
 from ltx2_tpu_torch.types import LatentState, VideoLatentShape, VideoPixelShape
 from ltx2_tpu_torch.utils.model_ledger import ModelLedger
 
@@ -153,6 +171,12 @@ def make_decoder(compute_dtype: str, device: torch.device) -> VideoDecoder:
     return init_video_decoder_(decoder, torch.Generator(device=device).manual_seed(1))
 
 
+def make_encoder(device: torch.device, seed: int = 5, cfg: VideoEncoderConfig = VideoEncoderConfig()) -> VideoEncoder:
+    """The video VAE encoder of config `cfg` (default: full width, the
+    published plan, fp32 as in the JAX package), random weights from `seed`."""
+    return init_video_encoder_(VideoEncoder(cfg, device=device), torch.Generator(device=device).manual_seed(seed))
+
+
 def make_upscaler(device: torch.device) -> SpatialUpscaler:
     """The full-width spatial upscaler (mid 1024), fp32 as in the JAX
     package, random weights from seed 2."""
@@ -189,11 +213,12 @@ def prompt_tokens(seed: int, vocab_size: int, length: int = CONTEXT_TOKENS) -> T
 
 
 def encode_prompts(seeds: Sequence[int], gemma: Gemma3, text_encoder: VideoTextEncoder, device: torch.device,
-                   stats: Sequence[dict]) -> List[torch.Tensor]:
+                   stats: Sequence[dict], negatives: bool = False) -> List[torch.Tensor]:
     """Each request's prompt and negative prompt through Gemma and the text
-    encoder as one batch of 2; returns the prompts' (1, S, 3840) contexts and
-    writes into each request's stats the encode's seconds, the token lengths
-    used and the context's finiteness and std."""
+    encoder as one batch of 2; returns the prompts' (1, S, 3840) contexts
+    (with `negatives` the (2, S, 3840) prompt and negative pair) and writes
+    into each request's stats the encode's seconds, the token lengths used
+    and the prompt context's finiteness and std."""
     contexts = []
     for seed, st in zip(seeds, stats):
         ids, mask, (st["prompt_tokens"], st["negative_tokens"]) = prompt_tokens(seed, gemma.cfg.vocab_size)
@@ -208,22 +233,90 @@ def encode_prompts(seeds: Sequence[int], gemma: Gemma3, text_encoder: VideoTextE
         context = encoding[0:1]
         st["context_finite"] = bool(torch.isfinite(encoding).all())
         st["context_std"] = float(context.std())
-        contexts.append(context)
+        contexts.append(encoding if negatives else context)
     return contexts
 
 
 def _encode_phase(seeds, stats, device, gemma: Optional[Gemma3], text_encoder: Optional[VideoTextEncoder],
-                  phase_peaks: bool):
-    """The encode phase of the two-stage recipe: builds what is not given,
-    encodes every request and returns the contexts; the modules it built
-    are released when it returns."""
+                  phase_peaks: bool, negatives: bool = False):
+    """The text-encode phase: builds what is not given, encodes every
+    request (`encode_prompts`) and returns the contexts; the modules it
+    built are released when it returns."""
     if gemma is None:
         gemma, stats[0]["gemma_init_s"] = _timed(device, lambda: make_gemma(device))
     if text_encoder is None:
         text_encoder, stats[0]["text_encoder_init_s"] = _timed(device, lambda: make_text_encoder(device))
-    contexts = encode_prompts(seeds, gemma, text_encoder, device, stats)
+    contexts = encode_prompts(seeds, gemma, text_encoder, device, stats, negatives)
     stats[0]["text_encode_peak_gb"] = _phase_peak(device, phase_peaks)
     return contexts
+
+
+def _text_contexts(seeds, stats, device, contexts, text_encoder, gemma, ledger, phase_peaks: bool,
+                   negatives: bool = False):
+    """The contexts of the two-stage and the CFG flows: those given, or with
+    `text_encoder` (True or a module) each request's prompts encoded, Gemma
+    and the text encoder built (or read through `ledger`) and released
+    before the DiT; None when neither (the dummy contexts are drawn later).
+    Returns (contexts, whether they were encoded)."""
+    encode = text_encoder is True or isinstance(text_encoder, VideoTextEncoder)
+    if gemma is not None and not encode:
+        raise ValueError("gemma is given but text encoding is off (text_encoder=False)")
+    if encode and contexts is not None:
+        raise ValueError("contexts and text_encoder are exclusive: the encoder makes the contexts")
+    if not encode:
+        return contexts, False
+    if ledger is not None:
+        gemma, stats[0]["gemma_init_s"] = _timed(device, ledger.gemma)
+        text_encoder, stats[0]["text_encoder_init_s"] = _timed(device, ledger.text_encoder)
+        ledger.clear_model("gemma")
+        ledger.clear_model("text_encoder")
+    contexts = _encode_phase(seeds, stats, device, gemma,
+                             text_encoder if isinstance(text_encoder, VideoTextEncoder) else None, phase_peaks,
+                             negatives)
+    gemma = text_encoder = None
+    _free(device)
+    _phase_peak(device, phase_peaks)  # the next phase's peak starts from what is left
+    return contexts, True
+
+
+def _dit_and_encoder(stats, device, layers: int, dit, encoder, images, ledger, caption_channels):
+    """The DiT (given, from `ledger`, or random at `layers` with a
+    `caption_channels` projection when set) and, when there are images, the
+    video encoder (given, from `ledger`, or random), each timed."""
+    if dit is None and ledger is not None:
+        dit, stats[0]["dit_init_s"] = _timed(device, ledger.transformer)
+    elif dit is None:
+        base = LTXModelConfig(caption_channels=caption_channels) if caption_channels else LTXModelConfig()
+        dit, stats[0]["dit_init_s"] = _timed(device, lambda: make_dit(layers, device, base=base))
+    stats[0]["dit_weight_gb"] = weight_bytes(dit) / 1e9
+    if caption_channels and dit.cfg.caption_channels != caption_channels:
+        raise ValueError(f"the DiT's caption_channels {dit.cfg.caption_channels} do not take the "
+                         f"{caption_channels}-channel text encoding")
+    if images and encoder is None and ledger is not None:
+        encoder, stats[0]["encoder_init_s"] = _timed(device, ledger.video_encoder)
+    elif images and encoder is None:
+        encoder, stats[0]["encoder_init_s"] = _timed(device, lambda: make_encoder(device))
+    return dit, encoder
+
+
+def _phase_timer(device, st: dict, phase_peaks: bool):
+    """A pipeline callback that writes each phase's seconds (`{phase}_s`,
+    from the previous phase's end), peak memory and conv launches into
+    `st`, and the finiteness of its latent; `marks` holds the request's
+    start (time, flash and conv launch counts)."""
+    _sync(device)
+    marks = {"t": time.perf_counter(), "attention": flash_attention.launches, "conv": conv3d_ndhwc_kernel.launches}
+
+    def on_phase(phase: str, latent: torch.Tensor) -> None:
+        _sync(device)
+        now = time.perf_counter()
+        st[f"{phase}_s"] = now - marks["t"]
+        st[f"{phase}_peak_gb"] = _phase_peak(device, phase_peaks)
+        st[f"{phase}_conv_launches"] = conv3d_ndhwc_kernel.launches - marks["conv"]
+        st[f"{phase}_latent_finite"] = bool(torch.isfinite(latent.float()).all())
+        marks["t"], marks["conv"] = now, conv3d_ndhwc_kernel.launches
+
+    return on_phase, marks
 
 
 def make_latent_tools(cfg: LTXModelConfig, height: int, width: int, frames: int) -> VideoLatentTools:
@@ -368,6 +461,8 @@ def generate_videos_distilled(
     gemma: Optional[Gemma3] = None,
     phase_peaks: bool = False,
     ledger: Optional[ModelLedger] = None,
+    images: Optional[Sequence[ImageCondition]] = None,
+    encoder: Optional[VideoEncoder] = None,
 ) -> Tuple[List[np.ndarray], List[dict]]:
     """The two-stage distilled recipe, one clip per seed; returns (uint8
     (frames, height, width, 3) arrays, per-request stats).
@@ -377,62 +472,47 @@ def generate_videos_distilled(
     Gemma-3-12B (or `gemma`) and the V1 text encoder; both are then released
     before the DiT, built with a 3840-channel caption projection, is made
     (fp32 Gemma alone holds 47 GB). Without it each request gets the dummy
-    context. The DiT and the upscaler serve both stages of every request;
-    then they are released and the decoder decodes each clip (tiled above
-    4000 latent voxels, as `DistilledConfig.effective_tiling` decides), so
-    the decoder never shares device memory with them. `dit`, `upscaler`,
-    `decoder`, `contexts` and `noises` (each request's (stage-1, stage-2)
-    noise) replace the random weights, the text context and the noise drawn
-    from the request's seed. Random weights come from seeds 3 (Gemma), 4
-    (text encoder), 0 (DiT), 2 (upscaler) and 1 (decoder); the upscale
-    bracket uses `decoder`'s statistics, or the defaults (0, 1) that a
-    random decoder holds. With `ledger` every component comes from its
-    files instead (`ModelLedger`: Gemma and the text encoder, the DiT, the
+    context. `images` condition every request (image-to-video): the fp32
+    video encoder (`encoder`, else random from seed 5, or the ledger's)
+    encodes each at both stages' sizes. The DiT, the encoder and the
+    upscaler serve both stages of every request; then they are released and
+    the decoder decodes each clip (tiled above 4000 latent voxels, as
+    `DistilledConfig.effective_tiling` decides), so the decoder never shares
+    device memory with them. `dit`, `upscaler`, `decoder`, `contexts` and
+    `noises` (each request's (stage-1, stage-2) noise) replace the random
+    weights, the text context and the noise drawn from the request's seed.
+    Random weights come from seeds 3 (Gemma), 4 (text encoder), 0 (DiT), 5
+    (encoder), 2 (upscaler) and 1 (decoder); the upscale bracket uses
+    `decoder`'s statistics, or the defaults (0, 1) that a random decoder
+    holds. With `ledger` every component comes from its files instead
+    (`ModelLedger`: Gemma and the text encoder, the DiT, the encoder, the
     upscaler, the decoder and the upscale bracket's statistics), each
     released from the ledger when its phase is over; then none of `dit`,
-    `upscaler`, `decoder`, `gemma` or a text encoder module may be given,
-    and the tokens still come from each request's seed. Stats per request:
-    seconds of the text encode, stage 1, upscale, stage 2 and decode (the
-    first also the DiT's weight bytes), attention launches, conv launches
-    of the upscale and the decode, decode tiles, the latents' finiteness
-    after each stage, the context's finiteness and std, and, with
-    `phase_peaks` on the card, each phase's peak memory (GB; None
-    otherwise). `phase_peaks` resets the process's peak memory statistics at
-    every phase boundary, so only a caller that owns them asks for it.
+    `encoder`, `upscaler`, `decoder`, `gemma` or a text encoder module may
+    be given, and the tokens still come from each request's seed. Stats per
+    request: seconds of the text encode, each stage's image encode, stage 1,
+    upscale, stage 2 and decode (the first also the DiT's weight bytes),
+    attention launches, conv launches of each image encode, the upscale and
+    the decode, decode tiles, the latents' finiteness after each stage, the
+    context's finiteness and std, and, with `phase_peaks` on the card, each
+    phase's peak memory (GB; None otherwise). `phase_peaks` resets the
+    process's peak memory statistics at every phase boundary, so only a
+    caller that owns them asks for it.
     """
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    encode = text_encoder is True or isinstance(text_encoder, VideoTextEncoder)
-    if gemma is not None and not encode:
-        raise ValueError("gemma is given but text encoding is off (text_encoder=False)")
-    if encode and contexts is not None:
-        raise ValueError("contexts and text_encoder are exclusive: the encoder makes the contexts")
-    modules = (dit, upscaler, decoder, gemma, text_encoder if isinstance(text_encoder, VideoTextEncoder) else None)
+    images = list(images or [])
+    modules = (dit, upscaler, decoder, encoder, gemma,
+               text_encoder if isinstance(text_encoder, VideoTextEncoder) else None)
     if ledger is not None and any(m is not None for m in modules):
         raise ValueError("with a ledger every component comes from its files: pass no module")
     stats = [{"seed": seed, "dit_init_s": 0.0, "upscaler_init_s": 0.0, "decoder_init_s": 0.0} for seed in seeds]
     _phase_peak(device, phase_peaks)
-    if encode:
-        if ledger is not None:
-            gemma, stats[0]["gemma_init_s"] = _timed(device, ledger.gemma)
-            text_encoder, stats[0]["text_encoder_init_s"] = _timed(device, ledger.text_encoder)
-            ledger.clear_model("gemma")
-            ledger.clear_model("text_encoder")
-        contexts = _encode_phase(seeds, stats, device, gemma,
-                                 text_encoder if isinstance(text_encoder, VideoTextEncoder) else None, phase_peaks)
-        gemma = text_encoder = None
-        _free(device)
-        _phase_peak(device, phase_peaks)  # the next phase's peak starts from what is left
-    if dit is None and ledger is not None:
-        dit, stats[0]["dit_init_s"] = _timed(device, ledger.transformer)
-    elif dit is None:
-        base = LTXModelConfig(caption_channels=contexts[0].shape[-1]) if encode else LTXModelConfig()
-        dit, stats[0]["dit_init_s"] = _timed(device, lambda: make_dit(layers, device, base=base))
-    stats[0]["dit_weight_gb"] = weight_bytes(dit) / 1e9
-    if encode and dit.cfg.caption_channels != contexts[0].shape[-1]:
-        raise ValueError(f"the DiT's caption_channels {dit.cfg.caption_channels} do not take the "
-                         f"{contexts[0].shape[-1]}-channel text encoding")
+    contexts, encoded = _text_contexts(seeds, stats, device, contexts, text_encoder, gemma, ledger, phase_peaks)
+    gemma = text_encoder = None
+    dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, images, ledger,
+                                    contexts[0].shape[-1] if encoded else None)
     if upscaler is None and ledger is not None:
         upscaler, stats[0]["upscaler_init_s"] = _timed(device, ledger.spatial_upscaler)
         if upscaler is None:
@@ -446,7 +526,7 @@ def generate_videos_distilled(
         statistics = load_per_channel_statistics(ledger.checkpoint_path, cfg.in_channels, device)
     else:
         statistics = PerChannelStatistics(cfg.in_channels, device=device)
-    pipe = DistilledPipeline(dit, upscaler, statistics=statistics)
+    pipe = DistilledPipeline(dit, upscaler, statistics=statistics, video_encoder=encoder)
 
     configs, latents = [], []
     for i, (seed, st) in enumerate(zip(seeds, stats)):
@@ -454,52 +534,132 @@ def generate_videos_distilled(
                                  latent_channels=cfg.in_channels)
         context = contexts[i] if contexts is not None else dummy_context(
             cfg, torch.Generator(device=device).manual_seed(seed), device)
-        _sync(device)
-        marks = {"t": time.perf_counter(), "attention": flash_attention.launches,
-                 "conv": conv3d_ndhwc_kernel.launches}
-
-        def on_phase(phase: str, latent: torch.Tensor, st=st, marks=marks) -> None:
-            """Times the phase that just ended and checks its latent."""
-            _sync(device)
-            now = time.perf_counter()
-            st[f"{phase}_s"] = now - marks["t"]
-            st[f"{phase}_peak_gb"] = _phase_peak(device, phase_peaks)
-            marks["t"] = now
-            if phase == "upscale":
-                st["upscale_conv_launches"] = conv3d_ndhwc_kernel.launches - marks["conv"]
-            else:
-                st[f"{phase}_latent_finite"] = bool(torch.isfinite(latent.float()).all())
-
-        latent = pipe(context, config, callback=on_phase, skip_decode=True,
+        on_phase, marks = _phase_timer(device, st, phase_peaks)
+        latent = pipe(context, config, images=images, callback=on_phase, skip_decode=True,
                       noises=None if noises is None else noises[i])
         st["attention_launches"] = flash_attention.launches - marks["attention"]
         st["latent_std"] = float(latent.float().std())
         configs.append(config)
         latents.append(latent)
 
-    del dit, upscaler, pipe
+    del dit, upscaler, encoder, pipe
     if ledger is not None:
-        ledger.clear_model("transformer")
-        ledger.clear_model("spatial_upscaler")
+        for name in ("transformer", "spatial_upscaler", "video_encoder"):
+            ledger.clear_model(name)
+    return _decode_phase(latents, configs, stats, device, decoder, ledger, cfg.compute_dtype, phase_peaks,
+                         lambda seed: stage_seeds(seed)[2]), stats
+
+
+def _decode_phase(latents, configs, stats, device, decoder, ledger, compute_dtype: str, phase_peaks: bool,
+                  decode_seed) -> List[np.ndarray]:
+    """After the denoise phase's modules are released: the decoder (given,
+    from `ledger`, or random), then each clip decoded (tiled as its config
+    decides, decode noise from `decode_seed(config.seed)`), with its
+    seconds, peak memory, tiles and conv launches in its stats."""
     _free(device)
     _phase_peak(device, phase_peaks)
-
     if decoder is None and ledger is not None:
         decoder, stats[0]["decoder_init_s"] = _timed(device, ledger.video_decoder)
     elif decoder is None:
-        decoder, stats[0]["decoder_init_s"] = _timed(device, lambda: make_decoder(cfg.compute_dtype, device))
-
+        decoder, stats[0]["decoder_init_s"] = _timed(device, lambda: make_decoder(compute_dtype, device))
     videos = []
     for latent, config, st in zip(latents, configs, stats):
         tiling_used = config.effective_tiling()
         st["decode_tiles"] = len(generate_tile_specs(tuple(latent.shape), tiling_used)) if tiling_used else 0
         convs = conv3d_ndhwc_kernel.launches
         t0 = time.perf_counter()
-        videos.append(decode_video(latent, decoder, tiling_used, stage_seeds(config.seed)[2]))
+        videos.append(decode_video(latent, decoder, tiling_used, decode_seed(config.seed)))
         st["decode_s"] = time.perf_counter() - t0  # host frames: synchronised
         st["decode_peak_gb"] = _phase_peak(device, phase_peaks)
         st["decode_conv_launches"] = conv3d_ndhwc_kernel.launches - convs
-    return videos, stats
+    return videos
+
+
+def generate_videos_one_stage(
+    seeds: Sequence[int],
+    *,
+    height: int = 480,
+    width: int = 704,
+    frames: int = 97,
+    steps: int = 30,
+    cfg_scale: float = 3.0,
+    rescale_scale: float = 0.7,
+    token_shift: bool = False,
+    text_to_video: bool = False,
+    layers: int = 48,
+    device=None,
+    dit: Optional[LTXModel] = None,
+    encoder: Optional[VideoEncoder] = None,
+    decoder: Optional[VideoDecoder] = None,
+    contexts: Optional[Sequence[torch.Tensor]] = None,
+    noises: Optional[Sequence[torch.Tensor]] = None,
+    images: Optional[Sequence[ImageCondition]] = None,
+    text_encoder: Union[bool, VideoTextEncoder] = False,
+    gemma: Optional[Gemma3] = None,
+    phase_peaks: bool = False,
+    ledger: Optional[ModelLedger] = None,
+) -> Tuple[List[np.ndarray], List[dict]]:
+    """The single-stage CFG pipeline (`text_to_video`: its plain-CFG
+    specialisation, `TextToVideoConfig`, rescale 0), one clip per seed at
+    the JAX package's OneStageCFGConfig defaults (480x704x97, 30 steps, CFG*
+    at 3.0 with rescale 0.7); returns (uint8 (frames, height, width, 3)
+    arrays, per-request stats).
+
+    Each request's contexts: `contexts[i]`, a (2, S, D) prompt and negative
+    pair; or with `text_encoder` the request's prompt and negative prompt
+    encoded as in `generate_videos_distilled`; else two dummy contexts drawn
+    from its seed (prompt, then negative). `images`, `encoder`, `ledger`,
+    `gemma`, `phase_peaks` and the random weights' seeds are as in
+    `generate_videos_distilled`; `noises[i]` replaces request i's noise. The
+    DiT and the encoder are released before the decoder is built. Stats per
+    request: seconds of the text encode, the image encode, the denoise (and
+    a step) and the decode, attention launches, conv launches of the image
+    encode and the decode, decode tiles, the latent's finiteness and std,
+    and with `phase_peaks` each phase's peak memory.
+    """
+    device = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    images = list(images or [])
+    modules = (dit, decoder, encoder, gemma, text_encoder if isinstance(text_encoder, VideoTextEncoder) else None)
+    if ledger is not None and any(m is not None for m in modules):
+        raise ValueError("with a ledger every component comes from its files: pass no module")
+    stats = [{"seed": seed, "dit_init_s": 0.0, "decoder_init_s": 0.0} for seed in seeds]
+    _phase_peak(device, phase_peaks)
+    contexts, encoded = _text_contexts(seeds, stats, device, contexts, text_encoder, gemma, ledger, phase_peaks,
+                                       negatives=True)
+    gemma = text_encoder = None
+    dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, images, ledger,
+                                    contexts[0].shape[-1] if encoded else None)
+    cfg = dit.cfg
+    pipe = (TextToVideoPipeline if text_to_video else OneStagePipeline)(dit, video_encoder=encoder)
+
+    configs, latents = [], []
+    for i, (seed, st) in enumerate(zip(seeds, stats)):
+        common = dict(height=height, width=width, num_frames=frames, seed=seed, num_inference_steps=steps,
+                      cfg_scale=cfg_scale, dtype=cfg.compute_dtype, latent_channels=cfg.in_channels)
+        config = (TextToVideoConfig(**common).to_one_stage() if text_to_video else
+                  OneStageCFGConfig(rescale_scale=rescale_scale, token_dependent_shift=token_shift, **common))
+        if contexts is not None:
+            positive, negative = contexts[i][0:1], contexts[i][1:2]
+        else:
+            gen = torch.Generator(device=device).manual_seed(seed)
+            positive, negative = dummy_context(cfg, gen, device), dummy_context(cfg, gen, device)
+        on_phase, marks = _phase_timer(device, st, phase_peaks)
+        latent, _ = pipe(positive, negative, config, images=images, callback=on_phase, skip_decode=True,
+                         noise=None if noises is None else noises[i])
+        st["denoise_step_s"] = st["denoise_s"] / steps
+        st["attention_launches"] = flash_attention.launches - marks["attention"]
+        st["latent_std"] = float(latent.float().std())
+        configs.append(config)
+        latents.append(latent)
+
+    del dit, encoder, pipe
+    if ledger is not None:
+        ledger.clear_model("transformer")
+        ledger.clear_model("video_encoder")
+    return _decode_phase(latents, configs, stats, device, decoder, ledger, cfg.compute_dtype, phase_peaks,
+                         lambda seed: stage_seeds(seed, 2)[1]), stats
 
 
 def generate_video(seed: int = 0, **kwargs) -> np.ndarray:
@@ -516,28 +676,52 @@ def parse_lora_spec(spec: str) -> LoRAConfig:
     return LoRAConfig(path=spec)
 
 
+def parse_image_spec(spec: str, default_strength: float = 0.95) -> ImageCondition:
+    """'path[:frame[:strength]]' -> ImageCondition (frame 0 and
+    `default_strength` when absent), as scripts/generate.py parses --image."""
+    parts = spec.split(":")
+    return ImageCondition(image_path=parts[0], frame_index=int(parts[1]) if len(parts) > 1 else 0,
+                          strength=float(parts[2]) if len(parts) > 2 else default_strength)
+
+
 def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
     """The command line; prints one JSON line per request and returns
     (frames, stats) as the generate functions do."""
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--pipeline", choices=("bench-e2e", "distilled"), default="bench-e2e",
+    ap.add_argument("--pipeline", choices=("bench-e2e", "distilled", "one-stage", "text-to-video"),
+                    default="bench-e2e",
                     help="bench-e2e: one stage at full resolution, chunked decode; distilled: the two-stage "
-                         "recipe (half-resolution stage 1, 2x upscaler, 3-sigma stage 2, tiled decode)")
+                         "recipe (half-resolution stage 1, 2x upscaler, 3-sigma stage 2, tiled decode); one-stage: "
+                         "the CFG pipeline (CFG* with --rescale-scale > 0); text-to-video: its plain-CFG form")
     ap.add_argument("--height", type=int, default=512)
     ap.add_argument("--width", type=int, default=768)
     ap.add_argument("--frames", type=int, default=121)
     ap.add_argument("--steps", type=int, default=8, help="bench-e2e only: distilled steps")
+    ap.add_argument("--num-inference-steps", type=int, default=30, help="one-stage, text-to-video: Euler steps")
+    ap.add_argument("--cfg-scale", type=float, default=3.0, help="one-stage, text-to-video: guidance scale")
+    ap.add_argument("--rescale-scale", type=float, default=0.7,
+                    help="one-stage: > 0 selects CFG* (CFGStarRescalingGuider), 0 classic CFG")
+    ap.add_argument("--token-shift", action="store_true",
+                    help="one-stage: shift the sigma schedule by the clip's token count, not the fixed 4096")
+    ap.add_argument("--image", action="append", default=[], metavar="PATH[:FRAME[:STRENGTH]]",
+                    help="distilled, one-stage, text-to-video: an 8-bit PNG conditioning latent frame FRAME "
+                         "(default 0), repeatable")
+    ap.add_argument("--image-strength", type=float, default=0.95,
+                    help="the strength of --image specs without one")
     ap.add_argument("--layers", type=int, default=48)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--requests", type=int, default=1, help="clips to generate, seeds seed..seed+N-1")
     ap.add_argument("--text-encoder", action="store_true",
-                    help="distilled only: encode each request's prompt tokens (drawn from its seed) with the fp32 "
-                         "Gemma-3-12B and V1 text encoder (random weights) in place of the dummy context")
+                    help="distilled, one-stage, text-to-video: encode each request's prompt and negative prompt "
+                         "tokens (drawn from its seed) with the fp32 Gemma-3-12B and V1 text encoder (random "
+                         "weights) in place of the dummy contexts")
     ap.add_argument("--checkpoint", default=None,
-                    help="distilled only: a unified LTX-2 safetensors checkpoint (DiT, VAE decoder, text projection "
-                         "and connector), loaded through ModelLedger in place of the random weights")
-    ap.add_argument("--spatial-upscaler", default=None, help="with --checkpoint: the spatial upscaler's safetensors")
+                    help="distilled, one-stage, text-to-video: a unified LTX-2 safetensors checkpoint (DiT, VAE "
+                         "encoder and decoder, text projection and connector), loaded through ModelLedger in place "
+                         "of the random weights")
+    ap.add_argument("--spatial-upscaler", default=None,
+                    help="distilled with --checkpoint: the spatial upscaler's safetensors")
     ap.add_argument("--gemma-dir", default=None,
                     help="with --checkpoint --text-encoder: the directory of Gemma-3's model-*.safetensors shards")
     ap.add_argument("--fp8-serving", action="store_true",
@@ -547,10 +731,14 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
     ap.add_argument("--lora", action="append", default=[], metavar="PATH[:STRENGTH]",
                     help="with --checkpoint: a LoRA file fused into the DiT at load, repeatable")
     args = ap.parse_args(argv)
-    if args.text_encoder and args.pipeline != "distilled":
-        ap.error("--text-encoder needs --pipeline distilled")
-    if args.checkpoint and args.pipeline != "distilled":
-        ap.error("--checkpoint needs --pipeline distilled")
+    cfg_flow = args.pipeline in ("one-stage", "text-to-video")
+    if args.pipeline == "bench-e2e":
+        for flag, used in (("--text-encoder", args.text_encoder), ("--checkpoint", args.checkpoint),
+                           ("--image", args.image)):
+            if used:
+                ap.error(f"{flag} needs --pipeline distilled, one-stage or text-to-video")
+    if args.spatial_upscaler and args.pipeline != "distilled":
+        ap.error("--spatial-upscaler needs --pipeline distilled")
     file_flags = {"--spatial-upscaler": args.spatial_upscaler, "--gemma-dir": args.gemma_dir,
                   "--fp8-serving": args.fp8_serving, "--gemma-fp8": args.gemma_fp8, "--lora": args.lora}
     if not args.checkpoint and any(file_flags.values()):
@@ -559,7 +747,9 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
         ap.error("--gemma-fp8 needs --gemma-dir")
     seeds = [args.seed + i for i in range(args.requests)]
     common = dict(height=args.height, width=args.width, frames=args.frames, layers=args.layers, device=args.device)
-    if args.pipeline == "distilled":
+    if args.pipeline == "bench-e2e":
+        videos, stats = generate_videos(seeds, steps=args.steps, **common)
+    else:
         ledger = None
         if args.checkpoint:
             ledger = ModelLedger(
@@ -567,10 +757,14 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
                 loras=[parse_lora_spec(spec) for spec in args.lora], keep_fp8=args.fp8_serving,
                 gemma_fp8=args.gemma_fp8, decoder_dtype="bfloat16", device=args.device,
             )
-        videos, stats = generate_videos_distilled(seeds, text_encoder=args.text_encoder, phase_peaks=True,
-                                                  ledger=ledger, **common)
-    else:
-        videos, stats = generate_videos(seeds, steps=args.steps, **common)
+        images = [parse_image_spec(spec, args.image_strength) for spec in args.image]
+        flow = dict(text_encoder=args.text_encoder, phase_peaks=True, ledger=ledger, images=images, **common)
+        if cfg_flow:
+            videos, stats = generate_videos_one_stage(
+                seeds, steps=args.num_inference_steps, cfg_scale=args.cfg_scale, rescale_scale=args.rescale_scale,
+                token_shift=args.token_shift, text_to_video=args.pipeline == "text-to-video", **flow)
+        else:
+            videos, stats = generate_videos_distilled(seeds, **flow)
     for video, st in zip(videos, stats):
         print(json.dumps({**st, "frames": list(video.shape), "dtype": str(video.dtype)}))
     return videos, stats

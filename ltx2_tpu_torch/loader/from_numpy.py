@@ -22,6 +22,7 @@ from ltx2_tpu_torch.models.text_encoder.gemma3 import Gemma3, Gemma3Config
 from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelConfig
 from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscaler, SpatialUpscalerConfig
 from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoder, VideoDecoderConfig
+from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoder, VideoEncoderConfig
 from ltx2_tpu_torch.training.lora import attach_lora_
 
 
@@ -124,6 +125,15 @@ def video_decoder_from_numpy(tree: Mapping, cfg: VideoDecoderConfig, device=None
     decoder = VideoDecoder(cfg, device=device)
     _load(decoder, flatten_tree(tree))
     return decoder
+
+
+def video_encoder_from_numpy(tree: Mapping, cfg: VideoEncoderConfig, device=None) -> VideoEncoder:
+    """A video-encoder parameter tree (`conv_in`, `down_blocks.{i}` with
+    `res_blocks.{j}.conv1/conv2` or `conv`, `conv_out`,
+    `per_channel_statistics`) -> VideoEncoder on `device`."""
+    encoder = VideoEncoder(cfg, device=device)
+    _load(encoder, flatten_tree(tree))
+    return encoder
 
 
 def spatial_upscaler_from_numpy(tree: Mapping, cfg: SpatialUpscalerConfig, device=None) -> SpatialUpscaler:

@@ -1,14 +1,28 @@
 """Video VAE tensor ops (counterpart of ltx2_tpu/models/video_vae/ops.py):
-un-patchify, pixel norm, and the per-channel latent (un-)normalization.
+pixel patchify and un-patchify, pixel norm, and the per-channel latent
+(un-)normalization.
 
-The channel packing order (c, p, r_w, r_h) of the 5D un-patchify matches the
-checkpoint's einops pattern and is parity-critical."""
+The channel packing order (c, p, r_w, r_h) of the 5D patchify and
+un-patchify matches the checkpoint's einops pattern and is parity-critical."""
 
 from __future__ import annotations
 
 import torch
 
 from ltx2_tpu_torch.ops import common
+
+
+def patchify(x: torch.Tensor, patch_size_hw: int, patch_size_t: int = 1) -> torch.Tensor:
+    """Space-to-depth on (B, C, F, H, W) -> (B, C*p*r*r, F/p, H/r, W/r),
+    channels packed (c, p, r_w, r_h)."""
+    if patch_size_hw == 1 and patch_size_t == 1:
+        return x
+    if x.ndim != 5:
+        raise ValueError(f"patchify: expected (B, C, F, H, W), got {tuple(x.shape)}")
+    b, c, f, h, w = x.shape
+    p, r = patch_size_t, patch_size_hw
+    x = x.reshape(b, c, f // p, p, h // r, r, w // r, r).permute(0, 1, 3, 7, 5, 2, 4, 6)
+    return x.reshape(b, c * p * r * r, f // p, h // r, w // r)
 
 
 def unpatchify(x: torch.Tensor, patch_size_hw: int, patch_size_t: int = 1) -> torch.Tensor:

@@ -1,17 +1,17 @@
-"""Video VAE decoder checkpoint loading (counterpart of the decoder half of
+"""Video VAE checkpoint loading (counterpart of
 ltx2_tpu/models/video_vae/weights.py).
 
-The decoder's tensors are `vae.decoder.*` in the unified checkpoint: a conv's
-weight and bias under `<name>.conv.`, a timestep embedder's linears under
-`<name>.timestep_embedder.`; the per-channel statistics are
-`vae.per_channel_statistics.*` with hyphenated names. Absent statistics
-default to mean 0 and std 1, an absent timestep multiplier to 1000; every
-other tensor of the decoder is required. Not ported yet: the encoder half
-(`load_video_encoder_params`, ROADMAP.md §1 item 3).
+The decoder's tensors are `vae.decoder.*` in the unified checkpoint, the
+encoder's `vae.encoder.*`: a conv's weight and bias under `<name>.conv.`, a
+timestep embedder's linears under `<name>.timestep_embedder.`; the
+per-channel statistics, which both share, are `vae.per_channel_statistics.*`
+with hyphenated names. Absent statistics default to mean 0 and std 1, an
+absent timestep multiplier to 1000; every other tensor is required.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
@@ -25,6 +25,7 @@ from ltx2_tpu_torch.models.video_vae.conv import Conv3d
 from ltx2_tpu_torch.models.video_vae.decoder import (
     _STRIDE_MAP, PerChannelStatistics, VideoDecoder, VideoDecoderConfig,
 )
+from ltx2_tpu_torch.models.video_vae.encoder import ENCODER_PLAN, VideoEncoder, VideoEncoderConfig
 
 # The two statistics the decoder reads (checkpoint names are hyphenated).
 _STAT_KEYS = {"std_of_means": "vae.per_channel_statistics.std-of-means",
@@ -50,17 +51,27 @@ def normalize_decoder_blocks(blocks) -> tuple:
     return tuple(out)
 
 
-def decoder_checkpoint_keys(decoder: VideoDecoder) -> Dict[str, str]:
-    """{module tensor name: checkpoint key} of every tensor of `decoder`."""
+def _vae_checkpoint_keys(vae, prefix: str) -> Dict[str, str]:
+    """{module tensor name: checkpoint key} of every tensor of a VAE half."""
     keys = {}
-    for name, _t in (*decoder.named_parameters(), *decoder.named_buffers()):
+    for name, _t in (*vae.named_parameters(), *vae.named_buffers()):
         owner_name, _, leaf = name.rpartition(".")
         if owner_name == "per_channel_statistics":
             keys[name] = _STAT_KEYS[leaf]
             continue
-        key = f"{owner_name}.conv.{leaf}" if isinstance(decoder.get_submodule(owner_name), Conv3d) else name
-        keys[name] = "vae.decoder." + key.replace("time_embedder.", "time_embedder.timestep_embedder.")
+        key = f"{owner_name}.conv.{leaf}" if isinstance(vae.get_submodule(owner_name), Conv3d) else name
+        keys[name] = prefix + key.replace("time_embedder.", "time_embedder.timestep_embedder.")
     return keys
+
+
+def decoder_checkpoint_keys(decoder: VideoDecoder) -> Dict[str, str]:
+    """{module tensor name: checkpoint key} of every tensor of `decoder`."""
+    return _vae_checkpoint_keys(decoder, "vae.decoder.")
+
+
+def encoder_checkpoint_keys(encoder: VideoEncoder) -> Dict[str, str]:
+    """{module tensor name: checkpoint key} of every tensor of `encoder`."""
+    return _vae_checkpoint_keys(encoder, "vae.encoder.")
 
 
 def decoder_config_from_checkpoint(path: str, compute_dtype: str = "float32") -> VideoDecoderConfig:
@@ -77,6 +88,31 @@ def decoder_config_from_checkpoint(path: str, compute_dtype: str = "float32") ->
     return VideoDecoderConfig(compute_dtype=compute_dtype, **kw)
 
 
+def _load_vae(path: str, module, keys: Dict[str, str], device: torch.device, which: str):
+    """Fill `module` (built on meta) from the file, one tensor at a time
+    through fp32, each in its placeholder's dtype; raises with the missing
+    required keys."""
+    f = SafetensorsFile(path)
+    placeholders = dict((*module.named_parameters(), *module.named_buffers()))
+    missing = []
+    try:
+        for name, key in keys.items():
+            if key in f:
+                assign_(module, name, to_dtype(f.get(key).to(device, torch.float32, copy=True),
+                                               placeholders[name].dtype))
+            elif name in _DEFAULTS:
+                assign_(module, name, torch.full(placeholders[name].shape, _DEFAULTS[name], device=device))
+            else:
+                missing.append(key)
+    finally:
+        f.close()
+    if missing:
+        shown = ", ".join(missing[:8]) + (" ..." if len(missing) > 8 else "")
+        raise ValueError(f"checkpoint {path} is missing {len(missing)} required video {which} key(s) — stored "
+                         f"weights disagree with the derived architecture config: {shown}")
+    return module
+
+
 @torch.no_grad()
 def load_video_decoder_params(path: str, cfg: VideoDecoderConfig, device=None) -> VideoDecoder:
     """The decoder of the checkpoint at `path` on `device` (default cuda):
@@ -84,27 +120,51 @@ def load_video_decoder_params(path: str, cfg: VideoDecoderConfig, device=None) -
     tensor at a time through fp32, as the JAX package reads them. Raises
     with the missing checkpoint keys when the file lacks a required one
     (e.g. metadata blocks that disagree with the stored up_blocks)."""
-    device = resolve_device(device)
     decoder = VideoDecoder(cfg, device="meta")
+    return _load_vae(path, decoder, decoder_checkpoint_keys(decoder), resolve_device(device), "decoder")
+
+
+def encoder_config_from_checkpoint(path: str, compute_dtype: str = "float32") -> VideoEncoderConfig:
+    """The encoder's architecture: the published plan's block kinds and
+    strides (ENCODER_PLAN; the file does not say them), its channels and res
+    block counts from the file's tensors; the published config when the file
+    holds no encoder."""
     f = SafetensorsFile(path)
-    placeholders = dict((*decoder.named_parameters(), *decoder.named_buffers()))
-    missing = []
     try:
-        for name, key in decoder_checkpoint_keys(decoder).items():
-            if key in f:
-                assign_(decoder, name, to_dtype(f.get(key).to(device, torch.float32, copy=True),
-                                                placeholders[name].dtype))
-            elif name in _DEFAULTS:
-                assign_(decoder, name, torch.full(placeholders[name].shape, _DEFAULTS[name], device=device))
+        pre = "vae.encoder."
+        if pre + "conv_in.conv.weight" not in f:
+            return VideoEncoderConfig(compute_dtype=compute_dtype)
+        plan = []
+        for i, (kind, _c_in, _arg, stride) in enumerate(ENCODER_PLAN):
+            block = f"{pre}down_blocks.{i}."
+            if kind == "res":
+                n = 0
+                while f"{block}res_blocks.{n}.conv1.conv.weight" in f:
+                    n += 1
+                if not n:
+                    raise ValueError(f"checkpoint {path}: {block}res_blocks.0 missing (plan {ENCODER_PLAN})")
+                plan.append(("res", f.info(f"{block}res_blocks.0.conv1.conv.weight")[1][1], n, None))
             else:
-                missing.append(key)
+                if f"{block}conv.conv.weight" not in f:
+                    raise ValueError(f"checkpoint {path}: {block}conv missing (plan {ENCODER_PLAN})")
+                c_out, c_in = f.info(f"{block}conv.conv.weight")[1][:2]
+                plan.append(("down", c_in, c_out * math.prod(stride), stride))
+        latent = f.info(pre + "conv_out.conv.weight")[1][0] - 1 if pre + "conv_out.conv.weight" in f else 128
+        patch = math.isqrt(f.info(pre + "conv_in.conv.weight")[1][1] // 3)
     finally:
         f.close()
-    if missing:
-        shown = ", ".join(missing[:8]) + (" ..." if len(missing) > 8 else "")
-        raise ValueError(f"checkpoint {path} is missing {len(missing)} required video decoder key(s) — stored "
-                         f"weights disagree with the derived architecture config: {shown}")
-    return decoder
+    return VideoEncoderConfig(patch_size=patch, latent_channels=latent, compute_dtype=compute_dtype,
+                              plan=tuple(plan))
+
+
+@torch.no_grad()
+def load_video_encoder_params(path: str, cfg: VideoEncoderConfig, device=None) -> VideoEncoder:
+    """The encoder of the checkpoint at `path` on `device` (default cuda):
+    convs in cfg.dtype, statistics fp32, read one tensor at a time through
+    fp32. Raises with the missing checkpoint keys when the file lacks a
+    required one."""
+    encoder = VideoEncoder(cfg, device="meta")
+    return _load_vae(path, encoder, encoder_checkpoint_keys(encoder), resolve_device(device), "encoder")
 
 
 @torch.no_grad()
@@ -127,3 +187,11 @@ def decoder_to_checkpoint(decoder: VideoDecoder) -> Dict[str, torch.Tensor]:
     their dtypes (the writer's side of `load_video_decoder_params`)."""
     tensors = dict((*decoder.named_parameters(), *decoder.named_buffers()))
     return {key: tensors[name].detach().cpu() for name, key in decoder_checkpoint_keys(decoder).items()}
+
+
+def encoder_to_checkpoint(encoder: VideoEncoder) -> Dict[str, torch.Tensor]:
+    """The encoder's tensors under their checkpoint keys (the statistics
+    under the shared `vae.per_channel_statistics.*`), on the CPU in their
+    dtypes: the writer's side of `load_video_encoder_params`."""
+    tensors = dict((*encoder.named_parameters(), *encoder.named_buffers()))
+    return {key: tensors[name].detach().cpu() for name, key in encoder_checkpoint_keys(encoder).items()}

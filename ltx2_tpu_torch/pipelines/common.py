@@ -1,19 +1,98 @@
-"""Shared pipeline utilities (counterpart of ltx2_tpu/pipelines/common.py),
-and the video decode the pipelines share (`decode_video`, the counterpart of
+"""Shared pipeline utilities (counterpart of ltx2_tpu/pipelines/common.py):
+image loading and image -> latent-index conditionings, denoise-mask
+post-processing, Modality construction with per-token timesteps, and the
+video decode the pipelines share (`decode_video`, the counterpart of
 `OneStagePipeline._decode_video` in ltx2_tpu/pipelines/one_stage.py)."""
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ltx2_tpu_torch.conditioning.item import ConditioningItem
+from ltx2_tpu_torch.conditioning.latent import VideoConditionByLatentIndex
+from ltx2_tpu_torch.conditioning.tools import VideoLatentTools
 from ltx2_tpu_torch.models.transformer.model import Modality
 from ltx2_tpu_torch.models.video_vae.chunking import _to_uint8_frames, decode_latent
 from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoder, video_decoder_apply
+from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoder, video_encoder_apply
 from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, decode_tiled
 from ltx2_tpu_torch.types import LatentState
+from ltx2_tpu_torch.utils.image_io import read_png, resize_lanczos
+
+
+@dataclass
+class ImageCondition:
+    image_path: str
+    frame_index: int
+    strength: float = 0.95
+
+
+def read_image(image_path: str) -> np.ndarray:
+    """An image file -> uint8 (H, W, 3) RGB (`read_png`)."""
+    if not os.path.exists(image_path):
+        raise FileNotFoundError(f"Image not found: {image_path}")
+    return read_png(image_path)
+
+
+def load_image_tensor(image_path: str, height: int, width: int, dtype=torch.float32, device=None,
+                      rgb: Optional[np.ndarray] = None) -> torch.Tensor:
+    """An image file (or its decoded `rgb`, `read_image`'s) -> (1, 3, 1,
+    height, width) in [-1, 1] on `device` (default the CPU): resized with
+    PIL's LANCZOS (`resize_lanczos`) straight to the size when the aspect
+    ratios differ by less than 0.01, else to cover it and centre-cropped,
+    as the JAX package's PIL code does."""
+    img = torch.from_numpy(read_image(image_path) if rgb is None else rgb)
+    src_h, src_w = img.shape[:2]
+    target_aspect, src_aspect = width / height, src_w / src_h
+    if abs(src_aspect - target_aspect) < 0.01:
+        img = resize_lanczos(img, width, height)
+    else:
+        if src_aspect > target_aspect:
+            new_h, new_w = height, int(src_w * (height / src_h))
+        else:
+            new_w, new_h = width, int(src_h * (width / src_w))
+        img = resize_lanczos(img, new_w, new_h)
+        left, top = (new_w - width) // 2, (new_h - height) // 2
+        img = img[top:top + height, left:left + width]
+    arr = img.float() / 127.5 - 1.0
+    return arr.permute(2, 0, 1)[None, :, None].to(device=device, dtype=dtype)
+
+
+def encode_image(video_encoder: Optional[VideoEncoder], image: torch.Tensor) -> torch.Tensor:
+    """(1, 3, 1, H, W) pixels -> the encoder's normalized latent (the
+    pipelines' `_encode_image`)."""
+    if video_encoder is None:
+        raise ValueError("video encoder required for image conditioning")
+    with torch.no_grad():
+        return video_encoder_apply(video_encoder, image)
+
+
+def create_image_conditionings(images: List[ImageCondition], encode_fn: Callable[[torch.Tensor], torch.Tensor],
+                               height: int, width: int, dtype=torch.float32, device=None,
+                               decoded: Optional[Dict[str, np.ndarray]] = None) -> List[ConditioningItem]:
+    """Each image loaded at (height, width) on `device` (from `decoded`,
+    {path: `read_image(path)`}, when it holds the path) and encoded by
+    `encode_fn` ((1, 3, 1, H, W) pixels -> (1, C, 1, H/32, W/32) latent)
+    into a latent-index conditioning at its frame."""
+    conditionings = []
+    for img_cond in images:
+        rgb = None if decoded is None else decoded.get(img_cond.image_path)
+        encoded = encode_fn(load_image_tensor(img_cond.image_path, height, width, dtype, device, rgb))
+        conditionings.append(VideoConditionByLatentIndex(latent=encoded, strength=img_cond.strength,
+                                                         latent_idx=img_cond.frame_index))
+    return conditionings
+
+
+def apply_conditionings(latent_state: LatentState, conditionings: List[ConditioningItem],
+                        video_tools: VideoLatentTools) -> LatentState:
+    for conditioning in conditionings:
+        latent_state = conditioning.apply_to(latent_state, video_tools)
+    return latent_state
 
 
 def post_process_latent(

@@ -1,10 +1,12 @@
 """The video denoise loop (counterpart of ltx2_tpu/pipelines/denoise.py).
 
 One DiT forward per step with the guidance passes on the batch axis (row 0
-conditioned, row 1 unconditioned when CFG is on), RoPE tables computed once
-per generation, fp32 Euler steps, and a Python loop in place of the JAX
-package's lax.scan. Not ported yet (each raises NotImplementedError): STG,
-Heun, APG and other guiders, cfg_interval > 1, GE momentum, the late-block
+conditioned, row 1 unconditioned when CFG or CFG* is on), RoPE tables
+computed once per generation, timesteps per batch row (`uniform_timesteps`)
+or per token (mask * sigma: image conditioning), fp32 Euler steps
+(`EulerDiffusionStep`), and a Python loop in place of the JAX package's
+lax.scan. Not ported yet (each raises NotImplementedError): STG, Heun, APG
+and the other guiders, cfg_interval > 1, GE momentum, the late-block
 cross-attention scale, text-KV caching, and sequence/pipeline parallelism.
 """
 
@@ -15,7 +17,8 @@ from typing import Optional
 
 import torch
 
-from ltx2_tpu_torch.components.guiders import CFGGuider
+from ltx2_tpu_torch.components.diffusion_steps import EulerDiffusionStep
+from ltx2_tpu_torch.components.guiders import CFGGuider, CFGStarRescalingGuider
 from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelConfig, x0_model_apply
 from ltx2_tpu_torch.ops.rope import precompute_freqs_cis
 from ltx2_tpu_torch.pipelines.common import modality_from_state, post_process_latent
@@ -61,15 +64,10 @@ def _precompute_video_pe(model_cfg: LTXModelConfig, positions: torch.Tensor, row
     )
 
 
-def _euler_step(latent: torch.Tensor, denoised: torch.Tensor, sigma, sigma_next) -> torch.Tensor:
-    velocity = (latent.float() - denoised.float()) / sigma
-    return (latent.float() + velocity * (sigma_next - sigma)).to(latent.dtype)
-
-
 def _check_supported(loop_cfg: DenoiseLoopConfig, mesh, pipeline_axis) -> None:
     unsupported = {
         "sequence/pipeline parallelism (mesh, pipeline_axis)": mesh is not None or pipeline_axis is not None,
-        f"guider {type(loop_cfg.guider).__name__}": type(loop_cfg.guider) is not CFGGuider,
+        f"guider {type(loop_cfg.guider).__name__}": type(loop_cfg.guider) not in (CFGGuider, CFGStarRescalingGuider),
         f"sampler {loop_cfg.sampler!r}": loop_cfg.sampler != "euler",
         "STG (stg_scale != 0)": loop_cfg.stg_scale != 0.0,
         "GE momentum (ge_gamma > 0)": loop_cfg.ge_gamma > 0,
@@ -93,6 +91,7 @@ def make_video_denoise_loop(
     Returns fn(model, state, sigmas (S+1,), pos_ctx, neg_ctx) -> final
     LatentState. neg_ctx is read only when CFG is on."""
     _check_supported(loop_cfg, mesh, pipeline_axis)
+    stepper = EulerDiffusionStep()
 
     @torch.no_grad()
     def loop(model: LTXModel, state: LatentState, sigmas: torch.Tensor, pos_ctx, neg_ctx=None) -> LatentState:
@@ -116,7 +115,7 @@ def make_video_denoise_loop(
             if loop_cfg.need_cfg:
                 denoised = loop_cfg.guider.guide(denoised, outs[batch:2 * batch])
             denoised = post_process_latent(denoised, mask, clean)
-            latent = _euler_step(latent, denoised, sigma, sigma_next)
+            latent = stepper.step(latent, denoised, sigma, sigma_next)
         return state.replace(latent=latent)
 
     return loop

@@ -5,21 +5,25 @@ Stage 1 denoises at half resolution with the 8 distilled sigmas; the latent
 is un-normalized, upscaled 2x by the spatial upscaler and re-normalized;
 stage 2 re-noises it to 0.909375 and refines it at full resolution with the
 3-sigma tail; the VAE decodes it, tiled when the latent is large
-(`DistilledConfig.effective_tiling`). No CFG: CFGGuider(1.0), uniform
-timesteps (nothing conditions the denoise mask).
+(`DistilledConfig.effective_tiling`). No CFG: CFGGuider(1.0). Images
+condition each stage: every image is loaded at that stage's size, encoded by
+the video encoder and written over its latent frame after the initial
+state is made (in stage 2 over the upscaled latent, in the latent and the
+clean latent), then the noiser runs; timesteps are per token when a stage
+has conditionings, else per batch row (`uniform_timesteps`).
 
 Randomness: the JAX package splits PRNGKey(seed) into stage-1, stage-2 and
 decode keys. The port draws three seeds from a torch.Generator seeded with
 `config.seed` (`stage_seeds`) and seeds one generator per stage and one for
 the decode noise; a caller may hand in each stage's noise instead (the
 tests hand in the JAX package's). Not ported (each raises
-NotImplementedError): image conditioning, the audio branch, freeze_audio.
+NotImplementedError): the audio branch, freeze_audio.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -31,9 +35,12 @@ from ltx2_tpu_torch.conditioning.tools import VideoLatentTools
 from ltx2_tpu_torch.models.transformer.model import LTXModel
 from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscaler, spatial_upscaler_apply
 from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoder
+from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoder
 from ltx2_tpu_torch.models.video_vae.ops import normalize_latent, un_normalize_latent
 from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig
-from ltx2_tpu_torch.pipelines.common import decode_video
+from ltx2_tpu_torch.pipelines.common import (
+    ImageCondition, apply_conditionings, create_image_conditionings, decode_video, encode_image, read_image,
+)
 from ltx2_tpu_torch.pipelines.denoise import DenoiseLoopConfig, make_video_denoise_loop
 from ltx2_tpu_torch.types import VideoLatentShape, VideoPixelShape
 
@@ -71,34 +78,40 @@ class DistilledConfig:
         return None
 
 
-def stage_seeds(seed: int) -> Tuple[int, int, int]:
-    """(stage 1, stage 2, decode) seeds drawn from `seed`."""
+def stage_seeds(seed: int, count: int = 3) -> Tuple[int, ...]:
+    """`count` seeds drawn from `seed`: here (stage 1, stage 2, decode)."""
     gen = torch.Generator().manual_seed(seed)
-    return tuple(int(s) for s in torch.randint(0, 2 ** 62, (3,), generator=gen))
+    return tuple(int(s) for s in torch.randint(0, 2 ** 62, (count,), generator=gen))
 
 
 class DistilledPipeline:
     """Two-stage distilled generation over the port's modules.
 
     `statistics` holds the latent's per-channel mean_of_means and
-    std_of_means for the upscale bracket; default: the decoder's."""
+    std_of_means for the upscale bracket; default: the decoder's, else the
+    encoder's. `video_encoder` encodes conditioning images."""
 
     def __init__(self, transformer: LTXModel, spatial_upscaler: Optional[SpatialUpscaler] = None,
-                 video_decoder: Optional[VideoDecoder] = None, statistics=None):
+                 video_decoder: Optional[VideoDecoder] = None, statistics=None,
+                 video_encoder: Optional[VideoEncoder] = None):
         self.transformer = transformer
         self.spatial_upscaler = spatial_upscaler
         self.video_decoder = video_decoder
+        self.video_encoder = video_encoder
         self.statistics = statistics
         self.patchifier = VideoLatentPatchifier(patch_size=1)
-        self.loop = make_video_denoise_loop(
-            transformer.cfg, DenoiseLoopConfig(guider=CFGGuider(1.0), uniform_timesteps=True))
+        self.loops = {uniform: make_video_denoise_loop(
+            transformer.cfg, DenoiseLoopConfig(guider=CFGGuider(1.0), uniform_timesteps=uniform))
+            for uniform in (True, False)}
 
     def _stats(self):
         if self.statistics is not None:
             return self.statistics
         if self.video_decoder is not None:
             return self.video_decoder.per_channel_statistics
-        raise ValueError("per-channel statistics unavailable (no VAE decoder or statistics)")
+        if self.video_encoder is not None:
+            return self.video_encoder.per_channel_statistics
+        raise ValueError("per-channel statistics unavailable (no VAE decoder, encoder or statistics)")
 
     @torch.no_grad()
     def _upscale_latent(self, latent: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -109,26 +122,37 @@ class DistilledPipeline:
         return normalize_latent(upscaled, stats).to(dtype)
 
     def _run_stage(self, pixel_shape: VideoPixelShape, sigmas: Sequence[float], text_encoding: torch.Tensor,
-                   config: DistilledConfig, generator: Optional[torch.Generator], noise_scale: float,
-                   initial_video_latent: Optional[torch.Tensor] = None,
-                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   config: DistilledConfig, images: List[ImageCondition], decoded: dict,
+                   generator: Optional[torch.Generator], noise_scale: float,
+                   initial_video_latent: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                   phase: str = "", callback=None) -> torch.Tensor:
         """One stage: initial state (zeros, or the given latent as clean
-        latent) -> Gaussian noise at `noise_scale` -> the denoise loop over
-        `sigmas` -> the (B, C, F, H, W) latent."""
+        latent) -> the images (`decoded`: each path's pixels), resized to
+        this stage's size, encoded and written over their frames -> Gaussian
+        noise at `noise_scale` -> the denoise loop over `sigmas` -> the
+        (B, C, F, H, W) latent. With images and a callback,
+        `callback(phase + "_image_encode", first image's latent)` runs once
+        they are encoded."""
+        device, dtype = text_encoding.device, getattr(torch, config.dtype)
         shape = VideoLatentShape.from_pixel_shape(pixel_shape, latent_channels=config.latent_channels)
         tools = VideoLatentTools(patchifier=self.patchifier, target_shape=shape, fps=config.fps)
-        state = tools.create_initial_state(dtype=getattr(torch, config.dtype), initial_latent=initial_video_latent,
-                                           device=text_encoding.device)
+        conditionings = create_image_conditionings(
+            images, lambda image: encode_image(self.video_encoder, image), pixel_shape.height, pixel_shape.width,
+            dtype, device, decoded)
+        if conditionings and callback:
+            callback(f"{phase}_image_encode", conditionings[0].latent)
+        state = tools.create_initial_state(dtype=dtype, initial_latent=initial_video_latent, device=device)
+        state = apply_conditionings(state, conditionings, tools)
         state = GaussianNoiser()(generator, state, noise_scale=noise_scale, noise=noise)
         sig = torch.tensor(sigmas, dtype=torch.float32)
-        state = self.loop(self.transformer, state, sig, text_encoding, text_encoding)
+        state = self.loops[not conditionings](self.transformer, state, sig, text_encoding, text_encoding)
         return tools.unpatchify(tools.clear_conditioning(state)).latent
 
     def __call__(
         self,
         text_encoding: torch.Tensor,
         config: DistilledConfig,
-        images=None,
+        images: Optional[List[ImageCondition]] = None,
         callback: Optional[Callable[[str, torch.Tensor], None]] = None,
         audio_encoding=None,
         skip_decode: bool = False,
@@ -140,10 +164,11 @@ class DistilledPipeline:
         (frames, height, width, 3) frames on the host, or with skip_decode
         the final (1, C, F, H, W) latent. `noises`: each stage's patchified
         (1, tokens, C) noise, drawn from the stage seeds when not given.
-        `callback(phase, latent)` runs after "stage1", "upscale" and
-        "stage2" with that phase's latent."""
-        if images:
-            raise NotImplementedError("image conditioning is not ported to the distilled pipeline")
+        `images` condition both stages (the video encoder encodes each at
+        the stage's size). `callback(phase, latent)` runs after "stage1",
+        "upscale" and "stage2" with that phase's latent, and with images
+        after "stage1_image_encode" and "stage2_image_encode"."""
+        images = list(images or [])
         if audio_encoding is not None or freeze_audio or initial_audio_latent is not None:
             raise NotImplementedError("the audio branch of the distilled pipeline is not ported")
         device = text_encoding.device
@@ -154,8 +179,9 @@ class DistilledPipeline:
 
         stage_1 = VideoPixelShape(batch=1, frames=config.num_frames, height=config.height // 2,
                                   width=config.width // 2, fps=config.fps)
-        latent = self._run_stage(stage_1, DISTILLED_SIGMA_VALUES, text_encoding, config, gens[0], 1.0,
-                                 noise=noises[0])
+        decoded = {c.image_path: read_image(c.image_path) for c in images}  # decoded once, resized per stage
+        latent = self._run_stage(stage_1, DISTILLED_SIGMA_VALUES, text_encoding, config, images, decoded, gens[0],
+                                 1.0, noise=noises[0], phase="stage1", callback=callback)
         if callback:
             callback("stage1", latent)
 
@@ -165,9 +191,10 @@ class DistilledPipeline:
                 callback("upscale", upscaled)
             stage_2 = VideoPixelShape(batch=1, frames=config.num_frames, height=config.height,
                                       width=config.width, fps=config.fps)
-            latent = self._run_stage(stage_2, STAGE_2_DISTILLED_SIGMA_VALUES, text_encoding, config, gens[1],
-                                     float(STAGE_2_DISTILLED_SIGMA_VALUES[0]), initial_video_latent=upscaled,
-                                     noise=noises[1])
+            latent = self._run_stage(stage_2, STAGE_2_DISTILLED_SIGMA_VALUES, text_encoding, config, images,
+                                     decoded, gens[1], float(STAGE_2_DISTILLED_SIGMA_VALUES[0]),
+                                     initial_video_latent=upscaled, noise=noises[1], phase="stage2",
+                                     callback=callback)
             if callback:
                 callback("stage2", latent)
 

@@ -12,11 +12,14 @@ softmax, the rest), one step of the entry's denoise loop (the DiT
 forward, modality rebuild and fp32 Euler step at 512x768x121f = 6144 tokens,
 plus the loop's once-per-clip RoPE tables; random weights kept in fp8 as the
 entry keeps them, then the same weights in bf16), the bf16
-step at the two-stage recipe's stage-1 size (256x384x121f, 1536 tokens), the
-bench-e2e decode of one 7-latent-frame chunk to uint8 frames, the
-two-stage recipe's decode of one default tile (8 x 16 x 16 latent voxels)
-and its fp32 spatial-upscaler call on the stage-1 latent, each after a
-warm-up run. The model, inputs and decode come from generate.py's own
+step at the two-stage recipe's stage-1 size (256x384x121f, 1536 tokens), one
+step of the one-stage CFG* loop at the JAX defaults' 480x704x97 (4290
+tokens, two guidance rows) with the first latent frame conditioned by an
+image (per-token timesteps) and without (uniform), the bench-e2e decode of
+one 7-latent-frame chunk to uint8 frames, the two-stage recipe's decode of
+one default tile (8 x 16 x 16 latent voxels), its fp32 spatial-upscaler
+call on the stage-1 latent and one fp32 video-encoder call on a 512x768
+frame, each after a warm-up run. The model, inputs and decode come from generate.py's own
 helpers. With --train it traces instead one rank-16 LoRA train step of the
 full-width DiT at scripts/bench_train.py's shape (6144 tokens, 1024 text
 tokens: forward, remat recompute, backward and AdamW), after a warm-up step,
@@ -39,13 +42,18 @@ import torch
 from ltx2_tpu_torch import train
 from ltx2_tpu_torch.core import resolve_device
 from ltx2_tpu_torch.loader.fp8 import weight_bytes
+from ltx2_tpu_torch.components.guiders import CFGStarRescalingGuider
+from ltx2_tpu_torch.components.schedulers import LTX2Scheduler
+from ltx2_tpu_torch.conditioning.latent import VideoConditionByLatentIndex
 from ltx2_tpu_torch.generate import (
-    decode_chunked, distilled_sigmas, make_decoder, make_dit, make_distilled_loop, make_gemma, make_latent_tools,
-    make_request, make_text_encoder, make_upscaler, prompt_tokens,
+    decode_chunked, distilled_sigmas, dummy_context, make_decoder, make_dit, make_distilled_loop, make_encoder,
+    make_gemma, make_latent_tools, make_request, make_text_encoder, make_upscaler, prompt_tokens,
 )
 from ltx2_tpu_torch.models.text_encoder import gemma3_apply, video_text_encoder_apply
 from ltx2_tpu_torch.models.upscaler.spatial import spatial_upscaler_apply
 from ltx2_tpu_torch.models.video_vae.decoder import video_decoder_apply
+from ltx2_tpu_torch.models.video_vae.encoder import video_encoder_apply
+from ltx2_tpu_torch.pipelines.denoise import DenoiseLoopConfig, make_video_denoise_loop
 from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, generate_tile_specs
 
 
@@ -157,6 +165,29 @@ def denoise_step(dit, height: int, width: int, phase: str, device: torch.device,
     return tools, rec
 
 
+def one_stage_step(dit, image: bool, phase: str, device: torch.device, card: str) -> dict:
+    """One traced step of the one-stage CFG* loop (scale 3.0, two guidance
+    rows) at 480x704x97, the first of 30 LTX2Scheduler sigmas; with `image`
+    the first latent frame is conditioned at strength 0.95 (per-token
+    timesteps), else the timesteps are uniform. Printed and returned."""
+    tools = make_latent_tools(dit.cfg, 480, 704, 97)
+    state, positive = make_request(dit.cfg, tools, 0, device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    negative = dummy_context(dit.cfg, gen, device)
+    if image:
+        shape = tools.target_shape
+        frame = torch.randn(1, shape.channels, 1, shape.height, shape.width, generator=gen, device=device)
+        state = VideoConditionByLatentIndex(frame, 0.95, 0).apply_to(state, tools)
+    loop = make_video_denoise_loop(dit.cfg, DenoiseLoopConfig(guider=CFGStarRescalingGuider(3.0),
+                                                              uniform_timesteps=not image))
+    sigmas = torch.from_numpy(LTX2Scheduler().execute(30)[:2])
+    rec = {"phase": phase, "layers": dit.cfg.num_layers, "tokens": tools.target_shape.tokens, "rows": 2,
+           "per_token_timesteps": image, "card": card,
+           **_traced(lambda: loop(dit, state, sigmas, positive, negative), device)}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
 def _serving(layers: int, device: torch.device, card: str) -> None:
     _text_encode(device, card)  # first: fp32 Gemma holds 47 GB, and the recipe releases it before the DiT
     torch.cuda.empty_cache()
@@ -168,6 +199,9 @@ def _serving(layers: int, device: torch.device, card: str) -> None:
     tools, _ = denoise_step(dit, 512, 768, "denoise_step_bf16", device, card)
     # The two-stage recipe's stage 1: the same loop at half resolution (1536 tokens).
     denoise_step(dit, 256, 384, "stage1_step", device, card)
+    # The one-stage CFG* pipeline's step, with and without an image.
+    one_stage_step(dit, True, "one_stage_step_image", device, card)
+    one_stage_step(dit, False, "one_stage_step_uniform", device, card)
     compute_dtype, latent_dtype = dit.cfg.compute_dtype, dit.cfg.dtype
     del dit
     torch.cuda.empty_cache()
@@ -199,6 +233,14 @@ def _serving(layers: int, device: torch.device, card: str) -> None:
                          device=device)
     rec = _traced(lambda: spatial_upscaler_apply(upscaler, latent), device)
     print(json.dumps({"phase": "upscale", "latent_shape": list(latent.shape), "card": card, **rec}), flush=True)
+    del upscaler
+    torch.cuda.empty_cache()
+
+    # Image conditioning: one fp32 video-encoder call on a 512x768 frame.
+    encoder = make_encoder(device)
+    pixels = torch.rand(1, 3, 1, 512, 768, generator=gen, device=device) * 2 - 1
+    rec = _traced(lambda: video_encoder_apply(encoder, pixels), device)
+    print(json.dumps({"phase": "encode_image", "pixels": list(pixels.shape), "card": card, **rec}), flush=True)
 
 
 

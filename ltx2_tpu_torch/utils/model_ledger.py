@@ -1,8 +1,8 @@
 """Lazy loading of every component from one checkpoint (counterpart of
 ltx2_tpu/utils/model_ledger.py).
 
-One object loads and caches the transformer, the video decoder, the text
-encoder, Gemma and the spatial upscaler from a unified checkpoint (and the
+One object loads and caches the transformer, the video encoder and
+decoder, the text encoder, Gemma and the spatial upscaler from a unified checkpoint (and the
 Gemma shards and upscaler file beside it), with LoRAs fused into the
 transformer at load, per-component release and a `with_loras` view. Each
 component is the port's module, on `device`, with its config on it. The
@@ -119,7 +119,17 @@ class ModelLedger:
         return self._get("spatial_upscaler", load, force_reload)
 
     def video_encoder(self, force_reload: bool = False):
-        raise NotImplementedError("the video VAE encoder is not ported yet: ROADMAP.md §1 item 3")
+        """The video VAE encoder, fp32 as the JAX package keeps it."""
+
+        def load():
+            from ltx2_tpu_torch.models.video_vae.weights import (
+                encoder_config_from_checkpoint, load_video_encoder_params,
+            )
+
+            cfg = encoder_config_from_checkpoint(self.checkpoint_path)
+            return load_video_encoder_params(self.checkpoint_path, cfg, device=self.device)
+
+        return self._get("video_encoder", load, force_reload)
 
     def audio_encoder(self, force_reload: bool = False):
         raise NotImplementedError(AUDIO_NOT_PORTED)

@@ -249,8 +249,7 @@ def test_ledger(files, tmp_path):
         assert diff.max() <= 2.0 ** -7 * np.abs(np.asarray(ref, np.float32)).max(), name
         assert (diff > 0).float().mean() < 0.01, name
     ledger.clear_all_models()
-    for refused in (ledger.video_encoder, ledger.audio_encoder, ledger.audio_decoder, ledger.vocoder,
-                    ledger.temporal_upscaler):
+    for refused in (ledger.audio_encoder, ledger.audio_decoder, ledger.vocoder, ledger.temporal_upscaler):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             refused()
     for kw in ({"int8": True}, {"include_audio": True}):

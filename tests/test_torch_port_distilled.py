@@ -37,9 +37,9 @@ from ltx2_tpu_torch.loader.from_numpy import dit_from_numpy, spatial_upscaler_fr
 from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscalerConfig
 from ltx2_tpu_torch.models.video_vae import tiling
 from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoderConfig, video_decoder_apply
-from ltx2_tpu_torch.pipelines.common import decode_video
+from ltx2_tpu_torch.pipelines.common import ImageCondition, decode_video
 from ltx2_tpu_torch.pipelines.distilled import DistilledConfig, DistilledPipeline
-from tests.torch_port_util import CFG, JCFG, assert_close, numpy_tree, t
+from tests.torch_port_util import CFG, JCFG, assert_close, numpy_tree, t, write_png
 
 JDCFG = jdecoder.VideoDecoderConfig(base_channels=16, latent_channels=16, compute_dtype="float32",
                                     decode_noise_scale=0.0)
@@ -110,9 +110,9 @@ def test_decode_tiled_matches_jax(decoder_tree):
 
 
 @pytest.fixture(scope="module")
-def recipe(decoder_tree):
+def recipe(decoder_tree, tmp_path_factory):
     """The JAX pipeline's final latent and frames, and the trees and inputs
-    that produced them."""
+    that produced them (and a PNG for the image-conditioning refusal)."""
     dit_tree = numpy_tree(jmodel.init_ltx_model(jax.random.PRNGKey(0), JCFG), seed=1)
     up_tree = numpy_tree(jspatial.init_spatial_upscaler(jax.random.PRNGKey(3), JUPCFG), seed=4)
     context = (np.random.default_rng(5).standard_normal((1, 16, 256)) * 0.02).astype(np.float32)
@@ -129,8 +129,10 @@ def recipe(decoder_tree):
     # 32x32 (2 x 1 x 1 tokens), stage 2 at 64x64 (2 x 2 x 2 tokens).
     noises = tuple(t(np.asarray(jax.random.normal(jax.random.split(k)[0], (1, n, 16), jnp.float32)))
                    for k, n in ((k1, 2), (k2, 8)))
+    image = str(tmp_path_factory.mktemp("image") / "image.png")
+    write_png(image, np.random.default_rng(6).integers(0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8))
     return {"dit": dit_tree, "up": up_tree, "context": context, "latent": np.asarray(latent),
-            "frames": frames, "noises": noises}
+            "frames": frames, "noises": noises, "image": image}
 
 
 def _port_modules(recipe, decoder_tree):
@@ -151,8 +153,8 @@ def test_distilled_pipeline_latent_matches_jax(recipe, decoder_tree):
     assert DistilledConfig(height=512, width=768).effective_tiling() == tiling.TilingConfig.default()
     with pytest.raises(ValueError):
         DistilledConfig(height=96, width=64)
-    with pytest.raises(NotImplementedError):
-        pipe(t(recipe["context"]), config, images=[object()])
+    with pytest.raises(ValueError, match="video encoder required"):
+        pipe(t(recipe["context"]), config, images=[ImageCondition(recipe["image"], 0)])
     with pytest.raises(NotImplementedError):
         DistilledConfig(audio_enabled=True)
 

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (flash attention forward and backward, the
-implicit-GEMM conv) against their plain PyTorch versions, the fp32 text
-encoder (Gemma-3 at full width, 2 layers, and the V1 encoder; also with
-Gemma in fp8) against the same modules on the CPU, and a full-width DiT
+implicit-GEMM conv, also at the video encoder's shapes) against their plain
+PyTorch versions, the fp32 text encoder (Gemma-3 at full width, 2 layers,
+and the V1 encoder; also with Gemma in fp8) and the fp32 video encoder (a
+reduced plan) against the same modules on the CPU, and a full-width DiT
 block loaded kept in fp8 onto the card, on the card.
 
 Every test here is marked `gpu` and skips without a CUDA card. The file
@@ -167,6 +168,61 @@ def test_conv_kernel_matches_plain_on_gpu():
         C.conv3d(x.transpose(2, 3), torch.zeros(3, 3, 3, 16, 8, device="cuda"))
     with pytest.raises(ValueError, match="TF32 split"):
         C.conv3d(x, torch.zeros(3, 3, 3, 16, 8, device="cuda"), w_split=torch.zeros(2, 27, 16, 8, device="cuda"))
+
+
+@pytest.mark.gpu
+def test_encoder_conv_shapes_match_plain_on_gpu():
+    """The video encoder's four conv shapes of chip_smoke.py (fp32, causal,
+    zero spatial and replicate temporal padding): conv_in 48 -> 128, a 512
+    res conv, conv_out 1024 -> 129 through the module (its weight padded to
+    136 outputs, sliced after), a 1024 res conv over 96 voxels (split K),
+    each held to fp32 accuracy against the plain version in float64 (rms
+    2e-6, max 1e-5 relative) and launching the kernel once."""
+    _need_card()
+    from ltx2_tpu_torch.models.video_vae.conv import Conv3d, conv3d_ndhwc
+    from ltx2_tpu_torch.ops import conv3d as C
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for shape, cout in (((1, 1, 128, 192, 48), 128), ((1, 1, 64, 96, 512), 512), ((1, 1, 16, 24, 1024), 129),
+                        ((1, 1, 8, 12, 1024), 1024)):
+        p = Conv3d(shape[-1], cout, device="cuda")
+        bound = (shape[-1] * 27) ** -0.5
+        with torch.no_grad():
+            p.weight.uniform_(-bound, bound, generator=gen)
+            p.bias.uniform_(-bound, bound, generator=gen)
+        x = torch.randn(shape, device="cuda", generator=gen)
+        before = C.conv3d_ndhwc_kernel.launches
+        out = conv3d_ndhwc(p, x, causal=True, spatial_mode="zeros")
+        assert C.conv3d_ndhwc_kernel.launches == before + 1 and out.shape == (*shape[:4], cout)
+        ref64 = C.conv3d_plain(x.double(), C.kernel_layout(p.weight.double()), p.bias.double(), True, "zeros",
+                               "replicate")
+        err = out.double() - ref64
+        assert err.square().mean().sqrt() <= 2e-6 * ref64.square().mean().sqrt(), shape
+        assert err.abs().max() <= 1e-5 * ref64.abs().max(), shape
+    with pytest.raises(ValueError, match="Cout % 8"):  # the kernel itself still refuses 129
+        C.conv3d(x, C.kernel_layout(torch.zeros(129, 1024, 3, 3, 3, device="cuda")))
+
+
+@pytest.mark.gpu
+def test_video_encoder_matches_cpu_on_gpu():
+    """The fp32 video encoder at a reduced plan with every stride kind (64-
+    and 128-wide, 33 latent channels: conv_out's 34 outputs padded to 40) on
+    the card against the same weights on the CPU, one 128x192 frame, within
+    relative rms 1e-5 and max 1e-4 (models/video_vae/card_check.py, which
+    chip_smoke.py runs at the published plan)."""
+    _need_card()
+    from ltx2_tpu_torch.generate import make_encoder
+    from ltx2_tpu_torch.models.video_vae.card_check import encoder_against_cpu
+    from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoderConfig
+
+    plan = (("res", 64, 1, None), ("down", 64, 64, (1, 2, 2)), ("res", 64, 1, None), ("down", 64, 128, (2, 1, 1)),
+            ("res", 128, 1, None), ("down", 128, 128, (2, 2, 2)), ("res", 128, 1, None),
+            ("down", 128, 128, (2, 2, 2)), ("res", 128, 1, None))
+    enc = make_encoder(torch.device("cuda"), cfg=VideoEncoderConfig(plan=plan, latent_channels=33))
+    pixels = torch.rand(1, 3, 1, 128, 192, generator=torch.Generator().manual_seed(4)) * 2 - 1
+    rec = encoder_against_cpu(enc, pixels)
+    assert rec["latent_shape"] == [1, 33, 1, 4, 6] and rec["launches"] == rec["expected_launches"] == 16
+    assert rec["ok"], rec["errors"]
 
 
 @pytest.mark.gpu

@@ -4,9 +4,10 @@
   uint8 frames through `generate_videos`, held against the same chain of
   JAX functions (scripts/bench_e2e.py's steps) on the same weights, noise
   and context, in float32 on the CPU: frames within 1 level.
-- No module of ltx2_tpu_torch, nor chip_smoke.py, imports jax, ltx2_tpu or
-  ml_dtypes (a static scan: every process here has JAX loaded already, so
-  sys.modules proves nothing; the card's machine has no ml_dtypes).
+- No module of ltx2_tpu_torch, nor chip_smoke.py, imports jax, ltx2_tpu,
+  ml_dtypes or PIL (a static scan: every process here has JAX loaded
+  already, so sys.modules proves nothing; the card's machine has neither
+  ml_dtypes nor PIL).
 - Entry points default to CUDA and raise without it; chip_smoke.py fails
   without a card and outside a checkout, printing no result.
 """
@@ -93,9 +94,9 @@ def test_port_imports_no_jax():
     assert len(files) > 20
     bad = [
         (str(f.relative_to(ROOT)), mod) for f in files for mod in _imports(f)
-        if mod.split(".")[0] in ("jax", "jaxlib", "ltx2_tpu", "ml_dtypes")
+        if mod.split(".")[0] in ("jax", "jaxlib", "ltx2_tpu", "ml_dtypes", "PIL")
     ]
-    assert not bad, f"the port imports JAX, the JAX package or ml_dtypes: {bad}"
+    assert not bad, f"the port imports JAX, the JAX package, ml_dtypes or PIL: {bad}"
 
 
 def test_entry_points_need_cuda_unless_told(monkeypatch):

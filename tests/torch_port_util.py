@@ -127,3 +127,76 @@ def assert_module_matches_tree(module, tree, stacked="transformer_blocks"):
     assert set(got) == set(ref), sorted(set(got) ^ set(ref))[:6]
     for name, leaf in got.items():
         assert_bitwise(leaf, ref[name], name)
+
+
+def write_png(path, pixels, color_type=None, filters=(0, 1, 2, 3, 4)):
+    """An 8-bit PNG of uint8 pixels (H, W) grayscale, (H, W, 3) RGB or
+    (H, W, 4) RGBA, written with zlib; row y uses filter filters[y %
+    len(filters)] (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth), so a reader
+    meets every filter."""
+    import struct
+    import zlib
+
+    px = np.asarray(pixels, np.uint8)
+    if px.ndim == 2:
+        px = px[..., None]
+    h, w, bpp = px.shape
+    color_type = {1: 0, 3: 2, 4: 6}[bpp] if color_type is None else color_type
+    cur = px.reshape(h, w * bpp).astype(np.int64)
+    up = np.vstack([np.zeros((1, w * bpp), np.int64), cur[:-1]])
+    left = np.hstack([np.zeros((h, bpp), np.int64), cur[:, :-bpp]])
+    upleft = np.hstack([np.zeros((h, bpp), np.int64), up[:, :-bpp]])
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    preds = [np.zeros_like(cur), left, up, (left + up) >> 1, paeth]
+    rows = []
+    for y in range(h):
+        f = filters[y % len(filters)]
+        rows.append(bytes([f]) + ((cur[y] - preds[f][y]) & 255).astype(np.uint8).tobytes())
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+    with open(path, "wb") as fh:
+        fh.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))
+                 + chunk(b"IDAT", zlib.compress(b"".join(rows))) + chunk(b"IEND", b""))
+    return path
+
+
+def random_tree(module, seed: int):
+    """Random float32 numpy weights for every tensor of a port module, as
+    the JAX package's nested tree (lists where the names index), without
+    the JAX package's jitted inits: weights U(+-1/sqrt(fan_in)), biases
+    U(+-0.05), norms and tables as `numpy_tree` randomizes them, the VAE
+    statistics around 0 and 1, 0-d buffers (the decoder's timestep
+    multiplier) kept."""
+    rng = np.random.default_rng(seed)
+    root = {}
+    for name, p in (*module.named_parameters(), *module.named_buffers()):
+        shape = tuple(p.shape)
+        if not shape:
+            x = p.detach().float().numpy()
+        elif "std_of_means" in name:
+            x = rng.uniform(0.5, 1.5, shape)
+        elif any(r in name for r in ("scale_shift_table", "norm", "statistics")):
+            x = rng.standard_normal(shape) * 0.3 + (1.0 if "norm" in name else 0.0)
+        elif len(shape) >= 2:
+            bound = 1.0 / np.sqrt(np.prod(shape[1:]))
+            x = rng.uniform(-bound, bound, shape)
+        else:
+            x = rng.uniform(-0.05, 0.05, shape)
+        node, parts = root, name.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = np.asarray(x, np.float32)
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: listify(v) for k, v in node.items()}
+        if out and all(k.isdigit() for k in out):
+            return [out[str(i)] for i in range(len(out))]
+        return out
+
+    return listify(root)
