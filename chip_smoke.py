@@ -14,15 +14,18 @@ card and nvcc; it exits non-zero without them, and without the package
 3. kernel check: the flash forward against `flash_attention_plain` on the
    card in bf16, at the DiT's self-attention (1, 32, 6144, 128), its text
    cross-attention (6144 queries x 1024 keys), a ragged key-masked case,
-   head dim 64 (1, 32, 2048, 64) and the two-stage recipe's stage-1
-   self-attention (1, 32, 1536, 128), within limits relative to the plain
+   head dim 64 (1, 32, 2048, 64), the two-stage recipe's stage-1
+   self-attention (1, 32, 1536, 128) and the one-stage CFG pipeline's two
+   guidance rows, self (2, 32, 4290, 128) and cross (4290 queries x 1024
+   keys), within limits relative to the plain
    output that two planted faults must fail; with the wrapper's and the
    kernel's own device time, plain, bound and scaled_dot_product_attention
    times;
 4. conv kernel check: the implicit-GEMM convs against `conv3d_plain` at
    the serving paths' shapes (the decoder's stages S4 and S3, its conv_out
    on a decode tile, and on a two-stage decode tile a stage-1 res conv and
-   the stage-2 upsample conv, in bf16 with reflect/replicate padding; a
+   the stage-2 upsample conv, on a one-stage decode tile (15 latent rows) a
+   stage-1 res conv and conv_out, in bf16 with reflect/replicate padding; a
    causal case with ragged H and W; in fp32 with zero padding the spatial
    upscaler's five conv shapes: 1024 -> 1024 at both resolutions, the
    per-frame 1024 -> 4096 resampler, the initial 128 -> 1024 and the final
@@ -93,7 +96,10 @@ card and nvcc; it exits non-zero without them, and without the package
    phase's seconds and peaks, 1056 flash, 2 x 46 + 19 fp32 and 270 bf16
    conv launches; (c) the one-stage CFG* pipeline at the JAX defaults
    (480x704x97, 30 steps, cfg 3.0, rescale 0.7) with the image: 2880 flash
-   launches, 46 fp32 and the tiled decode's bf16 conv launches; (d) at 2
+   launches, 46 fp32 and the tiled decode's bf16 conv launches; then the
+   same pipeline at a small size (2-layer DiT, small encoder plan,
+   128x128x17, 3 steps, tiled decode) through the kernels against itself
+   with every flash and conv call on its plain version; (d) at 2
    blocks and 128x128x9, strength 1.0 keeps frame 0 of the final latent
    the encoder's bit for bit, and a planted strength 0.9 run must fail the
    check; (e) `generate.main --pipeline text-to-video --image` on the card;
@@ -119,6 +125,7 @@ training records beside the kernels), the last the device record.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -409,6 +416,11 @@ def phase_kernels():
         _check_case("masked_ragged", 2, 32, 1000, 333, 128, 200, gen),
         _check_case("d64", 1, 32, 2048, 2048, 64, None, gen),
         _check_case("stage1_self", 1, 32, 1536, 1536, 128, None, gen),
+        # The one-stage CFG pipeline at its defaults: two guidance rows of
+        # 4290 tokens (13 x 15 x 22 latent voxels; ragged query and key
+        # tails, no key mask), and their text cross-attention.
+        _check_case("one_stage_self", 2, 32, 4290, 4290, 128, None, gen),
+        _check_case("one_stage_cross", 2, 32, 4290, 1024, 128, None, gen),
     ]
     flash_attention.launches = before  # comparison launches are not the main path's
     return recs
@@ -424,6 +436,11 @@ CONV_CASES = (
     ("causal_ragged", (2, 7, 30, 44, 128), 128, 3, "bfloat16", True, "reflect", "replicate"),
     ("S1_tile_res", (1, 8, 16, 16, 1024), 1024, 3, "bfloat16", False, "reflect", "replicate"),
     ("S2_tile_up", (1, 15, 32, 32, 512), 2048, 3, "bfloat16", False, "reflect", "replicate"),
+    # On a tile of the one-stage decode (480x704x97: latent tiles of
+    # 8 x 15 x 16, 15 rows where the two-stage tiles have 16): a stage-1
+    # res conv and conv_out on its 57 x 120 x 128 pixels.
+    ("one_stage_tile_res", (1, 8, 15, 16, 1024), 1024, 3, "bfloat16", False, "reflect", "replicate"),
+    ("one_stage_conv_out", (1, 57, 120, 128, 128), 48, 3, "bfloat16", False, "reflect", "replicate"),
     ("upscaler", (1, 16, 16, 24, 1024), 1024, 3, "float32", False, "zeros", "zeros"),
     ("resampler", (1, 16, 8, 12, 1024), 4096, 1, "float32", False, "zeros", "zeros"),
     ("upscaler_in", (1, 16, 8, 12, 128), 1024, 3, "float32", False, "zeros", "zeros"),
@@ -1310,6 +1327,29 @@ def phase_checkpoint(smi: str) -> tuple:
     return rec, counts, stats
 
 
+@contextlib.contextmanager
+def _plain_kernels():
+    """Every flash and conv call on its plain version while inside."""
+    from ltx2_tpu_torch.models.video_vae import conv as vae_conv
+    from ltx2_tpu_torch.ops import attention as A
+    from ltx2_tpu_torch.ops.conv3d import conv3d_plain
+
+    kernel_flash, kernel_conv = A.flash_attention, vae_conv.conv3d
+    A.flash_attention = lambda q, k, v, scale=None, kv_valid=None: A.flash_attention_plain(q, k, v, scale, kv_valid)
+    vae_conv.conv3d = lambda x, w, b, causal, sm, tm, w_split=None: conv3d_plain(x, w, b, causal, sm, tm)
+    try:
+        yield
+    finally:
+        A.flash_attention, vae_conv.conv3d = kernel_flash, kernel_conv
+
+
+def _frame_diff(a, b) -> dict:
+    import numpy as np
+
+    d = np.abs(a.astype(np.int16) - b)
+    return {"mean_levels": float(d.mean()), "max_levels": int(d.max())}
+
+
 def phase_two_stage_small(smi: str) -> dict:
     """The two-stage recipe end to end (decode included, tiled into 2 x 3 x 3
     tiles) at a small size, through the kernels, against the same pipeline
@@ -1317,22 +1357,18 @@ def phase_two_stage_small(smi: str) -> dict:
     (whose agreement with the JAX package the CPU tests show): a 2-layer DiT
     of 2 x 128-wide heads, a mid-16 upscaler, a base-16 bf16 decoder,
     128x128x17. A run from another seed must fail the same limits."""
-    import numpy as np
     import torch
 
     from ltx2_tpu_torch.generate import make_dit
     from ltx2_tpu_torch.models.transformer.model import LTXModelConfig
     from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscaler, SpatialUpscalerConfig, init_spatial_upscaler_
     from ltx2_tpu_torch.models.upscaler.spatial import conv_launches as upscaler_convs
-    from ltx2_tpu_torch.models.video_vae import conv as vae_conv
     from ltx2_tpu_torch.models.video_vae.decoder import (
         VideoDecoder, VideoDecoderConfig, conv_launches, init_video_decoder_,
     )
     from ltx2_tpu_torch.models.video_vae.tiling import (
         SpatialTilingConfig, TemporalTilingConfig, TilingConfig, generate_tile_specs,
     )
-    from ltx2_tpu_torch.ops import attention as A
-    from ltx2_tpu_torch.ops.conv3d import conv3d_plain
     from ltx2_tpu_torch.pipelines.distilled import DistilledConfig, DistilledPipeline
 
     dev = torch.device("cuda")
@@ -1360,23 +1396,14 @@ def phase_two_stage_small(smi: str) -> dict:
     _reset_counts()
     frames_k, lat_k = run(5)
     counts = _counts()
-    kernel_flash, kernel_conv = A.flash_attention, vae_conv.conv3d
-    A.flash_attention = lambda q, k, v, scale=None, kv_valid=None: A.flash_attention_plain(q, k, v, scale, kv_valid)
-    vae_conv.conv3d = lambda x, w, b, causal, sm, tm, w_split=None: conv3d_plain(x, w, b, causal, sm, tm)
-    try:
+    with _plain_kernels():
         frames_p, lat_p = run(5)
         frames_other, _ = run(6)
-    finally:
-        A.flash_attention, vae_conv.conv3d = kernel_flash, kernel_conv
-
-    def frame_diff(a, b):
-        d = np.abs(a.astype(np.int16) - b)
-        return {"mean_levels": float(d.mean()), "max_levels": int(d.max())}
 
     rec = {"launches": counts, "frames": list(frames_k.shape),
            "latents": {k: {x: v for x, v in _mismatch(lat_k[k], lat_p[k]).items() if x != "ref_rms"} for k in lat_k},
-           "frames_vs_plain": frame_diff(frames_k, frames_p),
-           "planted_other_seed": frame_diff(frames_other, frames_p),
+           "frames_vs_plain": _frame_diff(frames_k, frames_p),
+           "planted_other_seed": _frame_diff(frames_other, frames_p),
            "tol_latent_rms_rel": TOL_SMALL_LATENT_RMS_REL, "tol_mean_levels": TOL_SMALL_MEAN_LEVELS}
     log(f"two-stage small-input check (kernels vs plain on the card): {json.dumps(rec)} | {smi}")
     del pipe, dit, up, dec
@@ -1625,6 +1652,92 @@ def phase_one_stage(smi: str, image: str):
     return {"fwd": counts["fwd"], "conv_fp32": want["image_encode"], "conv_bf16": want["decode"]}, rec
 
 
+# The encoder plan of the CPU tests: every stride kind at width 16 and 32.
+SMALL_ENCODER_PLAN = (("res", 16, 1, None), ("down", 16, 16, (1, 2, 2)), ("res", 16, 1, None),
+                      ("down", 16, 16, (2, 1, 1)), ("res", 16, 1, None), ("down", 16, 32, (2, 2, 2)),
+                      ("res", 32, 1, None), ("down", 32, 32, (2, 2, 2)), ("res", 32, 1, None))
+
+
+def phase_one_stage_small(smi: str, image: str) -> dict:
+    """The one-stage CFG* pipeline end to end (the image at frame 0, two
+    guidance rows, per-token timesteps, tiled decode) at a small size,
+    through the kernels, against the same pipeline on the same card with
+    every flash and conv call on its plain version (whose agreement with
+    the JAX package the CPU tests show): a 2-layer DiT of 2 x 128-wide
+    heads, the small encoder plan in fp32, a base-16 bf16 decoder,
+    128x128x17, 3 steps. A run from another seed must fail the same limits."""
+    import torch
+
+    from ltx2_tpu_torch.generate import make_dit, make_encoder
+    from ltx2_tpu_torch.models.transformer.model import LTXModelConfig
+    from ltx2_tpu_torch.models.video_vae.decoder import (
+        VideoDecoder, VideoDecoderConfig, conv_launches, init_video_decoder_,
+    )
+    from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoderConfig
+    from ltx2_tpu_torch.models.video_vae.encoder import conv_launches as encoder_convs
+    from ltx2_tpu_torch.models.video_vae.tiling import (
+        SpatialTilingConfig, TemporalTilingConfig, TilingConfig, generate_tile_specs,
+    )
+    from ltx2_tpu_torch.pipelines.common import ImageCondition
+    from ltx2_tpu_torch.pipelines.one_stage import OneStageCFGConfig, OneStagePipeline
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    dit = make_dit(2, dev, seed=32, base=LTXModelConfig(num_attention_heads=2, in_channels=16, out_channels=16,
+                                                         cross_attention_dim=256))
+    enc_cfg = VideoEncoderConfig(plan=SMALL_ENCODER_PLAN, latent_channels=16)
+    dec_cfg = VideoDecoderConfig(base_channels=16, latent_channels=16, compute_dtype="bfloat16")
+    enc = make_encoder(dev, seed=33, cfg=enc_cfg)
+    dec = init_video_decoder_(VideoDecoder(dec_cfg, device=dev), gen)
+    with torch.no_grad():  # one set of latent statistics, as a checkpoint holds
+        dec.per_channel_statistics.mean_of_means.normal_(generator=gen).mul_(0.3)
+        dec.per_channel_statistics.std_of_means.uniform_(0.5, 1.5, generator=gen)
+        enc.per_channel_statistics.load_state_dict(dec.per_channel_statistics.state_dict())
+    pipe = OneStagePipeline(dit, video_encoder=enc, video_decoder=dec)
+    positive, negative = (torch.randn(1, 16, 256, generator=gen, device=dev) * 0.5 for _ in range(2))
+    tiling = TilingConfig(SpatialTilingConfig(64, 32), TemporalTilingConfig(16, 8))
+    images = [ImageCondition(image, 0, IMAGE_STRENGTH)]
+
+    def run(seed):
+        latents = {}
+        config = OneStageCFGConfig(height=128, width=128, num_frames=17, seed=seed, num_inference_steps=3,
+                                   dtype="bfloat16", latent_channels=16, tiling_config=tiling)
+        frames, _ = pipe(positive, negative, config, images=images,
+                         callback=lambda phase, z: latents.setdefault(phase, z.float()))
+        return frames, latents
+
+    _reset_counts()
+    frames_k, lat_k = run(5)
+    counts = _counts()
+    with _plain_kernels():
+        frames_p, lat_p = run(5)
+        frames_other, _ = run(6)
+
+    rec = {"launches": counts, "frames": list(frames_k.shape),
+           "latents": {k: {x: v for x, v in _mismatch(lat_k[k], lat_p[k]).items() if x != "ref_rms"} for k in lat_k},
+           "frames_vs_plain": _frame_diff(frames_k, frames_p),
+           "planted_other_seed": _frame_diff(frames_other, frames_p),
+           "tol_latent_rms_rel": TOL_SMALL_LATENT_RMS_REL, "tol_mean_levels": TOL_SMALL_MEAN_LEVELS, "card": smi}
+    log(f"one-stage small-input check (kernels vs plain on the card): {json.dumps(rec)}")
+    del pipe, dit, enc, dec
+    torch.cuda.empty_cache()
+    # 3 steps x 2 layers x (self + cross attention), each on both rows at
+    # once; the encoder's convs and 45 a decoder call, one call a tile.
+    tiles = len(generate_tile_specs((1, 16, 3, 4, 4), tiling))
+    want = {"fwd": 3 * 2 * 2, "bwd": 0, "conv": encoder_convs(enc_cfg) + conv_launches(dec_cfg) * tiles}
+    if counts != want:
+        raise AssertionError(f"small one-stage launches {counts}, expected {want}")
+    if sorted(lat_k) != ["denoise", "image_encode"] or frames_k.shape != (17, 128, 128, 3):
+        raise AssertionError(f"small one-stage output {rec}")
+    if any(not r["finite"] or r["rms_rel_err"] > TOL_SMALL_LATENT_RMS_REL for r in rec["latents"].values()):
+        raise AssertionError(f"small one-stage latents disagree with the plain path: {rec['latents']}")
+    if rec["frames_vs_plain"]["mean_levels"] > TOL_SMALL_MEAN_LEVELS:
+        raise AssertionError(f"small one-stage frames disagree with the plain path: {rec['frames_vs_plain']}")
+    if rec["planted_other_seed"]["mean_levels"] <= TOL_SMALL_MEAN_LEVELS:
+        raise AssertionError(f"the small one-stage check accepts another seed's clip: {rec}")
+    return rec
+
+
 def phase_image_gate(smi: str, image: str) -> dict:
     """Exactness: the one-stage pipeline (a 2-block full-width bf16 DiT, the
     full-width encoder, 128x128x9, 3 steps) with the image at strength 1.0
@@ -1699,7 +1812,8 @@ def phase_cli_image(smi: str, image: str) -> dict:
 
 def phase_image_to_video(smi: str):
     """(a) the encoder alone, (b) the two-stage recipe with an image, (c) the
-    one-stage CFG pipeline with an image, (d) the exactness gate, (e) the
+    one-stage CFG pipeline with an image, at full size and small against
+    its plain version, (d) the exactness gate, (e) the
     CLI route; the PNG is written into a fresh temporary directory and
     deleted at the end."""
     import shutil
@@ -1711,6 +1825,7 @@ def phase_image_to_video(smi: str):
         rec = {"encoder": phase_encoder(smi, image)}
         two_stage_counts, rec["two_stage"] = phase_image_two_stage(smi, image)
         one_stage_counts, rec["one_stage"] = phase_one_stage(smi, image)
+        rec["one_stage_small_check"] = phase_one_stage_small(smi, image)
         rec["exactness_gate"] = phase_image_gate(smi, image)
         rec["cli"] = phase_cli_image(smi, image)
     finally:

@@ -99,7 +99,6 @@ from ltx2_tpu_torch.pipelines.common import ImageCondition, decode_video
 from ltx2_tpu_torch.pipelines.denoise import DenoiseLoopConfig, make_video_denoise_loop
 from ltx2_tpu_torch.pipelines.distilled import DistilledConfig, DistilledPipeline, stage_seeds
 from ltx2_tpu_torch.pipelines.one_stage import OneStageCFGConfig, OneStagePipeline
-from ltx2_tpu_torch.pipelines.text_to_video import TextToVideoConfig, TextToVideoPipeline
 from ltx2_tpu_torch.types import LatentState, VideoLatentShape, VideoPixelShape
 from ltx2_tpu_torch.utils.model_ledger import ModelLedger
 
@@ -585,7 +584,6 @@ def generate_videos_one_stage(
     cfg_scale: float = 3.0,
     rescale_scale: float = 0.7,
     token_shift: bool = False,
-    text_to_video: bool = False,
     layers: int = 48,
     device=None,
     dit: Optional[LTXModel] = None,
@@ -599,11 +597,11 @@ def generate_videos_one_stage(
     phase_peaks: bool = False,
     ledger: Optional[ModelLedger] = None,
 ) -> Tuple[List[np.ndarray], List[dict]]:
-    """The single-stage CFG pipeline (`text_to_video`: its plain-CFG
-    specialisation, `TextToVideoConfig`, rescale 0), one clip per seed at
-    the JAX package's OneStageCFGConfig defaults (480x704x97, 30 steps, CFG*
-    at 3.0 with rescale 0.7); returns (uint8 (frames, height, width, 3)
-    arrays, per-request stats).
+    """The single-stage CFG pipeline, one clip per seed at the JAX
+    package's OneStageCFGConfig defaults (480x704x97, 30 steps, CFG* at 3.0
+    with rescale 0.7; `rescale_scale=0` is plain CFG, the CLI's
+    text-to-video); returns (uint8 (frames, height, width, 3) arrays,
+    per-request stats).
 
     Each request's contexts: `contexts[i]`, a (2, S, D) prompt and negative
     pair; or with `text_encoder` the request's prompt and negative prompt
@@ -632,14 +630,14 @@ def generate_videos_one_stage(
     dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, images, ledger,
                                     contexts[0].shape[-1] if encoded else None)
     cfg = dit.cfg
-    pipe = (TextToVideoPipeline if text_to_video else OneStagePipeline)(dit, video_encoder=encoder)
+    pipe = OneStagePipeline(dit, video_encoder=encoder)
 
     configs, latents = [], []
     for i, (seed, st) in enumerate(zip(seeds, stats)):
-        common = dict(height=height, width=width, num_frames=frames, seed=seed, num_inference_steps=steps,
-                      cfg_scale=cfg_scale, dtype=cfg.compute_dtype, latent_channels=cfg.in_channels)
-        config = (TextToVideoConfig(**common).to_one_stage() if text_to_video else
-                  OneStageCFGConfig(rescale_scale=rescale_scale, token_dependent_shift=token_shift, **common))
+        config = OneStageCFGConfig(height=height, width=width, num_frames=frames, seed=seed,
+                                   num_inference_steps=steps, cfg_scale=cfg_scale, rescale_scale=rescale_scale,
+                                   token_dependent_shift=token_shift, dtype=cfg.compute_dtype,
+                                   latent_channels=cfg.in_channels)
         if contexts is not None:
             positive, negative = contexts[i][0:1], contexts[i][1:2]
         else:
@@ -700,9 +698,10 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
     ap.add_argument("--num-inference-steps", type=int, default=30, help="one-stage, text-to-video: Euler steps")
     ap.add_argument("--cfg-scale", type=float, default=3.0, help="one-stage, text-to-video: guidance scale")
     ap.add_argument("--rescale-scale", type=float, default=0.7,
-                    help="one-stage: > 0 selects CFG* (CFGStarRescalingGuider), 0 classic CFG")
+                    help="one-stage: > 0 selects CFG* (CFGStarRescalingGuider), 0 classic CFG; text-to-video "
+                         "always runs 0")
     ap.add_argument("--token-shift", action="store_true",
-                    help="one-stage: shift the sigma schedule by the clip's token count, not the fixed 4096")
+                    help="one-stage, text-to-video: shift the sigma schedule by the clip's token count, not the fixed 4096")
     ap.add_argument("--image", action="append", default=[], metavar="PATH[:FRAME[:STRENGTH]]",
                     help="distilled, one-stage, text-to-video: an 8-bit PNG conditioning latent frame FRAME "
                          "(default 0), repeatable")
@@ -760,9 +759,12 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
         images = [parse_image_spec(spec, args.image_strength) for spec in args.image]
         flow = dict(text_encoder=args.text_encoder, phase_peaks=True, ledger=ledger, images=images, **common)
         if cfg_flow:
+            # text-to-video is the one-stage pipeline with plain CFG, as in
+            # scripts/generate.py: rescale 0, every other flag as given.
+            rescale = 0.0 if args.pipeline == "text-to-video" else args.rescale_scale
             videos, stats = generate_videos_one_stage(
-                seeds, steps=args.num_inference_steps, cfg_scale=args.cfg_scale, rescale_scale=args.rescale_scale,
-                token_shift=args.token_shift, text_to_video=args.pipeline == "text-to-video", **flow)
+                seeds, steps=args.num_inference_steps, cfg_scale=args.cfg_scale, rescale_scale=rescale,
+                token_shift=args.token_shift, **flow)
         else:
             videos, stats = generate_videos_distilled(seeds, **flow)
     for video, st in zip(videos, stats):

@@ -46,8 +46,8 @@ from ltx2_tpu_torch.types import VideoLatentShape, VideoPixelShape
 
 @dataclass
 class OneStageCFGConfig:
-    """The video fields of the JAX package's OneStageCFGConfig; the audio,
-    bucketing and guidance-reuse fields exist to be refused."""
+    """The video fields of the JAX package's OneStageCFGConfig;
+    `audio_enabled`, `token_bucket` and `cfg_interval` exist to be refused."""
 
     height: int = 480
     width: int = 704
@@ -56,7 +56,6 @@ class OneStageCFGConfig:
     fps: float = 24.0
     num_inference_steps: int = 30
     cfg_scale: float = 3.0
-    audio_cfg_scale: float = 7.0
     rescale_scale: float = 0.7
     cfg_interval: int = 1
     tiling_config: Optional[TilingConfig] = None

@@ -106,7 +106,8 @@ def test_conv_kernel_matches_plain_on_gpu():
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     # (x shape, Cout, kT, dtype, causal, spatial, temporal, limits relative to the plain output):
     # every bf16 N tile (48, 128, 256), the two-stage decode tile's stage-1
-    # res conv and stage-2 upsample conv, Cin = 16 with Cout = 48, ragged W,
+    # res conv and stage-2 upsample conv, the one-stage decode tile's stage-1
+    # res conv (15 latent rows), Cin = 16 with Cout = 48, ragged W,
     # a partly filled channel step (Cin = 80), bf16 with zero padding and kT = 1.
     # fp32 (3xTF32): Cin = 1024 with kT = 3 and kT = 1 (K split into 8
     # ranges), Cin = 128 (the upscaler's first conv: 4 ranges, the last
@@ -118,6 +119,7 @@ def test_conv_kernel_matches_plain_on_gpu():
         ((1, 3, 9, 13, 128), 48, 3, torch.bfloat16, False, "reflect", "replicate", (1e-2, 5e-3)),
         ((1, 8, 16, 16, 1024), 1024, 3, torch.bfloat16, False, "reflect", "replicate", (1e-2, 5e-3)),
         ((1, 15, 32, 32, 512), 2048, 3, torch.bfloat16, False, "reflect", "replicate", (1e-2, 5e-3)),
+        ((1, 8, 15, 16, 1024), 1024, 3, torch.bfloat16, False, "reflect", "replicate", (1e-2, 5e-3)),
         ((1, 5, 12, 44, 16), 48, 3, torch.bfloat16, True, "reflect", "replicate", (1e-2, 5e-3)),
         ((2, 3, 5, 6, 80), 136, 3, torch.bfloat16, False, "zeros", "zeros", (1e-2, 5e-3)),
         ((1, 3, 4, 5, 32), 256, 1, torch.bfloat16, False, "zeros", "zeros", (1e-2, 5e-3)),

@@ -15,7 +15,8 @@ initial noise:
 - every unported option raises NotImplementedError naming itself;
 - `generate.main(["--pipeline", "one-stage", "--image", ...])` from a tiny
   checkpoint against `generate_videos_one_stage` on the same ledger, and
-  `--pipeline text-to-video`.
+  `--pipeline text-to-video`; with `--token-shift` its config and sigmas
+  against the JAX CLI's.
 Decode noise is off (scale 0): each package draws it from its own RNG.
 """
 
@@ -28,6 +29,7 @@ import pytest
 import torch
 
 from ltx2_tpu.components import CFGStarRescalingGuider as JCFGStar
+from ltx2_tpu.components import schedulers as jschedulers
 from ltx2_tpu.components.noisers import _blend as jblend
 from ltx2_tpu.components.patchifiers import VideoLatentPatchifier as JPatchifier
 from ltx2_tpu.conditioning import latent as jlatent
@@ -45,6 +47,7 @@ from ltx2_tpu.pipelines.text_to_video import TextToVideoConfig as JTextToVideoCo
 from ltx2_tpu.pipelines.text_to_video import TextToVideoPipeline as JTextToVideoPipeline
 from ltx2_tpu.types import VideoLatentShape as JShape
 from ltx2_tpu_torch import generate
+from ltx2_tpu_torch.components import schedulers
 from ltx2_tpu_torch.components.guiders import CFGStarRescalingGuider
 from ltx2_tpu_torch.components.noisers import GaussianNoiser
 from ltx2_tpu_torch.components.patchifiers import VideoLatentPatchifier
@@ -225,17 +228,26 @@ def test_unported_options_raise(weights, option):
     assert "not ported" in str(err.value) and word in str(err.value), str(err.value)
 
 
-def test_generate_main_one_stage_and_text_to_video(weights, tmp_path):
-    """The CLI from a tiny checkpoint (bf16 DiT and decoder, fp32 encoder,
-    as the ledger loads them) against the entry function on the same
-    ledger; then the plain-CFG text-to-video route."""
+SIZE = ["--height", str(HEIGHT), "--width", str(WIDTH), "--frames", str(FRAMES), "--seed", str(SEED)]
+
+
+@pytest.fixture(scope="module")
+def checkpoint(weights, tmp_path_factory):
+    """A tiny unified checkpoint: the DiT, decoder and encoder as the ledger
+    loads them (bf16 DiT and decoder, fp32 encoder)."""
     tensors = {**jexport.params_to_checkpoint(weights["dit"]),
                **{k: v.float().numpy() for k, v in vae_weights.decoder_to_checkpoint(_port(weights)[2]).items()},
                **{k: v.float().numpy() for k, v in vae_weights.encoder_to_checkpoint(_port(weights)[1]).items()}}
-    path = str(tmp_path / "ltx.safetensors")
+    path = str(tmp_path_factory.mktemp("one_stage_ckpt") / "ltx.safetensors")
     jst.write_safetensors(path, tensors, metadata={"model_version": "2.0.0", "config": '{"transformer": '
                                                    '{"num_attention_heads": 2}}'})
-    size = ["--height", str(HEIGHT), "--width", str(WIDTH), "--frames", str(FRAMES), "--seed", str(SEED)]
+    return path
+
+
+def test_generate_main_one_stage_and_text_to_video(weights, checkpoint):
+    """The CLI from a tiny checkpoint against the entry function on the
+    same ledger; then the plain-CFG text-to-video route."""
+    path, size = checkpoint, SIZE
     videos, stats = generate.main(["--pipeline", "one-stage", "--device", "cpu", "--checkpoint", path, "--image",
                                    f"{weights['image']}:0", "--image-strength", "0.8", "--num-inference-steps", "2",
                                    *size])
@@ -255,3 +267,34 @@ def test_generate_main_one_stage_and_text_to_video(weights, tmp_path):
         generate.main(["--image", weights["image"], "--device", "cpu"])  # bench-e2e takes no image
     assert generate.parse_image_spec("a.png:2:0.5") == ImageCondition("a.png", 2, 0.5)
     assert generate.parse_image_spec("a.png", 0.7) == ImageCondition("a.png", 0, 0.7)
+
+
+def test_generate_main_text_to_video_token_shift(checkpoint, monkeypatch):
+    """`--pipeline text-to-video --token-shift` builds the JAX CLI's config
+    (scripts/generate.py: the one-stage config at --cfg-scale with rescale
+    0 and the token shift) and schedules the JAX package's sigmas at the
+    clip's token count, not the 4096-token anchor (3 steps: at 2 the
+    stretch gives [1, 0.1, 0] whatever the shift)."""
+    seen = {}
+    call, execute = OneStagePipeline.__call__, schedulers.LTX2Scheduler.execute
+
+    def record_call(self, positive, negative, config, **kwargs):
+        seen["config"] = config
+        return call(self, positive, negative, config, **kwargs)
+
+    def record_execute(self, *args, **kwargs):
+        seen["sigmas"] = execute(self, *args, **kwargs)
+        return seen["sigmas"]
+
+    monkeypatch.setattr(OneStagePipeline, "__call__", record_call)
+    monkeypatch.setattr(schedulers.LTX2Scheduler, "execute", record_execute)
+    generate.main(["--pipeline", "text-to-video", "--token-shift", "--device", "cpu", "--checkpoint", checkpoint,
+                   "--num-inference-steps", "3", *SIZE])
+    jconfig = JOneStageCFGConfig(height=HEIGHT, width=WIDTH, num_frames=FRAMES, seed=SEED, num_inference_steps=3,
+                                 cfg_scale=3.0, rescale_scale=0.0, token_dependent_shift=True)
+    config = dataclasses.asdict(seen["config"])
+    assert {k: v for k, v in config.items() if k not in ("dtype", "latent_channels")} == {
+        k: v for k, v in dataclasses.asdict(jconfig).items() if k in config and k not in ("dtype", "latent_channels")}
+    want = jschedulers.LTX2Scheduler().execute(steps=3, tokens=TOKENS)
+    assert seen["sigmas"].dtype == np.float32 and np.array_equal(seen["sigmas"], want)
+    assert not np.array_equal(want, jschedulers.LTX2Scheduler().execute(steps=3))  # the shift moves them
