@@ -15,12 +15,18 @@ card and nvcc; it exits non-zero without them, and without the package
    card in bf16, at the DiT's self-attention (1, 32, 6144, 128), its text
    cross-attention (6144 queries x 1024 keys), a ragged key-masked case,
    head dim 64 (1, 32, 2048, 64), the two-stage recipe's stage-1
-   self-attention (1, 32, 1536, 128) and the one-stage CFG pipeline's two
+   self-attention (1, 32, 1536, 128), the one-stage CFG pipeline's two
    guidance rows, self (2, 32, 4290, 128) and cross (4290 queries x 1024
-   keys), within limits relative to the plain
-   output that two planted faults must fail; with the wrapper's and the
-   kernel's own device time, plain, bound and scaled_dot_product_attention
-   times;
+   keys), and the one-stage loop options' shapes: a 512-token bucket's
+   self-attention at the STG rows' batch 3 (3, 32, 4608, 128, the first
+   4290 keys valid in every row: two key tiles wholly masked, one partly)
+   and at batch 2 over 4352 tokens (only the last tile partly valid), and
+   the STG rows' cross-attention (3, 32, 4608 x 1024), within limits
+   relative to the plain output that two planted faults must fail (and on
+   a masked case a third: the kernel run with its mask dropped); with the
+   valid keys the bound counts, the wrapper's and the kernel's own device
+   time, plain, bound and scaled_dot_product_attention times (with a
+   boolean key mask where the case has one);
 4. conv kernel check: the implicit-GEMM convs against `conv3d_plain` at
    the serving paths' shapes (the decoder's stages S4 and S3, its conv_out
    on a decode tile, and on a two-stage decode tile a stage-1 res conv and
@@ -103,6 +109,17 @@ card and nvcc; it exits non-zero without them, and without the package
    blocks and 128x128x9, strength 1.0 keeps frame 0 of the final latent
    the encoder's bit for bit, and a planted strength 0.9 run must fail the
    check; (e) `generate.main --pipeline text-to-video --image` on the card;
+   (f) the one-stage loop options at full width and depth (48 blocks,
+   480x704x97, steps cut from 30 to 10) through `generate_videos_one_stage`:
+   request A, the one-stage pipeline with the image, CFG* with STG on block
+   29 (three rows), Heun, GE 0.5, the cross-attention scale 0.5 from block
+   40, cached text K/V and a 512-token bucket (4290 -> 4608 tokens: the
+   flash kernel's key-valid route); request B, text-to-video with APG and
+   guidance reuse every second step; each request's seconds, peaks, frames
+   and its flash, key-valid and conv launches against the counts the code
+   implies; then A, B and the stateful APG with momentum at the small size
+   of (c) (A with a 64-token bucket over 48 tokens), through the kernels
+   against their plain versions, another seed rejected;
 10. backward check: at the flash cases, the forward's residuals l, m
    against `flash_attention_residuals_plain`, and dq, dk, dv from the fused
    backward kernel against `flash_attention_bwd_plain` and against autograd of
@@ -337,7 +354,11 @@ def _accepted(m: dict, max_rel: float = TOL_MAX_REL, rms_rel: float = TOL_RMS_RE
     return m["finite"] and m["max_rel_err"] <= max_rel and m["rms_rel_err"] <= rms_rel
 
 
-def _check_case(name, b, h, t_q, t_k, d, n_valid, gen):
+def _check_case(name, b, h, t_q, t_k, d, n_valid, gen, bucket=False):
+    """One flash forward case against its plain version. n_valid: keys
+    valid per row (None: no mask); without `bucket` the second and later
+    rows keep more (ragged), with it every row keeps the first n_valid, as
+    a token bucket's padding mask does."""
     import torch
     import torch.nn.functional as F
 
@@ -354,7 +375,8 @@ def _check_case(name, b, h, t_q, t_k, d, n_valid, gen):
     if n_valid is not None:
         kv_valid = torch.zeros(b, t_k, dtype=torch.bool, device=dev)
         kv_valid[:, :n_valid] = True
-        kv_valid[1:, n_valid // 2:] = True  # the second row keeps more keys
+        if not bucket:
+            kv_valid[1:, n_valid // 2:] = True  # the second row keeps more keys
     scale = d ** -0.5
 
     out = flash_attention(qh, kh, vh, scale, kv_valid)
@@ -368,6 +390,8 @@ def _check_case(name, b, h, t_q, t_k, d, n_valid, gen):
         "tile_dropped": _mismatch(flash_attention_plain(qh, kh, vh, scale, dropped), ref),
         "scaled_1.03": _mismatch(ref.float() * 1.03, ref),
     }
+    if kv_valid is not None:  # the kernel itself with its mask dropped
+        planted["mask_dropped"] = _mismatch(flash_attention(qh, kh, vh, scale, None), ref)
     torch.cuda.synchronize()
 
     ms = _time_ms(lambda: flash_attention(qh, kh, vh, scale, kv_valid), 20)
@@ -387,7 +411,7 @@ def _check_case(name, b, h, t_q, t_k, d, n_valid, gen):
     bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
     bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES_PER_S else "bytes"
     rec = {
-        "case": name, "shape": [b, h, t_q, t_k, d], **{k: m[k] for k in m if k != "finite"},
+        "case": name, "shape": [b, h, t_q, t_k, d], "valid_keys": keys, **{k: m[k] for k in m if k != "finite"},
         "tol_max_rel": TOL_MAX_REL, "tol_rms_rel": TOL_RMS_REL,
         "planted_rms_rel": {k: p["rms_rel_err"] for k, p in planted.items()},
         "ms": ms, "kernel_ms": kernel_ms, "kernel_timed_by": kernel_timed_by, "plain_ms": plain_ms,
@@ -409,7 +433,7 @@ def phase_kernels():
     from ltx2_tpu_torch.ops.attention import flash_attention
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    before = flash_attention.launches
+    before, before_key_valid = flash_attention.launches, flash_attention.key_valid_launches
     recs = [
         _check_case("self", 1, 32, 6144, 6144, 128, None, gen),
         _check_case("cross", 1, 32, 6144, 1024, 128, None, gen),
@@ -421,8 +445,16 @@ def phase_kernels():
         # tails, no key mask), and their text cross-attention.
         _check_case("one_stage_self", 2, 32, 4290, 4290, 128, None, gen),
         _check_case("one_stage_cross", 2, 32, 4290, 1024, 128, None, gen),
+        # The one-stage loop options: a 512 token bucket pads 4290 tokens to
+        # 4608 (key tiles 34 and 35 wholly masked, 33 partly) at the STG
+        # rows' batch 3, the corrector's batch 2 at a 4352 bucket (only the
+        # last tile partly valid), and the STG rows' cross-attention.
+        _check_case("bucket_self_b3", 3, 32, 4608, 4608, 128, 4290, gen, bucket=True),
+        _check_case("bucket_tail_b2", 2, 32, 4352, 4352, 128, 4290, gen, bucket=True),
+        _check_case("stg_cross_b3", 3, 32, 4608, 1024, 128, None, gen),
     ]
     flash_attention.launches = before  # comparison launches are not the main path's
+    flash_attention.key_valid_launches = before_key_valid
     return recs
 
 
@@ -1738,6 +1770,216 @@ def phase_one_stage_small(smi: str, image: str) -> dict:
     return rec
 
 
+# The one-stage loop options at the JAX defaults' size, steps cut from 30
+# to 10 so that the phase stays well inside the run's time. Request A: the
+# one-stage pipeline with the image at frame 0, CFG* with STG on block 29,
+# Heun, GE, the late cross-attention scale, text-KV caching and a 512-token
+# bucket (4290 -> 4608 tokens); request B: text-to-video with APG and
+# guidance reuse every second step.
+OPTIONS_STEPS = 10
+OPTIONS_A = {"stg_scale": 1.0, "stg_blocks": [29], "sampler": "heun", "ge_gamma": 0.5, "cross_attn_scale": 0.5,
+             "cross_attn_start_block": 40, "cache_text_kv": True}
+OPTIONS_A_BUCKET = 512
+OPTIONS_B_APG = {"scale": 3.0, "eta": 0.5, "norm_threshold": 5.0}
+OPTIONS_B_INTERVAL = 2
+
+
+def _options_flash(layers: int, steps: int, sigmas, request: str) -> dict:
+    """Flash launches a request's loop makes, reckoned from the code: every
+    forward launches self and text cross-attention in each block, on all
+    its rows at once. A: a 3-row predictor every step and a 2-row corrector
+    on every step whose next sigma is not 0 (the last step takes the
+    denoised sample and runs none); every self-attention carries the
+    bucket's key mask. B: a 2-row forward on steps i % 2 == 0, a 1-row one
+    on the others."""
+    if request == "A":
+        forwards = steps + sum(1 for s in sigmas[1:steps + 1] if s != 0)
+        return {"fwd": 2 * layers * forwards, "key_valid": layers * forwards}
+    return {"fwd": 2 * layers * steps, "key_valid": 0}
+
+
+def phase_one_stage_options(smi: str, image: str) -> dict:
+    """Requests A and B through `generate_videos_one_stage` at full width
+    and depth (48 blocks, bf16 random weights, 480x704x97, 10 steps) on one
+    DiT, encoder and decoder: per request the image-encode, denoise, step
+    and decode seconds, peaks, uint8 frames of the clip's shape, finite
+    latents, and the flash, key-valid flash and conv launches, each equal to
+    the count reckoned from the code."""
+    import numpy as np
+    import torch
+
+    from ltx2_tpu_torch.components.guiders import LtxAPGGuider
+    from ltx2_tpu_torch.components.schedulers import LTX2Scheduler
+    from ltx2_tpu_torch.generate import make_decoder, make_dit, make_encoder
+    from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoderConfig
+    from ltx2_tpu_torch.models.video_vae.decoder import conv_launches as decoder_convs
+    from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoderConfig
+    from ltx2_tpu_torch.models.video_vae.encoder import conv_launches as encoder_convs
+    from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, generate_tile_specs
+    from ltx2_tpu_torch.generate import generate_videos_one_stage
+    from ltx2_tpu_torch.pipelines.common import ImageCondition, bucketed_tokens
+
+    c, dev = ONE_STAGE, torch.device("cuda")
+    latent_shape = (1, 128, (c["frames"] - 1) // 8 + 1, c["height"] // 32, c["width"] // 32)
+    tokens = math.prod(latent_shape[2:])
+    tiles = len(generate_tile_specs(latent_shape, TilingConfig.default()))
+    sigmas = LTX2Scheduler().execute(steps=OPTIONS_STEPS).tolist()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dit, encoder, decoder = make_dit(LAYERS, dev), make_encoder(dev), make_decoder("bfloat16", dev)
+    init_s = time.perf_counter() - t0
+    requests = {
+        "A": dict(images=[ImageCondition(image, 0, IMAGE_STRENGTH)], rescale_scale=c["rescale_scale"],
+                  token_bucket=OPTIONS_A_BUCKET, **OPTIONS_A),
+        "B": dict(rescale_scale=0.0, cfg_interval=OPTIONS_B_INTERVAL,
+                  guider_override=LtxAPGGuider(**OPTIONS_B_APG)),
+    }
+    recs, counts_all = {}, {"fwd": 0, "key_valid": 0, "conv_fp32": 0, "conv_bf16": 0}
+    for name, kwargs in requests.items():
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        frames, stats = generate_videos_one_stage(
+            [SEEDS[0]], height=c["height"], width=c["width"], frames=c["frames"], steps=OPTIONS_STEPS,
+            cfg_scale=c["cfg_scale"], device="cuda", phase_peaks=True, dit=dit, encoder=encoder, decoder=decoder,
+            **kwargs)
+        wall = time.perf_counter() - t0
+        counts, key_valid, st = _counts(), _key_valid_launches(), stats[0]
+        phases = (("image_encode",) if name == "A" else ()) + ("denoise", "decode")
+        want_flash = _options_flash(LAYERS, OPTIONS_STEPS, sigmas, name)
+        want_conv = {"image_encode": encoder_convs(VideoEncoderConfig()) if name == "A" else 0, "denoise": 0,
+                     "decode": decoder_convs(VideoDecoderConfig()) * tiles}
+        rec = {"options": {k: v for k, v in kwargs.items() if k != "images"} | {"image": name == "A"},
+               "steps": OPTIONS_STEPS, "reduced": "steps 30 -> 10",
+               "tokens": tokens, "bucket_tokens": bucketed_tokens(tokens, OPTIONS_A_BUCKET) if name == "A" else tokens,
+               "seconds": {p: st[f"{p}_s"] for p in phases}, "denoise_step_s": st["denoise_step_s"],
+               "peak_gb": {p: st[f"{p}_peak_gb"] for p in phases},
+               "launches": counts | {"key_valid": key_valid}, "expected_flash": want_flash,
+               "conv_launches": {p: st.get(f"{p}_conv_launches", 0) for p in want_conv},
+               "expected_conv": want_conv, "frames": list(frames[0].shape), "latent_std": st["latent_std"],
+               "wall_s": wall, "card": smi}
+        rec["options"]["guider_override"] = repr(rec["options"].get("guider_override"))
+        log(f"one-stage options request {name} ({c['width']}x{c['height']}x{c['frames']}f, {LAYERS} layers, "
+            f"{OPTIONS_STEPS} steps): {json.dumps(rec)}")
+        if frames[0].shape != (c["frames"], c["height"], c["width"], 3) or frames[0].dtype != np.uint8:
+            raise AssertionError(f"one-stage options {name}: frames {frames[0].shape} {frames[0].dtype}")
+        if not all(st[f"{p}_latent_finite"] for p in phases if p != "decode"):
+            raise AssertionError(f"one-stage options {name}: non-finite latents {st}")
+        if {"fwd": counts["fwd"], "key_valid": key_valid} != want_flash or counts["bwd"]:
+            raise AssertionError(f"one-stage options {name}: flash launches {counts}, key-valid {key_valid}, "
+                                 f"expected {want_flash}")
+        if rec["conv_launches"] != want_conv or counts["conv"] != sum(want_conv.values()):
+            raise AssertionError(f"one-stage options {name}: conv launches {rec['conv_launches']} ({counts}), "
+                                 f"expected {want_conv}")
+        recs[name] = rec
+        counts_all["fwd"] += counts["fwd"]
+        counts_all["key_valid"] += key_valid
+        counts_all["conv_fp32"] += want_conv["image_encode"]
+        counts_all["conv_bf16"] += want_conv["decode"]
+    if not recs["A"]["launches"]["key_valid"]:
+        raise AssertionError("request A launched the key-valid route no time")
+    del dit, encoder, decoder
+    torch.cuda.empty_cache()
+    return counts_all, {"init_s": init_s, "requests": recs}
+
+
+def phase_one_stage_options_small(smi: str, image: str) -> dict:
+    """Requests A (STG on block 1 of 2, the cross-attention scale from block
+    1, a 64-token bucket padding 48 tokens: the key-valid route), B, and the
+    stateful APG with momentum 0.5, each end to end (tiled decode) at the
+    small size of phase_one_stage_small (2-layer DiT, small encoder plan,
+    base-16 bf16 decoder, 128x128x17, 3 steps), through the kernels against
+    the same pipeline with every flash and conv call on its plain version;
+    a run from another seed must fail the same limits."""
+    import torch
+
+    from ltx2_tpu_torch.components.guiders import LtxAPGGuider, StatefulAPGGuider
+    from ltx2_tpu_torch.components.schedulers import LTX2Scheduler
+    from ltx2_tpu_torch.generate import make_dit, make_encoder
+    from ltx2_tpu_torch.models.transformer.model import LTXModelConfig
+    from ltx2_tpu_torch.models.video_vae.decoder import (
+        VideoDecoder, VideoDecoderConfig, conv_launches, init_video_decoder_,
+    )
+    from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoderConfig
+    from ltx2_tpu_torch.models.video_vae.encoder import conv_launches as encoder_convs
+    from ltx2_tpu_torch.models.video_vae.tiling import (
+        SpatialTilingConfig, TemporalTilingConfig, TilingConfig, generate_tile_specs,
+    )
+    from ltx2_tpu_torch.pipelines.common import ImageCondition
+    from ltx2_tpu_torch.pipelines.one_stage import OneStageCFGConfig, OneStagePipeline
+
+    dev, steps = torch.device("cuda"), 3
+    gen = torch.Generator(device=dev).manual_seed(41)
+    dit = make_dit(2, dev, seed=42, base=LTXModelConfig(num_attention_heads=2, in_channels=16, out_channels=16,
+                                                         cross_attention_dim=256))
+    enc_cfg = VideoEncoderConfig(plan=SMALL_ENCODER_PLAN, latent_channels=16)
+    dec_cfg = VideoDecoderConfig(base_channels=16, latent_channels=16, compute_dtype="bfloat16")
+    enc = make_encoder(dev, seed=43, cfg=enc_cfg)
+    dec = init_video_decoder_(VideoDecoder(dec_cfg, device=dev), gen)
+    with torch.no_grad():
+        dec.per_channel_statistics.mean_of_means.normal_(generator=gen).mul_(0.3)
+        dec.per_channel_statistics.std_of_means.uniform_(0.5, 1.5, generator=gen)
+        enc.per_channel_statistics.load_state_dict(dec.per_channel_statistics.state_dict())
+    pipe = OneStagePipeline(dit, video_encoder=enc, video_decoder=dec)
+    positive, negative = (torch.randn(1, 16, 256, generator=gen, device=dev) * 0.5 for _ in range(2))
+    tiling = TilingConfig(SpatialTilingConfig(64, 32), TemporalTilingConfig(16, 8))
+    sigmas = LTX2Scheduler().execute(steps=steps).tolist()
+    tiles = len(generate_tile_specs((1, 16, 3, 4, 4), tiling))
+    decode_convs = conv_launches(dec_cfg) * tiles
+    requests = {
+        "A": ({"rescale_scale": 0.7, "token_bucket": 64}, [ImageCondition(image, 0, IMAGE_STRENGTH)],
+              OPTIONS_A | {"stg_blocks": [1], "cross_attn_start_block": 1}),
+        "B": ({"rescale_scale": 0.0, "cfg_interval": OPTIONS_B_INTERVAL}, [],
+              {"guider_override": LtxAPGGuider(**OPTIONS_B_APG)}),
+        "stateful_apg": ({"rescale_scale": 0.0}, [],
+                         {"guider_override": StatefulAPGGuider(**OPTIONS_B_APG, momentum=0.5)}),
+    }
+    recs = {}
+    for name, (fields, images, kwargs) in requests.items():
+        def run(seed):
+            latents = {}
+            config = OneStageCFGConfig(height=128, width=128, num_frames=17, seed=seed, num_inference_steps=steps,
+                                       dtype="bfloat16", latent_channels=16, tiling_config=tiling, **fields)
+            frames, _ = pipe(positive, negative, config, images=images,
+                             callback=lambda phase, z: latents.setdefault(phase, z.float()), **kwargs)
+            return frames, latents
+
+        _reset_counts()
+        frames_k, lat_k = run(5)
+        counts, key_valid = _counts(), _key_valid_launches()
+        with _plain_kernels():
+            frames_p, lat_p = run(5)
+            frames_other, _ = run(6)
+        flash = _options_flash(2, steps, sigmas, "A" if name == "A" else "B")
+        want = {"fwd": flash["fwd"], "bwd": 0,
+                "conv": (encoder_convs(enc_cfg) if images else 0) + decode_convs}
+        rec = {"launches": counts | {"key_valid": key_valid}, "expected": want | {"key_valid": flash["key_valid"]},
+               "frames": list(frames_k.shape),
+               "latents": {k: {x: v for x, v in _mismatch(lat_k[k], lat_p[k]).items() if x != "ref_rms"}
+                           for k in lat_k},
+               "frames_vs_plain": _frame_diff(frames_k, frames_p),
+               "planted_other_seed": _frame_diff(frames_other, frames_p),
+               "tol_latent_rms_rel": TOL_SMALL_LATENT_RMS_REL, "tol_mean_levels": TOL_SMALL_MEAN_LEVELS, "card": smi}
+        log(f"one-stage options small-input check {name} (kernels vs plain on the card): {json.dumps(rec)}")
+        if counts != want or key_valid != flash["key_valid"]:
+            raise AssertionError(f"small one-stage options {name}: launches {counts}, key-valid {key_valid}, "
+                                 f"expected {want}, {flash}")
+        if frames_k.shape != (17, 128, 128, 3) or "denoise" not in lat_k:
+            raise AssertionError(f"small one-stage options {name}: output {rec}")
+        if any(not r["finite"] or r["rms_rel_err"] > TOL_SMALL_LATENT_RMS_REL for r in rec["latents"].values()):
+            raise AssertionError(f"small one-stage options {name}: latents disagree with the plain path: "
+                                 f"{rec['latents']}")
+        if rec["frames_vs_plain"]["mean_levels"] > TOL_SMALL_MEAN_LEVELS:
+            raise AssertionError(f"small one-stage options {name}: frames disagree with the plain path: "
+                                 f"{rec['frames_vs_plain']}")
+        if rec["planted_other_seed"]["mean_levels"] <= TOL_SMALL_MEAN_LEVELS:
+            raise AssertionError(f"small one-stage options {name}: the check accepts another seed's clip: {rec}")
+        recs[name] = rec
+    del pipe, dit, enc, dec
+    torch.cuda.empty_cache()
+    return recs
+
+
 def phase_image_gate(smi: str, image: str) -> dict:
     """Exactness: the one-stage pipeline (a 2-block full-width bf16 DiT, the
     full-width encoder, 128x128x9, 3 steps) with the image at strength 1.0
@@ -1826,11 +2068,13 @@ def phase_image_to_video(smi: str):
         two_stage_counts, rec["two_stage"] = phase_image_two_stage(smi, image)
         one_stage_counts, rec["one_stage"] = phase_one_stage(smi, image)
         rec["one_stage_small_check"] = phase_one_stage_small(smi, image)
+        options_counts, rec["one_stage_options"] = phase_one_stage_options(smi, image)
+        rec["one_stage_options_small_check"] = phase_one_stage_options_small(smi, image)
         rec["exactness_gate"] = phase_image_gate(smi, image)
         rec["cli"] = phase_cli_image(smi, image)
     finally:
         shutil.rmtree(directory, ignore_errors=True)
-    return two_stage_counts, one_stage_counts, rec
+    return two_stage_counts, one_stage_counts, options_counts, rec
 
 
 def _counters():
@@ -1843,6 +2087,13 @@ def _counters():
 def _reset_counts():
     for c in _counters().values():
         c.launches = 0
+    _counters()["fwd"].key_valid_launches = 0
+
+
+def _key_valid_launches() -> int:
+    """Flash launches with a key-valid mask since the last _reset_counts
+    (also counted in _counts()["fwd"])."""
+    return _counters()["fwd"].key_valid_launches
 
 
 def _counts() -> dict:
@@ -2030,7 +2281,7 @@ def main():
         f"{json.dumps(side_by_side)} | {smi}")
     torch.cuda.empty_cache()
     two_stage_small = phase_two_stage_small(smi)
-    i2v_two_stage, i2v_one_stage, image_to_video = phase_image_to_video(smi)
+    i2v_two_stage, i2v_one_stage, options, image_to_video = phase_image_to_video(smi)
     torch.cuda.empty_cache()
     bwd = phase_bwd_kernels()
     model, train_counts = phase_train_steps(smi)
@@ -2054,11 +2305,16 @@ def main():
             "source": "ltx2_tpu_torch/csrc/flash_attention.cu",
             "replaces": "ltx2_tpu/ops/attention.py:188",
             "launches": (serve_counts["fwd"] + two_stage_counts["fwd"] + file_counts["fwd"] + i2v_two_stage["fwd"]
-                         + i2v_one_stage["fwd"] + train_counts["fwd"]),
+                         + i2v_one_stage["fwd"] + options["fwd"] + train_counts["fwd"]),
             "launches_by_path": {"serve": serve_counts["fwd"], "serve_two_stage": two_stage_counts["fwd"],
                                  "serve_two_stage_from_files": file_counts["fwd"],
                                  "image_to_video_two_stage": i2v_two_stage["fwd"],
-                                 "one_stage": i2v_one_stage["fwd"], "train": train_counts["fwd"]},
+                                 "one_stage": i2v_one_stage["fwd"], "one_stage_options": options["fwd"],
+                                 "train": train_counts["fwd"]},
+            # The key-valid route (ltx2_tpu/ops/attention.py:222, _flash_attention_masked), counted in
+            # "launches" too: the token bucket's self-attention.
+            "key_valid_launches": options["key_valid"],
+            "key_valid_launches_by_path": {"one_stage_options": options["key_valid"]},
             "max_abs_err": max(max(r["max_abs_err"] for r in recs),
                                max(r["max_abs_err_fwd_residuals"] for r in bwd)),
             "ms": self_rec["ms"],
@@ -2094,12 +2350,13 @@ def main():
             "replaces": conv_replaces,
             "launches": (serve_counts["conv"] + two_stage_counts["conv"] - upscale_launches
                          + file_counts["conv"] - file_upscale_launches + i2v_two_stage["conv_bf16"]
-                         + i2v_one_stage["conv_bf16"]),
+                         + i2v_one_stage["conv_bf16"] + options["conv_bf16"]),
             "launches_by_path": {"serve": serve_counts["conv"],
                                  "serve_two_stage": two_stage_counts["conv"] - upscale_launches,
                                  "serve_two_stage_from_files": file_counts["conv"] - file_upscale_launches,
                                  "image_to_video_two_stage": i2v_two_stage["conv_bf16"],
-                                 "one_stage": i2v_one_stage["conv_bf16"]},
+                                 "one_stage": i2v_one_stage["conv_bf16"],
+                                 "one_stage_options": options["conv_bf16"]},
             "max_abs_err": max(r["max_abs_err"] for r in bf16_recs),
             "ms": bf16_recs[0]["ms"],
             "plain_ms": bf16_recs[0]["plain_ms"],
@@ -2115,11 +2372,12 @@ def main():
             "kernel": "conv3d_tf32x3_kernel",
             "replaces": conv_replaces,
             "launches": (upscale_launches + file_upscale_launches + i2v_two_stage["conv_fp32"]
-                         + i2v_one_stage["conv_fp32"]),
+                         + i2v_one_stage["conv_fp32"] + options["conv_fp32"]),
             "launches_by_path": {"serve_two_stage": upscale_launches,
                                  "serve_two_stage_from_files": file_upscale_launches,
                                  "image_to_video_two_stage": i2v_two_stage["conv_fp32"],
-                                 "one_stage": i2v_one_stage["conv_fp32"]},
+                                 "one_stage": i2v_one_stage["conv_fp32"],
+                                 "one_stage_options": options["conv_fp32"]},
             "max_abs_err": max(r["max_abs_err"] for r in fp32_recs),
             "ms": fp32_recs[0]["ms"],
             "plain_ms": fp32_recs[0]["plain_ms"],

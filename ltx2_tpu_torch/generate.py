@@ -18,7 +18,16 @@ Four flows, chosen with `--pipeline`:
   text_to_video.py): LTX2Scheduler sigmas, `--num-inference-steps` Euler
   steps with the prompt and the negative prompt as two guidance rows
   (CFG* at `--cfg-scale` when `--rescale-scale` > 0; text-to-video is plain
-  CFG), VAE decode (tiled above 4000 latent voxels).
+  CFG), VAE decode (tiled above 4000 latent voxels). They take the JAX
+  CLI's loop options with its names and defaults: `--stg-scale`,
+  `--stg-blocks`, `--stg-cutoff`, `--stg-mode` (a third guidance row with
+  self-attention skipped in those blocks), `--apg-scale`, `--apg-eta`,
+  `--apg-norm-threshold`, `--apg-momentum` (APG in place of CFG),
+  `--ge-gamma`, `--sampler euler|heun`, `--cfg-interval` (the uncond row on
+  every k-th step only), `--token-bucket` (the token count padded up to a
+  multiple, the padding masked out of self-attention's keys),
+  `--cross-attn-scale` from `--cross-attn-start-block`, `--cache-text-kv`,
+  and `--upscale-spatial` (the 2x spatial upscaler after the loop).
 
 `--image PATH[:FRAME[:STRENGTH]]` (repeatable; frame 0 and `--image-strength`
 by default) conditions the distilled and the CFG flows on 8-bit PNGs: each is
@@ -55,6 +64,10 @@ From Python: `generate_video(seed=0)`, `generate_videos([0, 1, ...])` or
     python -m ltx2_tpu_torch.generate --pipeline distilled --image cat.png:0:0.95
     python -m ltx2_tpu_torch.generate --pipeline one-stage --height 480 --width 704 --frames 97 --image cat.png
     python -m ltx2_tpu_torch.generate --pipeline text-to-video --num-inference-steps 30 --cfg-scale 5
+    python -m ltx2_tpu_torch.generate --pipeline one-stage --image cat.png --stg-scale 1 --stg-blocks 29 \
+        --sampler heun --ge-gamma 0.5 --cross-attn-scale 0.5 --cache-text-kv --token-bucket 512
+    python -m ltx2_tpu_torch.generate --pipeline text-to-video --apg-scale 3 --apg-eta 0.5 \
+        --apg-norm-threshold 5 --cfg-interval 2
     python -m ltx2_tpu_torch.generate --pipeline distilled --checkpoint ltx-2.safetensors \
         --spatial-upscaler upscaler.safetensors --gemma-dir gemma-3-12b --text-encoder --fp8-serving --gemma-fp8
 """
@@ -71,7 +84,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ltx2_tpu_torch.components.guiders import CFGGuider
+from ltx2_tpu_torch.components.guiders import CFGGuider, LtxAPGGuider, StatefulAPGGuider
 from ltx2_tpu_torch.components.noisers import GaussianNoiser
 from ltx2_tpu_torch.components.patchifiers import VideoLatentPatchifier
 from ltx2_tpu_torch.components.schedulers import DISTILLED_SIGMA_VALUES
@@ -85,12 +98,15 @@ from ltx2_tpu_torch.models.text_encoder import (
 )
 from ltx2_tpu_torch.models.transformer.blocks import VideoBlock
 from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelConfig, init_ltx_model_
-from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscaler, SpatialUpscalerConfig, init_spatial_upscaler_
+from ltx2_tpu_torch.models.upscaler.spatial import (
+    SpatialUpscaler, SpatialUpscalerConfig, init_spatial_upscaler_, spatial_upscaler_apply,
+)
 from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoder, VideoEncoderConfig, init_video_encoder_
 from ltx2_tpu_torch.models.video_vae.chunking import decode_latent
 from ltx2_tpu_torch.models.video_vae.decoder import (
     PerChannelStatistics, VideoDecoder, VideoDecoderConfig, init_video_decoder_,
 )
+from ltx2_tpu_torch.models.video_vae.ops import normalize_latent, un_normalize_latent
 from ltx2_tpu_torch.models.video_vae.tiling import generate_tile_specs
 from ltx2_tpu_torch.models.video_vae.weights import load_per_channel_statistics
 from ltx2_tpu_torch.ops.attention import flash_attention
@@ -298,13 +314,35 @@ def _dit_and_encoder(stats, device, layers: int, dit, encoder, images, ledger, c
     return dit, encoder
 
 
+def _spatial_upscaler(stats, device, upscaler, ledger, needed_by: str) -> SpatialUpscaler:
+    """The spatial upscaler (given, from `ledger`, or random), timed."""
+    if upscaler is None and ledger is not None:
+        upscaler, stats[0]["upscaler_init_s"] = _timed(device, ledger.spatial_upscaler)
+        if upscaler is None:
+            raise ValueError(f"{needed_by} needs the spatial upscaler's file (spatial_upscaler_path)")
+    elif upscaler is None:
+        upscaler, stats[0]["upscaler_init_s"] = _timed(device, lambda: make_upscaler(device))
+    return upscaler
+
+
+def _latent_statistics(cfg: LTXModelConfig, decoder, ledger, device) -> PerChannelStatistics:
+    """The latent statistics of the upscale bracket: the decoder's, the
+    checkpoint's, or the defaults (0, 1) a random decoder holds."""
+    if decoder is not None:
+        return decoder.per_channel_statistics
+    if ledger is not None:
+        return load_per_channel_statistics(ledger.checkpoint_path, cfg.in_channels, device)
+    return PerChannelStatistics(cfg.in_channels, device=device)
+
+
 def _phase_timer(device, st: dict, phase_peaks: bool):
     """A pipeline callback that writes each phase's seconds (`{phase}_s`,
     from the previous phase's end), peak memory and conv launches into
     `st`, and the finiteness of its latent; `marks` holds the request's
-    start (time, flash and conv launch counts)."""
+    start (time, flash, key-valid flash and conv launch counts)."""
     _sync(device)
-    marks = {"t": time.perf_counter(), "attention": flash_attention.launches, "conv": conv3d_ndhwc_kernel.launches}
+    marks = {"t": time.perf_counter(), "attention": flash_attention.launches,
+             "key_valid": flash_attention.key_valid_launches, "conv": conv3d_ndhwc_kernel.launches}
 
     def on_phase(phase: str, latent: torch.Tensor) -> None:
         _sync(device)
@@ -512,19 +550,9 @@ def generate_videos_distilled(
     gemma = text_encoder = None
     dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, images, ledger,
                                     contexts[0].shape[-1] if encoded else None)
-    if upscaler is None and ledger is not None:
-        upscaler, stats[0]["upscaler_init_s"] = _timed(device, ledger.spatial_upscaler)
-        if upscaler is None:
-            raise ValueError("the two-stage recipe needs the spatial upscaler's file (spatial_upscaler_path)")
-    elif upscaler is None:
-        upscaler, stats[0]["upscaler_init_s"] = _timed(device, lambda: make_upscaler(device))
+    upscaler = _spatial_upscaler(stats, device, upscaler, ledger, "the two-stage recipe")
     cfg = dit.cfg
-    if decoder is not None:
-        statistics = decoder.per_channel_statistics
-    elif ledger is not None:
-        statistics = load_per_channel_statistics(ledger.checkpoint_path, cfg.in_channels, device)
-    else:
-        statistics = PerChannelStatistics(cfg.in_channels, device=device)
+    statistics = _latent_statistics(cfg, decoder, ledger, device)
     pipe = DistilledPipeline(dit, upscaler, statistics=statistics, video_encoder=encoder)
 
     configs, latents = [], []
@@ -596,6 +624,10 @@ def generate_videos_one_stage(
     gemma: Optional[Gemma3] = None,
     phase_peaks: bool = False,
     ledger: Optional[ModelLedger] = None,
+    cfg_interval: int = 1,
+    token_bucket: int = 0,
+    upscale_spatial: bool = False,
+    **loop_options,
 ) -> Tuple[List[np.ndarray], List[dict]]:
     """The single-stage CFG pipeline, one clip per seed at the JAX
     package's OneStageCFGConfig defaults (480x704x97, 30 steps, CFG* at 3.0
@@ -611,9 +643,19 @@ def generate_videos_one_stage(
     `generate_videos_distilled`; `noises[i]` replaces request i's noise. The
     DiT and the encoder are released before the decoder is built. Stats per
     request: seconds of the text encode, the image encode, the denoise (and
-    a step) and the decode, attention launches, conv launches of the image
-    encode and the decode, decode tiles, the latent's finiteness and std,
-    and with `phase_peaks` each phase's peak memory.
+    a step) and the decode, attention launches (and those with a key-valid
+    mask), conv launches of the image encode and the decode, decode tiles,
+    the latent's finiteness and std, and with `phase_peaks` each phase's
+    peak memory.
+
+    The loop options: `cfg_interval` and `token_bucket` go into the
+    config; `loop_options` (stg_scale, stg_blocks, stg_cutoff, stg_mode,
+    guider_override, ge_gamma, sampler, cross_attn_scale,
+    cross_attn_start_block, cache_text_kv) to `OneStagePipeline`. With
+    `upscale_spatial` the 2x spatial upscaler (the ledger's, or random from
+    seed 2) runs after the loop in the un-normalize /
+    re-normalize bracket of the decoder's statistics (its phase "upscale"
+    in the stats), and the decoder decodes the upscaled latent.
     """
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -631,13 +673,23 @@ def generate_videos_one_stage(
                                     contexts[0].shape[-1] if encoded else None)
     cfg = dit.cfg
     pipe = OneStagePipeline(dit, video_encoder=encoder)
+    spatial = upscaler = None
+    if upscale_spatial:
+        upscaler = _spatial_upscaler(stats, device, None, ledger, "--upscale-spatial")
+        statistics = _latent_statistics(cfg, decoder, ledger, device)
+
+        def spatial(latent: torch.Tensor) -> torch.Tensor:
+            # Pipeline without a decoder: the bracket is applied here.
+            upscaled = spatial_upscaler_apply(upscaler, un_normalize_latent(latent, statistics))
+            return normalize_latent(upscaled, statistics)
 
     configs, latents = [], []
     for i, (seed, st) in enumerate(zip(seeds, stats)):
         config = OneStageCFGConfig(height=height, width=width, num_frames=frames, seed=seed,
                                    num_inference_steps=steps, cfg_scale=cfg_scale, rescale_scale=rescale_scale,
                                    token_dependent_shift=token_shift, dtype=cfg.compute_dtype,
-                                   latent_channels=cfg.in_channels)
+                                   latent_channels=cfg.in_channels, cfg_interval=cfg_interval,
+                                   token_bucket=token_bucket)
         if contexts is not None:
             positive, negative = contexts[i][0:1], contexts[i][1:2]
         else:
@@ -645,17 +697,18 @@ def generate_videos_one_stage(
             positive, negative = dummy_context(cfg, gen, device), dummy_context(cfg, gen, device)
         on_phase, marks = _phase_timer(device, st, phase_peaks)
         latent, _ = pipe(positive, negative, config, images=images, callback=on_phase, skip_decode=True,
-                         noise=None if noises is None else noises[i])
+                         noise=None if noises is None else noises[i], spatial_upscaler=spatial, **loop_options)
         st["denoise_step_s"] = st["denoise_s"] / steps
         st["attention_launches"] = flash_attention.launches - marks["attention"]
+        st["key_valid_attention_launches"] = flash_attention.key_valid_launches - marks["key_valid"]
         st["latent_std"] = float(latent.float().std())
         configs.append(config)
         latents.append(latent)
 
-    del dit, encoder, pipe
+    del dit, encoder, pipe, upscaler, spatial
     if ledger is not None:
-        ledger.clear_model("transformer")
-        ledger.clear_model("video_encoder")
+        for name in ("transformer", "video_encoder", "spatial_upscaler"):
+            ledger.clear_model(name)
     return _decode_phase(latents, configs, stats, device, decoder, ledger, cfg.compute_dtype, phase_peaks,
                          lambda seed: stage_seeds(seed, 2)[1]), stats
 
@@ -680,6 +733,23 @@ def parse_image_spec(spec: str, default_strength: float = 0.95) -> ImageConditio
     parts = spec.split(":")
     return ImageCondition(image_path=parts[0], frame_index=int(parts[1]) if len(parts) > 1 else 0,
                           strength=float(parts[2]) if len(parts) > 2 else default_strength)
+
+
+# The one-stage / text-to-video loop options' argparse names.
+LOOP_FLAGS = ("stg_scale", "stg_blocks", "stg_cutoff", "stg_mode", "apg_scale", "apg_eta", "apg_norm_threshold",
+              "apg_momentum", "ge_gamma", "sampler", "cfg_interval", "token_bucket", "cross_attn_scale",
+              "cross_attn_start_block", "cache_text_kv", "upscale_spatial")
+
+
+def apg_guider(args) -> Optional[Union[LtxAPGGuider, StatefulAPGGuider]]:
+    """The guider `--apg-*` asks for, as scripts/generate.py builds it: none
+    at scale 0, the stateful APG with a momentum, else LtxAPGGuider."""
+    if not args.apg_scale:
+        return None
+    if args.apg_momentum:
+        return StatefulAPGGuider(scale=args.apg_scale, eta=args.apg_eta, norm_threshold=args.apg_norm_threshold,
+                                 momentum=args.apg_momentum)
+    return LtxAPGGuider(scale=args.apg_scale, eta=args.apg_eta, norm_threshold=args.apg_norm_threshold)
 
 
 def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
@@ -729,15 +799,46 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
                     help="with --gemma-dir: quantize Gemma's matmul weights to fp8 at load (embeddings bf16)")
     ap.add_argument("--lora", action="append", default=[], metavar="PATH[:STRENGTH]",
                     help="with --checkpoint: a LoRA file fused into the DiT at load, repeatable")
+    loop = ap.add_argument_group("one-stage and text-to-video loop options (the JAX CLI's names and defaults)")
+    loop.add_argument("--stg-scale", type=float, default=0.0,
+                      help="STG: a third guidance row with self-attention skipped in --stg-blocks")
+    loop.add_argument("--stg-blocks", type=str, default=None, help="comma-separated block indices (default: all)")
+    loop.add_argument("--stg-cutoff", type=float, default=1.0,
+                      help="STG applies on steps with (i + 1) / steps <= this")
+    loop.add_argument("--stg-mode", choices=["video", "audio", "both"], default="video",
+                      help="the stream(s) STG perturbs; audio needs the audio branch, which is not ported")
+    loop.add_argument("--apg-scale", type=float, default=0.0, help="APG in place of CFG at this scale (0 = off)")
+    loop.add_argument("--apg-eta", type=float, default=1.0)
+    loop.add_argument("--apg-norm-threshold", type=float, default=0.0,
+                      help="APG guidance-norm clamp (0 = disabled)")
+    loop.add_argument("--apg-momentum", type=float, default=0.0,
+                      help="APG momentum EMA of the guidance delta (0 = disabled)")
+    loop.add_argument("--ge-gamma", type=float, default=0.0, help="GE velocity momentum (0 = off)")
+    loop.add_argument("--sampler", choices=["euler", "heun"], default="euler")
+    loop.add_argument("--cfg-interval", type=int, default=1,
+                      help="guidance reuse: the unconditional row on every k-th step only (1 = exact CFG)")
+    loop.add_argument("--token-bucket", type=int, default=0,
+                      help="round the token count up to a multiple of this and mask the padding (0 = off)")
+    loop.add_argument("--cross-attn-scale", type=float, default=1.0,
+                      help="scale of the text cross-attention output from --cross-attn-start-block on")
+    loop.add_argument("--cross-attn-start-block", type=int, default=40)
+    loop.add_argument("--cache-text-kv", action="store_true",
+                      help="compute the blocks' text cross-attention K/V once per generation")
+    loop.add_argument("--upscale-spatial", action="store_true",
+                      help="the 2x spatial upscaler after the loop (random weights, or --spatial-upscaler's file "
+                           "with --checkpoint)")
     args = ap.parse_args(argv)
     cfg_flow = args.pipeline in ("one-stage", "text-to-video")
+    loop_flags = [f"--{dest.replace('_', '-')}" for dest in LOOP_FLAGS if getattr(args, dest) != ap.get_default(dest)]
+    if loop_flags and not cfg_flow:
+        ap.error(f"{', '.join(loop_flags)} need --pipeline one-stage or text-to-video")
     if args.pipeline == "bench-e2e":
         for flag, used in (("--text-encoder", args.text_encoder), ("--checkpoint", args.checkpoint),
                            ("--image", args.image)):
             if used:
                 ap.error(f"{flag} needs --pipeline distilled, one-stage or text-to-video")
-    if args.spatial_upscaler and args.pipeline != "distilled":
-        ap.error("--spatial-upscaler needs --pipeline distilled")
+    if args.spatial_upscaler and args.pipeline != "distilled" and not args.upscale_spatial:
+        ap.error("--spatial-upscaler needs --pipeline distilled, or --upscale-spatial")
     file_flags = {"--spatial-upscaler": args.spatial_upscaler, "--gemma-dir": args.gemma_dir,
                   "--fp8-serving": args.fp8_serving, "--gemma-fp8": args.gemma_fp8, "--lora": args.lora}
     if not args.checkpoint and any(file_flags.values()):
@@ -764,7 +865,12 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
             rescale = 0.0 if args.pipeline == "text-to-video" else args.rescale_scale
             videos, stats = generate_videos_one_stage(
                 seeds, steps=args.num_inference_steps, cfg_scale=args.cfg_scale, rescale_scale=rescale,
-                token_shift=args.token_shift, **flow)
+                token_shift=args.token_shift, cfg_interval=args.cfg_interval, token_bucket=args.token_bucket,
+                upscale_spatial=args.upscale_spatial, stg_scale=args.stg_scale,
+                stg_blocks=[int(b) for b in args.stg_blocks.split(",")] if args.stg_blocks else None,
+                stg_cutoff=args.stg_cutoff, stg_mode=args.stg_mode, guider_override=apg_guider(args),
+                ge_gamma=args.ge_gamma, sampler=args.sampler, cross_attn_scale=args.cross_attn_scale,
+                cross_attn_start_block=args.cross_attn_start_block, cache_text_kv=args.cache_text_kv, **flow)
         else:
             videos, stats = generate_videos_distilled(seeds, **flow)
     for video, st in zip(videos, stats):

@@ -5,8 +5,9 @@ QKV linears with bias, RMSNorm over the FULL inner dim of Q and K (not per
 head), RoPE on Q/K (SPLIT in the DiT, INTERLEAVED in the text connector),
 then `sdpa_tokens`, which on the GPU is the hand-written flash-attention
 kernel for the DiT's bf16 attention (the connector's fp32 attention takes
-`sdpa`'s plain route). Not ported yet: V2 gated attention, cached text K/V,
-and the sequence- and tensor-parallel paths.
+`sdpa`'s plain route). A step-invariant context's K/V may be handed in
+precomputed (`cached_kv`: V1 text-KV caching). Not ported yet: V2 gated
+attention, and the sequence- and tensor-parallel paths.
 """
 
 from __future__ import annotations
@@ -64,15 +65,22 @@ def attention_apply(
     context: Optional[torch.Tensor] = None,
     mask: Optional[torch.Tensor] = None,
     pe: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    cached_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """Attention forward over (B, T, D) tokens; `context` None = self-attention."""
+    """Attention forward over (B, T, D) tokens; `context` None = self-attention.
+    cached_kv: the context's (k, v), already projected and k-normed; the
+    K/V projections are then skipped (RoPE is never applied to them)."""
     q = rms_norm(linear(p.to_q, x), p.q_norm.weight, cfg.norm_eps)
-    ctx = x if context is None else context
-    k = rms_norm(linear(p.to_k, ctx), p.k_norm.weight, cfg.norm_eps)
-    v = linear(p.to_v, ctx)
+    if cached_kv is not None:
+        k, v = cached_kv
+    else:
+        ctx = x if context is None else context
+        k = rms_norm(linear(p.to_k, ctx), p.k_norm.weight, cfg.norm_eps)
+        v = linear(p.to_v, ctx)
     if pe is not None:
         q = apply_rotary_emb(q, pe, cfg.rope_type)
-        k = apply_rotary_emb(k, pe, cfg.rope_type)
+        if cached_kv is None:
+            k = apply_rotary_emb(k, pe, cfg.rope_type)
     out = sdpa_tokens(q, k, v, cfg.heads, cfg.dim_head, mask=mask)
     return linear(p.to_out, out)
 

@@ -3,16 +3,17 @@ ltx2_tpu/models/transformer/blocks.py).
 
 self-attention (AdaLN, RoPE) -> text cross-attention -> FFN, with the AdaLN
 tables, modulation and gated residuals in fp32 and matmul inputs cast back
-to the compute dtype. Not ported yet: the audio stream, audio<->video
-cross-modal attention, V2 cross-attention AdaLN, STG perturbation masks and
-the late-block cross-attention scale.
+to the compute dtype; optional per-row keep masks on the residuals (STG),
+a scale on the text cross-attention output (the late-block hook) and
+precomputed text K/V (V1 caching). Not ported yet: the audio stream,
+audio<->video cross-modal attention and V2 cross-attention AdaLN.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -78,17 +79,28 @@ def _modulate(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, eps: fl
     return (rms_norm(x, None, eps).float() * (1.0 + scale) + shift).to(x.dtype)
 
 
-def _gated_residual(x: torch.Tensor, residual: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
-    """x + residual * gate in fp32, back to x.dtype."""
-    return (x.float() + residual.float() * gate).to(x.dtype)
+# Per-block keep masks, (B,) fp32 each: 1 = keep the residual, 0 = skip it.
+PerturbMasks = Dict[str, torch.Tensor]
+
+
+def _gated_residual(x: torch.Tensor, residual: torch.Tensor, gate: torch.Tensor,
+                    keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x + residual * gate [* keep per row] in fp32, back to x.dtype."""
+    update = residual.float() * gate
+    if keep is not None:
+        update = update * keep[:, None, None]
+    return (x.float() + update).to(x.dtype)
 
 
 def _text_cross_attention(
-    p: VideoBlock, attn_cfg: AttentionConfig, x: torch.Tensor, args: StreamArgs, norm_eps: float
+    p: VideoBlock, attn_cfg: AttentionConfig, x: torch.Tensor, args: StreamArgs, norm_eps: float,
+    cached_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """V1 text cross-attention: rms-normed queries, projected text keys."""
+    """V1 text cross-attention: rms-normed queries, projected text keys (or
+    this block's precomputed K/V)."""
     return attention_apply(
-        p.attn2, attn_cfg, rms_norm(x, None, norm_eps), context=args.context, mask=args.context_mask
+        p.attn2, attn_cfg, rms_norm(x, None, norm_eps), context=args.context, mask=args.context_mask,
+        cached_kv=cached_kv,
     )
 
 
@@ -97,8 +109,15 @@ def av_block_apply(
     video: StreamArgs,
     video_cfg: StreamConfig,
     norm_eps: float = 1e-6,
+    perturb: Optional[PerturbMasks] = None,
+    ca_scale: Optional[torch.Tensor] = None,
+    video_text_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> StreamArgs:
-    """One transformer block over the video stream."""
+    """One transformer block over the video stream. perturb: optional (B,)
+    keep masks by name ("video_self" gates the self-attention residual);
+    ca_scale: a scalar on the text cross-attention output, applied in its
+    dtype; video_text_kv: this block's precomputed text (k, v)."""
+    perturb = perturb or {}
     attn1 = AttentionConfig(
         query_dim=video_cfg.dim, heads=video_cfg.heads, dim_head=video_cfg.d_head, norm_eps=norm_eps
     )
@@ -109,9 +128,11 @@ def av_block_apply(
     attn_out = attention_apply(
         p.attn1, attn1, _modulate(vx, scale_msa, shift_msa, norm_eps), pe=video.pe, mask=video.self_mask
     )
-    vx = _gated_residual(vx, attn_out, gate_msa)
+    vx = _gated_residual(vx, attn_out, gate_msa, perturb.get("video_self"))
 
-    cross_out = _text_cross_attention(p, attn2, vx, video, norm_eps)
+    cross_out = _text_cross_attention(p, attn2, vx, video, norm_eps, cached_kv=video_text_kv)
+    if ca_scale is not None:
+        cross_out = cross_out * ca_scale.to(cross_out.dtype)
     vx = (vx.float() + cross_out.float()).to(vx.dtype)
 
     shift_mlp, scale_mlp, gate_mlp = _ada_values(p.scale_shift_table, video.timesteps, 3, 6)

@@ -7,9 +7,12 @@ backward when `remat` is on and a gradient is being recorded (as
 `jax.checkpoint` around the JAX scan body), final LayerNorm + scale/shift +
 projection, and the x0 (denoised) wrapper; with `caption_channels` set,
 the V1 caption projection (linear -> gelu-tanh -> linear) maps the text
-encoder's output to the model's width before the blocks. Not ported yet:
-the audio and audio-video models, V2 (cross-attention AdaLN, gated
-attention, prompt AdaLN), STG perturbations, text-KV caching and the
+encoder's output to the model's width before the blocks. The forward takes
+the denoise loop's options: static STG perturbation configs (per-row keep
+masks on each block's self-attention residual), per-block scales of the
+text cross-attention output, and text K/V precomputed once per generation
+(`precompute_text_kv`, V1). Not ported yet: the audio and audio-video
+models, V2 (cross-attention AdaLN, gated attention, prompt AdaLN) and the
 parallel variants.
 """
 
@@ -17,13 +20,16 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from functools import lru_cache
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ltx2_tpu_torch.components.perturbations import BatchedPerturbationConfig, PerturbationType
+from ltx2_tpu_torch.core import rms_norm
 from ltx2_tpu_torch.models.transformer.blocks import StreamArgs, StreamConfig, VideoBlock, av_block_apply
 from ltx2_tpu_torch.ops.common import Linear, init_linear_, layer_norm, linear
 from ltx2_tpu_torch.ops.rope import precompute_freqs_cis
@@ -144,6 +150,17 @@ def _prepare_attention_mask(mask: Optional[torch.Tensor], dtype: torch.dtype) ->
     return additive.reshape(mask.shape[0], 1, 1, mask.shape[-1]).to(dtype)
 
 
+def _project_context(model: LTXModel, context: torch.Tensor) -> torch.Tensor:
+    """The text context in the compute dtype, through the caption projection
+    when the model has one, as (B, S, inner)."""
+    cfg = model.cfg
+    context = context.to(cfg.dtype)
+    if cfg.caption_channels is not None:
+        proj = model.caption_projection
+        context = linear(proj.linear_2, F.gelu(linear(proj.linear_1, context), approximate="tanh"))
+    return context.reshape(context.shape[0], -1, cfg.video_inner_dim)
+
+
 def prepare_stream_args(
     model: LTXModel,
     video: Modality,
@@ -158,11 +175,7 @@ def prepare_stream_args(
     timestep_emb, embedded = _prepare_timestep(
         model.adaln_single, video.timesteps, inner, batch, cfg.timestep_scale_multiplier
     )
-    context = video.context.to(dtype)
-    if cfg.caption_channels is not None:
-        proj = model.caption_projection
-        context = linear(proj.linear_2, F.gelu(linear(proj.linear_1, context), approximate="tanh"))
-    context = context.reshape(batch, -1, inner)
+    context = _project_context(model, video.context)
     if video_pe is None:
         video_pe = precompute_freqs_cis(
             video.positions, dim=inner, theta=cfg.positional_embedding_theta,
@@ -188,27 +201,91 @@ def _process_output(
     return linear(proj, out.to(x.dtype))
 
 
-def _block_x(block: VideoBlock, x: torch.Tensor, args: StreamArgs, stream: StreamConfig, eps: float):
+@lru_cache(maxsize=32)
+def _perturbation_mask_array(perturbations: Optional[BatchedPerturbationConfig], num_layers: int, batch: int,
+                             device=None) -> Dict[str, torch.Tensor]:
+    """Static perturbation config -> (L, B) fp32 keep masks per type, on
+    `device` (all ones without a config). Built once per config and device:
+    the tensors are constants, never written."""
+    key_to_type = {
+        "video_self": PerturbationType.SKIP_VIDEO_SELF_ATTN,
+        "audio_self": PerturbationType.SKIP_AUDIO_SELF_ATTN,
+        "a2v": PerturbationType.SKIP_A2V_CROSS_ATTN,
+        "v2a": PerturbationType.SKIP_V2A_CROSS_ATTN,
+    }
+    if perturbations is None:
+        return {name: torch.ones((num_layers, batch), dtype=torch.float32, device=device) for name in key_to_type}
+    return {name: torch.stack([perturbations.mask(ptype, layer, device=device) for layer in range(num_layers)])
+            for name, ptype in key_to_type.items()}
+
+
+def _stacked_linear(layers: Sequence[Linear], x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, C) through each of L linears -> (L, B, S, O), each as `linear`
+    computes it (an fp8 weight dequantized in the JAX package's order; int8
+    raises as there). Unfused runtime LoRA is refused: the cached K/V would
+    drop its delta."""
+    if any(getattr(p, "lora_A", None) is not None or getattr(p, "lora_B", None) is not None for p in layers):
+        raise ValueError(
+            "cache_text_kv is unsupported with unfused runtime LoRA adapters on the K/V projections — fuse the "
+            "LoRA first (loader/lora.py) or disable --cache-text-kv")
+    out = None
+    for i, p in enumerate(layers):
+        y = linear(p, x)
+        if out is None:
+            out = y.new_empty((len(layers), *y.shape))
+        out[i] = y
+    return out
+
+
+@torch.no_grad()
+def precompute_text_kv(model: LTXModel, video_context: torch.Tensor) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    """Every block's text cross-attention K (k-normed) and V from the video
+    context, computed once per generation: {"video": (k, v)}, each
+    (L, B, S, inner) in the compute dtype (48 x 3 x 1024 x 4096 bf16 is 1.2
+    GB each). V1 only, as the whole port is: V2 modulates K/V per step."""
+    blocks = model.transformer_blocks
+    ctx = _project_context(model, video_context)
+    k = _stacked_linear([b.attn2.to_k for b in blocks], ctx)
+    v = _stacked_linear([b.attn2.to_v for b in blocks], ctx)
+    k_w = torch.stack([b.attn2.k_norm.weight for b in blocks])
+    return {"video": (rms_norm(k, k_w[:, None, None, :], model.cfg.norm_eps), v)}
+
+
+def _block_x(block: VideoBlock, x: torch.Tensor, args: StreamArgs, stream: StreamConfig, eps: float,
+             perturb=None, ca_scale=None, text_kv=None):
     """One block on hidden states `x`: the unit that remat recomputes."""
-    return av_block_apply(block, args.replace(x=x), stream, eps).x
+    return av_block_apply(block, args.replace(x=x), stream, eps, perturb, ca_scale, text_kv).x
 
 
 def ltx_model_apply(
     model: LTXModel,
     video: Modality,
     video_pe: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    perturbations: Optional[BatchedPerturbationConfig] = None,
+    ca_scales: Optional[torch.Tensor] = None,
+    text_kv: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
 ) -> torch.Tensor:
-    """Forward pass -> fp32 velocity (B, T, out_channels)."""
+    """Forward pass -> fp32 velocity (B, T, out_channels). perturbations: a
+    static per-row config (STG); ca_scales: (L,) scales of each block's text
+    cross-attention output; text_kv: `precompute_text_kv`'s output. Each
+    None leaves its part of the forward as it is without the option."""
     cfg = model.cfg
     args = prepare_stream_args(model, video, video_pe)
     stream = cfg.video_stream_config()
+    masks = None
+    if perturbations is not None:
+        masks = _perturbation_mask_array(perturbations, cfg.num_layers, args.x.shape[0], args.x.device)
+    vkv = (text_kv or {}).get("video")
     remat = cfg.remat and torch.is_grad_enabled()
-    for block in model.transformer_blocks:
+    for i, block in enumerate(model.transformer_blocks):
+        extra = (None if masks is None else {name: m[i] for name, m in masks.items()},
+                 None if ca_scales is None else ca_scales[i],
+                 None if vkv is None else (vkv[0][i], vkv[1][i]))
         if remat:
-            args = args.replace(x=checkpoint(_block_x, block, args.x, args, stream, cfg.norm_eps,
+            args = args.replace(x=checkpoint(_block_x, block, args.x, args, stream, cfg.norm_eps, *extra,
                                              use_reentrant=False))
         else:
-            args = av_block_apply(block, args, stream, cfg.norm_eps)
+            args = av_block_apply(block, args, stream, cfg.norm_eps, *extra)
     return _process_output(
         model.scale_shift_table, cfg.norm_eps, model.proj_out, args.x, args.embedded_timestep
     ).float()
@@ -218,9 +295,11 @@ def x0_model_apply(
     model: LTXModel,
     video: Modality,
     video_pe: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    **kwargs,
 ) -> torch.Tensor:
-    """Denoised sample x0 = latent - t * velocity, fp32."""
-    velocity = ltx_model_apply(model, video, video_pe)
+    """Denoised sample x0 = latent - t * velocity, fp32; kwargs as
+    ltx_model_apply takes them."""
+    velocity = ltx_model_apply(model, video, video_pe, **kwargs)
     t = video.timesteps.float()
     t = t[:, None, None] if t.ndim == 1 else t[:, :, None]
     return video.latent.float() - t * velocity

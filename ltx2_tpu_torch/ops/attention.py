@@ -21,7 +21,8 @@ the backward kernel; without a gradient to compute it launches the
 forward alone, without residuals. Each kernel is built from the repository's
 source with nvcc into `ltx2_tpu_torch/_build/` on first use and loaded with
 ctypes (`ops/_build.py`, shared with the conv kernel). Each wrapper counts its
-launches in its `launches` attribute.
+launches in its `launches` attribute; the forward also counts those with a
+key-valid mask in `flash_attention.key_valid_launches`.
 
 `sdpa` sends a call to the kernels or to plain torch ops by contract alone
 (`attention_route`), never because a kernel failed: the plain route takes
@@ -220,6 +221,8 @@ def _launch_fwd(q, k, v, scale, kv_valid, residuals: bool):
     if err != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {err}")
     flash_attention.launches += 1
+    if kv_valid is not None:
+        flash_attention.key_valid_launches += 1
     return out, l, m
 
 
@@ -350,6 +353,7 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+flash_attention.key_valid_launches = 0  # the launches with a key-valid mask, counted in `launches` too
 
 
 def mask_kind(mask: Optional[torch.Tensor]) -> Optional[str]:

@@ -1,6 +1,7 @@
 """Shared pipeline utilities (counterpart of ltx2_tpu/pipelines/common.py):
 image loading and image -> latent-index conditionings, denoise-mask
-post-processing, Modality construction with per-token timesteps, and the
+post-processing, shape-bucketed serving (a state's token axis padded to a
+bucket and sliced back), Modality construction with per-token timesteps, and the
 video decode the pipelines share (`decode_video`, the counterpart of
 `OneStagePipeline._decode_video` in ltx2_tpu/pipelines/one_stage.py)."""
 
@@ -8,7 +9,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,6 +104,52 @@ def post_process_latent(
         denoise_mask = denoise_mask[..., None]
     mask = denoise_mask.float()
     return (denoised.float() * mask + clean_latent.float() * (1 - mask)).to(denoised.dtype)
+
+
+def bucketed_tokens(n: int, bucket: int) -> int:
+    """A token count rounded up to a multiple of `bucket`."""
+    return ((n + bucket - 1) // bucket) * bucket
+
+
+def pad_state_tokens(state: LatentState, n_bucket: int) -> Tuple[LatentState, Optional[torch.Tensor]]:
+    """A state's token axis padded to `n_bucket`: (padded state, token mask
+    (B, n_bucket) bool, False at the padding). The pads are zeros in the
+    latent and the clean latent (masked out of attention's keys, so only
+    finiteness matters), 1 in the denoise mask, and the last position
+    repeated (RoPE stays finite). On the grid already: the state and no
+    mask, so attention keeps its unmasked route."""
+    n = state.latent.shape[1]
+    pad = n_bucket - n
+    if pad < 0:
+        raise ValueError(f"token count {n} exceeds bucket {n_bucket}")
+    if pad == 0:
+        return state, None
+    b, device = state.latent.shape[0], state.latent.device
+    token_mask = torch.cat([torch.ones((b, n), dtype=torch.bool, device=device),
+                            torch.zeros((b, pad), dtype=torch.bool, device=device)], dim=1)
+
+    def pad1(x: torch.Tensor, value: float = 0.0) -> torch.Tensor:
+        return torch.cat([x, x.new_full((x.shape[0], pad, *x.shape[2:]), value)], dim=1)
+
+    last = state.positions[:, :, -1:]
+    return LatentState(
+        latent=pad1(state.latent),
+        clean_latent=pad1(state.clean_latent),
+        denoise_mask=pad1(state.denoise_mask, 1.0),
+        positions=torch.cat([state.positions, last.expand(-1, -1, pad, -1)], dim=2),
+    ), token_mask
+
+
+def slice_state_tokens(state: LatentState, n: int) -> LatentState:
+    """pad_state_tokens undone: the first n tokens."""
+    if state.latent.shape[1] == n:
+        return state
+    return LatentState(
+        latent=state.latent[:, :n],
+        clean_latent=state.clean_latent[:, :n],
+        denoise_mask=state.denoise_mask[:, :n],
+        positions=state.positions[:, :, :n],
+    )
 
 
 def timesteps_from_mask(denoise_mask: torch.Tensor, sigma) -> torch.Tensor:

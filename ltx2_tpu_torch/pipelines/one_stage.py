@@ -4,19 +4,24 @@
 Image conditionings (each image encoded at the clip's size and written over
 its latent frame) -> Gaussian noise -> LTX2Scheduler sigmas (the fixed
 4096-token shift, or the clip's token count with `token_dependent_shift`)
--> the denoise loop with CFG* when `rescale_scale` > 0, else classic CFG,
-the two guidance rows on the batch axis, Euler steps, per-token timesteps
-when an image conditions the mask -> clear and un-patchify -> an optional
+-> the denoise loop with CFG* when `rescale_scale` > 0, else classic CFG
+(or `guider_override`), the guidance rows on the batch axis (two, three
+with STG), Euler or Heun steps, per-token timesteps when an image
+conditions the mask -> clear and un-patchify -> an optional
 post-hoc spatial upscale in the un-normalize / re-normalize bracket -> the
 VAE decode (tiled above 4000 latent voxels).
 
 Randomness: the JAX package splits PRNGKey(seed) into noise and decode keys;
 the port draws (noise, decode) seeds from a torch.Generator seeded with
 `config.seed` (`stage_seeds(seed, 2)`). A caller may hand the noise in (the
-tests hand in the JAX package's). Not ported (each raises
-NotImplementedError naming itself): audio, STG, guider_override, GE, Heun,
-cross_attn_scale, cache_text_kv, token_bucket, cfg_interval > 1, the
-temporal upscaler and every mesh.
+tests hand in the JAX package's). The loop options are the JAX package's:
+STG (`stg_scale`, `stg_blocks`, `stg_cutoff`, `stg_mode`), a
+`guider_override` (APG, ...), GE (`ge_gamma`), `sampler` "heun", the late
+cross-attention scale, `cache_text_kv`, and in the config `cfg_interval`
+(guidance reuse) and `token_bucket` (the token count padded up to a
+multiple of it, the padding masked out of self-attention's keys, sliced
+off after the loop). Not ported (each raises NotImplementedError naming
+itself): audio, the temporal upscaler and every mesh.
 """
 
 from __future__ import annotations
@@ -37,7 +42,8 @@ from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoder
 from ltx2_tpu_torch.models.video_vae.ops import normalize_latent, un_normalize_latent
 from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig
 from ltx2_tpu_torch.pipelines.common import (
-    ImageCondition, apply_conditionings, create_image_conditionings, decode_video, encode_image,
+    ImageCondition, apply_conditionings, bucketed_tokens, create_image_conditionings, decode_video, encode_image,
+    pad_state_tokens, slice_state_tokens,
 )
 from ltx2_tpu_torch.pipelines.denoise import DenoiseLoopConfig, make_video_denoise_loop
 from ltx2_tpu_torch.pipelines.distilled import stage_seeds
@@ -47,7 +53,7 @@ from ltx2_tpu_torch.types import VideoLatentShape, VideoPixelShape
 @dataclass
 class OneStageCFGConfig:
     """The video fields of the JAX package's OneStageCFGConfig;
-    `audio_enabled`, `token_bucket` and `cfg_interval` exist to be refused."""
+    `audio_enabled` exists to be refused."""
 
     height: int = 480
     width: int = 704
@@ -72,11 +78,8 @@ class OneStageCFGConfig:
         if self.height % 32 != 0 or self.width % 32 != 0:
             raise ValueError(f"Resolution ({self.height}x{self.width}) must be divisible by 32 for single-stage "
                              f"pipeline.")
-        unsupported = {"audio (audio_enabled)": self.audio_enabled, "token_bucket": self.token_bucket,
-                       "cfg_interval > 1": self.cfg_interval > 1}
-        missing = [name for name, bad in unsupported.items() if bad]
-        if missing:
-            raise NotImplementedError(f"not ported to the one-stage pipeline: {', '.join(missing)}")
+        if self.audio_enabled:
+            raise NotImplementedError("not ported to the one-stage pipeline: audio (audio_enabled)")
 
     def effective_tiling(self) -> Optional[TilingConfig]:
         """The given tiling, else the default one above 4000 latent voxels."""
@@ -139,22 +142,24 @@ class OneStagePipeline:
         unsupported = {
             "audio (positive/negative_audio_encoding)": positive_audio_encoding is not None
             or negative_audio_encoding is not None,
-            "STG (stg_scale != 0)": stg_scale != 0.0,
-            "guider_override": guider_override is not None,
-            "GE (ge_gamma > 0)": ge_gamma > 0,
-            f"sampler {sampler!r} (Heun)": sampler != "euler",
-            "cross_attn_scale != 1": cross_attn_scale != 1.0,
-            "cache_text_kv": cache_text_kv,
             "the temporal upscaler": temporal_upscaler is not None,
         }
         missing = [name for name, bad in unsupported.items() if bad]
         if missing:
             raise NotImplementedError(f"not ported to the one-stage pipeline: {', '.join(missing)}")
+        if stg_scale > 0 and stg_mode in ("audio", "both"):
+            # Video only: there is no audio self-attention to perturb, so the
+            # STG delta would be exactly 0 while every step paid its row.
+            raise ValueError(f"stg_mode={stg_mode!r} requires the audio branch (--audio / "
+                             f"use_internal_audio_branch); on a video-only run the audio perturbation is a no-op. "
+                             f"Use stg_mode='video'.")
         images = list(images or [])
         device, dtype = positive_encoding.device, getattr(torch, config.dtype)
         noise_seed, decode_seed = stage_seeds(config.seed, 2)
-        guider_cls = CFGStarRescalingGuider if config.rescale_scale > 0 else CFGGuider
-        guider = guider_cls(scale=config.cfg_scale)
+        if guider_override is not None:
+            guider = guider_override
+        else:
+            guider = (CFGStarRescalingGuider if config.rescale_scale > 0 else CFGGuider)(scale=config.cfg_scale)
 
         pixel_shape = VideoPixelShape(batch=1, frames=config.num_frames, height=config.height, width=config.width,
                                       fps=config.fps)
@@ -174,8 +179,15 @@ class OneStagePipeline:
         state = GaussianNoiser()(gen, state, noise_scale=1.0, noise=noise)
 
         loop = make_video_denoise_loop(self.transformer.cfg, DenoiseLoopConfig(
-            guider=guider, uniform_timesteps=not conditionings))
-        state = loop(self.transformer, state, sigmas, positive_encoding, negative_encoding)
+            guider=guider, stg_scale=stg_scale, stg_blocks=tuple(stg_blocks) if stg_blocks else None,
+            stg_cutoff=stg_cutoff, stg_mode=stg_mode, ge_gamma=ge_gamma, sampler=sampler,
+            cross_attn_scale=cross_attn_scale, cross_attn_start_block=cross_attn_start_block,
+            cache_text_kv=cache_text_kv, uniform_timesteps=not conditionings, cfg_interval=config.cfg_interval))
+        n_real, token_mask = state.latent.shape[1], None
+        if config.token_bucket:
+            state, token_mask = pad_state_tokens(state, bucketed_tokens(n_real, config.token_bucket))
+        state = loop(self.transformer, state, sigmas, positive_encoding, negative_encoding, token_mask=token_mask)
+        state = slice_state_tokens(state, n_real)
         latent = tools.unpatchify(tools.clear_conditioning(state)).latent
         if callback:
             callback("denoise", latent)

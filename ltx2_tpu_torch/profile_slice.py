@@ -3,6 +3,7 @@ goes on one GPU.
 
     python -m ltx2_tpu_torch.profile_slice [--layers 48]
     python -m ltx2_tpu_torch.profile_slice --train [--layers 48]
+    python -m ltx2_tpu_torch.profile_slice --one-stage-options [--layers 48]
 
 Traces, with torch.profiler, one text encode of the two-stage recipe's
 `--text-encoder` flow (the full-width fp32 Gemma-3-12B and V1 encoder on one
@@ -23,7 +24,16 @@ frame, each after a warm-up run. The model, inputs and decode come from generate
 helpers. With --train it traces instead one rank-16 LoRA train step of the
 full-width DiT at scripts/bench_train.py's shape (6144 tokens, 1024 text
 tokens: forward, remat recompute, backward and AdamW), after a warm-up step,
-built by train.py's own helpers. Prints one JSON line per phase: device time
+built by train.py's own helpers. With --one-stage-options it traces instead,
+at 480x704x97 (4290 tokens) with the first latent frame conditioned, one
+step of the one-stage loop with the options of chip_smoke.py's request A
+but Heun and GE (CFG* at 3.0, STG on block 29: three guidance rows; the
+cross-attention scale from block 40; cached text K/V; a 512-token bucket:
+4608 tokens, the key-valid route), and then text-to-video's APG loop with
+guidance reuse every second step (uniform timesteps) over two steps and
+over one: the second step is a reduced one (the cond row alone), and its
+device time by class is the difference. Each traced loop call includes
+its once-per-clip RoPE tables (and text K/V). Prints one JSON line per phase: device time
 by kernel class (the flash-attention forward and backward kernels, the
 implicit-GEMM conv kernels with the fp32 one's split-K sum, matrix
 products, library convolutions, the rest), the top kernels, the host wall
@@ -42,7 +52,7 @@ import torch
 from ltx2_tpu_torch import train
 from ltx2_tpu_torch.core import resolve_device
 from ltx2_tpu_torch.loader.fp8 import weight_bytes
-from ltx2_tpu_torch.components.guiders import CFGStarRescalingGuider
+from ltx2_tpu_torch.components.guiders import CFGStarRescalingGuider, LtxAPGGuider
 from ltx2_tpu_torch.components.schedulers import LTX2Scheduler
 from ltx2_tpu_torch.conditioning.latent import VideoConditionByLatentIndex
 from ltx2_tpu_torch.generate import (
@@ -53,6 +63,7 @@ from ltx2_tpu_torch.models.text_encoder import gemma3_apply, video_text_encoder_
 from ltx2_tpu_torch.models.upscaler.spatial import spatial_upscaler_apply
 from ltx2_tpu_torch.models.video_vae.decoder import video_decoder_apply
 from ltx2_tpu_torch.models.video_vae.encoder import video_encoder_apply
+from ltx2_tpu_torch.pipelines.common import bucketed_tokens, pad_state_tokens
 from ltx2_tpu_torch.pipelines.denoise import DenoiseLoopConfig, make_video_denoise_loop
 from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, generate_tile_specs
 
@@ -188,6 +199,42 @@ def one_stage_step(dit, image: bool, phase: str, device: torch.device, card: str
     return rec
 
 
+def one_stage_options_steps(dit, device: torch.device, card: str) -> dict:
+    """The one-stage option steps (see the module's docstring), printed;
+    returns the records by phase."""
+    tools = make_latent_tools(dit.cfg, 480, 704, 97)
+    state, positive = make_request(dit.cfg, tools, 0, device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    negative = dummy_context(dit.cfg, gen, device)
+    shape = tools.target_shape
+    frame = torch.randn(1, shape.channels, 1, shape.height, shape.width, generator=gen, device=device)
+    tokens = shape.tokens
+    padded, token_mask = pad_state_tokens(VideoConditionByLatentIndex(frame, 0.95, 0).apply_to(state, tools),
+                                          bucketed_tokens(tokens, 512))
+    sigmas = torch.from_numpy(LTX2Scheduler().execute(30))
+    stg = make_video_denoise_loop(dit.cfg, DenoiseLoopConfig(
+        guider=CFGStarRescalingGuider(3.0), stg_scale=1.0, stg_blocks=(29,), cross_attn_scale=0.5,
+        cache_text_kv=True))
+    recs = {"one_stage_stg_bucket_step": {
+        "rows": 3, "tokens": tokens, "bucket_tokens": padded.latent.shape[1],
+        **_traced(lambda: stg(dit, padded, sigmas[:2], positive, negative, token_mask=token_mask), device)}}
+    reuse = make_video_denoise_loop(dit.cfg, DenoiseLoopConfig(
+        guider=LtxAPGGuider(3.0, eta=0.5, norm_threshold=5.0), cfg_interval=2, uniform_timesteps=True))
+    full = _traced(lambda: reuse(dit, state, sigmas[:2], positive, negative), device)
+    both = _traced(lambda: reuse(dit, state, sigmas[:3], positive, negative), device)
+    classes = set(full["device_ms_by_class"]) | set(both["device_ms_by_class"])
+    recs["text_to_video_reuse_full_step"] = {"rows": 2, "tokens": tokens, **full}
+    recs["text_to_video_reuse_two_steps"] = {"rows": [2, 1], "tokens": tokens, **both}
+    recs["text_to_video_reduced_step"] = {
+        "rows": 1, "tokens": tokens, "wall_ms": both["wall_ms"] - full["wall_ms"],
+        "device_ms": both["device_ms"] - full["device_ms"],
+        "device_ms_by_class": {c: both["device_ms_by_class"].get(c, 0.0) - full["device_ms_by_class"].get(c, 0.0)
+                               for c in classes}}
+    for phase, rec in recs.items():
+        print(json.dumps({"phase": phase, "layers": dit.cfg.num_layers, "card": card, **rec}), flush=True)
+    return recs
+
+
 def _serving(layers: int, device: torch.device, card: str) -> None:
     _text_encode(device, card)  # first: fp32 Gemma holds 47 GB, and the recipe releases it before the DiT
     torch.cuda.empty_cache()
@@ -248,6 +295,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--layers", type=int, default=48)
     ap.add_argument("--train", action="store_true", help="trace a LoRA train step instead of the serving path")
+    ap.add_argument("--one-stage-options", action="store_true",
+                    help="trace the one-stage loop options' steps instead of the serving path")
     args = ap.parse_args(argv)
     device = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -255,6 +304,10 @@ def main(argv=None) -> None:
     card = torch.cuda.get_device_name(0)
     if args.train:
         _train_step(args.layers, device, card)
+        return
+    if args.one_stage_options:
+        with torch.no_grad():
+            one_stage_options_steps(make_dit(args.layers, device), device, card)
         return
     with torch.no_grad():
         _serving(args.layers, device, card)

@@ -1,6 +1,10 @@
 """Parity of the port's denoise loop and diffusion components with the JAX
 package, in float32 on the CPU: 3 Euler steps over a 2-layer DiT with the
-initial noise injected into both (the two RNGs differ), to a relative 1e-4.
+initial noise injected into both (the two RNGs differ), to a relative 1e-4;
+the guiders (rescaled CFG, STG, APG with and without its clamp, the stateful
+APG and its carry) on the same rows to 1e-6, the Heun step bit for bit, and
+the loop's STG flags, cross-attention scales and pass-major perturbation
+layout. The loop's options: test_torch_port_loop_options.py.
 """
 
 import jax
@@ -10,6 +14,8 @@ import pytest
 import torch
 
 from ltx2_tpu.components import CFGGuider as JCFGGuider
+from ltx2_tpu.components import diffusion_steps as jdiffusion_steps
+from ltx2_tpu.components.perturbations import PerturbationType as JPerturbationType
 from ltx2_tpu.components.noisers import _blend as jblend
 from ltx2_tpu.components.patchifiers import VideoLatentPatchifier as JPatchifier
 from ltx2_tpu.conditioning.tools import VideoLatentTools as JTools
@@ -17,14 +23,17 @@ from ltx2_tpu.models.transformer import model as jmodel
 from ltx2_tpu.pipelines import denoise as jdenoise
 from ltx2_tpu.types import VideoLatentShape as JShape
 from ltx2_tpu.types import VideoPixelShape as JPixel
+from ltx2_tpu_torch.components import diffusion_steps, guiders
 from ltx2_tpu_torch.components.guiders import CFGGuider
+from ltx2_tpu_torch.components.perturbations import PerturbationType
 from ltx2_tpu_torch.components.noisers import GaussianNoiser
 from ltx2_tpu_torch.components.patchifiers import VideoLatentPatchifier
 from ltx2_tpu_torch.conditioning.tools import VideoLatentTools
 from ltx2_tpu_torch.loader.from_numpy import dit_from_numpy
+from ltx2_tpu_torch.pipelines import denoise
 from ltx2_tpu_torch.pipelines.denoise import DenoiseLoopConfig, make_video_denoise_loop
 from ltx2_tpu_torch.types import VideoLatentShape, VideoPixelShape
-from tests.torch_port_util import CFG, JCFG, assert_close, numpy_tree, t
+from tests.torch_port_util import CFG, JCFG, assert_bitwise, assert_close, make_guiders, numpy_tree, t
 
 SIGMAS = np.array([1.0, 0.909375, 0.421875, 0.0], np.float32)  # 3 steps, down to 0
 SHAPE = (1, 16, 2, 2, 3)
@@ -89,21 +98,83 @@ def test_denoise_loop(weights, cfg_scale):
     assert_close(out.latent, ref.latent, msg=f"loop cfg={cfg_scale}")
 
 
-@pytest.mark.parametrize("field,value", [
-    ("sampler", "heun"), ("stg_scale", 1.0), ("cfg_interval", 2), ("ge_gamma", 0.5),
-    ("cross_attn_scale", 0.5), ("cache_text_kv", True),
-])
-def test_loop_refuses_unported_options(field, value):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_video_denoise_loop(CFG, DenoiseLoopConfig(**{field: value}))
-
-
 def test_loop_refuses_parallelism_and_other_guiders():
+    """A mesh is not ported; the stateful APG does not compose with
+    guidance reuse (its EMA needs a fresh uncond every step), as in JAX."""
     with pytest.raises(NotImplementedError):
         make_video_denoise_loop(CFG, DenoiseLoopConfig(), mesh=object())
+    with pytest.raises(ValueError, match="APG momentum"):
+        make_video_denoise_loop(CFG, DenoiseLoopConfig(guider=guiders.StatefulAPGGuider(2.0, 0.5, momentum=0.5),
+                                                       cfg_interval=2))
+    with pytest.raises(ValueError, match="APG momentum"):  # the attribute decides, not its value
+        make_video_denoise_loop(CFG, DenoiseLoopConfig(guider=guiders.StatefulAPGGuider(2.0, 0.5), cfg_interval=2))
 
-    class APG(CFGGuider):
-        momentum = 0.5
 
-    with pytest.raises(NotImplementedError):
-        make_video_denoise_loop(CFG, DenoiseLoopConfig(guider=APG(2.0)))
+# guider -> (class name, kwargs); each computed on the same (2, 12, 16)
+# rows in both packages, per batch row.
+GUIDERS = {
+    "rescaled_cfg": ("RescaledCFGGuider", {"scale": 3.0, "rescale": 0.7}),
+    "stg": ("STGGuider", {"scale": 1.5}),
+    "apg": ("LtxAPGGuider", {"scale": 3.0, "eta": 0.5}),
+    "apg_clamp": ("LtxAPGGuider", {"scale": 3.0, "eta": 0.5, "norm_threshold": 2.0}),
+    "stateful_apg": ("StatefulAPGGuider", {"scale": 3.0, "eta": 0.5, "norm_threshold": 2.0, "momentum": 0.5}),
+    "stateful_apg_no_momentum": ("StatefulAPGGuider", {"scale": 3.0, "eta": 0.5}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GUIDERS))
+def test_guiders_match_jax(name):
+    rng = np.random.default_rng(2)
+    cond, uncond = (rng.standard_normal((2, 12, 16)).astype(np.float32) for _ in range(2))
+    uncond[1] *= 3.0  # the second row's guidance is larger: the clamp differs per row
+    jguider, guider = make_guiders(GUIDERS[name])
+    if name.startswith("stateful"):
+        carry = rng.standard_normal((2, 12, 16)).astype(np.float32)
+        for c in (None, carry):
+            out, new = guider.guide(t(cond), t(uncond), None if c is None else t(c))
+            ref, jnew = jguider.guide(jnp.asarray(cond), jnp.asarray(uncond), None if c is None else jnp.asarray(c))
+            assert_close(out, ref, rtol=1e-6, msg=name)
+            assert_close(new, jnew, rtol=1e-6, msg=f"{name} carry")
+        assert guider.enabled() and not guiders.StatefulAPGGuider(0.0, 1.0).enabled()
+        assert guiders.LegacyStatefulAPGGuider is guiders.StatefulAPGGuider
+    else:
+        assert_close(guider.guide(t(cond), t(uncond)), jguider.guide(jnp.asarray(cond), jnp.asarray(uncond)),
+                     rtol=1e-6, msg=name)
+        assert_close(guider.delta(t(cond), t(uncond)), jguider.delta(jnp.asarray(cond), jnp.asarray(uncond)),
+                     rtol=1e-6, msg=f"{name} delta")
+        assert guider.enabled() == jguider.enabled()
+    cfg16 = guiders.rescale_noise_cfg(t(cond).bfloat16(), t(uncond))
+    assert cfg16.dtype == torch.bfloat16
+
+
+def test_heun_step_matches_jax():
+    rng = np.random.default_rng(3)
+    x, d1, d2 = (rng.standard_normal((1, 12, 16)).astype(np.float32) for _ in range(3))
+    heun, jheun = diffusion_steps.HeunDiffusionStep(), jdiffusion_steps.HeunDiffusionStep()
+    for sigma, sigma_next in ((0.9, 0.5), (0.4, 0.0)):
+        for second in (None, d2):
+            out = heun.step(t(x).bfloat16(), t(d1), sigma, sigma_next, None if second is None else t(second))
+            ref = jheun.step(jnp.asarray(x, jnp.bfloat16), jnp.asarray(d1), sigma, sigma_next,
+                             None if second is None else jnp.asarray(second))
+            assert_bitwise(out, ref, f"heun {sigma} -> {sigma_next}, second eval {second is not None}")
+        assert_bitwise(heun.predict(t(x), t(d1), sigma, sigma_next), jheun.predict(jnp.asarray(x), jnp.asarray(d1),
+                                                                                   sigma, sigma_next))
+
+
+def test_loop_helpers_match_jax():
+    for steps, cutoff in ((3, 0.5), (10, 0.7), (30, 1.0), (7, 1 / 3)):
+        ids, flags = denoise._stg_step_flags(steps, cutoff)
+        jids, jflags = jdenoise._stg_step_flags(steps, cutoff)
+        assert_bitwise(flags, jflags, f"stg flags {steps} {cutoff}")
+    cfg = DenoiseLoopConfig(guider=CFGGuider(3.0), stg_scale=1.0, stg_blocks=(29,), cross_attn_scale=0.5)
+    jcfg = jdenoise.DenoiseLoopConfig(guider=JCFGGuider(3.0), stg_scale=1.0, stg_blocks=(29,), cross_attn_scale=0.5)
+    assert cfg.rows == jcfg.rows == 3
+    assert_bitwise(denoise._ca_scales(cfg, 48), jdenoise._ca_scales(jcfg, 48))
+    assert denoise._ca_scales(DenoiseLoopConfig(), 48) is None
+    pert = denoise._build_perturbations(cfg, 3, batch=2)
+    jpert = jdenoise._build_perturbations(jcfg, 3, batch=2)
+    for block in (0, 29):
+        assert pert.mask(PerturbationType.SKIP_VIDEO_SELF_ATTN, block).tolist() == np.asarray(
+            jpert.mask(JPerturbationType.SKIP_VIDEO_SELF_ATTN, block)).tolist()
+    assert pert.mask(PerturbationType.SKIP_VIDEO_SELF_ATTN, 29).tolist() == [1, 1, 1, 1, 0, 0]  # pass-major
+    assert denoise._build_perturbations(DenoiseLoopConfig(), 1) is None

@@ -60,6 +60,33 @@ def test_flash_kernel_matches_plain_on_gpu():
 
 
 @pytest.mark.gpu
+def test_flash_kernel_key_valid_at_a_bucket_shape_on_gpu():
+    """The key-valid route as a token bucket uses it: every row keeps the
+    first 520 of 768 keys (key tile 4 partly valid, tile 5 wholly masked),
+    through sdpa's additive key mask as the DiT hands it in. Each launch
+    counts in `key_valid_launches` too; the kernel without its mask must
+    fail the limits."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, h, t, d, n = 3, 4, 768, 128, 520
+    q, k, v = (torch.randn(b, t, h * d, device="cuda", generator=gen).bfloat16() for _ in range(3))
+    qh, kh, vh = (x.view(b, t, h, d).transpose(1, 2) for x in (q, k, v))
+    valid = torch.zeros(b, t, dtype=torch.bool, device="cuda")
+    valid[:, :n] = True
+    additive = ((~valid).float() * -torch.finfo(torch.bfloat16).max).bfloat16()[:, None, None, :]
+    before, before_kv = attention.flash_attention.launches, attention.flash_attention.key_valid_launches
+    out = attention.sdpa(qh, kh, vh, mask=additive).float()
+    assert attention.flash_attention.launches == before + 1
+    assert attention.flash_attention.key_valid_launches == before_kv + 1
+    ref = attention.flash_attention_plain(qh, kh, vh, kv_valid=valid).float()
+    assert (out - ref).abs().max() <= 2e-2 * ref.abs().max()
+    assert (out - ref).square().mean().sqrt() <= 1e-2 * ref.square().mean().sqrt()
+    unmasked = attention.flash_attention(qh, kh, vh).float()
+    assert (unmasked - ref).square().mean().sqrt() > 1e-2 * ref.square().mean().sqrt()
+    assert attention.flash_attention.key_valid_launches == before_kv + 1
+
+
+@pytest.mark.gpu
 def test_backward_kernels_match_plain_on_gpu():
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(0)

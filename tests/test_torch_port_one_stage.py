@@ -12,7 +12,12 @@ initial noise:
   of the final latent equal the encoder's latent bit for bit;
 - `TextToVideoPipeline` (plain CFG at 5.0, 2 steps): latent and frames,
   and a post-hoc upscaler in the un-normalize / re-normalize bracket;
-- every unported option raises NotImplementedError naming itself;
+- every loop option (token bucket, guidance reuse, STG, a guider
+  override, GE, Heun, the cross-attention scale, text-KV caching) through
+  the pipeline against the JAX package's, the latent to 1e-4; STG on the
+  audio stream raises ValueError on this video-only pipeline, and each
+  unported option (audio, the temporal upscaler, meshes) raises
+  NotImplementedError naming itself;
 - `generate.main(["--pipeline", "one-stage", "--image", ...])` from a tiny
   checkpoint against `generate_videos_one_stage` on the same ledger, and
   `--pipeline text-to-video`; with `--token-shift` its config and sigmas
@@ -48,7 +53,7 @@ from ltx2_tpu.pipelines.text_to_video import TextToVideoPipeline as JTextToVideo
 from ltx2_tpu.types import VideoLatentShape as JShape
 from ltx2_tpu_torch import generate
 from ltx2_tpu_torch.components import schedulers
-from ltx2_tpu_torch.components.guiders import CFGStarRescalingGuider
+from ltx2_tpu_torch.components.guiders import CFGStarRescalingGuider, LtxAPGGuider, StatefulAPGGuider
 from ltx2_tpu_torch.components.noisers import GaussianNoiser
 from ltx2_tpu_torch.components.patchifiers import VideoLatentPatchifier
 from ltx2_tpu_torch.conditioning.latent import VideoConditionByLatentIndex
@@ -65,7 +70,7 @@ from ltx2_tpu_torch.pipelines.one_stage import OneStageCFGConfig, OneStagePipeli
 from ltx2_tpu_torch.pipelines.text_to_video import TextToVideoConfig, TextToVideoPipeline
 from ltx2_tpu_torch.types import VideoLatentShape
 from ltx2_tpu_torch.utils.model_ledger import ModelLedger
-from tests.torch_port_util import CFG, JCFG, assert_close, numpy_tree, random_tree, t, write_png
+from tests.torch_port_util import CFG, JCFG, assert_close, make_guiders, numpy_tree, random_tree, t, write_png
 
 PLAN = (("res", 16, 1, None), ("down", 16, 16, (1, 2, 2)), ("res", 16, 1, None), ("down", 16, 16, (2, 1, 1)),
         ("res", 16, 1, None), ("down", 16, 32, (2, 2, 2)), ("res", 32, 1, None), ("down", 32, 32, (2, 2, 2)),
@@ -202,14 +207,6 @@ def test_text_to_video_matches_jax(weights):
 # option -> (a word its message must name, the call that must refuse it)
 UNPORTED = {
     "audio": ("audio", lambda p, c, x: OneStageCFGConfig(audio_enabled=True)),
-    "token_bucket": ("token_bucket", lambda p, c, x: OneStageCFGConfig(token_bucket=64)),
-    "cfg_interval": ("cfg_interval", lambda p, c, x: OneStageCFGConfig(cfg_interval=2)),
-    "STG": ("STG", lambda p, c, x: p(x, x, c, stg_scale=1.0)),
-    "guider_override": ("guider_override", lambda p, c, x: p(x, x, c, guider_override=CFGStarRescalingGuider(2.0))),
-    "GE": ("GE", lambda p, c, x: p(x, x, c, ge_gamma=0.5)),
-    "Heun": ("Heun", lambda p, c, x: p(x, x, c, sampler="heun")),
-    "cross_attn_scale": ("cross_attn_scale", lambda p, c, x: p(x, x, c, cross_attn_scale=0.5)),
-    "cache_text_kv": ("cache_text_kv", lambda p, c, x: p(x, x, c, cache_text_kv=True)),
     "temporal_upscaler": ("temporal upscaler", lambda p, c, x: p(x, x, c, temporal_upscaler=lambda z: z)),
     "audio_encoding": ("audio_encoding", lambda p, c, x: p(x, x, c, positive_audio_encoding=x)),
     "meshes": ("meshes", lambda p, c, x: OneStagePipeline(p.transformer, sequence_mesh=object())),
@@ -226,6 +223,53 @@ def test_unported_options_raise(weights, option):
     with pytest.raises(NotImplementedError) as err:
         call(pipe, config, t(weights["pos"]))
     assert "not ported" in str(err.value) and word in str(err.value), str(err.value)
+
+
+def test_stg_mode_audio_refused_on_a_video_only_run(weights):
+    pipe = OneStagePipeline(_port(weights)[0])
+    config = OneStageCFGConfig(height=HEIGHT, width=WIDTH, num_frames=FRAMES, latent_channels=16)
+    x = t(weights["pos"])
+    for mode in ("audio", "both"):
+        with pytest.raises(ValueError, match="requires the audio branch"):
+            pipe(x, x, config, stg_scale=1.0, stg_mode=mode)
+
+
+# option -> (OneStageCFGConfig fields, pipeline keywords); a guider is given
+# as (class name, kwargs) and built in each package. 3 steps, no image but
+# for the token bucket (per-token timesteps and the padding together).
+OPTIONS = {
+    "token_bucket": ({"token_bucket": 16}, {"stg_scale": 1.0}),
+    "cfg_interval": ({"cfg_interval": 2}, {}),
+    "STG": ({}, {"stg_scale": 1.0, "stg_blocks": [1], "stg_cutoff": 0.7}),
+    "guider_override": ({}, {"guider_override": ("LtxAPGGuider", {"scale": 3.0, "eta": 0.5, "norm_threshold": 1.0})}),
+    "GE": ({}, {"ge_gamma": 0.5}),
+    "Heun": ({}, {"sampler": "heun"}),
+    "cross_attn_scale": ({}, {"cross_attn_scale": 0.5, "cross_attn_start_block": 1}),
+    "cache_text_kv": ({}, {"cache_text_kv": True}),
+}
+
+
+@pytest.mark.parametrize("option", sorted(OPTIONS))
+def test_one_stage_option_matches_jax(weights, option):
+    """Each loop option through OneStagePipeline against the JAX package's
+    pipeline (CFG* at 3.0, rescale 0.7), the final latent to 1e-4."""
+    fields, kwargs = OPTIONS[option]
+    jkwargs, kwargs = dict(kwargs), dict(kwargs)
+    if "guider_override" in kwargs:
+        jkwargs["guider_override"], kwargs["guider_override"] = make_guiders(kwargs["guider_override"])
+    images = option == "token_bucket"
+    jpipe = _jax_pipeline(JOneStagePipeline, weights)
+    jconfig = JOneStageCFGConfig(height=HEIGHT, width=WIDTH, num_frames=FRAMES, seed=SEED, num_inference_steps=3,
+                                 latent_channels=16, **fields)
+    ref, _ = jpipe(jnp.asarray(weights["pos"]), jnp.asarray(weights["neg"]), jconfig, skip_decode=True,
+                   images=[jcommon.ImageCondition(weights["image"], 0, 0.9)] if images else None, **jkwargs)
+    dit, enc, _ = _port(weights)
+    config = OneStageCFGConfig(height=HEIGHT, width=WIDTH, num_frames=FRAMES, seed=SEED, num_inference_steps=3,
+                               latent_channels=16, **fields)
+    latent, _ = OneStagePipeline(dit, video_encoder=enc)(
+        t(weights["pos"]), t(weights["neg"]), config, skip_decode=True, noise=_jax_noise(SEED),
+        images=[ImageCondition(weights["image"], 0, 0.9)] if images else None, **kwargs)
+    assert_close(latent, np.asarray(ref), msg=option)
 
 
 SIZE = ["--height", str(HEIGHT), "--width", str(WIDTH), "--frames", str(FRAMES), "--seed", str(SEED)]
@@ -298,3 +342,94 @@ def test_generate_main_text_to_video_token_shift(checkpoint, monkeypatch):
     want = jschedulers.LTX2Scheduler().execute(steps=3, tokens=TOKENS)
     assert seen["sigmas"].dtype == np.float32 and np.array_equal(seen["sigmas"], want)
     assert not np.array_equal(want, jschedulers.LTX2Scheduler().execute(steps=3))  # the shift moves them
+
+
+def test_generate_main_loop_flags(checkpoint, monkeypatch):
+    """The loop flags keep the JAX CLI's names and defaults
+    (scripts/generate.py's parser), reach the pipeline as that CLI passes
+    them (`--apg-*` builds LtxAPGGuider, or with a momentum
+    StatefulAPGGuider, as the JAX CLI does), and run; off the CFG flows
+    they are refused."""
+    from scripts.generate import build_parser as jax_parser
+
+    argv = ["--stg-scale", "1.0", "--stg-blocks", "0,1", "--stg-cutoff", "0.7", "--apg-scale", "3", "--apg-eta", "0.5",
+            "--apg-norm-threshold", "1.0", "--ge-gamma", "0.5", "--sampler", "heun", "--cfg-interval", "2",
+            "--token-bucket", "16", "--cross-attn-scale", "0.5", "--cross-attn-start-block", "1", "--cache-text-kv"]
+    jdefaults, jargs = jax_parser().parse_args([]), jax_parser().parse_args(argv)
+    seen = {}
+    call = OneStagePipeline.__call__
+
+    def record_call(self, positive, negative, config, **kwargs):
+        seen["config"], seen["kwargs"] = config, kwargs
+        return call(self, positive, negative, config, **kwargs)
+
+    monkeypatch.setattr(OneStagePipeline, "__call__", record_call)
+    generate.main(["--pipeline", "text-to-video", "--device", "cpu", "--checkpoint", checkpoint,
+                   "--num-inference-steps", "3", *SIZE])  # every loop flag at its default
+    assert set(generate.LOOP_FLAGS) <= set(vars(jdefaults))  # the JAX CLI's names
+    defaults = seen["kwargs"]
+    assert seen["config"].cfg_interval == jdefaults.cfg_interval == 1
+    assert seen["config"].token_bucket == jdefaults.token_bucket == 0
+    assert defaults["guider_override"] is None and not jdefaults.apg_scale
+    for name in ("stg_scale", "stg_cutoff", "stg_mode", "ge_gamma", "sampler", "cross_attn_scale",
+                 "cross_attn_start_block", "cache_text_kv"):
+        assert defaults[name] == getattr(jdefaults, name), name
+    assert defaults["stg_blocks"] is None and jdefaults.stg_blocks is None
+
+    videos, stats = generate.main(["--pipeline", "text-to-video", "--device", "cpu", "--checkpoint", checkpoint,
+                                   "--num-inference-steps", "3", *SIZE, *argv])
+    assert videos[0].shape == (FRAMES, HEIGHT, WIDTH, 3) and stats[0]["denoise_latent_finite"]
+    kwargs, config = seen["kwargs"], seen["config"]
+    assert (config.cfg_interval, config.token_bucket) == (jargs.cfg_interval, jargs.token_bucket) == (2, 16)
+    assert kwargs["stg_blocks"] == [int(b) for b in jargs.stg_blocks.split(",")] == [0, 1]
+    for name in ("stg_scale", "stg_cutoff", "stg_mode", "ge_gamma", "sampler", "cross_attn_scale",
+                 "cross_attn_start_block", "cache_text_kv"):
+        assert kwargs[name] == getattr(jargs, name), name
+    assert kwargs["guider_override"] == LtxAPGGuider(scale=3.0, eta=0.5, norm_threshold=1.0)
+    generate.main(["--pipeline", "one-stage", "--device", "cpu", "--checkpoint", checkpoint, "--num-inference-steps",
+                   "2", *SIZE, "--apg-scale", "3", "--apg-momentum", "0.5"])
+    assert seen["kwargs"]["guider_override"] == StatefulAPGGuider(scale=3.0, eta=1.0, norm_threshold=0.0,
+                                                                  momentum=0.5)
+    for pipeline in ("bench-e2e", "distilled"):
+        with pytest.raises(SystemExit):
+            generate.main(["--pipeline", pipeline, "--device", "cpu", "--sampler", "heun"])
+
+
+def test_generate_main_upscale_spatial(weights, checkpoint, tmp_path):
+    """`--upscale-spatial` with the upscaler's file: the 2x upscaler runs
+    after the loop in the decoder statistics' bracket (the JAX package's
+    spatial upscaler on the same weights and latent), and the decoder
+    decodes at twice the size."""
+    from ltx2_tpu.models.upscaler import spatial as jspatial
+    from ltx2_tpu_torch.loader.from_numpy import spatial_upscaler_from_numpy
+    from ltx2_tpu_torch.models.upscaler import spatial
+
+    up_cfg = spatial.SpatialUpscalerConfig(in_channels=16, mid_channels=32, num_blocks_per_stage=1, num_groups=32)
+    jup_cfg = jspatial.SpatialUpscalerConfig(in_channels=16, mid_channels=32, num_blocks_per_stage=1, num_groups=32)
+    tree = random_tree(spatial.SpatialUpscaler(up_cfg, device="meta"), seed=9)
+    path = str(tmp_path / "upscaler.safetensors")
+    jst.write_safetensors(path, {k: v.float().numpy() for k, v in spatial.upscaler_to_checkpoint(
+        spatial_upscaler_from_numpy(tree, up_cfg)).items()})
+    latents = {}
+    call = OneStagePipeline.__call__
+
+    def record(self, positive, negative, config, callback=None, **kwargs):
+        def on_phase(phase, z):
+            latents[phase] = z
+            callback(phase, z)
+        return call(self, positive, negative, config, callback=on_phase, **kwargs)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(OneStagePipeline, "__call__", record)
+        videos, stats = generate.main(["--pipeline", "one-stage", "--device", "cpu", "--checkpoint", checkpoint,
+                                       "--num-inference-steps", "2", *SIZE, "--upscale-spatial",
+                                       "--spatial-upscaler", path])
+    assert videos[0].shape == (FRAMES, 2 * HEIGHT, 2 * WIDTH, 3)
+    assert stats[0]["upscale_latent_finite"] and stats[0]["upscale_conv_launches"] == 0
+    stats_ = vae_weights.load_per_channel_statistics(checkpoint, 16, "cpu")
+    mean, std = (np.asarray(getattr(stats_, n)).reshape(1, -1, 1, 1, 1) for n in ("mean_of_means", "std_of_means"))
+    z = latents["denoise"].float().numpy()
+    ref = (np.asarray(jspatial.spatial_upscaler_apply(_jtree(tree), jup_cfg, jnp.asarray(z * std + mean))) - mean) / std
+    assert_close(latents["upscale"], ref, rtol=1e-4, msg="post-hoc upscale from the file")
+    with pytest.raises(SystemExit):
+        generate.main(["--pipeline", "one-stage", "--device", "cpu", "--spatial-upscaler", path])

@@ -200,3 +200,93 @@ def random_tree(module, seed: int):
         return out
 
     return listify(root)
+
+
+# The loop parity tests: the 2-layer DiT above on a 1 x 16 x 2 x 2 x 3 latent
+# (12 tokens), 3 steps down to 0.
+LOOP_SHAPE = (1, 16, 2, 2, 3)
+LOOP_SIGMAS = np.array([1.0, 0.909375, 0.421875, 0.0], np.float32)
+
+
+def stacked_dit_tree(port_cfg=CFG, seed: int = 4):
+    """Random float32 DiT weights (`random_tree` over the port's module) in
+    the JAX package's layout: each block leaf stacked on a leading layer axis."""
+    tree = random_tree(model.LTXModel(port_cfg, device="meta"), seed)
+    tree["transformer_blocks"] = jax.tree_util.tree_map(lambda *xs: np.stack(xs), *tree["transformer_blocks"])
+    return tree
+
+
+def make_guiders(spec):
+    """(class name, kwargs) -> the guider of that name in each package (JAX, port)."""
+    from ltx2_tpu.components import guiders as jguiders
+    from ltx2_tpu_torch.components import guiders
+
+    name, kwargs = spec
+    return getattr(jguiders, name)(**kwargs), getattr(guiders, name)(**kwargs)
+
+
+def run_loops(jparams, port_model, guider, opts=None, *, seed: int = 5, bucket: int = 0, per_token: bool = False,
+              jcfg=JCFG, port_cfg=CFG, sigmas=LOOP_SIGMAS, port_only: bool = False):
+    """The JAX package's video denoise loop and the port's on the same
+    weights, noise and contexts (drawn with numpy from `seed`): returns
+    (port latent, JAX latent) as numpy, the JAX one None with `port_only`.
+    guider: (class name, kwargs); opts: the other DenoiseLoopConfig fields;
+    per_token: latent frame 0 conditioned at strength 0.95 (per-token
+    timesteps); bucket: the state padded to a multiple of it with a token
+    mask and sliced back after the loop."""
+    from ltx2_tpu.components.noisers import _blend as jblend
+    from ltx2_tpu.components.patchifiers import VideoLatentPatchifier as JPatchifier
+    from ltx2_tpu.conditioning import latent as jlatent
+    from ltx2_tpu.conditioning.tools import VideoLatentTools as JTools
+    from ltx2_tpu.pipelines import common as jcommon
+    from ltx2_tpu.pipelines import denoise as jdenoise
+    from ltx2_tpu.types import VideoLatentShape as JShape
+    from ltx2_tpu_torch.components.noisers import GaussianNoiser
+    from ltx2_tpu_torch.components.patchifiers import VideoLatentPatchifier
+    from ltx2_tpu_torch.conditioning.latent import VideoConditionByLatentIndex
+    from ltx2_tpu_torch.conditioning.tools import VideoLatentTools
+    from ltx2_tpu_torch.pipelines import common
+    from ltx2_tpu_torch.pipelines.denoise import DenoiseLoopConfig, make_video_denoise_loop
+    from ltx2_tpu_torch.types import VideoLatentShape
+
+    import jax.numpy as jnp
+
+    opts = dict(opts or {})
+    b, c, f, h, w = LOOP_SHAPE
+    rng = np.random.default_rng(seed)
+    noise = rng.standard_normal((b, f * h * w, c)).astype(np.float32)
+    pos = (rng.standard_normal((b, 16, jcfg.cross_attention_dim)) * 0.5).astype(np.float32)
+    neg = (rng.standard_normal((b, 16, jcfg.cross_attention_dim)) * 0.5).astype(np.float32)
+    clean = rng.standard_normal((b, c, 1, h, w)).astype(np.float32)
+    jguider, guider = make_guiders(guider)
+
+    tools = VideoLatentTools(VideoLatentPatchifier(1), VideoLatentShape(*LOOP_SHAPE), fps=24.0)
+    state = tools.create_initial_state(dtype=port_cfg.dtype)
+    if per_token:
+        state = VideoConditionByLatentIndex(t(clean).to(port_cfg.dtype), 0.95, 0).apply_to(state, tools)
+    state = GaussianNoiser()(None, state, 1.0, noise=t(noise))
+    loop = make_video_denoise_loop(port_cfg, DenoiseLoopConfig(guider=guider, uniform_timesteps=not per_token,
+                                                               **opts))
+    n, token_mask = state.latent.shape[1], None
+    if bucket:
+        state, token_mask = common.pad_state_tokens(state, common.bucketed_tokens(n, bucket))
+    dtype = port_cfg.dtype
+    out = loop(port_model, state, t(sigmas), t(pos).to(dtype), t(neg).to(dtype), token_mask=token_mask)
+    port_latent = common.slice_state_tokens(out, n).latent.float().numpy()
+    if port_only:
+        return port_latent, None
+
+    jdtype = jnp.dtype(jcfg.compute_dtype)
+    jtools = JTools(JPatchifier(1), JShape(*LOOP_SHAPE), fps=24.0)
+    jstate = jtools.create_initial_state(dtype=jdtype)
+    if per_token:
+        jstate = jlatent.VideoConditionByLatentIndex(jnp.asarray(clean, jdtype), 0.95, 0).apply_to(jstate, jtools)
+    jstate = jblend(jstate, jnp.asarray(noise), 1.0)
+    jloop = jdenoise.make_video_denoise_loop(jcfg, jdenoise.DenoiseLoopConfig(
+        guider=jguider, uniform_timesteps=not per_token, **opts))
+    jmask = None
+    if bucket:
+        jstate, jmask = jcommon.pad_state_tokens(jstate, jcommon.bucketed_tokens(n, bucket))
+    jout = jloop(jparams, jstate, jnp.asarray(sigmas), jnp.asarray(pos, jdtype), jnp.asarray(neg, jdtype),
+                 token_mask=jmask)
+    return port_latent, np.asarray(jcommon.slice_state_tokens(jout, n).latent.astype(jnp.float32))
