@@ -81,6 +81,22 @@ card and nvcc; it exits non-zero without them, and without the package
    one within 1e-2 of max|x0|; then 2 requests of the two-stage recipe from
    the files (`--fp8-serving`, the files' Gemma, `--text-encoder`): frames,
    finite contexts and latents, 1056 flash and 19 + 270 conv launches a clip;
+7b. LTX-2.3 (V2) from files: the port's writers put a full-width,
+   full-depth V2 video DiT in the `-fp8` layout (cross-attention AdaLN,
+   gated attention, prompt AdaLN) with the VAE decoder, the V2 text
+   projection and both gated connectors (8 blocks, 32 x 128 and 32 x 64),
+   the upscaler, a 2-layer full-width Gemma and a tokenizer.json the script
+   builds (a small BPE with byte fallback, a Replace normalizer, a <bos>
+   template, one added token) into a temporary directory; then
+   `generate.main --pipeline distilled --checkpoint ... --gemma-dir ...
+   --spatial-upscaler ... --fp8-serving --prompt ... --output clip.y4m
+   --requests 2`: the prompt ids equal the tokenizer's on the CPU, 1056
+   flash, 19 fp32 and 270 bf16 conv launches a clip, finite contexts and
+   latents, two .y4m files of the header plus 121 x (6 + 3 H W) bytes,
+   each phase's seconds and peaks, each component's load seconds and the
+   host tokenizer's seconds; then the same prompt through `--pipeline
+   one-stage` and `text-to-video` (480x704x97, 2 steps); phase 5's traced
+   step also runs for the V2 DiT in bf16 beside the V1 one;
 8. two-stage path: `generate_videos_distilled(text_encoder=True)` (each
    request's prompts encoded by the full-width Gemma and V1 encoder, which
    are then released; the DiT with its caption projection; stage 1 at
@@ -92,7 +108,7 @@ card and nvcc; it exits non-zero without them, and without the package
    each phase's seconds and peak memory; then the same recipe at a small
    size (2-layer DiT, 128x128x17, tiled decode, dummy context) through the
    kernels against the same pipeline with every flash and conv call on its
-   plain version;
+   plain version, then the same with 2 full-width V2 blocks;
 9. image-to-video: an 8-bit PNG (1000 x 600, every row filter) written
    from a seed; (a) the full-width fp32 video encoder (published plan) on a
    256x384 and a 512x768 frame: seconds, the 3xTF32 bound, peak memory, 46
@@ -890,17 +906,22 @@ def phase_fp8_step(smi: str) -> dict:
     """One traced step of bench-e2e's loop at 6144 tokens with the DiT's
     weights kept in fp8 (dequantized at use), then with the same weights in
     bf16 (profile_slice.denoise_step): device time, its busy share and the
-    weights' bytes; the difference is the dequantization's cost."""
+    weights' bytes; the difference is the dequantization's cost. Then the
+    same step for the LTX-2.3 (V2) DiT in bf16 beside the V1 one: the cost of
+    V2's gates and per-step text K/V modulation."""
     import torch
 
     from ltx2_tpu_torch.generate import make_dit
+    from ltx2_tpu_torch.models.transformer.model import LTXModelConfig
     from ltx2_tpu_torch.profile_slice import denoise_step
 
     dev, card = torch.device("cuda"), torch.cuda.get_device_name(0)
     recs = {}
-    for name, fp8 in (("fp8", True), ("bf16", False)):
+    v2 = LTXModelConfig(cross_attention_adaln=True, apply_gated_attention=True)
+    for name, fp8, base in (("fp8", True, LTXModelConfig()), ("bf16", False, LTXModelConfig()),
+                            ("v2_bf16", False, v2)):
         torch.cuda.empty_cache()
-        dit = make_dit(LAYERS, dev, fp8=fp8)
+        dit = make_dit(LAYERS, dev, fp8=fp8, base=base)
         with torch.no_grad():
             recs[name] = denoise_step(dit, HEIGHT, WIDTH, f"denoise_step_{name}", dev, card)[1]
         del dit
@@ -908,8 +929,12 @@ def phase_fp8_step(smi: str) -> dict:
     rec = {name: {k: r[k] for k in ("weight_gb", "device_ms", "wall_ms", "busy_share", "device_ms_by_class")}
            for name, r in recs.items()}
     rec["dequant_ms"] = rec["fp8"]["device_ms"] - rec["bf16"]["device_ms"]
+    # V2's gates, query AdaLN and per-step prompt modulation of the text K/V.
+    rec["v2_extra_ms"] = rec["v2_bf16"]["device_ms"] - rec["bf16"]["device_ms"]
     rec["card"] = smi
     log(f"fp8 vs bf16 DiT step ({LAYERS} layers, 6144 tokens): {json.dumps(rec)}")
+    log(f"V2 (LTX-2.3) vs V1 bf16 DiT step ({LAYERS} layers, 6144 tokens): V2 {rec['v2_bf16']['device_ms']:.1f} ms, "
+        f"V1 {rec['bf16']['device_ms']:.1f} ms device time | {smi}")
     if not rec["fp8"]["weight_gb"] < 0.55 * rec["bf16"]["weight_gb"]:
         raise AssertionError(f"the fp8 DiT is not half the bf16 one: {rec}")
     return rec
@@ -1359,6 +1384,295 @@ def phase_checkpoint(smi: str) -> tuple:
     return rec, counts, stats
 
 
+# The V2 (LTX-2.3) file phase: a prompt through a tokenizer.json the script
+# writes (a small BPE with byte fallback: the card's machine has no
+# `tokenizers`), the checkpoint's V2 text encoder and DiT, a .y4m out.
+V2_PROMPT = "A cinematic shot of the ocean at sunset, waves on black rocks 🌅 <extra>"
+V2_NEGATIVE = "worst quality, blurry"
+V2_TOKENIZER_MERGES = (("▁", "a"), ("t", "h"), ("th", "e"), ("▁", "the"), ("o", "n"), ("i", "n"), ("e", "r"),
+                       ("a", "t"), ("o", "c"), ("e", "a"), ("oc", "ea"), ("ocea", "n"),
+                       ("▁", "ocean"), ("s", "h"), ("o", "t"), ("sh", "ot"), ("▁", "shot"), ("i", "c"),
+                       ("in", "e"), ("▁", "c"), ("w", "a"), ("v", "e"), ("wa", "ve"), ("wave", "s"))
+TOKENIZE_TOKENS = 1024  # the host tokenizer's timed encode: a prompt that fills the context
+V2_CFG_STEPS = 2  # the one-stage and text-to-video runs from the V2 files: 2 of their 30 steps
+
+
+def _write_tokenizer(directory: str) -> None:
+    """tokenizer.json and tokenizer_config.json of a small BPE, as JSON:
+    <pad> <eos> <bos> <unk> at Gemma's ids 0-3, the 256 <0xNN> byte tokens
+    (byte fallback), ▁, letters, digits and punctuation, the merges above,
+    a Replace normalizer (space -> ▁), a <bos> template and one added
+    non-special token, <extra>."""
+    import os
+
+    vocab = {t: i for i, t in enumerate(["<pad>", "<eos>", "<bos>", "<unk>", "<extra>"])}
+    for token in ([f"<0x{b:02X}>" for b in range(256)] + ["▁"] + [chr(c) for c in range(ord("a"), ord("z") + 1)]
+                  + [chr(c) for c in range(ord("A"), ord("Z") + 1)] + list("0123456789,.'!?-")):
+        vocab.setdefault(token, len(vocab))
+    for a, b in V2_TOKENIZER_MERGES:
+        vocab.setdefault(a + b, len(vocab))
+    added = [{"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False, "normalized": False,
+              "special": t != "<extra>"} for i, t in enumerate(["<pad>", "<eos>", "<bos>", "<unk>", "<extra>"])]
+    spec = {"version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+            "normalizer": {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}, "pre_tokenizer": None,
+            "post_processor": {"type": "TemplateProcessing",
+                               "single": [{"SpecialToken": {"id": "<bos>", "type_id": 0}},
+                                          {"Sequence": {"id": "A", "type_id": 0}}],
+                               "pair": [{"Sequence": {"id": "A", "type_id": 0}}, {"Sequence": {"id": "B", "type_id": 1}}],
+                               "special_tokens": {"<bos>": {"id": "<bos>", "ids": [2], "tokens": ["<bos>"]}}},
+            "decoder": None,
+            "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>", "continuing_subword_prefix": None,
+                      "end_of_word_suffix": None, "fuse_unk": True, "byte_fallback": True, "ignore_merges": False,
+                      "vocab": vocab, "merges": [list(m) for m in V2_TOKENIZER_MERGES]}}
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "tokenizer.json"), "w", encoding="utf-8") as fh:
+        json.dump(spec, fh)
+    with open(os.path.join(directory, "tokenizer_config.json"), "w", encoding="utf-8") as fh:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast", "bos_token": "<bos>", "eos_token": "<eos>",
+                   "pad_token": "<pad>", "unk_token": "<unk>"}, fh)
+
+
+def _write_v2_files(directory: str, dev) -> dict:
+    """The V2 phase's files, by the port's writers: a full-width, full-depth
+    LTX-2.3 video DiT in the reference `-fp8` layout (cross-attention AdaLN,
+    gated attention, prompt AdaLN, no caption projection) with the VAE
+    decoder, its statistics, the V2 text projection and both gated
+    connectors (8 blocks, 32 x 128 video and 32 x 64 audio, bf16 in the
+    file) for a 2-layer Gemma, metadata `model_version` 2.3.0 and a V2
+    config; the spatial upscaler; a 2-layer full-width bf16 Gemma-3 with
+    the tokenizer's files."""
+    import os
+
+    import torch
+
+    from ltx2_tpu_torch.generate import make_decoder, make_dit, make_gemma, make_upscaler
+    from ltx2_tpu_torch.loader.export import iter_fp8_checkpoint_specs
+    from ltx2_tpu_torch.loader.safetensors_io import write_safetensors, write_safetensors_streaming
+    from ltx2_tpu_torch.models.text_encoder import GEMMA3_LAYER_TYPES, Gemma3Config
+    from ltx2_tpu_torch.models.text_encoder.encoder import (
+        VideoTextEncoder, init_text_encoder_, text_encoder_checkpoint_keys, text_encoder_config_v2,
+    )
+    from ltx2_tpu_torch.models.text_encoder.gemma3 import gemma_to_checkpoint
+    from ltx2_tpu_torch.models.transformer.model import LTXModelConfig
+    from ltx2_tpu_torch.models.upscaler.spatial import upscaler_to_checkpoint
+    from ltx2_tpu_torch.models.video_vae.decoder import DEFAULT_DECODER_BLOCKS
+    from ltx2_tpu_torch.models.video_vae.weights import decoder_to_checkpoint
+
+    paths = {"checkpoint": os.path.join(directory, "ltx-2.3-video-fp8.safetensors"),
+             "upscaler": os.path.join(directory, "spatial-upscaler.safetensors"),
+             "gemma": os.path.join(directory, "gemma")}
+    gen = torch.Generator(device=dev).manual_seed(51)
+    decoder = make_decoder("bfloat16", dev)
+    with torch.no_grad():
+        decoder.per_channel_statistics.mean_of_means.normal_(generator=gen).mul_(0.1)
+        decoder.per_channel_statistics.std_of_means.uniform_(0.5, 1.5, generator=gen)
+    others = [(k, v.dtype, tuple(v.shape), (lambda v=v: v)) for k, v in decoder_to_checkpoint(decoder).items()]
+    del decoder
+    te = init_text_encoder_(VideoTextEncoder(text_encoder_config_v2(num_gemma_layers=GEMMA_FILE_LAYERS + 1),
+                                             device=dev), gen)
+    params = dict(te.named_parameters())
+    others += [(key, torch.bfloat16, tuple(params[name].shape),
+                (lambda t=params[name]: t.detach().to("cpu", torch.bfloat16)))
+               for name, key in text_encoder_checkpoint_keys(te).items()]
+    blocks = [["res_x", {"num_layers": b[1]}] if b[0] == "res_x" else [b[0], {"multiplier": b[1], "residual": b[2]}]
+              for b in DEFAULT_DECODER_BLOCKS]
+    metadata = {"model_version": "2.3.0", "config": json.dumps({
+        "transformer": {"num_attention_heads": 32, "attention_head_dim": 128, "connector_num_attention_heads": 32,
+                        "connector_attention_head_dim": 128, "audio_connector_num_attention_heads": 32,
+                        "audio_connector_attention_head_dim": 64, "connector_num_layers": 8,
+                        "connector_apply_gated_attention": True},
+        "vae": {"decoder_blocks": blocks}})}
+    dit = make_dit(LAYERS, dev, seed=52, base=LTXModelConfig(cross_attention_adaln=True, apply_gated_attention=True),
+                   fp8=True)
+    t0 = time.perf_counter()
+    write_safetensors_streaming(paths["checkpoint"], [*iter_fp8_checkpoint_specs(dit), *others], metadata=metadata)
+    write_s = time.perf_counter() - t0
+    del dit, te, params, others
+    torch.cuda.empty_cache()
+    write_safetensors(paths["upscaler"], upscaler_to_checkpoint(make_upscaler(dev), v11=True))
+    gemma = make_gemma(dev, cfg=Gemma3Config(num_hidden_layers=GEMMA_FILE_LAYERS,
+                                             layer_types=GEMMA3_LAYER_TYPES[:GEMMA_FILE_LAYERS]))
+    tensors = {k: v.to(torch.bfloat16) for k, v in gemma_to_checkpoint(gemma).items()}
+    del gemma
+    os.makedirs(paths["gemma"])
+    write_safetensors(os.path.join(paths["gemma"], "model-00001-of-00001.safetensors"), tensors)
+    del tensors
+    _write_tokenizer(paths["gemma"])
+    torch.cuda.empty_cache()
+    sizes = {name: sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(p) for f in fs)
+             if os.path.isdir(p) else os.path.getsize(p) for name, p in paths.items()}
+    return {"paths": paths, "gb": {k: v / 1e9 for k, v in sizes.items()}, "checkpoint_write_s": write_s}
+
+
+def _tokenizer_host_seconds(directory: str) -> dict:
+    """The host tokenizer's seconds: parsing the files (uncached), and one
+    encode of a prompt of more than 1024 tokens to 1024."""
+    import os
+
+    from ltx2_tpu_torch.utils import tokenizer
+
+    t0 = time.perf_counter()
+    tok = tokenizer.Tokenizer(*(json.load(open(os.path.join(directory, name), encoding="utf-8"))
+                                for name in ("tokenizer.json", "tokenizer_config.json")))
+    parse_s = time.perf_counter() - t0
+    long = " ".join([V2_PROMPT] * 80)
+    t0 = time.perf_counter()
+    ids, mask = tok([long, V2_NEGATIVE], TOKENIZE_TOKENS)
+    encode_s = time.perf_counter() - t0
+    if int(mask[0].sum()) != TOKENIZE_TOKENS:
+        raise AssertionError(f"the long prompt took {int(mask[0].sum())} tokens, not {TOKENIZE_TOKENS}")
+    return {"parse_s": parse_s, "encode_2x1024_s": encode_s, "vocab": len(tok.model.vocab),
+            "merges": len(tok.model.merges)}
+
+
+def phase_v2_files(smi: str) -> tuple:
+    """LTX-2.3 (V2) from files on the card, through the command line a user
+    calls: writes `_write_v2_files` into a fresh temporary directory (its
+    free space first), then `generate.main --pipeline distilled --checkpoint
+    <V2 file> --gemma-dir <Gemma + tokenizer> --spatial-upscaler <file>
+    --fp8-serving --prompt ... --output <tmp>/clip.y4m --requests 2` at
+    512x768x121: the prompt ids Gemma receives equal the tokenizer's on the
+    CPU (byte fallback and the added token among them), the launches the code
+    implies (1056 flash, 19 fp32 and 270 bf16 convs a clip), finite contexts
+    and latents, two .y4m files of the header plus 121 x (6 + 3 H W) bytes,
+    each phase's seconds and peaks and each component's load seconds. Then
+    the same prompt and files through `--pipeline one-stage` and
+    `text-to-video` at 480x704x97 for V2_CFG_STEPS steps (96 flash launches
+    a step, the tiled decode's convs). The files are deleted at the end.
+    Returns (the record, the two-stage run's launches)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import ltx2_tpu_torch.generate as G
+    from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscalerConfig
+    from ltx2_tpu_torch.models.upscaler.spatial import conv_launches as upscaler_convs
+    from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoderConfig, conv_launches
+    from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, generate_tile_specs
+    from ltx2_tpu_torch.utils.tokenizer import tokenize
+    from ltx2_tpu_torch.utils.video_io import y4m_header
+
+    directory = tempfile.mkdtemp(prefix="ltx2_v2_")
+    free_gb = shutil.disk_usage(directory).free / 1e9
+    log(f"V2 file phase: {directory} has {free_gb:.1f} GB free, the files need {CKPT_DISK_GB} GB")
+    if free_gb < CKPT_DISK_GB:
+        shutil.rmtree(directory, ignore_errors=True)
+        raise AssertionError(f"{directory}: {free_gb:.1f} GB free, the V2 phase needs {CKPT_DISK_GB} GB")
+    seen, apply = [], G.gemma3_apply
+
+    def record_ids(model, ids, mask, *args, **kwargs):
+        seen.append((ids.cpu(), mask.cpu()))
+        return apply(model, ids, mask, *args, **kwargs)
+
+    rec = {"directory_free_gb": free_gb, "card": smi}
+    try:
+        t0 = time.perf_counter()
+        files = _write_v2_files(directory, torch.device("cuda"))
+        paths = files["paths"]
+        rec.update(files_gb=files["gb"], checkpoint_write_s=files["checkpoint_write_s"],
+                   write_s=time.perf_counter() - t0, tokenizer_host=_tokenizer_host_seconds(paths["gemma"]))
+        log(f"V2 files written: {json.dumps(rec)}")
+        out = os.path.join(directory, "clip.y4m")
+        argv = ["--pipeline", "distilled", "--checkpoint", paths["checkpoint"], "--gemma-dir", paths["gemma"],
+                "--spatial-upscaler", paths["upscaler"], "--fp8-serving", "--prompt", V2_PROMPT,
+                "--negative-prompt", V2_NEGATIVE, "--output", out, "--requests", str(len(SEEDS)), "--seed",
+                str(SEEDS[0]), "--height", str(HEIGHT), "--width", str(WIDTH), "--num-frames", str(FRAMES),
+                "--device", "cuda"]
+        torch.cuda.empty_cache()
+        _reset_counts()
+        G.gemma3_apply = record_ids
+        t0 = time.perf_counter()
+        try:
+            frames, stats = G.main(argv)
+        finally:
+            G.gemma3_apply = apply
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        want_ids, want_mask = (torch.from_numpy(a) for a in tokenize(paths["gemma"], [V2_PROMPT, V2_NEGATIVE]))
+        vocab = json.load(open(os.path.join(paths["gemma"], "tokenizer.json"), encoding="utf-8"))["model"]["vocab"]
+        sizes = [os.path.getsize(st["output"]) for st in stats]
+        header = len(y4m_header(WIDTH, HEIGHT, 24.0))
+        shapes = [(v.shape, v.dtype) for v in frames]
+        distinct = not np.array_equal(frames[0], frames[1])
+        del frames
+        # The same prompt through the CFG flows, at the one-stage defaults' size and V2_CFG_STEPS steps.
+        cfg_flows = {}
+        for pipeline in ("one-stage", "text-to-video"):
+            torch.cuda.empty_cache()
+            _reset_counts()
+            out = os.path.join(directory, f"{pipeline}.y4m")
+            t0 = time.perf_counter()
+            cfg_frames, cfg_stats = G.main([
+                "--pipeline", pipeline, "--checkpoint", paths["checkpoint"], "--gemma-dir", paths["gemma"],
+                "--fp8-serving", "--prompt", V2_PROMPT, "--negative-prompt", V2_NEGATIVE, "--output", out,
+                "--seed", str(SEEDS[0]), "--height", str(ONE_STAGE["height"]), "--width", str(ONE_STAGE["width"]),
+                "--num-frames", str(ONE_STAGE["frames"]), "--num-inference-steps", str(V2_CFG_STEPS),
+                "--device", "cuda"])
+            st = cfg_stats[0]
+            cfg_flows[pipeline] = {
+                "wall_s": time.perf_counter() - t0, "launches": _counts(),
+                "seconds": {p: st[f"{p}_s"] for p in ("text_encode", "denoise", "decode")},
+                "denoise_step_s": st["denoise_step_s"], "decode_tiles": st["decode_tiles"],
+                "finite": bool(st["context_finite"] and st["denoise_latent_finite"]),
+                "frames": list(cfg_frames[0].shape), "y4m_bytes": os.path.getsize(out),
+                "y4m_want": len(y4m_header(ONE_STAGE["width"], ONE_STAGE["height"], 24.0))
+                + ONE_STAGE["frames"] * (6 + 3 * ONE_STAGE["height"] * ONE_STAGE["width"])}
+            del cfg_frames
+            log(f"V2 {pipeline} from files (tokenized prompt and negative, {V2_CFG_STEPS} steps): "
+                f"{json.dumps(cfg_flows[pipeline])} | {smi}")
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+    phases = ("text_encode", "stage1", "upscale", "stage2", "decode")
+    rec.update({
+        "wall_s": wall, "launches": counts, "dit_weight_gb": stats[0]["dit_weight_gb"],
+        "load_s": {k: stats[0].get(f"{k}_init_s") for k in ("gemma", "text_encoder", "dit", "upscaler", "decoder")},
+        "seconds": {p: [s[f"{p}_s"] for s in stats] for p in phases},
+        "peak_gb": {p: max(s[f"{p}_peak_gb"] for s in stats if s.get(f"{p}_peak_gb") is not None) for p in phases},
+        "prompt_tokens": [stats[0]["prompt_tokens"], stats[0]["negative_tokens"]],
+        "prompt_source": [s["prompt_source"] for s in stats], "y4m_bytes": sizes,
+        "frames": [list(shape) for shape, _ in shapes], "cfg_flows": cfg_flows,
+        "card": smi,
+    })
+    log(f"V2 two-stage from files (tokenized prompt, .y4m out): {json.dumps(rec)}")
+    tiles = len(generate_tile_specs((1, 128, (FRAMES - 1) // 8 + 1, HEIGHT // 32, WIDTH // 32),
+                                    TilingConfig.default()))
+    upscale = upscaler_convs(SpatialUpscalerConfig())
+    per_clip = {"fwd": TWO_STAGE_LAUNCHES_PER_CLIP, "bwd": 0,
+                "conv": upscale + conv_launches(VideoDecoderConfig()) * tiles}
+    if counts != {k: v * len(SEEDS) for k, v in per_clip.items()}:
+        raise AssertionError(f"V2 two-stage from files: launches {counts}, expected {per_clip} a clip")
+    if len(seen) != len(SEEDS) or any(not (torch.equal(i, want_ids) and torch.equal(m, want_mask)) for i, m in seen):
+        raise AssertionError("the prompt ids Gemma received differ from the tokenizer's on the CPU")
+    for token in ("<bos>", "<extra>", "<0xF0>", "▁ocean"):
+        if vocab[token] not in want_ids[0].tolist():
+            raise AssertionError(f"the tokenized prompt lacks {token}")
+    for v in shapes:
+        if v != ((FRAMES, HEIGHT, WIDTH, 3), np.uint8):
+            raise AssertionError(f"V2 two-stage from files: frames {v}")
+    for st in stats:
+        if not (st["context_finite"] and st["stage1_latent_finite"] and st["stage2_latent_finite"]):
+            raise AssertionError(f"V2 two-stage from files: non-finite context or latent {st}")
+        if st["prompt_source"] != "tokenizer":
+            raise AssertionError(f"V2 prompts came from {st['prompt_source']}")
+    if sizes != [header + FRAMES * (6 + 3 * HEIGHT * WIDTH)] * len(SEEDS):
+        raise AssertionError(f"V2 .y4m files of {sizes} bytes")
+    if not distinct:
+        raise AssertionError("the two V2 requests produced identical clips")
+    cfg_want = {"fwd": 2 * LAYERS * V2_CFG_STEPS, "bwd": 0, "conv": conv_launches(VideoDecoderConfig()) * len(
+        generate_tile_specs((1, 128, (ONE_STAGE["frames"] - 1) // 8 + 1, ONE_STAGE["height"] // 32,
+                             ONE_STAGE["width"] // 32), TilingConfig.default()))}
+    for pipeline, r in cfg_flows.items():
+        if r["launches"] != cfg_want or not r["finite"] or r["y4m_bytes"] != r["y4m_want"]:
+            raise AssertionError(f"V2 {pipeline} from files: {r}, expected launches {cfg_want}")
+    if not FP8_DIT_GB[0] < stats[0]["dit_weight_gb"] < FP8_DIT_GB[1] + 0.5:
+        raise AssertionError(f"the V2 DiT from the fp8 file holds {stats[0]['dit_weight_gb']} GB")
+    return rec, {"fwd": counts["fwd"], "conv_fp32": upscale * len(SEEDS), "conv_bf16": counts["conv"] - upscale * len(SEEDS)}
+
+
 @contextlib.contextmanager
 def _plain_kernels():
     """Every flash and conv call on its plain version while inside."""
@@ -1382,13 +1696,15 @@ def _frame_diff(a, b) -> dict:
     return {"mean_levels": float(d.mean()), "max_levels": int(d.max())}
 
 
-def phase_two_stage_small(smi: str) -> dict:
+def phase_two_stage_small(smi: str, v2: bool = False) -> dict:
     """The two-stage recipe end to end (decode included, tiled into 2 x 3 x 3
     tiles) at a small size, through the kernels, against the same pipeline
     on the same card with every flash and conv call on its plain version
     (whose agreement with the JAX package the CPU tests show): a 2-layer DiT
-    of 2 x 128-wide heads, a mid-16 upscaler, a base-16 bf16 decoder,
-    128x128x17. A run from another seed must fail the same limits."""
+    of 2 x 128-wide heads (with `v2`: 2 full-width LTX-2.3 blocks, 32 x
+    128, their AdaLN and prompt tables drawn non-zero, a 4096-wide context),
+    a mid-16 upscaler, a base-16 bf16 decoder, 128x128x17. A run from
+    another seed must fail the same limits."""
     import torch
 
     from ltx2_tpu_torch.generate import make_dit
@@ -1405,8 +1721,16 @@ def phase_two_stage_small(smi: str) -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(21)
-    dit = make_dit(2, dev, seed=22, base=LTXModelConfig(num_attention_heads=2, in_channels=16, out_channels=16,
-                                                         cross_attention_dim=256))
+    if v2:
+        dit = make_dit(2, dev, seed=23, base=LTXModelConfig(in_channels=16, out_channels=16,
+                                                             cross_attention_adaln=True, apply_gated_attention=True))
+        with torch.no_grad():
+            for name, p in dit.named_parameters():
+                if "scale_shift_table" in name:
+                    p.normal_(generator=gen).mul_(0.3)
+    else:
+        dit = make_dit(2, dev, seed=22, base=LTXModelConfig(num_attention_heads=2, in_channels=16, out_channels=16,
+                                                             cross_attention_dim=256))
     up_cfg = SpatialUpscalerConfig(16, 16, 1, 4)
     dec_cfg = VideoDecoderConfig(base_channels=16, latent_channels=16, compute_dtype="bfloat16")
     up = init_spatial_upscaler_(SpatialUpscaler(up_cfg, device=dev), gen)
@@ -1415,7 +1739,7 @@ def phase_two_stage_small(smi: str) -> dict:
         dec.per_channel_statistics.mean_of_means.normal_(generator=gen).mul_(0.3)
         dec.per_channel_statistics.std_of_means.uniform_(0.5, 1.5, generator=gen)
     pipe = DistilledPipeline(dit, up, video_decoder=dec)
-    context = torch.randn(1, 16, 256, generator=gen, device=dev) * 0.02
+    context = torch.randn(1, 16, dit.cfg.cross_attention_dim, generator=gen, device=dev) * (0.5 if v2 else 0.02)
     tiling = TilingConfig(SpatialTilingConfig(64, 32), TemporalTilingConfig(16, 8))
 
     def run(seed):
@@ -1437,7 +1761,7 @@ def phase_two_stage_small(smi: str) -> dict:
            "frames_vs_plain": _frame_diff(frames_k, frames_p),
            "planted_other_seed": _frame_diff(frames_other, frames_p),
            "tol_latent_rms_rel": TOL_SMALL_LATENT_RMS_REL, "tol_mean_levels": TOL_SMALL_MEAN_LEVELS}
-    log(f"two-stage small-input check (kernels vs plain on the card): {json.dumps(rec)} | {smi}")
+    log(f"{'V2 ' if v2 else ''}two-stage small-input check (kernels vs plain on the card): {json.dumps(rec)} | {smi}")
     del pipe, dit, up, dec
     torch.cuda.empty_cache()
     # 8 + 3 steps x 2 layers x (self + cross attention); the upscaler's convs
@@ -2025,8 +2349,13 @@ def phase_image_gate(smi: str, image: str) -> dict:
 
 def phase_cli_image(smi: str, image: str) -> dict:
     """`generate.main` with `--pipeline text-to-video --image` at 2 blocks,
-    2 steps and 128x128x9 on the card: frames and launches (flash: 2 blocks
-    x 2 attention calls x 2 steps; the encoder's convs and one decoder call)."""
+    2 steps and 128x128x9 on the card, written to a temporary .y4m: frames
+    and launches (flash: 2 blocks x 2 attention calls x 2 steps; the
+    encoder's convs and one decoder call)."""
+    import os
+    import shutil
+    import tempfile
+
     import torch
 
     from ltx2_tpu_torch import generate
@@ -2037,9 +2366,14 @@ def phase_cli_image(smi: str, image: str) -> dict:
 
     torch.cuda.empty_cache()
     _reset_counts()
-    videos, stats = generate.main(["--pipeline", "text-to-video", "--image", f"{image}:0:{IMAGE_STRENGTH}",
-                                   "--layers", "2", "--num-inference-steps", "2", "--height", "128", "--width",
-                                   "128", "--frames", "9", "--seed", str(IMAGE_SEED)])
+    directory = tempfile.mkdtemp(prefix="ltx2_cli_")
+    try:  # a .y4m: the default .mp4 needs ffmpeg, which the card's machine lacks
+        videos, stats = generate.main(["--pipeline", "text-to-video", "--image", f"{image}:0:{IMAGE_STRENGTH}",
+                                       "--layers", "2", "--num-inference-steps", "2", "--height", "128", "--width",
+                                       "128", "--frames", "9", "--seed", str(IMAGE_SEED),
+                                       "--output", os.path.join(directory, "cli.y4m")])
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
     counts = _counts()
     want = {"fwd": 2 * 2 * 2, "bwd": 0,
             "conv": encoder_convs(VideoEncoderConfig()) + decoder_convs(VideoDecoderConfig())}
@@ -2271,6 +2605,8 @@ def main():
     text_encode = phase_text_encode(smi)
     checkpoint, file_counts, file_stats = phase_checkpoint(smi)
     torch.cuda.empty_cache()
+    v2_files, v2_counts = phase_v2_files(smi)
+    torch.cuda.empty_cache()
     two_stage_counts, two_stage_stats, two_stage_peaks = phase_two_stage(smi)
     phases = ("text_encode", "stage1", "upscale", "stage2", "decode")
     checkpoint["two_stage"]["bf16_random_seconds"] = {p: [s[f"{p}_s"] for s in two_stage_stats] for p in phases}
@@ -2281,6 +2617,7 @@ def main():
         f"{json.dumps(side_by_side)} | {smi}")
     torch.cuda.empty_cache()
     two_stage_small = phase_two_stage_small(smi)
+    v2_small = phase_two_stage_small(smi, v2=True)
     i2v_two_stage, i2v_one_stage, options, image_to_video = phase_image_to_video(smi)
     torch.cuda.empty_cache()
     bwd = phase_bwd_kernels()
@@ -2304,10 +2641,11 @@ def main():
             "route": "cuda",
             "source": "ltx2_tpu_torch/csrc/flash_attention.cu",
             "replaces": "ltx2_tpu/ops/attention.py:188",
-            "launches": (serve_counts["fwd"] + two_stage_counts["fwd"] + file_counts["fwd"] + i2v_two_stage["fwd"]
-                         + i2v_one_stage["fwd"] + options["fwd"] + train_counts["fwd"]),
+            "launches": (serve_counts["fwd"] + two_stage_counts["fwd"] + file_counts["fwd"] + v2_counts["fwd"]
+                         + i2v_two_stage["fwd"] + i2v_one_stage["fwd"] + options["fwd"] + train_counts["fwd"]),
             "launches_by_path": {"serve": serve_counts["fwd"], "serve_two_stage": two_stage_counts["fwd"],
                                  "serve_two_stage_from_files": file_counts["fwd"],
+                                 "serve_v2_two_stage_from_files": v2_counts["fwd"],
                                  "image_to_video_two_stage": i2v_two_stage["fwd"],
                                  "one_stage": i2v_one_stage["fwd"], "one_stage_options": options["fwd"],
                                  "train": train_counts["fwd"]},
@@ -2349,11 +2687,12 @@ def main():
             "kernel": "conv3d_wgmma_kernel",
             "replaces": conv_replaces,
             "launches": (serve_counts["conv"] + two_stage_counts["conv"] - upscale_launches
-                         + file_counts["conv"] - file_upscale_launches + i2v_two_stage["conv_bf16"]
-                         + i2v_one_stage["conv_bf16"] + options["conv_bf16"]),
+                         + file_counts["conv"] - file_upscale_launches + v2_counts["conv_bf16"]
+                         + i2v_two_stage["conv_bf16"] + i2v_one_stage["conv_bf16"] + options["conv_bf16"]),
             "launches_by_path": {"serve": serve_counts["conv"],
                                  "serve_two_stage": two_stage_counts["conv"] - upscale_launches,
                                  "serve_two_stage_from_files": file_counts["conv"] - file_upscale_launches,
+                                 "serve_v2_two_stage_from_files": v2_counts["conv_bf16"],
                                  "image_to_video_two_stage": i2v_two_stage["conv_bf16"],
                                  "one_stage": i2v_one_stage["conv_bf16"],
                                  "one_stage_options": options["conv_bf16"]},
@@ -2371,10 +2710,11 @@ def main():
             "source": "ltx2_tpu_torch/csrc/conv3d.cu",
             "kernel": "conv3d_tf32x3_kernel",
             "replaces": conv_replaces,
-            "launches": (upscale_launches + file_upscale_launches + i2v_two_stage["conv_fp32"]
-                         + i2v_one_stage["conv_fp32"] + options["conv_fp32"]),
+            "launches": (upscale_launches + file_upscale_launches + v2_counts["conv_fp32"]
+                         + i2v_two_stage["conv_fp32"] + i2v_one_stage["conv_fp32"] + options["conv_fp32"]),
             "launches_by_path": {"serve_two_stage": upscale_launches,
                                  "serve_two_stage_from_files": file_upscale_launches,
+                                 "serve_v2_two_stage_from_files": v2_counts["conv_fp32"],
                                  "image_to_video_two_stage": i2v_two_stage["conv_fp32"],
                                  "one_stage": i2v_one_stage["conv_fp32"],
                                  "one_stage_options": options["conv_fp32"]},
@@ -2391,6 +2731,8 @@ def main():
     ], "train": {"timing": timing, "gradcheck": gradcheck},
         "bench_e2e": serve, "fp8_step": fp8_step, "checkpoint": checkpoint,
         "text_encode": text_encode, "image_to_video": image_to_video,
+        "v2": {"files": v2_files, "small_input_check": v2_small,
+               "step_ms": {"v2_bf16": fp8_step["v2_bf16"]["device_ms"], "v1_bf16": fp8_step["bf16"]["device_ms"]}},
         "two_stage": {"requests": two_stage_stats, "peak_memory_gb_by_phase": two_stage_peaks,
                       "small_input_check": two_stage_small}}
     log(json.dumps(record))

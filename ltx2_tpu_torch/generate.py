@@ -36,20 +36,42 @@ written over its latent frame (image-to-video).
 
 Weights are random, drawn on the device from a seed, unless the two-stage
 recipe or a CFG flow is given a reference-format checkpoint (`--checkpoint`,
-with `--spatial-upscaler` for the two-stage recipe and, for
-`--text-encoder`, `--gemma-dir`): then every component comes from the files
-through `ModelLedger` (utils/model_ledger.py),
-with `--fp8-serving` (the file's fp8 DiT weights stay fp8 on the card),
-`--gemma-fp8` (Gemma's matmul weights quantized to fp8 at load) and
-`--lora PATH[:STRENGTH]` (repeatable; fused into the DiT at load). The text
-context is
-the dummy embedding of `generate.py --no-gemma` (normal * 0.02, 1024 x 4096;
-the CFG flows draw a negative one after it), except with `--text-encoder`
-(the two-stage and the CFG flows): there each request's prompt and negative
-prompt, token ids drawn from the request's seed and left-padded to 1024
-(there is no tokenizer here), go through the fp32 Gemma-3-12B and the V1
-text encoder (feature extractor, 1D connector) in one batch of 2, and the
-DiT's caption projection maps the encoding (1024 x 3840) to its width.
+LTX-2.0 or LTX-2.3, with `--spatial-upscaler` for the two-stage recipe and
+`--gemma-dir`): then every component comes from the files through
+`ModelLedger` (utils/model_ledger.py), with `--fp8-serving` (the file's fp8
+DiT weights stay fp8 on the card), `--gemma-fp8` (Gemma's matmul weights
+quantized to fp8 at load) and `--lora PATH[:STRENGTH]` (repeatable; fused
+into the DiT at load). An LTX-2.3 (V2) file gives the V2 DiT (cross-attention
+AdaLN, gated attention, prompt AdaLN, no caption projection) and the V2 text
+encoder (two extractor heads, two gated connectors; the audio encoding it
+also makes feeds no ported stream).
+
+Prompts: `--prompt` and `--negative-prompt` (the JAX CLI's defaults) are
+tokenized from `--gemma-dir`'s tokenizer.json by the port's own reader
+(utils/tokenizer.py: left padding to 1024, right truncation, the template's
+<bos>, as the JAX CLI's AutoTokenizer call) and go through Gemma-3 and the
+checkpoint's text encoder; `--gemma-dir` turns text encoding on. Without a
+checkpoint, `--text-encoder` runs the fp32 Gemma-3-12B and V1 text encoder
+on random weights with token ids drawn from each request's seed (no
+tokenizer: an explicit `--prompt` is refused there). `--embedding` reads the
+contexts from an npz with the JAX CLI's keys (`positive`, `negative`),
+`--save-embedding` writes them (V2: also `positive_audio`,
+`negative_audio`). Otherwise the text context is the dummy embedding of
+`generate.py --no-gemma` (normal * 0.02, 1024 x the DiT's text width; the CFG
+flows draw a negative one after it). Each request's stats name the
+`prompt_source`.
+
+Files out: `--output` (default output.mp4; several requests get
+`<base>_<i><ext>`): `.y4m` is written by the port (utils/video_io.py), any
+other container through ffmpeg as the JAX CLI does (`--output-fps`
+minterpolate, `--speed`); `.avi`, `.mov`, and anything but `.y4m` without
+ffmpeg on PATH are refused before a model is built (the MJPEG writers need a
+JPEG encoder the port does not have). `--skip-vae` writes
+`<base>_latent.npz` (`latent`) and builds no decoder. `--fps` is the
+position grid's rate and the file's; `--tile-size`, `--tile-overlap`,
+`--temporal-tile-size` and `--temporal-tile-overlap` set the decode's
+tiling; `--num-frames` is `--frames`; `--dtype` the DiT's compute dtype.
+
 Every DiT attention call runs the flash kernel, every VAE and upscaler conv
 the implicit-GEMM conv kernel; Gemma's and the connector's fp32 attention
 runs as plain torch ops, as the JAX package runs it outside Pallas.
@@ -69,7 +91,12 @@ From Python: `generate_video(seed=0)`, `generate_videos([0, 1, ...])` or
     python -m ltx2_tpu_torch.generate --pipeline text-to-video --apg-scale 3 --apg-eta 0.5 \
         --apg-norm-threshold 5 --cfg-interval 2
     python -m ltx2_tpu_torch.generate --pipeline distilled --checkpoint ltx-2.safetensors \
-        --spatial-upscaler upscaler.safetensors --gemma-dir gemma-3-12b --text-encoder --fp8-serving --gemma-fp8
+        --spatial-upscaler upscaler.safetensors --gemma-dir gemma-3-12b --fp8-serving --gemma-fp8 \
+        --prompt "A cinematic shot of the ocean at sunset" --output clip.y4m
+    python -m ltx2_tpu_torch.generate --pipeline one-stage --checkpoint ltx-2.3.safetensors \
+        --gemma-dir gemma-3-12b --prompt "..." --save-embedding emb.npz --output clip.mp4
+    python -m ltx2_tpu_torch.generate --pipeline distilled --checkpoint ltx-2.3.safetensors \
+        --spatial-upscaler upscaler.safetensors --embedding emb.npz --skip-vae --output clip.y4m
 """
 
 from __future__ import annotations
@@ -93,8 +120,8 @@ from ltx2_tpu_torch.core import resolve_device
 from ltx2_tpu_torch.loader.fp8 import quantize_params_fp8, weight_bytes
 from ltx2_tpu_torch.loader.lora import LoRAConfig
 from ltx2_tpu_torch.models.text_encoder import (
-    Gemma3, Gemma3Config, TextEncoderConfig, VideoTextEncoder, gemma3_apply, init_gemma3_, init_text_encoder_,
-    video_text_encoder_apply,
+    Gemma3, Gemma3Config, TextEncoderConfig, VideoTextEncoder, av_text_encoder_apply, gemma3_apply, init_gemma3_,
+    init_text_encoder_, video_text_encoder_apply,
 )
 from ltx2_tpu_torch.models.transformer.blocks import VideoBlock
 from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelConfig, init_ltx_model_
@@ -107,7 +134,9 @@ from ltx2_tpu_torch.models.video_vae.decoder import (
     PerChannelStatistics, VideoDecoder, VideoDecoderConfig, init_video_decoder_,
 )
 from ltx2_tpu_torch.models.video_vae.ops import normalize_latent, un_normalize_latent
-from ltx2_tpu_torch.models.video_vae.tiling import generate_tile_specs
+from ltx2_tpu_torch.models.video_vae.tiling import (
+    SpatialTilingConfig, TemporalTilingConfig, TilingConfig, generate_tile_specs,
+)
 from ltx2_tpu_torch.models.video_vae.weights import load_per_channel_statistics
 from ltx2_tpu_torch.ops.attention import flash_attention
 from ltx2_tpu_torch.ops.conv3d import conv3d_ndhwc_kernel
@@ -117,6 +146,8 @@ from ltx2_tpu_torch.pipelines.distilled import DistilledConfig, DistilledPipelin
 from ltx2_tpu_torch.pipelines.one_stage import OneStageCFGConfig, OneStagePipeline
 from ltx2_tpu_torch.types import LatentState, VideoLatentShape, VideoPixelShape
 from ltx2_tpu_torch.utils.model_ledger import ModelLedger
+from ltx2_tpu_torch.utils.tokenizer import has_tokenizer, tokenize
+from ltx2_tpu_torch.utils.video_io import check_output, save_video
 
 CONTEXT_TOKENS = 1024
 # A request's prompt and negative prompt lengths in tokens, drawn from its
@@ -125,6 +156,9 @@ CONTEXT_TOKENS = 1024
 PROMPT_TOKENS = (128, 512)
 NEGATIVE_TOKENS = (32, 160)
 PAD_ID, BOS_ID, FIRST_TEXT_ID = 0, 2, 3
+# The JAX CLI's default prompts (scripts/generate.py:42-45).
+DEFAULT_PROMPT = "A cinematic shot of the ocean at sunset"
+DEFAULT_NEGATIVE_PROMPT = "worst quality, inconsistent motion, blurry, jittery, distorted"
 FPS = 24.0
 TEMPORAL_CHUNK = 7  # latent frames per decode chunk, the JAX bench's setting
 
@@ -227,24 +261,60 @@ def prompt_tokens(seed: int, vocab_size: int, length: int = CONTEXT_TOKENS) -> T
     return ids, mask, lengths
 
 
+def tokenize_prompts(gemma_dir: str, prompt: str, negative_prompt: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The prompt and the negative prompt through the tokenizer.json of
+    `gemma_dir`, as the JAX CLI tokenizes them: (2, 1024) int64 ids and
+    mask, left-padded, truncated on the right, with the template's <bos>."""
+    ids, mask = tokenize(gemma_dir, [prompt, negative_prompt], CONTEXT_TOKENS)
+    return torch.from_numpy(ids), torch.from_numpy(mask)
+
+
 def encode_prompts(seeds: Sequence[int], gemma: Gemma3, text_encoder: VideoTextEncoder, device: torch.device,
-                   stats: Sequence[dict], negatives: bool = False) -> List[torch.Tensor]:
+                   stats: Sequence[dict], negatives: bool = False,
+                   tokens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                   embeddings: Optional[list] = None) -> List[torch.Tensor]:
     """Each request's prompt and negative prompt through Gemma and the text
-    encoder as one batch of 2; returns the prompts' (1, S, 3840) contexts
-    (with `negatives` the (2, S, 3840) prompt and negative pair) and writes
-    into each request's stats the encode's seconds, the token lengths used
-    and the prompt context's finiteness and std."""
+    encoder as one batch of 2; returns the prompts' (1, S, D) video contexts
+    (with `negatives` the (2, S, D) prompt and negative pair; D 3840 for V1,
+    4096 for V2, whose encoder also makes the audio encodings) and writes
+    into each request's stats the encode's seconds, the token lengths and
+    their source and the prompt context's finiteness and std. `tokens`: the
+    (2, L) ids and mask of the tokenized prompts (`tokenize_prompts`), the
+    same for every request; None draws them from each request's seed
+    (`prompt_tokens`). `embeddings`, when given, receives each request's
+    encodings as host arrays under the JAX CLI's npz keys (`positive`,
+    `negative`; V2 also `positive_audio`, `negative_audio`)."""
     contexts = []
     for seed, st in zip(seeds, stats):
-        ids, mask, (st["prompt_tokens"], st["negative_tokens"]) = prompt_tokens(seed, gemma.cfg.vocab_size)
+        if tokens is None:
+            ids, mask, (st["prompt_tokens"], st["negative_tokens"]) = prompt_tokens(seed, gemma.cfg.vocab_size)
+            st["prompt_source"] = "seeded"
+        else:
+            ids, mask = tokens
+            st["prompt_tokens"], st["negative_tokens"] = (int(n) for n in mask.sum(dim=1))
+            st["prompt_source"] = "tokenizer"
+            if int(ids.max()) >= gemma.cfg.vocab_size:
+                raise ValueError(f"token id {int(ids.max())} is outside Gemma's vocabulary of {gemma.cfg.vocab_size}: "
+                                 "the tokenizer does not belong to this Gemma")
         ids, mask = ids.to(device), mask.to(device)
         _sync(device)
         t0 = time.perf_counter()
         _, hidden = gemma3_apply(gemma, ids, mask)
-        encoding = video_text_encoder_apply(text_encoder, hidden, mask).video_encoding
+        audio = None
+        if text_encoder.cfg.v2:
+            out = av_text_encoder_apply(text_encoder, hidden, mask)
+            encoding, audio = out.video_encoding, out.audio_encoding
+        else:
+            encoding = video_text_encoder_apply(text_encoder, hidden, mask).video_encoding
         _sync(device)
         st["text_encode_s"] = time.perf_counter() - t0
         del hidden
+        if embeddings is not None:
+            saved = {"positive": encoding[0:1], "negative": encoding[1:2]}
+            if audio is not None:
+                saved.update(positive_audio=audio[0:1], negative_audio=audio[1:2])
+            embeddings.append({k: v.float().cpu().numpy() for k, v in saved.items()})
+        del audio
         context = encoding[0:1]
         st["context_finite"] = bool(torch.isfinite(encoding).all())
         st["context_std"] = float(context.std())
@@ -253,7 +323,7 @@ def encode_prompts(seeds: Sequence[int], gemma: Gemma3, text_encoder: VideoTextE
 
 
 def _encode_phase(seeds, stats, device, gemma: Optional[Gemma3], text_encoder: Optional[VideoTextEncoder],
-                  phase_peaks: bool, negatives: bool = False):
+                  phase_peaks: bool, negatives: bool = False, tokens=None, embeddings=None):
     """The text-encode phase: builds what is not given, encodes every
     request (`encode_prompts`) and returns the contexts; the modules it
     built are released when it returns."""
@@ -261,24 +331,30 @@ def _encode_phase(seeds, stats, device, gemma: Optional[Gemma3], text_encoder: O
         gemma, stats[0]["gemma_init_s"] = _timed(device, lambda: make_gemma(device))
     if text_encoder is None:
         text_encoder, stats[0]["text_encoder_init_s"] = _timed(device, lambda: make_text_encoder(device))
-    contexts = encode_prompts(seeds, gemma, text_encoder, device, stats, negatives)
+    contexts = encode_prompts(seeds, gemma, text_encoder, device, stats, negatives, tokens, embeddings)
     stats[0]["text_encode_peak_gb"] = _phase_peak(device, phase_peaks)
     return contexts
 
 
 def _text_contexts(seeds, stats, device, contexts, text_encoder, gemma, ledger, phase_peaks: bool,
-                   negatives: bool = False):
+                   negatives: bool = False, tokens=None, embeddings=None):
     """The contexts of the two-stage and the CFG flows: those given, or with
-    `text_encoder` (True or a module) each request's prompts encoded, Gemma
-    and the text encoder built (or read through `ledger`) and released
-    before the DiT; None when neither (the dummy contexts are drawn later).
+    `text_encoder` (True or a module) each request's prompts (`tokens`, or
+    seeded ids) encoded, Gemma and the text encoder built (or read through
+    `ledger`) and released before the DiT; None when neither (the dummy
+    contexts are drawn later). Each request's stats get its
+    `prompt_source` ("tokenizer", "seeded", "contexts" or "dummy").
     Returns (contexts, whether they were encoded)."""
     encode = text_encoder is True or isinstance(text_encoder, VideoTextEncoder)
     if gemma is not None and not encode:
         raise ValueError("gemma is given but text encoding is off (text_encoder=False)")
     if encode and contexts is not None:
         raise ValueError("contexts and text_encoder are exclusive: the encoder makes the contexts")
+    if (tokens is not None or embeddings is not None) and not encode:
+        raise ValueError("prompt tokens and embeddings need text encoding (text_encoder)")
     if not encode:
+        for st in stats:
+            st["prompt_source"] = "dummy" if contexts is None else "contexts"
         return contexts, False
     if ledger is not None:
         gemma, stats[0]["gemma_init_s"] = _timed(device, ledger.gemma)
@@ -287,26 +363,34 @@ def _text_contexts(seeds, stats, device, contexts, text_encoder, gemma, ledger, 
         ledger.clear_model("text_encoder")
     contexts = _encode_phase(seeds, stats, device, gemma,
                              text_encoder if isinstance(text_encoder, VideoTextEncoder) else None, phase_peaks,
-                             negatives)
+                             negatives, tokens, embeddings)
     gemma = text_encoder = None
     _free(device)
     _phase_peak(device, phase_peaks)  # the next phase's peak starts from what is left
     return contexts, True
 
 
-def _dit_and_encoder(stats, device, layers: int, dit, encoder, images, ledger, caption_channels):
-    """The DiT (given, from `ledger`, or random at `layers` with a
-    `caption_channels` projection when set) and, when there are images, the
-    video encoder (given, from `ledger`, or random), each timed."""
+def _dit_and_encoder(stats, device, layers: int, dit, encoder, images, ledger, context_width: Optional[int],
+                     dtype: str = "bfloat16"):
+    """The DiT (given, from `ledger`, or random at `layers` in `dtype`, with
+    a caption projection from `context_width` channels when the contexts
+    are not the model's 4096 wide) and, when there are images, the video
+    encoder (given, from `ledger`, or random), each timed. Raises when the
+    DiT's text input (its caption projection's, else its context width)
+    does not take `context_width` channels."""
     if dit is None and ledger is not None:
         dit, stats[0]["dit_init_s"] = _timed(device, ledger.transformer)
     elif dit is None:
-        base = LTXModelConfig(caption_channels=caption_channels) if caption_channels else LTXModelConfig()
+        base = LTXModelConfig(compute_dtype=dtype)
+        if context_width not in (None, base.cross_attention_dim):
+            base = dataclasses.replace(base, caption_channels=context_width)
         dit, stats[0]["dit_init_s"] = _timed(device, lambda: make_dit(layers, device, base=base))
     stats[0]["dit_weight_gb"] = weight_bytes(dit) / 1e9
-    if caption_channels and dit.cfg.caption_channels != caption_channels:
-        raise ValueError(f"the DiT's caption_channels {dit.cfg.caption_channels} do not take the "
-                         f"{caption_channels}-channel text encoding")
+    takes = dit.cfg.caption_channels or dit.cfg.cross_attention_dim
+    if context_width is not None and takes != context_width:
+        raise ValueError(f"the DiT's text input (caption_channels {dit.cfg.caption_channels}, else its "
+                         f"cross_attention_dim {dit.cfg.cross_attention_dim}) does not take the "
+                         f"{context_width}-channel text context")
     if images and encoder is None and ledger is not None:
         encoder, stats[0]["encoder_init_s"] = _timed(device, ledger.video_encoder)
     elif images and encoder is None:
@@ -356,12 +440,13 @@ def _phase_timer(device, st: dict, phase_peaks: bool):
     return on_phase, marks
 
 
-def make_latent_tools(cfg: LTXModelConfig, height: int, width: int, frames: int) -> VideoLatentTools:
-    pixel = VideoPixelShape(batch=1, frames=frames, height=height, width=width, fps=FPS)
+def make_latent_tools(cfg: LTXModelConfig, height: int, width: int, frames: int, fps: float = FPS
+                      ) -> VideoLatentTools:
+    pixel = VideoPixelShape(batch=1, frames=frames, height=height, width=width, fps=fps)
     return VideoLatentTools(
         patchifier=VideoLatentPatchifier(1),
         target_shape=VideoLatentShape.from_pixel_shape(pixel, latent_channels=cfg.in_channels),
-        fps=FPS,
+        fps=fps,
     )
 
 
@@ -412,9 +497,14 @@ def generate_videos(
     decoder: Optional[VideoDecoder] = None,
     contexts: Optional[Sequence[torch.Tensor]] = None,
     noises: Optional[Sequence[torch.Tensor]] = None,
+    fps: float = FPS,
+    dtype: str = "bfloat16",
+    skip_decode: bool = False,
 ) -> Tuple[List[np.ndarray], List[dict]]:
     """Generate one clip per seed; returns (uint8 (frames, height, width, 3)
-    arrays, per-request stats).
+    arrays, per-request stats); with `skip_decode` the (1, C, F, H, W)
+    fp32 latents in place of the frames, and no decoder is built. `fps`
+    goes into the position grid; `dtype` is the random DiT's compute dtype.
 
     All clips are denoised first, then the DiT is released and the decoder
     built, so the two never hold device memory together. `dit`, `decoder`,
@@ -432,10 +522,11 @@ def generate_videos(
 
     stats = [{"seed": seed, "dit_init_s": 0.0, "decoder_init_s": 0.0} for seed in seeds]
     if dit is None:
-        dit, stats[0]["dit_init_s"] = _timed(device, lambda: make_dit(layers, device, fp8=True))
+        dit, stats[0]["dit_init_s"] = _timed(
+            device, lambda: make_dit(layers, device, base=LTXModelConfig(compute_dtype=dtype), fp8=True))
     stats[0]["dit_weight_gb"] = weight_bytes(dit) / 1e9
     cfg = dit.cfg
-    tools = make_latent_tools(cfg, height, width, frames)
+    tools = make_latent_tools(cfg, height, width, frames, fps)
     loop = make_distilled_loop(cfg)
 
     latents = []
@@ -458,6 +549,8 @@ def generate_videos(
 
     del dit, loop
     _free(device)
+    if skip_decode:
+        return [latent.float().cpu().numpy() for latent in latents], stats
 
     if decoder is None:
         decoder, stats[0]["decoder_init_s"] = _timed(device, lambda: make_decoder(cfg.compute_dtype, device))
@@ -500,9 +593,22 @@ def generate_videos_distilled(
     ledger: Optional[ModelLedger] = None,
     images: Optional[Sequence[ImageCondition]] = None,
     encoder: Optional[VideoEncoder] = None,
+    tokens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    embeddings: Optional[list] = None,
+    fps: float = FPS,
+    tiling: Optional[TilingConfig] = None,
+    dtype: str = "bfloat16",
+    skip_decode: bool = False,
 ) -> Tuple[List[np.ndarray], List[dict]]:
     """The two-stage distilled recipe, one clip per seed; returns (uint8
-    (frames, height, width, 3) arrays, per-request stats).
+    (frames, height, width, 3) arrays, per-request stats); with
+    `skip_decode` the (1, C, F, H, W) fp32 latents in place of the frames,
+    and no decoder is built.
+
+    `tokens` (the tokenized prompt and negative prompt, `tokenize_prompts`)
+    and `embeddings` go to `encode_prompts`; `fps` into the position grids;
+    `tiling` replaces the decode's tiling (`DistilledConfig.tiling_config`);
+    `dtype` is the random DiT's compute dtype.
 
     With `text_encoder` (True, or a VideoTextEncoder to use) every request's
     prompts are encoded first (`encode_prompts`), by a full-width fp32
@@ -546,10 +652,11 @@ def generate_videos_distilled(
         raise ValueError("with a ledger every component comes from its files: pass no module")
     stats = [{"seed": seed, "dit_init_s": 0.0, "upscaler_init_s": 0.0, "decoder_init_s": 0.0} for seed in seeds]
     _phase_peak(device, phase_peaks)
-    contexts, encoded = _text_contexts(seeds, stats, device, contexts, text_encoder, gemma, ledger, phase_peaks)
+    contexts, encoded = _text_contexts(seeds, stats, device, contexts, text_encoder, gemma, ledger, phase_peaks,
+                                       tokens=tokens, embeddings=embeddings)
     gemma = text_encoder = None
     dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, images, ledger,
-                                    contexts[0].shape[-1] if encoded else None)
+                                    None if contexts is None else contexts[0].shape[-1], dtype)
     upscaler = _spatial_upscaler(stats, device, upscaler, ledger, "the two-stage recipe")
     cfg = dit.cfg
     statistics = _latent_statistics(cfg, decoder, ledger, device)
@@ -558,7 +665,7 @@ def generate_videos_distilled(
     configs, latents = [], []
     for i, (seed, st) in enumerate(zip(seeds, stats)):
         config = DistilledConfig(height=height, width=width, num_frames=frames, seed=seed, dtype=cfg.compute_dtype,
-                                 latent_channels=cfg.in_channels)
+                                 latent_channels=cfg.in_channels, fps=fps, tiling_config=tiling)
         context = contexts[i] if contexts is not None else dummy_context(
             cfg, torch.Generator(device=device).manual_seed(seed), device)
         on_phase, marks = _phase_timer(device, st, phase_peaks)
@@ -573,6 +680,8 @@ def generate_videos_distilled(
     if ledger is not None:
         for name in ("transformer", "spatial_upscaler", "video_encoder"):
             ledger.clear_model(name)
+    if skip_decode:
+        return [latent.float().cpu().numpy() for latent in latents], stats
     return _decode_phase(latents, configs, stats, device, decoder, ledger, cfg.compute_dtype, phase_peaks,
                          lambda seed: stage_seeds(seed)[2]), stats
 
@@ -627,6 +736,12 @@ def generate_videos_one_stage(
     cfg_interval: int = 1,
     token_bucket: int = 0,
     upscale_spatial: bool = False,
+    tokens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    embeddings: Optional[list] = None,
+    fps: float = FPS,
+    tiling: Optional[TilingConfig] = None,
+    dtype: str = "bfloat16",
+    skip_decode: bool = False,
     **loop_options,
 ) -> Tuple[List[np.ndarray], List[dict]]:
     """The single-stage CFG pipeline, one clip per seed at the JAX
@@ -656,6 +771,8 @@ def generate_videos_one_stage(
     seed 2) runs after the loop in the un-normalize /
     re-normalize bracket of the decoder's statistics (its phase "upscale"
     in the stats), and the decoder decodes the upscaled latent.
+    `tokens`, `embeddings`, `fps`, `tiling`, `dtype` and `skip_decode` as in
+    `generate_videos_distilled`.
     """
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -667,10 +784,10 @@ def generate_videos_one_stage(
     stats = [{"seed": seed, "dit_init_s": 0.0, "decoder_init_s": 0.0} for seed in seeds]
     _phase_peak(device, phase_peaks)
     contexts, encoded = _text_contexts(seeds, stats, device, contexts, text_encoder, gemma, ledger, phase_peaks,
-                                       negatives=True)
+                                       negatives=True, tokens=tokens, embeddings=embeddings)
     gemma = text_encoder = None
     dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, images, ledger,
-                                    contexts[0].shape[-1] if encoded else None)
+                                    None if contexts is None else contexts[0].shape[-1], dtype)
     cfg = dit.cfg
     pipe = OneStagePipeline(dit, video_encoder=encoder)
     spatial = upscaler = None
@@ -689,7 +806,7 @@ def generate_videos_one_stage(
                                    num_inference_steps=steps, cfg_scale=cfg_scale, rescale_scale=rescale_scale,
                                    token_dependent_shift=token_shift, dtype=cfg.compute_dtype,
                                    latent_channels=cfg.in_channels, cfg_interval=cfg_interval,
-                                   token_bucket=token_bucket)
+                                   token_bucket=token_bucket, fps=fps, tiling_config=tiling)
         if contexts is not None:
             positive, negative = contexts[i][0:1], contexts[i][1:2]
         else:
@@ -709,6 +826,8 @@ def generate_videos_one_stage(
     if ledger is not None:
         for name in ("transformer", "video_encoder", "spatial_upscaler"):
             ledger.clear_model(name)
+    if skip_decode:
+        return [latent.float().cpu().numpy() for latent in latents], stats
     return _decode_phase(latents, configs, stats, device, decoder, ledger, cfg.compute_dtype, phase_peaks,
                          lambda seed: stage_seeds(seed, 2)[1]), stats
 
@@ -752,18 +871,64 @@ def apg_guider(args) -> Optional[Union[LtxAPGGuider, StatefulAPGGuider]]:
     return LtxAPGGuider(scale=args.apg_scale, eta=args.apg_eta, norm_threshold=args.apg_norm_threshold)
 
 
+def tiling_config(args) -> Optional[TilingConfig]:
+    """`--tile-size/--tile-overlap` and `--temporal-tile-size/--temporal-
+    tile-overlap` -> the decode's tiling, as scripts/generate.py builds it;
+    None (each pipeline's own choice) when neither size is given."""
+    spatial = SpatialTilingConfig(args.tile_size, args.tile_overlap) if args.tile_size else None
+    temporal = (TemporalTilingConfig(args.temporal_tile_size, args.temporal_tile_overlap)
+                if args.temporal_tile_size else None)
+    if spatial or temporal:
+        return TilingConfig(spatial_config=spatial, temporal_config=temporal)
+    return None
+
+
+def load_embedding(path: str, device, negatives: bool) -> torch.Tensor:
+    """An `--embedding` npz (the JAX CLI's keys) -> the video context: the
+    (1, S, D) `positive`, or with `negatives` the (2, S, D) `positive` and
+    `negative` pair. The audio keys of a V2 file are read by no ported
+    stream (ROADMAP.md §1 item 4)."""
+    with np.load(path) as data:
+        positive = torch.from_numpy(np.asarray(data["positive"], np.float32))
+        if negatives:
+            positive = torch.cat([positive, torch.from_numpy(np.asarray(data["negative"], np.float32))])
+    return positive.to(resolve_device(device))
+
+
+def output_paths(output: str, n: int, suffix: str = "") -> List[str]:
+    """The file of each of `n` requests: `output` itself for one, else
+    `<base>_<i><ext>`; `suffix` replaces the extension (`--skip-vae`'s
+    `_latent.npz`)."""
+    base, ext = (output.rsplit(".", 1)[0], "." + output.rsplit(".", 1)[1]) if "." in output else (output, "")
+    ext = suffix or ext
+    return [f"{base}{ext}"] if n == 1 else [f"{base}_{i}{ext}" for i in range(n)]
+
+
 def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
-    """The command line; prints one JSON line per request and returns
-    (frames, stats) as the generate functions do."""
+    """The command line; writes each request's video (or latent) file,
+    prints one JSON line per request and returns (frames, stats) as the
+    generate functions do (the latents with --skip-vae)."""
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--pipeline", choices=("bench-e2e", "distilled", "one-stage", "text-to-video"),
                     default="bench-e2e",
                     help="bench-e2e: one stage at full resolution, chunked decode; distilled: the two-stage "
                          "recipe (half-resolution stage 1, 2x upscaler, 3-sigma stage 2, tiled decode); one-stage: "
                          "the CFG pipeline (CFG* with --rescale-scale > 0); text-to-video: its plain-CFG form")
+    ap.add_argument("--prompt", default=None,
+                    help=f"tokenized from --gemma-dir's tokenizer.json (default {DEFAULT_PROMPT!r})")
+    ap.add_argument("--negative-prompt", default=None,
+                    help=f"the CFG flows' negative prompt (default {DEFAULT_NEGATIVE_PROMPT!r})")
     ap.add_argument("--height", type=int, default=512)
     ap.add_argument("--width", type=int, default=768)
-    ap.add_argument("--frames", type=int, default=121)
+    ap.add_argument("--frames", "--num-frames", type=int, default=121)
+    ap.add_argument("--fps", type=float, default=FPS, help="frame rate of the position grid and the output")
+    ap.add_argument("--output-fps", type=float, default=None, help="mux at this fps via minterpolate if > --fps")
+    ap.add_argument("--speed", type=float, default=1.0, help="playback speed multiplier of the container rate")
+    ap.add_argument("--output", default="output.mp4",
+                    help=".y4m is written by the port; other containers need ffmpeg on PATH (.avi/.mov: refused, "
+                         "no JPEG encoder); with several requests <base>_<i><ext>")
+    ap.add_argument("--skip-vae", action="store_true", help="write <base>_latent.npz (key latent), no decode")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="bfloat16", help="the DiT's compute dtype")
     ap.add_argument("--steps", type=int, default=8, help="bench-e2e only: distilled steps")
     ap.add_argument("--num-inference-steps", type=int, default=30, help="one-stage, text-to-video: Euler steps")
     ap.add_argument("--cfg-scale", type=float, default=3.0, help="one-stage, text-to-video: guidance scale")
@@ -777,22 +942,32 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
                          "(default 0), repeatable")
     ap.add_argument("--image-strength", type=float, default=0.95,
                     help="the strength of --image specs without one")
+    ap.add_argument("--tile-size", type=int, default=None, help="distilled, one-stage: spatial decode tile (px)")
+    ap.add_argument("--tile-overlap", type=int, default=64)
+    ap.add_argument("--temporal-tile-size", type=int, default=None, help="temporal decode tile (frames)")
+    ap.add_argument("--temporal-tile-overlap", type=int, default=24)
     ap.add_argument("--layers", type=int, default=48)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--requests", type=int, default=1, help="clips to generate, seeds seed..seed+N-1")
     ap.add_argument("--text-encoder", action="store_true",
                     help="distilled, one-stage, text-to-video: encode each request's prompt and negative prompt "
-                         "tokens (drawn from its seed) with the fp32 Gemma-3-12B and V1 text encoder (random "
-                         "weights) in place of the dummy contexts")
+                         "with Gemma-3 and the text encoder in place of the dummy contexts; without --gemma-dir the "
+                         "token ids are drawn from the request's seed and the fp32 Gemma-3-12B and V1 text encoder "
+                         "have random weights")
+    ap.add_argument("--embedding", default=None,
+                    help="distilled, one-stage, text-to-video: an npz of text encodings (positive, negative), "
+                         "in place of the text encoder")
+    ap.add_argument("--save-embedding", default=None, help="write the first request's encodings as an npz")
     ap.add_argument("--checkpoint", default=None,
-                    help="distilled, one-stage, text-to-video: a unified LTX-2 safetensors checkpoint (DiT, VAE "
-                         "encoder and decoder, text projection and connector), loaded through ModelLedger in place "
-                         "of the random weights")
+                    help="distilled, one-stage, text-to-video: a unified LTX-2 or LTX-2.3 safetensors checkpoint "
+                         "(DiT, VAE encoder and decoder, text projection and connectors), loaded through ModelLedger "
+                         "in place of the random weights")
     ap.add_argument("--spatial-upscaler", default=None,
                     help="distilled with --checkpoint: the spatial upscaler's safetensors")
     ap.add_argument("--gemma-dir", default=None,
-                    help="with --checkpoint --text-encoder: the directory of Gemma-3's model-*.safetensors shards")
+                    help="with --checkpoint: the directory of Gemma-3's model-*.safetensors shards and its "
+                         "tokenizer.json (and tokenizer_config.json); turns text encoding on")
     ap.add_argument("--fp8-serving", action="store_true",
                     help="with --checkpoint: keep the file's fp8 DiT weights fp8 on the card (dequantized at use)")
     ap.add_argument("--gemma-fp8", action="store_true",
@@ -834,7 +1009,10 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
         ap.error(f"{', '.join(loop_flags)} need --pipeline one-stage or text-to-video")
     if args.pipeline == "bench-e2e":
         for flag, used in (("--text-encoder", args.text_encoder), ("--checkpoint", args.checkpoint),
-                           ("--image", args.image)):
+                           ("--image", args.image), ("--prompt", args.prompt is not None),
+                           ("--negative-prompt", args.negative_prompt is not None), ("--embedding", args.embedding),
+                           ("--save-embedding", args.save_embedding),
+                           ("--tile-size", args.tile_size), ("--temporal-tile-size", args.temporal_tile_size)):
             if used:
                 ap.error(f"{flag} needs --pipeline distilled, one-stage or text-to-video")
     if args.spatial_upscaler and args.pipeline != "distilled" and not args.upscale_spatial:
@@ -845,8 +1023,25 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
         ap.error(f"{', '.join(k for k, v in file_flags.items() if v)} need --checkpoint")
     if args.gemma_fp8 and not args.gemma_dir:
         ap.error("--gemma-fp8 needs --gemma-dir")
+    encode = args.text_encoder or (args.gemma_dir is not None and not args.embedding)
+    if args.embedding and args.text_encoder:
+        ap.error("--embedding and --text-encoder are exclusive: the npz holds the encodings")
+    if args.save_embedding and not encode:
+        ap.error("--save-embedding needs the text encoder (--gemma-dir or --text-encoder)")
+    explicit = [flag for flag, v in (("--prompt", args.prompt), ("--negative-prompt", args.negative_prompt)) if v is not None]
+    if args.gemma_dir and encode and not has_tokenizer(args.gemma_dir):
+        ap.error(f"--gemma-dir {args.gemma_dir} holds no tokenizer.json: the prompts cannot be tokenized")
+    if explicit and not (args.gemma_dir and encode):
+        ap.error(f"{', '.join(explicit)} need the tokenizer.json of --gemma-dir (with --checkpoint); without it the "
+                 "random-weight flows draw token ids from each request's seed")
+    if not args.skip_vae:
+        try:
+            check_output(args.output)
+        except ValueError as err:
+            ap.error(f"--output {args.output}: {err}")
     seeds = [args.seed + i for i in range(args.requests)]
-    common = dict(height=args.height, width=args.width, frames=args.frames, layers=args.layers, device=args.device)
+    common = dict(height=args.height, width=args.width, frames=args.frames, layers=args.layers, device=args.device,
+                  fps=args.fps, dtype=args.dtype, skip_decode=args.skip_vae)
     if args.pipeline == "bench-e2e":
         videos, stats = generate_videos(seeds, steps=args.steps, **common)
     else:
@@ -854,11 +1049,21 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
         if args.checkpoint:
             ledger = ModelLedger(
                 checkpoint_path=args.checkpoint, gemma_path=args.gemma_dir, spatial_upscaler_path=args.spatial_upscaler,
-                loras=[parse_lora_spec(spec) for spec in args.lora], keep_fp8=args.fp8_serving,
-                gemma_fp8=args.gemma_fp8, decoder_dtype="bfloat16", device=args.device,
+                loras=[parse_lora_spec(spec) for spec in args.lora], target_dtype=args.dtype,
+                keep_fp8=args.fp8_serving, gemma_fp8=args.gemma_fp8, decoder_dtype="bfloat16", device=args.device,
             )
+        tokens = None
+        if args.gemma_dir and encode:
+            tokens = tokenize_prompts(args.gemma_dir, DEFAULT_PROMPT if args.prompt is None else args.prompt,
+                                      DEFAULT_NEGATIVE_PROMPT if args.negative_prompt is None else args.negative_prompt)
+        contexts = None
+        if args.embedding:
+            context = load_embedding(args.embedding, args.device, negatives=cfg_flow)
+            contexts = [context] * len(seeds)
+        embeddings = [] if args.save_embedding else None
         images = [parse_image_spec(spec, args.image_strength) for spec in args.image]
-        flow = dict(text_encoder=args.text_encoder, phase_peaks=True, ledger=ledger, images=images, **common)
+        flow = dict(text_encoder=encode, phase_peaks=True, ledger=ledger, images=images, contexts=contexts,
+                    tokens=tokens, embeddings=embeddings, tiling=tiling_config(args), **common)
         if cfg_flow:
             # text-to-video is the one-stage pipeline with plain CFG, as in
             # scripts/generate.py: rescale 0, every other flag as given.
@@ -873,7 +1078,18 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
                 cross_attn_start_block=args.cross_attn_start_block, cache_text_kv=args.cache_text_kv, **flow)
         else:
             videos, stats = generate_videos_distilled(seeds, **flow)
-    for video, st in zip(videos, stats):
+        if args.embedding:
+            for st in stats:
+                st["prompt_source"] = "embedding"
+        if args.save_embedding:
+            np.savez(args.save_embedding, **embeddings[0])
+    paths = output_paths(args.output, len(videos), "_latent.npz" if args.skip_vae else "")
+    for video, path, st in zip(videos, paths, stats):
+        if args.skip_vae:
+            np.savez(path, latent=video)
+        else:
+            save_video(video, path, args.fps, output_fps=args.output_fps, speed=args.speed)
+        st["output"] = path
         print(json.dumps({**st, "frames": list(video.shape), "dtype": str(video.dtype)}))
     return videos, stats
 

@@ -1,5 +1,5 @@
-"""Checkpoint -> video DiT, with key rewriting and fp8 (counterpart of
-ltx2_tpu/loader/weight_loader.py).
+"""Checkpoint -> video DiT, V1 or V2 (LTX-2.3), with key rewriting and fp8
+(counterpart of ltx2_tpu/loader/weight_loader.py).
 
 The reference checkpoint keeps every component in one safetensors file; the
 DiT's tensors are `model.diffusion_model.*`. Their names become the port's
@@ -42,9 +42,8 @@ DIFFUSION_PREFIX = "model.diffusion_model."
 # target dtype (docs/PARITY.md: fp32 AdaLN and norms).
 FP32_KEYS = ("scale_shift_table", "adaln", "norm")
 
-V2_NOT_PORTED = "V2 (LTX-2.3) checkpoints are not ported yet: ROADMAP.md §1 item 4"
-AUDIO_NOT_PORTED = "audio is not ported yet: ROADMAP.md §1 item 5"
-INT8_NOT_PORTED = "int8 W8A8 weights are not ported yet: ROADMAP.md §1 item 6"
+AUDIO_NOT_PORTED = "audio is not ported yet: ROADMAP.md §1 item 4"
+INT8_NOT_PORTED = "int8 W8A8 weights are not ported yet: ROADMAP.md §1 item 5"
 
 
 def convert_checkpoint_key(key: str, include_audio: bool = False) -> Optional[str]:
@@ -128,9 +127,10 @@ def transformer_config_from_checkpoint(path: str, compute_dtype: str = "bfloat16
     """The video DiT's architecture from the file: widths from the tensors'
     shapes, the block count from their names, the head count from the
     metadata's config (`num_attention_heads`, top level or under
-    "transformer"; 32 when absent). The rest is the V1 model's: SPLIT RoPE
-    on the f32 grid, a caption projection when the file has one; no remat
-    (serving)."""
+    "transformer"; 32 when absent). A `model_version` of 2.3 (LTX-2.3, V2)
+    turns on cross-attention AdaLN and gated attention, as the JAX ledger
+    builds V2. The rest: SPLIT RoPE on the f32 grid, a caption projection
+    when the file has one (V1; V2 has none); no remat (serving)."""
     f = SafetensorsFile(path)
     meta = read_checkpoint_config(path)
     tcfg = meta.get("transformer", {}) or meta
@@ -146,11 +146,12 @@ def transformer_config_from_checkpoint(path: str, compute_dtype: str = "bfloat16
     names = [k[len(DIFFUSION_PREFIX):] for k in f.keys() if k.startswith(DIFFUSION_PREFIX)]
     blocks = {int(m.group(1)) for m in map(_BLOCK_RE.match, names) if m}
     caption = shape("caption_projection.linear_1.weight")[1] if "caption_projection.linear_1.weight" in names else None
+    v2 = is_v2_model(path)
     return LTXModelConfig(
         num_attention_heads=heads, attention_head_dim=head_dim, in_channels=in_channels,
         out_channels=shape("proj_out.weight")[0], num_layers=max(blocks) + 1 if blocks else 0,
         cross_attention_dim=shape("transformer_blocks.0.attn2.to_k.weight")[1], caption_channels=caption,
-        compute_dtype=compute_dtype, remat=False,
+        compute_dtype=compute_dtype, remat=False, cross_attention_adaln=v2, apply_gated_attention=v2,
     )
 
 
@@ -176,8 +177,6 @@ def load_transformer_params(
         raise NotImplementedError(INT8_NOT_PORTED)
     if include_audio:
         raise NotImplementedError(AUDIO_NOT_PORTED)
-    if is_v2_model(path):
-        raise NotImplementedError(V2_NOT_PORTED)
     device = resolve_device(device)
     if cfg is None:
         cfg = transformer_config_from_checkpoint(path, target_dtype)

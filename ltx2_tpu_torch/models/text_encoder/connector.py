@@ -1,5 +1,7 @@
 """The 1D embeddings connector (counterpart of
-ltx2_tpu/models/text_encoder/connector.py), V1.
+ltx2_tpu/models/text_encoder/connector.py): V1's 2 blocks of 30 x 128, and
+V2's 8 gated blocks (32 x 128 for video, 32 x 64 for audio), their config
+read from the checkpoint.
 
 Learnable registers are tiled and appended to extend the sequence to at
 least `min_sequence_length` tokens, and the attention mask is then cleared
@@ -8,7 +10,8 @@ self-attention with INTERLEAVED RoPE over the token index -> residual,
 RMSNorm -> feed-forward -> residual, and a final RMSNorm. The blocks are
 the DiT's `Attention` and `FeedForward`. The connector runs in fp32, so its
 attention takes `sdpa`'s plain route, as the JAX package takes its einsum
-route below 2048 tokens. Not ported yet: V2's gated attention.
+route below 2048 tokens. V2's blocks gate their attention output
+(`to_gate_logits`, as the DiT's V2 attention does).
 """
 
 from __future__ import annotations
@@ -48,7 +51,8 @@ class ConnectorConfig:
 
     def attention_config(self) -> AttentionConfig:
         return AttentionConfig(query_dim=self.inner_dim, heads=self.num_attention_heads,
-                               dim_head=self.attention_head_dim, norm_eps=self.norm_eps, rope_type=self.rope_type)
+                               dim_head=self.attention_head_dim, norm_eps=self.norm_eps, rope_type=self.rope_type,
+                               apply_gated_attention=self.apply_gated_attention)
 
 
 class ConnectorBlock(nn.Module):
@@ -65,8 +69,6 @@ class Connector(nn.Module):
 
     def __init__(self, cfg: ConnectorConfig, *, device=None):
         super().__init__()
-        if cfg.apply_gated_attention:
-            raise NotImplementedError("the V2 connector's gated attention is not ported")
         self.cfg = cfg
         self.transformer_1d_blocks = nn.ModuleList(
             ConnectorBlock(cfg, device=device) for _ in range(cfg.num_layers))

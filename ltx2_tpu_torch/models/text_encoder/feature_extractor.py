@@ -1,14 +1,19 @@
-"""Gemma feature extractor, V1 (counterpart of
+"""Gemma feature extractors, V1 and V2 (counterpart of
 ltx2_tpu/models/text_encoder/feature_extractor.py).
 
-The 49 hidden states of Gemma are normalised per batch row and per layer
-over the row's valid tokens (masked range normalisation), concatenated in
-(B, T, D, L) order to (B, T, D * L) with padding zeroed, and projected by
-one bias-free linear to D. Not ported yet: the V2 extractor (per-token RMS
-norm, dual video/audio heads).
+V1: the 49 hidden states of Gemma are normalised per batch row and per
+layer over the row's valid tokens (masked range normalisation), concatenated
+in (B, T, D, L) order to (B, T, D * L) with padding zeroed, and projected by
+one bias-free linear to D. V2 (LTX-2.3): each token's state in each layer is
+RMS-normalised over D, concatenated the same way with padding zeroed, and
+two heads project it straight to the video and the audio widths (4096 and
+2048), their inputs scaled by sqrt(width / D); fp32 throughout.
 """
 
 from __future__ import annotations
+
+import math
+from typing import Tuple
 
 import torch
 import torch.nn as nn
@@ -55,3 +60,38 @@ def extract_features_v1(fe: FeatureExtractorV1, hidden_states: torch.Tensor, att
     stacked = hidden_states.permute(1, 2, 3, 0)  # (B, T, D, L), a view: the concat's order
     lengths = attention_mask.sum(dim=-1).int()
     return linear(fe.aggregate_embed, norm_and_concat_padded_batch(stacked, lengths, padding_side))
+
+
+class FeatureExtractorV2(nn.Module):
+    """`video_aggregate_embed` and `audio_aggregate_embed`: (hidden_dim *
+    num_layers) -> the video and the audio widths, with bias, fp32."""
+
+    def __init__(self, hidden_dim: int = 3840, num_layers: int = 49, video_dim: int = 4096, audio_dim: int = 2048, *,
+                 device=None):
+        super().__init__()
+        self.video_aggregate_embed = Linear(hidden_dim * num_layers, video_dim, device=device)
+        self.audio_aggregate_embed = Linear(hidden_dim * num_layers, audio_dim, device=device)
+
+
+def norm_and_concat_per_token_rms(encoded_text: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+    """(B, T, D, L) states -> (B, T, D * L): each token's state in each
+    layer times rsqrt(its mean square over D + 1e-6), in fp32; padding
+    zeroed; encoded_text's dtype out."""
+    b, t, d, num_layers = encoded_text.shape
+    x = encoded_text.float()
+    normed = x * torch.rsqrt((x * x).mean(dim=2, keepdim=True) + 1e-6)
+    normed = normed.reshape(b, t, d * num_layers)
+    mask = attention_mask.to(device=encoded_text.device, dtype=torch.bool)[:, :, None]
+    return torch.where(mask, normed, 0.0).to(encoded_text.dtype)
+
+
+def extract_features_v2(fe: FeatureExtractorV2, hidden_states: torch.Tensor, attention_mask: torch.Tensor,
+                        hidden_dim: int = 3840) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gemma's stacked states (L, B, T, D) and (B, T) mask -> the (video,
+    audio) features, each head's input scaled by sqrt(its width /
+    hidden_dim)."""
+    normed = norm_and_concat_per_token_rms(hidden_states.permute(1, 2, 3, 0), attention_mask)
+    v_dim, a_dim = fe.video_aggregate_embed.weight.shape[0], fe.audio_aggregate_embed.weight.shape[0]
+    video = linear(fe.video_aggregate_embed, normed * math.sqrt(v_dim / hidden_dim))
+    audio = linear(fe.audio_aggregate_embed, normed * math.sqrt(a_dim / hidden_dim))
+    return video, audio

@@ -6,8 +6,9 @@ head), RoPE on Q/K (SPLIT in the DiT, INTERLEAVED in the text connector),
 then `sdpa_tokens`, which on the GPU is the hand-written flash-attention
 kernel for the DiT's bf16 attention (the connector's fp32 attention takes
 `sdpa`'s plain route). A step-invariant context's K/V may be handed in
-precomputed (`cached_kv`: V1 text-KV caching). Not ported yet: V2 gated
-attention, and the sequence- and tensor-parallel paths.
+precomputed (`cached_kv`: V1 text-KV caching). V2 (LTX-2.3) gates each
+head's output by 2 * sigmoid(`to_gate_logits`(x)) before `to_out`. Not
+ported yet: the sequence- and tensor-parallel paths.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ class AttentionConfig:
     dim_head: int = 64
     norm_eps: float = 1e-6
     rope_type: LTXRopeType = LTXRopeType.SPLIT
+    apply_gated_attention: bool = False  # V2: per-head output gates
 
     @property
     def inner_dim(self) -> int:
@@ -56,6 +58,8 @@ class Attention(nn.Module):
         self.to_out = Linear(inner, cfg.query_dim, device=device, dtype=dtype)
         self.q_norm = NormWeight(inner, device=device, dtype=dtype)
         self.k_norm = NormWeight(inner, device=device, dtype=dtype)
+        if cfg.apply_gated_attention:
+            self.to_gate_logits = Linear(cfg.query_dim, cfg.heads, device=device, dtype=dtype)
 
 
 def attention_apply(
@@ -82,7 +86,18 @@ def attention_apply(
         if cached_kv is None:
             k = apply_rotary_emb(k, pe, cfg.rope_type)
     out = sdpa_tokens(q, k, v, cfg.heads, cfg.dim_head, mask=mask)
+    if cfg.apply_gated_attention:
+        out = apply_gated_attention(p, cfg, x, out)
     return linear(p.to_out, out)
+
+
+def apply_gated_attention(p: Attention, cfg: AttentionConfig, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """V2's per-head gate on the attention output (B, T, H * D): 2 *
+    sigmoid(to_gate_logits(x)) in fp32, rounded to the output's dtype, then
+    the product in that dtype."""
+    gates = (2.0 * torch.sigmoid(linear(p.to_gate_logits, x).float())).to(out.dtype)
+    b, t, _ = out.shape
+    return (out.reshape(b, t, cfg.heads, cfg.dim_head) * gates[..., None]).reshape(b, t, cfg.inner_dim)
 
 
 class FeedForward(nn.Module):

@@ -5,8 +5,11 @@ self-attention (AdaLN, RoPE) -> text cross-attention -> FFN, with the AdaLN
 tables, modulation and gated residuals in fp32 and matmul inputs cast back
 to the compute dtype; optional per-row keep masks on the residuals (STG),
 a scale on the text cross-attention output (the late-block hook) and
-precomputed text K/V (V1 caching). Not ported yet: the audio stream,
-audio<->video cross-modal attention and V2 cross-attention AdaLN.
+precomputed text K/V (V1 caching). V2 (LTX-2.3, `cross_attention_adaln`)
+adds AdaLN rows 6-8 on the text cross-attention's queries and output, and a
+per-step prompt table that modulates its context, so its K/V change every
+step. Not ported yet: the audio stream and audio<->video cross-modal
+attention.
 """
 
 from __future__ import annotations
@@ -36,6 +39,14 @@ class StreamConfig:
     heads: int
     d_head: int
     context_dim: int
+    cross_attention_adaln: bool = False  # V2: 9 AdaLN rows, prompt-modulated text K/V
+    apply_gated_attention: bool = False  # V2: per-head attention output gates
+
+    def attention_config(self, norm_eps: float) -> AttentionConfig:
+        """The self-attention's config; the text cross-attention's adds
+        `context_dim`."""
+        return AttentionConfig(query_dim=self.dim, heads=self.heads, dim_head=self.d_head, norm_eps=norm_eps,
+                               apply_gated_attention=self.apply_gated_attention)
 
 
 @dataclasses.dataclass
@@ -49,6 +60,7 @@ class StreamArgs:
     context_mask: Optional[torch.Tensor] = None  # additive (B, 1, 1, S)
     self_mask: Optional[torch.Tensor] = None  # additive (B, 1, 1, T)
     embedded_timestep: Optional[torch.Tensor] = None  # (B, T|1, D)
+    prompt_timestep: Optional[torch.Tensor] = None  # (B, 1, 2, D) V2 text K/V modulation (fp32)
 
     def replace(self, **kwargs) -> "StreamArgs":
         return dataclasses.replace(self, **kwargs)
@@ -59,13 +71,18 @@ class VideoBlock(nn.Module):
 
     def __init__(self, cfg: StreamConfig, norm_eps: float = 1e-6, *, device=None, dtype=torch.float32):
         super().__init__()
-        base = AttentionConfig(query_dim=cfg.dim, heads=cfg.heads, dim_head=cfg.d_head, norm_eps=norm_eps)
+        base = cfg.attention_config(norm_eps)
         self.attn1 = Attention(base, device=device, dtype=dtype)
         self.attn2 = Attention(dataclasses.replace(base, context_dim=cfg.context_dim), device=device, dtype=dtype)
         self.ff = FeedForward(cfg.dim, cfg.dim, device=device, dtype=dtype)
         self.scale_shift_table = nn.Parameter(
-            torch.zeros(6, cfg.dim, device=device, dtype=torch.float32), requires_grad=False
+            torch.zeros(9 if cfg.cross_attention_adaln else 6, cfg.dim, device=device, dtype=torch.float32),
+            requires_grad=False,
         )
+        if cfg.cross_attention_adaln:
+            self.prompt_scale_shift_table = nn.Parameter(
+                torch.zeros(2, cfg.dim, device=device, dtype=torch.float32), requires_grad=False
+            )
 
 
 def _ada_values(table: torch.Tensor, timestep: torch.Tensor, start: int, end: int) -> Tuple[torch.Tensor, ...]:
@@ -93,11 +110,22 @@ def _gated_residual(x: torch.Tensor, residual: torch.Tensor, gate: torch.Tensor,
 
 
 def _text_cross_attention(
-    p: VideoBlock, attn_cfg: AttentionConfig, x: torch.Tensor, args: StreamArgs, norm_eps: float,
-    cached_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    p: VideoBlock, cfg: StreamConfig, attn_cfg: AttentionConfig, x: torch.Tensor, args: StreamArgs,
+    norm_eps: float, cached_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """V1 text cross-attention: rms-normed queries, projected text keys (or
-    this block's precomputed K/V)."""
+    """Text cross-attention. V1: rms-normed queries, projected text keys
+    (or this block's precomputed K/V). V2: the queries modulated by AdaLN
+    rows 6-8 (shift, scale), the context by the prompt table plus the prompt
+    timestep in fp32, the output times row 8's gate; no cached K/V."""
+    if cfg.cross_attention_adaln:
+        assert cached_kv is None, "text KV caching is incompatible with V2 KV modulation"
+        shift_q, scale_q, gate = _ada_values(p.scale_shift_table, args.timesteps, 6, 9)
+        kv_mod = p.prompt_scale_shift_table[None, None].float() + args.prompt_timestep.float()
+        shift_kv, scale_kv = kv_mod[:, :, 0], kv_mod[:, :, 1]
+        ctx = (args.context.float() * (1.0 + scale_kv) + shift_kv).to(x.dtype)
+        out = attention_apply(p.attn2, attn_cfg, _modulate(x, scale_q, shift_q, norm_eps), context=ctx,
+                              mask=args.context_mask)
+        return (out.float() * gate).to(x.dtype)
     return attention_apply(
         p.attn2, attn_cfg, rms_norm(x, None, norm_eps), context=args.context, mask=args.context_mask,
         cached_kv=cached_kv,
@@ -118,9 +146,7 @@ def av_block_apply(
     ca_scale: a scalar on the text cross-attention output, applied in its
     dtype; video_text_kv: this block's precomputed text (k, v)."""
     perturb = perturb or {}
-    attn1 = AttentionConfig(
-        query_dim=video_cfg.dim, heads=video_cfg.heads, dim_head=video_cfg.d_head, norm_eps=norm_eps
-    )
+    attn1 = video_cfg.attention_config(norm_eps)
     attn2 = dataclasses.replace(attn1, context_dim=video_cfg.context_dim)
     vx = video.x
 
@@ -130,7 +156,7 @@ def av_block_apply(
     )
     vx = _gated_residual(vx, attn_out, gate_msa, perturb.get("video_self"))
 
-    cross_out = _text_cross_attention(p, attn2, vx, video, norm_eps, cached_kv=video_text_kv)
+    cross_out = _text_cross_attention(p, video_cfg, attn2, vx, video, norm_eps, cached_kv=video_text_kv)
     if ca_scale is not None:
         cross_out = cross_out * ca_scale.to(cross_out.dtype)
     vx = (vx.float() + cross_out.float()).to(vx.dtype)

@@ -11,9 +11,12 @@ encoder's output to the model's width before the blocks. The forward takes
 the denoise loop's options: static STG perturbation configs (per-row keep
 masks on each block's self-attention residual), per-block scales of the
 text cross-attention output, and text K/V precomputed once per generation
-(`precompute_text_kv`, V1). Not ported yet: the audio and audio-video
-models, V2 (cross-attention AdaLN, gated attention, prompt AdaLN) and the
-parallel variants.
+(`precompute_text_kv`, V1). V2 (LTX-2.3) is three switches: cross-attention
+AdaLN (9 AdaLN embeddings, and `prompt_adaln_single`, driven by the
+modality's sigma, whose 2 embeddings modulate the text K/V every step),
+gated attention, and no caption projection (`caption_channels` None: the
+text encoder projects to the model's width itself). Not ported yet: the
+audio and audio-video models and the parallel variants.
 """
 
 from __future__ import annotations
@@ -74,10 +77,16 @@ class LTXModelConfig:
     use_middle_indices_grid: bool = True
     compute_dtype: str = "bfloat16"
     remat: bool = True  # checkpoint each block when gradients are recorded
+    cross_attention_adaln: bool = False  # V2 (LTX-2.3)
+    apply_gated_attention: bool = False  # V2
 
     @property
     def video_inner_dim(self) -> int:
         return self.num_attention_heads * self.attention_head_dim
+
+    @property
+    def adaln_num_embeddings(self) -> int:
+        return 9 if self.cross_attention_adaln else 6
 
     @property
     def dtype(self) -> torch.dtype:
@@ -89,6 +98,8 @@ class LTXModelConfig:
             heads=self.num_attention_heads,
             d_head=self.attention_head_dim,
             context_dim=self.cross_attention_dim,
+            cross_attention_adaln=self.cross_attention_adaln,
+            apply_gated_attention=self.apply_gated_attention,
         )
 
 
@@ -103,7 +114,9 @@ class LTXModel(nn.Module):
         self.cfg = cfg
         inner, dtype = cfg.video_inner_dim, cfg.dtype
         self.patchify_proj = Linear(cfg.in_channels, inner, device=device, dtype=dtype)
-        self.adaln_single = AdaLayerNormSingle(inner, 6, device=device)
+        self.adaln_single = AdaLayerNormSingle(inner, cfg.adaln_num_embeddings, device=device)
+        if cfg.cross_attention_adaln:
+            self.prompt_adaln_single = AdaLayerNormSingle(inner, 2, device=device)
         if cfg.caption_channels is not None:
             self.caption_projection = nn.Module()
             self.caption_projection.linear_1 = Linear(cfg.caption_channels, inner, device=device, dtype=dtype)
@@ -166,8 +179,10 @@ def prepare_stream_args(
     video: Modality,
     video_pe: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> StreamArgs:
-    """The video preprocessor: patchify projection, AdaLN embeddings, masks
-    and (unless precomputed) the RoPE tables."""
+    """The video preprocessor: patchify projection, AdaLN embeddings (V2:
+    also the prompt AdaLN's, from the modality's sigma, per-token timesteps
+    taking the first token's), masks and (unless precomputed) the RoPE
+    tables."""
     cfg = model.cfg
     dtype, inner = cfg.dtype, cfg.video_inner_dim
     x = linear(model.patchify_proj, video.latent.to(dtype))
@@ -175,6 +190,14 @@ def prepare_stream_args(
     timestep_emb, embedded = _prepare_timestep(
         model.adaln_single, video.timesteps, inner, batch, cfg.timestep_scale_multiplier
     )
+    prompt_timestep = None
+    if cfg.cross_attention_adaln:
+        sigma = video.sigma if video.sigma is not None else video.timesteps
+        if sigma.ndim > 1:
+            sigma = sigma[:, 0]
+        prompt_timestep, _ = _prepare_timestep(
+            model.prompt_adaln_single, sigma, inner, batch, cfg.timestep_scale_multiplier
+        )
     context = _project_context(model, video.context)
     if video_pe is None:
         video_pe = precompute_freqs_cis(
@@ -187,7 +210,7 @@ def prepare_stream_args(
         x=x, context=context, timesteps=timestep_emb, pe=video_pe,
         context_mask=_prepare_attention_mask(video.context_mask, dtype),
         self_mask=_prepare_attention_mask(video.token_mask, dtype),
-        embedded_timestep=embedded,
+        embedded_timestep=embedded, prompt_timestep=prompt_timestep,
     )
 
 
@@ -242,7 +265,9 @@ def precompute_text_kv(model: LTXModel, video_context: torch.Tensor) -> Dict[str
     """Every block's text cross-attention K (k-normed) and V from the video
     context, computed once per generation: {"video": (k, v)}, each
     (L, B, S, inner) in the compute dtype (48 x 3 x 1024 x 4096 bf16 is 1.2
-    GB each). V1 only, as the whole port is: V2 modulates K/V per step."""
+    GB each). V1 only: V2 modulates K/V per step, so it raises ValueError."""
+    if model.cfg.cross_attention_adaln:
+        raise ValueError("text KV caching is V1-only (V2 modulates KV per step)")
     blocks = model.transformer_blocks
     ctx = _project_context(model, video_context)
     k = _stacked_linear([b.attn2.to_k for b in blocks], ctx)

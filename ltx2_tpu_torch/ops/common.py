@@ -41,7 +41,7 @@ def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
     adapters on `p`, adds scale * (x A^T) B^T, A and B cast to x's dtype
     (ops/common.py:45-93 of the JAX package)."""
     if getattr(p, "weight_cscale", None) is not None:
-        raise NotImplementedError("int8 W8A8 weights (weight_cscale) are not ported yet: ROADMAP.md §1 item 6")
+        raise NotImplementedError("int8 W8A8 weights (weight_cscale) are not ported yet: ROADMAP.md §1 item 5")
     w, b = p.weight, p.bias
     if w.dtype != x.dtype:
         w = w.to(x.dtype)

@@ -21,7 +21,9 @@ options of the JAX package's video loop, each computing what it computes:
 - guidance reuse (`cfg_interval` k > 1): the uncond row runs on steps
   i % k == 0; the others run the cond-only forward and take
   neg = pos - delta, the fp32 delta of the last full step;
-- the late-block cross-attention scale, and text-KV caching (V1);
+- the late-block cross-attention scale, and text-KV caching (V1; a V2
+  model modulates its K/V every step, so the loop skips the cache, as the
+  JAX loop does);
 - shape-bucketed serving: with `token_mask` (B, T) the padding is masked
   out of self-attention's keys and the model's outputs there are zeroed
   before any guider, so every guider's sums equal the unpadded run's.
@@ -229,7 +231,9 @@ def make_video_denoise_loop(
             positions = _tile_rows(state.positions, r)
             video_pe = _precompute_video_pe(model_cfg, state.positions, r)
             perturb = _build_perturbations(loop_cfg, r, batch) if with_stg else None
-            text_kv = precompute_text_kv(model, context) if loop_cfg.cache_text_kv else None
+            # V2 modulates the text K/V every step: the cache is skipped, as in the JAX loop.
+            text_kv = (precompute_text_kv(model, context)
+                       if loop_cfg.cache_text_kv and not model_cfg.cross_attention_adaln else None)
             tiled_mask = None if token_mask is None else _tile_rows(token_mask, r)
             tiled_denoise_mask, tiled_clean = _tile_rows(mask, r), _tile_rows(clean, r)
 

@@ -7,8 +7,11 @@ Gemma shards and upscaler file beside it), with LoRAs fused into the
 transformer at load, per-component release and a `with_loras` view. Each
 component is the port's module, on `device`, with its config on it. The
 architectures are read off the files (their shapes and metadata), where the
-JAX package assumes the published widths. Unported components raise
-NotImplementedError naming their ROADMAP.md items.
+JAX package assumes the published widths. A V2 (LTX-2.3) checkpoint gives
+the video-only V2 DiT (cross-attention AdaLN, gated attention, no caption
+projection) and the V2 text encoder, as the JAX ledger builds them with
+`include_audio=False`. Unported components raise NotImplementedError naming
+their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from typing import Dict, List, Optional
 from ltx2_tpu_torch.core import resolve_device
 from ltx2_tpu_torch.loader.lora import LoRAConfig, fuse_lora_into_params
 from ltx2_tpu_torch.loader.weight_loader import (
-    AUDIO_NOT_PORTED, INT8_NOT_PORTED, V2_NOT_PORTED, is_v2_model, load_transformer_params, read_checkpoint_config,
+    AUDIO_NOT_PORTED, INT8_NOT_PORTED, is_v2_model, load_transformer_params, read_checkpoint_config,
 )
 
 
@@ -61,8 +64,9 @@ class ModelLedger:
         return read_checkpoint_config(self.checkpoint_path)
 
     def transformer(self, force_reload: bool = False):
-        """The video DiT (V1: caption projection, SPLIT RoPE on the f32 grid,
-        no remat) in `target_dtype`, LoRAs fused at load. LoRAs need
+        """The video DiT (V1: caption projection; V2: cross-attention AdaLN
+        and gated attention, no caption projection; SPLIT RoPE on the f32
+        grid, no remat) in `target_dtype`, LoRAs fused at load. LoRAs need
         dequantized weights, so with LoRAs the fp8 weights are dequantized
         even under `keep_fp8`."""
 
@@ -88,11 +92,15 @@ class ModelLedger:
 
     def text_encoder(self, force_reload: bool = False):
         def load():
-            from ltx2_tpu_torch.models.text_encoder.encoder import load_text_encoder_params
+            from ltx2_tpu_torch.models.text_encoder.encoder import (
+                load_text_encoder_params, text_encoder_config_from_checkpoint,
+            )
+            from ltx2_tpu_torch.models.text_encoder.gemma3 import gemma_config_from_checkpoint
 
-            if self.is_v2:
-                raise NotImplementedError(V2_NOT_PORTED)
-            return load_text_encoder_params(self.checkpoint_path, device=self.device)
+            # V2's extractor does not give Gemma's width: Gemma's shards do (3840 without them).
+            hidden = gemma_config_from_checkpoint(self.gemma_path).hidden_size if self.gemma_path else 3840
+            cfg = text_encoder_config_from_checkpoint(self.checkpoint_path, hidden)
+            return load_text_encoder_params(self.checkpoint_path, cfg, device=self.device)
 
         return self._get("text_encoder", load, force_reload)
 
@@ -141,7 +149,7 @@ class ModelLedger:
         raise NotImplementedError(AUDIO_NOT_PORTED)
 
     def temporal_upscaler(self, force_reload: bool = False):
-        raise NotImplementedError("the temporal upscaler is not ported yet: ROADMAP.md §1 item 6")
+        raise NotImplementedError("the temporal upscaler is not ported yet: ROADMAP.md §1 item 5")
 
     def clear_model(self, model_name: str) -> None:
         self._cache.pop(model_name, None)

@@ -127,7 +127,7 @@ def test_linear_fp8_with_runtime_lora_and_int8_refusal():
     x = rng.standard_normal((3, 80)).astype(np.float32)
     assert_close(linear(lin, torch.from_numpy(x)), np.asarray(jcommon.linear(p, jnp.asarray(x))), rtol=1e-5)
     lin.register_buffer("weight_cscale", torch.ones(48))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         linear(lin, torch.from_numpy(x))
 
 

@@ -2,8 +2,9 @@
 implicit-GEMM conv, also at the video encoder's shapes) against their plain
 PyTorch versions, the fp32 text encoder (Gemma-3 at full width, 2 layers,
 and the V1 encoder; also with Gemma in fp8) and the fp32 video encoder (a
-reduced plan) against the same modules on the CPU, and a full-width DiT
-block loaded kept in fp8 onto the card, on the card.
+reduced plan) against the same modules on the CPU, a full-width DiT
+block loaded kept in fp8 onto the card, and a full-width V2 (LTX-2.3)
+forward through the kernels against plain attention, on the card.
 
 Every test here is marked `gpu` and skips without a CUDA card. The file
 imports neither JAX nor the tests package, so it runs on a machine that has
@@ -325,3 +326,38 @@ def test_fp8_block_loaded_onto_the_card(tmp_path):
         out, want = linear(lin, x.cuda()).float().cpu(), linear(ref, x).float()
         # bf16 products summed in another order: a bf16 rounding of the output.
         assert (out - want).abs().max() <= 1e-2 * want.abs().max(), name
+
+
+@pytest.mark.gpu
+def test_v2_forward_through_the_kernels_matches_plain_on_gpu(monkeypatch):
+    """Two full-width LTX-2.3 (V2) blocks in bf16 (cross-attention AdaLN
+    with random tables, prompt-modulated text K/V, gated attention) at
+    384 tokens: x0 through the flash kernel (2 launches a block) against
+    the same forward on the plain attention, within 2e-2 of max|x0| (the
+    kernel's bf16 P and O rounding through two blocks)."""
+    _need_card()
+    from ltx2_tpu_torch.generate import make_dit, make_latent_tools, make_request
+    from ltx2_tpu_torch.models.transformer.model import LTXModelConfig, x0_model_apply
+    from ltx2_tpu_torch.pipelines.common import modality_from_state
+
+    dev = torch.device("cuda")
+    dit = make_dit(2, dev, seed=3, base=LTXModelConfig(cross_attention_adaln=True, apply_gated_attention=True))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    with torch.no_grad():
+        for name, p in dit.named_parameters():
+            if "scale_shift_table" in name:
+                p.normal_(generator=gen).mul_(0.3)
+    tools = make_latent_tools(dit.cfg, 256, 384, 25)
+    state, context = make_request(dit.cfg, tools, 1, dev)
+    video = modality_from_state(state, context, torch.tensor([0.7], device=dev), uniform_timesteps=True)
+    before = attention.flash_attention.launches
+    with torch.no_grad():
+        out = x0_model_apply(dit, video)
+    assert attention.flash_attention.launches - before == 4
+    plain = attention.flash_attention_plain
+    monkeypatch.setattr(attention, "flash_attention",
+                        lambda q, k, v, scale=None, kv_valid=None: plain(q, k, v, scale, kv_valid))
+    with torch.no_grad():
+        ref = x0_model_apply(dit, video)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max() <= 2e-2 * ref.abs().max()

@@ -26,6 +26,7 @@ Decode noise is off (scale 0): each package draws it from its own RNG.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -275,6 +276,11 @@ def test_one_stage_option_matches_jax(weights, option):
 SIZE = ["--height", str(HEIGHT), "--width", str(WIDTH), "--frames", str(FRAMES), "--seed", str(SEED)]
 
 
+def _out(checkpoint):
+    """The CLI's --output: a .y4m beside the checkpoint (the default .mp4 needs ffmpeg)."""
+    return ["--output", os.path.join(os.path.dirname(checkpoint), "out.y4m")]
+
+
 @pytest.fixture(scope="module")
 def checkpoint(weights, tmp_path_factory):
     """A tiny unified checkpoint: the DiT, decoder and encoder as the ledger
@@ -291,7 +297,7 @@ def checkpoint(weights, tmp_path_factory):
 def test_generate_main_one_stage_and_text_to_video(weights, checkpoint):
     """The CLI from a tiny checkpoint against the entry function on the
     same ledger; then the plain-CFG text-to-video route."""
-    path, size = checkpoint, SIZE
+    path, size = checkpoint, SIZE + _out(checkpoint)
     videos, stats = generate.main(["--pipeline", "one-stage", "--device", "cpu", "--checkpoint", path, "--image",
                                    f"{weights['image']}:0", "--image-strength", "0.8", "--num-inference-steps", "2",
                                    *size])
@@ -333,7 +339,7 @@ def test_generate_main_text_to_video_token_shift(checkpoint, monkeypatch):
     monkeypatch.setattr(OneStagePipeline, "__call__", record_call)
     monkeypatch.setattr(schedulers.LTX2Scheduler, "execute", record_execute)
     generate.main(["--pipeline", "text-to-video", "--token-shift", "--device", "cpu", "--checkpoint", checkpoint,
-                   "--num-inference-steps", "3", *SIZE])
+                   "--num-inference-steps", "3", *SIZE, *_out(checkpoint)])
     jconfig = JOneStageCFGConfig(height=HEIGHT, width=WIDTH, num_frames=FRAMES, seed=SEED, num_inference_steps=3,
                                  cfg_scale=3.0, rescale_scale=0.0, token_dependent_shift=True)
     config = dataclasses.asdict(seen["config"])
@@ -365,7 +371,7 @@ def test_generate_main_loop_flags(checkpoint, monkeypatch):
 
     monkeypatch.setattr(OneStagePipeline, "__call__", record_call)
     generate.main(["--pipeline", "text-to-video", "--device", "cpu", "--checkpoint", checkpoint,
-                   "--num-inference-steps", "3", *SIZE])  # every loop flag at its default
+                   "--num-inference-steps", "3", *SIZE, *_out(checkpoint)])  # every loop flag at its default
     assert set(generate.LOOP_FLAGS) <= set(vars(jdefaults))  # the JAX CLI's names
     defaults = seen["kwargs"]
     assert seen["config"].cfg_interval == jdefaults.cfg_interval == 1
@@ -377,7 +383,7 @@ def test_generate_main_loop_flags(checkpoint, monkeypatch):
     assert defaults["stg_blocks"] is None and jdefaults.stg_blocks is None
 
     videos, stats = generate.main(["--pipeline", "text-to-video", "--device", "cpu", "--checkpoint", checkpoint,
-                                   "--num-inference-steps", "3", *SIZE, *argv])
+                                   "--num-inference-steps", "3", *SIZE, *_out(checkpoint), *argv])
     assert videos[0].shape == (FRAMES, HEIGHT, WIDTH, 3) and stats[0]["denoise_latent_finite"]
     kwargs, config = seen["kwargs"], seen["config"]
     assert (config.cfg_interval, config.token_bucket) == (jargs.cfg_interval, jargs.token_bucket) == (2, 16)
@@ -387,7 +393,7 @@ def test_generate_main_loop_flags(checkpoint, monkeypatch):
         assert kwargs[name] == getattr(jargs, name), name
     assert kwargs["guider_override"] == LtxAPGGuider(scale=3.0, eta=0.5, norm_threshold=1.0)
     generate.main(["--pipeline", "one-stage", "--device", "cpu", "--checkpoint", checkpoint, "--num-inference-steps",
-                   "2", *SIZE, "--apg-scale", "3", "--apg-momentum", "0.5"])
+                   "2", *SIZE, *_out(checkpoint), "--apg-scale", "3", "--apg-momentum", "0.5"])
     assert seen["kwargs"]["guider_override"] == StatefulAPGGuider(scale=3.0, eta=1.0, norm_threshold=0.0,
                                                                   momentum=0.5)
     for pipeline in ("bench-e2e", "distilled"):
@@ -422,7 +428,7 @@ def test_generate_main_upscale_spatial(weights, checkpoint, tmp_path):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(OneStagePipeline, "__call__", record)
         videos, stats = generate.main(["--pipeline", "one-stage", "--device", "cpu", "--checkpoint", checkpoint,
-                                       "--num-inference-steps", "2", *SIZE, "--upscale-spatial",
+                                       "--num-inference-steps", "2", *SIZE, *_out(checkpoint), "--upscale-spatial",
                                        "--spatial-upscaler", path])
     assert videos[0].shape == (FRAMES, 2 * HEIGHT, 2 * WIDTH, 3)
     assert stats[0]["upscale_latent_finite"] and stats[0]["upscale_conv_launches"] == 0

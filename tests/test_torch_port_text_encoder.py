@@ -293,8 +293,9 @@ def test_video_text_encoder_apply(te_tree):
     assert out.video_encoding.shape == (2, 16, HIDDEN)
     assert_close(out.video_encoding, ref.video_encoding, msg="video encoding")
     np.testing.assert_array_equal(out.attention_mask.numpy(), np.asarray(ref.attention_mask))
-    with pytest.raises(NotImplementedError):
-        connector.Connector(dataclasses.replace(CONN, apply_gated_attention=True))
+    gated = connector.Connector(dataclasses.replace(CONN, apply_gated_attention=True), device="meta")
+    assert all(b.attn1.to_gate_logits.weight.shape == (CONN.num_attention_heads, CONN.inner_dim)
+               for b in gated.transformer_1d_blocks)
 
 
 def _x0(jtree, context, jcontext, seed):
@@ -394,7 +395,7 @@ def test_generate_distilled_with_text_encoder_matches_jax(gemma_tree, te_tree, d
 def test_text_encoder_entry_needs_cuda_unless_told(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        generate.main(["--pipeline", "distilled", "--text-encoder", "--requests", "1"])
+        generate.main(["--pipeline", "distilled", "--text-encoder", "--requests", "1", "--output", "unwritten.y4m"])
     with pytest.raises(SystemExit):
         generate.main(["--text-encoder", "--device", "cpu"])  # bench-e2e has no text encoder
     with pytest.raises(ValueError, match="gemma"):
