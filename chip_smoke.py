@@ -20,8 +20,12 @@ card and nvcc; it exits non-zero without them, and without the package
    keys), and the one-stage loop options' shapes: a 512-token bucket's
    self-attention at the STG rows' batch 3 (3, 32, 4608, 128, the first
    4290 keys valid in every row: two key tiles wholly masked, one partly)
-   and at batch 2 over 4352 tokens (only the last tile partly valid), and
-   the STG rows' cross-attention (3, 32, 4608 x 1024), within limits
+   and at batch 2 over 4352 tokens (only the last tile partly valid), the
+   STG rows' cross-attention (3, 32, 4608 x 1024), and the audio-video
+   DiT's head-dim-64 attentions: the 126 audio tokens' self-attention, their
+   text cross-attention (1024 keys, with and without a key mask), audio ->
+   video (6144 and 1536 queries x 126 keys) and video -> audio (126 queries
+   x 6144 and 1536 keys), within limits
    relative to the plain output that two planted faults must fail (and on
    a masked case a third: the kernel run with its mask dropped); with the
    valid keys the bound counts, the wrapper's and the kernel's own device
@@ -109,6 +113,25 @@ card and nvcc; it exits non-zero without them, and without the package
    size (2-layer DiT, 128x128x17, tiled decode, dummy context) through the
    kernels against the same pipeline with every flash and conv call on its
    plain version, then the same with 2 full-width V2 blocks;
+8b. audio-video: (a) the published audio decoder, LTX-2's vocoder and an
+   LTX-2.3-shaped BWE chain on the card against the CPU (relative rms 1e-5,
+   TF32 off, no kernel launch); (b) the AV two-stage recipe at a small size
+   (2 full-width AV blocks, 128x128x17, 18 audio tokens) through the kernels
+   against its plain versions (latents, audio latent and frames at the
+   small check's limits, another seed rejected); (c) the AV two-stage
+   recipe at full width and depth (the random V1 AV DiT, 48 blocks, 32 x
+   128 video and 32 x 64 audio heads, kept in fp8; 512x768x121 and 126
+   audio tokens; 2 requests through `generate_videos_distilled(audio=True)`,
+   each written as a .y4m with a 24 kHz .wav of 120240 samples): each
+   phase's seconds and peaks (the audio decode beside the video decode),
+   6 flash launches an AV block a step (4 at head dim 64, 2 at 128), then
+   one traced AV step at 6144 tokens beside phase 5's video-only fp8 step,
+   one at stage 1's 1536 tokens, and one traced audio decode; (d) 2-layer full-width AV files for V1 and
+   for V2 (`vocoder.bwe` metadata), each with the published audio decoder
+   and its vocoder: the V1 file through `ModelLedger(include_audio=True,
+   keep_fp8=True)` (the kept fp8 codes bit for bit), and `generate.main
+   --pipeline distilled --checkpoint <V2 file> --fp8-serving --audio` to a
+   .y4m and a 48 kHz .wav of 240480 samples;
 9. image-to-video: an 8-bit PNG (1000 x 600, every row filter) written
    from a seed; (a) the full-width fp32 video encoder (published plan) on a
    256x384 and a 512x768 frame: seconds, the 3xTF32 bound, peak memory, 46
@@ -468,9 +491,22 @@ def phase_kernels():
         _check_case("bucket_self_b3", 3, 32, 4608, 4608, 128, 4290, gen, bucket=True),
         _check_case("bucket_tail_b2", 2, 32, 4352, 4352, 128, 4290, gen, bucket=True),
         _check_case("stg_cross_b3", 3, 32, 4608, 1024, 128, None, gen),
+        # The audio-video DiT's D = 64 attentions: the audio stream's 126
+        # tokens (121 frames at 24 fps) attend to themselves (one ragged key
+        # tile) and to the 1024 text tokens (with a Gemma key mask too); the
+        # video's 6144 (stage 2) or 1536 (stage 1) tokens attend to the
+        # audio's (a2v) and the audio's to the video's (v2a: 32 query rows).
+        _check_case("audio_self", 1, 32, 126, 126, 64, None, gen),
+        _check_case("audio_text", 1, 32, 126, 1024, 64, None, gen),
+        _check_case("audio_text_masked", 1, 32, 126, 1024, 64, 300, gen, bucket=True),
+        _check_case("a2v_s2", 1, 32, 6144, 126, 64, None, gen),
+        _check_case("a2v_s1", 1, 32, 1536, 126, 64, None, gen),
+        _check_case("v2a_s2", 1, 32, 126, 6144, 64, None, gen),
+        _check_case("v2a_s1", 1, 32, 126, 1536, 64, None, gen),
     ]
     flash_attention.launches = before  # comparison launches are not the main path's
     flash_attention.key_valid_launches = before_key_valid
+    flash_attention.launches_by_head_dim = {}
     return recs
 
 
@@ -574,8 +610,11 @@ def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal
     kernel_name = "conv3d_tf32x3" if fp32 else "conv3d_wgmma_kernel"
     # The wrapper launches the kernel alone (the weights are already in the
     # order it reads), or the fp32 kernel and its sum, so CUDA events can
-    # stand in for the profiler.
-    kernel_ms, kernel_timed_by, _ = _kernel_ms(call, kernel_name, 3)
+    # stand in for the profiler. Ten profiled calls, as the flash cases take:
+    # on an NVIDIA H100 80GB HBM3 (700 W) the mean of three read the 1024 ->
+    # 1024 fp32 case at 2.83-3.12 ms while CUDA events read 2.77-2.84 in the
+    # same runs, enough to throw the upscaler comparison below past 10 %.
+    kernel_ms, kernel_timed_by, _ = _kernel_ms(call, kernel_name, 10)
     plain_ms = _time_ms(lambda: conv3d_plain(x, wk, bias, *args), 2)
     # Library yardstick, never called by the port: cuDNN's conv3d in the same
     # dtype (TF32 off), on the NCDHW view of the channels-last input. Zero
@@ -1782,6 +1821,396 @@ def phase_two_stage_small(smi: str, v2: bool = False) -> dict:
     return rec
 
 
+# The audio-video path (LTX-2.0, V1): the AV DiT at full width, 48 blocks,
+# 32 x 128 video and 32 x 64 audio heads, kept in fp8; 121 frames at 24 fps
+# give 126 audio latent frames, 501 mel frames, 120240 samples at 24 kHz.
+AV_AUDIO_TOKENS = 126
+AV_WAV_SAMPLES = {24000: (4 * AV_AUDIO_TOKENS - 3) * 240, 48000: 2 * (4 * AV_AUDIO_TOKENS - 3) * 240}
+# Flash launches an AV block makes a step, by head dim: video self and text
+# cross-attention at 128; audio self, audio text, audio->video and
+# video->audio at 64.
+AV_FLASH_PER_BLOCK = {64: 4, 128: 2}
+# The AV small check (kernels against plain): the two-stage small check's
+# limits, the audio latents held to the latents' rms limit.
+AV_SMALL = {"layers": 2, "height": 128, "width": 128, "frames": 17}
+
+
+def _av_flash(layers: int, steps: int, clips: int) -> dict:
+    """{head dim: flash launches} of `clips` AV clips of `steps` steps."""
+    return {d: n * layers * steps * clips for d, n in AV_FLASH_PER_BLOCK.items()}
+
+
+def _wav_header(path: str) -> dict:
+    import wave
+
+    with wave.open(path) as w:
+        return {"channels": w.getnchannels(), "rate": w.getframerate(), "samples": w.getnframes(),
+                "sample_bytes": w.getsampwidth()}
+
+
+def phase_av_two_stage(smi: str) -> tuple:
+    """The audio-video two-stage recipe at full width and depth through the
+    Python entry `generate_videos_distilled(audio=True)` (the CLI's
+    `--pipeline distilled --audio`): the random V1 AV DiT kept in fp8, dummy
+    contexts, 512x768x121 (6144 video and 126 audio tokens in stage 2, 1536
+    and 126 in stage 1), 2 requests, each written by `save_video` as a .y4m
+    with its .wav; each phase's seconds and peaks (an audio-decode phase
+    beside the video decode, the published audio decoder and vocoder),
+    flash launches by head dim against 6 an AV block a step, the .wav
+    headers. Then one traced AV step at 6144 tokens (profile_slice) beside
+    phase 5's video-only fp8 step, one at stage 1's 1536, and one traced
+    audio decode.
+    Returns (the record, the launches)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import ltx2_tpu_torch.generate as G
+    from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscalerConfig
+    from ltx2_tpu_torch.models.upscaler.spatial import conv_launches as upscaler_convs
+    from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoderConfig, conv_launches
+    from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, generate_tile_specs
+    from ltx2_tpu_torch.ops.attention import flash_attention
+    from ltx2_tpu_torch.profile_slice import audio_decode, av_denoise_step
+    from ltx2_tpu_torch.utils.video_io import save_video, y4m_header
+
+    dev, card = torch.device("cuda"), torch.cuda.get_device_name(0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dit = G.make_dit(LAYERS, dev, base=G.av_config(), fp8=True)
+    init_s = time.perf_counter() - t0
+    _reset_counts()
+    flash_attention.launches_by_head_dim = {}
+    t0 = time.perf_counter()
+    results, stats = G.generate_videos_distilled(list(SEEDS), height=HEIGHT, width=WIDTH, frames=FRAMES,
+                                                 device="cuda", dit=dit, phase_peaks=True, audio=True)
+    wall = time.perf_counter() - t0
+    counts, by_dim = _counts(), dict(flash_attention.launches_by_head_dim)
+    directory = tempfile.mkdtemp(prefix="ltx2_av_")
+    try:
+        files = []
+        for i, ((frames, wave), st) in enumerate(zip(results, stats)):
+            path = os.path.join(directory, f"clip_{i}.y4m")
+            save_video(frames, path, 24.0, audio=wave, audio_sample_rate=st["audio_sample_rate"])
+            files.append({"y4m_bytes": os.path.getsize(path), "wav": _wav_header(path[:-4] + ".wav")})
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    distinct = not np.array_equal(results[0][1], results[1][1])
+    shapes = [(list(f.shape), list(w.shape)) for f, w in results]
+    del results
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        audio_latent, step = av_denoise_step(dit, HEIGHT, WIDTH, "av_denoise_step", dev, card)
+        stage1_step = av_denoise_step(dit, HEIGHT // 2, WIDTH // 2, "av_stage1_step", dev, card)[1]
+    del dit
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        decode = audio_decode(audio_latent, dev, card)
+    torch.cuda.empty_cache()
+
+    phases = ("stage1", "upscale", "stage2", "decode", "audio_decode")
+    rec = {"dit_init_s": init_s, "wall_s": wall, "dit_weight_gb": stats[0]["dit_weight_gb"], "launches": counts,
+           "flash_by_head_dim": by_dim, "seconds": {p: [s[f"{p}_s"] for s in stats] for p in phases},
+           "peak_gb": {p: max(s[f"{p}_peak_gb"] for s in stats) for p in phases}, "files": files,
+           "shapes": shapes, "audio_init_s": {k: stats[0].get(f"{k}_init_s") for k in ("audio_decoder", "vocoder")},
+           **{name: {k: r[k] for k in ("tokens", "audio_tokens", "device_ms", "wall_ms", "busy_share",
+                                       "device_ms_by_class")} for name, r in (("av_step", step),
+                                                                              ("av_stage1_step", stage1_step))},
+           "audio_decode_traced": {k: decode[k] for k in ("device_ms", "wall_ms", "busy_share",
+                                                          "device_ms_by_class")},
+           "card": smi}
+    log(f"AV two-stage (V1, 48 fp8 blocks, 512x768x121 + 126 audio tokens, .y4m + .wav): {json.dumps(rec)}")
+    tiles = len(generate_tile_specs((1, 128, (FRAMES - 1) // 8 + 1, HEIGHT // 32, WIDTH // 32),
+                                    TilingConfig.default()))
+    upscale = upscaler_convs(SpatialUpscalerConfig())
+    want_dim = _av_flash(LAYERS, 8 + 3, len(SEEDS))
+    want = {"fwd": sum(want_dim.values()), "bwd": 0,
+            "conv": (upscale + conv_launches(VideoDecoderConfig()) * tiles) * len(SEEDS)}
+    if counts != want or by_dim != want_dim:
+        raise AssertionError(f"AV two-stage launches {counts} {by_dim}, expected {want} {want_dim}")
+    header = len(y4m_header(WIDTH, HEIGHT, 24.0)) + FRAMES * (6 + 3 * HEIGHT * WIDTH)
+    wav = {"channels": 2, "rate": 24000, "samples": AV_WAV_SAMPLES[24000], "sample_bytes": 2}
+    for f, st in zip(files, stats):
+        if f != {"y4m_bytes": header, "wav": wav}:
+            raise AssertionError(f"AV files {f}, expected {header} y4m bytes and {wav}")
+        if not (st["stage1_latent_finite"] and st["stage2_latent_finite"] and st["audio_finite"]):
+            raise AssertionError(f"AV two-stage: non-finite output {st}")
+    if not distinct:
+        raise AssertionError("the two AV requests produced identical audio")
+    return rec, {"fwd": counts["fwd"], "fwd_by_head_dim": by_dim, "conv_fp32": upscale * len(SEEDS),
+                 "conv_bf16": counts["conv"] - upscale * len(SEEDS)}
+
+
+def phase_audio_decode_check(smi: str) -> dict:
+    """The published audio decoder, LTX-2's vocoder and an LTX-2.3-shaped
+    BWE chain on the card against the CPU (models/audio_vae/card_check.py):
+    relative rms 1e-5, TF32 off; no kernel launches (the JAX package runs
+    these convs outside Pallas)."""
+    from ltx2_tpu_torch.models.audio_vae.card_check import audio_against_cpu
+
+    _reset_counts()
+    rec = audio_against_cpu()
+    rec["launches"] = _counts()
+    rec["card"] = smi
+    log(f"audio decoder and vocoders, card vs CPU: {json.dumps(rec)}")
+    if not rec["ok"] or any(rec["launches"].values()):
+        raise AssertionError(f"audio decode on the card disagrees with the CPU: {rec}")
+    return rec
+
+
+def phase_av_small(smi: str) -> dict:
+    """The AV two-stage recipe end to end (tiled video decode, audio decode)
+    at a small size through the kernels against the same pipeline with every
+    flash and conv call on its plain version: 2 full-width AV blocks (32 x
+    128 video and 32 x 64 audio heads, AdaLN and cross-modal tables drawn
+    non-zero), a mid-16 upscaler, a base-16 bf16 decoder, a small audio
+    decoder and vocoder, 128x128x17 (18 audio tokens). The video frames and
+    the video and audio latents are held to the two-stage small check's
+    limits (the waveform is recorded); a run from another seed must fail
+    them."""
+    import torch
+
+    from ltx2_tpu_torch.generate import av_config, make_dit
+    from ltx2_tpu_torch.models.audio_vae import (
+        AudioDecoder, AudioDecoderConfig, Vocoder, VocoderConfig, init_audio_decoder_, init_vocoder_,
+    )
+    from ltx2_tpu_torch.models.transformer.model import LTXModelConfig
+    from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscaler, SpatialUpscalerConfig, init_spatial_upscaler_
+    from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoder, VideoDecoderConfig, init_video_decoder_
+    from ltx2_tpu_torch.models.video_vae.tiling import SpatialTilingConfig, TemporalTilingConfig, TilingConfig
+    from ltx2_tpu_torch.ops.attention import flash_attention
+    from ltx2_tpu_torch.pipelines.common import decode_audio, decode_video
+    from ltx2_tpu_torch.pipelines.distilled import DistilledConfig, DistilledPipeline, stage_seeds
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    dit = make_dit(AV_SMALL["layers"], dev, seed=32, base=av_config(LTXModelConfig(in_channels=16, out_channels=16)))
+    with torch.no_grad():
+        for name, p in dit.named_parameters():
+            if "scale_shift_table" in name:
+                p.normal_(generator=gen).mul_(0.3)
+    up = init_spatial_upscaler_(SpatialUpscaler(SpatialUpscalerConfig(16, 16, 1, 4), device=dev), gen)
+    dec = init_video_decoder_(VideoDecoder(VideoDecoderConfig(base_channels=16, latent_channels=16,
+                                                              compute_dtype="bfloat16"), device=dev), gen)
+    adec = init_audio_decoder_(AudioDecoder(AudioDecoderConfig(ch=16, num_res_blocks=1), device=dev), gen)
+    voc = init_vocoder_(Vocoder(VocoderConfig(upsample_initial_channel=64), device=dev), gen)
+    pipe = DistilledPipeline(dit, up, video_decoder=dec)
+    context = torch.randn(1, 16, dit.cfg.cross_attention_dim, generator=gen, device=dev) * 0.5
+    audio_context = torch.randn(1, 16, dit.cfg.audio_inner_dim, generator=gen, device=dev) * 0.5
+    tiling = TilingConfig(SpatialTilingConfig(64, 32), TemporalTilingConfig(16, 8))
+
+    def run(seed):
+        """The recipe's latents, then its two decodes as the pipeline runs them."""
+        latents = {}
+        config = DistilledConfig(height=AV_SMALL["height"], width=AV_SMALL["width"], num_frames=AV_SMALL["frames"],
+                                 seed=seed, dtype="bfloat16", latent_channels=16, tiling_config=tiling,
+                                 audio_enabled=True)
+        latent, audio_latent = pipe(context, config, audio_encoding=audio_context, skip_decode=True,
+                                    callback=lambda phase, z: latents.setdefault(phase, z.float()))
+        frames = decode_video(latent, dec, tiling, stage_seeds(seed)[2])
+        return frames, decode_audio(audio_latent, adec, voc), latents, audio_latent.float()
+
+    _reset_counts()
+    flash_attention.launches_by_head_dim = {}
+    frames_k, wave_k, lat_k, audio_k = run(5)
+    counts, by_dim = _counts(), dict(flash_attention.launches_by_head_dim)
+    with _plain_kernels():
+        frames_p, wave_p, lat_p, audio_p = run(5)
+        frames_o, _, _, audio_o = run(6)
+
+    def err(a, b):
+        return {x: v for x, v in _mismatch(a, b).items() if x != "ref_rms"}
+
+    rec = {"flash_by_head_dim": by_dim, "frames": list(frames_k.shape), "waveform": list(wave_k.shape),
+           "latents": {k: err(lat_k[k], lat_p[k]) for k in ("stage1", "upscale", "stage2")},
+           "audio_latent": err(audio_k, audio_p), "waveform_vs_plain": err(wave_k, wave_p),
+           "frames_vs_plain": _frame_diff(frames_k, frames_p),
+           "planted_other_seed": {"frames": _frame_diff(frames_o, frames_p), "audio_latent": err(audio_o, audio_p)},
+           "tol_latent_rms_rel": TOL_SMALL_LATENT_RMS_REL, "tol_mean_levels": TOL_SMALL_MEAN_LEVELS, "card": smi}
+    log(f"AV two-stage small-input check (kernels vs plain on the card): {json.dumps(rec)}")
+    del pipe, dit, up, dec, adec, voc
+    torch.cuda.empty_cache()
+    want = _av_flash(AV_SMALL["layers"], 8 + 3, 1)
+    if by_dim != want:
+        raise AssertionError(f"AV small check: flash launches by head dim {by_dim}, expected {want}")
+    checked = list(rec["latents"].values()) + [rec["audio_latent"]]
+    if not all(r["finite"] for r in checked) or any(r["rms_rel_err"] > TOL_SMALL_LATENT_RMS_REL for r in checked):
+        raise AssertionError(f"AV small check: latents disagree with the plain path: {rec}")
+    if rec["frames_vs_plain"]["mean_levels"] > TOL_SMALL_MEAN_LEVELS:
+        raise AssertionError(f"AV small check: frames disagree with the plain path: {rec['frames_vs_plain']}")
+    other = rec["planted_other_seed"]
+    if other["frames"]["mean_levels"] <= TOL_SMALL_MEAN_LEVELS or other["audio_latent"]["rms_rel_err"] <= \
+            TOL_SMALL_LATENT_RMS_REL:
+        raise AssertionError(f"the AV small check accepts another seed's clip: {other}")
+    return rec
+
+
+AV_FILE_LAYERS = 2
+
+
+def _write_av_files(directory: str, dev) -> dict:
+    """The AV file phase's files, by the port's writers: for V1 and for V2
+    (LTX-2.3, with `vocoder.bwe` metadata) a 2-layer full-width AV DiT in
+    the reference `-fp8` layout with the published audio decoder (its
+    statistics drawn) and the vocoder (V1: LTX-2's HiFi-GAN; V2: the BWE
+    chain of models/audio_vae/card_check.py's LTX23_VOCODER); V2 also holds
+    the full-width VAE decoder; and the spatial upscaler."""
+    import os
+
+    import torch
+
+    from ltx2_tpu_torch.generate import (
+        av_config, make_audio_decoder, make_decoder, make_dit, make_upscaler, make_vocoder,
+    )
+    from ltx2_tpu_torch.loader.export import iter_fp8_checkpoint_specs
+    from ltx2_tpu_torch.loader.safetensors_io import write_safetensors, write_safetensors_streaming
+    from ltx2_tpu_torch.models.audio_vae.card_check import LTX23_VOCODER
+    from ltx2_tpu_torch.models.audio_vae.vocoder import VocoderConfig, vocoder_with_bwe_config_from_checkpoint
+    from ltx2_tpu_torch.models.audio_vae.weights import audio_decoder_to_checkpoint, vocoder_to_checkpoint
+    from ltx2_tpu_torch.models.transformer.model import LTXModelConfig
+    from ltx2_tpu_torch.models.upscaler.spatial import upscaler_to_checkpoint
+    from ltx2_tpu_torch.models.video_vae.decoder import DEFAULT_DECODER_BLOCKS
+    from ltx2_tpu_torch.models.video_vae.weights import decoder_to_checkpoint
+
+    gen = torch.Generator(device=dev).manual_seed(61)
+    paths = {"v1": os.path.join(directory, "ltx-2-av-fp8.safetensors"),
+             "v2": os.path.join(directory, "ltx-2.3-av-fp8.safetensors"),
+             "upscaler": os.path.join(directory, "spatial-upscaler.safetensors")}
+    blocks = [["res_x", {"num_layers": b[1]}] if b[0] == "res_x" else [b[0], {"multiplier": b[1], "residual": b[2]}]
+              for b in DEFAULT_DECODER_BLOCKS]
+    write_s = {}
+    for version in ("v1", "v2"):
+        v2 = version == "v2"
+        adec = make_audio_decoder(dev, seed=62)
+        with torch.no_grad():
+            adec.per_channel_statistics.mean_of_means.normal_(generator=gen).mul_(0.1)
+            adec.per_channel_statistics.std_of_means.uniform_(0.5, 1.5, generator=gen)
+        vocoder = make_vocoder(dev, seed=63, cfg=vocoder_with_bwe_config_from_checkpoint(LTX23_VOCODER)
+                               if v2 else VocoderConfig())
+        others = {**audio_decoder_to_checkpoint(adec), **vocoder_to_checkpoint(vocoder)}
+        del adec, vocoder
+        if v2:
+            others.update(decoder_to_checkpoint(make_decoder("bfloat16", dev)))
+        config = {"transformer": {"num_attention_heads": 32, "attention_head_dim": 128,
+                                  "audio_num_attention_heads": 32}, "vae": {"decoder_blocks": blocks}}
+        if v2:
+            config["vocoder"] = LTX23_VOCODER
+        metadata = {"model_version": "2.3.0" if v2 else "2.0.0", "config": json.dumps(config)}
+        dit = make_dit(AV_FILE_LAYERS, dev, seed=64, fp8=True, base=av_config(
+            LTXModelConfig(cross_attention_adaln=v2, apply_gated_attention=v2)))
+        t0 = time.perf_counter()
+        write_safetensors_streaming(paths[version], [
+            *iter_fp8_checkpoint_specs(dit),
+            *((k, v.dtype, tuple(v.shape), (lambda v=v: v)) for k, v in others.items())], metadata=metadata)
+        write_s[version] = time.perf_counter() - t0
+        del dit, others
+        torch.cuda.empty_cache()
+    write_safetensors(paths["upscaler"], upscaler_to_checkpoint(make_upscaler(dev), v11=True))
+    torch.cuda.empty_cache()
+    return {"paths": paths, "gb": {k: os.path.getsize(p) / 1e9 for k, p in paths.items()}, "write_s": write_s}
+
+
+def phase_av_files(smi: str) -> tuple:
+    """Audio-video checkpoints from files: `_write_av_files` into a fresh
+    temporary directory; the V1 file through `ModelLedger(include_audio=True,
+    keep_fp8=True)`: the AV DiT (the audio stream's and the cross-modal fp8
+    linears kept as the file's codes, bit for bit), the audio decoder and
+    LTX-2's vocoder (24 kHz); then `generate.main --pipeline distilled
+    --checkpoint <V2 file> --spatial-upscaler <file> --fp8-serving --audio
+    --output <tmp>/clip.y4m` at 512x768x121: the BWE chain's 48 kHz .wav of
+    240480 samples beside the .y4m, 6 flash launches an AV block a step.
+    The files are deleted at the end. Returns (the record, the launches)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ltx2_tpu_torch.generate as G
+    from ltx2_tpu_torch.loader.safetensors_io import SafetensorsFile
+    from ltx2_tpu_torch.models.audio_vae.vocoder import Vocoder
+    from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscalerConfig
+    from ltx2_tpu_torch.models.upscaler.spatial import conv_launches as upscaler_convs
+    from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoderConfig, conv_launches
+    from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, generate_tile_specs
+    from ltx2_tpu_torch.ops.attention import flash_attention
+    from ltx2_tpu_torch.utils.model_ledger import ModelLedger
+    from ltx2_tpu_torch.utils.video_io import y4m_header
+
+    import dataclasses
+
+    directory = tempfile.mkdtemp(prefix="ltx2_av_files_")
+    rec = {"directory_free_gb": shutil.disk_usage(directory).free / 1e9, "card": smi}
+    try:
+        t0 = time.perf_counter()
+        files = _write_av_files(directory, torch.device("cuda"))
+        paths = files["paths"]
+        rec.update(files_gb=files["gb"], checkpoint_write_s=files["write_s"], write_s=time.perf_counter() - t0)
+        ledger = ModelLedger(paths["v1"], include_audio=True, keep_fp8=True, device="cuda")
+        t0 = time.perf_counter()
+        dit = ledger.transformer()
+        adec, vocoder = ledger.audio_decoder(), ledger.vocoder()
+        torch.cuda.synchronize()
+        rec["v1_load_s"] = time.perf_counter() - t0
+        f = SafetensorsFile(paths["v1"])
+        key = "model.diffusion_model.transformer_blocks.1.video_to_audio_attn.to_k.weight"
+        kept = dit.transformer_blocks[1].video_to_audio_attn.to_k
+        exact = (torch.equal(kept.weight.cpu().view(torch.uint8), f.get(key).view(torch.uint8))
+                 and float(kept.weight_scale) == float(f.get(key + "_scale").reshape(())))
+        f.close()
+        rec["v1"] = {"is_av": dit.cfg.is_av, "audio_inner_dim": dit.cfg.audio_inner_dim,
+                     "dit_weight_gb": G.weight_bytes(dit) / 1e9, "fp8_codes_exact": exact,
+                     "audio_decoder": dataclasses.asdict(adec.cfg), "vocoder": type(vocoder).__name__,
+                     "sample_rate": vocoder.cfg.output_sample_rate}
+        ok_v1 = dit.cfg.is_av and exact and isinstance(vocoder, Vocoder) and vocoder.cfg.output_sample_rate == 24000
+        del dit, adec, vocoder, ledger
+        torch.cuda.empty_cache()
+        out = os.path.join(directory, "clip.y4m")
+        _reset_counts()
+        flash_attention.launches_by_head_dim = {}
+        t0 = time.perf_counter()
+        results, stats = G.main(["--pipeline", "distilled", "--checkpoint", paths["v2"], "--spatial-upscaler",
+                                 paths["upscaler"], "--fp8-serving", "--audio", "--output", out, "--seed",
+                                 str(SEEDS[0]), "--height", str(HEIGHT), "--width", str(WIDTH), "--num-frames",
+                                 str(FRAMES), "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        counts, by_dim = _counts(), dict(flash_attention.launches_by_head_dim)
+        st = stats[0]
+        rec["v2_request"] = {"wall_s": wall, "launches": counts, "flash_by_head_dim": by_dim,
+                             "seconds": {p: st[f"{p}_s"] for p in ("stage1", "upscale", "stage2", "decode",
+                                                                    "audio_decode")},
+                             "load_s": {k: st.get(f"{k}_init_s") for k in ("dit", "upscaler", "decoder",
+                                                                          "audio_decoder", "vocoder")},
+                             "y4m_bytes": os.path.getsize(out), "wav": _wav_header(out[:-4] + ".wav"),
+                             "waveform": list(results[0][1].shape), "audio_finite": st["audio_finite"]}
+        del results
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    log(f"AV checkpoints from files (V1 through the ledger; a V2 request with the BWE vocoder): "
+        f"{json.dumps(rec)}")
+    if not ok_v1:
+        raise AssertionError(f"the V1 AV file loaded wrongly: {rec['v1']}")
+    r = rec["v2_request"]
+    tiles = len(generate_tile_specs((1, 128, (FRAMES - 1) // 8 + 1, HEIGHT // 32, WIDTH // 32),
+                                    TilingConfig.default()))
+    upscale = upscaler_convs(SpatialUpscalerConfig())
+    want_dim = _av_flash(AV_FILE_LAYERS, 8 + 3, 1)
+    want = {"fwd": sum(want_dim.values()), "bwd": 0, "conv": upscale + conv_launches(VideoDecoderConfig()) * tiles}
+    if r["launches"] != want or r["flash_by_head_dim"] != want_dim:
+        raise AssertionError(f"V2 AV request from files: launches {r['launches']}, expected {want} {want_dim}")
+    wav = {"channels": 2, "rate": 48000, "samples": AV_WAV_SAMPLES[48000], "sample_bytes": 2}
+    if r["wav"] != wav or not r["audio_finite"]:
+        raise AssertionError(f"V2 AV request from files: .wav {r['wav']}, expected {wav}")
+    if r["y4m_bytes"] != len(y4m_header(WIDTH, HEIGHT, 24.0)) + FRAMES * (6 + 3 * HEIGHT * WIDTH):
+        raise AssertionError(f"V2 AV request from files: .y4m of {r['y4m_bytes']} bytes")
+    return rec, {"fwd": r["launches"]["fwd"], "fwd_by_head_dim": by_dim, "conv_fp32": upscale,
+                 "conv_bf16": r["launches"]["conv"] - upscale}
+
+
+
 # Image-to-video. The conditioning image is a PNG written here from the
 # seed, 1000 x 600, so that every target size resizes and crops it.
 IMAGE_SIZE, IMAGE_SEED, IMAGE_STRENGTH = (600, 1000), 11, 0.95
@@ -2618,6 +3047,14 @@ def main():
     torch.cuda.empty_cache()
     two_stage_small = phase_two_stage_small(smi)
     v2_small = phase_two_stage_small(smi, v2=True)
+    audio_check = phase_audio_decode_check(smi)
+    av_small = phase_av_small(smi)
+    av, av_counts = phase_av_two_stage(smi)
+    av["av_step_vs_video_step_ms"] = {"av_fp8": av["av_step"]["device_ms"], "video_fp8": fp8_step["fp8"]["device_ms"]}
+    log(f"AV vs video-only fp8 DiT step ({LAYERS} layers, 6144 tokens): {json.dumps(av['av_step_vs_video_step_ms'])}"
+        f" | {smi}")
+    av_files, av_file_counts = phase_av_files(smi)
+    torch.cuda.empty_cache()
     i2v_two_stage, i2v_one_stage, options, image_to_video = phase_image_to_video(smi)
     torch.cuda.empty_cache()
     bwd = phase_bwd_kernels()
@@ -2642,10 +3079,13 @@ def main():
             "source": "ltx2_tpu_torch/csrc/flash_attention.cu",
             "replaces": "ltx2_tpu/ops/attention.py:188",
             "launches": (serve_counts["fwd"] + two_stage_counts["fwd"] + file_counts["fwd"] + v2_counts["fwd"]
+                         + av_counts["fwd"] + av_file_counts["fwd"]
                          + i2v_two_stage["fwd"] + i2v_one_stage["fwd"] + options["fwd"] + train_counts["fwd"]),
             "launches_by_path": {"serve": serve_counts["fwd"], "serve_two_stage": two_stage_counts["fwd"],
                                  "serve_two_stage_from_files": file_counts["fwd"],
                                  "serve_v2_two_stage_from_files": v2_counts["fwd"],
+                                 "serve_av_two_stage": av_counts["fwd"],
+                                 "serve_v2_av_two_stage_from_files": av_file_counts["fwd"],
                                  "image_to_video_two_stage": i2v_two_stage["fwd"],
                                  "one_stage": i2v_one_stage["fwd"], "one_stage_options": options["fwd"],
                                  "train": train_counts["fwd"]},
@@ -2653,6 +3093,10 @@ def main():
             # "launches" too: the token bucket's self-attention.
             "key_valid_launches": options["key_valid"],
             "key_valid_launches_by_path": {"one_stage_options": options["key_valid"]},
+            # The D = 64 instantiation on the audio-video paths, counted in "launches" too.
+            "head_dim_64_launches_by_path": {"serve_av_two_stage": av_counts["fwd_by_head_dim"].get(64, 0),
+                                             "serve_v2_av_two_stage_from_files":
+                                                 av_file_counts["fwd_by_head_dim"].get(64, 0)},
             "max_abs_err": max(max(r["max_abs_err"] for r in recs),
                                max(r["max_abs_err_fwd_residuals"] for r in bwd)),
             "ms": self_rec["ms"],
@@ -2688,11 +3132,14 @@ def main():
             "replaces": conv_replaces,
             "launches": (serve_counts["conv"] + two_stage_counts["conv"] - upscale_launches
                          + file_counts["conv"] - file_upscale_launches + v2_counts["conv_bf16"]
+                         + av_counts["conv_bf16"] + av_file_counts["conv_bf16"]
                          + i2v_two_stage["conv_bf16"] + i2v_one_stage["conv_bf16"] + options["conv_bf16"]),
             "launches_by_path": {"serve": serve_counts["conv"],
                                  "serve_two_stage": two_stage_counts["conv"] - upscale_launches,
                                  "serve_two_stage_from_files": file_counts["conv"] - file_upscale_launches,
                                  "serve_v2_two_stage_from_files": v2_counts["conv_bf16"],
+                                 "serve_av_two_stage": av_counts["conv_bf16"],
+                                 "serve_v2_av_two_stage_from_files": av_file_counts["conv_bf16"],
                                  "image_to_video_two_stage": i2v_two_stage["conv_bf16"],
                                  "one_stage": i2v_one_stage["conv_bf16"],
                                  "one_stage_options": options["conv_bf16"]},
@@ -2711,10 +3158,13 @@ def main():
             "kernel": "conv3d_tf32x3_kernel",
             "replaces": conv_replaces,
             "launches": (upscale_launches + file_upscale_launches + v2_counts["conv_fp32"]
+                         + av_counts["conv_fp32"] + av_file_counts["conv_fp32"]
                          + i2v_two_stage["conv_fp32"] + i2v_one_stage["conv_fp32"] + options["conv_fp32"]),
             "launches_by_path": {"serve_two_stage": upscale_launches,
                                  "serve_two_stage_from_files": file_upscale_launches,
                                  "serve_v2_two_stage_from_files": v2_counts["conv_fp32"],
+                                 "serve_av_two_stage": av_counts["conv_fp32"],
+                                 "serve_v2_av_two_stage_from_files": av_file_counts["conv_fp32"],
                                  "image_to_video_two_stage": i2v_two_stage["conv_fp32"],
                                  "one_stage": i2v_one_stage["conv_fp32"],
                                  "one_stage_options": options["conv_fp32"]},
@@ -2734,7 +3184,9 @@ def main():
         "v2": {"files": v2_files, "small_input_check": v2_small,
                "step_ms": {"v2_bf16": fp8_step["v2_bf16"]["device_ms"], "v1_bf16": fp8_step["bf16"]["device_ms"]}},
         "two_stage": {"requests": two_stage_stats, "peak_memory_gb_by_phase": two_stage_peaks,
-                      "small_input_check": two_stage_small}}
+                      "small_input_check": two_stage_small},
+        "audio_video": {"two_stage": av, "small_input_check": av_small, "from_files": av_files,
+                        "audio_decode_card_vs_cpu": audio_check}}
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,4 +1,4 @@
-"""Text- and image-to-video generation, video only, on one GPU.
+"""Text- and image-to-video generation, with or without audio, on one GPU.
 
 Four flows, chosen with `--pipeline`:
 
@@ -29,6 +29,17 @@ Four flows, chosen with `--pipeline`:
   `--cross-attn-scale` from `--cross-attn-start-block`, `--cache-text-kv`,
   and `--upscale-spatial` (the 2x spatial upscaler after the loop).
 
+`--audio` on the distilled and the CFG flows generates sound with the
+audio-video DiT (the checkpoint's, loaded with its audio stream; else random
+at full width, 32 x 128 video and 32 x 64 audio heads, kept in fp8): the
+audio stream denoises beside the video in the joint loop (the CFG flows
+guide it at `--audio-cfg-scale`, 7.0), then the audio VAE decoder and the
+vocoder (LTX-2.3's BWE chain when the checkpoint declares one: 48 kHz,
+else 24 kHz) make a stereo waveform, written as `<base>.wav` beside a
+`.y4m` (16-bit PCM, as the JAX CLI writes it) or muxed by ffmpeg into other
+containers. `--no-internal-audio` leaves the audio stream of an AV DiT out
+when audio is not asked for, as in the JAX CLI.
+
 `--image PATH[:FRAME[:STRENGTH]]` (repeatable; frame 0 and `--image-strength`
 by default) conditions the distilled and the CFG flows on 8-bit PNGs: each is
 resized to the stage's size, encoded by the fp32 video VAE encoder and
@@ -44,7 +55,7 @@ quantized to fp8 at load) and `--lora PATH[:STRENGTH]` (repeatable; fused
 into the DiT at load). An LTX-2.3 (V2) file gives the V2 DiT (cross-attention
 AdaLN, gated attention, prompt AdaLN, no caption projection) and the V2 text
 encoder (two extractor heads, two gated connectors; the audio encoding it
-also makes feeds no ported stream).
+also makes is the audio stream's context under `--audio`).
 
 Prompts: `--prompt` and `--negative-prompt` (the JAX CLI's defaults) are
 tokenized from `--gemma-dir`'s tokenizer.json by the port's own reader
@@ -72,9 +83,11 @@ position grid's rate and the file's; `--tile-size`, `--tile-overlap`,
 `--temporal-tile-size` and `--temporal-tile-overlap` set the decode's
 tiling; `--num-frames` is `--frames`; `--dtype` the DiT's compute dtype.
 
-Every DiT attention call runs the flash kernel, every VAE and upscaler conv
-the implicit-GEMM conv kernel; Gemma's and the connector's fp32 attention
-runs as plain torch ops, as the JAX package runs it outside Pallas.
+Every DiT attention call runs the flash kernel (the audio stream's and the
+cross-modal ones at head dim 64), every VAE and upscaler conv the
+implicit-GEMM conv kernel; Gemma's and the connector's fp32 attention, and
+the audio decoder's and the vocoder's fp32 convs, run as plain torch ops
+(TF32 off), as the JAX package runs them outside Pallas.
 
 From Python: `generate_video(seed=0)`, `generate_videos([0, 1, ...])` or
 `generate_videos_distilled([0, 1, ...], text_encoder=True)`. From the shell
@@ -97,6 +110,9 @@ From Python: `generate_video(seed=0)`, `generate_videos([0, 1, ...])` or
         --gemma-dir gemma-3-12b --prompt "..." --save-embedding emb.npz --output clip.mp4
     python -m ltx2_tpu_torch.generate --pipeline distilled --checkpoint ltx-2.3.safetensors \
         --spatial-upscaler upscaler.safetensors --embedding emb.npz --skip-vae --output clip.y4m
+    python -m ltx2_tpu_torch.generate --pipeline distilled --audio --requests 2 --output clip.y4m
+    python -m ltx2_tpu_torch.generate --pipeline one-stage --checkpoint ltx-2.3.safetensors --audio \
+        --audio-cfg-scale 7 --gemma-dir gemma-3-12b --prompt "..." --output clip.y4m
 """
 
 from __future__ import annotations
@@ -123,8 +139,10 @@ from ltx2_tpu_torch.models.text_encoder import (
     Gemma3, Gemma3Config, TextEncoderConfig, VideoTextEncoder, av_text_encoder_apply, gemma3_apply, init_gemma3_,
     init_text_encoder_, video_text_encoder_apply,
 )
-from ltx2_tpu_torch.models.transformer.blocks import VideoBlock
-from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelConfig, init_ltx_model_
+from ltx2_tpu_torch.models.audio_vae.decoder import AudioDecoder, AudioDecoderConfig, init_audio_decoder_
+from ltx2_tpu_torch.models.audio_vae.vocoder import Vocoder, VocoderConfig, init_vocoder_
+from ltx2_tpu_torch.models.transformer.blocks import AVBlock, VideoBlock
+from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelConfig, LTXModelType, init_ltx_model_
 from ltx2_tpu_torch.models.upscaler.spatial import (
     SpatialUpscaler, SpatialUpscalerConfig, init_spatial_upscaler_, spatial_upscaler_apply,
 )
@@ -140,7 +158,7 @@ from ltx2_tpu_torch.models.video_vae.tiling import (
 from ltx2_tpu_torch.models.video_vae.weights import load_per_channel_statistics
 from ltx2_tpu_torch.ops.attention import flash_attention
 from ltx2_tpu_torch.ops.conv3d import conv3d_ndhwc_kernel
-from ltx2_tpu_torch.pipelines.common import ImageCondition, decode_video
+from ltx2_tpu_torch.pipelines.common import ImageCondition, decode_audio, decode_video
 from ltx2_tpu_torch.pipelines.denoise import DenoiseLoopConfig, make_video_denoise_loop
 from ltx2_tpu_torch.pipelines.distilled import DistilledConfig, DistilledPipeline, stage_seeds
 from ltx2_tpu_torch.pipelines.one_stage import OneStageCFGConfig, OneStagePipeline
@@ -208,10 +226,36 @@ def make_dit(layers: int, device: torch.device, seed: int = 0, base: LTXModelCon
         return init_ltx_model_(LTXModel(cfg, device=device), gen)
     dit = quantize_params_fp8(init_ltx_model_(LTXModel(dataclasses.replace(cfg, num_layers=0), device=device), gen))
     for i in range(layers):
-        block = VideoBlock(cfg.video_stream_config(), cfg.norm_eps, device=device, dtype=cfg.dtype)
+        if cfg.is_av:
+            block = AVBlock(cfg.video_stream_config(), cfg.audio_stream_config(), cfg.norm_eps, device=device,
+                            dtype=cfg.dtype)
+        else:
+            block = VideoBlock(cfg.video_stream_config(), cfg.norm_eps, device=device, dtype=cfg.dtype)
         dit.transformer_blocks.append(quantize_params_fp8(init_ltx_model_(block, gen), f"transformer_blocks.{i}"))
     dit.cfg = cfg
     return dit
+
+
+def av_config(base: LTXModelConfig = LTXModelConfig()) -> LTXModelConfig:
+    """`base` as the audio-video DiT (the audio stream 32 x 64 wide)."""
+    return dataclasses.replace(base, model_type=LTXModelType.AudioVideo)
+
+
+def make_audio_decoder(device: torch.device, seed: int = 6, cfg: AudioDecoderConfig = AudioDecoderConfig()
+                       ) -> AudioDecoder:
+    """The audio VAE decoder of config `cfg` (default: the published one),
+    fp32, random weights from `seed`."""
+    return init_audio_decoder_(AudioDecoder(cfg, device=device), torch.Generator(device=device).manual_seed(seed))
+
+
+def make_vocoder(device: torch.device, seed: int = 7, cfg=VocoderConfig()):
+    """The vocoder of config `cfg` (default: LTX-2's HiFi-GAN, 1024
+    channels in, 24 kHz; a VocoderWithBWEConfig gives LTX-2.3's chain),
+    fp32, random weights from `seed`."""
+    from ltx2_tpu_torch.models.audio_vae.vocoder import VocoderWithBWE, VocoderWithBWEConfig
+
+    module = (VocoderWithBWE if isinstance(cfg, VocoderWithBWEConfig) else Vocoder)(cfg, device=device)
+    return init_vocoder_(module, torch.Generator(device=device).manual_seed(seed))
 
 
 def make_decoder(compute_dtype: str, device: torch.device) -> VideoDecoder:
@@ -239,10 +283,13 @@ def make_gemma(device: torch.device, seed: int = 3, cfg: Gemma3Config = Gemma3Co
     return init_gemma3_(Gemma3(cfg, device=device), torch.Generator(device=device).manual_seed(seed))
 
 
-def make_text_encoder(device: torch.device, seed: int = 4, cfg: TextEncoderConfig = TextEncoderConfig()
-                      ) -> VideoTextEncoder:
+def make_text_encoder(device: torch.device, seed: int = 4, cfg: TextEncoderConfig = TextEncoderConfig(),
+                      audio: bool = False) -> VideoTextEncoder:
     """The V1 text encoder above Gemma (feature extractor over 49 states of
-    3840, 2-block 30 x 128 connector), fp32, random weights from `seed`."""
+    3840, 2-block 30 x 128 connector; with `audio` an audio connector of the
+    same shape), fp32, random weights from `seed`."""
+    if audio:
+        cfg = dataclasses.replace(cfg, audio_connector=cfg.connector)
     return init_text_encoder_(VideoTextEncoder(cfg, device=device), torch.Generator(device=device).manual_seed(seed))
 
 
@@ -272,7 +319,8 @@ def tokenize_prompts(gemma_dir: str, prompt: str, negative_prompt: str) -> Tuple
 def encode_prompts(seeds: Sequence[int], gemma: Gemma3, text_encoder: VideoTextEncoder, device: torch.device,
                    stats: Sequence[dict], negatives: bool = False,
                    tokens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                   embeddings: Optional[list] = None) -> List[torch.Tensor]:
+                   embeddings: Optional[list] = None, audio_contexts: Optional[list] = None
+                   ) -> List[torch.Tensor]:
     """Each request's prompt and negative prompt through Gemma and the text
     encoder as one batch of 2; returns the prompts' (1, S, D) video contexts
     (with `negatives` the (2, S, D) prompt and negative pair; D 3840 for V1,
@@ -283,7 +331,10 @@ def encode_prompts(seeds: Sequence[int], gemma: Gemma3, text_encoder: VideoTextE
     same for every request; None draws them from each request's seed
     (`prompt_tokens`). `embeddings`, when given, receives each request's
     encodings as host arrays under the JAX CLI's npz keys (`positive`,
-    `negative`; V2 also `positive_audio`, `negative_audio`)."""
+    `negative`; with an audio connector also `positive_audio`,
+    `negative_audio`); `audio_contexts`, when given, each request's audio
+    encodings as the contexts are returned (None without an audio
+    connector)."""
     contexts = []
     for seed, st in zip(seeds, stats):
         if tokens is None:
@@ -301,7 +352,7 @@ def encode_prompts(seeds: Sequence[int], gemma: Gemma3, text_encoder: VideoTextE
         t0 = time.perf_counter()
         _, hidden = gemma3_apply(gemma, ids, mask)
         audio = None
-        if text_encoder.cfg.v2:
+        if hasattr(text_encoder, "audio_embeddings_connector"):
             out = av_text_encoder_apply(text_encoder, hidden, mask)
             encoding, audio = out.video_encoding, out.audio_encoding
         else:
@@ -314,6 +365,8 @@ def encode_prompts(seeds: Sequence[int], gemma: Gemma3, text_encoder: VideoTextE
             if audio is not None:
                 saved.update(positive_audio=audio[0:1], negative_audio=audio[1:2])
             embeddings.append({k: v.float().cpu().numpy() for k, v in saved.items()})
+        if audio_contexts is not None:
+            audio_contexts.append(None if audio is None else audio if negatives else audio[0:1])
         del audio
         context = encoding[0:1]
         st["context_finite"] = bool(torch.isfinite(encoding).all())
@@ -323,28 +376,33 @@ def encode_prompts(seeds: Sequence[int], gemma: Gemma3, text_encoder: VideoTextE
 
 
 def _encode_phase(seeds, stats, device, gemma: Optional[Gemma3], text_encoder: Optional[VideoTextEncoder],
-                  phase_peaks: bool, negatives: bool = False, tokens=None, embeddings=None):
-    """The text-encode phase: builds what is not given, encodes every
-    request (`encode_prompts`) and returns the contexts; the modules it
-    built are released when it returns."""
+                  phase_peaks: bool, negatives: bool = False, tokens=None, embeddings=None, audio_contexts=None):
+    """The text-encode phase: builds what is not given (with `audio_contexts`
+    a V1 encoder with its audio connector), encodes every request
+    (`encode_prompts`) and returns the contexts; the modules it built are
+    released when it returns."""
     if gemma is None:
         gemma, stats[0]["gemma_init_s"] = _timed(device, lambda: make_gemma(device))
     if text_encoder is None:
-        text_encoder, stats[0]["text_encoder_init_s"] = _timed(device, lambda: make_text_encoder(device))
-    contexts = encode_prompts(seeds, gemma, text_encoder, device, stats, negatives, tokens, embeddings)
+        text_encoder, stats[0]["text_encoder_init_s"] = _timed(
+            device, lambda: make_text_encoder(device, audio=audio_contexts is not None))
+    contexts = encode_prompts(seeds, gemma, text_encoder, device, stats, negatives, tokens, embeddings,
+                              audio_contexts)
     stats[0]["text_encode_peak_gb"] = _phase_peak(device, phase_peaks)
     return contexts
 
 
 def _text_contexts(seeds, stats, device, contexts, text_encoder, gemma, ledger, phase_peaks: bool,
-                   negatives: bool = False, tokens=None, embeddings=None):
+                   negatives: bool = False, tokens=None, embeddings=None, audio_contexts=None):
     """The contexts of the two-stage and the CFG flows: those given, or with
     `text_encoder` (True or a module) each request's prompts (`tokens`, or
     seeded ids) encoded, Gemma and the text encoder built (or read through
     `ledger`) and released before the DiT; None when neither (the dummy
     contexts are drawn later). Each request's stats get its
     `prompt_source` ("tokenizer", "seeded", "contexts" or "dummy").
-    Returns (contexts, whether they were encoded)."""
+    `audio_contexts`: a list that receives each request's audio encodings
+    (None where the encoder has no audio connector). Returns (contexts,
+    whether they were encoded)."""
     encode = text_encoder is True or isinstance(text_encoder, VideoTextEncoder)
     if gemma is not None and not encode:
         raise ValueError("gemma is given but text encoding is off (text_encoder=False)")
@@ -363,7 +421,7 @@ def _text_contexts(seeds, stats, device, contexts, text_encoder, gemma, ledger, 
         ledger.clear_model("text_encoder")
     contexts = _encode_phase(seeds, stats, device, gemma,
                              text_encoder if isinstance(text_encoder, VideoTextEncoder) else None, phase_peaks,
-                             negatives, tokens, embeddings)
+                             negatives, tokens, embeddings, audio_contexts)
     gemma = text_encoder = None
     _free(device)
     _phase_peak(device, phase_peaks)  # the next phase's peak starts from what is left
@@ -371,21 +429,29 @@ def _text_contexts(seeds, stats, device, contexts, text_encoder, gemma, ledger, 
 
 
 def _dit_and_encoder(stats, device, layers: int, dit, encoder, images, ledger, context_width: Optional[int],
-                     dtype: str = "bfloat16"):
+                     dtype: str = "bfloat16", audio: bool = False):
     """The DiT (given, from `ledger`, or random at `layers` in `dtype`, with
     a caption projection from `context_width` channels when the contexts
-    are not the model's 4096 wide) and, when there are images, the video
-    encoder (given, from `ledger`, or random), each timed. Raises when the
-    DiT's text input (its caption projection's, else its context width)
-    does not take `context_width` channels."""
+    are not the model's 4096 wide; with `audio` the audio-video DiT, kept in
+    fp8 when random) and, when there are images, the video encoder (given,
+    from `ledger`, or random), each timed. Raises when the DiT's text input
+    (its caption projection's, else its context width) does not take
+    `context_width` channels, and when `audio` is asked of a video-only DiT."""
     if dit is None and ledger is not None:
         dit, stats[0]["dit_init_s"] = _timed(device, ledger.transformer)
+    elif dit is None and audio:
+        base = av_config(LTXModelConfig(compute_dtype=dtype))
+        if context_width not in (None, base.cross_attention_dim):
+            base = dataclasses.replace(base, caption_channels=context_width)
+        dit, stats[0]["dit_init_s"] = _timed(device, lambda: make_dit(layers, device, base=base, fp8=True))
     elif dit is None:
         base = LTXModelConfig(compute_dtype=dtype)
         if context_width not in (None, base.cross_attention_dim):
             base = dataclasses.replace(base, caption_channels=context_width)
         dit, stats[0]["dit_init_s"] = _timed(device, lambda: make_dit(layers, device, base=base))
     stats[0]["dit_weight_gb"] = weight_bytes(dit) / 1e9
+    if audio and not dit.cfg.is_av:
+        raise ValueError("audio needs the audio-video DiT (a checkpoint loaded with include_audio, or av_config)")
     takes = dit.cfg.caption_channels or dit.cfg.cross_attention_dim
     if context_width is not None and takes != context_width:
         raise ValueError(f"the DiT's text input (caption_channels {dit.cfg.caption_channels}, else its "
@@ -477,10 +543,12 @@ def make_request(
     return state, context
 
 
-def dummy_context(cfg: LTXModelConfig, generator: torch.Generator, device: torch.device) -> torch.Tensor:
+def dummy_context(cfg: LTXModelConfig, generator: torch.Generator, device: torch.device,
+                  audio: bool = False) -> torch.Tensor:
     """The `--no-gemma` text context: normal * 0.02, (1, 1024, the DiT's
-    text input width: its caption projection's, else its context dim)."""
-    width = cfg.caption_channels or cfg.cross_attention_dim
+    text input width: its caption projection's, else its context dim; for
+    the audio stream its caption projection's, else the stream's width)."""
+    width = cfg.caption_channels or (cfg.audio_inner_dim if audio else cfg.cross_attention_dim)
     return torch.randn(1, CONTEXT_TOKENS, width, generator=generator, device=device) * 0.02
 
 
@@ -599,11 +667,33 @@ def generate_videos_distilled(
     tiling: Optional[TilingConfig] = None,
     dtype: str = "bfloat16",
     skip_decode: bool = False,
+    audio: bool = False,
+    audio_contexts: Optional[Sequence[torch.Tensor]] = None,
+    audio_noises: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+    audio_decoder: Optional[AudioDecoder] = None,
+    vocoder=None,
+    internal_audio: bool = True,
 ) -> Tuple[List[np.ndarray], List[dict]]:
     """The two-stage distilled recipe, one clip per seed; returns (uint8
     (frames, height, width, 3) arrays, per-request stats); with
     `skip_decode` the (1, C, F, H, W) fp32 latents in place of the frames,
     and no decoder is built.
+
+    With `audio` the audio-video DiT (the ledger's, loaded with
+    `include_audio`; else random at full width, kept in fp8) denoises the
+    audio stream beside the video in both stages, and each entry of the
+    result is the pair (frames, (2, samples) fp32 waveform), or with
+    `skip_decode` (latent, (1, C, T, F) audio latent): after the video
+    decode the audio decoder and the vocoder (given, the ledger's, or
+    random: the published AudioDecoderConfig() from seed 6, VocoderConfig()
+    from seed 7) decode each clip's audio latent; the stats hold the
+    waveform's `audio_sample_rate`, `audio_samples` and the audio decode's
+    seconds and peak. `audio_contexts[i]` is request i's (1, S, D) audio
+    context (default: the text encoder's audio encoding, else the dummy one
+    drawn after the video context, else the video context itself when that
+    was given); `audio_noises[i]` its (stage-1, stage-2) audio noise;
+    `internal_audio` is the configs' `use_internal_audio_branch` (off: a
+    given audio-video DiT runs its video stream alone unless `audio`).
 
     `tokens` (the tokenized prompt and negative prompt, `tokenize_prompts`)
     and `embeddings` go to `encode_prompts`; `fps` into the position grids;
@@ -652,38 +742,101 @@ def generate_videos_distilled(
         raise ValueError("with a ledger every component comes from its files: pass no module")
     stats = [{"seed": seed, "dit_init_s": 0.0, "upscaler_init_s": 0.0, "decoder_init_s": 0.0} for seed in seeds]
     _phase_peak(device, phase_peaks)
+    encoded_audio = [] if audio and audio_contexts is None else None
     contexts, encoded = _text_contexts(seeds, stats, device, contexts, text_encoder, gemma, ledger, phase_peaks,
-                                       tokens=tokens, embeddings=embeddings)
+                                       tokens=tokens, embeddings=embeddings, audio_contexts=encoded_audio)
+    if encoded_audio and all(a is not None for a in encoded_audio):
+        audio_contexts = encoded_audio
     gemma = text_encoder = None
     dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, images, ledger,
-                                    None if contexts is None else contexts[0].shape[-1], dtype)
+                                    None if contexts is None else contexts[0].shape[-1], dtype, audio)
     upscaler = _spatial_upscaler(stats, device, upscaler, ledger, "the two-stage recipe")
     cfg = dit.cfg
     statistics = _latent_statistics(cfg, decoder, ledger, device)
     pipe = DistilledPipeline(dit, upscaler, statistics=statistics, video_encoder=encoder)
 
-    configs, latents = [], []
+    configs, latents, audio_latents = [], [], []
     for i, (seed, st) in enumerate(zip(seeds, stats)):
         config = DistilledConfig(height=height, width=width, num_frames=frames, seed=seed, dtype=cfg.compute_dtype,
-                                 latent_channels=cfg.in_channels, fps=fps, tiling_config=tiling)
-        context = contexts[i] if contexts is not None else dummy_context(
-            cfg, torch.Generator(device=device).manual_seed(seed), device)
+                                 latent_channels=cfg.in_channels, fps=fps, tiling_config=tiling, audio_enabled=audio,
+                                 use_internal_audio_branch=internal_audio)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        context = contexts[i] if contexts is not None else dummy_context(cfg, gen, device)
+        audio_context = None
+        if audio:
+            audio_context = (audio_contexts[i] if audio_contexts is not None else
+                             context if contexts is not None else dummy_context(cfg, gen, device, audio=True))
         on_phase, marks = _phase_timer(device, st, phase_peaks)
-        latent = pipe(context, config, images=images, callback=on_phase, skip_decode=True,
-                      noises=None if noises is None else noises[i])
+        out = pipe(context, config, images=images, callback=on_phase, skip_decode=True,
+                   noises=None if noises is None else noises[i], audio_encoding=audio_context,
+                   audio_noises=None if audio_noises is None else audio_noises[i])
+        latent, audio_latent = out if audio else (out, None)
         st["attention_launches"] = flash_attention.launches - marks["attention"]
         st["latent_std"] = float(latent.float().std())
         configs.append(config)
         latents.append(latent)
+        audio_latents.append(audio_latent)
 
     del dit, upscaler, encoder, pipe
     if ledger is not None:
         for name in ("transformer", "spatial_upscaler", "video_encoder"):
             ledger.clear_model(name)
+    return _outputs(latents, audio_latents, configs, stats, device, decoder, ledger, cfg.compute_dtype, phase_peaks,
+                    lambda seed: stage_seeds(seed)[2], skip_decode, audio_decoder, vocoder), stats
+
+
+def _outputs(latents, audio_latents, configs, stats, device, decoder, ledger, compute_dtype: str, phase_peaks: bool,
+             decode_seed, skip_decode: bool, audio_decoder, vocoder) -> list:
+    """Each request's result: its latent (and audio latent) as fp32 host
+    arrays with `skip_decode`, else its decoded frames (`_decode_phase`) and,
+    where there is an audio latent, its waveform (`_audio_decode_phase`), as
+    pairs when there is audio."""
+    audio = any(a is not None for a in audio_latents)
+
+    def host(x):
+        return x.float().cpu().numpy()
+
     if skip_decode:
-        return [latent.float().cpu().numpy() for latent in latents], stats
-    return _decode_phase(latents, configs, stats, device, decoder, ledger, cfg.compute_dtype, phase_peaks,
-                         lambda seed: stage_seeds(seed)[2]), stats
+        outs = [host(z) for z in latents]
+        return [(z, host(a)) for z, a in zip(outs, audio_latents)] if audio else outs
+    videos = _decode_phase(latents, configs, stats, device, decoder, ledger, compute_dtype, phase_peaks, decode_seed)
+    if not audio:
+        return videos
+    waves = _audio_decode_phase(audio_latents, stats, device, audio_decoder, vocoder, ledger, phase_peaks)
+    return list(zip(videos, waves))
+
+
+def _audio_decode_phase(audio_latents, stats, device, audio_decoder, vocoder, ledger, phase_peaks: bool
+                        ) -> List[np.ndarray]:
+    """After the video decode: the audio decoder and the vocoder (given,
+    from `ledger`, or random), each clip's audio latent decoded to a (2,
+    samples) fp32 waveform on the host, with the seconds, peak memory,
+    sample rate and length in its stats. TF32 stays off: the JAX package
+    runs these convs at HIGHEST precision."""
+    _free(device)
+    _phase_peak(device, phase_peaks)
+    if audio_decoder is None:
+        make = ledger.audio_decoder if ledger is not None else (lambda: make_audio_decoder(device))
+        audio_decoder, stats[0]["audio_decoder_init_s"] = _timed(device, make)
+    if vocoder is None:
+        make = ledger.vocoder if ledger is not None else (lambda: make_vocoder(device))
+        vocoder, stats[0]["vocoder_init_s"] = _timed(device, make)
+    if audio_decoder is None or vocoder is None:
+        raise ValueError("the checkpoint holds no audio decoder or no vocoder: audio cannot be decoded")
+    waves = []
+    for latent, st in zip(audio_latents, stats):
+        t0 = time.perf_counter()
+        wave = decode_audio(latent, audio_decoder, vocoder)[0].cpu().numpy()
+        st["audio_decode_s"] = time.perf_counter() - t0  # host waveform: synchronised
+        st["audio_decode_peak_gb"] = _phase_peak(device, phase_peaks)
+        st["audio_sample_rate"] = vocoder.cfg.output_sample_rate
+        st["audio_samples"] = int(wave.shape[-1])
+        st["audio_finite"] = bool(np.isfinite(wave).all())
+        waves.append(wave)
+    if ledger is not None:
+        ledger.clear_model("audio_decoder")
+        ledger.clear_model("vocoder")
+    return waves
 
 
 def _decode_phase(latents, configs, stats, device, decoder, ledger, compute_dtype: str, phase_peaks: bool,
@@ -742,6 +895,13 @@ def generate_videos_one_stage(
     tiling: Optional[TilingConfig] = None,
     dtype: str = "bfloat16",
     skip_decode: bool = False,
+    audio: bool = False,
+    audio_cfg_scale: float = 7.0,
+    audio_contexts: Optional[Sequence[torch.Tensor]] = None,
+    audio_noises: Optional[Sequence[torch.Tensor]] = None,
+    audio_decoder: Optional[AudioDecoder] = None,
+    vocoder=None,
+    internal_audio: bool = True,
     **loop_options,
 ) -> Tuple[List[np.ndarray], List[dict]]:
     """The single-stage CFG pipeline, one clip per seed at the JAX
@@ -772,7 +932,11 @@ def generate_videos_one_stage(
     re-normalize bracket of the decoder's statistics (its phase "upscale"
     in the stats), and the decoder decodes the upscaled latent.
     `tokens`, `embeddings`, `fps`, `tiling`, `dtype` and `skip_decode` as in
-    `generate_videos_distilled`.
+    `generate_videos_distilled`; so is `audio` (the audio stream guided at
+    `audio_cfg_scale`, CFG* when `rescale_scale` > 0), with
+    `audio_contexts[i]` a (2, S, D) audio prompt and negative pair (default:
+    the text encoder's, else two dummy ones drawn after the video pair) and
+    `audio_noises[i]` request i's audio noise; `internal_audio` as there.
     """
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -783,11 +947,15 @@ def generate_videos_one_stage(
         raise ValueError("with a ledger every component comes from its files: pass no module")
     stats = [{"seed": seed, "dit_init_s": 0.0, "decoder_init_s": 0.0} for seed in seeds]
     _phase_peak(device, phase_peaks)
+    encoded_audio = [] if audio and audio_contexts is None else None
     contexts, encoded = _text_contexts(seeds, stats, device, contexts, text_encoder, gemma, ledger, phase_peaks,
-                                       negatives=True, tokens=tokens, embeddings=embeddings)
+                                       negatives=True, tokens=tokens, embeddings=embeddings,
+                                       audio_contexts=encoded_audio)
+    if encoded_audio and all(a is not None for a in encoded_audio):
+        audio_contexts = encoded_audio
     gemma = text_encoder = None
     dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, images, ledger,
-                                    None if contexts is None else contexts[0].shape[-1], dtype)
+                                    None if contexts is None else contexts[0].shape[-1], dtype, audio)
     cfg = dit.cfg
     pipe = OneStagePipeline(dit, video_encoder=encoder)
     spatial = upscaler = None
@@ -800,21 +968,31 @@ def generate_videos_one_stage(
             upscaled = spatial_upscaler_apply(upscaler, un_normalize_latent(latent, statistics))
             return normalize_latent(upscaled, statistics)
 
-    configs, latents = [], []
+    configs, latents, audio_latents = [], [], []
     for i, (seed, st) in enumerate(zip(seeds, stats)):
         config = OneStageCFGConfig(height=height, width=width, num_frames=frames, seed=seed,
                                    num_inference_steps=steps, cfg_scale=cfg_scale, rescale_scale=rescale_scale,
                                    token_dependent_shift=token_shift, dtype=cfg.compute_dtype,
                                    latent_channels=cfg.in_channels, cfg_interval=cfg_interval,
-                                   token_bucket=token_bucket, fps=fps, tiling_config=tiling)
+                                   token_bucket=token_bucket, fps=fps, tiling_config=tiling, audio_enabled=audio,
+                                   audio_cfg_scale=audio_cfg_scale, use_internal_audio_branch=internal_audio)
+        gen = torch.Generator(device=device).manual_seed(seed)
         if contexts is not None:
             positive, negative = contexts[i][0:1], contexts[i][1:2]
         else:
-            gen = torch.Generator(device=device).manual_seed(seed)
             positive, negative = dummy_context(cfg, gen, device), dummy_context(cfg, gen, device)
+        audio_pair = (None, None)
+        if audio:
+            pair = audio_contexts[i] if audio_contexts is not None else torch.cat(
+                [dummy_context(cfg, gen, device, audio=True) for _ in range(2)])
+            audio_pair = (pair[0:1], pair[1:2])
         on_phase, marks = _phase_timer(device, st, phase_peaks)
-        latent, _ = pipe(positive, negative, config, images=images, callback=on_phase, skip_decode=True,
-                         noise=None if noises is None else noises[i], spatial_upscaler=spatial, **loop_options)
+        latent, audio_latent = pipe(
+            positive, negative, config, images=images, callback=on_phase, skip_decode=True,
+            noise=None if noises is None else noises[i], spatial_upscaler=spatial,
+            positive_audio_encoding=audio_pair[0], negative_audio_encoding=audio_pair[1],
+            audio_noise=None if audio_noises is None else audio_noises[i], **loop_options)
+        audio_latents.append(audio_latent if audio else None)
         st["denoise_step_s"] = st["denoise_s"] / steps
         st["attention_launches"] = flash_attention.launches - marks["attention"]
         st["key_valid_attention_launches"] = flash_attention.key_valid_launches - marks["key_valid"]
@@ -826,10 +1004,8 @@ def generate_videos_one_stage(
     if ledger is not None:
         for name in ("transformer", "video_encoder", "spatial_upscaler"):
             ledger.clear_model(name)
-    if skip_decode:
-        return [latent.float().cpu().numpy() for latent in latents], stats
-    return _decode_phase(latents, configs, stats, device, decoder, ledger, cfg.compute_dtype, phase_peaks,
-                         lambda seed: stage_seeds(seed, 2)[1]), stats
+    return _outputs(latents, audio_latents, configs, stats, device, decoder, ledger, cfg.compute_dtype, phase_peaks,
+                    lambda seed: stage_seeds(seed, 2)[1], skip_decode, audio_decoder, vocoder), stats
 
 
 def generate_video(seed: int = 0, **kwargs) -> np.ndarray:
@@ -883,16 +1059,18 @@ def tiling_config(args) -> Optional[TilingConfig]:
     return None
 
 
-def load_embedding(path: str, device, negatives: bool) -> torch.Tensor:
+def load_embedding(path: str, device, negatives: bool, audio: bool = False) -> Optional[torch.Tensor]:
     """An `--embedding` npz (the JAX CLI's keys) -> the video context: the
     (1, S, D) `positive`, or with `negatives` the (2, S, D) `positive` and
-    `negative` pair. The audio keys of a V2 file are read by no ported
-    stream (ROADMAP.md §1 item 4)."""
+    `negative` pair; with `audio` the same of `positive_audio` and
+    `negative_audio` (None when the file has none)."""
+    names = ("positive_audio", "negative_audio") if audio else ("positive", "negative")
     with np.load(path) as data:
-        positive = torch.from_numpy(np.asarray(data["positive"], np.float32))
-        if negatives:
-            positive = torch.cat([positive, torch.from_numpy(np.asarray(data["negative"], np.float32))])
-    return positive.to(resolve_device(device))
+        if names[0] not in data:
+            return None
+        keys = names if negatives else names[:1]
+        context = torch.cat([torch.from_numpy(np.asarray(data[k], np.float32)) for k in keys])
+    return context.to(resolve_device(device))
 
 
 def output_paths(output: str, n: int, suffix: str = "") -> List[str]:
@@ -974,6 +1152,14 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
                     help="with --gemma-dir: quantize Gemma's matmul weights to fp8 at load (embeddings bf16)")
     ap.add_argument("--lora", action="append", default=[], metavar="PATH[:STRENGTH]",
                     help="with --checkpoint: a LoRA file fused into the DiT at load, repeatable")
+    ap.add_argument("--audio", "--generate-audio", action="store_true",
+                    help="distilled, one-stage, text-to-video: generate audio with the audio-video DiT (the "
+                         "checkpoint's, loaded with its audio stream, else random at full width, kept in fp8) and "
+                         "write it beside a .y4m as <base>.wav (muxed by ffmpeg into other containers)")
+    ap.add_argument("--no-internal-audio", action="store_true",
+                    help="an audio-video DiT leaves the audio stream out when --audio is not given")
+    ap.add_argument("--audio-cfg-scale", type=float, default=7.0,
+                    help="one-stage, text-to-video with --audio: the audio stream's guidance scale")
     loop = ap.add_argument_group("one-stage and text-to-video loop options (the JAX CLI's names and defaults)")
     loop.add_argument("--stg-scale", type=float, default=0.0,
                       help="STG: a third guidance row with self-attention skipped in --stg-blocks")
@@ -981,7 +1167,7 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
     loop.add_argument("--stg-cutoff", type=float, default=1.0,
                       help="STG applies on steps with (i + 1) / steps <= this")
     loop.add_argument("--stg-mode", choices=["video", "audio", "both"], default="video",
-                      help="the stream(s) STG perturbs; audio needs the audio branch, which is not ported")
+                      help="the stream(s) STG perturbs; audio and both need --audio")
     loop.add_argument("--apg-scale", type=float, default=0.0, help="APG in place of CFG at this scale (0 = off)")
     loop.add_argument("--apg-eta", type=float, default=1.0)
     loop.add_argument("--apg-norm-threshold", type=float, default=0.0,
@@ -1009,6 +1195,7 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
         ap.error(f"{', '.join(loop_flags)} need --pipeline one-stage or text-to-video")
     if args.pipeline == "bench-e2e":
         for flag, used in (("--text-encoder", args.text_encoder), ("--checkpoint", args.checkpoint),
+                           ("--audio", args.audio),
                            ("--image", args.image), ("--prompt", args.prompt is not None),
                            ("--negative-prompt", args.negative_prompt is not None), ("--embedding", args.embedding),
                            ("--save-embedding", args.save_embedding),
@@ -1051,19 +1238,24 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
                 checkpoint_path=args.checkpoint, gemma_path=args.gemma_dir, spatial_upscaler_path=args.spatial_upscaler,
                 loras=[parse_lora_spec(spec) for spec in args.lora], target_dtype=args.dtype,
                 keep_fp8=args.fp8_serving, gemma_fp8=args.gemma_fp8, decoder_dtype="bfloat16", device=args.device,
+                include_audio=args.audio,
             )
         tokens = None
         if args.gemma_dir and encode:
             tokens = tokenize_prompts(args.gemma_dir, DEFAULT_PROMPT if args.prompt is None else args.prompt,
                                       DEFAULT_NEGATIVE_PROMPT if args.negative_prompt is None else args.negative_prompt)
-        contexts = None
+        contexts = audio_contexts = None
         if args.embedding:
             context = load_embedding(args.embedding, args.device, negatives=cfg_flow)
             contexts = [context] * len(seeds)
+            audio_context = load_embedding(args.embedding, args.device, negatives=cfg_flow, audio=True)
+            if args.audio and audio_context is not None:
+                audio_contexts = [audio_context] * len(seeds)
         embeddings = [] if args.save_embedding else None
         images = [parse_image_spec(spec, args.image_strength) for spec in args.image]
         flow = dict(text_encoder=encode, phase_peaks=True, ledger=ledger, images=images, contexts=contexts,
-                    tokens=tokens, embeddings=embeddings, tiling=tiling_config(args), **common)
+                    tokens=tokens, embeddings=embeddings, tiling=tiling_config(args), audio=args.audio,
+                    audio_contexts=audio_contexts, internal_audio=not args.no_internal_audio, **common)
         if cfg_flow:
             # text-to-video is the one-stage pipeline with plain CFG, as in
             # scripts/generate.py: rescale 0, every other flag as given.
@@ -1075,7 +1267,8 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
                 stg_blocks=[int(b) for b in args.stg_blocks.split(",")] if args.stg_blocks else None,
                 stg_cutoff=args.stg_cutoff, stg_mode=args.stg_mode, guider_override=apg_guider(args),
                 ge_gamma=args.ge_gamma, sampler=args.sampler, cross_attn_scale=args.cross_attn_scale,
-                cross_attn_start_block=args.cross_attn_start_block, cache_text_kv=args.cache_text_kv, **flow)
+                cross_attn_start_block=args.cross_attn_start_block, cache_text_kv=args.cache_text_kv,
+                audio_cfg_scale=args.audio_cfg_scale, **flow)
         else:
             videos, stats = generate_videos_distilled(seeds, **flow)
         if args.embedding:
@@ -1084,11 +1277,14 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
         if args.save_embedding:
             np.savez(args.save_embedding, **embeddings[0])
     paths = output_paths(args.output, len(videos), "_latent.npz" if args.skip_vae else "")
-    for video, path, st in zip(videos, paths, stats):
+    for out, path, st in zip(videos, paths, stats):
+        video, wave = out if args.audio else (out, None)
         if args.skip_vae:
-            np.savez(path, latent=video)
+            np.savez(path, latent=video, **({} if wave is None else {"audio_latent": wave}))
         else:
-            save_video(video, path, args.fps, output_fps=args.output_fps, speed=args.speed)
+            # The vocoder's own rate: LTX-2.3's BWE chain writes 48 kHz.
+            save_video(video, path, args.fps, output_fps=args.output_fps, speed=args.speed, audio=wave,
+                       audio_sample_rate=st.get("audio_sample_rate", 24000))
         st["output"] = path
         print(json.dumps({**st, "frames": list(video.shape), "dtype": str(video.dtype)}))
     return videos, stats

@@ -17,6 +17,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from ltx2_tpu_torch.models.audio_vae.decoder import AudioDecoder, AudioDecoderConfig
+from ltx2_tpu_torch.models.audio_vae.vocoder import Vocoder, VocoderConfig, VocoderWithBWE, VocoderWithBWEConfig
 from ltx2_tpu_torch.models.text_encoder.encoder import TextEncoderConfig, VideoTextEncoder
 from ltx2_tpu_torch.models.text_encoder.gemma3 import Gemma3, Gemma3Config
 from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelConfig
@@ -67,8 +69,9 @@ def _unstack(tree: Mapping, stacked: str, layers: int) -> Dict[str, np.ndarray]:
 
 
 def dit_from_numpy(tree: Mapping, cfg: LTXModelConfig, device=None) -> LTXModel:
-    """A video DiT parameter tree (stacked blocks) -> LTXModel on `device`;
-    a `caption_projection` in the tree needs `cfg.caption_channels`.
+    """A DiT parameter tree (stacked blocks; the audio stream's and the
+    cross-modal leaves with an AudioVideo `cfg`) -> LTXModel on `device`; a
+    `caption_projection` in the tree needs `cfg.caption_channels`.
 
     LoRA leaves of the tree (training/lora.py's stacked (L, r, in) `lora_A`,
     (L, out, r) `lora_B` and (L,) `lora_scale`) become each block's adapters."""
@@ -143,3 +146,23 @@ def spatial_upscaler_from_numpy(tree: Mapping, cfg: SpatialUpscalerConfig, devic
     upscaler = SpatialUpscaler(cfg, device=device)
     _load(upscaler, flatten_tree(tree))
     return upscaler
+
+
+def audio_decoder_from_numpy(tree: Mapping, cfg: AudioDecoderConfig, device=None) -> AudioDecoder:
+    """An audio-decoder parameter tree (`conv_in`, `mid_block_{1,2}`,
+    `up_blocks.{i}.res_blocks.{j}` / `.upsample.conv`, `conv_out`,
+    `per_channel_statistics`) -> fp32 AudioDecoder."""
+    decoder = AudioDecoder(cfg, device=device)
+    _load(decoder, flatten_tree(tree))
+    return decoder
+
+
+def vocoder_from_numpy(tree: Mapping, cfg, device=None):
+    """A vocoder tree (`conv_pre`, `ups.{i}`, `resblocks.{j}` with
+    `convs1/2` and, for AMP1, `acts1/2` with their filters, `act_post`,
+    `conv_post`) -> Vocoder for a VocoderConfig; the BWE chain's
+    (`vocoder`, `bwe_generator`, `mel_stft`) -> VocoderWithBWE for a
+    VocoderWithBWEConfig."""
+    module = (VocoderWithBWE if isinstance(cfg, VocoderWithBWEConfig) else Vocoder)(cfg, device=device)
+    _load(module, flatten_tree(tree))
+    return module

@@ -1,5 +1,5 @@
-"""Checkpoint -> video DiT, V1 or V2 (LTX-2.3), with key rewriting and fp8
-(counterpart of ltx2_tpu/loader/weight_loader.py).
+"""Checkpoint -> DiT, video-only or audio-video, V1 or V2 (LTX-2.3), with
+key rewriting and fp8 (counterpart of ltx2_tpu/loader/weight_loader.py).
 
 The reference checkpoint keeps every component in one safetensors file; the
 DiT's tensors are `model.diffusion_model.*`. Their names become the port's
@@ -9,7 +9,9 @@ block, which are the checkpoint's own names. Each tensor is read from the
 mapped file, moved to the module's device and converted there, one tensor at
 a time (loader/modules.py): AdaLN tables and norm weights in fp32, matmul
 weights in the target dtype, fp8-E4M3 weights dequantized (codes x
-per-tensor scale) or, with `keep_fp8`, kept as codes with their scales.
+per-tensor scale) or, with `keep_fp8`, kept as codes with their scales
+(the audio stream's and the cross-modal linears as the video's, as the JAX
+loader keeps every weight that has a scale).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from ltx2_tpu_torch.loader.convert import fp8_e4m3_dequant, to_dtype
 from ltx2_tpu_torch.loader.fp8 import set_fp8_weight_
 from ltx2_tpu_torch.loader.modules import assign_, require_loaded
 from ltx2_tpu_torch.loader.safetensors_io import SafetensorsFile, read_metadata
-from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelConfig
+from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelConfig, LTXModelType
 from ltx2_tpu_torch.ops.common import Linear
 
 # The reference's key rewrites, checkpoint name -> module name.
@@ -42,7 +44,6 @@ DIFFUSION_PREFIX = "model.diffusion_model."
 # target dtype (docs/PARITY.md: fp32 AdaLN and norms).
 FP32_KEYS = ("scale_shift_table", "adaln", "norm")
 
-AUDIO_NOT_PORTED = "audio is not ported yet: ROADMAP.md §1 item 4"
 INT8_NOT_PORTED = "int8 W8A8 weights are not ported yet: ROADMAP.md §1 item 5"
 
 
@@ -123,14 +124,17 @@ def read_dequantized(f: SafetensorsFile, key: str, scales: Dict[str, str], devic
 _BLOCK_RE = re.compile(r"transformer_blocks\.(\d+)\.")
 
 
-def transformer_config_from_checkpoint(path: str, compute_dtype: str = "bfloat16") -> LTXModelConfig:
-    """The video DiT's architecture from the file: widths from the tensors'
-    shapes, the block count from their names, the head count from the
-    metadata's config (`num_attention_heads`, top level or under
-    "transformer"; 32 when absent). A `model_version` of 2.3 (LTX-2.3, V2)
-    turns on cross-attention AdaLN and gated attention, as the JAX ledger
-    builds V2. The rest: SPLIT RoPE on the f32 grid, a caption projection
-    when the file has one (V1; V2 has none); no remat (serving)."""
+def transformer_config_from_checkpoint(path: str, compute_dtype: str = "bfloat16",
+                                       include_audio: bool = False) -> LTXModelConfig:
+    """The DiT's architecture from the file: widths from the tensors'
+    shapes, the block count from their names, the head counts from the
+    metadata's config (`num_attention_heads`, `audio_num_attention_heads`,
+    top level or under "transformer"; 32 when absent). A `model_version` of
+    2.3 (LTX-2.3, V2) turns on cross-attention AdaLN and gated attention, as
+    the JAX ledger builds V2. With `include_audio` the audio-video model
+    (the file must hold the audio stream). The rest: SPLIT RoPE on the f32
+    grid, caption projections when the file has them (V1; V2 has none); no
+    remat (serving)."""
     f = SafetensorsFile(path)
     meta = read_checkpoint_config(path)
     tcfg = meta.get("transformer", {}) or meta
@@ -147,11 +151,22 @@ def transformer_config_from_checkpoint(path: str, compute_dtype: str = "bfloat16
     blocks = {int(m.group(1)) for m in map(_BLOCK_RE.match, names) if m}
     caption = shape("caption_projection.linear_1.weight")[1] if "caption_projection.linear_1.weight" in names else None
     v2 = is_v2_model(path)
+    audio = {}
+    if include_audio:
+        if "audio_patchify_proj.weight" not in names:
+            raise ValueError(f"{path} holds no audio stream (audio_patchify_proj): load it without include_audio")
+        audio_inner, audio_in = shape("audio_patchify_proj.weight")
+        audio_heads = int(tcfg.get("audio_num_attention_heads", 32))
+        audio = dict(model_type=LTXModelType.AudioVideo, audio_heads=audio_heads,
+                     audio_head_dim=int(tcfg.get("audio_attention_head_dim", audio_inner // audio_heads)),
+                     audio_in_channels=audio_in, audio_out_channels=shape("audio_proj_out.weight")[0])
+        if audio["audio_heads"] * audio["audio_head_dim"] != audio_inner:
+            raise ValueError(f"{path}: {audio_heads} audio heads do not make the audio stream's width {audio_inner}")
     return LTXModelConfig(
         num_attention_heads=heads, attention_head_dim=head_dim, in_channels=in_channels,
         out_channels=shape("proj_out.weight")[0], num_layers=max(blocks) + 1 if blocks else 0,
         cross_attention_dim=shape("transformer_blocks.0.attn2.to_k.weight")[1], caption_channels=caption,
-        compute_dtype=compute_dtype, remat=False, cross_attention_adaln=v2, apply_gated_attention=v2,
+        compute_dtype=compute_dtype, remat=False, cross_attention_adaln=v2, apply_gated_attention=v2, **audio,
     )
 
 
@@ -166,20 +181,21 @@ def load_transformer_params(
     quantize_int8: bool = False,
     include_audio: bool = False,
 ) -> LTXModel:
-    """The video DiT of the checkpoint at `path` on `device` (default cuda),
-    read tensor by tensor (host memory: one tensor). `cfg` defaults to
-    `transformer_config_from_checkpoint`. With `keep_fp8` the file's fp8
+    """The DiT of the checkpoint at `path` on `device` (default cuda), read
+    tensor by tensor (host memory: one tensor): the video stream, and with
+    `include_audio` the audio stream and the cross-modal layers too (the
+    audio-video model). `cfg` defaults to `transformer_config_from_checkpoint`. With `keep_fp8` the file's fp8
     weights stay E4M3 codes with their per-tensor `weight_scale`, dequantized
     at use; otherwise they are dequantized here. Every other tensor follows
     `convert_tensor`. Raises on a tensor the model has no place for, one of
     another shape, and a model tensor the file does not give."""
     if quantize_int8:
         raise NotImplementedError(INT8_NOT_PORTED)
-    if include_audio:
-        raise NotImplementedError(AUDIO_NOT_PORTED)
     device = resolve_device(device)
     if cfg is None:
-        cfg = transformer_config_from_checkpoint(path, target_dtype)
+        cfg = transformer_config_from_checkpoint(path, target_dtype, include_audio)
+    if cfg.is_av != include_audio:
+        raise ValueError(f"include_audio={include_audio} with a {cfg.model_type.name} config")
     target = getattr(torch, target_dtype)
     f = SafetensorsFile(path)
     scales = fp8_scale_keys(f)
@@ -188,7 +204,7 @@ def load_transformer_params(
         for key in sorted(f.keys()):
             if not key.startswith(DIFFUSION_PREFIX) or key.endswith("_scale"):
                 continue
-            tree_key = convert_checkpoint_key(key[len(DIFFUSION_PREFIX):])
+            tree_key = convert_checkpoint_key(key[len(DIFFUSION_PREFIX):], include_audio)
             if tree_key is None:
                 continue
             if keep_fp8 and key in scales:

@@ -3,10 +3,10 @@ ltx2_tpu/models/text_encoder/encoder.py).
 
 V1: Gemma's 49 hidden states -> feature extractor -> 1D connector -> the
 DiT's text context (B, S', 3840), padding zeroed by the connector's output
-mask. V2 (LTX-2.3): the V2 extractor's two heads -> the gated video
-connector (32 x 128, the DiT's 4096-wide context) and the audio connector
-(32 x 64), `av_text_encoder_apply` returning both encodings (the DiT's audio
-stream is not ported: ROADMAP.md §1 item 4). `load_text_encoder_params`
+mask; an audio-video V1 file adds an audio connector of the same shape fed
+the same features. V2 (LTX-2.3): the V2 extractor's two heads -> the gated
+video connector (32 x 128, the DiT's 4096-wide context) and the audio
+connector (32 x 64). `av_text_encoder_apply` returns both encodings. `load_text_encoder_params`
 reads either from the unified checkpoint (`text_embedding_projection.*` and
 the connectors under `model.diffusion_model.`), the architecture read off
 the file; `text_encoder_to_checkpoint` writes it back.
@@ -24,7 +24,7 @@ from ltx2_tpu_torch.core import resolve_device
 from ltx2_tpu_torch.loader.export import inverse_rewrite
 from ltx2_tpu_torch.loader.modules import assign_, require_loaded
 from ltx2_tpu_torch.loader.safetensors_io import SafetensorsFile
-from ltx2_tpu_torch.loader.weight_loader import AUDIO_NOT_PORTED, read_checkpoint_config
+from ltx2_tpu_torch.loader.weight_loader import read_checkpoint_config
 from ltx2_tpu_torch.models.text_encoder.connector import (
     Connector, ConnectorConfig, connector_apply, init_connector_,
 )
@@ -56,12 +56,13 @@ class TextEncoderConfig:
     v2: bool = False  # V2 = the dual direct-projection extractor (LTX-2.3)
     video_inner_dim: int = 4096  # V2's head widths
     audio_inner_dim: int = 2048
-    audio_connector: Optional[ConnectorConfig] = None  # V2
+    audio_connector: Optional[ConnectorConfig] = None  # V2, or V1 audio-video
 
 
 class VideoTextEncoder(nn.Module):
-    """`feature_extractor` and `embeddings_connector` (V2: also
-    `audio_embeddings_connector`), fp32, named as in the JAX package's tree.
+    """`feature_extractor` and `embeddings_connector` (V2, and V1 with an
+    `audio_connector`: also `audio_embeddings_connector`), fp32, named as in
+    the JAX package's tree.
     Parameters start uninitialised: load them (loader/from_numpy.py) or draw
     them (`init_text_encoder_`)."""
 
@@ -74,7 +75,7 @@ class VideoTextEncoder(nn.Module):
         else:
             self.feature_extractor = FeatureExtractorV1(cfg.hidden_dim, cfg.num_gemma_layers, device=device)
         self.embeddings_connector = Connector(cfg.connector, device=device)
-        if cfg.v2:
+        if cfg.v2 or cfg.audio_connector is not None:
             self.audio_embeddings_connector = Connector(cfg.audio_connector or cfg.connector, device=device)
 
 
@@ -84,7 +85,7 @@ def init_text_encoder_(encoder: VideoTextEncoder, generator: torch.Generator) ->
     for m in encoder.feature_extractor.children():
         init_linear_(m, generator)
     init_connector_(encoder.embeddings_connector, generator)
-    if encoder.cfg.v2:
+    if hasattr(encoder, "audio_embeddings_connector"):
         init_connector_(encoder.audio_embeddings_connector, generator)
     return encoder
 
@@ -141,17 +142,21 @@ def video_text_encoder_apply(encoder: VideoTextEncoder, hidden_states: torch.Ten
 @torch.no_grad()
 def av_text_encoder_apply(encoder: VideoTextEncoder, hidden_states: torch.Tensor, attention_mask: torch.Tensor,
                           padding_side: str = "left") -> AudioVideoGemmaEncoderOutput:
-    """V2: Gemma's states (L, B, S, D) and the (B, S) token mask -> the
-    extractor's two heads through the video and the audio connectors: the
-    video encoding (B, S', 4096) with padding zeroed by the connector's
-    output mask, the audio encoding (B, S', 2048) as the audio connector
-    gives it, and the binary mask. The V1 audio-video encoder (one
-    extractor, two connectors) is not ported: ROADMAP.md §1 item 4."""
-    if not encoder.cfg.v2:
-        raise NotImplementedError(AUDIO_NOT_PORTED)
+    """Gemma's states (L, B, S, D) and the (B, S) token mask -> the video
+    and the audio connectors' outputs: the video encoding (B, S', 4096 for
+    V2, 3840 for V1) with padding zeroed by the connector's output mask, the
+    audio encoding (B, S', 2048 for V2, 3840 for V1) as the audio connector
+    gives it, and the binary mask. V2 feeds the connectors the extractor's
+    two heads, V1 both the one extractor's features."""
+    if not hasattr(encoder, "audio_embeddings_connector"):
+        raise ValueError("this V1 text encoder has no audio connector: use video_text_encoder_apply")
     attention_mask = attention_mask.to(hidden_states.device)
-    video_input, audio_input = extract_features_v2(encoder.feature_extractor, hidden_states, attention_mask,
-                                                   encoder.cfg.hidden_dim)
+    if encoder.cfg.v2:
+        video_input, audio_input = extract_features_v2(encoder.feature_extractor, hidden_states, attention_mask,
+                                                       encoder.cfg.hidden_dim)
+    else:
+        video_input = audio_input = extract_features_v1(encoder.feature_extractor, hidden_states, attention_mask,
+                                                        padding_side)
     connector_mask = convert_to_additive_mask(attention_mask, video_input.dtype)
     video, output_mask = connector_apply(encoder.embeddings_connector, video_input, connector_mask)
     binary_mask = _binary_from_additive(output_mask)
@@ -258,7 +263,8 @@ def text_encoder_config_from_checkpoint(path: str, hidden_dim: int = 3840) -> Te
     V1: the extractor's widths and Gemma state count from the projection's
     shape, the connector's blocks, registers and width from its tensors, its
     head width from the metadata's `connector_attention_head_dim` (128 when
-    absent)."""
+    absent); an audio connector when the file has one (the video one's
+    shape, as the JAX package builds it)."""
     f = SafetensorsFile(path)
     if V2_VIDEO_KEY in f:
         f.close()
@@ -272,20 +278,18 @@ def text_encoder_config_from_checkpoint(path: str, hidden_dim: int = 3840) -> Te
     head_dim = int((meta.get("transformer", {}) or meta).get("connector_attention_head_dim", 128))
     connector = ConnectorConfig(attention_head_dim=head_dim, num_attention_heads=inner // head_dim,
                                 num_layers=_count_blocks(f, prefix), num_learnable_registers=_registers(f, prefix))
-    return TextEncoderConfig(hidden_dim=hidden, num_gemma_layers=stacked // hidden, connector=connector)
+    audio = any(k.startswith(AUDIO_CONNECTOR_PREFIX) for k in f.keys())
+    return TextEncoderConfig(hidden_dim=hidden, num_gemma_layers=stacked // hidden, connector=connector,
+                             audio_connector=connector if audio else None)
 
 
 @torch.no_grad()
-def load_text_encoder_params(path: str, cfg: Optional[TextEncoderConfig] = None, device=None,
-                             include_audio: bool = False) -> VideoTextEncoder:
+def load_text_encoder_params(path: str, cfg: Optional[TextEncoderConfig] = None, device=None) -> VideoTextEncoder:
     """The text encoder of the unified checkpoint at `path` on `device`
     (default cuda), fp32. V1: `text_embedding_projection.aggregate_embed`
     and the connector under `video_embeddings_connector.` (or
-    `embeddings_connector.`); V2: the extractor's two heads and both gated
-    connectors. `include_audio` (V1's audio connector) raises: ROADMAP.md
-    §1 item 4."""
-    if include_audio:
-        raise NotImplementedError(AUDIO_NOT_PORTED)
+    `embeddings_connector.`), and the audio connector when `cfg` has one;
+    V2: the extractor's two heads and both gated connectors."""
     device = resolve_device(device)
     if cfg is None:
         cfg = text_encoder_config_from_checkpoint(path)

@@ -6,9 +6,11 @@ head), RoPE on Q/K (SPLIT in the DiT, INTERLEAVED in the text connector),
 then `sdpa_tokens`, which on the GPU is the hand-written flash-attention
 kernel for the DiT's bf16 attention (the connector's fp32 attention takes
 `sdpa`'s plain route). A step-invariant context's K/V may be handed in
-precomputed (`cached_kv`: V1 text-KV caching). V2 (LTX-2.3) gates each
-head's output by 2 * sigmoid(`to_gate_logits`(x)) before `to_out`. Not
-ported yet: the sequence- and tensor-parallel paths.
+precomputed (`cached_kv`: V1 text-KV caching), and the keys may take their
+own RoPE tables (`k_pe`: the audio<->video cross-modal attention rotates
+each side by its own timeline). V2 (LTX-2.3) gates each head's output by
+2 * sigmoid(`to_gate_logits`(x)) before `to_out`. Not ported yet: the
+sequence- and tensor-parallel paths.
 """
 
 from __future__ import annotations
@@ -70,10 +72,13 @@ def attention_apply(
     mask: Optional[torch.Tensor] = None,
     pe: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     cached_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    k_pe: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Attention forward over (B, T, D) tokens; `context` None = self-attention.
     cached_kv: the context's (k, v), already projected and k-normed; the
-    K/V projections are then skipped (RoPE is never applied to them)."""
+    K/V projections are then skipped (RoPE is never applied to them).
+    k_pe: the keys' RoPE tables when they differ from the queries' `pe`
+    (applied only with `pe`, as in the JAX package)."""
     q = rms_norm(linear(p.to_q, x), p.q_norm.weight, cfg.norm_eps)
     if cached_kv is not None:
         k, v = cached_kv
@@ -84,7 +89,7 @@ def attention_apply(
     if pe is not None:
         q = apply_rotary_emb(q, pe, cfg.rope_type)
         if cached_kv is None:
-            k = apply_rotary_emb(k, pe, cfg.rope_type)
+            k = apply_rotary_emb(k, pe if k_pe is None else k_pe, cfg.rope_type)
     out = sdpa_tokens(q, k, v, cfg.heads, cfg.dim_head, mask=mask)
     if cfg.apply_gated_attention:
         out = apply_gated_attention(p, cfg, x, out)

@@ -1,6 +1,7 @@
-"""LTX-2 video DiT (counterpart of ltx2_tpu/models/transformer/model.py).
+"""LTX-2 DiT, video-only or audio-video (counterpart of
+ltx2_tpu/models/transformer/model.py).
 
-The video-only model: patchify projection, AdaLN-single timestep embedding,
+The video stream: patchify projection, AdaLN-single timestep embedding,
 an `nn.ModuleList` of blocks run in a Python loop (the JAX package stacks
 them on a leading layer axis and scans), each block rematerialised in the
 backward when `remat` is on and a gradient is being recorded (as
@@ -15,14 +16,27 @@ text cross-attention output, and text K/V precomputed once per generation
 AdaLN (9 AdaLN embeddings, and `prompt_adaln_single`, driven by the
 modality's sigma, whose 2 embeddings modulate the text K/V every step),
 gated attention, and no caption projection (`caption_channels` None: the
-text encoder projects to the model's width itself). Not ported yet: the
-audio and audio-video models and the parallel variants.
+text encoder projects to the model's width itself).
+
+The audio-video model (`model_type` AudioVideo) adds the audio stream
+beside it, 32 x 64 wide at the published size: `audio_patchify_proj`,
+`audio_adaln_single` (V2 also `audio_prompt_adaln_single`), V1's
+`audio_caption_projection`, `audio_proj_out`, its RoPE over the latent's
+seconds (always the middle of each interval, whatever the config says, as
+the reference's audio preprocessor), and per block the audio stream and the
+cross-modal attentions (`AVBlock`). The cross-modal attention's RoPE uses
+the temporal axis only, the audio stream's width and heads on both sides
+and max position `audio_cross_pe_max_pos`; its AdaLN embeddings come from
+the OTHER stream's sigma (the first token's under per-token timesteps), the
+gate's scaled by av_ca_timestep_scale_multiplier / timestep_scale_multiplier.
+Not ported: the audio-only model and the parallel variants.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from enum import Enum
 from functools import lru_cache
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -33,10 +47,18 @@ from torch.utils.checkpoint import checkpoint
 
 from ltx2_tpu_torch.components.perturbations import BatchedPerturbationConfig, PerturbationType
 from ltx2_tpu_torch.core import rms_norm
-from ltx2_tpu_torch.models.transformer.blocks import StreamArgs, StreamConfig, VideoBlock, av_block_apply
+from ltx2_tpu_torch.models.transformer.blocks import (
+    AVBlock, StreamArgs, StreamConfig, VideoBlock, joint_block_apply,
+)
 from ltx2_tpu_torch.ops.common import Linear, init_linear_, layer_norm, linear
 from ltx2_tpu_torch.ops.rope import precompute_freqs_cis
 from ltx2_tpu_torch.ops.timestep_embedding import AdaLayerNormSingle, adaln_single_apply
+
+
+class LTXModelType(Enum):
+    AudioVideo = "ltx av model"
+    VideoOnly = "ltx video only model"
+    AudioOnly = "ltx audio only model"
 
 
 @dataclasses.dataclass
@@ -79,10 +101,26 @@ class LTXModelConfig:
     remat: bool = True  # checkpoint each block when gradients are recorded
     cross_attention_adaln: bool = False  # V2 (LTX-2.3)
     apply_gated_attention: bool = False  # V2
+    model_type: LTXModelType = LTXModelType.VideoOnly
+    av_ca_timestep_scale_multiplier: int = 1
+    # The audio stream (AudioVideo).
+    audio_heads: int = 32
+    audio_head_dim: int = 64
+    audio_in_channels: int = 128
+    audio_out_channels: int = 128
+    audio_cross_pe_max_pos: int = 20
 
     @property
     def video_inner_dim(self) -> int:
         return self.num_attention_heads * self.attention_head_dim
+
+    @property
+    def audio_inner_dim(self) -> int:
+        return self.audio_heads * self.audio_head_dim
+
+    @property
+    def is_av(self) -> bool:
+        return self.model_type == LTXModelType.AudioVideo
 
     @property
     def adaln_num_embeddings(self) -> int:
@@ -102,33 +140,67 @@ class LTXModelConfig:
             apply_gated_attention=self.apply_gated_attention,
         )
 
+    def audio_stream_config(self) -> StreamConfig:
+        """The audio stream: its text context is as wide as the stream."""
+        return StreamConfig(
+            dim=self.audio_inner_dim,
+            heads=self.audio_heads,
+            d_head=self.audio_head_dim,
+            context_dim=self.audio_inner_dim,
+            cross_attention_adaln=self.cross_attention_adaln,
+            apply_gated_attention=self.apply_gated_attention,
+        )
+
+
+def _caption_projection(in_channels: int, inner: int, device, dtype) -> nn.Module:
+    proj = nn.Module()
+    proj.linear_1 = Linear(in_channels, inner, device=device, dtype=dtype)
+    proj.linear_2 = Linear(inner, inner, device=device, dtype=dtype)
+    return proj
+
 
 class LTXModel(nn.Module):
-    """Parameters of the video DiT, named as in the checkpoint. Linear
-    weights are in cfg.dtype; AdaLN-single and the scale/shift tables fp32.
+    """Parameters of the DiT (video-only, or audio-video), named as in the
+    checkpoint. Linear weights are in cfg.dtype; AdaLN-single and the
+    scale/shift tables fp32.
     Parameters start uninitialised: load them (loader/from_numpy.py) or
     draw them (`init_ltx_model_`)."""
 
     def __init__(self, cfg: LTXModelConfig, *, device=None):
         super().__init__()
+        if cfg.model_type == LTXModelType.AudioOnly:
+            raise NotImplementedError("not ported: the audio-only DiT (LTXModelType.AudioOnly)")
         self.cfg = cfg
-        inner, dtype = cfg.video_inner_dim, cfg.dtype
-        self.patchify_proj = Linear(cfg.in_channels, inner, device=device, dtype=dtype)
-        self.adaln_single = AdaLayerNormSingle(inner, cfg.adaln_num_embeddings, device=device)
-        if cfg.cross_attention_adaln:
-            self.prompt_adaln_single = AdaLayerNormSingle(inner, 2, device=device)
-        if cfg.caption_channels is not None:
-            self.caption_projection = nn.Module()
-            self.caption_projection.linear_1 = Linear(cfg.caption_channels, inner, device=device, dtype=dtype)
-            self.caption_projection.linear_2 = Linear(inner, inner, device=device, dtype=dtype)
-        self.scale_shift_table = nn.Parameter(
-            torch.zeros(2, inner, device=device, dtype=torch.float32), requires_grad=False
-        )
-        self.proj_out = Linear(inner, cfg.out_channels, device=device, dtype=dtype)
+        dtype = cfg.dtype
+        streams = [("", cfg.video_inner_dim, cfg.in_channels, cfg.out_channels)]
+        if cfg.is_av:
+            streams.append(("audio_", cfg.audio_inner_dim, cfg.audio_in_channels, cfg.audio_out_channels))
+        for prefix, inner, in_channels, out_channels in streams:
+            setattr(self, f"{prefix}patchify_proj", Linear(in_channels, inner, device=device, dtype=dtype))
+            setattr(self, f"{prefix}adaln_single",
+                    AdaLayerNormSingle(inner, cfg.adaln_num_embeddings, device=device))
+            if cfg.cross_attention_adaln:
+                setattr(self, f"{prefix}prompt_adaln_single", AdaLayerNormSingle(inner, 2, device=device))
+            if cfg.caption_channels is not None:
+                setattr(self, f"{prefix}caption_projection",
+                        _caption_projection(cfg.caption_channels, inner, device, dtype))
+            setattr(self, f"{prefix}scale_shift_table", nn.Parameter(
+                torch.zeros(2, inner, device=device, dtype=torch.float32), requires_grad=False))
+            setattr(self, f"{prefix}proj_out", Linear(inner, out_channels, device=device, dtype=dtype))
         stream = cfg.video_stream_config()
-        self.transformer_blocks = nn.ModuleList(
-            VideoBlock(stream, cfg.norm_eps, device=device, dtype=dtype) for _ in range(cfg.num_layers)
-        )
+        if cfg.is_av:
+            video, audio = cfg.video_inner_dim, cfg.audio_inner_dim
+            self.av_ca_video_scale_shift_adaln_single = AdaLayerNormSingle(video, 4, device=device)
+            self.av_ca_a2v_gate_adaln_single = AdaLayerNormSingle(video, 1, device=device)
+            self.av_ca_audio_scale_shift_adaln_single = AdaLayerNormSingle(audio, 4, device=device)
+            self.av_ca_v2a_gate_adaln_single = AdaLayerNormSingle(audio, 1, device=device)
+            audio_stream = cfg.audio_stream_config()
+            self.transformer_blocks = nn.ModuleList(
+                AVBlock(stream, audio_stream, cfg.norm_eps, device=device, dtype=dtype)
+                for _ in range(cfg.num_layers))
+        else:
+            self.transformer_blocks = nn.ModuleList(
+                VideoBlock(stream, cfg.norm_eps, device=device, dtype=dtype) for _ in range(cfg.num_layers))
 
 
 @torch.no_grad()
@@ -163,55 +235,96 @@ def _prepare_attention_mask(mask: Optional[torch.Tensor], dtype: torch.dtype) ->
     return additive.reshape(mask.shape[0], 1, 1, mask.shape[-1]).to(dtype)
 
 
-def _project_context(model: LTXModel, context: torch.Tensor) -> torch.Tensor:
-    """The text context in the compute dtype, through the caption projection
-    when the model has one, as (B, S, inner)."""
+def _project_context(model: LTXModel, context: torch.Tensor, prefix: str = "") -> torch.Tensor:
+    """A stream's text context in the compute dtype, through its caption
+    projection when the model has one, as (B, S, inner); `prefix` "audio_"
+    for the audio stream."""
     cfg = model.cfg
     context = context.to(cfg.dtype)
     if cfg.caption_channels is not None:
-        proj = model.caption_projection
+        proj = getattr(model, f"{prefix}caption_projection")
         context = linear(proj.linear_2, F.gelu(linear(proj.linear_1, context), approximate="tanh"))
-    return context.reshape(context.shape[0], -1, cfg.video_inner_dim)
+    return context.reshape(context.shape[0], -1, cfg.audio_inner_dim if prefix else cfg.video_inner_dim)
+
+
+def _first_sigma(modality: Modality) -> torch.Tensor:
+    """The modality's sigma (B,), else its timesteps; per-token timesteps
+    give the first token's."""
+    sigma = modality.sigma if modality.sigma is not None else modality.timesteps
+    return sigma[:, 0] if sigma.ndim > 1 else sigma
+
+
+def stream_pe(model: LTXModel, positions: torch.Tensor, audio: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A stream's RoPE tables from its (B, n, T, 2) positions: the video's
+    over (frame, height, width) as the config says, the audio's over its
+    seconds, always at the interval's middle."""
+    cfg = model.cfg
+    if audio:
+        return precompute_freqs_cis(positions, dim=cfg.audio_inner_dim, theta=cfg.positional_embedding_theta,
+                                    max_pos=[cfg.audio_cross_pe_max_pos], use_middle_indices_grid=True,
+                                    num_attention_heads=cfg.audio_heads)
+    return precompute_freqs_cis(positions, dim=cfg.video_inner_dim, theta=cfg.positional_embedding_theta,
+                                max_pos=list(cfg.positional_embedding_max_pos),
+                                use_middle_indices_grid=cfg.use_middle_indices_grid,
+                                num_attention_heads=cfg.num_attention_heads)
 
 
 def prepare_stream_args(
     model: LTXModel,
     video: Modality,
     video_pe: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    prefix: str = "",
 ) -> StreamArgs:
-    """The video preprocessor: patchify projection, AdaLN embeddings (V2:
-    also the prompt AdaLN's, from the modality's sigma, per-token timesteps
-    taking the first token's), masks and (unless precomputed) the RoPE
-    tables."""
+    """A stream's preprocessor (`prefix` "" video, "audio_" audio):
+    patchify projection, AdaLN embeddings (V2: also the prompt AdaLN's,
+    from the modality's sigma, per-token timesteps taking the first
+    token's), masks and (unless precomputed) the RoPE tables."""
     cfg = model.cfg
-    dtype, inner = cfg.dtype, cfg.video_inner_dim
-    x = linear(model.patchify_proj, video.latent.to(dtype))
+    dtype = cfg.dtype
+    inner = cfg.audio_inner_dim if prefix else cfg.video_inner_dim
+    x = linear(getattr(model, f"{prefix}patchify_proj"), video.latent.to(dtype))
     batch = x.shape[0]
     timestep_emb, embedded = _prepare_timestep(
-        model.adaln_single, video.timesteps, inner, batch, cfg.timestep_scale_multiplier
+        getattr(model, f"{prefix}adaln_single"), video.timesteps, inner, batch, cfg.timestep_scale_multiplier
     )
     prompt_timestep = None
     if cfg.cross_attention_adaln:
-        sigma = video.sigma if video.sigma is not None else video.timesteps
-        if sigma.ndim > 1:
-            sigma = sigma[:, 0]
         prompt_timestep, _ = _prepare_timestep(
-            model.prompt_adaln_single, sigma, inner, batch, cfg.timestep_scale_multiplier
+            getattr(model, f"{prefix}prompt_adaln_single"), _first_sigma(video), inner, batch,
+            cfg.timestep_scale_multiplier
         )
-    context = _project_context(model, video.context)
+    context = _project_context(model, video.context, prefix)
     if video_pe is None:
-        video_pe = precompute_freqs_cis(
-            video.positions, dim=inner, theta=cfg.positional_embedding_theta,
-            max_pos=list(cfg.positional_embedding_max_pos),
-            use_middle_indices_grid=cfg.use_middle_indices_grid,
-            num_attention_heads=cfg.num_attention_heads,
-        )
+        video_pe = stream_pe(model, video.positions, audio=bool(prefix))
     return StreamArgs(
         x=x, context=context, timesteps=timestep_emb, pe=video_pe,
         context_mask=_prepare_attention_mask(video.context_mask, dtype),
         self_mask=_prepare_attention_mask(video.token_mask, dtype),
         embedded_timestep=embedded, prompt_timestep=prompt_timestep,
     )
+
+
+def _prepare_cross_modal(model: LTXModel, args: StreamArgs, modality: Modality, other: Modality,
+                         prefix: str) -> StreamArgs:
+    """A stream's cross-modal inputs: the temporal RoPE (the audio stream's
+    width and heads, max position `audio_cross_pe_max_pos`, middle of the
+    interval) and the AdaLN embeddings from the other modality's sigma (the
+    gate's scaled by av_ca_timestep_scale_multiplier /
+    timestep_scale_multiplier)."""
+    cfg = model.cfg
+    inner = cfg.audio_inner_dim if prefix == "audio" else cfg.video_inner_dim
+    cross_pe = precompute_freqs_cis(
+        modality.positions[:, 0:1], dim=cfg.audio_inner_dim, theta=cfg.positional_embedding_theta,
+        max_pos=[cfg.audio_cross_pe_max_pos], use_middle_indices_grid=True, num_attention_heads=cfg.audio_heads)
+    sigma, batch = _first_sigma(other), args.x.shape[0]
+    gate_key = "av_ca_v2a_gate_adaln_single" if prefix == "audio" else "av_ca_a2v_gate_adaln_single"
+    ss_emb, _ = _prepare_timestep(getattr(model, f"av_ca_{prefix}_scale_shift_adaln_single"), sigma, inner, batch,
+                                  cfg.timestep_scale_multiplier)
+    gate_emb, _ = _prepare_timestep(
+        getattr(model, gate_key),
+        sigma.float() * (cfg.av_ca_timestep_scale_multiplier / cfg.timestep_scale_multiplier), inner, batch,
+        cfg.timestep_scale_multiplier)
+    return args.replace(cross_pe=cross_pe, cross_scale_shift_timestep=ss_emb, cross_gate_timestep=gate_emb)
 
 
 def _process_output(
@@ -261,25 +374,52 @@ def _stacked_linear(layers: Sequence[Linear], x: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def precompute_text_kv(model: LTXModel, video_context: torch.Tensor) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+def precompute_text_kv(model: LTXModel, video_context: torch.Tensor, audio_context: Optional[torch.Tensor] = None
+                       ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
     """Every block's text cross-attention K (k-normed) and V from the video
-    context, computed once per generation: {"video": (k, v)}, each
-    (L, B, S, inner) in the compute dtype (48 x 3 x 1024 x 4096 bf16 is 1.2
-    GB each). V1 only: V2 modulates K/V per step, so it raises ValueError."""
+    context (and, when given, the audio stream's from `audio_context`),
+    computed once per generation: {"video": (k, v)[, "audio": (k, v)]},
+    each (L, B, S, inner) in the compute dtype (48 x 3 x 1024 x 4096 bf16
+    is 1.2 GB each). V1 only: V2 modulates K/V per step, so it raises
+    ValueError."""
     if model.cfg.cross_attention_adaln:
         raise ValueError("text KV caching is V1-only (V2 modulates KV per step)")
     blocks = model.transformer_blocks
-    ctx = _project_context(model, video_context)
-    k = _stacked_linear([b.attn2.to_k for b in blocks], ctx)
-    v = _stacked_linear([b.attn2.to_v for b in blocks], ctx)
-    k_w = torch.stack([b.attn2.k_norm.weight for b in blocks])
-    return {"video": (rms_norm(k, k_w[:, None, None, :], model.cfg.norm_eps), v)}
+    out = {}
+    for name, context, prefix in (("video", video_context, ""), ("audio", audio_context, "audio_")):
+        if context is None:
+            continue
+        ctx = _project_context(model, context, prefix)
+        attns = [getattr(b, f"{prefix}attn2") for b in blocks]
+        k = _stacked_linear([a.to_k for a in attns], ctx)
+        v = _stacked_linear([a.to_v for a in attns], ctx)
+        k_w = torch.stack([a.k_norm.weight for a in attns])
+        out[name] = (rms_norm(k, k_w[:, None, None, :], model.cfg.norm_eps), v)
+    return out
 
 
-def _block_x(block: VideoBlock, x: torch.Tensor, args: StreamArgs, stream: StreamConfig, eps: float,
-             perturb=None, ca_scale=None, text_kv=None):
-    """One block on hidden states `x`: the unit that remat recomputes."""
-    return av_block_apply(block, args.replace(x=x), stream, eps, perturb, ca_scale, text_kv).x
+def prepare_av_args(model: LTXModel, video: Modality, audio: Optional[Modality] = None,
+                    video_pe: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    audio_pe: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                    ) -> Tuple[StreamArgs, Optional[StreamArgs]]:
+    """Both streams' preprocessors, each with its cross-modal inputs when
+    both run: (video args, audio args or None)."""
+    args = prepare_stream_args(model, video, video_pe)
+    if audio is None:
+        return args, None
+    audio_args = prepare_stream_args(model, audio, audio_pe, prefix="audio_")
+    return (_prepare_cross_modal(model, args, video, audio, "video"),
+            _prepare_cross_modal(model, audio_args, audio, video, "audio"))
+
+
+def _block_x(block: VideoBlock, x: torch.Tensor, ax: Optional[torch.Tensor], args: StreamArgs,
+             audio: Optional[StreamArgs], cfg: LTXModelConfig, perturb=None, ca_scale=None, vkv=None, akv=None):
+    """One block on hidden states `x` (and the audio stream's `ax`): the
+    unit that remat recomputes."""
+    v, a = joint_block_apply(block, args.replace(x=x), None if audio is None else audio.replace(x=ax),
+                             cfg.video_stream_config(), cfg.audio_stream_config() if audio is not None else None,
+                             cfg.norm_eps, perturb, ca_scale, vkv, akv)
+    return v.x if a is None else (v.x, a.x)
 
 
 def ltx_model_apply(
@@ -289,31 +429,49 @@ def ltx_model_apply(
     perturbations: Optional[BatchedPerturbationConfig] = None,
     ca_scales: Optional[torch.Tensor] = None,
     text_kv: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
-) -> torch.Tensor:
-    """Forward pass -> fp32 velocity (B, T, out_channels). perturbations: a
-    static per-row config (STG); ca_scales: (L,) scales of each block's text
-    cross-attention output; text_kv: `precompute_text_kv`'s output. Each
-    None leaves its part of the forward as it is without the option."""
+    audio: Optional[Modality] = None,
+    audio_pe: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+):
+    """Forward pass -> fp32 velocity (B, T, out_channels); with `audio` (an
+    audio-video model) the pair (video velocity, audio velocity).
+    perturbations: a static per-row config (STG); ca_scales: (L,) scales of
+    each block's video text cross-attention output; text_kv:
+    `precompute_text_kv`'s output; video_pe / audio_pe: precomputed RoPE
+    tables (`stream_pe`). Each None leaves its part of the forward as it is
+    without the option."""
     cfg = model.cfg
-    args = prepare_stream_args(model, video, video_pe)
-    stream = cfg.video_stream_config()
+    if audio is not None and not cfg.is_av:
+        raise ValueError("an audio modality needs the audio-video model (model_type AudioVideo)")
+    args, audio_args = prepare_av_args(model, video, audio, video_pe, audio_pe)
     masks = None
     if perturbations is not None:
         masks = _perturbation_mask_array(perturbations, cfg.num_layers, args.x.shape[0], args.x.device)
-    vkv = (text_kv or {}).get("video")
+    vkv, akv = (text_kv or {}).get("video"), (text_kv or {}).get("audio")
     remat = cfg.remat and torch.is_grad_enabled()
+    vx, ax = args.x, None if audio_args is None else audio_args.x
     for i, block in enumerate(model.transformer_blocks):
         extra = (None if masks is None else {name: m[i] for name, m in masks.items()},
                  None if ca_scales is None else ca_scales[i],
-                 None if vkv is None else (vkv[0][i], vkv[1][i]))
+                 None if vkv is None else (vkv[0][i], vkv[1][i]),
+                 None if akv is None else (akv[0][i], akv[1][i]))
         if remat:
-            args = args.replace(x=checkpoint(_block_x, block, args.x, args, stream, cfg.norm_eps, *extra,
-                                             use_reentrant=False))
+            out = checkpoint(_block_x, block, vx, ax, args, audio_args, cfg, *extra, use_reentrant=False)
         else:
-            args = av_block_apply(block, args, stream, cfg.norm_eps, *extra)
-    return _process_output(
-        model.scale_shift_table, cfg.norm_eps, model.proj_out, args.x, args.embedded_timestep
+            out = _block_x(block, vx, ax, args, audio_args, cfg, *extra)
+        vx, ax = out if audio_args is not None else (out, None)
+    velocity = _process_output(
+        model.scale_shift_table, cfg.norm_eps, model.proj_out, vx, args.embedded_timestep
     ).float()
+    if audio_args is None:
+        return velocity
+    return velocity, _process_output(model.audio_scale_shift_table, cfg.norm_eps, model.audio_proj_out, ax,
+                                     audio_args.embedded_timestep).float()
+
+
+def _denoise(modality: Modality, velocity: torch.Tensor) -> torch.Tensor:
+    t = modality.timesteps.float()
+    t = t[:, None, None] if t.ndim == 1 else t[:, :, None]
+    return modality.latent.float() - t * velocity
 
 
 def x0_model_apply(
@@ -321,10 +479,10 @@ def x0_model_apply(
     video: Modality,
     video_pe: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     **kwargs,
-) -> torch.Tensor:
-    """Denoised sample x0 = latent - t * velocity, fp32; kwargs as
-    ltx_model_apply takes them."""
-    velocity = ltx_model_apply(model, video, video_pe, **kwargs)
-    t = video.timesteps.float()
-    t = t[:, None, None] if t.ndim == 1 else t[:, :, None]
-    return video.latent.float() - t * velocity
+):
+    """Denoised sample x0 = latent - t * velocity, fp32 (with `audio`, the
+    (video, audio) pair); kwargs as ltx_model_apply takes them."""
+    out = ltx_model_apply(model, video, video_pe, **kwargs)
+    if kwargs.get("audio") is None:
+        return _denoise(video, out)
+    return _denoise(video, out[0]), _denoise(kwargs["audio"], out[1])

@@ -2,8 +2,9 @@
 image loading and image -> latent-index conditionings, denoise-mask
 post-processing, shape-bucketed serving (a state's token axis padded to a
 bucket and sliced back), Modality construction with per-token timesteps, and the
-video decode the pipelines share (`decode_video`, the counterpart of
-`OneStagePipeline._decode_video` in ltx2_tpu/pipelines/one_stage.py)."""
+video and audio decodes the pipelines share (`decode_video` and
+`decode_audio`, the counterparts of `OneStagePipeline._decode_video` and
+`_decode_audio` in ltx2_tpu/pipelines/one_stage.py)."""
 
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import torch
 from ltx2_tpu_torch.conditioning.item import ConditioningItem
 from ltx2_tpu_torch.conditioning.latent import VideoConditionByLatentIndex
 from ltx2_tpu_torch.conditioning.tools import VideoLatentTools
+from ltx2_tpu_torch.models.audio_vae.decoder import AudioDecoder, audio_decoder_apply
+from ltx2_tpu_torch.models.audio_vae.vocoder import VocoderWithBWE, vocoder_apply, vocoder_with_bwe_apply
 from ltx2_tpu_torch.models.transformer.model import Modality
 from ltx2_tpu_torch.models.video_vae.chunking import _to_uint8_frames, decode_latent
 from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoder, video_decoder_apply
@@ -201,3 +204,14 @@ def decode_video(latent: torch.Tensor, decoder: VideoDecoder, tiling: Optional[T
         return video_decoder_apply(decoder, tile, timestep=timestep, noise=noise)
 
     return _to_uint8_frames(decode_tiled(latent, decode_tile, tiling)).cpu().numpy()
+
+
+@torch.no_grad()
+def decode_audio(latent: torch.Tensor, decoder: Optional[AudioDecoder], vocoder) -> torch.Tensor:
+    """An audio latent (B, C, T, F) -> waveform (B, 2, samples) in fp32 on
+    the latent's device: the audio decoder's log-mel, then the vocoder (or
+    LTX-2.3's BWE chain)."""
+    if decoder is None or vocoder is None:
+        raise ValueError("Audio decoder and vocoder required for audio decoding")
+    mel = audio_decoder_apply(decoder, latent)
+    return vocoder_with_bwe_apply(vocoder, mel) if isinstance(vocoder, VocoderWithBWE) else vocoder_apply(vocoder, mel)

@@ -1,4 +1,5 @@
-"""The video denoise loop (counterpart of ltx2_tpu/pipelines/denoise.py).
+"""The video and the joint audio-video denoise loops (counterpart of
+ltx2_tpu/pipelines/denoise.py).
 
 One DiT forward per step with the guidance passes on the batch axis,
 pass-major: [cond x B, uncond x B (CFG), stg x B (STG)], B clips a pass.
@@ -28,6 +29,14 @@ options of the JAX package's video loop, each computing what it computes:
   out of self-attention's keys and the model's outputs there are zeroed
   before any guider, so every guider's sums equal the unpadded run's.
 
+The joint loop (`make_av_denoise_loop`) runs both streams through one
+forward per step with the same row plan: per-stream guiders (`guider` for
+the video, `audio_guider` for the audio), STG perturbing the video, the
+audio or both streams' self-attention (`stg_mode`; the delta applies only
+to the perturbed streams), APG and the stateful APG per stream, guidance
+reuse with separate video and audio deltas, Heun on both, GE on the video
+stream only, as the JAX loop does.
+
 Not ported: sequence/pipeline parallelism (a mesh raises).
 """
 
@@ -45,7 +54,7 @@ from ltx2_tpu_torch.components.perturbations import (
     BatchedPerturbationConfig, PerturbationConfig, create_stg_perturbation,
 )
 from ltx2_tpu_torch.models.transformer.model import (
-    LTXModel, LTXModelConfig, precompute_text_kv, x0_model_apply,
+    LTXModel, LTXModelConfig, precompute_text_kv, stream_pe, x0_model_apply,
 )
 from ltx2_tpu_torch.ops.rope import precompute_freqs_cis
 from ltx2_tpu_torch.pipelines.common import modality_from_state, post_process_latent
@@ -57,11 +66,12 @@ class DenoiseLoopConfig:
     """Static configuration of a video denoise loop."""
 
     guider: object = CFGGuider(scale=1.0)
+    audio_guider: object = CFGGuider(scale=1.0)  # the joint loop's audio stream
     stg_scale: float = 0.0
     stg_blocks: Optional[Tuple[int, ...]] = None
     stg_cutoff: float = 1.0
     # Which stream(s) the STG row perturbs: "video" | "audio" | "both"; on
-    # this video-only loop "audio" perturbs nothing (the pipeline refuses it).
+    # the video-only loop "audio" perturbs nothing (the pipeline refuses it).
     stg_mode: str = "video"
     ge_gamma: float = 0.0
     sampler: str = "euler"  # "euler" | "heun"
@@ -188,6 +198,36 @@ def _ge_correct(loop_cfg: DenoiseLoopConfig, latent, denoised, sigma, prev_veloc
     return denoised, current_velocity
 
 
+def _check_loop(loop_cfg: DenoiseLoopConfig, mesh, pipeline_axis, stateful: bool) -> bool:
+    """The JAX loops' refusals; returns whether guidance is reused."""
+    if mesh is not None or pipeline_axis is not None:
+        raise NotImplementedError("not ported to the PyTorch denoise loop yet: sequence/pipeline parallelism "
+                                  "(mesh, pipeline_axis)")
+    if loop_cfg.cfg_interval < 1:
+        raise ValueError(f"cfg_interval must be >= 1, got {loop_cfg.cfg_interval}")
+    reuse_cfg = loop_cfg.need_cfg and loop_cfg.cfg_interval > 1
+    if stateful and reuse_cfg:
+        raise ValueError("APG momentum (stateful guidance EMA) does not compose with cfg_interval > 1 — the EMA "
+                         "needs a fresh uncond every step")
+    return reuse_cfg
+
+
+def _guide_corrector(loop_cfg: DenoiseLoopConfig, guider, pos, neg, ema):
+    """Heun's corrector guidance: CFG only; a stateful guider reads the
+    step's EMA without advancing it."""
+    if not loop_cfg.need_cfg:
+        return pos
+    if hasattr(guider, "momentum"):
+        return guider.guide(pos, neg, ema)[0]
+    return guider.guide(pos, neg)
+
+
+def _heun(latent, denoised, predicted, denoised2, sigma, sigma_next):
+    v1 = (latent.float() - denoised) / sigma
+    v2 = (predicted.float() - denoised2) / sigma_next
+    return (latent.float() + 0.5 * (v1 + v2) * (sigma_next - sigma)).to(latent.dtype)
+
+
 def make_video_denoise_loop(
     model_cfg: LTXModelConfig,
     loop_cfg: DenoiseLoopConfig,
@@ -199,18 +239,10 @@ def make_video_denoise_loop(
     Returns fn(model, state, sigmas (S+1,), pos_ctx, neg_ctx, token_mask=None)
     -> final LatentState (still padded when `token_mask` is given). neg_ctx
     is read only when CFG is on."""
-    if mesh is not None or pipeline_axis is not None:
-        raise NotImplementedError("not ported to the PyTorch denoise loop yet: sequence/pipeline parallelism "
-                                  "(mesh, pipeline_axis)")
-    if loop_cfg.cfg_interval < 1:
-        raise ValueError(f"cfg_interval must be >= 1, got {loop_cfg.cfg_interval}")
-    reuse_cfg = loop_cfg.need_cfg and loop_cfg.cfg_interval > 1
     # A StatefulAPGGuider returns (denoised, carry) whatever its momentum, so
     # the carry path is chosen by the attribute, not its value.
     stateful = loop_cfg.need_cfg and hasattr(loop_cfg.guider, "momentum")
-    if stateful and reuse_cfg:
-        raise ValueError("APG momentum (stateful guidance EMA) does not compose with cfg_interval > 1 — the EMA "
-                         "needs a fresh uncond every step")
+    reuse_cfg = _check_loop(loop_cfg, mesh, pipeline_axis, stateful)
     heun = loop_cfg.sampler == "heun"
     stepper = EulerDiffusionStep()
 
@@ -302,16 +334,122 @@ def make_video_denoise_loop(
                     n2 = (p2.float() - carry).to(p2.dtype)
                 else:
                     p2, n2, _ = _split_rows(forward_corr(predicted, sigma_next), batch, loop_cfg.need_cfg, False)
-                if not loop_cfg.need_cfg:
-                    denoised2 = p2
-                elif stateful:
-                    denoised2, _ = guider.guide(p2, n2, carry)  # the EMA is read, not advanced
-                else:
-                    denoised2 = guider.guide(p2, n2)
+                denoised2 = _guide_corrector(loop_cfg, guider, p2, n2, carry if stateful else None)
                 denoised2 = post_process_latent(denoised2, mask, clean)
-                v1 = (latent.float() - denoised) / sigma
-                v2 = (predicted.float() - denoised2) / sigma_next
-                latent = (latent.float() + 0.5 * (v1 + v2) * (sigma_next - sigma)).to(latent.dtype)
+                latent = _heun(latent, denoised, predicted, denoised2, sigma, sigma_next)
         return state.replace(latent=latent)
+
+    return loop
+
+
+def make_av_denoise_loop(
+    model_cfg: LTXModelConfig,
+    loop_cfg: DenoiseLoopConfig,
+    mesh=None,
+    pipeline_axis: Optional[str] = None,
+):
+    """Build the joint audio-video denoise loop (an AudioVideo model).
+
+    Returns fn(model, video_state, audio_state, sigmas (S+1,), pos_v, neg_v,
+    pos_a, neg_a) -> (video LatentState, audio LatentState). The negative
+    contexts are read only when CFG is on."""
+    stateful = loop_cfg.need_cfg and (hasattr(loop_cfg.guider, "momentum")
+                                      or hasattr(loop_cfg.audio_guider, "momentum"))
+    reuse_cfg = _check_loop(loop_cfg, mesh, pipeline_axis, stateful)
+    heun = loop_cfg.sampler == "heun"
+    stepper = EulerDiffusionStep()
+    # The STG delta applies to the streams whose attention the row perturbs.
+    v_stg_on = 1.0 if loop_cfg.stg_mode in ("video", "both") else 0.0
+    a_stg_on = 1.0 if loop_cfg.stg_mode in ("audio", "both") else 0.0
+
+    @torch.no_grad()
+    def loop(model: LTXModel, video_state: LatentState, audio_state: LatentState, sigmas: torch.Tensor,
+             pos_v, neg_v, pos_a, neg_a) -> Tuple[LatentState, LatentState]:
+        batch, device = video_state.latent.shape[0], video_state.latent.device
+        v_mask, v_clean = video_state.denoise_mask, video_state.clean_latent
+        a_mask, a_clean = audio_state.denoise_mask, audio_state.clean_latent
+        ca_scales = _ca_scales(loop_cfg, model_cfg.num_layers, device)
+
+        def build_forward(with_cfg: bool, with_stg: Optional[bool] = None):
+            """One joint forward over a row plan (as the video loop's)."""
+            with_stg = loop_cfg.need_stg if with_stg is None else with_stg
+            r = 1 + int(with_cfg) + int(with_stg)
+            v_ctx = _stack_guidance_ctx(pos_v, neg_v, with_cfg, with_stg)
+            a_ctx = _stack_guidance_ctx(pos_a, neg_a, with_cfg, with_stg)
+            tiled = [(_tile_rows(s.positions, r), _tile_rows(s.denoise_mask, r), _tile_rows(s.clean_latent, r))
+                     for s in (video_state, audio_state)]
+            video_pe = _precompute_video_pe(model_cfg, video_state.positions, r)
+            audio_pe = stream_pe(model, tiled[1][0], audio=True)
+            perturb = _build_perturbations(loop_cfg, r, batch) if with_stg else None
+            text_kv = (precompute_text_kv(model, v_ctx, a_ctx)
+                       if loop_cfg.cache_text_kv and not model_cfg.cross_attention_adaln else None)
+
+            def forward(v_latent: torch.Tensor, a_latent: torch.Tensor, sigma: torch.Tensor):
+                mods = [modality_from_state(
+                    LatentState(latent=_tile_rows(latent, r), denoise_mask=m, positions=pos, clean_latent=c),
+                    ctx, sigma, uniform_timesteps=loop_cfg.uniform_timesteps)
+                    for latent, (pos, m, c), ctx in zip((v_latent, a_latent), tiled, (v_ctx, a_ctx))]
+                return x0_model_apply(model, mods[0], video_pe=video_pe, audio=mods[1], audio_pe=audio_pe,
+                                      perturbations=perturb, ca_scales=ca_scales, text_kv=text_kv)
+
+            return forward
+
+        forward_full = build_forward(loop_cfg.need_cfg)
+        forward_reduced = build_forward(False) if reuse_cfg else None
+        forward_corr = forward_corr_reduced = None
+        if heun:
+            forward_corr = build_forward(loop_cfg.need_cfg, with_stg=False) if loop_cfg.need_stg else forward_full
+            if reuse_cfg:
+                forward_corr_reduced = build_forward(False, with_stg=False) if loop_cfg.need_stg else forward_reduced
+
+        guiders = (loop_cfg.guider, loop_cfg.audio_guider)
+        stg_on = (v_stg_on, a_stg_on)
+        sigmas = sigmas.to(device=device, dtype=torch.float32)
+        sigma_values = sigmas.tolist()
+        num_steps = len(sigma_values) - 1
+        _, stg_flags = _stg_step_flags(num_steps, loop_cfg.stg_cutoff)
+        latents = [video_state.latent, audio_state.latent]
+        prev_velocity = torch.zeros_like(latents[0], dtype=torch.float32)
+        # Per stream: the APG EMA, or the reused guidance delta.
+        carries = [torch.zeros_like(x, dtype=torch.float32) for x in latents]
+        masks, cleans = (v_mask, a_mask), (v_clean, a_clean)
+        for i in range(num_steps):
+            sigma, sigma_next, stg_flag = sigmas[i], sigmas[i + 1], float(stg_flags[i])
+            full = not reuse_cfg or i % loop_cfg.cfg_interval == 0
+            outs = (forward_full if full else forward_reduced)(latents[0], latents[1], sigma)
+            denoised = []
+            for s in range(2):
+                flag = stg_flag * stg_on[s]
+                pos, neg, perturbed = _split_rows(outs[s], batch, loop_cfg.need_cfg and full, loop_cfg.need_stg)
+                if reuse_cfg and full:
+                    carries[s] = pos.float() - neg.float()
+                elif reuse_cfg:
+                    neg = (pos.float() - carries[s]).to(pos.dtype)
+                if stateful:
+                    d, carries[s] = _combine_rows_stateful(loop_cfg, guiders[s], pos, neg, perturbed, flag,
+                                                           carries[s])
+                else:
+                    d = _combine_rows(loop_cfg, guiders[s], pos, neg, perturbed, flag)
+                denoised.append(d)
+            denoised[0], prev_velocity = _ge_correct(loop_cfg, latents[0], denoised[0], sigma, prev_velocity, i)
+            denoised = [post_process_latent(d, masks[s], cleans[s]) for s, d in enumerate(denoised)]
+
+            if not heun:
+                latents = [stepper.step(x, d, sigma, sigma_next) for x, d in zip(latents, denoised)]
+            elif sigma_values[i + 1] == 0:
+                latents = [d.to(x.dtype) for x, d in zip(latents, denoised)]  # the last step: the denoised samples
+            else:
+                predicted = [stepper.step(x, d, sigma, sigma_next) for x, d in zip(latents, denoised)]
+                corr = (forward_corr_reduced if reuse_cfg else forward_corr)(predicted[0], predicted[1], sigma_next)
+                new = []
+                for s in range(2):
+                    p2, n2, _ = _split_rows(corr[s], batch, loop_cfg.need_cfg and not reuse_cfg, False)
+                    if reuse_cfg:
+                        n2 = (p2.float() - carries[s]).to(p2.dtype)
+                    d2 = _guide_corrector(loop_cfg, guiders[s], p2, n2, carries[s] if stateful else None)
+                    d2 = post_process_latent(d2, masks[s], cleans[s])
+                    new.append(_heun(latents[s], denoised[s], predicted[s], d2, sigma, sigma_next))
+                latents = new
+        return video_state.replace(latent=latents[0]), audio_state.replace(latent=latents[1])
 
     return loop

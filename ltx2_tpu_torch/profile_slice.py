@@ -4,6 +4,7 @@ goes on one GPU.
     python -m ltx2_tpu_torch.profile_slice [--layers 48]
     python -m ltx2_tpu_torch.profile_slice --train [--layers 48]
     python -m ltx2_tpu_torch.profile_slice --one-stage-options [--layers 48]
+    python -m ltx2_tpu_torch.profile_slice --audio [--layers 48]
 
 Traces, with torch.profiler, one text encode of the two-stage recipe's
 `--text-encoder` flow (the full-width fp32 Gemma-3-12B and V1 encoder on one
@@ -33,7 +34,12 @@ cross-attention scale from block 40; cached text K/V; a 512-token bucket:
 guidance reuse every second step (uniform timesteps) over two steps and
 over one: the second step is a reduced one (the cond row alone), and its
 device time by class is the difference. Each traced loop call includes
-its once-per-clip RoPE tables (and text K/V). Prints one JSON line per phase: device time
+its once-per-clip RoPE tables (and text K/V). With --audio it traces
+instead one step of the distilled loop over the video-only DiT and over
+the audio-video DiT (both kept in fp8, 6144 video tokens; the AV step also
+the 126 audio tokens of 121 frames at 24 fps), and one audio decode (the
+published audio decoder and the 1024-channel vocoder, fp32) of that audio
+latent. Prints one JSON line per phase: device time
 by kernel class (the flash-attention forward and backward kernels, the
 implicit-GEMM conv kernels with the fp32 one's split-K sum, matrix
 products, library convolutions, the rest), the top kernels, the host wall
@@ -56,15 +62,19 @@ from ltx2_tpu_torch.components.guiders import CFGStarRescalingGuider, LtxAPGGuid
 from ltx2_tpu_torch.components.schedulers import LTX2Scheduler
 from ltx2_tpu_torch.conditioning.latent import VideoConditionByLatentIndex
 from ltx2_tpu_torch.generate import (
-    decode_chunked, distilled_sigmas, dummy_context, make_decoder, make_dit, make_distilled_loop, make_encoder,
-    make_gemma, make_latent_tools, make_request, make_text_encoder, make_upscaler, prompt_tokens,
+    av_config, decode_chunked, distilled_sigmas, dummy_context, make_audio_decoder, make_decoder, make_dit,
+    make_distilled_loop, make_encoder, make_gemma, make_latent_tools, make_request, make_text_encoder, make_upscaler,
+    make_vocoder, prompt_tokens,
 )
+from ltx2_tpu_torch.pipelines.common import decode_audio
+from ltx2_tpu_torch.pipelines.distilled import AudioFields
+from ltx2_tpu_torch.types import VideoPixelShape
 from ltx2_tpu_torch.models.text_encoder import gemma3_apply, video_text_encoder_apply
 from ltx2_tpu_torch.models.upscaler.spatial import spatial_upscaler_apply
 from ltx2_tpu_torch.models.video_vae.decoder import video_decoder_apply
 from ltx2_tpu_torch.models.video_vae.encoder import video_encoder_apply
 from ltx2_tpu_torch.pipelines.common import bucketed_tokens, pad_state_tokens
-from ltx2_tpu_torch.pipelines.denoise import DenoiseLoopConfig, make_video_denoise_loop
+from ltx2_tpu_torch.pipelines.denoise import DenoiseLoopConfig, make_av_denoise_loop, make_video_denoise_loop
 from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, generate_tile_specs
 
 
@@ -174,6 +184,55 @@ def denoise_step(dit, height: int, width: int, phase: str, device: torch.device,
            "weight_gb": weight_bytes(dit) / 1e9, "card": card, **step}
     print(json.dumps(rec), flush=True)
     return tools, rec
+
+
+def av_denoise_step(dit, height: int, width: int, phase: str, device: torch.device, card: str):
+    """One traced step of the distilled joint loop of an audio-video DiT at
+    height x width x 121f (the audio latent of 121 frames at 24 fps),
+    printed; returns (the audio latent it made, the step's record)."""
+    tools = make_latent_tools(dit.cfg, height, width, 121)
+    state, context = make_request(dit.cfg, tools, 0, device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    audio_tools = AudioFields().audio_tools(VideoPixelShape(1, 121, height, width, 24.0))
+    audio_state = audio_tools.create_initial_state(dtype=dit.cfg.dtype, device=device)
+    audio_state = audio_state.replace(latent=torch.randn(audio_state.latent.shape, generator=gen, device=device)
+                                      .to(dit.cfg.dtype))
+    audio_context = dummy_context(dit.cfg, gen, device, audio=True)
+    loop = make_av_denoise_loop(dit.cfg, DenoiseLoopConfig(uniform_timesteps=True))
+    sigmas = distilled_sigmas(1)
+    out = {}
+
+    def run():
+        out["audio"] = loop(dit, state, audio_state, sigmas, context, context, audio_context, audio_context)[1]
+
+    step = _traced(run, device)
+    rec = {"phase": phase, "layers": dit.cfg.num_layers, "tokens": tools.target_shape.tokens,
+           "audio_tokens": audio_tools.target_shape.frames, "weight_gb": weight_bytes(dit) / 1e9, "card": card,
+           **step}
+    print(json.dumps(rec), flush=True)
+    return audio_tools.unpatchify(out["audio"]).latent, rec
+
+
+def audio_decode(audio_latent: torch.Tensor, device: torch.device, card: str) -> dict:
+    """One traced audio decode (the published audio decoder and vocoder,
+    fp32, random weights) of `audio_latent`, printed and returned."""
+    decoder, vocoder = make_audio_decoder(device), make_vocoder(device)
+    rec = {"phase": "audio_decode", "latent_shape": list(audio_latent.shape), "card": card,
+           **_traced(lambda: decode_audio(audio_latent, decoder, vocoder), device)}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def _audio(layers: int, device: torch.device, card: str) -> None:
+    dit = make_dit(layers, device, fp8=True)
+    denoise_step(dit, 512, 768, "denoise_step", device, card)
+    del dit
+    torch.cuda.empty_cache()
+    dit = make_dit(layers, device, base=av_config(), fp8=True)
+    audio_latent, _ = av_denoise_step(dit, 512, 768, "av_denoise_step", device, card)
+    del dit
+    torch.cuda.empty_cache()
+    audio_decode(audio_latent, device, card)
 
 
 def one_stage_step(dit, image: bool, phase: str, device: torch.device, card: str) -> dict:
@@ -297,6 +356,8 @@ def main(argv=None) -> None:
     ap.add_argument("--train", action="store_true", help="trace a LoRA train step instead of the serving path")
     ap.add_argument("--one-stage-options", action="store_true",
                     help="trace the one-stage loop options' steps instead of the serving path")
+    ap.add_argument("--audio", action="store_true",
+                    help="trace the audio-video step beside the video-only one, and an audio decode")
     args = ap.parse_args(argv)
     device = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -308,6 +369,10 @@ def main(argv=None) -> None:
     if args.one_stage_options:
         with torch.no_grad():
             one_stage_options_steps(make_dit(args.layers, device), device, card)
+        return
+    if args.audio:
+        with torch.no_grad():
+            _audio(args.layers, device, card)
         return
     with torch.no_grad():
         _serving(args.layers, device, card)

@@ -68,6 +68,42 @@ class VideoLatentShape(NamedTuple):
         return self.frames * self.height * self.width
 
 
+class AudioLatentShape(NamedTuple):
+    """Audio VAE latent shape (batch, channels, frames, mel_bins)."""
+
+    batch: int
+    channels: int
+    frames: int
+    mel_bins: int
+
+    def to_tuple(self) -> Tuple[int, int, int, int]:
+        return tuple(self)
+
+    def mask_shape(self) -> "AudioLatentShape":
+        return self._replace(channels=1, mel_bins=1)
+
+    @staticmethod
+    def from_duration(batch: int, duration: float, channels: int = 8, mel_bins: int = 16,
+                      sample_rate: int = 16000, hop_length: int = 160,
+                      audio_latent_downsample_factor: int = 4) -> "AudioLatentShape":
+        """round(duration x latents per second) frames; 25 a second at the
+        defaults (16 kHz, hop 160, downsampled 4x)."""
+        latents_per_second = float(sample_rate) / float(hop_length) / float(audio_latent_downsample_factor)
+        return AudioLatentShape(batch=batch, channels=channels, frames=round(duration * latents_per_second),
+                                mel_bins=mel_bins)
+
+    @staticmethod
+    def from_video_pixel_shape(shape: VideoPixelShape, channels: int = 8, mel_bins: int = 16,
+                               sample_rate: int = 16000, hop_length: int = 160,
+                               audio_latent_downsample_factor: int = 4) -> "AudioLatentShape":
+        """The audio latent of a clip's duration, frames / fps (121 frames at
+        24 fps: 126 latent frames)."""
+        return AudioLatentShape.from_duration(
+            batch=shape.batch, duration=float(shape.frames) / float(shape.fps), channels=channels,
+            mel_bins=mel_bins, sample_rate=sample_rate, hop_length=hop_length,
+            audio_latent_downsample_factor=audio_latent_downsample_factor)
+
+
 @dataclasses.dataclass(frozen=True)
 class LatentState:
     """Token-space diffusion state.

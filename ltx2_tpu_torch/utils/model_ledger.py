@@ -2,15 +2,18 @@
 ltx2_tpu/utils/model_ledger.py).
 
 One object loads and caches the transformer, the video encoder and
-decoder, the text encoder, Gemma and the spatial upscaler from a unified checkpoint (and the
+decoder, the audio decoder and the vocoder, the text encoder, Gemma and the
+spatial upscaler from a unified checkpoint (and the
 Gemma shards and upscaler file beside it), with LoRAs fused into the
 transformer at load, per-component release and a `with_loras` view. Each
 component is the port's module, on `device`, with its config on it. The
 architectures are read off the files (their shapes and metadata), where the
 JAX package assumes the published widths. A V2 (LTX-2.3) checkpoint gives
-the video-only V2 DiT (cross-attention AdaLN, gated attention, no caption
-projection) and the V2 text encoder, as the JAX ledger builds them with
-`include_audio=False`. Unported components raise NotImplementedError naming
+the V2 DiT (cross-attention AdaLN, gated attention, no caption projection)
+and the V2 text encoder; `include_audio` gives the audio-video DiT, and the
+vocoder is LTX-2.3's BWE chain when the metadata's `vocoder` config has a
+`bwe` entry, as the JAX ledger chooses. Unported components (the audio
+encoder, int8, the temporal upscaler) raise NotImplementedError naming
 their ROADMAP.md items.
 """
 
@@ -22,7 +25,7 @@ from typing import Dict, List, Optional
 from ltx2_tpu_torch.core import resolve_device
 from ltx2_tpu_torch.loader.lora import LoRAConfig, fuse_lora_into_params
 from ltx2_tpu_torch.loader.weight_loader import (
-    AUDIO_NOT_PORTED, INT8_NOT_PORTED, is_v2_model, load_transformer_params, read_checkpoint_config,
+    INT8_NOT_PORTED, is_v2_model, load_transformer_params, read_checkpoint_config,
 )
 
 
@@ -45,8 +48,6 @@ class ModelLedger:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        if self.include_audio:
-            raise NotImplementedError(AUDIO_NOT_PORTED)
         if self.int8:
             raise NotImplementedError(INT8_NOT_PORTED)
 
@@ -64,15 +65,16 @@ class ModelLedger:
         return read_checkpoint_config(self.checkpoint_path)
 
     def transformer(self, force_reload: bool = False):
-        """The video DiT (V1: caption projection; V2: cross-attention AdaLN
-        and gated attention, no caption projection; SPLIT RoPE on the f32
-        grid, no remat) in `target_dtype`, LoRAs fused at load. LoRAs need
-        dequantized weights, so with LoRAs the fp8 weights are dequantized
-        even under `keep_fp8`."""
+        """The DiT, audio-video with `include_audio` (V1: caption
+        projections; V2: cross-attention AdaLN and gated attention, no
+        caption projection; SPLIT RoPE on the f32 grid, no remat) in
+        `target_dtype`, LoRAs fused at load. LoRAs need dequantized weights,
+        so with LoRAs the fp8 weights are dequantized even under `keep_fp8`."""
 
         def load():
             model = load_transformer_params(self.checkpoint_path, target_dtype=self.target_dtype,
-                                            device=self.device, keep_fp8=self.keep_fp8 and not self.loras)
+                                            device=self.device, keep_fp8=self.keep_fp8 and not self.loras,
+                                            include_audio=self.include_audio)
             if self.loras:
                 fuse_lora_into_params(model, self.loras)
             return model
@@ -140,13 +142,29 @@ class ModelLedger:
         return self._get("video_encoder", load, force_reload)
 
     def audio_encoder(self, force_reload: bool = False):
-        raise NotImplementedError(AUDIO_NOT_PORTED)
+        raise NotImplementedError("the audio encoder is not ported yet (a2vid): ROADMAP.md §1 item 4")
 
     def audio_decoder(self, force_reload: bool = False):
-        raise NotImplementedError(AUDIO_NOT_PORTED)
+        """The audio VAE decoder, fp32, or None when the file has none."""
+
+        def load():
+            from ltx2_tpu_torch.models.audio_vae.weights import load_audio_decoder_params
+
+            return load_audio_decoder_params(self.checkpoint_path, device=self.device)
+
+        return self._get("audio_decoder", load, force_reload)
 
     def vocoder(self, force_reload: bool = False):
-        raise NotImplementedError(AUDIO_NOT_PORTED)
+        """The vocoder, fp32 (LTX-2.3's BWE chain when the metadata declares
+        one; its `cfg.output_sample_rate` is the waveform's rate), or None
+        when the file has none."""
+
+        def load():
+            from ltx2_tpu_torch.models.audio_vae.weights import load_vocoder_params
+
+            return load_vocoder_params(self.checkpoint_path, device=self.device)
+
+        return self._get("vocoder", load, force_reload)
 
     def temporal_upscaler(self, force_reload: bool = False):
         raise NotImplementedError("the temporal upscaler is not ported yet: ROADMAP.md §1 item 5")

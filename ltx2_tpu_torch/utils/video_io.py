@@ -3,10 +3,12 @@ ltx2_tpu/utils/video_io.py).
 
 `write_y4m` writes lossless YUV4MPEG2 (C444, 8-bit, progressive), the
 interchange format ffmpeg, x264 and mpv read, byte for byte as the JAX
-package's `write_y4m` writes it; `save_video` is the JAX CLI's `save_video`
-(scripts/generate.py:969-1045) for video without audio: `.y4m` through
-`write_y4m`, every other container through `ffmpeg` (H.264, with
-minterpolate to `output_fps`). The JAX package's MJPEG AVI/MP4 writers take
+package's `write_y4m` writes it; `write_wav` writes 16-bit PCM as the JAX
+CLI's `_write_wav` does (clipped to +-1, x 32767, truncated), byte for byte;
+`save_video` is the JAX CLI's `save_video` (scripts/generate.py:969-1045):
+`.y4m` through `write_y4m` with the audio, when there is some, in a `.wav`
+beside it, every other container through `ffmpeg` (H.264, with
+minterpolate to `output_fps`, the audio muxed as AAC). The JAX package's MJPEG AVI/MP4 writers take
 their JPEG encoder from PIL, which the port does not import, so `.avi` and
 `.mov` (and any container when `ffmpeg` is not on PATH) are refused by
 `check_output`, which the CLI runs before it builds any model.
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import os
 import shutil
+import wave
 import subprocess
 import tempfile
 from fractions import Fraction
@@ -64,6 +67,18 @@ def write_y4m(path: str, frames_u8: np.ndarray, fps: float) -> None:
                 fh.write(plane[i].tobytes())
 
 
+def write_wav(path: str, audio: np.ndarray, sample_rate: int) -> None:
+    """(channels, samples) float audio -> 16-bit PCM WAV: clipped to +-1,
+    times 32767, truncated toward zero."""
+    audio = np.clip(np.asarray(audio, np.float32), -1, 1)
+    pcm = (audio.T * 32767).astype(np.int16)
+    with wave.open(path, "w") as wf:
+        wf.setnchannels(audio.shape[0])
+        wf.setsampwidth(2)
+        wf.setframerate(sample_rate)
+        wf.writeframes(pcm.tobytes())
+
+
 def _suffix(path: str) -> str:
     return path.rsplit(".", 1)[-1].lower() if "." in os.path.basename(path) else ""
 
@@ -80,18 +95,25 @@ def check_output(path: str) -> None:
 
 
 def save_video(frames: np.ndarray, output: str, fps: float, output_fps: Optional[float] = None,
-               speed: float = 1.0) -> None:
-    """The JAX CLI's `save_video` for video: `speed` scales the container
-    rate (and `output_fps`); `.y4m` through `write_y4m`, any other container
-    through ffmpeg's H.264 (CRF 18, yuv420p), with minterpolate up to
-    `output_fps` when it is above the rate."""
+               speed: float = 1.0, audio: Optional[np.ndarray] = None, audio_sample_rate: int = 24000) -> None:
+    """The JAX CLI's `save_video`: `speed` scales the container rate (and
+    `output_fps`); `.y4m` through `write_y4m`, and the (channels, samples)
+    or (1, channels, samples) `audio` at `audio_sample_rate` into
+    `<base>.wav` beside it; any other container through ffmpeg's H.264
+    (CRF 18, yuv420p), with minterpolate up to `output_fps` when it is above
+    the rate, and the audio as AAC (`-shortest`)."""
     check_output(output)
     if speed != 1.0:
         fps = fps * speed
         if output_fps:
             output_fps = output_fps * speed
+    if audio is not None:
+        audio = np.asarray(audio, np.float32)
+        audio = audio[0] if audio.ndim == 3 else audio
     if _suffix(output) == "y4m":
         write_y4m(output, frames, fps)
+        if audio is not None:
+            write_wav(output.rsplit(".", 1)[0] + ".wav", audio, audio_sample_rate)
         return
     h, w = frames.shape[1:3]
     with tempfile.TemporaryDirectory() as td:
@@ -100,7 +122,13 @@ def save_video(frames: np.ndarray, output: str, fps: float, output_fps: Optional
             f.write(np.ascontiguousarray(frames).tobytes())
         cmd = ["ffmpeg", "-y", "-v", "error", "-f", "rawvideo", "-pix_fmt", "rgb24", "-s", f"{w}x{h}",
                "-r", str(fps), "-i", raw_path]
+        if audio is not None:
+            audio_path = os.path.join(td, "audio.wav")
+            write_wav(audio_path, audio, audio_sample_rate)
+            cmd += ["-i", audio_path]
         if output_fps and output_fps > fps:
             cmd += ["-vf", f"minterpolate=fps={output_fps}:mi_mode=mci:mc_mode=aobmc:vsbmc=1"]
-        cmd += ["-c:v", "libx264", "-pix_fmt", "yuv420p", "-crf", "18", output]
-        subprocess.run(cmd, check=True)
+        cmd += ["-c:v", "libx264", "-pix_fmt", "yuv420p", "-crf", "18"]
+        if audio is not None:
+            cmd += ["-c:a", "aac", "-shortest"]
+        subprocess.run(cmd + [output], check=True)

@@ -206,8 +206,18 @@ def test_text_encoder_loader_matches_jax(files, tmp_path, generic):
     assert cfg == dataclasses.replace(TECFG, connector=cfg.connector) and cfg.connector.num_learnable_registers == 8
     port = encoder.load_text_encoder_params(path, cfg, device="cpu")
     assert_module_matches_tree(port, jencoder.load_text_encoder_params(path, JTECFG), stacked="")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        encoder.load_text_encoder_params(path, device="cpu", include_audio=True)
+    assert not hasattr(port, "audio_embeddings_connector")
+    # An audio-video V1 file: the audio connector beside the video one, of its shape.
+    f = SafetensorsFile(path)
+    av = str(tmp_path / "av.safetensors")
+    audio = {k.replace("video_embeddings_connector", "audio_embeddings_connector")
+             .replace(".embeddings_connector", ".audio_embeddings_connector"): f.get(k).numpy() * 0.5
+             for k in f.keys() if "embeddings_connector" in k}
+    jst.write_safetensors(av, {**{k: f.get(k).numpy() for k in f.keys()}, **audio}, metadata=METADATA)
+    av_cfg = encoder.text_encoder_config_from_checkpoint(av)
+    assert av_cfg.audio_connector == av_cfg.connector
+    assert_module_matches_tree(encoder.load_text_encoder_params(av, av_cfg, device="cpu"),
+                               jencoder.load_text_encoder_params(av, JTECFG), stacked="")
 
 
 # ---- the ledger ----------------------------------------------------------------
@@ -250,12 +260,14 @@ def test_ledger(files, tmp_path):
         assert diff.max() <= 2.0 ** -7 * np.abs(np.asarray(ref, np.float32)).max(), name
         assert (diff > 0).float().mean() < 0.01, name
     ledger.clear_all_models()
-    for refused in (ledger.audio_encoder, ledger.audio_decoder, ledger.vocoder, ledger.temporal_upscaler):
+    for refused in (ledger.audio_encoder, ledger.temporal_upscaler):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             refused()
-    for kw in ({"int8": True}, {"include_audio": True}):
-        with pytest.raises(NotImplementedError, match="item"):
-            ModelLedger(files["f32"], device="cpu", **kw)
+    assert ledger.audio_decoder() is None and ledger.vocoder() is None  # a file without audio, as in JAX
+    with pytest.raises(NotImplementedError, match="item"):
+        ModelLedger(files["f32"], device="cpu", int8=True)
+    with pytest.raises(ValueError, match="no audio stream"):
+        ModelLedger(files["f32"], device="cpu", include_audio=True).transformer()
     with pytest.raises(ValueError, match="gemma_path"):
         ModelLedger(files["f32"], device="cpu").gemma()
     assert ModelLedger(files["f32"], device="cpu").spatial_upscaler() is None

@@ -155,8 +155,12 @@ def test_distilled_pipeline_latent_matches_jax(recipe, decoder_tree):
         DistilledConfig(height=96, width=64)
     with pytest.raises(ValueError, match="video encoder required"):
         pipe(t(recipe["context"]), config, images=[ImageCondition(recipe["image"], 0)])
+    # A video-only DiT makes no audio, as in the JAX package; freeze_audio is not ported.
+    assert pipe(t(recipe["context"]), DistilledConfig(height=HEIGHT, width=WIDTH, num_frames=FRAMES, seed=SEED,
+                                                      latent_channels=16, audio_enabled=True),
+                skip_decode=True, noises=recipe["noises"])[1] is None
     with pytest.raises(NotImplementedError):
-        DistilledConfig(audio_enabled=True)
+        pipe(t(recipe["context"]), config, freeze_audio=True)
 
 
 def test_generate_distilled_matches_jax_within_one_level(recipe, decoder_tree):

@@ -361,3 +361,57 @@ def test_v2_forward_through_the_kernels_matches_plain_on_gpu(monkeypatch):
         ref = x0_model_apply(dit, video)
     assert torch.isfinite(out).all()
     assert (out - ref).abs().max() <= 2e-2 * ref.abs().max()
+
+
+@pytest.mark.gpu
+def test_audio_decoder_and_vocoders_match_cpu_on_gpu():
+    _need_card()
+    from ltx2_tpu_torch.models.audio_vae.card_check import audio_against_cpu
+
+    rec = audio_against_cpu()
+    assert rec["ok"], rec
+
+
+@pytest.mark.gpu
+def test_av_forward_through_the_kernels_matches_plain_on_gpu(monkeypatch):
+    """Two full-width audio-video blocks in bf16 (32 x 128 video, 32 x 64
+    audio heads; random AdaLN and cross-modal tables) at 384 video and 26
+    audio tokens: both x0 outputs through the flash kernel (6 launches a
+    block: 4 at head dim 64) against the same forward on the plain
+    attention, within 2e-2 of max|x0|."""
+    _need_card()
+    from ltx2_tpu_torch.generate import av_config, make_dit, make_latent_tools, make_request
+    from ltx2_tpu_torch.models.transformer.model import x0_model_apply
+    from ltx2_tpu_torch.pipelines.common import modality_from_state
+    from ltx2_tpu_torch.pipelines.distilled import AudioFields
+    from ltx2_tpu_torch.types import VideoPixelShape
+
+    dev = torch.device("cuda")
+    dit = make_dit(2, dev, seed=5, base=av_config())
+    gen = torch.Generator(device=dev).manual_seed(6)
+    with torch.no_grad():
+        for name, p in dit.named_parameters():
+            if "scale_shift_table" in name:
+                p.normal_(generator=gen).mul_(0.3)
+    tools = make_latent_tools(dit.cfg, 256, 384, 25)
+    state, context = make_request(dit.cfg, tools, 1, dev)
+    audio_tools = AudioFields().audio_tools(VideoPixelShape(1, 25, 256, 384, 24.0))
+    audio_state = audio_tools.create_initial_state(device=dev)
+    audio_state = audio_state.replace(latent=torch.randn(audio_state.latent.shape, generator=gen, device=dev))
+    audio_context = torch.randn(1, 64, dit.cfg.audio_inner_dim, generator=gen, device=dev) * 0.5
+    sigma = torch.tensor([0.7], device=dev)
+    video = modality_from_state(state, context, sigma, uniform_timesteps=True)
+    audio = modality_from_state(audio_state, audio_context, sigma, uniform_timesteps=True)
+    before = dict(attention.flash_attention.launches_by_head_dim)
+    with torch.no_grad():
+        out = x0_model_apply(dit, video, audio=audio)
+    launched = {d: n - before.get(d, 0) for d, n in attention.flash_attention.launches_by_head_dim.items()}
+    assert launched == {64: 8, 128: 4}
+    plain = attention.flash_attention_plain
+    monkeypatch.setattr(attention, "flash_attention",
+                        lambda q, k, v, scale=None, kv_valid=None: plain(q, k, v, scale, kv_valid))
+    with torch.no_grad():
+        ref = x0_model_apply(dit, video, audio=audio)
+    for got, want in zip(out, ref):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() <= 2e-2 * want.abs().max()

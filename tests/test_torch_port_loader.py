@@ -220,7 +220,7 @@ def test_loader_refusals(files, tmp_path):
         weight_loader.load_transformer_params(v2, device="cpu")
     with pytest.raises(NotImplementedError, match="item 5"):
         weight_loader.load_transformer_params(files["f32"], quantize_int8=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="no audio stream"):  # a video-only file
         weight_loader.load_transformer_params(files["f32"], include_audio=True, device="cpu")
     f = jst.SafetensorsFile(files["fp8"])
     ckpt = {k: np.asarray(f.get(k)) for k in f.keys()}

@@ -60,6 +60,7 @@ from ltx2_tpu_torch.components.patchifiers import VideoLatentPatchifier
 from ltx2_tpu_torch.conditioning.latent import VideoConditionByLatentIndex
 from ltx2_tpu_torch.conditioning.tools import VideoLatentTools
 from ltx2_tpu_torch.loader.from_numpy import dit_from_numpy, video_decoder_from_numpy, video_encoder_from_numpy
+from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelType
 from ltx2_tpu_torch.models.video_vae import encoder
 from ltx2_tpu_torch.models.video_vae import weights as vae_weights
 from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoder, VideoDecoderConfig
@@ -207,12 +208,14 @@ def test_text_to_video_matches_jax(weights):
 
 # option -> (a word its message must name, the call that must refuse it)
 UNPORTED = {
-    "audio": ("audio", lambda p, c, x: OneStageCFGConfig(audio_enabled=True)),
+    "audio_only_model": ("audio-only", lambda p, c, x: LTXModel(dataclasses.replace(
+        p.transformer.cfg, model_type=LTXModelType.AudioOnly), device="meta")),
     "temporal_upscaler": ("temporal upscaler", lambda p, c, x: p(x, x, c, temporal_upscaler=lambda z: z)),
-    "audio_encoding": ("audio_encoding", lambda p, c, x: p(x, x, c, positive_audio_encoding=x)),
+    "initial_audio_latent": ("initial audio latent", lambda p, c, x: DistilledPipeline(p.transformer)(
+        x, DistilledConfig(), initial_audio_latent=x)),
     "meshes": ("meshes", lambda p, c, x: OneStagePipeline(p.transformer, sequence_mesh=object())),
-    "distilled_audio": ("audio", lambda p, c, x: DistilledPipeline(p.transformer)(x, DistilledConfig(),
-                                                                                  audio_encoding=x)),
+    "distilled_freeze_audio": ("freeze_audio", lambda p, c, x: DistilledPipeline(p.transformer)(
+        x, DistilledConfig(), freeze_audio=True)),
 }
 
 
