@@ -25,7 +25,10 @@ card and nvcc; it exits non-zero without them, and without the package
    DiT's head-dim-64 attentions: the 126 audio tokens' self-attention, their
    text cross-attention (1024 keys, with and without a key mask), audio ->
    video (6144 and 1536 queries x 126 keys) and video -> audio (126 queries
-   x 6144 and 1536 keys), within limits
+   x 6144 and 1536 keys), and the two-stage CFG pipeline's stage-1 shapes
+   at batch 3 (the multi-modal guider's cond, uncond and modality rows):
+   video self (1536 tokens) and text (1024 keys) at head dim 128, audio
+   self (126), audio text, audio -> video and video -> audio at 64, within limits
    relative to the plain output that two planted faults must fail (and on
    a masked case a third: the kernel run with its mask dropped); with the
    valid keys the bound counts, the wrapper's and the kernel's own device
@@ -126,7 +129,27 @@ card and nvcc; it exits non-zero without them, and without the package
    phase's seconds and peaks (the audio decode beside the video decode),
    6 flash launches an AV block a step (4 at head dim 64, 2 at 128), then
    one traced AV step at 6144 tokens beside phase 5's video-only fp8 step,
-   one at stage 1's 1536 tokens, and one traced audio decode; (d) 2-layer full-width AV files for V1 and
+   one at stage 1's 1536 tokens, audio-to-video on the same DiT
+   (`generate_videos_a2vid`: a 16-bit stereo .wav written at 44.1 kHz, the
+   published audio encoder with random weights written to a file and read
+   through `ModelLedger.audio_encoder`; 2 requests, each a .y4m and a
+   16 kHz .wav of the loader's samples; the audio latent bit for bit frozen
+   after each stage; 6 flash launches an AV block a step and 19 + 270 convs
+   a clip), and one traced audio decode; before (c), the two-stage CFG
+   pipeline and a2vid at the small size of (b) through the kernels against
+   their plain versions (two-stage with a rank-8 LoRA; its guided latents
+   held to 5x the rms limit); (e) after (d), the two-stage CFG pipeline at
+   full width and depth (the random V1 AV DiT in bf16, 512x768x121, 2
+   requests: stage 1 at 256x384 over 8 steps, cut from 30, under CFG 3.0,
+   audio CFG 7.0, modality 3.0 and rescale 0.7, three rows at batch 3; a
+   random rank-384 distilled LoRA on every block linear written to a file,
+   fused for stage 2 and unfused; the tiled decode and the audio decode):
+   each phase's seconds and peaks, 3168 flash launches a clip (2112 at
+   head dim 64, 2304 at batch 3) and 19 + 270 convs, the .y4m and 24 kHz
+   .wav, and after the first request's unfuse every fused weight within one
+   bf16 rounding step of its original (drawn again from the DiT's seed);
+   then one traced
+   3-row stage-1 step beside the 1-row AV step at 1536 tokens; (d) 2-layer full-width AV files for V1 and
    for V2 (`vocoder.bwe` metadata), each with the published audio decoder
    and its vocoder: the V1 file through `ModelLedger(include_audio=True,
    keep_fp8=True)` (the kept fp8 codes bit for bit), and `generate.main
@@ -503,10 +526,20 @@ def phase_kernels():
         _check_case("a2v_s1", 1, 32, 1536, 126, 64, None, gen),
         _check_case("v2a_s2", 1, 32, 126, 6144, 64, None, gen),
         _check_case("v2a_s1", 1, 32, 126, 1536, 64, None, gen),
+        # The two-stage CFG pipeline's stage 1: the multi-modal guider's
+        # three rows (cond, uncond, modality-isolated) at batch 3 over 1536
+        # video and 126 audio tokens, at both head dims.
+        _check_case("mm_video_self_b3", 3, 32, 1536, 1536, 128, None, gen),
+        _check_case("mm_video_text_b3", 3, 32, 1536, 1024, 128, None, gen),
+        _check_case("mm_audio_self_b3", 3, 32, 126, 126, 64, None, gen),
+        _check_case("mm_audio_text_b3", 3, 32, 126, 1024, 64, None, gen),
+        _check_case("mm_a2v_b3", 3, 32, 1536, 126, 64, None, gen),
+        _check_case("mm_v2a_b3", 3, 32, 126, 1536, 64, None, gen),
     ]
     flash_attention.launches = before  # comparison launches are not the main path's
     flash_attention.key_valid_launches = before_key_valid
     flash_attention.launches_by_head_dim = {}
+    flash_attention.launches_by_batch = {}
     return recs
 
 
@@ -1858,9 +1891,9 @@ def phase_av_two_stage(smi: str) -> tuple:
     beside the video decode, the published audio decoder and vocoder),
     flash launches by head dim against 6 an AV block a step, the .wav
     headers. Then one traced AV step at 6144 tokens (profile_slice) beside
-    phase 5's video-only fp8 step, one at stage 1's 1536, and one traced
-    audio decode.
-    Returns (the record, the launches)."""
+    phase 5's video-only fp8 step, one at stage 1's 1536, audio-to-video on
+    the same DiT (`phase_a2vid`) and one traced audio decode.
+    Returns (the record, the launches, a2vid's record, a2vid's launches)."""
     import os
     import shutil
     import tempfile
@@ -1905,6 +1938,8 @@ def phase_av_two_stage(smi: str) -> tuple:
     with torch.no_grad():
         audio_latent, step = av_denoise_step(dit, HEIGHT, WIDTH, "av_denoise_step", dev, card)
         stage1_step = av_denoise_step(dit, HEIGHT // 2, WIDTH // 2, "av_stage1_step", dev, card)[1]
+    torch.cuda.empty_cache()
+    a2vid, a2vid_counts = phase_a2vid(smi, dit)
     del dit
     torch.cuda.empty_cache()
     with torch.no_grad():
@@ -1941,7 +1976,7 @@ def phase_av_two_stage(smi: str) -> tuple:
     if not distinct:
         raise AssertionError("the two AV requests produced identical audio")
     return rec, {"fwd": counts["fwd"], "fwd_by_head_dim": by_dim, "conv_fp32": upscale * len(SEEDS),
-                 "conv_bf16": counts["conv"] - upscale * len(SEEDS)}
+                 "conv_bf16": counts["conv"] - upscale * len(SEEDS)}, a2vid, a2vid_counts
 
 
 def phase_audio_decode_check(smi: str) -> dict:
@@ -2045,6 +2080,525 @@ def phase_av_small(smi: str) -> dict:
     if other["frames"]["mean_levels"] <= TOL_SMALL_MEAN_LEVELS or other["audio_latent"]["rms_rel_err"] <= \
             TOL_SMALL_LATENT_RMS_REL:
         raise AssertionError(f"the AV small check accepts another seed's clip: {other}")
+    return rec
+
+
+# The two-stage CFG pipeline and audio-to-video: stage 1
+# of two-stage runs the multi-modal loop's three rows (cond, uncond,
+# modality-isolated) at batch 3 over 8 steps (30 in the reference's
+# configuration: a cut); stage 2 the distilled 3-sigma tail at batch 1;
+# a2vid is the distilled recipe (8 + 3 steps at batch 1) with the audio
+# latent frozen. 6 flash launches an AV block a step either way.
+TWO_STAGE_CFG_STEPS = 8
+TWO_STAGE_CFG = {"cfg_scale": 3.0, "audio_cfg_scale": 7.0, "modality_scale": 3.0, "rescale_scale": 0.7}
+# The distilled LoRA: random, rank 384 (the published ltx-2-19b-distilled-lora-384's) on every linear of
+# every block, bf16 in its file; A ~ N(0, 1 / in), B ~ N(0, 0.003^2): deltas about a tenth of the weights.
+DISTILLED_LORA_RANK, DISTILLED_LORA_B_STD = 384, 0.003
+# a2vid's source: 16-bit stereo PCM at 44.1 kHz, longer than the clip (121 / 24 s), so that the loader
+# cuts it and resamples it to 16 kHz by picking samples.
+A2VID_SOURCE_RATE, A2VID_SOURCE_SECONDS = 44100, 6.0
+# One bf16 rounding step at magnitude x is 2^(floor(log2 x) - 7): fuse and unfuse round once each, so
+# |unfused - original| <= one step at the larger of the fused and unfused magnitudes (fp32's own rounding
+# of the sum and the difference adds at most 2^-16 of a step).
+TOL_LORA_DRIFT_STEPS = 1.0 + 2.0 ** -10
+
+
+def _two_stage_flash(layers: int, clips: int) -> dict:
+    """{"by_head_dim", "by_batch"} flash launches of `clips` two-stage CFG
+    (or a2vid, all at batch 1) clips."""
+    steps = TWO_STAGE_CFG_STEPS + 3
+    per_step = sum(AV_FLASH_PER_BLOCK.values()) * layers
+    return {"by_head_dim": _av_flash(layers, steps, clips),
+            "by_batch": {3: per_step * TWO_STAGE_CFG_STEPS * clips, 1: per_step * 3 * clips}}
+
+
+def _a2vid_samples() -> int:
+    """The samples the loader keeps: the clip's seconds of the source at
+    44.1 kHz, then int(n x 16000 / 44100) picked."""
+    return int(int(FRAMES / 24.0 * A2VID_SOURCE_RATE) * 16000 / A2VID_SOURCE_RATE)
+
+
+def _write_source_wav(path: str) -> None:
+    import wave
+
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    n = int(A2VID_SOURCE_SECONDS * A2VID_SOURCE_RATE)
+    t_s = np.arange(n) / A2VID_SOURCE_RATE
+    tone = 0.3 * np.sin(2 * np.pi * 220.0 * t_s) * (1 + 0.5 * np.sin(2 * np.pi * 0.5 * t_s))
+    pcm = np.stack([tone, np.roll(tone, 441)]) + 0.05 * rng.standard_normal((2, n))
+    with wave.open(path, "w") as w:
+        w.setnchannels(2)
+        w.setsampwidth(2)
+        w.setframerate(A2VID_SOURCE_RATE)
+        w.writeframes((np.clip(pcm, -1, 1).T * 32767).astype(np.int16).tobytes())
+
+
+def _flash_by(counter: str) -> dict:
+    from ltx2_tpu_torch.ops.attention import flash_attention
+
+    return dict(getattr(flash_attention, counter))
+
+
+def _reset_flash_by() -> None:
+    from ltx2_tpu_torch.ops.attention import flash_attention
+
+    flash_attention.launches_by_head_dim, flash_attention.launches_by_batch = {}, {}
+
+
+def phase_a2vid(smi: str, dit) -> tuple:
+    """Audio-to-video at full width and depth through `generate_videos_a2vid`
+    (the CLI's `--pipeline a2vid --audio --audio-file`) on the fp8 AV DiT of
+    the AV two-stage phase: a 16-bit stereo .wav written at 44.1 kHz, the
+    audio encoder at its published widths with random weights written to a
+    file and read back through `ModelLedger.audio_encoder`, 512x768x121, 2
+    requests, each written as a .y4m with its .wav; checks the frozen audio
+    latent bit for bit after each stage, the frames, the finite latents, the
+    .wav (16 kHz, 2 x 16-bit, the loader's samples) and the launches.
+    Returns (the record, the launches)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import ltx2_tpu_torch.generate as G
+    from ltx2_tpu_torch.loader.safetensors_io import write_safetensors
+    from ltx2_tpu_torch.models.audio_vae.weights import audio_encoder_to_checkpoint
+    from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscalerConfig
+    from ltx2_tpu_torch.models.upscaler.spatial import conv_launches as upscaler_convs
+    from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoderConfig, conv_launches
+    from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, generate_tile_specs
+    from ltx2_tpu_torch.utils.model_ledger import ModelLedger
+    from ltx2_tpu_torch.utils.video_io import save_video, y4m_header
+
+    dev = torch.device("cuda")
+    directory = tempfile.mkdtemp(prefix="ltx2_a2vid_")
+    try:
+        source = os.path.join(directory, "source.wav")
+        _write_source_wav(source)
+        enc_path = os.path.join(directory, "audio_encoder.safetensors")
+        t0 = time.perf_counter()
+        write_safetensors(enc_path, audio_encoder_to_checkpoint(G.make_audio_encoder(dev)))
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        encoder = ModelLedger(enc_path, device="cuda").audio_encoder()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        _reset_counts()
+        _reset_flash_by()
+        t0 = time.perf_counter()
+        results, stats = G.generate_videos_a2vid(list(SEEDS), audio_file=source, height=HEIGHT, width=WIDTH,
+                                                 frames=FRAMES, device="cuda", dit=dit, audio_encoder=encoder,
+                                                 phase_peaks=True, audio=True)
+        wall = time.perf_counter() - t0
+        counts, by_dim, by_batch = _counts(), _flash_by("launches_by_head_dim"), _flash_by("launches_by_batch")
+        files = []
+        for i, ((frames, wave), st) in enumerate(zip(results, stats)):
+            path = os.path.join(directory, f"clip_{i}.y4m")
+            save_video(frames, path, 24.0, audio=wave, audio_sample_rate=st["audio_sample_rate"])
+            files.append({"y4m_bytes": os.path.getsize(path), "wav": _wav_header(path[:-4] + ".wav")})
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    distinct = not np.array_equal(results[0][0], results[1][0])
+    shapes = [(list(f.shape), list(w.shape)) for f, w in results]
+    del results, encoder
+    torch.cuda.empty_cache()
+
+    phases = ("audio_encode", "stage1", "upscale", "stage2", "decode")
+    rec = {"wall_s": wall, "encoder_write_s": write_s, "encoder_load_s": load_s,
+           "audio_load_s": stats[0].get("audio_load_s"), "launches": counts, "flash_by_head_dim": by_dim,
+           "flash_by_batch": by_batch, "seconds": {p: [s[f"{p}_s"] for s in stats] for p in phases},
+           "peak_gb": {p: max(s[f"{p}_peak_gb"] for s in stats) for p in phases},
+           "frozen_by_stage": [s["audio_frozen_by_stage"] for s in stats], "files": files, "shapes": shapes,
+           "card": smi}
+    log(f"a2vid (48 fp8 AV blocks, 512x768x121, frozen encoded audio, 16 kHz .wav): {json.dumps(rec)}")
+    tiles = len(generate_tile_specs((1, 128, (FRAMES - 1) // 8 + 1, HEIGHT // 32, WIDTH // 32),
+                                    TilingConfig.default()))
+    upscale = upscaler_convs(SpatialUpscalerConfig())
+    want_dim = _av_flash(LAYERS, 8 + 3, len(SEEDS))
+    want = {"fwd": sum(want_dim.values()), "bwd": 0,
+            "conv": (upscale + conv_launches(VideoDecoderConfig()) * tiles) * len(SEEDS)}
+    if counts != want or by_dim != want_dim or by_batch != {1: want["fwd"]}:
+        raise AssertionError(f"a2vid launches {counts} {by_dim} {by_batch}, expected {want} {want_dim}")
+    header = len(y4m_header(WIDTH, HEIGHT, 24.0)) + FRAMES * (6 + 3 * HEIGHT * WIDTH)
+    wav = {"channels": 2, "rate": 16000, "samples": _a2vid_samples(), "sample_bytes": 2}
+    for f, st in zip(files, stats):
+        if f != {"y4m_bytes": header, "wav": wav}:
+            raise AssertionError(f"a2vid files {f}, expected {header} y4m bytes and {wav}")
+        if st["audio_frozen_by_stage"] != [True, True]:
+            raise AssertionError(f"a2vid: the frozen audio latent moved: {st['audio_frozen_by_stage']}")
+        if not (st["stage1_latent_finite"] and st["stage2_latent_finite"] and st["audio_encode_latent_finite"]):
+            raise AssertionError(f"a2vid: non-finite latent {st}")
+    if not distinct:
+        raise AssertionError("the two a2vid requests produced identical clips")
+    return rec, {"fwd": counts["fwd"], "fwd_by_head_dim": by_dim, "conv_fp32": upscale * len(SEEDS),
+                 "conv_bf16": counts["conv"] - upscale * len(SEEDS)}
+
+
+def _write_distilled_lora(path: str, dit, rank: int = DISTILLED_LORA_RANK) -> dict:
+    """A random LoRA of `rank` (default 384) on every linear of every block
+    of `dit`, bf16, drawn on the card tensor by tensor and streamed to
+    `path`."""
+    import torch
+
+    from ltx2_tpu_torch.loader.export import inverse_rewrite
+    from ltx2_tpu_torch.loader.safetensors_io import write_safetensors_streaming
+
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    specs = []
+
+    def draw(shape, std):
+        return lambda: (torch.randn(shape, generator=gen, device="cuda") * std).to(torch.bfloat16).cpu()
+
+    for name, p in dit.named_parameters():
+        if name.startswith("transformer_blocks.") and name.endswith(".weight") and p.ndim == 2:
+            base = "diffusion_model." + inverse_rewrite(name)[: -len(".weight")]
+            out_f, in_f = p.shape
+            specs.append((f"{base}.lora_A.weight", torch.bfloat16, (rank, in_f),
+                          draw((rank, in_f), in_f ** -0.5)))
+            specs.append((f"{base}.lora_B.weight", torch.bfloat16, (out_f, rank),
+                          draw((out_f, rank), DISTILLED_LORA_B_STD)))
+    write_safetensors_streaming(path, specs)
+    return {"targets": len(specs) // 2, "weights": sum(math.prod(s[2]) for s in specs)}
+
+
+def _lora_drift(dit, applied: dict, seed: int = 0) -> dict:
+    """The fuse-then-unfuse drift of every fused weight in bf16 rounding
+    steps: |unfused - original| / 2^(floor(log2 max(|fused|, |unfused|)) - 7),
+    the original weights drawn again on the card, linear by linear, from
+    make_dit's generator at `seed` in its order (init_ltx_model_), the
+    fused ones made again from the original and the LoRA's terms as the
+    fuse made them; every weight the LoRA does not touch, and every bias,
+    must equal its draw bit for bit (which also proves the draws are
+    make_dit's). Returns the largest drift, the weights that moved, the
+    largest absolute drift, the weights checked and the untouched ones'
+    equality."""
+    import torch
+
+    from ltx2_tpu_torch.loader.lora import _delta
+    from ltx2_tpu_torch.ops.common import Linear
+
+    gen = torch.Generator(device=next(dit.parameters()).device).manual_seed(seed)
+    names = {id(p): n for n, p in dit.named_parameters()}
+    worst, moved, total, worst_abs, tensors, untouched_equal = 0.0, 0, 0, 0.0, 0, True
+    for m in dit.modules():
+        if not isinstance(m, Linear):
+            continue
+        bound = 1.0 / (m.weight.shape[1] ** 0.5)
+        original = torch.empty_like(m.weight).uniform_(-bound, bound, generator=gen)
+        if m.bias is not None:
+            untouched_equal &= torch.equal(torch.empty_like(m.bias).uniform_(-bound, bound, generator=gen), m.bias)
+        name = names[id(m.weight)]
+        if name not in applied:
+            untouched_equal &= torch.equal(original, m.weight)
+            continue
+        fused = original
+        for terms in applied[name]:  # one rounding per alias, as the fuse
+            fused = (fused.float() + _delta(terms, original.device)).to(original.dtype)
+        unfused = m.weight.float()
+        mag = torch.maximum(fused.float().abs(), unfused.abs())
+        step = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+        diff = (unfused - original.float()).abs()
+        worst = max(worst, float((diff / step).max()))
+        worst_abs = max(worst_abs, float(diff.max()))
+        moved += int((diff > 0).sum())
+        total += diff.numel()
+        tensors += 1
+    return {"max_steps": worst, "max_abs": worst_abs, "moved": moved, "weights": total, "tensors": tensors,
+            "untouched_equal": bool(untouched_equal), "tol_steps": TOL_LORA_DRIFT_STEPS}
+
+
+def phase_two_stage_cfg(smi: str) -> tuple:
+    """The two-stage CFG pipeline at full width and depth through
+    `generate_videos_two_stage` (the CLI's `--pipeline two-stage --audio
+    --distilled-lora`): the random V1 AV DiT in bf16 (a LoRA cannot be
+    fused into fp8 weights), 512x768x121, 2 requests: stage 1 at 256x384 on
+    8 LTX2Scheduler steps (cut from 30) under the multi-modal guider (CFG
+    3.0, audio CFG 7.0, modality 3.0, rescale 0.7: rows at batch 3), the
+    fp32 upscaler, a random rank-384 distilled LoRA on every block linear
+    fused for the 3-sigma stage 2 and unfused after it, the tiled decode
+    and the audio decode; each written as a .y4m with its .wav. Checks the
+    frames, finite latents, the .wav, the launches by head dim and batch,
+    and after the first request's unfuse every fused weight within one bf16
+    rounding step of its original (drawn again from make_dit's generator;
+    every other weight equal to its draw). Then one traced 3-row
+    stage-1 step beside the 1-row AV step at 1536 tokens (profile_slice).
+    Returns (the record, the launches)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import ltx2_tpu_torch.generate as G
+    from ltx2_tpu_torch.loader.lora import LoRAConfig
+    from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscalerConfig
+    from ltx2_tpu_torch.models.upscaler.spatial import conv_launches as upscaler_convs
+    from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoderConfig, conv_launches
+    from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, generate_tile_specs
+    from ltx2_tpu_torch.pipelines import two_stage
+    from ltx2_tpu_torch.profile_slice import av_denoise_step
+    from ltx2_tpu_torch.utils.video_io import save_video, y4m_header
+
+    dev, card = torch.device("cuda"), torch.cuda.get_device_name(0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dit = G.make_dit(LAYERS, dev, base=G.av_config())
+    init_s = time.perf_counter() - t0
+    directory = tempfile.mkdtemp(prefix="ltx2_two_stage_cfg_")
+    fuse, unfuse = two_stage.fuse_lora_into_params, two_stage.unfuse_lora_deltas
+    drift, calls = {}, {"fuse_s": [], "unfuse_s": []}
+    try:
+        lora_path = os.path.join(directory, "distilled_lora.safetensors")
+        t0 = time.perf_counter()
+        lora_info = _write_distilled_lora(lora_path, dit)
+        lora_info.update(write_s=time.perf_counter() - t0, file_gb=os.path.getsize(lora_path) / 1e9)
+        target_weights = sum(p.numel() for n, p in dit.named_parameters()
+                             if n.startswith("transformer_blocks.") and n.endswith(".weight") and p.ndim == 2)
+
+        def fuse_recorded(model, configs, return_deltas=False):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fuse(model, configs, return_deltas=return_deltas)
+            torch.cuda.synchronize()
+            calls["fuse_s"].append(time.perf_counter() - t1)
+            return out
+
+        def unfuse_checked(model, applied):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = unfuse(model, applied)
+            torch.cuda.synchronize()
+            calls["unfuse_s"].append(time.perf_counter() - t1)
+            if not drift:  # the first request's unfuse against the original weights (in its phase's time)
+                t1 = time.perf_counter()
+                drift.update(_lora_drift(model, applied))
+                drift["check_s"] = time.perf_counter() - t1
+            return out
+
+        two_stage.fuse_lora_into_params, two_stage.unfuse_lora_deltas = fuse_recorded, unfuse_checked
+        _reset_counts()
+        _reset_flash_by()
+        t0 = time.perf_counter()
+        results, stats = G.generate_videos_two_stage(
+            list(SEEDS), height=HEIGHT, width=WIDTH, frames=FRAMES, steps=TWO_STAGE_CFG_STEPS, device="cuda",
+            dit=dit, distilled_lora=LoRAConfig(lora_path), phase_peaks=True, audio=True, **TWO_STAGE_CFG)
+        wall = time.perf_counter() - t0
+        counts, by_dim, by_batch = _counts(), _flash_by("launches_by_head_dim"), _flash_by("launches_by_batch")
+        two_stage.fuse_lora_into_params, two_stage.unfuse_lora_deltas = fuse, unfuse
+        files = []
+        for i, ((frames, wave), st) in enumerate(zip(results, stats)):
+            path = os.path.join(directory, f"clip_{i}.y4m")
+            save_video(frames, path, 24.0, audio=wave, audio_sample_rate=st["audio_sample_rate"])
+            files.append({"y4m_bytes": os.path.getsize(path), "wav": _wav_header(path[:-4] + ".wav")})
+    finally:
+        two_stage.fuse_lora_into_params, two_stage.unfuse_lora_deltas = fuse, unfuse
+        shutil.rmtree(directory, ignore_errors=True)
+    distinct = not np.array_equal(results[0][0], results[1][0])
+    shapes = [(list(f.shape), list(w.shape)) for f, w in results]
+    del results
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        one_row = av_denoise_step(dit, HEIGHT // 2, WIDTH // 2, "av_stage1_step_bf16", dev, card)[1]
+        three_rows = av_denoise_step(dit, HEIGHT // 2, WIDTH // 2, "mm_stage1_step_bf16", dev, card,
+                                     multimodal=True)[1]
+    del dit
+    torch.cuda.empty_cache()
+
+    phases = ("stage1", "upscale", "lora_fuse", "stage2", "lora_unfuse", "decode", "audio_decode")
+    traced = ("rows", "tokens", "audio_tokens", "device_ms", "wall_ms", "busy_share", "device_ms_by_class")
+    rec = {"dit_init_s": init_s, "wall_s": wall, "dit_weight_gb": stats[0]["dit_weight_gb"], "lora": lora_info,
+           "lora_drift_first_request": drift, "lora_calls": calls, "launches": counts,
+           "flash_by_head_dim": by_dim, "flash_by_batch": by_batch,
+           "seconds": {p: [s[f"{p}_s"] for s in stats] for p in phases},
+           "stage1_step_s": [s["stage1_step_s"] for s in stats],
+           "peak_gb": {p: max(s[f"{p}_peak_gb"] for s in stats) for p in phases}, "files": files, "shapes": shapes,
+           "steps_stage1": TWO_STAGE_CFG_STEPS, **TWO_STAGE_CFG,
+           "stage1_step_1_row": {k: one_row[k] for k in traced},
+           "stage1_step_3_rows": {k: three_rows[k] for k in traced}, "card": smi}
+    log(f"two-stage CFG (48 bf16 AV blocks, 512x768x121, stage 1 at batch 3 over {TWO_STAGE_CFG_STEPS} steps, "
+        f"rank-{DISTILLED_LORA_RANK} distilled LoRA): {json.dumps(rec)}")
+    tiles = len(generate_tile_specs((1, 128, (FRAMES - 1) // 8 + 1, HEIGHT // 32, WIDTH // 32),
+                                    TilingConfig.default()))
+    upscale = upscaler_convs(SpatialUpscalerConfig())
+    want_flash = _two_stage_flash(LAYERS, len(SEEDS))
+    want = {"fwd": sum(want_flash["by_head_dim"].values()), "bwd": 0,
+            "conv": (upscale + conv_launches(VideoDecoderConfig()) * tiles) * len(SEEDS)}
+    if counts != want or by_dim != want_flash["by_head_dim"] or by_batch != want_flash["by_batch"]:
+        raise AssertionError(f"two-stage CFG launches {counts} {by_dim} {by_batch}, expected {want} {want_flash}")
+    header = len(y4m_header(WIDTH, HEIGHT, 24.0)) + FRAMES * (6 + 3 * HEIGHT * WIDTH)
+    wav = {"channels": 2, "rate": 24000, "samples": AV_WAV_SAMPLES[24000], "sample_bytes": 2}
+    for f, st in zip(files, stats):
+        if f != {"y4m_bytes": header, "wav": wav}:
+            raise AssertionError(f"two-stage CFG files {f}, expected {header} y4m bytes and {wav}")
+        if not (st["stage1_latent_finite"] and st["stage2_latent_finite"] and st["audio_finite"]):
+            raise AssertionError(f"two-stage CFG: non-finite output {st}")
+    if not drift or drift["tensors"] != lora_info["targets"] or drift["weights"] != target_weights:
+        raise AssertionError(f"two-stage CFG: the drift check saw {drift}, not the {lora_info['targets']} fused "
+                             f"weights")
+    if not drift["untouched_equal"]:
+        raise AssertionError(f"two-stage CFG: a weight the LoRA does not touch moved, or the draws are not "
+                             f"make_dit's: {drift}")
+    if drift["max_steps"] > TOL_LORA_DRIFT_STEPS:
+        raise AssertionError(f"two-stage CFG: the unfused weights drifted {drift}")
+    if not distinct:
+        raise AssertionError("the two two-stage CFG requests produced identical clips")
+    return rec, {"fwd": counts["fwd"], "fwd_by_head_dim": by_dim, "fwd_by_batch": by_batch,
+                 "conv_fp32": upscale * len(SEEDS), "conv_bf16": counts["conv"] - upscale * len(SEEDS)}
+
+
+# The two-stage CFG and a2vid small checks (kernels against plain): the AV
+# small check's size and limits; two-stage's stage 1 over 4 steps with a
+# rank-8 LoRA, a2vid from a random 17 / 24 s stereo source. The guided
+# stage 1 multiplies the rows' differences, the kernels' bf16 rounding
+# among them, by up to 1 + (cfg - 1) + (modality - 1) = 5, so its latents
+# are held to 5x the AV check's rms limit (measured on the card, NVIDIA
+# H100 80GB HBM3, 700 W: stage 1 1.0e-2, upscale 1.7e-2, stage 2 3.6e-3,
+# audio 4.5e-3; another seed's audio 1.37).
+MM_SMALL_STEPS, MM_SMALL_LORA_RANK = 4, 8
+TOL_MM_SMALL_LATENT_RMS_REL = 5 * TOL_SMALL_LATENT_RMS_REL
+
+
+def phase_two_stage_cfg_small(smi: str) -> dict:
+    """The two-stage CFG pipeline (with a distilled LoRA) and a2vid end to
+    end (tiled video decode; the audio decode for two-stage) at a small
+    size, through the kernels against the same pipelines with every flash
+    and conv call on its plain version: 2 full-width AV blocks in bf16
+    (AdaLN and cross-modal tables drawn non-zero), a mid-16 upscaler, a
+    base-16 bf16 decoder, a small audio decoder, vocoder and audio encoder,
+    128x128x17 (18 audio tokens). Latents, audio latent and frames at the
+    AV small check's limits (two-stage's latents at 5x its rms limit: the
+    guidance gain); a2vid's audio latent frozen bit for bit in both runs; a
+    run from another seed must fail the limits."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ltx2_tpu_torch.generate import av_config, make_dit
+    from ltx2_tpu_torch.loader.lora import LoRAConfig
+    from ltx2_tpu_torch.models.audio_vae import (
+        AudioDecoder, AudioDecoderConfig, AudioEncoder, AudioEncoderConfig, Vocoder, VocoderConfig,
+        init_audio_decoder_, init_audio_encoder_, init_vocoder_,
+    )
+    from ltx2_tpu_torch.models.transformer.model import LTXModelConfig
+    from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscaler, SpatialUpscalerConfig, init_spatial_upscaler_
+    from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoder, VideoDecoderConfig, init_video_decoder_
+    from ltx2_tpu_torch.models.video_vae.tiling import SpatialTilingConfig, TemporalTilingConfig, TilingConfig
+    from ltx2_tpu_torch.pipelines.a2vid_two_stage import A2VidConfig, A2VidPipelineTwoStage
+    from ltx2_tpu_torch.pipelines.common import decode_audio, decode_video
+    from ltx2_tpu_torch.pipelines.distilled import stage_seeds
+    from ltx2_tpu_torch.pipelines.two_stage import TwoStageCFGConfig, TwoStagePipeline
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(51)
+    dit = make_dit(AV_SMALL["layers"], dev, seed=52, base=av_config(LTXModelConfig(in_channels=16, out_channels=16)))
+    with torch.no_grad():
+        for name, p in dit.named_parameters():
+            if "scale_shift_table" in name:
+                p.normal_(generator=gen).mul_(0.3)
+    up = init_spatial_upscaler_(SpatialUpscaler(SpatialUpscalerConfig(16, 16, 1, 4), device=dev), gen)
+    dec = init_video_decoder_(VideoDecoder(VideoDecoderConfig(base_channels=16, latent_channels=16,
+                                                              compute_dtype="bfloat16"), device=dev), gen)
+    adec = init_audio_decoder_(AudioDecoder(AudioDecoderConfig(ch=16, num_res_blocks=1), device=dev), gen)
+    voc = init_vocoder_(Vocoder(VocoderConfig(upsample_initial_channel=64), device=dev), gen)
+    enc = init_audio_encoder_(AudioEncoder(AudioEncoderConfig(ch=16, num_res_blocks=1), device=dev), gen)
+    ctx = [torch.randn(1, 16, w, generator=gen, device=dev) * 0.5
+           for w in (dit.cfg.cross_attention_dim,) * 2 + (dit.cfg.audio_inner_dim,) * 2]
+    source = np.random.default_rng(53).standard_normal((2, 16000 * AV_SMALL["frames"] // 24)).astype(np.float32) * 0.3
+    tiling = TilingConfig(SpatialTilingConfig(64, 32), TemporalTilingConfig(16, 8))
+    size = dict(height=AV_SMALL["height"], width=AV_SMALL["width"], num_frames=AV_SMALL["frames"], fps=24.0,
+                dtype="bfloat16", latent_channels=16, tiling_config=tiling, audio_enabled=True)
+    directory = tempfile.mkdtemp(prefix="ltx2_mm_small_")
+    try:
+        lora_path = os.path.join(directory, "lora.safetensors")
+        _write_distilled_lora(lora_path, dit, rank=MM_SMALL_LORA_RANK)
+        two = TwoStagePipeline(dit, up, video_decoder=dec)
+        a2v = A2VidPipelineTwoStage(dit, up, video_decoder=dec, audio_encoder=enc)
+
+        originals = {n: p.detach().clone() for n, p in dit.named_parameters()}
+
+        def run_two(seed):
+            """From the original weights: each fuse-and-unfuse may move a weight by a bf16 step."""
+            with torch.no_grad():
+                for n, p in dit.named_parameters():
+                    p.copy_(originals[n])
+            latents = {}
+            config = TwoStageCFGConfig(seed=seed, num_inference_steps=MM_SMALL_STEPS, guidance_rescale=0.7,
+                                       distilled_lora_config=LoRAConfig(lora_path), **size)
+            latent, audio_latent = two(ctx[0], ctx[1], config, positive_audio_encoding=ctx[2],
+                                       negative_audio_encoding=ctx[3], skip_decode=True,
+                                       callback=lambda phase, z: latents.setdefault(phase, z.float()))
+            frames = decode_video(latent, dec, tiling, stage_seeds(seed)[2])
+            return frames, latents, audio_latent.float()
+
+        def run_a2vid(seed):
+            latents = {}
+            latent, _, _ = a2v(ctx[0], A2VidConfig(seed=seed, **size), audio_encoding=ctx[2], source_waveform=source,
+                               skip_decode=True, callback=lambda phase, z: latents.setdefault(phase, z.float()))
+            frames = decode_video(latent, dec, tiling, stage_seeds(seed)[2])
+            return frames, latents, list(a2v.frozen_by_stage)
+
+        _reset_counts()
+        _reset_flash_by()
+        frames_k, lat_k, audio_k = run_two(5)
+        two_by = {"head_dim": _flash_by("launches_by_head_dim"), "batch": _flash_by("launches_by_batch")}
+        _reset_flash_by()
+        a_frames_k, a_lat_k, frozen_k = run_a2vid(5)
+        a2vid_by = {"head_dim": _flash_by("launches_by_head_dim"), "batch": _flash_by("launches_by_batch")}
+        wave_k = decode_audio(audio_k, adec, voc)
+        with _plain_kernels():
+            frames_p, lat_p, audio_p = run_two(5)
+            frames_o, _, audio_o = run_two(6)
+            a_frames_p, a_lat_p, frozen_p = run_a2vid(5)
+            a_frames_o, _, _ = run_a2vid(6)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+    def err(a, b):
+        return {x: v for x, v in _mismatch(a, b).items() if x != "ref_rms"}
+
+    rec = {"two_stage": {"flash": two_by, "frames": list(frames_k.shape), "waveform": list(wave_k.shape),
+                         "latents": {k: err(lat_k[k], lat_p[k]) for k in ("stage1", "upscale", "stage2")},
+                         "audio_latent": err(audio_k, audio_p), "frames_vs_plain": _frame_diff(frames_k, frames_p),
+                         "planted_other_seed": {"frames": _frame_diff(frames_o, frames_p),
+                                                "audio_latent": err(audio_o, audio_p)}},
+           "a2vid": {"flash": a2vid_by, "frozen_by_stage": [frozen_k, frozen_p],
+                     "latents": {k: err(a_lat_k[k], a_lat_p[k]) for k in ("audio_encode", "stage1", "stage2")},
+                     "frames_vs_plain": _frame_diff(a_frames_k, a_frames_p),
+                     "planted_other_seed": {"frames": _frame_diff(a_frames_o, a_frames_p)}},
+           "tol_latent_rms_rel": {"two_stage": TOL_MM_SMALL_LATENT_RMS_REL, "a2vid": TOL_SMALL_LATENT_RMS_REL},
+           "tol_mean_levels": TOL_SMALL_MEAN_LEVELS, "card": smi}
+    log(f"two-stage CFG and a2vid small-input checks (kernels vs plain on the card): {json.dumps(rec)}")
+    del two, a2v, dit, up, dec, adec, voc, enc, originals
+    torch.cuda.empty_cache()
+    steps = MM_SMALL_STEPS + 3
+    per_step = sum(AV_FLASH_PER_BLOCK.values()) * AV_SMALL["layers"]
+    want_two = {"head_dim": _av_flash(AV_SMALL["layers"], steps, 1),
+                "batch": {3: per_step * MM_SMALL_STEPS, 1: per_step * 3}}
+    want_a2vid = {"head_dim": _av_flash(AV_SMALL["layers"], 8 + 3, 1), "batch": {1: per_step * 11}}
+    if two_by != want_two or a2vid_by != want_a2vid:
+        raise AssertionError(f"small checks' flash launches {two_by} {a2vid_by}, expected {want_two} {want_a2vid}")
+    if frozen_k != [True, True] or frozen_p != [True, True]:
+        raise AssertionError(f"a2vid small check: the frozen audio latent moved: {frozen_k} {frozen_p}")
+    for name, r, tol in (("two-stage", rec["two_stage"], TOL_MM_SMALL_LATENT_RMS_REL),
+                         ("a2vid", rec["a2vid"], TOL_SMALL_LATENT_RMS_REL)):
+        checked = list(r["latents"].values()) + ([r["audio_latent"]] if "audio_latent" in r else [])
+        if not all(c["finite"] for c in checked) or any(c["rms_rel_err"] > tol for c in checked):
+            raise AssertionError(f"{name} small check: latents disagree with the plain path: {r}")
+        if r["frames_vs_plain"]["mean_levels"] > TOL_SMALL_MEAN_LEVELS:
+            raise AssertionError(f"{name} small check: frames disagree with the plain path: {r['frames_vs_plain']}")
+        if r["planted_other_seed"]["frames"]["mean_levels"] <= TOL_SMALL_MEAN_LEVELS:
+            raise AssertionError(f"the {name} small check accepts another seed's clip: {r['planted_other_seed']}")
+    if rec["two_stage"]["planted_other_seed"]["audio_latent"]["rms_rel_err"] <= TOL_MM_SMALL_LATENT_RMS_REL:
+        raise AssertionError(f"the two-stage small check accepts another seed's audio: {rec['two_stage']}")
     return rec
 
 
@@ -3049,11 +3603,17 @@ def main():
     v2_small = phase_two_stage_small(smi, v2=True)
     audio_check = phase_audio_decode_check(smi)
     av_small = phase_av_small(smi)
-    av, av_counts = phase_av_two_stage(smi)
+    mm_small = phase_two_stage_cfg_small(smi)
+    av, av_counts, a2vid, a2vid_counts = phase_av_two_stage(smi)
     av["av_step_vs_video_step_ms"] = {"av_fp8": av["av_step"]["device_ms"], "video_fp8": fp8_step["fp8"]["device_ms"]}
     log(f"AV vs video-only fp8 DiT step ({LAYERS} layers, 6144 tokens): {json.dumps(av['av_step_vs_video_step_ms'])}"
         f" | {smi}")
     av_files, av_file_counts = phase_av_files(smi)
+    torch.cuda.empty_cache()
+    two_cfg, two_cfg_counts = phase_two_stage_cfg(smi)
+    log(f"AV stage-1 step at 1536 tokens, bf16: 3 rows (two-stage CFG) "
+        f"{two_cfg['stage1_step_3_rows']['device_ms']:.1f} ms device, 1 row (distilled) "
+        f"{two_cfg['stage1_step_1_row']['device_ms']:.1f} ms | {smi}")
     torch.cuda.empty_cache()
     i2v_two_stage, i2v_one_stage, options, image_to_video = phase_image_to_video(smi)
     torch.cuda.empty_cache()
@@ -3079,13 +3639,14 @@ def main():
             "source": "ltx2_tpu_torch/csrc/flash_attention.cu",
             "replaces": "ltx2_tpu/ops/attention.py:188",
             "launches": (serve_counts["fwd"] + two_stage_counts["fwd"] + file_counts["fwd"] + v2_counts["fwd"]
-                         + av_counts["fwd"] + av_file_counts["fwd"]
+                         + av_counts["fwd"] + av_file_counts["fwd"] + two_cfg_counts["fwd"] + a2vid_counts["fwd"]
                          + i2v_two_stage["fwd"] + i2v_one_stage["fwd"] + options["fwd"] + train_counts["fwd"]),
             "launches_by_path": {"serve": serve_counts["fwd"], "serve_two_stage": two_stage_counts["fwd"],
                                  "serve_two_stage_from_files": file_counts["fwd"],
                                  "serve_v2_two_stage_from_files": v2_counts["fwd"],
                                  "serve_av_two_stage": av_counts["fwd"],
                                  "serve_v2_av_two_stage_from_files": av_file_counts["fwd"],
+                                 "serve_two_stage_cfg": two_cfg_counts["fwd"], "serve_a2vid": a2vid_counts["fwd"],
                                  "image_to_video_two_stage": i2v_two_stage["fwd"],
                                  "one_stage": i2v_one_stage["fwd"], "one_stage_options": options["fwd"],
                                  "train": train_counts["fwd"]},
@@ -3096,7 +3657,11 @@ def main():
             # The D = 64 instantiation on the audio-video paths, counted in "launches" too.
             "head_dim_64_launches_by_path": {"serve_av_two_stage": av_counts["fwd_by_head_dim"].get(64, 0),
                                              "serve_v2_av_two_stage_from_files":
-                                                 av_file_counts["fwd_by_head_dim"].get(64, 0)},
+                                                 av_file_counts["fwd_by_head_dim"].get(64, 0),
+                                             "serve_two_stage_cfg": two_cfg_counts["fwd_by_head_dim"].get(64, 0),
+                                             "serve_a2vid": a2vid_counts["fwd_by_head_dim"].get(64, 0)},
+            # The multi-modal guider's rows at batch 3 (two-stage CFG stage 1), counted in "launches" too.
+            "batch_3_launches_by_path": {"serve_two_stage_cfg": two_cfg_counts["fwd_by_batch"].get(3, 0)},
             "max_abs_err": max(max(r["max_abs_err"] for r in recs),
                                max(r["max_abs_err_fwd_residuals"] for r in bwd)),
             "ms": self_rec["ms"],
@@ -3133,6 +3698,7 @@ def main():
             "launches": (serve_counts["conv"] + two_stage_counts["conv"] - upscale_launches
                          + file_counts["conv"] - file_upscale_launches + v2_counts["conv_bf16"]
                          + av_counts["conv_bf16"] + av_file_counts["conv_bf16"]
+                         + two_cfg_counts["conv_bf16"] + a2vid_counts["conv_bf16"]
                          + i2v_two_stage["conv_bf16"] + i2v_one_stage["conv_bf16"] + options["conv_bf16"]),
             "launches_by_path": {"serve": serve_counts["conv"],
                                  "serve_two_stage": two_stage_counts["conv"] - upscale_launches,
@@ -3140,6 +3706,8 @@ def main():
                                  "serve_v2_two_stage_from_files": v2_counts["conv_bf16"],
                                  "serve_av_two_stage": av_counts["conv_bf16"],
                                  "serve_v2_av_two_stage_from_files": av_file_counts["conv_bf16"],
+                                 "serve_two_stage_cfg": two_cfg_counts["conv_bf16"],
+                                 "serve_a2vid": a2vid_counts["conv_bf16"],
                                  "image_to_video_two_stage": i2v_two_stage["conv_bf16"],
                                  "one_stage": i2v_one_stage["conv_bf16"],
                                  "one_stage_options": options["conv_bf16"]},
@@ -3159,12 +3727,15 @@ def main():
             "replaces": conv_replaces,
             "launches": (upscale_launches + file_upscale_launches + v2_counts["conv_fp32"]
                          + av_counts["conv_fp32"] + av_file_counts["conv_fp32"]
+                         + two_cfg_counts["conv_fp32"] + a2vid_counts["conv_fp32"]
                          + i2v_two_stage["conv_fp32"] + i2v_one_stage["conv_fp32"] + options["conv_fp32"]),
             "launches_by_path": {"serve_two_stage": upscale_launches,
                                  "serve_two_stage_from_files": file_upscale_launches,
                                  "serve_v2_two_stage_from_files": v2_counts["conv_fp32"],
                                  "serve_av_two_stage": av_counts["conv_fp32"],
                                  "serve_v2_av_two_stage_from_files": av_file_counts["conv_fp32"],
+                                 "serve_two_stage_cfg": two_cfg_counts["conv_fp32"],
+                                 "serve_a2vid": a2vid_counts["conv_fp32"],
                                  "image_to_video_two_stage": i2v_two_stage["conv_fp32"],
                                  "one_stage": i2v_one_stage["conv_fp32"],
                                  "one_stage_options": options["conv_fp32"]},
@@ -3186,7 +3757,8 @@ def main():
         "two_stage": {"requests": two_stage_stats, "peak_memory_gb_by_phase": two_stage_peaks,
                       "small_input_check": two_stage_small},
         "audio_video": {"two_stage": av, "small_input_check": av_small, "from_files": av_files,
-                        "audio_decode_card_vs_cpu": audio_check}}
+                        "audio_decode_card_vs_cpu": audio_check, "two_stage_cfg": two_cfg, "a2vid": a2vid,
+                        "two_stage_cfg_and_a2vid_small_input_check": mm_small}}
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -2,15 +2,18 @@
 CFG* (the unconditioned prediction rescaled by its projection onto the
 conditioned one, per batch row), CFG with the variance rescale, STG, and
 adaptive projected guidance (APG), also with a momentum carry that the
-caller threads from step to step. Every statistic is per batch row, so
-clips batched together do not couple. Scale 1.0 disables the CFG guiders,
-0.0 STG and the stateful APG. Not ported yet: `MultiModalGuider` (audio).
+caller threads from step to step, and the audio-video `MultiModalGuider`
+(CFG + STG + modality isolation with a std-ratio rescale). Every statistic
+is per batch row, so clips batched together do not couple. Scale 1.0
+disables the CFG guiders and modality isolation, 0.0 STG and the stateful
+APG.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional, Tuple
+import math
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -174,3 +177,62 @@ class StatefulAPGGuider:
 
 # The reference's name for the stateful APG.
 LegacyStatefulAPGGuider = StatefulAPGGuider
+
+
+def std_ratio_rescale(pred: torch.Tensor, cond: torch.Tensor, rescale_scale: float) -> torch.Tensor:
+    """pred * (rescale_scale * std(cond) / std(pred) + 1 - rescale_scale),
+    each std the population one over every axis but the batch, plus 1e-8
+    under the root: one clip's variance never rescales another's."""
+    axes = tuple(range(1, pred.ndim))
+    cond_std = torch.sqrt(torch.var(cond, dim=axes, keepdim=True, correction=0) + 1e-8)
+    pred_std = torch.sqrt(torch.var(pred, dim=axes, keepdim=True, correction=0) + 1e-8)
+    return pred * (rescale_scale * (cond_std / pred_std) + (1 - rescale_scale))
+
+
+@dataclass(frozen=True)
+class MultiModalGuiderParams:
+    """The multi-modal guider's parameters."""
+
+    cfg_scale: float = 1.0
+    stg_scale: float = 0.0
+    stg_blocks: Optional[List[int]] = field(default_factory=list)
+    rescale_scale: float = 0.0
+    modality_scale: float = 1.0
+    skip_step: int = 0
+
+
+@dataclass(frozen=True)
+class MultiModalGuider:
+    """CFG + STG + modality-isolation guidance over up to four passes a
+    step (a pass that is None is left out), then the std-ratio rescale when
+    `rescale_scale` != 0."""
+
+    params: MultiModalGuiderParams
+    negative_context: Optional[torch.Tensor] = None
+
+    def calculate(self, cond: torch.Tensor, uncond_text, uncond_perturbed, uncond_modality) -> torch.Tensor:
+        p = self.params
+        pred = cond
+        if isinstance(uncond_text, torch.Tensor):
+            pred = pred + (p.cfg_scale - 1) * (cond - uncond_text)
+        if isinstance(uncond_perturbed, torch.Tensor):
+            pred = pred + p.stg_scale * (cond - uncond_perturbed)
+        if isinstance(uncond_modality, torch.Tensor):
+            pred = pred + (p.modality_scale - 1) * (cond - uncond_modality)
+        if p.rescale_scale != 0:
+            pred = std_ratio_rescale(pred, cond, p.rescale_scale)
+        return pred
+
+    def do_unconditional_generation(self) -> bool:
+        return not math.isclose(self.params.cfg_scale, 1.0)
+
+    def do_perturbed_generation(self) -> bool:
+        return not math.isclose(self.params.stg_scale, 0.0)
+
+    def do_isolated_modality_generation(self) -> bool:
+        return not math.isclose(self.params.modality_scale, 1.0)
+
+    def should_skip_step(self, step: int) -> bool:
+        if self.params.skip_step == 0:
+            return False
+        return step % (self.params.skip_step + 1) != 0

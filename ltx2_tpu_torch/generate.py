@@ -1,6 +1,7 @@
-"""Text- and image-to-video generation, with or without audio, on one GPU.
+"""Text-, image- and audio-to-video generation, with or without audio, on
+one GPU.
 
-Four flows, chosen with `--pipeline`:
+Six flows, chosen with `--pipeline`:
 
 - `bench-e2e` (the default; `generate_videos`): the steps of the JAX
   package's `scripts/bench_e2e.py`: Gaussian noise -> 8-sigma distilled
@@ -28,6 +29,20 @@ Four flows, chosen with `--pipeline`:
   multiple, the padding masked out of self-attention's keys),
   `--cross-attn-scale` from `--cross-attn-start-block`, `--cache-text-kv`,
   and `--upscale-spatial` (the 2x spatial upscaler after the loop).
+- `two-stage` (`generate_videos_two_stage`): the JAX package's two-stage
+  CFG pipeline (pipelines/two_stage.py): stage 1 at half resolution on
+  `--num-inference-steps` (`--steps-stage1`) steps guided at `--cfg-scale`
+  (`--cfg-stage1`) with the guidance rescale `--rescale-scale` (with
+  `--audio` the multi-modal guider: `--audio-cfg-scale`,
+  `--modality-scale`; three rows a step), the 2x upscaler, `--distilled-lora`
+  fused into the DiT for the 3-sigma stage 2 and subtracted after it, the
+  decodes; the resolution is rounded up to a multiple of 64. A DiT that
+  takes the LoRA is bf16 (`--fp8-serving` is refused with it).
+- `a2vid` (`generate_videos_a2vid`): audio-to-video
+  (pipelines/a2vid_two_stage.py): `--audio-file`'s first frames / fps
+  seconds at 16 kHz, encoded by the audio VAE encoder into the audio
+  latent, frozen through both stages of the distilled recipe on the
+  audio-video DiT; with `--audio` the source is the output's .wav.
 
 `--audio` on the distilled and the CFG flows generates sound with the
 audio-video DiT (the checkpoint's, loaded with its audio stream; else random
@@ -113,6 +128,9 @@ From Python: `generate_video(seed=0)`, `generate_videos([0, 1, ...])` or
     python -m ltx2_tpu_torch.generate --pipeline distilled --audio --requests 2 --output clip.y4m
     python -m ltx2_tpu_torch.generate --pipeline one-stage --checkpoint ltx-2.3.safetensors --audio \
         --audio-cfg-scale 7 --gemma-dir gemma-3-12b --prompt "..." --output clip.y4m
+    python -m ltx2_tpu_torch.generate --pipeline two-stage --audio --steps-stage1 30 \
+        --distilled-lora ltx-2-19b-distilled-lora-384.safetensors --output clip.y4m
+    python -m ltx2_tpu_torch.generate --pipeline a2vid --audio --audio-file speech.wav --output clip.y4m
 """
 
 from __future__ import annotations
@@ -121,6 +139,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import sys
 import time
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -140,6 +159,7 @@ from ltx2_tpu_torch.models.text_encoder import (
     init_text_encoder_, video_text_encoder_apply,
 )
 from ltx2_tpu_torch.models.audio_vae.decoder import AudioDecoder, AudioDecoderConfig, init_audio_decoder_
+from ltx2_tpu_torch.models.audio_vae.encoder import AudioEncoder, AudioEncoderConfig, init_audio_encoder_
 from ltx2_tpu_torch.models.audio_vae.vocoder import Vocoder, VocoderConfig, init_vocoder_
 from ltx2_tpu_torch.models.transformer.blocks import AVBlock, VideoBlock
 from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelConfig, LTXModelType, init_ltx_model_
@@ -246,6 +266,13 @@ def make_audio_decoder(device: torch.device, seed: int = 6, cfg: AudioDecoderCon
     """The audio VAE decoder of config `cfg` (default: the published one),
     fp32, random weights from `seed`."""
     return init_audio_decoder_(AudioDecoder(cfg, device=device), torch.Generator(device=device).manual_seed(seed))
+
+
+def make_audio_encoder(device: torch.device, seed: int = 8, cfg: AudioEncoderConfig = AudioEncoderConfig()
+                       ) -> AudioEncoder:
+    """The audio VAE encoder of config `cfg` (default: the published one),
+    fp32, random weights from `seed`."""
+    return init_audio_encoder_(AudioEncoder(cfg, device=device), torch.Generator(device=device).manual_seed(seed))
 
 
 def make_vocoder(device: torch.device, seed: int = 7, cfg=VocoderConfig()):
@@ -429,21 +456,22 @@ def _text_contexts(seeds, stats, device, contexts, text_encoder, gemma, ledger, 
 
 
 def _dit_and_encoder(stats, device, layers: int, dit, encoder, images, ledger, context_width: Optional[int],
-                     dtype: str = "bfloat16", audio: bool = False):
+                     dtype: str = "bfloat16", audio: bool = False, fp8: bool = True):
     """The DiT (given, from `ledger`, or random at `layers` in `dtype`, with
     a caption projection from `context_width` channels when the contexts
     are not the model's 4096 wide; with `audio` the audio-video DiT, kept in
-    fp8 when random) and, when there are images, the video encoder (given,
-    from `ledger`, or random), each timed. Raises when the DiT's text input
-    (its caption projection's, else its context width) does not take
-    `context_width` channels, and when `audio` is asked of a video-only DiT."""
+    fp8 when random and `fp8`) and, when there are images, the video
+    encoder (given, from `ledger`, or random), each timed. Raises when the
+    DiT's text input (its caption projection's, else its context width)
+    does not take `context_width` channels, and when `audio` is asked of a
+    video-only DiT."""
     if dit is None and ledger is not None:
         dit, stats[0]["dit_init_s"] = _timed(device, ledger.transformer)
     elif dit is None and audio:
         base = av_config(LTXModelConfig(compute_dtype=dtype))
         if context_width not in (None, base.cross_attention_dim):
             base = dataclasses.replace(base, caption_channels=context_width)
-        dit, stats[0]["dit_init_s"] = _timed(device, lambda: make_dit(layers, device, base=base, fp8=True))
+        dit, stats[0]["dit_init_s"] = _timed(device, lambda: make_dit(layers, device, base=base, fp8=fp8))
     elif dit is None:
         base = LTXModelConfig(compute_dtype=dtype)
         if context_width not in (None, base.cross_attention_dim):
@@ -864,6 +892,22 @@ def _decode_phase(latents, configs, stats, device, decoder, ledger, compute_dtyp
     return videos
 
 
+def _context_pairs(cfg: LTXModelConfig, contexts, audio_contexts, i: int, gen: torch.Generator, device,
+                   audio: bool):
+    """Request i's (positive, negative) video contexts and, with `audio`,
+    its audio pair: the given (2, S, D) pairs, else dummy ones drawn from
+    `gen` (the video pair first)."""
+    if contexts is not None:
+        video = (contexts[i][0:1], contexts[i][1:2])
+    else:
+        video = (dummy_context(cfg, gen, device), dummy_context(cfg, gen, device))
+    if not audio:
+        return video, (None, None)
+    pair = audio_contexts[i] if audio_contexts is not None else torch.cat(
+        [dummy_context(cfg, gen, device, audio=True) for _ in range(2)])
+    return video, (pair[0:1], pair[1:2])
+
+
 def generate_videos_one_stage(
     seeds: Sequence[int],
     *,
@@ -977,15 +1021,7 @@ def generate_videos_one_stage(
                                    token_bucket=token_bucket, fps=fps, tiling_config=tiling, audio_enabled=audio,
                                    audio_cfg_scale=audio_cfg_scale, use_internal_audio_branch=internal_audio)
         gen = torch.Generator(device=device).manual_seed(seed)
-        if contexts is not None:
-            positive, negative = contexts[i][0:1], contexts[i][1:2]
-        else:
-            positive, negative = dummy_context(cfg, gen, device), dummy_context(cfg, gen, device)
-        audio_pair = (None, None)
-        if audio:
-            pair = audio_contexts[i] if audio_contexts is not None else torch.cat(
-                [dummy_context(cfg, gen, device, audio=True) for _ in range(2)])
-            audio_pair = (pair[0:1], pair[1:2])
+        (positive, negative), audio_pair = _context_pairs(cfg, contexts, audio_contexts, i, gen, device, audio)
         on_phase, marks = _phase_timer(device, st, phase_peaks)
         latent, audio_latent = pipe(
             positive, negative, config, images=images, callback=on_phase, skip_decode=True,
@@ -1008,6 +1044,253 @@ def generate_videos_one_stage(
                     lambda seed: stage_seeds(seed, 2)[1], skip_decode, audio_decoder, vocoder), stats
 
 
+def generate_videos_two_stage(
+    seeds: Sequence[int],
+    *,
+    height: int = 512,
+    width: int = 768,
+    frames: int = 121,
+    steps: int = 30,
+    cfg_scale: float = 3.0,
+    audio_cfg_scale: float = 7.0,
+    rescale_scale: float = 0.7,
+    modality_scale: float = 3.0,
+    cfg_interval: int = 1,
+    token_shift: bool = False,
+    distilled_lora: Optional[LoRAConfig] = None,
+    layers: int = 48,
+    device=None,
+    dit: Optional[LTXModel] = None,
+    upscaler: Optional[SpatialUpscaler] = None,
+    decoder: Optional[VideoDecoder] = None,
+    encoder: Optional[VideoEncoder] = None,
+    contexts: Optional[Sequence[torch.Tensor]] = None,
+    noises: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+    images: Optional[Sequence[ImageCondition]] = None,
+    text_encoder: Union[bool, VideoTextEncoder] = False,
+    gemma: Optional[Gemma3] = None,
+    phase_peaks: bool = False,
+    ledger: Optional[ModelLedger] = None,
+    tokens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    embeddings: Optional[list] = None,
+    fps: float = FPS,
+    tiling: Optional[TilingConfig] = None,
+    dtype: str = "bfloat16",
+    skip_decode: bool = False,
+    audio: bool = False,
+    audio_contexts: Optional[Sequence[torch.Tensor]] = None,
+    audio_noises: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+    audio_decoder: Optional[AudioDecoder] = None,
+    vocoder=None,
+    internal_audio: bool = True,
+) -> Tuple[List[np.ndarray], List[dict]]:
+    """The two-stage CFG pipeline (pipelines/two_stage.py), one clip per
+    seed: stage 1 at half size, `steps` LTX2Scheduler steps guided at
+    `cfg_scale` with the std-ratio / variance rescale at `rescale_scale`
+    (with `audio` the multi-modal loop: the audio stream at
+    `audio_cfg_scale`, modality isolation at `modality_scale`, three rows a
+    step), the spatial upscaler, `distilled_lora` fused into the DiT for the
+    3-sigma stage 2 and subtracted after it, then the decodes. Returns
+    (uint8 frames, or (frames, (2, samples) waveform) pairs with `audio`;
+    per-request stats).
+
+    Contexts, images, the ledger, Gemma, the tokens and embeddings, the
+    random weights' seeds, `phase_peaks`, `tiling`, `skip_decode` and the
+    audio modules as in `generate_videos_one_stage` (pairs of prompt and
+    negative) and `generate_videos_distilled` (the upscaler and the
+    decode); `noises[i]` / `audio_noises[i]` request i's (stage-1, stage-2)
+    noise. A random audio-video DiT is kept in fp8 unless a distilled LoRA
+    is given: fusing needs its weights in `dtype`, so with one it is built
+    in bf16 (a DiT kept in fp8 raises). Stats per request: the seconds and
+    peaks of the text encode, stage 1 (and a step), upscale, lora_fuse,
+    stage 2, lora_unfuse, decode and audio decode, the launches, the
+    latents' finiteness."""
+    from ltx2_tpu_torch.loader.fp8 import is_quantized
+    from ltx2_tpu_torch.pipelines.two_stage import TwoStageCFGConfig, TwoStagePipeline
+
+    device = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    images = list(images or [])
+    modules = (dit, upscaler, decoder, encoder, gemma,
+               text_encoder if isinstance(text_encoder, VideoTextEncoder) else None)
+    if ledger is not None and any(m is not None for m in modules):
+        raise ValueError("with a ledger every component comes from its files: pass no module")
+    stats = [{"seed": seed, "dit_init_s": 0.0, "upscaler_init_s": 0.0, "decoder_init_s": 0.0} for seed in seeds]
+    _phase_peak(device, phase_peaks)
+    encoded_audio = [] if audio and audio_contexts is None else None
+    contexts, _ = _text_contexts(seeds, stats, device, contexts, text_encoder, gemma, ledger, phase_peaks,
+                                 negatives=True, tokens=tokens, embeddings=embeddings, audio_contexts=encoded_audio)
+    if encoded_audio and all(a is not None for a in encoded_audio):
+        audio_contexts = encoded_audio
+    gemma = text_encoder = None
+    dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, images, ledger,
+                                    None if contexts is None else contexts[0].shape[-1], dtype, audio,
+                                    fp8=distilled_lora is None)
+    if distilled_lora is not None and is_quantized(dit):
+        raise ValueError("the distilled LoRA cannot be fused into a DiT kept in fp8: load it in bf16 "
+                         "(no --fp8-serving)")
+    upscaler = _spatial_upscaler(stats, device, upscaler, ledger, "the two-stage pipeline")
+    cfg = dit.cfg
+    pipe = TwoStagePipeline(dit, upscaler, statistics=_latent_statistics(cfg, decoder, ledger, device),
+                            video_encoder=encoder)
+
+    configs, latents, audio_latents = [], [], []
+    for i, (seed, st) in enumerate(zip(seeds, stats)):
+        config = TwoStageCFGConfig(
+            height=height, width=width, num_frames=frames, seed=seed, fps=fps, num_inference_steps=steps,
+            cfg_scale=cfg_scale, audio_cfg_scale=audio_cfg_scale, guidance_rescale=rescale_scale,
+            modality_scale=modality_scale, cfg_interval=cfg_interval, distilled_lora_config=distilled_lora,
+            tiling_config=tiling, dtype=cfg.compute_dtype, latent_channels=cfg.in_channels, audio_enabled=audio,
+            use_internal_audio_branch=internal_audio, token_dependent_shift=token_shift)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        (positive, negative), (positive_a, negative_a) = _context_pairs(cfg, contexts, audio_contexts, i, gen,
+                                                                        device, audio)
+        on_phase, marks = _phase_timer(device, st, phase_peaks)
+        latent, audio_latent = pipe(
+            positive, negative, config, images=images, callback=on_phase, skip_decode=True,
+            positive_audio_encoding=positive_a, negative_audio_encoding=negative_a,
+            noises=None if noises is None else noises[i],
+            audio_noises=None if audio_noises is None else audio_noises[i])
+        st["stage1_step_s"] = st["stage1_s"] / steps
+        st["attention_launches"] = flash_attention.launches - marks["attention"]
+        st["latent_std"] = float(latent.float().std())
+        configs.append(config)
+        latents.append(latent)
+        audio_latents.append(audio_latent if audio else None)
+
+    del dit, upscaler, encoder, pipe
+    if ledger is not None:
+        for name in ("transformer", "spatial_upscaler", "video_encoder"):
+            ledger.clear_model(name)
+    return _outputs(latents, audio_latents, configs, stats, device, decoder, ledger, cfg.compute_dtype, phase_peaks,
+                    lambda seed: stage_seeds(seed)[2], skip_decode, audio_decoder, vocoder), stats
+
+
+def generate_videos_a2vid(
+    seeds: Sequence[int],
+    *,
+    audio_file: Optional[str] = None,
+    audio_start_time: float = 0.0,
+    source_waveform: Optional[np.ndarray] = None,
+    height: int = 512,
+    width: int = 768,
+    frames: int = 121,
+    layers: int = 48,
+    device=None,
+    dit: Optional[LTXModel] = None,
+    upscaler: Optional[SpatialUpscaler] = None,
+    decoder: Optional[VideoDecoder] = None,
+    encoder: Optional[VideoEncoder] = None,
+    audio_encoder: Optional[AudioEncoder] = None,
+    contexts: Optional[Sequence[torch.Tensor]] = None,
+    noises: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+    images: Optional[Sequence[ImageCondition]] = None,
+    text_encoder: Union[bool, VideoTextEncoder] = False,
+    gemma: Optional[Gemma3] = None,
+    phase_peaks: bool = False,
+    ledger: Optional[ModelLedger] = None,
+    tokens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    embeddings: Optional[list] = None,
+    fps: float = FPS,
+    tiling: Optional[TilingConfig] = None,
+    dtype: str = "bfloat16",
+    skip_decode: bool = False,
+    audio: bool = False,
+    audio_contexts: Optional[Sequence[torch.Tensor]] = None,
+    audio_noises: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+) -> Tuple[List[np.ndarray], List[dict]]:
+    """Audio-to-video (pipelines/a2vid_two_stage.py), one clip per seed: the
+    source (`audio_file`'s first frames / fps seconds from
+    `audio_start_time`, loaded once at 16 kHz, or `source_waveform`, (channels,
+    samples) at 16 kHz) is encoded by the audio encoder (given, the
+    ledger's, or random at the published widths from seed 8) into the audio
+    latent, which stays frozen through both stages of the distilled recipe
+    on the audio-video DiT (given, the ledger's, or random at full width
+    kept in fp8) while the video denoises against it. With `audio` each
+    result is (frames, the (channels, samples) source at 16 kHz). Without
+    an encoder (a file without one) or a source, the noised initial audio
+    latent is frozen (the reference's fallback), and with `audio` the
+    decoded audio is returned. The other arguments as in
+    `generate_videos_distilled`; with `skip_decode` and a source each
+    result is (latent, None). Stats per request: `audio_load_s` (the
+    first), the seconds and peaks of the text encode, the audio encode,
+    stage 1, upscale, stage 2 and decode, the launches,
+    `audio_frozen_by_stage` (per stage, the audio latent bit for bit
+    unchanged) and the .wav's rate and samples."""
+    from ltx2_tpu_torch.pipelines.a2vid_two_stage import A2VidConfig, A2VidPipelineTwoStage, load_audio_file
+
+    device = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    images = list(images or [])
+    modules = (dit, upscaler, decoder, encoder, audio_encoder, gemma,
+               text_encoder if isinstance(text_encoder, VideoTextEncoder) else None)
+    if ledger is not None and any(m is not None for m in modules):
+        raise ValueError("with a ledger every component comes from its files: pass no module")
+    stats = [{"seed": seed, "dit_init_s": 0.0, "upscaler_init_s": 0.0, "decoder_init_s": 0.0} for seed in seeds]
+    _phase_peak(device, phase_peaks)
+    encoded_audio = [] if audio_contexts is None else None
+    contexts, _ = _text_contexts(seeds, stats, device, contexts, text_encoder, gemma, ledger, phase_peaks,
+                                 tokens=tokens, embeddings=embeddings, audio_contexts=encoded_audio)
+    if encoded_audio and all(a is not None for a in encoded_audio):
+        audio_contexts = encoded_audio
+    gemma = text_encoder = None
+    dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, images, ledger,
+                                    None if contexts is None else contexts[0].shape[-1], dtype, audio=True)
+    upscaler = _spatial_upscaler(stats, device, upscaler, ledger, "the a2vid pipeline")
+    if audio_encoder is None:
+        make = ledger.audio_encoder if ledger is not None else (lambda: make_audio_encoder(device))
+        audio_encoder, stats[0]["audio_encoder_init_s"] = _timed(device, make)
+    cfg = dit.cfg
+    pipe = A2VidPipelineTwoStage(dit, upscaler, statistics=_latent_statistics(cfg, decoder, ledger, device),
+                                 video_encoder=encoder, audio_encoder=audio_encoder)
+    rate = A2VidConfig.audio_sample_rate
+    if source_waveform is None and audio_file:
+        t0 = time.perf_counter()
+        source_waveform, rate = load_audio_file(audio_file, target_sr=rate, start_time=audio_start_time,
+                                                max_duration=frames / fps)
+        stats[0]["audio_load_s"] = time.perf_counter() - t0
+
+    configs, latents, audio_latents = [], [], []
+    for i, (seed, st) in enumerate(zip(seeds, stats)):
+        config = A2VidConfig(height=height, width=width, num_frames=frames, seed=seed, dtype=cfg.compute_dtype,
+                             latent_channels=cfg.in_channels, fps=fps, tiling_config=tiling, audio_enabled=audio,
+                             audio_path=audio_file or "", audio_start_time=audio_start_time)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        context = contexts[i] if contexts is not None else dummy_context(cfg, gen, device)
+        audio_context = (audio_contexts[i] if audio_contexts is not None else
+                         context if contexts is not None else dummy_context(cfg, gen, device, audio=True))
+        on_phase, marks = _phase_timer(device, st, phase_peaks)
+        out = pipe(context, config, callback=on_phase, images=images, audio_encoding=audio_context,
+                   source_waveform=source_waveform, skip_decode=True, noises=None if noises is None else noises[i],
+                   audio_noises=None if audio_noises is None else audio_noises[i])
+        st["attention_launches"] = flash_attention.launches - marks["attention"]
+        st["audio_frozen_by_stage"] = list(pipe.frozen_by_stage)
+        latent = out[0] if audio else out
+        st["latent_std"] = float(latent.float().std())
+        configs.append(config)
+        latents.append(latent)
+        audio_latents.append(None)
+        if audio and source_waveform is None:  # the reference's fallback: the generated audio
+            audio_latents[-1] = out[1]
+
+    del dit, upscaler, encoder, audio_encoder, pipe
+    if ledger is not None:
+        for name in ("transformer", "spatial_upscaler", "video_encoder", "audio_encoder"):
+            ledger.clear_model(name)
+    results = _outputs(latents, audio_latents, configs, stats, device, decoder, ledger, cfg.compute_dtype,
+                       phase_peaks, lambda seed: stage_seeds(seed)[2], skip_decode, None, None)
+    if not audio or source_waveform is None:
+        return results, stats
+    wave = None if skip_decode else np.asarray(source_waveform, np.float32)  # the passthrough
+    if wave is not None:
+        for st in stats:
+            st["audio_sample_rate"], st["audio_samples"] = rate, int(wave.shape[-1])
+            st["audio_finite"] = bool(np.isfinite(wave).all())
+    return [(r, wave) for r in results], stats
+
+
 def generate_video(seed: int = 0, **kwargs) -> np.ndarray:
     """One clip: uint8 (frames, height, width, 3). See generate_videos."""
     videos, _ = generate_videos([seed], **kwargs)
@@ -1028,6 +1311,24 @@ def parse_image_spec(spec: str, default_strength: float = 0.95) -> ImageConditio
     parts = spec.split(":")
     return ImageCondition(image_path=parts[0], frame_index=int(parts[1]) if len(parts) > 1 else 0,
                           strength=float(parts[2]) if len(parts) > 2 else default_strength)
+
+
+PIPELINES = ("bench-e2e", "distilled", "one-stage", "text-to-video", "two-stage", "a2vid")
+# The pipelines with a spatial upscaler between two stages.
+STAGED = ("distilled", "two-stage", "a2vid")
+# The two-stage pipeline's own flags (argparse names).
+TWO_STAGE_FLAGS = ("cfg_stage1", "steps_stage1", "steps_stage2", "modality_scale", "distilled_lora",
+                   "distilled_lora_scale")
+
+
+def _round_two_stage_geometry(args) -> None:
+    """Two-stage rounds the resolution up to a multiple of 64, as the JAX
+    CLI does, with a note on stderr."""
+    if args.height % 64 or args.width % 64:
+        height, width = -(-args.height // 64) * 64, -(-args.width // 64) * 64
+        print(f"two-stage requires resolution divisible by 64; adjusting {args.height}x{args.width} -> "
+              f"{height}x{width}", file=sys.stderr)
+        args.height, args.width = height, width
 
 
 # The one-stage / text-to-video loop options' argparse names.
@@ -1087,11 +1388,13 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
     prints one JSON line per request and returns (frames, stats) as the
     generate functions do (the latents with --skip-vae)."""
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--pipeline", choices=("bench-e2e", "distilled", "one-stage", "text-to-video"),
-                    default="bench-e2e",
+    ap.add_argument("--pipeline", choices=PIPELINES, default="bench-e2e",
                     help="bench-e2e: one stage at full resolution, chunked decode; distilled: the two-stage "
                          "recipe (half-resolution stage 1, 2x upscaler, 3-sigma stage 2, tiled decode); one-stage: "
-                         "the CFG pipeline (CFG* with --rescale-scale > 0); text-to-video: its plain-CFG form")
+                         "the CFG pipeline (CFG* with --rescale-scale > 0); text-to-video: its plain-CFG form; "
+                         "two-stage: a guided stage 1 (--num-inference-steps, CFG with the rescale; with --audio "
+                         "the multi-modal guider), the upscaler, --distilled-lora fused for the distilled stage 2; "
+                         "a2vid: the distilled recipe with the audio latent encoded from --audio-file and frozen")
     ap.add_argument("--prompt", default=None,
                     help=f"tokenized from --gemma-dir's tokenizer.json (default {DEFAULT_PROMPT!r})")
     ap.add_argument("--negative-prompt", default=None,
@@ -1108,19 +1411,22 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
     ap.add_argument("--skip-vae", action="store_true", help="write <base>_latent.npz (key latent), no decode")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="bfloat16", help="the DiT's compute dtype")
     ap.add_argument("--steps", type=int, default=8, help="bench-e2e only: distilled steps")
-    ap.add_argument("--num-inference-steps", type=int, default=30, help="one-stage, text-to-video: Euler steps")
-    ap.add_argument("--cfg-scale", type=float, default=3.0, help="one-stage, text-to-video: guidance scale")
+    ap.add_argument("--num-inference-steps", type=int, default=30,
+                    help="one-stage, text-to-video, two-stage (stage 1): Euler steps")
+    ap.add_argument("--cfg-scale", type=float, default=3.0,
+                    help="one-stage, text-to-video, two-stage (stage 1): guidance scale")
     ap.add_argument("--rescale-scale", type=float, default=0.7,
                     help="one-stage: > 0 selects CFG* (CFGStarRescalingGuider), 0 classic CFG; text-to-video "
-                         "always runs 0")
+                         "always runs 0; two-stage: the guidance rescale of stage 1 (std-ratio with --audio, else "
+                         "RescaledCFGGuider; 0 classic CFG)")
     ap.add_argument("--token-shift", action="store_true",
                     help="one-stage, text-to-video: shift the sigma schedule by the clip's token count, not the fixed 4096")
     ap.add_argument("--image", action="append", default=[], metavar="PATH[:FRAME[:STRENGTH]]",
-                    help="distilled, one-stage, text-to-video: an 8-bit PNG conditioning latent frame FRAME "
+                    help="every flow but bench-e2e: an 8-bit PNG conditioning latent frame FRAME "
                          "(default 0), repeatable")
     ap.add_argument("--image-strength", type=float, default=0.95,
                     help="the strength of --image specs without one")
-    ap.add_argument("--tile-size", type=int, default=None, help="distilled, one-stage: spatial decode tile (px)")
+    ap.add_argument("--tile-size", type=int, default=None, help="every flow but bench-e2e: spatial decode tile (px)")
     ap.add_argument("--tile-overlap", type=int, default=64)
     ap.add_argument("--temporal-tile-size", type=int, default=None, help="temporal decode tile (frames)")
     ap.add_argument("--temporal-tile-overlap", type=int, default=24)
@@ -1129,20 +1435,20 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--requests", type=int, default=1, help="clips to generate, seeds seed..seed+N-1")
     ap.add_argument("--text-encoder", action="store_true",
-                    help="distilled, one-stage, text-to-video: encode each request's prompt and negative prompt "
+                    help="every flow but bench-e2e: encode each request's prompt and negative prompt "
                          "with Gemma-3 and the text encoder in place of the dummy contexts; without --gemma-dir the "
                          "token ids are drawn from the request's seed and the fp32 Gemma-3-12B and V1 text encoder "
                          "have random weights")
     ap.add_argument("--embedding", default=None,
-                    help="distilled, one-stage, text-to-video: an npz of text encodings (positive, negative), "
+                    help="every flow but bench-e2e: an npz of text encodings (positive, negative), "
                          "in place of the text encoder")
     ap.add_argument("--save-embedding", default=None, help="write the first request's encodings as an npz")
     ap.add_argument("--checkpoint", default=None,
-                    help="distilled, one-stage, text-to-video: a unified LTX-2 or LTX-2.3 safetensors checkpoint "
+                    help="every flow but bench-e2e: a unified LTX-2 or LTX-2.3 safetensors checkpoint "
                          "(DiT, VAE encoder and decoder, text projection and connectors), loaded through ModelLedger "
                          "in place of the random weights")
     ap.add_argument("--spatial-upscaler", default=None,
-                    help="distilled with --checkpoint: the spatial upscaler's safetensors")
+                    help="distilled, two-stage, a2vid with --checkpoint: the spatial upscaler's safetensors")
     ap.add_argument("--gemma-dir", default=None,
                     help="with --checkpoint: the directory of Gemma-3's model-*.safetensors shards and its "
                          "tokenizer.json (and tokenizer_config.json); turns text encoding on")
@@ -1153,13 +1459,29 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
     ap.add_argument("--lora", action="append", default=[], metavar="PATH[:STRENGTH]",
                     help="with --checkpoint: a LoRA file fused into the DiT at load, repeatable")
     ap.add_argument("--audio", "--generate-audio", action="store_true",
-                    help="distilled, one-stage, text-to-video: generate audio with the audio-video DiT (the "
-                         "checkpoint's, loaded with its audio stream, else random at full width, kept in fp8) and "
-                         "write it beside a .y4m as <base>.wav (muxed by ffmpeg into other containers)")
+                    help="every flow but bench-e2e: generate audio with the audio-video DiT (the checkpoint's, "
+                         "loaded with its audio stream, else random at full width, kept in fp8) and write it beside "
+                         "a .y4m as <base>.wav (muxed by ffmpeg into other containers); a2vid writes the source")
     ap.add_argument("--no-internal-audio", action="store_true",
                     help="an audio-video DiT leaves the audio stream out when --audio is not given")
     ap.add_argument("--audio-cfg-scale", type=float, default=7.0,
-                    help="one-stage, text-to-video with --audio: the audio stream's guidance scale")
+                    help="one-stage, text-to-video, two-stage with --audio: the audio stream's guidance scale")
+    two = ap.add_argument_group("two-stage and a2vid (the JAX CLI's names and defaults)")
+    two.add_argument("--cfg-stage1", type=float, default=None, help="two-stage: stage 1's CFG (default --cfg-scale)")
+    two.add_argument("--steps-stage1", type=int, default=None,
+                     help="two-stage: stage 1's steps (sets --num-inference-steps)")
+    two.add_argument("--steps-stage2", type=int, default=None,
+                     help="two-stage: stage 2 runs the fixed 3-sigma distilled tail; other values are ignored")
+    two.add_argument("--modality-scale", type=float, default=3.0,
+                     help="two-stage with --audio: the modality-isolation guidance scale (1 = off)")
+    two.add_argument("--distilled-lora", default=None,
+                     help="two-stage: a LoRA file fused into the DiT for stage 2 and subtracted after it (the DiT "
+                          "must be bf16: not with --fp8-serving)")
+    two.add_argument("--distilled-lora-scale", type=float, default=1.0, help="the distilled LoRA's strength")
+    two.add_argument("--audio-file", default=None,
+                     help="a2vid: the source audio (a .wav; 16-bit PCM is read by the port, other formats "
+                          "through ffmpeg; or the PCM track of an .avi/.mov/.mp4), its first frames / fps "
+                          "seconds encoded and frozen; with --audio it is the output's .wav at 16 kHz")
     loop = ap.add_argument_group("one-stage and text-to-video loop options (the JAX CLI's names and defaults)")
     loop.add_argument("--stg-scale", type=float, default=0.0,
                       help="STG: a third guidance row with self-attention skipped in --stg-blocks")
@@ -1190,9 +1512,27 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
                            "with --checkpoint)")
     args = ap.parse_args(argv)
     cfg_flow = args.pipeline in ("one-stage", "text-to-video")
-    loop_flags = [f"--{dest.replace('_', '-')}" for dest in LOOP_FLAGS if getattr(args, dest) != ap.get_default(dest)]
+    two_stage = args.pipeline == "two-stage"
+    loop_flags = [f"--{dest.replace('_', '-')}" for dest in LOOP_FLAGS if getattr(args, dest) != ap.get_default(dest)
+                  and not (two_stage and dest == "cfg_interval")]
     if loop_flags and not cfg_flow:
         ap.error(f"{', '.join(loop_flags)} need --pipeline one-stage or text-to-video")
+    two_flags = [f"--{dest.replace('_', '-')}" for dest in TWO_STAGE_FLAGS
+                 if getattr(args, dest) != ap.get_default(dest)]
+    if two_flags and not two_stage:
+        ap.error(f"{', '.join(two_flags)} need --pipeline two-stage")
+    if args.audio_file and args.pipeline != "a2vid":
+        ap.error("--audio-file needs --pipeline a2vid")
+    if args.distilled_lora and args.fp8_serving:
+        ap.error("--distilled-lora is fused into the DiT's weights, which --fp8-serving keeps in fp8: drop "
+                 "--fp8-serving (the DiT loads in bf16)")
+    if two_stage:
+        _round_two_stage_geometry(args)
+        if args.steps_stage1 is not None:
+            args.num_inference_steps = args.steps_stage1
+        if args.steps_stage2 is not None and args.steps_stage2 != 3:
+            print(f"--steps-stage2 {args.steps_stage2}: stage 2 runs the fixed 3-sigma distilled tail; ignored",
+                  file=sys.stderr)
     if args.pipeline == "bench-e2e":
         for flag, used in (("--text-encoder", args.text_encoder), ("--checkpoint", args.checkpoint),
                            ("--audio", args.audio),
@@ -1201,9 +1541,9 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
                            ("--save-embedding", args.save_embedding),
                            ("--tile-size", args.tile_size), ("--temporal-tile-size", args.temporal_tile_size)):
             if used:
-                ap.error(f"{flag} needs --pipeline distilled, one-stage or text-to-video")
-    if args.spatial_upscaler and args.pipeline != "distilled" and not args.upscale_spatial:
-        ap.error("--spatial-upscaler needs --pipeline distilled, or --upscale-spatial")
+                ap.error(f"{flag} needs another --pipeline than bench-e2e")
+    if args.spatial_upscaler and args.pipeline not in STAGED and not args.upscale_spatial:
+        ap.error("--spatial-upscaler needs --pipeline distilled, two-stage or a2vid, or --upscale-spatial")
     file_flags = {"--spatial-upscaler": args.spatial_upscaler, "--gemma-dir": args.gemma_dir,
                   "--fp8-serving": args.fp8_serving, "--gemma-fp8": args.gemma_fp8, "--lora": args.lora}
     if not args.checkpoint and any(file_flags.values()):
@@ -1238,18 +1578,19 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
                 checkpoint_path=args.checkpoint, gemma_path=args.gemma_dir, spatial_upscaler_path=args.spatial_upscaler,
                 loras=[parse_lora_spec(spec) for spec in args.lora], target_dtype=args.dtype,
                 keep_fp8=args.fp8_serving, gemma_fp8=args.gemma_fp8, decoder_dtype="bfloat16", device=args.device,
-                include_audio=args.audio,
+                include_audio=args.audio or args.pipeline == "a2vid",
             )
         tokens = None
         if args.gemma_dir and encode:
             tokens = tokenize_prompts(args.gemma_dir, DEFAULT_PROMPT if args.prompt is None else args.prompt,
                                       DEFAULT_NEGATIVE_PROMPT if args.negative_prompt is None else args.negative_prompt)
         contexts = audio_contexts = None
+        pairs = cfg_flow or two_stage
         if args.embedding:
-            context = load_embedding(args.embedding, args.device, negatives=cfg_flow)
+            context = load_embedding(args.embedding, args.device, negatives=pairs)
             contexts = [context] * len(seeds)
-            audio_context = load_embedding(args.embedding, args.device, negatives=cfg_flow, audio=True)
-            if args.audio and audio_context is not None:
+            audio_context = load_embedding(args.embedding, args.device, negatives=pairs, audio=True)
+            if (args.audio or args.pipeline == "a2vid") and audio_context is not None:
                 audio_contexts = [audio_context] * len(seeds)
         embeddings = [] if args.save_embedding else None
         images = [parse_image_spec(spec, args.image_strength) for spec in args.image]
@@ -1269,6 +1610,17 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
                 ge_gamma=args.ge_gamma, sampler=args.sampler, cross_attn_scale=args.cross_attn_scale,
                 cross_attn_start_block=args.cross_attn_start_block, cache_text_kv=args.cache_text_kv,
                 audio_cfg_scale=args.audio_cfg_scale, **flow)
+        elif two_stage:
+            lora = LoRAConfig(args.distilled_lora, args.distilled_lora_scale) if args.distilled_lora else None
+            videos, stats = generate_videos_two_stage(
+                seeds, steps=args.num_inference_steps,
+                cfg_scale=args.cfg_scale if args.cfg_stage1 is None else args.cfg_stage1,
+                audio_cfg_scale=args.audio_cfg_scale, rescale_scale=args.rescale_scale,
+                modality_scale=args.modality_scale, cfg_interval=args.cfg_interval, token_shift=args.token_shift,
+                distilled_lora=lora, **flow)
+        elif args.pipeline == "a2vid":
+            flow.pop("internal_audio")
+            videos, stats = generate_videos_a2vid(seeds, audio_file=args.audio_file, **flow)
         else:
             videos, stats = generate_videos_distilled(seeds, **flow)
         if args.embedding:

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ltx2_tpu_torch.models.audio_vae.decoder import AudioDecoder, AudioDecoderConfig
+from ltx2_tpu_torch.models.audio_vae.encoder import AudioEncoder, AudioEncoderConfig
 from ltx2_tpu_torch.models.audio_vae.vocoder import Vocoder, VocoderConfig, VocoderWithBWE, VocoderWithBWEConfig
 from ltx2_tpu_torch.models.text_encoder.encoder import TextEncoderConfig, VideoTextEncoder
 from ltx2_tpu_torch.models.text_encoder.gemma3 import Gemma3, Gemma3Config
@@ -155,6 +156,15 @@ def audio_decoder_from_numpy(tree: Mapping, cfg: AudioDecoderConfig, device=None
     decoder = AudioDecoder(cfg, device=device)
     _load(decoder, flatten_tree(tree))
     return decoder
+
+
+def audio_encoder_from_numpy(tree: Mapping, cfg: AudioEncoderConfig, device=None) -> AudioEncoder:
+    """An audio-encoder parameter tree (`conv_in`, `down_blocks.{i}.res_blocks.{j}`
+    / `.downsample.conv`, `mid_block_{1,2}`, `conv_out`,
+    `per_channel_statistics`) -> fp32 AudioEncoder."""
+    encoder = AudioEncoder(cfg, device=device)
+    _load(encoder, flatten_tree(tree))
+    return encoder
 
 
 def vocoder_from_numpy(tree: Mapping, cfg, device=None):

@@ -6,8 +6,13 @@ A LoRA file holds `lora_A` (rank, in) / `lora_B` (out, rank) pairs (or
 `diffusion_model.` prefix. Fusion adds strength * (B @ A) to the weight in
 fp32 and rounds back to the weight's dtype; aliases of one weight (the same
 key with and without a prefix) each add their delta. Every target is
-resolved and checked before any weight changes, and the applied deltas can
-be returned to subtract them later (`unfuse_lora_deltas`).
+resolved and checked before any weight changes. `return_deltas` returns
+what `unfuse_lora_deltas` needs to subtract the deltas later: each fused
+weight's LoRA terms (the A and B tensors stay in the files' host dicts),
+from which each delta is made again, one weight at a time, by the same
+`_delta`; no delta is kept on the device between the two (a distilled LoRA
+on every linear of the 48-block audio-video DiT is 18.7e9 fp32 weights,
+75 GB).
 
 B @ A is computed in float64 on the weight's device and rounded once to
 fp32: its rank-length sums of exact products then round the same on the
@@ -19,6 +24,9 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
+
+# {parameter name: one entry per fused alias, each that alias's LoRA terms}
+AppliedLoRA = Dict[str, List[list]]
 
 import torch
 import torch.nn as nn
@@ -38,10 +46,13 @@ class LoRAConfig:
 
 
 def load_lora_weights(path: str) -> Dict[str, torch.Tensor]:
-    """Every tensor of the LoRA file, fp32 on the CPU."""
+    """Every tensor of the LoRA file on the CPU, in the file's dtype (the
+    deltas are formed in float64, which holds bf16 and fp32 exactly, so a
+    bf16 file is not widened on the host: half the host memory and the
+    copies to the card)."""
     f = SafetensorsFile(path)
     try:
-        return {k: f.get(k).to(torch.float32, copy=True) for k in f.keys()}
+        return {k: f.get(k).clone() for k in f.keys()}
     finally:
         f.close()
 
@@ -74,9 +85,10 @@ def find_lora_keys_for_weight(lora_weights: Dict[str, torch.Tensor], base_key: s
 def compute_lora_delta(lora_weights: Dict[str, torch.Tensor], key_a: str, key_b: str, strength: float = 1.0,
                        device=None) -> torch.Tensor:
     """strength * (B @ A), fp32 on `device`: the product in float64, rounded
-    once to fp32, then scaled in fp32."""
-    a = lora_weights[key_a].to(device, torch.float64)
-    b = lora_weights[key_b].to(device, torch.float64)
+    once to fp32, then scaled in fp32. A and B go to the device in their own
+    dtype and are widened there."""
+    a = lora_weights[key_a].to(device).double()
+    b = lora_weights[key_b].to(device).double()
     return (b @ a).to(torch.float32) * strength
 
 
@@ -133,8 +145,8 @@ def fuse_lora_into_params(model: nn.Module, lora_configs: List[LoRAConfig], retu
     an fp8 or int8 target (additive deltas need full-precision weights: load
     dequantized when LoRAs are given). Keys the model has no weight for, or
     whose delta's shape differs, are skipped. With `return_deltas` also
-    returns {parameter name: fp32 delta}, summed over aliases, for
-    `unfuse_lora_deltas`."""
+    returns {parameter name: each alias's LoRA terms} (`AppliedLoRA`) for
+    `unfuse_lora_deltas`, which makes the deltas again; no delta is kept."""
     plan = []
     for lora_key, terms in _lora_terms(lora_configs).items():
         tree_key = _canonical_tree_key(lora_key)
@@ -151,22 +163,29 @@ def fuse_lora_into_params(model: nn.Module, lora_configs: List[LoRAConfig], retu
             continue
         plan.append((tree_key, param, terms))
 
-    applied: Dict[str, torch.Tensor] = {}
+    applied: AppliedLoRA = {}
     for tree_key, param, terms in plan:
-        delta = _delta(terms, param.device)
-        param.copy_((param.float() + delta).to(param.dtype))
+        param.copy_((param.float() + _delta(terms, param.device)).to(param.dtype))
         if return_deltas:
-            applied[tree_key] = applied[tree_key] + delta if tree_key in applied else delta
+            applied.setdefault(tree_key, []).append(terms)
     if return_deltas:
         return model, applied
     return model
 
 
 @torch.no_grad()
-def unfuse_lora_deltas(model: nn.Module, applied: Dict[str, torch.Tensor]) -> nn.Module:
-    """Subtract previously applied deltas (restores the weights up to the
-    rounding of their dtype)."""
-    for name, delta in applied.items():
+def unfuse_lora_deltas(model: nn.Module, applied: AppliedLoRA) -> nn.Module:
+    """Subtract the deltas `fuse_lora_into_params(return_deltas=True)`
+    added (restores the weights up to the rounding of their dtype): each
+    weight's delta is made again from its terms, the same fp32 values the
+    fuse added, its aliases summed in fuse order, and freed before the next
+    weight's is made."""
+    for name, alias_terms in applied.items():
         param = _parameter(model, name)
-        param.copy_((param.float() - delta.to(param.device)).to(param.dtype))
+        total = None
+        for terms in alias_terms:
+            d = _delta(terms, param.device)
+            total = d if total is None else total + d
+        param.copy_((param.float() - total).to(param.dtype))
+        del total
     return model

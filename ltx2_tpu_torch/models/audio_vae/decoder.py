@@ -108,24 +108,26 @@ def init_audio_decoder_(decoder: AudioDecoder, generator: torch.Generator) -> Au
     return decoder
 
 
-def causal_conv2d(p: Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """Conv over (B, C, T, M): front padding along T, symmetric along M."""
+def causal_conv2d(p: Conv2d, x: torch.Tensor, causal: bool = True, stride: int = 1) -> torch.Tensor:
+    """Conv over (B, C, T, M) at `stride` on both axes: front padding along
+    T (symmetric when not `causal`), symmetric along M."""
     k = p.weight.shape[-1]
     if k > 1:
         pad = k - 1
-        x = F.pad(x, (pad // 2, pad - pad // 2, pad, 0))
-    return F.conv2d(x, p.weight, p.bias)
+        t_pad = (pad, 0) if causal else (pad // 2, pad - pad // 2)
+        x = F.pad(x, (pad // 2, pad - pad // 2, *t_pad))
+    return F.conv2d(x, p.weight, p.bias, stride=stride)
 
 
 def _silu_norm(x: torch.Tensor) -> torch.Tensor:
     return F.silu(pixel_norm(x, 1))
 
 
-def _res_block(p: ResBlock2d, x: torch.Tensor) -> torch.Tensor:
-    h = causal_conv2d(p.conv1, _silu_norm(x))
-    h = causal_conv2d(p.conv2, _silu_norm(h))
+def _res_block(p: ResBlock2d, x: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    h = causal_conv2d(p.conv1, _silu_norm(x), causal)
+    h = causal_conv2d(p.conv2, _silu_norm(h), causal)
     if hasattr(p, "skip"):
-        x = causal_conv2d(p.skip, x)
+        x = causal_conv2d(p.skip, x, causal)
     return x + h
 
 

@@ -282,6 +282,22 @@ class Vocoder(nn.Module):
         self.conv_post = Conv1d((2 if cfg.stereo else 1, final, 7), 2 if cfg.stereo else 1, device=device)
 
 
+class MelSTFT(nn.Module):
+    """A log-mel analysis's buffers: `stft_fn.forward_basis` (the windowed
+    DFT rows, `make_stft_basis`) and `mel_basis` (n_mels, n_fft / 2 + 1),
+    zeros unless given (a checkpoint's, or `make_mel_basis`')."""
+
+    def __init__(self, cfg: MelSTFTConfig = MelSTFTConfig(), mel_basis: Optional[np.ndarray] = None, *,
+                 device=None):
+        super().__init__()
+        self.stft_fn = nn.Module()
+        self.stft_fn.register_buffer(
+            "forward_basis", torch.from_numpy(make_stft_basis(cfg.filter_length, cfg.win_length)).to(device))
+        basis = (torch.zeros(cfg.n_mel_channels, cfg.filter_length // 2 + 1) if mel_basis is None
+                 else torch.from_numpy(np.asarray(mel_basis, np.float32)))
+        self.register_buffer("mel_basis", basis.to(device))
+
+
 class VocoderWithBWE(nn.Module):
     """LTX-2.3's chain: `vocoder`, `bwe_generator` and `mel_stft`
     (`stft_fn.forward_basis`, `mel_basis`)."""
@@ -295,13 +311,7 @@ class VocoderWithBWE(nn.Module):
             bwe_cfg = replace(bwe_cfg, in_channels_override=n_ch * cfg.mel_stft.n_mel_channels)
         self.vocoder = Vocoder(cfg.vocoder, device=device)
         self.bwe_generator = Vocoder(bwe_cfg, device=device)
-        m = cfg.mel_stft
-        self.mel_stft = nn.Module()
-        self.mel_stft.stft_fn = nn.Module()
-        self.mel_stft.stft_fn.register_buffer(
-            "forward_basis", torch.from_numpy(make_stft_basis(m.filter_length, m.win_length)).to(device))
-        self.mel_stft.register_buffer("mel_basis", torch.zeros(m.n_mel_channels, m.filter_length // 2 + 1,
-                                                               device=device))
+        self.mel_stft = MelSTFT(cfg.mel_stft, device=device)
 
 
 @torch.no_grad()
@@ -397,16 +407,16 @@ def vocoder_apply(vocoder: Vocoder, mel: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def mel_spectrogram(chain: VocoderWithBWE, y: torch.Tensor) -> torch.Tensor:
+def mel_spectrogram(params: MelSTFT, cfg: MelSTFTConfig, y: torch.Tensor) -> torch.Tensor:
     """(B, T) waveform -> log-mel (B, n_mel, frames): STFT magnitude by a
-    strided conv with the DFT basis (left padding win - hop), the mel
-    basis, log of max(mel, 1e-5)."""
-    cfg = chain.cfg.mel_stft
+    strided conv with `params`' DFT basis (left padding win - hop), its mel
+    basis, log of max(mel, 1e-5). The BWE chain's re-analysis and the
+    audio encoder's analysis (analysis.py) share it."""
     y = F.pad(y[:, None, :], (max(0, cfg.win_length - cfg.hop_length), 0))
-    spec = F.conv1d(y, chain.mel_stft.stft_fn.forward_basis, stride=cfg.hop_length)
+    spec = F.conv1d(y, params.stft_fn.forward_basis, stride=cfg.hop_length)
     n_freqs = spec.shape[1] // 2
     magnitude = torch.sqrt(spec[:, :n_freqs] ** 2 + spec[:, n_freqs:] ** 2)
-    mel = torch.einsum("mf,bft->bmt", chain.mel_stft.mel_basis, magnitude)
+    mel = torch.einsum("mf,bft->bmt", params.mel_basis, magnitude)
     return torch.log(mel.clamp_min(1e-5))
 
 
@@ -427,7 +437,7 @@ def vocoder_with_bwe_apply(chain: VocoderWithBWE, mel: torch.Tensor) -> torch.Te
     if length % cfg.hop_length:
         x = F.pad(x, (0, cfg.hop_length - length % cfg.hop_length))
     b, n_ch, t = x.shape
-    log_mel = mel_spectrogram(chain, x.reshape(b * n_ch, t))
+    log_mel = mel_spectrogram(chain.mel_stft, cfg.mel_stft, x.reshape(b * n_ch, t))
     log_mel = log_mel.reshape(b, n_ch, log_mel.shape[1], log_mel.shape[2]).permute(0, 1, 3, 2)
     residual = vocoder_apply(chain.bwe_generator, log_mel)
     ratio = cfg.output_sampling_rate // cfg.input_sampling_rate

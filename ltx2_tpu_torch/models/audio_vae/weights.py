@@ -1,18 +1,22 @@
-"""The audio decoder and the vocoder from (and to) the unified checkpoint
-(counterpart of the loaders in ltx2_tpu/models/audio_vae/decoder.py and
-vocoder.py).
+"""The audio decoder, the audio encoder and the vocoder from (and to) the
+unified checkpoint (counterpart of the loaders in
+ltx2_tpu/models/audio_vae/decoder.py, encoder.py and vocoder.py).
 
 Keys: `audio_vae.decoder.*` (`conv_in.conv`, `mid.block_{1,2}`,
 `up.{level}.block.{j}` with `conv1.conv`, `conv2.conv`,
 `nin_shortcut.conv`, `up.{level}.upsample.conv.conv`, `conv_out.conv`) and
-`audio_vae.per_channel_statistics.{mean,std}-of-means`; `vocoder.*` for the
+`audio_vae.per_channel_statistics.{mean,std}-of-means` (shared by the
+decoder and the encoder); `audio_vae.encoder.*` (`conv_in.conv`,
+`down.{level}.block.{j}`, `down.{level}.downsample.conv.conv`,
+`mid.block_{1,2}`, `conv_out.conv`); `vocoder.*` for the
 plain vocoder, and for LTX-2.3's chain `vocoder.vocoder.*`,
 `vocoder.bwe_generator.*` and `vocoder.mel_stft.*` (`stft_fn.forward_basis`,
 `mel_basis`). A SnakeBeta activation's filters are
 `upsample.filter` and `downsample.lowpass.filter`; the port's defaults stay
 where the file has none, as the JAX package computes them. The
 architectures are read off the file: the decoder's from its tensors'
-shapes and names, the vocoder's from the metadata's `vocoder` config (its
+shapes and names (the encoder's likewise), the vocoder's from the
+metadata's `vocoder` config (its
 `bwe` entry selects the chain, as the JAX ledger selects it), the
 published defaults where the metadata says nothing.
 """
@@ -31,12 +35,14 @@ from ltx2_tpu_torch.loader.modules import assign_, require_loaded
 from ltx2_tpu_torch.loader.safetensors_io import SafetensorsFile
 from ltx2_tpu_torch.loader.weight_loader import read_checkpoint_config
 from ltx2_tpu_torch.models.audio_vae.decoder import AudioDecoder, AudioDecoderConfig
+from ltx2_tpu_torch.models.audio_vae.encoder import AudioEncoder, AudioEncoderConfig
 from ltx2_tpu_torch.models.video_vae.decoder import PerChannelStatistics
 from ltx2_tpu_torch.models.audio_vae.vocoder import (
     Activation1d, Vocoder, VocoderConfig, VocoderWithBWE, VocoderWithBWEConfig, vocoder_with_bwe_config_from_checkpoint,
 )
 
 DECODER_PREFIX = "audio_vae.decoder."
+ENCODER_PREFIX = "audio_vae.encoder."
 STATS_PREFIX = "audio_vae.per_channel_statistics."
 
 
@@ -79,6 +85,64 @@ def audio_decoder_config_from_checkpoint(path: str) -> AudioDecoderConfig:
                                   mel_bins=mel)
     finally:
         f.close()
+
+
+def audio_encoder_checkpoint_keys(encoder: AudioEncoder) -> Dict[str, str]:
+    """{module tensor name: checkpoint key}."""
+    keys = {}
+    for name, _ in (*encoder.named_parameters(), *encoder.named_buffers()):
+        if name.startswith("per_channel_statistics."):
+            keys[name] = STATS_PREFIX + name.rpartition(".")[2].replace("_", "-")
+            continue
+        key = re.sub(r"^mid_block_(\d)\.", r"mid.block_\1.", name)
+        key = re.sub(r"^down_blocks\.(\d+)\.res_blocks\.(\d+)\.", r"down.\1.block.\2.", key)
+        key = re.sub(r"^down_blocks\.(\d+)\.downsample\.conv\.", r"down.\1.downsample.conv.", key)
+        key = key.replace(".skip.", ".nin_shortcut.")
+        owner, _, leaf = key.rpartition(".")
+        keys[name] = f"{ENCODER_PREFIX}{owner}.conv.{leaf}"
+    return keys
+
+
+def audio_encoder_config_from_checkpoint(path: str) -> AudioEncoderConfig:
+    """The encoder's widths, levels and res blocks from the file's tensors
+    (conv_out's 2 z outputs: mean and log-variance); the mel bins from the
+    statistics (16 without them)."""
+    f = SafetensorsFile(path)
+    try:
+        def shape(name: str):
+            return f.info(ENCODER_PREFIX + name)[1]
+
+        ch, in_ch = shape("conv_in.conv.weight")[:2]
+        z = shape("conv_out.conv.weight")[0] // 2
+        levels = sorted({int(m.group(1)) for k in f.keys() if (m := re.match(rf"{ENCODER_PREFIX}down\.(\d+)\.", k))})
+        blocks = {int(m.group(1)) for k in f.keys() if (m := re.match(rf"{ENCODER_PREFIX}down\.0\.block\.(\d+)\.", k))}
+        mult = tuple(shape(f"down.{i}.block.0.conv2.conv.weight")[0] // ch for i in levels)
+        stats = STATS_PREFIX + "mean-of-means"
+        mel = f.info(stats)[1][0] // z if stats in f else 16
+        return AudioEncoderConfig(ch=ch, in_ch=in_ch, ch_mult=mult, num_res_blocks=len(blocks), z_channels=z,
+                                  mel_bins=mel)
+    finally:
+        f.close()
+
+
+def load_audio_encoder_params(path: str, cfg: Optional[AudioEncoderConfig] = None,
+                              device=None) -> Optional[AudioEncoder]:
+    """The audio encoder of the file on `device` (default cuda), fp32; None
+    when the file holds no encoder. Statistics the file lacks stay 0 and 1."""
+    if not _has(path, ENCODER_PREFIX):
+        return None
+    device = resolve_device(device)
+    encoder = AudioEncoder(cfg or audio_encoder_config_from_checkpoint(path), device="meta")
+    encoder.per_channel_statistics = PerChannelStatistics(encoder.per_channel_statistics.mean_of_means.numel(),
+                                                          device=device)
+    _fill(encoder, path, audio_encoder_checkpoint_keys(encoder), device)
+    require_loaded(encoder, path, "audio encoder")
+    return encoder
+
+
+def audio_encoder_to_checkpoint(encoder: AudioEncoder) -> Dict[str, torch.Tensor]:
+    tensors = dict((*encoder.named_parameters(), *encoder.named_buffers()))
+    return {key: tensors[name].detach().cpu() for name, key in audio_encoder_checkpoint_keys(encoder).items()}
 
 
 def _has(path: str, prefix: str) -> bool:

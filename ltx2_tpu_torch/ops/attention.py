@@ -22,8 +22,9 @@ forward alone, without residuals. Each kernel is built from the repository's
 source with nvcc into `ltx2_tpu_torch/_build/` on first use and loaded with
 ctypes (`ops/_build.py`, shared with the conv kernel). Each wrapper counts its
 launches in its `launches` attribute; the forward also counts those with a
-key-valid mask in `flash_attention.key_valid_launches` and each head dim's in
-`flash_attention.launches_by_head_dim`.
+key-valid mask in `flash_attention.key_valid_launches`, each head dim's in
+`flash_attention.launches_by_head_dim` and each batch size's in
+`flash_attention.launches_by_batch`.
 
 `sdpa` sends a call to the kernels or to plain torch ops by contract alone
 (`attention_route`), never because a kernel failed: the plain route takes
@@ -223,6 +224,7 @@ def _launch_fwd(q, k, v, scale, kv_valid, residuals: bool):
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {err}")
     flash_attention.launches += 1
     flash_attention.launches_by_head_dim[d] = flash_attention.launches_by_head_dim.get(d, 0) + 1
+    flash_attention.launches_by_batch[b] = flash_attention.launches_by_batch.get(b, 0) + 1
     if kv_valid is not None:
         flash_attention.key_valid_launches += 1
     return out, l, m
@@ -357,6 +359,7 @@ def flash_attention(
 flash_attention.launches = 0
 flash_attention.key_valid_launches = 0  # the launches with a key-valid mask, counted in `launches` too
 flash_attention.launches_by_head_dim = {}  # {64: n, 128: n}, counted in `launches` too
+flash_attention.launches_by_batch = {}  # {batch size: n}, counted in `launches` too
 
 
 def mask_kind(mask: Optional[torch.Tensor]) -> Optional[str]:

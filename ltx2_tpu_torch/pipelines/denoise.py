@@ -37,11 +37,24 @@ to the perturbed streams), APG and the stateful APG per stream, guidance
 reuse with separate video and audio deltas, Heun on both, GE on the video
 stream only, as the JAX loop does.
 
+The multi-modal loop (`make_multimodal_av_denoise_loop`, the two-stage CFG
+pipeline's stage 1) guides both streams with the MultiModalGuider's
+arithmetic in delta form: rows [cond, uncond (CFG), stg (STG: video
+self-attention skipped), mod (modality isolation: both audio<->video
+cross-attentions skipped in every block)] x B, pass-major; per stream
+pred = cond + (cfg - 1) d_uncond + stg (cond - ptb) + (modality - 1) d_mod,
+the fp32 deltas cast to the row's dtype before they are scaled, then the
+per-sample std-ratio rescale; steps flagged by `skip_step` take cond
+alone. Under guidance reuse (`cfg_interval` k > 1) the uncond and
+modality rows run on steps i % k == 0 only and their fp32 deltas, per
+stream, carry between; the STG row always runs. Euler steps.
+
 Not ported: sequence/pipeline parallelism (a mesh raises).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -49,9 +62,9 @@ import numpy as np
 import torch
 
 from ltx2_tpu_torch.components.diffusion_steps import EulerDiffusionStep
-from ltx2_tpu_torch.components.guiders import CFGGuider
+from ltx2_tpu_torch.components.guiders import CFGGuider, std_ratio_rescale
 from ltx2_tpu_torch.components.perturbations import (
-    BatchedPerturbationConfig, PerturbationConfig, create_stg_perturbation,
+    BatchedPerturbationConfig, Perturbation, PerturbationConfig, PerturbationType, create_stg_perturbation,
 )
 from ltx2_tpu_torch.models.transformer.model import (
     LTXModel, LTXModelConfig, precompute_text_kv, stream_pe, x0_model_apply,
@@ -198,11 +211,15 @@ def _ge_correct(loop_cfg: DenoiseLoopConfig, latent, denoised, sigma, prev_veloc
     return denoised, current_velocity
 
 
-def _check_loop(loop_cfg: DenoiseLoopConfig, mesh, pipeline_axis, stateful: bool) -> bool:
-    """The JAX loops' refusals; returns whether guidance is reused."""
+def _refuse_mesh(mesh, pipeline_axis) -> None:
     if mesh is not None or pipeline_axis is not None:
         raise NotImplementedError("not ported to the PyTorch denoise loop yet: sequence/pipeline parallelism "
                                   "(mesh, pipeline_axis)")
+
+
+def _check_loop(loop_cfg: DenoiseLoopConfig, mesh, pipeline_axis, stateful: bool) -> bool:
+    """The JAX loops' refusals; returns whether guidance is reused."""
+    _refuse_mesh(mesh, pipeline_axis)
     if loop_cfg.cfg_interval < 1:
         raise ValueError(f"cfg_interval must be >= 1, got {loop_cfg.cfg_interval}")
     reuse_cfg = loop_cfg.need_cfg and loop_cfg.cfg_interval > 1
@@ -450,6 +467,198 @@ def make_av_denoise_loop(
                     d2 = post_process_latent(d2, masks[s], cleans[s])
                     new.append(_heun(latents[s], denoised[s], predicted[s], d2, sigma, sigma_next))
                 latents = new
+        return video_state.replace(latent=latents[0]), audio_state.replace(latent=latents[1])
+
+    return loop
+
+
+@dataclass(frozen=True)
+class MultiModalLoopConfig:
+    """Static configuration of the multi-modal AV loop: the
+    MultiModalGuiderParams of both streams (CFG + STG + modality isolation,
+    the std-ratio rescale, step skipping) and guidance reuse (`cfg_interval`
+    k: the uncond and modality rows every k-th step only, their fp32 deltas
+    carried between; 1 = exact). `uniform_timesteps` is the promise that
+    both denoise masks are all ones (per-row timesteps); the JAX loop
+    always runs per token, which computes the same values."""
+
+    video_cfg_scale: float = 3.0
+    audio_cfg_scale: float = 7.0
+    stg_scale: float = 0.0
+    stg_blocks: Optional[Tuple[int, ...]] = None
+    rescale_scale: float = 0.0
+    modality_scale: float = 3.0
+    skip_step: int = 0
+    cfg_interval: int = 1
+    uniform_timesteps: bool = False
+
+    @property
+    def need_cfg(self) -> bool:
+        return not math.isclose(self.video_cfg_scale, 1.0) or not math.isclose(self.audio_cfg_scale, 1.0)
+
+    @property
+    def need_stg(self) -> bool:
+        return not math.isclose(self.stg_scale, 0.0)
+
+    @property
+    def need_mod(self) -> bool:
+        return not math.isclose(self.modality_scale, 1.0)
+
+    @property
+    def rows(self) -> int:
+        return 1 + int(self.need_cfg) + int(self.need_stg) + int(self.need_mod)
+
+
+def _build_mm_perturbations(mm: MultiModalLoopConfig, with_guidance: bool = True, batch: int = 1
+                            ) -> Optional[BatchedPerturbationConfig]:
+    """Per-row perturbations in _mm_split's order: the STG pass's rows skip
+    video self-attention (in `stg_blocks`), the modality pass's rows both
+    audio<->video cross-attentions in every block. Without `with_guidance`
+    (a reuse step) the uncond and modality rows are absent."""
+    if not (mm.need_stg or (mm.need_mod and with_guidance)):
+        return None
+    rows = [PerturbationConfig.empty()] * batch
+    if mm.need_cfg and with_guidance:
+        rows += [PerturbationConfig.empty()] * batch
+    if mm.need_stg:
+        stg = Perturbation(type=PerturbationType.SKIP_VIDEO_SELF_ATTN,
+                           blocks=None if mm.stg_blocks is None else tuple(mm.stg_blocks))
+        rows += [PerturbationConfig(perturbations=(stg,))] * batch
+    if mm.need_mod and with_guidance:
+        rows += [PerturbationConfig(perturbations=(Perturbation(type=PerturbationType.SKIP_A2V_CROSS_ATTN),
+                                                   Perturbation(type=PerturbationType.SKIP_V2A_CROSS_ATTN)))] * batch
+    return BatchedPerturbationConfig(perturbations=tuple(rows))
+
+
+def _mm_split(mm: MultiModalLoopConfig, outs: torch.Tensor, batch: int = 1, with_guidance: bool = True):
+    """Pass-major rows -> (cond, uncond, ptb, mod), absent rows None; without
+    `with_guidance` the reduced reuse-step layout (no uncond, no mod)."""
+    passes = [True, mm.need_cfg and with_guidance, mm.need_stg, mm.need_mod and with_guidance]
+    out, idx = [], 0
+    for present in passes:
+        out.append(outs[idx * batch:(idx + 1) * batch] if present else None)
+        idx += int(present)
+    return tuple(out)
+
+
+def _mm_combine_deltas(mm: MultiModalLoopConfig, cond, d_uncond, ptb, d_mod, cfg_scale: float, skip: bool):
+    """MultiModalGuider.calculate in delta form: d_uncond = cond - uncond and
+    d_mod = cond - mod (fp32, cast to cond's dtype before they are scaled),
+    the STG term from the live perturbed row; cond alone on a skipped step."""
+    if skip:
+        return cond
+    pred = cond
+    if mm.need_cfg:
+        pred = pred + (cfg_scale - 1.0) * d_uncond.to(cond.dtype)
+    if mm.need_stg:
+        pred = pred + mm.stg_scale * (cond - ptb)
+    if mm.need_mod:
+        pred = pred + (mm.modality_scale - 1.0) * d_mod.to(cond.dtype)
+    if mm.rescale_scale != 0:
+        pred = std_ratio_rescale(pred, cond, mm.rescale_scale)
+    return pred
+
+
+def _mm_combine(mm: MultiModalLoopConfig, outs: torch.Tensor, cfg_scale: float, skip: bool, batch: int = 1):
+    """MultiModalGuider.calculate over a full step's rows."""
+    cond, uncond, ptb, mod = _mm_split(mm, outs, batch)
+    d_uncond = (cond - uncond) if mm.need_cfg else None
+    d_mod = (cond - mod) if mm.need_mod else None
+    return _mm_combine_deltas(mm, cond, d_uncond, ptb, d_mod, cfg_scale, skip)
+
+
+def _mm_skip_flags(mm: MultiModalLoopConfig, num_steps: int) -> list:
+    """Per step: guidance skipped (cond alone) when skip_step > 0 and
+    i % (skip_step + 1) != 0."""
+    if mm.skip_step <= 0:
+        return [False] * num_steps
+    return [i % (mm.skip_step + 1) != 0 for i in range(num_steps)]
+
+
+def make_multimodal_av_denoise_loop(
+    model_cfg: LTXModelConfig,
+    mm: MultiModalLoopConfig,
+    mesh=None,
+    pipeline_axis: Optional[str] = None,
+):
+    """Build the joint AV loop under the multi-modal guider.
+
+    Returns fn(model, video_state, audio_state, sigmas (S+1,), pos_v, neg_v,
+    pos_a, neg_a) -> (video LatentState, audio LatentState). The negative
+    contexts are read only when CFG is on."""
+    _refuse_mesh(mesh, pipeline_axis)
+    if mm.cfg_interval < 1:
+        raise ValueError(f"cfg_interval must be >= 1, got {mm.cfg_interval}")
+    reuse = mm.cfg_interval > 1 and (mm.need_cfg or mm.need_mod)
+    stepper = EulerDiffusionStep()
+    scales = (mm.video_cfg_scale, mm.audio_cfg_scale)
+
+    @torch.no_grad()
+    def loop(model: LTXModel, video_state: LatentState, audio_state: LatentState, sigmas: torch.Tensor,
+             pos_v, neg_v, pos_a, neg_a) -> Tuple[LatentState, LatentState]:
+        batch, device = video_state.latent.shape[0], video_state.latent.device
+        if audio_state.latent.shape[0] != batch:
+            raise ValueError(f"video batch {batch} != audio batch {audio_state.latent.shape[0]}")
+        states = (video_state, audio_state)
+
+        def build_forward(with_guidance: bool):
+            """One joint forward over [cond, uncond, stg, mod] x batch (the
+            uncond and mod rows only `with_guidance`)."""
+            r = 1 + int(mm.need_stg) + ((int(mm.need_cfg) + int(mm.need_mod)) if with_guidance else 0)
+            perturb = _build_mm_perturbations(mm, with_guidance, batch)
+
+            def stack_ctx(pos, neg):
+                ctxs = [pos]
+                if mm.need_cfg and with_guidance:
+                    ctxs.append(neg)
+                if mm.need_stg:
+                    ctxs.append(pos)
+                if mm.need_mod and with_guidance:
+                    ctxs.append(pos)
+                return torch.cat(ctxs, dim=0) if len(ctxs) > 1 else pos
+
+            ctxs = (stack_ctx(pos_v, neg_v), stack_ctx(pos_a, neg_a))
+            tiled = [(_tile_rows(s.positions, r), _tile_rows(s.denoise_mask, r), _tile_rows(s.clean_latent, r))
+                     for s in states]
+            video_pe = _precompute_video_pe(model_cfg, video_state.positions, r)
+            audio_pe = stream_pe(model, tiled[1][0], audio=True)
+
+            def forward(v_latent: torch.Tensor, a_latent: torch.Tensor, sigma: torch.Tensor):
+                mods = [modality_from_state(
+                    LatentState(latent=_tile_rows(latent, r), denoise_mask=m, positions=pos, clean_latent=c),
+                    ctx, sigma, uniform_timesteps=mm.uniform_timesteps)
+                    for latent, (pos, m, c), ctx in zip((v_latent, a_latent), tiled, ctxs)]
+                return x0_model_apply(model, mods[0], video_pe=video_pe, audio=mods[1], audio_pe=audio_pe,
+                                      perturbations=perturb)
+
+            return forward
+
+        forward_full = build_forward(True)
+        forward_reduced = build_forward(False) if reuse else None
+        sigmas = sigmas.to(device=device, dtype=torch.float32)
+        num_steps = sigmas.shape[0] - 1
+        skips = _mm_skip_flags(mm, num_steps)
+        latents = [video_state.latent, audio_state.latent]
+        # Per stream: the fp32 (cond - uncond, cond - mod) deltas of the last full step.
+        deltas = [(torch.zeros_like(x, dtype=torch.float32),) * 2 for x in latents]
+        for i in range(num_steps):
+            sigma, sigma_next = sigmas[i], sigmas[i + 1]
+            full = not reuse or i % mm.cfg_interval == 0
+            outs = (forward_full if full else forward_reduced)(latents[0], latents[1], sigma)
+            new = []
+            for s in range(2):
+                cond, uncond, ptb, mod = _mm_split(mm, outs[s], batch, with_guidance=full)
+                if full:
+                    d_uncond = (cond - uncond).float() if mm.need_cfg else deltas[s][0]
+                    d_mod = (cond - mod).float() if mm.need_mod else deltas[s][1]
+                    if reuse:
+                        deltas[s] = (d_uncond, d_mod)
+                else:
+                    d_uncond, d_mod = deltas[s]
+                denoised = _mm_combine_deltas(mm, cond, d_uncond, ptb, d_mod, scales[s], skips[i])
+                denoised = post_process_latent(denoised, states[s].denoise_mask, states[s].clean_latent)
+                new.append(stepper.step(latents[s], denoised, sigma, sigma_next))
+            latents = new
         return video_state.replace(latent=latents[0]), audio_state.replace(latent=latents[1])
 
     return loop

@@ -28,9 +28,16 @@ decode keys, and each stage's key into video and audio keys. The port draws
 three seeds from a torch.Generator seeded with `config.seed`
 (`stage_seeds`) and seeds one generator per stage (video noise, then audio
 noise) and one for the decode noise; a caller may hand in each stage's
-noise instead (the tests hand in the JAX package's). Not ported (each
-raises NotImplementedError): freeze_audio and an initial audio latent given
-from outside the recipe (the a2vid pipeline's).
+noise instead (the tests hand in the JAX package's).
+
+Frozen audio (`freeze_audio`, the a2vid pipeline's): the audio latent keeps
+denoise mask 0 and clean latent == latent through both stages, so the
+Euler update is exactly 0 and the latent comes out bit for bit as it went
+in; the audio tokens then see timestep 0, so the stages run per-token
+timesteps. An `initial_audio_latent` (encoded from a waveform) is frozen
+before the noiser, whose blend is then a no-op; without one the noised
+zeros are frozen after it. The generator draws the audio noise either way,
+so the video's noise does not depend on the freeze.
 """
 
 from __future__ import annotations
@@ -125,6 +132,11 @@ def channelwise_normalize_audio(latent: torch.Tensor) -> torch.Tensor:
     return ((x - mean) / std).to(latent.dtype)
 
 
+def _freeze(state):
+    """Mask 0 and clean latent == latent: the Euler update is exactly 0."""
+    return state.replace(clean_latent=state.latent, denoise_mask=torch.zeros_like(state.denoise_mask))
+
+
 def stage_seeds(seed: int, count: int = 3) -> Tuple[int, ...]:
     """`count` seeds drawn from `seed`: here (stage 1, stage 2, decode)."""
     gen = torch.Generator().manual_seed(seed)
@@ -179,7 +191,8 @@ class DistilledPipeline:
                    initial_video_latent: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
                    phase: str = "", callback=None, audio_encoding: Optional[torch.Tensor] = None,
                    initial_audio_latent: Optional[torch.Tensor] = None, audio_noise: Optional[torch.Tensor] = None,
-                   normalize_audio_noise: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                   normalize_audio_noise: bool = False, freeze_audio: bool = False
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """One stage: initial state (zeros, or the given latent as clean
         latent) -> the images (`decoded`: each path's pixels), resized to
         this stage's size, encoded and written over their frames -> Gaussian
@@ -188,8 +201,10 @@ class DistilledPipeline:
         audio-video DiT's audio stream), the (B, C, T, F) audio latent
         (else None): its state from `initial_audio_latent` (zeros when
         None), noised after the video from the same generator (or
-        `audio_noise`), normalized with `normalize_audio_noise`. With
-        images and a callback, `callback(phase + "_image_encode", first
+        `audio_noise`), normalized with `normalize_audio_noise` unless
+        `freeze_audio` (then frozen: mask 0, clean latent == latent; an
+        initial audio latent before the noiser, the noised zeros after it).
+        With images and a callback, `callback(phase + "_image_encode", first
         image's latent)` runs once they are encoded."""
         device, dtype = text_encoding.device, getattr(torch, config.dtype)
         shape = VideoLatentShape.from_pixel_shape(pixel_shape, latent_channels=config.latent_channels)
@@ -204,16 +219,21 @@ class DistilledPipeline:
         noiser = GaussianNoiser()
         state = noiser(generator, state, noise_scale=noise_scale, noise=noise)
         sig = torch.tensor(sigmas, dtype=torch.float32)
-        loop = self.loops[(audio_encoding is not None, not conditionings)]
+        # Frozen audio tokens must see timestep mask * sigma = 0: per token.
+        loop = self.loops[(audio_encoding is not None, not conditionings and not freeze_audio)]
         if audio_encoding is None:
             state = loop(self.transformer, state, sig, text_encoding, text_encoding)
             return tools.unpatchify(tools.clear_conditioning(state)).latent, None
         audio_tools = config.audio_tools(pixel_shape)
         audio_state = audio_tools.create_initial_state(dtype=dtype, initial_latent=initial_audio_latent,
                                                        device=device)
+        if freeze_audio and initial_audio_latent is not None:
+            audio_state = _freeze(audio_state)
         audio_state = noiser(generator, audio_state, noise_scale=noise_scale, noise=audio_noise)
-        if normalize_audio_noise:
+        if normalize_audio_noise and not freeze_audio:
             audio_state = audio_state.replace(latent=channelwise_normalize_audio(audio_state.latent))
+        if freeze_audio and initial_audio_latent is None:
+            audio_state = _freeze(audio_state)
         state, audio_state = loop(self.transformer, state, audio_state, sig, text_encoding, text_encoding,
                                   audio_encoding, audio_encoding)
         return (tools.unpatchify(tools.clear_conditioning(state)).latent,
@@ -245,9 +265,6 @@ class DistilledPipeline:
         "stage1_image_encode" and "stage2_image_encode", and after
         "audio_decode" with the waveform."""
         images = list(images or [])
-        if freeze_audio or initial_audio_latent is not None:
-            raise NotImplementedError("not ported to the distilled pipeline: freeze_audio and an initial audio "
-                                      "latent given from outside the recipe (the a2vid pipeline's)")
         if not (self.is_av_model and (config.use_internal_audio_branch or config.audio_enabled)):
             audio_encoding = None  # the video stream alone, as the JAX package runs it
         elif audio_encoding is None:
@@ -265,7 +282,7 @@ class DistilledPipeline:
         latent, audio_latent = self._run_stage(
             stage_1, DISTILLED_SIGMA_VALUES, text_encoding, config, images, decoded, gens[0], 1.0, noise=noises[0],
             phase="stage1", callback=callback, audio_encoding=audio_encoding, audio_noise=audio_noises[0],
-            normalize_audio_noise=True)
+            normalize_audio_noise=True, initial_audio_latent=initial_audio_latent, freeze_audio=freeze_audio)
         if callback:
             callback("stage1", latent)
 
@@ -279,7 +296,7 @@ class DistilledPipeline:
                 stage_2, STAGE_2_DISTILLED_SIGMA_VALUES, text_encoding, config, images, decoded, gens[1],
                 float(STAGE_2_DISTILLED_SIGMA_VALUES[0]), initial_video_latent=upscaled, noise=noises[1],
                 phase="stage2", callback=callback, audio_encoding=audio_encoding,
-                initial_audio_latent=audio_latent, audio_noise=audio_noises[1])
+                initial_audio_latent=audio_latent, audio_noise=audio_noises[1], freeze_audio=freeze_audio)
             if callback:
                 callback("stage2", latent)
 

@@ -5,6 +5,7 @@ goes on one GPU.
     python -m ltx2_tpu_torch.profile_slice --train [--layers 48]
     python -m ltx2_tpu_torch.profile_slice --one-stage-options [--layers 48]
     python -m ltx2_tpu_torch.profile_slice --audio [--layers 48]
+    python -m ltx2_tpu_torch.profile_slice --two-stage [--layers 48]
 
 Traces, with torch.profiler, one text encode of the two-stage recipe's
 `--text-encoder` flow (the full-width fp32 Gemma-3-12B and V1 encoder on one
@@ -39,7 +40,11 @@ instead one step of the distilled loop over the video-only DiT and over
 the audio-video DiT (both kept in fp8, 6144 video tokens; the AV step also
 the 126 audio tokens of 121 frames at 24 fps), and one audio decode (the
 published audio decoder and the 1024-channel vocoder, fp32) of that audio
-latent. Prints one JSON line per phase: device time
+latent. With --two-stage it traces instead one step of the two-stage CFG
+pipeline's stage 1 over the audio-video DiT in bf16 (the multi-modal loop:
+cond, uncond and modality-isolated rows, 3 x 1536 video and 3 x 126 audio
+tokens, CFG 3.0, audio CFG 7.0, modality 3.0, rescale 0.7) beside the
+1-row distilled AV step at the same size. Prints one JSON line per phase: device time
 by kernel class (the flash-attention forward and backward kernels, the
 implicit-GEMM conv kernels with the fp32 one's split-K sum, matrix
 products, library convolutions, the rest), the top kernels, the host wall
@@ -74,7 +79,10 @@ from ltx2_tpu_torch.models.upscaler.spatial import spatial_upscaler_apply
 from ltx2_tpu_torch.models.video_vae.decoder import video_decoder_apply
 from ltx2_tpu_torch.models.video_vae.encoder import video_encoder_apply
 from ltx2_tpu_torch.pipelines.common import bucketed_tokens, pad_state_tokens
-from ltx2_tpu_torch.pipelines.denoise import DenoiseLoopConfig, make_av_denoise_loop, make_video_denoise_loop
+from ltx2_tpu_torch.pipelines.denoise import (
+    DenoiseLoopConfig, MultiModalLoopConfig, make_av_denoise_loop, make_multimodal_av_denoise_loop,
+    make_video_denoise_loop,
+)
 from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, generate_tile_specs
 
 
@@ -186,10 +194,13 @@ def denoise_step(dit, height: int, width: int, phase: str, device: torch.device,
     return tools, rec
 
 
-def av_denoise_step(dit, height: int, width: int, phase: str, device: torch.device, card: str):
+def av_denoise_step(dit, height: int, width: int, phase: str, device: torch.device, card: str,
+                    multimodal: bool = False):
     """One traced step of the distilled joint loop of an audio-video DiT at
-    height x width x 121f (the audio latent of 121 frames at 24 fps),
-    printed; returns (the audio latent it made, the step's record)."""
+    height x width x 121f (the audio latent of 121 frames at 24 fps), or
+    with `multimodal` of the two-stage CFG pipeline's stage-1 loop (three
+    rows: cond, uncond, modality-isolated), printed; returns (the audio
+    latent it made, the step's record)."""
     tools = make_latent_tools(dit.cfg, height, width, 121)
     state, context = make_request(dit.cfg, tools, 0, device)
     gen = torch.Generator(device=device).manual_seed(1)
@@ -198,15 +209,22 @@ def av_denoise_step(dit, height: int, width: int, phase: str, device: torch.devi
     audio_state = audio_state.replace(latent=torch.randn(audio_state.latent.shape, generator=gen, device=device)
                                       .to(dit.cfg.dtype))
     audio_context = dummy_context(dit.cfg, gen, device, audio=True)
-    loop = make_av_denoise_loop(dit.cfg, DenoiseLoopConfig(uniform_timesteps=True))
-    sigmas = distilled_sigmas(1)
+    if multimodal:
+        mm = MultiModalLoopConfig(rescale_scale=0.7, uniform_timesteps=True)
+        loop, rows = make_multimodal_av_denoise_loop(dit.cfg, mm), mm.rows
+        negative, audio_negative = dummy_context(dit.cfg, gen, device), dummy_context(dit.cfg, gen, device, audio=True)
+        sigmas = torch.from_numpy(LTX2Scheduler().execute(steps=8))[:2]
+    else:
+        loop, rows = make_av_denoise_loop(dit.cfg, DenoiseLoopConfig(uniform_timesteps=True)), 1
+        negative, audio_negative = context, audio_context
+        sigmas = distilled_sigmas(1)
     out = {}
 
     def run():
-        out["audio"] = loop(dit, state, audio_state, sigmas, context, context, audio_context, audio_context)[1]
+        out["audio"] = loop(dit, state, audio_state, sigmas, context, negative, audio_context, audio_negative)[1]
 
     step = _traced(run, device)
-    rec = {"phase": phase, "layers": dit.cfg.num_layers, "tokens": tools.target_shape.tokens,
+    rec = {"phase": phase, "layers": dit.cfg.num_layers, "rows": rows, "tokens": tools.target_shape.tokens,
            "audio_tokens": audio_tools.target_shape.frames, "weight_gb": weight_bytes(dit) / 1e9, "card": card,
            **step}
     print(json.dumps(rec), flush=True)
@@ -294,6 +312,12 @@ def one_stage_options_steps(dit, device: torch.device, card: str) -> dict:
     return recs
 
 
+def _two_stage(layers: int, device: torch.device, card: str) -> None:
+    dit = make_dit(layers, device, base=av_config())
+    av_denoise_step(dit, 256, 384, "av_stage1_step", device, card)
+    av_denoise_step(dit, 256, 384, "mm_stage1_step", device, card, multimodal=True)
+
+
 def _serving(layers: int, device: torch.device, card: str) -> None:
     _text_encode(device, card)  # first: fp32 Gemma holds 47 GB, and the recipe releases it before the DiT
     torch.cuda.empty_cache()
@@ -358,6 +382,8 @@ def main(argv=None) -> None:
                     help="trace the one-stage loop options' steps instead of the serving path")
     ap.add_argument("--audio", action="store_true",
                     help="trace the audio-video step beside the video-only one, and an audio decode")
+    ap.add_argument("--two-stage", action="store_true",
+                    help="trace the two-stage CFG pipeline's 3-row stage-1 step beside the 1-row AV step (bf16)")
     args = ap.parse_args(argv)
     device = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -373,6 +399,10 @@ def main(argv=None) -> None:
     if args.audio:
         with torch.no_grad():
             _audio(args.layers, device, card)
+        return
+    if args.two_stage:
+        with torch.no_grad():
+            _two_stage(args.layers, device, card)
         return
     with torch.no_grad():
         _serving(args.layers, device, card)

@@ -2,8 +2,8 @@
 ltx2_tpu/utils/model_ledger.py).
 
 One object loads and caches the transformer, the video encoder and
-decoder, the audio decoder and the vocoder, the text encoder, Gemma and the
-spatial upscaler from a unified checkpoint (and the
+decoder, the audio encoder and decoder and the vocoder, the text encoder,
+Gemma and the spatial upscaler from a unified checkpoint (and the
 Gemma shards and upscaler file beside it), with LoRAs fused into the
 transformer at load, per-component release and a `with_loras` view. Each
 component is the port's module, on `device`, with its config on it. The
@@ -12,9 +12,8 @@ JAX package assumes the published widths. A V2 (LTX-2.3) checkpoint gives
 the V2 DiT (cross-attention AdaLN, gated attention, no caption projection)
 and the V2 text encoder; `include_audio` gives the audio-video DiT, and the
 vocoder is LTX-2.3's BWE chain when the metadata's `vocoder` config has a
-`bwe` entry, as the JAX ledger chooses. Unported components (the audio
-encoder, int8, the temporal upscaler) raise NotImplementedError naming
-their ROADMAP.md items.
+`bwe` entry, as the JAX ledger chooses. Unported components (int8, the
+temporal upscaler) raise NotImplementedError naming their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -142,7 +141,14 @@ class ModelLedger:
         return self._get("video_encoder", load, force_reload)
 
     def audio_encoder(self, force_reload: bool = False):
-        raise NotImplementedError("the audio encoder is not ported yet (a2vid): ROADMAP.md §1 item 4")
+        """The audio VAE encoder (a2vid), fp32, or None when the file has none."""
+
+        def load():
+            from ltx2_tpu_torch.models.audio_vae.weights import load_audio_encoder_params
+
+            return load_audio_encoder_params(self.checkpoint_path, device=self.device)
+
+        return self._get("audio_encoder", load, force_reload)
 
     def audio_decoder(self, force_reload: bool = False):
         """The audio VAE decoder, fp32, or None when the file has none."""

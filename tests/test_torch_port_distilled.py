@@ -155,12 +155,14 @@ def test_distilled_pipeline_latent_matches_jax(recipe, decoder_tree):
         DistilledConfig(height=96, width=64)
     with pytest.raises(ValueError, match="video encoder required"):
         pipe(t(recipe["context"]), config, images=[ImageCondition(recipe["image"], 0)])
-    # A video-only DiT makes no audio, as in the JAX package; freeze_audio is not ported.
+    # A video-only DiT makes no audio, as in the JAX package, and freeze_audio
+    # has nothing to freeze there: the video stream runs as without it (on
+    # per-token timesteps, as the JAX package runs a freeze).
     assert pipe(t(recipe["context"]), DistilledConfig(height=HEIGHT, width=WIDTH, num_frames=FRAMES, seed=SEED,
                                                       latent_channels=16, audio_enabled=True),
                 skip_decode=True, noises=recipe["noises"])[1] is None
-    with pytest.raises(NotImplementedError):
-        pipe(t(recipe["context"]), config, freeze_audio=True)
+    frozen = pipe(t(recipe["context"]), config, freeze_audio=True, skip_decode=True, noises=recipe["noises"])
+    assert_close(frozen, recipe["latent"], msg="freeze_audio on a video-only DiT")
 
 
 def test_generate_distilled_matches_jax_within_one_level(recipe, decoder_tree):

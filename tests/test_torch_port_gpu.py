@@ -1,10 +1,12 @@
 """The port's CUDA kernels (flash attention forward and backward, the
 implicit-GEMM conv, also at the video encoder's shapes) against their plain
 PyTorch versions, the fp32 text encoder (Gemma-3 at full width, 2 layers,
-and the V1 encoder; also with Gemma in fp8) and the fp32 video encoder (a
-reduced plan) against the same modules on the CPU, a full-width DiT
-block loaded kept in fp8 onto the card, and a full-width V2 (LTX-2.3)
-forward through the kernels against plain attention, on the card.
+and the V1 encoder; also with Gemma in fp8), the fp32 video encoder (a
+reduced plan) and the published audio encoder with its mel analysis
+against the same modules on the CPU, a full-width DiT block loaded kept in
+fp8 onto the card, and a full-width V2 (LTX-2.3) forward, an audio-video
+forward and the two-stage CFG pipeline's 3-row multi-modal loop through
+the kernels against plain attention, on the card.
 
 Every test here is marked `gpu` and skips without a CUDA card. The file
 imports neither JAX nor the tests package, so it runs on a machine that has
@@ -415,3 +417,67 @@ def test_av_forward_through_the_kernels_matches_plain_on_gpu(monkeypatch):
     for got, want in zip(out, ref):
         assert torch.isfinite(got).all()
         assert (got - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+@pytest.mark.gpu
+def test_multimodal_loop_through_the_kernels_matches_plain_on_gpu(monkeypatch):
+    """The two-stage CFG pipeline's stage-1 loop (cond, uncond and
+    modality-isolated rows: the flash kernel at batch 3) over two full-width
+    audio-video blocks in bf16 at 384 video and 26 audio tokens, 2 steps:
+    both latents through the kernels against the same loop on the plain
+    attention, within 2e-2 of max|latent|."""
+    _need_card()
+    from ltx2_tpu_torch.components.schedulers import LTX2Scheduler
+    from ltx2_tpu_torch.generate import av_config, dummy_context, make_dit, make_latent_tools, make_request
+    from ltx2_tpu_torch.pipelines.denoise import MultiModalLoopConfig, make_multimodal_av_denoise_loop
+    from ltx2_tpu_torch.pipelines.distilled import AudioFields
+    from ltx2_tpu_torch.types import VideoPixelShape
+
+    dev = torch.device("cuda")
+    dit = make_dit(2, dev, seed=7, base=av_config())
+    gen = torch.Generator(device=dev).manual_seed(8)
+    with torch.no_grad():
+        for name, p in dit.named_parameters():
+            if "scale_shift_table" in name:
+                p.normal_(generator=gen).mul_(0.3)
+    tools = make_latent_tools(dit.cfg, 256, 384, 25)
+    state, positive = make_request(dit.cfg, tools, 1, dev)
+    negative = dummy_context(dit.cfg, gen, dev)
+    audio_tools = AudioFields().audio_tools(VideoPixelShape(1, 25, 256, 384, 24.0))
+    audio_state = audio_tools.create_initial_state(device=dev)
+    audio_state = audio_state.replace(latent=torch.randn(audio_state.latent.shape, generator=gen, device=dev))
+    audio_ctx = [dummy_context(dit.cfg, gen, dev, audio=True) * 25 for _ in range(2)]
+    loop = make_multimodal_av_denoise_loop(dit.cfg, MultiModalLoopConfig(rescale_scale=0.7))
+    sigmas = torch.from_numpy(LTX2Scheduler().execute(steps=2))
+    before = dict(attention.flash_attention.launches_by_batch)
+    out = loop(dit, state, audio_state, sigmas, positive, negative, *audio_ctx)
+    launched = {b: n - before.get(b, 0) for b, n in attention.flash_attention.launches_by_batch.items()}
+    assert launched == {3: 6 * 2 * 2}
+    plain = attention.flash_attention_plain
+    monkeypatch.setattr(attention, "flash_attention",
+                        lambda q, k, v, scale=None, kv_valid=None: plain(q, k, v, scale, kv_valid))
+    ref = loop(dit, state, audio_state, sigmas, positive, negative, *audio_ctx)
+    for got, want in zip(out, ref):
+        assert torch.isfinite(got.latent).all()
+        assert (got.latent.float() - want.latent.float()).abs().max() <= 2e-2 * want.latent.float().abs().max()
+
+
+@pytest.mark.gpu
+def test_audio_encoder_matches_cpu_on_gpu():
+    """The published audio VAE encoder (random weights, fp32, TF32 off) and
+    its mel analysis on the card against the same on the CPU: relative rms
+    1e-5 of the latent of a 1 s stereo waveform."""
+    _need_card()
+    from ltx2_tpu_torch.generate import make_audio_encoder
+    from ltx2_tpu_torch.models.audio_vae.analysis import AudioAnalysisConfig, waveform_to_latent
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = make_audio_encoder(torch.device("cuda"))
+    cpu = make_audio_encoder(torch.device("cpu"))
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    wave = torch.randn(2, 16000, generator=torch.Generator().manual_seed(9)) * 0.3
+    got = waveform_to_latent(wave, card, AudioAnalysisConfig(), 25).cpu()
+    want = waveform_to_latent(wave, cpu, AudioAnalysisConfig(), 25)
+    assert got.shape == (1, 8, 25, 16) and torch.isfinite(got).all()
+    assert (got - want).square().mean().sqrt() <= 1e-5 * want.square().mean().sqrt()

@@ -66,8 +66,9 @@ from ltx2_tpu_torch.models.video_vae import weights as vae_weights
 from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoder, VideoDecoderConfig
 from ltx2_tpu_torch.models.video_vae.encoder import video_encoder_apply
 from ltx2_tpu_torch.pipelines.common import ImageCondition, load_image_tensor
-from ltx2_tpu_torch.pipelines.denoise import DenoiseLoopConfig, make_video_denoise_loop
-from ltx2_tpu_torch.pipelines.distilled import DistilledConfig, DistilledPipeline
+from ltx2_tpu_torch.pipelines.denoise import (
+    DenoiseLoopConfig, MultiModalLoopConfig, make_multimodal_av_denoise_loop, make_video_denoise_loop,
+)
 from ltx2_tpu_torch.pipelines.one_stage import OneStageCFGConfig, OneStagePipeline
 from ltx2_tpu_torch.pipelines.text_to_video import TextToVideoConfig, TextToVideoPipeline
 from ltx2_tpu_torch.types import VideoLatentShape
@@ -211,11 +212,10 @@ UNPORTED = {
     "audio_only_model": ("audio-only", lambda p, c, x: LTXModel(dataclasses.replace(
         p.transformer.cfg, model_type=LTXModelType.AudioOnly), device="meta")),
     "temporal_upscaler": ("temporal upscaler", lambda p, c, x: p(x, x, c, temporal_upscaler=lambda z: z)),
-    "initial_audio_latent": ("initial audio latent", lambda p, c, x: DistilledPipeline(p.transformer)(
-        x, DistilledConfig(), initial_audio_latent=x)),
     "meshes": ("meshes", lambda p, c, x: OneStagePipeline(p.transformer, sequence_mesh=object())),
-    "distilled_freeze_audio": ("freeze_audio", lambda p, c, x: DistilledPipeline(p.transformer)(
-        x, DistilledConfig(), freeze_audio=True)),
+    "multimodal_loop_meshes": ("parallelism", lambda p, c, x: make_multimodal_av_denoise_loop(
+        p.transformer.cfg, MultiModalLoopConfig(), mesh=object())),
+    "ledger_int8": ("int8", lambda p, c, x: ModelLedger("unread.safetensors", device="cpu", int8=True)),
 }
 
 
