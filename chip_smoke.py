@@ -182,22 +182,49 @@ card and nvcc; it exits non-zero without them, and without the package
    implies; then A, B and the stateful APG with momentum at the small size
    of (c) (A with a 64-token bucket over 48 tokens), through the kernels
    against their plain versions, another seed rejected;
-10. backward check: at the flash cases, the forward's residuals l, m
-   against `flash_attention_residuals_plain`, and dq, dk, dv from the fused
-   backward kernel against `flash_attention_bwd_plain` and against autograd of
-   `flash_attention_plain` in fp32, within relative limits that planted
-   faults (dq x 1.03, a 64-key tile left out of dk and dv) must fail; with
-   the kernel's own device time, the whole backward's (Di, accumulator,
-   kernel, dQ conversion), the five-product bound, the plain version's and
-   SDPA's backward (and the names of the kernels SDPA ran);
+10. backward check: at the video DiT's training shapes (head dim 128:
+   self, cross, masked ragged) and the audio-video DiT's (head dim 64: the
+   126 audio tokens' self-attention, audio -> video 6144 x 126, video ->
+   audio 126 x 6144, the audio text cross-attention 126 x 1024 with 700
+   valid keys, and 6144² as a dense yardstick), the forward's residuals l,
+   m against `flash_attention_residuals_plain`, and dq, dk, dv from the
+   fused backward kernel against `flash_attention_bwd_plain` and against
+   autograd of `flash_attention_plain` in fp32, within relative limits that
+   planted faults (dq x 1.03, a 64-key tile left out of dk and dv) must
+   fail; with the kernel's own device time, the whole backward's (Di,
+   accumulator, kernel, dQ conversion), the five-product bound, the plain
+   version's and SDPA's backward (and the names of the kernels SDPA ran);
 11. training path: (a) `ltx2_tpu_torch.train.main` for 3 LoRA steps of the
    full-width 48-block DiT at 6144 tokens, checking finite losses, non-zero
    lora_B after step 1, a bit-identical base and the launch counts; (b) the
    step's time, TF/s and peak memory at scripts/bench_train.py's shape (1024
    text tokens); (c) adapter gradients of 2 full-width blocks through the
-   kernels against the same model on plain attention.
+   kernels against the same model on plain attention; then, from a --data
+   npz the script writes (6144 video tokens with a 1024-token context, 126
+   audio tokens with their own 1024-token context, 700 keys valid): (d)
+   `train.main --audio` for 3 rank-16 LoRA steps of the 48-block AV DiT in
+   bf16 and again on its fp8 frozen base (`--fp8-serving`), each with
+   finite losses, every lora_B (the audio stream's 864 too) non-zero after
+   step 1, every base linear bit for bit its seeded draw, 576 forward
+   launches a step (384 at head dim 64) and 288 backward (192 at 64), its
+   training state written and read back bit for bit (bytes, seconds), and
+   the step timed at this shape (ms, TF/s, peak) beside (b); (e) a
+   video-only dataset on the AV DiT (4 blocks, `--trainable to_q`, weight
+   decay 0.1): the audio branch frozen, every audio-branch weight bit for
+   bit its draw, only the video streams' q projections moved; (f) exact
+   resume (4 AV blocks, 4 steps saved every 2, resumed from step 2): the
+   file's adapters bit for bit, the first resumed loss bit for bit, the
+   final adapters within 1 % rms of what the last two steps moved them; (g)
+   adapter gradients of 2 full-width AV blocks through the kernels against
+   plain attention; (h) the audio-only DiT (48 blocks, 126 audio tokens):
+   2 flash launches a block at head dim 64, x0 with both modalities passed
+   denoises the audio, and 2 blocks against the CPU in fp32; (i)
+   `prepare_data` on 2 random 512x768x9 clips through the full-width
+   encoder (46 fp32 conv launches a clip), its npz fed to one
+   `train.main --data` step.
 
-The second-to-last line of output is the kernels' JSON record (with the
+The line before the kernels' record gives the whole script's seconds. The
+second-to-last line of output is the kernels' JSON record (with the
 bench-e2e, fp8 step, text encode, checkpoint, image-to-video, two-stage and
 training records beside the kernels), the last the device record.
 """
@@ -898,6 +925,21 @@ def _bwd_case(name, b, h, t_q, t_k, d, n_valid, gen):
     return rec
 
 
+# (name, batch, heads, T_q, T_k, head dim, valid keys): the video DiT's
+# training shapes at head dim 128, then the AV DiT's at 64: the 126 audio
+# tokens' self-attention (under one 128-key block, its second 64-row query
+# tile ragged), audio -> video (6144 x 126), video -> audio (126 x 6144: dQ
+# of 126 rows gathered from 48 key blocks), the audio text cross-attention
+# with its key mask, and the dense 6144² at 64 as a yardstick.
+BWD_CASES = (
+    ("self", 1, 32, 6144, 6144, 128, None), ("cross", 1, 32, 6144, 1024, 128, None),
+    ("masked_ragged", 2, 32, 1000, 333, 128, 200),
+    ("bwd_audio_self", 1, 32, 126, 126, 64, None), ("bwd_a2v", 1, 32, 6144, 126, 64, None),
+    ("bwd_v2a", 1, 32, 126, 6144, 64, None), ("bwd_audio_text_masked", 1, 32, 126, 1024, 64, 700),
+    ("bwd_self_d64", 1, 32, 6144, 6144, 64, None),
+)
+
+
 def phase_bwd_kernels():
     import torch
 
@@ -907,12 +949,13 @@ def phase_bwd_kernels():
     counters = (A.flash_attention, A.flash_attention_bwd_kernel)
     before = [c.launches for c in counters]
     recs = []
-    for case in (("self", 1, 32, 6144, 6144, 128, None), ("cross", 1, 32, 6144, 1024, 128, None),
-                 ("masked_ragged", 2, 32, 1000, 333, 128, 200)):
+    for case in BWD_CASES:
         recs.append(_bwd_case(*case, gen))
         torch.cuda.empty_cache()
     for c, n in zip(counters, before):  # comparison launches are not the main path's
         c.launches = n
+    _reset_flash_by()
+    A.flash_attention_bwd_kernel.launches_by_head_dim = {}
     return recs
 
 
@@ -3405,6 +3448,7 @@ def _reset_counts():
     for c in _counters().values():
         c.launches = 0
     _counters()["fwd"].key_valid_launches = 0
+    _counters()["bwd"].launches_by_head_dim = {}
 
 
 def _key_valid_launches() -> int:
@@ -3444,6 +3488,7 @@ def phase_train_steps(smi: str):
                   "--layers", str(LAYERS), "--device", "cuda", "--log-every", "1"], on_step=on_step)
     wall = time.perf_counter() - t0
     counts = _counts()
+    bwd_by_head_dim = dict(_counters()["bwd"].launches_by_head_dim)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     model = res["model"]
     log(f"train entry: {TRAIN_STEPS} steps, {LAYERS} layers, {res['adapters']} adapters, losses {res['losses']}, "
@@ -3471,6 +3516,7 @@ def phase_train_steps(smi: str):
         raise AssertionError(f"base weights changed by training: {changed[:4]} {missing[:4]}")
     log(f"train entry checks: losses finite, every lora_B non-zero after step 1, base bit-identical, "
         f"launches as reckoned {expected}")
+    counts["bwd_by_head_dim"] = bwd_by_head_dim
     return model, counts
 
 
@@ -3565,10 +3611,537 @@ def phase_train_gradcheck(smi: str) -> dict:
     return rec
 
 
+# ---- Training, part two: audio-video LoRA, the fp8 frozen base, the
+# audio-branch freeze, exact resume, the audio-only DiT and prepare_data.
+
+# The cut-depth checks (the freeze, resume, prepare_data's step) at full width.
+CUT_LAYERS = 4
+RESUME_STEPS, RESUME_AT = 4, 2
+# A resumed run's last adapters against the uninterrupted run's, relative to
+# the rms of what the two steps after the save moved them: both runs feed
+# the same bits to the same kernels, but the fused backward adds each key
+# block's dQ share in whatever order the blocks finish, so the gradients
+# differ by fp32 summation order, carried through bf16 activations and
+# AdamW's normalisation.
+TOL_RESUME_RMS_REL = 1e-2
+AUDIO_ONLY_SEED = 9
+
+
+def _train_counts() -> dict:
+    from ltx2_tpu_torch.ops import attention as A
+
+    counts = _counts()
+    counts["fwd_by_head_dim"] = _flash_by("launches_by_head_dim")
+    counts["bwd_by_head_dim"] = dict(A.flash_attention_bwd_kernel.launches_by_head_dim)
+    counts["key_valid"] = _key_valid_launches()
+    return counts
+
+
+def _reset_train_counts() -> None:
+    _reset_counts()
+    _reset_flash_by()
+
+
+def _write_npz(directory: str, name: str, arrays: dict) -> str:
+    import os
+
+    import numpy as np
+
+    path = os.path.join(directory, name)
+    np.savez(path, **arrays)
+    return path
+
+
+def _base_changes(model, seed: int = 0) -> dict:
+    """Every Linear of `model` against its draw made again on the card from
+    make_dit's generator at `seed`, in its order (init_linear_'s weight then
+    bias; an fp8 weight quantized again as make_dit quantizes it): the
+    linears whose weight, scale or bias differs from the draw."""
+    import torch
+
+    from ltx2_tpu_torch.loader.fp8 import quantize_tensor_fp8
+    from ltx2_tpu_torch.ops.common import Linear
+
+    dtype = model.cfg.dtype
+    gen = torch.Generator(device=next(model.parameters()).device).manual_seed(seed)
+    names = {id(m): n for n, m in model.named_modules()}
+    changed, checked = [], 0
+    for m in model.modules():
+        if not isinstance(m, Linear):
+            continue
+        bound = 1.0 / (m.weight.shape[1] ** 0.5)
+        scale = getattr(m, "weight_scale", None)
+        w = torch.empty(m.weight.shape, dtype=dtype if scale is not None else m.weight.dtype,
+                        device=m.weight.device).uniform_(-bound, bound, generator=gen)
+        if scale is not None:
+            codes, s = quantize_tensor_fp8(w)
+            same = torch.equal(codes.view(torch.uint8), m.weight.view(torch.uint8)) and torch.equal(s, scale)
+        else:
+            same = torch.equal(w, m.weight)
+        if m.bias is not None:
+            b = torch.empty_like(m.bias).uniform_(-bound, bound, generator=gen)
+            same = same and torch.equal(b, m.bias)
+        if not same:
+            changed.append(names[id(m)])
+        checked += 1
+    return {"changed": changed, "linears": checked}
+
+
+def _expected_av_train(steps: int, layers: int) -> dict:
+    """Launches of `steps` LoRA steps of the AV DiT: 6 attentions a block
+    (video self and text at head dim 128; audio self, audio text, audio ->
+    video and video -> audio at 64), each run forward and again in the
+    remat recompute, and one fused backward each (adapters on every q, k
+    and v need dq, dk and dv)."""
+    fwd = {d: 2 * n * layers * steps for d, n in AV_FLASH_PER_BLOCK.items()}
+    bwd = {d: n * layers * steps for d, n in AV_FLASH_PER_BLOCK.items()}
+    return {"fwd": sum(fwd.values()), "bwd": sum(bwd.values()), "conv": 0, "fwd_by_head_dim": fwd,
+            "bwd_by_head_dim": bwd, "key_valid": 2 * layers * steps}
+
+
+def phase_train_av(smi: str, npz: str, arrays: dict, directory: str, fp8: bool) -> tuple:
+    """The AV entry at full width and depth (`train.bench_arrays`' sample
+    written as a --data npz): 3 LoRA steps of the 48-block AV DiT (bf16, or with `fp8` its linears kept in fp8 as a frozen base)
+    through `train.main --audio --data`, saving the training state at the
+    end; finite losses, every lora_B non-zero after step 1 (the audio
+    blocks' too), the base bit for bit its seeded draw, the launches
+    reckoned by `_expected_av_train`; then the state read back into the
+    live tensors (bit for bit the file's) and the step timed at this shape
+    (1 warm-up + 3 steps, uniform sigmas)."""
+    import os
+
+    import torch
+
+    from ltx2_tpu_torch import train as T
+    from ltx2_tpu_torch.loader.safetensors_io import SafetensorsFile
+    from ltx2_tpu_torch.training.checkpoint import load_train_state
+
+    name = "train_av_fp8" if fp8 else "train_av"
+    state = os.path.join(directory, f"{name}_state.safetensors")
+    zero_b = []
+
+    def on_step(i, model, loss):
+        if i == 0:
+            zero_b.extend(n for n, p in model.named_parameters()
+                          if n.endswith(".lora_B") and not bool(p.detach().abs().amax() > 0))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_train_counts()
+    t0 = time.perf_counter()
+    res = T.main(["--audio", "--data", npz, "--lora-rank", "16", "--steps", str(TRAIN_STEPS), "--layers", str(LAYERS),
+                  "--device", "cuda", "--log-every", "1", "--save-state", state, "--save-every", str(TRAIN_STEPS)]
+                 + (["--fp8-serving"] if fp8 else []), on_step=on_step)
+    wall = time.perf_counter() - t0
+    counts = _train_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    model = res["model"]
+    expected = _expected_av_train(TRAIN_STEPS, LAYERS)
+    audio_b = sum(1 for n, _ in model.named_parameters() if n.endswith(".lora_B") and "audio" in n)
+    # The state: the file read back into the live tensors must equal the file.
+    t0 = time.perf_counter()
+    load_train_state(state, model, res["optimizer"], res["ema"])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    f = SafetensorsFile(state)
+    live = dict(model.named_parameters())
+    reload_equal = all(torch.equal(f.get(k).to(live[k[len("param."):]].device), live[k[len("param."):]])
+                       for k in f.keys() if k.startswith("param."))
+    f.close()
+    state_rec = {"bytes": os.path.getsize(state), "save_s": res["state_save_s"], "load_s": load_s,
+                 "reload_bitwise": reload_equal}
+    os.remove(state)
+    base = _base_changes(model)
+    # The step at this shape: uniform sigmas, a fresh optimizer over the adapters.
+    step, batch, flops = T.bench_step(model, torch.device("cuda"), arrays)
+    step(batch, torch.Generator(device="cuda").manual_seed(3))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(3):
+        loss = step(batch, torch.Generator(device="cuda").manual_seed(4 + i))
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / 3
+    timing = {"ms_per_step": sec * 1e3, "tflops": flops / sec / 1e12, "pct_of_bf16_peak": 100 * flops / sec / PEAK_BF16_FLOPS,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "loss": float(loss),
+              "video_tokens": batch.x0.shape[1], "audio_tokens": batch.audio_x0.shape[1],
+              "text_tokens": batch.context.shape[1], "audio_text_tokens": batch.audio_context.shape[1]}
+    weight_gb = sum(t.numel() * t.element_size() for n, t in (*model.named_parameters(), *model.named_buffers())
+                    if "lora" not in n) / 1e9
+    rec = {"layers": LAYERS, "fp8_base": fp8, "adapters": res["adapters"], "losses": res["losses"],
+           "step_s": res["step_s"], "wall_s": wall, "peak_memory_gb": peak_gb, "base_weight_gb": weight_gb,
+           "launches": counts, "expected_launches": expected, "audio_lora_B": audio_b,
+           "base_linears_checked": base["linears"], "state": state_rec, "timing": timing, "card": smi}
+    log(f"{name} entry: {json.dumps(rec)}")
+    del model, res, step, batch
+    torch.cuda.empty_cache()
+    if len(rec["losses"]) != TRAIN_STEPS or not all(math.isfinite(x) for x in rec["losses"]):
+        raise AssertionError(f"{name}: losses {rec['losses']}")
+    if rec["adapters"] != 28 * LAYERS:  # 4 linears in each of 6 attentions + 2 FF linears in each of 2 streams
+        raise AssertionError(f"{name}: {rec['adapters']} adapters, expected 28 x {LAYERS}")
+    if zero_b or audio_b != 18 * LAYERS:  # audio_attn1/2, audio_ff, both cross-modal attentions
+        raise AssertionError(f"{name}: lora_B still zero after step 1 {zero_b[:4]}, audio lora_B {audio_b}")
+    if base["changed"]:
+        raise AssertionError(f"{name}: base weights changed by training: {base['changed'][:4]}")
+    if counts != expected:
+        raise AssertionError(f"{name}: launches {counts}, expected {expected}")
+    if not reload_equal:
+        raise AssertionError(f"{name}: the training state read back differs from its file")
+    if not math.isfinite(timing["loss"]):
+        raise AssertionError(f"{name}: timed step loss {timing['loss']}")
+    log(f"{name} checks: losses finite, all {rec['adapters']} lora_B non-zero after step 1 ({audio_b} in the audio "
+        f"stream), {base['linears']} base linears bit for bit their draws, launches as reckoned {expected}")
+    return rec, counts
+
+
+def phase_train_av_video_only(smi: str, directory: str) -> tuple:
+    """A video-only dataset on the AV DiT (full width, CUT_LAYERS blocks):
+    `--trainable to_q` with weight decay 0.1 trains the video streams' q
+    projections, while the audio branch is frozen: every audio-branch
+    weight (the audio stream's and both cross-modal q projections the regex
+    also names) stays bit for bit its draw."""
+    import re
+
+    import torch
+
+    from ltx2_tpu_torch import train as T
+    from ltx2_tpu_torch.generate import av_config
+    from ltx2_tpu_torch.models.transformer.model import LTXModelConfig
+    from ltx2_tpu_torch.training import AUDIO_BRANCH_PATTERN
+
+    cfg = av_config(LTXModelConfig())
+    npz = _write_npz(directory, "video_only.npz", T.bench_arrays(cfg, audio=False))
+    torch.cuda.empty_cache()
+    _reset_train_counts()
+    res = T.main(["--audio", "--data", npz, "--trainable", "to_q", "--weight-decay", "0.1", "--lr", "1e-3",
+                  "--steps", "2", "--layers", str(CUT_LAYERS), "--device", "cuda"])
+    counts = _train_counts()
+    model = res["model"]
+    audio_re = re.compile(AUDIO_BRANCH_PATTERN)
+    base = _base_changes(model)
+    regex_audio = [n for n, _ in model.named_parameters() if "to_q" in n and audio_re.search(n)]
+    expected_changed = sorted(f"transformer_blocks.{i}.{a}.to_q" for i in range(CUT_LAYERS) for a in ("attn1", "attn2"))
+    rec = {"layers": CUT_LAYERS, "losses": res["losses"], "trainable": len(res["trainable"]),
+           "audio_branch_named_by_regex": len(regex_audio), "changed": sorted(base["changed"]),
+           "linears_checked": base["linears"], "launches": counts, "card": smi}
+    log(f"train_av_video_only: {json.dumps(rec)}")
+    trainable_audio = [n for n in res["trainable"] if audio_re.search(n)]
+    del model, res
+    torch.cuda.empty_cache()
+    if trainable_audio or not regex_audio:
+        raise AssertionError(f"video-only dataset on the AV DiT: audio-branch parameters trainable {trainable_audio}")
+    if sorted(base["changed"]) != expected_changed:
+        raise AssertionError(f"video-only dataset on the AV DiT: changed linears {base['changed']}, expected "
+                             f"{expected_changed} (every audio-branch weight bit for bit its draw)")
+    if not all(math.isfinite(x) for x in rec["losses"]):
+        raise AssertionError(f"video-only dataset on the AV DiT: losses {rec['losses']}")
+    return rec, counts
+
+
+def phase_train_resume(smi: str, npz: str, directory: str) -> tuple:
+    """Exact resume on the card (full width, CUT_LAYERS AV blocks, rank 16):
+    RESUME_STEPS steps saving every RESUME_AT, then a run resumed
+    from the step-RESUME_AT file: the file holds the adapters bit for bit,
+    the resumed run's first loss equals the uninterrupted run's at that
+    step bit for bit (the forward is deterministic), and its final adapters
+    are within TOL_RESUME_RMS_REL of the uninterrupted run's, relative to
+    what the last steps moved them (the backward's dQ order)."""
+    import os
+    import shutil
+
+    import torch
+
+    from ltx2_tpu_torch import train as T
+    from ltx2_tpu_torch.loader.safetensors_io import SafetensorsFile
+
+    state, state_at = (os.path.join(directory, f"resume_{s}.safetensors") for s in ("last", "at"))
+    flags = ["--audio", "--data", npz, "--lora-rank", "16", "--steps", str(RESUME_STEPS), "--layers",
+             str(CUT_LAYERS), "--device", "cuda", "--lr", "1e-4"]
+    snap = {}
+
+    def on_step(i, model, loss):
+        if i == RESUME_AT - 1:  # the state written after this step
+            snap.update({n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad})
+        if i == RESUME_AT:
+            shutil.copy(state, state_at)
+
+    torch.cuda.empty_cache()
+    _reset_train_counts()
+    straight = T.main(flags + ["--save-state", state, "--save-every", str(RESUME_AT)], on_step=on_step)
+    counts = _train_counts()
+    f = SafetensorsFile(state_at)
+    saved_equal = all(torch.equal(f.get(f"param.{n}").to(p.device), p) for n, p in snap.items())
+    f.close()
+    final = {n: p.detach().clone() for n, p in straight["model"].named_parameters() if p.requires_grad}
+    del straight["model"], straight["optimizer"]
+    torch.cuda.empty_cache()
+    resumed = T.main(flags + ["--resume", state_at])
+    got = {n: p.detach() for n, p in resumed["model"].named_parameters() if p.requires_grad}
+    diff = torch.cat([(got[n].float() - final[n].float()).flatten() for n in sorted(final)])
+    moved = torch.cat([(final[n].float() - snap[n].float()).flatten() for n in sorted(final)])
+    rms_rel = float(diff.pow(2).mean().sqrt() / moved.pow(2).mean().sqrt())
+    rec = {"layers": CUT_LAYERS, "steps": RESUME_STEPS, "saved_at": RESUME_AT, "losses": straight["losses"],
+           "resumed_losses": resumed["losses"], "start": resumed["start"], "saved_bitwise": saved_equal,
+           "first_loss_bitwise": resumed["losses"][0] == straight["losses"][RESUME_AT],
+           "final_rms_rel": rms_rel, "final_max_abs": float(diff.abs().max()), "tol_rms_rel": TOL_RESUME_RMS_REL,
+           "bytes": os.path.getsize(state_at), "save_s": straight["state_save_s"],
+           "load_s": resumed["state_load_s"], "card": smi}
+    log(f"train resume: {json.dumps(rec)}")
+    del resumed, got, final, snap
+    for path in (state, state_at):
+        os.remove(path)
+    torch.cuda.empty_cache()
+    if rec["start"] != RESUME_AT or len(rec["resumed_losses"]) != RESUME_STEPS - RESUME_AT:
+        raise AssertionError(f"resume: started at {rec['start']} with {len(rec['resumed_losses'])} steps")
+    if not (saved_equal and rec["first_loss_bitwise"]):
+        raise AssertionError(f"resume: saved adapters bitwise {saved_equal}, first loss bitwise "
+                             f"{rec['first_loss_bitwise']}")
+    if not rms_rel <= TOL_RESUME_RMS_REL:
+        raise AssertionError(f"resume: final adapters {rms_rel} rms off the uninterrupted run's (limit "
+                             f"{TOL_RESUME_RMS_REL})")
+    return rec, counts
+
+
+def phase_train_av_gradcheck(smi: str, arrays: dict) -> dict:
+    """Adapter gradients of one AV loss on 2 full-width AV blocks at the AV
+    training shape, through the kernels against the same model with
+    attention through autograd of `flash_attention_plain` (the pattern of
+    phase_train_gradcheck)."""
+    import torch
+
+    from ltx2_tpu_torch import train as T
+    from ltx2_tpu_torch.ops import attention as A
+    from ltx2_tpu_torch.training import TrainConfig, rectified_flow_loss
+    from ltx2_tpu_torch.training.lora import add_lora_params_, lora_trainable_mask
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    model = T.make_model(2, dev, seed=6, audio=True)
+    add_lora_params_(model, gen, rank=16, alpha=16.0)
+    lora_trainable_mask(model)
+    with torch.no_grad():  # random B, so that A gets a gradient too
+        for n, p in model.named_parameters():
+            if n.endswith("lora_B"):
+                p.normal_(generator=gen).mul_(0.02)
+    batch = T.make_batch(arrays, [0], dev)
+    sigmas = torch.tensor([0.6], device=dev)
+    noise = torch.randn(batch.x0.shape, generator=gen, device=dev)
+    audio_noise = torch.randn(batch.audio_x0.shape, generator=gen, device=dev)
+    tc = TrainConfig()
+
+    def grads():
+        loss = rectified_flow_loss(model, batch, None, tc, sigmas, noise, audio_noise)
+        loss.backward()
+        g = _adapter_grads(model)
+        model.zero_grad(set_to_none=True)
+        return float(loss.detach()), g
+
+    _reset_train_counts()
+    loss_k, g_k = grads()
+    counts = _train_counts()
+    kernel = A.flash_attention
+    A.flash_attention = lambda q, k, v, scale=None, kv_valid=None: A.flash_attention_plain(q, k, v, scale, kv_valid)
+    try:
+        loss_p, g_p = grads()
+    finally:
+        A.flash_attention = kernel
+    per_tensor = {n: _mismatch(g_k[n], g_p[n]) for n in sorted(g_k)}
+    overall = _mismatch(torch.cat([g_k[n].flatten() for n in sorted(g_k)]),
+                        torch.cat([g_p[n].flatten() for n in sorted(g_p)]))
+    worst = max(per_tensor, key=lambda n: per_tensor[n]["rms_rel_err"])
+    audio_worst = max((n for n in per_tensor if "audio" in n), key=lambda n: per_tensor[n]["rms_rel_err"])
+    expected = _expected_av_train(1, 2)
+    rec = {"loss_kernels": loss_k, "loss_plain": loss_p, "tensors": len(g_k), "launches": counts,
+           "max_rel_err": overall["max_rel_err"], "rms_rel_err": overall["rms_rel_err"],
+           "worst_tensor": worst, "worst_rms_rel_err": per_tensor[worst]["rms_rel_err"],
+           "worst_max_rel_err": per_tensor[worst]["max_rel_err"], "worst_audio_tensor": audio_worst,
+           "worst_audio_rms_rel_err": per_tensor[audio_worst]["rms_rel_err"],
+           "tol_max_rel": TOL_GRAD_MAX_REL, "tol_rms_rel": TOL_GRAD_RMS_REL, "card": smi}
+    log(f"train AV gradient check (2 AV blocks, kernels vs plain attention): {json.dumps(rec)}")
+    del model
+    torch.cuda.empty_cache()
+    if counts != expected:
+        raise AssertionError(f"AV gradient check launches {counts}, expected {expected}")
+    if not all(_accepted(per_tensor[n], TOL_GRAD_MAX_REL, TOL_GRAD_RMS_REL) for n in per_tensor):
+        raise AssertionError(f"AV adapter gradients through the kernels disagree: {worst} {per_tensor[worst]}")
+    return rec
+
+
+def _audio_only_inputs(cfg, dev, seed: int):
+    """An audio modality at the serving shape (126 tokens of a 121-frame
+    clip, sigma 0.6) with a 1024-token audio context, its first 700 keys
+    valid."""
+    import torch
+
+    from ltx2_tpu_torch import train as T
+    from ltx2_tpu_torch.components.patchifiers import AudioPatchifier
+    from ltx2_tpu_torch.models.transformer.model import Modality
+    from ltx2_tpu_torch.types import AudioLatentShape, VideoPixelShape
+
+    shape = AudioLatentShape.from_video_pixel_shape(VideoPixelShape(1, FRAMES, HEIGHT, WIDTH, 24.0))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mask = torch.zeros(1, T.BENCH_CONTEXT_TOKENS, dtype=torch.bool, device=dev)
+    mask[:, :T.BENCH_AUDIO_TEXT_VALID] = True
+    sigma = torch.tensor([0.6], device=dev)
+    return Modality(latent=torch.randn(1, shape.frames, cfg.audio_in_channels, generator=gen, device=dev),
+                    context=torch.randn(1, T.BENCH_CONTEXT_TOKENS, cfg.audio_inner_dim, generator=gen, device=dev) * 0.1,
+                    context_mask=mask, timesteps=sigma, positions=AudioPatchifier(1).get_patch_grid_bounds(shape).to(dev),
+                    sigma=sigma)
+
+
+def phase_audio_only(smi: str) -> tuple:
+    """The audio-only DiT (LTXModelType.AudioOnly): a full-width, full-depth
+    bf16 forward at 126 audio tokens on the card (2 flash launches a block
+    at head dim 64, the text one key-masked; x0 with a video modality passed
+    too denoises the audio latent), then 2 full-width blocks through the
+    kernels against the same weights on the CPU in float32, within the
+    kernel check's limits, another seed's input rejected."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from ltx2_tpu_torch.generate import make_dit
+    from ltx2_tpu_torch.models.transformer.model import (
+        LTXModelConfig, LTXModelType, ltx_model_apply, x0_model_apply,
+    )
+
+    dev = torch.device("cuda")
+    cfg = LTXModelConfig(model_type=LTXModelType.AudioOnly)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dit = make_dit(LAYERS, dev, seed=AUDIO_ONLY_SEED, base=cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    audio = _audio_only_inputs(cfg, dev, 1)
+    video = audio.replace(latent=torch.zeros_like(audio.latent) + 5.0)  # ignored by the audio-only model
+    with torch.no_grad():
+        ltx_model_apply(dit, None, audio=audio)  # warm-up
+        torch.cuda.synchronize()
+        _reset_train_counts()
+        t0 = time.perf_counter()
+        velocity = ltx_model_apply(dit, None, audio=audio)
+        torch.cuda.synchronize()
+        forward_ms = (time.perf_counter() - t0) * 1e3
+        counts = _train_counts()
+        x0 = x0_model_apply(dit, video, audio=audio)
+    x0_is_audio = bool(torch.equal(x0, audio.latent.float() - 0.6 * velocity))
+    weight_gb = sum(p.numel() * p.element_size() for p in dit.parameters()) / 1e9
+    rec = {"layers": LAYERS, "audio_tokens": audio.latent.shape[1], "init_s": init_s, "forward_ms": forward_ms,
+           "weight_gb": weight_gb, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "finite": bool(torch.isfinite(velocity).all()), "shape": list(velocity.shape), "launches": counts,
+           "x0_denoises_audio": x0_is_audio, "card": smi}
+    del dit
+    torch.cuda.empty_cache()
+    # 2 blocks on the card through the kernels, then on the CPU in float32.
+    small = make_dit(2, dev, seed=AUDIO_ONLY_SEED, base=cfg)
+    with torch.no_grad():
+        got = ltx_model_apply(small, None, audio=audio).cpu()
+        other = ltx_model_apply(small, None, audio=_audio_only_inputs(cfg, dev, 2)).cpu()
+        cpu = copy.deepcopy(small).to("cpu", torch.float32)
+        cpu.cfg = dataclasses.replace(small.cfg, compute_dtype="float32")
+        ref = ltx_model_apply(cpu, None, audio=audio.replace(**{k: getattr(audio, k).cpu() for k in (
+            "latent", "context", "context_mask", "timesteps", "positions", "sigma")}))
+    rec["small_vs_cpu"] = _mismatch(got, ref)
+    rec["small_other_seed"] = _mismatch(other, ref)
+    log(f"audio-only DiT: {json.dumps(rec)}")
+    del small, cpu
+    torch.cuda.empty_cache()
+    expected = {"fwd": 2 * LAYERS, "bwd": 0, "conv": 0, "fwd_by_head_dim": {64: 2 * LAYERS}, "bwd_by_head_dim": {},
+                "key_valid": LAYERS}
+    if counts != expected or not rec["finite"] or rec["shape"] != [1, audio.latent.shape[1], cfg.audio_out_channels]:
+        raise AssertionError(f"audio-only forward: launches {counts} (expected {expected}), finite {rec['finite']}, "
+                             f"shape {rec['shape']}")
+    if not x0_is_audio:
+        raise AssertionError("audio-only x0 with both modalities passed is not the audio latent's")
+    if not _accepted(rec["small_vs_cpu"]) or _accepted(rec["small_other_seed"]):
+        raise AssertionError(f"audio-only DiT on the card vs the CPU: {rec['small_vs_cpu']}; another input "
+                             f"{rec['small_other_seed']}")
+    return rec, counts
+
+
+PREP_CLIPS, PREP_FRAMES = 2, 9
+
+
+def phase_prepare_data(smi: str, directory: str) -> tuple:
+    """`prepare_data` at full width: 2 random clips of 512x768x9 (uint8)
+    through the full-width fp32 encoder (random weights), each encode's
+    convs on the fp32 kernel (the plan's count a clip), the npz's shapes,
+    then one `train.main --data` LoRA step on it (CUT_LAYERS blocks)."""
+    import numpy as np
+    import torch
+
+    from ltx2_tpu_torch import prepare_data as P
+    from ltx2_tpu_torch import train as T
+    from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoderConfig, conv_launches
+
+    rng = np.random.RandomState(3)
+    pixels = _write_npz(directory, "clips.npz", {"pixels": rng.randint(
+        0, 256, (PREP_CLIPS, 3, PREP_FRAMES, HEIGHT, WIDTH), dtype=np.uint8)})
+    out = f"{directory}/latents.npz"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_train_counts()
+    t0 = time.perf_counter()
+    res = P.main(["--pixels", pixels, "--placeholder", "--context-dim", "4096", "--output", out, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    counts = _train_counts()
+    tokens = ((PREP_FRAMES - 1) // 8 + 1) * (HEIGHT // 32) * (WIDTH // 32)
+    rec = {"clips": PREP_CLIPS, "shape": [PREP_FRAMES, HEIGHT, WIDTH], "encode_s": res["encode_s"], "wall_s": wall,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "x0": list(res["x0"].shape),
+           "positions": list(res["positions"].shape), "finite": bool(np.isfinite(res["x0"]).all()),
+           "launches": counts, "expected_conv": PREP_CLIPS * conv_launches(VideoEncoderConfig()), "card": smi}
+    torch.cuda.empty_cache()
+    step = T.main(["--data", out, "--lora-rank", "16", "--steps", "1", "--layers", str(CUT_LAYERS), "--device", "cuda"])
+    rec["train_loss"] = step["losses"][0]
+    log(f"prepare_data: {json.dumps(rec)}")
+    del step
+    torch.cuda.empty_cache()
+    if counts["conv"] != rec["expected_conv"] or counts["fwd"] or counts["bwd"]:
+        raise AssertionError(f"prepare_data launches {counts}, expected {rec['expected_conv']} fp32 convs")
+    if rec["x0"] != [PREP_CLIPS, tokens, 128] or rec["positions"] != [PREP_CLIPS, 3, tokens, 2] or not rec["finite"]:
+        raise AssertionError(f"prepare_data arrays {rec['x0']} {rec['positions']} finite {rec['finite']}")
+    if not math.isfinite(rec["train_loss"]):
+        raise AssertionError(f"a train step on prepare_data's npz: loss {rec['train_loss']}")
+    return rec, counts
+
+
+def phase_training_av(smi: str) -> dict:
+    """The training phases of the AV slice, in one temporary directory."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ltx2_tpu_torch import train as T
+    from ltx2_tpu_torch.generate import av_config
+    from ltx2_tpu_torch.models.transformer.model import LTXModelConfig
+
+    directory = tempfile.mkdtemp(prefix="ltx2_train_")
+    try:
+        arrays = T.bench_arrays(av_config(LTXModelConfig()))
+        npz = _write_npz(directory, "av.npz", arrays)
+        out = {}
+        out["train_av"], out["train_av_counts"] = phase_train_av(smi, npz, arrays, directory, fp8=False)
+        out["train_av_fp8"], out["train_av_fp8_counts"] = phase_train_av(smi, npz, arrays, directory, fp8=True)
+        out["video_only"], out["video_only_counts"] = phase_train_av_video_only(smi, directory)
+        out["resume"], out["resume_counts"] = phase_train_resume(smi, npz, directory)
+        out["gradcheck"] = phase_train_av_gradcheck(smi, arrays)
+        out["audio_only"], out["audio_only_counts"] = phase_audio_only(smi)
+        out["prepare_data"], out["prepare_data_counts"] = phase_prepare_data(smi, directory)
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
 def main():
     from pathlib import Path
 
     import ltx2_tpu_torch  # fails outside a checkout, before any result
+
+    t_start = time.perf_counter()
 
     here = Path(__file__).resolve().parent
     if Path(ltx2_tpu_torch.__file__).resolve().parent.parent != here:
@@ -3623,6 +4196,16 @@ def main():
     del model
     torch.cuda.empty_cache()
     gradcheck = phase_train_gradcheck(smi)
+    av_train = phase_training_av(smi)
+    # The training paths of the AV slice and their launch counts, each read
+    # right after the path ran (the resume path's: the uninterrupted run).
+    av_paths = {"train_av": av_train["train_av_counts"], "train_av_fp8": av_train["train_av_fp8_counts"],
+                "train_av_video_only": av_train["video_only_counts"], "train_resume": av_train["resume_counts"]}
+    audio_only_counts, prep_counts = av_train["audio_only_counts"], av_train["prepare_data_counts"]
+    log(f"AV LoRA step vs video-only step at 6144 video tokens (1024 text tokens): AV bf16 "
+        f"{av_train['train_av']['timing']['ms_per_step']:.1f} ms, AV fp8 base "
+        f"{av_train['train_av_fp8']['timing']['ms_per_step']:.1f} ms, video-only bf16 {timing['ms_per_step']:.1f} ms "
+        f"| {smi}")
 
     self_rec, self_bwd = recs[0], bwd[0]
     bf16_recs = [r for r in conv_recs if r["dtype"] == "bfloat16"]
@@ -3640,7 +4223,8 @@ def main():
             "replaces": "ltx2_tpu/ops/attention.py:188",
             "launches": (serve_counts["fwd"] + two_stage_counts["fwd"] + file_counts["fwd"] + v2_counts["fwd"]
                          + av_counts["fwd"] + av_file_counts["fwd"] + two_cfg_counts["fwd"] + a2vid_counts["fwd"]
-                         + i2v_two_stage["fwd"] + i2v_one_stage["fwd"] + options["fwd"] + train_counts["fwd"]),
+                         + i2v_two_stage["fwd"] + i2v_one_stage["fwd"] + options["fwd"] + train_counts["fwd"]
+                         + sum(c["fwd"] for c in av_paths.values()) + audio_only_counts["fwd"]),
             "launches_by_path": {"serve": serve_counts["fwd"], "serve_two_stage": two_stage_counts["fwd"],
                                  "serve_two_stage_from_files": file_counts["fwd"],
                                  "serve_v2_two_stage_from_files": v2_counts["fwd"],
@@ -3649,17 +4233,25 @@ def main():
                                  "serve_two_stage_cfg": two_cfg_counts["fwd"], "serve_a2vid": a2vid_counts["fwd"],
                                  "image_to_video_two_stage": i2v_two_stage["fwd"],
                                  "one_stage": i2v_one_stage["fwd"], "one_stage_options": options["fwd"],
-                                 "train": train_counts["fwd"]},
+                                 "train": train_counts["fwd"], **{k: c["fwd"] for k, c in av_paths.items()},
+                                 "audio_only": audio_only_counts["fwd"]},
             # The key-valid route (ltx2_tpu/ops/attention.py:222, _flash_attention_masked), counted in
             # "launches" too: the token bucket's self-attention.
-            "key_valid_launches": options["key_valid"],
-            "key_valid_launches_by_path": {"one_stage_options": options["key_valid"]},
+            "key_valid_launches": (options["key_valid"] + sum(c["key_valid"] for c in av_paths.values())
+                                   + audio_only_counts["key_valid"]),
+            "key_valid_launches_by_path": {"one_stage_options": options["key_valid"],
+                                           **{k: c["key_valid"] for k, c in av_paths.items()},
+                                           "audio_only": audio_only_counts["key_valid"]},
             # The D = 64 instantiation on the audio-video paths, counted in "launches" too.
             "head_dim_64_launches_by_path": {"serve_av_two_stage": av_counts["fwd_by_head_dim"].get(64, 0),
                                              "serve_v2_av_two_stage_from_files":
                                                  av_file_counts["fwd_by_head_dim"].get(64, 0),
                                              "serve_two_stage_cfg": two_cfg_counts["fwd_by_head_dim"].get(64, 0),
-                                             "serve_a2vid": a2vid_counts["fwd_by_head_dim"].get(64, 0)},
+                                             "serve_a2vid": a2vid_counts["fwd_by_head_dim"].get(64, 0),
+                                             **{k: c["fwd_by_head_dim"].get(64, 0) for k, c in av_paths.items()},
+                                             "audio_only": audio_only_counts["fwd_by_head_dim"].get(64, 0)},
+            "launches_by_head_dim": {**{k: c["fwd_by_head_dim"] for k, c in av_paths.items()},
+                                     "audio_only": audio_only_counts["fwd_by_head_dim"]},
             # The multi-modal guider's rows at batch 3 (two-stage CFG stage 1), counted in "launches" too.
             "batch_3_launches_by_path": {"serve_two_stage_cfg": two_cfg_counts["fwd_by_batch"].get(3, 0)},
             "max_abs_err": max(max(r["max_abs_err"] for r in recs),
@@ -3679,7 +4271,10 @@ def main():
             "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941 (_flash_attention_bwd_dkv, "
                         "pallas_call :1121) and :1287 (_flash_attention_bwd_dq, pallas_call :1456); reached from "
                         "ltx2_tpu/ops/attention.py:188",
-            "launches": train_counts["bwd"],
+            "launches": train_counts["bwd"] + sum(c["bwd"] for c in av_paths.values()),
+            "launches_by_path": {"train": train_counts["bwd"], **{k: c["bwd"] for k, c in av_paths.items()}},
+            "launches_by_head_dim": {"train": train_counts["bwd_by_head_dim"],
+                                     **{k: c["bwd_by_head_dim"] for k, c in av_paths.items()}},
             "max_abs_err": max(r["max_abs_err_grads"] for r in bwd),
             "ms": self_bwd["kernel_ms"],
             "whole_bwd_ms": self_bwd["bwd_ms"],
@@ -3728,7 +4323,8 @@ def main():
             "launches": (upscale_launches + file_upscale_launches + v2_counts["conv_fp32"]
                          + av_counts["conv_fp32"] + av_file_counts["conv_fp32"]
                          + two_cfg_counts["conv_fp32"] + a2vid_counts["conv_fp32"]
-                         + i2v_two_stage["conv_fp32"] + i2v_one_stage["conv_fp32"] + options["conv_fp32"]),
+                         + i2v_two_stage["conv_fp32"] + i2v_one_stage["conv_fp32"] + options["conv_fp32"]
+                         + prep_counts["conv"]),
             "launches_by_path": {"serve_two_stage": upscale_launches,
                                  "serve_two_stage_from_files": file_upscale_launches,
                                  "serve_v2_two_stage_from_files": v2_counts["conv_fp32"],
@@ -3738,7 +4334,7 @@ def main():
                                  "serve_a2vid": a2vid_counts["conv_fp32"],
                                  "image_to_video_two_stage": i2v_two_stage["conv_fp32"],
                                  "one_stage": i2v_one_stage["conv_fp32"],
-                                 "one_stage_options": options["conv_fp32"]},
+                                 "one_stage_options": options["conv_fp32"], "prepare_data": prep_counts["conv"]},
             "max_abs_err": max(r["max_abs_err"] for r in fp32_recs),
             "ms": fp32_recs[0]["ms"],
             "plain_ms": fp32_recs[0]["plain_ms"],
@@ -3749,7 +4345,8 @@ def main():
             "upscaler_conv_time": upscaler_conv,
             "cases": fp32_recs,
         },
-    ], "train": {"timing": timing, "gradcheck": gradcheck},
+    ], "train": {"timing": timing, "gradcheck": gradcheck,
+                  "audio_video": {k: v for k, v in av_train.items() if not k.endswith("_counts")}},
         "bench_e2e": serve, "fp8_step": fp8_step, "checkpoint": checkpoint,
         "text_encode": text_encode, "image_to_video": image_to_video,
         "v2": {"files": v2_files, "small_input_check": v2_small,
@@ -3759,6 +4356,7 @@ def main():
         "audio_video": {"two_stage": av, "small_input_check": av_small, "from_files": av_files,
                         "audio_decode_card_vs_cpu": audio_check, "two_stage_cfg": two_cfg, "a2vid": a2vid,
                         "two_stage_cfg_and_a2vid_small_input_check": mm_small}}
+    log(f"chip_smoke: the whole script took {time.perf_counter() - t_start:.1f} s | {smi}")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

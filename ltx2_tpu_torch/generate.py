@@ -161,8 +161,9 @@ from ltx2_tpu_torch.models.text_encoder import (
 from ltx2_tpu_torch.models.audio_vae.decoder import AudioDecoder, AudioDecoderConfig, init_audio_decoder_
 from ltx2_tpu_torch.models.audio_vae.encoder import AudioEncoder, AudioEncoderConfig, init_audio_encoder_
 from ltx2_tpu_torch.models.audio_vae.vocoder import Vocoder, VocoderConfig, init_vocoder_
-from ltx2_tpu_torch.models.transformer.blocks import AVBlock, VideoBlock
-from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelConfig, LTXModelType, init_ltx_model_
+from ltx2_tpu_torch.models.transformer.model import (
+    LTXModel, LTXModelConfig, LTXModelType, init_ltx_model_, make_block,
+)
 from ltx2_tpu_torch.models.upscaler.spatial import (
     SpatialUpscaler, SpatialUpscalerConfig, init_spatial_upscaler_, spatial_upscaler_apply,
 )
@@ -246,11 +247,7 @@ def make_dit(layers: int, device: torch.device, seed: int = 0, base: LTXModelCon
         return init_ltx_model_(LTXModel(cfg, device=device), gen)
     dit = quantize_params_fp8(init_ltx_model_(LTXModel(dataclasses.replace(cfg, num_layers=0), device=device), gen))
     for i in range(layers):
-        if cfg.is_av:
-            block = AVBlock(cfg.video_stream_config(), cfg.audio_stream_config(), cfg.norm_eps, device=device,
-                            dtype=cfg.dtype)
-        else:
-            block = VideoBlock(cfg.video_stream_config(), cfg.norm_eps, device=device, dtype=cfg.dtype)
+        block = make_block(cfg, device)
         dit.transformer_blocks.append(quantize_params_fp8(init_ltx_model_(block, gen), f"transformer_blocks.{i}"))
     dit.cfg = cfg
     return dit

@@ -14,8 +14,8 @@ per-step prompt table that modulates its context, so its K/V change every
 step; the audio stream has the same switches, its own tables
 (`audio_scale_shift_table`, `audio_prompt_scale_shift_table`) and gates.
 Both cross-modal residuals read the streams' rms-normed states taken once,
-after the text cross-attention and before either update. Not ported: the
-audio-only block.
+after the text cross-attention and before either update. The audio-only
+model's block (`AudioBlock`) holds the audio stream alone.
 """
 
 from __future__ import annotations
@@ -107,32 +107,45 @@ def _cross_modal_configs(video: StreamConfig, audio: StreamConfig, norm_eps: flo
     return a2v, v2a
 
 
+def _table(rows: int, dim: int, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(rows, dim, device=device, dtype=torch.float32), requires_grad=False)
+
+
+def _add_audio_stream_(block: nn.Module, audio: StreamConfig, norm_eps: float, device, dtype) -> None:
+    """The audio stream's parameters (`audio_attn1`, `audio_attn2`,
+    `audio_ff` and their tables), named as in the checkpoint."""
+    base = audio.attention_config(norm_eps)
+    block.audio_attn1 = Attention(base, device=device, dtype=dtype)
+    block.audio_attn2 = Attention(dataclasses.replace(base, context_dim=audio.context_dim), device=device,
+                                  dtype=dtype)
+    block.audio_ff = FeedForward(audio.dim, audio.dim, device=device, dtype=dtype)
+    block.audio_scale_shift_table = _table(9 if audio.cross_attention_adaln else 6, audio.dim, device)
+    if audio.cross_attention_adaln:
+        block.audio_prompt_scale_shift_table = _table(2, audio.dim, device)
+
+
+class AudioBlock(nn.Module):
+    """One block of the audio-only DiT: the audio stream's parameters alone."""
+
+    def __init__(self, audio: StreamConfig, norm_eps: float = 1e-6, *, device=None, dtype=torch.float32):
+        super().__init__()
+        _add_audio_stream_(self, audio, norm_eps, device, dtype)
+
+
 class AVBlock(VideoBlock):
     """One block of the audio-video DiT: the video stream's parameters, the
-    audio stream's (`audio_attn1`, `audio_attn2`, `audio_ff` and their
-    tables) and the cross-modal attentions with their 5-row tables, named
-    as in the checkpoint."""
+    audio stream's and the cross-modal attentions with their 5-row tables,
+    named as in the checkpoint."""
 
     def __init__(self, cfg: StreamConfig, audio: StreamConfig, norm_eps: float = 1e-6, *, device=None,
                  dtype=torch.float32):
         super().__init__(cfg, norm_eps, device=device, dtype=dtype)
-        base = audio.attention_config(norm_eps)
-        self.audio_attn1 = Attention(base, device=device, dtype=dtype)
-        self.audio_attn2 = Attention(dataclasses.replace(base, context_dim=audio.context_dim), device=device,
-                                     dtype=dtype)
-        self.audio_ff = FeedForward(audio.dim, audio.dim, device=device, dtype=dtype)
-
-        def table(rows: int, dim: int) -> nn.Parameter:
-            return nn.Parameter(torch.zeros(rows, dim, device=device, dtype=torch.float32), requires_grad=False)
-
-        self.audio_scale_shift_table = table(9 if audio.cross_attention_adaln else 6, audio.dim)
-        if audio.cross_attention_adaln:
-            self.audio_prompt_scale_shift_table = table(2, audio.dim)
+        _add_audio_stream_(self, audio, norm_eps, device, dtype)
         a2v, v2a = _cross_modal_configs(cfg, audio, norm_eps)
         self.audio_to_video_attn = Attention(a2v, device=device, dtype=dtype)
         self.video_to_audio_attn = Attention(v2a, device=device, dtype=dtype)
-        self.scale_shift_table_a2v_ca_audio = table(5, audio.dim)
-        self.scale_shift_table_a2v_ca_video = table(5, cfg.dim)
+        self.scale_shift_table_a2v_ca_audio = _table(5, audio.dim, device)
+        self.scale_shift_table_a2v_ca_video = _table(5, cfg.dim, device)
 
 
 def _ada_values(table: torch.Tensor, timestep: torch.Tensor, start: int, end: int) -> Tuple[torch.Tensor, ...]:
@@ -231,29 +244,33 @@ def _av_ca_values(table: torch.Tensor, ss_timestep: torch.Tensor, gate_timestep:
 
 
 def joint_block_apply(
-    p: VideoBlock,
-    video: StreamArgs,
+    p: nn.Module,
+    video: Optional[StreamArgs],
     audio: Optional[StreamArgs],
-    video_cfg: StreamConfig,
+    video_cfg: Optional[StreamConfig],
     audio_cfg: Optional[StreamConfig],
     norm_eps: float = 1e-6,
     perturb: Optional[PerturbMasks] = None,
     ca_scale: Optional[torch.Tensor] = None,
     video_text_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     audio_text_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-) -> Tuple[StreamArgs, Optional[StreamArgs]]:
-    """One transformer block -> (video, audio) stream args (audio None when
-    not given). perturb: optional (B,) keep masks by name ("video_self",
-    "audio_self", "a2v", "v2a" gate those residuals); ca_scale: a scalar on
-    the video text cross-attention's output, applied in its dtype;
-    video_text_kv / audio_text_kv: this block's precomputed text (k, v)."""
+) -> Tuple[Optional[StreamArgs], Optional[StreamArgs]]:
+    """One transformer block -> (video, audio) stream args, each None when
+    not given (the audio-only model gives no video). perturb: optional (B,)
+    keep masks by name ("video_self", "audio_self", "a2v", "v2a" gate those
+    residuals); ca_scale: a scalar on the video text cross-attention's
+    output, applied in its dtype; video_text_kv / audio_text_kv: this
+    block's precomputed text (k, v)."""
     perturb = perturb or {}
-    vx = _stream_head(p.attn1, p.attn2, p.scale_shift_table, getattr(p, "prompt_scale_shift_table", None),
-                      video_cfg, video, norm_eps, perturb.get("video_self"), video_text_kv, ca_scale)
+    vx = ax = None
+    if video is not None:
+        vx = _stream_head(p.attn1, p.attn2, p.scale_shift_table, getattr(p, "prompt_scale_shift_table", None),
+                          video_cfg, video, norm_eps, perturb.get("video_self"), video_text_kv, ca_scale)
     if audio is not None:
         ax = _stream_head(p.audio_attn1, p.audio_attn2, p.audio_scale_shift_table,
                           getattr(p, "audio_prompt_scale_shift_table", None), audio_cfg, audio, norm_eps,
                           perturb.get("audio_self"), audio_text_kv)
+    if video is not None and audio is not None:
         a2v_cfg, v2a_cfg = _cross_modal_configs(video_cfg, audio_cfg, norm_eps)
         # Both residuals read the states normed once, before either update.
         vx_norm, ax_norm = rms_norm(vx, None, norm_eps), rms_norm(ax, None, norm_eps)
@@ -274,8 +291,8 @@ def joint_block_apply(
                               k_pe=video.cross_pe)
         ax = _gated_residual(ax, v2a, gate_v2a, perturb.get("v2a"))
 
-    vx = _stream_ff(p.ff, p.scale_shift_table, video, vx, norm_eps)
-    if audio is None:
-        return video.replace(x=vx), None
-    ax = _stream_ff(p.audio_ff, p.audio_scale_shift_table, audio, ax, norm_eps)
-    return video.replace(x=vx), audio.replace(x=ax)
+    if video is not None:
+        vx = _stream_ff(p.ff, p.scale_shift_table, video, vx, norm_eps)
+    if audio is not None:
+        ax = _stream_ff(p.audio_ff, p.audio_scale_shift_table, audio, ax, norm_eps)
+    return (None if video is None else video.replace(x=vx)), (None if audio is None else audio.replace(x=ax))

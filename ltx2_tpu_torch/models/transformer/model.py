@@ -29,7 +29,9 @@ the temporal axis only, the audio stream's width and heads on both sides
 and max position `audio_cross_pe_max_pos`; its AdaLN embeddings come from
 the OTHER stream's sigma (the first token's under per-token timesteps), the
 gate's scaled by av_ca_timestep_scale_multiplier / timestep_scale_multiplier.
-Not ported: the audio-only model and the parallel variants.
+The audio-only model (`model_type` AudioOnly) has the audio stream alone
+(`AudioBlock`s); it takes no video and returns the audio velocity. Not
+ported: the parallel variants.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from torch.utils.checkpoint import checkpoint
 from ltx2_tpu_torch.components.perturbations import BatchedPerturbationConfig, PerturbationType
 from ltx2_tpu_torch.core import rms_norm
 from ltx2_tpu_torch.models.transformer.blocks import (
-    AVBlock, StreamArgs, StreamConfig, VideoBlock, joint_block_apply,
+    AudioBlock, AVBlock, StreamArgs, StreamConfig, VideoBlock, joint_block_apply,
 )
 from ltx2_tpu_torch.ops.common import Linear, init_linear_, layer_norm, linear
 from ltx2_tpu_torch.ops.rope import precompute_freqs_cis
@@ -123,6 +125,14 @@ class LTXModelConfig:
         return self.model_type == LTXModelType.AudioVideo
 
     @property
+    def has_video(self) -> bool:
+        return self.model_type != LTXModelType.AudioOnly
+
+    @property
+    def has_audio(self) -> bool:
+        return self.model_type != LTXModelType.VideoOnly
+
+    @property
     def adaln_num_embeddings(self) -> int:
         return 9 if self.cross_attention_adaln else 6
 
@@ -159,21 +169,31 @@ def _caption_projection(in_channels: int, inner: int, device, dtype) -> nn.Modul
     return proj
 
 
+def make_block(cfg: LTXModelConfig, device=None) -> nn.Module:
+    """One uninitialised block of the DiT `cfg` describes."""
+    if cfg.is_av:
+        return AVBlock(cfg.video_stream_config(), cfg.audio_stream_config(), cfg.norm_eps, device=device,
+                       dtype=cfg.dtype)
+    if cfg.has_audio:
+        return AudioBlock(cfg.audio_stream_config(), cfg.norm_eps, device=device, dtype=cfg.dtype)
+    return VideoBlock(cfg.video_stream_config(), cfg.norm_eps, device=device, dtype=cfg.dtype)
+
+
 class LTXModel(nn.Module):
-    """Parameters of the DiT (video-only, or audio-video), named as in the
-    checkpoint. Linear weights are in cfg.dtype; AdaLN-single and the
-    scale/shift tables fp32.
+    """Parameters of the DiT (video-only, audio-video or audio-only), named
+    as in the checkpoint. Linear weights are in cfg.dtype; AdaLN-single and
+    the scale/shift tables fp32.
     Parameters start uninitialised: load them (loader/from_numpy.py) or
     draw them (`init_ltx_model_`)."""
 
     def __init__(self, cfg: LTXModelConfig, *, device=None):
         super().__init__()
-        if cfg.model_type == LTXModelType.AudioOnly:
-            raise NotImplementedError("not ported: the audio-only DiT (LTXModelType.AudioOnly)")
         self.cfg = cfg
         dtype = cfg.dtype
-        streams = [("", cfg.video_inner_dim, cfg.in_channels, cfg.out_channels)]
-        if cfg.is_av:
+        streams = []
+        if cfg.has_video:
+            streams.append(("", cfg.video_inner_dim, cfg.in_channels, cfg.out_channels))
+        if cfg.has_audio:
             streams.append(("audio_", cfg.audio_inner_dim, cfg.audio_in_channels, cfg.audio_out_channels))
         for prefix, inner, in_channels, out_channels in streams:
             setattr(self, f"{prefix}patchify_proj", Linear(in_channels, inner, device=device, dtype=dtype))
@@ -187,20 +207,13 @@ class LTXModel(nn.Module):
             setattr(self, f"{prefix}scale_shift_table", nn.Parameter(
                 torch.zeros(2, inner, device=device, dtype=torch.float32), requires_grad=False))
             setattr(self, f"{prefix}proj_out", Linear(inner, out_channels, device=device, dtype=dtype))
-        stream = cfg.video_stream_config()
         if cfg.is_av:
             video, audio = cfg.video_inner_dim, cfg.audio_inner_dim
             self.av_ca_video_scale_shift_adaln_single = AdaLayerNormSingle(video, 4, device=device)
             self.av_ca_a2v_gate_adaln_single = AdaLayerNormSingle(video, 1, device=device)
             self.av_ca_audio_scale_shift_adaln_single = AdaLayerNormSingle(audio, 4, device=device)
             self.av_ca_v2a_gate_adaln_single = AdaLayerNormSingle(audio, 1, device=device)
-            audio_stream = cfg.audio_stream_config()
-            self.transformer_blocks = nn.ModuleList(
-                AVBlock(stream, audio_stream, cfg.norm_eps, device=device, dtype=dtype)
-                for _ in range(cfg.num_layers))
-        else:
-            self.transformer_blocks = nn.ModuleList(
-                VideoBlock(stream, cfg.norm_eps, device=device, dtype=dtype) for _ in range(cfg.num_layers))
+        self.transformer_blocks = nn.ModuleList(make_block(cfg, device) for _ in range(cfg.num_layers))
 
 
 @torch.no_grad()
@@ -398,33 +411,36 @@ def precompute_text_kv(model: LTXModel, video_context: torch.Tensor, audio_conte
     return out
 
 
-def prepare_av_args(model: LTXModel, video: Modality, audio: Optional[Modality] = None,
+def prepare_av_args(model: LTXModel, video: Optional[Modality], audio: Optional[Modality] = None,
                     video_pe: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                     audio_pe: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                    ) -> Tuple[StreamArgs, Optional[StreamArgs]]:
-    """Both streams' preprocessors, each with its cross-modal inputs when
-    both run: (video args, audio args or None)."""
-    args = prepare_stream_args(model, video, video_pe)
-    if audio is None:
-        return args, None
-    audio_args = prepare_stream_args(model, audio, audio_pe, prefix="audio_")
+                    ) -> Tuple[Optional[StreamArgs], Optional[StreamArgs]]:
+    """The preprocessors of the streams that run (each None when it does
+    not), each with its cross-modal inputs when both run: (video args,
+    audio args)."""
+    args = None if video is None else prepare_stream_args(model, video, video_pe)
+    audio_args = None if audio is None else prepare_stream_args(model, audio, audio_pe, prefix="audio_")
+    if args is None or audio_args is None:
+        return args, audio_args
     return (_prepare_cross_modal(model, args, video, audio, "video"),
             _prepare_cross_modal(model, audio_args, audio, video, "audio"))
 
 
-def _block_x(block: VideoBlock, x: torch.Tensor, ax: Optional[torch.Tensor], args: StreamArgs,
+def _block_x(block: nn.Module, x: Optional[torch.Tensor], ax: Optional[torch.Tensor], args: Optional[StreamArgs],
              audio: Optional[StreamArgs], cfg: LTXModelConfig, perturb=None, ca_scale=None, vkv=None, akv=None):
-    """One block on hidden states `x` (and the audio stream's `ax`): the
-    unit that remat recomputes."""
-    v, a = joint_block_apply(block, args.replace(x=x), None if audio is None else audio.replace(x=ax),
-                             cfg.video_stream_config(), cfg.audio_stream_config() if audio is not None else None,
+    """One block on hidden states `x` and the audio stream's `ax` (either
+    None where its stream does not run): the unit that remat recomputes."""
+    v, a = joint_block_apply(block, None if args is None else args.replace(x=x),
+                             None if audio is None else audio.replace(x=ax),
+                             cfg.video_stream_config() if args is not None else None,
+                             cfg.audio_stream_config() if audio is not None else None,
                              cfg.norm_eps, perturb, ca_scale, vkv, akv)
-    return v.x if a is None else (v.x, a.x)
+    return None if v is None else v.x, None if a is None else a.x
 
 
 def ltx_model_apply(
     model: LTXModel,
-    video: Modality,
+    video: Optional[Modality],
     video_pe: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     perturbations: Optional[BatchedPerturbationConfig] = None,
     ca_scales: Optional[torch.Tensor] = None,
@@ -432,40 +448,53 @@ def ltx_model_apply(
     audio: Optional[Modality] = None,
     audio_pe: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ):
-    """Forward pass -> fp32 velocity (B, T, out_channels); with `audio` (an
-    audio-video model) the pair (video velocity, audio velocity).
+    """Forward pass -> the fp32 velocity (B, T, out_channels) of the stream
+    the model runs: the video's, with `audio` on an audio-video model the
+    pair (video velocity, audio velocity), and on the audio-only model the
+    audio velocity (`video` is then ignored and may be None).
     perturbations: a static per-row config (STG); ca_scales: (L,) scales of
     each block's video text cross-attention output; text_kv:
     `precompute_text_kv`'s output; video_pe / audio_pe: precomputed RoPE
     tables (`stream_pe`). Each None leaves its part of the forward as it is
     without the option."""
     cfg = model.cfg
-    if audio is not None and not cfg.is_av:
+    if audio is not None and not cfg.has_audio:
         raise ValueError("an audio modality needs the audio-video model (model_type AudioVideo)")
+    if not cfg.has_video:
+        if audio is None:
+            raise ValueError("the audio-only model needs an audio modality")
+        video = None
+    elif video is None:
+        raise ValueError("a video modality is required for a video-enabled model")
     args, audio_args = prepare_av_args(model, video, audio, video_pe, audio_pe)
+    first = args if args is not None else audio_args
     masks = None
     if perturbations is not None:
-        masks = _perturbation_mask_array(perturbations, cfg.num_layers, args.x.shape[0], args.x.device)
+        masks = _perturbation_mask_array(perturbations, cfg.num_layers, first.x.shape[0], first.x.device)
     vkv, akv = (text_kv or {}).get("video"), (text_kv or {}).get("audio")
     remat = cfg.remat and torch.is_grad_enabled()
-    vx, ax = args.x, None if audio_args is None else audio_args.x
+    vx = None if args is None else args.x
+    ax = None if audio_args is None else audio_args.x
     for i, block in enumerate(model.transformer_blocks):
         extra = (None if masks is None else {name: m[i] for name, m in masks.items()},
                  None if ca_scales is None else ca_scales[i],
                  None if vkv is None else (vkv[0][i], vkv[1][i]),
                  None if akv is None else (akv[0][i], akv[1][i]))
         if remat:
-            out = checkpoint(_block_x, block, vx, ax, args, audio_args, cfg, *extra, use_reentrant=False)
+            vx, ax = checkpoint(_block_x, block, vx, ax, args, audio_args, cfg, *extra, use_reentrant=False)
         else:
-            out = _block_x(block, vx, ax, args, audio_args, cfg, *extra)
-        vx, ax = out if audio_args is not None else (out, None)
-    velocity = _process_output(
-        model.scale_shift_table, cfg.norm_eps, model.proj_out, vx, args.embedded_timestep
-    ).float()
+            vx, ax = _block_x(block, vx, ax, args, audio_args, cfg, *extra)
+    velocity = audio_velocity = None
+    if args is not None:
+        velocity = _process_output(
+            model.scale_shift_table, cfg.norm_eps, model.proj_out, vx, args.embedded_timestep
+        ).float()
+    if audio_args is not None:
+        audio_velocity = _process_output(model.audio_scale_shift_table, cfg.norm_eps, model.audio_proj_out, ax,
+                                         audio_args.embedded_timestep).float()
     if audio_args is None:
         return velocity
-    return velocity, _process_output(model.audio_scale_shift_table, cfg.norm_eps, model.audio_proj_out, ax,
-                                     audio_args.embedded_timestep).float()
+    return audio_velocity if args is None else (velocity, audio_velocity)
 
 
 def _denoise(modality: Modality, velocity: torch.Tensor) -> torch.Tensor:
@@ -476,13 +505,18 @@ def _denoise(modality: Modality, velocity: torch.Tensor) -> torch.Tensor:
 
 def x0_model_apply(
     model: LTXModel,
-    video: Modality,
+    video: Optional[Modality],
     video_pe: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     **kwargs,
 ):
-    """Denoised sample x0 = latent - t * velocity, fp32 (with `audio`, the
-    (video, audio) pair); kwargs as ltx_model_apply takes them."""
+    """Denoised sample x0 = latent - t * velocity, fp32 (with `audio` on an
+    audio-video model, the (video, audio) pair); kwargs as ltx_model_apply
+    takes them. The audio-only model denoises against the audio latent
+    even when a video modality is passed too (the JAX package's rule)."""
     out = ltx_model_apply(model, video, video_pe, **kwargs)
-    if kwargs.get("audio") is None:
+    audio = kwargs.get("audio")
+    if not model.cfg.has_video:
+        return _denoise(audio, out)
+    if audio is None:
         return _denoise(video, out)
-    return _denoise(video, out[0]), _denoise(kwargs["audio"], out[1])
+    return _denoise(video, out[0]), _denoise(audio, out[1])

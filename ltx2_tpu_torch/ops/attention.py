@@ -24,7 +24,8 @@ ctypes (`ops/_build.py`, shared with the conv kernel). Each wrapper counts its
 launches in its `launches` attribute; the forward also counts those with a
 key-valid mask in `flash_attention.key_valid_launches`, each head dim's in
 `flash_attention.launches_by_head_dim` and each batch size's in
-`flash_attention.launches_by_batch`.
+`flash_attention.launches_by_batch`; the backward each head dim's in
+`flash_attention_bwd_kernel.launches_by_head_dim`.
 
 `sdpa` sends a call to the kernels or to plain torch ops by contract alone
 (`attention_route`), never because a kernel failed: the plain route takes
@@ -43,7 +44,7 @@ import torch
 
 from ltx2_tpu_torch.ops._build import kernel
 
-_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128)
 
 # The JAX package runs its Pallas flash kernel on the TPU only where the
 # query count reaches FLASH_MIN_TOKENS, the token counts and the head dim
@@ -172,8 +173,8 @@ def _check_shapes(q, k, v, kv_valid) -> int:
         raise ValueError(
             f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}"
         )
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {_HEAD_DIMS}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not in {KERNEL_HEAD_DIMS}")
     if t_q == 0 or t_k == 0:
         raise ValueError("flash_attention: empty sequence")
     if h > 65535 or b > 65535:
@@ -285,10 +286,13 @@ def flash_attention_bwd_kernel(q, k, v, do, l, m, di, scale, kv_valid=None):
     if err != 0:
         raise RuntimeError(f"flash_attention backward: kernel launch failed with CUDA error {err}")
     flash_attention_bwd_kernel.launches += 1
+    by_d = flash_attention_bwd_kernel.launches_by_head_dim
+    by_d[d] = by_d.get(d, 0) + 1
     return dq_acc.to(torch.bfloat16).transpose(1, 2), dk, dv
 
 
 flash_attention_bwd_kernel.launches = 0
+flash_attention_bwd_kernel.launches_by_head_dim = {}  # {64: n, 128: n}, counted in `launches` too
 
 
 def flash_attention_bwd(q, k, v, o, l, m, do, scale=None, kv_valid=None):

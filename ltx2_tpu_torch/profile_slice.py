@@ -2,7 +2,7 @@
 goes on one GPU.
 
     python -m ltx2_tpu_torch.profile_slice [--layers 48]
-    python -m ltx2_tpu_torch.profile_slice --train [--layers 48]
+    python -m ltx2_tpu_torch.profile_slice --train [--audio] [--layers 48]
     python -m ltx2_tpu_torch.profile_slice --one-stage-options [--layers 48]
     python -m ltx2_tpu_torch.profile_slice --audio [--layers 48]
     python -m ltx2_tpu_torch.profile_slice --two-stage [--layers 48]
@@ -26,7 +26,9 @@ frame, each after a warm-up run. The model, inputs and decode come from generate
 helpers. With --train it traces instead one rank-16 LoRA train step of the
 full-width DiT at scripts/bench_train.py's shape (6144 tokens, 1024 text
 tokens: forward, remat recompute, backward and AdamW), after a warm-up step,
-built by train.py's own helpers. With --one-stage-options it traces instead,
+built by train.py's own helpers; with --train --audio one such step of the
+audio-video DiT at `train.bench_arrays`' sample (126 audio tokens with their
+own 1024-token masked context) in bf16, then on its fp8 frozen base. With --one-stage-options it traces instead,
 at 480x704x97 (4290 tokens) with the first latent frame conditioned, one
 step of the one-stage loop with the options of chip_smoke.py's request A
 but Heun and GE (CFG* at 3.0, STG on block 29: three guidance rows; the
@@ -170,14 +172,17 @@ def _text_encode(device: torch.device, card: str) -> None:
                       **rec}), flush=True)
 
 
-def _train_step(layers: int, device: torch.device, card: str) -> None:
-    dit = train.make_model(layers, device, seed=0)
+def _train_step(layers: int, device: torch.device, card: str, audio: bool = False, fp8: bool = False) -> None:
+    dit = train.make_model(layers, device, seed=0, audio=audio, fp8=fp8)
     train.select_trainable(dit, train.build_parser().parse_args(["--lora-rank", "16"]), device)
     step, batch, flops = train.bench_step(dit, device)
     gen = torch.Generator(device=device)
     rec = _traced(lambda: step(batch, gen.manual_seed(0)), device)
-    print(json.dumps({"phase": "train_step", "layers": layers, "tokens": batch.x0.shape[1],
-                      "text_tokens": batch.context.shape[1], "lora_rank": 16,
+    extra = {} if batch.audio_x0 is None else {"audio_tokens": batch.audio_x0.shape[1],
+                                               "audio_text_tokens": batch.audio_context.shape[1]}
+    phase = "train_step" + ("_av" if audio else "") + ("_fp8" if fp8 else "")
+    print(json.dumps({"phase": phase, "layers": layers, "tokens": batch.x0.shape[1],
+                      "text_tokens": batch.context.shape[1], **extra, "lora_rank": 16,
                       "tflops_per_s_wall": flops / rec["wall_ms"] / 1e9, "card": card, **rec}), flush=True)
 
 
@@ -381,7 +386,8 @@ def main(argv=None) -> None:
     ap.add_argument("--one-stage-options", action="store_true",
                     help="trace the one-stage loop options' steps instead of the serving path")
     ap.add_argument("--audio", action="store_true",
-                    help="trace the audio-video step beside the video-only one, and an audio decode")
+                    help="trace the audio-video step beside the video-only one, and an audio decode; with --train "
+                         "the audio-video LoRA step, bf16 and on the fp8 base")
     ap.add_argument("--two-stage", action="store_true",
                     help="trace the two-stage CFG pipeline's 3-row stage-1 step beside the 1-row AV step (bf16)")
     args = ap.parse_args(argv)
@@ -390,7 +396,12 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     card = torch.cuda.get_device_name(0)
     if args.train:
-        _train_step(args.layers, device, card)
+        if not args.audio:
+            _train_step(args.layers, device, card)
+            return
+        for fp8 in (False, True):
+            _train_step(args.layers, device, card, audio=True, fp8=fp8)
+            torch.cuda.empty_cache()
         return
     if args.one_stage_options:
         with torch.no_grad():

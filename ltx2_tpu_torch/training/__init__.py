@@ -1,10 +1,12 @@
-"""Fine-tuning of the video DiT (counterpart of ltx2_tpu/training)."""
+"""Fine-tuning of the DiT (counterpart of ltx2_tpu/training)."""
 
 from ltx2_tpu_torch.training.trainer import (
+    AUDIO_BRANCH_PATTERN,
     AdamW,
     TrainBatch,
     TrainConfig,
     ema_params,
+    freeze_audio_branch_mask,
     init_ema,
     learning_rate_schedule,
     make_ema_update,
@@ -16,10 +18,12 @@ from ltx2_tpu_torch.training.trainer import (
 )
 
 __all__ = [
+    "AUDIO_BRANCH_PATTERN",
     "AdamW",
     "TrainBatch",
     "TrainConfig",
     "ema_params",
+    "freeze_audio_branch_mask",
     "init_ema",
     "learning_rate_schedule",
     "make_ema_update",

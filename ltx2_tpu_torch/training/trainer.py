@@ -1,9 +1,13 @@
-"""Rectified-flow fine-tuning of the video DiT on one device (counterpart of
+"""Rectified-flow fine-tuning of the DiT on one device (counterpart of
 ltx2_tpu/training/trainer.py).
 
 Objective (rectified flow / flow matching): x_sigma = (1 - sigma) * x0 +
 sigma * noise, and the DiT predicts the velocity v = noise - x0; the loss is
 a uniform-weight fp32 MSE, with logit-normal (or uniform) sigma sampling.
+A batch with audio fields trains the audio-video DiT jointly: both streams
+share each sample's sigma and the loss is the sum of the two MSEs.
+`freeze_audio_branch_mask` freezes the audio branch of an audio-video model
+trained on video alone.
 
 What replaces the JAX machinery:
 - `jax.value_and_grad` -> autograd on the module; only parameters with
@@ -15,25 +19,26 @@ What replaces the JAX machinery:
   decoupled weight decay, the learning rate of the step before the update).
 - `jax.random` keys -> explicit `torch.Generator`s.
 - Remat is `LTXModelConfig.remat` (per-block `torch.utils.checkpoint`).
-Not ported yet: audio-video training, and the ZeRO-1/2/3 and FSDP sharding
-arguments of `make_train_step` (they raise NotImplementedError).
+Not ported yet: the ZeRO-1/2/3 and FSDP sharding arguments of
+`make_train_step` (they raise NotImplementedError).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from typing import Callable, List, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
 
-from ltx2_tpu_torch.models.transformer.model import LTXModel, Modality, ltx_model_apply
+from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelType, Modality, ltx_model_apply
 
 
 @dataclasses.dataclass
 class TrainBatch:
-    """One training batch of patchified video latents.
+    """One training batch of patchified latents.
 
     x0:           (B, N, C) clean latent tokens
     positions:    (B, 3, N, 2) RoPE position bounds
@@ -41,8 +46,10 @@ class TrainBatch:
     context_mask: optional (B, S) mask for padded captions (bool, or
                   additive float); needed when batching variable-length
                   prompts
-    The audio fields exist for joint audio-video training, which the port
-    does not do yet: a batch that carries them is refused.
+    audio_*:      joint audio-video training: the audio latent tokens
+                  (B, Na, Ca), their (B, 1, Na, 2) positions in seconds, and
+                  optionally the audio stream's own text context and its
+                  mask (without them the audio shares the video's)
     """
 
     x0: torch.Tensor
@@ -93,29 +100,73 @@ def rectified_flow_loss(
     tc: TrainConfig = TrainConfig(),
     sigmas: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
+    audio_noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Flow-matching MSE for one batch: model(x_sigma, sigma) vs noise - x0.
 
-    sigmas (B,) and noise (B, N, C) are drawn from `generator` (sigmas
-    first) unless given; the tests hand in the JAX package's draws."""
-    if batch.audio_x0 is not None:
-        raise NotImplementedError("audio-video training is not ported yet: the batch carries audio fields")
+    sigmas (B,), noise (B, N, C) and, with audio fields, audio_noise (B, Na,
+    Ca) are drawn from `generator` in that order unless given; the tests
+    hand in the JAX package's draws. With audio fields both streams share
+    the per-sample sigma and the loss is the sum of their MSEs."""
     cfg = model.cfg
     x0 = batch.x0.float()
     b, device = x0.shape[0], x0.device
     if sigmas is None:
         sigmas = _sample_sigmas(generator, b, tc, device)
-    if noise is None:
-        noise = torch.randn(x0.shape, generator=generator, device=device)
-    sigmas, noise = sigmas.float(), noise.float()
+    sigmas = sigmas.float()
     s = sigmas[:, None, None]
-    x_sigma = ((1.0 - s) * x0 + s * noise).to(cfg.dtype)
+
+    def noised(x0: torch.Tensor, eps: Optional[torch.Tensor]):
+        if eps is None:
+            eps = torch.randn(x0.shape, generator=generator, device=device)
+        eps = eps.float()
+        return eps, ((1.0 - s) * x0 + s * eps).to(cfg.dtype)
+
+    noise, x_sigma = noised(x0, noise)
     video = Modality(
         latent=x_sigma, context=batch.context, context_mask=batch.context_mask,
         timesteps=sigmas, positions=batch.positions, sigma=sigmas,
     )
-    v_pred = ltx_model_apply(model, video)
-    return torch.mean((v_pred.float() - (noise - x0)) ** 2)
+    if batch.audio_x0 is None:
+        v_pred = ltx_model_apply(model, video)
+        return torch.mean((v_pred.float() - (noise - x0)) ** 2)
+
+    if cfg.model_type != LTXModelType.AudioVideo:
+        raise ValueError("batch carries audio fields but cfg.model_type is video-only: a bare-array return would "
+                         "mis-unpack into (v_pred, a_pred)")
+    a0 = batch.audio_x0.float()
+    audio_noise, a_sigma = noised(a0, audio_noise)
+    own = batch.audio_context is not None
+    # The video's mask applies only when the audio shares the video context.
+    audio = Modality(
+        latent=a_sigma, context=batch.audio_context if own else batch.context,
+        context_mask=batch.audio_context_mask if own else batch.context_mask,
+        timesteps=sigmas, positions=batch.audio_positions, sigma=sigmas,
+    )
+    v_pred, a_pred = ltx_model_apply(model, video, audio=audio)
+    v_loss = torch.mean((v_pred.float() - (noise - x0)) ** 2)
+    a_loss = torch.mean((a_pred.float() - (audio_noise - a0)) ** 2)
+    return v_loss + a_loss
+
+
+# Every audio-branch parameter of the DiT, by dotted name: the top-level
+# audio_* / av_ca_* leaves and the blocks' audio_attn*, audio_ff,
+# audio_*_table, audio_to_video_attn and video_to_audio_attn sublayers, with
+# any LoRA adapters attached inside them.
+AUDIO_BRANCH_PATTERN = r"(^|\.)(audio_|av_ca_|video_to_audio_attn)"
+
+
+def freeze_audio_branch_mask(model: nn.Module, mask: Optional[Sequence[str]] = None) -> List[str]:
+    """Freeze every audio-branch parameter (`requires_grad` False) and
+    return the trainable names: those of `mask` (a trainable mask's names)
+    outside the audio branch, or every parameter outside it when `mask` is
+    None. For an audio-video model trained on video alone: the loss gives
+    the audio branch exactly-zero gradients, but AdamW's weight decay would
+    still shrink its weights every step; frozen, it gets no moments and no
+    decay."""
+    audio_re = re.compile(AUDIO_BRANCH_PATTERN)
+    keep = None if mask is None else set(mask)
+    return trainable_mask(model, lambda name: not audio_re.search(name) and (keep is None or name in keep))
 
 
 def trainable_mask(model: nn.Module, predicate: Callable[[str], bool]) -> List[str]:
@@ -230,8 +281,8 @@ def make_train_step(
     grad_shardings=None,
     param_shardings=None,
 ):
-    """One step `(batch, generator, sigmas=None, noise=None) -> loss`:
-    loss, backward, optimizer update, on one device.
+    """One step `(batch, generator, sigmas=None, noise=None, audio_noise=None)
+    -> loss`: loss, backward, optimizer update, on one device.
 
     accum_steps > 1: the batch's leading dim splits into `accum_steps`
     microbatches whose mean gradient feeds ONE update (each microbatch's
@@ -243,7 +294,8 @@ def make_train_step(
             raise NotImplementedError(f"{name}: ZeRO/FSDP sharding is not ported; the port trains on one device")
 
     def step(batch: TrainBatch, generator: Optional[torch.Generator] = None,
-             sigmas: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+             sigmas: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+             audio_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         b = batch.x0.shape[0]
         if b % accum_steps:
             raise ValueError(f"batch {b} must divide --accum-steps {accum_steps}")
@@ -253,7 +305,7 @@ def make_train_step(
             part = slice(i * mb, (i + 1) * mb)
             loss = rectified_flow_loss(
                 model, batch.map(lambda x: x[part]), generator, tc,
-                None if sigmas is None else sigmas[part], None if noise is None else noise[part],
+                *(None if x is None else x[part] for x in (sigmas, noise, audio_noise)),
             )
             (loss / accum_steps).backward()
             total += loss.detach()
@@ -291,9 +343,9 @@ def ema_params(ema: Sequence[torch.Tensor], like: Sequence[torch.Tensor]) -> Lis
 
 
 def make_eval_step(model: LTXModel, tc: TrainConfig = TrainConfig()):
-    """Validation loss `(batch, generator) -> loss` without gradients. Pass
-    a generator seeded per validation batch so successive evaluations draw
-    the same sigmas and noise."""
+    """Validation loss `(batch, generator) -> loss` without gradients, audio
+    fields included. Pass a generator seeded per validation batch so
+    successive evaluations draw the same sigmas and noise."""
 
     @torch.no_grad()
     def eval_step(batch: TrainBatch, generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -339,7 +339,7 @@ def test_train_save_then_generate_lora(files, tmp_path):
     rng = np.random.default_rng(3)
     from ltx2_tpu_torch.models.transformer import model
 
-    positions = torch.from_numpy(train.synthetic_dataset(2, 2, 3, 1, trained.cfg, 0)[1])
+    positions = torch.from_numpy(train.synthetic_dataset(2, 2, 3, 1, trained.cfg, 0)["positions"])
     video = model.Modality(latent=torch.from_numpy(rng.standard_normal((1, 12, 16)).astype(np.float32)),
                            context=torch.from_numpy(rng.standard_normal((1, 8, HIDDEN)).astype(np.float32)),
                            context_mask=None, timesteps=torch.tensor([0.7]), positions=positions)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (flash attention forward and backward, the
 implicit-GEMM conv, also at the video encoder's shapes) against their plain
-PyTorch versions, the fp32 text encoder (Gemma-3 at full width, 2 layers,
+PyTorch versions (the backward also at head dim 64 on the audio-video
+training shapes), the fp32 text encoder (Gemma-3 at full width, 2 layers,
 and the V1 encoder; also with Gemma in fp8), the fp32 video encoder (a
 reduced plan) and the published audio encoder with its mel analysis
 against the same modules on the CPU, a full-width DiT block loaded kept in
@@ -125,6 +126,41 @@ def test_backward_kernels_match_plain_on_gpu():
     l = torch.ones(1, 2, 64, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         attention.flash_attention_bwd(q, q, q, q, l, l, q)
+
+
+@pytest.mark.gpu
+def test_backward_kernel_at_head_dim_64_on_the_av_training_shapes_on_gpu():
+    """The fused backward at head dim 64 where audio-video training takes
+    it: the audio tokens' self-attention (126 keys, under one 128-key block,
+    the second 64-row query tile ragged), audio -> video (many query tiles,
+    126 keys), video -> audio (126 queries gathering dQ from many key
+    blocks) and the audio text cross-attention with a key mask, against
+    autograd of the plain version in fp32, each launch counted by head dim;
+    a 64-key tile dropped from dK and dV must fail the limits."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    h, d = 4, 64
+    for t_q, t_k, n_valid in ((126, 126, None), (1536, 126, None), (126, 1536, None), (126, 1024, 700)):
+        q, k, v, do = (torch.randn(1, t, h * d, device="cuda", generator=gen).bfloat16().view(1, t, h, d)
+                       .transpose(1, 2) for t in (t_q, t_k, t_k, t_q))
+        mask = None
+        if n_valid is not None:
+            mask = torch.zeros(1, t_k, dtype=torch.bool, device="cuda")
+            mask[:, :n_valid] = True
+        leaves = [x.float().requires_grad_() for x in (q, k, v)]
+        ref = torch.autograd.grad(attention.flash_attention_plain(*leaves, None, mask), leaves, do.float())
+        before = dict(attention.flash_attention_bwd_kernel.launches_by_head_dim)
+        o, l, m = attention.flash_attention_residuals(q, k, v, None, mask)
+        grads = attention.flash_attention_bwd(q, k, v, o, l, m, do, None, mask)
+        torch.cuda.synchronize()
+        assert attention.flash_attention_bwd_kernel.launches_by_head_dim.get(64, 0) == before.get(64, 0) + 1
+        for g, r in zip(grads, ref):
+            g = g.float()
+            assert (g - r).abs().max() <= 2e-2 * r.abs().max(), (t_q, t_k)
+            assert (g - r).square().mean().sqrt() <= 1e-2 * r.square().mean().sqrt(), (t_q, t_k)
+        dk = grads[1].float().clone()
+        dk[:, :, 64:128] = 0
+        assert (dk - ref[1]).square().mean().sqrt() > 1e-2 * ref[1].square().mean().sqrt(), (t_q, t_k)
 
 
 @pytest.mark.gpu

@@ -16,8 +16,9 @@ initial noise:
   override, GE, Heun, the cross-attention scale, text-KV caching) through
   the pipeline against the JAX package's, the latent to 1e-4; STG on the
   audio stream raises ValueError on this video-only pipeline, and each
-  unported option (audio, the temporal upscaler, meshes) raises
-  NotImplementedError naming itself;
+  unported option (the temporal upscaler, meshes, int8, prepare_data's
+  --videos, the training mesh flags) raises NotImplementedError naming
+  itself;
 - `generate.main(["--pipeline", "one-stage", "--image", ...])` from a tiny
   checkpoint against `generate_videos_one_stage` on the same ledger, and
   `--pipeline text-to-video`; with `--token-shift` its config and sigmas
@@ -52,7 +53,7 @@ from ltx2_tpu.pipelines.one_stage import OneStagePipeline as JOneStagePipeline
 from ltx2_tpu.pipelines.text_to_video import TextToVideoConfig as JTextToVideoConfig
 from ltx2_tpu.pipelines.text_to_video import TextToVideoPipeline as JTextToVideoPipeline
 from ltx2_tpu.types import VideoLatentShape as JShape
-from ltx2_tpu_torch import generate
+from ltx2_tpu_torch import generate, prepare_data, train
 from ltx2_tpu_torch.components import schedulers
 from ltx2_tpu_torch.components.guiders import CFGStarRescalingGuider, LtxAPGGuider, StatefulAPGGuider
 from ltx2_tpu_torch.components.noisers import GaussianNoiser
@@ -60,7 +61,6 @@ from ltx2_tpu_torch.components.patchifiers import VideoLatentPatchifier
 from ltx2_tpu_torch.conditioning.latent import VideoConditionByLatentIndex
 from ltx2_tpu_torch.conditioning.tools import VideoLatentTools
 from ltx2_tpu_torch.loader.from_numpy import dit_from_numpy, video_decoder_from_numpy, video_encoder_from_numpy
-from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelType
 from ltx2_tpu_torch.models.video_vae import encoder
 from ltx2_tpu_torch.models.video_vae import weights as vae_weights
 from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoder, VideoDecoderConfig
@@ -209,8 +209,10 @@ def test_text_to_video_matches_jax(weights):
 
 # option -> (a word its message must name, the call that must refuse it)
 UNPORTED = {
-    "audio_only_model": ("audio-only", lambda p, c, x: LTXModel(dataclasses.replace(
-        p.transformer.cfg, model_type=LTXModelType.AudioOnly), device="meta")),
+    "prepare_data_videos": ("video_io", lambda p, c, x: prepare_data.main(
+        ["--videos", "clips", "--context-dim", "8", "--device", "cpu"])),
+    "train_mesh_flags": ("one device", lambda p, c, x: train.main(
+        ["--placeholder", "--device", "cpu", "--synthetic", "1", "2", "2", "--zero1"])),
     "temporal_upscaler": ("temporal upscaler", lambda p, c, x: p(x, x, c, temporal_upscaler=lambda z: z)),
     "meshes": ("meshes", lambda p, c, x: OneStagePipeline(p.transformer, sequence_mesh=object())),
     "multimodal_loop_meshes": ("parallelism", lambda p, c, x: make_multimodal_av_denoise_loop(

@@ -284,8 +284,12 @@ def test_unported_options_raise(lora_tree):
     opt = trainer.make_optimizer(trainer.TrainConfig(), [p for p in dit.parameters() if p.requires_grad])
     with pytest.raises(NotImplementedError):
         trainer.make_train_step(dit, opt, grad_shardings=object())
+    for flag in (["--fsdp"], ["--zero2"], ["--tp-devices", "2"], ["--dp-devices", "2"]):
+        with pytest.raises(NotImplementedError, match="one device"):
+            train.main(["--placeholder", "--device", "cpu", "--synthetic", "1", "2", "2", *flag])
+    # Audio fields on a video-only model: the JAX package's ValueError.
     _, pb = _batches(masked=False)
-    with pytest.raises(NotImplementedError, match="audio"):
+    with pytest.raises(ValueError, match="video-only"):
         trainer.rectified_flow_loss(dit, dataclasses.replace(pb, audio_x0=pb.x0))
 
 
