@@ -28,7 +28,10 @@ card and nvcc; it exits non-zero without them, and without the package
    x 6144 and 1536 keys), and the two-stage CFG pipeline's stage-1 shapes
    at batch 3 (the multi-modal guider's cond, uncond and modality rows):
    video self (1536 tokens) and text (1024 keys) at head dim 128, audio
-   self (126), audio text, audio -> video and video -> audio at 64, within limits
+   self (126), audio text, audio -> video and video -> audio at 64, keyframe
+   interpolation's lengths past the tile grid (stage 1's two rows over 1536
+   + 2 x 96 appended tokens, self and text; stage 2's 6144 + 2 x 384) and
+   ti2vid-hq's stage-1 rows at batch 2, within limits
    relative to the plain output that two planted faults must fail (and on
    a masked case a third: the kernel run with its mask dropped); with the
    valid keys the bound counts, the wrapper's and the kernel's own device
@@ -44,7 +47,10 @@ card and nvcc; it exits non-zero without them, and without the package
    per-frame 1024 -> 4096 resampler, the initial 128 -> 1024 and the final
    1024 -> 128; with causal zero/replicate padding the video encoder's
    conv_in 48 -> 128, a 512 res conv, conv_out 1024 -> 129 through the
-   module's padding to 136 outputs, and a split-K 1024 res conv), within
+   module's padding to 136 outputs, and a split-K 1024 res conv; with zero
+   padding the temporal upscaler's five conv shapes on a 512x768x121
+   latent: 128 -> 512, 512 -> 512 before and after the shuffle (16 and 31
+   frames), the upsampler's 512 -> 1024 and the final 512 -> 128), within
    relative limits that two planted faults (a tap left
    out, the output x 1.03) must fail; the fp32 kernel also within fp32
    accuracy of the plain version in float64, a limit single-pass TF32 must
@@ -62,6 +68,20 @@ card and nvcc; it exits non-zero without them, and without the package
    forward kernel (none through a backward kernel) and every decoder conv
    through the conv kernel; then one traced step of the loop with the fp8
    weights beside the same weights in bf16 (profile_slice.denoise_step);
+5b. int8 W8A8: the bf16 DiT quantized in place on the card
+   (`quantize_params_int8`; seconds, peak, weight GB), its x0 at 6144 tokens
+   against the bf16 DiT's on the same weights (correlation above 0.999, as
+   the JAX package asks), the same traced step beside the fp8 and bf16 ones,
+   `torch._int_mm` bit for bit its plain int32 route at the DiT's shapes
+   (with its time beside the bf16 product's) and a 16-row product refused,
+   a 2-block checkpoint streamed with `quantize_int8` equal bit for bit to
+   the file quantized on the card, and bench-e2e's loop on the int8 DiT (768
+   flash and 3840 int8 products a clip); then the V2 step;
+5c. the temporal upscaler at full width on a 512x768x121 latent: 31 frames,
+   the card against the CPU (1e-5 rms, 1e-4 max relative), 19 fp32 conv
+   launches, the call's time and peak; then `generate.main --pipeline
+   one-stage --upscale-temporal` at 2 blocks, 128x128x17: a .y4m of 33
+   frames;
 6. text encode: the full-width fp32 Gemma-3-12B (48 layers, 3840 wide) and
    the V1 text encoder (feature extractor over 49 states, 2-block 30 x 128
    connector) built on the card, one request's 2 x 1024 prompt tokens
@@ -181,7 +201,13 @@ card and nvcc; it exits non-zero without them, and without the package
    and its flash, key-valid and conv launches against the counts the code
    implies; then A, B and the stateful APG with momentum at the small size
    of (c) (A with a 64-token bucket over 48 tokens), through the kernels
-   against their plain versions, another seed rejected;
+   against their plain versions, another seed rejected; (g) keyframe
+   interpolation and ti2vid-hq at full width and depth on shared random
+   modules, 512x768x121: keyframes at frames 0 (strength 1.0, its appended
+   tokens bit for bit clean at each stage's end) and 120, stage 1 cut from
+   30 steps to 4, stage 2 at 3, flash launches by length; ti2vid-hq with
+   the image, the Res2s stage 1 cut from 15 steps to 4 (two evaluations a
+   step at batch 2), then with audio at 2 AV blocks (flash at head dim 64);
 10. backward check: at the video DiT's training shapes (head dim 128:
    self, cross, masked ragged) and the audio-video DiT's (head dim 64: the
    126 audio tokens' self-attention, audio -> video 6144 x 126, video ->
@@ -562,11 +588,21 @@ def phase_kernels():
         _check_case("mm_audio_text_b3", 3, 32, 126, 1024, 64, None, gen),
         _check_case("mm_a2v_b3", 3, 32, 1536, 126, 64, None, gen),
         _check_case("mm_v2a_b3", 3, 32, 126, 1536, 64, None, gen),
+        # Keyframe interpolation at 512x768x121 with two keyframes appended
+        # past the sequence: stage 1's CFG rows over 1536 + 2 x 96 = 1728
+        # tokens (ragged query and key tails) and their text cross-attention,
+        # stage 2's one row over 6144 + 2 x 384 = 6912; ti2vid-hq's stage-1
+        # rows at batch 2 over 1536 tokens.
+        _check_case("keyframe_s1_self_b2", 2, 32, 1728, 1728, 128, None, gen),
+        _check_case("keyframe_s1_text_b2", 2, 32, 1728, 1024, 128, None, gen),
+        _check_case("keyframe_s2_self", 1, 32, 6912, 6912, 128, None, gen),
+        _check_case("hq_s1_self_b2", 2, 32, 1536, 1536, 128, None, gen),
     ]
     flash_attention.launches = before  # comparison launches are not the main path's
     flash_attention.key_valid_launches = before_key_valid
     flash_attention.launches_by_head_dim = {}
     flash_attention.launches_by_batch = {}
+    flash_attention.launches_by_length = {}
     return recs
 
 
@@ -599,10 +635,23 @@ CONV_CASES = (
     ("enc_res512", (1, 1, 64, 96, 512), 512, 3, "float32", True, "zeros", "replicate"),
     ("enc_out", (1, 1, 16, 24, 1024), 129, 3, "float32", True, "zeros", "replicate"),
     ("enc_res1024_split", (1, 1, 8, 12, 1024), 1024, 3, "float32", True, "zeros", "replicate"),
+    # The temporal upscaler (fp32, zero padding, non-causal) on a 512x768x121
+    # latent (16 x 16 x 24): the initial 128 -> 512, a 512 res conv before
+    # the shuffle, the upsampler's 512 -> 1024, a 512 res conv after it on
+    # the 31 frames, and the final 512 -> 128.
+    ("temporal_in", (1, 16, 16, 24, 128), 512, 3, "float32", False, "zeros", "zeros"),
+    ("temporal_res", (1, 16, 16, 24, 512), 512, 3, "float32", False, "zeros", "zeros"),
+    ("temporal_up", (1, 16, 16, 24, 512), 1024, 3, "float32", False, "zeros", "zeros"),
+    ("temporal_res_post", (1, 31, 16, 24, 512), 512, 3, "float32", False, "zeros", "zeros"),
+    ("temporal_out", (1, 31, 16, 24, 512), 128, 3, "float32", False, "zeros", "zeros"),
 )
 # The spatial upscaler's convs in one two-stage clip (all fp32): the
 # initial conv, 8 res convs before and 8 after the resampler, the final.
 UPSCALER_LAUNCHES = {"upscaler_in": 1, "upscaler_lowres": 8, "resampler": 1, "upscaler": 8, "upscaler_out": 1}
+# The temporal upscaler's 19 convs in one call: the initial conv, 8 res
+# convs before the shuffle, the upsampler, 8 after it, the final.
+TEMPORAL_LAUNCHES = {"temporal_in": 1, "temporal_res": 8, "temporal_up": 1, "temporal_res_post": 8,
+                     "temporal_out": 1}
 TOL_UPSCALER_CONV_TIME = 0.10  # the cases' times x launches against a traced upscaler call
 
 
@@ -713,7 +762,7 @@ def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal
             "k_ranges": tf32x3_plan(b * t * h * w, -(-cout // 8) * 8, cin, kt, torch.cuda.get_device_properties(0)
                                     .multi_processor_count)[0],
             "ffma_bound_ms": max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3,
-            "launches_a_clip": UPSCALER_LAUNCHES.get(name),
+            "launches_a_clip": UPSCALER_LAUNCHES.get(name, TEMPORAL_LAUNCHES.get(name)),
             "f64": {k: v if isinstance(v, bool) else {"max_rel": v["max_rel_err"], "rms_rel": v["rms_rel_err"]}
                     for k, v in f64.items()},
             "tol_f64_max_rel": CONV_TOL_F64[0], "tol_f64_rms_rel": CONV_TOL_F64[1],
@@ -1017,13 +1066,15 @@ def phase_main_path(smi: str):
                     "peak_memory_gb": peak_gb, "wall_s": wall, "card": smi}
 
 
-def phase_fp8_step(smi: str) -> dict:
+def phase_fp8_step(smi: str) -> tuple:
     """One traced step of bench-e2e's loop at 6144 tokens with the DiT's
     weights kept in fp8 (dequantized at use), then with the same weights in
     bf16 (profile_slice.denoise_step): device time, its busy share and the
     weights' bytes; the difference is the dequantization's cost. Then the
-    same step for the LTX-2.3 (V2) DiT in bf16 beside the V1 one: the cost of
-    V2's gates and per-step text K/V modulation."""
+    bf16 DiT quantized in place to int8 W8A8 (`phase_int8`) and the same
+    step again. Then the same step for the LTX-2.3 (V2) DiT in bf16 beside
+    the V1 one: the cost of V2's gates and per-step text K/V modulation.
+    Returns (the record, the int8 serving path's launch counts)."""
     import torch
 
     from ltx2_tpu_torch.generate import make_dit
@@ -1039,10 +1090,14 @@ def phase_fp8_step(smi: str) -> dict:
         dit = make_dit(LAYERS, dev, fp8=fp8, base=base)
         with torch.no_grad():
             recs[name] = denoise_step(dit, HEIGHT, WIDTH, f"denoise_step_{name}", dev, card)[1]
+        if name == "bf16":
+            int8_rec, int8_counts = phase_int8(dit, smi)
+            recs["int8"] = int8_rec.pop("step")
         del dit
     torch.cuda.empty_cache()
     rec = {name: {k: r[k] for k in ("weight_gb", "device_ms", "wall_ms", "busy_share", "device_ms_by_class")}
            for name, r in recs.items()}
+    rec["int8_checks"] = int8_rec
     rec["dequant_ms"] = rec["fp8"]["device_ms"] - rec["bf16"]["device_ms"]
     # V2's gates, query AdaLN and per-step prompt modulation of the text K/V.
     rec["v2_extra_ms"] = rec["v2_bf16"]["device_ms"] - rec["bf16"]["device_ms"]
@@ -1050,9 +1105,15 @@ def phase_fp8_step(smi: str) -> dict:
     log(f"fp8 vs bf16 DiT step ({LAYERS} layers, 6144 tokens): {json.dumps(rec)}")
     log(f"V2 (LTX-2.3) vs V1 bf16 DiT step ({LAYERS} layers, 6144 tokens): V2 {rec['v2_bf16']['device_ms']:.1f} ms, "
         f"V1 {rec['bf16']['device_ms']:.1f} ms device time | {smi}")
+    log(f"int8 vs fp8 vs bf16 DiT step ({LAYERS} layers, 6144 tokens): int8 {rec['int8']['device_ms']:.1f} ms, fp8 "
+        f"{rec['fp8']['device_ms']:.1f} ms, bf16 {rec['bf16']['device_ms']:.1f} ms device time; weights int8 "
+        f"{rec['int8']['weight_gb']:.2f} GB, fp8 {rec['fp8']['weight_gb']:.2f} GB, bf16 {rec['bf16']['weight_gb']:.2f}"
+        f" GB | {smi}")
     if not rec["fp8"]["weight_gb"] < 0.55 * rec["bf16"]["weight_gb"]:
         raise AssertionError(f"the fp8 DiT is not half the bf16 one: {rec}")
-    return rec
+    if not rec["int8"]["weight_gb"] < 0.55 * rec["bf16"]["weight_gb"]:
+        raise AssertionError(f"the int8 DiT is not half the bf16 one: {rec}")
+    return rec, int8_counts
 
 
 def encode_flops(gemma_cfg, te_cfg, batch: int, tokens: int) -> dict:
@@ -4136,6 +4197,367 @@ def phase_training_av(smi: str) -> dict:
         shutil.rmtree(directory, ignore_errors=True)
 
 
+# int8 W8A8 serving (phase 5b). The JAX package asks the int8 x0 to correlate
+# with bf16's above 0.999 on random weights (tests/test_int8.py:216).
+INT8_CORR_MIN = 0.999
+INT8_CKPT_LAYERS = 2
+# The int8 product's launches a DiT step: 10 quantized linears a V1 block
+# (attn1's and attn2's q, k, v and out, the FFN's two).
+INT8_LINEARS_PER_BLOCK = 10
+
+
+def _x0(dit, seed: int):
+    """One x0 forward of `dit` at 512x768x121 (6144 tokens) on a request
+    drawn from `seed` at sigma 0.75, fp32 out."""
+    import torch
+
+    from ltx2_tpu_torch.generate import make_latent_tools, make_request
+    from ltx2_tpu_torch.models.transformer.model import x0_model_apply
+    from ltx2_tpu_torch.pipelines.common import modality_from_state
+
+    dev = torch.device("cuda")
+    tools = make_latent_tools(dit.cfg, HEIGHT, WIDTH, FRAMES)
+    state, context = make_request(dit.cfg, tools, seed, dev)
+    with torch.no_grad():
+        modality = modality_from_state(state, context, torch.tensor(0.75, device=dev), uniform_timesteps=True)
+        return x0_model_apply(dit, modality).float()
+
+
+def _correlation(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    a, b = a - a.mean(), b - b.mean()
+    return float((a @ b) / (a.norm() * b.norm()))
+
+
+def phase_int8(dit, smi: str) -> tuple:
+    """int8 W8A8 serving on the full-width bf16 DiT of phase 5's step,
+    quantized in place on the card as `quantize_params_int8` does: the
+    seconds and peak of the quantization, the weights' GB, the x0 of one
+    6144-token forward against the bf16 DiT's on the same weights (relative
+    rms and correlation, > 0.999 as the JAX package asks), the traced step
+    (`denoise_step`, beside the fp8 and bf16 ones) and its peak; the
+    torch._int_mm route bit for bit the plain int32 route on the same codes
+    at the DiT's shapes (to_q 6144 x 4096 -> 4096, the text K 1024 x 4096,
+    the FFN's 6144 x 16384 -> 4096), its time beside the bf16 product's,
+    and a shape outside its contract refused; a 2-block full-width
+    checkpoint written in bf16 and streamed with `quantize_int8` (host
+    quantization) equal bit for bit to the same file loaded and quantized
+    on the card; then bench-e2e's loop (`generate_videos(dit=...)`, one
+    request, 8 steps) on the int8 DiT: 768 flash and 3840 int8 launches.
+    Returns (the record with the step's under "step", the serving path's
+    launch counts)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+
+    from ltx2_tpu_torch.generate import generate_videos, make_dit
+    from ltx2_tpu_torch.loader.export import export_transformer_checkpoint
+    from ltx2_tpu_torch.loader.fp8 import weight_bytes
+    from ltx2_tpu_torch.loader.int8 import quantize_params_int8
+    from ltx2_tpu_torch.loader.weight_loader import load_transformer_params
+    from ltx2_tpu_torch.ops import common
+    from ltx2_tpu_torch.profile_slice import denoise_step
+
+    dev, card = torch.device("cuda"), torch.cuda.get_device_name(0)
+    ref = _x0(dit, 5)
+    rec = {"bf16_weight_gb": weight_bytes(dit) / 1e9, "card": smi}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    quantize_params_int8(dit)
+    torch.cuda.synchronize()
+    rec.update(quantize_s=time.perf_counter() - t0, quantize_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               weight_gb=weight_bytes(dit) / 1e9)
+    got = _x0(dit, 5)
+    rec["x0_vs_bf16"] = {"rms_rel": ((got - ref).square().mean().sqrt() / ref.square().mean().sqrt()).item(),
+                         "correlation": _correlation(got, ref), "finite": bool(torch.isfinite(got).all()),
+                         "correlation_min": INT8_CORR_MIN}
+    del got, ref
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        rec["step"] = denoise_step(dit, HEIGHT, WIDTH, "denoise_step_int8", dev, card)[1]
+    rec["step_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    block = dit.transformer_blocks[0]
+    rec["int_mm"] = {}
+    for name, lin, rows in (("to_q", block.attn1.to_q, 6144), ("text_to_k", block.attn2.to_k, 1024),
+                            ("ff_out", block.ff.project_out, 6144)):
+        x = torch.randn(rows, lin.weight.shape[1], device=dev, generator=gen).bfloat16()
+        x_q, _ = common.quantize_activations_int8(x)
+        w_bf16 = common.dequantize_int8(lin, torch.bfloat16)
+        rec["int_mm"][name] = {
+            "shape": [rows, lin.weight.shape[1], lin.weight.shape[0]],
+            "bitwise_plain": bool(torch.equal(common.int8_matmul(x_q, lin.weight),
+                                              common.int8_matmul_plain(x_q, lin.weight))),
+            "w8a8_ms": _time_ms(lambda: common.w8a8_matmul(x, lin.weight, lin.weight_cscale), 20),
+            "int_mm_ms": _time_ms(lambda: common.int8_matmul(x_q, lin.weight), 20),
+            "bf16_linear_ms": _time_ms(lambda: F.linear(x, w_bf16), 20)}
+    try:
+        common.int8_matmul(x_q[:16], lin.weight)
+    except ValueError:
+        rec["int_mm"]["16_rows_refused"] = True
+    else:
+        raise AssertionError("torch._int_mm's route took 16 rows")
+
+    directory = tempfile.mkdtemp(prefix="ltx2_int8_")
+    try:
+        small = make_dit(INT8_CKPT_LAYERS, dev, seed=11)
+        path = f"{directory}/dit.safetensors"
+        export_transformer_checkpoint(path, small, dtype=torch.bfloat16)
+        del small
+        t0 = time.perf_counter()
+        streamed = load_transformer_params(path, device=dev, quantize_int8=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        on_card = quantize_params_int8(load_transformer_params(path, device=dev)).state_dict()
+        leaves = streamed.state_dict()
+        differ = [n for n, t in leaves.items() if t.dtype != on_card[n].dtype
+                  or not torch.equal(t.reshape(-1).view(torch.uint8), on_card[n].reshape(-1).view(torch.uint8))]
+        rec["streamed_checkpoint"] = {"blocks": INT8_CKPT_LAYERS, "load_s": load_s, "differ": differ,
+                                      "int8_weights": sum(t.dtype == torch.int8 for t in leaves.values())}
+        del streamed, on_card, leaves
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+    common.int_mm_launches.clear()
+    _reset_counts()
+    t0 = time.perf_counter()
+    latents, stats = generate_videos([SEEDS[0]], height=HEIGHT, width=WIDTH, frames=FRAMES, steps=STEPS,
+                                     device="cuda", dit=dit, skip_decode=True)
+    counts = {**_counts(), "int_mm": sum(common.int_mm_launches.values())}
+    rec["serve"] = {"denoise_s": stats[0]["denoise_s"], "wall_s": time.perf_counter() - t0,
+                    "latent_finite": stats[0]["latent_finite"], "launches": counts,
+                    "int_mm_shapes": sorted(common.int_mm_launches)}
+    log(f"int8 W8A8 ({LAYERS} layers): {json.dumps(rec)} | {smi}")
+    x0 = rec["x0_vs_bf16"]
+    if not (x0["finite"] and x0["correlation"] > INT8_CORR_MIN):
+        raise AssertionError(f"int8 x0 against bf16: {x0}")
+    if not all(r["bitwise_plain"] for r in rec["int_mm"].values() if isinstance(r, dict)):
+        raise AssertionError(f"torch._int_mm against the plain int32 route: {rec['int_mm']}")
+    ckpt = rec["streamed_checkpoint"]
+    if ckpt["differ"] or ckpt["int8_weights"] != INT8_LINEARS_PER_BLOCK * INT8_CKPT_LAYERS:
+        raise AssertionError(f"int8 quantized at load against on the card: {ckpt}")
+    want = {"fwd": LAUNCHES_PER_CLIP, "bwd": 0, "conv": 0, "int_mm": INT8_LINEARS_PER_BLOCK * LAYERS * STEPS}
+    if counts != want or not stats[0]["latent_finite"] or latents[0].shape != (1, 128, 16, 16, 24):
+        raise AssertionError(f"int8 serving path: launches {counts} (expected {want}), {stats[0]}")
+    return rec, counts
+
+
+TEMPORAL_LATENT = (1, 128, (FRAMES - 1) // 8 + 1, HEIGHT // 32, WIDTH // 32)
+# `generate.main --pipeline one-stage --upscale-temporal` at a small size:
+# random full-width modules, 2 blocks.
+TEMPORAL_CLI = {"layers": 2, "height": 128, "width": 128, "frames": 17, "steps": 2}
+
+
+def phase_temporal_upscale(smi: str) -> tuple:
+    """The full-width temporal upscaler (hidden 512, 4 + 4 res blocks, fp32,
+    random weights) on a 512x768x121 latent (16 x 16 x 24): 31 frames out,
+    the card against the CPU within 1e-5 rms and 1e-4 max relative, 19 fp32
+    conv launches, the call's time (CUDA events) and peak, the conv cases'
+    times x launches beside one traced call's conv time; then
+    `generate.main --pipeline one-stage --upscale-temporal` at 2 blocks,
+    128x128x17: 3 latent frames become 5, a .y4m of 33 frames. Returns (the
+    record, the CLI path's launch counts: flash, fp32 and bf16 convs)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ltx2_tpu_torch import generate
+    from ltx2_tpu_torch.models.upscaler.card_check import temporal_upscaler_against_cpu
+    from ltx2_tpu_torch.models.upscaler.temporal import temporal_upscaler_apply
+    from ltx2_tpu_torch.utils.video_io import y4m_header
+
+    dev = torch.device("cuda")
+    up = generate.make_temporal_upscaler(dev)
+    latent = torch.randn(TEMPORAL_LATENT, device=dev, generator=torch.Generator(device=dev).manual_seed(4))
+    _reset_counts()
+    rec = {"card_vs_cpu": temporal_upscaler_against_cpu(up, latent), "card": smi}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec["ms"] = _time_ms(lambda: temporal_upscaler_apply(up, latent), 3)
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    traced = _device_ms(lambda: temporal_upscaler_apply(up, latent), 1)
+    rec["traced_conv_ms"] = sum(ms for n, (ms, _) in traced.items() if "conv3d_tf32x3" in n) or None
+    del up, latent
+    torch.cuda.empty_cache()
+
+    c = TEMPORAL_CLI
+    directory = tempfile.mkdtemp(prefix="ltx2_temporal_")
+    try:
+        out = f"{directory}/clip.y4m"
+        _reset_counts()
+        videos, stats = generate.main([
+            "--pipeline", "one-stage", "--device", "cuda", "--layers", str(c["layers"]), "--height", str(c["height"]),
+            "--width", str(c["width"]), "--frames", str(c["frames"]), "--num-inference-steps", str(c["steps"]),
+            "--upscale-temporal", "--output", out])
+        counts = _counts()
+        frames = 8 * (2 * ((c["frames"] - 1) // 8 + 1) - 2) + 1
+        y4m_bytes = len(y4m_header(c["width"], c["height"], 24.0)) + frames * (6 + 3 * c["height"] * c["width"])
+        import os
+
+        rec["cli"] = {"frames": list(videos[0].shape), "y4m_bytes": os.path.getsize(out), "expected_frames": frames,
+                      "launches": counts, "upscale_temporal_conv_launches": stats[0]["upscale_temporal_conv_launches"],
+                      "upscale_temporal_s": stats[0]["upscale_temporal_s"]}
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    log(f"temporal upscaler: {json.dumps(rec)} | {smi}")
+    check = rec["card_vs_cpu"]
+    if not check["ok"] or check["out_shape"] != [1, 128, 2 * TEMPORAL_LATENT[2] - 1, *TEMPORAL_LATENT[3:]]:
+        raise AssertionError(f"temporal upscaler on the card against the CPU: {check}")
+    cli = rec["cli"]
+    flash = 2 * c["layers"] * c["steps"]  # self and text attention a block a step, the CFG rows batched
+    if (cli["frames"] != [frames, c["height"], c["width"], 3] or cli["y4m_bytes"] != y4m_bytes
+            or cli["upscale_temporal_conv_launches"] != 19 or counts["fwd"] != flash or counts["bwd"]):
+        raise AssertionError(f"--upscale-temporal: {cli}, expected {frames} frames, {y4m_bytes} bytes, {flash} flash")
+    return rec, {"fwd": counts["fwd"], "conv_fp32": 19, "conv_bf16": counts["conv"] - 19}
+
+
+KEYFRAME_STEPS = 4  # stage 1 cut from the config's 30
+KEYFRAME_FRAMES = (0, FRAMES - 1)
+HQ_STEPS = 4  # the Res2s stage 1 cut from the config's 15
+HQ_AV_LAYERS = 2
+
+
+def _flash_by_length() -> dict:
+    from ltx2_tpu_torch.ops.attention import flash_attention
+
+    return {f"{q}x{k}": n for (q, k), n in sorted(flash_attention.launches_by_length.items())}
+
+
+def phase_keyframe_and_hq(smi: str) -> tuple:
+    """Keyframe interpolation and ti2vid-hq at full width and depth (the
+    random 48-block bf16 DiT, the fp32 encoder and upscaler, the bf16
+    decoder, built once and handed to both flows), 512x768x121, one request
+    each: (a) `generate_videos_keyframe` with two PNG keyframes at frames 0
+    (strength 1.0) and 120 (0.95), stage 1 at 4 CFG steps (cut from 30),
+    stage 2 at 3, the decode: 121 frames, flash launches by length (stage
+    1's 1728 tokens at batch 2, stage 2's 6912), the encoder's, the
+    upscaler's and the decode's conv launches, and the strength-1.0
+    keyframe's appended tokens bit for bit their clean latent at each
+    stage's end (the 0.95 keyframe's must move); (b)
+    `generate_videos_ti2vid_hq` with the first PNG at frame 0: the Res2s
+    stage 1 at 4 steps (two guided evaluations a step, batch 2), stage 2,
+    the decode; (c) ti2vid-hq with `--audio` on the random fp8 AV DiT at 2
+    blocks (skip_decode): flash at head dim 64. Returns (the record, the
+    launch counts of the keyframe, ti2vid-hq and ti2vid-hq AV paths)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ltx2_tpu_torch import generate
+    from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscalerConfig
+    from ltx2_tpu_torch.models.upscaler.spatial import conv_launches as upscaler_convs
+    from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoderConfig
+    from ltx2_tpu_torch.models.video_vae.decoder import conv_launches as decoder_convs
+    from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoderConfig
+    from ltx2_tpu_torch.models.video_vae.encoder import conv_launches as encoder_convs
+    from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, generate_tile_specs
+    from ltx2_tpu_torch.ops.attention import flash_attention
+    from ltx2_tpu_torch.pipelines.common import ImageCondition
+    from ltx2_tpu_torch.pipelines.keyframe_interpolation import Keyframe
+
+    dev = torch.device("cuda")
+    tiles = len(generate_tile_specs((1, 128, (FRAMES - 1) // 8 + 1, HEIGHT // 32, WIDTH // 32),
+                                    TilingConfig.default()))
+    enc, ups, dec = (encoder_convs(VideoEncoderConfig()), upscaler_convs(SpatialUpscalerConfig()),
+                     decoder_convs(VideoDecoderConfig()) * tiles)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    modules = {"dit": generate.make_dit(LAYERS, dev), "encoder": generate.make_encoder(dev),
+               "upscaler": generate.make_upscaler(dev), "decoder": generate.make_decoder("bfloat16", dev)}
+    torch.cuda.synchronize()
+    rec, counts = {"init_s": time.perf_counter() - t0, "card": smi}, {}
+    directory = tempfile.mkdtemp(prefix="ltx2_keyframe_")
+    try:
+        first = _write_png(f"{directory}/first.png", IMAGE_SEED, IMAGE_SIZE)
+        last = _write_png(f"{directory}/last.png", IMAGE_SEED + 1, (HEIGHT, WIDTH))
+        keyframes = [Keyframe(first, KEYFRAME_FRAMES[0], 1.0), Keyframe(last, KEYFRAME_FRAMES[1], 0.95)]
+        ends = []
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        flash_attention.launches_by_length = {}
+        frames, stats = generate.generate_videos_keyframe(
+            [SEEDS[0]], keyframes, height=HEIGHT, width=WIDTH, frames=FRAMES, steps=KEYFRAME_STEPS, device="cuda",
+            phase_peaks=True, end_states=ends, **modules)
+        counts["keyframe"] = {**_counts(), "by_length": _flash_by_length()}
+        st = stats[0]
+        phases = ("stage1", "upscale", "stage2", "decode")
+        kf = {"seconds": {p: st[f"{p}_s"] for p in phases}, "peak_gb": {p: st[f"{p}_peak_gb"] for p in phases},
+              "conv_launches": {p: st[f"{p}_conv_launches"] for p in phases[:-1]},
+              "decode_conv_launches": st["decode_conv_launches"], "frames": list(frames[0].shape),
+              "launches": counts["keyframe"], "exact": []}
+        for state, tokens in zip(ends, (((FRAMES - 1) // 8 + 1) * (HEIGHT // 64) * (WIDTH // 64),
+                                        ((FRAMES - 1) // 8 + 1) * (HEIGHT // 32) * (WIDTH // 32))):
+            per = (state.latent.shape[1] - tokens) // 2  # each keyframe's tokens
+            sl = [slice(tokens + i * per, tokens + (i + 1) * per) for i in range(2)]
+            kf["exact"].append([bool(torch.equal(state.latent[:, s], state.clean_latent[:, s])) for s in sl])
+        rec["keyframe"] = kf
+        log(f"keyframe interpolation ({WIDTH}x{HEIGHT}x{FRAMES}f, {LAYERS} layers, keyframes at "
+            f"{KEYFRAME_FRAMES}, stage 1 {KEYFRAME_STEPS} steps, stage 2 3): {json.dumps(kf)} | {smi}")
+        s1, s2 = 1536 + 2 * 96, 6144 + 2 * 384
+        want_len = {f"{s1}x{s1}": LAYERS * KEYFRAME_STEPS, f"{s1}x1024": LAYERS * KEYFRAME_STEPS,
+                    f"{s2}x{s2}": LAYERS * 3, f"{s2}x1024": LAYERS * 3}
+        want_conv = {"stage1": enc * 2, "upscale": ups, "stage2": enc * 2}
+        if (kf["frames"] != [FRAMES, HEIGHT, WIDTH, 3] or kf["launches"]["by_length"] != want_len
+                or kf["conv_launches"] != want_conv or kf["decode_conv_launches"] != dec
+                or kf["exact"] != [[True, False], [True, False]]
+                or not all(st[f"{p}_latent_finite"] for p in phases[:-1])):
+            raise AssertionError(f"keyframe interpolation: {kf}, expected flash {want_len}, convs {want_conv}, "
+                                 f"decode {dec}, the strength-1.0 keyframe exact and the 0.95 one moved")
+
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        _reset_flash_by()
+        flash_attention.launches_by_length = {}
+        frames, stats = generate.generate_videos_ti2vid_hq(
+            [SEEDS[0]], height=HEIGHT, width=WIDTH, frames=FRAMES, steps=HQ_STEPS, device="cuda", phase_peaks=True,
+            images=[ImageCondition(first, 0, IMAGE_STRENGTH)], **modules)
+        counts["ti2vid_hq"] = {**_counts(), "by_batch": _flash_by("launches_by_batch")}
+        st = stats[0]
+        hq = {"seconds": {p: st[f"{p}_s"] for p in phases}, "peak_gb": {p: st[f"{p}_peak_gb"] for p in phases},
+              "stage1_step_s": st["stage1_step_s"], "conv_launches": {p: st[f"{p}_conv_launches"] for p in phases[:-1]},
+              "decode_conv_launches": st["decode_conv_launches"], "frames": list(frames[0].shape),
+              "launches": counts["ti2vid_hq"]}
+        rec["ti2vid_hq"] = hq
+        log(f"ti2vid-hq ({WIDTH}x{HEIGHT}x{FRAMES}f, {LAYERS} layers, image at frame 0, Res2s stage 1 {HQ_STEPS} "
+            f"steps): {json.dumps(hq)} | {smi}")
+        want_batch = {2: 2 * 2 * LAYERS * HQ_STEPS, 1: 2 * LAYERS * 3}
+        if (hq["frames"] != [FRAMES, HEIGHT, WIDTH, 3] or hq["launches"]["by_batch"] != want_batch
+                or hq["conv_launches"] != {"stage1": enc, "upscale": ups, "stage2": enc}
+                or hq["decode_conv_launches"] != dec or not all(st[f"{p}_latent_finite"] for p in phases[:-1])):
+            raise AssertionError(f"ti2vid-hq: {hq}, expected flash by batch {want_batch}")
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    del modules
+    torch.cuda.empty_cache()
+
+    _reset_counts()
+    _reset_flash_by()
+    latents, stats = generate.generate_videos_ti2vid_hq(
+        [SEEDS[0]], height=HEIGHT, width=WIDTH, frames=FRAMES, steps=HQ_STEPS, layers=HQ_AV_LAYERS, device="cuda",
+        audio=True, skip_decode=True)
+    counts["ti2vid_hq_av"] = {**_counts(), "by_head_dim": _flash_by("launches_by_head_dim")}
+    video, audio = latents[0]
+    rec["ti2vid_hq_av"] = {"layers": HQ_AV_LAYERS, "latent": list(video.shape), "audio_latent": list(audio.shape),
+                           "finite": bool(np.isfinite(video).all() and np.isfinite(audio).all()),
+                           "stage1_s": stats[0]["stage1_s"], "launches": counts["ti2vid_hq_av"]}
+    log(f"ti2vid-hq with audio ({HQ_AV_LAYERS} AV blocks): {json.dumps(rec['ti2vid_hq_av'])} | {smi}")
+    evals = 2 * HQ_STEPS + 3  # stage 1's two evaluations a step, stage 2's one
+    want_dim = {64: 4 * HQ_AV_LAYERS * evals, 128: 2 * HQ_AV_LAYERS * evals}
+    if not rec["ti2vid_hq_av"]["finite"] or counts["ti2vid_hq_av"]["by_head_dim"] != want_dim \
+            or list(audio.shape) != [1, 8, AV_AUDIO_TOKENS, 16]:
+        raise AssertionError(f"ti2vid-hq with audio: {rec['ti2vid_hq_av']}, expected flash by head dim {want_dim}")
+    torch.cuda.empty_cache()
+    return rec, counts
+
+
 def main():
     from pathlib import Path
 
@@ -4157,7 +4579,8 @@ def main():
     import torch
 
     torch.cuda.empty_cache()
-    fp8_step = phase_fp8_step(smi)
+    fp8_step, int8_counts = phase_fp8_step(smi)
+    temporal, temporal_counts = phase_temporal_upscale(smi)
     text_encode = phase_text_encode(smi)
     checkpoint, file_counts, file_stats = phase_checkpoint(smi)
     torch.cuda.empty_cache()
@@ -4190,6 +4613,8 @@ def main():
     torch.cuda.empty_cache()
     i2v_two_stage, i2v_one_stage, options, image_to_video = phase_image_to_video(smi)
     torch.cuda.empty_cache()
+    keyframe_hq, kf_counts = phase_keyframe_and_hq(smi)
+    torch.cuda.empty_cache()
     bwd = phase_bwd_kernels()
     model, train_counts = phase_train_steps(smi)
     timing = phase_train_timing(model, smi)
@@ -4212,6 +4637,10 @@ def main():
     fp32_recs = [r for r in conv_recs if r["dtype"] == "float32"]  # "upscaler" first
     upscale_launches = sum(s["upscale_conv_launches"] for s in two_stage_stats)
     file_upscale_launches = sum(s["upscale_conv_launches"] for s in file_stats)
+    # Keyframe and ti2vid-hq: the decode's convs on the bf16 kernel, the
+    # encoder's and the upscaler's on the fp32 one.
+    kf_bf16 = {k: keyframe_hq[k]["decode_conv_launches"] for k in ("keyframe", "ti2vid_hq")}
+    kf_fp32 = {k: c["conv"] - kf_bf16.get(k, 0) for k, c in kf_counts.items()}
     conv_replaces = ("scripts/bench_conv_pallas.py:116 (conv3d_pallas, pallas_call :140); "
                      "scripts/bench_conv_pallas.py:223 (conv3d_pallas_v2, pallas_call :247); "
                      "scripts/bench_conv_pallas.py:357 (conv3d_pallas_v3, pallas_call :378)")
@@ -4224,7 +4653,8 @@ def main():
             "launches": (serve_counts["fwd"] + two_stage_counts["fwd"] + file_counts["fwd"] + v2_counts["fwd"]
                          + av_counts["fwd"] + av_file_counts["fwd"] + two_cfg_counts["fwd"] + a2vid_counts["fwd"]
                          + i2v_two_stage["fwd"] + i2v_one_stage["fwd"] + options["fwd"] + train_counts["fwd"]
-                         + sum(c["fwd"] for c in av_paths.values()) + audio_only_counts["fwd"]),
+                         + sum(c["fwd"] for c in av_paths.values()) + audio_only_counts["fwd"]
+                         + int8_counts["fwd"] + temporal_counts["fwd"] + sum(c["fwd"] for c in kf_counts.values())),
             "launches_by_path": {"serve": serve_counts["fwd"], "serve_two_stage": two_stage_counts["fwd"],
                                  "serve_two_stage_from_files": file_counts["fwd"],
                                  "serve_v2_two_stage_from_files": v2_counts["fwd"],
@@ -4234,7 +4664,12 @@ def main():
                                  "image_to_video_two_stage": i2v_two_stage["fwd"],
                                  "one_stage": i2v_one_stage["fwd"], "one_stage_options": options["fwd"],
                                  "train": train_counts["fwd"], **{k: c["fwd"] for k, c in av_paths.items()},
-                                 "audio_only": audio_only_counts["fwd"]},
+                                 "audio_only": audio_only_counts["fwd"], "serve_int8": int8_counts["fwd"],
+                                 "temporal_upscale": temporal_counts["fwd"],
+                                 **{k: c["fwd"] for k, c in kf_counts.items()}},
+            # Keyframe interpolation's lengths past the tile grid (keyframes
+            # appended), counted in "launches" too.
+            "keyframe_launches_by_length": kf_counts["keyframe"]["by_length"],
             # The key-valid route (ltx2_tpu/ops/attention.py:222, _flash_attention_masked), counted in
             # "launches" too: the token bucket's self-attention.
             "key_valid_launches": (options["key_valid"] + sum(c["key_valid"] for c in av_paths.values())
@@ -4249,11 +4684,14 @@ def main():
                                              "serve_two_stage_cfg": two_cfg_counts["fwd_by_head_dim"].get(64, 0),
                                              "serve_a2vid": a2vid_counts["fwd_by_head_dim"].get(64, 0),
                                              **{k: c["fwd_by_head_dim"].get(64, 0) for k, c in av_paths.items()},
-                                             "audio_only": audio_only_counts["fwd_by_head_dim"].get(64, 0)},
+                                             "audio_only": audio_only_counts["fwd_by_head_dim"].get(64, 0),
+                                             "ti2vid_hq_av": kf_counts["ti2vid_hq_av"]["by_head_dim"].get(64, 0)},
             "launches_by_head_dim": {**{k: c["fwd_by_head_dim"] for k, c in av_paths.items()},
                                      "audio_only": audio_only_counts["fwd_by_head_dim"]},
             # The multi-modal guider's rows at batch 3 (two-stage CFG stage 1), counted in "launches" too.
             "batch_3_launches_by_path": {"serve_two_stage_cfg": two_cfg_counts["fwd_by_batch"].get(3, 0)},
+            # ti2vid-hq's Res2s stage 1: the prompt and negative rows at batch 2.
+            "batch_2_launches_by_path": {"ti2vid_hq": kf_counts["ti2vid_hq"]["by_batch"].get(2, 0)},
             "max_abs_err": max(max(r["max_abs_err"] for r in recs),
                                max(r["max_abs_err_fwd_residuals"] for r in bwd)),
             "ms": self_rec["ms"],
@@ -4294,7 +4732,8 @@ def main():
                          + file_counts["conv"] - file_upscale_launches + v2_counts["conv_bf16"]
                          + av_counts["conv_bf16"] + av_file_counts["conv_bf16"]
                          + two_cfg_counts["conv_bf16"] + a2vid_counts["conv_bf16"]
-                         + i2v_two_stage["conv_bf16"] + i2v_one_stage["conv_bf16"] + options["conv_bf16"]),
+                         + i2v_two_stage["conv_bf16"] + i2v_one_stage["conv_bf16"] + options["conv_bf16"]
+                         + temporal_counts["conv_bf16"] + sum(kf_bf16.values())),
             "launches_by_path": {"serve": serve_counts["conv"],
                                  "serve_two_stage": two_stage_counts["conv"] - upscale_launches,
                                  "serve_two_stage_from_files": file_counts["conv"] - file_upscale_launches,
@@ -4305,7 +4744,8 @@ def main():
                                  "serve_a2vid": a2vid_counts["conv_bf16"],
                                  "image_to_video_two_stage": i2v_two_stage["conv_bf16"],
                                  "one_stage": i2v_one_stage["conv_bf16"],
-                                 "one_stage_options": options["conv_bf16"]},
+                                 "one_stage_options": options["conv_bf16"],
+                                 "temporal_upscale": temporal_counts["conv_bf16"], **kf_bf16},
             "max_abs_err": max(r["max_abs_err"] for r in bf16_recs),
             "ms": bf16_recs[0]["ms"],
             "plain_ms": bf16_recs[0]["plain_ms"],
@@ -4324,7 +4764,7 @@ def main():
                          + av_counts["conv_fp32"] + av_file_counts["conv_fp32"]
                          + two_cfg_counts["conv_fp32"] + a2vid_counts["conv_fp32"]
                          + i2v_two_stage["conv_fp32"] + i2v_one_stage["conv_fp32"] + options["conv_fp32"]
-                         + prep_counts["conv"]),
+                         + prep_counts["conv"] + temporal_counts["conv_fp32"] + sum(kf_fp32.values())),
             "launches_by_path": {"serve_two_stage": upscale_launches,
                                  "serve_two_stage_from_files": file_upscale_launches,
                                  "serve_v2_two_stage_from_files": v2_counts["conv_fp32"],
@@ -4334,7 +4774,8 @@ def main():
                                  "serve_a2vid": a2vid_counts["conv_fp32"],
                                  "image_to_video_two_stage": i2v_two_stage["conv_fp32"],
                                  "one_stage": i2v_one_stage["conv_fp32"],
-                                 "one_stage_options": options["conv_fp32"], "prepare_data": prep_counts["conv"]},
+                                 "one_stage_options": options["conv_fp32"], "prepare_data": prep_counts["conv"],
+                                 "temporal_upscale": temporal_counts["conv_fp32"], **kf_fp32},
             "max_abs_err": max(r["max_abs_err"] for r in fp32_recs),
             "ms": fp32_recs[0]["ms"],
             "plain_ms": fp32_recs[0]["plain_ms"],
@@ -4347,7 +4788,8 @@ def main():
         },
     ], "train": {"timing": timing, "gradcheck": gradcheck,
                   "audio_video": {k: v for k, v in av_train.items() if not k.endswith("_counts")}},
-        "bench_e2e": serve, "fp8_step": fp8_step, "checkpoint": checkpoint,
+        "bench_e2e": serve, "fp8_step": fp8_step, "checkpoint": checkpoint, "temporal_upscaler": temporal,
+        "keyframe_and_ti2vid_hq": keyframe_hq,
         "text_encode": text_encode, "image_to_video": image_to_video,
         "v2": {"files": v2_files, "small_input_check": v2_small,
                "step_ms": {"v2_bf16": fp8_step["v2_bf16"]["device_ms"], "v1_bf16": fp8_step["bf16"]["device_ms"]}},

@@ -1,7 +1,7 @@
 """Text-, image- and audio-to-video generation, with or without audio, on
 one GPU.
 
-Six flows, chosen with `--pipeline`:
+Eight flows, chosen with `--pipeline`:
 
 - `bench-e2e` (the default; `generate_videos`): the steps of the JAX
   package's `scripts/bench_e2e.py`: Gaussian noise -> 8-sigma distilled
@@ -28,7 +28,9 @@ Six flows, chosen with `--pipeline`:
   every k-th step only), `--token-bucket` (the token count padded up to a
   multiple, the padding masked out of self-attention's keys),
   `--cross-attn-scale` from `--cross-attn-start-block`, `--cache-text-kv`,
-  and `--upscale-spatial` (the 2x spatial upscaler after the loop).
+  `--upscale-spatial` (the 2x spatial upscaler after the loop) and
+  `--upscale-temporal` (the 2x temporal upscaler after it: F latent frames
+  become 2F - 1).
 - `two-stage` (`generate_videos_two_stage`): the JAX package's two-stage
   CFG pipeline (pipelines/two_stage.py): stage 1 at half resolution on
   `--num-inference-steps` (`--steps-stage1`) steps guided at `--cfg-scale`
@@ -43,6 +45,18 @@ Six flows, chosen with `--pipeline`:
   seconds at 16 kHz, encoded by the audio VAE encoder into the audio
   latent, frozen through both stages of the distilled recipe on the
   audio-video DiT; with `--audio` the source is the output's .wav.
+- `keyframe` (`generate_videos_keyframe`): keyframe interpolation
+  (pipelines/keyframe_interpolation.py): `--keyframe PATH:FRAME[:STRENGTH]`
+  PNGs (strength 0.95 by default) encoded and appended past the sequence's
+  end at their pixel frames, a CFG stage 1 at half resolution against a
+  zero negative context (30 steps, CFG 7.5: the config's, as the JAX CLI
+  runs it), the upscaler, a distilled stage 2 without guidance; video only.
+- `ti2vid-hq` (`generate_videos_ti2vid_hq`): pipelines/ti2vid_hq.py: stage
+  1 at half resolution through the Res2s second-order sampler under CFG
+  (`--num-inference-steps`, `--cfg-scale`, `--audio-cfg-scale`), images at
+  both stages, the upscaler, the distilled stage 2. Without an upscaler's
+  file from a checkpoint, keyframe and ti2vid-hq run one stage, as the JAX
+  CLI does.
 
 `--audio` on the distilled and the CFG flows generates sound with the
 audio-video DiT (the checkpoint's, loaded with its audio stream; else random
@@ -54,6 +68,18 @@ else 24 kHz) make a stereo waveform, written as `<base>.wav` beside a
 `.y4m` (16-bit PCM, as the JAX CLI writes it) or muxed by ffmpeg into other
 containers. `--no-internal-audio` leaves the audio stream of an AV DiT out
 when audio is not asked for, as in the JAX CLI.
+
+`--int8` (every flow) serves the DiT's matmul weights as int8 W8A8
+(loader/int8.py: per-out-channel codes quantized on the host at load, or on
+the card for random weights; activations quantized per token at each
+matmul, int32 products by torch._int_mm); it excludes `--fp8-serving` and
+`--distilled-lora`. The JAX CLI's aliases (`--cfg`, `--guidance-rescale`,
+`--weights`, `--gemma-path`, `--spatial-upscaler-weights`,
+`--temporal-upscaler-weights`) and compatibility flags (`--fp8`, `--fp16`,
+`--fp32`/`--no-fp16`, `--low-memory`, `--fast-mode`, `--lora-strength`,
+`--tiled-vae`, `--placeholder`, `--no-gemma`, `--model-variant`,
+`--profile-dir`, `--compile-cache`) reach the settings the JAX CLI gives
+them (`_apply_reference_compat`).
 
 `--image PATH[:FRAME[:STRENGTH]]` (repeatable; frame 0 and `--image-strength`
 by default) conditions the distilled and the CFG flows on 8-bit PNGs: each is
@@ -131,6 +157,10 @@ From Python: `generate_video(seed=0)`, `generate_videos([0, 1, ...])` or
     python -m ltx2_tpu_torch.generate --pipeline two-stage --audio --steps-stage1 30 \
         --distilled-lora ltx-2-19b-distilled-lora-384.safetensors --output clip.y4m
     python -m ltx2_tpu_torch.generate --pipeline a2vid --audio --audio-file speech.wav --output clip.y4m
+    python -m ltx2_tpu_torch.generate --pipeline one-stage --int8 --upscale-temporal --output clip.y4m
+    python -m ltx2_tpu_torch.generate --pipeline keyframe --keyframe first.png:0 --keyframe last.png:120 \
+        --output clip.y4m
+    python -m ltx2_tpu_torch.generate --pipeline ti2vid-hq --image first.png --audio --output clip.y4m
 """
 
 from __future__ import annotations
@@ -139,6 +169,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import os
 import sys
 import time
 from typing import List, Optional, Sequence, Tuple, Union
@@ -153,6 +184,7 @@ from ltx2_tpu_torch.components.schedulers import DISTILLED_SIGMA_VALUES
 from ltx2_tpu_torch.conditioning.tools import VideoLatentTools
 from ltx2_tpu_torch.core import resolve_device
 from ltx2_tpu_torch.loader.fp8 import quantize_params_fp8, weight_bytes
+from ltx2_tpu_torch.loader.int8 import quantize_params_int8
 from ltx2_tpu_torch.loader.lora import LoRAConfig
 from ltx2_tpu_torch.models.text_encoder import (
     Gemma3, Gemma3Config, TextEncoderConfig, VideoTextEncoder, av_text_encoder_apply, gemma3_apply, init_gemma3_,
@@ -166,6 +198,9 @@ from ltx2_tpu_torch.models.transformer.model import (
 )
 from ltx2_tpu_torch.models.upscaler.spatial import (
     SpatialUpscaler, SpatialUpscalerConfig, init_spatial_upscaler_, spatial_upscaler_apply,
+)
+from ltx2_tpu_torch.models.upscaler.temporal import (
+    TemporalUpscaler, TemporalUpscalerConfig, init_temporal_upscaler_, temporal_upscaler_apply,
 )
 from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoder, VideoEncoderConfig, init_video_encoder_
 from ltx2_tpu_torch.models.video_vae.chunking import decode_latent
@@ -234,21 +269,26 @@ def _phase_peak(device: torch.device, on: bool) -> Optional[float]:
 
 
 def make_dit(layers: int, device: torch.device, seed: int = 0, base: LTXModelConfig = LTXModelConfig(),
-             fp8: bool = False) -> LTXModel:
+             fp8: bool = False, int8: bool = False) -> LTXModel:
     """The video DiT of config `base` (default: full width) at `layers`
     depth, random weights drawn on the device from `seed`. With `fp8` its
     linears are then kept in fp8 (`quantize_params_fp8`), as
-    scripts/bench_e2e.py does; each block is drawn and quantized before the
-    next is drawn, so the model in `base`'s dtype never exists whole, and
-    the draws are those of the model without `fp8`."""
+    scripts/bench_e2e.py does; with `int8` its matmul weights are int8 W8A8
+    (`quantize_params_int8`, as the JAX CLI's --int8 quantizes a random
+    DiT). Either way each block is drawn and quantized before the next is
+    drawn, so the model in `base`'s dtype never exists whole, and the draws
+    are those of the unquantized model."""
+    if fp8 and int8:
+        raise ValueError("fp8 and int8 are exclusive")
     cfg = dataclasses.replace(base, num_layers=layers)
     gen = torch.Generator(device=device).manual_seed(seed)
-    if not fp8:
+    if not (fp8 or int8):
         return init_ltx_model_(LTXModel(cfg, device=device), gen)
-    dit = quantize_params_fp8(init_ltx_model_(LTXModel(dataclasses.replace(cfg, num_layers=0), device=device), gen))
+    quantize = quantize_params_fp8 if fp8 else quantize_params_int8
+    dit = quantize(init_ltx_model_(LTXModel(dataclasses.replace(cfg, num_layers=0), device=device), gen))
     for i in range(layers):
         block = make_block(cfg, device)
-        dit.transformer_blocks.append(quantize_params_fp8(init_ltx_model_(block, gen), f"transformer_blocks.{i}"))
+        dit.transformer_blocks.append(quantize(init_ltx_model_(block, gen), f"transformer_blocks.{i}"))
     dit.cfg = cfg
     return dit
 
@@ -299,6 +339,13 @@ def make_upscaler(device: torch.device) -> SpatialUpscaler:
     package, random weights from seed 2."""
     upscaler = SpatialUpscaler(SpatialUpscalerConfig(), device=device)
     return init_spatial_upscaler_(upscaler, torch.Generator(device=device).manual_seed(2))
+
+
+def make_temporal_upscaler(device: torch.device, seed: int = 9) -> TemporalUpscaler:
+    """The full-width temporal upscaler (hidden 512), fp32 as in the JAX
+    package, random weights from `seed`."""
+    upscaler = TemporalUpscaler(TemporalUpscalerConfig(), device=device)
+    return init_temporal_upscaler_(upscaler, torch.Generator(device=device).manual_seed(seed))
 
 
 def make_gemma(device: torch.device, seed: int = 3, cfg: Gemma3Config = Gemma3Config()) -> Gemma3:
@@ -453,11 +500,12 @@ def _text_contexts(seeds, stats, device, contexts, text_encoder, gemma, ledger, 
 
 
 def _dit_and_encoder(stats, device, layers: int, dit, encoder, images, ledger, context_width: Optional[int],
-                     dtype: str = "bfloat16", audio: bool = False, fp8: bool = True):
+                     dtype: str = "bfloat16", audio: bool = False, fp8: bool = True, int8: bool = False):
     """The DiT (given, from `ledger`, or random at `layers` in `dtype`, with
     a caption projection from `context_width` channels when the contexts
     are not the model's 4096 wide; with `audio` the audio-video DiT, kept in
-    fp8 when random and `fp8`) and, when there are images, the video
+    fp8 when random and `fp8`; a random DiT's matmul weights int8 W8A8 with
+    `int8`) and, when there are images, the video
     encoder (given, from `ledger`, or random), each timed. Raises when the
     DiT's text input (its caption projection's, else its context width)
     does not take `context_width` channels, and when `audio` is asked of a
@@ -468,12 +516,13 @@ def _dit_and_encoder(stats, device, layers: int, dit, encoder, images, ledger, c
         base = av_config(LTXModelConfig(compute_dtype=dtype))
         if context_width not in (None, base.cross_attention_dim):
             base = dataclasses.replace(base, caption_channels=context_width)
-        dit, stats[0]["dit_init_s"] = _timed(device, lambda: make_dit(layers, device, base=base, fp8=fp8))
+        dit, stats[0]["dit_init_s"] = _timed(device, lambda: make_dit(layers, device, base=base, fp8=fp8 and not int8,
+                                                                      int8=int8))
     elif dit is None:
         base = LTXModelConfig(compute_dtype=dtype)
         if context_width not in (None, base.cross_attention_dim):
             base = dataclasses.replace(base, caption_channels=context_width)
-        dit, stats[0]["dit_init_s"] = _timed(device, lambda: make_dit(layers, device, base=base))
+        dit, stats[0]["dit_init_s"] = _timed(device, lambda: make_dit(layers, device, base=base, int8=int8))
     stats[0]["dit_weight_gb"] = weight_bytes(dit) / 1e9
     if audio and not dit.cfg.is_av:
         raise ValueError("audio needs the audio-video DiT (a checkpoint loaded with include_audio, or av_config)")
@@ -489,14 +538,28 @@ def _dit_and_encoder(stats, device, layers: int, dit, encoder, images, ledger, c
     return dit, encoder
 
 
-def _spatial_upscaler(stats, device, upscaler, ledger, needed_by: str) -> SpatialUpscaler:
-    """The spatial upscaler (given, from `ledger`, or random), timed."""
+def _spatial_upscaler(stats, device, upscaler, ledger, needed_by: Optional[str]) -> Optional[SpatialUpscaler]:
+    """The spatial upscaler (given, from `ledger`, or random), timed. A
+    ledger without the upscaler's file raises naming `needed_by`, or with
+    `needed_by` None gives None (keyframe and ti2vid-hq then run one stage,
+    as the JAX CLI runs them without --spatial-upscaler)."""
     if upscaler is None and ledger is not None:
         upscaler, stats[0]["upscaler_init_s"] = _timed(device, ledger.spatial_upscaler)
-        if upscaler is None:
+        if upscaler is None and needed_by is not None:
             raise ValueError(f"{needed_by} needs the spatial upscaler's file (spatial_upscaler_path)")
     elif upscaler is None:
         upscaler, stats[0]["upscaler_init_s"] = _timed(device, lambda: make_upscaler(device))
+    return upscaler
+
+
+def _temporal_upscaler(stats, device, ledger) -> TemporalUpscaler:
+    """The temporal upscaler (from `ledger`, or random), timed."""
+    if ledger is not None:
+        upscaler, stats[0]["temporal_upscaler_init_s"] = _timed(device, ledger.temporal_upscaler)
+        if upscaler is None:
+            raise ValueError("--upscale-temporal needs the temporal upscaler's file (temporal_upscaler_path)")
+        return upscaler
+    upscaler, stats[0]["temporal_upscaler_init_s"] = _timed(device, lambda: make_temporal_upscaler(device))
     return upscaler
 
 
@@ -593,11 +656,13 @@ def generate_videos(
     fps: float = FPS,
     dtype: str = "bfloat16",
     skip_decode: bool = False,
+    int8: bool = False,
 ) -> Tuple[List[np.ndarray], List[dict]]:
     """Generate one clip per seed; returns (uint8 (frames, height, width, 3)
     arrays, per-request stats); with `skip_decode` the (1, C, F, H, W)
     fp32 latents in place of the frames, and no decoder is built. `fps`
-    goes into the position grid; `dtype` is the random DiT's compute dtype.
+    goes into the position grid; `dtype` is the random DiT's compute dtype;
+    `int8` draws the random DiT with int8 W8A8 matmul weights in place of fp8.
 
     All clips are denoised first, then the DiT is released and the decoder
     built, so the two never hold device memory together. `dit`, `decoder`,
@@ -616,7 +681,8 @@ def generate_videos(
     stats = [{"seed": seed, "dit_init_s": 0.0, "decoder_init_s": 0.0} for seed in seeds]
     if dit is None:
         dit, stats[0]["dit_init_s"] = _timed(
-            device, lambda: make_dit(layers, device, base=LTXModelConfig(compute_dtype=dtype), fp8=True))
+            device, lambda: make_dit(layers, device, base=LTXModelConfig(compute_dtype=dtype), fp8=not int8,
+                                     int8=int8))
     stats[0]["dit_weight_gb"] = weight_bytes(dit) / 1e9
     cfg = dit.cfg
     tools = make_latent_tools(cfg, height, width, frames, fps)
@@ -698,6 +764,7 @@ def generate_videos_distilled(
     audio_decoder: Optional[AudioDecoder] = None,
     vocoder=None,
     internal_audio: bool = True,
+    int8: bool = False,
 ) -> Tuple[List[np.ndarray], List[dict]]:
     """The two-stage distilled recipe, one clip per seed; returns (uint8
     (frames, height, width, 3) arrays, per-request stats); with
@@ -774,7 +841,8 @@ def generate_videos_distilled(
         audio_contexts = encoded_audio
     gemma = text_encoder = None
     dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, images, ledger,
-                                    None if contexts is None else contexts[0].shape[-1], dtype, audio)
+                                    None if contexts is None else contexts[0].shape[-1], dtype, audio,
+                                    int8=int8)
     upscaler = _spatial_upscaler(stats, device, upscaler, ledger, "the two-stage recipe")
     cfg = dit.cfg
     statistics = _latent_statistics(cfg, decoder, ledger, device)
@@ -796,6 +864,203 @@ def generate_videos_distilled(
                    noises=None if noises is None else noises[i], audio_encoding=audio_context,
                    audio_noises=None if audio_noises is None else audio_noises[i])
         latent, audio_latent = out if audio else (out, None)
+        st["attention_launches"] = flash_attention.launches - marks["attention"]
+        st["latent_std"] = float(latent.float().std())
+        configs.append(config)
+        latents.append(latent)
+        audio_latents.append(audio_latent)
+
+    del dit, upscaler, encoder, pipe
+    if ledger is not None:
+        for name in ("transformer", "spatial_upscaler", "video_encoder"):
+            ledger.clear_model(name)
+    return _outputs(latents, audio_latents, configs, stats, device, decoder, ledger, cfg.compute_dtype, phase_peaks,
+                    lambda seed: stage_seeds(seed)[2], skip_decode, audio_decoder, vocoder), stats
+
+
+def generate_videos_keyframe(
+    seeds: Sequence[int],
+    keyframes: Sequence,
+    *,
+    height: int = 512,
+    width: int = 768,
+    frames: int = 121,
+    steps: int = 30,
+    cfg_scale: float = 7.5,
+    stage_2_steps: int = 3,
+    token_shift: bool = False,
+    layers: int = 48,
+    device=None,
+    dit: Optional[LTXModel] = None,
+    upscaler: Optional[SpatialUpscaler] = None,
+    decoder: Optional[VideoDecoder] = None,
+    encoder: Optional[VideoEncoder] = None,
+    contexts: Optional[Sequence[torch.Tensor]] = None,
+    noises: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+    text_encoder: Union[bool, VideoTextEncoder] = False,
+    gemma: Optional[Gemma3] = None,
+    phase_peaks: bool = False,
+    ledger: Optional[ModelLedger] = None,
+    tokens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    embeddings: Optional[list] = None,
+    fps: float = FPS,
+    tiling: Optional[TilingConfig] = None,
+    dtype: str = "bfloat16",
+    skip_decode: bool = False,
+    int8: bool = False,
+    end_states: Optional[list] = None,
+) -> Tuple[List[np.ndarray], List[dict]]:
+    """Keyframe interpolation (pipelines/keyframe_interpolation.py), one
+    clip per seed: `keyframes` (`Keyframe`s: PNG, pixel frame, strength)
+    encoded by the video encoder and appended past the sequence's end;
+    stage 1 at half size, `steps` CFG Euler steps at `cfg_scale` against a
+    zero negative context; the 2x upscaler; stage 2 on the first
+    `stage_2_steps` sigmas of the distilled tail, no guidance; the decode.
+    Without an upscaler (a ledger without the upscaler's file) one stage at
+    full size, as the JAX CLI runs it. Contexts (each request's (1, S, D)
+    prompt), the ledger, Gemma, the tokens and embeddings, the random
+    weights' seeds, `phase_peaks`, `tiling`, `skip_decode` and `int8` as in
+    `generate_videos_distilled`; `noises[i]` request i's (stage-1, stage-2)
+    noise, the appended tokens included; `end_states`, when given,
+    receives each stage's final loop state (its keyframe tokens too). Stats
+    per request: the seconds and peaks of the text encode, stage 1,
+    upscale, stage 2 and decode, the launches, the latents' finiteness."""
+    from ltx2_tpu_torch.pipelines.keyframe_interpolation import (
+        KeyframeInterpolationConfig, KeyframeInterpolationPipeline,
+    )
+
+    device = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    keyframes = list(keyframes)
+    modules = (dit, upscaler, decoder, encoder, gemma,
+               text_encoder if isinstance(text_encoder, VideoTextEncoder) else None)
+    if ledger is not None and any(m is not None for m in modules):
+        raise ValueError("with a ledger every component comes from its files: pass no module")
+    stats = [{"seed": seed, "dit_init_s": 0.0, "upscaler_init_s": 0.0, "decoder_init_s": 0.0} for seed in seeds]
+    _phase_peak(device, phase_peaks)
+    contexts, _ = _text_contexts(seeds, stats, device, contexts, text_encoder, gemma, ledger, phase_peaks,
+                                 tokens=tokens, embeddings=embeddings)
+    gemma = text_encoder = None
+    dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, keyframes, ledger,
+                                    None if contexts is None else contexts[0].shape[-1], dtype, int8=int8)
+    upscaler = _spatial_upscaler(stats, device, upscaler, ledger, None)
+    cfg = dit.cfg
+    pipe = KeyframeInterpolationPipeline(dit, upscaler, statistics=_latent_statistics(cfg, decoder, ledger, device),
+                                         video_encoder=encoder)
+    configs, latents = [], []
+    for i, (seed, st) in enumerate(zip(seeds, stats)):
+        config = KeyframeInterpolationConfig(
+            height=height, width=width, num_frames=frames, seed=seed, fps=fps, num_inference_steps=steps,
+            cfg_scale=cfg_scale, stage_2_steps=stage_2_steps, token_dependent_shift=token_shift,
+            tiling_config=tiling, dtype=cfg.compute_dtype, latent_channels=cfg.in_channels)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        context = contexts[i] if contexts is not None else dummy_context(cfg, gen, device)
+        on_phase, marks = _phase_timer(device, st, phase_peaks)
+        latent = pipe(context, config, keyframes=keyframes, callback=on_phase, skip_decode=True,
+                      noises=None if noises is None else noises[i], end_states=end_states)
+        st["stage1_step_s"] = st["stage1_s"] / steps
+        st["attention_launches"] = flash_attention.launches - marks["attention"]
+        st["latent_std"] = float(latent.float().std())
+        configs.append(config)
+        latents.append(latent)
+
+    del dit, upscaler, encoder, pipe
+    if ledger is not None:
+        for name in ("transformer", "spatial_upscaler", "video_encoder"):
+            ledger.clear_model(name)
+    return _outputs(latents, [None] * len(latents), configs, stats, device, decoder, ledger, cfg.compute_dtype,
+                    phase_peaks, lambda seed: stage_seeds(seed)[2], skip_decode, None, None), stats
+
+
+def generate_videos_ti2vid_hq(
+    seeds: Sequence[int],
+    *,
+    height: int = 512,
+    width: int = 768,
+    frames: int = 121,
+    steps: int = 15,
+    cfg_scale: float = 3.0,
+    audio_cfg_scale: float = 7.0,
+    token_shift: bool = False,
+    layers: int = 48,
+    device=None,
+    dit: Optional[LTXModel] = None,
+    upscaler: Optional[SpatialUpscaler] = None,
+    decoder: Optional[VideoDecoder] = None,
+    encoder: Optional[VideoEncoder] = None,
+    contexts: Optional[Sequence[torch.Tensor]] = None,
+    noises: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+    images: Optional[Sequence[ImageCondition]] = None,
+    text_encoder: Union[bool, VideoTextEncoder] = False,
+    gemma: Optional[Gemma3] = None,
+    phase_peaks: bool = False,
+    ledger: Optional[ModelLedger] = None,
+    tokens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    embeddings: Optional[list] = None,
+    fps: float = FPS,
+    tiling: Optional[TilingConfig] = None,
+    dtype: str = "bfloat16",
+    skip_decode: bool = False,
+    audio: bool = False,
+    audio_contexts: Optional[Sequence[torch.Tensor]] = None,
+    audio_noises: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+    audio_decoder: Optional[AudioDecoder] = None,
+    vocoder=None,
+    internal_audio: bool = True,
+    int8: bool = False,
+) -> Tuple[List[np.ndarray], List[dict]]:
+    """TI2Vid-HQ (pipelines/ti2vid_hq.py), one clip per seed: stage 1 at
+    half size, `steps` LTX2Scheduler sigmas through the Res2s RK loop
+    under CFG at `cfg_scale` (two guided evaluations a step, each on the
+    prompt and negative rows; with `audio` the audio stream at
+    `audio_cfg_scale`), the 2x upscaler, the distilled stage 2, the
+    decodes. Without an upscaler (a ledger without its file) the stage-1
+    latent is the result, as the JAX CLI runs it. Arguments as in
+    `generate_videos_two_stage`. Stats per request: the seconds and peaks
+    of the text encode, stage 1 (and a step), upscale, stage 2, decode and
+    audio decode, the launches, the latents' finiteness."""
+    from ltx2_tpu_torch.pipelines.ti2vid_hq import TI2VidHQConfig, TI2VidHQPipeline
+
+    device = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    images = list(images or [])
+    modules = (dit, upscaler, decoder, encoder, gemma,
+               text_encoder if isinstance(text_encoder, VideoTextEncoder) else None)
+    if ledger is not None and any(m is not None for m in modules):
+        raise ValueError("with a ledger every component comes from its files: pass no module")
+    stats = [{"seed": seed, "dit_init_s": 0.0, "upscaler_init_s": 0.0, "decoder_init_s": 0.0} for seed in seeds]
+    _phase_peak(device, phase_peaks)
+    encoded_audio = [] if audio and audio_contexts is None else None
+    contexts, _ = _text_contexts(seeds, stats, device, contexts, text_encoder, gemma, ledger, phase_peaks,
+                                 negatives=True, tokens=tokens, embeddings=embeddings, audio_contexts=encoded_audio)
+    if encoded_audio and all(a is not None for a in encoded_audio):
+        audio_contexts = encoded_audio
+    gemma = text_encoder = None
+    dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, images, ledger,
+                                    None if contexts is None else contexts[0].shape[-1], dtype, audio, int8=int8)
+    upscaler = _spatial_upscaler(stats, device, upscaler, ledger, None)
+    cfg = dit.cfg
+    pipe = TI2VidHQPipeline(dit, upscaler, statistics=_latent_statistics(cfg, decoder, ledger, device),
+                            video_encoder=encoder)
+    configs, latents, audio_latents = [], [], []
+    for i, (seed, st) in enumerate(zip(seeds, stats)):
+        config = TI2VidHQConfig(
+            height=height, width=width, num_frames=frames, seed=seed, fps=fps, num_inference_steps=steps,
+            cfg_scale=cfg_scale, audio_cfg_scale=audio_cfg_scale, token_dependent_shift=token_shift,
+            tiling_config=tiling, dtype=cfg.compute_dtype, latent_channels=cfg.in_channels, audio_enabled=audio,
+            use_internal_audio_branch=internal_audio)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        (positive, negative), (positive_a, negative_a) = _context_pairs(cfg, contexts, audio_contexts, i, gen,
+                                                                        device, audio)
+        on_phase, marks = _phase_timer(device, st, phase_peaks)
+        out = pipe(positive, negative, config, images=images, callback=on_phase, skip_decode=True,
+                   positive_audio_encoding=positive_a, negative_audio_encoding=negative_a,
+                   noises=None if noises is None else noises[i],
+                   audio_noises=None if audio_noises is None else audio_noises[i])
+        latent, audio_latent = out if audio else (out, None)
+        st["stage1_step_s"] = st["stage1_s"] / steps
         st["attention_launches"] = flash_attention.launches - marks["attention"]
         st["latent_std"] = float(latent.float().std())
         configs.append(config)
@@ -930,6 +1195,7 @@ def generate_videos_one_stage(
     cfg_interval: int = 1,
     token_bucket: int = 0,
     upscale_spatial: bool = False,
+    upscale_temporal: bool = False,
     tokens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     embeddings: Optional[list] = None,
     fps: float = FPS,
@@ -943,6 +1209,7 @@ def generate_videos_one_stage(
     audio_decoder: Optional[AudioDecoder] = None,
     vocoder=None,
     internal_audio: bool = True,
+    int8: bool = False,
     **loop_options,
 ) -> Tuple[List[np.ndarray], List[dict]]:
     """The single-stage CFG pipeline, one clip per seed at the JAX
@@ -971,7 +1238,10 @@ def generate_videos_one_stage(
     `upscale_spatial` the 2x spatial upscaler (the ledger's, or random from
     seed 2) runs after the loop in the un-normalize /
     re-normalize bracket of the decoder's statistics (its phase "upscale"
-    in the stats), and the decoder decodes the upscaled latent.
+    in the stats), and the decoder decodes the upscaled latent; with
+    `upscale_temporal` the 2x temporal upscaler (the ledger's, or random
+    from seed 9) runs after it in its own bracket (phase
+    "upscale_temporal"): F latent frames become 2F - 1.
     `tokens`, `embeddings`, `fps`, `tiling`, `dtype` and `skip_decode` as in
     `generate_videos_distilled`; so is `audio` (the audio stream guided at
     `audio_cfg_scale`, CFG* when `rescale_scale` > 0), with
@@ -996,18 +1266,24 @@ def generate_videos_one_stage(
         audio_contexts = encoded_audio
     gemma = text_encoder = None
     dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, images, ledger,
-                                    None if contexts is None else contexts[0].shape[-1], dtype, audio)
+                                    None if contexts is None else contexts[0].shape[-1], dtype, audio,
+                                    int8=int8)
     cfg = dit.cfg
     pipe = OneStagePipeline(dit, video_encoder=encoder)
-    spatial = upscaler = None
-    if upscale_spatial:
-        upscaler = _spatial_upscaler(stats, device, None, ledger, "--upscale-spatial")
+    spatial = upscaler = temporal = temporal_upscaler = None
+    if upscale_spatial or upscale_temporal:
         statistics = _latent_statistics(cfg, decoder, ledger, device)
 
-        def spatial(latent: torch.Tensor) -> torch.Tensor:
+        def bracket(apply, module):
             # Pipeline without a decoder: the bracket is applied here.
-            upscaled = spatial_upscaler_apply(upscaler, un_normalize_latent(latent, statistics))
-            return normalize_latent(upscaled, statistics)
+            return lambda latent: normalize_latent(apply(module, un_normalize_latent(latent, statistics)), statistics)
+
+        if upscale_spatial:
+            upscaler = _spatial_upscaler(stats, device, None, ledger, "--upscale-spatial")
+            spatial = bracket(spatial_upscaler_apply, upscaler)
+        if upscale_temporal:
+            temporal_upscaler = _temporal_upscaler(stats, device, ledger)
+            temporal = bracket(temporal_upscaler_apply, temporal_upscaler)
 
     configs, latents, audio_latents = [], [], []
     for i, (seed, st) in enumerate(zip(seeds, stats)):
@@ -1022,7 +1298,7 @@ def generate_videos_one_stage(
         on_phase, marks = _phase_timer(device, st, phase_peaks)
         latent, audio_latent = pipe(
             positive, negative, config, images=images, callback=on_phase, skip_decode=True,
-            noise=None if noises is None else noises[i], spatial_upscaler=spatial,
+            noise=None if noises is None else noises[i], spatial_upscaler=spatial, temporal_upscaler=temporal,
             positive_audio_encoding=audio_pair[0], negative_audio_encoding=audio_pair[1],
             audio_noise=None if audio_noises is None else audio_noises[i], **loop_options)
         audio_latents.append(audio_latent if audio else None)
@@ -1033,9 +1309,9 @@ def generate_videos_one_stage(
         configs.append(config)
         latents.append(latent)
 
-    del dit, encoder, pipe, upscaler, spatial
+    del dit, encoder, pipe, upscaler, spatial, temporal_upscaler, temporal
     if ledger is not None:
-        for name in ("transformer", "video_encoder", "spatial_upscaler"):
+        for name in ("transformer", "video_encoder", "spatial_upscaler", "temporal_upscaler"):
             ledger.clear_model(name)
     return _outputs(latents, audio_latents, configs, stats, device, decoder, ledger, cfg.compute_dtype, phase_peaks,
                     lambda seed: stage_seeds(seed, 2)[1], skip_decode, audio_decoder, vocoder), stats
@@ -1080,6 +1356,7 @@ def generate_videos_two_stage(
     audio_decoder: Optional[AudioDecoder] = None,
     vocoder=None,
     internal_audio: bool = True,
+    int8: bool = False,
 ) -> Tuple[List[np.ndarray], List[dict]]:
     """The two-stage CFG pipeline (pipelines/two_stage.py), one clip per
     seed: stage 1 at half size, `steps` LTX2Scheduler steps guided at
@@ -1123,7 +1400,7 @@ def generate_videos_two_stage(
     gemma = text_encoder = None
     dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, images, ledger,
                                     None if contexts is None else contexts[0].shape[-1], dtype, audio,
-                                    fp8=distilled_lora is None)
+                                    fp8=distilled_lora is None, int8=int8)
     if distilled_lora is not None and is_quantized(dit):
         raise ValueError("the distilled LoRA cannot be fused into a DiT kept in fp8: load it in bf16 "
                          "(no --fp8-serving)")
@@ -1196,6 +1473,7 @@ def generate_videos_a2vid(
     audio: bool = False,
     audio_contexts: Optional[Sequence[torch.Tensor]] = None,
     audio_noises: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+    int8: bool = False,
 ) -> Tuple[List[np.ndarray], List[dict]]:
     """Audio-to-video (pipelines/a2vid_two_stage.py), one clip per seed: the
     source (`audio_file`'s first frames / fps seconds from
@@ -1234,7 +1512,8 @@ def generate_videos_a2vid(
         audio_contexts = encoded_audio
     gemma = text_encoder = None
     dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, images, ledger,
-                                    None if contexts is None else contexts[0].shape[-1], dtype, audio=True)
+                                    None if contexts is None else contexts[0].shape[-1], dtype, audio=True,
+                                    int8=int8)
     upscaler = _spatial_upscaler(stats, device, upscaler, ledger, "the a2vid pipeline")
     if audio_encoder is None:
         make = ledger.audio_encoder if ledger is not None else (lambda: make_audio_encoder(device))
@@ -1294,12 +1573,22 @@ def generate_video(seed: int = 0, **kwargs) -> np.ndarray:
     return videos[0]
 
 
-def parse_lora_spec(spec: str) -> LoRAConfig:
-    """'path[:strength]' -> LoRAConfig (strength 1 when absent)."""
+def parse_lora_spec(spec: str, default_strength: float = 1.0) -> LoRAConfig:
+    """'path[:strength]' -> LoRAConfig (`default_strength` when absent)."""
     if ":" in spec:
         path, strength = spec.rsplit(":", 1)
         return LoRAConfig(path=path, strength=float(strength))
-    return LoRAConfig(path=spec)
+    return LoRAConfig(path=spec, strength=default_strength)
+
+
+def parse_keyframe_spec(spec: str):
+    """'path:frame[:strength]' -> Keyframe (frame 0 and strength 0.95 when
+    absent), as scripts/generate.py parses --keyframe."""
+    from ltx2_tpu_torch.pipelines.keyframe_interpolation import Keyframe
+
+    parts = spec.split(":")
+    return Keyframe(image_path=parts[0], frame_index=int(parts[1]) if len(parts) > 1 else 0,
+                    strength=float(parts[2]) if len(parts) > 2 else 0.95)
 
 
 def parse_image_spec(spec: str, default_strength: float = 0.95) -> ImageCondition:
@@ -1310,9 +1599,12 @@ def parse_image_spec(spec: str, default_strength: float = 0.95) -> ImageConditio
                           strength=float(parts[2]) if len(parts) > 2 else default_strength)
 
 
-PIPELINES = ("bench-e2e", "distilled", "one-stage", "text-to-video", "two-stage", "a2vid")
+PIPELINES = ("bench-e2e", "distilled", "one-stage", "text-to-video", "two-stage", "a2vid", "keyframe", "ti2vid-hq")
 # The pipelines with a spatial upscaler between two stages.
-STAGED = ("distilled", "two-stage", "a2vid")
+STAGED = ("distilled", "two-stage", "a2vid", "keyframe", "ti2vid-hq")
+# The temporal upscaler's file under the reference layout, the default of
+# --upscale-temporal with a checkpoint (scripts/generate.py:392-394).
+DEFAULT_TEMPORAL_UPSCALER = "weights/ltx-2/ltx-2-temporal-upscaler-x2-1.0.safetensors"
 # The two-stage pipeline's own flags (argparse names).
 TWO_STAGE_FLAGS = ("cfg_stage1", "steps_stage1", "steps_stage2", "modality_scale", "distilled_lora",
                    "distilled_lora_scale")
@@ -1331,7 +1623,7 @@ def _round_two_stage_geometry(args) -> None:
 # The one-stage / text-to-video loop options' argparse names.
 LOOP_FLAGS = ("stg_scale", "stg_blocks", "stg_cutoff", "stg_mode", "apg_scale", "apg_eta", "apg_norm_threshold",
               "apg_momentum", "ge_gamma", "sampler", "cfg_interval", "token_bucket", "cross_attn_scale",
-              "cross_attn_start_block", "cache_text_kv", "upscale_spatial")
+              "cross_attn_start_block", "cache_text_kv", "upscale_spatial", "upscale_temporal")
 
 
 def apg_guider(args) -> Optional[Union[LtxAPGGuider, StatefulAPGGuider]]:
@@ -1348,13 +1640,37 @@ def apg_guider(args) -> Optional[Union[LtxAPGGuider, StatefulAPGGuider]]:
 def tiling_config(args) -> Optional[TilingConfig]:
     """`--tile-size/--tile-overlap` and `--temporal-tile-size/--temporal-
     tile-overlap` -> the decode's tiling, as scripts/generate.py builds it;
-    None (each pipeline's own choice) when neither size is given."""
+    with neither size the default tiling under `--tiled-vae`, else None
+    (each pipeline's own choice)."""
     spatial = SpatialTilingConfig(args.tile_size, args.tile_overlap) if args.tile_size else None
     temporal = (TemporalTilingConfig(args.temporal_tile_size, args.temporal_tile_overlap)
                 if args.temporal_tile_size else None)
     if spatial or temporal:
         return TilingConfig(spatial_config=spatial, temporal_config=temporal)
+    if getattr(args, "tiled_vae", False):
+        return TilingConfig.default()
     return None
+
+
+def _profile(profile_dir: Optional[str]):
+    """`--profile-dir`: a torch.profiler trace of the run written there as
+    trace.json (the JAX CLI writes its profiler's trace there); nothing
+    without a directory."""
+    import contextlib
+
+    if not profile_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile
+
+    @contextlib.contextmanager
+    def traced():
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+        with profile(activities=activities) as prof:
+            yield
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+    return traced()
 
 
 def load_embedding(path: str, device, negatives: bool, audio: bool = False) -> Optional[torch.Tensor]:
@@ -1391,7 +1707,9 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
                          "the CFG pipeline (CFG* with --rescale-scale > 0); text-to-video: its plain-CFG form; "
                          "two-stage: a guided stage 1 (--num-inference-steps, CFG with the rescale; with --audio "
                          "the multi-modal guider), the upscaler, --distilled-lora fused for the distilled stage 2; "
-                         "a2vid: the distilled recipe with the audio latent encoded from --audio-file and frozen")
+                         "a2vid: the distilled recipe with the audio latent encoded from --audio-file and frozen; "
+                         "keyframe: --keyframe PNGs appended past the sequence, a CFG stage 1 and a distilled stage "
+                         "2; ti2vid-hq: a Res2s CFG stage 1 and a distilled stage 2")
     ap.add_argument("--prompt", default=None,
                     help=f"tokenized from --gemma-dir's tokenizer.json (default {DEFAULT_PROMPT!r})")
     ap.add_argument("--negative-prompt", default=None,
@@ -1410,9 +1728,9 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
     ap.add_argument("--steps", type=int, default=8, help="bench-e2e only: distilled steps")
     ap.add_argument("--num-inference-steps", type=int, default=30,
                     help="one-stage, text-to-video, two-stage (stage 1): Euler steps")
-    ap.add_argument("--cfg-scale", type=float, default=3.0,
+    ap.add_argument("--cfg-scale", "--cfg", type=float, default=3.0,
                     help="one-stage, text-to-video, two-stage (stage 1): guidance scale")
-    ap.add_argument("--rescale-scale", type=float, default=0.7,
+    ap.add_argument("--rescale-scale", "--guidance-rescale", type=float, default=0.7,
                     help="one-stage: > 0 selects CFG* (CFGStarRescalingGuider), 0 classic CFG; text-to-video "
                          "always runs 0; two-stage: the guidance rescale of stage 1 (std-ratio with --audio, else "
                          "RescaledCFGGuider; 0 classic CFG)")
@@ -1440,21 +1758,31 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
                     help="every flow but bench-e2e: an npz of text encodings (positive, negative), "
                          "in place of the text encoder")
     ap.add_argument("--save-embedding", default=None, help="write the first request's encodings as an npz")
-    ap.add_argument("--checkpoint", default=None,
+    ap.add_argument("--checkpoint", "--weights", default=None,
                     help="every flow but bench-e2e: a unified LTX-2 or LTX-2.3 safetensors checkpoint "
                          "(DiT, VAE encoder and decoder, text projection and connectors), loaded through ModelLedger "
                          "in place of the random weights")
-    ap.add_argument("--spatial-upscaler", default=None,
-                    help="distilled, two-stage, a2vid with --checkpoint: the spatial upscaler's safetensors")
-    ap.add_argument("--gemma-dir", default=None,
+    ap.add_argument("--spatial-upscaler", "--spatial-upscaler-weights", default=None,
+                    help="distilled, two-stage, a2vid, keyframe, ti2vid-hq with --checkpoint: the spatial "
+                         "upscaler's safetensors (keyframe and ti2vid-hq run one stage without it)")
+    ap.add_argument("--temporal-upscaler", "--temporal-upscaler-weights", default=None,
+                    help="with --checkpoint and --upscale-temporal: the temporal upscaler's safetensors (default "
+                         f"{DEFAULT_TEMPORAL_UPSCALER})")
+    ap.add_argument("--gemma-dir", "--gemma-path", default=None,
                     help="with --checkpoint: the directory of Gemma-3's model-*.safetensors shards and its "
                          "tokenizer.json (and tokenizer_config.json); turns text encoding on")
     ap.add_argument("--fp8-serving", action="store_true",
                     help="with --checkpoint: keep the file's fp8 DiT weights fp8 on the card (dequantized at use)")
+    ap.add_argument("--int8", action="store_true",
+                    help="the DiT's matmul weights int8 W8A8 (per-out-channel weights quantized at load, per-token "
+                         "activations quantized at each matmul, int32 products); excludes --fp8-serving and a "
+                         "runtime LoRA fuse (--distilled-lora)")
     ap.add_argument("--gemma-fp8", action="store_true",
                     help="with --gemma-dir: quantize Gemma's matmul weights to fp8 at load (embeddings bf16)")
     ap.add_argument("--lora", action="append", default=[], metavar="PATH[:STRENGTH]",
                     help="with --checkpoint: a LoRA file fused into the DiT at load, repeatable")
+    ap.add_argument("--keyframe", action="append", default=[], metavar="PATH:FRAME[:STRENGTH]",
+                    help="keyframe: an 8-bit PNG pinned at pixel frame FRAME (strength 0.95 by default), repeatable")
     ap.add_argument("--audio", "--generate-audio", action="store_true",
                     help="every flow but bench-e2e: generate audio with the audio-video DiT (the checkpoint's, "
                          "loaded with its audio stream, else random at full width, kept in fp8) and write it beside "
@@ -1507,7 +1835,31 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
     loop.add_argument("--upscale-spatial", action="store_true",
                       help="the 2x spatial upscaler after the loop (random weights, or --spatial-upscaler's file "
                            "with --checkpoint)")
+    loop.add_argument("--upscale-temporal", action="store_true",
+                      help="the 2x temporal upscaler after the loop and any spatial one: F latent frames become "
+                           "2F - 1 (random weights, or --temporal-upscaler's file with --checkpoint)")
+    compat = ap.add_argument_group("the JAX CLI's compatibility flags (its names and settings)")
+    compat.add_argument("--fp8", action="store_true", help="same as --fp8-serving")
+    compat.add_argument("--fp16", action="store_true", help="16-bit compute: bfloat16 (the default --dtype)")
+    compat.add_argument("--fp32", "--no-fp16", action="store_true", dest="fp32", help="same as --dtype float32")
+    compat.add_argument("--low-memory", action="store_true", help="accepted, no effect")
+    compat.add_argument("--fast-mode", action="store_true", help="accepted, no effect")
+    compat.add_argument("--lora-strength", type=float, default=1.0,
+                        help="the strength of --lora specs without one")
+    compat.add_argument("--tiled-vae", action="store_true",
+                        help="tiled decode at the default tiling when no tile size is given")
+    compat.add_argument("--placeholder", action="store_true",
+                        help="random weights and dummy text contexts (the checkpoint, if given, is not loaded)")
+    compat.add_argument("--no-gemma", action="store_true", help="dummy text contexts (no text encoding)")
+    compat.add_argument("--model-variant", choices=["distilled", "dev"], default="distilled",
+                        help="without --checkpoint: weights/ltx-2/ltx-2-19b-<variant>[-fp8].safetensors when "
+                             "that file exists")
+    compat.add_argument("--profile-dir", default=None,
+                        help="write a torch.profiler trace of the run (trace.json) into this directory")
+    compat.add_argument("--compile-cache", default=None,
+                        help="the JAX CLI's XLA compilation cache: accepted and ignored (the port compiles no XLA)")
     args = ap.parse_args(argv)
+    _apply_reference_compat(ap, args)
     cfg_flow = args.pipeline in ("one-stage", "text-to-video")
     two_stage = args.pipeline == "two-stage"
     loop_flags = [f"--{dest.replace('_', '-')}" for dest in LOOP_FLAGS if getattr(args, dest) != ap.get_default(dest)
@@ -1515,11 +1867,25 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
     if loop_flags and not cfg_flow:
         ap.error(f"{', '.join(loop_flags)} need --pipeline one-stage or text-to-video")
     two_flags = [f"--{dest.replace('_', '-')}" for dest in TWO_STAGE_FLAGS
-                 if getattr(args, dest) != ap.get_default(dest)]
+                 if getattr(args, dest) != ap.get_default(dest)
+                 and not (args.pipeline == "ti2vid-hq" and dest == "steps_stage1")]
     if two_flags and not two_stage:
         ap.error(f"{', '.join(two_flags)} need --pipeline two-stage")
+    if args.pipeline == "ti2vid-hq" and args.steps_stage1 is not None:
+        args.num_inference_steps = args.steps_stage1
     if args.audio_file and args.pipeline != "a2vid":
         ap.error("--audio-file needs --pipeline a2vid")
+    if args.keyframe and args.pipeline != "keyframe":
+        ap.error("--keyframe needs --pipeline keyframe")
+    if args.pipeline == "keyframe":
+        for flag, used in (("--image", args.image), ("--audio", args.audio)):
+            if used:
+                ap.error(f"{flag} does not apply to --pipeline keyframe (video only, conditioned by --keyframe)")
+        for flag, dest, value in (("--num-inference-steps", "num_inference_steps", 30),
+                                  ("--cfg-scale", "cfg_scale", 7.5)):
+            if getattr(args, dest) != ap.get_default(dest):
+                print(f"{flag}: --pipeline keyframe runs its config's {value}, as the JAX CLI does; ignored",
+                      file=sys.stderr)
     if args.distilled_lora and args.fp8_serving:
         ap.error("--distilled-lora is fused into the DiT's weights, which --fp8-serving keeps in fp8: drop "
                  "--fp8-serving (the DiT loads in bf16)")
@@ -1540,14 +1906,22 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
             if used:
                 ap.error(f"{flag} needs another --pipeline than bench-e2e")
     if args.spatial_upscaler and args.pipeline not in STAGED and not args.upscale_spatial:
-        ap.error("--spatial-upscaler needs --pipeline distilled, two-stage or a2vid, or --upscale-spatial")
-    file_flags = {"--spatial-upscaler": args.spatial_upscaler, "--gemma-dir": args.gemma_dir,
-                  "--fp8-serving": args.fp8_serving, "--gemma-fp8": args.gemma_fp8, "--lora": args.lora}
+        ap.error("--spatial-upscaler needs --pipeline distilled, two-stage, a2vid, keyframe or ti2vid-hq, or "
+                 "--upscale-spatial")
+    if args.temporal_upscaler and not args.upscale_temporal:
+        print("--temporal-upscaler given without --upscale-temporal: the post-hoc 2x applies only with "
+              "--upscale-temporal; ignoring the weights", file=sys.stderr)
+        args.temporal_upscaler = None
+    if args.upscale_temporal and args.checkpoint and args.temporal_upscaler is None:
+        args.temporal_upscaler = DEFAULT_TEMPORAL_UPSCALER
+    file_flags = {"--spatial-upscaler": args.spatial_upscaler, "--temporal-upscaler": args.temporal_upscaler,
+                  "--gemma-dir": args.gemma_dir, "--fp8-serving": args.fp8_serving, "--gemma-fp8": args.gemma_fp8,
+                  "--lora": args.lora}
     if not args.checkpoint and any(file_flags.values()):
         ap.error(f"{', '.join(k for k, v in file_flags.items() if v)} need --checkpoint")
     if args.gemma_fp8 and not args.gemma_dir:
         ap.error("--gemma-fp8 needs --gemma-dir")
-    encode = args.text_encoder or (args.gemma_dir is not None and not args.embedding)
+    encode = not args.no_gemma and (args.text_encoder or (args.gemma_dir is not None and not args.embedding))
     if args.embedding and args.text_encoder:
         ap.error("--embedding and --text-encoder are exclusive: the npz holds the encodings")
     if args.save_embedding and not encode:
@@ -1565,7 +1939,25 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
             ap.error(f"--output {args.output}: {err}")
     seeds = [args.seed + i for i in range(args.requests)]
     common = dict(height=args.height, width=args.width, frames=args.frames, layers=args.layers, device=args.device,
-                  fps=args.fps, dtype=args.dtype, skip_decode=args.skip_vae)
+                  fps=args.fps, dtype=args.dtype, skip_decode=args.skip_vae, int8=args.int8)
+    with _profile(args.profile_dir):
+        videos, stats = _run_flow(args, seeds, common, encode, cfg_flow, two_stage)
+    paths = output_paths(args.output, len(videos), "_latent.npz" if args.skip_vae else "")
+    for out, path, st in zip(videos, paths, stats):
+        video, wave = out if args.audio else (out, None)
+        if args.skip_vae:
+            np.savez(path, latent=video, **({} if wave is None else {"audio_latent": wave}))
+        else:
+            # The vocoder's own rate: LTX-2.3's BWE chain writes 48 kHz.
+            save_video(video, path, args.fps, output_fps=args.output_fps, speed=args.speed, audio=wave,
+                       audio_sample_rate=st.get("audio_sample_rate", 24000))
+        st["output"] = path
+        print(json.dumps({**st, "frames": list(video.shape), "dtype": str(video.dtype)}))
+    return videos, stats
+
+
+def _run_flow(args, seeds, common: dict, encode: bool, cfg_flow: bool, two_stage: bool):
+    """The flow `args.pipeline` names, on the settings `main` parsed."""
     if args.pipeline == "bench-e2e":
         videos, stats = generate_videos(seeds, steps=args.steps, **common)
     else:
@@ -1573,16 +1965,17 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
         if args.checkpoint:
             ledger = ModelLedger(
                 checkpoint_path=args.checkpoint, gemma_path=args.gemma_dir, spatial_upscaler_path=args.spatial_upscaler,
-                loras=[parse_lora_spec(spec) for spec in args.lora], target_dtype=args.dtype,
-                keep_fp8=args.fp8_serving, gemma_fp8=args.gemma_fp8, decoder_dtype="bfloat16", device=args.device,
-                include_audio=args.audio or args.pipeline == "a2vid",
+                temporal_upscaler_path=args.temporal_upscaler,
+                loras=[parse_lora_spec(spec, args.lora_strength) for spec in args.lora], target_dtype=args.dtype,
+                keep_fp8=args.fp8_serving, int8=args.int8, gemma_fp8=args.gemma_fp8, decoder_dtype="bfloat16",
+                device=args.device, include_audio=args.audio or args.pipeline == "a2vid",
             )
         tokens = None
         if args.gemma_dir and encode:
             tokens = tokenize_prompts(args.gemma_dir, DEFAULT_PROMPT if args.prompt is None else args.prompt,
                                       DEFAULT_NEGATIVE_PROMPT if args.negative_prompt is None else args.negative_prompt)
         contexts = audio_contexts = None
-        pairs = cfg_flow or two_stage
+        pairs = cfg_flow or two_stage or args.pipeline == "ti2vid-hq"
         if args.embedding:
             context = load_embedding(args.embedding, args.device, negatives=pairs)
             contexts = [context] * len(seeds)
@@ -1601,7 +1994,7 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
             videos, stats = generate_videos_one_stage(
                 seeds, steps=args.num_inference_steps, cfg_scale=args.cfg_scale, rescale_scale=rescale,
                 token_shift=args.token_shift, cfg_interval=args.cfg_interval, token_bucket=args.token_bucket,
-                upscale_spatial=args.upscale_spatial, stg_scale=args.stg_scale,
+                upscale_spatial=args.upscale_spatial, upscale_temporal=args.upscale_temporal, stg_scale=args.stg_scale,
                 stg_blocks=[int(b) for b in args.stg_blocks.split(",")] if args.stg_blocks else None,
                 stg_cutoff=args.stg_cutoff, stg_mode=args.stg_mode, guider_override=apg_guider(args),
                 ge_gamma=args.ge_gamma, sampler=args.sampler, cross_attn_scale=args.cross_attn_scale,
@@ -1618,6 +2011,15 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
         elif args.pipeline == "a2vid":
             flow.pop("internal_audio")
             videos, stats = generate_videos_a2vid(seeds, audio_file=args.audio_file, **flow)
+        elif args.pipeline == "keyframe":
+            for key in ("images", "audio", "audio_contexts", "internal_audio"):
+                flow.pop(key)
+            videos, stats = generate_videos_keyframe(
+                seeds, [parse_keyframe_spec(spec) for spec in args.keyframe], token_shift=args.token_shift, **flow)
+        elif args.pipeline == "ti2vid-hq":
+            videos, stats = generate_videos_ti2vid_hq(
+                seeds, steps=args.num_inference_steps, cfg_scale=args.cfg_scale, audio_cfg_scale=args.audio_cfg_scale,
+                token_shift=args.token_shift, **flow)
         else:
             videos, stats = generate_videos_distilled(seeds, **flow)
         if args.embedding:
@@ -1625,18 +2027,46 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
                 st["prompt_source"] = "embedding"
         if args.save_embedding:
             np.savez(args.save_embedding, **embeddings[0])
-    paths = output_paths(args.output, len(videos), "_latent.npz" if args.skip_vae else "")
-    for out, path, st in zip(videos, paths, stats):
-        video, wave = out if args.audio else (out, None)
-        if args.skip_vae:
-            np.savez(path, latent=video, **({} if wave is None else {"audio_latent": wave}))
-        else:
-            # The vocoder's own rate: LTX-2.3's BWE chain writes 48 kHz.
-            save_video(video, path, args.fps, output_fps=args.output_fps, speed=args.speed, audio=wave,
-                       audio_sample_rate=st.get("audio_sample_rate", 24000))
-        st["output"] = path
-        print(json.dumps({**st, "frames": list(video.shape), "dtype": str(video.dtype)}))
     return videos, stats
+
+
+def _apply_reference_compat(ap, args) -> None:
+    """The JAX CLI's compatibility flags mapped onto the port's settings
+    (scripts/generate.py:350-394): --fp32 sets --dtype float32 (--fp16 keeps
+    bfloat16), --fp8 is --fp8-serving, --int8 refuses --fp8-serving and a
+    runtime LoRA fuse, --tiled-vae asks for the default tiling,
+    --placeholder drops the checkpoint and text encoding, --model-variant
+    picks the reference checkpoint when it exists; --low-memory,
+    --fast-mode and --compile-cache are accepted with a note on stderr."""
+    if args.fp32:
+        args.dtype = "float32"
+    elif args.fp16:
+        print("--fp16: using bfloat16", file=sys.stderr)
+    if args.fp8:
+        args.fp8_serving = True
+    if args.int8 and args.fp8_serving:
+        ap.error("--int8 and --fp8-serving are mutually exclusive: int8 W8A8 re-quantizes from full-precision "
+                 "weights (load dequantized, i.e. drop --fp8-serving/--fp8, to use --int8)")
+    if args.int8 and args.distilled_lora and args.pipeline in ("two-stage", "ti2vid-hq"):
+        ap.error("--int8 is incompatible with --distilled-lora (fused into stage 2 at runtime): LoRA deltas need "
+                 "full-precision weights to fuse into. Drop --int8 for this pipeline.")
+    for flag, on in (("--low-memory", args.low_memory), ("--fast-mode", args.fast_mode)):
+        if on:
+            print(f"{flag}: accepted, no effect", file=sys.stderr)
+    if args.compile_cache:
+        print(f"--compile-cache {args.compile_cache}: the JAX CLI's XLA compilation cache; the port compiles no "
+              "XLA, ignored", file=sys.stderr)
+    if args.placeholder:
+        if args.checkpoint:
+            print("--placeholder: random weights, the checkpoint is not loaded", file=sys.stderr)
+        args.checkpoint = None
+        args.no_gemma = True
+    elif args.checkpoint is None and args.model_variant:
+        candidate = (f"weights/ltx-2/ltx-2-19b-{args.model_variant}{'-fp8' if args.fp8_serving else ''}"
+                     ".safetensors")
+        if os.path.exists(candidate):
+            args.checkpoint = candidate
+            print(f"--model-variant {args.model_variant}: using {candidate}", file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -24,6 +24,7 @@ from ltx2_tpu_torch.models.text_encoder.encoder import TextEncoderConfig, VideoT
 from ltx2_tpu_torch.models.text_encoder.gemma3 import Gemma3, Gemma3Config
 from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelConfig
 from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscaler, SpatialUpscalerConfig
+from ltx2_tpu_torch.models.upscaler.temporal import TemporalUpscaler, TemporalUpscalerConfig
 from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoder, VideoDecoderConfig
 from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoder, VideoEncoderConfig
 from ltx2_tpu_torch.training.lora import attach_lora_
@@ -145,6 +146,15 @@ def spatial_upscaler_from_numpy(tree: Mapping, cfg: SpatialUpscalerConfig, devic
     `res_blocks.{i}`, `upsampler.conv` with its per-frame 4D weight,
     `post_upsample_res_blocks.{i}`, `final_conv`) -> fp32 SpatialUpscaler."""
     upscaler = SpatialUpscaler(cfg, device=device)
+    _load(upscaler, flatten_tree(tree))
+    return upscaler
+
+
+def temporal_upscaler_from_numpy(tree: Mapping, cfg: TemporalUpscalerConfig, device=None) -> TemporalUpscaler:
+    """A temporal-upscaler parameter tree (`initial_conv`, `initial_norm`,
+    `res_blocks.{i}`, `upsampler.conv`, `post_upsample_res_blocks.{i}`,
+    `final_conv`) -> fp32 TemporalUpscaler."""
+    upscaler = TemporalUpscaler(cfg, device=device)
     _load(upscaler, flatten_tree(tree))
     return upscaler
 

@@ -11,7 +11,9 @@ a time (loader/modules.py): AdaLN tables and norm weights in fp32, matmul
 weights in the target dtype, fp8-E4M3 weights dequantized (codes x
 per-tensor scale) or, with `keep_fp8`, kept as codes with their scales
 (the audio stream's and the cross-modal linears as the video's, as the JAX
-loader keeps every weight that has a scale).
+loader keeps every weight that has a scale), or, with `quantize_int8`,
+quantized to int8 W8A8 on the host one tensor at a time
+(loader/int8.py), so the card never holds the unquantized tree.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from ltx2_tpu_torch.core import resolve_device
 from ltx2_tpu_torch.loader.convert import fp8_e4m3_dequant, to_dtype
 from ltx2_tpu_torch.loader.fp8 import set_fp8_weight_
+from ltx2_tpu_torch.loader.int8 import int8_eligible, quantize_array_int8, set_int8_weight_
 from ltx2_tpu_torch.loader.modules import assign_, require_loaded
 from ltx2_tpu_torch.loader.safetensors_io import SafetensorsFile, read_metadata
 from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelConfig, LTXModelType
@@ -43,8 +46,6 @@ DIFFUSION_PREFIX = "model.diffusion_model."
 # Tensors whose module name holds one of these load in fp32 whatever the
 # target dtype (docs/PARITY.md: fp32 AdaLN and norms).
 FP32_KEYS = ("scale_shift_table", "adaln", "norm")
-
-INT8_NOT_PORTED = "int8 W8A8 weights are not ported yet: ROADMAP.md §1 item 5"
 
 
 def convert_checkpoint_key(key: str, include_audio: bool = False) -> Optional[str]:
@@ -186,11 +187,15 @@ def load_transformer_params(
     `include_audio` the audio stream and the cross-modal layers too (the
     audio-video model). `cfg` defaults to `transformer_config_from_checkpoint`. With `keep_fp8` the file's fp8
     weights stay E4M3 codes with their per-tensor `weight_scale`, dequantized
-    at use; otherwise they are dequantized here. Every other tensor follows
-    `convert_tensor`. Raises on a tensor the model has no place for, one of
-    another shape, and a model tensor the file does not give."""
-    if quantize_int8:
-        raise NotImplementedError(INT8_NOT_PORTED)
+    at use; otherwise they are dequantized here. With `quantize_int8` every
+    `int8_eligible` weight, converted as `convert_tensor` gives it, is
+    quantized on the host (`quantize_array_int8`) and moved as int8 codes
+    with its `weight_cscale`; it excludes `keep_fp8`, as in the JAX package.
+    Every other tensor follows `convert_tensor`. Raises on a tensor the
+    model has no place for, one of another shape, and a model tensor the
+    file does not give."""
+    if keep_fp8 and quantize_int8:
+        raise ValueError("keep_fp8 and quantize_int8 are mutually exclusive")
     device = resolve_device(device)
     if cfg is None:
         cfg = transformer_config_from_checkpoint(path, target_dtype, include_audio)
@@ -213,6 +218,12 @@ def load_transformer_params(
                     raise ValueError(f"{key}: an fp8 weight outside a linear layer cannot stay quantized")
                 set_fp8_weight_(owner, f.get(key).to(device, copy=True),
                                 per_tensor_scale(f, key, scales[key]).to(device))
+                continue
+            if quantize_int8 and int8_eligible(tree_key):
+                owner = model.get_submodule(tree_key.rpartition(".")[0])
+                host = convert_tensor(read_dequantized(f, key, scales, torch.device("cpu")), tree_key, target)
+                codes, cscale = quantize_array_int8(host.float().numpy())
+                set_int8_weight_(owner, torch.from_numpy(codes).to(device), torch.from_numpy(cscale).to(device))
                 continue
             assign_(model, tree_key, convert_tensor(read_dequantized(f, key, scales, device), tree_key, target))
     finally:

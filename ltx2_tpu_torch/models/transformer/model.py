@@ -52,7 +52,7 @@ from ltx2_tpu_torch.core import rms_norm
 from ltx2_tpu_torch.models.transformer.blocks import (
     AudioBlock, AVBlock, StreamArgs, StreamConfig, VideoBlock, joint_block_apply,
 )
-from ltx2_tpu_torch.ops.common import Linear, init_linear_, layer_norm, linear
+from ltx2_tpu_torch.ops.common import Linear, dequantize_int8, init_linear_, layer_norm, linear
 from ltx2_tpu_torch.ops.rope import precompute_freqs_cis
 from ltx2_tpu_torch.ops.timestep_embedding import AdaLayerNormSingle, adaln_single_apply
 
@@ -370,16 +370,22 @@ def _perturbation_mask_array(perturbations: Optional[BatchedPerturbationConfig],
 
 def _stacked_linear(layers: Sequence[Linear], x: torch.Tensor) -> torch.Tensor:
     """x (B, S, C) through each of L linears -> (L, B, S, O), each as `linear`
-    computes it (an fp8 weight dequantized in the JAX package's order; int8
-    raises as there). Unfused runtime LoRA is refused: the cached K/V would
-    drop its delta."""
+    computes it (an fp8 weight dequantized in the JAX package's order), but
+    an int8 weight dequantized per out-channel in fp32 and cast to x's dtype
+    for a plain product, as the JAX package's cached route does
+    (model.py:376-405), not the W8A8 route. Unfused runtime LoRA is refused:
+    the cached K/V would drop its delta."""
     if any(getattr(p, "lora_A", None) is not None or getattr(p, "lora_B", None) is not None for p in layers):
         raise ValueError(
             "cache_text_kv is unsupported with unfused runtime LoRA adapters on the K/V projections — fuse the "
             "LoRA first (loader/lora.py) or disable --cache-text-kv")
     out = None
     for i, p in enumerate(layers):
-        y = linear(p, x)
+        if getattr(p, "weight_cscale", None) is not None:
+            b = None if p.bias is None else p.bias.to(x.dtype)
+            y = F.linear(x, dequantize_int8(p, x.dtype), b)
+        else:
+            y = linear(p, x)
         if out is None:
             out = y.new_empty((len(layers), *y.shape))
         out[i] = y

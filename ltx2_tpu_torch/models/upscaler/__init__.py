@@ -5,6 +5,13 @@ from ltx2_tpu_torch.models.upscaler.spatial import (
     init_spatial_upscaler_,
     spatial_upscaler_apply,
 )
+from ltx2_tpu_torch.models.upscaler.temporal import (
+    TemporalUpscaler,
+    TemporalUpscalerConfig,
+    group_norm_per_frame,
+    init_temporal_upscaler_,
+    temporal_upscaler_apply,
+)
 
 __all__ = [
     "SpatialUpscaler",
@@ -12,4 +19,9 @@ __all__ = [
     "group_norm_video",
     "init_spatial_upscaler_",
     "spatial_upscaler_apply",
+    "TemporalUpscaler",
+    "TemporalUpscalerConfig",
+    "group_norm_per_frame",
+    "init_temporal_upscaler_",
+    "temporal_upscaler_apply",
 ]

@@ -23,8 +23,9 @@ source with nvcc into `ltx2_tpu_torch/_build/` on first use and loaded with
 ctypes (`ops/_build.py`, shared with the conv kernel). Each wrapper counts its
 launches in its `launches` attribute; the forward also counts those with a
 key-valid mask in `flash_attention.key_valid_launches`, each head dim's in
-`flash_attention.launches_by_head_dim` and each batch size's in
-`flash_attention.launches_by_batch`; the backward each head dim's in
+`flash_attention.launches_by_head_dim`, each batch size's in
+`flash_attention.launches_by_batch` and each (query, key) length pair's in
+`flash_attention.launches_by_length`; the backward each head dim's in
 `flash_attention_bwd_kernel.launches_by_head_dim`.
 
 `sdpa` sends a call to the kernels or to plain torch ops by contract alone
@@ -226,6 +227,8 @@ def _launch_fwd(q, k, v, scale, kv_valid, residuals: bool):
     flash_attention.launches += 1
     flash_attention.launches_by_head_dim[d] = flash_attention.launches_by_head_dim.get(d, 0) + 1
     flash_attention.launches_by_batch[b] = flash_attention.launches_by_batch.get(b, 0) + 1
+    lengths = (t_q, k.shape[2])
+    flash_attention.launches_by_length[lengths] = flash_attention.launches_by_length.get(lengths, 0) + 1
     if kv_valid is not None:
         flash_attention.key_valid_launches += 1
     return out, l, m
@@ -364,6 +367,7 @@ flash_attention.launches = 0
 flash_attention.key_valid_launches = 0  # the launches with a key-valid mask, counted in `launches` too
 flash_attention.launches_by_head_dim = {}  # {64: n, 128: n}, counted in `launches` too
 flash_attention.launches_by_batch = {}  # {batch size: n}, counted in `launches` too
+flash_attention.launches_by_length = {}  # {(query tokens, key tokens): n}, counted in `launches` too
 
 
 def mask_kind(mask: Optional[torch.Tensor]) -> Optional[str]:

@@ -7,9 +7,10 @@ its latent frame) -> Gaussian noise -> LTX2Scheduler sigmas (the fixed
 -> the denoise loop with CFG* when `rescale_scale` > 0, else classic CFG
 (or `guider_override`), the guidance rows on the batch axis (two, three
 with STG), Euler or Heun steps, per-token timesteps when an image
-conditions the mask -> clear and un-patchify -> an optional
-post-hoc spatial upscale in the un-normalize / re-normalize bracket -> the
-VAE decode (tiled above 4000 latent voxels).
+conditions the mask -> clear and un-patchify -> optional post-hoc
+upscales, spatial (2x H and W) before temporal (F latent frames -> 2F - 1),
+each in its un-normalize / re-normalize bracket -> the VAE decode (tiled
+above 4000 latent voxels).
 
 With an audio-video DiT the audio stream denoises beside the video in the
 joint loop (whether or not it is decoded, unless `use_internal_audio_branch`
@@ -28,9 +29,8 @@ STG (`stg_scale`, `stg_blocks`, `stg_cutoff`, `stg_mode`), a
 cross-attention scale, `cache_text_kv`, and in the config `cfg_interval`
 (guidance reuse) and `token_bucket` (the token count padded up to a
 multiple of it, the padding masked out of self-attention's keys, sliced
-off after the loop; video only, as in the JAX package). Not ported (each
-raises NotImplementedError naming itself): the temporal upscaler and every
-mesh.
+off after the loop; video only, as in the JAX package). Not ported (it
+raises NotImplementedError naming itself): every mesh.
 """
 
 from __future__ import annotations
@@ -152,9 +152,9 @@ class OneStagePipeline:
         `audio_noise`: the patchified (1, tokens, C) initial noise, drawn
         from the seeds when not given. `callback(phase, latent)` runs after
         "image_encode" (with images), "denoise", with a spatial upscaler
-        "upscale", and with audio "audio_decode"."""
-        if temporal_upscaler is not None:
-            raise NotImplementedError("not ported to the one-stage pipeline: the temporal upscaler")
+        "upscale", with a temporal one "upscale_temporal", and with audio
+        "audio_decode". Each upscaler maps a (B, C, F, H, W) latent to its
+        upscaled latent (`temporal_upscaler_apply` bound to its module)."""
         audio = self.is_av_model and (config.use_internal_audio_branch or config.audio_enabled)
         if (config.audio_enabled or audio) and (positive_audio_encoding is None or negative_audio_encoding is None):
             raise ValueError("Audio encoding required for AudioVideo generation. Provide positive_audio_encoding "
@@ -218,14 +218,19 @@ class OneStagePipeline:
         if callback:
             callback("denoise", latent)
 
-        if spatial_upscaler is not None:
+        # Post-hoc upscaling, spatial before temporal, each in its own
+        # un-normalize / re-normalize bracket (the normalized latent itself
+        # without the decoder's statistics, as the reference).
+        for phase, upscaler in (("upscale", spatial_upscaler), ("upscale_temporal", temporal_upscaler)):
+            if upscaler is None:
+                continue
             if self.video_decoder is None:
-                latent = spatial_upscaler(latent)  # no statistics: the normalized latent, as the reference
+                latent = upscaler(latent)
             else:
                 stats = self.video_decoder.per_channel_statistics
-                latent = normalize_latent(spatial_upscaler(un_normalize_latent(latent, stats)), stats)
+                latent = normalize_latent(upscaler(un_normalize_latent(latent, stats)), stats)
             if callback:
-                callback("upscale", latent)
+                callback(phase, latent)
         if skip_decode:
             return latent, audio_latent
         if self.video_decoder is None:

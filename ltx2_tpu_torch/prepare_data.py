@@ -95,7 +95,7 @@ def load_clips(args) -> List[np.ndarray]:
         return [load_image_tensor(str(q), args.height, args.width).numpy() for q in paths]
     if args.videos:
         raise NotImplementedError("prepare_data --videos is not ported yet: it needs the video_io video readers "
-                                  "(.gif/.webp/.apng/.y4m/.avi/.mp4), ROADMAP.md §1 item 5")
+                                  "(.gif/.webp/.apng/.y4m/.avi/.mp4), ROADMAP.md §1, \"The video readers\"")
     return []
 
 

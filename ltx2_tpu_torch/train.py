@@ -369,7 +369,7 @@ def _check_args(args) -> None:
     for flag in MESH_FLAGS:
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported: the port trains on one device "
-                                      "(ROADMAP.md §1 item 6)")
+                                      "(ROADMAP.md §1, \"Scale-out\")")
     if args.grad_clip < 0:
         raise SystemExit("--grad-clip must be >= 0 (0 disables clipping)")
     if args.ema_decay and not 0.0 < args.ema_decay < 1.0:

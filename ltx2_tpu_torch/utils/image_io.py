@@ -104,8 +104,10 @@ def read_png(path: str) -> np.ndarray:
     with open(path, "rb") as fh:
         data = fh.read()
     if not data.startswith(PNG_SIGNATURE):
-        raise ValueError(f"Unsupported image format: {_sniff(data[:16])} ({path}); supported: 8-bit PNG "
-                         f"(L, RGB, RGBA)")
+        kind = _sniff(data[:16])
+        todo = (" (the baseline JPEG decoder comes with ROADMAP.md §1, \"The video readers\")"
+                if kind == "JPEG" else "")
+        raise ValueError(f"Unsupported image format: {kind} ({path}); supported: 8-bit PNG (L, RGB, RGBA){todo}")
     header, idat = None, []
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":

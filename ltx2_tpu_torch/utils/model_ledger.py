@@ -3,8 +3,8 @@ ltx2_tpu/utils/model_ledger.py).
 
 One object loads and caches the transformer, the video encoder and
 decoder, the audio encoder and decoder and the vocoder, the text encoder,
-Gemma and the spatial upscaler from a unified checkpoint (and the
-Gemma shards and upscaler file beside it), with LoRAs fused into the
+Gemma and the spatial and temporal upscalers from a unified checkpoint (and
+the Gemma shards and upscaler files beside it), with LoRAs fused into the
 transformer at load, per-component release and a `with_loras` view. Each
 component is the port's module, on `device`, with its config on it. The
 architectures are read off the files (their shapes and metadata), where the
@@ -12,8 +12,9 @@ JAX package assumes the published widths. A V2 (LTX-2.3) checkpoint gives
 the V2 DiT (cross-attention AdaLN, gated attention, no caption projection)
 and the V2 text encoder; `include_audio` gives the audio-video DiT, and the
 vocoder is LTX-2.3's BWE chain when the metadata's `vocoder` config has a
-`bwe` entry, as the JAX ledger chooses. Unported components (int8, the
-temporal upscaler) raise NotImplementedError naming their ROADMAP.md items.
+`bwe` entry, as the JAX ledger chooses. With `int8` the DiT's matmul
+weights are int8 W8A8 (loader/int8.py): quantized on the host at load, or,
+with LoRAs, loaded in full precision, fused, then quantized on the card.
 """
 
 from __future__ import annotations
@@ -22,10 +23,9 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 from ltx2_tpu_torch.core import resolve_device
+from ltx2_tpu_torch.loader.int8 import quantize_params_int8
 from ltx2_tpu_torch.loader.lora import LoRAConfig, fuse_lora_into_params
-from ltx2_tpu_torch.loader.weight_loader import (
-    INT8_NOT_PORTED, is_v2_model, load_transformer_params, read_checkpoint_config,
-)
+from ltx2_tpu_torch.loader.weight_loader import is_v2_model, load_transformer_params, read_checkpoint_config
 
 
 @dataclass
@@ -35,11 +35,12 @@ class ModelLedger:
     checkpoint_path: str
     gemma_path: Optional[str] = None
     spatial_upscaler_path: Optional[str] = None
+    temporal_upscaler_path: Optional[str] = None
     loras: List[LoRAConfig] = field(default_factory=list)
     target_dtype: str = "bfloat16"
     include_audio: bool = False
     keep_fp8: bool = False  # serving: the file's fp8 weights stay E4M3 on the card
-    int8: bool = False
+    int8: bool = False  # the DiT's matmul weights int8 W8A8
     gemma_fp8: bool = False  # Gemma's matmul weights quantized to fp8 at load
     decoder_dtype: str = "float32"  # the video decoder's compute dtype (the JAX package's is fp32)
     device: object = None  # default cuda
@@ -47,8 +48,6 @@ class ModelLedger:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        if self.int8:
-            raise NotImplementedError(INT8_NOT_PORTED)
 
     def _get(self, name: str, loader, force_reload: bool = False):
         if force_reload or name not in self._cache:
@@ -68,14 +67,18 @@ class ModelLedger:
         projections; V2: cross-attention AdaLN and gated attention, no
         caption projection; SPLIT RoPE on the f32 grid, no remat) in
         `target_dtype`, LoRAs fused at load. LoRAs need dequantized weights,
-        so with LoRAs the fp8 weights are dequantized even under `keep_fp8`."""
+        so with LoRAs the fp8 weights are dequantized even under `keep_fp8`;
+        `int8` quantizes at load without LoRAs, else after the fuse."""
 
         def load():
             model = load_transformer_params(self.checkpoint_path, target_dtype=self.target_dtype,
                                             device=self.device, keep_fp8=self.keep_fp8 and not self.loras,
+                                            quantize_int8=self.int8 and not self.loras,
                                             include_audio=self.include_audio)
             if self.loras:
                 fuse_lora_into_params(model, self.loras)
+                if self.int8:
+                    quantize_params_int8(model)
             return model
 
         return self._get("transformer", load, force_reload)
@@ -173,7 +176,16 @@ class ModelLedger:
         return self._get("vocoder", load, force_reload)
 
     def temporal_upscaler(self, force_reload: bool = False):
-        raise NotImplementedError("the temporal upscaler is not ported yet: ROADMAP.md §1 item 5")
+        """The temporal upscaler, fp32, or None without `temporal_upscaler_path`."""
+
+        def load():
+            from ltx2_tpu_torch.models.upscaler.temporal import load_temporal_upscaler_params
+
+            if self.temporal_upscaler_path is None:
+                return None
+            return load_temporal_upscaler_params(self.temporal_upscaler_path, device=self.device)
+
+        return self._get("temporal_upscaler", load, force_reload)
 
     def clear_model(self, model_name: str) -> None:
         self._cache.pop(model_name, None)
@@ -186,7 +198,8 @@ class ModelLedger:
         setting carried over, the LoRA-independent components shared."""
         return ModelLedger(
             checkpoint_path=self.checkpoint_path, gemma_path=self.gemma_path,
-            spatial_upscaler_path=self.spatial_upscaler_path, loras=list(loras), target_dtype=self.target_dtype,
+            spatial_upscaler_path=self.spatial_upscaler_path, temporal_upscaler_path=self.temporal_upscaler_path,
+            loras=list(loras), target_dtype=self.target_dtype,
             include_audio=self.include_audio, keep_fp8=self.keep_fp8, int8=self.int8, gemma_fp8=self.gemma_fp8,
             decoder_dtype=self.decoder_dtype,
             device=self.device, _cache={k: v for k, v in self._cache.items() if k != "transformer"},

@@ -51,6 +51,9 @@ from ltx2_tpu_torch.pipelines import a2vid_two_stage, distilled
 from ltx2_tpu_torch.utils import video_io
 from ltx2_tpu_torch.utils.model_ledger import ModelLedger
 from tests.torch_port_util import assert_bitwise, assert_close, random_tree, stacked_dit_tree, t
+from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 # A small encoder at the pipelines' audio geometry below: 4 latent channels
 # x 4 mel bins from a stereo 16-mel analysis.

@@ -36,6 +36,9 @@ from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoder, VideoDecoderCo
 from ltx2_tpu_torch.utils import video_io
 from ltx2_tpu_torch.utils.model_ledger import ModelLedger
 from tests.torch_port_util import CFG, assert_bitwise, jax_leaves, port_leaves
+from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 BLOCKS = [["res_x", {"num_layers": 1}], ["compress_all", {"multiplier": 2, "residual": True}],
           ["res_x", {"num_layers": 1}], ["compress_all", {"multiplier": 2, "residual": True}],

@@ -16,6 +16,9 @@ from ltx2_tpu.models import audio_vae as jaudio
 from ltx2_tpu_torch.loader.from_numpy import audio_decoder_from_numpy, vocoder_from_numpy
 from ltx2_tpu_torch.models import audio_vae
 from tests.torch_port_util import random_tree
+from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 TOL_RMS_REL = 1e-5
 

@@ -47,6 +47,9 @@ from ltx2_tpu_torch.pipelines import distilled, one_stage
 from ltx2_tpu_torch.pipelines.common import decode_audio
 from ltx2_tpu_torch.pipelines.denoise import DenoiseLoopConfig, make_av_denoise_loop
 from tests.torch_port_util import assert_close, make_guiders, random_tree, stacked_dit_tree, t
+from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 # The small AV DiT: 2 layers; video 2 heads x 32, audio 2 heads x 16; 16
 # latent channels each (audio: 4 channels x 4 mel bins).

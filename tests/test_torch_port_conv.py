@@ -22,6 +22,9 @@ from ltx2_tpu.models.video_vae import conv as jconv
 from ltx2_tpu_torch.models.video_vae import conv
 from ltx2_tpu_torch.ops import conv3d as C
 from tests.torch_port_util import assert_close, t
+from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 # (name, x shape (B, T, H, W, Cin), Cout, causal, spatial mode, temporal mode)
 CASES = [

@@ -34,6 +34,9 @@ from ltx2_tpu_torch.pipelines import denoise
 from ltx2_tpu_torch.pipelines.denoise import DenoiseLoopConfig, make_video_denoise_loop
 from ltx2_tpu_torch.types import VideoLatentShape, VideoPixelShape
 from tests.torch_port_util import CFG, JCFG, assert_bitwise, assert_close, make_guiders, numpy_tree, t
+from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 SIGMAS = np.array([1.0, 0.909375, 0.421875, 0.0], np.float32)  # 3 steps, down to 0
 SHAPE = (1, 16, 2, 2, 3)

@@ -40,6 +40,9 @@ from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoderConfig, video_de
 from ltx2_tpu_torch.pipelines.common import ImageCondition, decode_video
 from ltx2_tpu_torch.pipelines.distilled import DistilledConfig, DistilledPipeline
 from tests.torch_port_util import CFG, JCFG, assert_close, numpy_tree, t, write_png
+from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 JDCFG = jdecoder.VideoDecoderConfig(base_channels=16, latent_channels=16, compute_dtype="float32",
                                     decode_noise_scale=0.0)

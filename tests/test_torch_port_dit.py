@@ -24,6 +24,9 @@ from ltx2_tpu.types import VideoLatentShape as JShape
 from ltx2_tpu_torch.loader.from_numpy import dit_from_numpy
 from ltx2_tpu_torch.models.transformer import attention, blocks, model
 from tests.torch_port_util import CFG, JCFG, assert_close, force_flash_route, numpy_tree, t
+from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 RNG = np.random.default_rng(1)
 

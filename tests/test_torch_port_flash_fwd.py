@@ -22,6 +22,9 @@ from ltx2_tpu.ops import attention as jattn
 from ltx2_tpu.parallel.ring_attention import _dense_block_residuals
 from ltx2_tpu_torch.ops import attention
 from tests.torch_port_util import assert_close, t
+from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 RNG = np.random.default_rng(11)
 MASKED = -0.7 * np.finfo(np.float32).max

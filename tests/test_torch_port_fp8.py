@@ -3,7 +3,7 @@
 bit), the bench-e2e DiT built block by block in fp8 (the same as the bf16
 model quantized), and `linear` with a `weight_scale` (the dequantized
 weight bit for bit in fp32 and bf16, outputs at 1e-5 / 1e-2 of max|y|,
-runtime LoRA on an fp8 linear, the int8 refusal).
+runtime LoRA on an fp8 linear, int8 quantization of an fp8 linear refused).
 """
 
 import dataclasses
@@ -16,15 +16,20 @@ import pytest
 import torch
 
 from ltx2_tpu.loader import fp8 as jfp8
+from ltx2_tpu.loader import int8 as jint8
 from ltx2_tpu.models.transformer import model as jmodel
 from ltx2_tpu.ops import common as jcommon
 from ltx2_tpu_torch.generate import make_dit
 from ltx2_tpu_torch.loader import fp8
 from ltx2_tpu_torch.loader.from_numpy import dit_from_numpy
+from ltx2_tpu_torch.loader.int8 import quantize_params_int8
 from ltx2_tpu_torch.ops.common import Linear, linear
 from tests.torch_port_util import (
     CFG, JCFG, assert_bitwise, assert_close, assert_module_matches_tree, numpy_tree, port_leaves,
 )
+from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 
 @pytest.mark.parametrize("scale", [1.0, 1e-3, 300.0])
@@ -126,9 +131,12 @@ def test_linear_fp8_with_runtime_lora_and_int8_refusal():
     p.update(lora_A=jnp.asarray(a), lora_B=jnp.asarray(b), lora_scale=jnp.asarray(0.5, jnp.float32))
     x = rng.standard_normal((3, 80)).astype(np.float32)
     assert_close(linear(lin, torch.from_numpy(x)), np.asarray(jcommon.linear(p, jnp.asarray(x))), rtol=1e-5)
-    lin.register_buffer("weight_cscale", torch.ones(48))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        linear(lin, torch.from_numpy(x))
+    # int8 re-quantizes from full-precision weights: an fp8 linear is
+    # refused, as the JAX package refuses an fp8-kept tree.
+    with pytest.raises(ValueError, match="already quantized"):
+        quantize_params_int8(lin)
+    with pytest.raises(ValueError, match="fp8-kept"):
+        jint8.quantize_params_int8(p)
 
 
 def test_e4m3_table_matches_ml_dtypes():

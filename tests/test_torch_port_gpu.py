@@ -4,7 +4,9 @@ PyTorch versions (the backward also at head dim 64 on the audio-video
 training shapes), the fp32 text encoder (Gemma-3 at full width, 2 layers,
 and the V1 encoder; also with Gemma in fp8), the fp32 video encoder (a
 reduced plan) and the published audio encoder with its mel analysis
-against the same modules on the CPU, a full-width DiT block loaded kept in
+and the temporal upscaler (a reduced width) against the same modules on
+the CPU, the int8 W8A8 product's torch._int_mm route against its plain
+int32 route, a full-width DiT block loaded kept in
 fp8 onto the card, and a full-width V2 (LTX-2.3) forward, an audio-video
 forward and the two-stage CFG pipeline's 3-row multi-modal loop through
 the kernels against plain attention, on the card.
@@ -517,3 +519,49 @@ def test_audio_encoder_matches_cpu_on_gpu():
     want = waveform_to_latent(wave, cpu, AudioAnalysisConfig(), 25)
     assert got.shape == (1, 8, 25, 16) and torch.isfinite(got).all()
     assert (got - want).square().mean().sqrt() <= 1e-5 * want.square().mean().sqrt()
+
+
+@pytest.mark.gpu
+def test_int_mm_route_matches_the_plain_int32_route_on_gpu():
+    """torch._int_mm (the int8 W8A8 product on the card) bit for bit the
+    plain int32 route on the same codes, at the DiT's widths (4096 and
+    16384) and the audio stream's 126 tokens; a shape outside its contract
+    raises and names itself, nothing falls back."""
+    _need_card()
+    from ltx2_tpu_torch.loader.int8 import quantize_tensor_int8, set_int8_weight_
+    from ltx2_tpu_torch.ops.common import (
+        Linear, int8_matmul, int8_matmul_plain, linear, quantize_activations_int8, w8a8_matmul,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for rows, k, n in ((6144, 4096, 4096), (126, 2048, 8192), (1024, 16384, 4096)):
+        x = torch.randn(rows, k, device="cuda", generator=gen).bfloat16()
+        w_q, cscale = quantize_tensor_int8(torch.randn(n, k, device="cuda", generator=gen) * k ** -0.5)
+        x_q, xscale = quantize_activations_int8(x)
+        assert torch.equal(int8_matmul(x_q, w_q), int8_matmul_plain(x_q, w_q)), (rows, k, n)
+        y = w8a8_matmul(x, w_q, cscale)
+        ref = (int8_matmul_plain(x_q, w_q).float() * xscale * cscale).bfloat16()
+        assert y.dtype == torch.bfloat16 and torch.equal(y, ref)
+    for rows, k, n in ((16, 4096, 4096), (64, 4100, 4096), (64, 4096, 4100)):
+        with pytest.raises(ValueError, match="_int_mm"):
+            int8_matmul(torch.zeros(rows, k, dtype=torch.int8, device="cuda"),
+                        torch.zeros(n, k, dtype=torch.int8, device="cuda"))
+    lin = set_int8_weight_(Linear(w_q.shape[1], w_q.shape[0], bias=False, device="cuda"), w_q, cscale)
+    assert torch.equal(linear(lin, x), y)
+
+
+@pytest.mark.gpu
+def test_temporal_upscaler_matches_cpu_on_gpu():
+    """The temporal upscaler at a reduced width (hidden 64, 1 + 1 blocks,
+    8 groups) on the card against the CPU, through the fp32 conv kernel."""
+    _need_card()
+    from ltx2_tpu_torch.models.upscaler.card_check import temporal_upscaler_against_cpu
+    from ltx2_tpu_torch.models.upscaler.temporal import (
+        TemporalUpscaler, TemporalUpscalerConfig, init_temporal_upscaler_,
+    )
+
+    cfg = TemporalUpscalerConfig(hidden_channels=64, num_res_blocks=1, num_groups=8)
+    up = init_temporal_upscaler_(TemporalUpscaler(cfg, device="cuda"), torch.Generator(device="cuda").manual_seed(1))
+    latent = torch.randn(1, 128, 3, 4, 6, generator=torch.Generator().manual_seed(2))
+    rec = temporal_upscaler_against_cpu(up, latent)
+    assert rec["ok"] and rec["out_shape"] == [1, 128, 5, 4, 6], rec

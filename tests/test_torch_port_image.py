@@ -73,6 +73,9 @@ from ltx2_tpu_torch.utils.model_ledger import ModelLedger
 from tests.torch_port_util import (
     CFG, JCFG, assert_close, assert_module_matches_tree, numpy_tree, random_tree, t, write_png,
 )
+from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 # scripts/generate.py's placeholder encoder: every stride kind at 16-32 channels.
 PLAN = (("res", 16, 1, None), ("down", 16, 16, (1, 2, 2)), ("res", 16, 1, None), ("down", 16, 16, (2, 1, 1)),

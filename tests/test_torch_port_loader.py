@@ -38,6 +38,9 @@ from ltx2_tpu_torch.training.lora import add_lora_params_, export_lora_checkpoin
 from tests.torch_port_util import (
     CFG, JCFG, assert_bitwise, assert_close, assert_module_matches_tree, bits, jax_leaves, numpy_tree, port_leaves, t,
 )
+from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 JCFG_CAP = dataclasses.replace(JCFG, caption_channels=64)
 CFG_CAP = dataclasses.replace(CFG, caption_channels=64, remat=False)
@@ -218,8 +221,8 @@ def test_loader_refusals(files, tmp_path):
                           metadata={"model_version": "2.3.0"})
     with pytest.raises(KeyError):  # V2 is read now: this file lacks the DiT's tensors
         weight_loader.load_transformer_params(v2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        weight_loader.load_transformer_params(files["f32"], quantize_int8=True, device="cpu")
+    with pytest.raises(ValueError, match="mutually exclusive"):  # as the JAX loader (weight_loader.py:147)
+        weight_loader.load_transformer_params(files["f32"], keep_fp8=True, quantize_int8=True, device="cpu")
     with pytest.raises(ValueError, match="no audio stream"):  # a video-only file
         weight_loader.load_transformer_params(files["f32"], include_audio=True, device="cpu")
     f = jst.SafetensorsFile(files["fp8"])

@@ -28,6 +28,9 @@ from ltx2_tpu_torch.components.guiders import CFGGuider, StatefulAPGGuider
 from ltx2_tpu_torch.loader.from_numpy import dit_from_numpy
 from ltx2_tpu_torch.pipelines.denoise import DenoiseLoopConfig, make_video_denoise_loop
 from tests.torch_port_util import CFG, assert_close, run_loops, stacked_dit_tree
+from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 OFF = ("CFGGuider", {"scale": 1.0})
 CFG3 = ("CFGGuider", {"scale": 3.0})

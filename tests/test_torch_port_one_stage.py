@@ -16,9 +16,8 @@ initial noise:
   override, GE, Heun, the cross-attention scale, text-KV caching) through
   the pipeline against the JAX package's, the latent to 1e-4; STG on the
   audio stream raises ValueError on this video-only pipeline, and each
-  unported option (the temporal upscaler, meshes, int8, prepare_data's
-  --videos, the training mesh flags) raises NotImplementedError naming
-  itself;
+  unported option (meshes, prepare_data's --videos, the training mesh
+  flags) raises NotImplementedError naming itself;
 - `generate.main(["--pipeline", "one-stage", "--image", ...])` from a tiny
   checkpoint against `generate_videos_one_stage` on the same ledger, and
   `--pipeline text-to-video`; with `--token-shift` its config and sigmas
@@ -74,6 +73,9 @@ from ltx2_tpu_torch.pipelines.text_to_video import TextToVideoConfig, TextToVide
 from ltx2_tpu_torch.types import VideoLatentShape
 from ltx2_tpu_torch.utils.model_ledger import ModelLedger
 from tests.torch_port_util import CFG, JCFG, assert_close, make_guiders, numpy_tree, random_tree, t, write_png
+from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 PLAN = (("res", 16, 1, None), ("down", 16, 16, (1, 2, 2)), ("res", 16, 1, None), ("down", 16, 16, (2, 1, 1)),
         ("res", 16, 1, None), ("down", 16, 32, (2, 2, 2)), ("res", 32, 1, None), ("down", 32, 32, (2, 2, 2)),
@@ -213,11 +215,9 @@ UNPORTED = {
         ["--videos", "clips", "--context-dim", "8", "--device", "cpu"])),
     "train_mesh_flags": ("one device", lambda p, c, x: train.main(
         ["--placeholder", "--device", "cpu", "--synthetic", "1", "2", "2", "--zero1"])),
-    "temporal_upscaler": ("temporal upscaler", lambda p, c, x: p(x, x, c, temporal_upscaler=lambda z: z)),
     "meshes": ("meshes", lambda p, c, x: OneStagePipeline(p.transformer, sequence_mesh=object())),
     "multimodal_loop_meshes": ("parallelism", lambda p, c, x: make_multimodal_av_denoise_loop(
         p.transformer.cfg, MultiModalLoopConfig(), mesh=object())),
-    "ledger_int8": ("int8", lambda p, c, x: ModelLedger("unread.safetensors", device="cpu", int8=True)),
 }
 
 

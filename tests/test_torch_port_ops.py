@@ -23,6 +23,9 @@ from ltx2_tpu.ops import timestep_embedding as jts
 from ltx2_tpu_torch import core
 from ltx2_tpu_torch.ops import attention, common, rope, timestep_embedding
 from tests.torch_port_util import assert_close, t
+from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 RNG = np.random.default_rng(0)
 

@@ -39,6 +39,9 @@ from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoder, VideoDecoderCo
 from ltx2_tpu_torch.pipelines.distilled import DistilledPipeline
 from ltx2_tpu_torch.utils import video_io
 from tests.torch_port_util import CFG, write_tokenizer
+from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 transformers = pytest.importorskip("transformers")
 

@@ -40,6 +40,9 @@ from ltx2_tpu_torch.generate import generate_video, generate_videos
 from ltx2_tpu_torch.loader.from_numpy import dit_from_numpy, video_decoder_from_numpy
 from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoderConfig
 from tests.torch_port_util import CFG, JCFG, numpy_tree, t
+from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 ROOT = Path(__file__).resolve().parent.parent
 FRAMES, HEIGHT, WIDTH, STEPS = 65, 64, 64, 3  # 9 latent frames: the decode runs in 2 chunks of <= 7

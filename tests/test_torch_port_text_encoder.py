@@ -44,6 +44,9 @@ from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscalerConfig
 from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoderConfig
 from ltx2_tpu_torch.ops import attention, rope
 from tests.torch_port_util import CFG, JCFG, assert_close, numpy_tree, t
+from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 RNG = np.random.default_rng(11)
 JGCFG, GCFG = jgemma.Gemma3Config.tiny(), gemma3.Gemma3Config.tiny()

@@ -12,7 +12,8 @@ scale in the port's video denoise loop, against the JAX package on the CPU:
   reduce over all tokens), and a bucket on the grid adds no mask;
 - `bucketed_tokens`, `pad_state_tokens`, `slice_state_tokens`,
   `_perturbation_mask_array` and `precompute_text_kv` against the JAX
-  package's; cached K/V refuse unfused runtime LoRA and int8;
+  package's; cached K/V refuse unfused runtime LoRA and serve int8 weights
+  dequantized per out-channel, as the JAX package's cache does;
 - in bf16 on the flash kernels' route (their plain versions, `kv_valid`
   from the token mask) against the JAX package's bf16 loop, to 2e-2 of
   max|latent| (bf16 rounding through 3 steps of 2 blocks; the JAX package
@@ -37,6 +38,7 @@ from ltx2_tpu_torch.components.guiders import CFGGuider
 from ltx2_tpu_torch.loader import fp8
 from ltx2_tpu_torch.loader.from_numpy import dit_from_numpy
 from ltx2_tpu_torch.models.transformer import model
+from ltx2_tpu_torch.loader.int8 import set_int8_weight_
 from ltx2_tpu_torch.ops import attention
 from ltx2_tpu_torch.ops.common import Linear
 from ltx2_tpu_torch.pipelines import common
@@ -45,6 +47,9 @@ from ltx2_tpu_torch.types import LatentState
 from tests.torch_port_util import (
     CFG, JCFG, assert_bitwise, assert_close, force_flash_route, run_loops, stacked_dit_tree, t,
 )
+from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 CFG3 = ("CFGGuider", {"scale": 3.0})
 STAR = ("CFGStarRescalingGuider", {"scale": 3.0})
@@ -168,10 +173,17 @@ def test_cached_kv_refuses_runtime_lora_and_int8(tree):
     ctx = torch.zeros(1, 16, 256)
     with pytest.raises(ValueError, match="fuse the LoRA first"):
         loop(port, state, t([1.0, 0.0]), ctx, ctx)
-    linear = Linear(4, 4)
-    linear.register_buffer("weight_cscale", torch.ones(4))
-    with pytest.raises(NotImplementedError, match="int8"):
-        model._stacked_linear([linear], torch.zeros(1, 2, 4))
+    # int8 weights are served since the int8 W8A8 port: the cached K/V
+    # dequantize them per out-channel for a plain product, as the JAX
+    # package's _stacked_linear does (not the step's W8A8 route).
+    rng = np.random.default_rng(3)
+    codes = rng.integers(-127, 128, (4, 4)).astype(np.int8)
+    cscale, x = rng.uniform(0.01, 0.02, 4).astype(np.float32), rng.standard_normal((1, 2, 4)).astype(np.float32)
+    linear = Linear(4, 4, bias=False)
+    set_int8_weight_(linear, torch.from_numpy(codes), torch.from_numpy(cscale))
+    ref = jmodel._stacked_linear({"weight": jnp.asarray(codes)[None], "weight_cscale": jnp.asarray(cscale)[None]},
+                                 jnp.asarray(x))
+    assert_close(model._stacked_linear([linear], t(x)), ref, rtol=1e-6, msg="int8 cached K/V")
 
 
 def test_bucketed_loop_bf16_flash_route_matches_jax(tree, monkeypatch):

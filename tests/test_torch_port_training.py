@@ -28,6 +28,9 @@ from ltx2_tpu_torch.models.transformer import model
 from ltx2_tpu_torch.ops import common, rope
 from ltx2_tpu_torch.training import lora, trainer
 from tests.torch_port_util import CFG, JCFG, assert_close, force_flash_route, numpy_tree, t
+from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 RANK, ALPHA = 4, 8.0
 ADAPTER_LEAVES = ("lora_A", "lora_B")

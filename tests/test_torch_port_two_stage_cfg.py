@@ -56,6 +56,9 @@ from ltx2_tpu_torch.pipelines import denoise, two_stage
 from tests.torch_port_util import (
     CFG, assert_bitwise, assert_close, jax_leaves, port_leaves, random_tree, stacked_dit_tree, t,
 )
+from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 # The small AV DiT: 2 layers; video 2 heads x 32, audio 2 heads x 16; 16
 # latent channels each (audio: 4 channels x 4 mel bins); V1 caption

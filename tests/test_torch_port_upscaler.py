@@ -20,6 +20,9 @@ from ltx2_tpu_torch.models.upscaler import spatial
 from ltx2_tpu_torch.models.video_vae import ops
 from ltx2_tpu_torch.models.video_vae.decoder import PerChannelStatistics
 from tests.torch_port_util import assert_close, numpy_tree, t
+from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 JCFG = jspatial.SpatialUpscalerConfig(in_channels=16, mid_channels=16, num_blocks_per_stage=1, num_groups=4)
 CFG = spatial.SpatialUpscalerConfig(in_channels=16, mid_channels=16, num_blocks_per_stage=1, num_groups=4)

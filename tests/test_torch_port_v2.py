@@ -67,6 +67,9 @@ from ltx2_tpu_torch.utils.model_ledger import ModelLedger
 from tests.torch_port_util import (
     CFG, JCFG, assert_close, assert_module_matches_tree, random_tree, run_loops, stacked_dit_tree, t,
 )
+from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 JV2 = dataclasses.replace(JCFG, cross_attention_adaln=True, apply_gated_attention=True)
 V2 = dataclasses.replace(CFG, cross_attention_adaln=True, apply_gated_attention=True, remat=False)

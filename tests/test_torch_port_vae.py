@@ -20,6 +20,9 @@ from ltx2_tpu.models.video_vae import decoder as jdecoder
 from ltx2_tpu_torch.loader.from_numpy import video_decoder_from_numpy
 from ltx2_tpu_torch.models.video_vae import chunking, conv, decoder
 from tests.torch_port_util import assert_close, numpy_tree, t
+from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 JCFG = jdecoder.VideoDecoderConfig(base_channels=16, latent_channels=16, compute_dtype="float32")
 CFG = decoder.VideoDecoderConfig(base_channels=16, latent_channels=16, compute_dtype="float32")

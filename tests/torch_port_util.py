@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from ltx2_tpu.models.transformer import model as jmodel
@@ -30,6 +31,18 @@ CFG = model.LTXModelConfig(
     num_attention_heads=2, attention_head_dim=128, in_channels=16, out_channels=16,
     num_layers=2, cross_attention_dim=256, compute_dtype="float32",
 )
+
+
+@pytest.fixture(scope="module")
+def one_intra_op_thread():
+    """torch on one intra-op thread for a module's tests, restored after.
+    The tests run in several worker processes side by side; each torch's
+    default thread pool (one thread a core) then oversubscribes the cores,
+    and its small ops spend their time waiting on one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def assert_close(port, ref, rtol: float = RTOL, msg: str = "") -> None:
