@@ -47,7 +47,11 @@ card and nvcc; it exits non-zero without them, and without the package
    per-frame 1024 -> 4096 resampler, the initial 128 -> 1024 and the final
    1024 -> 128; with causal zero/replicate padding the video encoder's
    conv_in 48 -> 128, a 512 res conv, conv_out 1024 -> 129 through the
-   module's padding to 136 outputs, and a split-K 1024 res conv; with zero
+   module's padding to 136 outputs, and a split-K 1024 res conv, and on a
+   whole 512x768x121 clip (retake's source, ic-lora's control) a 128 res
+   conv over 121 x 128 x 192 and a 512 one over 61 x 64 x 96 (their float64
+   check on the first 16 output frames, which a causal conv computes from
+   the first 16 input frames alone); with zero
    padding the temporal upscaler's five conv shapes on a 512x768x121
    latent: 128 -> 512, 512 -> 512 before and after the shuffle (16 and 31
    frames), the upsampler's 512 -> 1024 and the final 512 -> 128), within
@@ -208,6 +212,25 @@ card and nvcc; it exits non-zero without them, and without the package
    30 steps to 4, stage 2 at 3, flash launches by length; ti2vid-hq with
    the image, the Res2s stage 1 cut from 15 steps to 4 (two evaluations a
    step at batch 2), then with audio at 2 AV blocks (flash at head dim 64);
+   (h) the video readers and the flows that read a video: the committed
+   MJPEG AVI (tests/fixtures_video, 9 frames at 288x432, written by the
+   JAX package's PIL writer) decoded by the port's JPEG decoder to the
+   SHA-256 of PIL's decode recorded beside it, and through
+   `read_avi_mjpeg` at 256x384x121 to the JAX reader's; the committed
+   512x768 JPEG still likewise; host seconds a frame of the JPEG decoder
+   and of `read_y4m` on a 512x768x121 .y4m the script writes; `generate.main
+   --pipeline retake` on that source at full width and depth (window 1.0-3.0
+   s, CFG 3.0, 4 steps cut from 30): the encode of the whole clip, denoise
+   and decode seconds and peaks, flash at batch 2, and every latent token
+   outside the window bit for bit the encoder's; `generate.main --pipeline
+   ic-lora` with the AVI as the RAW control and a random rank-64 IC-LoRA on
+   the attention and feed-forward linears of the 48 blocks (written to a
+   file): fuse, control encode, stage 1 over 1536 + 1536 appended tokens,
+   unfuse, upscale, stage 2, decode, every fused weight within one bf16
+   rounding step of its draw after the unfuse; at 2 blocks the control at
+   strength 1.0 bit for bit its clean latent at stage 1's end; then
+   `prepare_data --videos` on the AVI and a short .y4m, `--images` on the
+   JPEG still, and one `train.main --data` step on the npz;
 10. backward check: at the video DiT's training shapes (head dim 128:
    self, cross, masked ragged) and the audio-video DiT's (head dim 64: the
    126 audio tokens' self-attention, audio -> video 6144 x 126, video ->
@@ -635,6 +658,11 @@ CONV_CASES = (
     ("enc_res512", (1, 1, 64, 96, 512), 512, 3, "float32", True, "zeros", "replicate"),
     ("enc_out", (1, 1, 16, 24, 1024), 129, 3, "float32", True, "zeros", "replicate"),
     ("enc_res1024_split", (1, 1, 8, 12, 1024), 1024, 3, "float32", True, "zeros", "replicate"),
+    # The same encoder on a whole 512x768x121 clip (retake's source, ic-lora's
+    # control): a 128-wide res conv over the 121 x 128 x 192 voxels of the
+    # first stage, and a 512-wide one over the 61 x 64 x 96 of the third.
+    ("enc121_res128", (1, 121, 128, 192, 128), 128, 3, "float32", True, "zeros", "replicate"),
+    ("enc121_res512", (1, 61, 64, 96, 512), 512, 3, "float32", True, "zeros", "replicate"),
     # The temporal upscaler (fp32, zero padding, non-causal) on a 512x768x121
     # latent (16 x 16 x 24): the initial 128 -> 512, a 512 res conv before
     # the shuffle, the upsampler's 512 -> 1024, a 512 res conv after it on
@@ -653,6 +681,7 @@ UPSCALER_LAUNCHES = {"upscaler_in": 1, "upscaler_lowres": 8, "resampler": 1, "up
 TEMPORAL_LAUNCHES = {"temporal_in": 1, "temporal_res": 8, "temporal_up": 1, "temporal_res_post": 8,
                      "temporal_out": 1}
 TOL_UPSCALER_CONV_TIME = 0.10  # the cases' times x launches against a traced upscaler call
+F64_FRAMES = 16  # the float64 check's output frames on a long causal clip
 
 
 def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal_mode, gen):
@@ -700,15 +729,22 @@ def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal
     planted = {"tap_dropped": _mismatch(conv3d_plain(x, dropped, bias, *args), ref),
                "scaled_1.03": _mismatch(ref.float() * 1.03, ref)}
     del dropped
+    torch.cuda.empty_cache()
     f64 = {}
     if fp32:
         # fp32 accuracy: the kernel and the fp32 plain version against the
         # plain version in float64; single-pass TF32 planted against it too.
-        ref64 = conv3d_plain(x.double(), wk.double(), bias.double(), *args)
-        f64 = {"kernel": _mismatch(out, ref64, torch.float64), "plain_fp32": _mismatch(ref, ref64, torch.float64),
-               "single_pass_tf32": _mismatch(conv3d_plain(tf32_round(x), tf32_round(wk), bias, *args), ref64,
+        # A long causal clip on its first F64_FRAMES output frames, which
+        # depend on the first F64_FRAMES input frames alone: the float64
+        # im2col of 121 x 128 x 192 voxels would take 25.5 GiB.
+        win = F64_FRAMES if causal and t > F64_FRAMES else t
+        xw = x[:, :win]
+        ref64 = conv3d_plain(xw.double(), wk.double(), bias.double(), *args)
+        f64 = {"kernel": _mismatch(out[:, :win], ref64, torch.float64),
+               "plain_fp32": _mismatch(ref[:, :win], ref64, torch.float64),
+               "single_pass_tf32": _mismatch(conv3d_plain(tf32_round(xw), tf32_round(wk), bias, *args), ref64,
                                              torch.float64)}
-        del ref64
+        del ref64, xw
         # The K ranges are summed in a fixed order: two runs agree bitwise.
         f64["bitwise_reproducible"] = bool(torch.equal(call(), out))
     del out, ref
@@ -764,7 +800,7 @@ def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal
             "ffma_bound_ms": max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3,
             "launches_a_clip": UPSCALER_LAUNCHES.get(name, TEMPORAL_LAUNCHES.get(name)),
             "f64": {k: v if isinstance(v, bool) else {"max_rel": v["max_rel_err"], "rms_rel": v["rms_rel_err"]}
-                    for k, v in f64.items()},
+                    for k, v in f64.items()}, "f64_frames": win,
             "tol_f64_max_rel": CONV_TOL_F64[0], "tol_f64_rms_rel": CONV_TOL_F64[1],
         })
     log(f"conv kernel check {name}: {json.dumps(rec)}")
@@ -2343,10 +2379,11 @@ def phase_a2vid(smi: str, dit) -> tuple:
                  "conv_bf16": counts["conv"] - upscale * len(SEEDS)}
 
 
-def _write_distilled_lora(path: str, dit, rank: int = DISTILLED_LORA_RANK) -> dict:
+def _write_distilled_lora(path: str, dit, rank: int = DISTILLED_LORA_RANK, keep=None) -> dict:
     """A random LoRA of `rank` (default 384) on every linear of every block
-    of `dit`, bf16, drawn on the card tensor by tensor and streamed to
-    `path`."""
+    of `dit` (a module, or one on `meta`: only the shapes are read), or on
+    those whose name `keep` accepts, bf16, drawn on the card tensor by
+    tensor and streamed to `path`."""
     import torch
 
     from ltx2_tpu_torch.loader.export import inverse_rewrite
@@ -2359,7 +2396,8 @@ def _write_distilled_lora(path: str, dit, rank: int = DISTILLED_LORA_RANK) -> di
         return lambda: (torch.randn(shape, generator=gen, device="cuda") * std).to(torch.bfloat16).cpu()
 
     for name, p in dit.named_parameters():
-        if name.startswith("transformer_blocks.") and name.endswith(".weight") and p.ndim == 2:
+        if (name.startswith("transformer_blocks.") and name.endswith(".weight") and p.ndim == 2
+                and (keep is None or keep(name))):
             base = "diffusion_model." + inverse_rewrite(name)[: -len(".weight")]
             out_f, in_f = p.shape
             specs.append((f"{base}.lora_A.weight", torch.bfloat16, (rank, in_f),
@@ -4558,6 +4596,399 @@ def phase_keyframe_and_hq(smi: str) -> tuple:
     return rec, counts
 
 
+# ---- the video readers, retake, ic-lora and prepare_data --videos -------------
+
+FIXTURE_DIR = "tests/fixtures_video"
+FIXTURE_AVI, FIXTURE_JPG = "pattern_288x432x9.avi", "pattern_512x768.jpg"
+RETAKE = {"steps": 4, "cfg_scale": 3.0, "start": 1.0, "end": 3.0}  # steps cut from the config's 30
+IC_LORA_RANK = 64
+IC_SMALL = {"layers": 2, "height": 256, "width": 384, "frames": 25}
+
+
+def _fixture(name: str) -> tuple:
+    """A committed fixture's path and its recorded hashes."""
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / FIXTURE_DIR / name
+    return str(path), json.loads(path.with_suffix(".json").read_text())
+
+
+def _sha256(array) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(array).tobytes()).hexdigest()
+
+
+def _write_source_y4m(path: str, frames: int, height: int, width: int, seed: int = 12) -> None:
+    """A 24 fps clip of moving sinusoids with noise, through the port's
+    `write_y4m` (C444)."""
+    import numpy as np
+
+    from ltx2_tpu_torch.utils.video_io import write_y4m
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    clip = np.empty((frames, height, width, 3), np.uint8)
+    for t in range(frames):
+        rgb = np.stack([np.sin(2 * np.pi * (xx / width + 0.01 * t)), np.cos(2 * np.pi * (yy / height - 0.008 * t)),
+                        np.sin(2 * np.pi * ((xx + yy) / (width + height) + 0.006 * t))], -1)
+        clip[t] = np.clip(128 + 100 * rgb + rng.normal(0, 6, rgb.shape), 0, 255).astype(np.uint8)
+    write_y4m(path, clip, 24.0)
+
+
+def phase_readers(smi: str, source: str) -> dict:
+    """The committed fixtures through the port's readers on the card's host:
+    the MJPEG AVI's 9 frames decoded by `decode_jpeg` (the SHA-256 of PIL's
+    decode, recorded beside the file), `read_avi_mjpeg` at 256x384x121 (the
+    JAX reader's SHA-256), the 512x768 JPEG still (PIL's SHA-256); host
+    seconds a frame of the JPEG decoder at 288x432 and 512x768 and of
+    `read_y4m` on the 512x768x121 retake source."""
+    from ltx2_tpu_torch.pipelines.common import read_image
+    from ltx2_tpu_torch.utils.jpeg import decode_jpeg
+    from ltx2_tpu_torch.utils.video_io import _avi_chunks, read_avi_mjpeg, read_y4m
+
+    import numpy as np
+
+    avi, avi_meta = _fixture(FIXTURE_AVI)
+    jpg, jpg_meta = _fixture(FIXTURE_JPG)
+    with open(avi, "rb") as fh:
+        data = fh.read()
+    payloads = [data[o:o + n] for fourcc, o, n in _avi_chunks(data) if fourcc == b"00dc"]
+    t0 = time.perf_counter()
+    frames = np.stack([decode_jpeg(p) for p in payloads])
+    jpeg_288 = (time.perf_counter() - t0) / len(payloads)
+    t0 = time.perf_counter()
+    packed = read_avi_mjpeg(avi, 256, 384, 121)
+    avi_read = time.perf_counter() - t0
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        still = read_image(jpg)
+        times.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    y4m = read_y4m(source, HEIGHT, WIDTH, FRAMES)
+    y4m_s = time.perf_counter() - t0
+    rec = {"fixture_frames": list(frames.shape),
+           "fixture_sha_equal": _sha256(frames) == avi_meta["sha256_pil_frames_uint8"],
+           "read_avi_mjpeg_256x384x121_sha_equal":
+               _sha256(packed) == avi_meta["sha256_read_avi_mjpeg_256x384x121_float32"],
+           "still_sha_equal": _sha256(still) == jpg_meta["sha256_pil_rgb_uint8"],
+           "jpeg_decode_s_per_frame": {"288x432": jpeg_288, "512x768": min(times)},
+           "read_avi_mjpeg_256x384x121_s": avi_read,
+           "read_y4m_s_per_frame_512x768": y4m_s / FRAMES, "read_y4m_shape": list(y4m.shape), "card": smi}
+    log(f"video readers (host): {json.dumps(rec)}")
+    if not (rec["fixture_sha_equal"] and rec["read_avi_mjpeg_256x384x121_sha_equal"] and rec["still_sha_equal"]):
+        raise AssertionError(f"video readers: a decode differs from the recorded SHA-256: {rec}")
+    if rec["read_y4m_shape"] != [1, 3, FRAMES, HEIGHT, WIDTH] or not np.isfinite(y4m).all():
+        raise AssertionError(f"read_y4m: {rec['read_y4m_shape']}")
+    return rec
+
+
+def phase_retake(smi: str, source: str, directory: str) -> tuple:
+    """`python -m ltx2_tpu_torch.generate --pipeline retake` at full width
+    and depth (the random 48-block bf16 DiT, the fp32 encoder, the bf16
+    decoder) on the 512x768x121 y4m source, the window 1.0-3.0 s (latent
+    frames 2-8 of 16), CFG 3.0 over 4 steps (cut from 30), to a .y4m: the
+    read, encode (the encoder's time and peak on a 121-frame clip), denoise
+    and decode seconds and peaks, flash launches by batch and length, the
+    fp32 and bf16 conv launches; every latent token outside the window bit
+    for bit the encoder's (`frozen_exact`, taken at the loop's end)."""
+    import os
+
+    import torch
+
+    from ltx2_tpu_torch import generate
+    from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoderConfig
+    from ltx2_tpu_torch.models.video_vae.decoder import conv_launches as decoder_convs
+    from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoderConfig
+    from ltx2_tpu_torch.models.video_vae.encoder import conv_launches as encoder_convs
+    from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, generate_tile_specs
+    from ltx2_tpu_torch.ops.attention import flash_attention
+    from ltx2_tpu_torch.utils.video_io import y4m_header
+
+    out = os.path.join(directory, "retake.y4m")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    _reset_flash_by()
+    flash_attention.launches_by_length = {}
+    t0 = time.perf_counter()
+    videos, stats = generate.main([
+        "--pipeline", "retake", "--video", source, "--retake-start", str(RETAKE["start"]),
+        "--retake-end", str(RETAKE["end"]), "--num-inference-steps", str(RETAKE["steps"]),
+        "--cfg-scale", str(RETAKE["cfg_scale"]), "--output", out])
+    wall = time.perf_counter() - t0
+    counts = {**_counts(), "by_batch": _flash_by("launches_by_batch"), "by_length": _flash_by_length()}
+    st = stats[0]
+    phases = ("encode", "denoise", "decode")
+    rec = {"wall_s": wall, "read_s": st["read_s"], "dit_init_s": st["dit_init_s"],
+           "seconds": {p: st[f"{p}_s"] for p in phases}, "peak_gb": {p: st[f"{p}_peak_gb"] for p in phases},
+           "denoise_step_s": st["denoise_step_s"], "encode_conv_launches": st["encode_conv_launches"],
+           "decode_conv_launches": st["decode_conv_launches"], "decode_tiles": st["decode_tiles"],
+           "frozen_exact": st["frozen_exact"], "retake_latent_frames": st["retake_latent_frames"],
+           "frames": list(videos[0].shape), "y4m_bytes": os.path.getsize(out), "launches": counts, **RETAKE,
+           "card": smi}
+    del videos
+    log(f"retake ({WIDTH}x{HEIGHT}x{FRAMES}f source, {LAYERS} layers, window {RETAKE['start']}-{RETAKE['end']} s, "
+        f"CFG {RETAKE['cfg_scale']} over {RETAKE['steps']} steps): {json.dumps(rec)}")
+    tiles = len(generate_tile_specs((1, 128, (FRAMES - 1) // 8 + 1, HEIGHT // 32, WIDTH // 32),
+                                    TilingConfig.default()))
+    enc, dec = encoder_convs(VideoEncoderConfig()), decoder_convs(VideoDecoderConfig()) * tiles
+    tokens = ((FRAMES - 1) // 8 + 1) * (HEIGHT // 32) * (WIDTH // 32)
+    want_length = {f"{tokens}x{tokens}": LAYERS * RETAKE["steps"], f"{tokens}x1024": LAYERS * RETAKE["steps"]}
+    header = len(y4m_header(WIDTH, HEIGHT, 24.0)) + FRAMES * (6 + 3 * HEIGHT * WIDTH)
+    if (not rec["frozen_exact"] or rec["retake_latent_frames"] != [2, 9] or rec["frames"] != [FRAMES, HEIGHT, WIDTH, 3]
+            or counts["by_batch"] != {2: 2 * LAYERS * RETAKE["steps"]} or counts["by_length"] != want_length
+            or rec["encode_conv_launches"] != enc or rec["decode_conv_launches"] != dec
+            or counts["conv"] != enc + dec or counts["bwd"] or rec["y4m_bytes"] != header
+            or not st["denoise_latent_finite"]):
+        raise AssertionError(f"retake: {rec}, expected the frozen tokens exact, latent frames [2, 9), flash by "
+                             f"length {want_length} at batch 2, {enc} encoder and {dec} decoder convs, "
+                             f"{header} y4m bytes")
+    return rec, {"fwd": counts["fwd"], "fwd_by_batch": counts["by_batch"], "conv_fp32": enc, "conv_bf16": dec}
+
+
+def _is_ic_lora_target(name: str) -> bool:
+    return any(f".{part}." in name for part in ("attn1", "attn2", "ff"))
+
+
+def phase_ic_lora(smi: str, directory: str) -> tuple:
+    """`python -m ltx2_tpu_torch.generate --pipeline ic-lora` at full width
+    and depth, 512x768x121: the committed MJPEG AVI as the RAW control
+    (read at 256x384, its 9 frames padded to 121 with the last), a random
+    rank-64 IC-LoRA on the attention and feed-forward linears of all 48
+    blocks written to a file, fused for stage 1 (8 steps over 1536 + 1536
+    appended tokens) and unfused after it, the fp32 upscaler, stage 2 at
+    6144 tokens on the base weights, the tiled decode: each phase's seconds
+    and peaks, flash launches by length, conv launches; after the unfuse
+    every fused weight within one bf16 rounding step of its original (drawn
+    again from make_dit's generator; every other weight equal to its draw).
+    Then at 2 blocks, 256x384x25, the pipeline with the control at strength
+    1.0: stage 1's appended control tokens bit for bit their clean latent at
+    the loop's end."""
+    import os
+
+    import torch
+
+    from ltx2_tpu_torch import generate as G
+    from ltx2_tpu_torch.loader.lora import LoRAConfig
+    from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelConfig
+    from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscalerConfig
+    from ltx2_tpu_torch.models.upscaler.spatial import conv_launches as upscaler_convs
+    from ltx2_tpu_torch.models.video_vae.decoder import PerChannelStatistics, VideoDecoderConfig
+    from ltx2_tpu_torch.models.video_vae.decoder import conv_launches as decoder_convs
+    from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoderConfig, video_encoder_apply
+    from ltx2_tpu_torch.models.video_vae.encoder import conv_launches as encoder_convs
+    from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, generate_tile_specs
+    from ltx2_tpu_torch.ops.attention import flash_attention
+    from ltx2_tpu_torch.pipelines import ic_lora
+    from ltx2_tpu_torch.pipelines import retake as retake_module
+
+    control, _ = _fixture(FIXTURE_AVI)
+    lora_path = os.path.join(directory, "ic_lora.safetensors")
+    t0 = time.perf_counter()
+    lora_info = _write_distilled_lora(lora_path, LTXModel(LTXModelConfig(), device="meta"), rank=IC_LORA_RANK,
+                                      keep=_is_ic_lora_target)
+    lora_info.update(write_s=time.perf_counter() - t0, file_gb=os.path.getsize(lora_path) / 1e9)
+    out = os.path.join(directory, "ic_lora.y4m")
+    drift, host = {}, {"unfuse_call_s": [], "control_read_s": []}
+    unfuse, read = ic_lora.unfuse_lora_deltas, retake_module.load_video_frames
+
+    def read_timed(*args, **kwargs):  # the control's host read, inside the control-encode phase
+        t1 = time.perf_counter()
+        frames = read(*args, **kwargs)
+        host["control_read_s"].append(time.perf_counter() - t1)
+        return frames
+
+    def unfuse_checked(model, applied):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        result = unfuse(model, applied)
+        torch.cuda.synchronize()
+        host["unfuse_call_s"].append(time.perf_counter() - t1)
+        if not drift:  # inside the lora_unfuse phase's seconds
+            t1 = time.perf_counter()
+            drift.update(_lora_drift(model, applied))
+            drift["check_s"] = time.perf_counter() - t1
+        return result
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    _reset_flash_by()
+    flash_attention.launches_by_length = {}
+    ic_lora.unfuse_lora_deltas, retake_module.load_video_frames = unfuse_checked, read_timed
+    try:
+        t0 = time.perf_counter()
+        videos, stats = G.main(["--pipeline", "ic-lora", "--control-video", control, "--control-type", "raw",
+                                "--ic-lora-weights", lora_path, "--output", out])
+        wall = time.perf_counter() - t0
+    finally:
+        ic_lora.unfuse_lora_deltas, retake_module.load_video_frames = unfuse, read
+    counts = {**_counts(), "by_batch": _flash_by("launches_by_batch"), "by_length": _flash_by_length()}
+    st = stats[0]
+    phases = ("lora_fuse", "control_encode", "stage1", "lora_unfuse", "upscale", "stage2", "decode")
+    rec = {"wall_s": wall, "dit_init_s": st["dit_init_s"], "lora": lora_info, "lora_drift": drift, **host,
+           "seconds": {p: st[f"{p}_s"] for p in phases}, "peak_gb": {p: st[f"{p}_peak_gb"] for p in phases},
+           "conv_launches": {p: st[f"{p}_conv_launches"] for p in ("control_encode", "upscale")},
+           "decode_conv_launches": st["decode_conv_launches"], "frames": list(videos[0].shape),
+           "y4m_bytes": os.path.getsize(out), "launches": counts, "card": smi}
+    del videos
+    log(f"ic-lora ({WIDTH}x{HEIGHT}x{FRAMES}f, {LAYERS} layers, the fixture as RAW control, rank-{IC_LORA_RANK} "
+        f"IC-LoRA on {lora_info['targets']} linears): {json.dumps(rec)}")
+    tiles = len(generate_tile_specs((1, 128, (FRAMES - 1) // 8 + 1, HEIGHT // 32, WIDTH // 32),
+                                    TilingConfig.default()))
+    enc, ups = encoder_convs(VideoEncoderConfig()), upscaler_convs(SpatialUpscalerConfig())
+    dec = decoder_convs(VideoDecoderConfig()) * tiles
+    s1 = ((FRAMES - 1) // 8 + 1) * (HEIGHT // 64) * (WIDTH // 64)
+    s2 = 4 * s1
+    want_length = {f"{2 * s1}x{2 * s1}": LAYERS * 8, f"{2 * s1}x1024": LAYERS * 8, f"{s2}x{s2}": LAYERS * 3,
+                   f"{s2}x1024": LAYERS * 3}
+    targets = sum(1 for n, p in LTXModel(LTXModelConfig(), device="meta").named_parameters()
+                  if n.startswith("transformer_blocks.") and n.endswith(".weight") and p.ndim == 2
+                  and _is_ic_lora_target(n))
+    if (rec["frames"] != [FRAMES, HEIGHT, WIDTH, 3] or counts["by_length"] != want_length
+            or counts["by_batch"] != {1: 2 * LAYERS * 11} or rec["conv_launches"] != {"control_encode": enc,
+                                                                                   "upscale": ups}
+            or rec["decode_conv_launches"] != dec or counts["conv"] != enc + ups + dec or counts["bwd"]
+            or not all(st[f"{p}_latent_finite"] for p in ("stage1", "upscale", "stage2"))):
+        raise AssertionError(f"ic-lora: {rec}, expected flash by length {want_length}, convs {enc} + {ups} + {dec}")
+    if not drift or drift["tensors"] != lora_info["targets"] or lora_info["targets"] != targets:
+        raise AssertionError(f"ic-lora: the drift check saw {drift}, not the {targets} fused weights")
+    if not drift["untouched_equal"] or drift["max_steps"] > TOL_LORA_DRIFT_STEPS:
+        raise AssertionError(f"ic-lora: the unfused weights drifted, or an untouched one moved: {drift}")
+    full = {"fwd": counts["fwd"], "conv_fp32": enc + ups, "conv_bf16": dec, "by_length": counts["by_length"]}
+
+    # The small run: strength 1.0 keeps the appended control tokens clean.
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    _reset_counts()
+    c = IC_SMALL
+    dit, encoder, upscaler = G.make_dit(c["layers"], dev), G.make_encoder(dev), G.make_upscaler(dev)
+    pipe = ic_lora.ICLoraPipeline(dit, upscaler, statistics=PerChannelStatistics(128, device=dev),
+                                  video_encoder=encoder)
+    ends = []
+    stage1_loop = pipe.loops[(False, False)]  # per-token timesteps: stage 1 with the control
+
+    def recorded(*args, **kwargs):
+        state = stage1_loop(*args, **kwargs)
+        ends.append(state)
+        return state
+
+    pipe.loops[(False, False)] = recorded
+    config = ic_lora.ICLoraConfig(height=c["height"], width=c["width"], num_frames=c["frames"], seed=3,
+                                  dtype="bfloat16", ic_lora_config=LoRAConfig(lora_path))
+    context = G.dummy_context(dit.cfg, torch.Generator(device=dev).manual_seed(3), dev)
+    latent = pipe(context, config, videos=[ic_lora.VideoCondition(control, strength=1.0)], skip_decode=True)
+    small_counts = _counts()  # the run's launches, before the check below encodes the control again
+    video = torch.from_numpy(retake_module.load_video_frames(control, c["height"] // 2, c["width"] // 2,
+                                                             c["frames"])).to(dev)
+    with torch.no_grad():
+        clean = pipe.patchifier.patchify(video_encoder_apply(encoder, video.to(torch.bfloat16))).to(torch.bfloat16)
+    state = ends[0]
+    n = state.latent.shape[1] - clean.shape[1]
+    small = {"layers": c["layers"], "shape": [c["frames"], c["height"], c["width"]], "stage1_tokens": n,
+             "control_tokens": clean.shape[1], "latent": list(latent.shape),
+             "control_exact": bool(torch.equal(state.latent[:, n:], state.clean_latent[:, n:])),
+             "control_is_the_encoders": bool(torch.equal(state.clean_latent[:, n:], clean)),
+             "video_moved": not bool(torch.equal(state.latent[:, :n], state.clean_latent[:, :n])),
+             "launches": small_counts}
+    rec["small_strength_1"] = small
+    log(f"ic-lora at {c['layers']} blocks, control strength 1.0: {json.dumps(small)}")
+    del pipe, dit, encoder, upscaler, ends, state
+    torch.cuda.empty_cache()
+    if not (small["control_exact"] and small["control_is_the_encoders"] and small["video_moved"]):
+        raise AssertionError(f"ic-lora: the strength-1.0 control tokens moved, or are not the encoder's: {small}")
+    if small_counts != {"fwd": 2 * c["layers"] * 11, "bwd": 0, "conv": enc + ups}:
+        raise AssertionError(f"ic-lora at {c['layers']} blocks: launches {small_counts}")
+    return rec, full, small["launches"]
+
+
+def phase_prepare_videos(smi: str, directory: str) -> tuple:
+    """`prepare_data --videos` on a directory of the committed MJPEG AVI and
+    a 17-frame 288x432 .y4m (--num-frames 12, snapped to 9) through the
+    full-width fp32 encoder at 512x768, then `--images` on the committed
+    512x768 JPEG still; the npz fed to one `train.main --data` LoRA step at
+    cut depth."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ltx2_tpu_torch import prepare_data as P
+    from ltx2_tpu_torch import train as T
+    from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoderConfig, conv_launches
+
+    videos, images = os.path.join(directory, "videos"), os.path.join(directory, "images")
+    os.makedirs(videos)
+    os.makedirs(images)
+    avi, _ = _fixture(FIXTURE_AVI)
+    jpg, _ = _fixture(FIXTURE_JPG)
+    shutil.copy(avi, videos)
+    shutil.copy(jpg, images)
+    _write_source_y4m(os.path.join(videos, "short.y4m"), 17, 288, 432, seed=13)
+    torch.cuda.empty_cache()
+    _reset_train_counts()
+    out = os.path.join(directory, "video_latents.npz")
+    t0 = time.perf_counter()
+    res = P.main(["--videos", videos, "--num-frames", "12", "--placeholder", "--context-dim", "4096",
+                  "--output", out, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    still = P.main(["--images", images, "--placeholder", "--context-dim", "4096", "--device", "cuda",
+                    "--output", os.path.join(directory, "still_latents.npz")])
+    counts = _train_counts()  # both runs' launches
+    tokens = 2 * (HEIGHT // 32) * (WIDTH // 32)
+    rec = {"clips": 2, "encode_s": res["encode_s"], "wall_s": wall, "x0": list(res["x0"].shape),
+           "positions": list(res["positions"].shape), "finite": bool(np.isfinite(res["x0"]).all()),
+           "still_x0": list(still["x0"].shape), "still_finite": bool(np.isfinite(still["x0"]).all()),
+           "launches": counts, "expected_conv": 3 * conv_launches(VideoEncoderConfig()), "card": smi}
+    torch.cuda.empty_cache()
+    step = T.main(["--data", out, "--lora-rank", "16", "--steps", "1", "--layers", str(CUT_LAYERS), "--device", "cuda"])
+    rec["train_loss"] = step["losses"][0]
+    log(f"prepare_data --videos / --images .jpg: {json.dumps(rec)}")
+    del step
+    torch.cuda.empty_cache()
+    if counts["conv"] != rec["expected_conv"] or counts["fwd"] or counts["bwd"]:
+        raise AssertionError(f"prepare_data --videos launches {counts}, expected {rec['expected_conv']} fp32 convs")
+    if (rec["x0"] != [2, tokens, 128] or rec["positions"] != [2, 3, tokens, 2] or not rec["finite"]
+            or rec["still_x0"] != [1, tokens // 2, 128] or not rec["still_finite"]):
+        raise AssertionError(f"prepare_data --videos arrays {rec}")
+    if not math.isfinite(rec["train_loss"]):
+        raise AssertionError(f"a train step on prepare_data --videos' npz: loss {rec['train_loss']}")
+    return rec, counts
+
+
+def phase_video_paths(smi: str) -> tuple:
+    """The readers, retake, ic-lora and prepare_data --videos in one
+    temporary directory (the 512x768x121 source is written once). Returns
+    (the record, the launches of each path)."""
+    import os
+    import shutil
+    import tempfile
+
+    directory = tempfile.mkdtemp(prefix="ltx2_video_paths_")
+    t_start = time.perf_counter()
+    try:
+        source = os.path.join(directory, "source.y4m")
+        t0 = time.perf_counter()
+        _write_source_y4m(source, FRAMES, HEIGHT, WIDTH)
+        write_s = time.perf_counter() - t0
+        readers = phase_readers(smi, source)
+        retake, retake_counts = phase_retake(smi, source, directory)
+        ic, ic_counts, ic_small_counts = phase_ic_lora(smi, directory)
+        prep, prep_counts = phase_prepare_videos(smi, directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    rec = {"source_write_s": write_s, "readers": readers, "retake": retake, "ic_lora": ic,
+           "prepare_data_videos": prep, "wall_s": time.perf_counter() - t_start, "card": smi}
+    log(f"video paths: the readers, retake, ic-lora and prepare_data --videos took {rec['wall_s']:.1f} s | {smi}")
+    return rec, {"retake": retake_counts, "ic_lora": ic_counts, "ic_lora_small": ic_small_counts,
+                 "prepare_data_videos": prep_counts}
+
+
 def main():
     from pathlib import Path
 
@@ -4615,6 +5046,8 @@ def main():
     torch.cuda.empty_cache()
     keyframe_hq, kf_counts = phase_keyframe_and_hq(smi)
     torch.cuda.empty_cache()
+    video_paths, vp_counts = phase_video_paths(smi)
+    torch.cuda.empty_cache()
     bwd = phase_bwd_kernels()
     model, train_counts = phase_train_steps(smi)
     timing = phase_train_timing(model, smi)
@@ -4641,6 +5074,13 @@ def main():
     # encoder's and the upscaler's on the fp32 one.
     kf_bf16 = {k: keyframe_hq[k]["decode_conv_launches"] for k in ("keyframe", "ti2vid_hq")}
     kf_fp32 = {k: c["conv"] - kf_bf16.get(k, 0) for k, c in kf_counts.items()}
+    # Retake, ic-lora and prepare_data --videos: the decodes' convs on the
+    # bf16 kernel; the encoder's (source, control, clips) and the upscaler's
+    # on the fp32 one. The small ic-lora run decodes nothing.
+    vp_bf16 = {"retake": vp_counts["retake"]["conv_bf16"], "ic_lora": vp_counts["ic_lora"]["conv_bf16"]}
+    vp_fp32 = {"retake": vp_counts["retake"]["conv_fp32"], "ic_lora": vp_counts["ic_lora"]["conv_fp32"],
+               "ic_lora_small": vp_counts["ic_lora_small"]["conv"],
+               "prepare_data_videos": vp_counts["prepare_data_videos"]["conv"]}
     conv_replaces = ("scripts/bench_conv_pallas.py:116 (conv3d_pallas, pallas_call :140); "
                      "scripts/bench_conv_pallas.py:223 (conv3d_pallas_v2, pallas_call :247); "
                      "scripts/bench_conv_pallas.py:357 (conv3d_pallas_v3, pallas_call :378)")
@@ -4654,7 +5094,8 @@ def main():
                          + av_counts["fwd"] + av_file_counts["fwd"] + two_cfg_counts["fwd"] + a2vid_counts["fwd"]
                          + i2v_two_stage["fwd"] + i2v_one_stage["fwd"] + options["fwd"] + train_counts["fwd"]
                          + sum(c["fwd"] for c in av_paths.values()) + audio_only_counts["fwd"]
-                         + int8_counts["fwd"] + temporal_counts["fwd"] + sum(c["fwd"] for c in kf_counts.values())),
+                         + int8_counts["fwd"] + temporal_counts["fwd"] + sum(c["fwd"] for c in kf_counts.values())
+                         + sum(c["fwd"] for c in vp_counts.values())),
             "launches_by_path": {"serve": serve_counts["fwd"], "serve_two_stage": two_stage_counts["fwd"],
                                  "serve_two_stage_from_files": file_counts["fwd"],
                                  "serve_v2_two_stage_from_files": v2_counts["fwd"],
@@ -4666,7 +5107,11 @@ def main():
                                  "train": train_counts["fwd"], **{k: c["fwd"] for k, c in av_paths.items()},
                                  "audio_only": audio_only_counts["fwd"], "serve_int8": int8_counts["fwd"],
                                  "temporal_upscale": temporal_counts["fwd"],
-                                 **{k: c["fwd"] for k, c in kf_counts.items()}},
+                                 **{k: c["fwd"] for k, c in kf_counts.items()},
+                                 **{k: c["fwd"] for k, c in vp_counts.items()}},
+            # ic-lora's stage 1 over its 1536 tokens and the control's 1536
+            # appended, counted in "launches" too.
+            "ic_lora_launches_by_length": vp_counts["ic_lora"]["by_length"],
             # Keyframe interpolation's lengths past the tile grid (keyframes
             # appended), counted in "launches" too.
             "keyframe_launches_by_length": kf_counts["keyframe"]["by_length"],
@@ -4691,7 +5136,8 @@ def main():
             # The multi-modal guider's rows at batch 3 (two-stage CFG stage 1), counted in "launches" too.
             "batch_3_launches_by_path": {"serve_two_stage_cfg": two_cfg_counts["fwd_by_batch"].get(3, 0)},
             # ti2vid-hq's Res2s stage 1: the prompt and negative rows at batch 2.
-            "batch_2_launches_by_path": {"ti2vid_hq": kf_counts["ti2vid_hq"]["by_batch"].get(2, 0)},
+            "batch_2_launches_by_path": {"ti2vid_hq": kf_counts["ti2vid_hq"]["by_batch"].get(2, 0),
+                                         "retake": vp_counts["retake"]["fwd_by_batch"].get(2, 0)},
             "max_abs_err": max(max(r["max_abs_err"] for r in recs),
                                max(r["max_abs_err_fwd_residuals"] for r in bwd)),
             "ms": self_rec["ms"],
@@ -4733,7 +5179,7 @@ def main():
                          + av_counts["conv_bf16"] + av_file_counts["conv_bf16"]
                          + two_cfg_counts["conv_bf16"] + a2vid_counts["conv_bf16"]
                          + i2v_two_stage["conv_bf16"] + i2v_one_stage["conv_bf16"] + options["conv_bf16"]
-                         + temporal_counts["conv_bf16"] + sum(kf_bf16.values())),
+                         + temporal_counts["conv_bf16"] + sum(kf_bf16.values()) + sum(vp_bf16.values())),
             "launches_by_path": {"serve": serve_counts["conv"],
                                  "serve_two_stage": two_stage_counts["conv"] - upscale_launches,
                                  "serve_two_stage_from_files": file_counts["conv"] - file_upscale_launches,
@@ -4745,7 +5191,7 @@ def main():
                                  "image_to_video_two_stage": i2v_two_stage["conv_bf16"],
                                  "one_stage": i2v_one_stage["conv_bf16"],
                                  "one_stage_options": options["conv_bf16"],
-                                 "temporal_upscale": temporal_counts["conv_bf16"], **kf_bf16},
+                                 "temporal_upscale": temporal_counts["conv_bf16"], **kf_bf16, **vp_bf16},
             "max_abs_err": max(r["max_abs_err"] for r in bf16_recs),
             "ms": bf16_recs[0]["ms"],
             "plain_ms": bf16_recs[0]["plain_ms"],
@@ -4764,7 +5210,8 @@ def main():
                          + av_counts["conv_fp32"] + av_file_counts["conv_fp32"]
                          + two_cfg_counts["conv_fp32"] + a2vid_counts["conv_fp32"]
                          + i2v_two_stage["conv_fp32"] + i2v_one_stage["conv_fp32"] + options["conv_fp32"]
-                         + prep_counts["conv"] + temporal_counts["conv_fp32"] + sum(kf_fp32.values())),
+                         + prep_counts["conv"] + temporal_counts["conv_fp32"] + sum(kf_fp32.values())
+                         + sum(vp_fp32.values())),
             "launches_by_path": {"serve_two_stage": upscale_launches,
                                  "serve_two_stage_from_files": file_upscale_launches,
                                  "serve_v2_two_stage_from_files": v2_counts["conv_fp32"],
@@ -4775,7 +5222,7 @@ def main():
                                  "image_to_video_two_stage": i2v_two_stage["conv_fp32"],
                                  "one_stage": i2v_one_stage["conv_fp32"],
                                  "one_stage_options": options["conv_fp32"], "prepare_data": prep_counts["conv"],
-                                 "temporal_upscale": temporal_counts["conv_fp32"], **kf_fp32},
+                                 "temporal_upscale": temporal_counts["conv_fp32"], **kf_fp32, **vp_fp32},
             "max_abs_err": max(r["max_abs_err"] for r in fp32_recs),
             "ms": fp32_recs[0]["ms"],
             "plain_ms": fp32_recs[0]["plain_ms"],
@@ -4789,7 +5236,7 @@ def main():
     ], "train": {"timing": timing, "gradcheck": gradcheck,
                   "audio_video": {k: v for k, v in av_train.items() if not k.endswith("_counts")}},
         "bench_e2e": serve, "fp8_step": fp8_step, "checkpoint": checkpoint, "temporal_upscaler": temporal,
-        "keyframe_and_ti2vid_hq": keyframe_hq,
+        "keyframe_and_ti2vid_hq": keyframe_hq, "video_paths": video_paths,
         "text_encode": text_encode, "image_to_video": image_to_video,
         "v2": {"files": v2_files, "small_input_check": v2_small,
                "step_ms": {"v2_bf16": fp8_step["v2_bf16"]["device_ms"], "v1_bf16": fp8_step["bf16"]["device_ms"]}},

@@ -1,7 +1,7 @@
 """Text-, image- and audio-to-video generation, with or without audio, on
 one GPU.
 
-Eight flows, chosen with `--pipeline`:
+Ten flows, chosen with `--pipeline`:
 
 - `bench-e2e` (the default; `generate_videos`): the steps of the JAX
   package's `scripts/bench_e2e.py`: Gaussian noise -> 8-sigma distilled
@@ -47,7 +47,7 @@ Eight flows, chosen with `--pipeline`:
   audio-video DiT; with `--audio` the source is the output's .wav.
 - `keyframe` (`generate_videos_keyframe`): keyframe interpolation
   (pipelines/keyframe_interpolation.py): `--keyframe PATH:FRAME[:STRENGTH]`
-  PNGs (strength 0.95 by default) encoded and appended past the sequence's
+  stills (strength 0.95 by default) encoded and appended past the sequence's
   end at their pixel frames, a CFG stage 1 at half resolution against a
   zero negative context (30 steps, CFG 7.5: the config's, as the JAX CLI
   runs it), the upscaler, a distilled stage 2 without guidance; video only.
@@ -57,6 +57,20 @@ Eight flows, chosen with `--pipeline`:
   both stages, the upscaler, the distilled stage 2. Without an upscaler's
   file from a checkpoint, keyframe and ti2vid-hq run one stage, as the JAX
   CLI does.
+- `retake` (`generate_videos_retake`): pipelines/retake.py: `--video`
+  (its own height, width and fps; frames snapped down to 8k+1; .y4m and
+  MJPEG .avi/.mov/.mp4 read by the port, other codecs through OpenCV or
+  ffmpeg) encoded by the fp32 video encoder, the latent frames between
+  `--retake-start` and `--retake-end` seconds re-noised and denoised over
+  `--num-inference-steps` CFG steps at `--cfg-scale` (`--cfg-interval`,
+  `--token-shift`), every other frame kept bit for bit, the decode.
+- `ic-lora` (`generate_videos_ic_lora`): pipelines/ic_lora.py: the
+  distilled recipe with `--control-video` (`--control-type raw`, or
+  `canny` through OpenCV, `--canny-low/--canny-high`) read at stage 1's
+  size, encoded and appended at frame 0 with `--control-strength`, and
+  `--ic-lora-weights PATH[:STRENGTH]` (the first `--lora` when absent) fused
+  into the DiT for stage 1 only; `--int8` and `--save-control` (the MJPEG
+  writers) are refused.
 
 `--audio` on the distilled and the CFG flows generates sound with the
 audio-video DiT (the checkpoint's, loaded with its audio stream; else random
@@ -82,7 +96,8 @@ matmul, int32 products by torch._int_mm); it excludes `--fp8-serving` and
 them (`_apply_reference_compat`).
 
 `--image PATH[:FRAME[:STRENGTH]]` (repeatable; frame 0 and `--image-strength`
-by default) conditions the distilled and the CFG flows on 8-bit PNGs: each is
+by default) conditions the distilled and the CFG flows on 8-bit PNGs or
+baseline JPEGs (the port's decoder, `utils/jpeg.py`, equal to PIL's): each is
 resized to the stage's size, encoded by the fp32 video VAE encoder and
 written over its latent frame (image-to-video).
 
@@ -161,6 +176,10 @@ From Python: `generate_video(seed=0)`, `generate_videos([0, 1, ...])` or
     python -m ltx2_tpu_torch.generate --pipeline keyframe --keyframe first.png:0 --keyframe last.png:120 \
         --output clip.y4m
     python -m ltx2_tpu_torch.generate --pipeline ti2vid-hq --image first.png --audio --output clip.y4m
+    python -m ltx2_tpu_torch.generate --pipeline retake --video source.y4m --retake-start 1 --retake-end 3 \
+        --output clip.y4m
+    python -m ltx2_tpu_torch.generate --pipeline ic-lora --control-video depth.avi --ic-lora-weights ic.safetensors \
+        --output clip.y4m
 """
 
 from __future__ import annotations
@@ -1075,6 +1094,216 @@ def generate_videos_ti2vid_hq(
                     lambda seed: stage_seeds(seed)[2], skip_decode, audio_decoder, vocoder), stats
 
 
+def generate_videos_retake(
+    seeds: Sequence[int],
+    video: str,
+    *,
+    start_time: float = 0.0,
+    end_time: float = 1.0,
+    steps: int = 30,
+    cfg_scale: float = 3.0,
+    cfg_interval: int = 1,
+    token_shift: bool = False,
+    layers: int = 48,
+    device=None,
+    dit: Optional[LTXModel] = None,
+    encoder: Optional[VideoEncoder] = None,
+    decoder: Optional[VideoDecoder] = None,
+    contexts: Optional[Sequence[torch.Tensor]] = None,
+    noises: Optional[Sequence[torch.Tensor]] = None,
+    text_encoder: Union[bool, VideoTextEncoder] = False,
+    gemma: Optional[Gemma3] = None,
+    phase_peaks: bool = False,
+    ledger: Optional[ModelLedger] = None,
+    tokens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    embeddings: Optional[list] = None,
+    tiling: Optional[TilingConfig] = None,
+    dtype: str = "bfloat16",
+    skip_decode: bool = False,
+    int8: bool = False,
+) -> Tuple[List[np.ndarray], List[dict]]:
+    """Retake (pipelines/retake.py), one clip per seed: `video` (probed and
+    read once, at its own height, width and fps, its frames snapped down to
+    8k + 1) encoded by the fp32 video encoder, the latent frames of
+    [`start_time`, `end_time`) seconds re-noised and denoised over `steps`
+    CFG Euler steps at `cfg_scale` (`cfg_interval` guidance reuse,
+    `token_shift`), every other frame kept, the decode. Contexts (each
+    request's (2, S, D) prompt and negative pair), the ledger, Gemma, the
+    tokens and embeddings, the random weights' seeds, `phase_peaks`,
+    `tiling`, `skip_decode` and `int8` as in `generate_videos_one_stage`;
+    `noises[i]` request i's patchified noise. Stats per request: the read's
+    seconds, the seconds and peaks of the encode, denoise (and a step) and
+    decode, the launches, the latent's finiteness, the retaken latent frames
+    and `frozen_exact`: whether every token outside them came out of the
+    loop bit for bit the encoder's latent."""
+    from ltx2_tpu_torch.pipelines.retake import (
+        RetakeConfig, RetakePipeline, TemporalRegionMask, get_video_metadata, load_video_frames,
+    )
+
+    device = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    modules = (dit, decoder, encoder, gemma, text_encoder if isinstance(text_encoder, VideoTextEncoder) else None)
+    if ledger is not None and any(m is not None for m in modules):
+        raise ValueError("with a ledger every component comes from its files: pass no module")
+    stats = [{"seed": seed, "dit_init_s": 0.0, "decoder_init_s": 0.0} for seed in seeds]
+    t0 = time.perf_counter()
+    fps, n_frames, src_h, src_w = get_video_metadata(video)
+    n_frames = n_frames - (n_frames - 1) % 8  # 8k + 1
+    source_video = torch.from_numpy(load_video_frames(video, src_h, src_w, n_frames))
+    stats[0]["read_s"] = time.perf_counter() - t0
+    _phase_peak(device, phase_peaks)
+    contexts, _ = _text_contexts(seeds, stats, device, contexts, text_encoder, gemma, ledger, phase_peaks,
+                                 negatives=True, tokens=tokens, embeddings=embeddings)
+    gemma = text_encoder = None
+    dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, [video], ledger,  # the source is encoded
+                                    None if contexts is None else contexts[0].shape[-1], dtype, int8=int8)
+    cfg = dit.cfg
+    pipe = RetakePipeline(dit, video_encoder=encoder)
+    configs, latents = [], []
+    for i, (seed, st) in enumerate(zip(seeds, stats)):
+        # The latent state in RetakeConfig's float32, as the JAX CLI runs it.
+        config = RetakeConfig(start_time=start_time, end_time=end_time, seed=seed, num_inference_steps=steps,
+                              cfg_scale=cfg_scale, cfg_interval=cfg_interval, latent_channels=cfg.in_channels,
+                              tiling_config=tiling, token_dependent_shift=token_shift)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        (positive, negative), _ = _context_pairs(cfg, contexts, None, i, gen, device, False)
+        on_phase, marks = _phase_timer(device, st, phase_peaks)
+        clean = {}
+
+        def record(phase: str, latent: torch.Tensor, on_phase=on_phase, clean=clean) -> None:
+            on_phase(phase, latent)
+            if phase == "encode":
+                clean["latent"] = latent
+
+        latent = pipe(None, positive, negative, config, callback=record, source_video=source_video, fps=fps,
+                      skip_decode=True, noise=None if noises is None else noises[i])
+        first, last = TemporalRegionMask(start_time, end_time, fps).latent_frames(latent.shape[2])
+        kept = torch.ones(latent.shape[2], dtype=torch.bool)
+        kept[first:last] = False
+        st["retake_latent_frames"] = [first, last]
+        st["frozen_exact"] = bool(torch.equal(latent[:, :, kept], clean.pop("latent")[:, :, kept]))
+        st["denoise_step_s"] = st["denoise_s"] / steps
+        st["attention_launches"] = flash_attention.launches - marks["attention"]
+        st["latent_std"] = float(latent.float().std())
+        configs.append(OneStageCFGConfig(height=src_h, width=src_w, num_frames=n_frames, seed=seed,
+                                         tiling_config=tiling, latent_channels=cfg.in_channels))
+        latents.append(latent)
+
+    del dit, encoder, pipe
+    if ledger is not None:
+        for name in ("transformer", "video_encoder"):
+            ledger.clear_model(name)
+    return _outputs(latents, [None] * len(latents), configs, stats, device, decoder, ledger, cfg.compute_dtype,
+                    phase_peaks, lambda seed: stage_seeds(seed, 2)[1], skip_decode, None, None), stats
+
+
+def generate_videos_ic_lora(
+    seeds: Sequence[int],
+    control_video: Optional[str] = None,
+    *,
+    control_type: str = "raw",
+    control_strength: float = 0.95,
+    canny_low: int = 100,
+    canny_high: int = 200,
+    save_control: bool = False,
+    ic_lora: Optional[LoRAConfig] = None,
+    height: int = 512,
+    width: int = 768,
+    frames: int = 121,
+    layers: int = 48,
+    device=None,
+    dit: Optional[LTXModel] = None,
+    upscaler: Optional[SpatialUpscaler] = None,
+    decoder: Optional[VideoDecoder] = None,
+    encoder: Optional[VideoEncoder] = None,
+    contexts: Optional[Sequence[torch.Tensor]] = None,
+    noises: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+    text_encoder: Union[bool, VideoTextEncoder] = False,
+    gemma: Optional[Gemma3] = None,
+    phase_peaks: bool = False,
+    ledger: Optional[ModelLedger] = None,
+    tokens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    embeddings: Optional[list] = None,
+    fps: float = FPS,
+    tiling: Optional[TilingConfig] = None,
+    dtype: str = "bfloat16",
+    skip_decode: bool = False,
+    audio: bool = False,
+    audio_contexts: Optional[Sequence[torch.Tensor]] = None,
+    audio_noises: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+    audio_decoder: Optional[AudioDecoder] = None,
+    vocoder=None,
+    internal_audio: bool = True,
+) -> Tuple[List[np.ndarray], List[dict]]:
+    """IC-LoRA control (pipelines/ic_lora.py), one clip per seed: the
+    distilled recipe with `control_video` (`control_type` "raw" or "canny"
+    through OpenCV) read at stage 1's size, encoded and appended at frame 0
+    with `control_strength`, and
+    `ic_lora` fused into the DiT for stage 1 only; stage 2 on the base
+    weights, the decodes. The DiT takes the LoRA's deltas, so a random one
+    is drawn in `dtype` (bf16), never kept in fp8. Without an upscaler (a
+    ledger without its file) the stage-1 latent is the result, as the JAX
+    pipeline runs it. Other arguments as in `generate_videos_distilled`.
+    Stats per request: the seconds and peaks of the text encode, LoRA fuse,
+    control encode, stage 1, LoRA unfuse, upscale, stage 2, decode and audio
+    decode, the launches, the latents' finiteness."""
+    from ltx2_tpu_torch.pipelines.ic_lora import ControlType, ICLoraConfig, ICLoraPipeline, VideoCondition
+
+    device = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    modules = (dit, upscaler, decoder, encoder, gemma,
+               text_encoder if isinstance(text_encoder, VideoTextEncoder) else None)
+    if ledger is not None and any(m is not None for m in modules):
+        raise ValueError("with a ledger every component comes from its files: pass no module")
+    videos = [] if control_video is None else [VideoCondition(
+        video_path=control_video, strength=control_strength, control_type=ControlType(control_type),
+        canny_low=canny_low, canny_high=canny_high, save_control=save_control)]
+    stats = [{"seed": seed, "dit_init_s": 0.0, "upscaler_init_s": 0.0, "decoder_init_s": 0.0} for seed in seeds]
+    _phase_peak(device, phase_peaks)
+    encoded_audio = [] if audio and audio_contexts is None else None
+    contexts, _ = _text_contexts(seeds, stats, device, contexts, text_encoder, gemma, ledger, phase_peaks,
+                                 tokens=tokens, embeddings=embeddings, audio_contexts=encoded_audio)
+    if encoded_audio and all(a is not None for a in encoded_audio):
+        audio_contexts = encoded_audio
+    gemma = text_encoder = None
+    dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, videos, ledger,
+                                    None if contexts is None else contexts[0].shape[-1], dtype, audio, fp8=False)
+    upscaler = _spatial_upscaler(stats, device, upscaler, ledger, None)
+    cfg = dit.cfg
+    pipe = ICLoraPipeline(dit, upscaler, statistics=_latent_statistics(cfg, decoder, ledger, device),
+                          video_encoder=encoder)
+    configs, latents, audio_latents = [], [], []
+    for i, (seed, st) in enumerate(zip(seeds, stats)):
+        config = ICLoraConfig(height=height, width=width, num_frames=frames, seed=seed, dtype=cfg.compute_dtype,
+                              latent_channels=cfg.in_channels, fps=fps, tiling_config=tiling, audio_enabled=audio,
+                              use_internal_audio_branch=internal_audio, ic_lora_config=ic_lora)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        context = contexts[i] if contexts is not None else dummy_context(cfg, gen, device)
+        audio_context = None
+        if audio:
+            audio_context = (audio_contexts[i] if audio_contexts is not None else
+                             context if contexts is not None else dummy_context(cfg, gen, device, audio=True))
+        on_phase, marks = _phase_timer(device, st, phase_peaks)
+        out = pipe(context, config, videos=videos, callback=on_phase,
+                   audio_encoding=audio_context, skip_decode=True, noises=None if noises is None else noises[i],
+                   audio_noises=None if audio_noises is None else audio_noises[i])
+        latent, audio_latent = out if audio else (out, None)
+        st["attention_launches"] = flash_attention.launches - marks["attention"]
+        st["latent_std"] = float(latent.float().std())
+        configs.append(config)
+        latents.append(latent)
+        audio_latents.append(audio_latent)
+
+    del dit, upscaler, encoder, pipe
+    if ledger is not None:
+        for name in ("transformer", "spatial_upscaler", "video_encoder"):
+            ledger.clear_model(name)
+    return _outputs(latents, audio_latents, configs, stats, device, decoder, ledger, cfg.compute_dtype, phase_peaks,
+                    lambda seed: stage_seeds(seed)[2], skip_decode, audio_decoder, vocoder), stats
+
+
 def _outputs(latents, audio_latents, configs, stats, device, decoder, ledger, compute_dtype: str, phase_peaks: bool,
              decode_seed, skip_decode: bool, audio_decoder, vocoder) -> list:
     """Each request's result: its latent (and audio latent) as fp32 host
@@ -1599,9 +1828,14 @@ def parse_image_spec(spec: str, default_strength: float = 0.95) -> ImageConditio
                           strength=float(parts[2]) if len(parts) > 2 else default_strength)
 
 
-PIPELINES = ("bench-e2e", "distilled", "one-stage", "text-to-video", "two-stage", "a2vid", "keyframe", "ti2vid-hq")
+PIPELINES = ("bench-e2e", "distilled", "one-stage", "text-to-video", "two-stage", "a2vid", "keyframe", "ti2vid-hq",
+             "retake", "ic-lora")
 # The pipelines with a spatial upscaler between two stages.
-STAGED = ("distilled", "two-stage", "a2vid", "keyframe", "ti2vid-hq")
+STAGED = ("distilled", "two-stage", "a2vid", "keyframe", "ti2vid-hq", "ic-lora")
+# The ic-lora pipeline's own flags (argparse names).
+IC_LORA_FLAGS = ("control_video", "control_type", "canny_low", "canny_high", "control_strength", "ic_lora_weights",
+                 "save_control")
+RETAKE_FLAGS = ("video", "retake_start", "retake_end")
 # The temporal upscaler's file under the reference layout, the default of
 # --upscale-temporal with a checkpoint (scripts/generate.py:392-394).
 DEFAULT_TEMPORAL_UPSCALER = "weights/ltx-2/ltx-2-temporal-upscaler-x2-1.0.safetensors"
@@ -1708,8 +1942,10 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
                          "two-stage: a guided stage 1 (--num-inference-steps, CFG with the rescale; with --audio "
                          "the multi-modal guider), the upscaler, --distilled-lora fused for the distilled stage 2; "
                          "a2vid: the distilled recipe with the audio latent encoded from --audio-file and frozen; "
-                         "keyframe: --keyframe PNGs appended past the sequence, a CFG stage 1 and a distilled stage "
-                         "2; ti2vid-hq: a Res2s CFG stage 1 and a distilled stage 2")
+                         "keyframe: --keyframe stills appended past the sequence, a CFG stage 1 and a distilled stage "
+                         "2; ti2vid-hq: a Res2s CFG stage 1 and a distilled stage 2; retake: --video's frames "
+                         "between --retake-start and --retake-end regenerated under CFG; ic-lora: the distilled recipe "
+                         "with --control-video appended and --ic-lora-weights fused in stage 1")
     ap.add_argument("--prompt", default=None,
                     help=f"tokenized from --gemma-dir's tokenizer.json (default {DEFAULT_PROMPT!r})")
     ap.add_argument("--negative-prompt", default=None,
@@ -1737,7 +1973,8 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
     ap.add_argument("--token-shift", action="store_true",
                     help="one-stage, text-to-video: shift the sigma schedule by the clip's token count, not the fixed 4096")
     ap.add_argument("--image", action="append", default=[], metavar="PATH[:FRAME[:STRENGTH]]",
-                    help="every flow but bench-e2e: an 8-bit PNG conditioning latent frame FRAME "
+                    help="every flow but bench-e2e, retake and ic-lora: an 8-bit PNG or baseline JPEG conditioning "
+                         "latent frame FRAME "
                          "(default 0), repeatable")
     ap.add_argument("--image-strength", type=float, default=0.95,
                     help="the strength of --image specs without one")
@@ -1782,7 +2019,24 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
     ap.add_argument("--lora", action="append", default=[], metavar="PATH[:STRENGTH]",
                     help="with --checkpoint: a LoRA file fused into the DiT at load, repeatable")
     ap.add_argument("--keyframe", action="append", default=[], metavar="PATH:FRAME[:STRENGTH]",
-                    help="keyframe: an 8-bit PNG pinned at pixel frame FRAME (strength 0.95 by default), repeatable")
+                    help="keyframe: an 8-bit PNG or baseline JPEG pinned at pixel frame FRAME (strength 0.95 by "
+                         "default), repeatable")
+    ic = ap.add_argument_group("retake and ic-lora (the JAX CLI's names and defaults)")
+    ic.add_argument("--video", default=None,
+                    help="retake: the source video (.y4m, an MJPEG .avi/.mov/.mp4, a still PNG; others through "
+                         "OpenCV or ffmpeg); its own height, width and fps, its frames snapped down to 8k+1")
+    ic.add_argument("--retake-start", type=float, default=0.0, help="retake: the window's start (seconds)")
+    ic.add_argument("--retake-end", type=float, default=1.0, help="retake: the window's end (seconds)")
+    ic.add_argument("--control-video", default=None, help="ic-lora: the control video, read at stage 1's size")
+    ic.add_argument("--control-type", choices=["raw", "canny"], default="raw",
+                    help="ic-lora: raw (already a control signal) or canny (edges through OpenCV)")
+    ic.add_argument("--canny-low", type=int, default=100, help="canny low threshold for --control-type canny")
+    ic.add_argument("--canny-high", type=int, default=200, help="canny high threshold for --control-type canny")
+    ic.add_argument("--control-strength", type=float, default=0.95, help="ic-lora control conditioning strength")
+    ic.add_argument("--ic-lora-weights", default=None, metavar="PATH[:STRENGTH]",
+                    help="ic-lora: the IC-LoRA safetensors, fused for stage 1 only (the first --lora when absent)")
+    ic.add_argument("--save-control", action="store_true",
+                    help="ic-lora: write the control signal beside the source (not ported: the MJPEG writers)")
     ap.add_argument("--audio", "--generate-audio", action="store_true",
                     help="every flow but bench-e2e: generate audio with the audio-video DiT (the checkpoint's, "
                          "loaded with its audio stream, else random at full width, kept in fp8) and write it beside "
@@ -1863,7 +2117,7 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
     cfg_flow = args.pipeline in ("one-stage", "text-to-video")
     two_stage = args.pipeline == "two-stage"
     loop_flags = [f"--{dest.replace('_', '-')}" for dest in LOOP_FLAGS if getattr(args, dest) != ap.get_default(dest)
-                  and not (two_stage and dest == "cfg_interval")]
+                  and not (args.pipeline in ("two-stage", "retake") and dest == "cfg_interval")]
     if loop_flags and not cfg_flow:
         ap.error(f"{', '.join(loop_flags)} need --pipeline one-stage or text-to-video")
     two_flags = [f"--{dest.replace('_', '-')}" for dest in TWO_STAGE_FLAGS
@@ -1875,6 +2129,21 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
         args.num_inference_steps = args.steps_stage1
     if args.audio_file and args.pipeline != "a2vid":
         ap.error("--audio-file needs --pipeline a2vid")
+    for flags, name in ((IC_LORA_FLAGS, "ic-lora"), (RETAKE_FLAGS, "retake")):
+        given = [f"--{dest.replace('_', '-')}" for dest in flags if getattr(args, dest) != ap.get_default(dest)]
+        if given and args.pipeline != name:
+            ap.error(f"{', '.join(given)} need --pipeline {name}")
+    if args.pipeline == "retake" and not args.video:
+        ap.error("--pipeline retake needs --video (the source video)")
+    for flag, used in (("--image", args.image), ("--audio", args.audio)):
+        if used and args.pipeline == "retake":
+            ap.error(f"{flag} does not apply to --pipeline retake (video only, conditioned by --video)")
+    if args.image and args.pipeline == "ic-lora":
+        ap.error("--image does not apply to --pipeline ic-lora (conditioned by --control-video)")
+    if args.save_control:
+        from ltx2_tpu_torch.pipelines.ic_lora import NO_SAVE_CONTROL
+
+        raise NotImplementedError(NO_SAVE_CONTROL)
     if args.keyframe and args.pipeline != "keyframe":
         ap.error("--keyframe needs --pipeline keyframe")
     if args.pipeline == "keyframe":
@@ -1975,7 +2244,7 @@ def _run_flow(args, seeds, common: dict, encode: bool, cfg_flow: bool, two_stage
             tokens = tokenize_prompts(args.gemma_dir, DEFAULT_PROMPT if args.prompt is None else args.prompt,
                                       DEFAULT_NEGATIVE_PROMPT if args.negative_prompt is None else args.negative_prompt)
         contexts = audio_contexts = None
-        pairs = cfg_flow or two_stage or args.pipeline == "ti2vid-hq"
+        pairs = cfg_flow or two_stage or args.pipeline in ("ti2vid-hq", "retake")
         if args.embedding:
             context = load_embedding(args.embedding, args.device, negatives=pairs)
             contexts = [context] * len(seeds)
@@ -2020,6 +2289,21 @@ def _run_flow(args, seeds, common: dict, encode: bool, cfg_flow: bool, two_stage
             videos, stats = generate_videos_ti2vid_hq(
                 seeds, steps=args.num_inference_steps, cfg_scale=args.cfg_scale, audio_cfg_scale=args.audio_cfg_scale,
                 token_shift=args.token_shift, **flow)
+        elif args.pipeline == "retake":
+            # The source's own height, width, frames and fps.
+            for key in ("images", "audio", "audio_contexts", "internal_audio", "height", "width", "frames", "fps"):
+                flow.pop(key)
+            videos, stats = generate_videos_retake(
+                seeds, args.video, start_time=args.retake_start, end_time=args.retake_end,
+                steps=args.num_inference_steps, cfg_scale=args.cfg_scale, cfg_interval=args.cfg_interval,
+                token_shift=args.token_shift, **flow)
+        elif args.pipeline == "ic-lora":
+            for key in ("images", "int8"):
+                flow.pop(key)
+            videos, stats = generate_videos_ic_lora(
+                seeds, args.control_video, control_type=args.control_type, control_strength=args.control_strength,
+                canny_low=args.canny_low, canny_high=args.canny_high, save_control=args.save_control,
+                ic_lora=parse_lora_spec(args.ic_lora_weights) if args.ic_lora_weights else None, **flow)
         else:
             videos, stats = generate_videos_distilled(seeds, **flow)
         if args.embedding:
@@ -2047,9 +2331,23 @@ def _apply_reference_compat(ap, args) -> None:
     if args.int8 and args.fp8_serving:
         ap.error("--int8 and --fp8-serving are mutually exclusive: int8 W8A8 re-quantizes from full-precision "
                  "weights (load dequantized, i.e. drop --fp8-serving/--fp8, to use --int8)")
-    if args.int8 and args.distilled_lora and args.pipeline in ("two-stage", "ti2vid-hq"):
-        ap.error("--int8 is incompatible with --distilled-lora (fused into stage 2 at runtime): LoRA deltas need "
-                 "full-precision weights to fuse into. Drop --int8 for this pipeline.")
+    runtime_fuse = None
+    if args.distilled_lora and args.pipeline in ("two-stage", "ti2vid-hq"):
+        runtime_fuse = "--distilled-lora (fused into stage 2 at runtime)"
+    elif args.pipeline == "ic-lora":
+        runtime_fuse = "ic-lora's stage-boundary fuse/unfuse"
+    if args.int8 and runtime_fuse:
+        ap.error(f"--int8 is incompatible with {runtime_fuse}: LoRA deltas need full-precision weights to fuse "
+                 "into. Drop --int8 for this pipeline.")
+    if args.pipeline == "ic-lora":
+        # The IC-LoRA is fused for stage 1 only inside the pipeline: the
+        # first --lora stands for it when --ic-lora-weights is absent, and it
+        # is kept out of the ledger's load-time fuse.
+        if args.lora and not args.ic_lora_weights:
+            args.ic_lora_weights = args.lora[0]
+        if args.ic_lora_weights:
+            ic_path = args.ic_lora_weights.split(":")[0]
+            args.lora = [spec for spec in args.lora if spec.split(":")[0] != ic_path]
     for flag, on in (("--low-memory", args.low_memory), ("--fast-mode", args.fast_mode)):
         if on:
             print(f"{flag}: accepted, no effect", file=sys.stderr)

@@ -26,7 +26,8 @@ from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoder, video_decoder_
 from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoder, video_encoder_apply
 from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, decode_tiled
 from ltx2_tpu_torch.types import LatentState
-from ltx2_tpu_torch.utils.image_io import read_png, resize_lanczos
+from ltx2_tpu_torch.utils.image_io import read_png, resize_lanczos, sniff
+from ltx2_tpu_torch.utils.jpeg import decode_jpeg
 
 
 @dataclass
@@ -37,10 +38,20 @@ class ImageCondition:
 
 
 def read_image(image_path: str) -> np.ndarray:
-    """An image file -> uint8 (H, W, 3) RGB (`read_png`)."""
+    """An image file -> uint8 (H, W, 3) RGB, dispatched on its signature:
+    PNG to `read_png`, JPEG to the baseline decoder (`utils/jpeg.py`);
+    anything else (WebP, GIF, BMP, ...) raises a ValueError naming it."""
     if not os.path.exists(image_path):
         raise FileNotFoundError(f"Image not found: {image_path}")
-    return read_png(image_path)
+    with open(image_path, "rb") as fh:
+        data = fh.read()
+    kind = sniff(data[:16])
+    if kind == "PNG":
+        return read_png(image_path)
+    if kind == "JPEG":
+        return decode_jpeg(data, image_path)
+    raise ValueError(f"Unsupported image format: {kind} ({image_path}); supported: 8-bit PNG (L, RGB, RGBA) and "
+                     "baseline JPEG")
 
 
 def load_image_tensor(image_path: str, height: int, width: int, dtype=torch.float32, device=None,

@@ -191,8 +191,8 @@ class DistilledPipeline:
                    initial_video_latent: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
                    phase: str = "", callback=None, audio_encoding: Optional[torch.Tensor] = None,
                    initial_audio_latent: Optional[torch.Tensor] = None, audio_noise: Optional[torch.Tensor] = None,
-                   normalize_audio_noise: bool = False, freeze_audio: bool = False
-                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                   normalize_audio_noise: bool = False, freeze_audio: bool = False,
+                   extra_conditionings: Optional[Sequence] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """One stage: initial state (zeros, or the given latent as clean
         latent) -> the images (`decoded`: each path's pixels), resized to
         this stage's size, encoded and written over their frames -> Gaussian
@@ -205,7 +205,9 @@ class DistilledPipeline:
         `freeze_audio` (then frozen: mask 0, clean latent == latent; an
         initial audio latent before the noiser, the noised zeros after it).
         With images and a callback, `callback(phase + "_image_encode", first
-        image's latent)` runs once they are encoded."""
+        image's latent)` runs once they are encoded. `extra_conditionings`
+        (ic-lora's control videos) are applied after the images'; any
+        conditioning switches the loop to per-token timesteps."""
         device, dtype = text_encoding.device, getattr(torch, config.dtype)
         shape = VideoLatentShape.from_pixel_shape(pixel_shape, latent_channels=config.latent_channels)
         tools = VideoLatentTools(patchifier=self.patchifier, target_shape=shape, fps=config.fps)
@@ -214,6 +216,8 @@ class DistilledPipeline:
             dtype, device, decoded)
         if conditionings and callback:
             callback(f"{phase}_image_encode", conditionings[0].latent)
+        if extra_conditionings:
+            conditionings = conditionings + list(extra_conditionings)
         state = tools.create_initial_state(dtype=dtype, initial_latent=initial_video_latent, device=device)
         state = apply_conditionings(state, conditionings, tools)
         noiser = GaussianNoiser()

@@ -13,8 +13,12 @@ Pixel sources:
   --pixels clips.npz   array "pixels" (N, 3, F, H, W), float in [-1, 1] or
                        uint8 in [0, 255]; F is trimmed to 8k+1
   --images DIR         stills -> one-frame clips at --height x --width
-                       (8-bit PNG, the port's reader)
-  --videos DIR         not ported: it needs the video_io video readers
+                       (8-bit PNG and baseline JPEG, the port's readers)
+  --videos DIR         clips at --height x --width x --num-frames (snapped
+                       to 8k+1): .y4m, MJPEG .avi/.mov/.mp4 and still .png
+                       through the port's readers (`read_video_any`;
+                       .gif/.webp/.apng raise), others through OpenCV or
+                       ffmpeg when present
 Context: --embedding emb.npz (its "positive" embedding, attached to every
 clip; generate.py --save-embedding writes one) or --context-dim D (a zero
 context of width D). Weights: --checkpoint (its VAE encoder) or
@@ -43,13 +47,17 @@ from ltx2_tpu_torch.pipelines.common import load_image_tensor
 from ltx2_tpu_torch.types import VideoLatentShape
 
 IMAGE_SUFFIXES = (".png", ".jpg", ".jpeg", ".webp")
+VIDEO_SUFFIXES = (".gif", ".webp", ".apng", ".y4m", ".avi", ".mp4", ".webm", ".mov")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--pixels", type=str, default=None, help=".npz with 'pixels' (N, 3, F, H, W)")
     p.add_argument("--images", type=str, default=None, help="directory of images -> one-frame clips")
-    p.add_argument("--videos", type=str, default=None, help="directory of video clips (not ported)")
+    p.add_argument("--videos", type=str, default=None,
+                   help="directory of video clips: .y4m and MJPEG .avi/.mov/.mp4 decode without ffmpeg; other "
+                        "codecs through OpenCV or ffmpeg when present")
+    p.add_argument("--num-frames", type=int, default=9, help="frames per clip for --videos (snapped to 8k+1)")
     p.add_argument("--height", type=int, default=512)
     p.add_argument("--width", type=int, default=768)
     p.add_argument("--checkpoint", type=str, default=None)
@@ -94,8 +102,11 @@ def load_clips(args) -> List[np.ndarray]:
         paths = sorted(q for q in Path(args.images).iterdir() if q.suffix.lower() in IMAGE_SUFFIXES)
         return [load_image_tensor(str(q), args.height, args.width).numpy() for q in paths]
     if args.videos:
-        raise NotImplementedError("prepare_data --videos is not ported yet: it needs the video_io video readers "
-                                  "(.gif/.webp/.apng/.y4m/.avi/.mp4), ROADMAP.md §1, \"The video readers\"")
+        from ltx2_tpu_torch.utils.video_io import read_video_any
+
+        n_frames = args.num_frames - (args.num_frames - 1) % 8  # 8k + 1
+        paths = sorted(q for q in Path(args.videos).iterdir() if q.suffix.lower() in VIDEO_SUFFIXES)
+        return [read_video_any(str(q), args.height, args.width, n_frames) for q in paths]
     return []
 
 

@@ -1,24 +1,29 @@
-"""Image decoding and resampling without PIL, for image conditioning.
+"""Image decoding and resampling without PIL, for image conditioning and
+video frames.
 
 The JAX package loads conditioning images with PIL (ltx2_tpu/pipelines/
 common.py `load_image_tensor`: `Image.open`, `convert("RGB")`, a LANCZOS
-resize). The port reproduces those steps itself, so one code path serves
-every machine, PIL or not:
+resize) and resizes video frames with PIL's BILINEAR (ltx2_tpu/utils/
+video_io.py `_resize_frame`). The port reproduces those steps itself, so one
+code path serves every machine, PIL or not:
 
 - `read_png`: 8-bit PNGs of color type L (0), RGB (2) and RGBA (6),
   non-interlaced, every row filter (None, Sub, Up, Average, Paeth), as
   uint8 (H, W, 3): RGBA loses its alpha, L is repeated into three channels,
-  as `convert("RGB")` does. Anything else (JPEG and other formats, palette,
+  as `convert("RGB")` does. Anything else (other formats, palette,
   grayscale with alpha, 16-bit and interlaced PNGs) raises a ValueError
-  naming it.
-- `resize_lanczos`: PIL's 8-bit LANCZOS resampling (`ImagingResample` in
-  Resample.c) in integer arithmetic: the a = 3 windowed sinc, its support
-  widened by the scale when downscaling, per-output-pixel coefficients
-  normalized to sum 1 and rounded to 22-bit fixed point, a horizontal pass
-  into uint8 then a vertical one, each rounded (half added) and clipped.
-  The coefficients are computed in Python floats (C doubles, the C
-  library's sin) in PIL's order of operations, the passes as int64 torch
-  sums, so the output equals PIL's.
+  naming it. JPEGs go through `utils/jpeg.py` (`pipelines/common.py
+  read_image` dispatches on the file's signature, `sniff`).
+- `resize` (`resize_lanczos` for LANCZOS): PIL's 8-bit LANCZOS and
+  BILINEAR resampling (`ImagingResample` in Resample.c) in integer
+  arithmetic: the filter (the a = 3 windowed sinc, support 3; the
+  triangle, support 1), its support widened by the scale when
+  downscaling, per-output-pixel coefficients normalized to sum 1 and
+  rounded to 22-bit fixed point, a horizontal pass into uint8 then a
+  vertical one, each only when its size changes, each rounded (half added)
+  and clipped. The coefficients are computed in Python floats (C doubles,
+  the C library's sin) in PIL's order of operations, the passes as int64
+  torch sums, so the output equals PIL's.
 """
 
 from __future__ import annotations
@@ -35,10 +40,12 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}  # color type -> samples per pixel
 _UNSUPPORTED_COLOR = {3: "palette (color type 3)", 4: "grayscale with alpha (color type 4)"}
 PRECISION_BITS = 32 - 8 - 2  # PIL's fixed-point coefficients
-LANCZOS_SUPPORT = 3.0
 
 
-def _sniff(head: bytes) -> str:
+def sniff(head: bytes) -> str:
+    """The image format a file's first bytes name."""
+    if head.startswith(PNG_SIGNATURE):
+        return "PNG"
     if head.startswith(b"\xff\xd8\xff"):
         return "JPEG"
     if head[:6] in (b"GIF87a", b"GIF89a"):
@@ -47,7 +54,7 @@ def _sniff(head: bytes) -> str:
         return "BMP"
     if head.startswith(b"RIFF") and head[8:12] == b"WEBP":
         return "WebP"
-    return "not a PNG file"
+    return "an unknown format"
 
 
 def _chunks(data: bytes, path: str):
@@ -104,10 +111,8 @@ def read_png(path: str) -> np.ndarray:
     with open(path, "rb") as fh:
         data = fh.read()
     if not data.startswith(PNG_SIGNATURE):
-        kind = _sniff(data[:16])
-        todo = (" (the baseline JPEG decoder comes with ROADMAP.md §1, \"The video readers\")"
-                if kind == "JPEG" else "")
-        raise ValueError(f"Unsupported image format: {kind} ({path}); supported: 8-bit PNG (L, RGB, RGBA){todo}")
+        raise ValueError(f"Unsupported image format: {sniff(data[:16])} ({path}); read_png reads 8-bit PNG "
+                         "(L, RGB, RGBA)")
     header, idat = None, []
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":
@@ -150,14 +155,26 @@ def _lanczos(x: float) -> float:
     return 0.0
 
 
-def lanczos_coefficients(in_size: int, out_size: int) -> Tuple[List[int], torch.Tensor]:
+def _bilinear(x: float) -> float:
+    """PIL's bilinear_filter: the triangle 1 - |x| on (-1, 1)."""
+    x = -x if x < 0.0 else x
+    return 1.0 - x if x < 1.0 else 0.0
+
+
+# PIL's filters: (support, filter function).
+LANCZOS = (3.0, _lanczos)
+BILINEAR = (1.0, _bilinear)
+
+
+def resample_coefficients(in_size: int, out_size: int, filt=LANCZOS) -> Tuple[List[int], torch.Tensor]:
     """PIL's precompute_coeffs + normalize_coeffs_8bpc for the box (0,
-    in_size): each output pixel's first input pixel, and its coefficients
-    as (out_size, ksize) int64 in 22-bit fixed point (zero past the pixel's
-    own count)."""
+    in_size) and `filt` (LANCZOS or BILINEAR): each output pixel's first
+    input pixel, and its coefficients as (out_size, ksize) int64 in 22-bit
+    fixed point (zero past the pixel's own count)."""
+    filter_support, filter_fn = filt
     scale = float(in_size) / out_size
     filterscale = max(scale, 1.0)
-    support = LANCZOS_SUPPORT * filterscale
+    support = filter_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     starts, kk = [], np.zeros((out_size, ksize), np.int64)
     for xx in range(out_size):
@@ -165,7 +182,7 @@ def lanczos_coefficients(in_size: int, out_size: int) -> Tuple[List[int], torch.
         ss = 1.0 / filterscale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
-        k = [_lanczos((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        k = [filter_fn((x + xmin - center + 0.5) * ss) for x in range(xmax)]
         ww = 0.0
         for w in k:
             ww += w
@@ -176,11 +193,11 @@ def lanczos_coefficients(in_size: int, out_size: int) -> Tuple[List[int], torch.
     return starts, torch.from_numpy(kk)
 
 
-def _resample_axis(img: torch.Tensor, out_size: int, axis: int) -> torch.Tensor:
+def _resample_axis(img: torch.Tensor, out_size: int, axis: int, filt=LANCZOS) -> torch.Tensor:
     """One 8-bit pass of PIL's resampler along `axis` (0 rows, 1 columns)
     of uint8 (H, W, C): int64 sums from half a unit, then clip8."""
     in_size = img.shape[axis]
-    starts, kk = lanczos_coefficients(in_size, out_size)
+    starts, kk = resample_coefficients(in_size, out_size, filt)
     idx = (torch.tensor(starts)[:, None] + torch.arange(kk.shape[1])[None]).clamp(max=in_size - 1)
     src = img.long().movedim(axis, 0)  # (in, other, C)
     acc = torch.full((out_size, *src.shape[1:]), 1 << (PRECISION_BITS - 1), dtype=torch.int64)
@@ -190,13 +207,17 @@ def _resample_axis(img: torch.Tensor, out_size: int, axis: int) -> torch.Tensor:
     return out.to(torch.uint8).movedim(0, axis)
 
 
-def resize_lanczos(img: torch.Tensor, width: int, height: int) -> torch.Tensor:
-    """uint8 (H, W, C) -> (height, width, C) as PIL's
-    `Image.resize((width, height), Image.Resampling.LANCZOS)`: the
-    horizontal pass, then the vertical one, each only when its size
-    changes."""
+def resize(img: torch.Tensor, width: int, height: int, filt=LANCZOS) -> torch.Tensor:
+    """uint8 (H, W, C) -> (height, width, C) as PIL's `Image.resize((width,
+    height), filter)`: the horizontal pass, then the vertical one, each only
+    when its size changes."""
     if img.shape[1] != width:
-        img = _resample_axis(img, width, 1)
+        img = _resample_axis(img, width, 1, filt)
     if img.shape[0] != height:
-        img = _resample_axis(img, height, 0)
+        img = _resample_axis(img, height, 0, filt)
     return img
+
+
+def resize_lanczos(img: torch.Tensor, width: int, height: int) -> torch.Tensor:
+    """PIL's `Image.Resampling.LANCZOS` resize (`resize`)."""
+    return resize(img, width, height, LANCZOS)

@@ -431,11 +431,13 @@ PLAN = (("res", 16, 1, None), ("down", 16, 16, (1, 2, 2)), ("res", 16, 1, None),
         ("res", 32, 1, None))
 
 
-@pytest.mark.parametrize("source", ["pixels_float", "pixels_uint8", "images"])
+@pytest.mark.parametrize("source", ["pixels_float", "pixels_uint8", "images", "images_jpeg", "videos"])
 def test_prepare_data_matches_jax(source, tmp_path, monkeypatch):
     """The port's npz against scripts/prepare_data.py's on the same tiny
     encoder (the JAX script's placeholder encoder replaced by the same
-    numpy weights): x0 at RTOL, positions and context exactly."""
+    numpy weights): x0 at RTOL, positions and context exactly. The sources:
+    pixel npz (float and uint8), PNG and JPEG stills, and --videos over a
+    .y4m and an MJPEG .avi (12 frames asked, snapped to 9)."""
     import ltx2_tpu.models.video_vae as jvae
     from scripts import prepare_data as jprep
 
@@ -445,11 +447,25 @@ def test_prepare_data_matches_jax(source, tmp_path, monkeypatch):
     monkeypatch.setattr(jvae, "VideoEncoderConfig", lambda: jecfg)
     monkeypatch.setattr(jvae, "init_video_encoder", lambda key, cfg: _jtree(tree))
     rng = np.random.default_rng(1)
-    if source == "images":
+    if source.startswith("images"):
         (tmp_path / "img").mkdir()
         for i in range(2):
-            write_png(str(tmp_path / "img" / f"{i}.png"), rng.integers(0, 256, (70, 100, 3), dtype=np.uint8))
+            pixels = rng.integers(0, 256, (70, 100, 3), dtype=np.uint8)
+            if source == "images_jpeg":
+                from PIL import Image
+
+                Image.fromarray(pixels).save(str(tmp_path / "img" / f"{i}.jpg"), quality=90)
+            else:
+                write_png(str(tmp_path / "img" / f"{i}.png"), pixels)
         flags = ["--images", str(tmp_path / "img"), "--height", "64", "--width", "96"]
+    elif source == "videos":
+        from ltx2_tpu.utils import video_io as jvio
+
+        (tmp_path / "vid").mkdir()
+        jvio.write_y4m(str(tmp_path / "vid" / "a.y4m"), rng.integers(0, 256, (12, 70, 100, 3), dtype=np.uint8), 24.0)
+        jvio.write_avi_mjpeg(str(tmp_path / "vid" / "b.avi"), rng.integers(0, 256, (5, 48, 64, 3), dtype=np.uint8),
+                             24.0)  # 5 frames: the last repeated to 9
+        flags = ["--videos", str(tmp_path / "vid"), "--num-frames", "12", "--height", "64", "--width", "96"]
     else:
         px = rng.integers(0, 256, (2, 3, 10, 64, 96), dtype=np.uint8)  # 10 frames: trimmed to 9
         np.savez(tmp_path / "px.npz", pixels=px if source == "pixels_uint8" else px.astype(np.float32) / 127.5 - 1)
@@ -469,7 +485,10 @@ def test_prepare_data_matches_jax(source, tmp_path, monkeypatch):
 
 
 def test_prepare_data_refusals(tmp_path):
-    with pytest.raises(NotImplementedError, match="video_io"):
+    with pytest.raises(SystemExit):  # a directory without clips
+        prepare_data.main(["--videos", str(tmp_path), "--context-dim", "8", "--device", "cpu"])
+    (tmp_path / "anim.gif").write_bytes(b"GIF89a")
+    with pytest.raises(NotImplementedError, match="GIF, APNG and WebP readers"):
         prepare_data.main(["--videos", str(tmp_path), "--context-dim", "8", "--device", "cpu"])
     with pytest.raises(SystemExit):
         prepare_data.main(["--context-dim", "8", "--device", "cpu"])

@@ -16,7 +16,8 @@
   `EulerDiffusionStep` to 1e-5;
 - `load_image_tensor` against the JAX package's (PIL) on PNGs PIL writes,
   exactly: RGB, RGBA, L x same aspect, wider, taller x up- and downscale;
-  the five PNG row filters; unsupported formats raise;
+  the five PNG row filters; a JPEG written under a .png name (read by its
+  signature) equal to PIL's too; unsupported formats raise;
 - the distilled two-stage recipe with an image at frame 0 against the JAX
   package's `DistilledPipeline` on the same weights and noise (2-layer DiT,
   small encoder, upscaler and decoder, 64x64x9): the latent within 1e-4 of
@@ -255,8 +256,12 @@ def test_png_filters_and_unsupported_formats(tmp_path):
         np.testing.assert_array_equal(load_image_tensor(path, 64, 96).numpy(),
                                       np.asarray(jcommon.load_image_tensor(path, 64, 96)))
     base = rng.integers(0, 256, (16, 16, 3), dtype=np.uint8)
+    jpeg = str(tmp_path / "jpeg_named.png")  # dispatched on its signature, not its name
+    Image.fromarray(base).save(jpeg, "JPEG")
+    np.testing.assert_array_equal(load_image_tensor(jpeg, 64, 96).numpy(),
+                                  np.asarray(jcommon.load_image_tensor(jpeg, 64, 96)))
     unsupported = {
-        "JPEG": lambda p: Image.fromarray(base).save(p, "JPEG"),
+        "GIF": lambda p: Image.fromarray(base).save(p, "GIF"),
         "palette": lambda p: Image.fromarray(base).convert("P").save(p),
         "16-bit": lambda p: Image.fromarray(base[..., 0].astype(np.uint16) * 257).save(p),
         "grayscale with alpha": lambda p: Image.fromarray(base[..., :2].copy(), "LA").save(p),

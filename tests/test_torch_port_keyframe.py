@@ -209,7 +209,7 @@ def test_generate_main_keyframe(weights, files):
             generate.main(bad + ["--device", "cpu", "--output", out])
     jpg = os.path.join(os.path.dirname(ckpt), "k.jpg")
     with open(jpg, "wb") as fh:
-        fh.write(b"\xff\xd8\xff\xe0" + bytes(60))
-    with pytest.raises(ValueError, match="JPEG.*The video readers"):
+        fh.write(b"\xff\xd8\xff\xe0" + bytes(60))  # a JPEG's signature, then nothing it can decode
+    with pytest.raises(ValueError, match=r"k\.jpg: JPEG segment 0xFFE0 of bad length 0"):
         generate.generate_videos_keyframe([SEED], [Keyframe(jpg, 0)], height=HEIGHT, width=WIDTH, frames=FRAMES,
                                           device="cpu", ledger=ModelLedger(ckpt, device="cpu"))

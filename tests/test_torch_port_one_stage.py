@@ -16,8 +16,8 @@ initial noise:
   override, GE, Heun, the cross-attention scale, text-KV caching) through
   the pipeline against the JAX package's, the latent to 1e-4; STG on the
   audio stream raises ValueError on this video-only pipeline, and each
-  unported option (meshes, prepare_data's --videos, the training mesh
-  flags) raises NotImplementedError naming itself;
+  unported option (meshes, prepare_data --videos on a GIF, the training
+  mesh flags) raises NotImplementedError naming itself;
 - `generate.main(["--pipeline", "one-stage", "--image", ...])` from a tiny
   checkpoint against `generate_videos_one_stage` on the same ledger, and
   `--pipeline text-to-video`; with `--token-shift` its config and sigmas
@@ -209,10 +209,20 @@ def test_text_to_video_matches_jax(weights):
     assert OneStageCFGConfig(height=480, width=704, num_frames=97).effective_tiling() is not None  # 13x15x22 > 4000
 
 
+def _gif_directory() -> str:
+    """A directory holding one GIF, which prepare_data --videos refuses."""
+    import tempfile
+
+    directory = tempfile.mkdtemp(prefix="ltx2_gif_")
+    with open(os.path.join(directory, "anim.gif"), "wb") as fh:
+        fh.write(b"GIF89a")
+    return directory
+
+
 # option -> (a word its message must name, the call that must refuse it)
 UNPORTED = {
-    "prepare_data_videos": ("video_io", lambda p, c, x: prepare_data.main(
-        ["--videos", "clips", "--context-dim", "8", "--device", "cpu"])),
+    "prepare_data_videos": ("GIF, APNG and WebP readers", lambda p, c, x: prepare_data.main(
+        ["--videos", _gif_directory(), "--context-dim", "8", "--device", "cpu"])),
     "train_mesh_flags": ("one device", lambda p, c, x: train.main(
         ["--placeholder", "--device", "cpu", "--synthetic", "1", "2", "2", "--zero1"])),
     "meshes": ("meshes", lambda p, c, x: OneStagePipeline(p.transformer, sequence_mesh=object())),
