@@ -92,7 +92,12 @@ card and nvcc; it exits non-zero without them, and without the package
    encoded twice (the second call timed), with init seconds, peak memory,
    finiteness, the FLOP and bounds of an encode (3xTF32 and FFMA, as for
    the fp32 conv), and no kernel launch (the encode is plain torch ops, as
-   the JAX package runs it outside Pallas); then a 2-layer, full-width Gemma (sliding then full, window 16) and the
+   the JAX package runs it outside Pallas); then the prompt enhancement's
+   decode on the same Gemma: greedy, 32 tokens after a 256-token prompt,
+   prefill seconds and the ms a token against the bound of reading every
+   weight once a token, the last 4 picks' logits against an uncached
+   gemma3_apply plus the LM head (max 1e-4, rms 1e-5 relative), no kernel
+   launch; then a 2-layer, full-width Gemma (sliding then full, window 16) and the
    V1 encoder at 2 x 64 tokens on the card against the same weights on the
    CPU, within relative rms 1e-5 and max 1e-4; then the 48-layer Gemma
    quantized in memory to fp8 as `load_gemma3_params(quantize_fp8=True)`
@@ -126,8 +131,20 @@ card and nvcc; it exits non-zero without them, and without the package
    latents, two .y4m files of the header plus 121 x (6 + 3 H W) bytes,
    each phase's seconds and peaks, each component's load seconds and the
    host tokenizer's seconds; then the same prompt through `--pipeline
-   one-stage` and `text-to-video` (480x704x97, 2 steps); phase 5's traced
-   step also runs for the V2 DiT in bf16 beside the V1 one;
+   one-stage` and `text-to-video` (480x704x97, 2 steps); then, on the same
+   files, the resident server (`python -m ltx2_tpu_torch.serve`'s `main`,
+   `--pipeline distilled --fp8-serving`, 512x768x121, .y4m out) on a
+   requests file: three prompts and seeds (one at num_frames 57), an
+   unknown field and a .mp4 output (both bad_request, the server up), one
+   setup and no load seconds in any request, each request's 1056 flash, 19
+   fp32 and 270 bf16 conv launches (57 frames: its own tile count), the
+   first clip byte for byte the command line's of the same request; the
+   HTTP front on 127.0.0.1 port 0 (/healthz, one POST /generate, 411
+   without a Content-Length); a second launch with --enhance-prompt (the
+   2-layer Gemma decodes 512 tokens; the enhanced prompt is what the
+   tokenizer encodes); setup seconds, resident GB, each request's seconds
+   and peak; phase 5's traced step also runs for the V2 DiT in bf16 beside
+   the V1 one;
 8. two-stage path: `generate_videos_distilled(text_encoder=True)` (each
    request's prompts encoded by the full-width Gemma and V1 encoder, which
    are then released; the DiT with its caption projection; stage 1 at
@@ -281,6 +298,7 @@ training records beside the kernels), the last the device record.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -1238,6 +1256,7 @@ def phase_text_encode(smi: str) -> dict:
            "tflops_achieved": total / encode_s / 1e12, "launches": counts,
            "allow_tf32": torch.backends.cuda.matmul.allow_tf32, "card": smi}
     log(f"text encode (full-width fp32 Gemma-3-12B + V1 encoder, 2 x {CONTEXT_TOKENS} tokens): {json.dumps(rec)}")
+    rec["decode"] = phase_gemma_decode(gemma, smi)
     rec["fp8"] = _fp8_encode(gemma, enc, contexts[1], smi)
     del gemma, enc, contexts
     torch.cuda.empty_cache()
@@ -1249,6 +1268,69 @@ def phase_text_encode(smi: str) -> dict:
         raise AssertionError(f"two encodes of the same tokens differ: {repeat}")
     rec["card_vs_cpu"] = phase_text_encode_check(smi)
     rec["card_vs_cpu_fp8"] = phase_text_encode_check(smi, fp8=True)
+    return rec
+
+
+# The prompt enhancement's decode at full width: greedy, DECODE_NEW tokens
+# after a DECODE_PROMPT-token prompt on the fp32 Gemma-3-12B; the cached
+# decode's logits at the last DECODE_CHECK picks against an uncached
+# gemma3_apply plus the LM head over the same ids (both fp32, TF32 off: the
+# cache's attention sums in another order than sdpa's plain route).
+DECODE_PROMPT, DECODE_NEW, DECODE_CHECK = 256, 32, 4
+TOL_DECODE_MAX_REL = 1e-4  # of max|logits|
+TOL_DECODE_RMS_REL = 1e-5
+
+
+def phase_gemma_decode(gemma, smi: str) -> dict:
+    """Greedy decode on the full-width fp32 Gemma (models/text_encoder/
+    generation.py): prefill and per-token seconds, the ms a token against
+    the bound of reading every weight once a token (the layers and the tied
+    LM head, at the card's memory rate), and the cached logits against the
+    uncached forward. The decode is plain torch ops: no kernel launch."""
+    import torch
+    import torch.nn.functional as F
+
+    from ltx2_tpu_torch.models.text_encoder.card_check import relative_error
+    from ltx2_tpu_torch.models.text_encoder.gemma3 import gemma3_apply
+    from ltx2_tpu_torch.models.text_encoder.generation import gemma3_generate
+
+    gen = torch.Generator().manual_seed(SEEDS[0])
+    ids = torch.randint(3, gemma.cfg.vocab_size, (1, DECODE_PROMPT), generator=gen)
+    ids[0, 0] = 2  # <bos>
+    mask = torch.ones_like(ids)
+    _reset_counts()
+    gemma3_generate(gemma, ids, mask, 2, eos_id=-1)  # warm-up
+    seconds = {}
+    for new in (1, DECODE_NEW):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gemma3_generate(gemma, ids, mask, new, eos_id=-1, return_logits=new == DECODE_NEW)
+        torch.cuda.synchronize()
+        seconds[new] = time.perf_counter() - t0
+    tokens, logits = out
+    counts = _counts()
+    full = torch.cat([ids.to(tokens.device), tokens[:, :-1]], dim=1)
+    final, _ = gemma3_apply(gemma, full, torch.ones_like(full))
+    want = F.linear(final[:, -DECODE_CHECK:], gemma.embed_tokens.weight)
+    got = logits[:, -DECODE_CHECK:]
+    err = relative_error(got, want)
+    weight_bytes = sum(p.numel() * p.element_size() for p in gemma.parameters())
+    ms_token = 1000 * (seconds[DECODE_NEW] - seconds[1]) / (DECODE_NEW - 1)
+    bound_ms = 1000 * weight_bytes / PEAK_BYTES_PER_S
+    rec = {"prompt_tokens": DECODE_PROMPT, "new_tokens": DECODE_NEW, "prefill_s": seconds[1],
+           "decode_s": seconds[DECODE_NEW], "ms_per_token": ms_token, "bound_ms_per_token": bound_ms,
+           "bound_by": "bytes", "pct_of_bound": 100 * bound_ms / ms_token, "weight_gb": weight_bytes / 1e9,
+           "logits_vs_uncached": err, "check_positions": DECODE_CHECK,
+           "argmax_agrees": bool(torch.equal(want.argmax(-1), tokens[:, -DECODE_CHECK:])),
+           "tokens_finite": bool(torch.isfinite(logits).all()), "launches": counts, "card": smi}
+    del final, logits, want, got
+    torch.cuda.empty_cache()
+    log(f"Gemma decode (full-width fp32 Gemma-3-12B, greedy, {DECODE_NEW} tokens after {DECODE_PROMPT}): "
+        f"{json.dumps(rec)}")
+    if err["max_rel"] > TOL_DECODE_MAX_REL or err["rms_rel"] > TOL_DECODE_RMS_REL or not rec["tokens_finite"]:
+        raise AssertionError(f"the cached decode's logits differ from the uncached forward: {err}")
+    if any(counts.values()):
+        raise AssertionError(f"the decode launched a kernel: {counts}")
     return rec
 
 
@@ -1835,6 +1917,8 @@ def phase_v2_files(smi: str) -> tuple:
             del cfg_frames
             log(f"V2 {pipeline} from files (tokenized prompt and negative, {V2_CFG_STEPS} steps): "
                 f"{json.dumps(cfg_flows[pipeline])} | {smi}")
+        torch.cuda.empty_cache()
+        rec["server"] = phase_server(smi, paths, directory, os.path.join(directory, "clip_0.y4m"))
     finally:
         shutil.rmtree(directory, ignore_errors=True)
 
@@ -1883,6 +1967,250 @@ def phase_v2_files(smi: str) -> tuple:
     if not FP8_DIT_GB[0] < stats[0]["dit_weight_gb"] < FP8_DIT_GB[1] + 0.5:
         raise AssertionError(f"the V2 DiT from the fp8 file holds {stats[0]['dit_weight_gb']} GB")
     return rec, {"fwd": counts["fwd"], "conv_fp32": upscale * len(SEEDS), "conv_bf16": counts["conv"] - upscale * len(SEEDS)}
+
+
+SERVER_PROMPTS = ("A red fox runs through deep snow at dawn", "Waves break on black rocks under a low sun")
+SERVER_SHORT_FRAMES = 57  # one request's num_frames
+
+
+@contextlib.contextmanager
+def _served(setups: list, executed: list, kept: dict):
+    """While inside, every `generate.setup` (as `serve` calls it) is timed
+    into `setups`, its (models, ledger) kept in `kept`, and every
+    `generate.execute_request` recorded into `executed`: its seconds, peak
+    GB, load seconds, stage seconds and the launches it made (the counts set
+    to 0 just before it, read just after)."""
+    import torch
+
+    import ltx2_tpu_torch.generate as G
+
+    real_setup, real_execute = G.setup, G.execute_request
+
+    def timed_setup(args, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_setup(args, *a, **k)
+        torch.cuda.synchronize()
+        setups.append({"setup_s": time.perf_counter() - t0, "resident_gb": torch.cuda.memory_allocated() / 1e9,
+                       "resident_weight_gb": out[0].weight_gb()})
+        kept["models"] = out
+        return out
+
+    def counted_execute(args, models, ledger):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results, stats = real_execute(args, models, ledger)
+        torch.cuda.synchronize()
+        counts = _counts()
+        # The upscale phase's convs run the fp32 kernel, the decode's the bf16 one (the flows' phase counts).
+        fp32 = sum(st.get("upscale_conv_launches", 0) for st in stats)
+        bf16 = sum(st.get("decode_conv_launches", 0) for st in stats)
+        st = stats[0]
+        executed.append({
+            "frames": args.frames, "skip_vae": args.skip_vae, "seconds": time.perf_counter() - t0,
+            "peak_gb": max((v for k, v in st.items() if k.endswith("_peak_gb") and v is not None), default=None),
+            "phase_s": {p: st.get(f"{p}_s") for p in ("text_encode", "stage1", "upscale", "stage2", "decode", "save")},
+            "decode_tiles": st.get("decode_tiles"),
+            "init_s": {k: v for k, v in st.items() if k.endswith("_init_s")},
+            "fwd": counts["fwd"], "bwd": counts["bwd"], "conv_fp32": fp32, "conv_bf16": bf16,
+            "conv_other": counts["conv"] - fp32 - bf16,
+            "enhanced_prompt": st.get("enhanced_prompt"), "enhance_s": st.get("enhance_s"),
+            "enhanced_prompt_chars": len(st.get("enhanced_prompt") or ""),
+            "prompt_source": st["prompt_source"], "finite": bool(st["context_finite"] and st["stage2_latent_finite"])})
+        return results, stats
+
+    G.setup, G.execute_request = timed_setup, counted_execute
+    try:
+        yield
+    finally:
+        G.setup, G.execute_request = real_setup, real_execute
+
+
+def _serve_launch(argv: list, requests: list, directory: str, name: str, setups: list, executed: list,
+                  kept: dict) -> list:
+    """`serve.main(argv --requests FILE)` on `requests` written as JSON
+    lines (a comment line first) inside `_served`; returns the responses
+    (its stdout, captured)."""
+    import io
+    import os
+
+    from ltx2_tpu_torch import serve
+
+    path = os.path.join(directory, f"{name}.jsonl")
+    with open(path, "w", encoding="utf-8") as fh:
+        fh.write(f"# {name}: one JSON request a line\n" + "\n".join(json.dumps(r) for r in requests) + "\n")
+    out = io.StringIO()
+    with _served(setups, executed, kept), contextlib.redirect_stdout(out):
+        serve.main(argv + ["--requests", path])
+    return [json.loads(line) for line in out.getvalue().splitlines()]
+
+
+def _http_checks(argv: list, models, ledger, request: dict) -> dict:
+    """The HTTP front on 127.0.0.1, port 0, in a thread, on the launch's
+    resident models: /healthz, one POST /generate and a POST without a
+    Content-Length (411)."""
+    import http.client
+    import threading
+    import urllib.request
+
+    from ltx2_tpu_torch import generate, serve
+
+    args = serve.build_parser().parse_args(argv + ["--http", "0"])
+    generate.check_request(args, output=False)
+    server = serve.make_http_server(args, models, ledger)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as resp:
+            health = resp.status
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/generate", data=json.dumps(request).encode(),
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            code, body = resp.status, json.loads(resp.read())
+        post_s = time.perf_counter() - t0
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("POST", "/generate")
+        no_length = conn.getresponse().status
+        conn.close()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    return {"healthz": health, "generate": code, "status": body["status"], "post_s": post_s, "no_length": no_length,
+            "artifacts": body.get("artifacts")}
+
+
+def phase_server(smi: str, paths: dict, directory: str, reference: str) -> dict:
+    """The resident server at full width (`python -m ltx2_tpu_torch.serve`'s
+    `main`) on the V2 files: --pipeline distilled --fp8-serving from the
+    checkpoint, Gemma, the tokenizer and the upscaler, 512x768x121, .y4m out.
+    Five requests from a file: three prompts and seeds (one at num_frames
+    57), an unknown field and a .mp4 output (no ffmpeg on this machine): both
+    bad_request, the server still up. Then the HTTP front on the same
+    resident models. Then a second launch with --enhance-prompt (the 2-layer
+    Gemma decodes up to 512 tokens; --skip-vae). Checks: one setup a launch
+    and no load seconds in any request; each request's flash, fp32-conv
+    and bf16-conv launches those of a command-line clip (1056, 19 and 270
+    at 121 frames); the first clip byte for byte the command line's of the
+    same request (`reference`, written by `generate.main` above); the
+    enhanced prompt is what the tokenizer encodes. Records setup seconds,
+    resident GB, each request's seconds and peak GB."""
+    import os
+
+    import torch
+
+    import ltx2_tpu_torch.generate as G
+    from ltx2_tpu_torch.models.text_encoder import generation
+    from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscalerConfig
+    from ltx2_tpu_torch.models.upscaler.spatial import conv_launches as upscaler_convs
+    from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoderConfig, conv_launches
+    from ltx2_tpu_torch.models.video_vae.tiling import generate_tile_specs
+    from ltx2_tpu_torch.pipelines.distilled import DistilledConfig
+
+    launch = ["--pipeline", "distilled", "--fp8-serving", "--checkpoint", paths["checkpoint"], "--gemma-dir",
+              paths["gemma"], "--spatial-upscaler", paths["upscaler"], "--negative-prompt", V2_NEGATIVE,
+              "--height", str(HEIGHT), "--width", str(WIDTH), "--num-frames", str(FRAMES), "--device", "cuda"]
+    outs = [os.path.join(directory, f"served_{i}.y4m") for i in range(3)]
+    requests = [{"prompt": V2_PROMPT, "seed": SEEDS[0], "output": outs[0]},
+                {"prompt": SERVER_PROMPTS[0], "seed": 7, "output": outs[1]},
+                {"prompt": SERVER_PROMPTS[1], "seed": 8, "output": outs[2], "num_frames": SERVER_SHORT_FRAMES},
+                {"prompt": V2_PROMPT, "seed": 9, "no_such_field": 1},
+                {"prompt": V2_PROMPT, "seed": 9, "output": os.path.join(directory, "served.mp4")}]
+    t0 = time.perf_counter()
+    setups, executed, kept = [], [], {}
+    responses = _serve_launch(launch, requests, directory, "requests", setups, executed, kept)
+    same_as_cli = open(outs[0], "rb").read() == open(reference, "rb").read()
+    models, ledger = kept.pop("models")
+    with _served([], executed, {}):
+        http = _http_checks(launch, models, ledger, {"prompt": SERVER_PROMPTS[0], "seed": 11, "num_frames":
+                                                     SERVER_SHORT_FRAMES, "output": os.path.join(directory, "http.y4m")})
+    http_executed = executed[3:]
+    del models, ledger
+    gc.collect()  # the HTTP server's handler class holds the models in a reference cycle
+    torch.cuda.empty_cache()
+    before_enhance_gb = torch.cuda.memory_allocated() / 1e9
+    served_s = time.perf_counter() - t0
+
+    decodes, tokenized = [], []
+    real_generate, real_tokenize = generation.gemma3_generate, G.tokenize_prompts
+
+    def timed_generate(model, ids, mask, max_new_tokens, *a, **k):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tokens = real_generate(model, ids, mask, max_new_tokens, *a, **k)
+        torch.cuda.synchronize()
+        decodes.append({"prompt_tokens": int(mask.sum()), "max_new_tokens": max_new_tokens,
+                        "decoded": int((tokens != k.get("pad_id", 0)).sum()), "s": time.perf_counter() - t1})
+        return tokens
+
+    def recorded_tokenize(gemma_dir, prompt, negative):
+        tokenized.append(prompt)
+        return real_tokenize(gemma_dir, prompt, negative)
+
+    generation.gemma3_generate, G.tokenize_prompts = timed_generate, recorded_tokenize
+    t0 = time.perf_counter()
+    enh_setups, enh_executed = [], []
+    try:
+        enh_responses = _serve_launch(launch + ["--enhance-prompt"], [
+            {"prompt": "a fox", "seed": 5, "skip_vae": True, "output": os.path.join(directory, "enhanced.y4m")}],
+            directory, "enhance", enh_setups, enh_executed, {})
+    finally:
+        generation.gemma3_generate, G.tokenize_prompts = real_generate, real_tokenize
+    gc.collect()
+    torch.cuda.empty_cache()
+    enhance_launch_s = time.perf_counter() - t0
+
+    # The decode is tiled as DistilledConfig.effective_tiling decides: 6 tiles at 121 frames, none at 57.
+    tilings = {f: DistilledConfig(height=HEIGHT, width=WIDTH, num_frames=f).effective_tiling()
+               for f in (FRAMES, SERVER_SHORT_FRAMES)}
+    tiles = {f: len(generate_tile_specs((1, 128, (f - 1) // 8 + 1, HEIGHT // 32, WIDTH // 32), t)) if t else 1
+             for f, t in tilings.items()}
+    decode_convs = conv_launches(VideoDecoderConfig())
+    want = {f: {"fwd": TWO_STAGE_LAUNCHES_PER_CLIP, "bwd": 0, "conv_fp32": upscaler_convs(SpatialUpscalerConfig()),
+                "conv_bf16": decode_convs * tiles[f]} for f in tiles}
+    served = executed[:3]
+    rec = {"setup": setups, "requests": [{k: v for k, v in e.items() if k != "enhanced_prompt"} for e in served],
+           "first_request_s": served[0]["seconds"], "steady_request_s": served[1]["seconds"],
+           "responses": [{k: r.get(k) for k in ("id", "status", "kind", "seconds", "artifacts", "error")}
+                         for r in responses],
+           "first_clip_equals_cli": same_as_cli, "http": http, "http_request": http_executed,
+           "served_phase_s": served_s, "enhance_launch_s": enhance_launch_s, "enhance_setup": enh_setups,
+           "allocated_before_enhance_launch_gb": before_enhance_gb,
+           "enhance_request": [{k: v for k, v in e.items() if k != "enhanced_prompt"} for e in enh_executed],
+           "enhanced_prompt_head": (enh_executed[0]["enhanced_prompt"] or "")[:80] if enh_executed else None,
+           "enhance_decodes": decodes,
+           "enhance_ms_per_token": [1000 * d["s"] / max(d["decoded"], 1) for d in decodes],
+           "launches": {k: sum(e[k] for e in executed + enh_executed) for k in ("fwd", "bwd", "conv_fp32",
+                                                                              "conv_bf16")},
+           "expected_per_request": {str(f): w for f, w in want.items()}, "card": smi}
+    log(f"resident server (V2 distilled fp8 from files, 512x768x{FRAMES}, JSON lines, HTTP, --enhance-prompt): "
+        f"{json.dumps(rec)} | {smi}")
+    if [r["status"] for r in responses] != ["ok", "ok", "ok", "error", "error"] or \
+            [r["id"] for r in responses] != list(range(5)) or \
+            [r.get("kind") for r in responses[3:]] != ["bad_request"] * 2:
+        raise AssertionError(f"served responses {rec['responses']}")
+    if len(setups) != 1 or len(enh_setups) != 1 or any(v for e in executed + enh_executed for v in e["init_s"].values()):
+        raise AssertionError(f"the weights loaded more than once: setups {setups}, {enh_setups}, "
+                             f"requests' load seconds {[e['init_s'] for e in executed + enh_executed]}")
+    for e in served + http_executed:
+        got = {k: e[k] for k in ("fwd", "bwd", "conv_fp32", "conv_bf16")}
+        got["conv_other"] = e["conv_other"]
+        want[e["frames"]]["conv_other"] = 0
+        if got != want[e["frames"]] or not e["finite"] or e["prompt_source"] != "tokenizer":
+            raise AssertionError(f"a served request at {e['frames']} frames: {e}, expected {want[e['frames']]}")
+    if not same_as_cli:
+        raise AssertionError("the first served clip differs from generate.main's of the same request")
+    if (http["healthz"], http["generate"], http["status"], http["no_length"]) != (200, 200, "ok", 411):
+        raise AssertionError(f"the HTTP front: {http}")
+    enh = enh_executed[0] if enh_executed else {}
+    if [r["status"] for r in enh_responses] != ["ok"] or len(decodes) != 1 or decodes[0]["max_new_tokens"] != 512 \
+            or tokenized != [enh.get("enhanced_prompt")]:
+        raise AssertionError(f"--enhance-prompt: responses {enh_responses}, decodes {decodes}, tokenized "
+                             f"{tokenized}, request {enh}")
+    return rec
 
 
 @contextlib.contextmanager
@@ -5016,6 +5344,7 @@ def main():
     checkpoint, file_counts, file_stats = phase_checkpoint(smi)
     torch.cuda.empty_cache()
     v2_files, v2_counts = phase_v2_files(smi)
+    server_counts = v2_files["server"]["launches"]
     torch.cuda.empty_cache()
     two_stage_counts, two_stage_stats, two_stage_peaks = phase_two_stage(smi)
     phases = ("text_encode", "stage1", "upscale", "stage2", "decode")
@@ -5095,7 +5424,7 @@ def main():
                          + i2v_two_stage["fwd"] + i2v_one_stage["fwd"] + options["fwd"] + train_counts["fwd"]
                          + sum(c["fwd"] for c in av_paths.values()) + audio_only_counts["fwd"]
                          + int8_counts["fwd"] + temporal_counts["fwd"] + sum(c["fwd"] for c in kf_counts.values())
-                         + sum(c["fwd"] for c in vp_counts.values())),
+                         + sum(c["fwd"] for c in vp_counts.values()) + server_counts["fwd"]),
             "launches_by_path": {"serve": serve_counts["fwd"], "serve_two_stage": two_stage_counts["fwd"],
                                  "serve_two_stage_from_files": file_counts["fwd"],
                                  "serve_v2_two_stage_from_files": v2_counts["fwd"],
@@ -5108,7 +5437,7 @@ def main():
                                  "audio_only": audio_only_counts["fwd"], "serve_int8": int8_counts["fwd"],
                                  "temporal_upscale": temporal_counts["fwd"],
                                  **{k: c["fwd"] for k, c in kf_counts.items()},
-                                 **{k: c["fwd"] for k, c in vp_counts.items()}},
+                                 **{k: c["fwd"] for k, c in vp_counts.items()}, "server": server_counts["fwd"]},
             # ic-lora's stage 1 over its 1536 tokens and the control's 1536
             # appended, counted in "launches" too.
             "ic_lora_launches_by_length": vp_counts["ic_lora"]["by_length"],
@@ -5179,7 +5508,8 @@ def main():
                          + av_counts["conv_bf16"] + av_file_counts["conv_bf16"]
                          + two_cfg_counts["conv_bf16"] + a2vid_counts["conv_bf16"]
                          + i2v_two_stage["conv_bf16"] + i2v_one_stage["conv_bf16"] + options["conv_bf16"]
-                         + temporal_counts["conv_bf16"] + sum(kf_bf16.values()) + sum(vp_bf16.values())),
+                         + temporal_counts["conv_bf16"] + sum(kf_bf16.values()) + sum(vp_bf16.values())
+                         + server_counts["conv_bf16"]),
             "launches_by_path": {"serve": serve_counts["conv"],
                                  "serve_two_stage": two_stage_counts["conv"] - upscale_launches,
                                  "serve_two_stage_from_files": file_counts["conv"] - file_upscale_launches,
@@ -5191,7 +5521,8 @@ def main():
                                  "image_to_video_two_stage": i2v_two_stage["conv_bf16"],
                                  "one_stage": i2v_one_stage["conv_bf16"],
                                  "one_stage_options": options["conv_bf16"],
-                                 "temporal_upscale": temporal_counts["conv_bf16"], **kf_bf16, **vp_bf16},
+                                 "temporal_upscale": temporal_counts["conv_bf16"], **kf_bf16, **vp_bf16,
+                                 "server": server_counts["conv_bf16"]},
             "max_abs_err": max(r["max_abs_err"] for r in bf16_recs),
             "ms": bf16_recs[0]["ms"],
             "plain_ms": bf16_recs[0]["plain_ms"],
@@ -5211,7 +5542,7 @@ def main():
                          + two_cfg_counts["conv_fp32"] + a2vid_counts["conv_fp32"]
                          + i2v_two_stage["conv_fp32"] + i2v_one_stage["conv_fp32"] + options["conv_fp32"]
                          + prep_counts["conv"] + temporal_counts["conv_fp32"] + sum(kf_fp32.values())
-                         + sum(vp_fp32.values())),
+                         + sum(vp_fp32.values()) + server_counts["conv_fp32"]),
             "launches_by_path": {"serve_two_stage": upscale_launches,
                                  "serve_two_stage_from_files": file_upscale_launches,
                                  "serve_v2_two_stage_from_files": v2_counts["conv_fp32"],
@@ -5222,7 +5553,8 @@ def main():
                                  "image_to_video_two_stage": i2v_two_stage["conv_fp32"],
                                  "one_stage": i2v_one_stage["conv_fp32"],
                                  "one_stage_options": options["conv_fp32"], "prepare_data": prep_counts["conv"],
-                                 "temporal_upscale": temporal_counts["conv_fp32"], **kf_fp32, **vp_fp32},
+                                 "temporal_upscale": temporal_counts["conv_fp32"], **kf_fp32, **vp_fp32,
+                                 "server": server_counts["conv_fp32"]},
             "max_abs_err": max(r["max_abs_err"] for r in fp32_recs),
             "ms": fp32_recs[0]["ms"],
             "plain_ms": fp32_recs[0]["plain_ms"],

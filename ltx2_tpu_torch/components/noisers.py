@@ -37,3 +37,23 @@ class GaussianNoiser:
                 device=latent_state.latent.device,
             )
         return _blend(latent_state, noise, noise_scale)
+
+
+class DeterministicNoiser:
+    """Noise from a fixed seed whatever the generator, for reproducible
+    debugging (the JAX package's DeterministicNoiser; its draws come from
+    torch's generator, so they differ from JAX's at the same seed)."""
+
+    def __init__(self, seed: int = 42):
+        self.seed = seed
+
+    def __call__(
+        self,
+        generator: Optional[torch.Generator],
+        latent_state: LatentState,
+        noise_scale: float = 1.0,
+        noise: Optional[torch.Tensor] = None,
+    ) -> LatentState:
+        del generator
+        fixed = torch.Generator(device=latent_state.latent.device).manual_seed(self.seed)
+        return GaussianNoiser()(fixed, latent_state, noise_scale, noise=noise)

@@ -6,6 +6,7 @@ float64 numpy with float32 out, as the JAX package makes them."""
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 from typing import Optional, Sequence
 
 import numpy as np
@@ -56,6 +57,57 @@ class LTX2Scheduler:
             if scale_factor != 0.0:
                 sigmas = np.where(sigmas != 0, 1.0 - one_minus / scale_factor, sigmas)
         return sigmas.astype(np.float32)
+
+
+class LinearQuadraticScheduler:
+    """A linear ramp up to `threshold_noise`, then a quadratic, as the JAX
+    package's (reference schedulers.py:105-165)."""
+
+    def execute(self, steps: int, threshold_noise: float = 0.025, linear_steps: Optional[int] = None,
+                **_kwargs) -> np.ndarray:
+        if steps == 1:
+            return np.array([1.0, 0.0], dtype=np.float32)
+        if linear_steps is None:
+            linear_steps = steps // 2
+        linear = [i * threshold_noise / linear_steps for i in range(linear_steps)]
+        diff = linear_steps - threshold_noise * steps
+        quadratic_steps = steps - linear_steps
+        quadratic = []
+        if quadratic_steps > 0:
+            qc = diff / (linear_steps * quadratic_steps ** 2)
+            lc = threshold_noise / linear_steps - 2 * diff / (quadratic_steps ** 2)
+            const = qc * linear_steps ** 2
+            quadratic = [qc * i ** 2 + lc * i + const for i in range(linear_steps, steps)]
+        return np.array([1.0 - x for x in (linear + quadratic + [1.0])], dtype=np.float32)
+
+
+class BetaScheduler:
+    """Timesteps at the quantiles of a Beta(alpha, beta) over the
+    flux-shifted sigmas of 10000 steps, repeats dropped (reference
+    schedulers.py:168-217; https://arxiv.org/abs/2407.12173). Needs scipy."""
+
+    shift = 2.37
+    timesteps_length = 10000
+
+    def execute(self, steps: int, alpha: float = 0.6, beta: float = 0.6, **_kwargs) -> np.ndarray:
+        import scipy.stats
+
+        model_sigmas = _model_sampling_sigmas(self.shift, self.timesteps_length)
+        total_timesteps = len(model_sigmas) - 1
+        ts = 1 - np.linspace(0, 1, steps, endpoint=False)
+        ts = np.rint(scipy.stats.beta.ppf(ts, alpha, beta) * total_timesteps).tolist()
+        ts = list(dict.fromkeys(ts))  # repeats dropped, order kept
+        return np.array([float(model_sigmas[int(t)]) for t in ts] + [0.0], dtype=np.float32)
+
+
+@lru_cache(maxsize=5)
+def _model_sampling_sigmas(shift: float, timesteps_length: int) -> np.ndarray:
+    timesteps = np.arange(1, timesteps_length + 1) / timesteps_length
+    return np.array([flux_time_shift(shift, 1.0, t) for t in timesteps])
+
+
+def flux_time_shift(mu: float, sigma: float, t: float) -> float:
+    return math.exp(mu) / (math.exp(mu) + (1 / t - 1) ** sigma)
 
 
 def get_sigma_schedule(num_steps: int, distilled: bool = False, tokens: Optional[int] = None,

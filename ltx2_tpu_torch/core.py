@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import torch
 
@@ -29,6 +29,13 @@ def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None, eps: float 
     if weight is not None:
         out = out * weight.float()
     return out.to(x.dtype)
+
+
+def check_config_value(config: dict, key: str, expected: Any) -> None:
+    """Raise ValueError unless config[key] is `expected`."""
+    actual = config.get(key)
+    if actual != expected:
+        raise ValueError(f"Config value {key} is {actual}, expected {expected}")
 
 
 def to_velocity(sample: torch.Tensor, sigma: Scalar, denoised_sample: torch.Tensor) -> torch.Tensor:

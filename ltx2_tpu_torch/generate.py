@@ -145,6 +145,19 @@ implicit-GEMM conv kernel; Gemma's and the connector's fp32 attention, and
 the audio decoder's and the vocoder's fp32 convs, run as plain torch ops
 (TF32 off), as the JAX package runs them outside Pallas.
 
+`--enhance-prompt` (with `--gemma-dir`) expands `--prompt` with the same
+Gemma before it is encoded (models/text_encoder/generation.py, sampled
+from `--seed`; the stats' `enhanced_prompt`); `--early-layers-only`
+conditions a V1 checkpoint's DiT on Gemma's layer-0 hidden state in place
+of the text encoder.
+
+The command line is `build_parser()`, `check_request(args)` (every
+refusal a ValueError, before any model is built), `setup(args)` and
+`execute_request(args, models, ledger)`: `main` runs them once with no
+resident models, so each module is released when its phase is over; the
+server (`python -m ltx2_tpu_torch.serve`) keeps the launch's modules
+resident (`ResidentModels`) and runs one `execute_request` a request.
+
 From Python: `generate_video(seed=0)`, `generate_videos([0, 1, ...])` or
 `generate_videos_distilled([0, 1, ...], text_encoder=True)`. From the shell
 (N clips in one process, seeds seed..seed+N-1):
@@ -185,7 +198,10 @@ From Python: `generate_video(seed=0)`, `generate_videos([0, 1, ...])` or
 from __future__ import annotations
 
 import argparse
+import contextlib
+import contextvars
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -270,7 +286,10 @@ def _timed(device: torch.device, make):
 
 
 def _free(device: torch.device) -> None:
-    """Return released modules' device memory to the allocator's pool."""
+    """Return released modules' device memory to the allocator's pool;
+    inside `resident` nothing is released, and nothing is done."""
+    if _RESIDENT.get() is not None:
+        return
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -285,6 +304,67 @@ def _phase_peak(device: torch.device, on: bool) -> Optional[float]:
     peak = torch.cuda.max_memory_allocated(device) / 1e9
     torch.cuda.reset_peak_memory_stats(device)
     return peak
+
+
+class ResidentModels(dict):
+    """The modules a server keeps between requests (`setup`), each under the
+    key of what built it: a component's name for the ledger's, the name and
+    the construction's settings for random weights."""
+
+    def weight_gb(self) -> float:
+        """The resident modules' parameters and buffers, GB."""
+        seen = {id(m): m for m in self.values() if isinstance(m, torch.nn.Module)}
+        return sum(weight_bytes(m) for m in seen.values()) / 1e9
+
+
+_RESIDENT: contextvars.ContextVar = contextvars.ContextVar("resident_models", default=None)
+
+
+@contextlib.contextmanager
+def resident(models: Optional[ResidentModels]):
+    """Inside, every module a flow builds comes from `models` when it holds
+    one built the same way, and what is built is kept there; the flows'
+    releases then release nothing (`models` keeps a reference). None: each
+    flow builds and releases its modules, the one-shot command line's
+    peaks."""
+    token = _RESIDENT.set(models)
+    try:
+        yield
+    finally:
+        _RESIDENT.reset(token)
+
+
+def _built(device: torch.device, st: dict, stat: str, key, make):
+    """make()'s module, its seconds in st[stat]; inside `resident`, the one
+    kept under `key` (0 seconds), or make()'s, then kept."""
+    models = _RESIDENT.get()
+    if models is not None and key in models:
+        st[stat] = 0.0
+        return models[key]
+    module, st[stat] = _timed(device, make)
+    if models is not None:
+        models[key] = module
+    return module
+
+
+@contextlib.contextmanager
+def _weights_restored(model, loras: Sequence[LoRAConfig]):
+    """Inside `resident`, the weights a runtime LoRA fuse changes are copied
+    to the host and written back bit for bit at the end: the unfuse restores
+    them only up to their dtype's rounding, which would drift a resident DiT
+    from request to request. Outside, nothing."""
+    from ltx2_tpu_torch.loader.lora import lora_targets
+
+    if _RESIDENT.get() is None or not loras:
+        yield
+        return
+    saved = {name: model.get_parameter(name).detach().to("cpu", copy=True) for name in lora_targets(model, loras)}
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for name, host in saved.items():
+                model.get_parameter(name).copy_(host)
 
 
 def make_dit(layers: int, device: torch.device, seed: int = 0, base: LTXModelConfig = LTXModelConfig(),
@@ -406,8 +486,8 @@ def tokenize_prompts(gemma_dir: str, prompt: str, negative_prompt: str) -> Tuple
     return torch.from_numpy(ids), torch.from_numpy(mask)
 
 
-def encode_prompts(seeds: Sequence[int], gemma: Gemma3, text_encoder: VideoTextEncoder, device: torch.device,
-                   stats: Sequence[dict], negatives: bool = False,
+def encode_prompts(seeds: Sequence[int], gemma: Gemma3, text_encoder: Optional[VideoTextEncoder],
+                   device: torch.device, stats: Sequence[dict], negatives: bool = False,
                    tokens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                    embeddings: Optional[list] = None, audio_contexts: Optional[list] = None
                    ) -> List[torch.Tensor]:
@@ -424,7 +504,9 @@ def encode_prompts(seeds: Sequence[int], gemma: Gemma3, text_encoder: VideoTextE
     `negative`; with an audio connector also `positive_audio`,
     `negative_audio`); `audio_contexts`, when given, each request's audio
     encodings as the contexts are returned (None without an audio
-    connector)."""
+    connector). `text_encoder` None is `--early-layers-only`: the contexts
+    are Gemma's layer-0 hidden state (the scaled embedding) with the padding
+    zeroed, as the JAX CLI makes them."""
     contexts = []
     for seed, st in zip(seeds, stats):
         if tokens is None:
@@ -442,7 +524,9 @@ def encode_prompts(seeds: Sequence[int], gemma: Gemma3, text_encoder: VideoTextE
         t0 = time.perf_counter()
         _, hidden = gemma3_apply(gemma, ids, mask)
         audio = None
-        if hasattr(text_encoder, "audio_embeddings_connector"):
+        if text_encoder is None:
+            encoding = hidden[0] * mask[:, :, None].to(hidden.dtype)
+        elif hasattr(text_encoder, "audio_embeddings_connector"):
             out = av_text_encoder_apply(text_encoder, hidden, mask)
             encoding, audio = out.video_encoding, out.audio_encoding
         else:
@@ -465,17 +549,38 @@ def encode_prompts(seeds: Sequence[int], gemma: Gemma3, text_encoder: VideoTextE
     return contexts
 
 
+# The flows' `text_encoder` for `--early-layers-only`: Gemma's layer-0 state, no encoder.
+EARLY_LAYERS = "early-layers"
+
+
+def _gemma(stats, device, ledger) -> Gemma3:
+    """Gemma: the ledger's, else the full-width fp32 12B from seed 3."""
+    return _built(device, stats[0], "gemma_init_s", "gemma",
+                  ledger.gemma if ledger is not None else (lambda: make_gemma(device)))
+
+
+def _text_encoder(stats, device, ledger, audio: bool) -> VideoTextEncoder:
+    """The text encoder: the ledger's, else the V1 one from seed 4 (with
+    `audio` its audio connector too)."""
+    if ledger is not None:
+        return _built(device, stats[0], "text_encoder_init_s", "text_encoder", ledger.text_encoder)
+    return _built(device, stats[0], "text_encoder_init_s", ("text_encoder", audio),
+                  lambda: make_text_encoder(device, audio=audio))
+
+
 def _encode_phase(seeds, stats, device, gemma: Optional[Gemma3], text_encoder: Optional[VideoTextEncoder],
                   phase_peaks: bool, negatives: bool = False, tokens=None, embeddings=None, audio_contexts=None):
     """The text-encode phase: builds what is not given (with `audio_contexts`
-    a V1 encoder with its audio connector), encodes every request
-    (`encode_prompts`) and returns the contexts; the modules it built are
-    released when it returns."""
+    a V1 encoder with its audio connector; `text_encoder` EARLY_LAYERS: no
+    encoder, Gemma's layer-0 state), encodes every request (`encode_prompts`)
+    and returns the contexts; the modules it built are released when it
+    returns."""
     if gemma is None:
-        gemma, stats[0]["gemma_init_s"] = _timed(device, lambda: make_gemma(device))
-    if text_encoder is None:
-        text_encoder, stats[0]["text_encoder_init_s"] = _timed(
-            device, lambda: make_text_encoder(device, audio=audio_contexts is not None))
+        gemma = _gemma(stats, device, None)
+    if text_encoder == EARLY_LAYERS:
+        text_encoder = None
+    elif text_encoder is None:
+        text_encoder = _text_encoder(stats, device, None, audio_contexts is not None)
     contexts = encode_prompts(seeds, gemma, text_encoder, device, stats, negatives, tokens, embeddings,
                               audio_contexts)
     stats[0]["text_encode_peak_gb"] = _phase_peak(device, phase_peaks)
@@ -487,13 +592,14 @@ def _text_contexts(seeds, stats, device, contexts, text_encoder, gemma, ledger, 
     """The contexts of the two-stage and the CFG flows: those given, or with
     `text_encoder` (True or a module) each request's prompts (`tokens`, or
     seeded ids) encoded, Gemma and the text encoder built (or read through
-    `ledger`) and released before the DiT; None when neither (the dummy
+    `ledger`) and released before the DiT (with EARLY_LAYERS Gemma's layer-0
+    state, no encoder: `--early-layers-only`); None when neither (the dummy
     contexts are drawn later). Each request's stats get its
     `prompt_source` ("tokenizer", "seeded", "contexts" or "dummy").
     `audio_contexts`: a list that receives each request's audio encodings
     (None where the encoder has no audio connector). Returns (contexts,
     whether they were encoded)."""
-    encode = text_encoder is True or isinstance(text_encoder, VideoTextEncoder)
+    encode = text_encoder is True or text_encoder == EARLY_LAYERS or isinstance(text_encoder, VideoTextEncoder)
     if gemma is not None and not encode:
         raise ValueError("gemma is given but text encoding is off (text_encoder=False)")
     if encode and contexts is not None:
@@ -505,13 +611,14 @@ def _text_contexts(seeds, stats, device, contexts, text_encoder, gemma, ledger, 
             st["prompt_source"] = "dummy" if contexts is None else "contexts"
         return contexts, False
     if ledger is not None:
-        gemma, stats[0]["gemma_init_s"] = _timed(device, ledger.gemma)
-        text_encoder, stats[0]["text_encoder_init_s"] = _timed(device, ledger.text_encoder)
+        gemma = _gemma(stats, device, ledger)
+        if text_encoder != EARLY_LAYERS:
+            text_encoder = _text_encoder(stats, device, ledger, False)
         ledger.clear_model("gemma")
         ledger.clear_model("text_encoder")
     contexts = _encode_phase(seeds, stats, device, gemma,
-                             text_encoder if isinstance(text_encoder, VideoTextEncoder) else None, phase_peaks,
-                             negatives, tokens, embeddings, audio_contexts)
+                             text_encoder if isinstance(text_encoder, VideoTextEncoder) or text_encoder == EARLY_LAYERS
+                             else None, phase_peaks, negatives, tokens, embeddings, audio_contexts)
     gemma = text_encoder = None
     _free(device)
     _phase_peak(device, phase_peaks)  # the next phase's peak starts from what is left
@@ -530,18 +637,12 @@ def _dit_and_encoder(stats, device, layers: int, dit, encoder, images, ledger, c
     does not take `context_width` channels, and when `audio` is asked of a
     video-only DiT."""
     if dit is None and ledger is not None:
-        dit, stats[0]["dit_init_s"] = _timed(device, ledger.transformer)
-    elif dit is None and audio:
-        base = av_config(LTXModelConfig(compute_dtype=dtype))
-        if context_width not in (None, base.cross_attention_dim):
-            base = dataclasses.replace(base, caption_channels=context_width)
-        dit, stats[0]["dit_init_s"] = _timed(device, lambda: make_dit(layers, device, base=base, fp8=fp8 and not int8,
-                                                                      int8=int8))
+        dit = _built(device, stats[0], "dit_init_s", "transformer", ledger.transformer)
     elif dit is None:
-        base = LTXModelConfig(compute_dtype=dtype)
+        base = av_config(LTXModelConfig(compute_dtype=dtype)) if audio else LTXModelConfig(compute_dtype=dtype)
         if context_width not in (None, base.cross_attention_dim):
             base = dataclasses.replace(base, caption_channels=context_width)
-        dit, stats[0]["dit_init_s"] = _timed(device, lambda: make_dit(layers, device, base=base, int8=int8))
+        dit = _random_dit(stats, device, layers, base, fp8=audio and fp8 and not int8, int8=int8)
     stats[0]["dit_weight_gb"] = weight_bytes(dit) / 1e9
     if audio and not dit.cfg.is_av:
         raise ValueError("audio needs the audio-video DiT (a checkpoint loaded with include_audio, or av_config)")
@@ -550,11 +651,17 @@ def _dit_and_encoder(stats, device, layers: int, dit, encoder, images, ledger, c
         raise ValueError(f"the DiT's text input (caption_channels {dit.cfg.caption_channels}, else its "
                          f"cross_attention_dim {dit.cfg.cross_attention_dim}) does not take the "
                          f"{context_width}-channel text context")
-    if images and encoder is None and ledger is not None:
-        encoder, stats[0]["encoder_init_s"] = _timed(device, ledger.video_encoder)
-    elif images and encoder is None:
-        encoder, stats[0]["encoder_init_s"] = _timed(device, lambda: make_encoder(device))
+    if images and encoder is None:
+        encoder = _built(device, stats[0], "encoder_init_s", "video_encoder",
+                         ledger.video_encoder if ledger is not None else (lambda: make_encoder(device)))
     return dit, encoder
+
+
+def _random_dit(stats, device, layers: int, base: LTXModelConfig, fp8: bool = False, int8: bool = False) -> LTXModel:
+    """`make_dit(layers, base=base, fp8=fp8, int8=int8)`, timed (kept by its
+    settings inside `resident`)."""
+    return _built(device, stats[0], "dit_init_s", ("dit", layers, repr(base), fp8, int8),
+                  lambda: make_dit(layers, device, base=base, fp8=fp8, int8=int8))
 
 
 def _spatial_upscaler(stats, device, upscaler, ledger, needed_by: Optional[str]) -> Optional[SpatialUpscaler]:
@@ -562,23 +669,20 @@ def _spatial_upscaler(stats, device, upscaler, ledger, needed_by: Optional[str])
     ledger without the upscaler's file raises naming `needed_by`, or with
     `needed_by` None gives None (keyframe and ti2vid-hq then run one stage,
     as the JAX CLI runs them without --spatial-upscaler)."""
-    if upscaler is None and ledger is not None:
-        upscaler, stats[0]["upscaler_init_s"] = _timed(device, ledger.spatial_upscaler)
+    if upscaler is None:
+        upscaler = _built(device, stats[0], "upscaler_init_s", "spatial_upscaler",
+                          ledger.spatial_upscaler if ledger is not None else (lambda: make_upscaler(device)))
         if upscaler is None and needed_by is not None:
             raise ValueError(f"{needed_by} needs the spatial upscaler's file (spatial_upscaler_path)")
-    elif upscaler is None:
-        upscaler, stats[0]["upscaler_init_s"] = _timed(device, lambda: make_upscaler(device))
     return upscaler
 
 
 def _temporal_upscaler(stats, device, ledger) -> TemporalUpscaler:
     """The temporal upscaler (from `ledger`, or random), timed."""
-    if ledger is not None:
-        upscaler, stats[0]["temporal_upscaler_init_s"] = _timed(device, ledger.temporal_upscaler)
-        if upscaler is None:
-            raise ValueError("--upscale-temporal needs the temporal upscaler's file (temporal_upscaler_path)")
-        return upscaler
-    upscaler, stats[0]["temporal_upscaler_init_s"] = _timed(device, lambda: make_temporal_upscaler(device))
+    upscaler = _built(device, stats[0], "temporal_upscaler_init_s", "temporal_upscaler",
+                      ledger.temporal_upscaler if ledger is not None else (lambda: make_temporal_upscaler(device)))
+    if upscaler is None:
+        raise ValueError("--upscale-temporal needs the temporal upscaler's file (temporal_upscaler_path)")
     return upscaler
 
 
@@ -588,7 +692,8 @@ def _latent_statistics(cfg: LTXModelConfig, decoder, ledger, device) -> PerChann
     if decoder is not None:
         return decoder.per_channel_statistics
     if ledger is not None:
-        return load_per_channel_statistics(ledger.checkpoint_path, cfg.in_channels, device)
+        return _built(device, {}, "statistics_s", "latent_statistics",
+                      lambda: load_per_channel_statistics(ledger.checkpoint_path, cfg.in_channels, device))
     return PerChannelStatistics(cfg.in_channels, device=device)
 
 
@@ -699,9 +804,7 @@ def generate_videos(
 
     stats = [{"seed": seed, "dit_init_s": 0.0, "decoder_init_s": 0.0} for seed in seeds]
     if dit is None:
-        dit, stats[0]["dit_init_s"] = _timed(
-            device, lambda: make_dit(layers, device, base=LTXModelConfig(compute_dtype=dtype), fp8=not int8,
-                                     int8=int8))
+        dit = _random_dit(stats, device, layers, LTXModelConfig(compute_dtype=dtype), fp8=not int8, int8=int8)
     stats[0]["dit_weight_gb"] = weight_bytes(dit) / 1e9
     cfg = dit.cfg
     tools = make_latent_tools(cfg, height, width, frames, fps)
@@ -731,7 +834,7 @@ def generate_videos(
         return [latent.float().cpu().numpy() for latent in latents], stats
 
     if decoder is None:
-        decoder, stats[0]["decoder_init_s"] = _timed(device, lambda: make_decoder(cfg.compute_dtype, device))
+        decoder = _video_decoder(stats, device, None, cfg.compute_dtype)
 
     videos = []
     for latent, st in zip(latents, stats):
@@ -1286,9 +1389,10 @@ def generate_videos_ic_lora(
             audio_context = (audio_contexts[i] if audio_contexts is not None else
                              context if contexts is not None else dummy_context(cfg, gen, device, audio=True))
         on_phase, marks = _phase_timer(device, st, phase_peaks)
-        out = pipe(context, config, videos=videos, callback=on_phase,
-                   audio_encoding=audio_context, skip_decode=True, noises=None if noises is None else noises[i],
-                   audio_noises=None if audio_noises is None else audio_noises[i])
+        with _weights_restored(dit, [ic_lora] if ic_lora is not None else []):
+            out = pipe(context, config, videos=videos, callback=on_phase,
+                       audio_encoding=audio_context, skip_decode=True, noises=None if noises is None else noises[i],
+                       audio_noises=None if audio_noises is None else audio_noises[i])
         latent, audio_latent = out if audio else (out, None)
         st["attention_launches"] = flash_attention.launches - marks["attention"]
         st["latent_std"] = float(latent.float().std())
@@ -1335,11 +1439,9 @@ def _audio_decode_phase(audio_latents, stats, device, audio_decoder, vocoder, le
     _free(device)
     _phase_peak(device, phase_peaks)
     if audio_decoder is None:
-        make = ledger.audio_decoder if ledger is not None else (lambda: make_audio_decoder(device))
-        audio_decoder, stats[0]["audio_decoder_init_s"] = _timed(device, make)
+        audio_decoder = _audio_decoder(stats, device, ledger)
     if vocoder is None:
-        make = ledger.vocoder if ledger is not None else (lambda: make_vocoder(device))
-        vocoder, stats[0]["vocoder_init_s"] = _timed(device, make)
+        vocoder = _vocoder(stats, device, ledger)
     if audio_decoder is None or vocoder is None:
         raise ValueError("the checkpoint holds no audio decoder or no vocoder: audio cannot be decoded")
     waves = []
@@ -1358,6 +1460,20 @@ def _audio_decode_phase(audio_latents, stats, device, audio_decoder, vocoder, le
     return waves
 
 
+def _audio_decoder(stats, device, ledger) -> Optional[AudioDecoder]:
+    """The audio VAE decoder: the ledger's (None when the file has none),
+    else the published one from seed 6."""
+    return _built(device, stats[0], "audio_decoder_init_s", "audio_decoder",
+                  ledger.audio_decoder if ledger is not None else (lambda: make_audio_decoder(device)))
+
+
+def _vocoder(stats, device, ledger):
+    """The vocoder: the ledger's (None when the file has none), else LTX-2's
+    from seed 7."""
+    return _built(device, stats[0], "vocoder_init_s", "vocoder",
+                  ledger.vocoder if ledger is not None else (lambda: make_vocoder(device)))
+
+
 def _decode_phase(latents, configs, stats, device, decoder, ledger, compute_dtype: str, phase_peaks: bool,
                   decode_seed) -> List[np.ndarray]:
     """After the denoise phase's modules are released: the decoder (given,
@@ -1366,10 +1482,8 @@ def _decode_phase(latents, configs, stats, device, decoder, ledger, compute_dtyp
     seconds, peak memory, tiles and conv launches in its stats."""
     _free(device)
     _phase_peak(device, phase_peaks)
-    if decoder is None and ledger is not None:
-        decoder, stats[0]["decoder_init_s"] = _timed(device, ledger.video_decoder)
-    elif decoder is None:
-        decoder, stats[0]["decoder_init_s"] = _timed(device, lambda: make_decoder(compute_dtype, device))
+    if decoder is None:
+        decoder = _video_decoder(stats, device, ledger, compute_dtype)
     videos = []
     for latent, config, st in zip(latents, configs, stats):
         tiling_used = config.effective_tiling()
@@ -1381,6 +1495,15 @@ def _decode_phase(latents, configs, stats, device, decoder, ledger, compute_dtyp
         st["decode_peak_gb"] = _phase_peak(device, phase_peaks)
         st["decode_conv_launches"] = conv3d_ndhwc_kernel.launches - convs
     return videos
+
+
+def _video_decoder(stats, device, ledger, compute_dtype: str) -> VideoDecoder:
+    """The video decoder: the ledger's, else the full-width one in
+    `compute_dtype` from seed 1."""
+    if ledger is not None:
+        return _built(device, stats[0], "decoder_init_s", "video_decoder", ledger.video_decoder)
+    return _built(device, stats[0], "decoder_init_s", ("video_decoder", compute_dtype),
+                  lambda: make_decoder(compute_dtype, device))
 
 
 def _context_pairs(cfg: LTXModelConfig, contexts, audio_contexts, i: int, gen: torch.Generator, device,
@@ -1650,11 +1773,12 @@ def generate_videos_two_stage(
         (positive, negative), (positive_a, negative_a) = _context_pairs(cfg, contexts, audio_contexts, i, gen,
                                                                         device, audio)
         on_phase, marks = _phase_timer(device, st, phase_peaks)
-        latent, audio_latent = pipe(
-            positive, negative, config, images=images, callback=on_phase, skip_decode=True,
-            positive_audio_encoding=positive_a, negative_audio_encoding=negative_a,
-            noises=None if noises is None else noises[i],
-            audio_noises=None if audio_noises is None else audio_noises[i])
+        with _weights_restored(dit, [distilled_lora] if distilled_lora is not None else []):
+            latent, audio_latent = pipe(
+                positive, negative, config, images=images, callback=on_phase, skip_decode=True,
+                positive_audio_encoding=positive_a, negative_audio_encoding=negative_a,
+                noises=None if noises is None else noises[i],
+                audio_noises=None if audio_noises is None else audio_noises[i])
         st["stage1_step_s"] = st["stage1_s"] / steps
         st["attention_launches"] = flash_attention.launches - marks["attention"]
         st["latent_std"] = float(latent.float().std())
@@ -1745,8 +1869,7 @@ def generate_videos_a2vid(
                                     int8=int8)
     upscaler = _spatial_upscaler(stats, device, upscaler, ledger, "the a2vid pipeline")
     if audio_encoder is None:
-        make = ledger.audio_encoder if ledger is not None else (lambda: make_audio_encoder(device))
-        audio_encoder, stats[0]["audio_encoder_init_s"] = _timed(device, make)
+        audio_encoder = _audio_encoder(stats, device, ledger)
     cfg = dit.cfg
     pipe = A2VidPipelineTwoStage(dit, upscaler, statistics=_latent_statistics(cfg, decoder, ledger, device),
                                  video_encoder=encoder, audio_encoder=audio_encoder)
@@ -1794,6 +1917,13 @@ def generate_videos_a2vid(
             st["audio_sample_rate"], st["audio_samples"] = rate, int(wave.shape[-1])
             st["audio_finite"] = bool(np.isfinite(wave).all())
     return [(r, wave) for r in results], stats
+
+
+def _audio_encoder(stats, device, ledger) -> Optional[AudioEncoder]:
+    """The audio VAE encoder: the ledger's (None when the file has none),
+    else the published one from seed 8."""
+    return _built(device, stats[0], "audio_encoder_init_s", "audio_encoder",
+                  ledger.audio_encoder if ledger is not None else (lambda: make_audio_encoder(device)))
 
 
 def generate_video(seed: int = 0, **kwargs) -> np.ndarray:
@@ -1930,10 +2060,8 @@ def output_paths(output: str, n: int, suffix: str = "") -> List[str]:
     return [f"{base}{ext}"] if n == 1 else [f"{base}_{i}{ext}" for i in range(n)]
 
 
-def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
-    """The command line; writes each request's video (or latent) file,
-    prints one JSON line per request and returns (frames, stats) as the
-    generate functions do (the latents with --skip-vae)."""
+def build_parser() -> argparse.ArgumentParser:
+    """The command line's parser (also the server's parent parser)."""
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--pipeline", choices=PIPELINES, default="bench-e2e",
                     help="bench-e2e: one stage at full resolution, chunked decode; distilled: the two-stage "
@@ -2092,6 +2220,13 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
     loop.add_argument("--upscale-temporal", action="store_true",
                       help="the 2x temporal upscaler after the loop and any spatial one: F latent frames become "
                            "2F - 1 (random weights, or --temporal-upscaler's file with --checkpoint)")
+    ap.add_argument("--enhance-prompt", action="store_true",
+                    help="with --gemma-dir: expand --prompt with Gemma-3 before encoding it (sampled at temperature "
+                         "0.7, top_p 0.9 from --seed; the image-to-video system prompt with --image)")
+    ap.add_argument("--early-layers-only", action="store_true",
+                    help="with --gemma-dir and a V1 checkpoint: condition on Gemma's layer-0 hidden state (the "
+                         "scaled embedding, padding zeroed) in place of the text encoder (experimental, as in the "
+                         "JAX CLI)")
     compat = ap.add_argument_group("the JAX CLI's compatibility flags (its names and settings)")
     compat.add_argument("--fp8", action="store_true", help="same as --fp8-serving")
     compat.add_argument("--fp16", action="store_true", help="16-bit compute: bfloat16 (the default --dtype)")
@@ -2112,52 +2247,82 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
                         help="write a torch.profiler trace of the run (trace.json) into this directory")
     compat.add_argument("--compile-cache", default=None,
                         help="the JAX CLI's XLA compilation cache: accepted and ignored (the port compiles no XLA)")
-    args = ap.parse_args(argv)
-    _apply_reference_compat(ap, args)
+    return ap
+
+
+@functools.lru_cache(maxsize=1)
+def _defaults() -> dict:
+    """Every setting's default, by its argparse name."""
+    return vars(build_parser().parse_args([]))
+
+
+def _flag(dest: str) -> str:
+    return f"--{dest.replace('_', '-')}"
+
+
+def _encodes(args) -> bool:
+    """Whether the request's prompts go through Gemma and the text encoder."""
+    return not args.no_gemma and (args.text_encoder or (args.gemma_dir is not None and not args.embedding))
+
+
+def check_request(args, output: bool = True) -> None:
+    """The command line's settings made consistent and checked, before any
+    model is built: the JAX CLI's compatibility flags applied
+    (`_apply_reference_compat`), the two-stage resolution rounded up to a
+    multiple of 64, and every refusal raised as a ValueError (`main` turns
+    it into a usage error, the server into a `bad_request` response;
+    `--save-control` raises NotImplementedError). `output` False skips the
+    check that --output can be written (a server's launch: each request
+    names its own). Mutates `args`."""
+    defaults = _defaults()
+    _apply_reference_compat(args)
     cfg_flow = args.pipeline in ("one-stage", "text-to-video")
     two_stage = args.pipeline == "two-stage"
-    loop_flags = [f"--{dest.replace('_', '-')}" for dest in LOOP_FLAGS if getattr(args, dest) != ap.get_default(dest)
+    if args.pipeline not in PIPELINES:
+        raise ValueError(f"--pipeline {args.pipeline!r}: not one of {', '.join(PIPELINES)}")
+    if args.sampler not in ("euler", "heun"):
+        raise ValueError(f"--sampler {args.sampler!r}: not euler or heun")
+    loop_flags = [_flag(dest) for dest in LOOP_FLAGS if getattr(args, dest) != defaults[dest]
                   and not (args.pipeline in ("two-stage", "retake") and dest == "cfg_interval")]
     if loop_flags and not cfg_flow:
-        ap.error(f"{', '.join(loop_flags)} need --pipeline one-stage or text-to-video")
-    two_flags = [f"--{dest.replace('_', '-')}" for dest in TWO_STAGE_FLAGS
-                 if getattr(args, dest) != ap.get_default(dest)
+        raise ValueError(f"{', '.join(loop_flags)} need --pipeline one-stage or text-to-video")
+    two_flags = [_flag(dest) for dest in TWO_STAGE_FLAGS if getattr(args, dest) != defaults[dest]
                  and not (args.pipeline == "ti2vid-hq" and dest == "steps_stage1")]
     if two_flags and not two_stage:
-        ap.error(f"{', '.join(two_flags)} need --pipeline two-stage")
+        raise ValueError(f"{', '.join(two_flags)} need --pipeline two-stage")
     if args.pipeline == "ti2vid-hq" and args.steps_stage1 is not None:
         args.num_inference_steps = args.steps_stage1
     if args.audio_file and args.pipeline != "a2vid":
-        ap.error("--audio-file needs --pipeline a2vid")
+        raise ValueError("--audio-file needs --pipeline a2vid")
     for flags, name in ((IC_LORA_FLAGS, "ic-lora"), (RETAKE_FLAGS, "retake")):
-        given = [f"--{dest.replace('_', '-')}" for dest in flags if getattr(args, dest) != ap.get_default(dest)]
+        given = [_flag(dest) for dest in flags if getattr(args, dest) != defaults[dest]]
         if given and args.pipeline != name:
-            ap.error(f"{', '.join(given)} need --pipeline {name}")
+            raise ValueError(f"{', '.join(given)} need --pipeline {name}")
     if args.pipeline == "retake" and not args.video:
-        ap.error("--pipeline retake needs --video (the source video)")
+        raise ValueError("--pipeline retake needs --video (the source video)")
     for flag, used in (("--image", args.image), ("--audio", args.audio)):
         if used and args.pipeline == "retake":
-            ap.error(f"{flag} does not apply to --pipeline retake (video only, conditioned by --video)")
+            raise ValueError(f"{flag} does not apply to --pipeline retake (video only, conditioned by --video)")
     if args.image and args.pipeline == "ic-lora":
-        ap.error("--image does not apply to --pipeline ic-lora (conditioned by --control-video)")
+        raise ValueError("--image does not apply to --pipeline ic-lora (conditioned by --control-video)")
     if args.save_control:
         from ltx2_tpu_torch.pipelines.ic_lora import NO_SAVE_CONTROL
 
         raise NotImplementedError(NO_SAVE_CONTROL)
     if args.keyframe and args.pipeline != "keyframe":
-        ap.error("--keyframe needs --pipeline keyframe")
+        raise ValueError("--keyframe needs --pipeline keyframe")
     if args.pipeline == "keyframe":
         for flag, used in (("--image", args.image), ("--audio", args.audio)):
             if used:
-                ap.error(f"{flag} does not apply to --pipeline keyframe (video only, conditioned by --keyframe)")
+                raise ValueError(f"{flag} does not apply to --pipeline keyframe (video only, conditioned by --keyframe)")
         for flag, dest, value in (("--num-inference-steps", "num_inference_steps", 30),
                                   ("--cfg-scale", "cfg_scale", 7.5)):
-            if getattr(args, dest) != ap.get_default(dest):
+            if getattr(args, dest) != defaults[dest]:
                 print(f"{flag}: --pipeline keyframe runs its config's {value}, as the JAX CLI does; ignored",
                       file=sys.stderr)
     if args.distilled_lora and args.fp8_serving:
-        ap.error("--distilled-lora is fused into the DiT's weights, which --fp8-serving keeps in fp8: drop "
-                 "--fp8-serving (the DiT loads in bf16)")
+        raise ValueError("--distilled-lora is fused into the DiT's weights, which --fp8-serving keeps in fp8: drop "
+                         "--fp8-serving (the DiT loads in bf16)")
     if two_stage:
         _round_two_stage_geometry(args)
         if args.steps_stage1 is not None:
@@ -2171,12 +2336,13 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
                            ("--image", args.image), ("--prompt", args.prompt is not None),
                            ("--negative-prompt", args.negative_prompt is not None), ("--embedding", args.embedding),
                            ("--save-embedding", args.save_embedding),
-                           ("--tile-size", args.tile_size), ("--temporal-tile-size", args.temporal_tile_size)):
+                           ("--tile-size", args.tile_size), ("--temporal-tile-size", args.temporal_tile_size),
+                           ("--enhance-prompt", args.enhance_prompt), ("--early-layers-only", args.early_layers_only)):
             if used:
-                ap.error(f"{flag} needs another --pipeline than bench-e2e")
+                raise ValueError(f"{flag} needs another --pipeline than bench-e2e")
     if args.spatial_upscaler and args.pipeline not in STAGED and not args.upscale_spatial:
-        ap.error("--spatial-upscaler needs --pipeline distilled, two-stage, a2vid, keyframe or ti2vid-hq, or "
-                 "--upscale-spatial")
+        raise ValueError("--spatial-upscaler needs --pipeline distilled, two-stage, a2vid, keyframe or ti2vid-hq, or "
+                         "--upscale-spatial")
     if args.temporal_upscaler and not args.upscale_temporal:
         print("--temporal-upscaler given without --upscale-temporal: the post-hoc 2x applies only with "
               "--upscale-temporal; ignoring the weights", file=sys.stderr)
@@ -2187,61 +2353,222 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
                   "--gemma-dir": args.gemma_dir, "--fp8-serving": args.fp8_serving, "--gemma-fp8": args.gemma_fp8,
                   "--lora": args.lora}
     if not args.checkpoint and any(file_flags.values()):
-        ap.error(f"{', '.join(k for k, v in file_flags.items() if v)} need --checkpoint")
+        raise ValueError(f"{', '.join(k for k, v in file_flags.items() if v)} need --checkpoint")
     if args.gemma_fp8 and not args.gemma_dir:
-        ap.error("--gemma-fp8 needs --gemma-dir")
-    encode = not args.no_gemma and (args.text_encoder or (args.gemma_dir is not None and not args.embedding))
+        raise ValueError("--gemma-fp8 needs --gemma-dir")
+    encode = _encodes(args)
     if args.embedding and args.text_encoder:
-        ap.error("--embedding and --text-encoder are exclusive: the npz holds the encodings")
+        raise ValueError("--embedding and --text-encoder are exclusive: the npz holds the encodings")
     if args.save_embedding and not encode:
-        ap.error("--save-embedding needs the text encoder (--gemma-dir or --text-encoder)")
+        raise ValueError("--save-embedding needs the text encoder (--gemma-dir or --text-encoder)")
     explicit = [flag for flag, v in (("--prompt", args.prompt), ("--negative-prompt", args.negative_prompt)) if v is not None]
     if args.gemma_dir and encode and not has_tokenizer(args.gemma_dir):
-        ap.error(f"--gemma-dir {args.gemma_dir} holds no tokenizer.json: the prompts cannot be tokenized")
+        raise ValueError(f"--gemma-dir {args.gemma_dir} holds no tokenizer.json: the prompts cannot be tokenized")
     if explicit and not (args.gemma_dir and encode):
-        ap.error(f"{', '.join(explicit)} need the tokenizer.json of --gemma-dir (with --checkpoint); without it the "
-                 "random-weight flows draw token ids from each request's seed")
-    if not args.skip_vae:
+        raise ValueError(f"{', '.join(explicit)} need the tokenizer.json of --gemma-dir (with --checkpoint); without "
+                         "it the random-weight flows draw token ids from each request's seed")
+    for flag, on in (("--enhance-prompt", args.enhance_prompt), ("--early-layers-only", args.early_layers_only)):
+        if on and not (args.gemma_dir and encode):
+            raise ValueError(f"{flag} needs Gemma's weights and tokenizer: --gemma-dir (with --checkpoint), and no "
+                             "--embedding or --no-gemma")
+    if args.early_layers_only:
+        _check_early_layers(args)
+    if output and not args.skip_vae:
         try:
             check_output(args.output)
         except ValueError as err:
-            ap.error(f"--output {args.output}: {err}")
+            raise ValueError(f"--output {args.output}: {err}") from None
+
+
+def _check_early_layers(args) -> None:
+    """`--early-layers-only` feeds Gemma's hidden state to the DiT's caption
+    projection: refused, with the JAX CLI's message, when the checkpoint's
+    DiT does not take Gemma's width (a V2 DiT has no caption projection)."""
+    from ltx2_tpu_torch.loader.weight_loader import transformer_config_from_checkpoint
+    from ltx2_tpu_torch.models.text_encoder.gemma3 import gemma_config_from_checkpoint
+
+    dit_cfg = transformer_config_from_checkpoint(args.checkpoint)
+    hidden = gemma_config_from_checkpoint(args.gemma_dir).hidden_size
+    if dit_cfg.caption_channels != hidden:
+        raise ValueError(f"--early-layers-only needs a V1 checkpoint whose caption projection takes {hidden}-d input "
+                         f"(this model consumes {dit_cfg.caption_channels or dit_cfg.cross_attention_dim}-d context)")
+
+
+def setup(args, resident_models: bool = True) -> Tuple[Optional[ResidentModels], Optional[ModelLedger]]:
+    """A launch's (models, ledger), on settings `check_request` passed: with
+    `resident_models` the ledger of --checkpoint (`make_ledger`) and the modules the launch's pipeline runs, built (or
+    loaded) once into a `ResidentModels` that `execute_request` reuses for
+    every request, as the JAX CLI's `setup` keeps its models resident: the
+    DiT, the upscaler(s), the decoder, the video encoder when the launch
+    encodes images or video, Gemma and the text encoder when it encodes
+    prompts, the audio decoder and vocoder (a2vid: the audio encoder) with
+    audio. A request on another pipeline builds what it needs on its first
+    run, then keeps it. Without `resident_models` (the one-shot command
+    line) both are None: the request makes its ledger, and each flow builds
+    its modules and releases each when its phase is over."""
+    if not resident_models:
+        return None, None
+    ledger = make_ledger(args)
+    models = ResidentModels()
+    with resident(models):
+        _build_launch(args, ledger)
+    return models, ledger
+
+
+def make_ledger(args) -> Optional[ModelLedger]:
+    """The ledger of --checkpoint and the files beside it (None without a
+    checkpoint, and for bench-e2e); it loads nothing until asked."""
+    if not args.checkpoint or args.pipeline == "bench-e2e":
+        return None
+    return ModelLedger(
+        checkpoint_path=args.checkpoint, gemma_path=args.gemma_dir, spatial_upscaler_path=args.spatial_upscaler,
+        temporal_upscaler_path=args.temporal_upscaler,
+        loras=[parse_lora_spec(spec, args.lora_strength) for spec in args.lora], target_dtype=args.dtype,
+        keep_fp8=args.fp8_serving, int8=args.int8, gemma_fp8=args.gemma_fp8, decoder_dtype="bfloat16",
+        device=args.device, include_audio=args.audio or args.pipeline == "a2vid",
+    )
+
+
+def _build_launch(args, ledger) -> None:
+    """The modules `_run_flow` builds for the launch's pipeline, built with
+    the flows' own helpers (so a request finds each under its key)."""
+    device = resolve_device(args.device)
+    stats = [{}]
+    flow, audio = args.pipeline, args.audio or args.pipeline == "a2vid"
+    if flow == "bench-e2e":
+        base = LTXModelConfig(compute_dtype=args.dtype)
+        _random_dit(stats, device, args.layers, base, fp8=not args.int8, int8=args.int8)
+        if not args.skip_vae:
+            _video_decoder(stats, device, None, base.compute_dtype)
+        return
+    width = None
+    if _encodes(args):
+        _gemma(stats, device, ledger)
+        if not args.early_layers_only:
+            encoder = _text_encoder(stats, device, ledger, audio and flow not in ("keyframe", "retake"))
+            width = encoder.cfg.connector.inner_dim
+    elif args.embedding:
+        with np.load(args.embedding) as data:
+            width = int(data["positive"].shape[-1])
+    encodes_video = ((args.image and flow not in ("retake", "ic-lora")) or flow in ("keyframe", "retake")
+                     or (flow == "ic-lora" and args.control_video))
+    runtime_lora = (flow == "two-stage" and args.distilled_lora) or flow == "ic-lora"
+    dit, _ = _dit_and_encoder(stats, device, args.layers, None, None, [None] if encodes_video else [], ledger,
+                              None if ledger is not None else width, args.dtype,
+                              audio and flow not in ("keyframe", "retake"), fp8=not runtime_lora,
+                              int8=args.int8 and flow != "ic-lora")
+    if flow in STAGED or args.upscale_spatial:
+        _spatial_upscaler(stats, device, None, ledger, None)
+    if args.upscale_temporal:
+        _temporal_upscaler(stats, device, ledger)
+    if flow in STAGED or args.upscale_spatial or args.upscale_temporal:
+        _latent_statistics(dit.cfg, None, ledger, device)
+    if flow == "a2vid":
+        _audio_encoder(stats, device, ledger)
+    if not args.skip_vae:
+        _video_decoder(stats, device, ledger, dit.cfg.compute_dtype)
+        if args.audio and flow not in ("a2vid", "keyframe", "retake"):
+            _audio_decoder(stats, device, ledger)
+            _vocoder(stats, device, ledger)
+
+
+def enhance_request_prompt(args, ledger) -> Tuple[str, dict]:
+    """`--enhance-prompt`: the request's prompt expanded by the launch's
+    Gemma (the ledger's, loaded once and kept with the resident models),
+    as the JAX CLI expands it: the T2V system prompt (512 new tokens), or
+    with --image the I2V one (256), sampled at temperature 0.7 and top_p 0.9
+    from --seed (the port's torch.Generator stream: the text differs from
+    the JAX CLI's at the same seed). Returns (prompt, stats: the enhanced
+    prompt, its seconds, Gemma's load seconds)."""
+    from ltx2_tpu_torch.models.text_encoder.generation import generate_text
+    from ltx2_tpu_torch.utils.prompt_enhancement import T2V_SYSTEM_PROMPT, enhance_prompt, enhance_prompt_i2v
+    from ltx2_tpu_torch.utils.tokenizer import load_tokenizer
+
+    device = resolve_device(args.device)
+    st: dict = {}
+    gemma = _built(device, st, "enhance_gemma_init_s", "gemma", ledger.gemma)
+    tokenizer = load_tokenizer(args.gemma_dir)
+
+    def gen_fn(text, n, temperature=0.7, top_p=0.9):
+        return generate_text(gemma, tokenizer, text, max_new_tokens=n, temperature=temperature, top_p=top_p,
+                             seed=args.seed)
+
+    prompt = DEFAULT_PROMPT if args.prompt is None else args.prompt
+    t0 = time.perf_counter()
+    if args.image:
+        prompt = enhance_prompt_i2v(prompt, parse_image_spec(args.image[0]).image_path, gen_fn)
+    else:
+        prompt = enhance_prompt(prompt, lambda text, n: gen_fn(text, n), system_prompt=T2V_SYSTEM_PROMPT)
+    st["enhance_s"] = time.perf_counter() - t0
+    st["enhanced_prompt"] = prompt
+    print(f"enhanced prompt: {prompt}", file=sys.stderr)
+    return prompt, st
+
+
+def execute_request(args, models: Optional[ResidentModels] = None, ledger: Optional[ModelLedger] = None
+                    ) -> Tuple[list, List[dict]]:
+    """One request on settings `check_request` passed: the flow
+    `args.pipeline` names on `models` and `ledger` (`setup`'s; inside
+    `resident(models)`, so a server reuses them), each clip's file written
+    (`--output`, `<base>_<i><ext>` for several, the latent's npz with
+    --skip-vae). Returns (each clip's frames, or (frames, waveform) with
+    --audio, or its latent with --skip-vae; each clip's stats, its file's
+    path under "output" and the seconds of writing it under "save_s")."""
     seeds = [args.seed + i for i in range(args.requests)]
     common = dict(height=args.height, width=args.width, frames=args.frames, layers=args.layers, device=args.device,
                   fps=args.fps, dtype=args.dtype, skip_decode=args.skip_vae, int8=args.int8)
-    with _profile(args.profile_dir):
-        videos, stats = _run_flow(args, seeds, common, encode, cfg_flow, two_stage)
+    cfg_flow = args.pipeline in ("one-stage", "text-to-video")
+    with _profile(args.profile_dir), resident(models):
+        videos, stats = _run_flow(args, seeds, common, _encodes(args), cfg_flow, args.pipeline == "two-stage", ledger)
     paths = output_paths(args.output, len(videos), "_latent.npz" if args.skip_vae else "")
     for out, path, st in zip(videos, paths, stats):
         video, wave = out if args.audio else (out, None)
+        t0 = time.perf_counter()
         if args.skip_vae:
             np.savez(path, latent=video, **({} if wave is None else {"audio_latent": wave}))
         else:
             # The vocoder's own rate: LTX-2.3's BWE chain writes 48 kHz.
             save_video(video, path, args.fps, output_fps=args.output_fps, speed=args.speed, audio=wave,
                        audio_sample_rate=st.get("audio_sample_rate", 24000))
-        st["output"] = path
+        st["output"], st["save_s"] = path, time.perf_counter() - t0
+    return videos, stats
+
+
+def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
+    """The command line: `setup` without resident models, then
+    `execute_request`, so every module is released when its phase is over;
+    writes each request's video (or latent) file, prints one JSON line per
+    request and returns (frames, stats) as the generate functions do (the
+    latents with --skip-vae)."""
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    try:
+        check_request(args)
+    except ValueError as err:
+        ap.error(str(err))
+    models, ledger = setup(args, resident_models=False)
+    videos, stats = execute_request(args, models, ledger)
+    for out, st in zip(videos, stats):
+        video = out[0] if args.audio else out
         print(json.dumps({**st, "frames": list(video.shape), "dtype": str(video.dtype)}))
     return videos, stats
 
 
-def _run_flow(args, seeds, common: dict, encode: bool, cfg_flow: bool, two_stage: bool):
-    """The flow `args.pipeline` names, on the settings `main` parsed."""
+def _run_flow(args, seeds, common: dict, encode: bool, cfg_flow: bool, two_stage: bool, ledger=None):
+    """The flow `args.pipeline` names, on the settings `check_request`
+    passed, with `ledger` (`setup`'s, else made here) for the components
+    of a checkpoint."""
     if args.pipeline == "bench-e2e":
         videos, stats = generate_videos(seeds, steps=args.steps, **common)
     else:
-        ledger = None
-        if args.checkpoint:
-            ledger = ModelLedger(
-                checkpoint_path=args.checkpoint, gemma_path=args.gemma_dir, spatial_upscaler_path=args.spatial_upscaler,
-                temporal_upscaler_path=args.temporal_upscaler,
-                loras=[parse_lora_spec(spec, args.lora_strength) for spec in args.lora], target_dtype=args.dtype,
-                keep_fp8=args.fp8_serving, int8=args.int8, gemma_fp8=args.gemma_fp8, decoder_dtype="bfloat16",
-                device=args.device, include_audio=args.audio or args.pipeline == "a2vid",
-            )
+        if ledger is None:
+            ledger = make_ledger(args)
+        prompt, enhanced = DEFAULT_PROMPT if args.prompt is None else args.prompt, {}
+        if args.enhance_prompt:
+            prompt, enhanced = enhance_request_prompt(args, ledger)
         tokens = None
         if args.gemma_dir and encode:
-            tokens = tokenize_prompts(args.gemma_dir, DEFAULT_PROMPT if args.prompt is None else args.prompt,
+            tokens = tokenize_prompts(args.gemma_dir, prompt,
                                       DEFAULT_NEGATIVE_PROMPT if args.negative_prompt is None else args.negative_prompt)
         contexts = audio_contexts = None
         pairs = cfg_flow or two_stage or args.pipeline in ("ti2vid-hq", "retake")
@@ -2253,7 +2580,8 @@ def _run_flow(args, seeds, common: dict, encode: bool, cfg_flow: bool, two_stage
                 audio_contexts = [audio_context] * len(seeds)
         embeddings = [] if args.save_embedding else None
         images = [parse_image_spec(spec, args.image_strength) for spec in args.image]
-        flow = dict(text_encoder=encode, phase_peaks=True, ledger=ledger, images=images, contexts=contexts,
+        flow = dict(text_encoder=EARLY_LAYERS if encode and args.early_layers_only else encode,
+                    phase_peaks=True, ledger=ledger, images=images, contexts=contexts,
                     tokens=tokens, embeddings=embeddings, tiling=tiling_config(args), audio=args.audio,
                     audio_contexts=audio_contexts, internal_audio=not args.no_internal_audio, **common)
         if cfg_flow:
@@ -2311,10 +2639,12 @@ def _run_flow(args, seeds, common: dict, encode: bool, cfg_flow: bool, two_stage
                 st["prompt_source"] = "embedding"
         if args.save_embedding:
             np.savez(args.save_embedding, **embeddings[0])
+        for st in stats:
+            st.update(enhanced)
     return videos, stats
 
 
-def _apply_reference_compat(ap, args) -> None:
+def _apply_reference_compat(args) -> None:
     """The JAX CLI's compatibility flags mapped onto the port's settings
     (scripts/generate.py:350-394): --fp32 sets --dtype float32 (--fp16 keeps
     bfloat16), --fp8 is --fp8-serving, --int8 refuses --fp8-serving and a
@@ -2329,7 +2659,7 @@ def _apply_reference_compat(ap, args) -> None:
     if args.fp8:
         args.fp8_serving = True
     if args.int8 and args.fp8_serving:
-        ap.error("--int8 and --fp8-serving are mutually exclusive: int8 W8A8 re-quantizes from full-precision "
+        raise ValueError("--int8 and --fp8-serving are mutually exclusive: int8 W8A8 re-quantizes from full-precision "
                  "weights (load dequantized, i.e. drop --fp8-serving/--fp8, to use --int8)")
     runtime_fuse = None
     if args.distilled_lora and args.pipeline in ("two-stage", "ti2vid-hq"):
@@ -2337,7 +2667,7 @@ def _apply_reference_compat(ap, args) -> None:
     elif args.pipeline == "ic-lora":
         runtime_fuse = "ic-lora's stage-boundary fuse/unfuse"
     if args.int8 and runtime_fuse:
-        ap.error(f"--int8 is incompatible with {runtime_fuse}: LoRA deltas need full-precision weights to fuse "
+        raise ValueError(f"--int8 is incompatible with {runtime_fuse}: LoRA deltas need full-precision weights to fuse "
                  "into. Drop --int8 for this pipeline.")
     if args.pipeline == "ic-lora":
         # The IC-LoRA is fused for stage 1 only inside the pipeline: the

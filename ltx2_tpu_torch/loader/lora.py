@@ -138,15 +138,9 @@ def _parameter(model: nn.Module, name: str) -> Optional[torch.Tensor]:
     return owner._parameters.get(leaf)
 
 
-@torch.no_grad()
-def fuse_lora_into_params(model: nn.Module, lora_configs: List[LoRAConfig], return_deltas: bool = False):
-    """W += sum_i strength_i * (B_i @ A_i), in fp32, cast back to W's dtype,
-    in place on the model's weights. Raises, before any weight changes, on
-    an fp8 or int8 target (additive deltas need full-precision weights: load
-    dequantized when LoRAs are given). Keys the model has no weight for, or
-    whose delta's shape differs, are skipped. With `return_deltas` also
-    returns {parameter name: each alias's LoRA terms} (`AppliedLoRA`) for
-    `unfuse_lora_deltas`, which makes the deltas again; no delta is kept."""
+def _plan(model: nn.Module, lora_configs: List[LoRAConfig]) -> list:
+    """[(parameter name, parameter, its LoRA terms)] of the weights a fuse
+    changes; raises on an fp8 or int8 target."""
     plan = []
     for lora_key, terms in _lora_terms(lora_configs).items():
         tree_key = _canonical_tree_key(lora_key)
@@ -162,9 +156,25 @@ def fuse_lora_into_params(model: nn.Module, lora_configs: List[LoRAConfig], retu
         if (weights[key_b].shape[0], weights[key_a].shape[1]) != tuple(param.shape):
             continue
         plan.append((tree_key, param, terms))
+    return plan
 
+
+def lora_targets(model: nn.Module, lora_configs: List[LoRAConfig]) -> List[str]:
+    """The names of the weights `fuse_lora_into_params` would change."""
+    return [name for name, _, _ in _plan(model, lora_configs)]
+
+
+@torch.no_grad()
+def fuse_lora_into_params(model: nn.Module, lora_configs: List[LoRAConfig], return_deltas: bool = False):
+    """W += sum_i strength_i * (B_i @ A_i), in fp32, cast back to W's dtype,
+    in place on the model's weights. Raises, before any weight changes, on
+    an fp8 or int8 target (additive deltas need full-precision weights: load
+    dequantized when LoRAs are given). Keys the model has no weight for, or
+    whose delta's shape differs, are skipped. With `return_deltas` also
+    returns {parameter name: each alias's LoRA terms} (`AppliedLoRA`) for
+    `unfuse_lora_deltas`, which makes the deltas again; no delta is kept."""
     applied: AppliedLoRA = {}
-    for tree_key, param, terms in plan:
+    for tree_key, param, terms in _plan(model, lora_configs):
         param.copy_((param.float() + _delta(terms, param.device)).to(param.dtype))
         if return_deltas:
             applied.setdefault(tree_key, []).append(terms)

@@ -20,7 +20,8 @@ The JAX package stacks the layers and scans them; here they are an
 `nn.ModuleList` run in a Python loop. `load_gemma3_params` reads the HF
 shards, optionally with fp8 matmul weights (E4M3 codes and per-tensor scales
 dequantized at use by `linear`, embeddings in bf16; 12B in about 12.8 GB
-instead of 47 GB in fp32). Not ported yet: greedy generation.
+instead of 47 GB in fp32). `gemma_layer` takes the attention as a function,
+so the decode (generation.py) runs the same layers over its KV cache.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from __future__ import annotations
 import re
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -172,35 +173,51 @@ def apply_rotary_pos_emb(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, si
     return rot(q), rot(k)
 
 
-def _attention(p: GemmaAttention, cfg: Gemma3Config, x: torch.Tensor, mask: torch.Tensor,
-               cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """GQA attention with per-head q/k RMSNorm (normed before the head
-    transpose). Key/value head i // groups serves query head i, as
-    `jnp.repeat` expands them."""
+def _project_qkv(p: GemmaAttention, cfg: Gemma3Config, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> q (B, H, S, Dh), k and v (B, KV, S, Dh): the
+    projections with the per-head q/k RMSNorm (normed before the head
+    transpose), before RoPE."""
     b, s, _ = x.shape
     h, kv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     q = gemma_rms_norm(linear(p.q_proj, x).view(b, s, h, d), p.q_norm.weight, cfg.rms_norm_eps)
     k = gemma_rms_norm(linear(p.k_proj, x).view(b, s, kv, d), p.k_norm.weight, cfg.rms_norm_eps)
     v = linear(p.v_proj, x).view(b, s, kv, d)
-    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    q, k = apply_rotary_pos_emb(q, k, cos, sin)
-    if h > kv:
-        k = k.repeat_interleave(h // kv, dim=1)
-        v = v.repeat_interleave(h // kv, dim=1)
-    out = sdpa(q, k, v, mask=mask, scale=d ** -0.5)
-    return linear(p.o_proj, out.transpose(1, 2).reshape(b, s, h * d))
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
-def _layer(p: GemmaLayer, cfg: Gemma3Config, x: torch.Tensor, mask: torch.Tensor,
-           cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """One decoder layer with its 4 norms."""
+def gemma_layer(p: GemmaLayer, cfg: Gemma3Config, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                attend: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """One decoder layer with its 4 norms. `attend(q, k, v)` takes the
+    RoPE'd q (B, H, S, Dh) and this layer's k and v (B, KV, S, Dh) and
+    returns the heads' outputs (B, H, S, Dh): the encode's masked attention,
+    or the decode's over its KV cache (models/text_encoder/generation.py)."""
     eps = cfg.rms_norm_eps
-    h = _attention(p.self_attn, cfg, gemma_rms_norm(x, p.input_layernorm.weight, eps), mask, cos, sin)
+    attn = p.self_attn
+    q, k, v = _project_qkv(attn, cfg, gemma_rms_norm(x, p.input_layernorm.weight, eps))
+    q, k = apply_rotary_pos_emb(q, k, cos, sin)
+    out = attend(q, k, v)
+    b, _, s, _ = out.shape
+    h = linear(attn.o_proj, out.transpose(1, 2).reshape(b, s, -1))
     x = x + gemma_rms_norm(h, p.post_attention_layernorm.weight, eps)
     mlp = p.mlp
     h = gemma_rms_norm(x, p.pre_feedforward_layernorm.weight, eps)
     h = linear(mlp.down_proj, silu_mul(linear(mlp.gate_proj, h), linear(mlp.up_proj, h)))
     return x + gemma_rms_norm(h, p.post_feedforward_layernorm.weight, eps)
+
+
+def _layer(p: GemmaLayer, cfg: Gemma3Config, x: torch.Tensor, mask: torch.Tensor,
+           cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """The encode's layer: GQA attention under the additive `mask`; key/value
+    head i // groups serves query head i, as `jnp.repeat` expands them."""
+    groups = cfg.num_attention_heads // cfg.num_key_value_heads
+
+    def attend(q, k, v):
+        if groups > 1:
+            k, v = k.repeat_interleave(groups, dim=1), v.repeat_interleave(groups, dim=1)
+        return sdpa(q, k, v, mask=mask, scale=cfg.head_dim ** -0.5)
+
+    return gemma_layer(p, cfg, x, cos, sin, attend)
 
 
 def _build_masks(cfg: Gemma3Config, attention_mask: Optional[torch.Tensor], seq_len: int, dtype: torch.dtype,

@@ -315,3 +315,7 @@ class DistilledPipeline:
         if callback:
             callback("audio_decode", waveform)
         return video, waveform
+
+
+def create_distilled_pipeline(**kwargs) -> DistilledPipeline:
+    return DistilledPipeline(**kwargs)

@@ -196,3 +196,7 @@ class ICLoraPipeline(DistilledPipeline):
         if maker is not None and kwargs.get("phase") == "stage1" and not kwargs.get("extra_conditionings"):
             kwargs["extra_conditionings"] = maker(pixel_shape.height, pixel_shape.width)
         return super()._run_stage(pixel_shape, *args, **kwargs)
+
+
+def create_ic_lora_pipeline(**kwargs) -> ICLoraPipeline:
+    return ICLoraPipeline(**kwargs)

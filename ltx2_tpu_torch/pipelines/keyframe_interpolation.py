@@ -156,3 +156,7 @@ class KeyframeInterpolationPipeline(DistilledPipeline):
             return (latent, None) if config.audio_enabled else latent
         video = decode_video(latent, self.video_decoder, config.effective_tiling(), seeds[2])
         return (video, None) if config.audio_enabled else video
+
+
+def create_keyframe_pipeline(**kwargs) -> KeyframeInterpolationPipeline:
+    return KeyframeInterpolationPipeline(**kwargs)

@@ -242,3 +242,7 @@ class OneStagePipeline:
             if callback:
                 callback("audio_decode", waveform)
         return video, waveform
+
+
+def create_one_stage_pipeline(**kwargs) -> OneStagePipeline:
+    return OneStagePipeline(**kwargs)

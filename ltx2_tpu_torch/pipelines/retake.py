@@ -198,3 +198,7 @@ class RetakePipeline(OneStagePipeline):
         tiling = OneStageCFGConfig(height=height, width=width, num_frames=n_frames, tiling_config=config.tiling_config,
                                    latent_channels=config.latent_channels).effective_tiling()
         return decode_video(latent, self.video_decoder, tiling, decode_seed)
+
+
+def create_retake_pipeline(**kwargs) -> RetakePipeline:
+    return RetakePipeline(**kwargs)

@@ -42,3 +42,7 @@ class TextToVideoPipeline(OneStagePipeline):
         one_stage_cfg = config.to_one_stage() if isinstance(config, TextToVideoConfig) else config
         return super().__call__(positive_encoding, negative_encoding, one_stage_cfg, images=images,
                                 callback=callback, **kwargs)
+
+
+def create_text_to_video_pipeline(**kwargs) -> TextToVideoPipeline:
+    return TextToVideoPipeline(**kwargs)

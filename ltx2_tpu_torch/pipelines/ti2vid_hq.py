@@ -233,3 +233,7 @@ class TI2VidHQPipeline(DistilledPipeline):
         if callback:
             callback("audio_decode", waveform)
         return video, waveform
+
+
+def create_ti2vid_hq_pipeline(**kwargs) -> TI2VidHQPipeline:
+    return TI2VidHQPipeline(**kwargs)

@@ -24,6 +24,14 @@ encodes as that call does, step by step as the `tokenizers` library runs it:
    tokens, then the post-processor's template (`TemplateProcessing`), then
    padding to `max_length` on the left with the pad token.
 
+`encode` gives one prompt's ids with the template and no padding or
+truncation (`tokenizer(prompt)`, the prompt enhancement's call); `decode`
+is `decode(ids, skip_special_tokens=...)`: the ids' tokens (special ones
+skipped when asked) through the file's `decoder` (`Replace` of a string,
+`ByteFallback`, `Fuse`, `Strip`, in a `Sequence`; without one the tokens
+joined by spaces), then transformers' `clean_up_tokenization_spaces` when
+the config asks for it.
+
 `tokenizer_config.json` gives the pad, bos, eos and unk tokens; special
 tokens it names that the added tokens lack are added as transformers adds
 them (special, not normalized). With a Gemma or Llama `tokenizer_class` the
@@ -287,6 +295,95 @@ class _BPE:
         return [t for t, a in zip(ids, alive) if a]
 
 
+# ---- decoders -------------------------------------------------------------------
+
+def _byte_of(token: str) -> Optional[int]:
+    """The byte of a `<0xNN>` token, as `tokenizers`' ByteFallback parses it
+    (6 bytes long; Rust's u8::from_str_radix, which takes a leading '+')."""
+    if len(token.encode("utf-8")) != 6 or not (token.startswith("<0x") and token.endswith(">")):
+        return None
+    digits = token[3:5]
+    body = digits[1:] if digits.startswith("+") else digits
+    if not body or any(c not in "0123456789abcdefABCDEF" for c in body):
+        return None
+    return int(body, 16)
+
+
+def _byte_fallback(tokens: List[str]) -> List[str]:
+    """Runs of `<0xNN>` tokens -> their bytes as one string, or one U+FFFD a
+    byte when they are not valid UTF-8."""
+    out: List[str] = []
+    pending: List[int] = []
+
+    def flush():
+        if pending:
+            try:
+                out.append(bytes(pending).decode("utf-8"))
+            except UnicodeDecodeError:
+                out.extend(["\ufffd"] * len(pending))
+            pending.clear()
+
+    for token in tokens:
+        byte = _byte_of(token)
+        if byte is None:
+            flush()
+            out.append(token)
+        else:
+            pending.append(byte)
+    flush()
+    return out
+
+
+def _strip(token: str, content: str, start: int, stop: int) -> str:
+    chars = list(token)
+    first = 0
+    for i, c in enumerate(chars[:start]):
+        if c != content:
+            break
+        first = i + 1
+    last = len(chars)
+    for i in range(stop):
+        index = len(chars) - i - 1
+        if index < 0 or chars[index] != content:
+            break
+        last = index
+    return "".join(chars[first:last])
+
+
+def _make_decoder(spec):
+    """tokenizer.json's decoder -> fn([token]) -> [token] (its decode_chain)."""
+    if spec is None:
+        return None
+    kind = spec.get("type")
+    if kind == "Sequence":
+        steps = [_make_decoder(s) for s in spec["decoders"]]
+
+        def seq(tokens):
+            for step in steps:
+                tokens = step(tokens)
+            return tokens
+        return seq
+    if kind == "Replace":
+        pattern, content = _string_pattern(spec, "Replace decoder"), spec["content"]
+        return lambda tokens: [t.replace(pattern, content) for t in tokens]
+    if kind == "ByteFallback":
+        return _byte_fallback
+    if kind == "Fuse":
+        return lambda tokens: ["".join(tokens)]
+    if kind == "Strip":
+        content, start, stop = spec["content"], spec["start"], spec["stop"]
+        return lambda tokens: [_strip(t, content, start, stop) for t in tokens]
+    raise _refuse("decoder", spec)
+
+
+def _clean_up_tokenization(text: str) -> str:
+    """transformers' `clean_up_tokenization`."""
+    for a, b in ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","), (" ' ", "'"), (" n't", "n't"),
+                 (" 'm", "'m"), (" 's", "'s"), (" 've", "'ve"), (" 're", "'re")):
+        text = text.replace(a, b)
+    return text
+
+
 # ---- added tokens ---------------------------------------------------------------
 
 @dataclass(frozen=True)
@@ -380,6 +477,13 @@ class Tokenizer:
                 # transformers adds the special tokens it is told of: special, not normalized.
                 added.append(_Added(content, self.token_to_id(content)))
                 self.added_ids[content] = added[-1].id
+        self.special_ids = {t["id"] for t in spec.get("added_tokens", []) if t.get("special", False)}
+        self.special_ids.update(self.token_to_id(c) for c in [*named.values(), *extra] if c)
+        self.decoder = _make_decoder(spec.get("decoder"))
+        self.clean_up_spaces = bool(config.get("clean_up_tokenization_spaces", False))
+        self.id_to_token = {i: t for t, i in self.model.vocab.items()}
+        self.id_to_token.update((t.id, t.content) for t in added)
+        self.unk_id = self.token_to_id(self.model.unk) if self.model.unk is not None else None
         self.raw_matcher = _Matcher([(t.content, t) for t in added if not t.normalized])
         self.normalized_matcher = _Matcher([(self.normalizer(_Piece(t.content, [0] * len(t.content))).text, t)
                                             for t in added if t.normalized])
@@ -438,6 +542,20 @@ class Tokenizer:
         for tid, word in self._words(text):
             ids.extend([tid] if tid is not None else self.model.encode_word(word))
         return ids
+
+    def encode(self, text: str) -> List[int]:
+        """`tokenizer(text)["input_ids"]`: the template around the text's
+        ids, no truncation, no padding."""
+        seq = self.encode_ids(text)
+        return [t for item in self.template for t in (seq if item is None else [item])]
+
+    def decode(self, ids: Sequence[int], skip_special_tokens: bool = False) -> str:
+        """`decode(ids, skip_special_tokens=...)`: unknown ids are dropped, as
+        `tokenizers` drops them."""
+        tokens = [self.id_to_token[i] for i in map(int, ids) if i in self.id_to_token
+                  and not (skip_special_tokens and i in self.special_ids)]
+        text = "".join(self.decoder(tokens)) if self.decoder is not None else " ".join(tokens)
+        return _clean_up_tokenization(text) if self.clean_up_spaces else text
 
     def __call__(self, prompts: Sequence[str], max_length: int = 1024) -> Tuple[np.ndarray, np.ndarray]:
         """`AutoTokenizer(padding_side="left")(prompts, padding="max_length",

@@ -329,7 +329,7 @@ def _port_args(monkeypatch, argv):
     """The settings `generate.main` parses from argv (the flow not run)."""
     seen = {}
 
-    def run(args, seeds, common, encode, cfg_flow, two_stage):
+    def run(args, seeds, common, encode, cfg_flow, two_stage, ledger=None):
         seen.update(args=args, common=common, encode=encode)
         return [], []
 
