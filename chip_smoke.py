@@ -135,7 +135,12 @@ card and nvcc; it exits non-zero without them, and without the package
    files, the resident server (`python -m ltx2_tpu_torch.serve`'s `main`,
    `--pipeline distilled --fp8-serving`, 512x768x121, .y4m out) on a
    requests file: three prompts and seeds (one at num_frames 57), an
-   unknown field and a .mp4 output (both bad_request, the server up), one
+   unknown field (bad_request, the server up) and a 512x768x121 request
+   for a .mp4 (no ffmpeg on the card's machine: the MJPEG .mp4, the GIF
+   preview and the frames npz as its artifacts; the npz frames bit for bit
+   the clip's, the .mp4's samples the port's JPEGs of them, its first
+   frames through `read_mov_mjpeg`, its 121 frames probed; its save
+   seconds), one
    setup and no load seconds in any request, each request's 1056 flash, 19
    fp32 and 270 bf16 conv launches (57 frames: its own tile count), the
    first clip byte for byte the command line's of the same request; the
@@ -229,7 +234,14 @@ card and nvcc; it exits non-zero without them, and without the package
    30 steps to 4, stage 2 at 3, flash launches by length; ti2vid-hq with
    the image, the Res2s stage 1 cut from 15 steps to 4 (two evaluations a
    step at batch 2), then with audio at 2 AV blocks (flash at head dim 64);
-   (h) the video readers and the flows that read a video: the committed
+   (h) the video readers and the flows that read a video: media I/O on the
+   host against the hashes recorded in tests/fixtures_video/media_io.json
+   with PIL, OpenCV and the JAX writers (the port's JPEGs of the committed
+   AVI's 9 frames, its .avi, .mp4 and .mov of them with and without a
+   stereo track, the committed GIF's and APNG's frames, the Canny signal of
+   the AVI's frames at 256x384), with host ms per 512x768 frame of the JPEG
+   encoder and decoder, the GIF writer and reader, the APNG reader and the
+   Canny; the committed
    MJPEG AVI (tests/fixtures_video, 9 frames at 288x432, written by the
    JAX package's PIL writer) decoded by the port's JPEG decoder to the
    SHA-256 of PIL's decode recorded beside it, and through
@@ -245,7 +257,13 @@ card and nvcc; it exits non-zero without them, and without the package
    file): fuse, control encode, stage 1 over 1536 + 1536 appended tokens,
    unfuse, upscale, stage 2, decode, every fused weight within one bf16
    rounding step of its draw after the unfuse; at 2 blocks the control at
-   strength 1.0 bit for bit its clean latent at stage 1's end; then
+   strength 1.0 bit for bit its clean latent at stage 1's end; the same
+   flow with `--control-type canny --canny-low 20 --canny-high 60
+   --save-control` (the port's Canny on the AVI read by the port's readers:
+   the signal and its `.control.avi` against the recorded cv2 and JAX
+   writer hashes, the launches the RAW run's); the 2-block AV distilled flow
+   to an .avi and a .mov at 256x384x25, the PCM track read back bit for bit
+   the written int16 samples; then
    `prepare_data --videos` on the AVI and a short .y4m, `--images` on the
    JPEG still, and one `train.main --data` step on the npz;
 10. backward check: at the video DiT's training shapes (head dim 128:
@@ -2011,6 +2029,7 @@ def _served(setups: list, executed: list, kept: dict):
             "frames": args.frames, "skip_vae": args.skip_vae, "seconds": time.perf_counter() - t0,
             "peak_gb": max((v for k, v in st.items() if k.endswith("_peak_gb") and v is not None), default=None),
             "phase_s": {p: st.get(f"{p}_s") for p in ("text_encode", "stage1", "upscale", "stage2", "decode", "save")},
+            "frames_sha256": _sha256(results[0]) if args.output.endswith(".mp4") and not args.skip_vae else None,
             "decode_tiles": st.get("decode_tiles"),
             "init_s": {k: v for k, v in st.items() if k.endswith("_init_s")},
             "fwd": counts["fwd"], "bwd": counts["bwd"], "conv_fp32": fp32, "conv_bf16": bf16,
@@ -2057,7 +2076,7 @@ def _http_checks(argv: list, models, ledger, request: dict) -> dict:
     from ltx2_tpu_torch import generate, serve
 
     args = serve.build_parser().parse_args(argv + ["--http", "0"])
-    generate.check_request(args, output=False)
+    generate.check_request(args)
     server = serve.make_http_server(args, models, ledger)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -2083,13 +2102,96 @@ def _http_checks(argv: list, models, ledger, request: dict) -> dict:
             "artifacts": body.get("artifacts")}
 
 
+@contextlib.contextmanager
+def _save_parts(calls: list):
+    """Times the parts of video_io's no-ffmpeg save while it is open:
+    `encode_jpegs` (the JPEGs), `write_mp4_mjpeg` and `write_avi_mjpeg`
+    (JPEGs and mux), `write_gif`, `np.savez` (the frames npz) and
+    `_save_video_fallback` whole; appends (name, path or None, seconds)."""
+    import numpy as np
+
+    from ltx2_tpu_torch.utils import video_io as vio
+
+    def timed(owner, name):
+        real = getattr(owner, name)
+
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                path = args[0] if args and isinstance(args[0], str) else None
+                calls.append((name, path, time.perf_counter() - t0))
+        return real, call
+
+    patched = [(owner, name) + timed(owner, name) for owner, name in
+               ((vio, "encode_jpegs"), (vio, "write_mp4_mjpeg"), (vio, "write_avi_mjpeg"), (vio, "write_gif"),
+                (vio, "_save_video_fallback"), (np, "savez"))]
+    for owner, name, _real, call in patched:
+        setattr(owner, name, call)
+    try:
+        yield calls
+    finally:
+        for owner, name, real, _call in patched:
+            setattr(owner, name, real)
+
+
+def _served_mp4_checks(path: str, response: dict, executed: dict, save_calls: list) -> dict:
+    """A served .mp4 without ffmpeg: its artifacts (the .mp4, the GIF
+    preview, the frames npz, as the JAX server lists them), the npz frames
+    against the clip's hash, the first, middle and last samples of the .mp4
+    against the port's JPEGs of those frames, its first 3 frames read back
+    and the whole probed, the GIF's size, frame count and delay; and the
+    save seconds, whole and split (`save_calls`: `_save_parts` during the
+    launch; the parts whose path is this request's)."""
+    import hashlib
+    import os
+
+    import numpy as np
+
+    from ltx2_tpu_torch.utils import video_io as vio
+    from ltx2_tpu_torch.utils.gif import gif_info
+    from ltx2_tpu_torch.utils.jpeg import encode_jpeg
+
+    base = path.rsplit(".", 1)[0]
+    want = [path, base + ".gif", base + "_frames.npz"]
+    saved = np.load(base + "_frames.npz")
+    frames = saved["frames"]
+    with open(path, "rb") as fh:
+        data = fh.read()
+    stbl = next(stbl for handler, stbl, _mdhd in vio._mov_tracks(data) if handler == b"vide")
+    _fourcc, _entry, offsets, sizes, _stts = vio._mov_sample_table(data, stbl)
+    picks = (0, len(frames) // 2, len(frames) - 1)
+    t0 = time.perf_counter()
+    read_back = vio.read_mov_mjpeg(path, HEIGHT, WIDTH, 3)
+    read_s = time.perf_counter() - t0
+    with open(base + ".gif", "rb") as fh:
+        gif = list(gif_info(fh.read()))
+    # The request's save split: each named part's seconds (the JPEGs are
+    # inside write_mp4_mjpeg; mux_and_file is the rest of it).
+    parts = {name: s for name, at, s in save_calls if at is None or at in want}
+    parts["mux_and_file"] = parts["write_mp4_mjpeg"] - parts["encode_jpegs"]
+    return {"artifacts": response.get("artifacts"), "artifacts_are_the_jax_servers": response.get("artifacts") == want,
+            "npz_frames_are_the_clips": _sha256(frames) == executed["frames_sha256"] and float(saved["fps"]) == 24.0,
+            "samples_are_the_encoders": all(hashlib.sha256(data[offsets[i]:offsets[i] + sizes[i]]).digest()
+                                            == hashlib.sha256(encode_jpeg(frames[i])).digest() for i in picks),
+            "read_back": list(read_back.shape), "read_back_finite": bool(np.isfinite(read_back).all()),
+            "read_mov_mjpeg_s": read_s, "probe": list(vio.probe_mov(path)), "gif": gif,
+            "bytes": {os.path.basename(p): os.path.getsize(p) for p in want}, "save_s": executed["phase_s"]["save"],
+            "save_parts_s": parts}
+
+
 def phase_server(smi: str, paths: dict, directory: str, reference: str) -> dict:
     """The resident server at full width (`python -m ltx2_tpu_torch.serve`'s
     `main`) on the V2 files: --pipeline distilled --fp8-serving from the
     checkpoint, Gemma, the tokenizer and the upscaler, 512x768x121, .y4m out.
     Five requests from a file: three prompts and seeds (one at num_frames
-    57), an unknown field and a .mp4 output (no ffmpeg on this machine): both
-    bad_request, the server still up. Then the HTTP front on the same
+    57), an unknown field (bad_request, the server still up) and a .mp4
+    output at 512x768x121 (no ffmpeg on this machine: the MJPEG .mp4, the
+    GIF preview and the frames npz, as the JAX server writes them; the npz
+    frames the clip's bit for bit, three of the .mp4's samples the port's
+    JPEGs of them, its first frames read back through `read_mov_mjpeg`; its
+    save_s). Then the HTTP front on the same
     resident models. Then a second launch with --enhance-prompt (the 2-layer
     Gemma decodes up to 512 tokens; --skip-vae). Checks: one setup a launch
     and no load seconds in any request; each request's flash, fp32-conv
@@ -2121,13 +2223,18 @@ def phase_server(smi: str, paths: dict, directory: str, reference: str) -> dict:
                 {"prompt": V2_PROMPT, "seed": 9, "output": os.path.join(directory, "served.mp4")}]
     t0 = time.perf_counter()
     setups, executed, kept = [], [], {}
-    responses = _serve_launch(launch, requests, directory, "requests", setups, executed, kept)
+    with _save_parts([]) as save_calls:
+        responses = _serve_launch(launch, requests, directory, "requests", setups, executed, kept)
     same_as_cli = open(outs[0], "rb").read() == open(reference, "rb").read()
     models, ledger = kept.pop("models")
     with _served([], executed, {}):
         http = _http_checks(launch, models, ledger, {"prompt": SERVER_PROMPTS[0], "seed": 11, "num_frames":
                                                      SERVER_SHORT_FRAMES, "output": os.path.join(directory, "http.y4m")})
-    http_executed = executed[3:]
+    mp4_request = executed[3]
+    http_executed = executed[4:]
+    mp4 = _served_mp4_checks(os.path.join(directory, "served.mp4"), responses[4], mp4_request, save_calls)
+    log(f"served .mp4 without ffmpeg (512x768x{FRAMES}: MJPEG .mp4, GIF, npz): save_s {mp4['save_s']:.2f}, parts "
+        f"{json.dumps(mp4['save_parts_s'])}, bytes {json.dumps(mp4['bytes'])} | {smi}")
     del models, ledger
     gc.collect()  # the HTTP server's handler class holds the models in a reference cycle
     torch.cuda.empty_cache()
@@ -2175,7 +2282,7 @@ def phase_server(smi: str, paths: dict, directory: str, reference: str) -> dict:
     rec = {"setup": setups, "requests": [{k: v for k, v in e.items() if k != "enhanced_prompt"} for e in served],
            "first_request_s": served[0]["seconds"], "steady_request_s": served[1]["seconds"],
            "responses": [{k: r.get(k) for k in ("id", "status", "kind", "seconds", "artifacts", "error")}
-                         for r in responses],
+                         for r in responses], "served_mp4": mp4,
            "first_clip_equals_cli": same_as_cli, "http": http, "http_request": http_executed,
            "served_phase_s": served_s, "enhance_launch_s": enhance_launch_s, "enhance_setup": enh_setups,
            "allocated_before_enhance_launch_gb": before_enhance_gb,
@@ -2183,19 +2290,23 @@ def phase_server(smi: str, paths: dict, directory: str, reference: str) -> dict:
            "enhanced_prompt_head": (enh_executed[0]["enhanced_prompt"] or "")[:80] if enh_executed else None,
            "enhance_decodes": decodes,
            "enhance_ms_per_token": [1000 * d["s"] / max(d["decoded"], 1) for d in decodes],
+           "served_mp4_launches": {k: mp4_request[k] for k in ("fwd", "bwd", "conv_fp32", "conv_bf16")},
            "launches": {k: sum(e[k] for e in executed + enh_executed) for k in ("fwd", "bwd", "conv_fp32",
                                                                               "conv_bf16")},
            "expected_per_request": {str(f): w for f, w in want.items()}, "card": smi}
     log(f"resident server (V2 distilled fp8 from files, 512x768x{FRAMES}, JSON lines, HTTP, --enhance-prompt): "
         f"{json.dumps(rec)} | {smi}")
-    if [r["status"] for r in responses] != ["ok", "ok", "ok", "error", "error"] or \
-            [r["id"] for r in responses] != list(range(5)) or \
-            [r.get("kind") for r in responses[3:]] != ["bad_request"] * 2:
+    if [r["status"] for r in responses] != ["ok", "ok", "ok", "error", "ok"] or \
+            [r["id"] for r in responses] != list(range(5)) or responses[3].get("kind") != "bad_request":
         raise AssertionError(f"served responses {rec['responses']}")
+    if not (mp4["artifacts_are_the_jax_servers"] and mp4["npz_frames_are_the_clips"] and mp4["samples_are_the_encoders"]
+            and mp4["read_back"] == [1, 3, 3, HEIGHT, WIDTH] and mp4["probe"] == [24.0, FRAMES, HEIGHT, WIDTH]
+            and mp4["gif"] == [WIDTH, HEIGHT, FRAMES, 40]):
+        raise AssertionError(f"the served .mp4 without ffmpeg: {mp4}")
     if len(setups) != 1 or len(enh_setups) != 1 or any(v for e in executed + enh_executed for v in e["init_s"].values()):
         raise AssertionError(f"the weights loaded more than once: setups {setups}, {enh_setups}, "
                              f"requests' load seconds {[e['init_s'] for e in executed + enh_executed]}")
-    for e in served + http_executed:
+    for e in served + [mp4_request] + http_executed:
         got = {k: e[k] for k in ("fwd", "bwd", "conv_fp32", "conv_bf16")}
         got["conv_other"] = e["conv_other"]
         want[e["frames"]]["conv_other"] = 0
@@ -5014,6 +5125,326 @@ def phase_readers(smi: str, source: str) -> dict:
     return rec
 
 
+MEDIA_JSON = "media_io.json"
+FIXTURE_GIF, FIXTURE_APNG = "gif_96x144x9.gif", "apng_96x144x9.apng"
+CANNY_THRESHOLDS = ((20, 60), (100, 200))
+AV_MJPEG = {"layers": 2, "height": 256, "width": 384, "frames": 25}
+
+
+def _fixture_audio(frames: int = 9, rate: int = 24000, fps: float = 24.0):
+    """tests/torch_port_media.py's `fixture_audio`: two sawtooths of
+    integers, (2, N) float32."""
+    import numpy as np
+
+    n = int(round(frames / fps * rate))
+    i = np.arange(n, dtype=np.int64)
+    return np.stack([((i * 37) % 2001 - 1000) / 1000.0, ((i * 11) % 1201 - 600) / 640.0]).astype(np.float32)
+
+
+def _write_apng(path: str, frames) -> None:
+    """RGB frames as an 8-bit APNG (filter 0, dispose and blend 0): the
+    card's machine has no PIL to write one."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    n, h, w, _ = frames.shape
+    out = [b"\x89PNG\r\n\x1a\n", chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)),
+           chunk(b"acTL", struct.pack(">II", n, 0))]
+    seq = 0
+    for i, frame in enumerate(frames):
+        out.append(chunk(b"fcTL", struct.pack(">IIIIIHHBB", seq, w, h, 0, 0, 1, 24, 0, 0)))
+        seq += 1
+        raw = zlib.compress(np.concatenate([np.zeros((h, 1), np.uint8), frame.reshape(h, -1)], axis=1).tobytes(), 6)
+        out.append(chunk(b"IDAT", raw) if i == 0 else chunk(b"fdAT", struct.pack(">I", seq) + raw))
+        seq += i > 0
+    out.append(chunk(b"IEND", b""))
+    with open(path, "wb") as fh:
+        fh.write(b"".join(out))
+
+
+def _host_ms(fn, repeats: int = 3) -> float:
+    best = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return 1000 * best
+
+
+def phase_media_io(smi: str, directory: str) -> dict:
+    """The port's media I/O on the card's host against the hashes
+    tests/fixtures_video/media_io.json records with PIL, OpenCV and the JAX
+    writers: the JPEGs of the committed AVI's 9 frames (as the port decodes
+    them) at quality 92, the .avi, .mp4 and .mov of those frames without and
+    with `_fixture_audio()`, the committed GIF's and APNG's frames, the Canny
+    signal of the AVI's frames at 256x384 (20 / 60 and 100 / 200); then host
+    ms per 512x768 frame of `encode_jpeg` (one call, and `encode_jpegs`'
+    pool over 8 frames, and once over 121), `decode_jpeg`, `write_gif`, `decode_gif` (its own
+    literal-coded file), `read_apng` (an APNG written here) and the Canny
+    (LANCZOS4 from 288x432, gray, Canny)."""
+    import hashlib
+    import os
+
+    import numpy as np
+
+    from ltx2_tpu_torch.pipelines.common import read_image
+    from ltx2_tpu_torch.utils import video_io as vio
+    from ltx2_tpu_torch.utils.canny import bgr_to_gray, canny, resize_lanczos4
+    from ltx2_tpu_torch.utils.gif import decode_gif, write_gif
+    from ltx2_tpu_torch.utils.image_io import read_apng
+    from ltx2_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg, encode_jpegs
+
+    avi, _ = _fixture(FIXTURE_AVI)
+    meta = json.loads(open(os.path.join(os.path.dirname(avi), MEDIA_JSON), encoding="utf-8").read())
+    with open(avi, "rb") as fh:
+        data = fh.read()
+    frames = np.stack([decode_jpeg(data[o:o + n]) for fourcc, o, n in vio._avi_chunks(data) if fourcc == b"00dc"])
+    audio = _fixture_audio()
+    checks = {"avi_frames": _sha256(frames) == meta["avi_frames_sha256"],
+              "audio": _sha256(audio) == meta["audio"]["sha256_float32"],
+              "jpeg_q92": [hashlib.sha256(encode_jpeg(f)).hexdigest() for f in frames] == meta["jpeg_q92_sha256"]}
+    for key, want in meta["writers"].items():
+        suffix = key.split("_")[0]
+        path = os.path.join(directory, f"media.{suffix}")
+        writer = vio.write_avi_mjpeg if suffix == "avi" else vio.write_mp4_mjpeg
+        writer(path, frames, 24.0, audio=audio if key.endswith("_audio") else None, sample_rate=24000)
+        with open(path, "rb") as fh:
+            checks[f"writer_{key}"] = hashlib.sha256(fh.read()).hexdigest() == want
+    gif_path = os.path.join(os.path.dirname(avi), FIXTURE_GIF)
+    with open(gif_path, "rb") as fh:
+        checks["gif_frames"] = _sha256(np.stack(decode_gif(fh.read()))) == meta["gif"]["sha256_pil_frames_uint8"]
+    apng_path = os.path.join(os.path.dirname(avi), FIXTURE_APNG)
+    checks["apng_frames"] = _sha256(np.stack(read_apng(apng_path))) == meta["apng"]["sha256_pil_frames_uint8"]
+    checks["probes"] = (list(vio.probe_video(gif_path)), list(vio.probe_video(apng_path))) == \
+        ([25.0, 9, 96, 144], [25.0, 9, 96, 144])
+    for low, high in CANNY_THRESHOLDS:
+        signal = np.stack([np.repeat(canny(bgr_to_gray(resize_lanczos4(f[..., ::-1], 384, 256)), low, high)[..., None],
+                                     3, axis=2) for f in frames])
+        checks[f"canny_{low}_{high}"] = _sha256(signal) == meta["canny"][f"{low}_{high}"]["sha256_uint8"]
+
+    # Host ms per 512x768 frame: the committed still, shifted a little per frame.
+    still = read_image(_fixture(FIXTURE_JPG)[0])
+    clip = np.stack([np.roll(still, 7 * i, axis=1) for i in range(8)])
+    long_clip = np.stack([np.roll(still, 7 * i, axis=1) for i in range(FRAMES)])  # a served clip's count
+    jpeg_bytes = encode_jpeg(clip[0])
+    gif_out = os.path.join(directory, "media.gif")
+    write_gif(gif_out, clip[:2], 41)  # scipy's import outside the timing
+    t0 = time.perf_counter()
+    write_gif(gif_out, clip, 41)
+    gif_write_ms = 1000 * (time.perf_counter() - t0) / len(clip)
+    with open(gif_out, "rb") as fh:
+        gif_bytes = fh.read()
+    apng_out = os.path.join(directory, "media.apng")
+    _write_apng(apng_out, clip[:4])
+    bgr = frames[0][..., ::-1]
+    ms = {"encode_jpeg": _host_ms(lambda: encode_jpeg(clip[0])),
+          "encode_jpegs_8_frames_per_frame": _host_ms(lambda: encode_jpegs(clip)) / len(clip),
+          "encode_jpegs_121_frames_per_frame": _host_ms(lambda: encode_jpegs(long_clip), repeats=1) / len(long_clip),
+          "decode_jpeg": _host_ms(lambda: decode_jpeg(jpeg_bytes)),
+          "write_gif": gif_write_ms,
+          "decode_gif_literal_codes": _host_ms(lambda: decode_gif(gif_bytes, max_frames=2), repeats=1) / 2,
+          "read_apng": _host_ms(lambda: read_apng(apng_out), repeats=1) / 4,
+          "canny_288x432_to_512x768": _host_ms(lambda: canny(bgr_to_gray(resize_lanczos4(bgr, 768, 512)), 20, 60))}
+    rec = {"checks": checks, "ms_per_512x768_frame": ms, "jpeg_bytes_512x768": len(jpeg_bytes),
+           "gif_bytes_per_512x768_frame": len(gif_bytes) / len(clip), "card": smi}
+    log(f"media I/O (host): {json.dumps(rec)}")
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"media I/O: {bad} differ from tests/fixtures_video/{MEDIA_JSON}")
+    return rec
+
+
+def phase_ic_lora_canny(smi: str, directory: str, raw_counts: dict) -> tuple:
+    """`generate.main --pipeline ic-lora --control-type canny --canny-low 20
+    --canny-high 60 --save-control` at full width and depth, 512x768x121,
+    on a copy of the committed AVI and phase_ic_lora's IC-LoRA file: the
+    control read by the port's readers (OpenCV hidden when this machine has
+    it: its FFmpeg decode of the AVI is not PIL's), the port's Canny
+    at stage 1's 256x384 over 121 frames (its first 9 frames against
+    OpenCV's recorded hash, the rest the last repeated), the
+    `.control.avi` against the JAX writer's recorded bytes of that signal,
+    the launches those of the RAW run. Then, where this machine has OpenCV,
+    the route a run takes with it (`_canny_opencv_route`)."""
+    import hashlib
+    import importlib.util
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ltx2_tpu_torch import generate as G
+    from ltx2_tpu_torch.pipelines import ic_lora
+
+    avi, _ = _fixture(FIXTURE_AVI)
+    meta = json.loads(open(os.path.join(os.path.dirname(avi), MEDIA_JSON), encoding="utf-8").read())
+    control = os.path.join(directory, "canny_control.avi")
+    shutil.copy(avi, control)
+    signals = []
+    real = ic_lora.preprocess_canny
+
+    def recorded(*args, **kwargs):
+        t0 = time.perf_counter()
+        signal = real(*args, **kwargs)
+        signals.append((signal, time.perf_counter() - t0))
+        return signal
+
+    low, high = CANNY_THRESHOLDS[0]
+    out = os.path.join(directory, "ic_lora_canny.y4m")
+    torch.cuda.empty_cache()
+    _reset_counts()
+    _reset_flash_by()
+    _counters()["fwd"].launches_by_length = {}
+    opencv = "cv2" in sys.modules or importlib.util.find_spec("cv2") is not None
+    hidden = sys.modules.get("cv2")
+    ic_lora.preprocess_canny, sys.modules["cv2"] = recorded, None
+    try:
+        t0 = time.perf_counter()
+        videos, stats = G.main(["--pipeline", "ic-lora", "--control-video", control, "--control-type", "canny",
+                                "--canny-low", str(low), "--canny-high", str(high), "--save-control",
+                                "--ic-lora-weights", os.path.join(directory, "ic_lora.safetensors"), "--output", out])
+        wall = time.perf_counter() - t0
+    finally:
+        ic_lora.preprocess_canny = real
+        if hidden is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = hidden
+    counts = {**_counts(), "by_length": _flash_by_length()}
+    st = stats[0]
+    signal, canny_s = signals[0]
+    with open(control + ".control.avi", "rb") as fh:
+        control_sha = hashlib.sha256(fh.read()).hexdigest()
+    full = {"fwd": counts["fwd"], "conv_fp32": st["control_encode_conv_launches"] + st["upscale_conv_launches"],
+            "conv_bf16": st["decode_conv_launches"], "by_length": counts["by_length"]}
+    rec = {"wall_s": wall, "canny_s": canny_s, "signal": list(signal.shape), "opencv_on_this_machine": opencv,
+           "signal_equals_opencv": _sha256(signal[:9]) == meta["canny"][f"{low}_{high}"]["sha256_uint8"]
+           and bool((signal[9:] == signal[8]).all()),
+           "edge_pixels": int((signal[:9, ..., 0] > 0).sum()),
+           "control_avi_equals_jax": control_sha == meta["control_avi_20_60_sha256"],
+           "seconds": {p: st[f"{p}_s"] for p in ("control_encode", "stage1", "upscale", "stage2", "decode")},
+           "frames": list(videos[0].shape), "launches": full, "raw_launches": raw_counts, "card": smi}
+    del videos
+    rec["opencv_route"] = _canny_opencv_route(control) if opencv else {"run": False, "why": "no OpenCV here"}
+    log(f"ic-lora with Canny control ({WIDTH}x{HEIGHT}x{FRAMES}f, {LAYERS} layers, --save-control): "
+        f"{json.dumps(rec)}")
+    if not (rec["signal_equals_opencv"] and rec["control_avi_equals_jax"]) or rec["signal"] != [FRAMES, 256, 384, 3]:
+        raise AssertionError(f"ic-lora canny: the signal or its .control.avi differ from the recorded hashes: {rec}")
+    if opencv and not all(rec["opencv_route"]["equal"].values()):
+        raise AssertionError(f"ic-lora canny: the port's Canny on OpenCV's frames differs from OpenCV's: "
+                             f"{rec['opencv_route']}")
+    if full != raw_counts or rec["frames"] != [FRAMES, HEIGHT, WIDTH, 3] or counts["bwd"] or \
+            not all(st[f"{p}_latent_finite"] for p in ("stage1", "upscale", "stage2")):
+        raise AssertionError(f"ic-lora canny: {rec}, expected the RAW run's launches {raw_counts}")
+    return rec, full
+
+
+def _canny_opencv_route(video: str) -> dict:
+    """The route `--control-type canny` takes where OpenCV is installed:
+    `preprocess_canny` with cv2 visible (frames through `cv2.VideoCapture`)
+    at stage 1's 256x384 over all the video's frames, bit for bit against
+    the JAX package's cv2 calls on the same `VideoCapture` frames
+    (ltx2_tpu/pipelines/ic_lora.py: resize INTER_LANCZOS4, cvtColor
+    BGR2GRAY, Canny, GRAY2RGB) at both threshold pairs; and each op of
+    utils/canny.py against its cv2 call on its own (the resize also at
+    512x768). Records the pixels that differ, and the seconds."""
+    import cv2
+    import numpy as np
+
+    from ltx2_tpu_torch.pipelines import ic_lora
+    from ltx2_tpu_torch.utils.canny import bgr_to_gray, canny, resize_lanczos4
+
+    cap = cv2.VideoCapture(video)
+    frames = []
+    try:
+        while True:
+            ret, frame = cap.read()
+            if not ret:
+                break
+            frames.append(frame)
+    finally:
+        cap.release()
+    differ = {}
+
+    def held(name, mine, theirs):
+        differ[name] = differ.get(name, 0) + int((np.asarray(mine) != np.asarray(theirs)).sum())
+
+    for w, h in ((384, 256), (WIDTH, HEIGHT)):
+        for f in frames:
+            held(f"resize_lanczos4_{h}x{w}", resize_lanczos4(f, w, h),
+                 cv2.resize(f, (w, h), interpolation=cv2.INTER_LANCZOS4))
+    grays = [cv2.cvtColor(cv2.resize(f, (384, 256), interpolation=cv2.INTER_LANCZOS4), cv2.COLOR_BGR2GRAY)
+             for f in frames]
+    for f, g in zip(frames, grays):
+        held("bgr_to_gray", bgr_to_gray(cv2.resize(f, (384, 256), interpolation=cv2.INTER_LANCZOS4)), g)
+    seconds, edges = {}, {}
+    for low, high in CANNY_THRESHOLDS:
+        for g in grays:
+            held(f"canny_{low}_{high}", canny(g, low, high), cv2.Canny(g, low, high))
+        want = np.stack([cv2.cvtColor(cv2.Canny(g, low, high), cv2.COLOR_GRAY2RGB) for g in grays])
+        t0 = time.perf_counter()
+        signal = ic_lora.preprocess_canny(video, 256, 384, len(frames), low, high)
+        seconds[f"preprocess_canny_{low}_{high}"] = time.perf_counter() - t0
+        held(f"preprocess_canny_{low}_{high}", signal, want)
+        edges[f"{low}_{high}"] = int((want[..., 0] > 0).sum())
+    return {"run": True, "opencv": cv2.__version__, "frames": len(frames), "shape": list(frames[0].shape),
+            "equal": {k: v == 0 for k, v in differ.items()}, "pixels_differing": differ, "edge_pixels": edges,
+            "seconds": seconds}
+
+
+def phase_av_mjpeg(smi: str, directory: str) -> tuple:
+    """The 2-block AV distilled flow (`generate.main --pipeline distilled
+    --audio --layers 2`, 256x384x25) to an .avi and to a .mov: the PCM track
+    read back by the port's readers bit for bit the int16 samples of the
+    waveform the flow returned, the video track's frames read back."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from ltx2_tpu_torch import generate as G
+    from ltx2_tpu_torch.utils import video_io as vio
+
+    c = AV_MJPEG
+    rec, counts = {}, {"fwd": 0, "bwd": 0, "conv_fp32": 0, "conv_bf16": 0}
+    for suffix, reader in (("avi", vio.read_avi_audio), ("mov", vio.read_mov_audio)):
+        out = os.path.join(directory, f"av.{suffix}")
+        torch.cuda.empty_cache()
+        _reset_counts()
+        t0 = time.perf_counter()
+        results, stats = G.main(["--pipeline", "distilled", "--audio", "--layers", str(c["layers"]), "--height",
+                                 str(c["height"]), "--width", str(c["width"]), "--frames", str(c["frames"]),
+                                 "--output", out])
+        wall = time.perf_counter() - t0
+        run = _counts()
+        st = stats[0]
+        frames, wave = results[0]
+        samples, rate = reader(out)
+        written = vio._pcm_int16(wave)
+        video = vio.read_video_any(out, c["height"], c["width"], c["frames"])
+        rec[suffix] = {"wall_s": wall, "save_s": st["save_s"], "rate": rate, "samples": list(samples.shape),
+                       "pcm_equal": bool(np.array_equal(np.round(samples * 32767.0).astype(np.int16), written.T)),
+                       "video": list(video.shape), "bytes": os.path.getsize(out)}
+        counts["fwd"] += run["fwd"]
+        counts["bwd"] += run["bwd"]
+        counts["conv_fp32"] += st.get("upscale_conv_launches", 0)
+        counts["conv_bf16"] += st.get("decode_conv_launches", 0)
+        if rate != st["audio_sample_rate"] or not rec[suffix]["pcm_equal"] or \
+                rec[suffix]["video"] != [1, 3, c["frames"], c["height"], c["width"]]:
+            raise AssertionError(f"AV flow to .{suffix}: {rec[suffix]}")
+    rec.update(launches=counts, card=smi)
+    log(f"AV flow at {c['layers']} blocks to MJPEG .avi / .mov ({c['width']}x{c['height']}x{c['frames']}f): "
+        f"{json.dumps(rec)}")
+    if counts["bwd"] or not counts["fwd"]:
+        raise AssertionError(f"AV flow to MJPEG files: launches {counts}")
+    return rec, counts
+
+
 def phase_retake(smi: str, source: str, directory: str) -> tuple:
     """`python -m ltx2_tpu_torch.generate --pipeline retake` at full width
     and depth (the random 48-block bf16 DiT, the fp32 encoder, the bf16
@@ -5304,17 +5735,29 @@ def phase_video_paths(smi: str) -> tuple:
         t0 = time.perf_counter()
         _write_source_y4m(source, FRAMES, HEIGHT, WIDTH)
         write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        media = phase_media_io(smi, directory)
+        media["phase_s"] = time.perf_counter() - t0
         readers = phase_readers(smi, source)
         retake, retake_counts = phase_retake(smi, source, directory)
         ic, ic_counts, ic_small_counts = phase_ic_lora(smi, directory)
+        t0 = time.perf_counter()
+        ic_canny, ic_canny_counts = phase_ic_lora_canny(smi, directory, ic_counts)
+        ic_canny["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        av_mjpeg, av_mjpeg_counts = phase_av_mjpeg(smi, directory)
+        av_mjpeg["phase_s"] = time.perf_counter() - t0
         prep, prep_counts = phase_prepare_videos(smi, directory)
     finally:
         shutil.rmtree(directory, ignore_errors=True)
-    rec = {"source_write_s": write_s, "readers": readers, "retake": retake, "ic_lora": ic,
-           "prepare_data_videos": prep, "wall_s": time.perf_counter() - t_start, "card": smi}
-    log(f"video paths: the readers, retake, ic-lora and prepare_data --videos took {rec['wall_s']:.1f} s | {smi}")
+    rec = {"source_write_s": write_s, "media_io": media, "readers": readers, "retake": retake, "ic_lora": ic,
+           "ic_lora_canny": ic_canny, "av_mjpeg": av_mjpeg, "prepare_data_videos": prep,
+           "wall_s": time.perf_counter() - t_start, "card": smi}
+    log(f"video paths: media I/O, the readers, retake, ic-lora (RAW and Canny), the AV flow to MJPEG files and "
+        f"prepare_data --videos took {rec['wall_s']:.1f} s (media I/O {media['phase_s']:.1f}, Canny ic-lora "
+        f"{ic_canny['phase_s']:.1f}, AV to MJPEG {av_mjpeg['phase_s']:.1f}) | {smi}")
     return rec, {"retake": retake_counts, "ic_lora": ic_counts, "ic_lora_small": ic_small_counts,
-                 "prepare_data_videos": prep_counts}
+                 "ic_lora_canny": ic_canny_counts, "av_mjpeg": av_mjpeg_counts, "prepare_data_videos": prep_counts}
 
 
 def main():
@@ -5345,6 +5788,7 @@ def main():
     torch.cuda.empty_cache()
     v2_files, v2_counts = phase_v2_files(smi)
     server_counts = v2_files["server"]["launches"]
+    served_mp4_counts = v2_files["server"]["served_mp4_launches"]  # counted in server_counts too
     torch.cuda.empty_cache()
     two_stage_counts, two_stage_stats, two_stage_peaks = phase_two_stage(smi)
     phases = ("text_encode", "stage1", "upscale", "stage2", "decode")
@@ -5406,8 +5850,8 @@ def main():
     # Retake, ic-lora and prepare_data --videos: the decodes' convs on the
     # bf16 kernel; the encoder's (source, control, clips) and the upscaler's
     # on the fp32 one. The small ic-lora run decodes nothing.
-    vp_bf16 = {"retake": vp_counts["retake"]["conv_bf16"], "ic_lora": vp_counts["ic_lora"]["conv_bf16"]}
-    vp_fp32 = {"retake": vp_counts["retake"]["conv_fp32"], "ic_lora": vp_counts["ic_lora"]["conv_fp32"],
+    vp_bf16 = {k: vp_counts[k]["conv_bf16"] for k in ("retake", "ic_lora", "ic_lora_canny", "av_mjpeg")}
+    vp_fp32 = {**{k: vp_counts[k]["conv_fp32"] for k in ("retake", "ic_lora", "ic_lora_canny", "av_mjpeg")},
                "ic_lora_small": vp_counts["ic_lora_small"]["conv"],
                "prepare_data_videos": vp_counts["prepare_data_videos"]["conv"]}
     conv_replaces = ("scripts/bench_conv_pallas.py:116 (conv3d_pallas, pallas_call :140); "
@@ -5438,6 +5882,8 @@ def main():
                                  "temporal_upscale": temporal_counts["fwd"],
                                  **{k: c["fwd"] for k, c in kf_counts.items()},
                                  **{k: c["fwd"] for k, c in vp_counts.items()}, "server": server_counts["fwd"]},
+            # The served .mp4 request (no ffmpeg: MJPEG .mp4, GIF, npz), counted in "server" too.
+            "served_mp4_launches": served_mp4_counts["fwd"],
             # ic-lora's stage 1 over its 1536 tokens and the control's 1536
             # appended, counted in "launches" too.
             "ic_lora_launches_by_length": vp_counts["ic_lora"]["by_length"],
@@ -5523,6 +5969,7 @@ def main():
                                  "one_stage_options": options["conv_bf16"],
                                  "temporal_upscale": temporal_counts["conv_bf16"], **kf_bf16, **vp_bf16,
                                  "server": server_counts["conv_bf16"]},
+            "served_mp4_launches": served_mp4_counts["conv_bf16"],  # counted in "server" too
             "max_abs_err": max(r["max_abs_err"] for r in bf16_recs),
             "ms": bf16_recs[0]["ms"],
             "plain_ms": bf16_recs[0]["plain_ms"],
@@ -5555,6 +6002,7 @@ def main():
                                  "one_stage_options": options["conv_fp32"], "prepare_data": prep_counts["conv"],
                                  "temporal_upscale": temporal_counts["conv_fp32"], **kf_fp32, **vp_fp32,
                                  "server": server_counts["conv_fp32"]},
+            "served_mp4_launches": served_mp4_counts["conv_fp32"],  # counted in "server" too
             "max_abs_err": max(r["max_abs_err"] for r in fp32_recs),
             "ms": fp32_recs[0]["ms"],
             "plain_ms": fp32_recs[0]["plain_ms"],

@@ -58,19 +58,20 @@ Ten flows, chosen with `--pipeline`:
   file from a checkpoint, keyframe and ti2vid-hq run one stage, as the JAX
   CLI does.
 - `retake` (`generate_videos_retake`): pipelines/retake.py: `--video`
-  (its own height, width and fps; frames snapped down to 8k+1; .y4m and
-  MJPEG .avi/.mov/.mp4 read by the port, other codecs through OpenCV or
-  ffmpeg) encoded by the fp32 video encoder, the latent frames between
+  (its own height, width and fps; frames snapped down to 8k+1; .y4m, MJPEG
+  .avi/.mov/.mp4, GIF and APNG read by the port, other codecs through
+  OpenCV or ffmpeg) encoded by the fp32 video encoder, the latent frames between
   `--retake-start` and `--retake-end` seconds re-noised and denoised over
   `--num-inference-steps` CFG steps at `--cfg-scale` (`--cfg-interval`,
   `--token-shift`), every other frame kept bit for bit, the decode.
 - `ic-lora` (`generate_videos_ic_lora`): pipelines/ic_lora.py: the
   distilled recipe with `--control-video` (`--control-type raw`, or
-  `canny` through OpenCV, `--canny-low/--canny-high`) read at stage 1's
-  size, encoded and appended at frame 0 with `--control-strength`, and
-  `--ic-lora-weights PATH[:STRENGTH]` (the first `--lora` when absent) fused
-  into the DiT for stage 1 only; `--int8` and `--save-control` (the MJPEG
-  writers) are refused.
+  `canny` through the port's own OpenCV steps, `--canny-low/--canny-high`)
+  read at stage 1's size, encoded and appended at frame 0 with
+  `--control-strength`, and `--ic-lora-weights PATH[:STRENGTH]` (the first
+  `--lora` when absent) fused into the DiT for stage 1 only;
+  `--save-control` writes the signal as `<video>.control.avi`; `--int8` is
+  refused.
 
 `--audio` on the distilled and the CFG flows generates sound with the
 audio-video DiT (the checkpoint's, loaded with its audio stream; else random
@@ -79,8 +80,8 @@ audio stream denoises beside the video in the joint loop (the CFG flows
 guide it at `--audio-cfg-scale`, 7.0), then the audio VAE decoder and the
 vocoder (LTX-2.3's BWE chain when the checkpoint declares one: 48 kHz,
 else 24 kHz) make a stereo waveform, written as `<base>.wav` beside a
-`.y4m` (16-bit PCM, as the JAX CLI writes it) or muxed by ffmpeg into other
-containers. `--no-internal-audio` leaves the audio stream of an AV DiT out
+`.y4m` (16-bit PCM, as the JAX CLI writes it), inside an MJPEG `.avi`,
+`.mov` or no-ffmpeg `.mp4`, or muxed by ffmpeg into other containers. `--no-internal-audio` leaves the audio stream of an AV DiT out
 when audio is not asked for, as in the JAX CLI.
 
 `--int8` (every flow) serves the DiT's matmul weights as int8 W8A8
@@ -129,11 +130,13 @@ flows draw a negative one after it). Each request's stats name the
 `prompt_source`.
 
 Files out: `--output` (default output.mp4; several requests get
-`<base>_<i><ext>`): `.y4m` is written by the port (utils/video_io.py), any
-other container through ffmpeg as the JAX CLI does (`--output-fps`
-minterpolate, `--speed`); `.avi`, `.mov`, and anything but `.y4m` without
-ffmpeg on PATH are refused before a model is built (the MJPEG writers need a
-JPEG encoder the port does not have). `--skip-vae` writes
+`<base>_<i><ext>`), as the JAX CLI's `save_video` writes them
+(utils/video_io.py): `.y4m`, `.avi` and `.mov` by the port's writers (MJPEG
+from the port's JPEG encoder, equal to PIL's), any other container through
+ffmpeg (`--output-fps` minterpolate, `--speed`); without ffmpeg on PATH an
+`.mp4`/`.m4v` is written as MJPEG by the port and any other name as
+`<base>.avi`, each with `<base>.gif` (a preview), `<base>_frames.npz` and,
+with audio, `<base>.wav`. `--skip-vae` writes
 `<base>_latent.npz` (`latent`) and builds no decoder. `--fps` is the
 position grid's rate and the file's; `--tile-size`, `--tile-overlap`,
 `--temporal-tile-size` and `--temporal-tile-overlap` set the decode's
@@ -256,7 +259,7 @@ from ltx2_tpu_torch.pipelines.one_stage import OneStageCFGConfig, OneStagePipeli
 from ltx2_tpu_torch.types import LatentState, VideoLatentShape, VideoPixelShape
 from ltx2_tpu_torch.utils.model_ledger import ModelLedger
 from ltx2_tpu_torch.utils.tokenizer import has_tokenizer, tokenize
-from ltx2_tpu_torch.utils.video_io import check_output, save_video
+from ltx2_tpu_torch.utils.video_io import save_video
 
 CONTEXT_TOKENS = 1024
 # A request's prompt and negative prompt lengths in tokens, drawn from its
@@ -1340,9 +1343,10 @@ def generate_videos_ic_lora(
     internal_audio: bool = True,
 ) -> Tuple[List[np.ndarray], List[dict]]:
     """IC-LoRA control (pipelines/ic_lora.py), one clip per seed: the
-    distilled recipe with `control_video` (`control_type` "raw" or "canny"
-    through OpenCV) read at stage 1's size, encoded and appended at frame 0
-    with `control_strength`, and
+    distilled recipe with `control_video` (`control_type` "raw" or "canny",
+    the port's OpenCV steps) read at stage 1's size, encoded and appended
+    at frame 0 with `control_strength` (with `save_control` also written as
+    `<video>.control.avi`), and
     `ic_lora` fused into the DiT for stage 1 only; stage 2 on the base
     weights, the decodes. The DiT takes the LoRA's deltas, so a random one
     is drawn in `dtype` (bf16), never kept in fp8. Without an upscaler (a
@@ -2085,8 +2089,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--output-fps", type=float, default=None, help="mux at this fps via minterpolate if > --fps")
     ap.add_argument("--speed", type=float, default=1.0, help="playback speed multiplier of the container rate")
     ap.add_argument("--output", default="output.mp4",
-                    help=".y4m is written by the port; other containers need ffmpeg on PATH (.avi/.mov: refused, "
-                         "no JPEG encoder); with several requests <base>_<i><ext>")
+                    help=".y4m/.avi/.mov are written by the port; other containers through ffmpeg, or without it "
+                         "an MJPEG .mp4/.m4v (any other name: <base>.avi) with <base>.gif and <base>_frames.npz; "
+                         "with several requests <base>_<i><ext>")
     ap.add_argument("--skip-vae", action="store_true", help="write <base>_latent.npz (key latent), no decode")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="bfloat16", help="the DiT's compute dtype")
     ap.add_argument("--steps", type=int, default=8, help="bench-e2e only: distilled steps")
@@ -2151,24 +2156,26 @@ def build_parser() -> argparse.ArgumentParser:
                          "default), repeatable")
     ic = ap.add_argument_group("retake and ic-lora (the JAX CLI's names and defaults)")
     ic.add_argument("--video", default=None,
-                    help="retake: the source video (.y4m, an MJPEG .avi/.mov/.mp4, a still PNG; others through "
-                         "OpenCV or ffmpeg); its own height, width and fps, its frames snapped down to 8k+1")
+                    help="retake: the source video (.y4m, an MJPEG .avi/.mov/.mp4, a GIF, an APNG, a still PNG; "
+                         "others through OpenCV or ffmpeg); its own height, width and fps, its frames snapped down "
+                         "to 8k+1")
     ic.add_argument("--retake-start", type=float, default=0.0, help="retake: the window's start (seconds)")
     ic.add_argument("--retake-end", type=float, default=1.0, help="retake: the window's end (seconds)")
     ic.add_argument("--control-video", default=None, help="ic-lora: the control video, read at stage 1's size")
     ic.add_argument("--control-type", choices=["raw", "canny"], default="raw",
-                    help="ic-lora: raw (already a control signal) or canny (edges through OpenCV)")
+                    help="ic-lora: raw (already a control signal) or canny (edges, the port's OpenCV steps)")
     ic.add_argument("--canny-low", type=int, default=100, help="canny low threshold for --control-type canny")
     ic.add_argument("--canny-high", type=int, default=200, help="canny high threshold for --control-type canny")
     ic.add_argument("--control-strength", type=float, default=0.95, help="ic-lora control conditioning strength")
     ic.add_argument("--ic-lora-weights", default=None, metavar="PATH[:STRENGTH]",
                     help="ic-lora: the IC-LoRA safetensors, fused for stage 1 only (the first --lora when absent)")
     ic.add_argument("--save-control", action="store_true",
-                    help="ic-lora: write the control signal beside the source (not ported: the MJPEG writers)")
+                    help="ic-lora: write the control signal beside the source as <video>.control.avi")
     ap.add_argument("--audio", "--generate-audio", action="store_true",
                     help="every flow but bench-e2e: generate audio with the audio-video DiT (the checkpoint's, "
                          "loaded with its audio stream, else random at full width, kept in fp8) and write it beside "
-                         "a .y4m as <base>.wav (muxed by ffmpeg into other containers); a2vid writes the source")
+                         "a .y4m as <base>.wav (inside .avi/.mov/no-ffmpeg .mp4; muxed by ffmpeg into other "
+                         "containers); a2vid writes the source")
     ap.add_argument("--no-internal-audio", action="store_true",
                     help="an audio-video DiT leaves the audio stream out when --audio is not given")
     ap.add_argument("--audio-cfg-scale", type=float, default=7.0,
@@ -2265,15 +2272,14 @@ def _encodes(args) -> bool:
     return not args.no_gemma and (args.text_encoder or (args.gemma_dir is not None and not args.embedding))
 
 
-def check_request(args, output: bool = True) -> None:
+def check_request(args) -> None:
     """The command line's settings made consistent and checked, before any
     model is built: the JAX CLI's compatibility flags applied
     (`_apply_reference_compat`), the two-stage resolution rounded up to a
     multiple of 64, and every refusal raised as a ValueError (`main` turns
-    it into a usage error, the server into a `bad_request` response;
-    `--save-control` raises NotImplementedError). `output` False skips the
-    check that --output can be written (a server's launch: each request
-    names its own). Mutates `args`."""
+    it into a usage error, the server into a `bad_request` response). No
+    --output is refused: `save_video` writes every container, as the JAX
+    CLI does. Mutates `args`."""
     defaults = _defaults()
     _apply_reference_compat(args)
     cfg_flow = args.pipeline in ("one-stage", "text-to-video")
@@ -2305,10 +2311,6 @@ def check_request(args, output: bool = True) -> None:
             raise ValueError(f"{flag} does not apply to --pipeline retake (video only, conditioned by --video)")
     if args.image and args.pipeline == "ic-lora":
         raise ValueError("--image does not apply to --pipeline ic-lora (conditioned by --control-video)")
-    if args.save_control:
-        from ltx2_tpu_torch.pipelines.ic_lora import NO_SAVE_CONTROL
-
-        raise NotImplementedError(NO_SAVE_CONTROL)
     if args.keyframe and args.pipeline != "keyframe":
         raise ValueError("--keyframe needs --pipeline keyframe")
     if args.pipeline == "keyframe":
@@ -2373,11 +2375,6 @@ def check_request(args, output: bool = True) -> None:
                              "--embedding or --no-gemma")
     if args.early_layers_only:
         _check_early_layers(args)
-    if output and not args.skip_vae:
-        try:
-            check_output(args.output)
-        except ValueError as err:
-            raise ValueError(f"--output {args.output}: {err}") from None
 
 
 def _check_early_layers(args) -> None:

@@ -2,7 +2,8 @@
 ltx2_tpu/pipelines/ic_lora.py).
 
 A control video (RAW: already a depth / pose / edge video; CANNY: edges
-made with OpenCV, as the JAX package makes them) is read at stage 1's size
+made by the port's own OpenCV steps, utils/canny.py, equal to the JAX
+package's cv2 calls bit for bit) is read at stage 1's size
 (`retake.load_video_frames`: the port's readers), encoded by the fp32 video
 encoder and appended past stage 1's sequence at pixel frame 0 with its
 strength (`VideoConditionByKeyframeIndex`): stage 1 runs over twice the
@@ -10,11 +11,16 @@ tokens, with per-token timesteps. The IC-LoRA is fused into the DiT for
 stage 1 only: before it, and subtracted again when stage 1 ends (after its
 "stage1" callback), or in a `finally` when anything fails; stage 2, the
 distilled refinement, runs the base weights without the control. Audio
-passes through as in the distilled pipeline.
+passes through as in the distilled pipeline. `save_control` writes the
+signal that is encoded as `<video>.control.avi` (24 fps MJPEG), the JAX
+package's bytes.
 
-Not ported (NotImplementedError): `save_control`, which the JAX package
-writes as an MJPEG AVI (PIL's JPEG encoder; ROADMAP.md's "The MJPEG
-writers").
+The Canny path reads the source frames with `cv2.VideoCapture` when OpenCV
+is installed (the JAX package's frames, so the signal equals its bit for
+bit), else at their own size through the port's readers (PIL's decode, as
+the port's JPEG decoder gives it, or the y4m reader). The two decodes of
+an MJPEG file differ: OpenCV's (FFmpeg's) differs from PIL's in 69 % of
+the committed AVI's samples, by up to 8.
 """
 
 from __future__ import annotations
@@ -31,11 +37,8 @@ from ltx2_tpu_torch.conditioning.keyframe import VideoConditionByKeyframeIndex
 from ltx2_tpu_torch.loader.lora import LoRAConfig, fuse_lora_into_params, unfuse_lora_deltas
 from ltx2_tpu_torch.pipelines.common import encode_image
 from ltx2_tpu_torch.pipelines.distilled import DistilledConfig, DistilledPipeline
-
-NO_SAVE_CONTROL = ("save_control is not ported to the PyTorch port: the JAX package writes the control signal as an "
-                   "MJPEG AVI, whose JPEG encoder comes with ROADMAP.md's \"The MJPEG writers\"")
-NO_CV2 = ("OpenCV required for Canny preprocessing. Install opencv-python. (The port's own Canny comes with "
-          "ROADMAP.md's \"A Canny edge detector of the port's own\".)")
+from ltx2_tpu_torch.utils.canny import bgr_to_gray, canny, resize_lanczos4
+from ltx2_tpu_torch.utils.video_io import write_avi_mjpeg
 
 
 class ControlType(Enum):
@@ -62,26 +65,42 @@ class VideoCondition:
     save_control: bool = False
 
 
+def _source_frames_bgr(video_path: str, num_frames: int) -> List[np.ndarray]:
+    """Up to `num_frames` uint8 BGR frames at the video's own size: through
+    `cv2.VideoCapture` when OpenCV is installed, as the JAX package reads
+    them; else through the port's readers (`retake.load_video_frames`)."""
+    from ltx2_tpu_torch.utils.video_io import _cv2_or_none
+
+    cv2 = _cv2_or_none()
+    frames: List[np.ndarray] = []
+    if cv2 is not None:
+        cap = cv2.VideoCapture(str(video_path))
+        try:
+            while len(frames) < num_frames:
+                ret, frame = cap.read()
+                if not ret:
+                    break
+                frames.append(frame)
+        finally:
+            cap.release()
+        return frames
+    from ltx2_tpu_torch.pipelines.retake import get_video_metadata, load_video_frames
+
+    _fps, count, height, width = get_video_metadata(str(video_path))
+    video = load_video_frames(str(video_path), height, width, min(num_frames, max(count, 1)))
+    rgb = np.rint((video[0].transpose(1, 2, 3, 0) + 1.0) * 127.5).astype(np.uint8)
+    return [np.ascontiguousarray(f[..., ::-1]) for f in rgb]
+
+
 def preprocess_canny(video_path: Union[str, Path], height: int, width: int, num_frames: int,
                      low_threshold: int = 100, high_threshold: int = 200) -> np.ndarray:
-    """Canny edges of the video's frames, (F, H, W, 3) uint8, through
-    OpenCV as the JAX package calls it (LANCZOS4 resize, BGR -> gray, Canny,
-    gray -> RGB; the last frame repeated to `num_frames`)."""
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError(NO_CV2) from e
-    cap = cv2.VideoCapture(str(video_path))
+    """Canny edges of the video's frames, (F, H, W, 3) uint8: the JAX
+    package's cv2 steps through utils/canny.py (LANCZOS4 resize, BGR ->
+    gray, Canny, gray -> RGB), the last frame repeated to `num_frames`."""
     frames = []
-    while len(frames) < num_frames:
-        ret, frame = cap.read()
-        if not ret:
-            break
-        frame = cv2.resize(frame, (width, height), interpolation=cv2.INTER_LANCZOS4)
-        gray = cv2.cvtColor(frame, cv2.COLOR_BGR2GRAY)
-        edges = cv2.Canny(gray, low_threshold, high_threshold)
-        frames.append(cv2.cvtColor(edges, cv2.COLOR_GRAY2RGB))
-    cap.release()
+    for frame in _source_frames_bgr(str(video_path), num_frames):
+        gray = bgr_to_gray(resize_lanczos4(frame, width, height))
+        frames.append(np.repeat(canny(gray, low_threshold, high_threshold)[..., None], 3, axis=2))
     if not frames:
         raise ValueError(f"Could not read any frames from {video_path}")
     while len(frames) < num_frames:
@@ -109,20 +128,23 @@ def create_video_conditionings(videos: List[VideoCondition], encode_fn: Callable
                                height: int, width: int, num_frames: int, dtype=torch.float32,
                                device=None) -> List[VideoConditionByKeyframeIndex]:
     """Each control video read at (height, width, num_frames) (CANNY:
-    `preprocess_canny`; RAW: `load_video_frames`), encoded by `encode_fn`
-    on `device` and appended at pixel frame 0 with its strength."""
+    `preprocess_canny`; RAW: `load_video_frames`), with `save_control` also
+    written as `<video>.control.avi` (24 fps; the signal back in uint8 as
+    the JAX package truncates it), encoded by `encode_fn` on `device` and
+    appended at pixel frame 0 with its strength."""
     from ltx2_tpu_torch.pipelines.retake import load_video_frames
 
     conditionings = []
     for vc in videos:
-        if vc.save_control:
-            raise NotImplementedError(NO_SAVE_CONTROL)
         if vc.control_type == ControlType.CANNY:
             tensor = load_control_signal_tensor(preprocess_control_signal(
                 vc.video_path, vc.control_type, height, width, num_frames, low_threshold=vc.canny_low,
                 high_threshold=vc.canny_high))
         else:
             tensor = load_video_frames(vc.video_path, height, width, num_frames)
+        if vc.save_control:
+            frames_u8 = ((tensor[0].transpose(1, 2, 3, 0) + 1.0) * 127.5).clip(0, 255).astype(np.uint8)
+            write_avi_mjpeg(str(vc.video_path) + ".control.avi", frames_u8, fps=24.0)
         encoded = encode_fn(torch.from_numpy(tensor).to(device=device, dtype=dtype))
         conditionings.append(VideoConditionByKeyframeIndex(keyframes=encoded, frame_idx=0, strength=vc.strength))
     return conditionings

@@ -3,9 +3,9 @@ ltx2_tpu/pipelines/retake.py).
 
 The source keeps its own height, width and fps; its frame count is snapped
 down to 8k + 1 (`get_video_metadata`, `load_video_frames`: the port's
-readers for y4m, MJPEG AVI / mov / mp4 and still PNGs, OpenCV when it is
-installed, else the ffmpeg and ffprobe pipes, as the JAX package chooses
-by file type). The fp32 video encoder encodes it to the clean latent; a
+readers for y4m, MJPEG AVI / mov / mp4, GIF, APNG and still PNGs, OpenCV
+when it is installed, else the ffmpeg and ffprobe pipes, as the JAX package
+chooses by file type). The fp32 video encoder encodes it to the clean latent; a
 `TemporalRegionMask` gives the latent frames inside [start, end) seconds
 denoise mask 1, every other frame 0; the Gaussian noiser noises the window
 only; the CFG loop (`cfg_interval` guidance reuse, per-token timesteps)

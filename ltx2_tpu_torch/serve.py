@@ -22,14 +22,14 @@ skip_vae (a JSON boolean), the JAX server's names. Everything else
 (checkpoint, files, --fp8-serving, --enhance-prompt, ...) is fixed at launch:
 it defines the resident models. Each request is checked by the command
 line's own checks (`generate.check_request`) before it runs: a refused
-request, an unknown or mistyped field, audio without --audio at launch, and
-an output the port cannot write (a .mp4 without ffmpeg on PATH: the JAX
-server writes an MJPEG file there, the port has no JPEG encoder) come back
-as {"status": "error", "kind": "bad_request"}; a generation that fails (a
-kernel that does not build or launch, the card out of memory) as "kind":
-"server". Neither ends the process. An ok response adds the port's
+request, an unknown or mistyped field and audio without --audio at launch
+come back as {"status": "error", "kind": "bad_request"}; a generation that
+fails (a kernel that does not build or launch, the card out of memory) as
+"kind": "server". Neither ends the process. An ok response adds the port's
 per-clip stats ("stats", as `generate.main` prints them) to the JAX
-server's fields.
+server's fields; its "artifacts" are the files written (a `.mp4` without
+ffmpeg on PATH: the MJPEG `.mp4`, `<base>.gif` and `<base>_frames.npz`,
+whose writing the stats' `save_s` counts).
 
 With --http PORT the same requests arrive as `POST /generate` JSON bodies
 (HTTP 400 for a bad request, 411 without a Content-Length, 500 for a
@@ -148,10 +148,12 @@ def apply_request(base_args, request: dict):
 
 
 def _actual_outputs(requested: str) -> list:
-    """The files a request wrote: the video, `<base>.wav` beside a .y4m, or
-    `<base>_latent.npz` with skip_vae."""
+    """The files a request wrote, the JAX server's candidates: the video,
+    the no-ffmpeg `<base>.avi`, `<base>.gif` and `<base>_frames.npz`,
+    `<base>_latent.npz` with skip_vae, `<base>.wav`."""
     base = requested.rsplit(".", 1)[0]
-    candidates = [requested, base + ".wav", base + "_latent.npz"]
+    candidates = [requested, base + ".avi", base + ".gif", base + "_frames.npz", base + "_latent.npz",
+                  base + ".wav"]
     return [c for c in dict.fromkeys(candidates) if os.path.exists(c)]
 
 
@@ -173,7 +175,7 @@ def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
     try:
-        generate.check_request(args, output=False)  # each request's output is checked with it
+        generate.check_request(args)
     except ValueError as err:
         parser.error(str(err))
     t0 = time.perf_counter()

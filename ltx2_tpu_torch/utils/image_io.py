@@ -24,6 +24,11 @@ code path serves every machine, PIL or not:
   and clipped. The coefficients are computed in Python floats (C doubles,
   the C library's sin) in PIL's order of operations, the passes as int64
   torch sums, so the output equals PIL's.
+- `read_apng` / `apng_info`: animated PNGs (`acTL`, `fcTL`, `fdAT`) as
+  Pillow 12 composites their frames (its dispose and blend rules, the
+  default image), over L, LA, RGB and RGBA at 8 bits and palettes at 1, 2,
+  4 and 8 bits, with `_unfilter` undoing the rows; 16-bit and interlaced
+  APNGs raise a ValueError naming them.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from __future__ import annotations
 import math
 import struct
 import zlib
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -221,3 +226,198 @@ def resize(img: torch.Tensor, width: int, height: int, filt=LANCZOS) -> torch.Te
 def resize_lanczos(img: torch.Tensor, width: int, height: int) -> torch.Tensor:
     """PIL's `Image.Resampling.LANCZOS` resize (`resize`)."""
     return resize(img, width, height, LANCZOS)
+
+
+# ---- APNG ----------------------------------------------------------------------
+
+# color type -> (Pillow's mode, samples per pixel, bit depths read here)
+_APNG_MODES = {0: ("L", 1, (8,)), 2: ("RGB", 3, (8,)), 3: ("P", 1, (1, 2, 4, 8)), 4: ("LA", 2, (8,)),
+               6: ("RGBA", 4, (8,))}
+APNG_DISPOSE_NONE, APNG_DISPOSE_BACKGROUND, APNG_DISPOSE_PREVIOUS = 0, 1, 2
+APNG_BLEND_SOURCE, APNG_BLEND_OVER = 0, 1
+
+
+class _APNGFrame:
+    def __init__(self, control: Optional[tuple]):
+        # (x0, y0, x1, y1, delay ms, dispose_op, blend_op), None for the default image
+        self.control = control
+        self.data: List[bytes] = []
+
+
+def _fctl(body: bytes, size: Tuple[int, int], path: str) -> tuple:
+    _seq, w, h, x, y, num, den, dispose, blend = struct.unpack(">IIIIIHHBB", body[:26])
+    if x + w > size[0] or y + h > size[1]:
+        raise ValueError(f"{path}: APNG frame ({x}, {y}, {w}x{h}) reaches past the image")
+    return x, y, x + w, y + h, float(num) / float(den or 100) * 1000, dispose, blend
+
+
+def _apng_chunks(data: bytes, path: str):
+    """The header, palette, transparency and animation control of an APNG,
+    and its frames (the default image, when the IDAT is not the first
+    frame, first), as Pillow reads them."""
+    if not data.startswith(PNG_SIGNATURE):
+        raise ValueError(f"{path}: not a PNG file")
+    header = palette = trns = None
+    n_frames = None
+    frames: List[_APNGFrame] = []
+    pending: Optional[tuple] = None
+    duration = 0.0
+    for kind, body in _chunks(data, path):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8)[:len(body) // 3 * 3].reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = body
+        elif kind == b"acTL" and not frames:
+            n_frames = struct.unpack(">I", body[:4])[0]
+        elif kind == b"fcTL":
+            pending = _fctl(body, header[:2], path)
+            if not frames:
+                duration = pending[4]
+        elif kind == b"IDAT":
+            if not frames:  # the first frame, or the default image when no fcTL came first
+                frames.append(_APNGFrame(pending))
+                pending = None
+            frames[0].data.append(body)
+        elif kind == b"fdAT" and frames:
+            if pending is not None:
+                frames.append(_APNGFrame(pending))
+                pending = None
+            frames[-1].data.append(body[4:])
+    if header is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    if n_frames is None or n_frames == 0:
+        raise ValueError(f"{path}: not an animated PNG (no acTL before the image data)")
+    count = n_frames + (1 if frames and frames[0].control is None else 0)
+    return header, palette, trns, frames[:count], count, duration
+
+
+def _apng_pixels(frame: _APNGFrame, header, width: int, height: int, path: str) -> np.ndarray:
+    """One frame's image data -> its pixels in the canvas mode: (h, w)
+    indices or grey, else (h, w, samples)."""
+    _, _, depth, color, _, _, interlace = header
+    _, samples, depths = _APNG_MODES[color]
+    if interlace:
+        raise ValueError(f"Unsupported image format: interlaced (Adam7) APNG ({path})")
+    if depth not in depths:
+        raise ValueError(f"Unsupported image format: {depth}-bit APNG of color type {color} ({path}); supported: "
+                         "8-bit L, LA, RGB, RGBA and 1/2/4/8-bit palette")
+    row_bytes = -(-width * samples * depth // 8)
+    raw = np.frombuffer(zlib.decompress(b"".join(frame.data)), np.uint8)
+    if raw.size < height * (1 + row_bytes):
+        raise ValueError(f"{path}: APNG frame data holds {raw.size} bytes, {height} rows of {row_bytes} need "
+                         f"{height * (1 + row_bytes)}")
+    raw = raw[:height * (1 + row_bytes)]
+    if depth == 8:
+        pixels = _unfilter(raw, height, width, samples)
+        return pixels[..., 0] if samples == 1 else pixels
+    packed = _unfilter(raw, height, row_bytes, 1)[..., 0]
+    bits = np.unpackbits(packed, axis=1).reshape(height, -1, depth)
+    values = (bits.astype(np.uint8) << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(axis=2)
+    return values[:, :width].astype(np.uint8)
+
+
+def _div255(v: np.ndarray) -> np.ndarray:
+    """Pillow's DIV255: (v + 128 + ((v + 128) >> 8)) >> 8."""
+    tmp = v + 128
+    return ((tmp >> 8) + tmp) >> 8
+
+
+def _apng_alpha(updated: np.ndarray, mode: str, trns: Optional[bytes]) -> np.ndarray:
+    """The mask Pillow pastes an OVER frame with: its alpha (RGBA, LA), the
+    tRNS colour as 0 (RGB), the palette's tRNS alphas (P), else 255."""
+    if mode == "RGBA":
+        return updated[..., 3].astype(np.int64)
+    if mode == "LA":
+        return updated[..., 1].astype(np.int64)
+    full = np.full(updated.shape[:2], 255, np.int64)
+    if mode == "RGB" and trns is not None and len(trns) >= 6:
+        key = struct.unpack(">HHH", trns[:6])
+        return np.where((updated == np.array(key)).all(-1), 0, full)
+    if mode == "P" and trns is not None:
+        alphas = np.full(256, 255, np.int64)
+        alphas[:min(len(trns), 256)] = np.frombuffer(trns[:256], np.uint8)
+        return alphas[updated]
+    return full
+
+
+def _apng_rgb(canvas: np.ndarray, mode: str, palette: Optional[np.ndarray]) -> np.ndarray:
+    """The canvas as `convert("RGB")` gives it."""
+    if mode == "P":
+        full = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
+        if palette is not None:
+            full[:len(palette)] = palette[:256]
+        return full[canvas]
+    if mode == "L":
+        return np.repeat(canvas[..., None], 3, axis=2)
+    if mode == "LA":
+        return np.repeat(canvas[..., :1], 3, axis=2)
+    return np.array(canvas[..., :3])
+
+
+def apng_info(path: str) -> Tuple[int, int, int, float]:
+    """(width, height, frames, the first frame's delay in ms or 0), as
+    PIL's `size`, `n_frames` and `info["duration"]` give them."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    header, _, _, _, count, duration = _apng_chunks(data, path)
+    return header[0], header[1], count, duration
+
+
+def read_apng(path: str, max_frames: Optional[int] = None) -> List[np.ndarray]:
+    """An animated PNG's frames as uint8 (H, W, 3), as Pillow 12's
+    `ImageSequence.Iterator` and `convert("RGB")` give them: each frame
+    decoded into the canvas (in the image's own mode: L, LA, RGB, RGBA or
+    palette) over its rectangle; blend_op OVER pastes it onto the canvas
+    as it was before, each channel (palette indices too) lerped by the
+    frame's alpha with Pillow's DIV255 rounding; dispose_op 1 clears the
+    rectangle to zeros and 2 restores it before the next frame (2 on the
+    first frame acts as 1). A default image (IDAT outside the animation)
+    comes first and is the canvas of frame 1."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    header, palette, trns, frames, count, _ = _apng_chunks(data, path)
+    width, height, _, color = header[:4]
+    if color not in _APNG_MODES:
+        raise ValueError(f"{path}: PNG color type {color} is not one of 0, 2, 3, 4, 6")
+    mode, samples, _ = _APNG_MODES[color]
+    shape = (height, width) if samples == 1 else (height, width, samples)
+    canvas = np.zeros(shape, np.uint8)
+    prev: Optional[np.ndarray] = None
+    dispose: Optional[np.ndarray] = None
+    extent = None
+    out: List[np.ndarray] = []
+    for k, frame in enumerate(frames[:max_frames] if max_frames else frames):
+        if k > 0:
+            if dispose is not None:
+                x0, y0, x1, y1 = extent
+                canvas[y0:y1, x0:x1] = dispose
+            prev = canvas.copy()
+        ctl = frame.control
+        dispose_op = ctl[5] if ctl else None
+        blend_op = ctl[6] if ctl else None
+        if ctl:
+            extent = ctl[:4]
+        if prev is None and dispose_op == APNG_DISPOSE_PREVIOUS:
+            dispose_op = APNG_DISPOSE_BACKGROUND
+        dispose = None
+        if dispose_op == APNG_DISPOSE_PREVIOUS:
+            dispose = prev[extent[1]:extent[3], extent[0]:extent[2]].copy()
+        elif dispose_op == APNG_DISPOSE_BACKGROUND:
+            dispose = np.zeros_like(canvas[extent[1]:extent[3], extent[0]:extent[2]])
+        x0, y0, x1, y1 = ctl[:4] if ctl else (0, 0, width, height)
+        canvas[y0:y1, x0:x1] = _apng_pixels(frame, header, x1 - x0, y1 - y0, path)
+        if prev is not None and blend_op == APNG_BLEND_OVER:
+            ex0, ey0, ex1, ey1 = extent
+            updated = canvas[ey0:ey1, ex0:ex1]
+            a = _apng_alpha(updated, mode, trns)
+            if updated.ndim == 3:
+                a = a[..., None]
+            below = prev[ey0:ey1, ex0:ex1].astype(np.int64)
+            prev[ey0:ey1, ex0:ex1] = _div255(below * (255 - a) + updated.astype(np.int64) * a)
+            canvas = prev
+        out.append(_apng_rgb(canvas, mode, palette))
+    if not out:
+        raise ValueError(f"{path}: no frame in the APNG")
+    return out

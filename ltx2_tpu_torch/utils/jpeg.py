@@ -29,10 +29,30 @@ The steps reproduce libjpeg-turbo's, so the output equals PIL's bit for bit:
   edge column and row repeated as libjpeg's context rows repeat them;
 - the fixed-point YCbCr -> RGB tables of `jdcolor.c` (SCALEBITS 16);
 grayscale comes out as three equal channels, as `convert("RGB")` makes it.
+
+`encode_jpeg` writes what PIL's `Image.fromarray(rgb).save(buf, "JPEG",
+quality=q)` writes through libjpeg-turbo, byte for byte (the MJPEG writers'
+frames): SOI, a JFIF 1.01 APP0, the Annex K tables scaled by
+`jpeg_quality_scaling` (baseline, clamped to 1-255), SOF0 at 4:2:0, the
+four standard Huffman tables, one interleaved scan, EOI. Its steps are
+libjpeg-turbo's, in array code over every block at once:
+- `jccolor.c`'s fixed-point RGB -> YCbCr (SCALEBITS 16, the 0.5 - epsilon
+  chroma rounding);
+- the edge replication of `jcprepct.c` and `expand_right_edge` (rows paired
+  for the chroma, each plane padded to whole MCUs or blocks), then
+  `jcsample.c`'s h2v2 downsampling with its alternating bias of 1 and 2;
+- `jfdctint.c`'s islow DCT (int32 is wide enough), `jcdctmgr.c`'s
+  quantization through 16-bit reciprocals (`compute_reciprocal`);
+- `jccoefct.c`'s dummy blocks past the image in the last MCUs (zero, with
+  the DC of the block before them);
+- `jchuff.c`'s codes: every DC difference and every non-zero AC with its
+  run (ZRL codes folded in) and EOB, sorted into stream order, packed into
+  64-bit words, the last byte filled with 1-bits, 0xFF bytes stuffed.
 """
 
 from __future__ import annotations
 
+import os
 import re
 import struct
 from typing import Dict, List, Optional, Tuple
@@ -521,3 +541,340 @@ def decode_jpeg(data: bytes, name: str = "JPEG") -> np.ndarray:
     """A baseline JPEG's bytes -> uint8 (H, W, 3) RGB, as PIL's
     `Image.open(...).convert("RGB")` gives it."""
     return JPEGFrame(data, name).rgb()
+
+
+# ---- encoding ----------------------------------------------------------------
+
+# ITU T.81 Annex K.1's quantization tables in natural order (jcparam.c's
+# std_luminance_quant_tbl and std_chrominance_quant_tbl).
+STD_LUMA_QUANT = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99], np.int64)
+STD_CHROMA_QUANT = np.array([
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32, np.int64)
+
+
+def quant_tables(quality: int) -> np.ndarray:
+    """jpeg_set_quality(quality, force_baseline=TRUE): the Annex K tables
+    scaled by jpeg_quality_scaling, rounded, clamped to [1, 255]; (2, 64)
+    in natural order."""
+    quality = min(max(int(quality), 1), 100)
+    scale = 5000 // quality if quality < 50 else 200 - quality * 2
+    tables = (np.stack([STD_LUMA_QUANT, STD_CHROMA_QUANT]) * scale + 50) // 100
+    return np.clip(tables, 1, 255)
+
+
+def _fix16(v: float) -> int:
+    return int(v * (1 << 16) + 0.5)
+
+
+def rgb_to_ycc(rgb: np.ndarray) -> np.ndarray:
+    """uint8 (H, W, 3) RGB -> int32 (3, H, W) Y, Cb, Cr as jccolor.c's
+    rgb_ycc_convert computes them: its rgb_ycc_tab entries are FIX(c) x
+    sample (SCALEBITS 16) plus ONE_HALF, or CBCR_OFFSET + ONE_HALF - 1 for
+    the 0.5 terms (the B=>Cb table doubles as R=>Cr)."""
+    r, g, b = (rgb[..., c].astype(np.int32) for c in range(3))
+    half, chroma = 1 << 15, (128 << 16) + (1 << 15) - 1
+    y = (_fix16(0.29900) * r + _fix16(0.58700) * g + _fix16(0.11400) * b + half) >> 16
+    cb = (-_fix16(0.16874) * r - _fix16(0.33126) * g + _fix16(0.50000) * b + chroma) >> 16
+    cr = (_fix16(0.50000) * r - _fix16(0.41869) * g - _fix16(0.08131) * b + chroma) >> 16
+    return np.stack([y, cb, cr])
+
+
+def _h2v2_downsample(plane: np.ndarray) -> np.ndarray:
+    """jcsample.c's h2v2_downsample over an even-sized plane: each 2x2 sum
+    plus a bias of 1, 2, 1, 2, ... along the row, shifted right by 2."""
+    s = plane[0::2, 0::2] + plane[0::2, 1::2] + plane[1::2, 0::2] + plane[1::2, 1::2]
+    bias = 1 + (np.arange(s.shape[1]) & 1)
+    return (s + bias) >> 2
+
+
+def _fdct_pass(rows, first: bool):
+    """One pass of jfdctint.c's jpeg_fdct_islow over rows[0..7] (the eight
+    samples along the transformed axis): outputs 0 and 4 shifted left by
+    PASS1_BITS in the first pass and descaled by it in the second, the rest
+    descaled by CONST_BITS -+ PASS1_BITS."""
+    shift = CONST_BITS - PASS1_BITS if first else CONST_BITS + PASS1_BITS
+    tmp0, tmp7 = rows[0] + rows[7], rows[0] - rows[7]
+    tmp1, tmp6 = rows[1] + rows[6], rows[1] - rows[6]
+    tmp2, tmp5 = rows[2] + rows[5], rows[2] - rows[5]
+    tmp3, tmp4 = rows[3] + rows[4], rows[3] - rows[4]
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    half = 1 << (shift - 1)
+    if first:
+        out0, out4 = (tmp10 + tmp11) << PASS1_BITS, (tmp10 - tmp11) << PASS1_BITS
+    else:
+        dc_half = 1 << (PASS1_BITS - 1)
+        out0, out4 = (tmp10 + tmp11 + dc_half) >> PASS1_BITS, (tmp10 - tmp11 + dc_half) >> PASS1_BITS
+    z1 = (tmp12 + tmp13) * FIX_0_541196100
+    out2 = (z1 + tmp13 * FIX_0_765366865 + half) >> shift
+    out6 = (z1 - tmp12 * FIX_1_847759065 + half) >> shift
+    z1, z2, z3, z4 = tmp4 + tmp7, tmp5 + tmp6, tmp4 + tmp6, tmp5 + tmp7
+    z5 = (z3 + z4) * FIX_1_175875602
+    tmp4 = tmp4 * FIX_0_298631336
+    tmp5 = tmp5 * FIX_2_053119869
+    tmp6 = tmp6 * FIX_3_072711026
+    tmp7 = tmp7 * FIX_1_501321110
+    z1 = z1 * -FIX_0_899976223
+    z2 = z2 * -FIX_2_562915447
+    z3 = z3 * -FIX_1_961570560 + z5
+    z4 = z4 * -FIX_0_390180644 + z5
+    return [out0, (tmp7 + z1 + z4 + half) >> shift, out2, (tmp6 + z2 + z3 + half) >> shift,
+            out4, (tmp5 + z2 + z4 + half) >> shift, out6, (tmp4 + z1 + z3 + half) >> shift]
+
+
+def _fdct_islow(blocks: np.ndarray) -> np.ndarray:
+    """jpeg_fdct_islow on int32 (N, 8, 8) samples less 128 -> (N, 64)
+    coefficients in natural order, scaled up by 8: the rows, then the
+    columns (every intermediate stays under 2^31)."""
+    ws = np.stack(_fdct_pass([blocks[:, :, i] for i in range(8)], True), axis=2)
+    out = np.stack(_fdct_pass([ws[:, i, :] for i in range(8)], False), axis=1)
+    return out.reshape(-1, 64)
+
+
+def _reciprocals(divisors: np.ndarray):
+    """jcdctmgr.c's compute_reciprocal for 16-bit DCTELEMs: (reciprocal,
+    correction, total shift) per divisor, so that q = ((|x| + c) * r) >>
+    shift with the sign restored."""
+    recip, corr, shift = [], [], []
+    for d in divisors.tolist():
+        b = d.bit_length() - 1
+        r = 16 + b
+        fq, fr = divmod(1 << r, d)
+        c = d // 2
+        if fr == 0:  # a power of two
+            fq >>= 1
+            r -= 1
+        elif fr <= d // 2:
+            c += 1
+        else:
+            fq += 1
+        recip.append(fq)
+        corr.append(c)
+        shift.append(r)
+    return np.array(recip, np.int64), np.array(corr, np.int64), np.array(shift, np.int64)
+
+
+def _quantize(coef: np.ndarray, qtables: np.ndarray, which: np.ndarray) -> np.ndarray:
+    """jcdctmgr.c's quantize: (N, 64) islow coefficients divided by 8 x
+    the table `which` picks for each block (of `qtables`, (T, 64) in the
+    coefficients' order) through the reciprocals, rounded half away from
+    zero. |x| + c and the reciprocal are both under 2^16, so their product
+    fits in uint32."""
+    recip, corr, shift = (np.stack(v).astype(np.uint32) for v in zip(*(_reciprocals(t << 3) for t in qtables)))
+    mag = ((np.abs(coef).astype(np.uint32) + corr[which]) * recip[which]) >> shift[which]
+    mag = mag.astype(np.int32)
+    return np.where(coef < 0, -mag, mag)
+
+
+def _code_table(counts, symbols: bytes):
+    """jpeg_make_c_derived_tbl: (code, length) per symbol, 0-length for
+    symbols the table lacks."""
+    code_of, len_of = np.zeros(256, np.uint64), np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            code_of[symbols[k]], len_of[symbols[k]] = code, length
+            code += 1
+            k += 1
+        code <<= 1
+    return code_of, len_of
+
+
+_DC_CODES = [_code_table(*STANDARD_TABLES[(0, slot)]) for slot in (0, 1)]
+_AC_CODES = [_code_table(*STANDARD_TABLES[(1, slot)]) for slot in (0, 1)]
+
+
+# The number of bits of each value in [0, 65535] (0 for 0): a code's category.
+_BIT_LENGTH = np.array([0] + [int(v).bit_length() for v in range(1, 1 << 16)], np.int64)
+
+
+def _zrl_prefixes(ac_codes):
+    """The value and length of 0-3 ZRL codes in a row, for one AC table."""
+    code, length = int(ac_codes[0][0xF0]), int(ac_codes[1][0xF0])
+    values = [0, code, (code << length) | code, (((code << length) | code) << length) | code]
+    return np.array(values, np.uint64), np.arange(4, dtype=np.int64) * length
+
+
+_ZRL = [_zrl_prefixes(codes) for codes in _AC_CODES]
+
+
+def _extra_bits(v: np.ndarray, nbits: np.ndarray) -> np.ndarray:
+    """The `nbits` low bits that follow a Huffman code: v, or v - 1 when
+    negative (the one's complement of |v|)."""
+    return (np.where(v < 0, v - 1, v) & ((np.int64(1) << nbits) - 1)).astype(np.uint64)
+
+
+# Both tables of a class side by side, indexed by table * 256 + symbol.
+_DC_CODE = np.concatenate([_DC_CODES[0][0], _DC_CODES[1][0]])
+_DC_LEN = np.concatenate([_DC_CODES[0][1], _DC_CODES[1][1]])
+_AC_CODE = np.concatenate([_AC_CODES[0][0], _AC_CODES[1][0]])
+_AC_LEN = np.concatenate([_AC_CODES[0][1], _AC_CODES[1][1]])
+_ZRL_CODE = np.concatenate([_ZRL[0][0], _ZRL[1][0]])  # indexed by table * 4 + ZRL count
+_ZRL_LEN = np.concatenate([_ZRL[0][1], _ZRL[1][1]])
+
+
+def _entropy_events(zz: np.ndarray, comp: np.ndarray):
+    """encode_one_block (jchuff.c) over quantized blocks in zigzag order,
+    in scan order, with each block's component (0 Y, 1 Cb, 2 Cr): the value
+    and bit count of every DC, AC and EOB code with its extra bits, in the
+    order they are written. Runs of 16 zeros (ZRL codes) before an AC code
+    are folded into its value (at most 3 x 11 + 16 + 10 bits)."""
+    n = zz.shape[0]
+    table = (comp > 0).astype(np.int64)
+    dc = zz[:, 0]
+    diff = np.empty(n, np.int64)
+    for c in range(3):
+        idx = np.flatnonzero(comp == c)
+        diff[idx] = dc[idx] - np.concatenate([[0], dc[idx][:-1]])
+    nbits = _BIT_LENGTH[np.abs(diff)]
+    dc_sym = table * 256 + nbits
+    dc_val = (_DC_CODE[dc_sym] << nbits.astype(np.uint64)) | _extra_bits(diff, nbits)
+    dc_len = _DC_LEN[dc_sym] + nbits
+
+    bi, ki = np.nonzero(zz[:, 1:])
+    k = ki + 1
+    prev = np.empty_like(k)
+    prev[0:1] = 0
+    prev[1:] = np.where(bi[1:] == bi[:-1], k[:-1], 0)
+    run = k - prev - 1
+    v = zz[bi, k]
+    vbits = _BIT_LENGTH[np.abs(v)]
+    t = table[bi]
+    sym = t * 256 + (((run & 15) << 4) | vbits)
+    zrl = t * 4 + (run >> 4)
+    clen = _AC_LEN[sym]
+    ac_val = (((_ZRL_CODE[zrl] << clen.astype(np.uint64)) | _AC_CODE[sym]) << vbits.astype(np.uint64)) \
+        | _extra_bits(v, vbits)
+    ac_len = _ZRL_LEN[zrl] + clen + vbits
+
+    last = np.zeros(n, np.int64)
+    last[bi] = k  # k rises within a block: the last write is its last nonzero
+    eob_blocks = np.flatnonzero(last < 63)
+    eob_sym = table[eob_blocks] * 256
+    key = np.concatenate([np.arange(n) * 65, bi * 65 + k, eob_blocks * 65 + 64])
+    order = np.argsort(key)
+    values = np.concatenate([dc_val, ac_val, _AC_CODE[eob_sym]])[order]
+    lengths = np.concatenate([dc_len, ac_len, _AC_LEN[eob_sym]])[order]
+    return values, lengths
+
+
+def pack_bits(values: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """Codes of 1 to 64 bits (uint64 values, most significant bit first)
+    written back to back -> uint8 bytes, the last byte padded with 1-bits
+    (jchuff.c's flush_bits). Each code lands in one 64-bit word or
+    straddles two; a word's codes do not overlap, so their sum is their OR."""
+    total = int(lengths.sum())
+    end = np.cumsum(lengths)
+    start = end - lengths
+    word, off = start >> 6, start & 63
+    spill = off + lengths - 64  # > 0: the bits that run into the next word
+    head = np.where(spill > 0, values >> np.clip(spill, 0, 63).astype(np.uint64),
+                    values << np.clip(-spill, 0, 63).astype(np.uint64))
+    nwords = (total + 63) // 64 + 1
+    words = np.zeros(nwords, np.uint64)
+    firsts = np.flatnonzero(np.concatenate([[True], word[1:] != word[:-1]]))
+    words[word[firsts]] = np.add.reduceat(head, firsts)
+    cross = np.flatnonzero(spill > 0)
+    words[word[cross] + 1] += values[cross] << (64 - spill[cross]).astype(np.uint64)
+    pad = (-total) % 8
+    if pad:  # flush_bits: the last byte filled with 1-bits
+        words[total >> 6] |= np.uint64((1 << pad) - 1) << np.uint64(64 - (total & 63) - pad)
+    return np.frombuffer(words.astype(">u8").tobytes(), np.uint8)[:(total + pad) // 8]
+
+
+def _stuff(data: np.ndarray) -> bytes:
+    """0xFF byte stuffing: a 0x00 after every 0xFF of entropy-coded data."""
+    ff = np.flatnonzero(data == 0xFF)
+    return np.insert(data, ff + 1, 0).tobytes() if ff.size else data.tobytes()
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+
+def _pad_edge(plane: np.ndarray, height: int, width: int) -> np.ndarray:
+    """A plane grown to (height, width) by repeating its last row and
+    column (expand_right_edge, expand_bottom_edge)."""
+    return np.pad(plane, ((0, height - plane.shape[0]), (0, width - plane.shape[1])), mode="edge")
+
+
+def _blocks(plane: np.ndarray) -> np.ndarray:
+    """(8 by, 8 bx) samples -> (by, bx, 8, 8) int32 blocks less
+    CENTERJSAMPLE."""
+    by, bx = plane.shape[0] // 8, plane.shape[1] // 8
+    return plane.reshape(by, 8, bx, 8).transpose(0, 2, 1, 3).astype(np.int32) - 128
+
+
+def encode_jpeg(rgb_u8: np.ndarray, quality: int = 92) -> bytes:
+    """uint8 (H, W, 3) RGB -> the baseline JPEG that PIL's
+    `Image.fromarray(rgb).save(buf, "JPEG", quality=quality)` writes through
+    libjpeg-turbo, byte for byte: JFIF 1.01, the Annex K tables at
+    `quality` (baseline), 4:2:0, the standard Huffman tables, one
+    interleaved scan."""
+    rgb = np.ascontiguousarray(rgb_u8, np.uint8)
+    if rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"encode_jpeg takes uint8 (H, W, 3), got {rgb.shape}")
+    h, w = rgb.shape[:2]
+    if not (0 < h < 65536 and 0 < w < 65536):
+        raise ValueError(f"a JPEG frame is 1 to 65535 pixels a side, got {w}x{h}")
+    qt = quant_tables(quality)
+    mcux, mcuy = -(-w // 16), -(-h // 16)
+    bw, bh = -(-w // 8), -(-h // 8)
+    ycc = rgb_to_ycc(rgb)
+    # Luma edge-padded to whole MCUs; chroma with its rows paired (the last
+    # repeated when the height is odd) and its columns repeated out to whole
+    # MCUs, downsampled 2x2, then its last row repeated down to whole
+    # blocks (jcprepct.c, jcsample.c).
+    luma = _blocks(_pad_edge(ycc[0], 16 * mcuy, 16 * mcux))
+    luma = luma.reshape(mcuy, 2, mcux, 2, 8, 8).transpose(0, 2, 1, 3, 4, 5).reshape(mcuy, mcux, 4, 8, 8)
+    chroma = [_blocks(_pad_edge(_h2v2_downsample(_pad_edge(plane, 2 * (-(-h // 2)), 16 * mcux)), 8 * mcuy,
+                                8 * mcux)).reshape(mcuy, mcux, 1, 8, 8) for plane in ycc[1:]]
+    # Scan order: per MCU, Y00 Y01 Y10 Y11 Cb Cr.
+    scan = np.concatenate([luma] + chroma, axis=2).reshape(-1, 8, 8)
+    comp = np.tile(np.array([0, 0, 0, 0, 1, 2]), mcuy * mcux)
+    zz = _quantize(_fdct_islow(scan)[:, ZIGZAG], qt[:, ZIGZAG], (comp > 0).astype(np.int64))
+    # The MCUs' luma blocks past the image's blocks (jccoefct.c's dummy
+    # blocks) are zero but for a DC copied from the block before them: the
+    # one to the left, or for a bottom row the MCU's upper right block.
+    if bw % 2 or bh % 2:
+        y = zz.reshape(mcuy, mcux, 6, 64)
+        if bw % 2:
+            y[:, -1, 1] = 0
+            y[:, -1, 3] = 0
+            y[:, -1, 1, 0] = y[:, -1, 0, 0]
+            y[:, -1, 3, 0] = y[:, -1, 2, 0]
+        if bh % 2:
+            y[-1, :, 2:4] = 0
+            y[-1, :, 2, 0] = y[-1, :, 1, 0]
+            y[-1, :, 3, 0] = y[-1, :, 1, 0]
+    values, lengths = _entropy_events(zz, comp)
+
+    out = [b"\xff\xd8", _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    for t in (0, 1):
+        out.append(_segment(0xDB, bytes([t]) + qt[t][ZIGZAG].astype(np.uint8).tobytes()))
+    out.append(_segment(0xC0, struct.pack(">BHHB", 8, h, w, 3) + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])))
+    for cls, slot in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        counts, symbols = STANDARD_TABLES[(cls, slot)]
+        out.append(_segment(0xC4, bytes([(cls << 4) | slot]) + bytes(counts) + symbols))
+    out.append(_segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])))
+    out.append(_stuff(pack_bits(values, lengths)))
+    out.append(b"\xff\xd9")
+    return b"".join(out)
+
+
+def encode_jpegs(frames, quality: int = 92) -> List[bytes]:
+    """`encode_jpeg` of each (H, W, 3) uint8 frame, on a pool of threads
+    (numpy releases the GIL in its array operations)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    frames = list(frames)
+    workers = min(len(frames), os.cpu_count() or 1, 8)
+    if workers <= 1:
+        return [encode_jpeg(f, quality) for f in frames]
+    with ThreadPoolExecutor(workers) as pool:
+        return list(pool.map(lambda f: encode_jpeg(f, quality), frames))

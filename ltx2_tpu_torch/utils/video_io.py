@@ -1,17 +1,24 @@
 """Video files out, numpy only (counterpart of the writers in
-ltx2_tpu/utils/video_io.py).
+ltx2_tpu/utils/video_io.py and the JAX CLI's save path).
 
 `write_y4m` writes lossless YUV4MPEG2 (C444, 8-bit, progressive), the
 interchange format ffmpeg, x264 and mpv read, byte for byte as the JAX
 package's `write_y4m` writes it; `write_wav` writes 16-bit PCM as the JAX
-CLI's `_write_wav` does (clipped to +-1, x 32767, truncated), byte for byte;
-`save_video` is the JAX CLI's `save_video` (scripts/generate.py:969-1045):
-`.y4m` through `write_y4m` with the audio, when there is some, in a `.wav`
-beside it, every other container through `ffmpeg` (H.264, with
-minterpolate to `output_fps`, the audio muxed as AAC). The JAX package's MJPEG AVI/MP4 writers take
-their JPEG encoder from PIL, which the port does not import, so `.avi` and
-`.mov` (and any container when `ffmpeg` is not on PATH) are refused by
-`check_output`, which the CLI runs before it builds any model.
+CLI's `_write_wav` does (clipped to +-1, x 32767, truncated), byte for byte.
+`write_avi_mjpeg` (an MJPEG AVI with the audio interleaved as per-frame
+`01wb` PCM chunks) and `write_mp4_mjpeg` (ISO-BMFF: a QuickTime `.mov` with
+a `jpeg` sample entry, or an `.mp4`/`.m4v` whose `mp4v` entry's esds names
+JPEG, the audio a `sowt` PCM track) write the JAX package's files byte for
+byte: their JPEGs come from the port's encoder (`utils/jpeg.encode_jpeg`,
+equal to PIL's at quality 92). `save_video` is the JAX CLI's `save_video`
+and `_save_video_fallback` (scripts/generate.py:969-1078): `speed` scales
+the rate; `.avi`, `.mov` and `.y4m` through the writers here (`.y4m` with
+`<base>.wav` beside it); with `ffmpeg` on PATH every other container through
+its H.264 (minterpolate to `output_fps`, the audio as AAC); without it an
+`.mp4`/`.m4v` is written by `write_mp4_mjpeg` and any other name becomes
+`<base>.avi`, each with `<base>.gif` (a preview, `utils/gif.write_gif`),
+`<base>_frames.npz` (`frames`, `fps`) and `<base>.wav` when there is audio.
+No container is refused, as the JAX CLI refuses none.
 
 Audio in (the a2vid pipeline's source from a container): `read_avi_audio`
 takes the 16-bit PCM stream of an AVI (the RIFF `hdrl` stream headers
@@ -33,13 +40,15 @@ order of operations); `read_avi_mjpeg` one MJPEG video stream of an AVI
 (chosen by its `strl` headers, any `dc` chunk when they do not parse);
 `read_mov_mjpeg` the MJPEG video track of a .mov/.mp4 (`jpeg`, `mjpa`,
 `AVDJ`, `dmb1`, or `mp4v` whose esds names JPEG); each JPEG frame through the
-port's baseline decoder (`utils/jpeg.py`, equal to PIL's decode). A PNG
-without `acTL` is one frame (`read_png`). `probe_video` / `probe_mov` give
-(fps, frames, height, width); `read_video_any` dispatches by suffix and
-codec, then to OpenCV when it is installed (`read_cv2`, optional, as in the
-JAX package), then to the ffmpeg pipe (`pipelines/retake.load_video_frames`).
-GIF, WebP, APNG and animated PNG raise NotImplementedError naming the
-ROADMAP item that ports them.
+port's baseline decoder (`utils/jpeg.py`, equal to PIL's decode). GIFs go
+through `utils/gif.decode_gif` and animated PNGs (`.apng`, or a `.png` with
+an `acTL` chunk) through `utils/image_io.read_apng`, each equal to PIL's
+frames; a PNG without `acTL` is one frame (`read_png`). `probe_video` /
+`probe_mov` give (fps, frames, height, width); `read_video_any` dispatches
+by suffix and codec, then to OpenCV when it is installed (`read_cv2`,
+optional, as in the JAX package), then to the ffmpeg pipe
+(`pipelines/retake.load_video_frames`). WebP raises NotImplementedError
+naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ import shutil
 import struct
 import wave
 import subprocess
+import sys
 import tempfile
 from fractions import Fraction
 from pathlib import Path
@@ -58,16 +68,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ltx2_tpu_torch.utils.image_io import BILINEAR, PNG_SIGNATURE, read_png, resize
-from ltx2_tpu_torch.utils.jpeg import decode_jpeg
+from ltx2_tpu_torch.utils.gif import decode_gif, gif_info, write_gif
+from ltx2_tpu_torch.utils.image_io import BILINEAR, PNG_SIGNATURE, apng_info, read_apng, read_png, resize
+from ltx2_tpu_torch.utils.jpeg import decode_jpeg, encode_jpegs
 
-NO_JPEG = ("the MJPEG {suffix} writer needs a JPEG encoder, which the port does not have (the JAX package takes "
-           "it from PIL): write .y4m, or another container through ffmpeg")
-NO_FFMPEG = "writing {suffix} needs ffmpeg on PATH (not found): write .y4m instead"
-NO_ANIMATION = ("{path}: {kind} is not ported to the PyTorch port: its reader comes with ROADMAP.md's "
-                "\"GIF, APNG and WebP readers\" (write .y4m, an MJPEG .avi/.mov, or a still PNG/JPEG)")
-# What decodes without ffmpeg, as the JAX package's lists (GIF, WebP and
-# APNG raise NotImplementedError here).
+NO_WEBP = ("{path}: WebP is not ported to the PyTorch port: its reader (VP8/VP8L) comes with ROADMAP.md's "
+           "\"The WebP reader\" (write .y4m, an MJPEG .avi/.mov/.mp4, a GIF, an APNG or a still PNG/JPEG)")
+# What decodes without ffmpeg, as the JAX package's lists (WebP raises
+# NotImplementedError here).
 PIL_SUFFIXES = (".gif", ".webp", ".apng", ".png")
 PURE_PYTHON_SUFFIXES = PIL_SUFFIXES + (".y4m", ".avi")
 MOV_SUFFIXES = (".mov", ".mp4", ".m4v")
@@ -125,37 +133,46 @@ def _suffix(path: str) -> str:
     return path.rsplit(".", 1)[-1].lower() if "." in os.path.basename(path) else ""
 
 
-def check_output(path: str) -> None:
-    """Raise ValueError if `save_video` could not write `path`: `.avi` and
-    `.mov` (no JPEG encoder), or a container other than `.y4m` without
-    `ffmpeg` on PATH."""
-    suffix = _suffix(path)
-    if suffix in ("avi", "mov"):
-        raise ValueError(NO_JPEG.format(suffix=f".{suffix}"))
-    if suffix != "y4m" and shutil.which("ffmpeg") is None:
-        raise ValueError(NO_FFMPEG.format(suffix=f".{suffix}" if suffix else "a file without a suffix"))
+def _audio_2d(audio) -> Optional[np.ndarray]:
+    """(channels, samples) float32 from (N,), (C, N) or (1, C, N) audio."""
+    if audio is None:
+        return None
+    a = np.asarray(audio, np.float32)
+    if a.ndim == 3:
+        a = a[0]
+    return a[None] if a.ndim == 1 else a
 
 
 def save_video(frames: np.ndarray, output: str, fps: float, output_fps: Optional[float] = None,
                speed: float = 1.0, audio: Optional[np.ndarray] = None, audio_sample_rate: int = 24000) -> None:
     """The JAX CLI's `save_video`: `speed` scales the container rate (and
-    `output_fps`); `.y4m` through `write_y4m`, and the (channels, samples)
-    or (1, channels, samples) `audio` at `audio_sample_rate` into
-    `<base>.wav` beside it; any other container through ffmpeg's H.264
-    (CRF 18, yuv420p), with minterpolate up to `output_fps` when it is above
-    the rate, and the audio as AAC (`-shortest`)."""
-    check_output(output)
+    `output_fps`); `.y4m` through `write_y4m` with the (channels, samples)
+    or (1, channels, samples) `audio` at `audio_sample_rate` in
+    `<base>.wav` beside it, `.mov` through `write_mp4_mjpeg` and `.avi`
+    through `write_avi_mjpeg` with the audio inside; any other container
+    through ffmpeg's H.264 (CRF 18, yuv420p), with minterpolate up to
+    `output_fps` when it is above the rate and the audio as AAC
+    (`-shortest`), or `_save_video_fallback` when ffmpeg is not on PATH.
+    The JAX CLI's notes ("wrote ...") go to stderr: stdout carries the
+    command line's and the server's JSON lines."""
     if speed != 1.0:
         fps = fps * speed
         if output_fps:
             output_fps = output_fps * speed
-    if audio is not None:
-        audio = np.asarray(audio, np.float32)
-        audio = audio[0] if audio.ndim == 3 else audio
-    if _suffix(output) == "y4m":
-        write_y4m(output, frames, fps)
-        if audio is not None:
-            write_wav(output.rsplit(".", 1)[0] + ".wav", audio, audio_sample_rate)
+    suffix = _suffix(output)
+    if suffix in ("avi", "y4m", "mov"):
+        if suffix == "y4m":
+            write_y4m(output, frames, fps)
+            if audio is not None:
+                write_wav(output.rsplit(".", 1)[0] + ".wav", _audio_2d(audio), audio_sample_rate)
+        elif suffix == "mov":
+            write_mp4_mjpeg(output, frames, fps, audio=audio, sample_rate=audio_sample_rate)
+        else:
+            write_avi_mjpeg(output, frames, fps, audio=audio, sample_rate=audio_sample_rate)
+        print(f"wrote {output}", file=sys.stderr)
+        return
+    if shutil.which("ffmpeg") is None:
+        _save_video_fallback(frames, output, fps, audio, audio_sample_rate)
         return
     h, w = frames.shape[1:3]
     with tempfile.TemporaryDirectory() as td:
@@ -166,7 +183,7 @@ def save_video(frames: np.ndarray, output: str, fps: float, output_fps: Optional
                "-r", str(fps), "-i", raw_path]
         if audio is not None:
             audio_path = os.path.join(td, "audio.wav")
-            write_wav(audio_path, audio, audio_sample_rate)
+            write_wav(audio_path, _audio_2d(audio), audio_sample_rate)
             cmd += ["-i", audio_path]
         if output_fps and output_fps > fps:
             cmd += ["-vf", f"minterpolate=fps={output_fps}:mi_mode=mci:mc_mode=aobmc:vsbmc=1"]
@@ -174,6 +191,225 @@ def save_video(frames: np.ndarray, output: str, fps: float, output_fps: Optional
         if audio is not None:
             cmd += ["-c:a", "aac", "-shortest"]
         subprocess.run(cmd + [output], check=True)
+
+
+def _save_video_fallback(frames: np.ndarray, output: str, fps: float, audio, audio_sample_rate: int) -> None:
+    """The JAX CLI's no-ffmpeg path: the requested `.mp4`/`.m4v` itself
+    (`write_mp4_mjpeg`), any other name as `<base>.avi` (`write_avi_mjpeg`),
+    each with the audio; then `<base>.gif` (`write_gif`: a frame every
+    max(1, int(1000 / fps)) ms, looping), `<base>_frames.npz` (`frames`,
+    `fps`) and `<base>.wav` when there is audio."""
+    base = output.rsplit(".", 1)[0]
+    if _suffix(output) in ("mp4", "m4v"):
+        video_path = output
+        write_mp4_mjpeg(output, frames, fps, audio=audio, sample_rate=audio_sample_rate)
+    else:
+        video_path = base + ".avi"
+        write_avi_mjpeg(video_path, frames, fps, audio=audio, sample_rate=audio_sample_rate)
+    gif_path = base + ".gif"
+    write_gif(gif_path, frames, max(1, int(1000 / fps)))
+    np.savez(base + "_frames.npz", frames=frames, fps=fps)
+    if audio is not None:
+        write_wav(base + ".wav", _audio_2d(audio), audio_sample_rate)
+    print(f"ffmpeg not found - wrote {video_path}, {gif_path} and {base}_frames.npz", file=sys.stderr)
+
+
+# ---- MJPEG writers -------------------------------------------------------------
+
+
+def _chunk(fourcc: bytes, payload: bytes) -> bytes:
+    """A RIFF chunk: fourcc, little-endian size, payload padded to even."""
+    pad = b"\x00" if len(payload) % 2 else b""
+    return fourcc + struct.pack("<I", len(payload)) + payload + pad
+
+
+def _list_chunk(list_type: bytes, payload: bytes) -> bytes:
+    return _chunk(b"LIST", list_type + payload)
+
+
+def _pcm_int16(audio) -> Optional[np.ndarray]:
+    """(N, channels) interleaved little-endian int16 from float audio in
+    [-1, 1]: rounded, as the MJPEG writers store it."""
+    a = _audio_2d(audio)
+    if a is None:
+        return None
+    return np.clip(np.round(a.T * 32767.0), -32768, 32767).astype("<i2")
+
+
+def _check_frames(frames_u8) -> np.ndarray:
+    frames_u8 = np.asarray(frames_u8, np.uint8)
+    if frames_u8.ndim != 4 or frames_u8.shape[-1] != 3:
+        raise ValueError(f"expected (F, H, W, 3) uint8, got {frames_u8.shape}")
+    return frames_u8
+
+
+def write_avi_mjpeg(path: str, frames_u8: np.ndarray, fps: float, audio: Optional[np.ndarray] = None,
+                    sample_rate: int = 24000, quality: int = 92) -> None:
+    """(F, H, W, 3) uint8 RGB -> an AVI of MJPEG video (`00dc` chunks) and,
+    with `audio` (float in [-1, 1], (N,), (C, N) or (1, C, N)), 16-bit PCM
+    cut into one `01wb` chunk after each frame (the last takes the tail),
+    with an idx1 index; the JAX package's bytes."""
+    frames_u8 = _check_frames(frames_u8)
+    num_frames, h, w, _ = frames_u8.shape
+    jpegs = encode_jpegs(frames_u8, quality)
+    pcm = _pcm_int16(audio)
+    channels = 0 if pcm is None else pcm.shape[1]
+    rate, scale = max(1, int(round(fps * 1000))), 1000
+    usec_per_frame = int(round(1_000_000 * scale / rate))
+    # MainAVIHeader: flags 0x10 = AVIF_HASINDEX.
+    avih = struct.pack("<14I", usec_per_frame, 0, 0, 0x10, num_frames, 0, 2 if pcm is not None else 1, 0, w, h,
+                       0, 0, 0, 0)
+    strh_v = struct.pack("<4s4sI2H8I4H", b"vids", b"MJPG", 0, 0, 0, 0, scale, rate, 0, num_frames,
+                         max(len(j) for j in jpegs), 0xFFFFFFFF, 0, 0, 0, w, h)
+    # BITMAPINFOHEADER with 'MJPG' compression.
+    strf_v = struct.pack("<I2i2H2I2i2I", 40, w, h, 1, 24, struct.unpack("<I", b"MJPG")[0], w * h * 3, 0, 0, 0, 0)
+    strl = _list_chunk(b"strl", _chunk(b"strh", strh_v) + _chunk(b"strf", strf_v))
+    audio_chunks: list = []
+    if pcm is not None:
+        block_align = 2 * channels
+        strh_a = struct.pack("<4s4sI2H8I4H", b"auds", b"\x00\x00\x00\x00", 0, 0, 0, 0, 1, sample_rate, 0,
+                             pcm.shape[0], sample_rate * block_align, 0xFFFFFFFF, block_align, 0, 0, 0, 0)
+        strf_a = struct.pack("<2H2I2H", 1, channels, sample_rate, sample_rate * block_align, block_align, 16)
+        strl += _list_chunk(b"strl", _chunk(b"strh", strh_a) + _chunk(b"strf", strf_a))
+        edges = np.linspace(0, pcm.shape[0], num_frames + 1).astype(np.int64)
+        audio_chunks = [pcm[edges[i]:edges[i + 1]].tobytes() for i in range(num_frames)]
+    hdrl = _list_chunk(b"hdrl", _chunk(b"avih", avih) + strl)
+    # The movi payload and idx1 (offsets from the 'movi' fourcc).
+    movi_parts, idx_parts, offset = [], [], 4
+    for i, jpeg in enumerate(jpegs):
+        part = _chunk(b"00dc", jpeg)
+        movi_parts.append(part)
+        idx_parts.append(struct.pack("<4s3I", b"00dc", 0x10, offset, len(jpeg)))
+        offset += len(part)
+        if audio_chunks and audio_chunks[i]:
+            part = _chunk(b"01wb", audio_chunks[i])
+            movi_parts.append(part)
+            idx_parts.append(struct.pack("<4s3I", b"01wb", 0x10, offset, len(audio_chunks[i])))
+            offset += len(part)
+    movi = _list_chunk(b"movi", b"".join(movi_parts))
+    with open(path, "wb") as fh:
+        fh.write(_chunk(b"RIFF", b"AVI " + hdrl + movi + _chunk(b"idx1", b"".join(idx_parts))))
+
+
+def _box(box_type: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(payload)) + box_type + payload
+
+
+def _full_box(box_type: bytes, version: int, flags: int, payload: bytes) -> bytes:
+    return _box(box_type, struct.pack(">I", (version << 24) | flags) + payload)
+
+
+def _esds_mjpeg() -> bytes:
+    """The elementary-stream descriptor of MJPEG in MP4: objectTypeIndication
+    0x6C (JPEG), streamType 4 (visual), one-byte descriptor lengths."""
+    dec_cfg = struct.pack(">BB3xII", 0x6C, (4 << 2) | 1, 0, 0)
+    sl_cfg = b"\x02"  # predefined = 2 (MP4)
+    inner = bytes([0x04, len(dec_cfg)]) + dec_cfg + bytes([0x06, len(sl_cfg)]) + sl_cfg
+    es = struct.pack(">HB", 1, 0) + inner  # ES_ID 1, no flags
+    return _full_box(b"esds", 0, 0, bytes([0x03, len(es)]) + es)
+
+
+def _visual_sample_entry(fourcc: bytes, w: int, h: int, extra: bytes = b"") -> bytes:
+    name = b"Motion JPEG"
+    compressor = bytes([len(name)]) + name + b"\x00" * (31 - len(name))
+    payload = (b"\x00" * 6 + struct.pack(">H", 1) + b"\x00" * 16 + struct.pack(">HH", w, h)
+               + struct.pack(">II", 0x00480000, 0x00480000) + b"\x00" * 4 + struct.pack(">H", 1) + compressor
+               + struct.pack(">Hh", 24, -1) + extra)
+    return _box(fourcc, payload)
+
+
+def _sound_sample_entry_sowt(channels: int, sample_rate: int) -> bytes:
+    """A QuickTime version-0 `sowt` (16-bit little-endian PCM) entry; its
+    16.16 rate caps at 65535 Hz."""
+    if not 0 < sample_rate < 0x10000:
+        raise ValueError(f"sample_rate {sample_rate} does not fit 16.16 fixed")
+    payload = (b"\x00" * 6 + struct.pack(">H", 1) + struct.pack(">HH4x", 0, 0)
+               + struct.pack(">HHHH", channels, 16, 0, 0) + struct.pack(">I", sample_rate << 16))
+    return _box(b"sowt", payload)
+
+
+_MOV_MATRIX = b"\x00\x01\x00\x00" + b"\x00" * 12 + b"\x00\x01\x00\x00" + b"\x00" * 12 + b"\x40\x00\x00\x00"
+
+
+def _tkhd(track_id: int, duration_mv: int, w: int = 0, h: int = 0, volume: int = 0) -> bytes:
+    payload = (struct.pack(">II", 0, 0) + struct.pack(">I4xI8x", track_id, duration_mv)
+               + struct.pack(">HHH2x", 0, 0, volume) + _MOV_MATRIX + struct.pack(">II", w << 16, h << 16))
+    return _full_box(b"tkhd", 0, 7, payload)  # enabled | in_movie | in_preview
+
+
+def _mdhd(timescale: int, duration: int) -> bytes:
+    return _full_box(b"mdhd", 0, 0, struct.pack(">IIIIHH", 0, 0, timescale, duration, 0x55C4, 0))  # 'und'
+
+
+def _hdlr(handler: bytes, name: bytes) -> bytes:
+    return _full_box(b"hdlr", 0, 0, b"\x00" * 4 + handler + b"\x00" * 12 + name + b"\x00")
+
+
+def _dinf() -> bytes:
+    url = _full_box(b"url ", 0, 1, b"")  # flag 1: the data is in this file
+    return _box(b"dinf", _full_box(b"dref", 0, 0, struct.pack(">I", 1) + url))
+
+
+def _stbl(sample_entry: bytes, sample_count: int, sample_delta: int, sample_sizes, chunk_offset: int) -> bytes:
+    """The sample table of one track whose samples lie in one chunk."""
+    stsd = _full_box(b"stsd", 0, 0, struct.pack(">I", 1) + sample_entry)
+    stts = _full_box(b"stts", 0, 0, struct.pack(">III", 1, sample_count, sample_delta))
+    stsc = _full_box(b"stsc", 0, 0, struct.pack(">IIII", 1, 1, sample_count, 1))
+    if isinstance(sample_sizes, int):  # constant-size samples (PCM)
+        stsz = _full_box(b"stsz", 0, 0, struct.pack(">II", sample_sizes, sample_count))
+    else:
+        stsz = _full_box(b"stsz", 0, 0, struct.pack(">II", 0, len(sample_sizes))
+                         + b"".join(struct.pack(">I", s) for s in sample_sizes))
+    stco = _full_box(b"stco", 0, 0, struct.pack(">II", 1, chunk_offset))
+    return _box(b"stbl", stsd + stts + stsc + stsz + stco)
+
+
+def write_mp4_mjpeg(path: str, frames_u8: np.ndarray, fps: float, audio: Optional[np.ndarray] = None,
+                    sample_rate: int = 24000, quality: int = 92) -> None:
+    """(F, H, W, 3) uint8 RGB -> a `.mov` (QuickTime brand, `jpeg` entry) or,
+    by any other suffix, an `.mp4` (`isom`, `mp4v` with a JPEG esds): the
+    JPEGs then the PCM in one mdat, the moov last; video at round(fps x
+    1000) ticks a second, 1000 a frame; the JAX package's bytes."""
+    frames_u8 = _check_frames(frames_u8)
+    num_frames, h, w, _ = frames_u8.shape
+    is_mov = path.lower().endswith(".mov")
+    jpegs = encode_jpegs(frames_u8, quality)
+    video_bytes = b"".join(jpegs)
+    pcm_i16 = _pcm_int16(audio)
+    channels = 0 if pcm_i16 is None else pcm_i16.shape[1]
+    pcm_frames = 0 if pcm_i16 is None else pcm_i16.shape[0]
+    pcm = b"" if pcm_i16 is None else pcm_i16.tobytes()
+    v_timescale, v_delta = max(1, int(round(fps * 1000))), 1000
+    mv_timescale = 1000
+    mv_duration = int(round(num_frames / fps * mv_timescale)) if fps else 0
+    if pcm_frames:
+        mv_duration = max(mv_duration, int(round(pcm_frames / sample_rate * mv_timescale)))
+    if is_mov:
+        ftyp = _box(b"ftyp", b"qt  " + struct.pack(">I", 0x20050300) + b"qt  ")
+        v_entry = _visual_sample_entry(b"jpeg", w, h)
+    else:
+        ftyp = _box(b"ftyp", b"isom" + struct.pack(">I", 0x200) + b"isom" + b"mp41")
+        v_entry = _visual_sample_entry(b"mp4v", w, h, extra=_esds_mjpeg())
+    video_chunk_off = len(ftyp) + 8  # absolute file offsets into the mdat
+    audio_chunk_off = video_chunk_off + len(video_bytes)
+    mdat = _box(b"mdat", video_bytes + pcm)
+    mvhd = _full_box(b"mvhd", 0, 0, struct.pack(">IIII", 0, 0, mv_timescale, mv_duration)
+                     + struct.pack(">IH2x8x", 0x00010000, 0x0100) + _MOV_MATRIX + b"\x00" * 24
+                     + struct.pack(">I", 3 if pcm_frames else 2))
+    v_minf = _box(b"minf", _full_box(b"vmhd", 0, 1, struct.pack(">HHHH", 0, 0, 0, 0)) + _dinf()
+                  + _stbl(v_entry, num_frames, v_delta, [len(j) for j in jpegs], video_chunk_off))
+    v_mdia = _box(b"mdia", _mdhd(v_timescale, num_frames * v_delta) + _hdlr(b"vide", b"VideoHandler") + v_minf)
+    traks = _box(b"trak", _tkhd(1, mv_duration, w, h) + v_mdia)
+    if pcm_frames:
+        a_minf = _box(b"minf", _full_box(b"smhd", 0, 0, struct.pack(">Hxx", 0)) + _dinf()
+                      + _stbl(_sound_sample_entry_sowt(channels, sample_rate), pcm_frames, 1, 2 * channels,
+                              audio_chunk_off))
+        a_mdia = _box(b"mdia", _mdhd(sample_rate, pcm_frames) + _hdlr(b"soun", b"SoundHandler") + a_minf)
+        traks += _box(b"trak", _tkhd(2, mv_duration, volume=0x0100) + a_mdia)
+    with open(path, "wb") as fh:
+        fh.write(ftyp)
+        fh.write(mdat)
+        fh.write(_box(b"moov", mvhd + traks))
 
 
 def _avi_chunks(data: bytes):
@@ -411,17 +647,29 @@ def _png_is_animated(path: str) -> bool:
             fh.seek(length + 4, os.SEEK_CUR)
 
 
-def _refuse_animation(path: str):
-    kind = {".gif": "GIF", ".webp": "WebP"}.get(Path(path).suffix.lower(), "APNG (animated PNG)")
-    raise NotImplementedError(NO_ANIMATION.format(path=path, kind=kind))
+def _animation_frames(path: str, max_frames: Optional[int] = None) -> list:
+    """A GIF's or an animated PNG's frames, uint8 (H, W, 3), as PIL gives
+    them; WebP raises NotImplementedError."""
+    suffix = Path(path).suffix.lower()
+    if suffix == ".webp":
+        raise NotImplementedError(NO_WEBP.format(path=path))
+    if suffix == ".gif":
+        with open(path, "rb") as fh:
+            return decode_gif(fh.read(), path, max_frames)
+    return read_apng(path, max_frames)
 
 
 def read_pil_animation(path: str, height: int, width: int, num_frames: int) -> np.ndarray:
-    """A still PNG as one frame (`read_png`); GIF, WebP, APNG and animated
-    PNG raise NotImplementedError (the JAX package decodes them with PIL)."""
+    """A GIF, an APNG (`.apng`, or a `.png` with `acTL`) or a still PNG ->
+    (1, 3, F, H, W) in [-1, 1], the frames PIL's `ImageSequence` gives
+    (`decode_gif`, `read_apng`, `read_png`); WebP raises
+    NotImplementedError."""
     if Path(path).suffix.lower() == ".png" and not _png_is_animated(path):
         return _pack([read_png(path)], height, width, num_frames)
-    _refuse_animation(path)
+    frames = _animation_frames(path, num_frames)
+    if not frames:
+        raise ValueError(f"no frames decoded from {path}")
+    return _pack(frames, height, width, num_frames)
 
 
 def _parse_y4m_header(raw_header: bytes, path: str):
@@ -685,8 +933,9 @@ def probe_mov(path: str):
 def probe_video(path: str):
     """(fps, frames, height, width) of the formats that decode without
     ffmpeg: AVI (its avih header), y4m (its frame records walked, a
-    truncated last frame not counted), a still PNG (one frame at 24 fps),
-    .mov/.mp4 (`probe_mov`); GIF, WebP, APNG and animated PNG raise
+    truncated last frame not counted), a still PNG (one frame at 24 fps), a
+    GIF or an APNG (PIL's `n_frames`, and 1000 / its first frame's duration,
+    24 without one), .mov/.mp4 (`probe_mov`); WebP raises
     NotImplementedError, other suffixes ValueError."""
     suffix = Path(path).suffix.lower()
     if suffix == ".avi":
@@ -722,7 +971,15 @@ def probe_video(path: str):
             with open(path, "rb") as fh:
                 w, h = struct.unpack(">II", fh.read(24)[16:24])
             return 24.0, 1, int(h), int(w)
-        _refuse_animation(path)
+        if suffix == ".webp":
+            raise NotImplementedError(NO_WEBP.format(path=path))
+        if suffix == ".gif":
+            with open(path, "rb") as fh:
+                w, h, n, duration_ms = gif_info(fh.read(), path)
+        else:
+            w, h, n, duration_ms = apng_info(path)
+        fps = 1000.0 / duration_ms if duration_ms else 24.0
+        return fps, int(n), int(h), int(w)
     if suffix in MOV_SUFFIXES:
         return probe_mov(path)
     raise ValueError(f"{path}: no pure-Python probe for {suffix}")
@@ -806,7 +1063,7 @@ def decodes_pure_python(path: str) -> bool:
 
 def read_video_any(path: str, height: int, width: int, num_frames: int) -> np.ndarray:
     """The reader a file's suffix (and a .mov/.mp4's codec) names: y4m, MJPEG
-    AVI, a still PNG (GIF, WebP and APNG raise), MJPEG mov/mp4; else OpenCV
+    AVI, GIF, APNG, a still PNG (WebP raises), MJPEG mov/mp4; else OpenCV
     when it is installed, else the ffmpeg pipe."""
     suffix = Path(path).suffix.lower()
     if suffix == ".y4m":

@@ -487,8 +487,22 @@ def test_prepare_data_matches_jax(source, tmp_path, monkeypatch):
 def test_prepare_data_refusals(tmp_path):
     with pytest.raises(SystemExit):  # a directory without clips
         prepare_data.main(["--videos", str(tmp_path), "--context-dim", "8", "--device", "cpu"])
-    (tmp_path / "anim.gif").write_bytes(b"GIF89a")
-    with pytest.raises(NotImplementedError, match="GIF, APNG and WebP readers"):
+    # A GIF under --videos reads as the JAX package reads it; a WebP raises by name.
+    from PIL import Image
+
+    from ltx2_tpu.utils import video_io as jvio
+
+    rng = np.random.default_rng(5)
+    images = [Image.fromarray(rng.integers(0, 256, (24, 32, 3), dtype=np.uint8)) for _ in range(3)]
+    gifs = tmp_path / "gifs"
+    gifs.mkdir()
+    images[0].save(gifs / "anim.gif", save_all=True, append_images=images[1:], duration=40)
+    clips = prepare_data.load_clips(prepare_data.build_parser().parse_args(
+        ["--videos", str(gifs), "--height", "32", "--width", "32", "--num-frames", "9"]))
+    assert len(clips) == 1
+    np.testing.assert_array_equal(clips[0], jvio.read_video_any(str(gifs / "anim.gif"), 32, 32, 9))
+    images[0].save(tmp_path / "anim.webp", save_all=True, append_images=images[1:], duration=40)
+    with pytest.raises(NotImplementedError, match="The WebP reader"):
         prepare_data.main(["--videos", str(tmp_path), "--context-dim", "8", "--device", "cpu"])
     with pytest.raises(SystemExit):
         prepare_data.main(["--context-dim", "8", "--device", "cpu"])

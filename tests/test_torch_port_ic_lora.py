@@ -5,8 +5,11 @@ small encoder plan, a mid-16 upscaler, random latent statistics, a rank-2
 LoRA on every block linear.
 
 - `create_video_conditionings`: a RAW control (an MJPEG AVI read at stage
-  1's size) and a CANNY one (OpenCV, where cv2 is installed), encoded and
-  appended at frame 0: the latents within RTOL, frame and strength equal;
+  1's size) and a CANNY one (the port's Canny against OpenCV's, where cv2
+  is installed), encoded and appended at frame 0: the latents within RTOL,
+  frame and strength equal; `save_control`'s AVI byte for byte the JAX
+  package's; without cv2 the Canny equal to cv2's calls on the port's
+  frames;
 - the distilled `_run_stage` with `extra_conditionings` (per-token
   timesteps) against JAX's;
 - `ICLoraPipeline(skip_decode=True)` video and AV with `videos=`: the
@@ -15,7 +18,7 @@ LoRA on every block linear.
   2 alone does not see it); the DiT's weights after the run as JAX's
   (rtol 1e-6), and after an exception raised inside stage 1;
 - the CLI: `--lora` routed to `--ic-lora-weights` and kept out of the
-  ledger's fuse, `--int8` refused, `--save-control` raising by name, the
+  ledger's fuse, `--int8` refused, `--save-control` writing the JAX bytes, the
   flags as the JAX CLI parses them, and a run from tiny files.
 
 Tolerance: RTOL (1e-4 of the reference's largest magnitude), the two
@@ -148,14 +151,38 @@ def test_create_video_conditionings_matches_jax(parts, control_type):
     if control_type == "canny":
         edges = ic_lora.preprocess_canny(parts["control"], 32, 32, FRAMES, 100, 200)
         np.testing.assert_array_equal(edges, jic.preprocess_canny(parts["control"], 32, 32, FRAMES, 100, 200))
-    with pytest.raises(NotImplementedError, match="The MJPEG writers"):
-        ic_lora.create_video_conditionings([dataclasses.replace(vc, save_control=True)], None, 32, 32, FRAMES)
+    # save_control writes the encoded signal as the JAX package's MJPEG AVI, byte for byte.
+    control_avi = parts["control"] + ".control.avi"
+    jic.create_video_conditionings([dataclasses.replace(jvc, save_control=True)], _jencode(parts), 32, 32, FRAMES)
+    with open(control_avi, "rb") as fh:
+        ref_bytes = fh.read()
+    os.unlink(control_avi)
+    ic_lora.create_video_conditionings([dataclasses.replace(vc, save_control=True)],
+                                       lambda v: video_encoder_apply(enc, v), 32, 32, FRAMES)
+    with open(control_avi, "rb") as fh:
+        assert fh.read() == ref_bytes
+    os.unlink(control_avi)
 
 
 def test_canny_without_opencv_names_its_roadmap_item(parts, monkeypatch):
+    """Without OpenCV the Canny signal is the port's own (utils/canny.py) on
+    the frames the port's readers give at the video's size: equal to cv2's
+    three calls on those frames."""
+    cv2 = pytest.importorskip("cv2")
+    from ltx2_tpu_torch.utils.video_io import probe_video, read_video_any
+
+    _fps, count, h, w = probe_video(parts["control"])
+    video = read_video_any(parts["control"], h, w, min(count, FRAMES))
+    rgb = np.rint((video[0].transpose(1, 2, 3, 0) + 1.0) * 127.5).astype(np.uint8)
+    expected = [cv2.cvtColor(cv2.Canny(cv2.cvtColor(cv2.resize(np.ascontiguousarray(f[..., ::-1]), (40, 24),
+                                                                  interpolation=cv2.INTER_LANCZOS4),
+                                                       cv2.COLOR_BGR2GRAY), 30, 90), cv2.COLOR_GRAY2RGB)
+                for f in rgb]
+    expected += [expected[-1]] * (FRAMES - len(expected))
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(ImportError, match="A Canny edge detector of the port's own"):
-        ic_lora.preprocess_canny(parts["control"], 32, 32, FRAMES)
+    got = ic_lora.preprocess_canny(parts["control"], 24, 40, FRAMES, 30, 90)
+    np.testing.assert_array_equal(got, np.stack(expected))
+    assert got.any()
 
 
 def _stage_noise(seed: int, tokens, audio: bool):
@@ -295,7 +322,7 @@ def test_generate_main_ic_lora(parts, files, monkeypatch):
              str(WIDTH), "--frames", str(FRAMES), "--seed", str(SEED)]
     videos, stats = generate.main(["--pipeline", "ic-lora", "--device", "cpu", "--checkpoint", ckpt,
                                    "--spatial-upscaler", up, "--ic-lora-weights", parts["lora"]["video"] + ":0.8",
-                                   "--output", out, *flags])
+                                   "--save-control", "--output", out, *flags])
     st = stats[0]
     assert videos[0].shape == (FRAMES, HEIGHT, WIDTH, 3) and videos[0].dtype == np.uint8 and os.path.getsize(out)
     assert all(st[f"{p}_latent_finite"] for p in ("lora_fuse", "control_encode", "stage1", "upscale", "stage2"))
@@ -326,5 +353,16 @@ def test_generate_main_ic_lora(parts, files, monkeypatch):
                 ["--pipeline", "ic-lora", "--image", "a.png"]):
         with pytest.raises(SystemExit):
             generate.main(bad + ["--device", "cpu", "--output", out])
-    with pytest.raises(NotImplementedError, match="The MJPEG writers"):
-        generate.main(["--pipeline", "ic-lora", "--save-control", "--device", "cpu", "--output", out, *flags])
+    # --save-control wrote the signal stage 1 encoded (at half the size), the JAX package's bytes.
+    control_avi = parts["control"] + ".control.avi"
+    with open(control_avi, "rb") as fh:
+        written = fh.read()
+    os.unlink(control_avi)
+    from ltx2_tpu_torch.utils.video_io import probe_video
+
+    jic.create_video_conditionings([jic.VideoCondition(parts["control"], save_control=True)], lambda v: v,
+                                   HEIGHT // 2, WIDTH // 2, FRAMES)
+    assert probe_video(control_avi)[1:] == (FRAMES, HEIGHT // 2, WIDTH // 2)
+    with open(control_avi, "rb") as fh:
+        assert fh.read() == written
+    os.unlink(control_avi)

@@ -16,7 +16,7 @@ initial noise:
   override, GE, Heun, the cross-attention scale, text-KV caching) through
   the pipeline against the JAX package's, the latent to 1e-4; STG on the
   audio stream raises ValueError on this video-only pipeline, and each
-  unported option (meshes, prepare_data --videos on a GIF, the training
+  unported option (meshes, prepare_data --videos on a WebP, the training
   mesh flags) raises NotImplementedError naming itself;
 - `generate.main(["--pipeline", "one-stage", "--image", ...])` from a tiny
   checkpoint against `generate_videos_one_stage` on the same ledger, and
@@ -209,20 +209,21 @@ def test_text_to_video_matches_jax(weights):
     assert OneStageCFGConfig(height=480, width=704, num_frames=97).effective_tiling() is not None  # 13x15x22 > 4000
 
 
-def _gif_directory() -> str:
-    """A directory holding one GIF, which prepare_data --videos refuses."""
+def _webp_directory() -> str:
+    """A directory holding one WebP, which prepare_data --videos refuses."""
     import tempfile
 
-    directory = tempfile.mkdtemp(prefix="ltx2_gif_")
-    with open(os.path.join(directory, "anim.gif"), "wb") as fh:
-        fh.write(b"GIF89a")
+    from PIL import Image
+
+    directory = tempfile.mkdtemp(prefix="ltx2_webp_")
+    Image.new("RGB", (8, 8), (10, 20, 30)).save(os.path.join(directory, "anim.webp"))
     return directory
 
 
 # option -> (a word its message must name, the call that must refuse it)
 UNPORTED = {
-    "prepare_data_videos": ("GIF, APNG and WebP readers", lambda p, c, x: prepare_data.main(
-        ["--videos", _gif_directory(), "--context-dim", "8", "--device", "cpu"])),
+    "prepare_data_videos": ("The WebP reader", lambda p, c, x: prepare_data.main(
+        ["--videos", _webp_directory(), "--context-dim", "8", "--device", "cpu"])),
     "train_mesh_flags": ("one device", lambda p, c, x: train.main(
         ["--placeholder", "--device", "cpu", "--synthetic", "1", "2", "2", "--zero1"])),
     "meshes": ("meshes", lambda p, c, x: OneStagePipeline(p.transformer, sequence_mesh=object())),
@@ -292,7 +293,7 @@ SIZE = ["--height", str(HEIGHT), "--width", str(WIDTH), "--frames", str(FRAMES),
 
 
 def _out(checkpoint):
-    """The CLI's --output: a .y4m beside the checkpoint (the default .mp4 needs ffmpeg)."""
+    """The CLI's --output: a .y4m beside the checkpoint (the default .mp4 would also write a GIF and an npz)."""
     return ["--output", os.path.join(os.path.dirname(checkpoint), "out.y4m")]
 
 

@@ -12,8 +12,10 @@
   prompt through `--pipeline one-stage` and `text-to-video`;
 - `--fps`, `--speed`, `--num-frames`, `--dtype` and the tile flags reach
   the pipeline (the position grid at fps 12 against the JAX package's);
-- refusals at argument parsing, before any model is built: `.avi`, `.mov`,
-  and `.mp4` without ffmpeg, `--prompt` without a tokenizer.json.
+- outputs without ffmpeg: `.avi`, `.mov`, `.mp4` and `.mkv` pass the
+  command line's checks and `save_video` writes the JAX CLI's files;
+  refusals at argument parsing, before any model is built: `--prompt`
+  without a tokenizer.json.
 """
 
 import dataclasses
@@ -220,21 +222,30 @@ def _embedding(files, tmp_path):
 
 @pytest.mark.parametrize("output,word", [("o.avi", "JPEG"), ("o.mov", "JPEG"), ("o.mp4", "ffmpeg"),
                                          ("o.mkv", "ffmpeg")])
-def test_outputs_refused_before_any_model(files, tmp_path, monkeypatch, capsys, output, word):
+def test_outputs_refused_before_any_model(files, tmp_path, monkeypatch, output, word):
+    """Without ffmpeg no output is refused (the JAX CLI refuses none): the
+    command line's checks pass, and `save_video` writes the files the JAX
+    CLI's save path writes, each but the GIF preview byte for byte: the
+    MJPEG file itself ("JPEG": .avi, .mov, the port's JPEG encoder), or the
+    no-ffmpeg fallback ("ffmpeg": a .mp4 as MJPEG, any other name as
+    <base>.avi, each with <base>.gif and <base>_frames.npz)."""
+    from scripts.generate import save_video as jax_save_video
+
     monkeypatch.setattr(video_io.shutil, "which", lambda name: None)
-
-    def built(*args, **kwargs):
-        raise AssertionError("a model was built before the output was checked")
-
-    monkeypatch.setattr(generate, "ModelLedger", built)
-    monkeypatch.setattr(generate, "make_dit", built)
     for pipeline in ("distilled", "bench-e2e"):
-        argv = ["--pipeline", pipeline, "--device", "cpu", "--output", str(tmp_path / output)]
-        with pytest.raises(SystemExit):
-            generate.main(argv)
-        assert word in capsys.readouterr().err
-    with pytest.raises(ValueError, match=word):
-        video_io.save_video(np.zeros((1, 8, 8, 3), np.uint8), str(tmp_path / output), 24.0)
+        generate.check_request(generate.build_parser().parse_args(
+            ["--pipeline", pipeline, "--device", "cpu", "--output", str(tmp_path / output)]))
+    frames = np.random.default_rng(2).integers(0, 256, (3, 16, 24, 3), dtype=np.uint8)
+    for side, save in (("port", video_io.save_video), ("jax", jax_save_video)):
+        (tmp_path / side).mkdir()
+        save(frames, str(tmp_path / side / output), 24.0)
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert sorted(os.listdir(tmp_path / "port")) == names
+    mjpeg = output if word == "JPEG" or output.endswith(".mp4") else "o.avi"
+    assert names == ([output] if word == "JPEG" else sorted([mjpeg, "o.gif", "o_frames.npz"]))
+    for name in names:
+        if not name.endswith((".gif", ".npz")):
+            assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes(), name
 
 
 def test_prompt_refusals(files, tmp_path, capsys, monkeypatch):

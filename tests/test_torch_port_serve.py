@@ -7,10 +7,12 @@
   settings, or the same error class naming the same field);
 - a JSON-lines run of `serve.main` at --layers 1, 64x64x9 from a requests
   file: comment lines, two good requests of different seeds, a bad field, a
-  .mp4 output without ffmpeg (bad_request, before any generation) and a
-  switch to text-to-video: the statuses, kinds and ids (ids count
-  requests), each served clip's file byte for byte `generate.main`'s for
-  the same settings, and the DiT built once (setup) for all of them;
+  .mp4 output without ffmpeg (ok: the MJPEG .mp4, the GIF preview and the
+  frames npz, the JAX server's artifacts, the .mp4 byte for byte the JAX
+  writer's of the npz frames) and a switch to text-to-video: the statuses,
+  kinds and ids (ids count requests), each served clip's file byte for byte
+  `generate.main`'s for the same settings, and the DiT built once (setup)
+  for all of them;
 - the HTTP front on port 0 in a thread: /healthz 200, /generate 200, a bad
   field 400, no Content-Length 411, an unknown path 404, a server fault
   500 with the next request served, and --request-timeout 504 with a
@@ -26,6 +28,7 @@ import time
 import urllib.error
 import urllib.request
 
+import numpy as np
 import pytest
 import torch
 
@@ -50,7 +53,7 @@ def _launch(pipeline="one-stage", height=480, width=704):
         ["--placeholder", "--no-gemma", "--pipeline", pipeline, "--height", str(height), "--width", str(width)]))
     args = serve.build_parser().parse_args(["--pipeline", pipeline, "--height", str(height), "--width", str(width),
                                             "--device", "cpu", "--output", "x.y4m"])
-    generate.check_request(args, output=False)
+    generate.check_request(args)
     return jargs, args
 
 
@@ -109,11 +112,13 @@ def test_request_fields_are_the_jax_servers():
 
 def test_port_refusals_are_bad_requests(monkeypatch):
     """What the command line refuses, a request gets back as bad_request:
-    a .mp4 without ffmpeg, an explicit prompt without a tokenizer, an
-    unknown pipeline, a loop option on a flow without it."""
+    an explicit prompt without a tokenizer, an unknown pipeline, a loop
+    option on a flow without it. A .mp4 without ffmpeg passes the checks,
+    as the JAX server takes it."""
     monkeypatch.setattr(video_io.shutil, "which", lambda name: None)
     _, args = _launch("distilled", 512, 768)
-    for request_, word in (({"output": "o.mp4"}, "ffmpeg"), ({"prompt": "a fox"}, "tokenizer.json"),
+    assert serve.apply_request(args, {"output": "o.mp4"}).output == "o.mp4"
+    for request_, word in (({"prompt": "a fox"}, "tokenizer.json"),
                            ({"pipeline": "nope"}, "--pipeline"), ({"stg_scale": 1.0}, "--stg-scale"),
                            ({"sampler": "ddim"}, "--sampler")):
         response = serve.handle_request(args, None, None, request_, 3)
@@ -142,10 +147,22 @@ def test_json_lines_run(tmp_path, monkeypatch, capsys):
     serve.main(launch)
     responses = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert [r["id"] for r in responses] == list(range(6))
-    assert [r["status"] for r in responses] == ["ok", "ok", "error", "error", "error", "ok"]
-    assert [r.get("kind") for r in responses[2:5]] == ["bad_request"] * 3
-    assert "no_such_field" in responses[2]["error"] and "ffmpeg" in responses[3]["error"]
+    assert [r["status"] for r in responses] == ["ok", "ok", "error", "ok", "error", "ok"]
+    assert [responses[i].get("kind") for i in (2, 4)] == ["bad_request"] * 2
+    assert "no_such_field" in responses[2]["error"]
     assert responses[0]["artifacts"] == [a] and responses[5]["artifacts"] == [c]
+    # A .mp4 without ffmpeg: the MJPEG .mp4, the GIF preview and the frames
+    # npz, as the JAX server lists them; the .mp4 is the JAX writer's bytes.
+    d = str(tmp_path / "d.mp4")
+    assert responses[3]["artifacts"] == _jax_serve()._actual_outputs(d) == [
+        d, str(tmp_path / "d.gif"), str(tmp_path / "d_frames.npz")]
+    assert responses[3]["stats"][0]["save_s"] > 0
+    saved = np.load(tmp_path / "d_frames.npz")
+    assert saved["frames"].shape == (9, 64, 64, 3) and float(saved["fps"]) == 24.0
+    from ltx2_tpu.utils import video_io as jvio
+
+    jvio.write_mp4_mjpeg(str(tmp_path / "j.mp4"), saved["frames"], 24.0)
+    assert open(d, "rb").read() == open(tmp_path / "j.mp4", "rb").read()
     assert built == [1], "the DiT is built once, at setup"
     stats = responses[1]["stats"][0]
     assert stats["dit_init_s"] == 0.0 and stats["decoder_init_s"] == 0.0 and stats["seed"] == 2
@@ -163,7 +180,7 @@ def test_json_lines_run(tmp_path, monkeypatch, capsys):
 def http_server():
     args = serve.build_parser().parse_args(TINY + ["--pipeline", "one-stage", "--num-inference-steps", "1",
                                                    "--skip-vae", "--http", "0"])
-    generate.check_request(args, output=False)
+    generate.check_request(args)
     models, ledger = generate.setup(args)
     server = serve.make_http_server(args, models, ledger)
     thread = threading.Thread(target=server.serve_forever, daemon=True)

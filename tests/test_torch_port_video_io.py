@@ -12,7 +12,7 @@ the CPU, bit for bit (tolerance none: the float32 frames are equal):
   .mov and .mp4 from `write_mp4_mjpeg`, an `avc1` entry and an `mp4v` entry
   whose esds names MPEG-4 Visual (not JPEG);
 - `read_video_any`'s dispatch (and OpenCV's decode where cv2 is
-  installed), the formats that raise by name, `load_image_tensor` on a
+  installed), GIF and APNG through it, WebP raising by name, `load_image_tensor` on a
   .jpg (PIL's LANCZOS and crop), and the committed MJPEG fixture
   (tests/fixtures_video): its recipe, and both recorded SHA-256s.
 """
@@ -201,19 +201,20 @@ def test_dispatch_and_formats_that_raise(tmp_path):
     _same(vio.read_video_any(y4m, 24, 32, 3), jvio.read_video_any(y4m, 24, 32, 3))
     assert vio.PURE_PYTHON_SUFFIXES == jvio.PURE_PYTHON_SUFFIXES and vio.PIL_SUFFIXES == jvio.PIL_SUFFIXES
     images = [Image.fromarray(f) for f in frames]
-    animated = {"gif": "GIF", "webp": "WebP", "apng": "APNG"}
-    for suffix, word in animated.items():
-        path = str(tmp_path / f"anim.{suffix}")
-        images[0].save(path, format="PNG" if suffix == "apng" else suffix.upper(), save_all=True,
+    # GIF and APNG (.apng, and a .png with acTL) read and probe as the JAX
+    # package's PIL path does; WebP raises by name.
+    for name in ("anim.gif", "anim.apng", "anim2.png"):
+        path = str(tmp_path / name)
+        images[0].save(path, format="GIF" if name.endswith(".gif") else "PNG", save_all=True,
                        append_images=images[1:], duration=40)
-        for call in (lambda: vio.read_video_any(path, 16, 24, 3), lambda: vio.probe_video(path)):
-            with pytest.raises(NotImplementedError, match=f"{word}.*GIF, APNG and WebP readers"):
-                call()
-    # An animated .png (acTL) raises too; a still one reads.
-    apng_as_png = str(tmp_path / "anim2.png")
-    images[0].save(apng_as_png, save_all=True, append_images=images[1:], duration=40)
-    with pytest.raises(NotImplementedError, match="APNG"):
-        vio.read_video_any(apng_as_png, 16, 24, 3)
+        _same(vio.read_video_any(path, 16, 24, 3), jvio.read_video_any(path, 16, 24, 3))
+        _same(vio.read_video_any(path, 24, 32, 5), jvio.read_video_any(path, 24, 32, 5))
+        assert vio.probe_video(path) == jvio.probe_video(path)
+    webp = str(tmp_path / "anim.webp")
+    images[0].save(webp, format="WEBP", save_all=True, append_images=images[1:], duration=40)
+    for call in (lambda: vio.read_video_any(webp, 16, 24, 3), lambda: vio.probe_video(webp)):
+        with pytest.raises(NotImplementedError, match="WebP.*The WebP reader"):
+            call()
     with pytest.raises(ValueError, match="no pure-Python probe"):
         vio.probe_video(str(tmp_path / "a.mkv"))
 
