@@ -9,7 +9,7 @@ card and nvcc; it exits non-zero without them, and without the package
    forward, flash backward, conv3d), one process per source, started
    together; ptxas's registers and spill for each kernel; the flash forward
    (both head dims), the bf16 conv kernel (three N tiles) and the fp32 conv
-   kernel (3xTF32) must show 0 bytes of spill, no C7512 (wgmma serialised)
+   kernel (3xTF32), each stride-1 and strided, must show 0 bytes of spill, no C7512 (wgmma serialised)
    warning and HGMMA (wgmma) in their SASS;
 3. kernel check: the flash forward against `flash_attention_plain` on the
    card in bf16, at the DiT's self-attention (1, 32, 6144, 128), its text
@@ -54,7 +54,11 @@ card and nvcc; it exits non-zero without them, and without the package
    the first 16 input frames alone); with zero
    padding the temporal upscaler's five conv shapes on a 512x768x121
    latent: 128 -> 512, 512 -> 512 before and after the shuffle (16 and 31
-   frames), the upsampler's 512 -> 1024 and the final 512 -> 128), within
+   frames), the upsampler's 512 -> 1024 and the final 512 -> 128; the full
+   video VAE's strided causal convs at 17x256x384, compress_space (1, 2,
+   2), compress_time (2, 1, 1) and compress_all (2, 2, 2), in fp32 and
+   bf16, and a ragged one (17 x 63 x 95 at (2, 2, 2)), cuDNN at the same
+   strides on the padded input), within
    relative limits that two planted faults (a tap left
    out, the output x 1.03) must fail; the fp32 kernel also within fp32
    accuracy of the plain version in float64, a limit single-pass TF32 must
@@ -266,6 +270,19 @@ card and nvcc; it exits non-zero without them, and without the package
    the written int16 samples; then
    `prepare_data --videos` on the AVI and a short .y4m, `--images` on the
    JPEG still, and one `train.main --data` step on the npz;
+9b. the full video VAE at full width on a 17x256x384 clip, random weights
+   from the port's init: the default encoder (fp32), the strided
+   vocabulary (each compress_*_res a strided compress_* conv and a
+   res_x_y; group norm; fp32; 4 strided launches), a dims=(2, 1)
+   UNetMidBlock3D of DualConv3d with injected noise on its 512-wide stage,
+   the default decoder in bf16 with timestep conditioning and decode
+   noise; each through the kernels and with every conv on its plain
+   version (latents within 1e-2 relative rms, frames within 2 levels on
+   average, planted faults rejected), its first call's seconds, peak GB
+   and launches; then the WebP reader on the host: the committed WebP
+   fixtures (a lossy still, a lossless still with alpha, a lossy animation
+   with alpha, a lossless animation) to the SHA-256 of PIL's frames in
+   media_io.json, their probes, host ms a frame;
 10. backward check: at the video DiT's training shapes (head dim 128:
    self, cross, masked ragged) and the audio-video DiT's (head dim 64: the
    126 audio tokens' self-attention, audio -> video 6144 x 126, video ->
@@ -418,8 +435,8 @@ def phase_build():
                 log(f"  ptxas: {ln.strip()}")
     log(f"build: wall {wall:.1f} s")
     _check_wgmma_build(info["fwd"], "flash_fwd_kernel", 2)  # head dims 64 and 128
-    _check_wgmma_build(info["conv3d"], "conv3d_wgmma_kernel", 3)  # N tiles 48, 128, 256
-    _check_wgmma_build(info["conv3d"], "conv3d_tf32x3_kernel", 1)
+    _check_wgmma_build(info["conv3d"], "conv3d_wgmma_kernel", 6)  # N tiles 48, 128, 256, each stride-1 and strided
+    _check_wgmma_build(info["conv3d"], "conv3d_tf32x3_kernel", 2)  # stride-1 and strided
     return wall
 
 
@@ -666,8 +683,8 @@ def phase_kernels():
 
 
 # Conv cases: (name, x shape (B, T, H, W, Cin), Cout, kT, dtype, causal,
-# spatial mode, temporal mode), at the shapes the two serving paths give
-# the kernel.
+# spatial mode, temporal mode[, stride]), at the shapes the serving paths
+# and the full video VAE give the kernel.
 CONV_CASES = (
     ("S4", (1, 121, 128, 192, 128), 128, 3, "bfloat16", False, "reflect", "replicate"),
     ("S3", (1, 61, 64, 96, 256), 256, 3, "bfloat16", False, "reflect", "replicate"),
@@ -708,6 +725,18 @@ CONV_CASES = (
     ("temporal_up", (1, 16, 16, 24, 512), 1024, 3, "float32", False, "zeros", "zeros"),
     ("temporal_res_post", (1, 31, 16, 24, 512), 512, 3, "float32", False, "zeros", "zeros"),
     ("temporal_out", (1, 31, 16, 24, 512), 128, 3, "float32", False, "zeros", "zeros"),
+    # The full video VAE's strided causal convs (compress_space, _time and
+    # _all of the strided encoder vocabulary) on a 17 x 256 x 384 clip, in
+    # the encoder's fp32 and in bf16, and a ragged one: odd T, H and W,
+    # where the causal front pad of 2 frames meets sT = 2.
+    ("full_space_s122", (1, 17, 64, 96, 128), 128, 3, "float32", True, "zeros", "replicate", (1, 2, 2)),
+    ("full_time_s211", (1, 17, 32, 48, 256), 256, 3, "float32", True, "zeros", "replicate", (2, 1, 1)),
+    ("full_all_s222", (1, 9, 32, 48, 512), 512, 3, "float32", True, "zeros", "replicate", (2, 2, 2)),
+    ("full_ragged_s222", (1, 17, 63, 95, 128), 128, 3, "float32", True, "zeros", "replicate", (2, 2, 2)),
+    ("full_space_s122_bf16", (1, 17, 64, 96, 128), 128, 3, "bfloat16", True, "zeros", "replicate", (1, 2, 2)),
+    ("full_time_s211_bf16", (1, 17, 32, 48, 256), 256, 3, "bfloat16", True, "zeros", "replicate", (2, 1, 1)),
+    ("full_all_s222_bf16", (1, 9, 32, 48, 512), 512, 3, "bfloat16", True, "zeros", "replicate", (2, 2, 2)),
+    ("full_ragged_s222_bf16", (1, 17, 63, 95, 128), 128, 3, "bfloat16", True, "reflect", "replicate", (2, 2, 2)),
 )
 # The spatial upscaler's convs in one two-stage clip (all fp32): the
 # initial conv, 8 res convs before and 8 after the resampler, the final.
@@ -720,24 +749,26 @@ TOL_UPSCALER_CONV_TIME = 0.10  # the cases' times x launches against a traced up
 F64_FRAMES = 16  # the float64 check's output frames on a long causal clip
 
 
-def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal_mode, gen):
+def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal_mode, gen, stride=(1, 1, 1)):
     import torch
     import torch.nn.functional as F
 
     from ltx2_tpu_torch.models.video_vae.conv import Conv3d, conv3d_ndhwc
     from ltx2_tpu_torch.ops.conv3d import (
-        conv3d_ndhwc_kernel, conv3d_plain, kernel_layout, tf32_round, tf32x3_plan, tf32x3_split, wgmma_tile,
+        conv3d_ndhwc_kernel, conv3d_plain, kernel_layout, out_shape, tf32_round, tf32x3_plan, tf32x3_split, wgmma_tile,
     )
 
     dev, dtype = torch.device("cuda"), getattr(torch, dtype_name)
     fp32 = dtype == torch.float32
     b, t, h, w, cin = shape
+    voxels_out = math.prod(out_shape(shape, cout, stride)[:4])
     bound_w = (cin * kt * 9) ** -0.5  # the models' init: U(+-1/sqrt(fan_in))
     x = torch.randn(shape, device=dev, generator=gen).to(dtype)
     weight = ((torch.rand(cout, cin, kt, 3, 3, device=dev, generator=gen) * 2 - 1) * bound_w).to(dtype)
     bias = (torch.rand(cout, device=dev, generator=gen) * 2 - 1) * bound_w
     wk = kernel_layout(weight, k_major=not fp32)  # bf16: the order the kernel reads, as cached
     args = (causal, spatial_mode, temporal_mode)
+    kw = {"stride": stride}
     if cout % 8:
         # A Cout the kernel does not take runs through the module, which pads
         # its weight and bias with zero outputs and slices them off.
@@ -748,21 +779,21 @@ def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal
         split = module.tf32x3_weight() if fp32 else None
 
         def call():
-            return conv3d_ndhwc(module, x, *args)
+            return conv3d_ndhwc(module, x, *args, **kw)
     else:
         split = tf32x3_split(wk) if fp32 else None  # fp32: the TF32 parts the module caches
 
         def call():
-            return conv3d_ndhwc_kernel(x, wk, bias, *args, w_split=split)
+            return conv3d_ndhwc_kernel(x, wk, bias, *args, w_split=split, **kw)
 
     out = call()
-    ref = conv3d_plain(x, wk, bias, *args)
+    ref = conv3d_plain(x, wk, bias, *args, **kw)
     m = _mismatch(out, ref)
     # Planted faults, held to the same limits: one tap left out, and the
     # output off by 3 %.
     dropped = wk.clone()
     dropped[kt // 2, 1, 1] = 0
-    planted = {"tap_dropped": _mismatch(conv3d_plain(x, dropped, bias, *args), ref),
+    planted = {"tap_dropped": _mismatch(conv3d_plain(x, dropped, bias, *args, **kw), ref),
                "scaled_1.03": _mismatch(ref.float() * 1.03, ref)}
     del dropped
     torch.cuda.empty_cache()
@@ -773,13 +804,15 @@ def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal
         # A long causal clip on its first F64_FRAMES output frames, which
         # depend on the first F64_FRAMES input frames alone: the float64
         # im2col of 121 x 128 x 192 voxels would take 25.5 GiB.
+        # (With a temporal stride, the output frames those input frames give.)
         win = F64_FRAMES if causal and t > F64_FRAMES else t
         xw = x[:, :win]
-        ref64 = conv3d_plain(xw.double(), wk.double(), bias.double(), *args)
-        f64 = {"kernel": _mismatch(out[:, :win], ref64, torch.float64),
-               "plain_fp32": _mismatch(ref[:, :win], ref64, torch.float64),
-               "single_pass_tf32": _mismatch(conv3d_plain(tf32_round(xw), tf32_round(wk), bias, *args), ref64,
-                                             torch.float64)}
+        ref64 = conv3d_plain(xw.double(), wk.double(), bias.double(), *args, **kw)
+        n_out = ref64.shape[1]
+        f64 = {"kernel": _mismatch(out[:, :n_out], ref64, torch.float64),
+               "plain_fp32": _mismatch(ref[:, :n_out], ref64, torch.float64),
+               "single_pass_tf32": _mismatch(conv3d_plain(tf32_round(xw), tf32_round(wk), bias, *args, **kw),
+                                             ref64, torch.float64)}
         del ref64, xw
         # The K ranges are summed in a fixed order: two runs agree bitwise.
         f64["bitwise_reproducible"] = bool(torch.equal(call(), out))
@@ -796,7 +829,7 @@ def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal
     # 1024 fp32 case at 2.83-3.12 ms while CUDA events read 2.77-2.84 in the
     # same runs, enough to throw the upscaler comparison below past 10 %.
     kernel_ms, kernel_timed_by, _ = _kernel_ms(call, kernel_name, 10)
-    plain_ms = _time_ms(lambda: conv3d_plain(x, wk, bias, *args), 2)
+    plain_ms = _time_ms(lambda: conv3d_plain(x, wk, bias, *args, **kw), 2)
     # Library yardstick, never called by the port: cuDNN's conv3d in the same
     # dtype (TF32 off), on the NCDHW view of the channels-last input. Zero
     # padding is its own; reflect/replicate padding is applied beforehand and
@@ -808,17 +841,18 @@ def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal
 
         lib_in, lib_pad = _pad(x, kt, causal, spatial_mode, temporal_mode).permute(0, 4, 1, 2, 3), 0
     lib_b = bias.to(dtype)
-    library_ms = _time_ms(lambda: F.conv3d(lib_in, weight, lib_b, padding=lib_pad), 10)
+    library_ms = _time_ms(lambda: F.conv3d(lib_in, weight, lib_b, padding=lib_pad, stride=stride), 10)
     del lib_in
 
-    flops = 2.0 * b * t * h * w * cin * cout * kt * 9
-    nbytes = x.element_size() * (x.numel() + wk.numel() + b * t * h * w * cout) + 4 * cout
+    flops = 2.0 * voxels_out * cin * cout * kt * 9
+    nbytes = x.element_size() * (x.numel() + wk.numel() + voxels_out * cout) + 4 * cout
     # fp32 work runs as three TF32 products; the FFMA bound is kept beside it.
     op_s = 3 * flops / PEAK_TF32_FLOPS if fp32 else flops / PEAK_BF16_FLOPS
     bound_ms = max(op_s, nbytes / PEAK_BYTES_PER_S) * 1e3
     tol = CONV_TOL[dtype_name]
     rec = {
-        "case": name, "shape": list(shape), "cout": cout, "kt": kt, "dtype": dtype_name, "causal": causal,
+        "case": name, "shape": list(shape), "cout": cout, "kt": kt, "stride": list(stride), "dtype": dtype_name,
+        "causal": causal,
         "spatial_mode": spatial_mode, "temporal_mode": temporal_mode,
         **{k: m[k] for k in m if k != "finite"}, "tol_max_rel": tol[0], "tol_rms_rel": tol[1],
         "planted_rms_rel": {k: p["rms_rel_err"] for k, p in planted.items()},
@@ -831,7 +865,7 @@ def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal
     }
     if fp32:
         rec.update({
-            "k_ranges": tf32x3_plan(b * t * h * w, -(-cout // 8) * 8, cin, kt, torch.cuda.get_device_properties(0)
+            "k_ranges": tf32x3_plan(voxels_out, -(-cout // 8) * 8, cin, kt, torch.cuda.get_device_properties(0)
                                     .multi_processor_count)[0],
             "ffma_bound_ms": max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3,
             "launches_a_clip": UPSCALER_LAUNCHES.get(name, TEMPORAL_LAUNCHES.get(name)),
@@ -864,8 +898,14 @@ def phase_conv_kernels():
     from ltx2_tpu_torch.ops.conv3d import conv3d_ndhwc_kernel
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    before = conv3d_ndhwc_kernel.launches
-    recs = [_conv_case(*case, gen) for case in CONV_CASES]
+    before, before_strided = conv3d_ndhwc_kernel.launches, conv3d_ndhwc_kernel.strided_launches
+    recs = []
+    for case in CONV_CASES:
+        t0 = time.perf_counter()
+        recs.append(_conv_case(*case[:8], gen, *case[8:]))
+        recs[-1]["case_s"] = time.perf_counter() - t0  # the check, its float64 and its timings
+    log(f"conv kernel checks: {sum(r['case_s'] for r in recs):.1f} s, the strided ones "
+        f"{sum(r['case_s'] for r in recs if r['stride'] != [1, 1, 1]):.1f} s")
     # A shape the kernel does not take raises on the card; nothing falls back.
     from ltx2_tpu_torch.ops.conv3d import conv3d
 
@@ -877,6 +917,7 @@ def phase_conv_kernels():
     else:
         raise AssertionError("conv3d accepted Cin = 24 on the card")
     conv3d_ndhwc_kernel.launches = before  # comparison launches are not the main path's
+    conv3d_ndhwc_kernel.strided_launches = before_strided
     return recs
 
 
@@ -2333,7 +2374,8 @@ def _plain_kernels():
 
     kernel_flash, kernel_conv = A.flash_attention, vae_conv.conv3d
     A.flash_attention = lambda q, k, v, scale=None, kv_valid=None: A.flash_attention_plain(q, k, v, scale, kv_valid)
-    vae_conv.conv3d = lambda x, w, b, causal, sm, tm, w_split=None: conv3d_plain(x, w, b, causal, sm, tm)
+    vae_conv.conv3d = lambda x, w, b, causal, sm, tm, w_split=None, stride=(1, 1, 1): conv3d_plain(
+        x, w, b, causal, sm, tm, stride)
     try:
         yield
     finally:
@@ -3985,6 +4027,7 @@ def _counters():
 def _reset_counts():
     for c in _counters().values():
         c.launches = 0
+    _counters()["conv"].strided_launches = 0
     _counters()["fwd"].key_valid_launches = 0
     _counters()["bwd"].launches_by_head_dim = {}
 
@@ -5720,6 +5763,216 @@ def phase_prepare_videos(smi: str, directory: str) -> tuple:
     return rec, counts
 
 
+# The full video VAE (the non-"simple" path) at full width on a 17 x 256 x
+# 384 clip, random weights from the port's init (scale/shift tables and
+# statistics drawn non-zero).
+FULL_VAE = {"frames": 17, "height": 256, "width": 384}
+# The strided encoder vocabulary: each residual compress_*_res block of the
+# default encoder replaced by its strided compress_* conv and a res_x_y.
+FULL_VAE_STRIDED_CONVS = 4
+
+
+def _strided_vocabulary(blocks) -> tuple:
+    out = []
+    for name, cfg in blocks:
+        if name.endswith("_res"):
+            out += [(name[:-len("_res")], {}), ("res_x_y", {"multiplier": cfg.get("multiplier", 2)})]
+        else:
+            out.append((name, cfg))
+    return tuple(out)
+
+
+def phase_full_vae(smi: str) -> tuple:
+    """The full VAE's paths at full width, each through the kernels and again
+    with every conv on its plain version on the card, held to the small
+    check's limits (latents and activations: relative rms 1e-2, which the
+    kernel output x 1.03 must fail; decoded frames: 2 levels on average,
+    which another latent's frames must fail): the default encoder in fp32;
+    the strided-vocabulary encoder with
+    group norm in fp32 (its 4 strided convs on the kernel); a dims=(2, 1)
+    UNetMidBlock3D (2 ResnetBlock3Ds of DualConv3d, group norm, non-causal
+    zero padding, the only semantics the dual conv has) on the strided
+    encoder's 512-wide stage; the default decoder in bf16 with timestep
+    conditioning (per-block embeddings, the last scale/shift) and decode
+    noise from a generator. Each path's first call: seconds, peak GB above
+    what was allocated before, conv and strided launches (counts reset just
+    before, read just after). Returns (the record, each path's launches)."""
+    import torch
+
+    from ltx2_tpu_torch.models.video_vae import full_vae as fv
+    from ltx2_tpu_torch.models.video_vae import resnet
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    f, h, w = FULL_VAE["frames"], FULL_VAE["height"], FULL_VAE["width"]
+    video = torch.rand(1, 3, f, h, w, generator=gen, device=dev) * 2 - 1
+
+    def randomize(module):
+        with torch.no_grad():
+            for name, p in module.named_parameters():
+                if "scale_shift_table" in name:
+                    p.normal_(generator=gen).mul_(0.2)
+            for name, b in module.named_buffers():
+                if name.endswith("mean_of_means"):
+                    b.normal_(generator=gen).mul_(0.3)
+                elif name.endswith("std_of_means"):
+                    b.uniform_(0.5, 1.5, generator=gen)
+        return module
+
+    def frames_u8(video):
+        """(1, 3, F, H, W) in [-1, 1] -> uint8 (F, H, W, 3)."""
+        return ((video[0].float().clamp(-1, 1) + 1) * 127.5).round().to(torch.uint8).permute(1, 2, 3, 0).cpu().numpy()
+
+    def run(name, call, want_conv, want_strided, other=None):
+        """`other`: for a decoder, the plain run on another latent, which the
+        frames' limit must reject."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = call(None)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {"conv": _counts()["conv"], "strided": _counters()["conv"].strided_launches,
+                  "fwd": _counts()["fwd"]}
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        with _plain_kernels():
+            ref = call(None)
+            ref_other = other() if other is not None else None
+        m = _mismatch(out.float(), ref.float())
+        rec = {"shape": list(out.shape), "seconds_first_call": seconds, "peak_gb": peak, "launches": counts,
+               "vs_plain": {k: v for k, v in m.items() if k != "ref_rms"}}
+        if other is None:
+            # Latents and activations: the small check's relative rms.
+            planted = _mismatch(out.float() * 1.03, ref.float())
+            rec.update({"planted_scaled_1.03_rms_rel": planted["rms_rel_err"], "tol_rms_rel": TOL_SMALL_LATENT_RMS_REL})
+            ok, caught = m["rms_rel_err"] <= TOL_SMALL_LATENT_RMS_REL, planted["rms_rel_err"] > TOL_SMALL_LATENT_RMS_REL
+        else:
+            # Decoded frames: the small check's mean levels, another latent's frames planted.
+            rec.update({"frames_vs_plain": _frame_diff(frames_u8(out), frames_u8(ref)),
+                        "planted_other_latent": _frame_diff(frames_u8(ref_other), frames_u8(ref)),
+                        "tol_mean_levels": TOL_SMALL_MEAN_LEVELS})
+            ok = rec["frames_vs_plain"]["mean_levels"] <= TOL_SMALL_MEAN_LEVELS
+            caught = rec["planted_other_latent"]["mean_levels"] > TOL_SMALL_MEAN_LEVELS
+        log(f"full VAE {name}: {json.dumps(rec)} | {smi}")
+        if not m["finite"] or not ok:
+            raise AssertionError(f"full VAE {name}: kernels disagree with the plain path: {rec}")
+        if not caught:
+            raise AssertionError(f"full VAE {name}: the check accepts a planted fault: {rec}")
+        if counts != {"conv": want_conv, "strided": want_strided, "fwd": 0}:
+            raise AssertionError(f"full VAE {name}: launches {counts}, expected {want_conv} ({want_strided} strided)")
+        return rec, counts
+
+    recs, counts = {}, {}
+    t_start = time.perf_counter()
+    enc_cfg = fv.FullVideoEncoderConfig()
+    enc = randomize(fv.init_full_video_encoder_(fv.FullVideoEncoder(enc_cfg, device=dev), gen))
+    n = fv.conv_launches(enc_cfg)
+    recs["encoder"], counts["encoder"] = run("encoder (default, fp32)",
+                                             lambda _: fv.full_video_encoder_apply(enc, video), n["all"], 0)
+    del enc
+    torch.cuda.empty_cache()
+    strided_cfg = fv.FullVideoEncoderConfig(blocks=_strided_vocabulary(fv.DEFAULT_ENCODER_BLOCKS),
+                                            norm_layer=resnet.NormLayerType.GROUP_NORM)
+    enc = randomize(fv.init_full_video_encoder_(fv.FullVideoEncoder(strided_cfg, device=dev), gen))
+    with torch.no_grad():
+        for name, p in enc.named_parameters():
+            if ".norm" in name or "conv_norm_out" in name:
+                p.add_(torch.randn(p.shape, generator=gen, device=dev) * 0.2)
+    n = fv.conv_launches(strided_cfg)
+    if n["strided"] != FULL_VAE_STRIDED_CONVS:
+        raise AssertionError(f"the strided vocabulary has {n['strided']} strided convs")
+    recs["encoder_strided"], counts["encoder_strided"] = run(
+        "encoder (strided vocabulary, group norm, fp32)", lambda _: fv.full_video_encoder_apply(enc, video),
+        n["all"], n["strided"])
+    recs["encoder_strided"]["blocks"] = [b[0] for b in strided_cfg.blocks]
+    del enc
+    torch.cuda.empty_cache()
+    mid_cfg = resnet.UNetMidBlock3DConfig(dims=(2, 1), in_channels=512, num_layers=2, inject_noise=True)
+    mid = randomize(resnet.init_blocks_(resnet.UNetMidBlock3D(mid_cfg, device=dev), gen))
+    with torch.no_grad():
+        for name, p in mid.named_parameters():
+            if "per_channel_scale" in name:
+                p.uniform_(0.05, 0.2, generator=gen)
+    x_mid = torch.randn(1, (f - 1) // 2 + 1, h // 8, w // 8, 512, generator=gen, device=dev)
+
+    def mid_call(_):
+        noise = [tuple(torch.randn(*x_mid.shape[:4], 1, generator=torch.Generator(device=dev).manual_seed(43 + i),
+                                   device=dev) for _ in range(2)) for i in range(2)]
+        return resnet.unet_mid_block_3d_apply(mid, x_mid, causal=False, noise=noise)
+
+    recs["mid_block_dual"], counts["mid_block_dual"] = run("UNetMidBlock3D dims=(2, 1) (fp32)", mid_call,
+                                                           resnet.conv_launches(mid), 0)
+    del mid, x_mid
+    torch.cuda.empty_cache()
+    dec_cfg = fv.FullVideoDecoderConfig(timestep_conditioning=True, compute_dtype="bfloat16")
+    dec = randomize(fv.init_full_video_decoder_(fv.FullVideoDecoder(dec_cfg, device=dev), gen))
+    latent = torch.randn(1, 128, (f - 1) // 8 + 1, h // 32, w // 32, generator=gen, device=dev)
+    embeddings = [torch.randn(1, 4 * c_in, generator=gen, device=dev) * 0.1 if name == "res_x" else None
+                  for name, _cfg, c_in, _c_out in dec_cfg.plan]
+    last = torch.randn(1, 2 * dec_cfg.final_channels, generator=gen, device=dev) * 0.1
+
+    def dec_call(_, z=latent):
+        return fv.full_video_decoder_apply(dec, z, embeddings, last,
+                                           generator=torch.Generator(device=dev).manual_seed(44))
+
+    other_latent = torch.randn(latent.shape, generator=gen, device=dev)
+    recs["decoder"], counts["decoder"] = run("decoder (default, bf16, timestep-conditioned, decode noise)", dec_call,
+                                             fv.conv_launches(dec_cfg)["all"], 0, other=lambda: dec_call(None, other_latent))
+    noise_moves = _mismatch(dec_call(None).float(), fv.full_video_decoder_apply(dec, latent, embeddings, last).float())
+    recs["decoder"]["decode_noise_rms_rel"] = noise_moves["rms_rel_err"]
+    del dec
+    torch.cuda.empty_cache()
+    if recs["decoder"]["shape"] != [1, 3, f, h, w] or recs["encoder"]["shape"] != [1, 128, 3, h // 32, w // 32]:
+        raise AssertionError(f"full VAE shapes {recs['encoder']['shape']}, {recs['decoder']['shape']}")
+    if recs["encoder_strided"]["shape"] != recs["encoder"]["shape"] or noise_moves["rms_rel_err"] == 0:
+        raise AssertionError(f"full VAE: strided encoder {recs['encoder_strided']['shape']}, decode noise {noise_moves}")
+    recs["wall_s"] = time.perf_counter() - t_start
+    log(f"full VAE: {recs['wall_s']:.1f} s for the four paths and their plain runs | {smi}")
+    return recs, counts
+
+
+WEBP_ANIMATIONS = ("webp_lossy_alpha_96x144x9.webp", "webp_lossless_96x144x9.webp")
+
+
+def phase_webp(smi: str) -> dict:
+    """The committed WebP fixtures (tests/fixtures_video: a lossy still at
+    256x384, a lossless still with alpha, a lossy animation with alpha, a
+    lossless animation) decoded by the port's reader on the card's host,
+    held to the SHA-256 of PIL's frames that media_io.json records, probed
+    as the JAX package probes them, with host ms a frame of each (the best
+    of 3)."""
+    import os
+
+    import numpy as np
+
+    from ltx2_tpu_torch.utils import video_io as vio
+    from ltx2_tpu_torch.utils.webp import read_webp_frames
+
+    t_start = time.perf_counter()
+    directory = os.path.dirname(_fixture(FIXTURE_AVI)[0])
+    meta = json.loads(open(os.path.join(directory, MEDIA_JSON), encoding="utf-8").read())["webp"]
+    checks, ms, sizes = {}, {}, {}
+    for name, want in sorted(meta.items()):
+        path = os.path.join(directory, name)
+        with open(path, "rb") as fh:
+            data = fh.read()
+        frames = np.stack(read_webp_frames(data))
+        checks[name] = _sha256(frames) == want["sha256_pil_frames_uint8"]
+        checks[f"{name}_probe"] = list(vio.probe_video(path)) == [24.0, want["frames"], want["height"], want["width"]]
+        ms[name] = _host_ms(lambda: read_webp_frames(data)) / len(frames)
+        sizes[name] = len(data)
+    largest = max(meta, key=lambda k: meta[k]["height"] * meta[k]["width"])
+    rec = {"checks": checks, "host_ms_per_frame": ms, "bytes": sizes, "largest": largest,
+           "largest_host_ms_per_frame": ms[largest], "phase_s": time.perf_counter() - t_start, "card": smi}
+    log(f"WebP reader (host): {json.dumps(rec)}")
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"WebP reader: {bad} differ from tests/fixtures_video/{MEDIA_JSON}")
+    return rec
+
+
 def phase_video_paths(smi: str) -> tuple:
     """The readers, retake, ic-lora and prepare_data --videos in one
     temporary directory (the 512x768x121 source is written once). Returns
@@ -5821,6 +6074,9 @@ def main():
     torch.cuda.empty_cache()
     video_paths, vp_counts = phase_video_paths(smi)
     torch.cuda.empty_cache()
+    full_vae, fv_counts = phase_full_vae(smi)
+    torch.cuda.empty_cache()
+    webp = phase_webp(smi)
     bwd = phase_bwd_kernels()
     model, train_counts = phase_train_steps(smi)
     timing = phase_train_timing(model, smi)
@@ -5854,6 +6110,10 @@ def main():
     vp_fp32 = {**{k: vp_counts[k]["conv_fp32"] for k in ("retake", "ic_lora", "ic_lora_canny", "av_mjpeg")},
                "ic_lora_small": vp_counts["ic_lora_small"]["conv"],
                "prepare_data_videos": vp_counts["prepare_data_videos"]["conv"]}
+    # The full VAE: the encoders and the dual-conv mid block on the fp32
+    # kernel, the decoder on the bf16 one.
+    fv_fp32 = {f"full_vae_{k}": fv_counts[k]["conv"] for k in ("encoder", "encoder_strided", "mid_block_dual")}
+    fv_strided = {f"full_vae_{k}": c["strided"] for k, c in fv_counts.items()}
     conv_replaces = ("scripts/bench_conv_pallas.py:116 (conv3d_pallas, pallas_call :140); "
                      "scripts/bench_conv_pallas.py:223 (conv3d_pallas_v2, pallas_call :247); "
                      "scripts/bench_conv_pallas.py:357 (conv3d_pallas_v3, pallas_call :378)")
@@ -5955,7 +6215,7 @@ def main():
                          + two_cfg_counts["conv_bf16"] + a2vid_counts["conv_bf16"]
                          + i2v_two_stage["conv_bf16"] + i2v_one_stage["conv_bf16"] + options["conv_bf16"]
                          + temporal_counts["conv_bf16"] + sum(kf_bf16.values()) + sum(vp_bf16.values())
-                         + server_counts["conv_bf16"]),
+                         + server_counts["conv_bf16"] + fv_counts["decoder"]["conv"]),
             "launches_by_path": {"serve": serve_counts["conv"],
                                  "serve_two_stage": two_stage_counts["conv"] - upscale_launches,
                                  "serve_two_stage_from_files": file_counts["conv"] - file_upscale_launches,
@@ -5968,7 +6228,8 @@ def main():
                                  "one_stage": i2v_one_stage["conv_bf16"],
                                  "one_stage_options": options["conv_bf16"],
                                  "temporal_upscale": temporal_counts["conv_bf16"], **kf_bf16, **vp_bf16,
-                                 "server": server_counts["conv_bf16"]},
+                                 "server": server_counts["conv_bf16"],
+                                 "full_vae_decoder": fv_counts["decoder"]["conv"]},
             "served_mp4_launches": served_mp4_counts["conv_bf16"],  # counted in "server" too
             "max_abs_err": max(r["max_abs_err"] for r in bf16_recs),
             "ms": bf16_recs[0]["ms"],
@@ -5989,7 +6250,7 @@ def main():
                          + two_cfg_counts["conv_fp32"] + a2vid_counts["conv_fp32"]
                          + i2v_two_stage["conv_fp32"] + i2v_one_stage["conv_fp32"] + options["conv_fp32"]
                          + prep_counts["conv"] + temporal_counts["conv_fp32"] + sum(kf_fp32.values())
-                         + sum(vp_fp32.values()) + server_counts["conv_fp32"]),
+                         + sum(vp_fp32.values()) + server_counts["conv_fp32"] + sum(fv_fp32.values())),
             "launches_by_path": {"serve_two_stage": upscale_launches,
                                  "serve_two_stage_from_files": file_upscale_launches,
                                  "serve_v2_two_stage_from_files": v2_counts["conv_fp32"],
@@ -6001,7 +6262,9 @@ def main():
                                  "one_stage": i2v_one_stage["conv_fp32"],
                                  "one_stage_options": options["conv_fp32"], "prepare_data": prep_counts["conv"],
                                  "temporal_upscale": temporal_counts["conv_fp32"], **kf_fp32, **vp_fp32,
-                                 "server": server_counts["conv_fp32"]},
+                                 "server": server_counts["conv_fp32"], **fv_fp32},
+            # The strided launches (the full VAE's compress_* convs), counted in "launches" too.
+            "strided_launches_by_path": fv_strided,
             "served_mp4_launches": served_mp4_counts["conv_fp32"],  # counted in "server" too
             "max_abs_err": max(r["max_abs_err"] for r in fp32_recs),
             "ms": fp32_recs[0]["ms"],
@@ -6016,7 +6279,7 @@ def main():
     ], "train": {"timing": timing, "gradcheck": gradcheck,
                   "audio_video": {k: v for k, v in av_train.items() if not k.endswith("_counts")}},
         "bench_e2e": serve, "fp8_step": fp8_step, "checkpoint": checkpoint, "temporal_upscaler": temporal,
-        "keyframe_and_ti2vid_hq": keyframe_hq, "video_paths": video_paths,
+        "keyframe_and_ti2vid_hq": keyframe_hq, "video_paths": video_paths, "full_vae": full_vae, "webp": webp,
         "text_encode": text_encode, "image_to_video": image_to_video,
         "v2": {"files": v2_files, "small_input_check": v2_small,
                "step_ms": {"v2_bf16": fp8_step["v2_bf16"]["device_ms"], "v1_bf16": fp8_step["bf16"]["device_ms"]}},

@@ -1,6 +1,8 @@
-// Implicit-GEMM 3D convolution for Hopper (sm_90a): a stride-1 kT x 3 x 3
-// conv (kT = 3, or 1 for a per-frame 3 x 3 conv) over channels-last
-// (B, T, H, W, Cin) input, 'same' output size, fp32 accumulation, fp32 bias,
+// Implicit-GEMM 3D convolution for Hopper (sm_90a): a kT x 3 x 3 conv (kT =
+// 3, or 1 for a per-frame 3 x 3 conv) over channels-last (B, T, H, W, Cin)
+// input at strides (sT, sH, sW), each 1 or 2: the padded input (see below)
+// sampled on the strided grid, so T_out = (T - 1) / sT + 1 and likewise for
+// H and W ('same' output size at stride 1); fp32 accumulation, fp32 bias,
 // output rounded once to the input's dtype.
 //
 // Replaces the Pallas TPU implicit-GEMM conv3d of
@@ -15,8 +17,15 @@
 // zeros in space and in time (models/upscaler/spatial.py:37-40), with a
 // temporal extent of 1 for the resampler's per-frame conv (:81-100).
 //
-// GEMM view: M = output voxels (B*T*H*W, a tile of consecutive voxels in
-// NDHWC order), N = Cout, K = taps x Cin. Padding is index math in the
+// Strides are the full video VAE's strided causal convs (ltx2_tpu/models/
+// video_vae/conv.py:135-170, full_vae.py:97-105): output voxel (t, h, w)
+// reads padded input (t sT + dt, h sH + dh, w sW + dw). Only the producer's
+// row table knows of them; each kernel is compiled twice, with and without
+// the strided row table, so stride 1 keeps its arithmetic (one instance for
+// both ran the stride-1 cases S4 and S3 2-2.5 % slower on an H100 80GB).
+//
+// GEMM view: M = output voxels (B*T_out*H_out*W_out, a tile of consecutive
+// voxels in NDHWC order), N = Cout, K = taps x Cin. Padding is index math in the
 // gather (reflect i < 0 -> -i, i >= n -> 2n - 2 - i; replicate clamps; zeros
 // is a zero-filled cp.async), so no padded copy of the input is made, unlike
 // the Pallas wrapper's jnp.pad (:126-131); TMA's im2col mode could only pad
@@ -114,9 +123,9 @@
 // Cin); for fp32 also the number of K ranges and, when it is above 1, a
 // (ranges, M, Cout) fp32 workspace. It returns the launch's
 // cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a shape
-// it does not take (kT not 1 or 3, Cin % 16 != 0, Cout % 8 != 0, 2^31
-// output voxels or more, K ranges that leave one empty) or weights TMA
-// cannot address.
+// it does not take (kT not 1 or 3, a stride not 1 or 2, Cin % 16 != 0,
+// Cout % 8 != 0, 2^31 output voxels or more, K ranges that leave one empty)
+// or weights TMA cannot address.
 
 #include "flash_common.cuh"
 #include "sm90_common.cuh"
@@ -130,12 +139,15 @@ struct ConvParams {
   const void* x;      // (B, T, H, W, Cin)
   const void* wgt;    // fp32: the TF32 split (2, kT * 9, Cout, Cin); bf16: (kT, 3, 3, Cout, Cin)
   const float* bias;  // (Cout), or null
-  void* out;          // (B, T, H, W, Cout)
-  int t, h, w, cin, cout, kt;
+  void* out;          // (B, T_out, H_out, W_out, Cout)
+  int t, h, w, cin, cout, kt;  // input dims
+  int to, ho, wo;              // output dims
+  int st, sh, sw;              // strides
+  bool strided;                // any stride above 1: the kernels' kStrided instance
   int t_front;         // frames of temporal padding in front of the clip
   bool spatial_zeros;  // zeros, else reflect
   bool temporal_zeros; // zeros, else replicate
-  int64_t m;           // output voxels
+  int64_t m;           // output voxels, B * T_out * H_out * W_out
 };
 
 // ---------------------------------------------------------------- both kernels
@@ -155,27 +167,47 @@ __device__ __forceinline__ int pad_index(int i, int n, bool zeros) {
 // 128 threads (thread tid: rows tid, tid + 128, ...): for each voxel row,
 // the frame, row and column parts of the input voxel index each tap reads
 // (padding is separable, so 9 entries cover 27 taps), int32 [9][BM]; kPad
-// where the tap reads zeros, and for rows past M.
-template <int BM>
+// where the tap reads zeros, and for rows past M. kStrided: the row's
+// output index is split by the output dims and tap d of an axis reads
+// input o * s + d - pad; without it (every stride 1, the output dims the
+// input's) the stride-1 arithmetic alone is compiled.
+template <int BM, bool kStrided>
 __device__ __forceinline__ void build_row_table(const ConvParams& p, int* s_tab, int64_t m0, int tid) {
   const int hw = p.h * p.w;
   for (int r = tid; r < BM; r += 128) {
     const int64_t m = m0 + r;
     int f[3] = {kPad, kPad, kPad}, hh[3] = {kPad, kPad, kPad}, ww[3] = {kPad, kPad, kPad};
     if (m < p.m) {
-      const int w = static_cast<int>(m % p.w);
-      const int64_t q = m / p.w;
-      const int h = static_cast<int>(q % p.h);
-      const int bt = static_cast<int>(q / p.h);
-      const int t = bt % p.t, bt0 = bt - t;
+      if constexpr (kStrided) {
+        const int w = static_cast<int>(m % p.wo);
+        const int64_t q = m / p.wo;
+        const int h = static_cast<int>(q % p.ho);
+        const int bt = static_cast<int>(q / p.ho);
+        const int t = bt % p.to, b0 = (bt / p.to) * p.t;
 #pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        int ti = t + d - p.t_front;
-        if (ti < 0 || ti >= p.t) ti = p.temporal_zeros ? kPad : (ti < 0 ? 0 : p.t - 1);
-        f[d] = ti == kPad ? kPad : (bt0 + ti) * hw;
-        const int hi = pad_index(h + d - 1, p.h, p.spatial_zeros);
-        hh[d] = hi == kPad ? kPad : hi * p.w;
-        ww[d] = pad_index(w + d - 1, p.w, p.spatial_zeros);
+        for (int d = 0; d < 3; ++d) {
+          int ti = t * p.st + d - p.t_front;
+          if (ti < 0 || ti >= p.t) ti = p.temporal_zeros ? kPad : (ti < 0 ? 0 : p.t - 1);
+          f[d] = ti == kPad ? kPad : (b0 + ti) * hw;
+          const int hi = pad_index(h * p.sh + d - 1, p.h, p.spatial_zeros);
+          hh[d] = hi == kPad ? kPad : hi * p.w;
+          ww[d] = pad_index(w * p.sw + d - 1, p.w, p.spatial_zeros);
+        }
+      } else {
+        const int w = static_cast<int>(m % p.w);
+        const int64_t q = m / p.w;
+        const int h = static_cast<int>(q % p.h);
+        const int bt = static_cast<int>(q / p.h);
+        const int t = bt % p.t, bt0 = bt - t;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          int ti = t + d - p.t_front;
+          if (ti < 0 || ti >= p.t) ti = p.temporal_zeros ? kPad : (ti < 0 ? 0 : p.t - 1);
+          f[d] = ti == kPad ? kPad : (bt0 + ti) * hw;
+          const int hi = pad_index(h + d - 1, p.h, p.spatial_zeros);
+          hh[d] = hi == kPad ? kPad : hi * p.w;
+          ww[d] = pad_index(w + d - 1, p.w, p.spatial_zeros);
+        }
       }
     }
 #pragma unroll
@@ -212,7 +244,7 @@ struct WgTile {
   static_assert(kStage % 1024 == 0, "stages must keep the 1024-byte swizzle alignment");
 };
 
-template <int BM, int BN>
+template <int BM, int BN, bool kStrided>
 __global__ void __launch_bounds__(kWgThreads, 1)
     conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap wmap, const ConvParams p, int m_tiles, int tiles) {
   using L = WgTile<BM, BN>;
@@ -245,7 +277,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       const int64_t m0 = int64_t(tile % m_tiles) * BM;
       const int n0 = (tile / m_tiles) * BN;
       named_barrier_sync(1, 128);  // the previous tile's table is no longer read
-      build_row_table<BM>(p, s_tab, m0, tid);
+      build_row_table<BM, kStrided>(p, s_tab, m0, tid);
       named_barrier_sync(1, 128);
       for (int k = 0; k < n_iter; ++k, ++it) {
         const int tap = k / k_chunks, c0 = (k - tap * k_chunks) * 64;
@@ -380,6 +412,7 @@ struct SplitA {
   uint32_t hi[4][4], lo[4][4];
 };
 
+template <bool kStrided>
 __global__ void __launch_bounds__(kWgThreads, 1)
     conv3d_tf32x3_kernel(const __grid_constant__ CUtensorMap wmap, const ConvParams p, float* ws, int m_tiles,
                          int n_tiles, int splits, int steps) {
@@ -415,7 +448,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       const int64_t m0 = int64_t(piece % m_tiles) * kTBM;
       const int n0 = (piece / m_tiles) % n_tiles * kTBN, k0 = piece / (m_tiles * n_tiles) * steps;
       named_barrier_sync(1, 128);  // the previous piece's table is no longer read
-      build_row_table<kTBM>(p, s_tab, m0, tid);
+      build_row_table<kTBM, kStrided>(p, s_tab, m0, tid);
       named_barrier_sync(1, 128);
       for (int k = k0; k < k0 + steps; ++k, ++it) {
         const bool live = k < n_iter;
@@ -590,8 +623,8 @@ cudaError_t launch_wgmma(const ConvParams& p, cudaStream_t stream) {
   if (!encode_tensor_map_4d(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.wgt, dims, strides, box))
     return cudaErrorInvalidValue;
   constexpr int kSmem = WgTile<BM, BN>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(conv3d_wgmma_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kSmem);
+  const auto kern = p.strided ? conv3d_wgmma_kernel<BM, BN, true> : conv3d_wgmma_kernel<BM, BN, false>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
@@ -599,7 +632,7 @@ cudaError_t launch_wgmma(const ConvParams& p, cudaStream_t stream) {
   const int m_tiles = static_cast<int>((p.m + BM - 1) / BM);
   const int tiles = m_tiles * ((p.cout + BN - 1) / BN);
   // Persistent: one CTA per SM (its shared memory allows no second).
-  conv3d_wgmma_kernel<BM, BN><<<tiles < sms ? tiles : sms, kWgThreads, kSmem, stream>>>(wmap, p, m_tiles, tiles);
+  kern<<<tiles < sms ? tiles : sms, kWgThreads, kSmem, stream>>>(wmap, p, m_tiles, tiles);
   return cudaGetLastError();
 }
 
@@ -622,15 +655,15 @@ cudaError_t launch_tf32x3(const ConvParams& p, int splits, float* ws, cudaStream
   if (!encode_tensor_map_4d(&wmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, p.wgt, dims, strides, box))
     return cudaErrorInvalidValue;
   constexpr int kSmem = Tf32Tile::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(conv3d_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  const auto kern = p.strided ? conv3d_tf32x3_kernel<true> : conv3d_tf32x3_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
   const int m_tiles = static_cast<int>((p.m + kTBM - 1) / kTBM), n_tiles = (p.cout + kTBN - 1) / kTBN;
   const int pieces = m_tiles * n_tiles * splits;
-  conv3d_tf32x3_kernel<<<pieces < sms ? pieces : sms, kWgThreads, kSmem, stream>>>(wmap, p, ws, m_tiles, n_tiles,
-                                                                                   splits, steps);
+  kern<<<pieces < sms ? pieces : sms, kWgThreads, kSmem, stream>>>(wmap, p, ws, m_tiles, n_tiles, splits, steps);
   if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return err;
   const int64_t n4 = p.m * p.cout / 4;
   const int64_t blocks = (n4 + 255) / 256;
@@ -643,9 +676,11 @@ cudaError_t launch_tf32x3(const ConvParams& p, int splits, float* ws, cudaStream
 
 extern "C" int ltx_conv3d_ndhwc(const void* x, const void* w, const void* bias, void* out, void* workspace,
                                 int fp32, int splits, int batch, int t, int h, int w_, int cin, int cout, int kt,
-                                int causal, int spatial_zeros, int temporal_zeros, void* stream) {
+                                int causal, int spatial_zeros, int temporal_zeros, int st, int sh, int sw,
+                                void* stream) {
   if ((kt != 1 && kt != 3) || cin % 16 != 0 || cout % 8 != 0 || batch < 1 || t < 1 || h < 1 || w_ < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (st < 1 || st > 2 || sh < 1 || sh > 2 || sw < 1 || sw > 2) return static_cast<int>(cudaErrorInvalidValue);
   ConvParams p;
   p.x = x;
   p.wgt = w;
@@ -657,11 +692,19 @@ extern "C" int ltx_conv3d_ndhwc(const void* x, const void* w, const void* bias, 
   p.cin = cin;
   p.cout = cout;
   p.kt = kt;
+  p.st = st;
+  p.sh = sh;
+  p.sw = sw;
+  p.strided = st != 1 || sh != 1 || sw != 1;
+  p.to = (t - 1) / st + 1;
+  p.ho = (h - 1) / sh + 1;
+  p.wo = (w_ - 1) / sw + 1;
   p.t_front = causal ? kt - 1 : (kt - 1) / 2;
   p.spatial_zeros = spatial_zeros != 0;
   p.temporal_zeros = temporal_zeros != 0;
-  p.m = int64_t(batch) * t * h * w_;
-  if (p.m >= (int64_t(1) << 31)) return static_cast<int>(cudaErrorInvalidValue);  // int32 voxel indices
+  p.m = int64_t(batch) * p.to * p.ho * p.wo;
+  if (int64_t(batch) * t * h * w_ >= (int64_t(1) << 31))
+    return static_cast<int>(cudaErrorInvalidValue);  // int32 voxel indices
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (fp32) return static_cast<int>(launch_tf32x3(p, splits, static_cast<float*>(workspace), s));
   if (cout <= 48) return static_cast<int>(launch_wgmma<256, 48>(p, s));

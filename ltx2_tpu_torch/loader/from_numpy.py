@@ -27,6 +27,9 @@ from ltx2_tpu_torch.models.upscaler.spatial import SpatialUpscaler, SpatialUpsca
 from ltx2_tpu_torch.models.upscaler.temporal import TemporalUpscaler, TemporalUpscalerConfig
 from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoder, VideoDecoderConfig
 from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoder, VideoEncoderConfig
+from ltx2_tpu_torch.models.video_vae.full_vae import (
+    FullVideoDecoder, FullVideoDecoderConfig, FullVideoEncoder, FullVideoEncoderConfig,
+)
 from ltx2_tpu_torch.training.lora import attach_lora_
 
 
@@ -139,6 +142,28 @@ def video_encoder_from_numpy(tree: Mapping, cfg: VideoEncoderConfig, device=None
     encoder = VideoEncoder(cfg, device=device)
     _load(encoder, flatten_tree(tree))
     return encoder
+
+
+def full_video_encoder_from_numpy(tree: Mapping, cfg: FullVideoEncoderConfig, device=None) -> FullVideoEncoder:
+    """A full video-encoder tree (`conv_in`, `down_blocks.{i}`: a mid block's
+    `res_blocks.{j}`, a ResnetBlock3D, a strided conv or a residual block's
+    `conv`; `conv_norm_out` with group norm, `conv_out`,
+    `per_channel_statistics`) -> FullVideoEncoder on `device`, the card by
+    default."""
+    encoder = FullVideoEncoder(cfg, device=device)
+    _load(encoder, flatten_tree(tree))
+    return encoder
+
+
+def full_video_decoder_from_numpy(tree: Mapping, cfg: FullVideoDecoderConfig, device=None) -> FullVideoDecoder:
+    """A full video-decoder tree (`conv_in`, `up_blocks.{i}`: a mid block's
+    `res_blocks.{j}`, a ResnetBlock3D or a depth-to-space block's `conv`;
+    `conv_norm_out` with group norm, `conv_out`, `last_scale_shift_table`
+    with timestep conditioning, `per_channel_statistics`) -> FullVideoDecoder
+    on `device`, the card by default."""
+    decoder = FullVideoDecoder(cfg, device=device)
+    _load(decoder, flatten_tree(tree))
+    return decoder
 
 
 def spatial_upscaler_from_numpy(tree: Mapping, cfg: SpatialUpscalerConfig, device=None) -> SpatialUpscaler:

@@ -10,8 +10,9 @@ per-frame 3 x 3 (a 4D weight) of the upscaler's resampler. The kernel takes
 output counts that are multiples of 8: a conv with another Cout (the
 encoder's conv_out, 129) runs on its weight and bias padded with zero
 outputs to the next multiple of 8, on every device, and the padding is
-sliced off the output. Not ported (they raise): strides and the W-sharded
-halo exchange.
+sliced off the output. Strides (1 or 2 per axis; the full VAE's strided
+causal convs) run in the same kernels. Not ported (it raises): the
+W-sharded halo exchange, which belongs to scale-out.
 """
 
 from __future__ import annotations
@@ -93,18 +94,22 @@ def conv3d_ndhwc(
     w_halo_axis=None,
 ) -> torch.Tensor:
     """Conv over (B, T, H, W, C) with the JAX package's padding rules and
-    defaults; stride 1, 'same' output size. An fp32 CUDA input goes in with
+    defaults: 'same' output size at stride 1, the padded input sampled on
+    the strided grid otherwise. An fp32 CUDA input goes in with
     the cached TF32 split, the only form of the weight the fp32 kernel
     reads, beside a view of the weight for the wrapper's checks. A Cout
     padded to `kernel_out` is sliced off the output (a view)."""
-    if tuple(stride) != (1, 1, 1) or w_halo_axis is not None:
-        raise NotImplementedError("conv3d_ndhwc: strides and the W-sharded halo exchange are not ported")
+    if w_halo_axis is not None:
+        raise NotImplementedError("conv3d_ndhwc: the W-sharded halo exchange (scale-out) is not ported")
     weight, bias = p.padded()
+    stride = tuple(stride)
     if x.device.type == "cuda" and x.dtype == torch.float32:
         w = kernel_layout(weight.float(), copy=False)
-        out = conv3d(x.contiguous(), w, bias, causal, spatial_mode, temporal_mode, w_split=p.tf32x3_weight())
+        out = conv3d(x.contiguous(), w, bias, causal, spatial_mode, temporal_mode, w_split=p.tf32x3_weight(),
+                     stride=stride)
     else:
-        out = conv3d(x.contiguous(), p.kernel_weight(x.dtype), bias, causal, spatial_mode, temporal_mode)
+        out = conv3d(x.contiguous(), p.kernel_weight(x.dtype), bias, causal, spatial_mode, temporal_mode,
+                     stride=stride)
     cout = p.weight.shape[0]
     return out if out.shape[-1] == cout else out[..., :cout]
 

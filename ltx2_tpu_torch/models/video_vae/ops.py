@@ -1,6 +1,6 @@
 """Video VAE tensor ops (counterpart of ltx2_tpu/models/video_vae/ops.py):
-pixel patchify and un-patchify, pixel norm, and the per-channel latent
-(un-)normalization.
+pixel patchify and un-patchify, the per-frame pixel shuffle and unshuffle,
+pixel norm, and the per-channel latent (un-)normalization.
 
 The channel packing order (c, p, r_w, r_h) of the 5D patchify and
 un-patchify matches the checkpoint's einops pattern and is parity-critical."""
@@ -34,6 +34,22 @@ def unpatchify(x: torch.Tensor, patch_size_hw: int, patch_size_t: int = 1) -> to
     c = c_packed // (p * r * r)
     x = x.reshape(b, c, p, r, r, f, h, w).permute(0, 1, 5, 2, 6, 4, 7, 3)
     return x.reshape(b, c, f * p, h * r, w * r)
+
+
+def pixel_shuffle_3d(x: torch.Tensor, upscale_factor: int) -> torch.Tensor:
+    """(B, C*r^2, F, H, W) -> (B, C, F, H*r, W*r), channels packed (c, r_h, r_w)."""
+    r = upscale_factor
+    b, c_packed, f, h, w = x.shape
+    x = x.reshape(b, c_packed // (r * r), r, r, f, h, w).permute(0, 1, 4, 5, 2, 6, 3)
+    return x.reshape(b, c_packed // (r * r), f, h * r, w * r)
+
+
+def pixel_unshuffle_3d(x: torch.Tensor, downscale_factor: int) -> torch.Tensor:
+    """(B, C, F, H, W) -> (B, C*r^2, F, H/r, W/r), the inverse of `pixel_shuffle_3d`."""
+    r = downscale_factor
+    b, c, f, h, w = x.shape
+    x = x.reshape(b, c, f, h // r, r, w // r, r).permute(0, 1, 4, 6, 2, 3, 5)
+    return x.reshape(b, c * r * r, f, h // r, w // r)
 
 
 def pixel_norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-6) -> torch.Tensor:

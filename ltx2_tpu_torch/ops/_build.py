@@ -43,8 +43,8 @@ KERNEL_FUNCTIONS = {
     # t_q, t_k, head_dim; 19 strides; scale, stream
     "ltx_flash_attention_bwd": ("bwd", [_P] * 11 + [_I] * 5 + [ctypes.POINTER(_I64), ctypes.c_float, _P]),
     # x, w, bias, out, fp32 workspace; fp32 flag, K ranges, batch, t, h, w,
-    # cin, cout, kt, causal, spatial zeros, temporal zeros; stream
-    "ltx_conv3d_ndhwc": ("conv3d", [_P] * 5 + [_I] * 12 + [_P]),
+    # cin, cout, kt, causal, spatial zeros, temporal zeros, sT, sH, sW; stream
+    "ltx_conv3d_ndhwc": ("conv3d", [_P] * 5 + [_I] * 15 + [_P]),
 }
 _libs: Dict[str, ctypes.CDLL] = {}
 

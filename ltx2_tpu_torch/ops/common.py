@@ -156,6 +156,23 @@ def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
     return out.to(x.dtype)
 
 
+def group_norm(x: torch.Tensor, num_groups: int, weight: Optional[torch.Tensor] = None,
+               bias: Optional[torch.Tensor] = None, eps: float = 1e-6) -> torch.Tensor:
+    """GroupNorm over channel axis 1 of (B, C, ...): fp32 statistics (biased
+    variance) over each group's channels and every other non-batch axis,
+    optional affine (C,) weight and bias in fp32, x's dtype out."""
+    b, c = x.shape[:2]
+    xf = x.float().reshape(b, num_groups, -1)
+    var, mean = torch.var_mean(xf, dim=2, keepdim=True, correction=0)
+    out = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    shape = (1, c) + (1,) * (x.ndim - 2)
+    if weight is not None:
+        out = out * weight.float().reshape(shape)
+    if bias is not None:
+        out = out + bias.float().reshape(shape)
+    return out.to(x.dtype)
+
+
 def silu_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """silu(a) * b (the gate of Gemma's MLP)."""
     return F.silu(a) * b

@@ -1,6 +1,6 @@
-"""Stride-1 3D convolution over channels-last (B, T, H, W, C) tensors for the
-H100: the hand-written implicit-GEMM kernels of `csrc/conv3d.cu` and their
-plain PyTorch version.
+"""3D convolution over channels-last (B, T, H, W, C) tensors for the H100:
+the hand-written implicit-GEMM kernels of `csrc/conv3d.cu` and their plain
+PyTorch version.
 
 Counterpart of the Pallas TPU kernels of scripts/bench_conv_pallas.py
 (`conv3d_pallas`, `conv3d_pallas_v2`, `conv3d_pallas_v3`), which compute
@@ -8,7 +8,10 @@ one function: a kT x 3 x 3 conv with 'same' output size, fp32 accumulation
 plus bias, output in x's dtype. Padding: spatial "reflect" (the VAE) or
 "zeros" (the upscalers); temporal "replicate" (kT - 1 frames in front when
 causal, else split around the clip) or "zeros". kT is 3, or 1 for a
-per-frame 3 x 3 conv (the upscaler's resampler).
+per-frame 3 x 3 conv (the upscaler's resampler). Strides (sT, sH, sW), each
+1 or 2, sample the padded input on a strided grid (the full video VAE's
+strided causal convs, ltx2_tpu/models/video_vae/conv.py:135-170): the output
+is (B, (T - 1) // sT + 1, (H - 1) // sH + 1, (W - 1) // sW + 1, Cout).
 
 Weights are taken in the layout (kT, 3, 3, Cin, Cout) (the Pallas wrapper's
 `w_flat`); `kernel_layout` reorders a checkpoint-shaped (Cout, Cin, kT, 3, 3)
@@ -30,11 +33,13 @@ caches it). Both kernels read the weights K-major:
 bf16 or fp32) or raises, for any shape or dtype the kernel does not take.
 The kernel is built from the repository's source with nvcc on first use
 (`ops/_build.py`) and counts its launches in `conv3d_ndhwc_kernel.launches`
-(one a call, the split-K sum included).
+(one a call, the split-K sum included), the strided ones also in
+`conv3d_ndhwc_kernel.strided_launches`.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -126,7 +131,8 @@ def _check_modes(spatial_mode: str, temporal_mode: str) -> None:
         raise ValueError(f"conv3d: temporal_mode {temporal_mode!r} not in {TEMPORAL_MODES}")
 
 
-def _check_shapes(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], spatial_mode: str) -> None:
+def _check_shapes(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], spatial_mode: str,
+                  stride: tuple = (1, 1, 1)) -> None:
     if x.ndim != 5 or w.ndim != 5:
         raise ValueError(f"conv3d: x must be (B, T, H, W, Cin) and w (kT, 3, 3, Cin, Cout), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -138,6 +144,15 @@ def _check_shapes(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], s
         raise ValueError(f"conv3d: bias {tuple(b.shape)} for {cout} outputs")
     if spatial_mode == "reflect" and min(x.shape[2], x.shape[3]) < 2:
         raise ValueError(f"conv3d: reflect padding needs H, W >= 2, got {tuple(x.shape)}")
+    if len(stride) != 3 or any(s not in (1, 2) for s in stride):
+        raise ValueError(f"conv3d: stride {tuple(stride)} must be three of 1 or 2")
+
+
+def out_shape(x_shape: tuple, cout: int, stride: tuple = (1, 1, 1)) -> tuple:
+    """The conv's output shape for input (B, T, H, W, Cin) at `stride`."""
+    b, t, h, w, _ = x_shape
+    st, sh, sw = stride
+    return b, (t - 1) // st + 1, (h - 1) // sh + 1, (w - 1) // sw + 1, cout
 
 
 def _pad(x: torch.Tensor, kt: int, causal: bool, spatial_mode: str, temporal_mode: str) -> torch.Tensor:
@@ -167,22 +182,26 @@ def conv3d_plain(
     causal: bool = False,
     spatial_mode: str = "reflect",
     temporal_mode: str = "replicate",
+    stride: tuple = (1, 1, 1),
 ) -> torch.Tensor:
     """The kernel's contract in plain PyTorch, as the Pallas kernel computes
     it (`conv3d_pallas` with its default group of 9 taps): pad, then for
     each temporal tap the 9 shifted input slabs side by side (an im2col
-    block) times those taps' (9 * Cin, Cout) weights, summed in fp32
+    block; with strides, slabs sampled on the strided grid of the padded
+    input) times those taps' (9 * Cin, Cout) weights, summed in fp32
     (float64 for float64 input), plus bias, cast once to x's dtype.
-    x (B, T, H, W, Cin), w (kT, 3, 3, Cin, Cout) -> (B, T, H, W, Cout)."""
+    x (B, T, H, W, Cin), w (kT, 3, 3, Cin, Cout) -> `out_shape`."""
     _check_modes(spatial_mode, temporal_mode)
-    _check_shapes(x, w, b, spatial_mode)
-    bsz, t, h, wd, cin = x.shape
-    kt, cout = w.shape[0], w.shape[4]
+    _check_shapes(x, w, b, spatial_mode, stride)
+    kt, cin, cout = w.shape[0], w.shape[3], w.shape[4]
+    _, t, h, wd, _ = out_shape(x.shape, cout, stride)
+    st, sh, sw = stride
     acc_dtype = torch.promote_types(x.dtype, torch.float32)
     xp = _pad(x, kt, causal, spatial_mode, temporal_mode)
     out = None
     for dt in range(kt):
-        cols = torch.cat([xp[:, dt:dt + t, dh:dh + h, dw:dw + wd] for dh in range(3) for dw in range(3)], dim=-1)
+        cols = torch.cat([xp[:, dt:dt + (t - 1) * st + 1:st, dh:dh + (h - 1) * sh + 1:sh, dw:dw + (wd - 1) * sw + 1:sw]
+                          for dh in range(3) for dw in range(3)], dim=-1)
         term = cols.to(acc_dtype) @ w[dt].reshape(9 * cin, cout).to(acc_dtype)
         out = term if out is None else out.add_(term)
     if b is not None:
@@ -198,16 +217,18 @@ def conv3d_ndhwc_kernel(
     spatial_mode: str = "reflect",
     temporal_mode: str = "replicate",
     w_split: Optional[torch.Tensor] = None,
+    stride: tuple = (1, 1, 1),
 ) -> torch.Tensor:
     """Launch the implicit-GEMM kernel on CUDA tensors: x (B, T, H, W, Cin)
     contiguous bf16 or fp32, w (kT, 3, 3, Cin, Cout) in x's dtype (for bf16
     read through its K-major transpose; for fp32 through `w_split`, w's
     `tf32x3_split`, made here when not given; see the module note), b (Cout,)
-    any float dtype (added in fp32). Raises for anything the kernel does not
-    take: another device or dtype, Cin % 16 != 0, Cout % 8 != 0, a
-    non-contiguous or misaligned operand."""
+    any float dtype (added in fp32), strides of 1 or 2. Raises for anything
+    the kernel does not take: another device or dtype, Cin % 16 != 0,
+    Cout % 8 != 0, a non-contiguous or misaligned operand."""
     _check_modes(spatial_mode, temporal_mode)
-    _check_shapes(x, w, b, spatial_mode)
+    stride = tuple(stride)
+    _check_shapes(x, w, b, spatial_mode, stride)
     if x.device.type != "cuda" or w.device != x.device or (b is not None and b.device != x.device):
         raise ValueError(f"conv3d kernel: operands must be on one CUDA device, got x on {x.device}, "
                          f"w on {w.device}")
@@ -217,9 +238,10 @@ def conv3d_ndhwc_kernel(
     if cin % 16 or cout % 8:
         raise ValueError(f"conv3d kernel: needs Cin % 16 == 0 and Cout % 8 == 0, got Cin {cin}, Cout {cout}")
     bsz, t, h, wd, _ = x.shape
-    m = bsz * t * h * wd
-    if m >= 2 ** 31:
-        raise ValueError(f"conv3d kernel: too many output voxels for 32-bit voxel indices {tuple(x.shape)}")
+    oshape = out_shape(x.shape, cout, stride)
+    m = math.prod(oshape[:4])
+    if bsz * t * h * wd >= 2 ** 31:
+        raise ValueError(f"conv3d kernel: too many voxels for 32-bit voxel indices {tuple(x.shape)}")
     splits, workspace = 1, None
     if x.dtype == torch.float32:
         if w_split is None:
@@ -239,21 +261,24 @@ def conv3d_ndhwc_kernel(
     if not (x.is_contiguous() and w.is_contiguous()) or x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("conv3d kernel: x and w must be contiguous with 16-byte aligned bases")
     bias = None if b is None else b.to(torch.float32).contiguous()
-    out = torch.empty((bsz, t, h, wd, cout), dtype=x.dtype, device=x.device)
+    out = torch.empty(oshape, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = kernel("ltx_conv3d_ndhwc")(
             x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
             None if workspace is None else workspace.data_ptr(), int(x.dtype == torch.float32), splits,
             bsz, t, h, wd, cin, cout, kt, int(causal), int(spatial_mode == "zeros"), int(temporal_mode == "zeros"),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            *stride, torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"conv3d kernel: launch failed with CUDA error {err}")
     conv3d_ndhwc_kernel.launches += 1
+    if stride != (1, 1, 1):
+        conv3d_ndhwc_kernel.strided_launches += 1
     return out
 
 
 conv3d_ndhwc_kernel.launches = 0
+conv3d_ndhwc_kernel.strided_launches = 0  # the strided ones among `launches`
 
 
 def conv3d(
@@ -264,12 +289,14 @@ def conv3d(
     spatial_mode: str = "reflect",
     temporal_mode: str = "replicate",
     w_split: Optional[torch.Tensor] = None,
+    stride: tuple = (1, 1, 1),
 ) -> torch.Tensor:
     """The conv on x's device: `conv3d_plain` for a CPU tensor (`w_split`
     unused), the kernel for a CUDA tensor (or an error; there is no
     fallback)."""
+    stride = tuple(stride)
     if x.device.type == "cpu":
-        return conv3d_plain(x, w, b, causal, spatial_mode, temporal_mode)
+        return conv3d_plain(x, w, b, causal, spatial_mode, temporal_mode, stride)
     if x.device.type != "cuda":
         raise ValueError(f"conv3d: unsupported device {x.device}")
-    return conv3d_ndhwc_kernel(x, w, b, causal, spatial_mode, temporal_mode, w_split)
+    return conv3d_ndhwc_kernel(x, w, b, causal, spatial_mode, temporal_mode, w_split, stride)

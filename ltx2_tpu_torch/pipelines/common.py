@@ -28,6 +28,7 @@ from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, decode_tiled
 from ltx2_tpu_torch.types import LatentState
 from ltx2_tpu_torch.utils.image_io import read_png, resize_lanczos, sniff
 from ltx2_tpu_torch.utils.jpeg import decode_jpeg
+from ltx2_tpu_torch.utils.webp import read_webp_frames
 
 
 @dataclass
@@ -39,8 +40,9 @@ class ImageCondition:
 
 def read_image(image_path: str) -> np.ndarray:
     """An image file -> uint8 (H, W, 3) RGB, dispatched on its signature:
-    PNG to `read_png`, JPEG to the baseline decoder (`utils/jpeg.py`);
-    anything else (WebP, GIF, BMP, ...) raises a ValueError naming it."""
+    PNG to `read_png`, JPEG to the baseline decoder (`utils/jpeg.py`), WebP
+    to `utils/webp.py` (its first frame, RGB as PIL's `convert("RGB")`);
+    anything else (GIF, BMP, ...) raises a ValueError naming it."""
     if not os.path.exists(image_path):
         raise FileNotFoundError(f"Image not found: {image_path}")
     with open(image_path, "rb") as fh:
@@ -50,8 +52,10 @@ def read_image(image_path: str) -> np.ndarray:
         return read_png(image_path)
     if kind == "JPEG":
         return decode_jpeg(data, image_path)
-    raise ValueError(f"Unsupported image format: {kind} ({image_path}); supported: 8-bit PNG (L, RGB, RGBA) and "
-                     "baseline JPEG")
+    if kind == "WebP":
+        return read_webp_frames(data, 1)[0]
+    raise ValueError(f"Unsupported image format: {kind} ({image_path}); supported: 8-bit PNG (L, RGB, RGBA), "
+                     "baseline JPEG and WebP")
 
 
 def load_image_tensor(image_path: str, height: int, width: int, dtype=torch.float32, device=None,

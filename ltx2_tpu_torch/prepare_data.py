@@ -13,12 +13,12 @@ Pixel sources:
   --pixels clips.npz   array "pixels" (N, 3, F, H, W), float in [-1, 1] or
                        uint8 in [0, 255]; F is trimmed to 8k+1
   --images DIR         stills -> one-frame clips at --height x --width
-                       (8-bit PNG and baseline JPEG, the port's readers)
+                       (8-bit PNG, baseline JPEG and WebP, the port's readers)
   --videos DIR         clips at --height x --width x --num-frames (snapped
-                       to 8k+1): .y4m, MJPEG .avi/.mov/.mp4, .gif, .apng
-                       and .png through the port's readers
-                       (`read_video_any`; .webp raises), others through
-                       OpenCV or ffmpeg when present
+                       to 8k+1): .y4m, MJPEG .avi/.mov/.mp4, .gif, .webp,
+                       .apng and .png through the port's readers
+                       (`read_video_any`), others through OpenCV or ffmpeg
+                       when present
 Context: --embedding emb.npz (its "positive" embedding, attached to every
 clip; generate.py --save-embedding writes one) or --context-dim D (a zero
 context of width D). Weights: --checkpoint (its VAE encoder) or
@@ -55,8 +55,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pixels", type=str, default=None, help=".npz with 'pixels' (N, 3, F, H, W)")
     p.add_argument("--images", type=str, default=None, help="directory of images -> one-frame clips")
     p.add_argument("--videos", type=str, default=None,
-                   help="directory of video clips: .y4m, MJPEG .avi/.mov/.mp4, .gif and .apng decode without "
-                        "ffmpeg (.webp raises); other codecs through OpenCV or ffmpeg when present")
+                   help="directory of video clips: .y4m, MJPEG .avi/.mov/.mp4, .gif, .webp and .apng decode "
+                        "without ffmpeg; other codecs through OpenCV or ffmpeg when present")
     p.add_argument("--num-frames", type=int, default=9, help="frames per clip for --videos (snapped to 8k+1)")
     p.add_argument("--height", type=int, default=512)
     p.add_argument("--width", type=int, default=768)

@@ -47,8 +47,9 @@ frames; a PNG without `acTL` is one frame (`read_png`). `probe_video` /
 `probe_mov` give (fps, frames, height, width); `read_video_any` dispatches
 by suffix and codec, then to OpenCV when it is installed (`read_cv2`,
 optional, as in the JAX package), then to the ffmpeg pipe
-(`pipelines/retake.load_video_frames`). WebP raises NotImplementedError
-naming the ROADMAP item that ports it.
+(`pipelines/retake.load_video_frames`). WebP, still or animated, goes
+through `utils/webp.read_webp_frames` (VP8, VP8L, alpha and animation
+compositing as libwebp's `WebPAnimDecoder`, equal to PIL's frames).
 """
 
 from __future__ import annotations
@@ -71,11 +72,9 @@ import torch
 from ltx2_tpu_torch.utils.gif import decode_gif, gif_info, write_gif
 from ltx2_tpu_torch.utils.image_io import BILINEAR, PNG_SIGNATURE, apng_info, read_apng, read_png, resize
 from ltx2_tpu_torch.utils.jpeg import decode_jpeg, encode_jpegs
+from ltx2_tpu_torch.utils.webp import read_webp_frames, webp_info
 
-NO_WEBP = ("{path}: WebP is not ported to the PyTorch port: its reader (VP8/VP8L) comes with ROADMAP.md's "
-           "\"The WebP reader\" (write .y4m, an MJPEG .avi/.mov/.mp4, a GIF, an APNG or a still PNG/JPEG)")
-# What decodes without ffmpeg, as the JAX package's lists (WebP raises
-# NotImplementedError here).
+# What decodes without ffmpeg, as the JAX package's lists.
 PIL_SUFFIXES = (".gif", ".webp", ".apng", ".png")
 PURE_PYTHON_SUFFIXES = PIL_SUFFIXES + (".y4m", ".avi")
 MOV_SUFFIXES = (".mov", ".mp4", ".m4v")
@@ -648,11 +647,12 @@ def _png_is_animated(path: str) -> bool:
 
 
 def _animation_frames(path: str, max_frames: Optional[int] = None) -> list:
-    """A GIF's or an animated PNG's frames, uint8 (H, W, 3), as PIL gives
-    them; WebP raises NotImplementedError."""
+    """A GIF's, a WebP's or an animated PNG's frames, uint8 (H, W, 3), as PIL
+    gives them."""
     suffix = Path(path).suffix.lower()
     if suffix == ".webp":
-        raise NotImplementedError(NO_WEBP.format(path=path))
+        with open(path, "rb") as fh:
+            return read_webp_frames(fh.read(), max_frames)
     if suffix == ".gif":
         with open(path, "rb") as fh:
             return decode_gif(fh.read(), path, max_frames)
@@ -660,10 +660,9 @@ def _animation_frames(path: str, max_frames: Optional[int] = None) -> list:
 
 
 def read_pil_animation(path: str, height: int, width: int, num_frames: int) -> np.ndarray:
-    """A GIF, an APNG (`.apng`, or a `.png` with `acTL`) or a still PNG ->
-    (1, 3, F, H, W) in [-1, 1], the frames PIL's `ImageSequence` gives
-    (`decode_gif`, `read_apng`, `read_png`); WebP raises
-    NotImplementedError."""
+    """A GIF, a WebP, an APNG (`.apng`, or a `.png` with `acTL`) or a still
+    PNG -> (1, 3, F, H, W) in [-1, 1], the frames PIL's `ImageSequence`
+    gives (`decode_gif`, `read_webp_frames`, `read_apng`, `read_png`)."""
     if Path(path).suffix.lower() == ".png" and not _png_is_animated(path):
         return _pack([read_png(path)], height, width, num_frames)
     frames = _animation_frames(path, num_frames)
@@ -935,8 +934,9 @@ def probe_video(path: str):
     ffmpeg: AVI (its avih header), y4m (its frame records walked, a
     truncated last frame not counted), a still PNG (one frame at 24 fps), a
     GIF or an APNG (PIL's `n_frames`, and 1000 / its first frame's duration,
-    24 without one), .mov/.mp4 (`probe_mov`); WebP raises
-    NotImplementedError, other suffixes ValueError."""
+    24 without one), a WebP (its canvas and frames; 24 fps, as PIL's `info`
+    holds no duration for a WebP before a frame is loaded), .mov/.mp4
+    (`probe_mov`); other suffixes raise ValueError."""
     suffix = Path(path).suffix.lower()
     if suffix == ".avi":
         with open(path, "rb") as fh:
@@ -972,7 +972,9 @@ def probe_video(path: str):
                 w, h = struct.unpack(">II", fh.read(24)[16:24])
             return 24.0, 1, int(h), int(w)
         if suffix == ".webp":
-            raise NotImplementedError(NO_WEBP.format(path=path))
+            with open(path, "rb") as fh:
+                w, h, n, _ = webp_info(fh.read())
+            return 24.0, int(n), int(h), int(w)
         if suffix == ".gif":
             with open(path, "rb") as fh:
                 w, h, n, duration_ms = gif_info(fh.read(), path)
@@ -1063,7 +1065,7 @@ def decodes_pure_python(path: str) -> bool:
 
 def read_video_any(path: str, height: int, width: int, num_frames: int) -> np.ndarray:
     """The reader a file's suffix (and a .mov/.mp4's codec) names: y4m, MJPEG
-    AVI, GIF, APNG, a still PNG (WebP raises), MJPEG mov/mp4; else OpenCV
+    AVI, GIF, WebP, APNG, a still PNG, MJPEG mov/mp4; else OpenCV
     when it is installed, else the ffmpeg pipe."""
     suffix = Path(path).suffix.lower()
     if suffix == ".y4m":

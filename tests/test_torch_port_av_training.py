@@ -487,7 +487,7 @@ def test_prepare_data_matches_jax(source, tmp_path, monkeypatch):
 def test_prepare_data_refusals(tmp_path):
     with pytest.raises(SystemExit):  # a directory without clips
         prepare_data.main(["--videos", str(tmp_path), "--context-dim", "8", "--device", "cpu"])
-    # A GIF under --videos reads as the JAX package reads it; a WebP raises by name.
+    # A GIF and a WebP under --videos read as the JAX package reads them.
     from PIL import Image
 
     from ltx2_tpu.utils import video_io as jvio
@@ -501,9 +501,20 @@ def test_prepare_data_refusals(tmp_path):
         ["--videos", str(gifs), "--height", "32", "--width", "32", "--num-frames", "9"]))
     assert len(clips) == 1
     np.testing.assert_array_equal(clips[0], jvio.read_video_any(str(gifs / "anim.gif"), 32, 32, 9))
-    images[0].save(tmp_path / "anim.webp", save_all=True, append_images=images[1:], duration=40)
-    with pytest.raises(NotImplementedError, match="The WebP reader"):
-        prepare_data.main(["--videos", str(tmp_path), "--context-dim", "8", "--device", "cpu"])
+    webps = tmp_path / "webps"
+    webps.mkdir()
+    images[0].save(webps / "anim.webp", save_all=True, append_images=images[1:], duration=40)
+    clips = prepare_data.load_clips(prepare_data.build_parser().parse_args(
+        ["--videos", str(webps), "--height", "32", "--width", "32", "--num-frames", "9"]))
+    assert len(clips) == 1
+    np.testing.assert_array_equal(clips[0], jvio.read_video_any(str(webps / "anim.webp"), 32, 32, 9))
+    # --images takes a WebP still as the JAX package's PIL path reads it.
+    stills = tmp_path / "stills"
+    stills.mkdir()
+    images[1].save(stills / "still.webp", quality=80)
+    clips = prepare_data.load_clips(prepare_data.build_parser().parse_args(
+        ["--images", str(stills), "--height", "32", "--width", "32"]))
+    assert len(clips) == 1 and clips[0].shape[2] == 1
     with pytest.raises(SystemExit):
         prepare_data.main(["--context-dim", "8", "--device", "cpu"])
 

@@ -104,8 +104,10 @@ def test_boundaries_raise():
     x = torch.zeros(1, 2, 4, 4, 16)
     p = conv.Conv3d(16, 8)
     torch.nn.init.zeros_(p.weight)
-    with pytest.raises(NotImplementedError):
-        conv.conv3d_ndhwc(p, x, stride=(1, 2, 2))
+    with pytest.raises(NotImplementedError, match="halo"):
+        conv.conv3d_ndhwc(p, x, w_halo_axis="w")
+    with pytest.raises(ValueError, match="stride"):
+        conv.conv3d_ndhwc(p, x, stride=(1, 3, 2))
     with pytest.raises(ValueError, match="spatial_mode"):
         conv.conv3d_ndhwc(p, x, spatial_mode="replicate")
     with pytest.raises(ValueError, match="reflect padding needs"):

@@ -1,5 +1,5 @@
 """The port's CUDA kernels (flash attention forward and backward, the
-implicit-GEMM conv, also at the video encoder's shapes) against their plain
+implicit-GEMM conv, also at the video encoder's shapes and strided) against their plain
 PyTorch versions (the backward also at head dim 64 on the audio-video
 training shapes), the fp32 text encoder (Gemma-3 at full width, 2 layers,
 and the V1 encoder; also with Gemma in fp8), the fp32 video encoder (a
@@ -271,6 +271,48 @@ def test_encoder_conv_shapes_match_plain_on_gpu():
         assert err.abs().max() <= 1e-5 * ref64.abs().max(), shape
     with pytest.raises(ValueError, match="Cout % 8"):  # the kernel itself still refuses 129
         C.conv3d(x, C.kernel_layout(torch.zeros(129, 1024, 3, 3, 3, device="cuda")))
+
+
+@pytest.mark.gpu
+def test_strided_conv_kernel_matches_plain_on_gpu():
+    """Both conv kernels at strides (1, 2, 2), (2, 1, 1) and (2, 2, 2) on
+    ragged causal shapes (odd T, H and W: the causal front pad of 2 frames
+    meets sT = 2 there), reflect and zero padding, against the plain
+    version (bf16 max 1e-2 and rms 5e-3 relative, fp32 against float64 rms
+    2e-6 and max 1e-5), one launch each, the output (T - 1) // s + 1 long
+    on each axis; a stride of 3 raises."""
+    _need_card()
+    from ltx2_tpu_torch.ops import conv3d as C
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = [
+        ((1, 9, 17, 23, 64), 64, (2, 2, 2), True, "zeros", "replicate"),
+        ((2, 5, 13, 11, 32), 48, (1, 2, 2), True, "reflect", "replicate"),
+        ((1, 7, 9, 15, 128), 256, (2, 1, 1), True, "zeros", "replicate"),
+        ((1, 4, 6, 7, 48), 136, (2, 2, 2), False, "reflect", "zeros"),
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, cout, stride, causal, sm, tm in cases:
+            x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            w = (torch.randn(3, 3, 3, shape[-1], cout, device="cuda", generator=gen) * 0.05).to(dtype)
+            b = torch.randn(cout, device="cuda", generator=gen)
+            before = C.conv3d_ndhwc_kernel.launches
+            out = C.conv3d(x, w, b, causal, sm, tm, stride=stride)
+            assert C.conv3d_ndhwc_kernel.launches == before + 1
+            want = C.out_shape(shape, cout, stride)
+            assert out.shape == want == (shape[0], *((n - 1) // s + 1 for n, s in zip(shape[1:4], stride)), cout)
+            if dtype == torch.bfloat16:
+                ref = C.conv3d_plain(x, w, b, causal, sm, tm, stride).float()
+                err = out.float() - ref
+                assert err.abs().max() <= 1e-2 * ref.abs().max(), (shape, stride)
+                assert err.square().mean().sqrt() <= 5e-3 * ref.square().mean().sqrt(), (shape, stride)
+            else:
+                ref64 = C.conv3d_plain(x.double(), w.double(), b.double(), causal, sm, tm, stride)
+                err = out.double() - ref64
+                assert err.square().mean().sqrt() <= 2e-6 * ref64.square().mean().sqrt(), (shape, stride)
+                assert err.abs().max() <= 1e-5 * ref64.abs().max(), (shape, stride)
+    with pytest.raises(ValueError, match="stride"):
+        C.conv3d(x, w, b, stride=(3, 1, 1))
 
 
 @pytest.mark.gpu

@@ -16,8 +16,8 @@ initial noise:
   override, GE, Heun, the cross-attention scale, text-KV caching) through
   the pipeline against the JAX package's, the latent to 1e-4; STG on the
   audio stream raises ValueError on this video-only pipeline, and each
-  unported option (meshes, prepare_data --videos on a WebP, the training
-  mesh flags) raises NotImplementedError naming itself;
+  unported option (meshes, the VAE conv's W-sharded halo exchange, the
+  training mesh flags) raises NotImplementedError naming itself;
 - `generate.main(["--pipeline", "one-stage", "--image", ...])` from a tiny
   checkpoint against `generate_videos_one_stage` on the same ledger, and
   `--pipeline text-to-video`; with `--token-shift` its config and sigmas
@@ -52,7 +52,7 @@ from ltx2_tpu.pipelines.one_stage import OneStagePipeline as JOneStagePipeline
 from ltx2_tpu.pipelines.text_to_video import TextToVideoConfig as JTextToVideoConfig
 from ltx2_tpu.pipelines.text_to_video import TextToVideoPipeline as JTextToVideoPipeline
 from ltx2_tpu.types import VideoLatentShape as JShape
-from ltx2_tpu_torch import generate, prepare_data, train
+from ltx2_tpu_torch import generate, train
 from ltx2_tpu_torch.components import schedulers
 from ltx2_tpu_torch.components.guiders import CFGStarRescalingGuider, LtxAPGGuider, StatefulAPGGuider
 from ltx2_tpu_torch.components.noisers import GaussianNoiser
@@ -209,21 +209,19 @@ def test_text_to_video_matches_jax(weights):
     assert OneStageCFGConfig(height=480, width=704, num_frames=97).effective_tiling() is not None  # 13x15x22 > 4000
 
 
-def _webp_directory() -> str:
-    """A directory holding one WebP, which prepare_data --videos refuses."""
-    import tempfile
+def _halo_conv():
+    """The video VAE's conv with its W dimension sharded (the halo exchange
+    of scale-out), which prepare_data's encoder would need across cards."""
+    from ltx2_tpu_torch.models.video_vae.conv import Conv3d, conv3d_ndhwc
 
-    from PIL import Image
-
-    directory = tempfile.mkdtemp(prefix="ltx2_webp_")
-    Image.new("RGB", (8, 8), (10, 20, 30)).save(os.path.join(directory, "anim.webp"))
-    return directory
+    p = Conv3d(16, 8, device="cpu")
+    torch.nn.init.zeros_(p.weight)
+    return conv3d_ndhwc(p, torch.zeros(1, 2, 4, 4, 16), w_halo_axis="w")
 
 
 # option -> (a word its message must name, the call that must refuse it)
 UNPORTED = {
-    "prepare_data_videos": ("The WebP reader", lambda p, c, x: prepare_data.main(
-        ["--videos", _webp_directory(), "--context-dim", "8", "--device", "cpu"])),
+    "prepare_data_videos": ("scale-out", lambda p, c, x: _halo_conv()),
     "train_mesh_flags": ("one device", lambda p, c, x: train.main(
         ["--placeholder", "--device", "cpu", "--synthetic", "1", "2", "2", "--zero1"])),
     "meshes": ("meshes", lambda p, c, x: OneStagePipeline(p.transformer, sequence_mesh=object())),

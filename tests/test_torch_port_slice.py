@@ -95,6 +95,10 @@ def _imports(path: Path):
 def test_port_imports_no_jax():
     files = sorted((ROOT / "ltx2_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    # The full VAE and the WebP reader are in the scan.
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {"ltx2_tpu_torch/models/video_vae/resnet.py", "ltx2_tpu_torch/models/video_vae/full_vae.py",
+            "ltx2_tpu_torch/utils/webp.py", "ltx2_tpu_torch/utils/vp8.py", "ltx2_tpu_torch/utils/vp8l.py"} <= names
     bad = [
         (str(f.relative_to(ROOT)), mod) for f in files for mod in _imports(f)
         if mod.split(".")[0] in ("jax", "jaxlib", "ltx2_tpu", "ml_dtypes", "PIL", "transformers", "tokenizers",

@@ -201,8 +201,8 @@ def test_dispatch_and_formats_that_raise(tmp_path):
     _same(vio.read_video_any(y4m, 24, 32, 3), jvio.read_video_any(y4m, 24, 32, 3))
     assert vio.PURE_PYTHON_SUFFIXES == jvio.PURE_PYTHON_SUFFIXES and vio.PIL_SUFFIXES == jvio.PIL_SUFFIXES
     images = [Image.fromarray(f) for f in frames]
-    # GIF and APNG (.apng, and a .png with acTL) read and probe as the JAX
-    # package's PIL path does; WebP raises by name.
+    # GIF, WebP and APNG (.apng, and a .png with acTL) read and probe as the
+    # JAX package's PIL path does.
     for name in ("anim.gif", "anim.apng", "anim2.png"):
         path = str(tmp_path / name)
         images[0].save(path, format="GIF" if name.endswith(".gif") else "PNG", save_all=True,
@@ -212,9 +212,9 @@ def test_dispatch_and_formats_that_raise(tmp_path):
         assert vio.probe_video(path) == jvio.probe_video(path)
     webp = str(tmp_path / "anim.webp")
     images[0].save(webp, format="WEBP", save_all=True, append_images=images[1:], duration=40)
-    for call in (lambda: vio.read_video_any(webp, 16, 24, 3), lambda: vio.probe_video(webp)):
-        with pytest.raises(NotImplementedError, match="WebP.*The WebP reader"):
-            call()
+    _same(vio.read_video_any(webp, 16, 24, 3), jvio.read_video_any(webp, 16, 24, 3))
+    _same(vio.read_video_any(webp, 24, 32, 5), jvio.read_video_any(webp, 24, 32, 5))
+    assert vio.probe_video(webp) == jvio.probe_video(webp)
     with pytest.raises(ValueError, match="no pure-Python probe"):
         vio.probe_video(str(tmp_path / "a.mkv"))
 
@@ -241,8 +241,9 @@ def test_load_image_tensor_jpeg_matches_jax(tmp_path, size):
     np.testing.assert_array_equal(read_image(path), np.asarray(Image.open(path).convert("RGB")))
     webp = str(tmp_path / "still.webp")
     Image.fromarray(_frames(1, 16, 16, seed=12)[0]).save(webp)
-    with pytest.raises(ValueError, match="WebP"):
-        read_image(webp)
+    np.testing.assert_array_equal(read_image(webp), np.asarray(Image.open(webp).convert("RGB")))
+    np.testing.assert_array_equal(load_image_tensor(webp, *size).numpy(),
+                                  np.asarray(jcommon.load_image_tensor(webp, *size)))
 
 
 def test_committed_fixture():

@@ -11,7 +11,12 @@ port against these recorded hashes).
 - `apng_96x144x9.apng`: the same frames with an alpha channel (a
   transparent stripe, a half-transparent block), saved by PIL as an APNG
   with dispose_op 0, 1, 2 and blend_op 0, 1 cycling over the frames.
-- `media_io.json`: the SHA-256 of PIL's decoded frames of both files, of
+- the WebP fixtures (`WEBPS`), written by PIL from the same frames: a
+  lossy still at 256x384 (the frames' recipe at that size), a lossless
+  still with alpha, a lossy animation with alpha and a lossless animation
+  at 96x144x9.
+- `media_io.json`: the SHA-256 of PIL's decoded frames of both files (and
+  of each WebP fixture's frames, under "webp"), of
   PIL's JPEGs (quality 92) of the committed AVI's 9 decoded frames, of the
   JAX package's `.avi`, `.mp4` and `.mov` of those frames with
   `fixture_audio()`, and of OpenCV's Canny (LANCZOS4 to 256x384, BGR2GRAY,
@@ -33,6 +38,13 @@ AVI = FIXTURES / "pattern_288x432x9.avi"
 GIF = FIXTURES / "gif_96x144x9.gif"
 APNG = FIXTURES / "apng_96x144x9.apng"
 MEDIA_JSON = FIXTURES / "media_io.json"
+# name -> (PIL's save options, still or animated, with alpha)
+WEBPS = {
+    "webp_lossy_256x384.webp": ({"quality": 80, "method": 4}, False, False),
+    "webp_lossless_alpha_96x144.webp": ({"lossless": True, "quality": 60, "exact": True}, False, True),
+    "webp_lossy_alpha_96x144x9.webp": ({"quality": 75, "duration": 40, "loop": 0}, True, True),
+    "webp_lossless_96x144x9.webp": ({"lossless": True, "quality": 50, "duration": 40, "loop": 0}, True, False),
+}
 CANNY_SIZE = (256, 384)  # stage 1's size at 512x768
 CANNY_THRESHOLDS = ((20, 60), (100, 200))
 CONTROL_FRAMES = 121
@@ -77,6 +89,19 @@ def write_apng_fixture(path) -> None:
     images = [Image.fromarray(f, "RGBA") for f in anim_frames()]
     images[0].save(path, format="PNG", save_all=True, append_images=images[1:], duration=[40, 50] * 4 + [40],
                    loop=0, disposal=[0, 1, 2] * 3, blend=[0, 1] * 4 + [1])
+
+
+def write_webp_fixture(path) -> None:
+    """The WebP fixture `path.name` of WEBPS, written by PIL."""
+    from PIL import Image
+
+    options, animated, alpha = WEBPS[Path(path).name]
+    frames = anim_frames(height=256, width=384)[:1] if "256x384" in Path(path).name else anim_frames()
+    images = [Image.fromarray(f if alpha else f[..., :3], "RGBA" if alpha else "RGB") for f in frames]
+    if animated:
+        images[0].save(path, format="WEBP", save_all=True, append_images=images[1:], **options)
+    else:
+        images[1 if len(images) > 1 else 0].save(path, format="WEBP", **options)
 
 
 def pil_frames(path) -> np.ndarray:
@@ -158,7 +183,12 @@ def media_hashes(tmp_dir) -> dict:
            "avi_frames_sha256": sha256(frames),
            "jpeg_q92_sha256": [hashlib.sha256(pil_jpeg(f)).hexdigest() for f in frames],
            "audio": {"rate": 24000, "shape": list(audio.shape), "sha256_float32": sha256(audio)},
-           "writers": {}, "canny": {}}
+           "writers": {}, "canny": {}, "webp": {}}
+    for name in WEBPS:
+        path = FIXTURES / name
+        pil = pil_frames(path)
+        rec["webp"][name] = {"sha256_file": file_sha256(path), "sha256_pil_frames_uint8": sha256(pil),
+                             "frames": len(pil), "height": pil.shape[1], "width": pil.shape[2]}
     for suffix in ("avi", "mp4", "mov"):
         for with_audio in (False, True):
             path = tmp_dir / f"w.{suffix}"
