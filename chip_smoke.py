@@ -506,23 +506,60 @@ def _device_ms(fn, iters: int) -> dict:
     return out
 
 
+def _events_and_host_ms(fn, iters: int) -> tuple:
+    """(device ms per call between CUDA events, host ms per call to enqueue
+    it) over `iters` calls of fn after a warm-up call. Where the host's
+    time reaches the events', the events time the host, not the kernel."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, host_ms
+
+
 def _kernel_ms(fn, kernel_name: str, iters: int, events_fn=None) -> tuple:
     """(device ms per call of the kernels named `kernel_name`, how it was
-    timed, the profile by kernel) over `iters` calls of fn. The profiler
-    may record no device event at all, or only some of a call's kernels
-    (CUPTI is shared with whatever else traces the card; seen on the
-    backward's pass): after three passes without the kernel the time comes
-    from CUDA events around `events_fn` (default fn), which must launch
-    little but the kernel. That the kernel launched is the callers' check
-    (their wrappers' launch counts and outputs), not the profile's."""
+    timed, the profile by kernel, CUDA events' ms per call) over `iters`
+    calls of fn. The kernel is timed both ways: by CUDA events around
+    `events_fn` (default fn), which must launch little but the kernel, and
+    by the profiler. A profiler reading over twice the events time, or
+    under half of it where the events time the card and not the host (the
+    host's enqueue time under half the events'), is refused: a partial
+    capture once read the backward at 0.656 ms against 3.670 ms by events.
+    Up to three profiler passes are taken; if none agrees with the events,
+    the phase fails. The profiler may record no device event at all (CUPTI
+    is shared with whatever else traces the card): after three passes
+    without the kernel the time is the events'. That the kernel launched is
+    the callers' check (their wrappers' launch counts and outputs), not the
+    profile's."""
+    events_ms, host_ms = _events_and_host_ms(events_fn or fn, iters)
+    card_bound = host_ms < 0.5 * events_ms
+    refused = []
     for _ in range(3):
         by_kernel = _device_ms(fn, iters)
         ms = sum(ms_ for n, (ms_, _) in by_kernel.items() if kernel_name in n)
-        if ms:
-            return ms, "profiler", by_kernel
-        log(f"profiler pass without {kernel_name}: {sorted(by_kernel)[:4]}")
+        if not ms:
+            log(f"profiler pass without {kernel_name}: {sorted(by_kernel)[:4]}")
+            continue
+        log(f"{kernel_name}: profiler {ms:.4f} ms, CUDA events {events_ms:.4f} ms, host {host_ms:.4f} ms a call"
+            f"{'' if card_bound else ' (host-bound: the events time the host)'}")
+        if ms > 2.0 * events_ms or (card_bound and ms < 0.5 * events_ms):
+            refused.append(ms)
+            continue
+        return ms, "profiler", by_kernel, events_ms
+    if refused:
+        raise AssertionError(f"{kernel_name}: the profiler read {refused} ms against {events_ms:.4f} ms by CUDA "
+                             f"events: more than 2x apart in every pass")
     log(f"{kernel_name} timed with CUDA events")
-    return _time_ms(events_fn or fn, iters), "cuda_events", {}
+    return events_ms, "cuda_events", {}, events_ms
 
 
 def _mismatch(out, ref, dtype=None) -> dict:
@@ -588,8 +625,8 @@ def _check_case(name, b, h, t_q, t_k, d, n_valid, gen, bucket=False):
     ms = _time_ms(lambda: flash_attention(qh, kh, vh, scale, kv_valid), 20)
     # The wrapper launches the kernel alone (and allocates the output), so
     # CUDA events can stand in for the profiler.
-    kernel_ms, kernel_timed_by, _ = _kernel_ms(lambda: flash_attention(qh, kh, vh, scale, kv_valid),
-                                               "flash_fwd_kernel", 10)
+    kernel_ms, kernel_timed_by, _, kernel_events = _kernel_ms(
+        lambda: flash_attention(qh, kh, vh, scale, kv_valid), "flash_fwd_kernel", 10)
     plain_ms = _time_ms(lambda: flash_attention_plain(qh, kh, vh, scale, kv_valid), 3)
     qc, kc, vc = (x.contiguous() for x in (qh, kh, vh))
     lib_mask = None if kv_valid is None else kv_valid[:, None, None, :]
@@ -605,8 +642,9 @@ def _check_case(name, b, h, t_q, t_k, d, n_valid, gen, bucket=False):
         "case": name, "shape": [b, h, t_q, t_k, d], "valid_keys": keys, **{k: m[k] for k in m if k != "finite"},
         "tol_max_rel": TOL_MAX_REL, "tol_rms_rel": TOL_RMS_REL,
         "planted_rms_rel": {k: p["rms_rel_err"] for k, p in planted.items()},
-        "ms": ms, "kernel_ms": kernel_ms, "kernel_timed_by": kernel_timed_by, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, "tflops": flops / ms / 1e9,
+        "ms": ms, "kernel_ms": kernel_ms, "kernel_timed_by": kernel_timed_by, "kernel_events_ms": kernel_events,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "tflops": flops / ms / 1e9,
         "kernel_tflops": flops / kernel_ms / 1e9,
     }
     log(f"kernel check {name}: {json.dumps(rec)}")
@@ -737,6 +775,14 @@ CONV_CASES = (
     ("full_time_s211_bf16", (1, 17, 32, 48, 256), 256, 3, "bfloat16", True, "zeros", "replicate", (2, 1, 1)),
     ("full_all_s222_bf16", (1, 9, 32, 48, 512), 512, 3, "bfloat16", True, "zeros", "replicate", (2, 2, 2)),
     ("full_ragged_s222_bf16", (1, 17, 63, 95, 128), 128, 3, "bfloat16", True, "reflect", "replicate", (2, 2, 2)),
+    # The W-valid mode (a W-sharded decode's rank, its halo columns in
+    # place): the decoder's S4 conv split over 2 ranks (96 output columns
+    # of 192, 98 in), bf16; and the decoder's first stage of the 512x768
+    # clip split over 2 (12 of 24 latent columns, 14 in) in fp32, the
+    # JAX package's decoder dtype.
+    ("S4_w_valid_half", (1, 121, 128, 98, 128), 128, 3, "bfloat16", False, "reflect", "replicate", (1, 1, 1), True),
+    ("S1_w_valid_half_fp32", (1, 16, 16, 14, 1024), 1024, 3, "float32", False, "reflect", "replicate", (1, 1, 1),
+     True),
 )
 # The spatial upscaler's convs in one two-stage clip (all fp32): the
 # initial conv, 8 res convs before and 8 after the resampler, the final.
@@ -749,7 +795,8 @@ TOL_UPSCALER_CONV_TIME = 0.10  # the cases' times x launches against a traced up
 F64_FRAMES = 16  # the float64 check's output frames on a long causal clip
 
 
-def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal_mode, gen, stride=(1, 1, 1)):
+def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal_mode, gen, stride=(1, 1, 1),
+               w_valid=False):
     import torch
     import torch.nn.functional as F
 
@@ -761,14 +808,14 @@ def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal
     dev, dtype = torch.device("cuda"), getattr(torch, dtype_name)
     fp32 = dtype == torch.float32
     b, t, h, w, cin = shape
-    voxels_out = math.prod(out_shape(shape, cout, stride)[:4])
+    voxels_out = math.prod(out_shape(shape, cout, stride, w_valid)[:4])
     bound_w = (cin * kt * 9) ** -0.5  # the models' init: U(+-1/sqrt(fan_in))
     x = torch.randn(shape, device=dev, generator=gen).to(dtype)
     weight = ((torch.rand(cout, cin, kt, 3, 3, device=dev, generator=gen) * 2 - 1) * bound_w).to(dtype)
     bias = (torch.rand(cout, device=dev, generator=gen) * 2 - 1) * bound_w
     wk = kernel_layout(weight, k_major=not fp32)  # bf16: the order the kernel reads, as cached
     args = (causal, spatial_mode, temporal_mode)
-    kw = {"stride": stride}
+    kw = {"stride": stride, "w_valid": w_valid}
     if cout % 8:
         # A Cout the kernel does not take runs through the module, which pads
         # its weight and bias with zero outputs and slices them off.
@@ -779,7 +826,7 @@ def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal
         split = module.tf32x3_weight() if fp32 else None
 
         def call():
-            return conv3d_ndhwc(module, x, *args, **kw)
+            return conv3d_ndhwc(module, x, *args, stride=stride)
     else:
         split = tf32x3_split(wk) if fp32 else None  # fp32: the TF32 parts the module caches
 
@@ -828,18 +875,18 @@ def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal
     # on an NVIDIA H100 80GB HBM3 (700 W) the mean of three read the 1024 ->
     # 1024 fp32 case at 2.83-3.12 ms while CUDA events read 2.77-2.84 in the
     # same runs, enough to throw the upscaler comparison below past 10 %.
-    kernel_ms, kernel_timed_by, _ = _kernel_ms(call, kernel_name, 10)
+    kernel_ms, kernel_timed_by, _, kernel_events = _kernel_ms(call, kernel_name, 10)
     plain_ms = _time_ms(lambda: conv3d_plain(x, wk, bias, *args, **kw), 2)
     # Library yardstick, never called by the port: cuDNN's conv3d in the same
     # dtype (TF32 off), on the NCDHW view of the channels-last input. Zero
     # padding is its own; reflect/replicate padding is applied beforehand and
     # not timed.
     if spatial_mode == "zeros" and temporal_mode == "zeros":
-        lib_in, lib_pad = x.permute(0, 4, 1, 2, 3), ((kt - 1) // 2, 1, 1)
+        lib_in, lib_pad = x.permute(0, 4, 1, 2, 3), ((kt - 1) // 2, 1, 0 if w_valid else 1)
     else:
         from ltx2_tpu_torch.ops.conv3d import _pad
 
-        lib_in, lib_pad = _pad(x, kt, causal, spatial_mode, temporal_mode).permute(0, 4, 1, 2, 3), 0
+        lib_in, lib_pad = _pad(x, kt, causal, spatial_mode, temporal_mode, w_valid).permute(0, 4, 1, 2, 3), 0
     lib_b = bias.to(dtype)
     library_ms = _time_ms(lambda: F.conv3d(lib_in, weight, lib_b, padding=lib_pad, stride=stride), 10)
     del lib_in
@@ -852,14 +899,14 @@ def _conv_case(name, shape, cout, kt, dtype_name, causal, spatial_mode, temporal
     tol = CONV_TOL[dtype_name]
     rec = {
         "case": name, "shape": list(shape), "cout": cout, "kt": kt, "stride": list(stride), "dtype": dtype_name,
-        "causal": causal,
+        "causal": causal, "w_valid": w_valid,
         "spatial_mode": spatial_mode, "temporal_mode": temporal_mode,
         **{k: m[k] for k in m if k != "finite"}, "tol_max_rel": tol[0], "tol_rms_rel": tol[1],
         "planted_rms_rel": {k: p["rms_rel_err"] for k, p in planted.items()},
         "kernel": "conv3d_tf32x3_kernel" if fp32 else "conv3d_wgmma_kernel", "kernel_cout": -(-cout // 8) * 8,
         "tile": [128, 128] if fp32 else list(wgmma_tile(cout)),
-        "ms": ms, "kernel_ms": kernel_ms, "kernel_timed_by": kernel_timed_by, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": bound_ms,
+        "ms": ms, "kernel_ms": kernel_ms, "kernel_timed_by": kernel_timed_by, "kernel_events_ms": kernel_events,
+        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if op_s >= nbytes / PEAK_BYTES_PER_S else "bytes",
         "tflops": flops / ms / 1e9, "library_tflops": flops / library_ms / 1e9,
     }
@@ -899,13 +946,15 @@ def phase_conv_kernels():
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     before, before_strided = conv3d_ndhwc_kernel.launches, conv3d_ndhwc_kernel.strided_launches
+    before_w_valid = conv3d_ndhwc_kernel.w_valid_launches
     recs = []
     for case in CONV_CASES:
         t0 = time.perf_counter()
         recs.append(_conv_case(*case[:8], gen, *case[8:]))
         recs[-1]["case_s"] = time.perf_counter() - t0  # the check, its float64 and its timings
     log(f"conv kernel checks: {sum(r['case_s'] for r in recs):.1f} s, the strided ones "
-        f"{sum(r['case_s'] for r in recs if r['stride'] != [1, 1, 1]):.1f} s")
+        f"{sum(r['case_s'] for r in recs if r['stride'] != [1, 1, 1]):.1f} s, the W-valid ones "
+        f"{sum(r['case_s'] for r in recs if r['w_valid']):.1f} s")
     # A shape the kernel does not take raises on the card; nothing falls back.
     from ltx2_tpu_torch.ops.conv3d import conv3d
 
@@ -918,6 +967,7 @@ def phase_conv_kernels():
         raise AssertionError("conv3d accepted Cin = 24 on the card")
     conv3d_ndhwc_kernel.launches = before  # comparison launches are not the main path's
     conv3d_ndhwc_kernel.strided_launches = before_strided
+    conv3d_ndhwc_kernel.w_valid_launches = before_w_valid
     return recs
 
 
@@ -1032,7 +1082,7 @@ def _bwd_case(name, b, h, t_q, t_k, d, n_valid, gen):
     # zeroing, the dQ conversion and Di, from one profiled pass (CUDA events
     # around the wrapper, Di computed beforehand, if the profiler sees none).
     di = (o.float() * do).sum(dim=-1).contiguous()
-    kernel_ms, kernel_timed_by, by_kernel = _kernel_ms(
+    kernel_ms, kernel_timed_by, by_kernel, kernel_events = _kernel_ms(
         lambda: A.flash_attention_bwd(q, k, v, o, l, m, do, scale, kv_valid), "flash_bwd_kernel", 5,
         lambda: A.flash_attention_bwd_kernel(q, k, v, do, l, m, di, scale, kv_valid))
     del di
@@ -1066,6 +1116,7 @@ def _bwd_case(name, b, h, t_q, t_k, d, n_valid, gen):
         "tol_max_rel": TOL_BWD_MAX_REL, "tol_rms_rel": TOL_BWD_RMS_REL, "tol_residuals_rel": TOL_RES_REL,
         "planted_rms_rel": {k_: p["rms_rel_err"] for k_, p in planted.items()},
         "bwd_ms": bwd_ms, "kernel_ms": kernel_ms, "kernel_timed_by": kernel_timed_by,
+        "kernel_events_ms": kernel_events,
         "device_ms_by_kernel": {n[:80]: v_[0] for n, v_ in by_kernel.items()},
         "plain_ms": plain_ms, "library_ms": library_ms, "library_kernels": library_kernels,
         "bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -2374,8 +2425,8 @@ def _plain_kernels():
 
     kernel_flash, kernel_conv = A.flash_attention, vae_conv.conv3d
     A.flash_attention = lambda q, k, v, scale=None, kv_valid=None: A.flash_attention_plain(q, k, v, scale, kv_valid)
-    vae_conv.conv3d = lambda x, w, b, causal, sm, tm, w_split=None, stride=(1, 1, 1): conv3d_plain(
-        x, w, b, causal, sm, tm, stride)
+    vae_conv.conv3d = lambda x, w, b, causal, sm, tm, w_split=None, stride=(1, 1, 1), w_valid=False: conv3d_plain(
+        x, w, b, causal, sm, tm, stride, w_valid)
     try:
         yield
     finally:
@@ -6013,6 +6064,366 @@ def phase_video_paths(smi: str) -> tuple:
                  "ic_lora_canny": ic_canny_counts, "av_mjpeg": av_mjpeg_counts, "prepare_data_videos": prep_counts}
 
 
+# ---------------------------------------------------------------- scale-out
+# The serving half of scale-out (ltx2_tpu_torch/parallel/) on the card:
+# SCALE_OUT_WORLD ranks in processes of their own (parallel.runtime.
+# spawn_ranks), all on the one card over gloo (the ring's CUDA payloads
+# staged through pinned host buffers), or over nccl with a card per rank
+# where the machine has as many.
+SCALE_OUT_WORLD = 2
+SCALE_OUT_SEED = 5
+SCALE_OUT_TIMEOUT_S = 900  # the ranks' join; a collective waits at most PG_TIMEOUT_S
+SCALE_OUT_PG_TIMEOUT_S = 600
+# Ring attention at 1x32x6144^2x128 against the single-card K1 output and
+# the plain version: the ring merges bf16 block outputs in fp32, so the
+# flash cases' limits (TOL_MAX_REL, TOL_RMS_REL) hold it.
+RING_SHAPE = (1, 32, 6144, 128)
+# The SP-2 distilled clip against world 1 on the same seed: both run every
+# op in bf16 on the kernels; the ring changes the order of each
+# self-attention's sums, which 11 DiT steps, the upscaler and the decoder
+# carry (limits of the small two-stage check: latents rms 1 %, frames 2
+# levels on average; the maximum is recorded).
+TOL_SP_LATENT_RMS_REL = 1e-2
+TOL_SP_MEAN_LEVELS = 2.0
+# The TP-2 DiT step at 6144 tokens against world 1: each row-parallel
+# product summed over the ranks in fp32, then rounded once.
+TOL_TP_X0_RMS_REL = 1e-2
+# The W-sharded decode against the unsharded one: the W-valid kernel sums
+# each output in the order the padded kernel does; the tile-parallel
+# decode blends the same tiles in the JAX package's order.
+TOL_W_DECODE_MAX_ABS = 1e-2
+TOL_TILES_DECODE_MAX_ABS = 1e-4
+SO_DECODE_LATENT = (1, 128, 5, 16, 24)  # 33 x 512 x 768 pixels: the untiled W-sharded decode
+SO_TILED_LATENT = (1, 128, 16, 16, 24)  # the 512x768x121 clip's latent: 6 tiles of the default tiling
+
+
+def _so_counts() -> dict:
+    from ltx2_tpu_torch.ops import attention as A
+    from ltx2_tpu_torch.ops.conv3d import conv3d_ndhwc_kernel as K
+
+    return {"fwd": A.flash_attention.launches, "residuals": A.flash_attention_residuals.launches,
+            "conv": K.launches, "conv_w_valid": K.w_valid_launches}
+
+
+def _so_delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _so_counts().items()}
+
+
+def _so_ring(rank: int, world: int, mesh) -> dict:
+    """ring_sdpa at RING_SHAPE on every rank; rank 0 holds it to the
+    single-card K1 output and the plain version."""
+    import torch
+
+    from ltx2_tpu_torch.ops import attention as A
+    from ltx2_tpu_torch.parallel import collectives
+    from ltx2_tpu_torch.parallel.ring_attention import ring_sdpa
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(SCALE_OUT_SEED)
+    q, k, v = (torch.randn(RING_SHAPE, device=dev, generator=gen).to(torch.bfloat16) for _ in range(3))
+    before = _so_counts()
+    collectives.reset_stats()
+    out = ring_sdpa(q, k, v, mesh)
+    launches = _so_delta(before)
+    bytes_one = dict(sent=collectives.STATS["bytes_sent"], received=collectives.STATS["bytes_received"],
+                     routes=dict(collectives.STATS["routes"]))
+    if launches["residuals"] != world:
+        raise AssertionError(f"rank {rank}: K2 launched {launches['residuals']} times in one ring call, not {world}")
+    ms = _time_ms(lambda: ring_sdpa(q, k, v, mesh), 3)
+    rec = {"launches_per_call": launches, "bytes_per_call": bytes_one, "ms": ms}
+    if rank == 0:
+        ref = A.flash_attention(q, k, v)
+        plain = torch.cat([A.flash_attention_plain(q[:, h:h + 8], k[:, h:h + 8], v[:, h:h + 8])
+                           for h in range(0, RING_SHAPE[1], 8)], dim=1)
+        rec["vs_k1"], rec["vs_plain"] = _mismatch(out, ref), _mismatch(out, plain)
+        rec["k1_ms"] = _time_ms(lambda: A.flash_attention(q, k, v), 3)
+        for what in ("vs_k1", "vs_plain"):
+            if not _accepted(rec[what]):
+                raise AssertionError(f"ring attention {what}: {rec[what]} outside {TOL_MAX_REL}, {TOL_RMS_REL}")
+    return rec
+
+
+def _so_clip(dit, mesh=None, skip_decode: bool = False):
+    """The distilled clip at SCALE_OUT_SEED through the entry point, on the
+    sequence mesh `mesh` (None: world 1): its frames, or with `skip_decode`
+    its stage-2 latent, and its stats."""
+    from ltx2_tpu_torch.generate import generate_videos_distilled
+
+    out, stats = generate_videos_distilled([SCALE_OUT_SEED], height=HEIGHT, width=WIDTH, frames=FRAMES,
+                                           layers=LAYERS, device="cuda", dit=dit, skip_decode=skip_decode,
+                                           meshes=None if mesh is None else {"sequence_mesh": mesh})
+    return out[0], stats[0]
+
+
+def _so_sp_clip(rank: int, mesh, dit) -> dict:
+    """The SP distilled clip, decoded, with its launches, seconds, peak
+    memory and exchanges; then its stage-2 latent (a second run, which
+    skips the decode). Rank 0 keeps the frames and the latent."""
+    import torch
+
+    from ltx2_tpu_torch.parallel import collectives
+
+    torch.cuda.reset_peak_memory_stats()
+    collectives.reset_stats()
+    before = _so_counts()
+    t0 = time.perf_counter()
+    frames, stats = _so_clip(dit, mesh)
+    rec = {"stats": stats, "seconds": time.perf_counter() - t0, "launches": _so_delta(before),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "bytes_sent": collectives.STATS["bytes_sent"],
+           "bytes_received": collectives.STATS["bytes_received"], "calls": dict(collectives.STATS["calls"]),
+           "routes": dict(collectives.STATS["routes"])}
+    t0 = time.perf_counter()
+    latent, _ = _so_clip(dit, mesh, skip_decode=True)
+    rec["latent_run_s"] = time.perf_counter() - t0
+    if rank == 0:
+        rec["frames"], rec["latent"] = frames, latent
+    return rec
+
+
+def _so_tp_step(rank: int, mesh, dit) -> dict:
+    """One x0 step at 6144 tokens: world 1 on rank 0 on the whole DiT, then
+    the DiT made each rank's TP shard and the step again."""
+    import torch
+
+    from ltx2_tpu_torch.loader.fp8 import weight_bytes
+    from ltx2_tpu_torch.parallel import collectives
+    from ltx2_tpu_torch.parallel.sharding import shard_dit_params
+
+    ref = _x0(dit, SCALE_OUT_SEED) if rank == 0 else None
+    shard_dit_params(mesh, dit)
+    torch.cuda.empty_cache()
+    weights_gb = weight_bytes(dit) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    collectives.reset_stats()
+    t0 = time.perf_counter()
+    x0 = _x0(dit, SCALE_OUT_SEED)
+    torch.cuda.synchronize()
+    rec = {"seconds": time.perf_counter() - t0, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "resident_weights_gb": weights_gb, "bytes_sent": collectives.STATS["bytes_sent"],
+           "bytes_received": collectives.STATS["bytes_received"]}
+    if rank == 0:
+        rec["vs_world_1"] = _mismatch(x0, ref)
+        if not rec["vs_world_1"]["finite"] or rec["vs_world_1"]["rms_rel_err"] > TOL_TP_X0_RMS_REL:
+            raise AssertionError(f"TP x0 against world 1: {rec['vs_world_1']} outside rms {TOL_TP_X0_RMS_REL}")
+    return rec
+
+
+def _so_decodes(rank: int, world: int) -> dict:
+    """The W-sharded decode and the tile-parallel decode over every rank
+    (the bf16 decoder, no decode noise); rank 0 holds each to the unsharded
+    decode."""
+    import torch
+
+    from ltx2_tpu_torch.generate import make_decoder
+    from ltx2_tpu_torch.models.video_vae.decoder import video_decoder_apply
+    from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, decode_tiled, decode_w_sharded
+    from ltx2_tpu_torch.parallel import collectives
+    from ltx2_tpu_torch.parallel.mesh import create_mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    decoder = make_decoder("bfloat16", dev)
+    mesh = create_mesh(data=world, model=1)
+    gen = torch.Generator(device=dev).manual_seed(SCALE_OUT_SEED + 1)
+    latent = torch.randn(SO_DECODE_LATENT, device=dev, generator=gen)
+    tiled = torch.randn(SO_TILED_LATENT, device=dev, generator=gen)
+
+    def apply(z, timestep=0.05):
+        return video_decoder_apply(decoder, z, timestep=timestep)
+
+    rec = {}
+    with torch.no_grad():
+        for name, call in (("w_sharded", lambda: decode_w_sharded(latent, decoder, mesh)),
+                           ("tile_parallel", lambda: decode_tiled(tiled, apply, TilingConfig.default(), mesh=mesh))):
+            collectives.reset_stats()
+            torch.cuda.reset_peak_memory_stats()
+            before = _so_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            rec[name] = {"seconds": time.perf_counter() - t0, "launches": _so_delta(before),
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                         "bytes_sent": collectives.STATS["bytes_sent"], "routes": dict(collectives.STATS["routes"])}
+            if rank == 0:
+                t0 = time.perf_counter()
+                ref = apply(latent) if name == "w_sharded" else decode_tiled(tiled, apply, TilingConfig.default())
+                torch.cuda.synchronize()
+                rec[name]["unsharded_seconds"] = time.perf_counter() - t0
+                diff = (out.float() - ref.float()).abs()
+                rec[name].update(max_abs=float(diff.max()), rms=float(diff.square().mean().sqrt()),
+                                 bitwise=bool(torch.equal(out, ref)))
+                tol = TOL_W_DECODE_MAX_ABS if name == "w_sharded" else TOL_TILES_DECODE_MAX_ABS
+                if not bool(torch.isfinite(out).all()) or rec[name]["max_abs"] > tol:
+                    raise AssertionError(f"{name} decode against the unsharded one: {rec[name]} outside {tol}")
+                del ref
+            del out
+            torch.cuda.empty_cache()
+    if rec["w_sharded"]["launches"]["conv_w_valid"] == 0:
+        raise AssertionError(f"rank {rank}: the W-sharded decode launched no W-valid conv")
+    return rec
+
+
+def _residuals_case(smi: str) -> dict:
+    """K2 alone at the ring's block shape on 2 ranks (3072 queries x 3072
+    keys of RING_SHAPE): its outputs, l and m against the plain version,
+    its time by the profiler and by CUDA events, the plain version's and
+    SDPA's (the library yardstick: the output alone), and its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from ltx2_tpu_torch.ops import attention as A
+
+    b, h, t, d = RING_SHAPE
+    t //= SCALE_OUT_WORLD
+    gen = torch.Generator(device="cuda").manual_seed(SCALE_OUT_SEED + 2)
+    q, k, v = (torch.randn(b, h, t, d, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
+    before = A.flash_attention.launches, A.flash_attention_residuals.launches
+    o, l, m = A.flash_attention_residuals(q, k, v)
+    o_ref, l_ref, m_ref = A.flash_attention_residuals_plain(q, k, v)
+    err = {"o": _mismatch(o, o_ref), "l": _mismatch(l, l_ref), "m": _mismatch(m, m_ref)}
+    if not _accepted(err["o"]) or any(err[x]["max_rel_err"] > TOL_RES_REL for x in ("l", "m")):
+        raise AssertionError(f"K2 at the ring's block shape against its plain version: {err}")
+    call = lambda: A.flash_attention_residuals(q, k, v)  # noqa: E731
+    ms = _time_ms(call, 10)
+    kernel_ms, timed_by, _, events_ms = _kernel_ms(call, "flash_fwd_kernel", 10)
+    plain_ms = _time_ms(lambda: A.flash_attention_residuals_plain(q, k, v), 2)
+    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)
+    flops = 4.0 * b * h * t * t * d
+    nbytes = 2.0 * 4 * b * h * t * d + 2 * 4.0 * b * h * t
+    bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+    A.flash_attention.launches, A.flash_attention_residuals.launches = before  # comparison launches
+    rec = {"case": "ring_block", "shape": [b, h, t, t, d], "max_abs_err": err["o"]["max_abs_err"],
+           "errors": {x: {y: e[y] for y in ("max_rel_err", "rms_rel_err")} for x, e in err.items()},
+           "ms": ms, "kernel_ms": kernel_ms, "kernel_timed_by": timed_by, "kernel_events_ms": events_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES_PER_S else "bytes"}
+    log(f"K2 check ring_block: {json.dumps(rec)} | {smi}")
+    del q, k, v, o, l, m, o_ref, l_ref, m_ref
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _scale_out_rank(rank: int, world: int) -> dict:
+    """One rank of phase_scale_out (under parallel.runtime.spawn_ranks): the
+    ring check, the SP clip, the TP step and the decodes."""
+    import torch
+
+    from ltx2_tpu_torch.generate import make_dit
+    from ltx2_tpu_torch.parallel.mesh import create_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seq = create_mesh(data=1, model=1, seq=world)
+    tp = create_mesh(data=1, model=world)
+    rec = {"device": str(torch.cuda.current_device())}
+    t0 = time.perf_counter()
+    rec["ring"] = _so_ring(rank, world, seq)
+    rec["ring"]["check_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dit = make_dit(LAYERS, torch.device("cuda"), fp8=True)
+    rec["dit_init_s"] = time.perf_counter() - t0
+    rec["sp_clip"] = _so_sp_clip(rank, seq, dit)
+    t0 = time.perf_counter()
+    rec["tp_step"] = _so_tp_step(rank, tp, dit)
+    rec["tp_step"]["check_s"] = time.perf_counter() - t0
+    del dit
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec["decodes"] = _so_decodes(rank, world)
+    rec["decodes"]["check_s"] = time.perf_counter() - t0
+    return rec
+
+
+def phase_scale_out(smi: str) -> tuple:
+    """Sequence and tensor parallelism for serving, on the card, through the
+    port's entry points: the world-1 SP reference clip here, then
+    SCALE_OUT_WORLD ranks over gloo on the one card (over nccl too when the
+    machine has a card per rank): ring attention at 1x32x6144^2x128 (K2
+    twice per call per rank, held to K1 and the plain version), the SP-2
+    distilled clip (48 fp8 blocks, stage 1 at 1536 tokens, stage 2 at 6144)
+    against world 1, its frames and its stage-2 latent, a TP-2 step at 6144
+    tokens against world 1 with each rank's peak memory, and the W-sharded
+    and tile-parallel decodes against the unsharded one. Returns (record,
+    the ranks' main-path counts)."""
+    import datetime
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ltx2_tpu_torch.generate import make_dit
+    from ltx2_tpu_torch.parallel.runtime import spawn_ranks
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    k2 = _residuals_case(smi)
+    t0 = time.perf_counter()
+    dit = make_dit(LAYERS, torch.device("cuda"), fp8=True)
+    ref_frames, _ = _so_clip(dit)
+    world1_s = time.perf_counter() - t0
+    ref_latent, _ = _so_clip(dit, skip_decode=True)
+    del dit
+    gc.collect()
+    torch.cuda.empty_cache()
+    routes = [("gloo", SCALE_OUT_WORLD)]
+    if torch.cuda.device_count() >= SCALE_OUT_WORLD:
+        routes.append(("nccl", SCALE_OUT_WORLD))
+    record, counts = {"world_1_clip_s": world1_s, "k2_case": k2, "routes": {}}, {}
+    for backend, world in routes:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="ltx_scale_out_") as directory:
+            ranks = spawn_ranks(_scale_out_rank, world, directory, backend=backend, device="cuda",
+                                timeout=SCALE_OUT_TIMEOUT_S,
+                                collective_timeout=datetime.timedelta(seconds=SCALE_OUT_PG_TIMEOUT_S))
+        wall = time.perf_counter() - t0
+        r0 = ranks[0]
+        frames, latent = r0["sp_clip"].pop("frames"), r0["sp_clip"].pop("latent")
+        levels = _frame_diff(frames, ref_frames)
+        latent_err = _mismatch(torch.from_numpy(latent), torch.from_numpy(ref_latent))
+        sp = {"frames_vs_world_1": levels, "latent_vs_world_1": latent_err, "tol_mean_levels": TOL_SP_MEAN_LEVELS,
+              "tol_latent_rms_rel": TOL_SP_LATENT_RMS_REL}
+        if frames.shape != ref_frames.shape or not np.isfinite(frames).all() \
+                or levels["mean_levels"] > TOL_SP_MEAN_LEVELS:
+            raise AssertionError(f"SP-{world} clip over {backend} against world 1: {levels} (mean limit "
+                                 f"{TOL_SP_MEAN_LEVELS})")
+        if latent.shape != ref_latent.shape or not latent_err["finite"] \
+                or latent_err["rms_rel_err"] > TOL_SP_LATENT_RMS_REL:
+            raise AssertionError(f"SP-{world} stage-2 latent over {backend} against world 1: {latent_err} (rms "
+                                 f"limit {TOL_SP_LATENT_RMS_REL})")
+        per_rank = [{k: r[k] for k in ("ring", "sp_clip", "tp_step", "decodes", "dit_init_s")} for r in ranks]
+        for i, r in enumerate(per_rank):
+            log(f"scale-out rank {i} over {backend}: ring {r['ring']['ms']:.2f} ms a call ({r['ring']['bytes_per_call']}"
+                f"), SP clip {r['sp_clip']['seconds']:.1f} s (peak {r['sp_clip']['peak_gb']:.1f} GB, sent "
+                f"{r['sp_clip']['bytes_sent'] / 1e9:.2f} GB, launches {r['sp_clip']['launches']}), TP step "
+                f"{r['tp_step']['seconds']:.2f} s (peak {r['tp_step']['peak_gb']:.1f} GB, weights "
+                f"{r['tp_step']['resident_weights_gb']:.1f} GB, sent {r['tp_step']['bytes_sent'] / 1e9:.2f} GB), "
+                f"W-sharded decode {r['decodes']['w_sharded']['seconds']:.1f} s (W-valid convs "
+                f"{r['decodes']['w_sharded']['launches']['conv_w_valid']}), tile-parallel decode "
+                f"{r['decodes']['tile_parallel']['seconds']:.1f} s | {smi}")
+        record["routes"][backend] = {
+            "world": world, "wall_s": wall, "sp_clip": sp,
+            "ring_vs_k1": r0["ring"]["vs_k1"], "ring_vs_plain": r0["ring"]["vs_plain"],
+            "ring_k1_ms": r0["ring"]["k1_ms"], "tp_x0_vs_world_1": r0["tp_step"]["vs_world_1"],
+            "w_sharded_vs_unsharded": {k: r0["decodes"]["w_sharded"][k] for k in ("max_abs", "rms", "bitwise")},
+            "tile_parallel_vs_unsharded": {k: r0["decodes"]["tile_parallel"][k]
+                                           for k in ("max_abs", "rms", "bitwise")},
+            "per_rank": per_rank,
+        }
+        log(f"scale-out over {backend} ({world} ranks on {torch.cuda.device_count()} card(s)): "
+            f"{json.dumps({k: v for k, v in record['routes'][backend].items() if k != 'per_rank'})} | {smi}")
+        # The path's counts, summed over the ranks: the SP clip (K1, K2 and
+        # the decode's convs) and the W-sharded decode (the W-valid convs).
+        counts[backend] = {k: sum(r["sp_clip"]["launches"][k] + r["decodes"]["w_sharded"]["launches"][k]
+                                  + r["decodes"]["tile_parallel"]["launches"][k] for r in per_rank)
+                           for k in ("fwd", "residuals", "conv", "conv_w_valid")}
+    record["seconds"] = time.perf_counter() - t_phase
+    log(f"scale-out phase: {record['seconds']:.1f} s, launches on its paths {json.dumps(counts)} | {smi}")
+    for backend, c in counts.items():
+        if not (c["fwd"] and c["residuals"] and c["conv_w_valid"]):
+            raise AssertionError(f"scale-out over {backend}: a kernel of the path never launched: {c}")
+    return record, counts
+
+
 def main():
     from pathlib import Path
 
@@ -6077,6 +6488,9 @@ def main():
     full_vae, fv_counts = phase_full_vae(smi)
     torch.cuda.empty_cache()
     webp = phase_webp(smi)
+    torch.cuda.empty_cache()
+    scale_out, so_counts = phase_scale_out(smi)
+    torch.cuda.empty_cache()
     bwd = phase_bwd_kernels()
     model, train_counts = phase_train_steps(smi)
     timing = phase_train_timing(model, smi)
@@ -6096,6 +6510,7 @@ def main():
 
     self_rec, self_bwd = recs[0], bwd[0]
     bf16_recs = [r for r in conv_recs if r["dtype"] == "bfloat16"]
+    w_valid_recs = [r for r in conv_recs if r["w_valid"]]  # the bf16 one first
     fp32_recs = [r for r in conv_recs if r["dtype"] == "float32"]  # "upscaler" first
     upscale_launches = sum(s["upscale_conv_launches"] for s in two_stage_stats)
     file_upscale_launches = sum(s["upscale_conv_launches"] for s in file_stats)
@@ -6128,7 +6543,8 @@ def main():
                          + i2v_two_stage["fwd"] + i2v_one_stage["fwd"] + options["fwd"] + train_counts["fwd"]
                          + sum(c["fwd"] for c in av_paths.values()) + audio_only_counts["fwd"]
                          + int8_counts["fwd"] + temporal_counts["fwd"] + sum(c["fwd"] for c in kf_counts.values())
-                         + sum(c["fwd"] for c in vp_counts.values()) + server_counts["fwd"]),
+                         + sum(c["fwd"] for c in vp_counts.values()) + server_counts["fwd"]
+                         + sum(c["fwd"] for c in so_counts.values())),
             "launches_by_path": {"serve": serve_counts["fwd"], "serve_two_stage": two_stage_counts["fwd"],
                                  "serve_two_stage_from_files": file_counts["fwd"],
                                  "serve_v2_two_stage_from_files": v2_counts["fwd"],
@@ -6141,7 +6557,8 @@ def main():
                                  "audio_only": audio_only_counts["fwd"], "serve_int8": int8_counts["fwd"],
                                  "temporal_upscale": temporal_counts["fwd"],
                                  **{k: c["fwd"] for k, c in kf_counts.items()},
-                                 **{k: c["fwd"] for k, c in vp_counts.items()}, "server": server_counts["fwd"]},
+                                 **{k: c["fwd"] for k, c in vp_counts.items()}, "server": server_counts["fwd"],
+                                 **{f"scale_out_{b}": c["fwd"] for b, c in so_counts.items()}},
             # The served .mp4 request (no ffmpeg: MJPEG .mp4, GIF, npz), counted in "server" too.
             "served_mp4_launches": served_mp4_counts["fwd"],
             # ic-lora's stage 1 over its 1536 tokens and the control's 1536
@@ -6195,7 +6612,8 @@ def main():
             "launches_by_head_dim": {"train": train_counts["bwd_by_head_dim"],
                                      **{k: c["bwd_by_head_dim"] for k, c in av_paths.items()}},
             "max_abs_err": max(r["max_abs_err_grads"] for r in bwd),
-            "ms": self_bwd["kernel_ms"],
+            "ms": self_bwd["kernel_events_ms"],
+            "kernel_ms": self_bwd["kernel_ms"],
             "whole_bwd_ms": self_bwd["bwd_ms"],
             "plain_ms": self_bwd["plain_ms"],
             "bound_ms": self_bwd["bound_ms"],
@@ -6276,10 +6694,47 @@ def main():
             "upscaler_conv_time": upscaler_conv,
             "cases": fp32_recs,
         },
+        {
+            "name": "flash_attention_residuals",
+            "route": "cuda",
+            "source": "ltx2_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "ltx2_tpu/parallel/ring_attention.py:165 (_flash_impl_residuals)",
+            # The ring's inner on the scale-out path (counted in flash_attention_fwd's launches too).
+            "launches": sum(c["residuals"] for c in so_counts.values()),
+            "launches_by_path": {f"scale_out_{b}": c["residuals"] for b, c in so_counts.items()},
+            "max_abs_err": max(scale_out["k2_case"]["max_abs_err"],
+                               *(r["ring_vs_plain"]["max_abs_err"] for r in scale_out["routes"].values())),
+            "ms": scale_out["k2_case"]["ms"],
+            "kernel_ms": scale_out["k2_case"]["kernel_ms"],
+            "kernel_events_ms": scale_out["k2_case"]["kernel_events_ms"],
+            "plain_ms": scale_out["k2_case"]["plain_ms"],
+            "bound_ms": scale_out["k2_case"]["bound_ms"],
+            "bound_by": scale_out["k2_case"]["bound_by"],
+            "library_ms": scale_out["k2_case"]["library_ms"],
+            "cases": [scale_out["k2_case"]],
+        },
+        {
+            "name": "conv3d_w_valid",
+            "route": "cuda",
+            "source": "ltx2_tpu_torch/csrc/conv3d.cu",
+            "kernel": "conv3d_wgmma_kernel and conv3d_tf32x3_kernel in their W-valid mode (the kStrided instances)",
+            "replaces": conv_replaces + "; the W halo of ltx2_tpu/models/video_vae/conv.py:34-84,110-127",
+            "launches": sum(c["conv_w_valid"] for c in so_counts.values()),
+            "launches_by_path": {f"scale_out_{b}": c["conv_w_valid"] for b, c in so_counts.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in w_valid_recs),
+            "ms": w_valid_recs[0]["ms"],
+            "kernel_ms": w_valid_recs[0]["kernel_ms"],
+            "plain_ms": w_valid_recs[0]["plain_ms"],
+            "bound_ms": w_valid_recs[0]["bound_ms"],
+            "bound_by": w_valid_recs[0]["bound_by"],
+            "library_ms": w_valid_recs[0]["library_ms"],
+            "cases": w_valid_recs,
+        },
     ], "train": {"timing": timing, "gradcheck": gradcheck,
                   "audio_video": {k: v for k, v in av_train.items() if not k.endswith("_counts")}},
         "bench_e2e": serve, "fp8_step": fp8_step, "checkpoint": checkpoint, "temporal_upscaler": temporal,
         "keyframe_and_ti2vid_hq": keyframe_hq, "video_paths": video_paths, "full_vae": full_vae, "webp": webp,
+        "scale_out": scale_out,
         "text_encode": text_encode, "image_to_video": image_to_video,
         "v2": {"files": v2_files, "small_input_check": v2_small,
                "step_ms": {"v2_bf16": fp8_step["v2_bf16"]["device_ms"], "v1_bf16": fp8_step["bf16"]["device_ms"]}},

@@ -121,11 +121,12 @@
 // C interface, for ctypes: ltx_conv3d_ndhwc takes the weights K-major: for
 // fp32 the TF32 split (2, kT * 9, Cout, Cin), for bf16 (kT, 3, 3, Cout,
 // Cin); for fp32 also the number of K ranges and, when it is above 1, a
-// (ranges, M, Cout) fp32 workspace. It returns the launch's
+// (ranges, M, Cout) fp32 workspace; and a W-valid flag (the input's W holds
+// its halo: W_out = W - 2, no W padding). It returns the launch's
 // cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for a shape
 // it does not take (kT not 1 or 3, a stride not 1 or 2, Cin % 16 != 0,
-// Cout % 8 != 0, 2^31 output voxels or more, K ranges that leave one empty)
-// or weights TMA cannot address.
+// Cout % 8 != 0, 2^31 output voxels or more, K ranges that leave one empty,
+// W-valid with a W stride or under 3 columns) or weights TMA cannot address.
 
 #include "flash_common.cuh"
 #include "sm90_common.cuh"
@@ -143,7 +144,8 @@ struct ConvParams {
   int t, h, w, cin, cout, kt;  // input dims
   int to, ho, wo;              // output dims
   int st, sh, sw;              // strides
-  bool strided;                // any stride above 1: the kernels' kStrided instance
+  bool strided;                // any stride above 1, or w_valid: the kernels' kStrided instance
+  bool w_valid;                // W-valid: x arrives with its W halo (2 columns wider), W is not padded
   int t_front;         // frames of temporal padding in front of the clip
   bool spatial_zeros;  // zeros, else reflect
   bool temporal_zeros; // zeros, else replicate
@@ -170,7 +172,10 @@ __device__ __forceinline__ int pad_index(int i, int n, bool zeros) {
 // where the tap reads zeros, and for rows past M. kStrided: the row's
 // output index is split by the output dims and tap d of an axis reads
 // input o * s + d - pad; without it (every stride 1, the output dims the
-// input's) the stride-1 arithmetic alone is compiled.
+// input's) the stride-1 arithmetic alone is compiled. W-valid (a W-sharded
+// rank's input, its halo columns already in place, parallel/ W-sharded
+// decode) runs in the kStrided instance: tap d of W reads input column
+// o + d, never padding, while T and H keep their rules.
 template <int BM, bool kStrided>
 __device__ __forceinline__ void build_row_table(const ConvParams& p, int* s_tab, int64_t m0, int tid) {
   const int hw = p.h * p.w;
@@ -191,7 +196,7 @@ __device__ __forceinline__ void build_row_table(const ConvParams& p, int* s_tab,
           f[d] = ti == kPad ? kPad : (b0 + ti) * hw;
           const int hi = pad_index(h * p.sh + d - 1, p.h, p.spatial_zeros);
           hh[d] = hi == kPad ? kPad : hi * p.w;
-          ww[d] = pad_index(w * p.sw + d - 1, p.w, p.spatial_zeros);
+          ww[d] = p.w_valid ? w * p.sw + d : pad_index(w * p.sw + d - 1, p.w, p.spatial_zeros);
         }
       } else {
         const int w = static_cast<int>(m % p.w);
@@ -677,10 +682,11 @@ cudaError_t launch_tf32x3(const ConvParams& p, int splits, float* ws, cudaStream
 extern "C" int ltx_conv3d_ndhwc(const void* x, const void* w, const void* bias, void* out, void* workspace,
                                 int fp32, int splits, int batch, int t, int h, int w_, int cin, int cout, int kt,
                                 int causal, int spatial_zeros, int temporal_zeros, int st, int sh, int sw,
-                                void* stream) {
+                                int w_valid, void* stream) {
   if ((kt != 1 && kt != 3) || cin % 16 != 0 || cout % 8 != 0 || batch < 1 || t < 1 || h < 1 || w_ < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (st < 1 || st > 2 || sh < 1 || sh > 2 || sw < 1 || sw > 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (w_valid && (sw != 1 || w_ < 3)) return static_cast<int>(cudaErrorInvalidValue);
   ConvParams p;
   p.x = x;
   p.wgt = w;
@@ -695,10 +701,11 @@ extern "C" int ltx_conv3d_ndhwc(const void* x, const void* w, const void* bias, 
   p.st = st;
   p.sh = sh;
   p.sw = sw;
-  p.strided = st != 1 || sh != 1 || sw != 1;
+  p.w_valid = w_valid != 0;
+  p.strided = st != 1 || sh != 1 || sw != 1 || p.w_valid;
   p.to = (t - 1) / st + 1;
   p.ho = (h - 1) / sh + 1;
-  p.wo = (w_ - 1) / sw + 1;
+  p.wo = p.w_valid ? w_ - 2 : (w_ - 1) / sw + 1;
   p.t_front = causal ? kt - 1 : (kt - 1) / 2;
   p.spatial_zeros = spatial_zeros != 0;
   p.temporal_zeros = temporal_zeros != 0;

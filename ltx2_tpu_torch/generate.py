@@ -161,6 +161,18 @@ resident models, so each module is released when its phase is over; the
 server (`python -m ltx2_tpu_torch.serve`) keeps the launch's modules
 resident (`ResidentModels`) and runs one `execute_request` a request.
 
+Scale-out (`distilled`, `one-stage`, `text-to-video`; parallel/): one
+process per rank, launched by `torchrun`; `--sp-devices S` splits the
+tokens over S ranks (ring attention), `--tp-devices T` the DiT's heads and
+features over T ranks (S x T with both; the DiT's layout must use every
+rank of the launch), `--vae-dp-devices N` decodes tiles data-parallel over
+N ranks and `--vae-w-shard N` decodes an untiled latent W-sharded over N
+ranks. Backend: nccl when every rank has a card of its own, else name
+`--dist-backend gloo` (ranks sharing one card, or the CPU). Every rank
+draws the same noise; rank 0 writes the outputs. `--pp-stages` and
+`--auto-shard` (and the layout flags on the other pipelines) raise
+NotImplementedError.
+
 From Python: `generate_video(seed=0)`, `generate_videos([0, 1, ...])` or
 `generate_videos_distilled([0, 1, ...], text_encoder=True)`. From the shell
 (N clips in one process, seeds seed..seed+N-1):
@@ -196,6 +208,9 @@ From Python: `generate_video(seed=0)`, `generate_videos([0, 1, ...])` or
         --output clip.y4m
     python -m ltx2_tpu_torch.generate --pipeline ic-lora --control-video depth.avi --ic-lora-weights ic.safetensors \
         --output clip.y4m
+    torchrun --nproc-per-node 2 -m ltx2_tpu_torch.generate --pipeline distilled --sp-devices 2 --output clip.y4m
+    torchrun --nproc-per-node 4 -m ltx2_tpu_torch.generate --pipeline one-stage --sp-devices 2 --tp-devices 2 \
+        --dist-backend gloo --output clip.y4m
 """
 
 from __future__ import annotations
@@ -890,6 +905,7 @@ def generate_videos_distilled(
     vocoder=None,
     internal_audio: bool = True,
     int8: bool = False,
+    meshes: Optional[dict] = None,
 ) -> Tuple[List[np.ndarray], List[dict]]:
     """The two-stage distilled recipe, one clip per seed; returns (uint8
     (frames, height, width, 3) arrays, per-request stats); with
@@ -947,7 +963,9 @@ def generate_videos_distilled(
     context's finiteness and std, and, with `phase_peaks` on the card, each
     phase's peak memory (GB; None otherwise). `phase_peaks` resets the
     process's peak memory statistics at every phase boundary, so only a
-    caller that owns them asks for it.
+    caller that owns them asks for it. `meshes` (`build_meshes`): the
+    loops token-split over "sequence_mesh", the DiT this rank's TP shard
+    (`place_transformer`), the decode over "vae_mesh" / "vae_w_mesh".
     """
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -968,10 +986,13 @@ def generate_videos_distilled(
     dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, images, ledger,
                                     None if contexts is None else contexts[0].shape[-1], dtype, audio,
                                     int8=int8)
+    dit = place_transformer(dit, meshes)
     upscaler = _spatial_upscaler(stats, device, upscaler, ledger, "the two-stage recipe")
     cfg = dit.cfg
     statistics = _latent_statistics(cfg, decoder, ledger, device)
-    pipe = DistilledPipeline(dit, upscaler, statistics=statistics, video_encoder=encoder)
+    meshes = meshes or {}
+    pipe = DistilledPipeline(dit, upscaler, statistics=statistics, video_encoder=encoder,
+                             sequence_mesh=meshes.get("sequence_mesh"))
 
     configs, latents, audio_latents = [], [], []
     for i, (seed, st) in enumerate(zip(seeds, stats)):
@@ -1000,7 +1021,7 @@ def generate_videos_distilled(
         for name in ("transformer", "spatial_upscaler", "video_encoder"):
             ledger.clear_model(name)
     return _outputs(latents, audio_latents, configs, stats, device, decoder, ledger, cfg.compute_dtype, phase_peaks,
-                    lambda seed: stage_seeds(seed)[2], skip_decode, audio_decoder, vocoder), stats
+                    lambda seed: stage_seeds(seed)[2], skip_decode, audio_decoder, vocoder, meshes), stats
 
 
 def generate_videos_keyframe(
@@ -1413,7 +1434,7 @@ def generate_videos_ic_lora(
 
 
 def _outputs(latents, audio_latents, configs, stats, device, decoder, ledger, compute_dtype: str, phase_peaks: bool,
-             decode_seed, skip_decode: bool, audio_decoder, vocoder) -> list:
+             decode_seed, skip_decode: bool, audio_decoder, vocoder, meshes: Optional[dict] = None) -> list:
     """Each request's result: its latent (and audio latent) as fp32 host
     arrays with `skip_decode`, else its decoded frames (`_decode_phase`) and,
     where there is an audio latent, its waveform (`_audio_decode_phase`), as
@@ -1426,7 +1447,8 @@ def _outputs(latents, audio_latents, configs, stats, device, decoder, ledger, co
     if skip_decode:
         outs = [host(z) for z in latents]
         return [(z, host(a)) for z, a in zip(outs, audio_latents)] if audio else outs
-    videos = _decode_phase(latents, configs, stats, device, decoder, ledger, compute_dtype, phase_peaks, decode_seed)
+    videos = _decode_phase(latents, configs, stats, device, decoder, ledger, compute_dtype, phase_peaks, decode_seed,
+                           meshes)
     if not audio:
         return videos
     waves = _audio_decode_phase(audio_latents, stats, device, audio_decoder, vocoder, ledger, phase_peaks)
@@ -1479,11 +1501,13 @@ def _vocoder(stats, device, ledger):
 
 
 def _decode_phase(latents, configs, stats, device, decoder, ledger, compute_dtype: str, phase_peaks: bool,
-                  decode_seed) -> List[np.ndarray]:
+                  decode_seed, meshes: Optional[dict] = None) -> List[np.ndarray]:
     """After the denoise phase's modules are released: the decoder (given,
     from `ledger`, or random), then each clip decoded (tiled as its config
-    decides, decode noise from `decode_seed(config.seed)`), with its
-    seconds, peak memory, tiles and conv launches in its stats."""
+    decides, decode noise from `decode_seed(config.seed)`; over the meshes'
+    "vae_mesh" / "vae_w_mesh"), with its seconds, peak memory, tiles and
+    conv launches in its stats."""
+    meshes = meshes or {}
     _free(device)
     _phase_peak(device, phase_peaks)
     if decoder is None:
@@ -1494,7 +1518,8 @@ def _decode_phase(latents, configs, stats, device, decoder, ledger, compute_dtyp
         st["decode_tiles"] = len(generate_tile_specs(tuple(latent.shape), tiling_used)) if tiling_used else 0
         convs = conv3d_ndhwc_kernel.launches
         t0 = time.perf_counter()
-        videos.append(decode_video(latent, decoder, tiling_used, decode_seed(config.seed)))
+        videos.append(decode_video(latent, decoder, tiling_used, decode_seed(config.seed),
+                                   vae_mesh=meshes.get("vae_mesh"), vae_w_mesh=meshes.get("vae_w_mesh")))
         st["decode_s"] = time.perf_counter() - t0  # host frames: synchronised
         st["decode_peak_gb"] = _phase_peak(device, phase_peaks)
         st["decode_conv_launches"] = conv3d_ndhwc_kernel.launches - convs
@@ -1566,6 +1591,7 @@ def generate_videos_one_stage(
     vocoder=None,
     internal_audio: bool = True,
     int8: bool = False,
+    meshes: Optional[dict] = None,
     **loop_options,
 ) -> Tuple[List[np.ndarray], List[dict]]:
     """The single-stage CFG pipeline, one clip per seed at the JAX
@@ -1603,7 +1629,8 @@ def generate_videos_one_stage(
     `audio_cfg_scale`, CFG* when `rescale_scale` > 0), with
     `audio_contexts[i]` a (2, S, D) audio prompt and negative pair (default:
     the text encoder's, else two dummy ones drawn after the video pair) and
-    `audio_noises[i]` request i's audio noise; `internal_audio` as there.
+    `audio_noises[i]` request i's audio noise; `internal_audio` and
+    `meshes` as there.
     """
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1624,8 +1651,10 @@ def generate_videos_one_stage(
     dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, images, ledger,
                                     None if contexts is None else contexts[0].shape[-1], dtype, audio,
                                     int8=int8)
+    dit = place_transformer(dit, meshes)
     cfg = dit.cfg
-    pipe = OneStagePipeline(dit, video_encoder=encoder)
+    meshes = meshes or {}
+    pipe = OneStagePipeline(dit, video_encoder=encoder, sequence_mesh=meshes.get("sequence_mesh"))
     spatial = upscaler = temporal = temporal_upscaler = None
     if upscale_spatial or upscale_temporal:
         statistics = _latent_statistics(cfg, decoder, ledger, device)
@@ -1670,7 +1699,7 @@ def generate_videos_one_stage(
         for name in ("transformer", "video_encoder", "spatial_upscaler", "temporal_upscaler"):
             ledger.clear_model(name)
     return _outputs(latents, audio_latents, configs, stats, device, decoder, ledger, cfg.compute_dtype, phase_peaks,
-                    lambda seed: stage_seeds(seed, 2)[1], skip_decode, audio_decoder, vocoder), stats
+                    lambda seed: stage_seeds(seed, 2)[1], skip_decode, audio_decoder, vocoder, meshes), stats
 
 
 def generate_videos_two_stage(
@@ -2119,6 +2148,29 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--requests", type=int, default=1, help="clips to generate, seeds seed..seed+N-1")
+    scale = ap.add_argument_group("scale-out (one process per rank, under torchrun)")
+    scale.add_argument("--sp-devices", type=int, default=0,
+                       help="shard the video-token axis over this many devices (sequence parallelism / ring "
+                            "attention); 0 = off")
+    scale.add_argument("--tp-devices", type=int, default=0,
+                       help="tensor-parallel the DiT over this many devices (Megatron QKV/FFN sharding); weights "
+                            "stream directly onto their shards; 0 = off")
+    scale.add_argument("--vae-dp-devices", type=int, default=0,
+                       help="decode VAE tiles data-parallel over this many devices (same-shape tiles one per "
+                            "rank; requires tiling, composes with any DiT parallelism); 0 = off")
+    scale.add_argument("--vae-w-shard", type=int, default=0,
+                       help="decode the video W-sharded over this many devices with explicit per-conv halo "
+                            "exchange (untiled decode of one oversized frame; latent W must divide the count). "
+                            "0 = single-device decode")
+    scale.add_argument("--pp-stages", type=int, default=0,
+                       help="GPipe pipeline parallelism: accepted, not ported (raises NotImplementedError)")
+    scale.add_argument("--auto-shard", type=int, default=0,
+                       help="layout advisor: accepted, not ported (raises NotImplementedError)")
+    scale.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                       help="torch.distributed backend (default: nccl when every rank has a card of its own, gloo "
+                            "on the CPU); gloo lets ranks share one card")
+    scale.add_argument("--dist-init", default=None,
+                       help="the process group's init method (default env://, torchrun's environment)")
     ap.add_argument("--text-encoder", action="store_true",
                     help="every flow but bench-e2e: encode each request's prompt and negative prompt "
                          "with Gemma-3 and the text encoder in place of the dummy contexts; without --gemma-dir the "
@@ -2288,6 +2340,7 @@ def check_request(args) -> None:
         raise ValueError(f"--pipeline {args.pipeline!r}: not one of {', '.join(PIPELINES)}")
     if args.sampler not in ("euler", "heun"):
         raise ValueError(f"--sampler {args.sampler!r}: not euler or heun")
+    _check_layout(args)
     loop_flags = [_flag(dest) for dest in LOOP_FLAGS if getattr(args, dest) != defaults[dest]
                   and not (args.pipeline in ("two-stage", "retake") and dest == "cfg_interval")]
     if loop_flags and not cfg_flow:
@@ -2377,6 +2430,98 @@ def check_request(args) -> None:
         _check_early_layers(args)
 
 
+LAYOUT_FLAGS = ("sp_devices", "tp_devices", "vae_dp_devices", "vae_w_shard")
+LAYOUT_PIPELINES = ("distilled", "one-stage", "text-to-video")
+
+
+def _layout(args) -> dict:
+    """The scale-out flags above 1, by flag: {"--sp-devices": 2, ...}."""
+    return {_flag(dest): getattr(args, dest) for dest in LAYOUT_FLAGS if (getattr(args, dest) or 0) > 1}
+
+
+def _check_layout(args) -> None:
+    """The scale-out flags' refusals: --pp-stages and --auto-shard, and any
+    layout flag on a pipeline whose mesh is not ported, raise
+    NotImplementedError naming themselves; a negative count is a usage
+    error."""
+    for dest in (*LAYOUT_FLAGS, "pp_stages", "auto_shard"):
+        if (getattr(args, dest) or 0) < 0:
+            raise ValueError(f"{_flag(dest)} must be >= 0")
+    if args.pp_stages and args.pp_stages > 1:
+        raise NotImplementedError("--pp-stages: pipeline parallelism is not ported to the PyTorch command line yet")
+    if args.auto_shard:
+        raise NotImplementedError("--auto-shard: the layout advisor is not ported to the PyTorch command line yet")
+    layout = _layout(args)
+    if layout and args.pipeline not in LAYOUT_PIPELINES:
+        raise NotImplementedError(f"{', '.join(layout)} on --pipeline {args.pipeline}: not ported yet (the meshes "
+                                  f"of {', '.join(LAYOUT_PIPELINES)} are)")
+
+
+def build_meshes(args) -> dict:
+    """The layout flags -> this rank's meshes ("sequence_mesh" with SP,
+    carrying a 'model' axis with TP too; "tp_mesh" with TP alone;
+    "vae_mesh", "vae_w_mesh"), after the process group is up
+    (scripts/generate.py::build_meshes). Every rank builds them in the same
+    order (group creation is collective). A flag that asks for more ranks
+    than the world has exits as the JAX CLI does; the DiT's layout must use
+    every rank. Nothing without a layout flag."""
+    layout = _layout(args)
+    if not layout:
+        return {}
+    from ltx2_tpu_torch.parallel.mesh import create_mesh
+    from ltx2_tpu_torch.parallel.runtime import initialize_distributed, world
+
+    initialize_distributed(init_method=args.dist_init, backend=args.dist_backend, device=args.device)
+    _, n_world = world()
+    sp, tp = layout.get("--sp-devices", 0), layout.get("--tp-devices", 0)
+    meshes = {}
+    for flag, name in (("--vae-w-shard", "vae_w_mesh"), ("--vae-dp-devices", "vae_mesh")):
+        n = layout.get(flag, 0)
+        if n:
+            if n_world < n:
+                raise SystemExit(f"{flag} {n} but only {n_world} ranks in the world")
+            meshes[name] = create_mesh(data=n, model=1, ranks=range(n))
+    if sp or tp:
+        n = (sp or 1) * (tp or 1)
+        flag = " x ".join(f for f, v in (("sp-devices", sp), ("tp-devices", tp)) if v)
+        if n_world < n:
+            raise SystemExit(f"--{flag} needs {n} devices but only {n_world} ranks in the world")
+        if n != n_world:
+            raise SystemExit(f"--{flag} uses {n} of the world's {n_world} ranks: the DiT's layout must use every rank")
+        if sp:
+            meshes["sequence_mesh"] = create_mesh(data=1, model=tp or 1, seq=sp)
+        else:
+            meshes["tp_mesh"] = create_mesh(data=1, model=tp)
+    return meshes
+
+
+def tp_axis_of(meshes: Optional[dict]):
+    """The DiT's tensor-parallel axis of the meshes (the TP mesh's, or the
+    sequence mesh's 'model' axis), or None."""
+    from ltx2_tpu_torch.parallel.mesh import MODEL_AXIS, axis_of
+
+    meshes = meshes or {}
+    return axis_of(meshes.get("tp_mesh") or meshes.get("sequence_mesh"), MODEL_AXIS)
+
+
+def place_transformer(dit: LTXModel, meshes: Optional[dict]) -> LTXModel:
+    """The DiT as this rank's TP shard (scripts/generate.py::_place_transformer):
+    a DiT loaded whole (random weights, or a LoRA fused) is sliced in place;
+    one the ledger loaded as its shard is kept."""
+    axis = tp_axis_of(meshes)
+    if axis is None or dit.cfg.tp_axis is axis:
+        return dit
+    from ltx2_tpu_torch.parallel.sharding import shard_model_
+
+    return shard_model_(dit, axis)
+
+
+def _rank() -> int:
+    from ltx2_tpu_torch.parallel.runtime import world
+
+    return world()[0]
+
+
 def _check_early_layers(args) -> None:
     """`--early-layers-only` feeds Gemma's hidden state to the DiT's caption
     projection: refused, with the JAX CLI's message, when the checkpoint's
@@ -2412,9 +2557,10 @@ def setup(args, resident_models: bool = True) -> Tuple[Optional[ResidentModels],
     return models, ledger
 
 
-def make_ledger(args) -> Optional[ModelLedger]:
+def make_ledger(args, meshes: Optional[dict] = None) -> Optional[ModelLedger]:
     """The ledger of --checkpoint and the files beside it (None without a
-    checkpoint, and for bench-e2e); it loads nothing until asked."""
+    checkpoint, and for bench-e2e); it loads nothing until asked. Under
+    tensor parallelism (`meshes`) it loads the DiT as this rank's shard."""
     if not args.checkpoint or args.pipeline == "bench-e2e":
         return None
     return ModelLedger(
@@ -2422,7 +2568,7 @@ def make_ledger(args) -> Optional[ModelLedger]:
         temporal_upscaler_path=args.temporal_upscaler,
         loras=[parse_lora_spec(spec, args.lora_strength) for spec in args.lora], target_dtype=args.dtype,
         keep_fp8=args.fp8_serving, int8=args.int8, gemma_fp8=args.gemma_fp8, decoder_dtype="bfloat16",
-        device=args.device, include_audio=args.audio or args.pipeline == "a2vid",
+        device=args.device, include_audio=args.audio or args.pipeline == "a2vid", tp_axis=tp_axis_of(meshes),
     )
 
 
@@ -2510,13 +2656,20 @@ def execute_request(args, models: Optional[ResidentModels] = None, ledger: Optio
     (`--output`, `<base>_<i><ext>` for several, the latent's npz with
     --skip-vae). Returns (each clip's frames, or (frames, waveform) with
     --audio, or its latent with --skip-vae; each clip's stats, its file's
-    path under "output" and the seconds of writing it under "save_s")."""
+    path under "output" and the seconds of writing it under "save_s"). With
+    layout flags every rank runs it (`build_meshes`) and rank 0 alone writes
+    the files."""
     seeds = [args.seed + i for i in range(args.requests)]
+    meshes = build_meshes(args)
     common = dict(height=args.height, width=args.width, frames=args.frames, layers=args.layers, device=args.device,
                   fps=args.fps, dtype=args.dtype, skip_decode=args.skip_vae, int8=args.int8)
+    if meshes:
+        common["meshes"] = meshes
     cfg_flow = args.pipeline in ("one-stage", "text-to-video")
     with _profile(args.profile_dir), resident(models):
         videos, stats = _run_flow(args, seeds, common, _encodes(args), cfg_flow, args.pipeline == "two-stage", ledger)
+    if _rank() != 0:  # rank 0 writes every output
+        return videos, stats
     paths = output_paths(args.output, len(videos), "_latent.npz" if args.skip_vae else "")
     for out, path, st in zip(videos, paths, stats):
         video, wave = out if args.audio else (out, None)
@@ -2545,6 +2698,8 @@ def main(argv=None) -> Tuple[List[np.ndarray], List[dict]]:
         ap.error(str(err))
     models, ledger = setup(args, resident_models=False)
     videos, stats = execute_request(args, models, ledger)
+    if _rank() != 0:
+        return videos, stats
     for out, st in zip(videos, stats):
         video = out[0] if args.audio else out
         print(json.dumps({**st, "frames": list(video.shape), "dtype": str(video.dtype)}))
@@ -2559,7 +2714,7 @@ def _run_flow(args, seeds, common: dict, encode: bool, cfg_flow: bool, two_stage
         videos, stats = generate_videos(seeds, steps=args.steps, **common)
     else:
         if ledger is None:
-            ledger = make_ledger(args)
+            ledger = make_ledger(args, common.get("meshes"))
         prompt, enhanced = DEFAULT_PROMPT if args.prompt is None else args.prompt, {}
         if args.enhance_prompt:
             prompt, enhanced = enhance_request_prompt(args, ledger)

@@ -18,6 +18,8 @@ quantized to int8 W8A8 on the host one tensor at a time
 
 from __future__ import annotations
 
+import dataclasses
+
 import json
 import re
 from typing import Dict, List, Optional, Tuple
@@ -181,6 +183,7 @@ def load_transformer_params(
     keep_fp8: bool = False,
     quantize_int8: bool = False,
     include_audio: bool = False,
+    tp_axis=None,
 ) -> LTXModel:
     """The DiT of the checkpoint at `path` on `device` (default cuda), read
     tensor by tensor (host memory: one tensor): the video stream, and with
@@ -191,7 +194,12 @@ def load_transformer_params(
     `int8_eligible` weight, converted as `convert_tensor` gives it, is
     quantized on the host (`quantize_array_int8`) and moved as int8 codes
     with its `weight_cscale`; it excludes `keep_fp8`, as in the JAX package.
-    Every other tensor follows `convert_tensor`. Raises on a tensor the
+    Every other tensor follows `convert_tensor`. With `tp_axis` (a mesh's
+    model axis) the model is this rank's tensor-parallel shard: its tensors
+    take the rank's shapes, each tensor the rules split is sliced as it is
+    read (an int8 weight quantized whole, then its codes and column-parallel
+    scales sliced; fp8 codes sliced beside their per-tensor scale), and the
+    config's `tp_axis` is set (parallel/sharding.py). Raises on a tensor the
     model has no place for, one of another shape, and a model tensor the
     file does not give."""
     if keep_fp8 and quantize_int8:
@@ -205,6 +213,15 @@ def load_transformer_params(
     f = SafetensorsFile(path)
     scales = fp8_scale_keys(f)
     model = LTXModel(cfg, device="meta")
+    part = (lambda name, t: t)
+    if tp_axis is not None and tp_axis.size > 1:
+        from ltx2_tpu_torch.parallel.sharding import check_tp_heads, shard_module_, shard_tensor
+
+        check_tp_heads(cfg, tp_axis)
+        shard_module_(model, tp_axis)
+
+        def part(name, t):
+            return shard_tensor(name, t, tp_axis)
     try:
         for key in sorted(f.keys()):
             if not key.startswith(DIFFUSION_PREFIX) or key.endswith("_scale"):
@@ -216,17 +233,25 @@ def load_transformer_params(
                 owner = model.get_submodule(tree_key.rpartition(".")[0])
                 if not isinstance(owner, Linear) or not tree_key.endswith(".weight"):
                     raise ValueError(f"{key}: an fp8 weight outside a linear layer cannot stay quantized")
-                set_fp8_weight_(owner, f.get(key).to(device, copy=True),
+                set_fp8_weight_(owner, part(tree_key, f.get(key)).to(device, copy=True),
                                 per_tensor_scale(f, key, scales[key]).to(device))
                 continue
             if quantize_int8 and int8_eligible(tree_key):
                 owner = model.get_submodule(tree_key.rpartition(".")[0])
                 host = convert_tensor(read_dequantized(f, key, scales, torch.device("cpu")), tree_key, target)
                 codes, cscale = quantize_array_int8(host.float().numpy())
-                set_int8_weight_(owner, torch.from_numpy(codes).to(device), torch.from_numpy(cscale).to(device))
+                cscale_key = tree_key[: -len("weight")] + "weight_cscale"
+                set_int8_weight_(owner, part(tree_key, torch.from_numpy(codes)).to(device),
+                                 part(cscale_key, torch.from_numpy(cscale)).to(device))
                 continue
-            assign_(model, tree_key, convert_tensor(read_dequantized(f, key, scales, device), tree_key, target))
+            if tp_axis is None or tp_axis.size == 1:
+                assign_(model, tree_key, convert_tensor(read_dequantized(f, key, scales, device), tree_key, target))
+            else:  # the rank's slice of the host tensor, then to the device
+                host = read_dequantized(f, key, scales, torch.device("cpu"))
+                assign_(model, tree_key, convert_tensor(part(tree_key, host), tree_key, target).to(device))
     finally:
         f.close()
     require_loaded(model, path, "DiT")
+    if tp_axis is not None and tp_axis.size > 1:
+        model.cfg = dataclasses.replace(model.cfg, tp_axis=tp_axis)
     return model

@@ -16,6 +16,12 @@ step; the audio stream has the same switches, its own tables
 Both cross-modal residuals read the streams' rms-normed states taken once,
 after the text cross-attention and before either update. The audio-only
 model's block (`AudioBlock`) holds the audio stream alone.
+
+Scale-out: a stream's `sequence_axis` splits its tokens over the ranks
+(self-attention on the ring; the cross-modal attentions gather the other
+stream's K/V, each taking the KV side's axis; text cross-attention local)
+and its `tp_axis` its heads and features (the FFN's project_out and every
+`to_out` row-parallel), as the JAX package's blocks.py:55-59,204-342.
 """
 
 from __future__ import annotations
@@ -47,12 +53,16 @@ class StreamConfig:
     context_dim: int
     cross_attention_adaln: bool = False  # V2: 9 AdaLN rows, prompt-modulated text K/V
     apply_gated_attention: bool = False  # V2: per-head attention output gates
+    # Scale-out: the mesh axes of the token split and of the head/feature split.
+    sequence_axis: Optional[object] = None
+    tp_axis: Optional[object] = None
 
     def attention_config(self, norm_eps: float) -> AttentionConfig:
         """The self-attention's config; the text cross-attention's adds
-        `context_dim`."""
+        `context_dim` and drops `sequence_axis` (its context is whole)."""
         return AttentionConfig(query_dim=self.dim, heads=self.heads, dim_head=self.d_head, norm_eps=norm_eps,
-                               apply_gated_attention=self.apply_gated_attention)
+                               apply_gated_attention=self.apply_gated_attention, sequence_axis=self.sequence_axis,
+                               tp_axis=self.tp_axis)
 
 
 @dataclasses.dataclass
@@ -99,11 +109,14 @@ class VideoBlock(nn.Module):
 def _cross_modal_configs(video: StreamConfig, audio: StreamConfig, norm_eps: float
                          ) -> Tuple[AttentionConfig, AttentionConfig]:
     """(audio->video, video->audio) attention configs: the audio stream's
-    heads on both, each gated as its query stream is."""
+    heads on both, each gated as its query stream is, each split over its
+    KV side's sequence axis and its query side's TP axis."""
     a2v = AttentionConfig(query_dim=video.dim, context_dim=audio.dim, heads=audio.heads, dim_head=audio.d_head,
-                          norm_eps=norm_eps, apply_gated_attention=video.apply_gated_attention)
+                          norm_eps=norm_eps, apply_gated_attention=video.apply_gated_attention,
+                          sequence_axis=audio.sequence_axis, tp_axis=video.tp_axis)
     v2a = AttentionConfig(query_dim=audio.dim, context_dim=video.dim, heads=audio.heads, dim_head=audio.d_head,
-                          norm_eps=norm_eps, apply_gated_attention=audio.apply_gated_attention)
+                          norm_eps=norm_eps, apply_gated_attention=audio.apply_gated_attention,
+                          sequence_axis=video.sequence_axis, tp_axis=audio.tp_axis)
     return a2v, v2a
 
 
@@ -221,17 +234,17 @@ def _stream_head(attn1: Attention, attn2: Attention, table: torch.Tensor, prompt
     out = attention_apply(attn1, self_cfg, _modulate(x, scale, shift, norm_eps), pe=args.pe, mask=args.self_mask)
     x = _gated_residual(x, out, gate, keep)
     cross = _text_cross_attention(attn2, table, prompt_table, cfg,
-                                  dataclasses.replace(self_cfg, context_dim=cfg.context_dim), x, args, norm_eps,
-                                  cached_kv=text_kv)
+                                  dataclasses.replace(self_cfg, context_dim=cfg.context_dim, sequence_axis=None),
+                                  x, args, norm_eps, cached_kv=text_kv)
     if ca_scale is not None:
         cross = cross * ca_scale.to(cross.dtype)
     return (x.float() + cross.float()).to(x.dtype)
 
 
-def _stream_ff(ff: FeedForward, table: torch.Tensor, args: StreamArgs, x: torch.Tensor, norm_eps: float
-               ) -> torch.Tensor:
+def _stream_ff(ff: FeedForward, table: torch.Tensor, args: StreamArgs, x: torch.Tensor, norm_eps: float,
+               tp_axis=None) -> torch.Tensor:
     shift, scale, gate = _ada_values(table, args.timesteps, 3, 6)
-    return _gated_residual(x, feed_forward_apply(ff, _modulate(x, scale, shift, norm_eps)), gate)
+    return _gated_residual(x, feed_forward_apply(ff, _modulate(x, scale, shift, norm_eps), tp_axis), gate)
 
 
 def _av_ca_values(table: torch.Tensor, ss_timestep: torch.Tensor, gate_timestep: torch.Tensor):
@@ -282,17 +295,17 @@ def joint_block_apply(
         vq = (vx_norm.float() * (1.0 + scale_v_a2v) + shift_v_a2v).to(vx.dtype)
         akv = (ax_norm.float() * (1.0 + scale_a_a2v) + shift_a_a2v).to(ax.dtype)
         a2v = attention_apply(p.audio_to_video_attn, a2v_cfg, vq, context=akv, pe=video.cross_pe,
-                              k_pe=audio.cross_pe)
+                              k_pe=audio.cross_pe, gather_context=a2v_cfg.sequence_axis is not None)
         vx = _gated_residual(vx, a2v, gate_a2v, perturb.get("a2v"))
 
         aq = (ax_norm.float() * (1.0 + scale_a_v2a) + shift_a_v2a).to(ax.dtype)
         vkv = (vx_norm.float() * (1.0 + scale_v_v2a) + shift_v_v2a).to(vx.dtype)
         v2a = attention_apply(p.video_to_audio_attn, v2a_cfg, aq, context=vkv, pe=audio.cross_pe,
-                              k_pe=video.cross_pe)
+                              k_pe=video.cross_pe, gather_context=v2a_cfg.sequence_axis is not None)
         ax = _gated_residual(ax, v2a, gate_v2a, perturb.get("v2a"))
 
     if video is not None:
-        vx = _stream_ff(p.ff, p.scale_shift_table, video, vx, norm_eps)
+        vx = _stream_ff(p.ff, p.scale_shift_table, video, vx, norm_eps, video_cfg.tp_axis)
     if audio is not None:
-        ax = _stream_ff(p.audio_ff, p.audio_scale_shift_table, audio, ax, norm_eps)
+        ax = _stream_ff(p.audio_ff, p.audio_scale_shift_table, audio, ax, norm_eps, audio_cfg.tp_axis)
     return (None if video is None else video.replace(x=vx)), (None if audio is None else audio.replace(x=ax))

@@ -30,8 +30,15 @@ and max position `audio_cross_pe_max_pos`; its AdaLN embeddings come from
 the OTHER stream's sigma (the first token's under per-token timesteps), the
 gate's scaled by av_ca_timestep_scale_multiplier / timestep_scale_multiplier.
 The audio-only model (`model_type` AudioOnly) has the audio stream alone
-(`AudioBlock`s); it takes no video and returns the audio velocity. Not
-ported: the parallel variants.
+(`AudioBlock`s); it takes no video and returns the audio velocity.
+
+Scale-out (the JAX package's model.py:100-109): the config's
+`sequence_axis` (the forward then runs on this rank's token shard; see
+parallel/sequence_parallel.py, which sets it for one forward through
+`ltx_model_apply(..., cfg=)`) and `tp_axis` (the module holds this rank's
+TP shard: parallel/sharding.py::shard_dit_params sets it on `model.cfg`)
+reach every block's streams and attentions. The RoPE tables stay those of
+all heads; each attention takes its rank's.
 """
 
 from __future__ import annotations
@@ -48,7 +55,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ltx2_tpu_torch.components.perturbations import BatchedPerturbationConfig, PerturbationType
-from ltx2_tpu_torch.core import rms_norm
+from ltx2_tpu_torch.models.transformer.attention import rms_norm_tp
 from ltx2_tpu_torch.models.transformer.blocks import (
     AudioBlock, AVBlock, StreamArgs, StreamConfig, VideoBlock, joint_block_apply,
 )
@@ -111,6 +118,10 @@ class LTXModelConfig:
     audio_in_channels: int = 128
     audio_out_channels: int = 128
     audio_cross_pe_max_pos: int = 20
+    # Scale-out: mesh axes (parallel/mesh.py) of the token split and of the
+    # head/feature split; None on one device.
+    sequence_axis: Optional[object] = None
+    tp_axis: Optional[object] = None
 
     @property
     def video_inner_dim(self) -> int:
@@ -148,6 +159,8 @@ class LTXModelConfig:
             context_dim=self.cross_attention_dim,
             cross_attention_adaln=self.cross_attention_adaln,
             apply_gated_attention=self.apply_gated_attention,
+            sequence_axis=self.sequence_axis,
+            tp_axis=self.tp_axis,
         )
 
     def audio_stream_config(self) -> StreamConfig:
@@ -159,6 +172,8 @@ class LTXModelConfig:
             context_dim=self.audio_inner_dim,
             cross_attention_adaln=self.cross_attention_adaln,
             apply_gated_attention=self.apply_gated_attention,
+            sequence_axis=self.sequence_axis,
+            tp_axis=self.tp_axis,
         )
 
 
@@ -413,7 +428,7 @@ def precompute_text_kv(model: LTXModel, video_context: torch.Tensor, audio_conte
         k = _stacked_linear([a.to_k for a in attns], ctx)
         v = _stacked_linear([a.to_v for a in attns], ctx)
         k_w = torch.stack([a.k_norm.weight for a in attns])
-        out[name] = (rms_norm(k, k_w[:, None, None, :], model.cfg.norm_eps), v)
+        out[name] = (rms_norm_tp(k, k_w[:, None, None, :], model.cfg.norm_eps, model.cfg.tp_axis), v)
     return out
 
 
@@ -453,6 +468,7 @@ def ltx_model_apply(
     text_kv: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None,
     audio: Optional[Modality] = None,
     audio_pe: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    cfg: Optional[LTXModelConfig] = None,
 ):
     """Forward pass -> the fp32 velocity (B, T, out_channels) of the stream
     the model runs: the video's, with `audio` on an audio-video model the
@@ -462,8 +478,9 @@ def ltx_model_apply(
     each block's video text cross-attention output; text_kv:
     `precompute_text_kv`'s output; video_pe / audio_pe: precomputed RoPE
     tables (`stream_pe`). Each None leaves its part of the forward as it is
-    without the option."""
-    cfg = model.cfg
+    without the option. cfg: the config the forward runs under (default
+    `model.cfg`; the sequence-parallel forward sets its `sequence_axis`)."""
+    cfg = model.cfg if cfg is None else cfg
     if audio is not None and not cfg.has_audio:
         raise ValueError("an audio modality needs the audio-video model (model_type AudioVideo)")
     if not cfg.has_video:

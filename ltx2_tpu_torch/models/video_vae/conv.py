@@ -11,8 +11,14 @@ output counts that are multiples of 8: a conv with another Cout (the
 encoder's conv_out, 129) runs on its weight and bias padded with zero
 outputs to the next multiple of 8, on every device, and the padding is
 sliced off the output. Strides (1 or 2 per axis; the full VAE's strided
-causal convs) run in the same kernels. Not ported (it raises): the
-W-sharded halo exchange, which belongs to scale-out.
+causal convs) run in the same kernels.
+
+W-sharded convs (`w_halo_axis`, a parallel/mesh.py axis the W dim is split
+over; the JAX package's conv.py:34-84,110-127): each rank receives its
+neighbours' boundary columns (`_pad_w_halo`: one ring shift a side), the
+ranks at the global edges put the conv's padding rule in their place, and
+the haloed slab goes through the kernels' W-valid mode (no W padding; T and
+H keep their rules).
 """
 
 from __future__ import annotations
@@ -21,6 +27,35 @@ import torch
 import torch.nn as nn
 
 from ltx2_tpu_torch.ops.conv3d import conv3d, kernel_layout, tf32x3_split
+
+
+def _pad_w_halo(x: torch.Tensor, axis, pad: int, mode: str) -> torch.Tensor:
+    """A W-split (B, T, H, W_local, C) slab with `pad` columns of halo each
+    side: its ring neighbours' boundary columns, and at the global edges
+    the padding rule (reflect or zeros). Correct down to W_local == pad (a
+    reflect column that lives on the neighbour is exactly what the other
+    direction's shift delivered), as the JAX package's `_pad_w_halo`."""
+    from ltx2_tpu_torch.parallel.collectives import ring_shift
+
+    w_local = x.shape[3]
+    if w_local < pad:
+        raise ValueError(f"W shard ({w_local}) narrower than conv halo ({pad}): use fewer devices on the W axis")
+    from_left = ring_shift(x[:, :, :, -pad:], axis, 1)
+    from_right = ring_shift(x[:, :, :, :pad], axis, -1)
+    if mode == "reflect":
+        if w_local > pad:
+            edge_l = x[:, :, :, 1:pad + 1].flip(3)
+            edge_r = x[:, :, :, -pad - 1:-1].flip(3)
+        elif pad == 1:
+            edge_l, edge_r = from_right, from_left
+        else:
+            raise ValueError(f"reflect halo with W shard ({w_local}) == pad ({pad}) > 1 needs columns from two "
+                             f"shards; use fewer devices on W")
+    else:
+        edge_l, edge_r = torch.zeros_like(from_left), torch.zeros_like(from_right)
+    left = edge_l if axis.index == 0 else from_left
+    right = edge_r if axis.index == axis.size - 1 else from_right
+    return torch.cat([left, x, right], dim=3)
 
 
 class Conv3d(nn.Module):
@@ -98,18 +133,23 @@ def conv3d_ndhwc(
     the strided grid otherwise. An fp32 CUDA input goes in with
     the cached TF32 split, the only form of the weight the fp32 kernel
     reads, beside a view of the weight for the wrapper's checks. A Cout
-    padded to `kernel_out` is sliced off the output (a view)."""
-    if w_halo_axis is not None:
-        raise NotImplementedError("conv3d_ndhwc: the W-sharded halo exchange (scale-out) is not ported")
+    padded to `kernel_out` is sliced off the output (a view). `w_halo_axis`:
+    x is this rank's W slab; its halo comes from the neighbours
+    (`_pad_w_halo`) and the conv runs W-valid (W stride 1 only)."""
     weight, bias = p.padded()
     stride = tuple(stride)
+    w_valid = w_halo_axis is not None and w_halo_axis.size > 1
+    if w_valid:
+        if stride[2] != 1:
+            raise ValueError("w_halo_axis requires W stride 1")
+        x = _pad_w_halo(x, w_halo_axis, 1, spatial_mode)
     if x.device.type == "cuda" and x.dtype == torch.float32:
         w = kernel_layout(weight.float(), copy=False)
         out = conv3d(x.contiguous(), w, bias, causal, spatial_mode, temporal_mode, w_split=p.tf32x3_weight(),
-                     stride=stride)
+                     stride=stride, w_valid=w_valid)
     else:
         out = conv3d(x.contiguous(), p.kernel_weight(x.dtype), bias, causal, spatial_mode, temporal_mode,
-                     stride=stride)
+                     stride=stride, w_valid=w_valid)
     cout = p.weight.shape[0]
     return out if out.shape[-1] == cout else out[..., :cout]
 

@@ -6,6 +6,9 @@ up blocks (timestep-conditioned res groups; depth-to-space upsamplers with
 first-frame trim and a tiled d2s residual) -> pixel_norm + timestep-
 conditioned last scale/shift -> SiLU -> conv_out -> 4x4 un-patchify -> RGB in
 [-1, 1]. Channels-last (B, T, H, W, C) inside; scale/shift math fp32.
+With `w_halo_axis` the decoder runs on this rank's W slab: every conv
+exchanges its halo columns with the neighbours (conv.py), and everything
+else is pointwise over W (the JAX package's decoder.py:149-299).
 """
 
 from __future__ import annotations
@@ -182,7 +185,7 @@ def timestep_embedder_apply(p: _Embedder, t_emb: torch.Tensor) -> torch.Tensor:
 
 
 def _res_block(p: _ResBlock, x: torch.Tensor, causal: bool, time_emb: Optional[torch.Tensor],
-               channels: int) -> torch.Tensor:
+               channels: int, w_halo_axis=None) -> torch.Tensor:
     """pixel_norm -> scale/shift -> SiLU -> conv, twice, + residual."""
     table = p.scale_shift_table.float()
     if time_emb is not None:
@@ -192,9 +195,9 @@ def _res_block(p: _ResBlock, x: torch.Tensor, causal: bool, time_emb: Optional[t
         vals = [table[i] for i in range(4)]
     shift1, scale1, shift2, scale2 = vals[0], 1 + vals[1], vals[2], 1 + vals[3]
     h = F.silu(pixel_norm(x).float() * scale1 + shift1).to(x.dtype)
-    h = conv3d_ndhwc(p.conv1, h, causal=causal)
+    h = conv3d_ndhwc(p.conv1, h, causal=causal, w_halo_axis=w_halo_axis)
     h = F.silu(pixel_norm(h).float() * scale2 + shift2).to(x.dtype)
-    h = conv3d_ndhwc(p.conv2, h, causal=causal)
+    h = conv3d_ndhwc(p.conv2, h, causal=causal, w_halo_axis=w_halo_axis)
     return h + x
 
 
@@ -207,7 +210,7 @@ def _depth_to_space(x: torch.Tensor, c_out: int, stride: Tuple[int, int, int]) -
 
 
 def _upsample_block(p: _Upsample, x: torch.Tensor, causal: bool, stride: Tuple[int, int, int],
-                    multiplier: int, residual: bool, in_channels: int) -> torch.Tensor:
+                    multiplier: int, residual: bool, in_channels: int, w_halo_axis=None) -> torch.Tensor:
     """Conv -> depth-to-space (+ tiled d2s residual); the first frame is
     dropped when the temporal stride is > 1 (causal fix)."""
     ft = stride[0]
@@ -217,7 +220,8 @@ def _upsample_block(p: _Upsample, x: torch.Tensor, causal: bool, stride: Tuple[i
         if ft > 1:
             res = res[:, 1:]
         res = res.repeat(1, 1, 1, 1, stride_product // multiplier)
-    x = _depth_to_space(conv3d_ndhwc(p.conv, x, causal=causal), in_channels // multiplier, stride)
+    x = _depth_to_space(conv3d_ndhwc(p.conv, x, causal=causal, w_halo_axis=w_halo_axis), in_channels // multiplier,
+                        stride)
     if ft > 1:
         x = x[:, 1:]
     return x + res if residual else x
@@ -229,13 +233,16 @@ def video_decoder_apply(
     timestep: Optional[float] = 0.05,
     noise: Optional[torch.Tensor] = None,
     causal: bool = False,
+    w_halo_axis=None,
 ) -> torch.Tensor:
     """Decode a (B, 128, T, H, W) latent -> (B, 3, 8(T-1)+1, 32H, 32W) fp32
     video in [-1, 1].
 
     noise: standard-normal noise of the latent's shape, injected at
     cfg.decode_noise_scale when the decoder is timestep-conditioned and
-    `timestep` is set (the caller draws it; see chunking.decode_latent)."""
+    `timestep` is set (the caller draws it; see chunking.decode_latent).
+    w_halo_axis: the latent (and noise) are this rank's W slab of a
+    W-sharded decode (tiling.decode_w_sharded); the output is its slab."""
     cfg = decoder.cfg
     batch = latent.shape[0]
     stats = decoder.per_channel_statistics
@@ -250,7 +257,7 @@ def video_decoder_apply(
         if noise is not None:
             x = noise.float() * cfg.decode_noise_scale + (1.0 - cfg.decode_noise_scale) * x
 
-    x = conv3d_ndhwc(decoder.conv_in, to_ndhwc(x.to(cfg.dtype)), causal=causal)
+    x = conv3d_ndhwc(decoder.conv_in, to_ndhwc(x.to(cfg.dtype)), causal=causal, w_halo_axis=w_halo_axis)
     for block, (kind, spec, channels) in zip(decoder.up_blocks, cfg.plan()):
         if kind == "res":
             time_emb = None
@@ -258,10 +265,10 @@ def video_decoder_apply(
                 t_emb = decoder_timestep_embedding(scaled_timestep, 256)
                 time_emb = timestep_embedder_apply(block.time_embedder, t_emb).float()
             for rb in block.res_blocks:
-                x = _res_block(rb, x, causal, time_emb, channels)
+                x = _res_block(rb, x, causal, time_emb, channels, w_halo_axis)
         else:
             stride, multiplier, residual = spec
-            x = _upsample_block(block, x, causal, stride, multiplier, residual, channels)
+            x = _upsample_block(block, x, causal, stride, multiplier, residual, channels, w_halo_axis)
 
     x = pixel_norm(x)
     table = decoder.last_scale_shift_table.float()
@@ -273,5 +280,5 @@ def video_decoder_apply(
     else:
         shift, scale = table[0], 1 + table[1]
     x = F.silu(x.float() * scale + shift).to(cfg.dtype)
-    x = conv3d_ndhwc(decoder.conv_out, x, causal=causal)
+    x = conv3d_ndhwc(decoder.conv_out, x, causal=causal, w_halo_axis=w_halo_axis)
     return unpatchify(from_ndhwc(x), patch_size_hw=cfg.patch_size, patch_size_t=1).float()

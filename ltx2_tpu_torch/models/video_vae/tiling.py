@@ -6,9 +6,15 @@ with 64 px overlap, 64-frame tiles with 24 frames of overlap), tile specs
 over the latent grid, and the weighted blend of decoded tiles with per-axis
 trapezoidal ramps. Each tile is sliced from the latent and decoded on its
 own, so every conv pads by reflection at the tile's own edges, as in the JAX
-package. The blend accumulates on the latent's device in fp32. Not ported
-(they wait for the parallel modes): the data-parallel tile decode and the
-W-sharded decode.
+package. The blend accumulates on the latent's device in fp32.
+
+Two decodes over several ranks (ltx2_tpu/models/video_vae/tiling.py:202-236,
+322-380): `decode_tiled(..., mesh=)` decodes same-shape tiles in rounds of
+one tile a rank of the mesh's data axis and all-gathers each round's tiles,
+so every rank blends them all (a short round's idle ranks decode its first
+tile, whose copies are dropped); `decode_w_sharded` splits ONE decode's W
+over the ranks, each conv exchanging 1-column halos (models/video_vae/
+conv.py). Both return the whole video on every rank of the mesh.
 """
 
 from __future__ import annotations
@@ -169,11 +175,15 @@ def decode_tiled(
     tiling_config: TilingConfig,
     timestep: Optional[float] = 0.05,
     scale_factors: Tuple[int, int, int] = (8, 32, 32),
+    mesh=None,
+    data_axis: str = "data",
 ) -> torch.Tensor:
     """Decode tile by tile and blend with trapezoidal weights.
     decoder_fn(latent_tile, timestep=...) -> (B, 3, t, h, w). Returns the
     blended (B, 3, T_out, H_out, W_out) fp32 video on the latent's device
-    (the JAX package yields the same array once)."""
+    (the JAX package yields the same array once). With `mesh`, the tiles
+    decode data-parallel over its `data_axis` (`_decode_tiles_data_parallel`)
+    and every rank blends them in the JAX package's order."""
     b, _c, t, h, w = latent.shape
     scale_t, scale_h, scale_w = scale_factors
     dev = latent.device
@@ -184,10 +194,19 @@ def decode_tiled(
     def ramp(n, left, right, from_0=False):
         return torch.from_numpy(compute_trapezoidal_mask_1d(n, min(left, n), min(right, n), from_0)).to(dev)
 
-    for spec in generate_tile_specs(tuple(latent.shape), tiling_config, scale_factors):
-        tile = latent[:, :, spec.in_t_start:spec.in_t_end, spec.in_h_start:spec.in_h_end,
+    def tile_of(spec):
+        return latent[:, :, spec.in_t_start:spec.in_t_end, spec.in_h_start:spec.in_h_end,
                       spec.in_w_start:spec.in_w_end]
-        decoded = decoder_fn(tile, timestep=timestep)
+
+    specs = generate_tile_specs(tuple(latent.shape), tiling_config, scale_factors)
+    from ltx2_tpu_torch.parallel.mesh import axis_of
+
+    axis = axis_of(mesh, data_axis)
+    if axis is None:
+        decoded_tiles = ((spec, decoder_fn(tile_of(spec), timestep=timestep)) for spec in specs)
+    else:
+        decoded_tiles = _decode_tiles_data_parallel(specs, tile_of, decoder_fn, timestep, axis)
+    for spec, decoded in decoded_tiles:
         dt, dh, dw = decoded.shape[2:]
         tile_t = min(dt, spec.out_t_end - spec.out_t_start)
         tile_h = min(dh, spec.out_h_end - spec.out_h_start)
@@ -202,6 +221,66 @@ def decode_tiled(
         weights[sl] += mask
         del decoded
     return output / weights.clamp_min(1e-8)
+
+
+def _decode_tiles_data_parallel(specs, tile_of, decoder_fn, timestep, axis):
+    """(spec, decoded) for every tile, same-shape tiles decoded in rounds of
+    one a rank of `axis` and all-gathered (the JAX package's grouping and
+    order; a short round's extra ranks decode the round's first tile)."""
+    from collections import defaultdict
+
+    from ltx2_tpu_torch.parallel.collectives import all_gather
+
+    groups = defaultdict(list)
+    for spec in specs:
+        groups[(spec.in_t_end - spec.in_t_start, spec.in_h_end - spec.in_h_start,
+                spec.in_w_end - spec.in_w_start)].append(spec)
+    for group in groups.values():
+        for i in range(0, len(group), axis.size):
+            round_specs = group[i:i + axis.size]
+            mine = round_specs[axis.index] if axis.index < len(round_specs) else round_specs[0]
+            decoded = decoder_fn(tile_of(mine), timestep=timestep).float()
+            b = decoded.shape[0]
+            gathered = all_gather(decoded, axis, dim=0)
+            for j, spec in enumerate(round_specs):
+                yield spec, gathered[j * b:(j + 1) * b]
+
+
+@torch.no_grad()
+def decode_w_sharded(
+    latent: torch.Tensor,
+    decoder,
+    mesh,
+    axis: str = "data",
+    timestep: Optional[float] = 0.05,
+    noise: Optional[torch.Tensor] = None,
+    causal: bool = False,
+) -> torch.Tensor:
+    """Decode ONE latent (B, C, T, H, W) with its W split over the mesh's
+    `axis`: each rank decodes its W slab, every conv exchanging 1-column
+    halos with its ring neighbours (correct down to 1-wide slabs), and the
+    slabs are all-gathered along the pixel W. Returns the whole (B, 3, T',
+    H', W') fp32 video on every rank. `noise`: the decode noise of the whole
+    latent's shape (drawn whole by the caller, so every layout injects the
+    same noise; the JAX package folds its key per shard instead); None
+    injects none."""
+    from ltx2_tpu_torch.models.video_vae.decoder import video_decoder_apply
+    from ltx2_tpu_torch.parallel.collectives import all_gather
+
+    if latent.ndim == 4:
+        latent = latent[None]
+    ax = mesh.axis(axis)
+    n, w = ax.size, latent.shape[-1]
+    if w % n != 0:
+        raise ValueError(f"latent W ({w}) must be divisible by the '{axis}' axis size ({n})")
+    part = w // n
+
+    def slab(x):
+        return x.narrow(-1, ax.index * part, part)
+
+    video = video_decoder_apply(decoder, slab(latent), timestep=timestep,
+                                noise=None if noise is None else slab(noise), causal=causal, w_halo_axis=ax)
+    return all_gather(video, ax, dim=4)
 
 
 def should_auto_tile(latent_shape: Tuple[int, ...], voxel_threshold: int = 4000) -> bool:

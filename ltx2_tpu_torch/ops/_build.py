@@ -6,12 +6,15 @@ named by the hash of its sources (a changed source builds anew), and loaded
 with ctypes. `build_kernels()` starts one nvcc per missing library, all
 together, and waits for them; `kernel(fn)` returns a C entry point with its
 argument types set, building on first use. Nothing here runs at import
-time: the CPU-only tests import every module.
+time: the CPU-only tests import every module. Processes that build at once
+(the ranks of a scale-out launch) take turns on a file lock in the build
+directory: the first builds, the others find its libraries.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -43,8 +46,8 @@ KERNEL_FUNCTIONS = {
     # t_q, t_k, head_dim; 19 strides; scale, stream
     "ltx_flash_attention_bwd": ("bwd", [_P] * 11 + [_I] * 5 + [ctypes.POINTER(_I64), ctypes.c_float, _P]),
     # x, w, bias, out, fp32 workspace; fp32 flag, K ranges, batch, t, h, w,
-    # cin, cout, kt, causal, spatial zeros, temporal zeros, sT, sH, sW; stream
-    "ltx_conv3d_ndhwc": ("conv3d", [_P] * 5 + [_I] * 15 + [_P]),
+    # cin, cout, kt, causal, spatial zeros, temporal zeros, sT, sH, sW, W-valid; stream
+    "ltx_conv3d_ndhwc": ("conv3d", [_P] * 5 + [_I] * 16 + [_P]),
 }
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -71,6 +74,15 @@ def build_kernels() -> Dict[str, dict]:
     built from the same sources exists. Returns {name: {"path", "seconds",
     "log"}}; raises with the compiler's output if any nvcc fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build_locked()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_locked() -> Dict[str, dict]:
     info, running = {}, {}
     for name, src in KERNEL_SOURCES.items():
         out = _library_path(name)

@@ -25,8 +25,9 @@ launches in its `launches` attribute; the forward also counts those with a
 key-valid mask in `flash_attention.key_valid_launches`, each head dim's in
 `flash_attention.launches_by_head_dim`, each batch size's in
 `flash_attention.launches_by_batch` and each (query, key) length pair's in
-`flash_attention.launches_by_length`; the backward each head dim's in
-`flash_attention_bwd_kernel.launches_by_head_dim`.
+`flash_attention.launches_by_length`; `flash_attention_residuals.launches`
+counts those with residuals (the ring's inner; in `launches` too); the
+backward each head dim's in `flash_attention_bwd_kernel.launches_by_head_dim`.
 
 `sdpa` sends a call to the kernels or to plain torch ops by contract alone
 (`attention_route`), never because a kernel failed: the plain route takes
@@ -252,7 +253,14 @@ def flash_attention_residuals(
         return flash_attention_residuals_plain(q, k, v, scale, kv_valid)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return _launch_fwd(q, k, v, scale, kv_valid, residuals=True)
+    out = _launch_fwd(q, k, v, scale, kv_valid, residuals=True)
+    flash_attention_residuals.launches += 1
+    return out
+
+
+# Launches of the forward kernel with residuals through this wrapper (the
+# ring's inner, parallel/ring_attention.py), counted in flash_attention.launches too.
+flash_attention_residuals.launches = 0
 
 
 def _check_stats(name: str, x: torch.Tensor, q: torch.Tensor) -> None:

@@ -130,6 +130,43 @@ def dequantize_int8(p: Linear, dtype: torch.dtype) -> torch.Tensor:
     return (p.weight.float() * p.weight_cscale.float()[:, None]).to(dtype)
 
 
+def linear_row_parallel(p: Linear, x: torch.Tensor, tp_axis=None) -> torch.Tensor:
+    """`linear` whose in-features (and x's last dim) are split over the
+    mesh axis `tp_axis` (Megatron row-parallel; ltx2_tpu/ops/common.py:95-114):
+    each rank's partial product (its LoRA delta included), summed over the
+    axis in fp32 (`collectives.all_reduce`), then the replicated bias added
+    once, cast to x's dtype. An int8 weight quantizes the activations with
+    the per-token amax over the whole in-features (the max over the axis),
+    as the unsplit product does. tp_axis None, or of one rank: `linear`."""
+    if tp_axis is None or tp_axis.size == 1:
+        return linear(p, x)
+    from ltx2_tpu_torch.parallel.collectives import all_reduce, all_reduce_max
+
+    cscale = getattr(p, "weight_cscale", None)
+    if cscale is not None:
+        xf = x.float()
+        amax = all_reduce_max(xf.abs().amax(dim=-1, keepdim=True), tp_axis)
+        xscale = torch.clamp_min(amax, 1e-8) * (1.0 / 127.0)
+        x_q = torch.round(xf / xscale).to(torch.int8)
+        w_q = p.weight
+        y = int8_matmul(x_q.reshape(-1, x.shape[-1]), w_q).reshape(*x.shape[:-1], w_q.shape[0])
+        y = y.float() * xscale * cscale.float()
+    else:
+        w = p.weight if p.weight.dtype == x.dtype else p.weight.to(x.dtype)
+        scale = getattr(p, "weight_scale", None)
+        if scale is not None:
+            w = w * scale.to(x.dtype)
+        y = F.linear(x, w)
+    lora_a = getattr(p, "lora_A", None)
+    if lora_a is not None:
+        low = F.linear(F.linear(x, lora_a.to(x.dtype)), p.lora_B.to(x.dtype))
+        y = y + low * p.lora_scale.to(x.dtype)
+    y = all_reduce(y, tp_axis)
+    if p.bias is not None:
+        y = y + p.bias.float()
+    return y.to(x.dtype)
+
+
 @torch.no_grad()
 def init_linear_(p: Linear, generator: torch.Generator) -> Linear:
     """LeCun-uniform U(-1/sqrt(in), 1/sqrt(in)) for weight and bias, the

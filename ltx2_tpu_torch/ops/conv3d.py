@@ -12,6 +12,10 @@ per-frame 3 x 3 conv (the upscaler's resampler). Strides (sT, sH, sW), each
 1 or 2, sample the padded input on a strided grid (the full video VAE's
 strided causal convs, ltx2_tpu/models/video_vae/conv.py:135-170): the output
 is (B, (T - 1) // sT + 1, (H - 1) // sH + 1, (W - 1) // sW + 1, Cout).
+W-valid (`w_valid`, W stride 1): x arrives with its W halo already in
+place (a W-sharded rank's slab, 2 columns wider than its output,
+ltx2_tpu/models/video_vae/conv.py:34-84,110-127), W is not padded and the
+output has W - 2 columns; T and H keep their rules.
 
 Weights are taken in the layout (kT, 3, 3, Cin, Cout) (the Pallas wrapper's
 `w_flat`); `kernel_layout` reorders a checkpoint-shaped (Cout, Cin, kT, 3, 3)
@@ -34,7 +38,8 @@ bf16 or fp32) or raises, for any shape or dtype the kernel does not take.
 The kernel is built from the repository's source with nvcc on first use
 (`ops/_build.py`) and counts its launches in `conv3d_ndhwc_kernel.launches`
 (one a call, the split-K sum included), the strided ones also in
-`conv3d_ndhwc_kernel.strided_launches`.
+`conv3d_ndhwc_kernel.strided_launches`, the W-valid ones in
+`conv3d_ndhwc_kernel.w_valid_launches`.
 """
 
 from __future__ import annotations
@@ -132,7 +137,7 @@ def _check_modes(spatial_mode: str, temporal_mode: str) -> None:
 
 
 def _check_shapes(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], spatial_mode: str,
-                  stride: tuple = (1, 1, 1)) -> None:
+                  stride: tuple = (1, 1, 1), w_valid: bool = False) -> None:
     if x.ndim != 5 or w.ndim != 5:
         raise ValueError(f"conv3d: x must be (B, T, H, W, Cin) and w (kT, 3, 3, Cin, Cout), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -146,30 +151,37 @@ def _check_shapes(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], s
         raise ValueError(f"conv3d: reflect padding needs H, W >= 2, got {tuple(x.shape)}")
     if len(stride) != 3 or any(s not in (1, 2) for s in stride):
         raise ValueError(f"conv3d: stride {tuple(stride)} must be three of 1 or 2")
+    if w_valid and (stride[2] != 1 or x.shape[3] < 3):
+        raise ValueError(f"conv3d: W-valid needs W stride 1 and a haloed W of 3 or more, got stride {tuple(stride)}, "
+                         f"input {tuple(x.shape)}")
 
 
-def out_shape(x_shape: tuple, cout: int, stride: tuple = (1, 1, 1)) -> tuple:
-    """The conv's output shape for input (B, T, H, W, Cin) at `stride`."""
+def out_shape(x_shape: tuple, cout: int, stride: tuple = (1, 1, 1), w_valid: bool = False) -> tuple:
+    """The conv's output shape for input (B, T, H, W, Cin) at `stride`
+    (W-valid: W - 2 columns)."""
     b, t, h, w, _ = x_shape
     st, sh, sw = stride
-    return b, (t - 1) // st + 1, (h - 1) // sh + 1, (w - 1) // sw + 1, cout
+    return b, (t - 1) // st + 1, (h - 1) // sh + 1, w - 2 if w_valid else (w - 1) // sw + 1, cout
 
 
-def _pad(x: torch.Tensor, kt: int, causal: bool, spatial_mode: str, temporal_mode: str) -> torch.Tensor:
-    """The padded input (B, T + kT - 1, H + 2, W + 2, C), in x's dtype."""
+def _pad(x: torch.Tensor, kt: int, causal: bool, spatial_mode: str, temporal_mode: str,
+         w_valid: bool = False) -> torch.Tensor:
+    """The padded input (B, T + kT - 1, H + 2, W + 2, C) (W-valid: W as
+    it is), in x's dtype."""
     b, t, h, w, c = x.shape
     if spatial_mode == "reflect":
         x = torch.cat([x[:, :, 1:2], x, x[:, :, h - 2:h - 1]], dim=2)
-        x = torch.cat([x[:, :, :, 1:2], x, x[:, :, :, w - 2:w - 1]], dim=3)
+        if not w_valid:
+            x = torch.cat([x[:, :, :, 1:2], x, x[:, :, :, w - 2:w - 1]], dim=3)
     else:
-        x = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+        x = torch.nn.functional.pad(x, (0, 0, 0 if w_valid else 1, 0 if w_valid else 1, 1, 1))
     front = kt - 1 if causal else (kt - 1) // 2
     back = kt - 1 - front
     if front or back:
         if temporal_mode == "replicate":
             parts = [x[:, :1].expand(-1, front, -1, -1, -1), x, x[:, -1:].expand(-1, back, -1, -1, -1)]
         else:
-            zeros = x.new_zeros(b, 1, h + 2, w + 2, c)
+            zeros = x.new_zeros(b, 1, *x.shape[2:])
             parts = [zeros.expand(-1, front, -1, -1, -1), x, zeros.expand(-1, back, -1, -1, -1)]
         x = torch.cat(parts, dim=1)
     return x
@@ -183,6 +195,7 @@ def conv3d_plain(
     spatial_mode: str = "reflect",
     temporal_mode: str = "replicate",
     stride: tuple = (1, 1, 1),
+    w_valid: bool = False,
 ) -> torch.Tensor:
     """The kernel's contract in plain PyTorch, as the Pallas kernel computes
     it (`conv3d_pallas` with its default group of 9 taps): pad, then for
@@ -190,14 +203,15 @@ def conv3d_plain(
     block; with strides, slabs sampled on the strided grid of the padded
     input) times those taps' (9 * Cin, Cout) weights, summed in fp32
     (float64 for float64 input), plus bias, cast once to x's dtype.
-    x (B, T, H, W, Cin), w (kT, 3, 3, Cin, Cout) -> `out_shape`."""
+    x (B, T, H, W, Cin), w (kT, 3, 3, Cin, Cout) -> `out_shape` (W-valid:
+    the input's W holds its halo and is not padded)."""
     _check_modes(spatial_mode, temporal_mode)
-    _check_shapes(x, w, b, spatial_mode, stride)
+    _check_shapes(x, w, b, spatial_mode, stride, w_valid)
     kt, cin, cout = w.shape[0], w.shape[3], w.shape[4]
-    _, t, h, wd, _ = out_shape(x.shape, cout, stride)
+    _, t, h, wd, _ = out_shape(x.shape, cout, stride, w_valid)
     st, sh, sw = stride
     acc_dtype = torch.promote_types(x.dtype, torch.float32)
-    xp = _pad(x, kt, causal, spatial_mode, temporal_mode)
+    xp = _pad(x, kt, causal, spatial_mode, temporal_mode, w_valid)
     out = None
     for dt in range(kt):
         cols = torch.cat([xp[:, dt:dt + (t - 1) * st + 1:st, dh:dh + (h - 1) * sh + 1:sh, dw:dw + (wd - 1) * sw + 1:sw]
@@ -218,17 +232,19 @@ def conv3d_ndhwc_kernel(
     temporal_mode: str = "replicate",
     w_split: Optional[torch.Tensor] = None,
     stride: tuple = (1, 1, 1),
+    w_valid: bool = False,
 ) -> torch.Tensor:
     """Launch the implicit-GEMM kernel on CUDA tensors: x (B, T, H, W, Cin)
     contiguous bf16 or fp32, w (kT, 3, 3, Cin, Cout) in x's dtype (for bf16
     read through its K-major transpose; for fp32 through `w_split`, w's
     `tf32x3_split`, made here when not given; see the module note), b (Cout,)
-    any float dtype (added in fp32), strides of 1 or 2. Raises for anything
+    any float dtype (added in fp32), strides of 1 or 2, W-valid (see the
+    module note). Raises for anything
     the kernel does not take: another device or dtype, Cin % 16 != 0,
     Cout % 8 != 0, a non-contiguous or misaligned operand."""
     _check_modes(spatial_mode, temporal_mode)
     stride = tuple(stride)
-    _check_shapes(x, w, b, spatial_mode, stride)
+    _check_shapes(x, w, b, spatial_mode, stride, w_valid)
     if x.device.type != "cuda" or w.device != x.device or (b is not None and b.device != x.device):
         raise ValueError(f"conv3d kernel: operands must be on one CUDA device, got x on {x.device}, "
                          f"w on {w.device}")
@@ -238,7 +254,7 @@ def conv3d_ndhwc_kernel(
     if cin % 16 or cout % 8:
         raise ValueError(f"conv3d kernel: needs Cin % 16 == 0 and Cout % 8 == 0, got Cin {cin}, Cout {cout}")
     bsz, t, h, wd, _ = x.shape
-    oshape = out_shape(x.shape, cout, stride)
+    oshape = out_shape(x.shape, cout, stride, w_valid)
     m = math.prod(oshape[:4])
     if bsz * t * h * wd >= 2 ** 31:
         raise ValueError(f"conv3d kernel: too many voxels for 32-bit voxel indices {tuple(x.shape)}")
@@ -267,18 +283,21 @@ def conv3d_ndhwc_kernel(
             x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
             None if workspace is None else workspace.data_ptr(), int(x.dtype == torch.float32), splits,
             bsz, t, h, wd, cin, cout, kt, int(causal), int(spatial_mode == "zeros"), int(temporal_mode == "zeros"),
-            *stride, torch.cuda.current_stream(x.device).cuda_stream,
+            *stride, int(w_valid), torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"conv3d kernel: launch failed with CUDA error {err}")
     conv3d_ndhwc_kernel.launches += 1
     if stride != (1, 1, 1):
         conv3d_ndhwc_kernel.strided_launches += 1
+    if w_valid:
+        conv3d_ndhwc_kernel.w_valid_launches += 1
     return out
 
 
 conv3d_ndhwc_kernel.launches = 0
 conv3d_ndhwc_kernel.strided_launches = 0  # the strided ones among `launches`
+conv3d_ndhwc_kernel.w_valid_launches = 0  # the W-valid ones among `launches`
 
 
 def conv3d(
@@ -290,13 +309,14 @@ def conv3d(
     temporal_mode: str = "replicate",
     w_split: Optional[torch.Tensor] = None,
     stride: tuple = (1, 1, 1),
+    w_valid: bool = False,
 ) -> torch.Tensor:
     """The conv on x's device: `conv3d_plain` for a CPU tensor (`w_split`
     unused), the kernel for a CUDA tensor (or an error; there is no
     fallback)."""
     stride = tuple(stride)
     if x.device.type == "cpu":
-        return conv3d_plain(x, w, b, causal, spatial_mode, temporal_mode, stride)
+        return conv3d_plain(x, w, b, causal, spatial_mode, temporal_mode, stride, w_valid)
     if x.device.type != "cuda":
         raise ValueError(f"conv3d: unsupported device {x.device}")
-    return conv3d_ndhwc_kernel(x, w, b, causal, spatial_mode, temporal_mode, w_split, stride)
+    return conv3d_ndhwc_kernel(x, w, b, causal, spatial_mode, temporal_mode, w_split, stride, w_valid)

@@ -9,6 +9,7 @@ video and audio decodes the pipelines share (`decode_video` and
 from __future__ import annotations
 
 import os
+import sys
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -24,7 +25,7 @@ from ltx2_tpu_torch.models.transformer.model import Modality
 from ltx2_tpu_torch.models.video_vae.chunking import _to_uint8_frames, decode_latent
 from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoder, video_decoder_apply
 from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoder, video_encoder_apply
-from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, decode_tiled
+from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, decode_tiled, decode_w_sharded
 from ltx2_tpu_torch.types import LatentState
 from ltx2_tpu_torch.utils.image_io import read_png, resize_lanczos, sniff
 from ltx2_tpu_torch.utils.jpeg import decode_jpeg
@@ -201,15 +202,52 @@ def modality_from_state(
     )
 
 
+def check_meshes(pipeline, pipeline_mesh=None, **meshes) -> None:
+    """The pipelines' refusals of meshes: pipeline parallelism everywhere,
+    and any mesh on a pipeline whose class has not `meshes_ported` (the
+    JAX package takes them on every pipeline; the port, so far, on the
+    distilled, one-stage and text-to-video ones), each by name."""
+    if pipeline_mesh is not None:
+        raise NotImplementedError("not ported to the PyTorch pipelines yet: pipeline_mesh (pipeline parallelism, "
+                                  "--pp-stages)")
+    given = [name for name, mesh in meshes.items() if mesh is not None]
+    if given and not getattr(pipeline, "meshes_ported", False):
+        raise NotImplementedError(f"not ported to {type(pipeline).__name__} yet: {', '.join(given)}")
+
+
+def consolidate_latent(latent: torch.Tensor, axis=None, dim: int = 1) -> torch.Tensor:
+    """A token-split tensor gathered whole onto every rank of the mesh axis
+    `axis` (ltx2_tpu/pipelines/common.py::consolidate_latent gathers the SP
+    loops' sharded outputs before the upscaler and the decoder read them;
+    the port gathers each token-split forward's output, so the loops, the
+    upscaler and the decoder see whole latents). Axis None: the tensor."""
+    from ltx2_tpu_torch.parallel.collectives import all_gather
+
+    return all_gather(latent, axis, dim=dim)
+
+
 @torch.no_grad()
 def decode_video(latent: torch.Tensor, decoder: VideoDecoder, tiling: Optional[TilingConfig],
-                 seed: int) -> np.ndarray:
+                 seed: int, vae_mesh=None, vae_w_mesh=None) -> Optional[np.ndarray]:
     """One clip's (1, C, T, H, W) latent -> uint8 (T', H', W', 3) frames on
-    the host: a tiled decode when `tiling` is set, else one pass of
-    `decode_latent`, as the JAX package's `_decode_video` chooses (meshes
-    aside). Decode noise comes from `seed`; in a tiled decode every tile
-    draws it from the same seed, as the JAX package hands every tile the
-    same key."""
+    the host: a tiled decode when `tiling` is set (its tiles data-parallel
+    over `vae_mesh`'s 'data' ranks), else with `vae_w_mesh` one W-sharded
+    decode over its 'data' ranks, else one pass of `decode_latent`, as the
+    JAX package's `_decode_video` chooses. Decode noise comes from `seed`;
+    in a tiled decode every tile draws it from the same seed, as the JAX
+    package hands every tile the same key; the W-sharded decode draws the
+    whole latent's noise as the one pass does and slices it. A rank outside
+    the mesh of the decode it takes decodes nothing (None)."""
+    if tiling is None and vae_mesh is not None:
+        print("--vae-dp-devices has no effect without tiling (pass --tile-size or exceed the auto-tile "
+              "threshold); decoding on one rank", file=sys.stderr)
+    mesh = vae_mesh if tiling is not None else vae_w_mesh
+    if mesh is not None and not mesh.member:
+        return None
+    if tiling is None and vae_w_mesh is not None:
+        gen = torch.Generator(device=latent.device).manual_seed(seed)
+        noise = torch.randn(latent.shape, generator=gen, dtype=torch.float32, device=latent.device)
+        return _to_uint8_frames(decode_w_sharded(latent, decoder, vae_w_mesh, noise=noise)).cpu().numpy()
     if tiling is None:
         return decode_latent(latent, decoder, generator=torch.Generator(device=latent.device).manual_seed(seed))
 
@@ -218,7 +256,7 @@ def decode_video(latent: torch.Tensor, decoder: VideoDecoder, tiling: Optional[T
         noise = torch.randn(tile.shape, generator=gen, dtype=torch.float32, device=tile.device)
         return video_decoder_apply(decoder, tile, timestep=timestep, noise=noise)
 
-    return _to_uint8_frames(decode_tiled(latent, decode_tile, tiling)).cpu().numpy()
+    return _to_uint8_frames(decode_tiled(latent, decode_tile, tiling, mesh=vae_mesh)).cpu().numpy()
 
 
 @torch.no_grad()

@@ -49,7 +49,15 @@ alone. Under guidance reuse (`cfg_interval` k > 1) the uncond and
 modality rows run on steps i % k == 0 only and their fp32 deltas, per
 stream, carry between; the STG row always runs. Euler steps.
 
-Not ported: sequence/pipeline parallelism (a mesh raises).
+Sequence parallelism (`mesh`, a parallel/mesh.py grid with a `seq` axis,
+and with a `model` axis for SP x TP): each forward runs token-split over the
+mesh's `sequence_axis` (parallel/sequence_parallel.py: ring attention, the
+outputs gathered back whole on every rank), and everything around it
+(guidance, steppers, noise) runs on whole tensors, identically on every
+rank, as the JAX loops run outside their shard_map. Token counts the axis
+does not divide, shape-bucketed serving (`token_mask`) and text-KV caching
+under SP x TP are refused with the JAX package's messages. Not ported:
+pipeline parallelism (`pipeline_axis` raises).
 """
 
 from __future__ import annotations
@@ -212,9 +220,45 @@ def _ge_correct(loop_cfg: DenoiseLoopConfig, latent, denoised, sigma, prev_veloc
 
 
 def _refuse_mesh(mesh, pipeline_axis) -> None:
-    if mesh is not None or pipeline_axis is not None:
-        raise NotImplementedError("not ported to the PyTorch denoise loop yet: sequence/pipeline parallelism "
-                                  "(mesh, pipeline_axis)")
+    """Pipeline parallelism is not ported: `pipeline_axis` raises, naming it."""
+    if pipeline_axis is not None:
+        raise NotImplementedError("not ported to the PyTorch denoise loop yet: pipeline parallelism "
+                                  f"(pipeline_axis={pipeline_axis!r})")
+
+
+def mesh_loop_kwargs(sequence_mesh=None, pipeline_mesh=None) -> dict:
+    """The loop factories' kwargs for a multi-rank mode: sequence_mesh ->
+    token sharding (ring attention); pipeline_mesh -> GPipe staging over
+    'pipe' (not ported: the factories raise). Mutually exclusive."""
+    if pipeline_mesh is not None:
+        if sequence_mesh is not None:
+            raise ValueError("set sequence_mesh OR pipeline_mesh, not both")
+        return {"mesh": pipeline_mesh, "pipeline_axis": "pipe"}
+    return {"mesh": sequence_mesh}
+
+
+def _model_fn(mesh, sequence_axis: str):
+    """x0_model_apply, or under `mesh` the token-split forward over its
+    `sequence_axis`."""
+    if mesh is None:
+        return x0_model_apply
+    from ltx2_tpu_torch.parallel.sequence_parallel import make_sequence_parallel_forward
+
+    return make_sequence_parallel_forward(mesh, axis=sequence_axis)
+
+
+def _check_mesh_tokens(mesh, sequence_axis: str, token_mask, *states_and_names) -> None:
+    """The JAX loops' refusals under a mesh: a token mask, and a token count
+    the sequence axis does not divide."""
+    if mesh is None:
+        return
+    if token_mask is not None:
+        raise NotImplementedError("shape-bucketed serving (token_mask) does not compose with SP/PP meshes — pad "
+                                  "to a multiple of the mesh axis instead")
+    from ltx2_tpu_torch.parallel.sequence_parallel import check_seq_divisible
+
+    for state, what in states_and_names:
+        check_seq_divisible(state.latent.shape[1], mesh.axis(sequence_axis), what)
 
 
 def _check_loop(loop_cfg: DenoiseLoopConfig, mesh, pipeline_axis, stateful: bool) -> bool:
@@ -250,12 +294,14 @@ def make_video_denoise_loop(
     loop_cfg: DenoiseLoopConfig,
     mesh=None,
     pipeline_axis: Optional[str] = None,
+    sequence_axis: str = "seq",
 ):
     """Build the video-only denoise loop.
 
     Returns fn(model, state, sigmas (S+1,), pos_ctx, neg_ctx, token_mask=None)
     -> final LatentState (still padded when `token_mask` is given). neg_ctx
-    is read only when CFG is on."""
+    is read only when CFG is on. `mesh`: each forward token-split over its
+    `sequence_axis`."""
     # A StatefulAPGGuider returns (denoised, carry) whatever its momentum, so
     # the carry path is chosen by the attribute, not its value.
     stateful = loop_cfg.need_cfg and hasattr(loop_cfg.guider, "momentum")
@@ -266,6 +312,8 @@ def make_video_denoise_loop(
     @torch.no_grad()
     def loop(model: LTXModel, state: LatentState, sigmas: torch.Tensor, pos_ctx, neg_ctx=None,
              token_mask: Optional[torch.Tensor] = None) -> LatentState:
+        _check_mesh_tokens(mesh, sequence_axis, token_mask, (state, "video"))
+        x0 = _model_fn(mesh, sequence_axis)
         batch, device = state.latent.shape[0], state.latent.device
         mask, clean = state.denoise_mask, state.clean_latent
         ca_scales = _ca_scales(loop_cfg, model_cfg.num_layers, device)
@@ -291,8 +339,8 @@ def make_video_denoise_loop(
                                     positions=positions, clean_latent=tiled_clean)
                 modality = modality_from_state(tiled, context, sigma, uniform_timesteps=loop_cfg.uniform_timesteps,
                                                token_mask=tiled_mask)
-                out = x0_model_apply(model, modality, video_pe=video_pe, perturbations=perturb,
-                                     ca_scales=ca_scales, text_kv=text_kv)
+                out = x0(model, modality, video_pe=video_pe, perturbations=perturb, ca_scales=ca_scales,
+                         text_kv=text_kv)
                 if tiled_mask is not None:
                     # The padding is masked out of attention's keys only, so
                     # the model's outputs there are garbage; zeroed, the
@@ -364,12 +412,14 @@ def make_av_denoise_loop(
     loop_cfg: DenoiseLoopConfig,
     mesh=None,
     pipeline_axis: Optional[str] = None,
+    sequence_axis: str = "seq",
 ):
     """Build the joint audio-video denoise loop (an AudioVideo model).
 
     Returns fn(model, video_state, audio_state, sigmas (S+1,), pos_v, neg_v,
     pos_a, neg_a) -> (video LatentState, audio LatentState). The negative
-    contexts are read only when CFG is on."""
+    contexts are read only when CFG is on. `mesh`: both streams token-split
+    over its `sequence_axis` (the cross-modal K/V gathered)."""
     stateful = loop_cfg.need_cfg and (hasattr(loop_cfg.guider, "momentum")
                                       or hasattr(loop_cfg.audio_guider, "momentum"))
     reuse_cfg = _check_loop(loop_cfg, mesh, pipeline_axis, stateful)
@@ -382,6 +432,8 @@ def make_av_denoise_loop(
     @torch.no_grad()
     def loop(model: LTXModel, video_state: LatentState, audio_state: LatentState, sigmas: torch.Tensor,
              pos_v, neg_v, pos_a, neg_a) -> Tuple[LatentState, LatentState]:
+        _check_mesh_tokens(mesh, sequence_axis, None, (video_state, "video"), (audio_state, "audio"))
+        x0 = _model_fn(mesh, sequence_axis)
         batch, device = video_state.latent.shape[0], video_state.latent.device
         v_mask, v_clean = video_state.denoise_mask, video_state.clean_latent
         a_mask, a_clean = audio_state.denoise_mask, audio_state.clean_latent
@@ -406,8 +458,8 @@ def make_av_denoise_loop(
                     LatentState(latent=_tile_rows(latent, r), denoise_mask=m, positions=pos, clean_latent=c),
                     ctx, sigma, uniform_timesteps=loop_cfg.uniform_timesteps)
                     for latent, (pos, m, c), ctx in zip((v_latent, a_latent), tiled, (v_ctx, a_ctx))]
-                return x0_model_apply(model, mods[0], video_pe=video_pe, audio=mods[1], audio_pe=audio_pe,
-                                      perturbations=perturb, ca_scales=ca_scales, text_kv=text_kv)
+                return x0(model, mods[0], video_pe=video_pe, audio=mods[1], audio_pe=audio_pe,
+                          perturbations=perturb, ca_scales=ca_scales, text_kv=text_kv)
 
             return forward
 
@@ -580,12 +632,13 @@ def make_multimodal_av_denoise_loop(
     mm: MultiModalLoopConfig,
     mesh=None,
     pipeline_axis: Optional[str] = None,
+    sequence_axis: str = "seq",
 ):
     """Build the joint AV loop under the multi-modal guider.
 
     Returns fn(model, video_state, audio_state, sigmas (S+1,), pos_v, neg_v,
     pos_a, neg_a) -> (video LatentState, audio LatentState). The negative
-    contexts are read only when CFG is on."""
+    contexts are read only when CFG is on. `mesh`: as the joint loop's."""
     _refuse_mesh(mesh, pipeline_axis)
     if mm.cfg_interval < 1:
         raise ValueError(f"cfg_interval must be >= 1, got {mm.cfg_interval}")
@@ -596,6 +649,8 @@ def make_multimodal_av_denoise_loop(
     @torch.no_grad()
     def loop(model: LTXModel, video_state: LatentState, audio_state: LatentState, sigmas: torch.Tensor,
              pos_v, neg_v, pos_a, neg_a) -> Tuple[LatentState, LatentState]:
+        _check_mesh_tokens(mesh, sequence_axis, None, (video_state, "video"), (audio_state, "audio"))
+        x0 = _model_fn(mesh, sequence_axis)
         batch, device = video_state.latent.shape[0], video_state.latent.device
         if audio_state.latent.shape[0] != batch:
             raise ValueError(f"video batch {batch} != audio batch {audio_state.latent.shape[0]}")
@@ -628,8 +683,8 @@ def make_multimodal_av_denoise_loop(
                     LatentState(latent=_tile_rows(latent, r), denoise_mask=m, positions=pos, clean_latent=c),
                     ctx, sigma, uniform_timesteps=mm.uniform_timesteps)
                     for latent, (pos, m, c), ctx in zip((v_latent, a_latent), tiled, ctxs)]
-                return x0_model_apply(model, mods[0], video_pe=video_pe, audio=mods[1], audio_pe=audio_pe,
-                                      perturbations=perturb)
+                return x0(model, mods[0], video_pe=video_pe, audio=mods[1], audio_pe=audio_pe,
+                          perturbations=perturb)
 
             return forward
 

@@ -38,6 +38,12 @@ timesteps. An `initial_audio_latent` (encoded from a waveform) is frozen
 before the noiser, whose blend is then a no-op; without one the noised
 zeros are frozen after it. The generator draws the audio noise either way,
 so the video's noise does not depend on the freeze.
+
+Scale-out: `sequence_mesh`, `vae_mesh` and `vae_w_mesh` as in the
+one-stage pipeline (both stages' loops token-split; stage 1 at half
+resolution, so its token count must divide the axis too); the noise is
+drawn whole from each stage's generator on every rank, so the ranks hold
+the same state. `pipeline_mesh` raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -60,10 +66,12 @@ from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoder
 from ltx2_tpu_torch.models.video_vae.ops import normalize_latent, un_normalize_latent
 from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig
 from ltx2_tpu_torch.pipelines.common import (
-    ImageCondition, apply_conditionings, create_image_conditionings, decode_audio, decode_video, encode_image,
-    read_image,
+    ImageCondition, apply_conditionings, check_meshes, create_image_conditionings, decode_audio, decode_video,
+    encode_image, read_image,
 )
-from ltx2_tpu_torch.pipelines.denoise import DenoiseLoopConfig, make_av_denoise_loop, make_video_denoise_loop
+from ltx2_tpu_torch.pipelines.denoise import (
+    DenoiseLoopConfig, make_av_denoise_loop, make_video_denoise_loop, mesh_loop_kwargs,
+)
 from ltx2_tpu_torch.types import AudioLatentShape, VideoLatentShape, VideoPixelShape
 
 
@@ -150,10 +158,14 @@ class DistilledPipeline:
     std_of_means for the upscale bracket; default: the decoder's, else the
     encoder's. `video_encoder` encodes conditioning images."""
 
+    meshes_ported = True  # a subclass whose own loops take no mesh sets it False
+
     def __init__(self, transformer: LTXModel, spatial_upscaler: Optional[SpatialUpscaler] = None,
                  video_decoder: Optional[VideoDecoder] = None, statistics=None,
                  video_encoder: Optional[VideoEncoder] = None, audio_decoder: Optional[AudioDecoder] = None,
-                 vocoder=None):
+                 vocoder=None, sequence_mesh=None, pipeline_mesh=None, vae_mesh=None, vae_w_mesh=None):
+        check_meshes(self, pipeline_mesh, sequence_mesh=sequence_mesh, vae_mesh=vae_mesh, vae_w_mesh=vae_w_mesh)
+        self.sequence_mesh, self.vae_mesh, self.vae_w_mesh = sequence_mesh, vae_mesh, vae_w_mesh
         self.transformer = transformer
         self.spatial_upscaler = spatial_upscaler
         self.video_decoder = video_decoder
@@ -165,7 +177,8 @@ class DistilledPipeline:
         self.patchifier = VideoLatentPatchifier(patch_size=1)
         makers = {False: make_video_denoise_loop, True: make_av_denoise_loop}
         self.loops = {(audio, uniform): makers[audio](
-            transformer.cfg, DenoiseLoopConfig(guider=CFGGuider(1.0), uniform_timesteps=uniform))
+            transformer.cfg, DenoiseLoopConfig(guider=CFGGuider(1.0), uniform_timesteps=uniform),
+            **mesh_loop_kwargs(sequence_mesh))
             for audio in {False, self.is_av_model} for uniform in (True, False)}
 
     def _stats(self):
@@ -306,7 +319,8 @@ class DistilledPipeline:
 
         if skip_decode:
             return (latent, audio_latent) if config.audio_enabled else latent
-        video = decode_video(latent, self.video_decoder, config.effective_tiling(), seeds[2])
+        video = decode_video(latent, self.video_decoder, config.effective_tiling(), seeds[2],
+                             vae_mesh=self.vae_mesh, vae_w_mesh=self.vae_w_mesh)
         if not config.audio_enabled:
             return video
         if audio_latent is None:  # a video-only DiT: no audio, as in the JAX package

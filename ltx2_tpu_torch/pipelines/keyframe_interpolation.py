@@ -76,6 +76,8 @@ class KeyframeInterpolationPipeline(DistilledPipeline):
     keyframes, over the port's modules (the distilled pipeline's, whose
     video encoder encodes the keyframes)."""
 
+    meshes_ported = False  # its meshes are not ported: any mesh raises
+
     def _cfg_stage(self, config: KeyframeInterpolationConfig, height: int, width: int, conditionings,
                    sigmas: torch.Tensor, generator, noise_scale: float, text_encoding: torch.Tensor,
                    negative_encoding: torch.Tensor, cfg_scale: float, initial_latent=None, noise=None,

@@ -29,8 +29,13 @@ STG (`stg_scale`, `stg_blocks`, `stg_cutoff`, `stg_mode`), a
 cross-attention scale, `cache_text_kv`, and in the config `cfg_interval`
 (guidance reuse) and `token_bucket` (the token count padded up to a
 multiple of it, the padding masked out of self-attention's keys, sliced
-off after the loop; video only, as in the JAX package). Not ported (it
-raises NotImplementedError naming itself): every mesh.
+off after the loop; video only, as in the JAX package).
+
+Scale-out (parallel/): `sequence_mesh` runs both loops token-split (and
+SP x TP with a 'model' axis, the DiT a TP shard), `vae_mesh` decodes tiles
+data-parallel over its 'data' ranks, `vae_w_mesh` decodes an untiled latent
+W-sharded over its 'data' ranks with per-conv halos. Not ported (it raises
+NotImplementedError naming itself): `pipeline_mesh`.
 """
 
 from __future__ import annotations
@@ -52,8 +57,8 @@ from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoder
 from ltx2_tpu_torch.models.video_vae.ops import normalize_latent, un_normalize_latent
 from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig
 from ltx2_tpu_torch.pipelines.common import (
-    ImageCondition, apply_conditionings, bucketed_tokens, create_image_conditionings, decode_audio, decode_video,
-    encode_image, pad_state_tokens, slice_state_tokens,
+    ImageCondition, apply_conditionings, bucketed_tokens, check_meshes, create_image_conditionings, decode_audio,
+    decode_video, encode_image, pad_state_tokens, slice_state_tokens,
 )
 from ltx2_tpu_torch.pipelines.denoise import DenoiseLoopConfig, make_av_denoise_loop, make_video_denoise_loop
 from ltx2_tpu_torch.pipelines.distilled import AudioFields, stage_seeds
@@ -103,13 +108,13 @@ class OneStagePipeline:
     video encoder (for images) and decoder, and for audio the audio decoder
     and the vocoder."""
 
+    meshes_ported = True  # a subclass whose own loops take no mesh sets it False
+
     def __init__(self, transformer: LTXModel, video_encoder: Optional[VideoEncoder] = None,
                  video_decoder: Optional[VideoDecoder] = None, sequence_mesh=None, pipeline_mesh=None,
                  vae_mesh=None, vae_w_mesh=None, audio_decoder: Optional[AudioDecoder] = None, vocoder=None):
-        meshes = (sequence_mesh, pipeline_mesh, vae_mesh, vae_w_mesh)
-        if any(m is not None for m in meshes):
-            raise NotImplementedError("not ported to the one-stage pipeline: meshes (sequence, pipeline and VAE "
-                                      "parallelism)")
+        check_meshes(self, pipeline_mesh, sequence_mesh=sequence_mesh, vae_mesh=vae_mesh, vae_w_mesh=vae_w_mesh)
+        self.sequence_mesh, self.vae_mesh, self.vae_w_mesh = sequence_mesh, vae_mesh, vae_w_mesh
         self.transformer = transformer
         self.video_encoder = video_encoder
         self.video_decoder = video_decoder
@@ -203,7 +208,7 @@ class OneStagePipeline:
             audio_state = audio_tools.create_initial_state(dtype=dtype, device=device)
             audio_gen = None if audio_noise is not None else torch.Generator(device=device).manual_seed(audio_seed)
             audio_state = GaussianNoiser()(audio_gen, audio_state, noise_scale=1.0, noise=audio_noise)
-            state, audio_state = make_av_denoise_loop(self.transformer.cfg, loop_cfg)(
+            state, audio_state = make_av_denoise_loop(self.transformer.cfg, loop_cfg, mesh=self.sequence_mesh)(
                 self.transformer, state, audio_state, sigmas, positive_encoding, negative_encoding,
                 positive_audio_encoding, negative_audio_encoding)
             audio_latent = audio_tools.unpatchify(audio_tools.clear_conditioning(audio_state)).latent
@@ -211,7 +216,7 @@ class OneStagePipeline:
             n_real, token_mask = state.latent.shape[1], None
             if config.token_bucket:
                 state, token_mask = pad_state_tokens(state, bucketed_tokens(n_real, config.token_bucket))
-            state = make_video_denoise_loop(self.transformer.cfg, loop_cfg)(
+            state = make_video_denoise_loop(self.transformer.cfg, loop_cfg, mesh=self.sequence_mesh)(
                 self.transformer, state, sigmas, positive_encoding, negative_encoding, token_mask=token_mask)
             state = slice_state_tokens(state, n_real)
         latent = tools.unpatchify(tools.clear_conditioning(state)).latent
@@ -235,7 +240,8 @@ class OneStagePipeline:
             return latent, audio_latent
         if self.video_decoder is None:
             raise ValueError("video decoder required to decode (or pass skip_decode=True)")
-        video = decode_video(latent, self.video_decoder, config.effective_tiling(), decode_seed)
+        video = decode_video(latent, self.video_decoder, config.effective_tiling(), decode_seed,
+                             vae_mesh=self.vae_mesh, vae_w_mesh=self.vae_w_mesh)
         waveform = None
         if config.audio_enabled and audio_latent is not None:
             waveform = decode_audio(audio_latent, self.audio_decoder, self.vocoder)

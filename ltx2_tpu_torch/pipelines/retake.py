@@ -142,6 +142,8 @@ class RetakePipeline(OneStagePipeline):
     """Masked re-generation of a temporal region over the one-stage
     pipeline's modules (the DiT, the video encoder and decoder)."""
 
+    meshes_ported = False  # its meshes are not ported: any mesh raises
+
     def __call__(  # type: ignore[override]
         self,
         video_path: Optional[str],

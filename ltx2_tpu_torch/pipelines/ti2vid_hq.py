@@ -61,6 +61,8 @@ class TI2VidHQPipeline(DistilledPipeline):
     """The Res2s-sampled two-stage pipeline over the distilled pipeline's
     modules."""
 
+    meshes_ported = False  # its meshes are not ported: any mesh raises
+
     def _res2s_denoise(self, video_state: LatentState, audio_state: Optional[LatentState], sigmas: np.ndarray,
                        pos_v, neg_v, pos_a, neg_a, cfg_scale: float, audio_cfg_scale: float, callback=None):
         """The Res2s RK loop: per step a guided evaluation at sigma, the

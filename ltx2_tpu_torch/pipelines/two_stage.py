@@ -19,7 +19,8 @@ kept). Then the video decode (tiled above 4000 latent voxels) and, with
 Randomness: the JAX package splits PRNGKey(seed) into five keys; the port
 draws (stage 1, stage 2, decode) seeds as the distilled recipe does
 (`stage_seeds`), video noise before audio noise in each stage; the tests
-hand the JAX package's noise in. Not ported: meshes (the loops raise).
+hand the JAX package's noise in. Not ported: meshes (the constructor
+raises).
 """
 
 from __future__ import annotations
@@ -96,6 +97,8 @@ def _distilled_view(config: TwoStageCFGConfig) -> DistilledConfig:
 
 class TwoStagePipeline(DistilledPipeline):
     """Stage 1 under guidance, stage 2 refined with the distilled LoRA."""
+
+    meshes_ported = False  # its meshes are not ported: any mesh raises
 
     def __call__(  # type: ignore[override]
         self,

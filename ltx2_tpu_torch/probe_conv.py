@@ -92,8 +92,10 @@ def _run(variant: str, lib_path: str, cases, iters: int) -> None:
 
     from ltx2_tpu_torch.ops.conv3d import conv3d_plain, kernel_layout, tf32x3_plan, tf32x3_split
 
+    from ltx2_tpu_torch.ops._build import KERNEL_FUNCTIONS
+
     fn = ctypes.CDLL(lib_path).ltx_conv3d_ndhwc
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+    fn.argtypes = KERNEL_FUNCTIONS["ltx_conv3d_ndhwc"][1]  # the shipped entry's, strides and W-valid included
     fn.restype = ctypes.c_int
     gen = torch.Generator(device="cuda").manual_seed(2)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -121,7 +123,7 @@ def _run(variant: str, lib_path: str, cases, iters: int) -> None:
         def call():
             err = fn(x.data_ptr(), w_kernel.data_ptr(), bias.data_ptr(), out.data_ptr(),
                      None if ws is None else ws.data_ptr(), int(fp32), splits, b, t, h, w, cin, cout, kt, *modes,
-                     stream)
+                     1, 1, 1, 0, stream)  # stride 1, not W-valid
             if err:
                 raise RuntimeError(f"{variant} {case}: launch failed with CUDA error {err}")
 

@@ -178,6 +178,10 @@ def main(argv=None) -> None:
         generate.check_request(args)
     except ValueError as err:
         parser.error(str(err))
+    layout = generate._layout(args)
+    if layout:
+        raise NotImplementedError(f"{', '.join(layout)}: the server on several ranks (rank 0 reading requests and "
+                                  "broadcasting them) is not ported yet; use python -m ltx2_tpu_torch.generate")
     t0 = time.perf_counter()
     models, ledger = generate.setup(args)
     _log("models resident in %.1f s (%.2f GB of weights)", time.perf_counter() - t0, models.weight_gb())

@@ -15,6 +15,11 @@ vocoder is LTX-2.3's BWE chain when the metadata's `vocoder` config has a
 `bwe` entry, as the JAX ledger chooses. With `int8` the DiT's matmul
 weights are int8 W8A8 (loader/int8.py): quantized on the host at load, or,
 with LoRAs, loaded in full precision, fused, then quantized on the card.
+With `tp_axis` (a parallel/mesh.py model axis) the DiT loads as this rank's
+tensor-parallel shard: each tensor the rules split is sliced as it is read
+(the JAX ledger's `transformer_device_put`, utils/model_ledger.py:41-43), a
+LoRA fused into the whole tensor's slice; int8 codes split with their
+column-parallel scales, fp8 codes keep their per-tensor scale.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ class ModelLedger:
     gemma_fp8: bool = False  # Gemma's matmul weights quantized to fp8 at load
     decoder_dtype: str = "float32"  # the video decoder's compute dtype (the JAX package's is fp32)
     device: object = None  # default cuda
+    tp_axis: object = None  # the DiT loads as this rank's TP shard over it
     _cache: Dict[str, object] = field(default_factory=dict, repr=False)
 
     def __post_init__(self):
@@ -71,14 +77,19 @@ class ModelLedger:
         `int8` quantizes at load without LoRAs, else after the fuse."""
 
         def load():
+            tp = None if self.loras else self.tp_axis  # LoRAs fuse into whole tensors, sliced after
             model = load_transformer_params(self.checkpoint_path, target_dtype=self.target_dtype,
                                             device=self.device, keep_fp8=self.keep_fp8 and not self.loras,
                                             quantize_int8=self.int8 and not self.loras,
-                                            include_audio=self.include_audio)
+                                            include_audio=self.include_audio, tp_axis=tp)
             if self.loras:
                 fuse_lora_into_params(model, self.loras)
                 if self.int8:
                     quantize_params_int8(model)
+                if self.tp_axis is not None:
+                    from ltx2_tpu_torch.parallel.sharding import shard_model_
+
+                    shard_model_(model, self.tp_axis)
             return model
 
         return self._get("transformer", load, force_reload)

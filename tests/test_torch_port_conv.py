@@ -104,8 +104,10 @@ def test_boundaries_raise():
     x = torch.zeros(1, 2, 4, 4, 16)
     p = conv.Conv3d(16, 8)
     torch.nn.init.zeros_(p.weight)
-    with pytest.raises(NotImplementedError, match="halo"):
-        conv.conv3d_ndhwc(p, x, w_halo_axis="w")
+    from ltx2_tpu_torch.parallel.mesh import Axis
+
+    with pytest.raises(ValueError, match="halo"):  # the W-sharded conv takes W stride 1 only
+        conv.conv3d_ndhwc(p, x, stride=(1, 1, 2), w_halo_axis=Axis("data", 2, 0, (0, 1), None, "gloo"))
     with pytest.raises(ValueError, match="stride"):
         conv.conv3d_ndhwc(p, x, stride=(1, 3, 2))
     with pytest.raises(ValueError, match="spatial_mode"):

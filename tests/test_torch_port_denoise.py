@@ -102,10 +102,10 @@ def test_denoise_loop(weights, cfg_scale):
 
 
 def test_loop_refuses_parallelism_and_other_guiders():
-    """A mesh is not ported; the stateful APG does not compose with
-    guidance reuse (its EMA needs a fresh uncond every step), as in JAX."""
+    """Pipeline parallelism is not ported; the stateful APG does not compose
+    with guidance reuse (its EMA needs a fresh uncond every step), as in JAX."""
     with pytest.raises(NotImplementedError):
-        make_video_denoise_loop(CFG, DenoiseLoopConfig(), mesh=object())
+        make_video_denoise_loop(CFG, DenoiseLoopConfig(), pipeline_axis="pipe")
     with pytest.raises(ValueError, match="APG momentum"):
         make_video_denoise_loop(CFG, DenoiseLoopConfig(guider=guiders.StatefulAPGGuider(2.0, 0.5, momentum=0.5),
                                                        cfg_interval=2))

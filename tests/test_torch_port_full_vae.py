@@ -107,8 +107,10 @@ def test_conv_boundaries():
     assert conv.conv3d_ndhwc(p, x, stride=(2, 2, 2)).shape == (1, 2, 3, 3, 8)
     with pytest.raises(ValueError, match="stride"):
         conv.conv3d_ndhwc(p, x, stride=(1, 3, 1))
-    with pytest.raises(NotImplementedError, match="scale-out"):
-        conv.conv3d_ndhwc(p, x, w_halo_axis="w")
+    from ltx2_tpu_torch.parallel.mesh import Axis
+
+    with pytest.raises(ValueError, match="halo"):  # the W-sharded conv takes W stride 1 only
+        conv.conv3d_ndhwc(p, x, stride=(2, 2, 2), w_halo_axis=Axis("data", 2, 0, (0, 1), None, "gloo"))
 
 
 # ---------------------------------------------------------------- ops

@@ -607,3 +607,51 @@ def test_temporal_upscaler_matches_cpu_on_gpu():
     latent = torch.randn(1, 128, 3, 4, 6, generator=torch.Generator().manual_seed(2))
     rec = temporal_upscaler_against_cpu(up, latent)
     assert rec["ok"] and rec["out_shape"] == [1, 128, 5, 4, 6], rec
+
+
+@pytest.mark.gpu
+def test_w_valid_conv_kernel_matches_plain_on_gpu():
+    """Both conv kernels in their W-valid mode (the input's W holds its halo
+    columns: W - 2 outputs, W not padded; T and H keep their rules) against
+    the plain version (bf16 max 1e-2 and rms 5e-3 relative, fp32 against
+    float64 rms 2e-6 and max 1e-5), one launch each, counted as W-valid;
+    each haloed W slab of a whole input gives its slice of the whole conv
+    (bf16 bit for bit: each output sums its taps in the padded kernel's
+    order; fp32 within 1e-6 relative, its K ranges follow the voxel
+    count); a W stride raises."""
+    _need_card()
+    from ltx2_tpu_torch.ops import conv3d as C
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, cout, sm, causal in (((1, 5, 9, 7, 64), 128, "reflect", False), ((2, 3, 6, 3, 32), 48, "zeros", True)):
+            x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            w = (torch.randn(3, 3, 3, shape[-1], cout, device="cuda", generator=gen) * 0.05).to(dtype)
+            b = torch.randn(cout, device="cuda", generator=gen)
+            before = C.conv3d_ndhwc_kernel.launches, C.conv3d_ndhwc_kernel.w_valid_launches
+            out = C.conv3d(x, w, b, causal, sm, "replicate", w_valid=True)
+            assert (C.conv3d_ndhwc_kernel.launches, C.conv3d_ndhwc_kernel.w_valid_launches) == (
+                before[0] + 1, before[1] + 1)
+            assert out.shape == (*shape[:3], shape[3] - 2, cout)
+            if dtype == torch.bfloat16:
+                ref = C.conv3d_plain(x, w, b, causal, sm, "replicate", w_valid=True).float()
+                err = out.float() - ref
+                assert err.abs().max() <= 1e-2 * ref.abs().max(), shape
+                assert err.square().mean().sqrt() <= 5e-3 * ref.square().mean().sqrt(), shape
+            else:
+                ref64 = C.conv3d_plain(x.double(), w.double(), b.double(), causal, sm, "replicate", w_valid=True)
+                err = out.double() - ref64
+                assert err.square().mean().sqrt() <= 2e-6 * ref64.square().mean().sqrt(), shape
+                assert err.abs().max() <= 1e-5 * ref64.abs().max(), shape
+            # The whole conv's padding, then the slab of output columns 2..4 with its halo.
+            whole = C.conv3d(x, w, b, causal, sm, "replicate")
+            padded = (torch.cat([x[:, :, :, 1:2], x, x[:, :, :, -2:-1]], dim=3) if sm == "reflect"
+                      else torch.nn.functional.pad(x, (0, 0, 1, 1)))
+            slab = C.conv3d(padded[:, :, :, 2:6].contiguous(), w, b, causal, sm, "replicate", w_valid=True)
+            part = whole[:, :, :, 2:4]
+            if dtype == torch.bfloat16:
+                assert torch.equal(slab, part), shape
+            else:
+                assert (slab - part).abs().max() <= 1e-6 * part.abs().max(), shape
+    with pytest.raises(ValueError, match="W-valid"):
+        C.conv3d(x, w, b, stride=(1, 1, 2), w_valid=True)

@@ -99,7 +99,7 @@ def test_loop_refusals():
         make_video_denoise_loop(CFG, DenoiseLoopConfig(guider=StatefulAPGGuider(3.0, 0.5, momentum=0.5),
                                                        cfg_interval=2))
     with pytest.raises(NotImplementedError, match="parallelism"):
-        make_video_denoise_loop(CFG, DenoiseLoopConfig(), mesh=object())
+        make_video_denoise_loop(CFG, DenoiseLoopConfig(), pipeline_axis="pipe")
     # Reuse without CFG is no reuse; the stateful APG at scale 0 is off.
     make_video_denoise_loop(CFG, DenoiseLoopConfig(cfg_interval=3))
     make_video_denoise_loop(CFG, DenoiseLoopConfig(guider=StatefulAPGGuider(0.0, 0.5), cfg_interval=2))

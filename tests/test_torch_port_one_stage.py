@@ -16,8 +16,9 @@ initial noise:
   override, GE, Heun, the cross-attention scale, text-KV caching) through
   the pipeline against the JAX package's, the latent to 1e-4; STG on the
   audio stream raises ValueError on this video-only pipeline, and each
-  unported option (meshes, the VAE conv's W-sharded halo exchange, the
-  training mesh flags) raises NotImplementedError naming itself;
+  unported option (pipeline parallelism in the pipelines, the loops and
+  the command line's --pp-stages, the training mesh flags) raises
+  NotImplementedError naming itself;
 - `generate.main(["--pipeline", "one-stage", "--image", ...])` from a tiny
   checkpoint against `generate_videos_one_stage` on the same ledger, and
   `--pipeline text-to-video`; with `--token-shift` its config and sigmas
@@ -209,24 +210,21 @@ def test_text_to_video_matches_jax(weights):
     assert OneStageCFGConfig(height=480, width=704, num_frames=97).effective_tiling() is not None  # 13x15x22 > 4000
 
 
-def _halo_conv():
-    """The video VAE's conv with its W dimension sharded (the halo exchange
-    of scale-out), which prepare_data's encoder would need across cards."""
-    from ltx2_tpu_torch.models.video_vae.conv import Conv3d, conv3d_ndhwc
-
-    p = Conv3d(16, 8, device="cpu")
-    torch.nn.init.zeros_(p.weight)
-    return conv3d_ndhwc(p, torch.zeros(1, 2, 4, 4, 16), w_halo_axis="w")
+def _pp_stages():
+    """The command line's pipeline parallelism (GPipe staging across
+    ranks), which a prepare_data run over videos on several cards would
+    stage too: still unported, now that the W-sharded halo conv is."""
+    return generate.main(["--pipeline", "one-stage", "--device", "cpu", "--pp-stages", "2"])
 
 
 # option -> (a word its message must name, the call that must refuse it)
 UNPORTED = {
-    "prepare_data_videos": ("scale-out", lambda p, c, x: _halo_conv()),
+    "prepare_data_videos": ("pp-stages", lambda p, c, x: _pp_stages()),
     "train_mesh_flags": ("one device", lambda p, c, x: train.main(
         ["--placeholder", "--device", "cpu", "--synthetic", "1", "2", "2", "--zero1"])),
-    "meshes": ("meshes", lambda p, c, x: OneStagePipeline(p.transformer, sequence_mesh=object())),
+    "meshes": ("pipeline_mesh", lambda p, c, x: OneStagePipeline(p.transformer, pipeline_mesh=object())),
     "multimodal_loop_meshes": ("parallelism", lambda p, c, x: make_multimodal_av_denoise_loop(
-        p.transformer.cfg, MultiModalLoopConfig(), mesh=object())),
+        p.transformer.cfg, MultiModalLoopConfig(), pipeline_axis="pipe")),
 }
 
 

@@ -195,7 +195,7 @@ def test_multimodal_rows_and_refusals():
     with pytest.raises(ValueError, match="cfg_interval"):
         denoise.make_multimodal_av_denoise_loop(CFG, denoise.MultiModalLoopConfig(cfg_interval=0))
     with pytest.raises(NotImplementedError, match="parallelism"):
-        denoise.make_multimodal_av_denoise_loop(CFG, denoise.MultiModalLoopConfig(), mesh=object())
+        denoise.make_multimodal_av_denoise_loop(CFG, denoise.MultiModalLoopConfig(), pipeline_axis="pipe")
 
 
 # ---- The LoRA ------------------------------------------------------------------

@@ -338,3 +338,12 @@ def write_tokenizer(directory, vocab_size: int = 120):
         json.dump({"tokenizer_class": "PreTrainedTokenizerFast", "bos_token": "<bos>", "eos_token": "<eos>",
                    "pad_token": "<pad>", "unk_token": "<unk>", "model_max_length": 1_000_000}, fh)
     return str(directory)
+
+
+def spawn_ranks(fn, world: int, directory, *args, timeout: float = 240.0) -> list:
+    """`parallel.runtime.spawn_ranks` as the tests launch it: `world` gloo
+    ranks on the CPU, torch on one thread in each; fn(rank, world, *args)
+    of each rank in rank order."""
+    from ltx2_tpu_torch.parallel.runtime import spawn_ranks as spawn
+
+    return spawn(fn, world, directory, *args, threads=1, timeout=timeout)
