@@ -336,6 +336,7 @@ import contextlib
 import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -6303,10 +6304,195 @@ def _residuals_case(smi: str) -> dict:
     return rec
 
 
-def _scale_out_rank(rank: int, world: int) -> dict:
-    """One rank of phase_scale_out (under parallel.runtime.spawn_ranks): the
-    ring check, the SP clip, the TP step and the decodes."""
+# Pipeline parallelism, the six pipelines' meshes, --auto-shard and the
+# server on several ranks, through the command line at full width and
+# PP_CLI_LAYERS blocks: a 256x384x25 clip (384 tokens, 96 at stage 1, 26
+# audio tokens: every count SP-2 divides; latent W 12, which --vae-w-shard 2
+# splits). Each is held to world 1's run of the same arguments.
+PP_CLI_LAYERS = 2
+PP_CLI_SIZE = ("--height", "256", "--width", "384", "--frames", "25", "--seed", str(SCALE_OUT_SEED))
+PP_CLI_FLOWS = {
+    "one_stage_pp": (["--pipeline", "one-stage", "--num-inference-steps", "3"], ["--pp-stages", "2"]),
+    "keyframe_sp": (["--pipeline", "keyframe"], ["--sp-devices", "2", "--vae-w-shard", "2"]),
+    "a2vid_sp": (["--pipeline", "a2vid", "--audio"], ["--sp-devices", "2", "--vae-w-shard", "2"]),
+    "auto_shard": (["--pipeline", "distilled"], ["--auto-shard", "2"]),
+}
+PP_SERVE_ARGS = ["--pipeline", "one-stage", "--num-inference-steps", "3", "--layers", str(PP_CLI_LAYERS),
+                 *PP_CLI_SIZE[:6], "--device", "cuda"]
+PP_HOP_BYTES = 50 * 2 ** 20  # the stage-2 clip's activation hop: 6144 tokens x 4096 x bf16
+# Each rank's resident DiT weights under PP-2 against world 1's.
+TOL_PP_WEIGHT_SHARE = 0.55
+
+
+def _pp_cli_argv(name: str, directory: str, layout: bool, backend: str) -> list:
+    """`generate.main`'s arguments of a PP_CLI_FLOWS run (with its layout
+    flags and the world's backend when `layout`), its output an .mp4 (the
+    no-ffmpeg save writes <base>_frames.npz: the frames themselves)."""
+    import os
+
+    base, flags = PP_CLI_FLOWS[name]
+    out = os.path.join(directory, f"{name}_{'layout' if layout else 'world1'}.mp4")
+    argv = [*base, "--layers", str(PP_CLI_LAYERS), *PP_CLI_SIZE, "--device", "cuda", "--output", out]
+    if name == "keyframe_sp":
+        argv += ["--keyframe", f"{directory}/first.png:0:1.0", "--keyframe", f"{directory}/last.png:24:0.95"]
+    if name == "a2vid_sp":
+        argv += ["--audio-file", f"{directory}/source.wav"]
+    if layout:
+        argv += [*flags, "--dist-backend", backend]
+    return argv
+
+
+def _pp_cli_inputs(directory: str) -> None:
+    """The keyframes and the a2vid source the CLI runs read."""
+    _write_png(f"{directory}/first.png", IMAGE_SEED, (256, 384))
+    _write_png(f"{directory}/last.png", IMAGE_SEED + 1, (256, 384))
+    _write_source_wav(f"{directory}/source.wav")
+
+
+def _frames_of(mp4: str):
+    import numpy as np
+
+    with np.load(mp4[:-4] + "_frames.npz") as data:
+        return data["frames"]
+
+
+def _quiet_main(fn, argv: list) -> tuple:
+    """fn(argv) with its stdout and stderr captured: (result, stdout, stderr)."""
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        result = fn(argv)
+    return result, out.getvalue(), err.getvalue()
+
+
+def _so_pp_clip(rank: int, mesh, world: int) -> dict:
+    """The PP-2 distilled clip: the DiT drawn as this rank's stage (48 fp8
+    blocks, every block drawn, the stage's kept), the clip decoded, then its
+    stage-2 latent; each rank's resident weights, peak memory, bytes by
+    operation and route, seconds and launches."""
     import torch
+
+    from ltx2_tpu_torch.generate import generate_videos_distilled, make_dit
+    from ltx2_tpu_torch.loader.fp8 import weight_bytes
+    from ltx2_tpu_torch.parallel import collectives
+    from ltx2_tpu_torch.parallel.pipeline_parallel import resident_blocks
+
+    pipe = mesh.axis("pipe")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dit = make_dit(LAYERS, torch.device("cuda"), fp8=True, pipe_axis=pipe)
+    torch.cuda.synchronize()
+    rec = {"dit_init_s": time.perf_counter() - t0, "resident_weights_gb": weight_bytes(dit) / 1e9,
+           "resident_blocks": resident_blocks(dit), "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    torch.cuda.reset_peak_memory_stats()
+    collectives.reset_stats()
+    before = _so_counts()
+    t0 = time.perf_counter()
+    out, stats = generate_videos_distilled([SCALE_OUT_SEED], height=HEIGHT, width=WIDTH, frames=FRAMES,
+                                           layers=LAYERS, device="cuda", dit=dit,
+                                           meshes={"pipeline_mesh": mesh})
+    rec.update(seconds=time.perf_counter() - t0, launches=_so_delta(before),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               bytes={k: dict(v) for k, v in collectives.STATS["bytes"].items()},
+               bytes_sent=collectives.STATS["bytes_sent"], bytes_received=collectives.STATS["bytes_received"],
+               calls=dict(collectives.STATS["calls"]), routes=dict(collectives.STATS["routes"]),
+               stats={k: v for k, v in stats[0].items() if k.endswith("_s")})
+    t0 = time.perf_counter()
+    latent, _ = generate_videos_distilled([SCALE_OUT_SEED], height=HEIGHT, width=WIDTH, frames=FRAMES,
+                                          layers=LAYERS, device="cuda", dit=dit, skip_decode=True,
+                                          meshes={"pipeline_mesh": mesh})
+    rec["latent_run_s"] = time.perf_counter() - t0
+    if rank == 0:
+        rec["frames"], rec["latent"] = out[0], latent[0]
+    del dit
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _so_hop_rate(rank: int, mesh) -> dict:
+    """The pipeline's activation hop alone: PP_HOP_BYTES from stage 0 to
+    stage 1 and back, on the route the world takes, 5 times after a warm
+    one; bytes a second of one hop."""
+    import torch
+
+    from ltx2_tpu_torch.parallel.collectives import recv_start, route, send_start
+
+    pipe = mesh.axis("pipe")
+    x = torch.ones(PP_HOP_BYTES // 2, dtype=torch.bfloat16, device="cuda")
+
+    def there_and_back():
+        if pipe.index == 0:
+            send_start([x], pipe, 1).wait()
+            recv_start([x], pipe, 1).wait()
+        else:
+            y = recv_start([x], pipe, 0).wait()[0]
+            send_start([y], pipe, 0).wait()
+        torch.cuda.synchronize()
+
+    there_and_back()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        there_and_back()
+    seconds = (time.perf_counter() - t0) / 10
+    return {"route": route(x, pipe, point_to_point=True), "bytes": PP_HOP_BYTES, "hop_s": seconds,
+            "bytes_per_s": PP_HOP_BYTES / seconds}
+
+
+def _so_cli(rank: int, world: int, backend: str, directory: str) -> dict:
+    """The PP_CLI_FLOWS runs through `generate.main` with their layout flags
+    (each rank's launches, seconds and stderr tail; rank 0 keeps the
+    frames), then `serve.main` on the requests file with --pp-stages 2."""
+    import torch
+
+    from ltx2_tpu_torch import generate, serve
+    from ltx2_tpu_torch.parallel import collectives
+
+    rec = {}
+    for name in PP_CLI_FLOWS:
+        argv = _pp_cli_argv(name, directory, True, backend)
+        collectives.reset_stats()
+        before = _so_counts()
+        t0 = time.perf_counter()
+        _, out, err = _quiet_main(generate.main, argv)
+        torch.cuda.synchronize()
+        r = {"seconds": time.perf_counter() - t0, "launches": _so_delta(before), "stdout": out.strip(),
+             "bytes_sent": collectives.STATS["bytes_sent"], "calls": dict(collectives.STATS["calls"])}
+        if name == "auto_shard":
+            r["choice"] = [line for line in err.splitlines() if line.startswith("--auto-shard")]
+        if rank == 0:
+            r["frames"] = _frames_of(argv[argv.index("--output") + 1])
+        rec[name] = r
+        torch.cuda.empty_cache()
+    argv = [*PP_SERVE_ARGS, "--requests", f"{directory}/requests_served.jsonl", "--pp-stages", "2",
+            "--dist-backend", backend]
+    collectives.reset_stats()
+    before = _so_counts()
+    t0 = time.perf_counter()
+    _, out, err = _quiet_main(serve.main, argv)
+    rec["serve"] = {"seconds": time.perf_counter() - t0, "launches": _so_delta(before), "stdout": out.strip()}
+    if rank == 0:
+        rec["serve"]["frames"] = [_frames_of(f"{directory}/served_{i}.mp4") for i in range(2)]
+    return rec
+
+
+def _serve_requests(directory: str, tag: str) -> str:
+    """Two JSON-lines requests (outputs `<tag>_<i>.mp4`); the file's path."""
+    path = f"{directory}/requests_{tag}.jsonl"
+    with open(path, "w") as f:
+        for i in range(2):
+            f.write(json.dumps({"output": f"{directory}/{tag}_{i}.mp4", "seed": SCALE_OUT_SEED + i}) + "\n")
+    return path
+
+
+def _scale_out_rank(rank: int, world: int, directory: str = "") -> dict:
+    """One rank of phase_scale_out (under parallel.runtime.spawn_ranks): the
+    ring check, the SP clip, the TP step and the decodes; then the PP-2
+    clip and the activation hop's rate; then the command line's PP, SP,
+    --auto-shard and server runs (`_so_cli`)."""
+    import torch
+    import torch.distributed as dist
 
     from ltx2_tpu_torch.generate import make_dit
     from ltx2_tpu_torch.parallel.mesh import create_mesh
@@ -6315,6 +6501,7 @@ def _scale_out_rank(rank: int, world: int) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     seq = create_mesh(data=1, model=1, seq=world)
     tp = create_mesh(data=1, model=world)
+    pp = create_mesh(data=1, model=1, pipe=world)
     rec = {"device": str(torch.cuda.current_device())}
     t0 = time.perf_counter()
     rec["ring"] = _so_ring(rank, world, seq)
@@ -6331,6 +6518,12 @@ def _scale_out_rank(rank: int, world: int) -> dict:
     t0 = time.perf_counter()
     rec["decodes"] = _so_decodes(rank, world)
     rec["decodes"]["check_s"] = time.perf_counter() - t0
+    rec["pp_clip"] = _so_pp_clip(rank, pp, world)
+    rec["hop"] = _so_hop_rate(rank, pp)
+    dist.barrier()
+    t0 = time.perf_counter()
+    rec["cli"] = _so_cli(rank, world, dist.get_backend(), directory)
+    rec["cli"]["check_s"] = time.perf_counter() - t0
     return rec
 
 
@@ -6343,15 +6536,23 @@ def phase_scale_out(smi: str) -> tuple:
     distilled clip (48 fp8 blocks, stage 1 at 1536 tokens, stage 2 at 6144)
     against world 1, its frames and its stage-2 latent, a TP-2 step at 6144
     tokens against world 1 with each rank's peak memory, and the W-sharded
-    and tile-parallel decodes against the unsharded one. Returns (record,
-    the ranks' main-path counts)."""
+    and tile-parallel decodes against the unsharded one; the PP-2 clip (each
+    rank's stage of the fp8 DiT) against world 1 with each rank's resident
+    weights, bytes, seconds and launches, and the activation hop's rate;
+    then through the command line at full width and PP_CLI_LAYERS blocks
+    (each against world 1's run here): one-stage CFG at --pp-stages 2,
+    keyframe and a2vid at --sp-devices 2 --vae-w-shard 2, distilled at
+    --auto-shard 2, and serve.py with --pp-stages 2 on two requests.
+    Returns (record, the ranks' main-path counts by path)."""
     import datetime
     import tempfile
 
     import numpy as np
     import torch
 
+    from ltx2_tpu_torch import generate, serve
     from ltx2_tpu_torch.generate import make_dit
+    from ltx2_tpu_torch.loader.fp8 import weight_bytes
     from ltx2_tpu_torch.parallel.runtime import spawn_ranks
 
     t_phase = time.perf_counter()
@@ -6359,20 +6560,36 @@ def phase_scale_out(smi: str) -> tuple:
     k2 = _residuals_case(smi)
     t0 = time.perf_counter()
     dit = make_dit(LAYERS, torch.device("cuda"), fp8=True)
-    ref_frames, _ = _so_clip(dit)
+    ref_frames, ref_stats = _so_clip(dit)
     world1_s = time.perf_counter() - t0
     ref_latent, _ = _so_clip(dit, skip_decode=True)
+    world1_weights_gb = weight_bytes(dit) / 1e9
     del dit
     gc.collect()
     torch.cuda.empty_cache()
+    cli_dir = tempfile.mkdtemp(prefix="ltx_scale_out_cli_")
+    _pp_cli_inputs(cli_dir)
+    for tag in ("world1", "served"):
+        _serve_requests(cli_dir, tag)
+    t0 = time.perf_counter()
+    cli_ref = {}
+    for name in PP_CLI_FLOWS:
+        argv = _pp_cli_argv(name, cli_dir, False, "")
+        _quiet_main(generate.main, argv)
+        cli_ref[name] = _frames_of(argv[argv.index("--output") + 1])
+        torch.cuda.empty_cache()
+    _, served_ref, _ = _quiet_main(serve.main, [*PP_SERVE_ARGS, "--requests", f"{cli_dir}/requests_world1.jsonl"])
+    serve_ref = [_frames_of(f"{cli_dir}/world1_{i}.mp4") for i in range(2)]
+    world1_cli_s = time.perf_counter() - t0
     routes = [("gloo", SCALE_OUT_WORLD)]
     if torch.cuda.device_count() >= SCALE_OUT_WORLD:
         routes.append(("nccl", SCALE_OUT_WORLD))
-    record, counts = {"world_1_clip_s": world1_s, "k2_case": k2, "routes": {}}, {}
+    record, counts = {"world_1_clip_s": world1_s, "world_1_cli_s": world1_cli_s, "k2_case": k2,
+                      "world_1_weights_gb": world1_weights_gb, "routes": {}}, {}
     for backend, world in routes:
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="ltx_scale_out_") as directory:
-            ranks = spawn_ranks(_scale_out_rank, world, directory, backend=backend, device="cuda",
+            ranks = spawn_ranks(_scale_out_rank, world, directory, cli_dir, backend=backend, device="cuda",
                                 timeout=SCALE_OUT_TIMEOUT_S,
                                 collective_timeout=datetime.timedelta(seconds=SCALE_OUT_PG_TIMEOUT_S))
         wall = time.perf_counter() - t0
@@ -6416,12 +6633,88 @@ def phase_scale_out(smi: str) -> tuple:
         counts[backend] = {k: sum(r["sp_clip"]["launches"][k] + r["decodes"]["w_sharded"]["launches"][k]
                                   + r["decodes"]["tile_parallel"]["launches"][k] for r in per_rank)
                            for k in ("fwd", "residuals", "conv", "conv_w_valid")}
+        if not all(counts[backend][k] for k in ("fwd", "residuals", "conv_w_valid")):
+            raise AssertionError(f"scale-out over {backend}: a kernel of the path never launched: {counts[backend]}")
+        pp_rec, pp_counts = _so_pp_checks(backend, ranks, ref_frames, ref_latent, ref_stats, world1_weights_gb,
+                                          cli_ref, serve_ref, served_ref, smi)
+        record["routes"][backend].update(pp_rec)
+        counts.update({f"{backend}_{path}": c for path, c in pp_counts.items()})
+    shutil.rmtree(cli_dir, ignore_errors=True)
     record["seconds"] = time.perf_counter() - t_phase
     log(f"scale-out phase: {record['seconds']:.1f} s, launches on its paths {json.dumps(counts)} | {smi}")
-    for backend, c in counts.items():
-        if not (c["fwd"] and c["residuals"] and c["conv_w_valid"]):
-            raise AssertionError(f"scale-out over {backend}: a kernel of the path never launched: {c}")
     return record, counts
+
+
+def _so_pp_checks(backend: str, ranks: list, ref_frames, ref_latent, ref_stats: dict, world1_weights_gb: float,
+                  cli_ref: dict, serve_ref: list, served_ref: str, smi: str) -> tuple:
+    """phase_scale_out's gates on the PP clip and the command line's runs
+    of one route: (record, launches by path, summed over the ranks). Each
+    path must launch its kernels: K1 on every rank of the PP clip, summed
+    to world 1's count; K2 and the W-valid conv on the SP runs."""
+    import numpy as np
+    import torch
+
+    r0 = ranks[0]
+    frames, latent = r0["pp_clip"].pop("frames"), r0["pp_clip"].pop("latent")
+    levels = _frame_diff(frames, ref_frames)
+    latent_err = _mismatch(torch.from_numpy(latent), torch.from_numpy(ref_latent))
+    pp = {"frames_vs_world_1": levels, "latent_vs_world_1": latent_err,
+          "bitwise": bool(np.array_equal(frames, ref_frames) and np.array_equal(latent, ref_latent)),
+          "world_1_fwd_launches": ref_stats["attention_launches"],
+          "per_rank": [{k: v for k, v in r["pp_clip"].items()} for r in ranks], "hop": [r["hop"] for r in ranks]}
+    if frames.shape != ref_frames.shape or not np.isfinite(frames).all() \
+            or levels["mean_levels"] > TOL_SP_MEAN_LEVELS:
+        raise AssertionError(f"PP-2 clip over {backend} against world 1: {levels} (mean limit {TOL_SP_MEAN_LEVELS})")
+    if latent.shape != ref_latent.shape or not latent_err["finite"] \
+            or latent_err["rms_rel_err"] > TOL_SP_LATENT_RMS_REL:
+        raise AssertionError(f"PP-2 stage-2 latent over {backend} against world 1: {latent_err} (rms limit "
+                             f"{TOL_SP_LATENT_RMS_REL})")
+    fwd = [r["pp_clip"]["launches"]["fwd"] for r in ranks]
+    if min(fwd) == 0 or sum(fwd) != ref_stats["attention_launches"]:
+        raise AssertionError(f"PP-2 clip over {backend}: K1 launches by rank {fwd}, world 1 "
+                             f"{ref_stats['attention_launches']}")
+    for i, r in enumerate(ranks):
+        share = r["pp_clip"]["resident_weights_gb"] / world1_weights_gb
+        if share > TOL_PP_WEIGHT_SHARE:
+            raise AssertionError(f"PP-2 rank {i}: resident DiT weights {r['pp_clip']['resident_weights_gb']:.2f} GB, "
+                                 f"{share:.3f} of world 1's (limit {TOL_PP_WEIGHT_SHARE})")
+        log(f"PP-2 clip rank {i} over {backend}: blocks {r['pp_clip']['resident_blocks'][0]}-"
+            f"{r['pp_clip']['resident_blocks'][-1]}, resident DiT {r['pp_clip']['resident_weights_gb']:.2f} GB "
+            f"({share:.3f} of world 1's {world1_weights_gb:.2f}), peak {r['pp_clip']['peak_gb']:.2f} GB (init "
+            f"{r['pp_clip']['init_peak_gb']:.2f}), {r['pp_clip']['seconds']:.2f} s, K1 launches "
+            f"{r['pp_clip']['launches']['fwd']}, bytes {json.dumps(r['pp_clip']['bytes'])}, hop "
+            f"{json.dumps(r['hop'])} | {smi}")
+    counts = {"pp_clip": {k: sum(r["pp_clip"]["launches"][k] for r in ranks)
+                          for k in ("fwd", "residuals", "conv", "conv_w_valid")}}
+    cli = {}
+    for name in (*PP_CLI_FLOWS, "serve"):
+        got = r0["cli"][name].pop("frames")
+        ref = serve_ref if name == "serve" else cli_ref[name]
+        pairs = list(zip(got, ref)) if name == "serve" else [(got, ref)]
+        diffs = [_frame_diff(a, b) for a, b in pairs]
+        if any(a.shape != b.shape for a, b in pairs) or any(d["mean_levels"] > TOL_SP_MEAN_LEVELS for d in diffs):
+            raise AssertionError(f"{name} over {backend} against world 1: {diffs} (mean limit {TOL_SP_MEAN_LEVELS})")
+        c = {k: sum(r["cli"][name]["launches"][k] for r in ranks) for k in ("fwd", "residuals", "conv",
+                                                                          "conv_w_valid")}
+        need = ("fwd", "residuals", "conv_w_valid") if name in ("keyframe_sp", "a2vid_sp") else ("fwd",)
+        if not all(c[k] for k in need) or not all(r["cli"][name]["launches"]["fwd"] for r in ranks):
+            raise AssertionError(f"{name} over {backend}: a kernel of the path never launched: {c} (by rank "
+                                 f"{[r['cli'][name]['launches'] for r in ranks]})")
+        counts[name] = c
+        cli[name] = {"vs_world_1": diffs, "bitwise": all(np.array_equal(a, b) for a, b in pairs),
+                     "seconds": [r["cli"][name]["seconds"] for r in ranks], "launches": c}
+        if name == "auto_shard":
+            cli[name]["choice"] = r0["cli"][name]["choice"]
+    served = [r["cli"]["serve"]["stdout"] for r in ranks]
+    responses = [json.loads(line) for line in served[0].splitlines()]
+    if len(responses) != 2 or any(x["status"] != "ok" for x in responses) or any(served[1:]):
+        raise AssertionError(f"serve.py over {backend} on {len(ranks)} ranks: rank 0 printed {served[0]!r}, the "
+                             f"others {served[1:]!r}")
+    cli["serve"]["other_ranks_stdout"] = served[1:]
+    cli["serve"]["world_1_lines"] = len(served_ref.splitlines())
+    log(f"PP-2 clip over {backend}: {json.dumps({k: v for k, v in pp.items() if k != 'per_rank'})} | {smi}")
+    log(f"scale-out command line over {backend}: {json.dumps(cli)} | {smi}")
+    return {"pp_clip": pp, "cli": cli}, counts
 
 
 def main():

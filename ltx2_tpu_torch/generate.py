@@ -161,17 +161,18 @@ resident models, so each module is released when its phase is over; the
 server (`python -m ltx2_tpu_torch.serve`) keeps the launch's modules
 resident (`ResidentModels`) and runs one `execute_request` a request.
 
-Scale-out (`distilled`, `one-stage`, `text-to-video`; parallel/): one
-process per rank, launched by `torchrun`; `--sp-devices S` splits the
-tokens over S ranks (ring attention), `--tp-devices T` the DiT's heads and
-features over T ranks (S x T with both; the DiT's layout must use every
-rank of the launch), `--vae-dp-devices N` decodes tiles data-parallel over
+Scale-out (every pipeline but bench-e2e; parallel/): one process per
+rank, launched by `torchrun`; `--sp-devices S` splits the tokens over S
+ranks (ring attention), `--tp-devices T` the DiT's heads and features over
+T ranks (S x T x P with `--pp-stages`; the DiT's layout must use every rank
+of the launch), `--vae-dp-devices N` decodes tiles data-parallel over
 N ranks and `--vae-w-shard N` decodes an untiled latent W-sharded over N
 ranks. Backend: nccl when every rank has a card of its own, else name
 `--dist-backend gloo` (ranks sharing one card, or the CPU). Every rank
-draws the same noise; rank 0 writes the outputs. `--pp-stages` and
-`--auto-shard` (and the layout flags on the other pipelines) raise
-NotImplementedError.
+draws the same noise; rank 0 writes the outputs. `--pp-stages P` stages
+the DiT's blocks over P ranks (GPipe; composes with SP and TP in one
+(pipe, seq, model) mesh) and `--auto-shard N` picks the layout of N ranks
+from the advisor's cost model.
 
 From Python: `generate_video(seed=0)`, `generate_videos([0, 1, ...])` or
 `generate_videos_distilled([0, 1, ...], text_encoder=True)`. From the shell
@@ -386,7 +387,7 @@ def _weights_restored(model, loras: Sequence[LoRAConfig]):
 
 
 def make_dit(layers: int, device: torch.device, seed: int = 0, base: LTXModelConfig = LTXModelConfig(),
-             fp8: bool = False, int8: bool = False) -> LTXModel:
+             fp8: bool = False, int8: bool = False, pipe_axis=None) -> LTXModel:
     """The video DiT of config `base` (default: full width) at `layers`
     depth, random weights drawn on the device from `seed`. With `fp8` its
     linears are then kept in fp8 (`quantize_params_fp8`), as
@@ -394,18 +395,25 @@ def make_dit(layers: int, device: torch.device, seed: int = 0, base: LTXModelCon
     (`quantize_params_int8`, as the JAX CLI's --int8 quantizes a random
     DiT). Either way each block is drawn and quantized before the next is
     drawn, so the model in `base`'s dtype never exists whole, and the draws
-    are those of the unquantized model."""
+    are those of the unquantized model. With `pipe_axis` (a mesh's pipe
+    axis) the model is this rank's pipeline stage: every block is drawn, one
+    at a time, and only the stage's are kept (the others' places hold an
+    `AbsentBlock`), so the kept weights are world 1's."""
     if fp8 and int8:
         raise ValueError("fp8 and int8 are exclusive")
     cfg = dataclasses.replace(base, num_layers=layers)
     gen = torch.Generator(device=device).manual_seed(seed)
-    if not (fp8 or int8):
+    staged = pipe_axis is not None and pipe_axis.size > 1
+    if not (fp8 or int8 or staged):
         return init_ltx_model_(LTXModel(cfg, device=device), gen)
-    quantize = quantize_params_fp8 if fp8 else quantize_params_int8
+    from ltx2_tpu_torch.parallel.pipeline_parallel import AbsentBlock, stage_layers
+
+    keep = stage_layers(layers, pipe_axis if staged else None)
+    quantize = quantize_params_fp8 if fp8 else quantize_params_int8 if int8 else (lambda m, prefix="": m)
     dit = quantize(init_ltx_model_(LTXModel(dataclasses.replace(cfg, num_layers=0), device=device), gen))
     for i in range(layers):
-        block = make_block(cfg, device)
-        dit.transformer_blocks.append(quantize(init_ltx_model_(block, gen), f"transformer_blocks.{i}"))
+        block = init_ltx_model_(make_block(cfg, device), gen)
+        dit.transformer_blocks.append(quantize(block, f"transformer_blocks.{i}") if i in keep else AbsentBlock())
     dit.cfg = cfg
     return dit
 
@@ -644,7 +652,8 @@ def _text_contexts(seeds, stats, device, contexts, text_encoder, gemma, ledger, 
 
 
 def _dit_and_encoder(stats, device, layers: int, dit, encoder, images, ledger, context_width: Optional[int],
-                     dtype: str = "bfloat16", audio: bool = False, fp8: bool = True, int8: bool = False):
+                     dtype: str = "bfloat16", audio: bool = False, fp8: bool = True, int8: bool = False,
+                     meshes: Optional[dict] = None):
     """The DiT (given, from `ledger`, or random at `layers` in `dtype`, with
     a caption projection from `context_width` channels when the contexts
     are not the model's 4096 wide; with `audio` the audio-video DiT, kept in
@@ -653,14 +662,20 @@ def _dit_and_encoder(stats, device, layers: int, dit, encoder, images, ledger, c
     encoder (given, from `ledger`, or random), each timed. Raises when the
     DiT's text input (its caption projection's, else its context width)
     does not take `context_width` channels, and when `audio` is asked of a
-    video-only DiT."""
+    video-only DiT. Under `meshes` the DiT is this rank's placement
+    (`place_transformer`; a random one drawn as its stage, `make_dit`), and
+    its weight bytes in the stats are the rank's."""
     if dit is None and ledger is not None:
         dit = _built(device, stats[0], "dit_init_s", "transformer", ledger.transformer)
     elif dit is None:
         base = av_config(LTXModelConfig(compute_dtype=dtype)) if audio else LTXModelConfig(compute_dtype=dtype)
         if context_width not in (None, base.cross_attention_dim):
             base = dataclasses.replace(base, caption_channels=context_width)
-        dit = _random_dit(stats, device, layers, base, fp8=audio and fp8 and not int8, int8=int8)
+        check_pipe_stages(layers, meshes)
+        dit = _random_dit(stats, device, layers, base, fp8=audio and fp8 and not int8, int8=int8,
+                          pipe_axis=pipe_axis_of(meshes))
+    if meshes:
+        dit = place_transformer(dit, meshes)
     stats[0]["dit_weight_gb"] = weight_bytes(dit) / 1e9
     if audio and not dit.cfg.is_av:
         raise ValueError("audio needs the audio-video DiT (a checkpoint loaded with include_audio, or av_config)")
@@ -675,11 +690,13 @@ def _dit_and_encoder(stats, device, layers: int, dit, encoder, images, ledger, c
     return dit, encoder
 
 
-def _random_dit(stats, device, layers: int, base: LTXModelConfig, fp8: bool = False, int8: bool = False) -> LTXModel:
-    """`make_dit(layers, base=base, fp8=fp8, int8=int8)`, timed (kept by its
-    settings inside `resident`)."""
-    return _built(device, stats[0], "dit_init_s", ("dit", layers, repr(base), fp8, int8),
-                  lambda: make_dit(layers, device, base=base, fp8=fp8, int8=int8))
+def _random_dit(stats, device, layers: int, base: LTXModelConfig, fp8: bool = False, int8: bool = False,
+                pipe_axis=None) -> LTXModel:
+    """`make_dit(layers, base=base, fp8=fp8, int8=int8, pipe_axis=pipe_axis)`,
+    timed (kept by its settings inside `resident`)."""
+    stage = None if pipe_axis is None else (pipe_axis.index, pipe_axis.size)
+    return _built(device, stats[0], "dit_init_s", ("dit", layers, repr(base), fp8, int8, stage),
+                  lambda: make_dit(layers, device, base=base, fp8=fp8, int8=int8, pipe_axis=pipe_axis))
 
 
 def _spatial_upscaler(stats, device, upscaler, ledger, needed_by: Optional[str]) -> Optional[SpatialUpscaler]:
@@ -964,8 +981,9 @@ def generate_videos_distilled(
     phase's peak memory (GB; None otherwise). `phase_peaks` resets the
     process's peak memory statistics at every phase boundary, so only a
     caller that owns them asks for it. `meshes` (`build_meshes`): the
-    loops token-split over "sequence_mesh", the DiT this rank's TP shard
-    (`place_transformer`), the decode over "vae_mesh" / "vae_w_mesh".
+    loops token-split over "sequence_mesh" or staged over "pipeline_mesh",
+    the DiT this rank's TP shard or pipeline stage (`place_transformer`),
+    the decode over "vae_mesh" / "vae_w_mesh".
     """
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -985,14 +1003,12 @@ def generate_videos_distilled(
     gemma = text_encoder = None
     dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, images, ledger,
                                     None if contexts is None else contexts[0].shape[-1], dtype, audio,
-                                    int8=int8)
-    dit = place_transformer(dit, meshes)
+                                    int8=int8, meshes=meshes)
     upscaler = _spatial_upscaler(stats, device, upscaler, ledger, "the two-stage recipe")
     cfg = dit.cfg
     statistics = _latent_statistics(cfg, decoder, ledger, device)
-    meshes = meshes or {}
     pipe = DistilledPipeline(dit, upscaler, statistics=statistics, video_encoder=encoder,
-                             sequence_mesh=meshes.get("sequence_mesh"))
+                             **loop_meshes(meshes))
 
     configs, latents, audio_latents = [], [], []
     for i, (seed, st) in enumerate(zip(seeds, stats)):
@@ -1055,6 +1071,7 @@ def generate_videos_keyframe(
     skip_decode: bool = False,
     int8: bool = False,
     end_states: Optional[list] = None,
+    meshes: Optional[dict] = None,
 ) -> Tuple[List[np.ndarray], List[dict]]:
     """Keyframe interpolation (pipelines/keyframe_interpolation.py), one
     clip per seed: `keyframes` (`Keyframe`s: PNG, pixel frame, strength)
@@ -1070,7 +1087,8 @@ def generate_videos_keyframe(
     noise, the appended tokens included; `end_states`, when given,
     receives each stage's final loop state (its keyframe tokens too). Stats
     per request: the seconds and peaks of the text encode, stage 1,
-    upscale, stage 2 and decode, the launches, the latents' finiteness."""
+    upscale, stage 2 and decode, the launches, the latents' finiteness.
+    `meshes` as in `generate_videos_distilled`."""
     from ltx2_tpu_torch.pipelines.keyframe_interpolation import (
         KeyframeInterpolationConfig, KeyframeInterpolationPipeline,
     )
@@ -1089,11 +1107,12 @@ def generate_videos_keyframe(
                                  tokens=tokens, embeddings=embeddings)
     gemma = text_encoder = None
     dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, keyframes, ledger,
-                                    None if contexts is None else contexts[0].shape[-1], dtype, int8=int8)
+                                    None if contexts is None else contexts[0].shape[-1], dtype, int8=int8,
+                                    meshes=meshes)
     upscaler = _spatial_upscaler(stats, device, upscaler, ledger, None)
     cfg = dit.cfg
     pipe = KeyframeInterpolationPipeline(dit, upscaler, statistics=_latent_statistics(cfg, decoder, ledger, device),
-                                         video_encoder=encoder)
+                                         video_encoder=encoder, **loop_meshes(meshes))
     configs, latents = [], []
     for i, (seed, st) in enumerate(zip(seeds, stats)):
         config = KeyframeInterpolationConfig(
@@ -1116,7 +1135,7 @@ def generate_videos_keyframe(
         for name in ("transformer", "spatial_upscaler", "video_encoder"):
             ledger.clear_model(name)
     return _outputs(latents, [None] * len(latents), configs, stats, device, decoder, ledger, cfg.compute_dtype,
-                    phase_peaks, lambda seed: stage_seeds(seed)[2], skip_decode, None, None), stats
+                    phase_peaks, lambda seed: stage_seeds(seed)[2], skip_decode, None, None, meshes), stats
 
 
 def generate_videos_ti2vid_hq(
@@ -1155,6 +1174,7 @@ def generate_videos_ti2vid_hq(
     vocoder=None,
     internal_audio: bool = True,
     int8: bool = False,
+    meshes: Optional[dict] = None,
 ) -> Tuple[List[np.ndarray], List[dict]]:
     """TI2Vid-HQ (pipelines/ti2vid_hq.py), one clip per seed: stage 1 at
     half size, `steps` LTX2Scheduler sigmas through the Res2s RK loop
@@ -1165,7 +1185,8 @@ def generate_videos_ti2vid_hq(
     latent is the result, as the JAX CLI runs it. Arguments as in
     `generate_videos_two_stage`. Stats per request: the seconds and peaks
     of the text encode, stage 1 (and a step), upscale, stage 2, decode and
-    audio decode, the launches, the latents' finiteness."""
+    audio decode, the launches, the latents' finiteness.
+    `meshes` as in `generate_videos_distilled`."""
     from ltx2_tpu_torch.pipelines.ti2vid_hq import TI2VidHQConfig, TI2VidHQPipeline
 
     device = resolve_device(device)
@@ -1185,11 +1206,12 @@ def generate_videos_ti2vid_hq(
         audio_contexts = encoded_audio
     gemma = text_encoder = None
     dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, images, ledger,
-                                    None if contexts is None else contexts[0].shape[-1], dtype, audio, int8=int8)
+                                    None if contexts is None else contexts[0].shape[-1], dtype, audio, int8=int8,
+                                    meshes=meshes)
     upscaler = _spatial_upscaler(stats, device, upscaler, ledger, None)
     cfg = dit.cfg
     pipe = TI2VidHQPipeline(dit, upscaler, statistics=_latent_statistics(cfg, decoder, ledger, device),
-                            video_encoder=encoder)
+                            video_encoder=encoder, **loop_meshes(meshes))
     configs, latents, audio_latents = [], [], []
     for i, (seed, st) in enumerate(zip(seeds, stats)):
         config = TI2VidHQConfig(
@@ -1218,7 +1240,7 @@ def generate_videos_ti2vid_hq(
         for name in ("transformer", "spatial_upscaler", "video_encoder"):
             ledger.clear_model(name)
     return _outputs(latents, audio_latents, configs, stats, device, decoder, ledger, cfg.compute_dtype, phase_peaks,
-                    lambda seed: stage_seeds(seed)[2], skip_decode, audio_decoder, vocoder), stats
+                    lambda seed: stage_seeds(seed)[2], skip_decode, audio_decoder, vocoder, meshes), stats
 
 
 def generate_videos_retake(
@@ -1248,6 +1270,7 @@ def generate_videos_retake(
     dtype: str = "bfloat16",
     skip_decode: bool = False,
     int8: bool = False,
+    meshes: Optional[dict] = None,
 ) -> Tuple[List[np.ndarray], List[dict]]:
     """Retake (pipelines/retake.py), one clip per seed: `video` (probed and
     read once, at its own height, width and fps, its frames snapped down to
@@ -1262,7 +1285,8 @@ def generate_videos_retake(
     seconds, the seconds and peaks of the encode, denoise (and a step) and
     decode, the launches, the latent's finiteness, the retaken latent frames
     and `frozen_exact`: whether every token outside them came out of the
-    loop bit for bit the encoder's latent."""
+    loop bit for bit the encoder's latent.
+    `meshes` as in `generate_videos_distilled`."""
     from ltx2_tpu_torch.pipelines.retake import (
         RetakeConfig, RetakePipeline, TemporalRegionMask, get_video_metadata, load_video_frames,
     )
@@ -1284,9 +1308,10 @@ def generate_videos_retake(
                                  negatives=True, tokens=tokens, embeddings=embeddings)
     gemma = text_encoder = None
     dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, [video], ledger,  # the source is encoded
-                                    None if contexts is None else contexts[0].shape[-1], dtype, int8=int8)
+                                    None if contexts is None else contexts[0].shape[-1], dtype, int8=int8,
+                                    meshes=meshes)
     cfg = dit.cfg
-    pipe = RetakePipeline(dit, video_encoder=encoder)
+    pipe = RetakePipeline(dit, video_encoder=encoder, **loop_meshes(meshes))
     configs, latents = [], []
     for i, (seed, st) in enumerate(zip(seeds, stats)):
         # The latent state in RetakeConfig's float32, as the JAX CLI runs it.
@@ -1322,7 +1347,7 @@ def generate_videos_retake(
         for name in ("transformer", "video_encoder"):
             ledger.clear_model(name)
     return _outputs(latents, [None] * len(latents), configs, stats, device, decoder, ledger, cfg.compute_dtype,
-                    phase_peaks, lambda seed: stage_seeds(seed, 2)[1], skip_decode, None, None), stats
+                    phase_peaks, lambda seed: stage_seeds(seed, 2)[1], skip_decode, None, None, meshes), stats
 
 
 def generate_videos_ic_lora(
@@ -1362,6 +1387,7 @@ def generate_videos_ic_lora(
     audio_decoder: Optional[AudioDecoder] = None,
     vocoder=None,
     internal_audio: bool = True,
+    meshes: Optional[dict] = None,
 ) -> Tuple[List[np.ndarray], List[dict]]:
     """IC-LoRA control (pipelines/ic_lora.py), one clip per seed: the
     distilled recipe with `control_video` (`control_type` "raw" or "canny",
@@ -1375,7 +1401,8 @@ def generate_videos_ic_lora(
     pipeline runs it. Other arguments as in `generate_videos_distilled`.
     Stats per request: the seconds and peaks of the text encode, LoRA fuse,
     control encode, stage 1, LoRA unfuse, upscale, stage 2, decode and audio
-    decode, the launches, the latents' finiteness."""
+    decode, the launches, the latents' finiteness.
+    `meshes` as in `generate_videos_distilled`."""
     from ltx2_tpu_torch.pipelines.ic_lora import ControlType, ICLoraConfig, ICLoraPipeline, VideoCondition
 
     device = resolve_device(device)
@@ -1397,11 +1424,12 @@ def generate_videos_ic_lora(
         audio_contexts = encoded_audio
     gemma = text_encoder = None
     dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, videos, ledger,
-                                    None if contexts is None else contexts[0].shape[-1], dtype, audio, fp8=False)
+                                    None if contexts is None else contexts[0].shape[-1], dtype, audio, fp8=False,
+                                    meshes=meshes)
     upscaler = _spatial_upscaler(stats, device, upscaler, ledger, None)
     cfg = dit.cfg
     pipe = ICLoraPipeline(dit, upscaler, statistics=_latent_statistics(cfg, decoder, ledger, device),
-                          video_encoder=encoder)
+                          video_encoder=encoder, **loop_meshes(meshes))
     configs, latents, audio_latents = [], [], []
     for i, (seed, st) in enumerate(zip(seeds, stats)):
         config = ICLoraConfig(height=height, width=width, num_frames=frames, seed=seed, dtype=cfg.compute_dtype,
@@ -1430,7 +1458,7 @@ def generate_videos_ic_lora(
         for name in ("transformer", "spatial_upscaler", "video_encoder"):
             ledger.clear_model(name)
     return _outputs(latents, audio_latents, configs, stats, device, decoder, ledger, cfg.compute_dtype, phase_peaks,
-                    lambda seed: stage_seeds(seed)[2], skip_decode, audio_decoder, vocoder), stats
+                    lambda seed: stage_seeds(seed)[2], skip_decode, audio_decoder, vocoder, meshes), stats
 
 
 def _outputs(latents, audio_latents, configs, stats, device, decoder, ledger, compute_dtype: str, phase_peaks: bool,
@@ -1650,11 +1678,9 @@ def generate_videos_one_stage(
     gemma = text_encoder = None
     dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, images, ledger,
                                     None if contexts is None else contexts[0].shape[-1], dtype, audio,
-                                    int8=int8)
-    dit = place_transformer(dit, meshes)
+                                    int8=int8, meshes=meshes)
     cfg = dit.cfg
-    meshes = meshes or {}
-    pipe = OneStagePipeline(dit, video_encoder=encoder, sequence_mesh=meshes.get("sequence_mesh"))
+    pipe = OneStagePipeline(dit, video_encoder=encoder, **loop_meshes(meshes))
     spatial = upscaler = temporal = temporal_upscaler = None
     if upscale_spatial or upscale_temporal:
         statistics = _latent_statistics(cfg, decoder, ledger, device)
@@ -1742,6 +1768,7 @@ def generate_videos_two_stage(
     vocoder=None,
     internal_audio: bool = True,
     int8: bool = False,
+    meshes: Optional[dict] = None,
 ) -> Tuple[List[np.ndarray], List[dict]]:
     """The two-stage CFG pipeline (pipelines/two_stage.py), one clip per
     seed: stage 1 at half size, `steps` LTX2Scheduler steps guided at
@@ -1763,7 +1790,8 @@ def generate_videos_two_stage(
     in bf16 (a DiT kept in fp8 raises). Stats per request: the seconds and
     peaks of the text encode, stage 1 (and a step), upscale, lora_fuse,
     stage 2, lora_unfuse, decode and audio decode, the launches, the
-    latents' finiteness."""
+    latents' finiteness.
+    `meshes` as in `generate_videos_distilled`."""
     from ltx2_tpu_torch.loader.fp8 import is_quantized
     from ltx2_tpu_torch.pipelines.two_stage import TwoStageCFGConfig, TwoStagePipeline
 
@@ -1785,14 +1813,14 @@ def generate_videos_two_stage(
     gemma = text_encoder = None
     dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, images, ledger,
                                     None if contexts is None else contexts[0].shape[-1], dtype, audio,
-                                    fp8=distilled_lora is None, int8=int8)
+                                    fp8=distilled_lora is None, int8=int8, meshes=meshes)
     if distilled_lora is not None and is_quantized(dit):
         raise ValueError("the distilled LoRA cannot be fused into a DiT kept in fp8: load it in bf16 "
                          "(no --fp8-serving)")
     upscaler = _spatial_upscaler(stats, device, upscaler, ledger, "the two-stage pipeline")
     cfg = dit.cfg
     pipe = TwoStagePipeline(dit, upscaler, statistics=_latent_statistics(cfg, decoder, ledger, device),
-                            video_encoder=encoder)
+                            video_encoder=encoder, **loop_meshes(meshes))
 
     configs, latents, audio_latents = [], [], []
     for i, (seed, st) in enumerate(zip(seeds, stats)):
@@ -1824,7 +1852,7 @@ def generate_videos_two_stage(
         for name in ("transformer", "spatial_upscaler", "video_encoder"):
             ledger.clear_model(name)
     return _outputs(latents, audio_latents, configs, stats, device, decoder, ledger, cfg.compute_dtype, phase_peaks,
-                    lambda seed: stage_seeds(seed)[2], skip_decode, audio_decoder, vocoder), stats
+                    lambda seed: stage_seeds(seed)[2], skip_decode, audio_decoder, vocoder, meshes), stats
 
 
 def generate_videos_a2vid(
@@ -1860,6 +1888,7 @@ def generate_videos_a2vid(
     audio_contexts: Optional[Sequence[torch.Tensor]] = None,
     audio_noises: Optional[Sequence[Sequence[torch.Tensor]]] = None,
     int8: bool = False,
+    meshes: Optional[dict] = None,
 ) -> Tuple[List[np.ndarray], List[dict]]:
     """Audio-to-video (pipelines/a2vid_two_stage.py), one clip per seed: the
     source (`audio_file`'s first frames / fps seconds from
@@ -1878,7 +1907,8 @@ def generate_videos_a2vid(
     first), the seconds and peaks of the text encode, the audio encode,
     stage 1, upscale, stage 2 and decode, the launches,
     `audio_frozen_by_stage` (per stage, the audio latent bit for bit
-    unchanged) and the .wav's rate and samples."""
+    unchanged) and the .wav's rate and samples.
+    `meshes` as in `generate_videos_distilled`."""
     from ltx2_tpu_torch.pipelines.a2vid_two_stage import A2VidConfig, A2VidPipelineTwoStage, load_audio_file
 
     device = resolve_device(device)
@@ -1899,13 +1929,13 @@ def generate_videos_a2vid(
     gemma = text_encoder = None
     dit, encoder = _dit_and_encoder(stats, device, layers, dit, encoder, images, ledger,
                                     None if contexts is None else contexts[0].shape[-1], dtype, audio=True,
-                                    int8=int8)
+                                    int8=int8, meshes=meshes)
     upscaler = _spatial_upscaler(stats, device, upscaler, ledger, "the a2vid pipeline")
     if audio_encoder is None:
         audio_encoder = _audio_encoder(stats, device, ledger)
     cfg = dit.cfg
     pipe = A2VidPipelineTwoStage(dit, upscaler, statistics=_latent_statistics(cfg, decoder, ledger, device),
-                                 video_encoder=encoder, audio_encoder=audio_encoder)
+                                 video_encoder=encoder, audio_encoder=audio_encoder, **loop_meshes(meshes))
     rate = A2VidConfig.audio_sample_rate
     if source_waveform is None and audio_file:
         t0 = time.perf_counter()
@@ -1941,7 +1971,7 @@ def generate_videos_a2vid(
         for name in ("transformer", "spatial_upscaler", "video_encoder", "audio_encoder"):
             ledger.clear_model(name)
     results = _outputs(latents, audio_latents, configs, stats, device, decoder, ledger, cfg.compute_dtype,
-                       phase_peaks, lambda seed: stage_seeds(seed)[2], skip_decode, None, None)
+                       phase_peaks, lambda seed: stage_seeds(seed)[2], skip_decode, None, None, meshes)
     if not audio or source_waveform is None:
         return results, stats
     wave = None if skip_decode else np.asarray(source_waveform, np.float32)  # the passthrough
@@ -2163,9 +2193,13 @@ def build_parser() -> argparse.ArgumentParser:
                             "exchange (untiled decode of one oversized frame; latent W must divide the count). "
                             "0 = single-device decode")
     scale.add_argument("--pp-stages", type=int, default=0,
-                       help="GPipe pipeline parallelism: accepted, not ported (raises NotImplementedError)")
+                       help="GPipe pipeline parallelism: stage the DiT's blocks over this many ranks (each holds "
+                            "L/P blocks; the guidance rows are the microbatches); composes with --sp-devices and "
+                            "--tp-devices in one (pipe, seq, model) mesh; 0 = off")
     scale.add_argument("--auto-shard", type=int, default=0,
-                       help="layout advisor: accepted, not ported (raises NotImplementedError)")
+                       help="pick --tp-devices/--sp-devices/--pp-stages for this many ranks from the layout "
+                            "advisor's cost model of the card (parallel/advisor.py); explicit layout flags win; "
+                            "0 = off")
     scale.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
                        help="torch.distributed backend (default: nccl when every rank has a card of its own, gloo "
                             "on the CPU); gloo lets ranks share one card")
@@ -2430,8 +2464,8 @@ def check_request(args) -> None:
         _check_early_layers(args)
 
 
-LAYOUT_FLAGS = ("sp_devices", "tp_devices", "vae_dp_devices", "vae_w_shard")
-LAYOUT_PIPELINES = ("distilled", "one-stage", "text-to-video")
+LAYOUT_FLAGS = ("sp_devices", "tp_devices", "pp_stages", "vae_dp_devices", "vae_w_shard")
+DIT_LAYOUT_FLAGS = ("--sp-devices", "--pp-stages", "--tp-devices")
 
 
 def _layout(args) -> dict:
@@ -2440,40 +2474,111 @@ def _layout(args) -> dict:
 
 
 def _check_layout(args) -> None:
-    """The scale-out flags' refusals: --pp-stages and --auto-shard, and any
-    layout flag on a pipeline whose mesh is not ported, raise
-    NotImplementedError naming themselves; a negative count is a usage
-    error."""
-    for dest in (*LAYOUT_FLAGS, "pp_stages", "auto_shard"):
+    """The scale-out flags' refusals: a negative count is a usage error, and
+    so is a layout flag on bench-e2e (the port's benchmark flow runs one
+    card)."""
+    for dest in (*LAYOUT_FLAGS, "auto_shard"):
         if (getattr(args, dest) or 0) < 0:
             raise ValueError(f"{_flag(dest)} must be >= 0")
-    if args.pp_stages and args.pp_stages > 1:
-        raise NotImplementedError("--pp-stages: pipeline parallelism is not ported to the PyTorch command line yet")
-    if args.auto_shard:
-        raise NotImplementedError("--auto-shard: the layout advisor is not ported to the PyTorch command line yet")
     layout = _layout(args)
-    if layout and args.pipeline not in LAYOUT_PIPELINES:
-        raise NotImplementedError(f"{', '.join(layout)} on --pipeline {args.pipeline}: not ported yet (the meshes "
-                                  f"of {', '.join(LAYOUT_PIPELINES)} are)")
+    if args.pipeline == "bench-e2e" and (layout or (args.auto_shard or 0) > 1):
+        raise ValueError(f"{', '.join(layout) or '--auto-shard'} on --pipeline bench-e2e: the layout flags apply to "
+                         "the nine pipelines of the JAX CLI")
+
+
+# The class of each --pipeline but bench-e2e, under ltx2_tpu_torch/pipelines/.
+PIPELINE_CLASSES = {
+    "distilled": "distilled.DistilledPipeline", "one-stage": "one_stage.OneStagePipeline",
+    "text-to-video": "text_to_video.TextToVideoPipeline", "two-stage": "two_stage.TwoStagePipeline",
+    "a2vid": "a2vid_two_stage.A2VidPipelineTwoStage", "keyframe": "keyframe_interpolation.KeyframeInterpolationPipeline",
+    "ti2vid-hq": "ti2vid_hq.TI2VidHQPipeline", "retake": "retake.RetakePipeline", "ic-lora": "ic_lora.ICLoraPipeline",
+}
+
+
+def pipeline_class(name: str):
+    """The pipeline class of a --pipeline name (imported on first use)."""
+    import importlib
+
+    module, _, cls = PIPELINE_CLASSES[name].rpartition(".")
+    return getattr(importlib.import_module(f"ltx2_tpu_torch.pipelines.{module}"), cls)
+
+
+def apply_auto_shard(args, backend: Optional[str] = None):
+    """--auto-shard N: --tp-devices, --sp-devices and --pp-stages filled with
+    the advisor's best modelled layout for N ranks at this request's token
+    count (parallel/advisor.py, the card's constants: the route by the
+    world's backend, `backend` or --dist-backend; nccl when neither names
+    one), as scripts/generate.py::apply_auto_shard does; explicit layout
+    flags win. The choice and its one-line justification go to stderr.
+    Returns the LayoutEstimate, or None. The pipeline's class states its
+    guidance rows (`CFG_ROW`) and the token counts of its other stages
+    (`stage_token_counts`), which SP must divide with the audio stream's.
+    Two departures from the JAX CLI's choice follow (ROADMAP.md section 3):
+    every pipeline with a half-resolution stage 1 constrains SP by its token
+    count, where the JAX CLI adds it for two-stage alone
+    (scripts/generate.py:715), and a2vid and ic-lora count one guidance row,
+    where the JAX CLI counts the CFG row for all but distilled (:737)."""
+    n = args.auto_shard or 0
+    if n <= 1:
+        return None
+    if args.sp_devices or args.pp_stages or args.tp_devices:
+        print(f"--auto-shard {n} ignored: explicit layout flags win (--tp-devices/--sp-devices/--pp-stages)",
+              file=sys.stderr)
+        return None
+    from ltx2_tpu_torch.parallel import advisor
+    from ltx2_tpu_torch.types import AudioLatentShape
+
+    cfg = advisor.flagship_serving_config()
+    if args.checkpoint is None:
+        # The random DiT of --layers blocks at full width.
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    else:
+        layers, heads = advisor.peek_checkpoint_arch(args.checkpoint)
+        cfg = dataclasses.replace(cfg, num_layers=layers or cfg.num_layers,
+                                  num_attention_heads=heads or cfg.num_attention_heads)
+    pipe = pipeline_class(args.pipeline)
+    n_tokens = advisor.video_token_count(args.frames, args.height, args.width)
+    rows = 1 + int(pipe.CFG_ROW and args.cfg_scale > 1.0) + int(args.stg_scale != 0.0)
+    constraints = pipe.stage_token_counts(args.frames, args.height, args.width, len(args.keyframe or ()))
+    if args.audio or args.pipeline == "a2vid":
+        pixel = VideoPixelShape(batch=1, frames=args.frames, height=args.height, width=args.width, fps=args.fps or 24.0)
+        constraints += (AudioLatentShape.from_video_pixel_shape(pixel).frames,)
+    route = advisor.route_of_backend(backend or args.dist_backend, args.device)
+    best, _ = advisor.choose(cfg, n, n_tokens, rows=rows, extra_sp_constraints=constraints,
+                             bytes_per_s=advisor.ROUTE_BYTES_PER_S[route])
+    args.tp_devices = best.tp if best.tp > 1 else 0
+    args.sp_devices = best.sp if best.sp > 1 else 0
+    args.pp_stages = best.pp if best.pp > 1 else 0
+    print(best.justification(n_tokens), file=sys.stderr)
+    return best
+
+
+# The meshes of each layout, built once per process: a server's requests
+# reuse them (group creation is collective and costs a round trip).
+_MESHES: dict = {}
 
 
 def build_meshes(args) -> dict:
-    """The layout flags -> this rank's meshes ("sequence_mesh" with SP,
-    carrying a 'model' axis with TP too; "tp_mesh" with TP alone;
-    "vae_mesh", "vae_w_mesh"), after the process group is up
-    (scripts/generate.py::build_meshes). Every rank builds them in the same
-    order (group creation is collective). A flag that asks for more ranks
-    than the world has exits as the JAX CLI does; the DiT's layout must use
-    every rank. Nothing without a layout flag."""
+    """The layout flags -> this rank's meshes, after the process group is up
+    (scripts/generate.py::build_meshes): "pipeline_mesh" (pipe, seq, model)
+    with --pp-stages, composing --sp-devices and --tp-devices; else
+    "sequence_mesh" with SP, carrying a 'model' axis with TP too; "tp_mesh"
+    with TP alone; "vae_mesh", "vae_w_mesh". Every rank builds them in the
+    same order (group creation is collective), once per layout. A flag that
+    asks for more ranks than the world has exits as the JAX CLI does; the
+    DiT's layout must use every rank. Nothing without a layout flag."""
     layout = _layout(args)
     if not layout:
         return {}
+    key = tuple(sorted(layout.items()))
+    if key in _MESHES:
+        return _MESHES[key]
     from ltx2_tpu_torch.parallel.mesh import create_mesh
     from ltx2_tpu_torch.parallel.runtime import initialize_distributed, world
 
     initialize_distributed(init_method=args.dist_init, backend=args.dist_backend, device=args.device)
     _, n_world = world()
-    sp, tp = layout.get("--sp-devices", 0), layout.get("--tp-devices", 0)
+    sp, tp, pp = (layout.get(f, 0) for f in ("--sp-devices", "--tp-devices", "--pp-stages"))
     meshes = {}
     for flag, name in (("--vae-w-shard", "vae_w_mesh"), ("--vae-dp-devices", "vae_mesh")):
         n = layout.get(flag, 0)
@@ -2481,39 +2586,70 @@ def build_meshes(args) -> dict:
             if n_world < n:
                 raise SystemExit(f"{flag} {n} but only {n_world} ranks in the world")
             meshes[name] = create_mesh(data=n, model=1, ranks=range(n))
-    if sp or tp:
-        n = (sp or 1) * (tp or 1)
-        flag = " x ".join(f for f, v in (("sp-devices", sp), ("tp-devices", tp)) if v)
+    if sp or tp or pp:
+        n = (sp or 1) * (tp or 1) * (pp or 1)
+        flag = " x ".join(f for f, v in (("sp-devices", sp), ("pp-stages", pp), ("tp-devices", tp)) if v)
         if n_world < n:
             raise SystemExit(f"--{flag} needs {n} devices but only {n_world} ranks in the world")
         if n != n_world:
             raise SystemExit(f"--{flag} uses {n} of the world's {n_world} ranks: the DiT's layout must use every rank")
-        if sp:
+        if pp:
+            meshes["pipeline_mesh"] = create_mesh(data=1, model=tp or 1, seq=sp or 1, pipe=pp)
+        elif sp:
             meshes["sequence_mesh"] = create_mesh(data=1, model=tp or 1, seq=sp)
         else:
             meshes["tp_mesh"] = create_mesh(data=1, model=tp)
+    _MESHES[key] = meshes
     return meshes
 
 
+def loop_meshes(meshes: Optional[dict]) -> dict:
+    """The pipelines' DiT mesh kwargs of `build_meshes`'s meshes."""
+    return {name: (meshes or {}).get(name) for name in ("sequence_mesh", "pipeline_mesh")}
+
+
+def _dit_mesh(meshes: Optional[dict]):
+    meshes = meshes or {}
+    return meshes.get("pipeline_mesh") or meshes.get("tp_mesh") or meshes.get("sequence_mesh")
+
+
 def tp_axis_of(meshes: Optional[dict]):
-    """The DiT's tensor-parallel axis of the meshes (the TP mesh's, or the
-    sequence mesh's 'model' axis), or None."""
+    """The DiT's tensor-parallel axis of the meshes (the 'model' axis of the
+    pipeline, TP or sequence mesh), or None."""
     from ltx2_tpu_torch.parallel.mesh import MODEL_AXIS, axis_of
 
-    meshes = meshes or {}
-    return axis_of(meshes.get("tp_mesh") or meshes.get("sequence_mesh"), MODEL_AXIS)
+    return axis_of(_dit_mesh(meshes), MODEL_AXIS)
+
+
+def pipe_axis_of(meshes: Optional[dict]):
+    """The DiT's pipeline axis of the meshes (the pipeline mesh's 'pipe'
+    axis), or None."""
+    from ltx2_tpu_torch.parallel.mesh import PIPE_AXIS, axis_of
+
+    return axis_of((meshes or {}).get("pipeline_mesh"), PIPE_AXIS)
+
+
+def check_pipe_stages(num_layers: int, meshes: Optional[dict]) -> None:
+    """--pp-stages must divide the DiT's blocks: a usage exit with the JAX
+    CLI's message (scripts/generate.py:620-630)."""
+    pipe = pipe_axis_of(meshes)
+    if pipe is not None and num_layers % pipe.size:
+        raise SystemExit(f"--pp-stages {pipe.size} must divide {num_layers} transformer blocks")
 
 
 def place_transformer(dit: LTXModel, meshes: Optional[dict]) -> LTXModel:
-    """The DiT as this rank's TP shard (scripts/generate.py::_place_transformer):
-    a DiT loaded whole (random weights, or a LoRA fused) is sliced in place;
-    one the ledger loaded as its shard is kept."""
-    axis = tp_axis_of(meshes)
-    if axis is None or dit.cfg.tp_axis is axis:
+    """The DiT as this rank's placement (scripts/generate.py::_place_transformer):
+    under a pipeline mesh only its stage's blocks kept; under TP its tensors
+    sliced to the rank's shard. A DiT loaded whole (random weights, or a
+    LoRA fused) is cut in place; one the ledger loaded as its placement is
+    kept."""
+    check_pipe_stages(dit.cfg.num_layers, meshes)
+    mesh = _dit_mesh(meshes)
+    if mesh is None:
         return dit
-    from ltx2_tpu_torch.parallel.sharding import shard_model_
+    from ltx2_tpu_torch.parallel.pipeline_parallel import shard_pipeline_params
 
-    return shard_model_(dit, axis)
+    return shard_pipeline_params(mesh, dit)
 
 
 def _rank() -> int:
@@ -2547,20 +2683,26 @@ def setup(args, resident_models: bool = True) -> Tuple[Optional[ResidentModels],
     audio. A request on another pipeline builds what it needs on its first
     run, then keeps it. Without `resident_models` (the one-shot command
     line) both are None: the request makes its ledger, and each flow builds
-    its modules and releases each when its phase is over."""
+    its modules and releases each when its phase is over. `--auto-shard`
+    fills the layout flags first (`apply_auto_shard`); under layout flags
+    the meshes are built here (`build_meshes`) and the DiT is loaded or
+    drawn as this rank's placement."""
+    apply_auto_shard(args)
     if not resident_models:
         return None, None
-    ledger = make_ledger(args)
+    meshes = build_meshes(args)
+    ledger = make_ledger(args, meshes)
     models = ResidentModels()
     with resident(models):
-        _build_launch(args, ledger)
+        _build_launch(args, ledger, meshes)
     return models, ledger
 
 
 def make_ledger(args, meshes: Optional[dict] = None) -> Optional[ModelLedger]:
     """The ledger of --checkpoint and the files beside it (None without a
     checkpoint, and for bench-e2e); it loads nothing until asked. Under
-    tensor parallelism (`meshes`) it loads the DiT as this rank's shard."""
+    tensor or pipeline parallelism (`meshes`) it loads the DiT as this
+    rank's shard, or stage."""
     if not args.checkpoint or args.pipeline == "bench-e2e":
         return None
     return ModelLedger(
@@ -2569,10 +2711,11 @@ def make_ledger(args, meshes: Optional[dict] = None) -> Optional[ModelLedger]:
         loras=[parse_lora_spec(spec, args.lora_strength) for spec in args.lora], target_dtype=args.dtype,
         keep_fp8=args.fp8_serving, int8=args.int8, gemma_fp8=args.gemma_fp8, decoder_dtype="bfloat16",
         device=args.device, include_audio=args.audio or args.pipeline == "a2vid", tp_axis=tp_axis_of(meshes),
+        pipe_axis=pipe_axis_of(meshes),
     )
 
 
-def _build_launch(args, ledger) -> None:
+def _build_launch(args, ledger, meshes: Optional[dict] = None) -> None:
     """The modules `_run_flow` builds for the launch's pipeline, built with
     the flows' own helpers (so a request finds each under its key)."""
     device = resolve_device(args.device)
@@ -2599,7 +2742,7 @@ def _build_launch(args, ledger) -> None:
     dit, _ = _dit_and_encoder(stats, device, args.layers, None, None, [None] if encodes_video else [], ledger,
                               None if ledger is not None else width, args.dtype,
                               audio and flow not in ("keyframe", "retake"), fp8=not runtime_lora,
-                              int8=args.int8 and flow != "ic-lora")
+                              int8=args.int8 and flow != "ic-lora", meshes=meshes)
     if flow in STAGED or args.upscale_spatial:
         _spatial_upscaler(stats, device, None, ledger, None)
     if args.upscale_temporal:

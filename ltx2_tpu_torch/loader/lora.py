@@ -138,9 +138,22 @@ def _parameter(model: nn.Module, name: str) -> Optional[torch.Tensor]:
     return owner._parameters.get(leaf)
 
 
+def _tp_part(model: nn.Module, name: str, delta: torch.Tensor) -> torch.Tensor:
+    """The slice of a whole weight's delta that a tensor-parallel shard
+    holds (the model's `cfg.tp_axis`; the delta itself without one)."""
+    axis = getattr(getattr(model, "cfg", None), "tp_axis", None)
+    if axis is None:
+        return delta
+    from ltx2_tpu_torch.parallel.sharding import shard_tensor
+
+    return shard_tensor(name, delta, axis)
+
+
 def _plan(model: nn.Module, lora_configs: List[LoRAConfig]) -> list:
     """[(parameter name, parameter, its LoRA terms)] of the weights a fuse
-    changes; raises on an fp8 or int8 target."""
+    changes; raises on an fp8 or int8 target. A model that is a
+    tensor-parallel shard takes its slice of each delta; a pipeline stage
+    has no weight for another stage's blocks."""
     plan = []
     for lora_key, terms in _lora_terms(lora_configs).items():
         tree_key = _canonical_tree_key(lora_key)
@@ -153,7 +166,8 @@ def _plan(model: nn.Module, lora_configs: List[LoRAConfig]) -> list:
         if param.dtype == torch.int8:
             raise ValueError("Cannot fuse LoRA into int8 W8A8 weights (additive deltas need full-precision weights).")
         weights, key_a, key_b, _strength = terms[0]
-        if (weights[key_b].shape[0], weights[key_a].shape[1]) != tuple(param.shape):
+        whole = torch.empty((weights[key_b].shape[0], weights[key_a].shape[1]), device="meta")
+        if tuple(_tp_part(model, tree_key, whole).shape) != tuple(param.shape):
             continue
         plan.append((tree_key, param, terms))
     return plan
@@ -175,7 +189,7 @@ def fuse_lora_into_params(model: nn.Module, lora_configs: List[LoRAConfig], retu
     `unfuse_lora_deltas`, which makes the deltas again; no delta is kept."""
     applied: AppliedLoRA = {}
     for tree_key, param, terms in _plan(model, lora_configs):
-        param.copy_((param.float() + _delta(terms, param.device)).to(param.dtype))
+        param.copy_((param.float() + _tp_part(model, tree_key, _delta(terms, param.device))).to(param.dtype))
         if return_deltas:
             applied.setdefault(tree_key, []).append(terms)
     if return_deltas:
@@ -196,6 +210,6 @@ def unfuse_lora_deltas(model: nn.Module, applied: AppliedLoRA) -> nn.Module:
         for terms in alias_terms:
             d = _delta(terms, param.device)
             total = d if total is None else total + d
-        param.copy_((param.float() - total).to(param.dtype))
+        param.copy_((param.float() - _tp_part(model, name, total)).to(param.dtype))
         del total
     return model

@@ -184,6 +184,7 @@ def load_transformer_params(
     quantize_int8: bool = False,
     include_audio: bool = False,
     tp_axis=None,
+    pipe_axis=None,
 ) -> LTXModel:
     """The DiT of the checkpoint at `path` on `device` (default cuda), read
     tensor by tensor (host memory: one tensor): the video stream, and with
@@ -199,9 +200,12 @@ def load_transformer_params(
     take the rank's shapes, each tensor the rules split is sliced as it is
     read (an int8 weight quantized whole, then its codes and column-parallel
     scales sliced; fp8 codes sliced beside their per-tensor scale), and the
-    config's `tp_axis` is set (parallel/sharding.py). Raises on a tensor the
-    model has no place for, one of another shape, and a model tensor the
-    file does not give."""
+    config's `tp_axis` is set (parallel/sharding.py). With `pipe_axis` (a
+    mesh's pipe axis) the model is this rank's pipeline stage: only its L/P
+    blocks are read from the file, the others' places hold an `AbsentBlock`
+    (parallel/pipeline_parallel.py; the JAX package's `pipeline_device_put`);
+    it composes with `tp_axis`. Raises on a tensor the model has no place
+    for, one of another shape, and a model tensor the file does not give."""
     if keep_fp8 and quantize_int8:
         raise ValueError("keep_fp8 and quantize_int8 are mutually exclusive")
     device = resolve_device(device)
@@ -213,6 +217,12 @@ def load_transformer_params(
     f = SafetensorsFile(path)
     scales = fp8_scale_keys(f)
     model = LTXModel(cfg, device="meta")
+    keep = None
+    if pipe_axis is not None and pipe_axis.size > 1:
+        from ltx2_tpu_torch.parallel.pipeline_parallel import keep_stage_blocks_, stage_layers
+
+        keep = stage_layers(cfg.num_layers, pipe_axis)
+        keep_stage_blocks_(model, pipe_axis)
     part = (lambda name, t: t)
     if tp_axis is not None and tp_axis.size > 1:
         from ltx2_tpu_torch.parallel.sharding import check_tp_heads, shard_module_, shard_tensor
@@ -229,6 +239,9 @@ def load_transformer_params(
             tree_key = convert_checkpoint_key(key[len(DIFFUSION_PREFIX):], include_audio)
             if tree_key is None:
                 continue
+            block = _BLOCK_RE.match(tree_key)
+            if keep is not None and block and int(block.group(1)) not in keep:
+                continue  # another stage's block
             if keep_fp8 and key in scales:
                 owner = model.get_submodule(tree_key.rpartition(".")[0])
                 if not isinstance(owner, Linear) or not tree_key.endswith(".weight"):

@@ -5,6 +5,11 @@ inside shard_map.
 - `ring_shift` / `ring_exchange_start`: `ppermute` by +1 (or -1) along the
   axis's ring, one `batch_isend_irecv` a call (ring attention's K/V, the
   VAE's W halos);
+- `send_start` / `recv_start`: one rank's tensors to one other rank of the
+  axis, and their receipt there (the pipeline's activation hop from stage
+  s to stage s + 1, where `ppermute` rotates the whole ring);
+- `broadcast`: one rank's tensor to every rank of the axis (the last
+  pipeline stage's output, where the JAX package psums a masked output);
 - `all_gather`: `all_gather(..., tiled=True)` along a tensor dim;
 - `all_reduce`: `psum`, `dist.all_reduce` on an fp32 copy (every rank gets
   the same reduced bits from the backend);
@@ -19,8 +24,9 @@ share one card). The staging is the named route, chosen before the call,
 never a fallback after a failure. Exchanges and gathers move their payload
 as its bytes (a uint8 view), so any dtype goes through any backend.
 `STATS` counts each rank's bytes sent and received (for an all-reduce the
-2(n-1)/n of the payload a ring all-reduce moves each way) and its calls by
-operation and by route; `reset_stats` zeroes it.
+2(n-1)/n of the payload a ring all-reduce moves each way), in all and by
+"operation route", and its calls by operation and by route; `reset_stats`
+zeroes it.
 """
 
 from __future__ import annotations
@@ -32,11 +38,11 @@ import torch.distributed as dist
 
 from ltx2_tpu_torch.parallel.mesh import Axis
 
-STATS: Dict = {"bytes_sent": 0, "bytes_received": 0, "calls": {}, "routes": {}}
+STATS: Dict = {"bytes_sent": 0, "bytes_received": 0, "bytes": {}, "calls": {}, "routes": {}}
 
 
 def reset_stats() -> None:
-    STATS.update(bytes_sent=0, bytes_received=0, calls={}, routes={})
+    STATS.update(bytes_sent=0, bytes_received=0, bytes={}, calls={}, routes={})
 
 
 def route(x: torch.Tensor, axis: Axis, point_to_point: bool = False) -> str:
@@ -54,6 +60,9 @@ def route(x: torch.Tensor, axis: Axis, point_to_point: bool = False) -> str:
 def _count(op: str, rt: str, sent: int, received: int) -> None:
     STATS["bytes_sent"] += sent
     STATS["bytes_received"] += received
+    by = STATS["bytes"].setdefault(f"{op} {rt}", {"sent": 0, "received": 0})
+    by["sent"] += sent
+    by["received"] += received
     STATS["calls"][op] = STATS["calls"].get(op, 0) + 1
     STATS["routes"][rt] = STATS["routes"].get(rt, 0) + 1
 
@@ -84,10 +93,11 @@ def _unwire(data: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 class Pending:
-    """Exchanges in flight: `wait()` returns the received tensors."""
+    """Exchanges in flight: `wait()` returns the received tensors (none
+    for sends alone). The buffers sent are held until then."""
 
-    def __init__(self, works, received: List[torch.Tensor], like: Sequence[torch.Tensor]):
-        self._works, self._received, self._like = works, received, like
+    def __init__(self, works, received: List[torch.Tensor], like: Sequence[torch.Tensor], sent=()):
+        self._works, self._received, self._like, self._sent = works, received, like, sent
 
     def wait(self) -> List[torch.Tensor]:
         for w in self._works:
@@ -118,6 +128,55 @@ def ring_shift(x: torch.Tensor, axis: Axis, shift: int = 1) -> torch.Tensor:
     """What the rank `shift` places back along the ring sent (x goes to
     the rank `shift` places on)."""
     return ring_exchange_start([x], axis, shift).wait()[0]
+
+
+def send_start(tensors: Sequence[torch.Tensor], axis: Axis, index: int) -> Pending:
+    """Start sending each tensor to the rank at `index` along the axis (one
+    batch_isend_irecv); its `wait()` returns [] once they are gone. The
+    receiver posts `recv_start` with tensors of the same shapes and dtypes."""
+    dst = axis.ranks[index]
+    ops, sent = [], []
+    for x in tensors:
+        rt = route(x, axis, point_to_point=True)
+        send = _wire(x, rt)
+        ops.append(dist.P2POp(dist.isend, send, dst, axis.group))
+        sent.append(send)
+        _count("send", rt, send.numel(), 0)
+    return Pending(dist.batch_isend_irecv(ops) if ops else [], [], [], sent)
+
+
+def recv_start(like: Sequence[torch.Tensor], axis: Axis, index: int) -> Pending:
+    """Start receiving, from the rank at `index` along the axis, tensors of
+    `like`'s shapes, dtypes and devices (their values are not read); `wait()`
+    returns them."""
+    src = axis.ranks[index]
+    ops, received = [], []
+    for x in like:
+        rt = route(x, axis, point_to_point=True)
+        nbytes = x.numel() * x.element_size()
+        recv = _host_buffer(nbytes) if rt == "gloo_staged" else torch.empty(nbytes, dtype=torch.uint8,
+                                                                             device=x.device)
+        ops.append(dist.P2POp(dist.irecv, recv, src, axis.group))
+        received.append(recv)
+        _count("recv", rt, 0, nbytes)
+    return Pending(dist.batch_isend_irecv(ops) if ops else [], received, like)
+
+
+def broadcast(x: torch.Tensor, axis: Optional[Axis], index: int) -> torch.Tensor:
+    """The tensor of the rank at `index` along the axis, on every rank of
+    it (each other rank passes a tensor of the same shape and dtype, whose
+    values are not read). The source sends its bytes once to each other
+    rank; each other rank receives them once. Axis None or of size 1: x."""
+    if axis is None or axis.size == 1:
+        return x
+    rt = route(x, axis)
+    source = axis.index == index
+    data = _as_bytes(x) if source else torch.empty(x.numel() * x.element_size(), dtype=torch.uint8,
+                                                   device=x.device)
+    dist.broadcast(data, src=axis.ranks[index], group=axis.group)
+    n = data.numel()
+    _count("broadcast", rt, n * (axis.size - 1) if source else 0, 0 if source else n)
+    return _unwire(data, x)
 
 
 def all_gather(x: torch.Tensor, axis: Optional[Axis], dim: int) -> torch.Tensor:

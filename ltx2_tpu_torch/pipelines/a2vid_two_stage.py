@@ -104,8 +104,6 @@ def load_audio_file(audio_path: str, target_sr: int = 16000, start_time: float =
 class A2VidPipelineTwoStage(DistilledPipeline):
     """The distilled two-stage recipe driven by a source waveform."""
 
-    meshes_ported = False  # its meshes are not ported: any mesh raises
-
     def __init__(self, *args, audio_encoder: Optional[AudioEncoder] = None, **kwargs):
         super().__init__(*args, **kwargs)
         self.audio_encoder = audio_encoder

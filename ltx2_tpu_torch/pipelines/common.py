@@ -202,19 +202,6 @@ def modality_from_state(
     )
 
 
-def check_meshes(pipeline, pipeline_mesh=None, **meshes) -> None:
-    """The pipelines' refusals of meshes: pipeline parallelism everywhere,
-    and any mesh on a pipeline whose class has not `meshes_ported` (the
-    JAX package takes them on every pipeline; the port, so far, on the
-    distilled, one-stage and text-to-video ones), each by name."""
-    if pipeline_mesh is not None:
-        raise NotImplementedError("not ported to the PyTorch pipelines yet: pipeline_mesh (pipeline parallelism, "
-                                  "--pp-stages)")
-    given = [name for name, mesh in meshes.items() if mesh is not None]
-    if given and not getattr(pipeline, "meshes_ported", False):
-        raise NotImplementedError(f"not ported to {type(pipeline).__name__} yet: {', '.join(given)}")
-
-
 def consolidate_latent(latent: torch.Tensor, axis=None, dim: int = 1) -> torch.Tensor:
     """A token-split tensor gathered whole onto every rank of the mesh axis
     `axis` (ltx2_tpu/pipelines/common.py::consolidate_latent gathers the SP

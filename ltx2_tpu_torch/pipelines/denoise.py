@@ -56,8 +56,15 @@ outputs gathered back whole on every rank), and everything around it
 (guidance, steppers, noise) runs on whole tensors, identically on every
 rank, as the JAX loops run outside their shard_map. Token counts the axis
 does not divide, shape-bucketed serving (`token_mask`) and text-KV caching
-under SP x TP are refused with the JAX package's messages. Not ported:
-pipeline parallelism (`pipeline_axis` raises).
+under SP x TP are refused with the JAX package's messages.
+
+Pipeline parallelism (`mesh` with a 'pipe' axis and `pipeline_axis`): each
+forward runs the block stack GPipe-staged over that axis
+(parallel/pipeline_parallel.py), its microbatches
+`pipeline_microbatches`, or the row plan's guidance rows when 0; with the
+mesh's 'seq', 'model' and 'data' axes it composes with SP, TP and DP.
+Guidance reuse (`cfg_interval` > 1) and text-KV caching are refused under
+it, with the JAX package's messages.
 """
 
 from __future__ import annotations
@@ -219,17 +226,10 @@ def _ge_correct(loop_cfg: DenoiseLoopConfig, latent, denoised, sigma, prev_veloc
     return denoised, current_velocity
 
 
-def _refuse_mesh(mesh, pipeline_axis) -> None:
-    """Pipeline parallelism is not ported: `pipeline_axis` raises, naming it."""
-    if pipeline_axis is not None:
-        raise NotImplementedError("not ported to the PyTorch denoise loop yet: pipeline parallelism "
-                                  f"(pipeline_axis={pipeline_axis!r})")
-
-
 def mesh_loop_kwargs(sequence_mesh=None, pipeline_mesh=None) -> dict:
     """The loop factories' kwargs for a multi-rank mode: sequence_mesh ->
     token sharding (ring attention); pipeline_mesh -> GPipe staging over
-    'pipe' (not ported: the factories raise). Mutually exclusive."""
+    'pipe'. Mutually exclusive."""
     if pipeline_mesh is not None:
         if sequence_mesh is not None:
             raise ValueError("set sequence_mesh OR pipeline_mesh, not both")
@@ -237,14 +237,26 @@ def mesh_loop_kwargs(sequence_mesh=None, pipeline_mesh=None) -> dict:
     return {"mesh": sequence_mesh}
 
 
-def _model_fn(mesh, sequence_axis: str):
+def mesh_forward(mesh, sequence_axis: str, pipeline_axis: Optional[str] = None, microbatches: int = 1):
     """x0_model_apply, or under `mesh` the token-split forward over its
-    `sequence_axis`."""
+    `sequence_axis`, or with `pipeline_axis` the GPipe-staged forward over
+    it in `microbatches` microbatches of the whole batch (of each data
+    shard's local rows max(1, microbatches // data ranks), as the JAX
+    package's `_make_pp_forward` takes them)."""
     if mesh is None:
         return x0_model_apply
+    if pipeline_axis is not None:
+        from ltx2_tpu_torch.parallel.pipeline_parallel import make_pipeline_parallel_forward
+
+        local = max(1, microbatches // mesh.axis("data").size)
+        return make_pipeline_parallel_forward(mesh, num_microbatches=local, axis=pipeline_axis)
     from ltx2_tpu_torch.parallel.sequence_parallel import make_sequence_parallel_forward
 
     return make_sequence_parallel_forward(mesh, axis=sequence_axis)
+
+
+PP_REUSE_MESSAGE = ("cfg_interval > 1 does not compose with pipeline parallelism: the GPipe microbatch schedule is "
+                    "built from the guidance rows, which differ between recompute and reuse steps")
 
 
 def _check_mesh_tokens(mesh, sequence_axis: str, token_mask, *states_and_names) -> None:
@@ -263,10 +275,11 @@ def _check_mesh_tokens(mesh, sequence_axis: str, token_mask, *states_and_names) 
 
 def _check_loop(loop_cfg: DenoiseLoopConfig, mesh, pipeline_axis, stateful: bool) -> bool:
     """The JAX loops' refusals; returns whether guidance is reused."""
-    _refuse_mesh(mesh, pipeline_axis)
     if loop_cfg.cfg_interval < 1:
         raise ValueError(f"cfg_interval must be >= 1, got {loop_cfg.cfg_interval}")
     reuse_cfg = loop_cfg.need_cfg and loop_cfg.cfg_interval > 1
+    if reuse_cfg and pipeline_axis is not None:
+        raise NotImplementedError(PP_REUSE_MESSAGE)
     if stateful and reuse_cfg:
         raise ValueError("APG momentum (stateful guidance EMA) does not compose with cfg_interval > 1 — the EMA "
                          "needs a fresh uncond every step")
@@ -295,13 +308,15 @@ def make_video_denoise_loop(
     mesh=None,
     pipeline_axis: Optional[str] = None,
     sequence_axis: str = "seq",
+    pipeline_microbatches: int = 0,
 ):
     """Build the video-only denoise loop.
 
     Returns fn(model, state, sigmas (S+1,), pos_ctx, neg_ctx, token_mask=None)
     -> final LatentState (still padded when `token_mask` is given). neg_ctx
     is read only when CFG is on. `mesh`: each forward token-split over its
-    `sequence_axis`."""
+    `sequence_axis`, or with `pipeline_axis` staged over that axis in
+    `pipeline_microbatches` microbatches (0: the guidance rows)."""
     # A StatefulAPGGuider returns (denoised, carry) whatever its momentum, so
     # the carry path is chosen by the attribute, not its value.
     stateful = loop_cfg.need_cfg and hasattr(loop_cfg.guider, "momentum")
@@ -313,7 +328,6 @@ def make_video_denoise_loop(
     def loop(model: LTXModel, state: LatentState, sigmas: torch.Tensor, pos_ctx, neg_ctx=None,
              token_mask: Optional[torch.Tensor] = None) -> LatentState:
         _check_mesh_tokens(mesh, sequence_axis, token_mask, (state, "video"))
-        x0 = _model_fn(mesh, sequence_axis)
         batch, device = state.latent.shape[0], state.latent.device
         mask, clean = state.denoise_mask, state.clean_latent
         ca_scales = _ca_scales(loop_cfg, model_cfg.num_layers, device)
@@ -328,6 +342,7 @@ def make_video_denoise_loop(
             positions = _tile_rows(state.positions, r)
             video_pe = _precompute_video_pe(model_cfg, state.positions, r)
             perturb = _build_perturbations(loop_cfg, r, batch) if with_stg else None
+            x0 = mesh_forward(mesh, sequence_axis, pipeline_axis, pipeline_microbatches or r)
             # V2 modulates the text K/V every step: the cache is skipped, as in the JAX loop.
             text_kv = (precompute_text_kv(model, context)
                        if loop_cfg.cache_text_kv and not model_cfg.cross_attention_adaln else None)
@@ -413,13 +428,15 @@ def make_av_denoise_loop(
     mesh=None,
     pipeline_axis: Optional[str] = None,
     sequence_axis: str = "seq",
+    pipeline_microbatches: int = 0,
 ):
     """Build the joint audio-video denoise loop (an AudioVideo model).
 
     Returns fn(model, video_state, audio_state, sigmas (S+1,), pos_v, neg_v,
     pos_a, neg_a) -> (video LatentState, audio LatentState). The negative
     contexts are read only when CFG is on. `mesh`: both streams token-split
-    over its `sequence_axis` (the cross-modal K/V gathered)."""
+    over its `sequence_axis` (the cross-modal K/V gathered), or staged as
+    the video loop's."""
     stateful = loop_cfg.need_cfg and (hasattr(loop_cfg.guider, "momentum")
                                       or hasattr(loop_cfg.audio_guider, "momentum"))
     reuse_cfg = _check_loop(loop_cfg, mesh, pipeline_axis, stateful)
@@ -433,7 +450,6 @@ def make_av_denoise_loop(
     def loop(model: LTXModel, video_state: LatentState, audio_state: LatentState, sigmas: torch.Tensor,
              pos_v, neg_v, pos_a, neg_a) -> Tuple[LatentState, LatentState]:
         _check_mesh_tokens(mesh, sequence_axis, None, (video_state, "video"), (audio_state, "audio"))
-        x0 = _model_fn(mesh, sequence_axis)
         batch, device = video_state.latent.shape[0], video_state.latent.device
         v_mask, v_clean = video_state.denoise_mask, video_state.clean_latent
         a_mask, a_clean = audio_state.denoise_mask, audio_state.clean_latent
@@ -450,6 +466,7 @@ def make_av_denoise_loop(
             video_pe = _precompute_video_pe(model_cfg, video_state.positions, r)
             audio_pe = stream_pe(model, tiled[1][0], audio=True)
             perturb = _build_perturbations(loop_cfg, r, batch) if with_stg else None
+            x0 = mesh_forward(mesh, sequence_axis, pipeline_axis, pipeline_microbatches or r)
             text_kv = (precompute_text_kv(model, v_ctx, a_ctx)
                        if loop_cfg.cache_text_kv and not model_cfg.cross_attention_adaln else None)
 
@@ -633,16 +650,19 @@ def make_multimodal_av_denoise_loop(
     mesh=None,
     pipeline_axis: Optional[str] = None,
     sequence_axis: str = "seq",
+    pipeline_microbatches: int = 0,
 ):
     """Build the joint AV loop under the multi-modal guider.
 
     Returns fn(model, video_state, audio_state, sigmas (S+1,), pos_v, neg_v,
     pos_a, neg_a) -> (video LatentState, audio LatentState). The negative
-    contexts are read only when CFG is on. `mesh`: as the joint loop's."""
-    _refuse_mesh(mesh, pipeline_axis)
+    contexts are read only when CFG is on. `mesh`, `pipeline_axis`: as the
+    joint loop's."""
     if mm.cfg_interval < 1:
         raise ValueError(f"cfg_interval must be >= 1, got {mm.cfg_interval}")
     reuse = mm.cfg_interval > 1 and (mm.need_cfg or mm.need_mod)
+    if reuse and pipeline_axis is not None:
+        raise NotImplementedError(PP_REUSE_MESSAGE)
     stepper = EulerDiffusionStep()
     scales = (mm.video_cfg_scale, mm.audio_cfg_scale)
 
@@ -650,7 +670,6 @@ def make_multimodal_av_denoise_loop(
     def loop(model: LTXModel, video_state: LatentState, audio_state: LatentState, sigmas: torch.Tensor,
              pos_v, neg_v, pos_a, neg_a) -> Tuple[LatentState, LatentState]:
         _check_mesh_tokens(mesh, sequence_axis, None, (video_state, "video"), (audio_state, "audio"))
-        x0 = _model_fn(mesh, sequence_axis)
         batch, device = video_state.latent.shape[0], video_state.latent.device
         if audio_state.latent.shape[0] != batch:
             raise ValueError(f"video batch {batch} != audio batch {audio_state.latent.shape[0]}")
@@ -661,6 +680,7 @@ def make_multimodal_av_denoise_loop(
             uncond and mod rows only `with_guidance`)."""
             r = 1 + int(mm.need_stg) + ((int(mm.need_cfg) + int(mm.need_mod)) if with_guidance else 0)
             perturb = _build_mm_perturbations(mm, with_guidance, batch)
+            x0 = mesh_forward(mesh, sequence_axis, pipeline_axis, pipeline_microbatches or r)
 
             def stack_ctx(pos, neg):
                 ctxs = [pos]

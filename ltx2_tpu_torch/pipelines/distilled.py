@@ -39,11 +39,14 @@ before the noiser, whose blend is then a no-op; without one the noised
 zeros are frozen after it. The generator draws the audio noise either way,
 so the video's noise does not depend on the freeze.
 
-Scale-out: `sequence_mesh`, `vae_mesh` and `vae_w_mesh` as in the
-one-stage pipeline (both stages' loops token-split; stage 1 at half
-resolution, so its token count must divide the axis too); the noise is
-drawn whole from each stage's generator on every rank, so the ranks hold
-the same state. `pipeline_mesh` raises NotImplementedError.
+Scale-out: `sequence_mesh`, `pipeline_mesh`, `vae_mesh` and `vae_w_mesh`
+as in the one-stage pipeline (both stages' loops token-split, or staged
+over the pipeline mesh's 'pipe' axis; stage 1 at half resolution, so its
+token count must divide the sequence axis too); the noise is drawn whole
+from each stage's generator on every rank, so the ranks hold the same
+state. The subclasses (keyframe, ti2vid-hq, ic-lora, a2vid, two-stage)
+run their own loops over the same meshes (`loop_kwargs`) and
+decode over the VAE meshes (`decode`).
 """
 
 from __future__ import annotations
@@ -66,12 +69,13 @@ from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoder
 from ltx2_tpu_torch.models.video_vae.ops import normalize_latent, un_normalize_latent
 from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig
 from ltx2_tpu_torch.pipelines.common import (
-    ImageCondition, apply_conditionings, check_meshes, create_image_conditionings, decode_audio, decode_video,
+    ImageCondition, apply_conditionings, create_image_conditionings, decode_audio, decode_video,
     encode_image, read_image,
 )
 from ltx2_tpu_torch.pipelines.denoise import (
     DenoiseLoopConfig, make_av_denoise_loop, make_video_denoise_loop, mesh_loop_kwargs,
 )
+from ltx2_tpu_torch.parallel.advisor import video_token_count
 from ltx2_tpu_torch.types import AudioLatentShape, VideoLatentShape, VideoPixelShape
 
 
@@ -158,14 +162,23 @@ class DistilledPipeline:
     std_of_means for the upscale bracket; default: the decoder's, else the
     encoder's. `video_encoder` encodes conditioning images."""
 
-    meshes_ported = True  # a subclass whose own loops take no mesh sets it False
+    # Whether --cfg-scale above 1 adds the unconditional guidance row to a
+    # denoise step: the distilled loops run CFGGuider(1.0).
+    CFG_ROW = False
+
+    @classmethod
+    def stage_token_counts(cls, frames: int, height: int, width: int, keyframes: int = 0) -> Tuple[int, ...]:
+        """The video token counts the DiT runs besides the output's: stage
+        1's, at half the height and width."""
+        return (video_token_count(frames, height // 2, width // 2),)
 
     def __init__(self, transformer: LTXModel, spatial_upscaler: Optional[SpatialUpscaler] = None,
                  video_decoder: Optional[VideoDecoder] = None, statistics=None,
                  video_encoder: Optional[VideoEncoder] = None, audio_decoder: Optional[AudioDecoder] = None,
                  vocoder=None, sequence_mesh=None, pipeline_mesh=None, vae_mesh=None, vae_w_mesh=None):
-        check_meshes(self, pipeline_mesh, sequence_mesh=sequence_mesh, vae_mesh=vae_mesh, vae_w_mesh=vae_w_mesh)
-        self.sequence_mesh, self.vae_mesh, self.vae_w_mesh = sequence_mesh, vae_mesh, vae_w_mesh
+        self.sequence_mesh, self.pipeline_mesh = sequence_mesh, pipeline_mesh
+        self.vae_mesh, self.vae_w_mesh = vae_mesh, vae_w_mesh
+        self.loop_kwargs = mesh_loop_kwargs(sequence_mesh, pipeline_mesh)
         self.transformer = transformer
         self.spatial_upscaler = spatial_upscaler
         self.video_decoder = video_decoder
@@ -178,8 +191,13 @@ class DistilledPipeline:
         makers = {False: make_video_denoise_loop, True: make_av_denoise_loop}
         self.loops = {(audio, uniform): makers[audio](
             transformer.cfg, DenoiseLoopConfig(guider=CFGGuider(1.0), uniform_timesteps=uniform),
-            **mesh_loop_kwargs(sequence_mesh))
+            **self.loop_kwargs)
             for audio in {False, self.is_av_model} for uniform in (True, False)}
+
+    def decode(self, latent: torch.Tensor, tiling, seed: int):
+        """`decode_video` over the pipeline's VAE meshes."""
+        return decode_video(latent, self.video_decoder, tiling, seed, vae_mesh=self.vae_mesh,
+                            vae_w_mesh=self.vae_w_mesh)
 
     def _stats(self):
         if self.statistics is not None:
@@ -319,8 +337,7 @@ class DistilledPipeline:
 
         if skip_decode:
             return (latent, audio_latent) if config.audio_enabled else latent
-        video = decode_video(latent, self.video_decoder, config.effective_tiling(), seeds[2],
-                             vae_mesh=self.vae_mesh, vae_w_mesh=self.vae_w_mesh)
+        video = self.decode(latent, config.effective_tiling(), seeds[2])
         if not config.audio_enabled:
             return video
         if audio_latent is None:  # a video-only DiT: no audio, as in the JAX package

@@ -153,8 +153,6 @@ def create_video_conditionings(videos: List[VideoCondition], encode_fn: Callable
 class ICLoraPipeline(DistilledPipeline):
     """Control-signal two-stage generation with the IC-LoRA in stage 1 only."""
 
-    meshes_ported = False  # its meshes are not ported: any mesh raises
-
     def __call__(  # type: ignore[override]
         self,
         text_encoding: torch.Tensor,

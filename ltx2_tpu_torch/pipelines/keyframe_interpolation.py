@@ -21,7 +21,7 @@ in each stage's noise, whose token count includes the appended keyframes.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,7 +30,7 @@ from ltx2_tpu_torch.components.noisers import GaussianNoiser
 from ltx2_tpu_torch.components.schedulers import LTX2Scheduler, STAGE_2_DISTILLED_SIGMA_VALUES
 from ltx2_tpu_torch.conditioning.keyframe import VideoConditionByKeyframeIndex
 from ltx2_tpu_torch.conditioning.tools import VideoLatentTools
-from ltx2_tpu_torch.pipelines.common import apply_conditionings, decode_video, encode_image, load_image_tensor, read_image
+from ltx2_tpu_torch.pipelines.common import apply_conditionings, encode_image, load_image_tensor, read_image
 from ltx2_tpu_torch.pipelines.denoise import DenoiseLoopConfig, make_video_denoise_loop
 from ltx2_tpu_torch.pipelines.distilled import DistilledConfig, DistilledPipeline, stage_seeds
 from ltx2_tpu_torch.types import VideoLatentShape, VideoPixelShape
@@ -76,7 +76,16 @@ class KeyframeInterpolationPipeline(DistilledPipeline):
     keyframes, over the port's modules (the distilled pipeline's, whose
     video encoder encodes the keyframes)."""
 
-    meshes_ported = False  # its meshes are not ported: any mesh raises
+    CFG_ROW = True  # stage 1's CFG Euler loop
+
+    @classmethod
+    def stage_token_counts(cls, frames: int, height: int, width: int, keyframes: int = 0) -> Tuple[int, ...]:
+        """Stage 1's, and with keyframes a keyframe's at each stage (they are
+        appended to the sequence)."""
+        counts = super().stage_token_counts(frames, height, width)
+        if keyframes:
+            counts += ((height // 32) * (width // 32), (height // 64) * (width // 64))
+        return counts
 
     def _cfg_stage(self, config: KeyframeInterpolationConfig, height: int, width: int, conditionings,
                    sigmas: torch.Tensor, generator, noise_scale: float, text_encoding: torch.Tensor,
@@ -94,7 +103,7 @@ class KeyframeInterpolationPipeline(DistilledPipeline):
         state = apply_conditionings(state, conditionings, tools)
         state = GaussianNoiser()(generator, state, noise_scale=noise_scale, noise=noise)
         loop = make_video_denoise_loop(self.transformer.cfg, DenoiseLoopConfig(
-            guider=CFGGuider(cfg_scale), uniform_timesteps=not conditionings))
+            guider=CFGGuider(cfg_scale), uniform_timesteps=not conditionings), **self.loop_kwargs)
         state = loop(self.transformer, state, sigmas, text_encoding, negative_encoding)
         if end_state is not None:
             end_state.append(state)
@@ -156,7 +165,7 @@ class KeyframeInterpolationPipeline(DistilledPipeline):
                 callback("stage2", latent)
         if skip_decode:
             return (latent, None) if config.audio_enabled else latent
-        video = decode_video(latent, self.video_decoder, config.effective_tiling(), seeds[2])
+        video = self.decode(latent, config.effective_tiling(), seeds[2])
         return (video, None) if config.audio_enabled else video
 
 

@@ -34,8 +34,10 @@ off after the loop; video only, as in the JAX package).
 Scale-out (parallel/): `sequence_mesh` runs both loops token-split (and
 SP x TP with a 'model' axis, the DiT a TP shard), `vae_mesh` decodes tiles
 data-parallel over its 'data' ranks, `vae_w_mesh` decodes an untiled latent
-W-sharded over its 'data' ranks with per-conv halos. Not ported (it raises
-NotImplementedError naming itself): `pipeline_mesh`.
+W-sharded over its 'data' ranks with per-conv halos, `pipeline_mesh` runs
+both loops with the block stack GPipe-staged over its 'pipe' axis (PP x SP
+and PP x TP with its 'seq' and 'model' axes). `sequence_mesh` and
+`pipeline_mesh` are exclusive.
 """
 
 from __future__ import annotations
@@ -57,10 +59,12 @@ from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoder
 from ltx2_tpu_torch.models.video_vae.ops import normalize_latent, un_normalize_latent
 from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig
 from ltx2_tpu_torch.pipelines.common import (
-    ImageCondition, apply_conditionings, bucketed_tokens, check_meshes, create_image_conditionings, decode_audio,
+    ImageCondition, apply_conditionings, bucketed_tokens, create_image_conditionings, decode_audio,
     decode_video, encode_image, pad_state_tokens, slice_state_tokens,
 )
-from ltx2_tpu_torch.pipelines.denoise import DenoiseLoopConfig, make_av_denoise_loop, make_video_denoise_loop
+from ltx2_tpu_torch.pipelines.denoise import (
+    DenoiseLoopConfig, make_av_denoise_loop, make_video_denoise_loop, mesh_loop_kwargs,
+)
 from ltx2_tpu_torch.pipelines.distilled import AudioFields, stage_seeds
 from ltx2_tpu_torch.types import VideoLatentShape, VideoPixelShape
 
@@ -108,13 +112,20 @@ class OneStagePipeline:
     video encoder (for images) and decoder, and for audio the audio decoder
     and the vocoder."""
 
-    meshes_ported = True  # a subclass whose own loops take no mesh sets it False
+    # A --cfg-scale above 1 adds the unconditional guidance row.
+    CFG_ROW = True
+
+    @classmethod
+    def stage_token_counts(cls, frames: int, height: int, width: int, keyframes: int = 0) -> Tuple[int, ...]:
+        """The video token counts the DiT runs besides the output's: none."""
+        return ()
 
     def __init__(self, transformer: LTXModel, video_encoder: Optional[VideoEncoder] = None,
                  video_decoder: Optional[VideoDecoder] = None, sequence_mesh=None, pipeline_mesh=None,
                  vae_mesh=None, vae_w_mesh=None, audio_decoder: Optional[AudioDecoder] = None, vocoder=None):
-        check_meshes(self, pipeline_mesh, sequence_mesh=sequence_mesh, vae_mesh=vae_mesh, vae_w_mesh=vae_w_mesh)
-        self.sequence_mesh, self.vae_mesh, self.vae_w_mesh = sequence_mesh, vae_mesh, vae_w_mesh
+        self.sequence_mesh, self.pipeline_mesh = sequence_mesh, pipeline_mesh
+        self.vae_mesh, self.vae_w_mesh = vae_mesh, vae_w_mesh
+        self.loop_kwargs = mesh_loop_kwargs(sequence_mesh, pipeline_mesh)
         self.transformer = transformer
         self.video_encoder = video_encoder
         self.video_decoder = video_decoder
@@ -208,7 +219,7 @@ class OneStagePipeline:
             audio_state = audio_tools.create_initial_state(dtype=dtype, device=device)
             audio_gen = None if audio_noise is not None else torch.Generator(device=device).manual_seed(audio_seed)
             audio_state = GaussianNoiser()(audio_gen, audio_state, noise_scale=1.0, noise=audio_noise)
-            state, audio_state = make_av_denoise_loop(self.transformer.cfg, loop_cfg, mesh=self.sequence_mesh)(
+            state, audio_state = make_av_denoise_loop(self.transformer.cfg, loop_cfg, **self.loop_kwargs)(
                 self.transformer, state, audio_state, sigmas, positive_encoding, negative_encoding,
                 positive_audio_encoding, negative_audio_encoding)
             audio_latent = audio_tools.unpatchify(audio_tools.clear_conditioning(audio_state)).latent
@@ -216,7 +227,7 @@ class OneStagePipeline:
             n_real, token_mask = state.latent.shape[1], None
             if config.token_bucket:
                 state, token_mask = pad_state_tokens(state, bucketed_tokens(n_real, config.token_bucket))
-            state = make_video_denoise_loop(self.transformer.cfg, loop_cfg, mesh=self.sequence_mesh)(
+            state = make_video_denoise_loop(self.transformer.cfg, loop_cfg, **self.loop_kwargs)(
                 self.transformer, state, sigmas, positive_encoding, negative_encoding, token_mask=token_mask)
             state = slice_state_tokens(state, n_real)
         latent = tools.unpatchify(tools.clear_conditioning(state)).latent

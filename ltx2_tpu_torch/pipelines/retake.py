@@ -142,8 +142,6 @@ class RetakePipeline(OneStagePipeline):
     """Masked re-generation of a temporal region over the one-stage
     pipeline's modules (the DiT, the video encoder and decoder)."""
 
-    meshes_ported = False  # its meshes are not ported: any mesh raises
-
     def __call__(  # type: ignore[override]
         self,
         video_path: Optional[str],
@@ -188,7 +186,7 @@ class RetakePipeline(OneStagePipeline):
         gen = None if noise is not None else torch.Generator(device=device).manual_seed(noise_seed)
         state = GaussianNoiser()(gen, state, noise_scale=1.0, noise=noise)
         loop = make_video_denoise_loop(self.transformer.cfg, DenoiseLoopConfig(
-            guider=CFGGuider(scale=config.cfg_scale), cfg_interval=config.cfg_interval))
+            guider=CFGGuider(scale=config.cfg_scale), cfg_interval=config.cfg_interval), **self.loop_kwargs)
         state = loop(self.transformer, state, sigmas, positive_encoding, negative_encoding)
         latent = tools.unpatchify(tools.clear_conditioning(state)).latent
         if callback:
@@ -199,7 +197,8 @@ class RetakePipeline(OneStagePipeline):
             raise ValueError("video decoder required to decode (or pass skip_decode=True)")
         tiling = OneStageCFGConfig(height=height, width=width, num_frames=n_frames, tiling_config=config.tiling_config,
                                    latent_channels=config.latent_channels).effective_tiling()
-        return decode_video(latent, self.video_decoder, tiling, decode_seed)
+        return decode_video(latent, self.video_decoder, tiling, decode_seed, vae_mesh=self.vae_mesh,
+                            vae_w_mesh=self.vae_w_mesh)
 
 
 def create_retake_pipeline(**kwargs) -> RetakePipeline:

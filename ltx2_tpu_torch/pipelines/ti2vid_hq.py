@@ -32,12 +32,11 @@ from ltx2_tpu_torch.components.noisers import GaussianNoiser
 from ltx2_tpu_torch.components.res2s import get_res2s_coefficients
 from ltx2_tpu_torch.components.schedulers import LTX2Scheduler, STAGE_2_DISTILLED_SIGMA_VALUES
 from ltx2_tpu_torch.conditioning.tools import VideoLatentTools
-from ltx2_tpu_torch.models.transformer.model import x0_model_apply
 from ltx2_tpu_torch.pipelines.common import (
-    ImageCondition, apply_conditionings, create_image_conditionings, decode_audio, decode_video, encode_image,
+    ImageCondition, apply_conditionings, create_image_conditionings, decode_audio, encode_image,
     modality_from_state, post_process_latent, read_image,
 )
-from ltx2_tpu_torch.pipelines.denoise import _precompute_video_pe, _tile_rows
+from ltx2_tpu_torch.pipelines.denoise import _precompute_video_pe, _tile_rows, mesh_forward
 from ltx2_tpu_torch.pipelines.distilled import DistilledConfig, DistilledPipeline, stage_seeds
 from ltx2_tpu_torch.types import LatentState, VideoLatentShape, VideoPixelShape
 
@@ -61,7 +60,7 @@ class TI2VidHQPipeline(DistilledPipeline):
     """The Res2s-sampled two-stage pipeline over the distilled pipeline's
     modules."""
 
-    meshes_ported = False  # its meshes are not ported: any mesh raises
+    CFG_ROW = True  # stage 1's Res2s loop
 
     def _res2s_denoise(self, video_state: LatentState, audio_state: Optional[LatentState], sigmas: np.ndarray,
                        pos_v, neg_v, pos_a, neg_a, cfg_scale: float, audio_cfg_scale: float, callback=None):
@@ -77,6 +76,7 @@ class TI2VidHQPipeline(DistilledPipeline):
         need_cfg = (cfg_scale != 1.0 or av_cfg) and neg_v is not None
         rows = 2 if need_cfg else 1
         model = self.transformer
+        x0 = mesh_forward(sequence_axis="seq", microbatches=rows, **self.loop_kwargs)
         video_pe = _precompute_video_pe(model.cfg, video_state.positions, rows)
         sig = [float(s) for s in sigmas]
         if sig[-1] == 0.0:
@@ -97,9 +97,9 @@ class TI2VidHQPipeline(DistilledPipeline):
             sigma_t = torch.tensor(sigma, dtype=torch.float32, device=v_latent.device)
             video = modality_from_state(_tiled(video_state, v_latent, rows), v_ctx, sigma_t)
             if not av:
-                return guide(x0_model_apply(model, video, video_pe=video_pe), cfg_scale), None
+                return guide(x0(model, video, video_pe=video_pe), cfg_scale), None
             audio = modality_from_state(_tiled(audio_state, a_latent, rows), a_ctx, sigma_t)
-            v_out, a_out = x0_model_apply(model, video, video_pe=video_pe, audio=audio)
+            v_out, a_out = x0(model, video, video_pe=video_pe, audio=audio)
             return guide(v_out, cfg_scale), guide(a_out, audio_cfg_scale)
 
         def post(d, state):
@@ -226,7 +226,7 @@ class TI2VidHQPipeline(DistilledPipeline):
 
         if skip_decode:
             return (latent, audio_latent) if config.audio_enabled else latent
-        video = decode_video(latent, self.video_decoder, config.effective_tiling(), seeds[2])
+        video = self.decode(latent, config.effective_tiling(), seeds[2])
         if not config.audio_enabled:
             return video
         if audio_latent is None:

@@ -19,8 +19,8 @@ kept). Then the video decode (tiled above 4000 latent voxels) and, with
 Randomness: the JAX package splits PRNGKey(seed) into five keys; the port
 draws (stage 1, stage 2, decode) seeds as the distilled recipe does
 (`stage_seeds`), video noise before audio noise in each stage; the tests
-hand the JAX package's noise in. Not ported: meshes (the constructor
-raises).
+hand the JAX package's noise in. Meshes as the distilled pipeline takes
+them (both stages' loops, the decode).
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ from ltx2_tpu_torch.conditioning.tools import VideoLatentTools
 from ltx2_tpu_torch.loader.lora import LoRAConfig, fuse_lora_into_params, unfuse_lora_deltas
 from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig
 from ltx2_tpu_torch.pipelines.common import (
-    ImageCondition, apply_conditionings, create_image_conditionings, decode_audio, decode_video, encode_image,
+    ImageCondition, apply_conditionings, create_image_conditionings, decode_audio, encode_image,
     read_image,
 )
 from ltx2_tpu_torch.pipelines.denoise import (
@@ -98,7 +98,7 @@ def _distilled_view(config: TwoStageCFGConfig) -> DistilledConfig:
 class TwoStagePipeline(DistilledPipeline):
     """Stage 1 under guidance, stage 2 refined with the distilled LoRA."""
 
-    meshes_ported = False  # its meshes are not ported: any mesh raises
+    CFG_ROW = True
 
     def __call__(  # type: ignore[override]
         self,
@@ -160,7 +160,7 @@ class TwoStagePipeline(DistilledPipeline):
                 video_cfg_scale=config.cfg_scale, audio_cfg_scale=config.audio_cfg_scale,
                 rescale_scale=config.guidance_rescale, modality_scale=config.modality_scale,
                 cfg_interval=config.cfg_interval, uniform_timesteps=not conditionings)
-            state, audio_state = make_multimodal_av_denoise_loop(self.transformer.cfg, mm)(
+            state, audio_state = make_multimodal_av_denoise_loop(self.transformer.cfg, mm, **self.loop_kwargs)(
                 self.transformer, state, audio_state, sigmas, positive_encoding, negative_encoding,
                 positive_audio_encoding, negative_audio_encoding)
             stage_1_audio = audio_tools.unpatchify(audio_tools.clear_conditioning(audio_state)).latent
@@ -168,7 +168,8 @@ class TwoStagePipeline(DistilledPipeline):
             guider = (RescaledCFGGuider(scale=config.cfg_scale, rescale=config.guidance_rescale)
                       if config.guidance_rescale > 0 else CFGGuider(scale=config.cfg_scale))
             state = make_video_denoise_loop(self.transformer.cfg, DenoiseLoopConfig(
-                guider=guider, uniform_timesteps=not conditionings, cfg_interval=config.cfg_interval))(
+                guider=guider, uniform_timesteps=not conditionings, cfg_interval=config.cfg_interval),
+                **self.loop_kwargs)(
                 self.transformer, state, sigmas, positive_encoding, negative_encoding)
         latent = tools.unpatchify(tools.clear_conditioning(state)).latent
         audio_latent = stage_1_audio
@@ -207,7 +208,7 @@ class TwoStagePipeline(DistilledPipeline):
 
         if skip_decode:
             return latent, audio_latent
-        video = decode_video(latent, self.video_decoder, config.effective_tiling(), seeds[2])
+        video = self.decode(latent, config.effective_tiling(), seeds[2])
         waveform = None
         if config.audio_enabled and audio_latent is not None:
             waveform = decode_audio(audio_latent, self.audio_decoder, self.vocoder)

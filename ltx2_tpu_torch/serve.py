@@ -41,20 +41,33 @@ lock (the resident models own the card); a request whose client got its
 streams come from torch.Generators seeded from its seed, so a served clip
 equals `generate.main`'s for the same settings.
 
+On several ranks (launched as `generate.py`'s layouts are, under torchrun
+with --sp-devices, --tp-devices, --pp-stages, the VAE flags or
+--auto-shard), rank 0 alone reads the requests (the lines or the HTTP
+front) and checks each; it broadcasts the request, or that it was refused,
+to every rank over a control group of its own (gloo, on the host), and
+every rank runs the generation in lockstep (`execute_request`). Rank 0
+alone writes the files and answers; the other ranks print nothing. The end
+of the input, or rank 0's shutdown, is broadcast too, and every rank exits
+0. A refused request never reaches the other ranks' models.
+
     python -m ltx2_tpu_torch.serve --pipeline distilled --checkpoint ckpt.safetensors \\
         --spatial-upscaler up.safetensors --gemma-dir gemma/ --fp8-serving < requests.jsonl
     python -m ltx2_tpu_torch.serve --device cpu --layers 1 --height 64 --width 64 --frames 9 --http 8080
+    torchrun --nproc-per-node 2 -m ltx2_tpu_torch.serve --pp-stages 2 --dist-backend gloo < requests.jsonl
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import datetime
 import json
 import os
 import sys
 import tempfile
 import time
+from typing import Optional
 
 from ltx2_tpu_torch import generate
 
@@ -80,6 +93,42 @@ REQUEST_FIELDS = {
 }
 # Request fields whose setting has another name in the port's parser.
 FIELD_DEST = {"num_frames": "frames"}
+# How long the other ranks wait for rank 0's next message: a server may idle.
+CONTROL_TIMEOUT = datetime.timedelta(days=30)
+
+
+class Control:
+    """Rank 0's messages to the other ranks: each request it takes (its
+    checked settings, or None when it refused it) and the shutdown, broadcast
+    over a gloo group of the whole world (host memory: it carries no
+    tensor of the models). A world of one rank needs none: `send` does
+    nothing."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        from ltx2_tpu_torch.parallel.runtime import world
+
+        self.rank, self.world = world()
+        self.group = None
+        if self.world > 1:
+            self.group = dist.new_group(list(range(self.world)), backend="gloo", timeout=CONTROL_TIMEOUT)
+
+    def _broadcast(self, message):
+        import torch.distributed as dist
+
+        box = [message]
+        dist.broadcast_object_list(box, src=0, group=self.group)
+        return box[0]
+
+    def send(self, message) -> None:
+        """Rank 0: `message` to every other rank."""
+        if self.group is not None:
+            self._broadcast(message)
+
+    def receive(self):
+        """Another rank: rank 0's next message."""
+        return self._broadcast(None)
 
 
 def _log(msg: str, *fargs) -> None:
@@ -178,13 +227,11 @@ def main(argv=None) -> None:
         generate.check_request(args)
     except ValueError as err:
         parser.error(str(err))
-    layout = generate._layout(args)
-    if layout:
-        raise NotImplementedError(f"{', '.join(layout)}: the server on several ranks (rank 0 reading requests and "
-                                  "broadcasting them) is not ported yet; use python -m ltx2_tpu_torch.generate")
     t0 = time.perf_counter()
     models, ledger = generate.setup(args)
-    _log("models resident in %.1f s (%.2f GB of weights)", time.perf_counter() - t0, models.weight_gb())
+    control = Control()
+    if control.rank == 0:
+        _log("models resident in %.1f s (%.2f GB of weights)", time.perf_counter() - t0, models.weight_gb())
 
     if args.warmup:
         _warm(args, models, ledger, "warmup generation")
@@ -194,10 +241,31 @@ def main(argv=None) -> None:
             wa.height, wa.width, wa.frames = (int(v) for v in shape.strip().split("x"))
             _warm(wa, models, ledger, f"warmed {shape.strip()}")
 
-    if args.http is not None:
-        serve_http(args, models, ledger)
+    if control.rank != 0:
+        follow(models, ledger, control)
         return
+    try:
+        if args.http is not None:
+            serve_http(args, models, ledger, control)
+        else:
+            serve_lines(args, models, ledger, control)
+    finally:
+        control.send({"shutdown": True})
 
+
+def follow(models, ledger, control: Control) -> None:
+    """A rank other than 0: every request rank 0 takes, run in lockstep
+    with it (its response unused), until the shutdown."""
+    while True:
+        message = control.receive()
+        if message.get("shutdown"):
+            return
+        if message["args"] is not None:
+            run_request(message["args"], models, ledger, 0)
+
+
+def serve_lines(args, models, ledger, control: Control) -> None:
+    """The line protocol on stdin or --requests: a response a request."""
     stream = sys.stdin if args.requests_file == "-" else open(args.requests_file, encoding="utf-8")
     req_id = 0  # counts requests (comment and blank lines take no id)
     try:
@@ -209,8 +277,9 @@ def main(argv=None) -> None:
                 request = json.loads(line)
                 if not isinstance(request, dict):
                     raise ValueError("a request must be a JSON object")
-                response = handle_request(args, models, ledger, request, req_id)
+                response = handle_request(args, models, ledger, request, req_id, control)
             except Exception as exc:  # noqa: BLE001 - a bad line must not end the server
+                control.send({"args": None})
                 response = {"status": "error", "kind": "bad_request", "id": req_id,
                             "error": f"{type(exc).__name__}: {exc}", "seconds": 0.0}
             req_id += 1
@@ -220,17 +289,28 @@ def main(argv=None) -> None:
             stream.close()
 
 
-def handle_request(args, models, ledger, request: dict, req_id: int) -> dict:
+def handle_request(args, models, ledger, request: dict, req_id: int, control: Optional[Control] = None) -> dict:
     """One generation: the request in, its response out; never raises (the
     error response is the contract of both fronts). "kind" says whose fault
     an error is: "bad_request" (the request failed `apply_request`) or
-    "server" (the generation failed)."""
+    "server" (the generation failed). With `control` the checked request's
+    settings, or its refusal, go to the other ranks first."""
     t0 = time.perf_counter()
     try:
         req_args = apply_request(args, request)
     except Exception as exc:  # noqa: BLE001 - a bad request must not end the server
+        if control is not None:
+            control.send({"args": None})
         return {"status": "error", "kind": "bad_request", "id": req_id, "error": f"{type(exc).__name__}: {exc}",
                 "seconds": round(time.perf_counter() - t0, 2)}
+    if control is not None:
+        control.send({"args": req_args})
+    return run_request(req_args, models, ledger, req_id, t0)
+
+
+def run_request(req_args, models, ledger, req_id: int, t0: Optional[float] = None) -> dict:
+    """`execute_request` on checked settings -> the response."""
+    t0 = time.perf_counter() if t0 is None else t0
     try:
         _, stats = generate.execute_request(req_args, models, ledger)
         return {"status": "ok", "id": req_id, "output": req_args.output,
@@ -241,7 +321,7 @@ def handle_request(args, models, ledger, request: dict, req_id: int) -> dict:
                 "seconds": round(time.perf_counter() - t0, 2)}
 
 
-def make_http_server(args, models, ledger):
+def make_http_server(args, models, ledger, control: Optional[Control] = None):
     """A ThreadingHTTPServer on args.http (0: a free port): POST /generate
     with the line protocol's JSON body, GET /healthz. Generations serialize
     behind one lock."""
@@ -295,7 +375,7 @@ def make_http_server(args, models, ledger):
                         return None
                     req_id = counter["id"]
                     counter["id"] += 1
-                    return handle_request(args, models, ledger, request, req_id)
+                    return handle_request(args, models, ledger, request, req_id, control)
 
             timeout = getattr(args, "request_timeout", None)
             if timeout is not None:
@@ -324,8 +404,8 @@ def make_http_server(args, models, ledger):
     return ThreadingHTTPServer((getattr(args, "http_host", "127.0.0.1"), args.http), Handler)
 
 
-def serve_http(args, models, ledger) -> None:
-    server = make_http_server(args, models, ledger)
+def serve_http(args, models, ledger, control: Optional[Control] = None) -> None:
+    server = make_http_server(args, models, ledger, control)
     _log("HTTP on http://%s:%d (POST /generate, GET /healthz)", *server.server_address[:2])
     try:
         server.serve_forever()

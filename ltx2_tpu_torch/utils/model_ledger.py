@@ -19,7 +19,10 @@ With `tp_axis` (a parallel/mesh.py model axis) the DiT loads as this rank's
 tensor-parallel shard: each tensor the rules split is sliced as it is read
 (the JAX ledger's `transformer_device_put`, utils/model_ledger.py:41-43), a
 LoRA fused into the whole tensor's slice; int8 codes split with their
-column-parallel scales, fp8 codes keep their per-tensor scale.
+column-parallel scales, fp8 codes keep their per-tensor scale. With
+`pipe_axis` (a mesh's pipe axis) only this rank's pipeline stage's L/P
+blocks are read from the file (the JAX ledger's `pipeline_device_put`), a
+LoRA fused into them; it composes with `tp_axis`.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ class ModelLedger:
     decoder_dtype: str = "float32"  # the video decoder's compute dtype (the JAX package's is fp32)
     device: object = None  # default cuda
     tp_axis: object = None  # the DiT loads as this rank's TP shard over it
+    pipe_axis: object = None  # the DiT loads as this rank's pipeline stage over it
     _cache: Dict[str, object] = field(default_factory=dict, repr=False)
 
     def __post_init__(self):
@@ -81,7 +85,8 @@ class ModelLedger:
             model = load_transformer_params(self.checkpoint_path, target_dtype=self.target_dtype,
                                             device=self.device, keep_fp8=self.keep_fp8 and not self.loras,
                                             quantize_int8=self.int8 and not self.loras,
-                                            include_audio=self.include_audio, tp_axis=tp)
+                                            include_audio=self.include_audio, tp_axis=tp,
+                                            pipe_axis=self.pipe_axis)
             if self.loras:
                 fuse_lora_into_params(model, self.loras)
                 if self.int8:

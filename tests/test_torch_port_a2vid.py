@@ -343,3 +343,42 @@ def test_a2vid_cli_writes_the_source_at_16khz(tmp_path):
     with pytest.raises(SystemExit):
         generate.main(["--pipeline", "distilled", "--device", "cpu", "--audio-file", source,
                        "--output", str(out)])
+
+
+def test_a2vid_pipeline_on_2_ranks_matches_jax(av, enc, tmp_path):
+    """a2vid on 2 gloo ranks under SP-2 at 64x128x17 (6 video tokens at
+    stage 1, 24 at stage 2, 18 frozen audio tokens: the audio stream and the
+    cross-modal attentions split too) against the JAX pipeline on a
+    2-device sequence mesh; every rank's video latent identical."""
+    from ltx2_tpu.parallel import mesh as jmesh
+    from tests.torch_port_pp_workers import pipeline_call
+    from tests.torch_port_util import spawn_ranks
+
+    cfg, jcfg, tree, up_tree, stats = av
+    _, jenc_cfg, enc_tree, port_enc = enc
+    rng = np.random.default_rng(10)
+    context = (rng.standard_normal((1, 6, 24)) * 0.5).astype(np.float32)
+    wave_in = (rng.standard_normal((2, 12000)) * 0.3).astype(np.float32)
+    common = dict(height=64, width=128, num_frames=17, seed=SEED, latent_channels=16, audio_enabled=True, **AUDIO)
+    keys = [jax.random.split(k) for k in jax.random.split(jax.random.PRNGKey(SEED), 3)[:2]]
+    noises = [np.asarray(jax.random.normal(k[0], (1, n, 16), jnp.float32)) for k, n in zip(keys, (6, 24))]
+    audio_noises = [np.asarray(jax.random.normal(k[1], (1, 18, 16), jnp.float32)) for k in keys]
+    statistics = PerChannelStatistics(16)
+    statistics.mean_of_means.copy_(t(stats["mean_of_means"]))
+    statistics.std_of_means.copy_(t(stats["std_of_means"]))
+    spec = {"cls": "ltx2_tpu_torch.pipelines.a2vid_two_stage.A2VidPipelineTwoStage",
+            "modules": {"transformer": ("dit_from_numpy", tree, cfg),
+                        "spatial_upscaler": ("spatial_upscaler_from_numpy", up_tree, SpatialUpscalerConfig(**UP))},
+            "ctor": {"statistics": statistics, "audio_encoder": port_enc}, "meshes": {"sequence_mesh": "seq"},
+            "args": (context, a2vid_two_stage.A2VidConfig(**common)),
+            "kwargs": dict(source_waveform=wave_in, skip_decode=True, noises=noises, audio_noises=audio_noises)}
+    results = spawn_ranks(pipeline_call, 2, tmp_path, spec)
+    np.testing.assert_array_equal(results[1][0], results[0][0])
+    jpipe = ja2vid.A2VidPipelineTwoStage(
+        audio_encoder_params=_jtree(enc_tree), audio_encoder_cfg=jenc_cfg, transformer_params=_jtree(tree),
+        transformer_cfg=jcfg, video_decoder_params={"per_channel_statistics": _jtree(stats)},
+        spatial_upscaler_params=_jtree(up_tree), spatial_upscaler_cfg=jspatial.SpatialUpscalerConfig(**UP),
+        sequence_mesh=jmesh.create_mesh(data=1, model=1, seq=2, devices=jax.devices()[:2]))
+    ref = jpipe(jnp.asarray(context), None, ja2vid.A2VidConfig(dtype="float32", **common), source_waveform=wave_in,
+                skip_decode=True)
+    assert_close(results[0][0], np.asarray(ref[0]), msg="a2vid video latent under SP-2")

@@ -102,10 +102,11 @@ def test_denoise_loop(weights, cfg_scale):
 
 
 def test_loop_refuses_parallelism_and_other_guiders():
-    """Pipeline parallelism is not ported; the stateful APG does not compose
+    """Guidance reuse does not compose with pipeline parallelism (its
+    microbatches are the guidance rows); the stateful APG does not compose
     with guidance reuse (its EMA needs a fresh uncond every step), as in JAX."""
     with pytest.raises(NotImplementedError):
-        make_video_denoise_loop(CFG, DenoiseLoopConfig(), pipeline_axis="pipe")
+        make_video_denoise_loop(CFG, DenoiseLoopConfig(guider=CFGGuider(3.0), cfg_interval=2), pipeline_axis="pipe")
     with pytest.raises(ValueError, match="APG momentum"):
         make_video_denoise_loop(CFG, DenoiseLoopConfig(guider=guiders.StatefulAPGGuider(2.0, 0.5, momentum=0.5),
                                                        cfg_interval=2))

@@ -366,3 +366,30 @@ def test_generate_main_ic_lora(parts, files, monkeypatch):
     with open(control_avi, "rb") as fh:
         assert fh.read() == written
     os.unlink(control_avi)
+
+
+def test_ic_lora_pipeline_on_2_ranks_matches_jax(parts, tmp_path):
+    """SP-2 on 2 gloo ranks (stage 1's 2 tokens and the control's 2 split
+    alike, the IC-LoRA fused into each rank's whole weights) against the
+    JAX pipeline on a 2-device sequence mesh; every rank's latent identical."""
+    from ltx2_tpu.parallel import mesh as jmesh
+    from tests.torch_port_pp_workers import pipeline_call
+    from tests.torch_port_util import spawn_ranks
+
+    jpipe, pipe, jconfig, config = _pipelines(parts, "video", parts["lora"]["video"])
+    jpipe.sequence_mesh = jmesh.create_mesh(data=1, model=1, seq=2, devices=jax.devices()[:2])
+    cfg, _, tree = parts["video"]
+    context = (np.random.default_rng(11).standard_normal((1, 6, 64)) * 0.5).astype(np.float32)
+    noises, _ = _stage_noise(SEED, (2 + 2, 8), False)
+    spec = {"cls": "ltx2_tpu_torch.pipelines.ic_lora.ICLoraPipeline",
+            "modules": {"transformer": ("dit_from_numpy", tree, cfg),
+                        "spatial_upscaler": ("spatial_upscaler_from_numpy", parts["up"], SpatialUpscalerConfig(**UP)),
+                        "video_encoder": ("video_encoder_from_numpy", parts["encoder"], ECFG)},
+            "ctor": {"statistics": pipe.statistics}, "meshes": {"sequence_mesh": "seq"}, "args": (context, config),
+            "kwargs": dict(videos=[ic_lora.VideoCondition(parts["control"], strength=0.9)], skip_decode=True,
+                           noises=[n.numpy() for n in noises])}
+    results = spawn_ranks(pipeline_call, 2, tmp_path, spec)
+    np.testing.assert_array_equal(results[1], results[0])
+    ref = jpipe(jnp.asarray(context), None, jconfig, videos=[jic.VideoCondition(parts["control"], strength=0.9)],
+                skip_decode=True)
+    assert_close(results[0], np.asarray(ref), msg="ic-lora latent under SP-2")

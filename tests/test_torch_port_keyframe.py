@@ -10,6 +10,10 @@ mid-16 spatial upscaler, base-16 decoder, random latent statistics):
   one-stage (no upscaler), with the JAX pipeline's noise handed in: the
   latent to 1e-4 of max|latent| (RTOL); a strength-1.0 keyframe's
   appended tokens come out of each stage bit for bit the encoder's latent;
+- the two-stage pipeline on 2 gloo ranks: SP-2 (the appended keyframe
+  tokens split with the clip's) and PP-2 against the JAX pipeline on a
+  2-device sequence or pipeline mesh, and the W-sharded decode over 2
+  ranks bit for bit the one-process decode;
 - `generate.main(["--pipeline", "keyframe", "--keyframe", ...])` from
   tiny files against `generate_videos_keyframe` on the same ledger, the
   spec parser against the JAX CLI's, and the refusals.
@@ -47,6 +51,7 @@ from ltx2_tpu_torch.models.video_vae import weights as vae_weights
 from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoder, VideoDecoderConfig
 from ltx2_tpu_torch.models.video_vae.encoder import video_encoder_apply
 from ltx2_tpu_torch.pipelines.common import load_image_tensor
+from ltx2_tpu_torch.pipelines.distilled import stage_seeds
 from ltx2_tpu_torch.pipelines.keyframe_interpolation import (
     Keyframe, KeyframeInterpolationConfig, KeyframeInterpolationPipeline,
 )
@@ -111,8 +116,8 @@ def test_keyframe_conditioning_matches_jax(frame_idx):
     assert tools.clear_conditioning(got).latent.shape[1] == 12
 
 
-def _jax_pipeline(weights, upscaler: bool):
-    return jki.KeyframeInterpolationPipeline(
+def _jax_pipeline(weights, upscaler: bool, **meshes):
+    return jki.KeyframeInterpolationPipeline(**meshes,
         transformer_params=_jtree(weights["dit"]), transformer_cfg=JCFG,
         video_encoder_params=_jtree(weights["encoder"]), video_encoder_cfg=JECFG,
         video_decoder_params=_jtree(weights["decoder"]), video_decoder_cfg=JDCFG,
@@ -213,3 +218,66 @@ def test_generate_main_keyframe(weights, files):
     with pytest.raises(ValueError, match=r"k\.jpg: JPEG segment 0xFFE0 of bad length 0"):
         generate.generate_videos_keyframe([SEED], [Keyframe(jpg, 0)], height=HEIGHT, width=WIDTH, frames=FRAMES,
                                           device="cpu", ledger=ModelLedger(ckpt, device="cpu"))
+
+
+KEYFRAMES = [("first", 0, 1.0), ("last", 8, 0.9)]
+TWO_STAGE_TOKENS = (8 + 8, 32 + 32)
+
+
+def _spec(weights, meshes: dict, skip_decode: bool = True) -> dict:
+    """The two-stage keyframe call of test_keyframe_pipeline_matches_jax as
+    `torch_port_pp_workers.pipeline_call` runs it on each rank."""
+    return {"cls": "ltx2_tpu_torch.pipelines.keyframe_interpolation.KeyframeInterpolationPipeline",
+            "modules": {"transformer": ("dit_from_numpy", weights["dit"], CFG),
+                        "spatial_upscaler": ("spatial_upscaler_from_numpy", weights["upscaler"], UPCFG),
+                        "video_decoder": ("video_decoder_from_numpy", weights["decoder"], DCFG),
+                        "video_encoder": ("video_encoder_from_numpy", weights["encoder"], ECFG)},
+            "meshes": meshes,
+            "args": (weights["pos"], KeyframeInterpolationConfig(height=HEIGHT, width=WIDTH, num_frames=FRAMES,
+                                                                  seed=SEED, num_inference_steps=2,
+                                                                  latent_channels=16)),
+            "kwargs": dict(keyframes=[Keyframe(weights[k], f, s) for k, f, s in KEYFRAMES], skip_decode=skip_decode,
+                           noises=[n.numpy() for n in _jax_noise(SEED, TWO_STAGE_TOKENS)[:2]])}
+
+
+@pytest.fixture(scope="module")
+def on_2_ranks(weights, tmp_path_factory):
+    from tests.torch_port_pp_workers import pipeline_calls
+    from tests.torch_port_util import spawn_ranks
+
+    specs = [_spec(weights, {"sequence_mesh": "seq"}), _spec(weights, {"pipeline_mesh": "pipe"}),
+             _spec(weights, {"sequence_mesh": "seq", "vae_w_mesh": "w"}, skip_decode=False)]
+    return spawn_ranks(pipeline_calls, 2, tmp_path_factory.mktemp("keyframe_ranks"), specs)
+
+
+@pytest.mark.parametrize("layout", ["sp2", "pp2"])
+def test_keyframe_pipeline_on_2_ranks_matches_jax(weights, on_2_ranks, layout):
+    """SP-2 and PP-2 against the JAX pipeline on the same 2-device mesh;
+    every rank's latent identical."""
+    from ltx2_tpu.parallel import mesh as jmesh
+
+    index = 0 if layout == "sp2" else 1
+    for r in on_2_ranks[1:]:
+        np.testing.assert_array_equal(r[index], on_2_ranks[0][index])
+    devices = jax.devices()[:2]
+    mesh = (dict(sequence_mesh=jmesh.create_mesh(data=1, model=1, seq=2, devices=devices)) if layout == "sp2" else
+            dict(pipeline_mesh=jmesh.create_mesh(data=1, model=1, pipe=2, devices=devices)))
+    jconfig = jki.KeyframeInterpolationConfig(height=HEIGHT, width=WIDTH, num_frames=FRAMES, seed=SEED,
+                                              num_inference_steps=2, latent_channels=16)
+    ref = _jax_pipeline(weights, True, **mesh)(jnp.asarray(weights["pos"]), None, jconfig, skip_decode=True,
+                                               keyframes=[jki.Keyframe(weights[k], f, s) for k, f, s in KEYFRAMES])
+    assert_close(on_2_ranks[0][index], np.asarray(ref), msg=f"keyframe latent under {layout}")
+
+
+def test_keyframe_w_sharded_decode_on_2_ranks_is_the_one_process_decode(weights, on_2_ranks):
+    """SP-2 with the W-sharded decode over 2 ranks: rank 0's frames bit for
+    bit the one-process pipeline's decode of the SP-2 latent."""
+    spec = _spec(weights, {})
+    pipe = KeyframeInterpolationPipeline(dit_from_numpy(weights["dit"], CFG),
+                                         spatial_upscaler_from_numpy(weights["upscaler"], UPCFG),
+                                         video_decoder=video_decoder_from_numpy(weights["decoder"], DCFG),
+                                         video_encoder=video_encoder_from_numpy(weights["encoder"], ECFG))
+    latent = t(on_2_ranks[0][0])
+    frames = pipe.decode(latent, spec["args"][1].effective_tiling(), stage_seeds(SEED)[2])
+    assert on_2_ranks[0][2].dtype == np.uint8
+    np.testing.assert_array_equal(on_2_ranks[0][2], frames)

@@ -98,8 +98,8 @@ def test_loop_refusals():
     with pytest.raises(ValueError, match="APG momentum"):
         make_video_denoise_loop(CFG, DenoiseLoopConfig(guider=StatefulAPGGuider(3.0, 0.5, momentum=0.5),
                                                        cfg_interval=2))
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        make_video_denoise_loop(CFG, DenoiseLoopConfig(), pipeline_axis="pipe")
+    with pytest.raises(NotImplementedError, match="parallelism"):  # guidance reuse under PP, as in JAX
+        make_video_denoise_loop(CFG, DenoiseLoopConfig(guider=CFGGuider(3.0), cfg_interval=2), pipeline_axis="pipe")
     # Reuse without CFG is no reuse; the stateful APG at scale 0 is off.
     make_video_denoise_loop(CFG, DenoiseLoopConfig(cfg_interval=3))
     make_video_denoise_loop(CFG, DenoiseLoopConfig(guider=StatefulAPGGuider(0.0, 0.5), cfg_interval=2))

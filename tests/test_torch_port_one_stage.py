@@ -15,10 +15,11 @@ initial noise:
 - every loop option (token bucket, guidance reuse, STG, a guider
   override, GE, Heun, the cross-attention scale, text-KV caching) through
   the pipeline against the JAX package's, the latent to 1e-4; STG on the
-  audio stream raises ValueError on this video-only pipeline, and each
-  unported option (pipeline parallelism in the pipelines, the loops and
-  the command line's --pp-stages, the training mesh flags) raises
-  NotImplementedError naming itself;
+  audio stream raises ValueError on this video-only pipeline; the training
+  mesh flags raise NotImplementedError naming themselves, while pipeline
+  parallelism is taken: the pipeline's mesh, the multi-modal loop's
+  pipeline axis, and the command line's --pp-stages, which at world 1 exits
+  with the JAX CLI's "needs 2 devices";
 - `generate.main(["--pipeline", "one-stage", "--image", ...])` from a tiny
   checkpoint against `generate_videos_one_stage` on the same ledger, and
   `--pipeline text-to-video`; with `--token-shift` its config and sigmas
@@ -212,30 +213,55 @@ def test_text_to_video_matches_jax(weights):
 
 def _pp_stages():
     """The command line's pipeline parallelism (GPipe staging across
-    ranks), which a prepare_data run over videos on several cards would
-    stage too: still unported, now that the W-sharded halo conv is."""
+    ranks) in a world of one rank: the JAX CLI's exit."""
     return generate.main(["--pipeline", "one-stage", "--device", "cpu", "--pp-stages", "2"])
 
 
-# option -> (a word its message must name, the call that must refuse it)
+def _fake_pipe_mesh():
+    """A mesh whose 'pipe' axis has 2 ranks and no group: enough to build
+    the pipelines and loops, which exchange nothing until they run."""
+    from ltx2_tpu_torch.parallel.mesh import Axis, Mesh
+
+    return Mesh({"data": 1, "pipe": 2, "model": 1}, {"pipe": Axis("pipe", 2, 0, (0, 1), None, "gloo")}, 0, (0, 1),
+                True)
+
+
+def _pipeline_mesh_taken(p):
+    mesh = _fake_pipe_mesh()
+    pipe = OneStagePipeline(p.transformer, pipeline_mesh=mesh)
+    assert pipe.loop_kwargs == {"mesh": mesh, "pipeline_axis": "pipe"}
+
+
+# option -> (the exception and a word its message must name, or None where
+# the option is now taken; the call)
 UNPORTED = {
-    "prepare_data_videos": ("pp-stages", lambda p, c, x: _pp_stages()),
-    "train_mesh_flags": ("one device", lambda p, c, x: train.main(
+    "prepare_data_videos": ((SystemExit, "--pp-stages needs 2 devices"), lambda p, c, x: _pp_stages()),
+    "train_mesh_flags": ((NotImplementedError, "one device"), lambda p, c, x: train.main(
         ["--placeholder", "--device", "cpu", "--synthetic", "1", "2", "2", "--zero1"])),
-    "meshes": ("pipeline_mesh", lambda p, c, x: OneStagePipeline(p.transformer, pipeline_mesh=object())),
-    "multimodal_loop_meshes": ("parallelism", lambda p, c, x: make_multimodal_av_denoise_loop(
-        p.transformer.cfg, MultiModalLoopConfig(), pipeline_axis="pipe")),
+    "meshes": (None, lambda p, c, x: _pipeline_mesh_taken(p)),
+    "multimodal_loop_meshes": (None, lambda p, c, x: make_multimodal_av_denoise_loop(
+        p.transformer.cfg, MultiModalLoopConfig(), mesh=_fake_pipe_mesh(), pipeline_axis="pipe")),
 }
 
 
 @pytest.mark.parametrize("option", sorted(UNPORTED))
 def test_unported_options_raise(weights, option):
+    """The training mesh flags still raise NotImplementedError naming
+    themselves; --pp-stages exits at world 1 as the JAX CLI does; a
+    pipeline mesh and the loops' pipeline axis are taken."""
     pipe = OneStagePipeline(_port(weights)[0])
     config = OneStageCFGConfig(height=HEIGHT, width=WIDTH, num_frames=FRAMES, latent_channels=16)
-    word, call = UNPORTED[option]
-    with pytest.raises(NotImplementedError) as err:
+    expected, call = UNPORTED[option]
+    if expected is None:
+        result = call(pipe, config, t(weights["pos"]))
+        assert result is None or callable(result)  # the multi-modal loop over the pipeline mesh
+        return
+    kind, word = expected
+    with pytest.raises(kind) as err:
         call(pipe, config, t(weights["pos"]))
-    assert "not ported" in str(err.value) and word in str(err.value), str(err.value)
+    assert word in str(err.value), str(err.value)
+    if kind is NotImplementedError:
+        assert "not ported" in str(err.value), str(err.value)
 
 
 def test_stg_mode_audio_refused_on_a_video_only_run(weights):

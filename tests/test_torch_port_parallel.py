@@ -383,8 +383,9 @@ def _fake_seq_mesh(n: int = 2) -> Mesh:
 def test_sp_refusals_carry_the_jax_messages(trees):
     """Indivisible token counts, a token mask and text-KV caching under SP x
     TP are refused as the JAX loops refuse them; masked self-attention
-    under SP too; pipeline parallelism, and the meshes of the pipelines
-    whose meshes are not ported, raise by name."""
+    under SP too; guidance reuse under pipeline parallelism with the JAX
+    message; every pipeline takes a sequence mesh and a pipeline mesh, and
+    refuses both at once as the JAX package's `mesh_loop_kwargs` does."""
     from ltx2_tpu_torch.loader.from_numpy import dit_from_numpy
     from ltx2_tpu_torch.pipelines.common import bucketed_tokens, pad_state_tokens
 
@@ -403,7 +404,7 @@ def test_sp_refusals_carry_the_jax_messages(trees):
     with pytest.raises(NotImplementedError, match="token_mask"):
         loop(dit, padded, t(LOOP_SIGMAS), ctx, ctx, token_mask=mask)
     with pytest.raises(NotImplementedError, match="pipeline parallelism"):
-        make_av_denoise_loop(cfg, DenoiseLoopConfig(), pipeline_axis="pipe")
+        make_av_denoise_loop(cfg, DenoiseLoopConfig(guider=CFGGuider(3.0), cfg_interval=2), pipeline_axis="pipe")
     from ltx2_tpu_torch.models.transformer.attention import Attention, AttentionConfig, attention_apply
 
     acfg = AttentionConfig(query_dim=64, heads=2, dim_head=32, sequence_axis=_fake_seq_mesh(2).axis("seq"))
@@ -415,13 +416,18 @@ def test_sp_refusals_carry_the_jax_messages(trees):
         a2vid_two_stage, distilled, ic_lora, keyframe_interpolation, retake, ti2vid_hq, two_stage,
     )
 
+    seq_mesh = _fake_seq_mesh(2)
     for cls in (keyframe_interpolation.KeyframeInterpolationPipeline, two_stage.TwoStagePipeline,
                 ti2vid_hq.TI2VidHQPipeline, ic_lora.ICLoraPipeline, a2vid_two_stage.A2VidPipelineTwoStage,
                 retake.RetakePipeline):
-        with pytest.raises(NotImplementedError, match=f"not ported to {cls.__name__} yet: sequence_mesh"):
-            cls(dit, sequence_mesh=_fake_seq_mesh(2))
-    with pytest.raises(NotImplementedError, match="pipeline_mesh"):
-        distilled.DistilledPipeline(dit, pipeline_mesh=_fake_seq_mesh(2))
+        assert cls(dit, sequence_mesh=seq_mesh).loop_kwargs == {"mesh": seq_mesh}
+        with pytest.raises(ValueError) as err:
+            cls(dit, sequence_mesh=seq_mesh, pipeline_mesh=seq_mesh)
+        with pytest.raises(ValueError) as jerr:
+            jdenoise.mesh_loop_kwargs(_jmesh(seq=2), _jmesh(seq=2))
+        assert str(err.value) == str(jerr.value)
+    assert distilled.DistilledPipeline(dit, pipeline_mesh=seq_mesh).loop_kwargs == {"mesh": seq_mesh,
+                                                                                   "pipeline_axis": "pipe"}
     dit.cfg = dataclasses.replace(cfg, tp_axis=Axis("model", 2, 0, (0, 1), None, "gloo"))
     with pytest.raises(ValueError, match="cache_text_kv is incompatible with SP x TP"):
         make_sequence_parallel_forward(_fake_seq_mesh(2))(dit, None, text_kv={"video": None})

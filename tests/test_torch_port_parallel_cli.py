@@ -2,16 +2,20 @@
 
 - the flags, their defaults and help against scripts/generate.py's parser;
 - world 1: every layout flag at 0 or 1 gives today's frames bit for bit;
-- refusals: --pp-stages and --auto-shard, the layout flags on a pipeline
-  whose mesh is not ported (NotImplementedError naming them), and a flag
-  that asks for more ranks than the world has (SystemExit, as the JAX CLI);
+- a layout flag that asks for more ranks than the world has exits
+  (SystemExit, as the JAX CLI), on every pipeline and for every flag:
+  --pp-stages, the layout --auto-shard picks, two-stage's SP and keyframe's
+  W-sharded decode (their meshes are taken);
 - `python -m ltx2_tpu_torch.generate` launched as 2 gloo ranks (the
   launcher's environment, the process group through a file in tmp_path):
   --sp-devices 2 with --vae-w-shard 2, and --tp-devices 2 (the ledger
   loading each rank's DiT shard) with a tile-parallel --vae-dp-devices 2,
   each against the one-process run of the same tiny checkpoint (an fp32
   DiT: latents to 1e-5, frames within 2 levels but for stray samples at 3
-  from the bf16 decode); rank 0 alone writes the file.
+  from the bf16 decode); rank 0 alone writes the file; and the layouts this
+  command line took later: --pp-stages 2 (the ledger loading each rank's
+  blocks), and ti2vid-hq (one of the six pipelines whose meshes came after
+  the first three's) at --sp-devices 2 --vae-w-shard 2.
 """
 
 from __future__ import annotations
@@ -83,10 +87,10 @@ def test_world_1_layout_flags_change_nothing(checkpoint, tmp_path):
 
 
 @pytest.mark.parametrize("argv,kind,word", [
-    (["--pp-stages", "2"], NotImplementedError, "--pp-stages"),
-    (["--auto-shard", "4"], NotImplementedError, "--auto-shard"),
-    (["--pipeline", "two-stage", "--sp-devices", "2"], NotImplementedError, "--sp-devices"),
-    (["--pipeline", "keyframe", "--vae-w-shard", "2"], NotImplementedError, "--vae-w-shard"),
+    (["--pipeline", "one-stage", "--pp-stages", "2"], SystemExit, "--pp-stages needs 2 devices"),
+    (["--auto-shard", "4", "--pipeline", "distilled"], SystemExit, "needs 4 devices"),
+    (["--pipeline", "two-stage", "--sp-devices", "2"], SystemExit, "--sp-devices needs 2 devices"),
+    (["--pipeline", "keyframe", "--vae-w-shard", "2"], SystemExit, "--vae-w-shard 2 but only 1 ranks"),
     (["--pipeline", "distilled", "--sp-devices", "2", "--device", "cpu"], SystemExit, "needs 2 devices"),
     (["--pipeline", "one-stage", "--vae-dp-devices", "4", "--device", "cpu"], SystemExit, "only 1 ranks"),
 ])
@@ -138,6 +142,30 @@ def test_generate_on_2_ranks_matches_one_process(checkpoint, tmp_path, layout):
     _launch(_argv(checkpoint, str(tmp_path / "two.y4m"), *fp32, *layout[:2], "--skip-vae"), 2, tmp_path)
     with np.load(tmp_path / "two_latent.npz") as data:
         assert_close(data["latent"], ref[0], rtol=1e-5, msg="latent")
+
+
+@pytest.mark.parametrize("layout", [
+    ["--pp-stages", "2"],
+    ["--pipeline", "ti2vid-hq", "--height", "128", "--width", "128", "--sp-devices", "2", "--vae-w-shard", "2"],
+], ids=["pp2", "ti2vid_hq_sp2_vae_w2"])
+def test_later_layouts_on_2_ranks_match_one_process(checkpoint, tmp_path, layout):
+    """As test_generate_on_2_ranks_matches_one_process, for pipeline
+    parallelism and for a pipeline whose meshes this command line took
+    later (ti2vid-hq without an upscaler's file runs its Res2s stage alone,
+    at half size under CFG: 2 rows of 8 tokens; latent W 2, 1 column a
+    rank in the W-sharded decode)."""
+    fp32 = ("--dtype", "float32", *layout[:6]) if layout[0] == "--pipeline" else ("--dtype", "float32")
+    ref, _ = generate.main(_argv(checkpoint, str(tmp_path / "one.y4m"), *fp32, "--skip-vae"))
+    _launch(_argv(checkpoint, str(tmp_path / "two.y4m"), *fp32, *layout, "--skip-vae"), 2, tmp_path)
+    with np.load(tmp_path / "two_latent.npz") as data:
+        assert_close(data["latent"], ref[0], rtol=1e-5, msg="latent")
+    ref, _ = generate.main(_argv(checkpoint, str(tmp_path / "one.y4m"), *fp32))
+    outs = _launch(_argv(checkpoint, str(tmp_path / "two.mp4"), *fp32, *layout), 2, tmp_path)
+    assert outs[1].strip() == ""
+    with np.load(tmp_path / "two_frames.npz") as data:
+        frames = data["frames"]
+    diff = np.abs(frames.astype(int) - ref[0].astype(int))
+    assert frames.shape == ref[0].shape and diff.max() <= 3 and (diff > 2).mean() < 1e-4, (diff.max(), (diff > 2).mean())
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])

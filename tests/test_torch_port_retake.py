@@ -204,3 +204,32 @@ def test_generate_main_retake_from_avi(files):
                 ["--pipeline", "retake", "--video", avi, "--retake-start", "2", "--retake-end", "1"]):
         with pytest.raises((SystemExit, ValueError)):
             generate.main(bad + ["--device", "cpu", "--checkpoint", ckpt, "--output", out])
+
+
+def test_retake_pipeline_on_2_ranks_matches_jax(weights, jax_retake, tmp_path):
+    """SP-2 on 2 gloo ranks (6 tokens a rank, CFG at batch 2) against the JAX
+    pipeline on a 2-device sequence mesh; every rank's latent identical."""
+    from ltx2_tpu.parallel import mesh as jmesh
+    from tests.torch_port_pp_workers import pipeline_call
+    from tests.torch_port_util import spawn_ranks
+
+    config = retake.RetakeConfig(start_time=START, end_time=END, seed=SEED, num_inference_steps=STEPS, cfg_scale=3.0,
+                                 latent_channels=16)
+    spec = {"cls": "ltx2_tpu_torch.pipelines.retake.RetakePipeline",
+            "modules": {"transformer": ("dit_from_numpy", weights["dit"], CFG),
+                        "video_encoder": ("video_encoder_from_numpy", weights["encoder"], ECFG),
+                        "video_decoder": ("video_decoder_from_numpy", weights["decoder"], DCFG)},
+            "meshes": {"sequence_mesh": "seq"}, "args": (None, weights["pos"], weights["neg"], config),
+            "kwargs": dict(source_video=jax_retake["source"], fps=24.0, skip_decode=True, noise=jax_retake["noise"])}
+    results = spawn_ranks(pipeline_call, 2, tmp_path, spec)
+    np.testing.assert_array_equal(results[1], results[0])
+    jpipe = jretake.RetakePipeline(
+        transformer_params=_jtree(weights["dit"]), transformer_cfg=JCFG,
+        video_encoder_params=_jtree(weights["encoder"]), video_encoder_cfg=JECFG,
+        video_decoder_params=_jtree(weights["decoder"]), video_decoder_cfg=JDCFG,
+        sequence_mesh=jmesh.create_mesh(data=1, model=1, seq=2, devices=jax.devices()[:2]))
+    jconfig = jretake.RetakeConfig(start_time=START, end_time=END, seed=SEED, num_inference_steps=STEPS,
+                                   cfg_scale=3.0, latent_channels=16)
+    ref = jpipe(None, jnp.asarray(weights["pos"]), jnp.asarray(weights["neg"]), jconfig,
+                source_video=jnp.asarray(jax_retake["source"]), fps=24.0, skip_decode=True)
+    assert_close(results[0], np.asarray(ref), msg="retake latent under SP-2")

@@ -210,3 +210,42 @@ def test_generate_main_ti2vid_hq(weights, tmp_path):
         images=[ImageCondition(weights["image"], 0, 0.95)],
         ledger=ModelLedger(ckpt, decoder_dtype="bfloat16", device="cpu"))
     np.testing.assert_array_equal(videos[0], ref[0])
+
+
+def test_ti2vid_hq_pipeline_on_2_ranks_matches_jax(weights, tmp_path):
+    """The video-only pipeline with an image on 2 gloo ranks under SP-2: the
+    Res2s stage 1 (8 tokens, CFG at batch 2) and the distilled stage 2 (32)
+    token-split, against the JAX pipeline on a 2-device sequence mesh;
+    every rank's latent identical."""
+    from ltx2_tpu.parallel import mesh as jmesh
+    from tests.torch_port_pp_workers import pipeline_call
+    from tests.torch_port_util import spawn_ranks
+
+    tree = stacked_dit_tree(CFG, seed=7)
+    rng = np.random.default_rng(8)
+    pos, neg = ((rng.standard_normal((1, 6, 256)) * 0.5).astype(np.float32) for _ in range(2))
+    noises, _ = _noises(SEED, (8, 32), 9)
+    config = TI2VidHQConfig(height=HEIGHT, width=WIDTH, num_frames=FRAMES, seed=SEED, num_inference_steps=STEPS,
+                            cfg_scale=3.0, latent_channels=16)
+    spec = {"cls": "ltx2_tpu_torch.pipelines.ti2vid_hq.TI2VidHQPipeline",
+            "modules": {"transformer": ("dit_from_numpy", tree, CFG),
+                        "spatial_upscaler": ("spatial_upscaler_from_numpy", weights["upscaler"],
+                                             spatial.SpatialUpscalerConfig(**UP)),
+                        "video_decoder": ("video_decoder_from_numpy", weights["decoder"], DCFG),
+                        "video_encoder": ("video_encoder_from_numpy", weights["encoder"], ECFG)},
+            "meshes": {"sequence_mesh": "seq"}, "args": (pos, neg, config),
+            "kwargs": dict(images=[ImageCondition(weights["image"], 0, 0.9)], skip_decode=True,
+                           noises=[n.numpy() for n in noises])}
+    results = spawn_ranks(pipeline_call, 2, tmp_path, spec)
+    np.testing.assert_array_equal(results[1], results[0])
+    jpipe = jhq.TI2VidHQPipeline(
+        transformer_params=_jtree(tree), transformer_cfg=JCFG,
+        video_encoder_params=_jtree(weights["encoder"]), video_encoder_cfg=JECFG,
+        video_decoder_params=_jtree(weights["decoder"]), video_decoder_cfg=JDCFG,
+        spatial_upscaler_params=_jtree(weights["upscaler"]), spatial_upscaler_cfg=jspatial.SpatialUpscalerConfig(**UP),
+        sequence_mesh=jmesh.create_mesh(data=1, model=1, seq=2, devices=jax.devices()[:2]))
+    jconfig = jhq.TI2VidHQConfig(height=HEIGHT, width=WIDTH, num_frames=FRAMES, seed=SEED, num_inference_steps=STEPS,
+                                 cfg_scale=3.0, latent_channels=16)
+    ref = jpipe(jnp.asarray(pos), jnp.asarray(neg), jconfig, images=[jcommon.ImageCondition(weights["image"], 0, 0.9)],
+                skip_decode=True)
+    assert_close(results[0], np.asarray(ref), msg="ti2vid-hq latent under SP-2")

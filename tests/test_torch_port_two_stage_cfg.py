@@ -194,8 +194,9 @@ def test_multimodal_rows_and_refusals():
     assert torch.equal(denoise._mm_combine(mm, t(outs), 3.0, True, batch=2), t(outs[:2]))
     with pytest.raises(ValueError, match="cfg_interval"):
         denoise.make_multimodal_av_denoise_loop(CFG, denoise.MultiModalLoopConfig(cfg_interval=0))
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        denoise.make_multimodal_av_denoise_loop(CFG, denoise.MultiModalLoopConfig(), pipeline_axis="pipe")
+    with pytest.raises(NotImplementedError, match="parallelism"):  # guidance reuse under PP, as in JAX
+        denoise.make_multimodal_av_denoise_loop(CFG, denoise.MultiModalLoopConfig(cfg_interval=2),
+                                                pipeline_axis="pipe")
 
 
 # ---- The LoRA ------------------------------------------------------------------
@@ -403,3 +404,63 @@ def test_two_stage_cli(tmp_path, monkeypatch):
                  ["--pipeline", "one-stage", "--distilled-lora", path]):
         with pytest.raises(SystemExit):
             generate.main(["--pipeline", "two-stage", "--device", "cpu", "--output", str(out), *argv])
+
+
+@pytest.mark.parametrize("layout", ["sp2", "tp2"])
+def test_two_stage_pipeline_on_2_ranks_matches_jax(tmp_path, layout):
+    """The video-only two-stage pipeline (rescaled CFG at stage 1, the
+    distilled LoRA fused for stage 2 and unfused) on 2 gloo ranks: SP-2
+    (stage 1's 2 tokens and stage 2's 8 split) against the JAX pipeline on a
+    2-device sequence mesh, and TP-2 (each rank's LoRA delta its slice of
+    the whole weight's) against the JAX pipeline on TP-sharded parameters;
+    every rank's latent identical."""
+    from ltx2_tpu.parallel import mesh as jmesh
+    from ltx2_tpu.parallel import sharding as jsharding
+    from tests.torch_port_pp_workers import pipeline_call
+    from tests.torch_port_util import spawn_ranks
+
+    cfg = model.LTXModelConfig(**VIDEO_ONLY)
+    jcfg = jmodel.LTXModelConfig(model_type=jmodel.LTXModelType.VideoOnly, caption_channels=None, remat=False,
+                                 **VIDEO_ONLY)
+    tree = stacked_dit_tree(cfg, seed=32)
+    path = _lora_file(str(tmp_path / "lora.safetensors"), cfg, seed=4)
+    up_tree = random_tree(SpatialUpscaler(SpatialUpscalerConfig(**UP), device="meta"), 33)
+    stats = {"mean_of_means": np.linspace(-0.2, 0.2, 16, dtype=np.float32),
+             "std_of_means": np.linspace(0.8, 1.2, 16, dtype=np.float32)}
+    ctx = [(np.random.default_rng(8).standard_normal((1, 6, 64)) * 0.5).astype(np.float32) for _ in range(2)]
+    common = dict(height=HEIGHT, width=WIDTH, num_frames=FRAMES, seed=SEED, fps=FPS, num_inference_steps=3,
+                  guidance_rescale=0.7, latent_channels=16)
+    k1, _, k2, _, _ = jax.random.split(jax.random.PRNGKey(SEED), 5)
+    noises = [np.asarray(jax.random.normal(k, (1, n, 16), jnp.float32))
+              for k, n in ((k1, 2), (jax.random.split(k2)[0], 8))]
+    statistics = PerChannelStatistics(16)
+    statistics.mean_of_means.copy_(t(stats["mean_of_means"]))
+    statistics.std_of_means.copy_(t(stats["std_of_means"]))
+    spec = {"cls": "ltx2_tpu_torch.pipelines.two_stage.TwoStagePipeline",
+            "modules": {"transformer": ("dit_from_numpy", tree, cfg),
+                        "spatial_upscaler": ("spatial_upscaler_from_numpy", up_tree, SpatialUpscalerConfig(**UP))},
+            "ctor": {"statistics": statistics},
+            "meshes": {"sequence_mesh": "seq"} if layout == "sp2" else {"tp_mesh": "tp"},
+            "args": (ctx[0], ctx[1], two_stage.TwoStageCFGConfig(distilled_lora_config=lora.LoRAConfig(path, 0.7),
+                                                                 **common)),
+            "kwargs": dict(skip_decode=True, noises=noises)}
+    results = spawn_ranks(pipeline_call, 2, tmp_path / "ranks", spec)
+    for r in results[1:]:
+        jax.tree_util.tree_map(np.testing.assert_array_equal, r, results[0])
+    devices = jax.devices()[:2]
+    jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+    meshes = {}
+    if layout == "sp2":
+        meshes["sequence_mesh"] = jmesh.create_mesh(data=1, model=1, seq=2, devices=devices)
+    else:
+        jparams = jsharding.shard_dit_params(jmesh.create_mesh(data=1, model=2, devices=devices), jparams)
+    jpipe = jtwo_stage.TwoStagePipeline(
+        transformer_params=jparams, transformer_cfg=jcfg,
+        video_decoder_params={"per_channel_statistics": jax.tree_util.tree_map(jnp.asarray, stats)},
+        spatial_upscaler_params=jax.tree_util.tree_map(jnp.asarray, up_tree),
+        spatial_upscaler_cfg=jspatial.SpatialUpscalerConfig(**UP), **meshes)
+    jconfig = jtwo_stage.TwoStageCFGConfig(dtype="float32", distilled_lora_config=jlora.LoRAConfig(path, 0.7),
+                                           **common)
+    ref_v, _ = jpipe(jnp.asarray(ctx[0]), jnp.asarray(ctx[1]), jconfig, skip_decode=True)
+    assert results[0][1] is None
+    assert_close(results[0][0], np.asarray(ref_v), msg=f"two-stage latent under {layout}")
