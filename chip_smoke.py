@@ -189,15 +189,16 @@ card and nvcc; it exits non-zero without them, and without the package
    pipeline and a2vid at the small size of (b) through the kernels against
    their plain versions (two-stage with a rank-8 LoRA; its guided latents
    held to 5x the rms limit); (e) after (d), the two-stage CFG pipeline at
-   full width and depth (the random V1 AV DiT in bf16, 512x768x121, 2
-   requests: stage 1 at 256x384 over 8 steps, cut from 30, under CFG 3.0,
-   audio CFG 7.0, modality 3.0 and rescale 0.7, three rows at batch 3; a
-   random rank-384 distilled LoRA on every block linear written to a file,
-   fused for stage 2 and unfused; the tiled decode and the audio decode):
-   each phase's seconds and peaks, 3168 flash launches a clip (2112 at
-   head dim 64, 2304 at batch 3) and 19 + 270 convs, the .y4m and 24 kHz
-   .wav, and after the first request's unfuse every fused weight within one
-   bf16 rounding step of its original (drawn again from the DiT's seed);
+   full width, depth cut to 24 blocks (the random V1 AV DiT in bf16,
+   512x768x121, 2 requests: stage 1 at 256x384 over 8 steps, cut from 30,
+   under CFG 3.0, audio CFG 7.0, modality 3.0 and rescale 0.7, three rows
+   at batch 3; a random rank-384 distilled LoRA on every block linear
+   written to a file, fused for stage 2 and unfused; the tiled decode and
+   the audio decode): each phase's seconds and peaks, 1584 flash launches
+   a clip (1056 at head dim 64, 1152 at batch 3) and 19 + 270 convs, the
+   .y4m and 24 kHz .wav, and after the first request's unfuse every fused
+   weight within one bf16 rounding step of its original (drawn again from
+   the DiT's seed);
    then one traced
    3-row stage-1 step beside the 1-row AV step at 1536 tokens; (d) 2-layer full-width AV files for V1 and
    for V2 (`vocoder.bwe` metadata), each with the published audio decoder
@@ -205,7 +206,12 @@ card and nvcc; it exits non-zero without them, and without the package
    keep_fp8=True)` (the kept fp8 codes bit for bit), and `generate.main
    --pipeline distilled --checkpoint <V2 file> --fp8-serving --audio` to a
    .y4m and a 48 kHz .wav of 240480 samples;
-9. image-to-video: an 8-bit PNG (1000 x 600, every row filter) written
+9. image-to-video: first the committed stills on the host (`phase_stills`:
+   each decoded by `read_image` to the SHA-256 of PIL's decode recorded in
+   tests/fixtures_video/media_io.json, or refused with PIL's mode, the PNGs
+   also through the video readers' still route; host ms a megapixel); the
+   full-size phases (a)-(c) take the committed 512x768 progressive JPEG,
+   the small checks an 8-bit PNG (1000 x 600, every row filter) written
    from a seed; (a) the full-width fp32 video encoder (published plan) on a
    256x384 and a 512x768 frame: seconds, the 3xTF32 bound, peak memory, 46
    fp32 conv launches an encode, and the 256x384 frame against the CPU
@@ -213,16 +219,18 @@ card and nvcc; it exits non-zero without them, and without the package
    the image at frame 0 (strength 0.95), 512x768x121, 48 layers: each
    phase's seconds and peaks, 1056 flash, 2 x 46 + 19 fp32 and 270 bf16
    conv launches; (c) the one-stage CFG* pipeline at the JAX defaults
-   (480x704x97, 30 steps, cfg 3.0, rescale 0.7) with the image: 2880 flash
-   launches, 46 fp32 and the tiled decode's bf16 conv launches; then the
+   (480x704x97, cfg 3.0, rescale 0.7; steps cut from 30 to 15) with the
+   image: 1440 flash launches, 46 fp32 and the tiled decode's bf16 conv launches; then the
    same pipeline at a small size (2-layer DiT, small encoder plan,
    128x128x17, 3 steps, tiled decode) through the kernels against itself
    with every flash and conv call on its plain version; (d) at 2
    blocks and 128x128x9, strength 1.0 keeps frame 0 of the final latent
    the encoder's bit for bit, and a planted strength 0.9 run must fail the
-   check; (e) `generate.main --pipeline text-to-video --image` on the card;
+   check; (e) `generate.main --pipeline text-to-video` on the card at
+   128x128x33 with five `--image` conditions: the PNG and the committed
+   16-bit PNG, LZW TIFF, BMP and RLE TGA, 5 x 46 + 45 conv launches;
    (f) the one-stage loop options at full width and depth (48 blocks,
-   480x704x97, steps cut from 30 to 10) through `generate_videos_one_stage`:
+   480x704x97, steps cut from 30 to 5) through `generate_videos_one_stage`:
    request A, the one-stage pipeline with the image, CFG* with STG on block
    29 (three rows), Heun, GE 0.5, the cross-attention scale 0.5 from block
    40, cached text K/V and a 512-token bucket (4290 -> 4608 tokens: the
@@ -2763,6 +2771,8 @@ def phase_av_small(smi: str) -> dict:
 # a2vid is the distilled recipe (8 + 3 steps at batch 1) with the audio
 # latent frozen. 6 flash launches an AV block a step either way.
 TWO_STAGE_CFG_STEPS = 8
+# The phase's AV DiT depth, cut from 48 for the whole script's time (PR 24).
+TWO_STAGE_CFG_LAYERS = 24
 TWO_STAGE_CFG = {"cfg_scale": 3.0, "audio_cfg_scale": 7.0, "modality_scale": 3.0, "rescale_scale": 0.7}
 # The distilled LoRA: random, rank 384 (the published ltx-2-19b-distilled-lora-384's) on every linear of
 # every block, bf16 in its file; A ~ N(0, 1 / in), B ~ N(0, 0.003^2): deltas about a tenth of the weights.
@@ -2988,9 +2998,9 @@ def _lora_drift(dit, applied: dict, seed: int = 0) -> dict:
 
 
 def phase_two_stage_cfg(smi: str) -> tuple:
-    """The two-stage CFG pipeline at full width and depth through
-    `generate_videos_two_stage` (the CLI's `--pipeline two-stage --audio
-    --distilled-lora`): the random V1 AV DiT in bf16 (a LoRA cannot be
+    """The two-stage CFG pipeline at full width and TWO_STAGE_CFG_LAYERS
+    blocks through `generate_videos_two_stage` (the CLI's `--pipeline
+    two-stage --audio --distilled-lora`): the random V1 AV DiT in bf16 (a LoRA cannot be
     fused into fp8 weights), 512x768x121, 2 requests: stage 1 at 256x384 on
     8 LTX2Scheduler steps (cut from 30) under the multi-modal guider (CFG
     3.0, audio CFG 7.0, modality 3.0, rescale 0.7: rows at batch 3), the
@@ -3023,7 +3033,7 @@ def phase_two_stage_cfg(smi: str) -> tuple:
     dev, card = torch.device("cuda"), torch.cuda.get_device_name(0)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    dit = G.make_dit(LAYERS, dev, base=G.av_config())
+    dit = G.make_dit(TWO_STAGE_CFG_LAYERS, dev, base=G.av_config())
     init_s = time.perf_counter() - t0
     directory = tempfile.mkdtemp(prefix="ltx2_two_stage_cfg_")
     fuse, unfuse = two_stage.fuse_lora_into_params, two_stage.unfuse_lora_deltas
@@ -3096,12 +3106,12 @@ def phase_two_stage_cfg(smi: str) -> tuple:
            "steps_stage1": TWO_STAGE_CFG_STEPS, **TWO_STAGE_CFG,
            "stage1_step_1_row": {k: one_row[k] for k in traced},
            "stage1_step_3_rows": {k: three_rows[k] for k in traced}, "card": smi}
-    log(f"two-stage CFG (48 bf16 AV blocks, 512x768x121, stage 1 at batch 3 over {TWO_STAGE_CFG_STEPS} steps, "
-        f"rank-{DISTILLED_LORA_RANK} distilled LoRA): {json.dumps(rec)}")
+    log(f"two-stage CFG ({TWO_STAGE_CFG_LAYERS} bf16 AV blocks, 512x768x121, stage 1 at batch 3 over "
+        f"{TWO_STAGE_CFG_STEPS} steps, rank-{DISTILLED_LORA_RANK} distilled LoRA): {json.dumps(rec)}")
     tiles = len(generate_tile_specs((1, 128, (FRAMES - 1) // 8 + 1, HEIGHT // 32, WIDTH // 32),
                                     TilingConfig.default()))
     upscale = upscaler_convs(SpatialUpscalerConfig())
-    want_flash = _two_stage_flash(LAYERS, len(SEEDS))
+    want_flash = _two_stage_flash(TWO_STAGE_CFG_LAYERS, len(SEEDS))
     want = {"fwd": sum(want_flash["by_head_dim"].values()), "bwd": 0,
             "conv": (upscale + conv_launches(VideoDecoderConfig()) * tiles) * len(SEEDS)}
     if counts != want or by_dim != want_flash["by_head_dim"] or by_batch != want_flash["by_batch"]:
@@ -3440,11 +3450,14 @@ def phase_av_files(smi: str) -> tuple:
 
 
 
-# Image-to-video. The conditioning image is a PNG written here from the
-# seed, 1000 x 600, so that every target size resizes and crops it.
+# Image-to-video. The full-size phases take the committed 512x768 progressive
+# JPEG (tests/fixtures_video); the small checks and the CLI call a PNG
+# written here from the seed, 1000 x 600, so that every target size resizes
+# and crops it.
 IMAGE_SIZE, IMAGE_SEED, IMAGE_STRENGTH = (600, 1000), 11, 0.95
-# The one-stage CFG pipeline at the JAX package's OneStageCFGConfig defaults.
-ONE_STAGE = {"height": 480, "width": 704, "frames": 97, "steps": 30, "cfg_scale": 3.0, "rescale_scale": 0.7}
+# The one-stage CFG pipeline at the JAX package's OneStageCFGConfig defaults,
+# but its steps, cut from 30 to 15 for the whole script's time (PR 24).
+ONE_STAGE = {"height": 480, "width": 704, "frames": 97, "steps": 15, "cfg_scale": 3.0, "rescale_scale": 0.7}
 # The exactness gate: a 2-block DiT at 128x128x9, 3 steps.
 GATE = {"layers": 2, "height": 128, "width": 128, "frames": 9, "steps": 3}
 
@@ -3612,10 +3625,10 @@ def phase_image_two_stage(smi: str, image: str):
 
 def phase_one_stage(smi: str, image: str):
     """The one-stage CFG pipeline at the JAX package's defaults (480x704x97,
-    30 steps, CFG* at 3.0 with rescale 0.7: two guidance rows) with one
-    image at frame 0, full width and depth, one request: image encode,
-    denoise (and a step) and decode seconds, peaks, frames, and the
-    launches: 2 x 48 x 30 flash (batch 2), the encoder's convs on the fp32
+    CFG* at 3.0 with rescale 0.7: two guidance rows) but its steps (15 of
+    30) with one image at frame 0, full width and depth, one request: image
+    encode, denoise (and a step) and decode seconds, peaks, frames, and the
+    launches: 2 x 48 x 15 flash (batch 2), the encoder's convs on the fp32
     kernel, the tiled decode's on the bf16 kernel."""
     import numpy as np
     import torch
@@ -3753,12 +3766,12 @@ def phase_one_stage_small(smi: str, image: str) -> dict:
 
 
 # The one-stage loop options at the JAX defaults' size, steps cut from 30
-# to 10 so that the phase stays well inside the run's time. Request A: the
+# to 5 so that the phase stays well inside the run's time (10 until PR 24). Request A: the
 # one-stage pipeline with the image at frame 0, CFG* with STG on block 29,
 # Heun, GE, the late cross-attention scale, text-KV caching and a 512-token
 # bucket (4290 -> 4608 tokens); request B: text-to-video with APG and
 # guidance reuse every second step.
-OPTIONS_STEPS = 10
+OPTIONS_STEPS = 5
 OPTIONS_A = {"stg_scale": 1.0, "stg_blocks": [29], "sampler": "heun", "ge_gamma": 0.5, "cross_attn_scale": 0.5,
              "cross_attn_start_block": 40, "cache_text_kv": True}
 OPTIONS_A_BUCKET = 512
@@ -3782,11 +3795,11 @@ def _options_flash(layers: int, steps: int, sigmas, request: str) -> dict:
 
 def phase_one_stage_options(smi: str, image: str) -> dict:
     """Requests A and B through `generate_videos_one_stage` at full width
-    and depth (48 blocks, bf16 random weights, 480x704x97, 10 steps) on one
-    DiT, encoder and decoder: per request the image-encode, denoise, step
-    and decode seconds, peaks, uint8 frames of the clip's shape, finite
-    latents, and the flash, key-valid flash and conv launches, each equal to
-    the count reckoned from the code."""
+    and depth (48 blocks, bf16 random weights, 480x704x97, OPTIONS_STEPS
+    steps) on one DiT, encoder and decoder: per request the image-encode,
+    denoise, step and decode seconds, peaks, uint8 frames of the clip's
+    shape, finite latents, and the flash, key-valid flash and conv
+    launches, each equal to the count reckoned from the code."""
     import numpy as np
     import torch
 
@@ -3832,7 +3845,7 @@ def phase_one_stage_options(smi: str, image: str) -> dict:
         want_conv = {"image_encode": encoder_convs(VideoEncoderConfig()) if name == "A" else 0, "denoise": 0,
                      "decode": decoder_convs(VideoDecoderConfig()) * tiles}
         rec = {"options": {k: v for k, v in kwargs.items() if k != "images"} | {"image": name == "A"},
-               "steps": OPTIONS_STEPS, "reduced": "steps 30 -> 10",
+               "steps": OPTIONS_STEPS, "reduced": f"steps 30 -> {OPTIONS_STEPS}",
                "tokens": tokens, "bucket_tokens": bucketed_tokens(tokens, OPTIONS_A_BUCKET) if name == "A" else tokens,
                "seconds": {p: st[f"{p}_s"] for p in phases}, "denoise_step_s": st["denoise_step_s"],
                "peak_gb": {p: st[f"{p}_peak_gb"] for p in phases},
@@ -4005,14 +4018,24 @@ def phase_image_gate(smi: str, image: str) -> dict:
     return rec
 
 
+# The committed stills the CLI call takes beside the PNG, one latent frame each
+# (tests/fixtures_video; PIL's decodes recorded in media_io.json).
+CLI_STILLS = ("still_rgb16_96x144.png", "still_lzw_predictor_96x144.tif", "still_96x144.bmp", "still_rle_96x144.tga")
+CLI_FRAMES = 8 * len(CLI_STILLS) + 1  # a latent frame for the PNG and each still
+
+
 def phase_cli_image(smi: str, image: str) -> dict:
-    """`generate.main` with `--pipeline text-to-video --image` at 2 blocks,
-    2 steps and 128x128x9 on the card, written to a temporary .y4m: frames
-    and launches (flash: 2 blocks x 2 attention calls x 2 steps; the
-    encoder's convs and one decoder call)."""
+    """`generate.main` with `--pipeline text-to-video` at 2 blocks, 2 steps
+    and 128x128x33 on the card, written to a temporary .y4m, with five
+    `--image` conditions: the PNG at latent frame 0, then the committed
+    16-bit RGB PNG, LZW + predictor TIFF, BMP and RLE TGA at frames 1-4 (each
+    decoded on the host by the port's readers): frames and launches (flash:
+    2 blocks x 2 attention calls x 2 steps; the encoder's convs once an
+    image, one decoder call)."""
     import os
     import shutil
     import tempfile
+    from pathlib import Path
 
     import torch
 
@@ -4022,43 +4045,91 @@ def phase_cli_image(smi: str, image: str) -> dict:
     from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoderConfig
     from ltx2_tpu_torch.models.video_vae.encoder import conv_launches as encoder_convs
 
+    fixtures = Path(__file__).resolve().parent / FIXTURE_DIR
+    images = [f"{image}:0:{IMAGE_STRENGTH}"] + [f"{fixtures / name}:{i + 1}:{IMAGE_STRENGTH}"
+                                                for i, name in enumerate(CLI_STILLS)]
     torch.cuda.empty_cache()
     _reset_counts()
     directory = tempfile.mkdtemp(prefix="ltx2_cli_")
     try:  # a .y4m: the default .mp4 needs ffmpeg, which the card's machine lacks
-        videos, stats = generate.main(["--pipeline", "text-to-video", "--image", f"{image}:0:{IMAGE_STRENGTH}",
+        videos, stats = generate.main(["--pipeline", "text-to-video", *sum((["--image", i] for i in images), []),
                                        "--layers", "2", "--num-inference-steps", "2", "--height", "128", "--width",
-                                       "128", "--frames", "9", "--seed", str(IMAGE_SEED),
+                                       "128", "--frames", str(CLI_FRAMES), "--seed", str(IMAGE_SEED),
                                        "--output", os.path.join(directory, "cli.y4m")])
     finally:
         shutil.rmtree(directory, ignore_errors=True)
     counts = _counts()
     want = {"fwd": 2 * 2 * 2, "bwd": 0,
-            "conv": encoder_convs(VideoEncoderConfig()) + decoder_convs(VideoDecoderConfig())}
-    rec = {"frames": list(videos[0].shape), "launches": counts, "expected": want, "card": smi,
+            "conv": len(images) * encoder_convs(VideoEncoderConfig()) + decoder_convs(VideoDecoderConfig())}
+    rec = {"frames": list(videos[0].shape), "images": [Path(i.split(":")[0]).name for i in images],
+           "launches": counts, "expected": want, "card": smi,
            "seconds": {p: stats[0][f"{p}_s"] for p in ("image_encode", "denoise", "decode")}}
-    log(f"generate.main --pipeline text-to-video --image (2 blocks, 2 steps, 128x128x9): {json.dumps(rec)}")
+    log(f"generate.main --pipeline text-to-video with 5 --image stills (2 blocks, 2 steps, 128x128x{CLI_FRAMES}): "
+        f"{json.dumps(rec)}")
     torch.cuda.empty_cache()
-    if rec["frames"] != [9, 128, 128, 3] or counts != want:
+    if rec["frames"] != [CLI_FRAMES, 128, 128, 3] or counts != want:
         raise AssertionError(f"the CLI's image-to-video run {rec}")
+    return rec
+
+
+def phase_stills(smi: str) -> dict:
+    """The committed stills (tests/fixtures_video, "stills" in
+    media_io.json: PIL's mode and decode of each) through the port on the
+    card's host: `read_image` (the --image / --keyframe route) gives the
+    SHA-256 of PIL's `convert("RGB")`, or refuses the file with the mode the
+    JAX package names; each PNG also through the video readers' still route
+    (`read_png`, every mode); the host ms of each decode (the best of 3) and
+    its ms a megapixel."""
+    from pathlib import Path
+
+    from ltx2_tpu_torch.pipelines.common import read_image
+    from ltx2_tpu_torch.utils.image_io import STILL_MODES, read_png
+
+    fixtures = Path(__file__).resolve().parent / FIXTURE_DIR
+    meta = json.loads((fixtures / MEDIA_JSON).read_text(encoding="utf-8"))["stills"]
+    checks, ms = {}, {}
+    for name, want in meta.items():
+        path = str(fixtures / name)
+        if want["mode"] in STILL_MODES:
+            checks[name] = _sha256(read_image(path)) == want["sha256_pil_rgb_uint8"]
+            ms[name] = _host_ms(lambda: read_image(path))
+        else:
+            try:
+                read_image(path)
+                checks[name] = False
+            except ValueError as e:
+                checks[name] = f"Unsupported image format: {want['mode']}." in str(e)
+        if name.endswith(".png"):
+            checks[f"{name} (video route)"] = _sha256(read_png(path)) == want["sha256_pil_rgb_uint8"]
+            ms[f"{name} (video route)"] = _host_ms(lambda: read_png(path))
+    megapixels = {k: meta[k.split(" ")[0]]["height"] * meta[k.split(" ")[0]]["width"] / 1e6 for k in ms}
+    rec = {"checks": checks, "host_ms": ms, "host_ms_per_megapixel": {k: v / megapixels[k] for k, v in ms.items()},
+           "card": smi}
+    log(f"stills (host): {json.dumps(rec)}")
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"stills: {bad} differ from tests/fixtures_video/{MEDIA_JSON}")
     return rec
 
 
 def phase_image_to_video(smi: str):
     """(a) the encoder alone, (b) the two-stage recipe with an image, (c) the
-    one-stage CFG pipeline with an image, at full size and small against
-    its plain version, (d) the exactness gate, (e) the
-    CLI route; the PNG is written into a fresh temporary directory and
-    deleted at the end."""
+    one-stage CFG pipeline with an image, at full size (each from the
+    committed 512x768 progressive JPEG) and small against its plain version,
+    (d) the exactness gate, (e) the CLI route (the PNG and four committed
+    stills); the PNG is written into a fresh temporary directory and deleted
+    at the end."""
     import shutil
     import tempfile
+    from pathlib import Path
 
+    jpeg = str(Path(__file__).resolve().parent / FIXTURE_DIR / "still_progressive_512x768.jpg")
     directory = tempfile.mkdtemp(prefix="chip_smoke_image_")
     try:
         image = _write_png(f"{directory}/image.png", IMAGE_SEED, IMAGE_SIZE)
-        rec = {"encoder": phase_encoder(smi, image)}
-        two_stage_counts, rec["two_stage"] = phase_image_two_stage(smi, image)
-        one_stage_counts, rec["one_stage"] = phase_one_stage(smi, image)
+        rec = {"encoder": phase_encoder(smi, jpeg)}
+        two_stage_counts, rec["two_stage"] = phase_image_two_stage(smi, jpeg)
+        one_stage_counts, rec["one_stage"] = phase_one_stage(smi, jpeg)
         rec["one_stage_small_check"] = phase_one_stage_small(smi, image)
         options_counts, rec["one_stage_options"] = phase_one_stage_options(smi, image)
         rec["one_stage_options_small_check"] = phase_one_stage_options_small(smi, image)
@@ -6073,6 +6144,9 @@ def phase_video_paths(smi: str) -> tuple:
 # where the machine has as many.
 SCALE_OUT_WORLD = 2
 SCALE_OUT_SEED = 5
+# The phase's DiT depth, cut from 48 for the whole script's time (PR 24): the
+# SP, TP and PP runs and their world-1 references all take this many blocks.
+SCALE_OUT_LAYERS = 24
 SCALE_OUT_TIMEOUT_S = 900  # the ranks' join; a collective waits at most PG_TIMEOUT_S
 SCALE_OUT_PG_TIMEOUT_S = 600
 # Ring attention at 1x32x6144^2x128 against the single-card K1 output and
@@ -6151,7 +6225,8 @@ def _so_clip(dit, mesh=None, skip_decode: bool = False):
     from ltx2_tpu_torch.generate import generate_videos_distilled
 
     out, stats = generate_videos_distilled([SCALE_OUT_SEED], height=HEIGHT, width=WIDTH, frames=FRAMES,
-                                           layers=LAYERS, device="cuda", dit=dit, skip_decode=skip_decode,
+                                           layers=SCALE_OUT_LAYERS, device="cuda", dit=dit,
+                                           skip_decode=skip_decode,
                                            meshes=None if mesh is None else {"sequence_mesh": mesh})
     return out[0], stats[0]
 
@@ -6367,10 +6442,10 @@ def _quiet_main(fn, argv: list) -> tuple:
 
 
 def _so_pp_clip(rank: int, mesh, world: int) -> dict:
-    """The PP-2 distilled clip: the DiT drawn as this rank's stage (48 fp8
-    blocks, every block drawn, the stage's kept), the clip decoded, then its
-    stage-2 latent; each rank's resident weights, peak memory, bytes by
-    operation and route, seconds and launches."""
+    """The PP-2 distilled clip: the DiT drawn as this rank's stage
+    (SCALE_OUT_LAYERS fp8 blocks, every block drawn, the stage's kept), the
+    clip decoded, then its stage-2 latent; each rank's resident weights,
+    peak memory, bytes by operation and route, seconds and launches."""
     import torch
 
     from ltx2_tpu_torch.generate import generate_videos_distilled, make_dit
@@ -6382,7 +6457,7 @@ def _so_pp_clip(rank: int, mesh, world: int) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    dit = make_dit(LAYERS, torch.device("cuda"), fp8=True, pipe_axis=pipe)
+    dit = make_dit(SCALE_OUT_LAYERS, torch.device("cuda"), fp8=True, pipe_axis=pipe)
     torch.cuda.synchronize()
     rec = {"dit_init_s": time.perf_counter() - t0, "resident_weights_gb": weight_bytes(dit) / 1e9,
            "resident_blocks": resident_blocks(dit), "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -6391,7 +6466,7 @@ def _so_pp_clip(rank: int, mesh, world: int) -> dict:
     before = _so_counts()
     t0 = time.perf_counter()
     out, stats = generate_videos_distilled([SCALE_OUT_SEED], height=HEIGHT, width=WIDTH, frames=FRAMES,
-                                           layers=LAYERS, device="cuda", dit=dit,
+                                           layers=SCALE_OUT_LAYERS, device="cuda", dit=dit,
                                            meshes={"pipeline_mesh": mesh})
     rec.update(seconds=time.perf_counter() - t0, launches=_so_delta(before),
                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -6401,7 +6476,7 @@ def _so_pp_clip(rank: int, mesh, world: int) -> dict:
                stats={k: v for k, v in stats[0].items() if k.endswith("_s")})
     t0 = time.perf_counter()
     latent, _ = generate_videos_distilled([SCALE_OUT_SEED], height=HEIGHT, width=WIDTH, frames=FRAMES,
-                                          layers=LAYERS, device="cuda", dit=dit, skip_decode=True,
+                                          layers=SCALE_OUT_LAYERS, device="cuda", dit=dit, skip_decode=True,
                                           meshes={"pipeline_mesh": mesh})
     rec["latent_run_s"] = time.perf_counter() - t0
     if rank == 0:
@@ -6507,7 +6582,7 @@ def _scale_out_rank(rank: int, world: int, directory: str = "") -> dict:
     rec["ring"] = _so_ring(rank, world, seq)
     rec["ring"]["check_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    dit = make_dit(LAYERS, torch.device("cuda"), fp8=True)
+    dit = make_dit(SCALE_OUT_LAYERS, torch.device("cuda"), fp8=True)
     rec["dit_init_s"] = time.perf_counter() - t0
     rec["sp_clip"] = _so_sp_clip(rank, seq, dit)
     t0 = time.perf_counter()
@@ -6533,8 +6608,8 @@ def phase_scale_out(smi: str) -> tuple:
     SCALE_OUT_WORLD ranks over gloo on the one card (over nccl too when the
     machine has a card per rank): ring attention at 1x32x6144^2x128 (K2
     twice per call per rank, held to K1 and the plain version), the SP-2
-    distilled clip (48 fp8 blocks, stage 1 at 1536 tokens, stage 2 at 6144)
-    against world 1, its frames and its stage-2 latent, a TP-2 step at 6144
+    distilled clip (SCALE_OUT_LAYERS fp8 blocks, stage 1 at 1536 tokens,
+    stage 2 at 6144) against world 1, its frames and its stage-2 latent, a TP-2 step at 6144
     tokens against world 1 with each rank's peak memory, and the W-sharded
     and tile-parallel decodes against the unsharded one; the PP-2 clip (each
     rank's stage of the fp8 DiT) against world 1 with each rank's resident
@@ -6559,7 +6634,7 @@ def phase_scale_out(smi: str) -> tuple:
     torch.cuda.empty_cache()
     k2 = _residuals_case(smi)
     t0 = time.perf_counter()
-    dit = make_dit(LAYERS, torch.device("cuda"), fp8=True)
+    dit = make_dit(SCALE_OUT_LAYERS, torch.device("cuda"), fp8=True)
     ref_frames, ref_stats = _so_clip(dit)
     world1_s = time.perf_counter() - t0
     ref_latent, _ = _so_clip(dit, skip_decode=True)
@@ -6723,31 +6798,44 @@ def main():
     import ltx2_tpu_torch  # fails outside a checkout, before any result
 
     t_start = time.perf_counter()
+    clock = [("start", t_start)]  # (phase, when it ended): the seconds each took, logged at the end
 
     here = Path(__file__).resolve().parent
     if Path(ltx2_tpu_torch.__file__).resolve().parent.parent != here:
         log(f"chip_smoke: ltx2_tpu_torch comes from {ltx2_tpu_torch.__file__}, not this checkout {here}")
         sys.exit(2)
     smi = phase_device()
+    clock.append(("device", time.perf_counter()))
     phase_build()
+    clock.append(("build", time.perf_counter()))
     recs = phase_kernels()
+    clock.append(("kernels", time.perf_counter()))
     conv_recs = phase_conv_kernels()
+    clock.append(("conv_kernels", time.perf_counter()))
     upscaler_conv = phase_upscaler_conv_time(conv_recs, smi)
+    clock.append(("upscaler_conv_time", time.perf_counter()))
     serve_counts, serve = phase_main_path(smi)
+    clock.append(("main_path", time.perf_counter()))
 
     import torch
 
     torch.cuda.empty_cache()
     fp8_step, int8_counts = phase_fp8_step(smi)
+    clock.append(("fp8_step", time.perf_counter()))
     temporal, temporal_counts = phase_temporal_upscale(smi)
+    clock.append(("temporal_upscale", time.perf_counter()))
     text_encode = phase_text_encode(smi)
+    clock.append(("text_encode", time.perf_counter()))
     checkpoint, file_counts, file_stats = phase_checkpoint(smi)
+    clock.append(("checkpoint", time.perf_counter()))
     torch.cuda.empty_cache()
     v2_files, v2_counts = phase_v2_files(smi)
+    clock.append(("v2_files", time.perf_counter()))
     server_counts = v2_files["server"]["launches"]
     served_mp4_counts = v2_files["server"]["served_mp4_launches"]  # counted in server_counts too
     torch.cuda.empty_cache()
     two_stage_counts, two_stage_stats, two_stage_peaks = phase_two_stage(smi)
+    clock.append(("two_stage", time.perf_counter()))
     phases = ("text_encode", "stage1", "upscale", "stage2", "decode")
     checkpoint["two_stage"]["bf16_random_seconds"] = {p: [s[f"{p}_s"] for s in two_stage_stats] for p in phases}
     checkpoint["two_stage"]["bf16_random_peak_gb"] = {p: two_stage_peaks[f"{p}_peak_gb"] for p in phases}
@@ -6757,40 +6845,61 @@ def main():
         f"{json.dumps(side_by_side)} | {smi}")
     torch.cuda.empty_cache()
     two_stage_small = phase_two_stage_small(smi)
+    clock.append(("two_stage_small", time.perf_counter()))
     v2_small = phase_two_stage_small(smi, v2=True)
+    clock.append(("two_stage_small", time.perf_counter()))
     audio_check = phase_audio_decode_check(smi)
+    clock.append(("audio_decode_check", time.perf_counter()))
     av_small = phase_av_small(smi)
+    clock.append(("av_small", time.perf_counter()))
     mm_small = phase_two_stage_cfg_small(smi)
+    clock.append(("two_stage_cfg_small", time.perf_counter()))
     av, av_counts, a2vid, a2vid_counts = phase_av_two_stage(smi)
+    clock.append(("av_two_stage", time.perf_counter()))
     av["av_step_vs_video_step_ms"] = {"av_fp8": av["av_step"]["device_ms"], "video_fp8": fp8_step["fp8"]["device_ms"]}
     log(f"AV vs video-only fp8 DiT step ({LAYERS} layers, 6144 tokens): {json.dumps(av['av_step_vs_video_step_ms'])}"
         f" | {smi}")
     av_files, av_file_counts = phase_av_files(smi)
+    clock.append(("av_files", time.perf_counter()))
     torch.cuda.empty_cache()
     two_cfg, two_cfg_counts = phase_two_stage_cfg(smi)
+    clock.append(("two_stage_cfg", time.perf_counter()))
     log(f"AV stage-1 step at 1536 tokens, bf16: 3 rows (two-stage CFG) "
         f"{two_cfg['stage1_step_3_rows']['device_ms']:.1f} ms device, 1 row (distilled) "
         f"{two_cfg['stage1_step_1_row']['device_ms']:.1f} ms | {smi}")
     torch.cuda.empty_cache()
+    stills = phase_stills(smi)
+    clock.append(("stills", time.perf_counter()))
     i2v_two_stage, i2v_one_stage, options, image_to_video = phase_image_to_video(smi)
+    clock.append(("image_to_video", time.perf_counter()))
     torch.cuda.empty_cache()
     keyframe_hq, kf_counts = phase_keyframe_and_hq(smi)
+    clock.append(("keyframe_and_hq", time.perf_counter()))
     torch.cuda.empty_cache()
     video_paths, vp_counts = phase_video_paths(smi)
+    clock.append(("video_paths", time.perf_counter()))
     torch.cuda.empty_cache()
     full_vae, fv_counts = phase_full_vae(smi)
+    clock.append(("full_vae", time.perf_counter()))
     torch.cuda.empty_cache()
     webp = phase_webp(smi)
+    clock.append(("webp", time.perf_counter()))
     torch.cuda.empty_cache()
     scale_out, so_counts = phase_scale_out(smi)
+    clock.append(("scale_out", time.perf_counter()))
     torch.cuda.empty_cache()
     bwd = phase_bwd_kernels()
+    clock.append(("bwd_kernels", time.perf_counter()))
     model, train_counts = phase_train_steps(smi)
+    clock.append(("train_steps", time.perf_counter()))
     timing = phase_train_timing(model, smi)
+    clock.append(("train_timing", time.perf_counter()))
     del model
     torch.cuda.empty_cache()
     gradcheck = phase_train_gradcheck(smi)
+    clock.append(("train_gradcheck", time.perf_counter()))
     av_train = phase_training_av(smi)
+    clock.append(("training_av", time.perf_counter()))
     # The training paths of the AV slice and their launch counts, each read
     # right after the path ran (the resume path's: the uninterrupted run).
     av_paths = {"train_av": av_train["train_av_counts"], "train_av_fp8": av_train["train_av_fp8_counts"],
@@ -7027,7 +7136,7 @@ def main():
                   "audio_video": {k: v for k, v in av_train.items() if not k.endswith("_counts")}},
         "bench_e2e": serve, "fp8_step": fp8_step, "checkpoint": checkpoint, "temporal_upscaler": temporal,
         "keyframe_and_ti2vid_hq": keyframe_hq, "video_paths": video_paths, "full_vae": full_vae, "webp": webp,
-        "scale_out": scale_out,
+        "scale_out": scale_out, "stills": stills,
         "text_encode": text_encode, "image_to_video": image_to_video,
         "v2": {"files": v2_files, "small_input_check": v2_small,
                "step_ms": {"v2_bf16": fp8_step["v2_bf16"]["device_ms"], "v1_bf16": fp8_step["bf16"]["device_ms"]}},
@@ -7036,6 +7145,8 @@ def main():
         "audio_video": {"two_stage": av, "small_input_check": av_small, "from_files": av_files,
                         "audio_decode_card_vs_cpu": audio_check, "two_stage_cfg": two_cfg, "a2vid": a2vid,
                         "two_stage_cfg_and_a2vid_small_input_check": mm_small}}
+    seconds = {name: round(t - clock[i][1], 1) for i, (name, t) in enumerate(clock[1:])}
+    log(f"chip_smoke: seconds by phase {json.dumps(seconds)} | {smi}")
     log(f"chip_smoke: the whole script took {time.perf_counter() - t_start:.1f} s | {smi}")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

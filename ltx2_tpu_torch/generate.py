@@ -97,8 +97,10 @@ matmul, int32 products by torch._int_mm); it excludes `--fp8-serving` and
 them (`_apply_reference_compat`).
 
 `--image PATH[:FRAME[:STRENGTH]]` (repeatable; frame 0 and `--image-strength`
-by default) conditions the distilled and the CFG flows on 8-bit PNGs or
-baseline JPEGs (the port's decoder, `utils/jpeg.py`, equal to PIL's): each is
+by default) conditions the distilled and the CFG flows on stills: any file
+PIL opens as RGB, RGBA or L (PNG at every depth and Adam7, baseline and
+progressive JPEG, WebP, BMP, PPM/PGM, TGA, TIFF, a grey GIF), decoded by the
+port's readers equal to PIL (`pipelines/common.read_image`); each is
 resized to the stage's size, encoded by the fp32 video VAE encoder and
 written over its latent frame (image-to-video).
 
@@ -2165,8 +2167,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--token-shift", action="store_true",
                     help="one-stage, text-to-video: shift the sigma schedule by the clip's token count, not the fixed 4096")
     ap.add_argument("--image", action="append", default=[], metavar="PATH[:FRAME[:STRENGTH]]",
-                    help="every flow but bench-e2e, retake and ic-lora: an 8-bit PNG or baseline JPEG conditioning "
-                         "latent frame FRAME "
+                    help="every flow but bench-e2e, retake and ic-lora: a still (PNG, JPEG, WebP, BMP, PPM, TGA, "
+                         "TIFF or GIF that PIL opens as RGB, RGBA or L) conditioning latent frame FRAME "
                          "(default 0), repeatable")
     ap.add_argument("--image-strength", type=float, default=0.95,
                     help="the strength of --image specs without one")
@@ -2238,7 +2240,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lora", action="append", default=[], metavar="PATH[:STRENGTH]",
                     help="with --checkpoint: a LoRA file fused into the DiT at load, repeatable")
     ap.add_argument("--keyframe", action="append", default=[], metavar="PATH:FRAME[:STRENGTH]",
-                    help="keyframe: an 8-bit PNG or baseline JPEG pinned at pixel frame FRAME (strength 0.95 by "
+                    help="keyframe: a still (as --image takes) pinned at pixel frame FRAME (strength 0.95 by "
                          "default), repeatable")
     ic = ap.add_argument_group("retake and ic-lora (the JAX CLI's names and defaults)")
     ic.add_argument("--video", default=None,

@@ -27,8 +27,10 @@ from ltx2_tpu_torch.models.video_vae.decoder import VideoDecoder, video_decoder_
 from ltx2_tpu_torch.models.video_vae.encoder import VideoEncoder, video_encoder_apply
 from ltx2_tpu_torch.models.video_vae.tiling import TilingConfig, decode_tiled, decode_w_sharded
 from ltx2_tpu_torch.types import LatentState
-from ltx2_tpu_torch.utils.image_io import read_png, resize_lanczos, sniff
+from ltx2_tpu_torch.utils.gif import decode_gif, gif_mode
+from ltx2_tpu_torch.utils.image_io import STILL_MODES, check_mode, decode_png, resize_lanczos, sniff
 from ltx2_tpu_torch.utils.jpeg import decode_jpeg
+from ltx2_tpu_torch.utils.still_io import STILL_READERS, decode_tga, is_tga
 from ltx2_tpu_torch.utils.webp import read_webp_frames
 
 
@@ -40,23 +42,35 @@ class ImageCondition:
 
 
 def read_image(image_path: str) -> np.ndarray:
-    """An image file -> uint8 (H, W, 3) RGB, dispatched on its signature:
-    PNG to `read_png`, JPEG to the baseline decoder (`utils/jpeg.py`), WebP
-    to `utils/webp.py` (its first frame, RGB as PIL's `convert("RGB")`);
-    anything else (GIF, BMP, ...) raises a ValueError naming it."""
+    """An image file -> uint8 (H, W, 3) RGB, as the JAX package's
+    `load_image_tensor` gets it from PIL (`Image.open`, a refusal of every
+    mode but RGB, RGBA and L, `convert("RGB")`), dispatched on its
+    signature: PNG (`image_io.decode_png`), JPEG (`utils/jpeg.py`), WebP
+    (`utils/webp.py`, its first frame), GIF (its first frame, `utils/gif.py`),
+    BMP, PPM/PGM and TIFF (`utils/still_io.py`), and last, as a file with no
+    signature, TGA. A file whose Pillow mode is not RGB, RGBA or L raises
+    the JAX package's ValueError, "Unsupported image format: <mode>"; so
+    does one that no reader takes."""
     if not os.path.exists(image_path):
         raise FileNotFoundError(f"Image not found: {image_path}")
     with open(image_path, "rb") as fh:
         data = fh.read()
     kind = sniff(data[:16])
     if kind == "PNG":
-        return read_png(image_path)
+        return decode_png(data, image_path, STILL_MODES)
     if kind == "JPEG":
         return decode_jpeg(data, image_path)
     if kind == "WebP":
         return read_webp_frames(data, 1)[0]
-    raise ValueError(f"Unsupported image format: {kind} ({image_path}); supported: 8-bit PNG (L, RGB, RGBA), "
-                     "baseline JPEG and WebP")
+    if kind == "GIF":
+        check_mode(gif_mode(data, image_path), STILL_MODES, "GIF", image_path)
+        return decode_gif(data, image_path, 1)[0]
+    if kind in STILL_READERS:
+        return STILL_READERS[kind](data, image_path, STILL_MODES)
+    if kind == "an unknown format" and is_tga(data):
+        return decode_tga(data, image_path, STILL_MODES)
+    raise ValueError(f"Unsupported image format: {kind} ({image_path}); supported: PNG, JPEG, WebP, GIF, BMP, "
+                     "PPM/PGM, TIFF and TGA stills that PIL opens as RGB, RGBA or L")
 
 
 def load_image_tensor(image_path: str, height: int, width: int, dtype=torch.float32, device=None,

@@ -13,7 +13,8 @@ Pixel sources:
   --pixels clips.npz   array "pixels" (N, 3, F, H, W), float in [-1, 1] or
                        uint8 in [0, 255]; F is trimmed to 8k+1
   --images DIR         stills -> one-frame clips at --height x --width
-                       (8-bit PNG, baseline JPEG and WebP, the port's readers)
+                       (.png, .jpg, .jpeg and .webp, the JAX script's
+                       suffixes, through the port's readers)
   --videos DIR         clips at --height x --width x --num-frames (snapped
                        to 8k+1): .y4m, MJPEG .avi/.mov/.mp4, .gif, .webp,
                        .apng and .png through the port's readers

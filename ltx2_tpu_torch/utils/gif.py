@@ -231,6 +231,17 @@ def gif_info(data: bytes, name: str = "GIF") -> Tuple[int, int, int, int]:
     return width, height, len(frames), frames[0].duration or 0
 
 
+def gif_mode(data: bytes, name: str = "GIF") -> str:
+    """The mode Pillow opens a GIF in, its first frame's: L when that
+    frame's colour table (its own, else the global one) is the identity
+    grey ramp or missing, else P."""
+    _, global_palette, _, frames = _parse(data, name)
+    if not frames:
+        raise ValueError(f"{name}: no image in the GIF")
+    palette = frames[0].palette if frames[0].palette is not None else global_palette
+    return "P" if palette is not False and palette is not None else "L"
+
+
 def decode_gif(data: bytes, name: str = "GIF", max_frames: Optional[int] = None) -> List[np.ndarray]:
     """Every frame (or the first `max_frames`) as uint8 (H, W, 3) RGB, as
     Pillow 12 composites them (see the module's docstring)."""

@@ -7,13 +7,16 @@ resize) and resizes video frames with PIL's BILINEAR (ltx2_tpu/utils/
 video_io.py `_resize_frame`). The port reproduces those steps itself, so one
 code path serves every machine, PIL or not:
 
-- `read_png`: 8-bit PNGs of color type L (0), RGB (2) and RGBA (6),
-  non-interlaced, every row filter (None, Sub, Up, Average, Paeth), as
-  uint8 (H, W, 3): RGBA loses its alpha, L is repeated into three channels,
-  as `convert("RGB")` does. Anything else (other formats, palette,
-  grayscale with alpha, 16-bit and interlaced PNGs) raises a ValueError
-  naming it. JPEGs go through `utils/jpeg.py` (`pipelines/common.py
-  read_image` dispatches on the file's signature, `sniff`).
+- `decode_png` / `read_png`: every PNG Pillow opens (color types 0, 2, 3,
+  4 and 6 at every bit depth PNG allows, Adam7-interlaced or not, every
+  row filter), as uint8 (H, W, 3) equal to `convert("RGB")` from the mode
+  Pillow gives the file (`PNG_MODES`: 1, L, I;16, RGB, P, LA, RGBA). A
+  caller that takes only some modes passes them (`modes`, e.g.
+  `STILL_MODES`, the JAX package's RGB, RGBA and L) and gets the JAX
+  package's ValueError, "Unsupported image format: <mode>", before the
+  pixels are decoded. The other stills go through `utils/jpeg.py` and
+  `utils/still_io.py` (`pipelines/common.py read_image` dispatches on the
+  file's signature, `sniff`).
 - `resize` (`resize_lanczos` for LANCZOS): PIL's 8-bit LANCZOS and
   BILINEAR resampling (`ImagingResample` in Resample.c) in integer
   arithmetic: the filter (the a = 3 windowed sinc, support 3; the
@@ -26,9 +29,12 @@ code path serves every machine, PIL or not:
   torch sums, so the output equals PIL's.
 - `read_apng` / `apng_info`: animated PNGs (`acTL`, `fcTL`, `fdAT`) as
   Pillow 12 composites their frames (its dispose and blend rules, the
-  default image), over L, LA, RGB and RGBA at 8 bits and palettes at 1, 2,
-  4 and 8 bits, with `_unfilter` undoing the rows; 16-bit and interlaced
-  APNGs raise a ValueError naming them.
+  default image), over Pillow's canvas: L (gray at 1, 2, 4 and 8 bits),
+  LA, RGB and RGBA (16-bit ones, and 16-bit gray with alpha, as their high
+  bytes) and palettes at 1, 2, 4 and 8 bits; an Adam7 APNG's first frame
+  (Pillow fails on its later ones, and so does the port, by name); 16-bit
+  gray (mode I;16) and 16-bit RGB with a tRNS key raise a ValueError
+  naming them.
 """
 
 from __future__ import annotations
@@ -42,13 +48,27 @@ import numpy as np
 import torch
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 6: 4}  # color type -> samples per pixel
-_UNSUPPORTED_COLOR = {3: "palette (color type 3)", 4: "grayscale with alpha (color type 4)"}
+# (bit depth, color type) -> (Pillow's mode, samples per pixel): PngImagePlugin's _MODES
+PNG_MODES = {(1, 0): ("1", 1), (2, 0): ("L", 1), (4, 0): ("L", 1), (8, 0): ("L", 1), (16, 0): ("I;16", 1),
+             (8, 2): ("RGB", 3), (16, 2): ("RGB", 3), (1, 3): ("P", 1), (2, 3): ("P", 1), (4, 3): ("P", 1),
+             (8, 3): ("P", 1), (8, 4): ("LA", 2), (16, 4): ("RGBA", 2), (8, 6): ("RGBA", 4), (16, 6): ("RGBA", 4)}
+# Adam7's passes: (first column, first row, column step, row step)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+# The modes the JAX package's load_image_tensor accepts (ltx2_tpu/pipelines/common.py:51).
+STILL_MODES = ("RGB", "RGBA", "L")
 PRECISION_BITS = 32 - 8 - 2  # PIL's fixed-point coefficients
 
 
+def check_mode(mode: str, modes, what: str, name: str) -> None:
+    """Refuse a still whose Pillow mode is not in `modes` (None takes
+    every mode), in the JAX package's words."""
+    if modes is not None and mode not in modes:
+        raise ValueError(f"Unsupported image format: {mode}. Supported formats: {', '.join(modes)} ({what}, {name})")
+
+
 def sniff(head: bytes) -> str:
-    """The image format a file's first bytes name."""
+    """The image format a file's first bytes name (TGA has no signature:
+    `pipelines/common.read_image` tries it last)."""
     if head.startswith(PNG_SIGNATURE):
         return "PNG"
     if head.startswith(b"\xff\xd8\xff"):
@@ -59,6 +79,12 @@ def sniff(head: bytes) -> str:
         return "BMP"
     if head.startswith(b"RIFF") and head[8:12] == b"WEBP":
         return "WebP"
+    if head[:4] in (b"II*\x00", b"MM\x00*"):
+        return "TIFF"
+    if head[:4] in (b"II+\x00", b"MM\x00+"):
+        return "BigTIFF"
+    if len(head) >= 2 and head[:1] == b"P" and head[1] in b"0123456fy":  # PpmImagePlugin's _accept
+        return "PPM"
     return "an unknown format"
 
 
@@ -110,41 +136,112 @@ def _unfilter(raw: np.ndarray, height: int, width: int, bpp: int) -> np.ndarray:
     return skew[ys + xs + 1, ys + 1].astype(np.uint8)
 
 
-def read_png(path: str) -> np.ndarray:
-    """An 8-bit L, RGB or RGBA PNG -> uint8 (H, W, 3), as PIL's
-    `Image.open(path).convert("RGB")` gives it."""
-    with open(path, "rb") as fh:
-        data = fh.read()
+def _png_pass(raw: np.ndarray, width: int, height: int, depth: int, samples: int) -> np.ndarray:
+    """One image (or one Adam7 pass) of filtered rows -> its samples,
+    (height, width, samples) uint8 (uint16 at 16 bits): the filters undone
+    with bpp = max(1, depth * samples // 8), sub-byte rows unpacked MSB
+    first and their padding dropped."""
+    if depth >= 8:
+        bpp = depth * samples // 8
+        rows = _unfilter(raw, height, width, bpp)
+        if depth == 16:
+            pairs = rows.reshape(height, width, samples, 2).astype(np.uint16)
+            return (pairs[..., 0] << 8) | pairs[..., 1]
+        return rows
+    row_bytes = -(-width * depth // 8)
+    packed = _unfilter(raw, height, row_bytes, 1)[..., 0]
+    bits = np.unpackbits(packed, axis=1).reshape(height, -1, depth)
+    values = (bits << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(axis=2, dtype=np.uint8)
+    return values[:, :width, None]
+
+
+def _png_samples(raw: bytes, width: int, height: int, depth: int, samples: int, interlace: int,
+                name: str = "PNG") -> np.ndarray:
+    """The inflated IDAT stream -> the image's samples (`_png_pass`), each
+    of Adam7's seven passes (its own width, rows and filter state; empty
+    passes hold no bytes) put at its pixels when `interlace` is 1."""
+    data = np.frombuffer(raw, np.uint8)
+    dtype = np.uint16 if depth == 16 else np.uint8
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    out = np.zeros((height, width, samples), dtype)
+    pos = 0
+    for x0, y0, dx, dy in passes:
+        w, h = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if w <= 0 or h <= 0:
+            continue
+        size = h * (1 + -(-w * depth * samples // 8))
+        if pos + size > data.size:
+            raise ValueError(f"{name}: PNG data holds {data.size} bytes, its rows need more ({pos + size})")
+        out[y0::dy, x0::dx] = _png_pass(data[pos:pos + size], w, h, depth, samples)
+        pos += size
+    return out
+
+
+def _png_rgb(samples: np.ndarray, depth: int, color: int, palette: Optional[np.ndarray]) -> np.ndarray:
+    """A PNG's samples -> uint8 (H, W, 3) as Pillow's `convert("RGB")`
+    gives them from the mode it opens the file in (transparency, tRNS, is
+    ignored): gray at 1, 2 and 4 bits scaled by 255, 85 and 17, 16-bit gray
+    (mode I;16) clipped at 255, 16-bit colour and gray-with-alpha (RGB,
+    RGBA) their high bytes, palette indices looked up (entries past the
+    PLTE black), alpha dropped."""
+    if color == 3:
+        full = np.zeros((256, 3), np.uint8)
+        if palette is not None:
+            full[:min(len(palette), 256)] = palette[:256]
+        return full[samples[..., 0]]
+    if depth == 16:
+        high = (np.minimum(samples, 255) if color == 0 else samples >> 8).astype(np.uint8)
+        channels = high if color in (2, 6) else np.repeat(high[..., :1], 3, axis=2)
+        return np.ascontiguousarray(channels[..., :3])
+    if color in (0, 4):
+        gray = samples[..., :1]
+        if depth < 8:
+            gray = gray * np.uint8(255 // ((1 << depth) - 1))
+        return np.repeat(gray, 3, axis=2)
+    return np.ascontiguousarray(samples[..., :3])
+
+
+def _png_header(data: bytes, name: str):
+    """A PNG's IHDR fields, Pillow's mode, and its PLTE and IDAT chunks."""
     if not data.startswith(PNG_SIGNATURE):
-        raise ValueError(f"Unsupported image format: {sniff(data[:16])} ({path}); read_png reads 8-bit PNG "
-                         "(L, RGB, RGBA)")
-    header, idat = None, []
-    for kind, body in _chunks(data, path):
+        raise ValueError(f"{name}: not a PNG file")
+    header, palette, idat = None, None, []
+    for kind, body in _chunks(data, name):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8)[:len(body) // 3 * 3].reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
     if header is None:
-        raise ValueError(f"{path}: PNG without IHDR")
+        raise ValueError(f"{name}: PNG without IHDR")
     width, height, depth, color, compression, filter_method, interlace = header
-    if color in _UNSUPPORTED_COLOR or color not in _CHANNELS:
-        raise ValueError(f"Unsupported image format: {_UNSUPPORTED_COLOR.get(color, f'color type {color}')} PNG "
-                         f"({path}); supported: 8-bit L, RGB, RGBA")
-    if depth != 8:
-        raise ValueError(f"Unsupported image format: {depth}-bit PNG ({path}); supported: 8-bit L, RGB, RGBA")
-    if interlace:
-        raise ValueError(f"Unsupported image format: interlaced (Adam7) PNG ({path})")
-    if compression or filter_method:
-        raise ValueError(f"{path}: unknown PNG compression {compression} or filter method {filter_method}")
-    bpp = _CHANNELS[color]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != height * (1 + width * bpp):
-        raise ValueError(f"{path}: PNG data holds {raw.size} bytes, {height} rows of {width} x {bpp} need "
-                         f"{height * (1 + width * bpp)}")
-    pixels = _unfilter(raw, height, width, bpp)
-    if bpp == 1:
-        return np.repeat(pixels, 3, axis=2)
-    return np.ascontiguousarray(pixels[..., :3])
+    if (depth, color) not in PNG_MODES:
+        raise ValueError(f"{name}: PNG of bit depth {depth} and color type {color} (Pillow knows no such mode)")
+    if compression or filter_method or interlace > 1:
+        raise ValueError(f"{name}: unknown PNG compression {compression}, filter method {filter_method} or "
+                         f"interlace method {interlace}")
+    return header, PNG_MODES[(depth, color)][0], palette, idat
+
+
+def decode_png(data: bytes, name: str = "PNG", modes=None) -> np.ndarray:
+    """A PNG's bytes -> uint8 (H, W, 3), as PIL's `Image.open(...)
+    .convert("RGB")` gives it: every color type (0, 2, 3, 4, 6) at every
+    bit depth PNG allows, Adam7 or not (`_png_samples`, `_png_rgb`). A mode
+    outside `modes` (Pillow's: 1, L, I;16, RGB, P, LA, RGBA) is refused
+    before the pixels are decoded."""
+    header, mode, palette, idat = _png_header(data, name)
+    width, height, depth, color, _, _, interlace = header
+    check_mode(mode, modes, f"{depth}-bit PNG of color type {color}", name)
+    samples = _png_samples(zlib.decompress(b"".join(idat)), width, height, depth, PNG_MODES[(depth, color)][1],
+                          interlace, name)
+    return _png_rgb(samples, depth, color, palette)
+
+
+def read_png(path: str, modes=None) -> np.ndarray:
+    """A PNG file -> uint8 (H, W, 3) (`decode_png`)."""
+    with open(path, "rb") as fh:
+        return decode_png(fh.read(), path, modes)
 
 
 def _lanczos(x: float) -> float:
@@ -230,9 +327,9 @@ def resize_lanczos(img: torch.Tensor, width: int, height: int) -> torch.Tensor:
 
 # ---- APNG ----------------------------------------------------------------------
 
-# color type -> (Pillow's mode, samples per pixel, bit depths read here)
-_APNG_MODES = {0: ("L", 1, (8,)), 2: ("RGB", 3, (8,)), 3: ("P", 1, (1, 2, 4, 8)), 4: ("LA", 2, (8,)),
-               6: ("RGBA", 4, (8,))}
+# Pillow's mode -> the canvas it composites frames on (mode, samples a pixel):
+# 1-bit gray is L at 0 and 255, 16-bit colour and gray-with-alpha its high bytes.
+_APNG_CANVAS = {"1": ("L", 1), "L": ("L", 1), "P": ("P", 1), "LA": ("LA", 2), "RGB": ("RGB", 3), "RGBA": ("RGBA", 4)}
 APNG_DISPOSE_NONE, APNG_DISPOSE_BACKGROUND, APNG_DISPOSE_PREVIOUS = 0, 1, 2
 APNG_BLEND_SOURCE, APNG_BLEND_OVER = 0, 1
 
@@ -294,28 +391,19 @@ def _apng_chunks(data: bytes, path: str):
 
 
 def _apng_pixels(frame: _APNGFrame, header, width: int, height: int, path: str) -> np.ndarray:
-    """One frame's image data -> its pixels in the canvas mode: (h, w)
-    indices or grey, else (h, w, samples)."""
+    """One frame's image data (Adam7 or not) -> its pixels in the canvas
+    mode: (h, w) indices or grey, else (h, w, samples)."""
     _, _, depth, color, _, _, interlace = header
-    _, samples, depths = _APNG_MODES[color]
-    if interlace:
-        raise ValueError(f"Unsupported image format: interlaced (Adam7) APNG ({path})")
-    if depth not in depths:
-        raise ValueError(f"Unsupported image format: {depth}-bit APNG of color type {color} ({path}); supported: "
-                         "8-bit L, LA, RGB, RGBA and 1/2/4/8-bit palette")
-    row_bytes = -(-width * samples * depth // 8)
-    raw = np.frombuffer(zlib.decompress(b"".join(frame.data)), np.uint8)
-    if raw.size < height * (1 + row_bytes):
-        raise ValueError(f"{path}: APNG frame data holds {raw.size} bytes, {height} rows of {row_bytes} need "
-                         f"{height * (1 + row_bytes)}")
-    raw = raw[:height * (1 + row_bytes)]
-    if depth == 8:
-        pixels = _unfilter(raw, height, width, samples)
-        return pixels[..., 0] if samples == 1 else pixels
-    packed = _unfilter(raw, height, row_bytes, 1)[..., 0]
-    bits = np.unpackbits(packed, axis=1).reshape(height, -1, depth)
-    values = (bits.astype(np.uint8) << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(axis=2)
-    return values[:, :width].astype(np.uint8)
+    samples = _png_samples(zlib.decompress(b"".join(frame.data)), width, height, depth, PNG_MODES[(depth, color)][1],
+                           interlace, path)
+    if color == 3:
+        return samples[..., 0]
+    if color == 0:
+        return _png_rgb(samples, depth, color, None)[..., 0]
+    if depth == 16:
+        high = (samples >> 8).astype(np.uint8)
+        return np.concatenate([np.repeat(high[..., :1], 3, axis=2), high[..., 1:]], axis=2) if color == 4 else high
+    return samples
 
 
 def _div255(v: np.ndarray) -> np.ndarray:
@@ -378,10 +466,17 @@ def read_apng(path: str, max_frames: Optional[int] = None) -> List[np.ndarray]:
     with open(path, "rb") as fh:
         data = fh.read()
     header, palette, trns, frames, count, _ = _apng_chunks(data, path)
-    width, height, _, color = header[:4]
-    if color not in _APNG_MODES:
-        raise ValueError(f"{path}: PNG color type {color} is not one of 0, 2, 3, 4, 6")
-    mode, samples, _ = _APNG_MODES[color]
+    width, height, depth, color = header[:4]
+    if (depth, color) not in PNG_MODES:
+        raise ValueError(f"{path}: PNG of bit depth {depth} and color type {color} (Pillow knows no such mode)")
+    pil_mode = PNG_MODES[(depth, color)][0]
+    if pil_mode not in _APNG_CANVAS or (depth == 16 and color == 2 and trns is not None):
+        raise ValueError(f"Unsupported image format: {depth}-bit APNG of color type {color} (mode {pil_mode}"
+                         f"{', with tRNS' if trns is not None else ''}; not ported) ({path})")
+    mode, samples = _APNG_CANVAS[pil_mode]
+    if header[6] and min(count, max_frames or count) > 1:
+        raise ValueError(f"{path}: an interlaced (Adam7) APNG past its first frame (Pillow fails on its later "
+                         "frames; not ported)")
     shape = (height, width) if samples == 1 else (height, width, samples)
     canvas = np.zeros(shape, np.uint8)
     prev: Optional[np.ndarray] = None

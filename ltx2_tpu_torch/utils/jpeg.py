@@ -1,24 +1,35 @@
-"""Baseline JPEG decoding without PIL (the counterpart of what the JAX
-package gets from `Image.open(...).convert("RGB")` on a JPEG: libjpeg-turbo's
-decode at PIL's defaults).
+"""JPEG decoding without PIL (the counterpart of what the JAX package gets
+from `Image.open(...).convert("RGB")` on a JPEG: libjpeg-turbo's decode at
+PIL's defaults).
 
-What it decodes: SOF0 and SOF1 frames, 8-bit, Huffman-coded, with one or
-three components, in interleaved or single-component scans; any integer
-sampling (4:4:4, 4:2:2, 4:2:0 and 4:4:0 through libjpeg's fancy upsamplers,
-other integer ratios by replication as libjpeg's `int_upsample`); DRI
-restart intervals with RST0-7; APPn and COM are skipped; frames without DHT
-segments (as many MJPEG streams are) take the standard tables of ITU T.81
-Annex K.3, as libjpeg-turbo's `jinit_huff_decoder` does. Progressive,
-lossless, hierarchical, arithmetic-coded and 12-bit files, CMYK and other
-4-component files, and RGB-coded files (an Adobe transform of 0, or R, G, B
-component ids without a JFIF marker) raise a ValueError naming what they
-are.
+What it decodes: SOF0, SOF1 and SOF2 (progressive) frames, 8-bit,
+Huffman-coded, with one or three components, in interleaved or
+single-component scans; any integer sampling (4:4:4, 4:2:2, 4:2:0 and 4:4:0
+through libjpeg's fancy upsamplers, other integer ratios by replication as
+libjpeg's `int_upsample`); DRI restart intervals with RST0-7, DHT and DRI
+between scans; APPn (EXIF orientation too, which PIL's `open` does not
+apply) and COM are skipped; frames without DHT segments (as many MJPEG
+streams are) take the standard tables of ITU T.81 Annex K.3, as
+libjpeg-turbo's `jinit_huff_decoder` does; RGB-coded files (libjpeg's
+guess: no JFIF marker and an Adobe transform of 0, or R, G, B component
+ids) skip the colour conversion. Lossless, hierarchical, arithmetic-coded
+and 12-bit files, CMYK and other 4-component files (PIL's mode CMYK, which
+the JAX package refuses), and a progressive file whose scans leave
+coefficient bits unsent (libjpeg then smooths its blocks) raise a
+ValueError naming what they are.
 
 The steps reproduce libjpeg-turbo's, so the output equals PIL's bit for bit:
 - entropy decoding, sequential by nature: each restart interval's bytes
   unstuffed, read through 40-bit windows at every byte offset, each
   Huffman code found by one lookup of the next 16 bits in a 65536-entry
   table (code length, symbol);
+- progressive scans (`jdphuff.c`) into one coefficient array a component:
+  DC first scans (the predictor shifted by Al) and refinements (one bit a
+  block, in array code), AC first scans (a band Ss..Se, EOB runs skipped
+  whole), AC refinements, whose correction bits are only counted while
+  the symbols are walked (a block's non-zero set as a 64-bit mask) and are
+  read and applied afterwards in array code; then the sequential path
+  below, unchanged;
 - dequantization and the islow integer IDCT (`jidctint.c`: CONST_BITS 13,
   PASS1_BITS 2, the IDCT range-limit table with its & 1023 wrap), in int64
   over all blocks at once;
@@ -61,8 +72,8 @@ import numpy as np
 
 EOI, SOS, DHT, DQT, DRI, APP14 = 0xD9, 0xDA, 0xC4, 0xDB, 0xDD, 0xEE
 _FRAME_KINDS = {
-    0xC0: None, 0xC1: None,
-    0xC2: "progressive", 0xC3: "lossless", 0xC5: "hierarchical (differential sequential)",
+    0xC0: None, 0xC1: None, 0xC2: None,
+    0xC3: "lossless", 0xC5: "hierarchical (differential sequential)",
     0xC6: "hierarchical (differential progressive)", 0xC7: "hierarchical (differential lossless)",
     0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded progressive", 0xCB: "arithmetic-coded lossless",
     0xCD: "arithmetic-coded hierarchical", 0xCE: "arithmetic-coded hierarchical progressive",
@@ -172,7 +183,8 @@ class _Component:
     def __init__(self, cid: int, h: int, v: int, tq: int):
         self.id, self.h, self.v, self.tq = cid, h, v, tq
         self.quant: Optional[np.ndarray] = None
-        self.coef: Optional[list] = None
+        self.coef = None  # a list (sequential) or (blocks, 64) int32 (progressive), zigzag order
+        self.coef_bits = np.full(64, -1)  # the Al of each coefficient's last scan, -1 before any
 
 
 class JPEGFrame:
@@ -190,6 +202,7 @@ class JPEGFrame:
         self.width = self.height = 0
         self.jfif = False
         self.adobe_transform: Optional[int] = None
+        self.progressive = False
         self._parse()
 
     def _fail(self, what: str):
@@ -222,8 +235,9 @@ class JPEGFrame:
             if marker in _FRAME_KINDS:
                 kind = _FRAME_KINDS[marker]
                 if kind is not None:
-                    self._fail(f"unsupported JPEG: {kind} (SOF{marker - 0xC0}); the port decodes baseline and "
-                               "extended sequential Huffman JPEGs")
+                    self._fail(f"unsupported JPEG: {kind} (SOF{marker - 0xC0}); the port decodes baseline, "
+                               "extended sequential and progressive Huffman JPEGs")
+                self.progressive = marker == 0xC2
                 self._frame(body)
                 frame_seen = True
             elif marker == DHT:
@@ -236,7 +250,7 @@ class JPEGFrame:
                 if not frame_seen:
                     self._fail("JPEG scan before its frame header")
                 pos = self._scan(body, pos)
-            elif marker == 0xE0 and body.startswith(b"JFIF\x00"):
+            elif marker == 0xE0 and body.startswith(b"JFIF\x00") and len(body) >= 14:
                 self.jfif = True
             elif marker == APP14 and body.startswith(b"Adobe") and len(body) >= 12:
                 self.adobe_transform = body[11]
@@ -247,13 +261,17 @@ class JPEGFrame:
             self._fail("JPEG without a frame header")
         if any(c.coef is None for c in self.components):
             self._fail("JPEG ended before every component was scanned")
+        if self.progressive and self._smoothing_applies():
+            self._fail("unsupported JPEG: a progressive file whose scans leave coefficient bits unsent, which "
+                       "libjpeg decodes with block smoothing (not ported)")
 
     def _frame(self, body: bytes) -> None:
         precision, self.height, self.width, n = struct.unpack_from(">BHHB", body, 0)
         if precision != 8:
             self._fail(f"unsupported JPEG: {precision}-bit samples; the port decodes 8-bit JPEGs")
         if n == 4:
-            self._fail("unsupported JPEG: CMYK / YCCK (4 components)")
+            self._fail("Unsupported image format: CMYK. Supported formats: RGB, RGBA, L (a 4-component JPEG: "
+                       "CMYK or YCCK)")
         if n not in (1, 3):
             self._fail(f"unsupported JPEG: {n} components")
         if self.height == 0 or self.width == 0:
@@ -313,26 +331,30 @@ class JPEGFrame:
     def _scan(self, body: bytes, pos: int) -> int:
         n = body[0]
         by_id = {c.id: c for c in self.components}
-        comps, tables = [], []
+        comps, slots = [], []
         for i in range(n):
             cid, tdta = body[1 + 2 * i], body[2 + 2 * i]
             if cid not in by_id:
                 self._fail(f"JPEG scan names unknown component {cid}")
             comps.append(by_id[cid])
-            tables.append((self._table(0, tdta >> 4).lut, self._table(1, tdta & 15).lut))
-        ss, se, ahal = body[1 + 2 * n], body[2 + 2 * n], body[3 + 2 * n]
-        if ss != 0 or se != 63 or ahal != 0:
-            self._fail("unsupported JPEG: a scan with spectral selection or successive approximation")
+            slots.append((tdta >> 4, tdta & 15))
+        ss, se, ah, al = body[1 + 2 * n], body[2 + 2 * n], body[3 + 2 * n] >> 4, body[3 + 2 * n] & 15
+        if not self.progressive and (ss != 0 or se != 63 or ah or al):
+            self._fail("unsupported JPEG: a sequential scan with spectral selection or successive approximation")
+        if self.progressive and (ss > se or se > 63 or (ss == 0) != (se == 0) or (ss and n != 1) or al > 13):
+            self._fail(f"corrupt progressive JPEG: a scan with Ss={ss}, Se={se}, Ah={ah}, Al={al} over {n} components")
         for c in comps:
-            if c.tq not in self.quant:
-                self._fail(f"JPEG component {c.id} uses undefined quantization table {c.tq}")
-            c.quant = self.quant[c.tq]  # latched at the component's scan, as libjpeg does
+            if c.quant is None:  # latched at the component's first scan, as libjpeg does
+                if c.tq not in self.quant:
+                    self._fail(f"JPEG component {c.id} uses undefined quantization table {c.tq}")
+                c.quant = self.quant[c.tq]
             if c.coef is None:
-                c.coef = [0] * (c.by * c.bx * 64)
+                c.coef = np.zeros((c.by * c.bx, 64), np.int32) if self.progressive else [0] * (c.by * c.bx * 64)
+            c.coef_bits[ss:se + 1] = al
         # The entropy-coded data runs to the first marker that is not RSTn.
         end = _END_OF_SCAN.search(self.data, pos)
         stop = end.start() if end else len(self.data)
-        segments = _RST.split(self.data[pos:stop])
+        segments = [seg.replace(b"\xff\x00", b"\xff") for seg in _RST.split(self.data[pos:stop])]
         if n == 1:  # non-interleaved: the component's own blocks, in raster order
             c = comps[0]
             plan = [(0, 1, 1, 0, 0)]
@@ -342,14 +364,234 @@ class JPEGFrame:
             cols, rows = self.mcus_x, self.mcus_y
         total = cols * rows
         interval = self.restart or total
+        if self.progressive:
+            self._progressive_scan(segments, comps, slots, plan, cols, total, interval, ss, se, ah, al)
+            return stop
+        tables = [(self._table(0, dc).lut, self._table(1, ac).lut) for dc, ac in slots]
         mcu = 0
         for segment in segments:
             if mcu >= total:
                 break
             count = min(interval, total - mcu)
-            self._decode_segment(segment.replace(b"\xff\x00", b"\xff"), comps, tables, plan, cols, mcu, count)
+            self._decode_segment(segment, comps, tables, plan, cols, mcu, count)
             mcu += count
         return stop
+
+    # ---- progressive scans (libjpeg's jdphuff.c) ----
+
+    def _progressive_scan(self, segments, comps, slots, plan, cols: int, total: int, interval: int,
+                          ss: int, se: int, ah: int, al: int) -> None:
+        """One scan of a progressive frame into the components' coefficient
+        arrays ((blocks, 64) int32 in zigzag order): the blocks in the
+        scan's order (each MCU's plan for an interleaved DC scan, else the
+        component's ceil(w / 8) x ceil(h / 8) blocks in raster order), the
+        restart intervals each with its own predictors and EOB run."""
+        m = np.arange(total)
+        my, mx = m // cols, m % cols
+        order_ci = np.array([ci for ci, *_ in plan] * total, np.int64)
+        order_b = np.stack([(my * rv + dv) * comps[ci].bx + mx * rh + dh for ci, rv, rh, dv, dh in plan],
+                           axis=1).reshape(-1)
+        per = len(plan) * interval  # blocks a restart interval
+        spans = [(seg, j, min(per, len(order_b) - j)) for seg, j in zip(segments, range(0, len(order_b), per))]
+        if ss == 0 and ah:  # DC refinement: one bit a block
+            for seg, j, count in spans:
+                bits = np.unpackbits(np.frombuffer(seg + bytes(-(-count // 8)), np.uint8))[:count].astype(np.int32)
+                for ci, c in enumerate(comps):
+                    sel = order_ci[j:j + count] == ci
+                    c.coef[order_b[j:j + count][sel], 0] |= bits[sel] << al
+            return
+        if ss == 0:
+            luts = [self._table(0, dc).lut for dc, _ in slots]
+            for seg, j, count in spans:
+                values = self._dc_first(seg, luts, order_ci[j:j + count].tolist(), len(comps), al)
+                for ci, c in enumerate(comps):
+                    sel = order_ci[j:j + count] == ci
+                    c.coef[order_b[j:j + count][sel], 0] = np.asarray(values, np.int64)[sel]
+            return
+        lut = self._table(1, slots[0][1]).lut
+        coef = comps[0].coef
+        if not ah:
+            for seg, j, count in spans:
+                idx, vals = self._ac_first(seg, lut, (order_b[j:j + count] * 64).tolist(), ss, se, al)
+                coef.reshape(-1)[idx] = vals
+            return
+        self._ac_refine(spans, lut, coef, order_b, ss, se, al)
+
+    def _dc_first(self, seg: bytes, luts, order_ci: list, ncomp: int, al: int) -> list:
+        """A DC first scan's restart interval: each block's DC difference
+        added to its component's predictor, the sum shifted left by Al."""
+        win, limit = _windows(seg), 8 * len(seg) + 64
+        p, preds, out = 0, [0] * ncomp, []
+        for ci in order_ci:
+            w, o = win[p >> 3], p & 7
+            e = luts[ci][(w >> (24 - o)) & 0xFFFF]
+            if not e:
+                raise ValueError("JPEG: corrupt data (no Huffman code matches)")
+            length, s = e >> 8, e & 0xFF
+            diff = 0
+            if s:
+                diff = (w >> (40 - o - length - s)) & ((1 << s) - 1)
+                if diff < (1 << (s - 1)):
+                    diff -= (1 << s) - 1
+            p += length + s
+            preds[ci] += diff
+            out.append(preds[ci] << al)
+        if p > limit:
+            raise ValueError("JPEG: truncated or corrupt data (the scan ran past its end)")
+        return out
+
+    def _ac_first(self, seg: bytes, lut, bases: list, ss: int, se: int, al: int) -> tuple:
+        """An AC first scan's restart interval over one component: each
+        block's band Ss..Se as run/size symbols, each value shifted left by
+        Al; EOBn ends this block and the next 2^n - 1 + (n bits) ones.
+        Returns the flat coefficient indices and their values."""
+        win, limit = _windows(seg), 8 * len(seg) + 64
+        p, m, idx, vals = 0, 0, [], []
+        while m < len(bases):
+            base, k = bases[m], ss
+            m += 1
+            while k <= se:
+                w, o = win[p >> 3], p & 7
+                e = lut[(w >> (24 - o)) & 0xFFFF]
+                if not e:
+                    raise ValueError("JPEG: corrupt data (no Huffman code matches)")
+                length, rs = e >> 8, e & 0xFF
+                r, s = rs >> 4, rs & 15
+                if s:
+                    k += r
+                    val = (w >> (40 - o - length - s)) & ((1 << s) - 1)
+                    if val < (1 << (s - 1)):
+                        val -= (1 << s) - 1
+                    if k > se:
+                        raise ValueError("JPEG: corrupt data (a coefficient past the scan's band)")
+                    idx.append(base + k)
+                    vals.append(val << al)
+                    k += 1
+                    p += length + s
+                elif r == 15:
+                    k += 16
+                    p += length
+                else:
+                    run = 1 << r
+                    if r:
+                        run += (w >> (40 - o - length - r)) & ((1 << r) - 1)
+                    p += length + r
+                    m += run - 1  # the blocks the EOB run covers hold nothing in this band
+                    break
+            if p > limit:
+                raise ValueError("JPEG: truncated or corrupt data (the scan ran past its end)")
+        return idx, vals
+
+    def _ac_refine(self, spans, lut, coef: np.ndarray, order_b: np.ndarray, ss: int, se: int, al: int) -> None:
+        """AC refinement scans over one component (`decode_mcu_AC_refine`).
+        Every coefficient of the band that was non-zero before the scan gets
+        exactly one correction bit, in block and zigzag order; new
+        coefficients (+-2^Al) land on the (r + 1)-th zero at or after the
+        current position. So the loop below walks the symbols only: a
+        block's non-zero set is a 64-bit mask, the zeros a symbol skips are
+        found by dropping set bits, and the correction bits it passes are
+        only counted (their stream positions kept as runs); an EOB run's
+        blocks are skipped whole, their bits counted from prefix sums. The
+        bits are read and applied afterwards in array code."""
+        band = np.zeros(64, bool)
+        band[ss:se + 1] = True
+        nzb = (coef[order_b] != 0) & band
+        masks = (nzb.astype(np.uint64) << np.arange(64, dtype=np.uint64)).sum(axis=1, dtype=np.uint64).tolist()
+        prefix = np.concatenate([[0], np.cumsum(nzb.sum(axis=1))]).tolist()
+        bases = (order_b * 64).tolist()
+        band_mask = ((1 << (se + 1)) - 1) ^ ((1 << ss) - 1)
+        p1 = 1 << al
+        starts, lengths, new_idx, new_val, chunks = [], [], [], [], []
+        gp, m = 0, 0
+        for seg, j, count in spans:
+            win, limit = _windows(seg), 8 * len(seg) + 64
+            chunks.append(np.unpackbits(np.frombuffer(seg + bytes(PAD_BYTES), np.uint8)))
+            p, eobrun, m, end = 0, 0, j, j + count
+            while m < end:
+                if eobrun:
+                    take = min(eobrun, end - m)
+                    nbits = prefix[m + take] - prefix[m]
+                    if nbits:
+                        starts.append(gp + p)
+                        lengths.append(nbits)
+                        p += nbits
+                    eobrun -= take
+                    m += take
+                    if p > limit:
+                        raise ValueError("JPEG: truncated or corrupt data (the scan ran past its end)")
+                    continue
+                nz, base, k = masks[m], bases[m], ss
+                while k <= se:
+                    w, o = win[p >> 3], p & 7
+                    e = lut[(w >> (24 - o)) & 0xFFFF]
+                    if not e:
+                        raise ValueError("JPEG: corrupt data (no Huffman code matches)")
+                    length, rs = e >> 8, e & 0xFF
+                    r, s = rs >> 4, rs & 15
+                    if s:
+                        val = p1 if (w >> (39 - o - length)) & 1 else -p1
+                        p += length + 1
+                    elif r != 15:
+                        eobrun = 1 << r
+                        if r:
+                            eobrun += (w >> (40 - o - length - r)) & ((1 << r) - 1)
+                        p += length + r
+                        break
+                    else:
+                        p += length
+                    zeros = ~nz & band_mask & -(1 << k)
+                    for _ in range(r):
+                        zeros &= zeros - 1
+                    if zeros:
+                        target = (zeros & -zeros).bit_length() - 1
+                    elif s:
+                        raise ValueError("JPEG: corrupt data (a coefficient past the scan's band)")
+                    else:
+                        target = se + 1
+                    nbits = (nz & ((1 << target) - (1 << k))).bit_count()
+                    if nbits:
+                        starts.append(gp + p)
+                        lengths.append(nbits)
+                        p += nbits
+                    if s:
+                        new_idx.append(base + target)
+                        new_val.append(val)
+                    k = target + 1
+                if eobrun:  # the rest of this block's band: correction bits only
+                    nbits = (nz & -(1 << k)).bit_count()
+                    if nbits:
+                        starts.append(gp + p)
+                        lengths.append(nbits)
+                        p += nbits
+                    eobrun -= 1
+                m += 1
+                if p > limit:
+                    raise ValueError("JPEG: truncated or corrupt data (the scan ran past its end)")
+            gp += chunks[-1].size
+        if starts:
+            lengths_a = np.asarray(lengths)
+            offsets = np.repeat(np.asarray(starts) - np.concatenate([[0], np.cumsum(lengths_a)[:-1]]), lengths_a)
+            bits = np.concatenate(chunks)[offsets + np.arange(offsets.size)]
+            rows, ks = np.nonzero(nzb)
+            blocks, ks = order_b[rows[:bits.size]], ks[:bits.size]
+            current = coef[blocks, ks]
+            fix = (bits == 1) & ((current & p1) == 0)
+            coef[blocks[fix], ks[fix]] += np.where(current[fix] >= 0, p1, -p1).astype(np.int32)
+        coef.reshape(-1)[new_idx] = new_val
+
+    def _smoothing_applies(self) -> bool:
+        """libjpeg-turbo's `smoothing_ok` (jdcoefct.c, SAVED_COEFS 10) over
+        the final coefficient bits: block smoothing runs when every
+        component's DC is known and some component's first nine AC
+        coefficients (zigzag 1-9) are not fully refined."""
+        useful = False
+        for c in self.components:
+            if c.quant is None or not all(c.quant[pos] for pos in (0, 1, 8, 16, 9, 2, 3, 10, 17, 24)):
+                return False
+            if c.coef_bits[0] < 0:
+                return False
+            useful = useful or bool((c.coef_bits[1:10] != 0).any())
+        return useful
 
     def _decode_segment(self, segment: bytes, comps, tables, plan, cols: int, first: int, count: int) -> None:
         win = _windows(segment)
@@ -422,17 +664,27 @@ class JPEGFrame:
         if len(self.components) == 1:
             y = planes[0][:self.height, :self.width]
             return np.repeat(y[..., None], 3, axis=2)
-        if not self.jfif:
-            ids = tuple(c.id for c in self.components)
-            if self.adobe_transform == 0 or (self.adobe_transform is None and ids == (82, 71, 66)):
-                self._fail("unsupported JPEG: RGB-coded (Adobe transform 0 or R, G, B component ids); the port "
-                           "decodes YCbCr")
         full = [self._upsample(plane, c) for plane, c in zip(planes, self.components)]
+        if self.color_space() == "RGB":
+            return np.stack(full, axis=-1).astype(np.uint8)
         y, cb, cr = (f.astype(np.int64) for f in full)
         r = np.clip(y + CR_R[cr], 0, 255)
         g = np.clip(y + ((CB_G[cb] + CR_G[cr]) >> 16), 0, 255)
         b = np.clip(y + CB_B[cb], 0, 255)
         return np.stack([r, g, b], axis=-1).astype(np.uint8)
+
+    def color_space(self) -> str:
+        """libjpeg's guess (jdapimin.c `default_decompress_parms`) for three
+        components: a JFIF marker means YCbCr; else an Adobe marker's
+        transform (0 RGB, any other YCbCr); else component ids R, G, B mean
+        RGB; else YCbCr."""
+        if len(self.components) == 1:
+            return "L"
+        if self.jfif:
+            return "YCbCr"
+        if self.adobe_transform is not None:
+            return "RGB" if self.adobe_transform == 0 else "YCbCr"
+        return "RGB" if tuple(c.id for c in self.components) == (82, 71, 66) else "YCbCr"
 
     def _upsample(self, plane: np.ndarray, c: _Component) -> np.ndarray:
         """A component plane at the image's size, as jdsample.c upsamples it."""
@@ -538,8 +790,8 @@ def _h2v2_fancy(x: np.ndarray) -> np.ndarray:
 
 
 def decode_jpeg(data: bytes, name: str = "JPEG") -> np.ndarray:
-    """A baseline JPEG's bytes -> uint8 (H, W, 3) RGB, as PIL's
-    `Image.open(...).convert("RGB")` gives it."""
+    """A JPEG's bytes (baseline, extended or progressive) -> uint8 (H, W, 3)
+    RGB, as PIL's `Image.open(...).convert("RGB")` gives it."""
     return JPEGFrame(data, name).rgb()
 
 

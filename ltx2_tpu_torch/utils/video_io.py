@@ -43,7 +43,8 @@ order of operations); `read_avi_mjpeg` one MJPEG video stream of an AVI
 port's baseline decoder (`utils/jpeg.py`, equal to PIL's decode). GIFs go
 through `utils/gif.decode_gif` and animated PNGs (`.apng`, or a `.png` with
 an `acTL` chunk) through `utils/image_io.read_apng`, each equal to PIL's
-frames; a PNG without `acTL` is one frame (`read_png`). `probe_video` /
+frames; a PNG without `acTL` is one frame (`read_png`: every color type,
+bit depth and interlace, as `convert("RGB")` gives it). `probe_video` /
 `probe_mov` give (fps, frames, height, width); `read_video_any` dispatches
 by suffix and codec, then to OpenCV when it is installed (`read_cv2`,
 optional, as in the JAX package), then to the ffmpeg pipe

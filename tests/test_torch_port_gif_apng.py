@@ -13,7 +13,10 @@ package's PIL path (ltx2_tpu/utils/video_io.py `read_pil_animation`,
   block, a clear code mid-image and a full code table; data that ends, or
   an end code that comes, before the image's last pixel raising as in PIL;
 - APNGs PIL writes in RGBA, RGB, palette (with tRNS), L and LA, with every
-  dispose_op and blend_op, with a default image;
+  dispose_op and blend_op, with a default image; APNGs written by hand at
+  1-, 2- and 4-bit gray, 2-bit palette and 16-bit RGB, RGBA and gray with
+  alpha, and Adam7 ones (PIL decodes only their first frame, failing on
+  the next; the port names them);
 - each file through `read_video_any` and `probe_video` against the JAX
   package's, and the frames `decode_gif` / `read_apng` give against PIL's;
 - `write_gif`: a GIF89a PIL reads back (frames, delay, loop) whose frames
@@ -308,6 +311,40 @@ def test_pil_written_apngs(tmp_path, mode, dispose, blend):
             dst.write(src.read())
         np.testing.assert_array_equal(vio.read_video_any(as_png, 20, 28, 5), jvio.read_video_any(as_png, 20, 28, 5))
         assert apng_info(path)[:3] == (28, 20, 5)  # with default_image, the first image is not a frame
+
+
+# Written by hand (PIL writes neither Adam7 nor sub-byte or 16-bit APNGs):
+# (bit depth, color type) x Adam7, every dispose_op and blend_op.
+HAND_APNGS = [(d, c, i) for d, c in ((1, 0), (2, 0), (4, 0), (2, 3), (8, 3), (8, 0), (8, 2), (8, 4), (8, 6), (16, 2),
+                                     (16, 4), (16, 6)) for i in (False, True)]
+
+
+@pytest.mark.parametrize("depth,color,interlace", HAND_APNGS, ids=[f"{d}bit_type{c}{'_adam7' * i}"
+                                                                   for d, c, i in HAND_APNGS])
+def test_hand_written_apngs(tmp_path, depth, color, interlace):
+    rng = np.random.default_rng(depth * 10 + color)
+    samples = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
+    frames = [rng.integers(0, 1 << depth, (11, 13, samples)) for _ in range(4)]
+    for f in frames[1:]:
+        f[3:7, 2:9] = frames[0][3:7, 2:9]  # part of each frame repeats the first
+    palette = rng.integers(0, 256, (1 << depth, 3)) if color == 3 else None
+    path = str(tmp_path / "hand.apng")
+    with open(path, "wb") as fh:
+        fh.write(media.apng_bytes(frames, depth, color, interlace, palette, dispose=(0, 1, 2), blend=(1, 0, 1)))
+    if not interlace:
+        np.testing.assert_array_equal(np.stack(read_apng(path)), media.pil_frames(path))
+        _same_as_jax(path, 4)
+        return
+    # Pillow decodes an interlaced APNG's first frame and fails on the next
+    # (its decoder config gains the interlace flag again); so does the port.
+    with Image.open(path) as im:
+        first = np.asarray(im.convert("RGB"))
+    np.testing.assert_array_equal(read_apng(path, max_frames=1)[0], first)
+    np.testing.assert_array_equal(vio.read_video_any(path, 11, 13, 1), jvio.read_video_any(path, 11, 13, 1))
+    with pytest.raises(TypeError):
+        jvio.read_video_any(path, 11, 13, 2)
+    with pytest.raises(ValueError, match="interlaced"):
+        vio.read_video_any(path, 11, 13, 2)
 
 
 def test_unsupported_pngs_raise_by_name(tmp_path):

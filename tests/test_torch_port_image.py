@@ -17,7 +17,9 @@
 - `load_image_tensor` against the JAX package's (PIL) on PNGs PIL writes,
   exactly: RGB, RGBA, L x same aspect, wider, taller x up- and downscale;
   the five PNG row filters; a JPEG written under a .png name (read by its
-  signature) equal to PIL's too; unsupported formats raise;
+  signature) equal to PIL's too; a GIF, palette, 16-bit gray and gray
+  with alpha PNG refused with PIL's mode named, as the JAX package refuses
+  them, and an interlaced PNG decoded as it decodes it;
 - the distilled two-stage recipe with an image at frame 0 against the JAX
   package's `DistilledPipeline` on the same weights and noise (2-layer DiT,
   small encoder, upscaler and decoder, 64x64x9): the latent within 1e-4 of
@@ -25,6 +27,7 @@
 """
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -74,6 +77,7 @@ from ltx2_tpu_torch.utils.model_ledger import ModelLedger
 from tests.torch_port_util import (
     CFG, JCFG, assert_close, assert_module_matches_tree, numpy_tree, random_tree, t, write_png,
 )
+from tests import torch_port_media as media
 from tests.torch_port_util import one_intra_op_thread  # noqa: F401 (the fixture)
 
 pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
@@ -260,31 +264,28 @@ def test_png_filters_and_unsupported_formats(tmp_path):
     Image.fromarray(base).save(jpeg, "JPEG")
     np.testing.assert_array_equal(load_image_tensor(jpeg, 64, 96).numpy(),
                                   np.asarray(jcommon.load_image_tensor(jpeg, 64, 96)))
-    unsupported = {
-        "GIF": lambda p: Image.fromarray(base).save(p, "GIF"),
-        "palette": lambda p: Image.fromarray(base).convert("P").save(p),
-        "16-bit": lambda p: Image.fromarray(base[..., 0].astype(np.uint16) * 257).save(p),
-        "grayscale with alpha": lambda p: Image.fromarray(base[..., :2].copy(), "LA").save(p),
-        "interlaced": lambda p: write_png(p, base, filters=(0,)) and _set_interlace(p),
+    # Each file as the JAX package takes it: decoded where PIL opens it as
+    # RGB, RGBA or L, else refused with PIL's mode named.
+    cases = {
+        "GIF": (lambda p: Image.fromarray(base).save(p, "GIF"), "P"),
+        "palette": (lambda p: Image.fromarray(base).convert("P").save(p), "P"),
+        "16-bit": (lambda p: Image.fromarray(base[..., 0].astype(np.uint16) * 257).save(p), "I;16"),
+        "grayscale with alpha": (lambda p: Image.fromarray(base[..., :2].copy(), "LA").save(p), "LA"),
+        "interlaced": (lambda p: open(p, "wb").write(media.png_bytes(base, 8, 2, interlace=True)), None),
     }
-    for name, write in unsupported.items():
+    for name, (write, refused_mode) in cases.items():
         path = str(tmp_path / f"u_{name.replace(' ', '_')}.png")
         write(path)
-        with pytest.raises(ValueError, match=name):
+        if refused_mode is None:
+            np.testing.assert_array_equal(load_image_tensor(path, 64, 96).numpy(),
+                                          np.asarray(jcommon.load_image_tensor(path, 64, 96)))
+            continue
+        with pytest.raises(ValueError, match=f"Unsupported image format: {re.escape(refused_mode)}\\."):
+            jcommon.load_image_tensor(path, 64, 96)
+        with pytest.raises(ValueError, match=f"Unsupported image format: {re.escape(refused_mode)}\\."):
             load_image_tensor(path, 64, 96)
     with pytest.raises(FileNotFoundError):
         load_image_tensor(str(tmp_path / "absent.png"), 64, 96)
-
-
-def _set_interlace(path):
-    """Flag a written PNG as Adam7-interlaced (the IHDR's last byte)."""
-    import struct
-    import zlib
-
-    data = bytearray(open(path, "rb").read())
-    data[28] = 1  # signature 8 + length 4 + type 4 + 12 bytes of IHDR fields
-    data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])) & 0xFFFFFFFF)
-    open(path, "wb").write(bytes(data))
 
 
 # ---- the distilled recipe with an image ---------------------------------------

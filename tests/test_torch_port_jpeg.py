@@ -5,9 +5,11 @@ on files PIL writes here: qualities 50, 75, 92 and 100; 4:4:4, 4:2:2 and
 17x9, and chroma planes of 2 columns or fewer, which libjpeg upsamples by
 replication); restart intervals by rows and by blocks; optimized Huffman
 tables; a frame with its DHT segments stripped (the Annex K.3 tables, as
-MJPEG streams carry none); and the files it refuses by name (progressive,
-CMYK, RGB-coded, 12-bit, arithmetic-coded, truncated). Tolerance: none,
-the decoded bytes are equal.
+MJPEG streams carry none); a progressive and an RGB-coded file (decoded as
+PIL decodes them; tests/test_torch_port_stills.py covers progressive files
+in depth); and the files it refuses by name (CMYK, 12-bit,
+arithmetic-coded, truncated). Tolerance: none, the decoded bytes are
+equal.
 """
 
 import io
@@ -89,23 +91,26 @@ def test_frame_without_huffman_tables_takes_annex_k():
 
 def test_refusals_name_the_format():
     pixels = _image(24, 32, seed=7)
-    cases = {
-        "progressive": _encode(pixels, progressive=True),
-        "CMYK": _encode(pixels, mode="CMYK"),
-    }
     data = bytearray(_encode(pixels, quality=90))
     sof = data.index(b"\xff\xc0")
+    # Decoded now, as PIL decodes them: a progressive file, and a YCbCr
+    # stream relabelled RGB-coded (no JFIF marker, an Adobe APP14 with
+    # transform 0), whose planes come out as R, G and B unconverted.
+    app0 = data.index(b"\xff\xe0")
+    app0_end = app0 + 2 + int.from_bytes(data[app0 + 2:app0 + 4], "big")
+    adobe = b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00"
+    decoded = {"progressive": _encode(pixels, progressive=True),
+               "RGB-coded": bytes(data[:app0] + adobe + data[app0_end:])}
+    for name, payload in decoded.items():
+        _assert_decodes_as_pil(payload)
+    assert jpeg.JPEGFrame(decoded["RGB-coded"]).color_space() == "RGB"
+    cases = {"CMYK": _encode(pixels, mode="CMYK")}
     twelve = bytearray(data)
     twelve[sof + 4] = 12  # the frame's sample precision
     cases["12-bit"] = bytes(twelve)
     arith = bytearray(data)
     arith[sof + 1] = 0xC9
     cases["arithmetic-coded"] = bytes(arith)
-    # No JFIF marker and an Adobe APP14 with transform 0: RGB-coded.
-    app0 = data.index(b"\xff\xe0")
-    app0_end = app0 + 2 + int.from_bytes(data[app0 + 2:app0 + 4], "big")
-    adobe = b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00"
-    cases["RGB-coded"] = bytes(data[:app0] + adobe + data[app0_end:])
     cases["truncated"] = bytes(data[:len(data) // 2])
     for name, payload in cases.items():
         with pytest.raises(ValueError, match=name):

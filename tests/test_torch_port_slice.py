@@ -96,12 +96,13 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / "ltx2_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     # The full VAE, the WebP reader, pipeline parallelism, the layout
-    # advisor and its FLOP count are in the scan.
+    # advisor and its FLOP count, and the still readers are in the scan.
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {"ltx2_tpu_torch/models/video_vae/resnet.py", "ltx2_tpu_torch/models/video_vae/full_vae.py",
             "ltx2_tpu_torch/utils/webp.py", "ltx2_tpu_torch/utils/vp8.py", "ltx2_tpu_torch/utils/vp8l.py",
             "ltx2_tpu_torch/parallel/pipeline_parallel.py", "ltx2_tpu_torch/parallel/advisor.py",
-            "ltx2_tpu_torch/utils/flops.py"} <= names
+            "ltx2_tpu_torch/utils/flops.py", "ltx2_tpu_torch/utils/still_io.py", "ltx2_tpu_torch/utils/image_io.py",
+            "ltx2_tpu_torch/utils/jpeg.py", "ltx2_tpu_torch/utils/gif.py"} <= names
     bad = [
         (str(f.relative_to(ROOT)), mod) for f in files for mod in _imports(f)
         if mod.split(".")[0] in ("jax", "jaxlib", "ltx2_tpu", "ml_dtypes", "PIL", "transformers", "tokenizers",
