@@ -172,13 +172,15 @@ card and nvcc; it exits non-zero without them, and without the package
    (2 full-width AV blocks, 128x128x17, 18 audio tokens) through the kernels
    against its plain versions (latents, audio latent and frames at the
    small check's limits, another seed rejected); (c) the AV two-stage
-   recipe at full width and depth (the random V1 AV DiT, 48 blocks, 32 x
+   recipe at full width (the random V1 AV DiT, AV_TWO_STAGE_LAYERS = 24
+   blocks, cut from 48 for the script's time, 32 x
    128 video and 32 x 64 audio heads, kept in fp8; 512x768x121 and 126
    audio tokens; 2 requests through `generate_videos_distilled(audio=True)`,
    each written as a .y4m with a 24 kHz .wav of 120240 samples): each
    phase's seconds and peaks (the audio decode beside the video decode),
    6 flash launches an AV block a step (4 at head dim 64, 2 at 128), then
-   one traced AV step at 6144 tokens beside phase 5's video-only fp8 step,
+   one traced AV step at 6144 tokens beside phase 5's video-only fp8 step
+   (48 blocks; the record names both depths),
    one at stage 1's 1536 tokens, audio-to-video on the same DiT
    (`generate_videos_a2vid`: a 16-bit stereo .wav written at 44.1 kHz, the
    published audio encoder with random weights written to a file and read
@@ -189,13 +191,13 @@ card and nvcc; it exits non-zero without them, and without the package
    pipeline and a2vid at the small size of (b) through the kernels against
    their plain versions (two-stage with a rank-8 LoRA; its guided latents
    held to 5x the rms limit); (e) after (d), the two-stage CFG pipeline at
-   full width, depth cut to 24 blocks (the random V1 AV DiT in bf16,
+   full width, depth cut to 12 blocks (the random V1 AV DiT in bf16,
    512x768x121, 2 requests: stage 1 at 256x384 over 8 steps, cut from 30,
    under CFG 3.0, audio CFG 7.0, modality 3.0 and rescale 0.7, three rows
    at batch 3; a random rank-384 distilled LoRA on every block linear
    written to a file, fused for stage 2 and unfused; the tiled decode and
-   the audio decode): each phase's seconds and peaks, 1584 flash launches
-   a clip (1056 at head dim 64, 1152 at batch 3) and 19 + 270 convs, the
+   the audio decode): each phase's seconds and peaks, 792 flash launches
+   a clip (528 at head dim 64, 576 at batch 3) and 19 + 270 convs, the
    .y4m and 24 kHz .wav, and after the first request's unfuse every fused
    weight within one bf16 rounding step of its original (drawn again from
    the DiT's seed);
@@ -219,8 +221,8 @@ card and nvcc; it exits non-zero without them, and without the package
    the image at frame 0 (strength 0.95), 512x768x121, 48 layers: each
    phase's seconds and peaks, 1056 flash, 2 x 46 + 19 fp32 and 270 bf16
    conv launches; (c) the one-stage CFG* pipeline at the JAX defaults
-   (480x704x97, cfg 3.0, rescale 0.7; steps cut from 30 to 15) with the
-   image: 1440 flash launches, 46 fp32 and the tiled decode's bf16 conv launches; then the
+   (480x704x97, cfg 3.0, rescale 0.7; steps cut from 30 to 10) with the
+   image: 960 flash launches, 46 fp32 and the tiled decode's bf16 conv launches; then the
    same pipeline at a small size (2-layer DiT, small encoder plan,
    128x128x17, 3 steps, tiled decode) through the kernels against itself
    with every flash and conv call on its plain version; (d) at 2
@@ -311,11 +313,12 @@ card and nvcc; it exits non-zero without them, and without the package
    kernels against the same model on plain attention; then, from a --data
    npz the script writes (6144 video tokens with a 1024-token context, 126
    audio tokens with their own 1024-token context, 700 keys valid): (d)
-   `train.main --audio` for 3 rank-16 LoRA steps of the 48-block AV DiT in
+   `train.main --audio` for 3 rank-16 LoRA steps of the AV DiT at
+   AV_TRAIN_LAYERS = 24 blocks (cut from 48 for the script's time) in
    bf16 and again on its fp8 frozen base (`--fp8-serving`), each with
-   finite losses, every lora_B (the audio stream's 864 too) non-zero after
-   step 1, every base linear bit for bit its seeded draw, 576 forward
-   launches a step (384 at head dim 64) and 288 backward (192 at 64), its
+   finite losses, every lora_B (the audio stream's 432 too) non-zero after
+   step 1, every base linear bit for bit its seeded draw, 288 forward
+   launches a step (192 at head dim 64) and 144 backward (96 at 64), its
    training state written and read back bit for bit (bytes, seconds), and
    the step timed at this shape (ms, TF/s, peak) beside (b); (e) a
    video-only dataset on the AV DiT (4 blocks, `--trainable to_q`, weight
@@ -330,7 +333,19 @@ card and nvcc; it exits non-zero without them, and without the package
    denoises the audio, and 2 blocks against the CPU in fp32; (i)
    `prepare_data` on 2 random 512x768x9 clips through the full-width
    encoder (46 fp32 conv launches a clip), its npz fed to one
-   `train.main --data` step.
+   `train.main --data` step; (j) data-parallel training (`phase_train_dp`):
+   world 1's runs, then 2 ranks on the card over gloo (`spawn_ranks`; over
+   nccl too with a card per rank) through `train.main --dp-devices 2` for 3
+   steps of attn1's projections in 8 full-width blocks at 6144 tokens:
+   plain DP and --zero1 at batch 2, --zero2 --accum-steps 2 at batch 4,
+   then LoRA on the fp8 base with --zero2 --save for 2 steps; every rank's
+   parameters identical after each step, ZeRO-1's optimizer on plain DP's
+   recorded gradients bit for bit plain DP (K3's dQ order varies run to
+   run, so two runs read different gradient bits), the losses within 0.5 %
+   of world 1's, ZeRO-1 half of plain DP's moment
+   bytes and ZeRO-2 half of world 1's gradient bytes a rank, each rank's
+   K1 and K3 launches as reckoned, only rank 0 writing the file; each
+   rank's peak memory, collective bytes by route and step seconds logged.
 
 The line before the kernels' record gives the whole script's seconds. The
 second-to-last line of output is the kernels' JSON record (with the
@@ -341,6 +356,7 @@ training records beside the kernels), the last the device record.
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
 import json
 import math
@@ -2535,9 +2551,12 @@ def phase_two_stage_small(smi: str, v2: bool = False) -> dict:
     return rec
 
 
-# The audio-video path (LTX-2.0, V1): the AV DiT at full width, 48 blocks,
-# 32 x 128 video and 32 x 64 audio heads, kept in fp8; 121 frames at 24 fps
-# give 126 audio latent frames, 501 mel frames, 120240 samples at 24 kHz.
+# The audio-video path (LTX-2.0, V1): the AV DiT at full width, 32 x 128
+# video and 32 x 64 audio heads, kept in fp8; 121 frames at 24 fps give 126
+# audio latent frames, 501 mel frames, 120240 samples at 24 kHz. Its depth
+# for the two-stage clips, a2vid and the traced steps, cut from 48 for the
+# whole script's time since the data-parallel training phase.
+AV_TWO_STAGE_LAYERS = 24
 AV_AUDIO_TOKENS = 126
 AV_WAV_SAMPLES = {24000: (4 * AV_AUDIO_TOKENS - 3) * 240, 48000: 2 * (4 * AV_AUDIO_TOKENS - 3) * 240}
 # Flash launches an AV block makes a step, by head dim: video self and text
@@ -2594,7 +2613,7 @@ def phase_av_two_stage(smi: str) -> tuple:
     dev, card = torch.device("cuda"), torch.cuda.get_device_name(0)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    dit = G.make_dit(LAYERS, dev, base=G.av_config(), fp8=True)
+    dit = G.make_dit(AV_TWO_STAGE_LAYERS, dev, base=G.av_config(), fp8=True)
     init_s = time.perf_counter() - t0
     _reset_counts()
     flash_attention.launches_by_head_dim = {}
@@ -2638,11 +2657,12 @@ def phase_av_two_stage(smi: str) -> tuple:
            "audio_decode_traced": {k: decode[k] for k in ("device_ms", "wall_ms", "busy_share",
                                                           "device_ms_by_class")},
            "card": smi}
-    log(f"AV two-stage (V1, 48 fp8 blocks, 512x768x121 + 126 audio tokens, .y4m + .wav): {json.dumps(rec)}")
+    log(f"AV two-stage (V1, {AV_TWO_STAGE_LAYERS} fp8 blocks, 512x768x121 + 126 audio tokens, .y4m + .wav): "
+        f"{json.dumps(rec)}")
     tiles = len(generate_tile_specs((1, 128, (FRAMES - 1) // 8 + 1, HEIGHT // 32, WIDTH // 32),
                                     TilingConfig.default()))
     upscale = upscaler_convs(SpatialUpscalerConfig())
-    want_dim = _av_flash(LAYERS, 8 + 3, len(SEEDS))
+    want_dim = _av_flash(AV_TWO_STAGE_LAYERS, 8 + 3, len(SEEDS))
     want = {"fwd": sum(want_dim.values()), "bwd": 0,
             "conv": (upscale + conv_launches(VideoDecoderConfig()) * tiles) * len(SEEDS)}
     if counts != want or by_dim != want_dim:
@@ -2771,8 +2791,9 @@ def phase_av_small(smi: str) -> dict:
 # a2vid is the distilled recipe (8 + 3 steps at batch 1) with the audio
 # latent frozen. 6 flash launches an AV block a step either way.
 TWO_STAGE_CFG_STEPS = 8
-# The phase's AV DiT depth, cut from 48 for the whole script's time (PR 24).
-TWO_STAGE_CFG_LAYERS = 24
+# The phase's AV DiT depth, cut from 48 for the whole script's time (to 24
+# first, to 12 since the data-parallel training phase).
+TWO_STAGE_CFG_LAYERS = 12
 TWO_STAGE_CFG = {"cfg_scale": 3.0, "audio_cfg_scale": 7.0, "modality_scale": 3.0, "rescale_scale": 0.7}
 # The distilled LoRA: random, rank 384 (the published ltx-2-19b-distilled-lora-384's) on every linear of
 # every block, bf16 in its file; A ~ N(0, 1 / in), B ~ N(0, 0.003^2): deltas about a tenth of the weights.
@@ -2898,11 +2919,12 @@ def phase_a2vid(smi: str, dit) -> tuple:
            "peak_gb": {p: max(s[f"{p}_peak_gb"] for s in stats) for p in phases},
            "frozen_by_stage": [s["audio_frozen_by_stage"] for s in stats], "files": files, "shapes": shapes,
            "card": smi}
-    log(f"a2vid (48 fp8 AV blocks, 512x768x121, frozen encoded audio, 16 kHz .wav): {json.dumps(rec)}")
+    log(f"a2vid ({AV_TWO_STAGE_LAYERS} fp8 AV blocks, 512x768x121, frozen encoded audio, 16 kHz .wav): "
+        f"{json.dumps(rec)}")
     tiles = len(generate_tile_specs((1, 128, (FRAMES - 1) // 8 + 1, HEIGHT // 32, WIDTH // 32),
                                     TilingConfig.default()))
     upscale = upscaler_convs(SpatialUpscalerConfig())
-    want_dim = _av_flash(LAYERS, 8 + 3, len(SEEDS))
+    want_dim = _av_flash(AV_TWO_STAGE_LAYERS, 8 + 3, len(SEEDS))
     want = {"fwd": sum(want_dim.values()), "bwd": 0,
             "conv": (upscale + conv_launches(VideoDecoderConfig()) * tiles) * len(SEEDS)}
     if counts != want or by_dim != want_dim or by_batch != {1: want["fwd"]}:
@@ -3456,8 +3478,9 @@ def phase_av_files(smi: str) -> tuple:
 # and crops it.
 IMAGE_SIZE, IMAGE_SEED, IMAGE_STRENGTH = (600, 1000), 11, 0.95
 # The one-stage CFG pipeline at the JAX package's OneStageCFGConfig defaults,
-# but its steps, cut from 30 to 15 for the whole script's time (PR 24).
-ONE_STAGE = {"height": 480, "width": 704, "frames": 97, "steps": 15, "cfg_scale": 3.0, "rescale_scale": 0.7}
+# but its steps, cut from 30 for the whole script's time (to 15 first, to
+# 10 since the data-parallel training phase).
+ONE_STAGE = {"height": 480, "width": 704, "frames": 97, "steps": 10, "cfg_scale": 3.0, "rescale_scale": 0.7}
 # The exactness gate: a 2-block DiT at 128x128x9, 3 steps.
 GATE = {"layers": 2, "height": 128, "width": 128, "frames": 9, "steps": 3}
 
@@ -4320,6 +4343,9 @@ def phase_train_gradcheck(smi: str) -> dict:
 
 # The cut-depth checks (the freeze, resume, prepare_data's step) at full width.
 CUT_LAYERS = 4
+# The AV entries' depth (bf16 and on the fp8 base), cut from 48 for the whole
+# script's time since the data-parallel training phase.
+AV_TRAIN_LAYERS = 24
 RESUME_STEPS, RESUME_AT = 4, 2
 # A resumed run's last adapters against the uninterrupted run's, relative to
 # the rms of what the two steps after the save moved them: both runs feed
@@ -4405,7 +4431,8 @@ def _expected_av_train(steps: int, layers: int) -> dict:
 
 def phase_train_av(smi: str, npz: str, arrays: dict, directory: str, fp8: bool) -> tuple:
     """The AV entry at full width and depth (`train.bench_arrays`' sample
-    written as a --data npz): 3 LoRA steps of the 48-block AV DiT (bf16, or with `fp8` its linears kept in fp8 as a frozen base)
+    written as a --data npz): 3 LoRA steps of the AV DiT at AV_TRAIN_LAYERS
+    blocks (bf16, or with `fp8` its linears kept in fp8 as a frozen base)
     through `train.main --audio --data`, saving the training state at the
     end; finite losses, every lora_B non-zero after step 1 (the audio
     blocks' too), the base bit for bit its seeded draw, the launches
@@ -4433,14 +4460,15 @@ def phase_train_av(smi: str, npz: str, arrays: dict, directory: str, fp8: bool) 
     torch.cuda.reset_peak_memory_stats()
     _reset_train_counts()
     t0 = time.perf_counter()
-    res = T.main(["--audio", "--data", npz, "--lora-rank", "16", "--steps", str(TRAIN_STEPS), "--layers", str(LAYERS),
+    res = T.main(["--audio", "--data", npz, "--lora-rank", "16", "--steps", str(TRAIN_STEPS),
+                  "--layers", str(AV_TRAIN_LAYERS),
                   "--device", "cuda", "--log-every", "1", "--save-state", state, "--save-every", str(TRAIN_STEPS)]
                  + (["--fp8-serving"] if fp8 else []), on_step=on_step)
     wall = time.perf_counter() - t0
     counts = _train_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     model = res["model"]
-    expected = _expected_av_train(TRAIN_STEPS, LAYERS)
+    expected = _expected_av_train(TRAIN_STEPS, AV_TRAIN_LAYERS)
     audio_b = sum(1 for n, _ in model.named_parameters() if n.endswith(".lora_B") and "audio" in n)
     # The state: the file read back into the live tensors must equal the file.
     t0 = time.perf_counter()
@@ -4472,7 +4500,7 @@ def phase_train_av(smi: str, npz: str, arrays: dict, directory: str, fp8: bool) 
               "text_tokens": batch.context.shape[1], "audio_text_tokens": batch.audio_context.shape[1]}
     weight_gb = sum(t.numel() * t.element_size() for n, t in (*model.named_parameters(), *model.named_buffers())
                     if "lora" not in n) / 1e9
-    rec = {"layers": LAYERS, "fp8_base": fp8, "adapters": res["adapters"], "losses": res["losses"],
+    rec = {"layers": AV_TRAIN_LAYERS, "fp8_base": fp8, "adapters": res["adapters"], "losses": res["losses"],
            "step_s": res["step_s"], "wall_s": wall, "peak_memory_gb": peak_gb, "base_weight_gb": weight_gb,
            "launches": counts, "expected_launches": expected, "audio_lora_B": audio_b,
            "base_linears_checked": base["linears"], "state": state_rec, "timing": timing, "card": smi}
@@ -4481,9 +4509,9 @@ def phase_train_av(smi: str, npz: str, arrays: dict, directory: str, fp8: bool) 
     torch.cuda.empty_cache()
     if len(rec["losses"]) != TRAIN_STEPS or not all(math.isfinite(x) for x in rec["losses"]):
         raise AssertionError(f"{name}: losses {rec['losses']}")
-    if rec["adapters"] != 28 * LAYERS:  # 4 linears in each of 6 attentions + 2 FF linears in each of 2 streams
-        raise AssertionError(f"{name}: {rec['adapters']} adapters, expected 28 x {LAYERS}")
-    if zero_b or audio_b != 18 * LAYERS:  # audio_attn1/2, audio_ff, both cross-modal attentions
+    if rec["adapters"] != 28 * AV_TRAIN_LAYERS:  # 4 linears in each of 6 attentions + 2 FF linears in each of 2 streams
+        raise AssertionError(f"{name}: {rec['adapters']} adapters, expected 28 x {AV_TRAIN_LAYERS}")
+    if zero_b or audio_b != 18 * AV_TRAIN_LAYERS:  # audio_attn1/2, audio_ff, both cross-modal attentions
         raise AssertionError(f"{name}: lora_B still zero after step 1 {zero_b[:4]}, audio lora_B {audio_b}")
     if base["changed"]:
         raise AssertionError(f"{name}: base weights changed by training: {base['changed'][:4]}")
@@ -4836,6 +4864,274 @@ def phase_training_av(smi: str) -> dict:
         out["prepare_data"], out["prepare_data_counts"] = phase_prepare_data(smi, directory)
         torch.cuda.empty_cache()
         return out
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+# ---- Data-parallel training with ZeRO-1 and ZeRO-2 (train.py --dp-devices,
+# --zero1, --zero2): DP_TRAIN_WORLD ranks on the card over gloo (and over
+# nccl where the machine has a card per rank), each configuration against
+# world 1's run of the same steps here.
+
+DP_TRAIN_LAYERS = 8  # cut from 48: two ranks share one card, and the script's time
+DP_TRAIN_WORLD = 2
+DP_TRAIN_STEPS = 3
+DP_TRAIN_SAMPLES = 4
+DP_TRAIN_LR = "1e-3"  # a bf16 weight near 0.016 moves by a step of 1e-3, not of train.py's 1e-5
+DP_TRAINABLE = r"transformer_blocks\.\d+\.attn1\.(to_q|to_k|to_v|to_out)\."
+# name -> (flags, batch): ZeRO-2 with 2 microbatches needs 4 samples so that
+# each rank takes one row of every microbatch.
+DP_TRAIN_CONFIGS = {"dp": ([], 2), "zero1": (["--zero1"], 2), "zero2_accum2": (["--zero2", "--accum-steps", "2"], 4)}
+DP_LORA_STEPS = 2
+# Each rank's loss against world 1's: the same rows, sigmas and noise, bf16
+# products over one row where world 1 runs two, and AdamW's sign on the
+# elements whose gradient is near zero.
+TOL_DP_LOSS_REL = 5e-3
+DP_TRAIN_TIMEOUT_S = 600
+
+
+def _dp_argv(npz: str, batch: int, flags: list, steps: int = DP_TRAIN_STEPS, lora: bool = False) -> list:
+    argv = ["--data", npz, "--layers", str(DP_TRAIN_LAYERS), "--batch-size", str(batch), "--steps", str(steps),
+            "--lr", DP_TRAIN_LR, "--device", "cuda", "--log-every", "1", *flags]
+    return argv + (["--fp8-serving", "--lora-rank", "16"] if lora else ["--trainable", DP_TRAINABLE])
+
+
+def _param_hash(params):
+    """One int64 per tensor, the sum of (bits + 1) x an odd weight of the
+    element's index, modulo 2^64: any change of an element's bits moves it."""
+    import torch
+
+    out = []
+    for p in params:
+        bits = p.detach().reshape(-1).view(torch.int16 if p.element_size() == 2 else torch.int32)
+        w = torch.arange(bits.numel(), device=p.device, dtype=torch.int64).mul_(2654435761).remainder_(2 ** 32)
+        out.append(((bits.to(torch.int64) + 1) * w.mul_(2).add_(1)).sum())
+    return torch.stack(out).cpu()
+
+
+def _dp_train_run(argv: list, record_grads: bool = False) -> dict:
+    """train.main(argv) on this rank: losses, step seconds, each step's
+    parameter hashes, peak memory, moment and gradient bytes, collective
+    bytes by route, K1 / K3 launches, the exports it made, the trained
+    parameters and, with `record_grads`, the gradients each update read."""
+    import torch
+
+    from ltx2_tpu_torch import train as T
+    from ltx2_tpu_torch.parallel import collectives
+    from ltx2_tpu_torch.training import trainer
+
+    hashes, exports, grads = [], [], []
+
+    def on_step(i, model, loss):
+        hashes.append(_param_hash([p for p in model.parameters() if p.requires_grad]))
+
+    def recording_step(opt, g=None, sharded_grads=False):
+        grads.append([x.to("cpu", copy=True) for x in g])  # on the host: the card's peak stays the run's own
+        return update(opt, g, sharded_grads)
+
+    export, update = T.export_lora_checkpoint, trainer.AdamW.step
+    T.export_lora_checkpoint = lambda path, model, **kw: (exports.append(path), export(path, model, **kw))
+    if record_grads:
+        trainer.AdamW.step = recording_step
+    gc.collect()  # the last run's model: its gradient hooks and optimizer form a cycle
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    collectives.reset_stats()
+    _reset_counts()
+    try:
+        res = T.main(argv, on_step=on_step)
+    finally:
+        T.export_lora_checkpoint, trainer.AdamW.step = export, update
+    torch.cuda.synchronize()
+    counts = _counts()
+    params = [p.detach() for p in res["model"].parameters() if p.requires_grad]
+    return {"losses": res["losses"], "step_s": res["step_s"], "hashes": hashes, "exports": exports,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "moment_bytes": res["moment_bytes"],
+            "grad_bytes": res["grad_bytes"], "bytes_by_route": copy.deepcopy(collectives.STATS["bytes"]),
+            "launches": {"fwd": counts["fwd"], "bwd": counts["bwd"]}, "params": params, "grads": grads,
+            "tc": res["optimizer"].tc}
+
+
+def _zero1_replay(world: int, tc, grads_by_step: list, dp_params: list) -> bool:
+    """ZeRO-1's optimizer (moments sharded over 'data', each rank's slice
+    updated, the updated bits all-gathered) fed the gradients plain DP's
+    run read, from the same seeded weights: plain DP's parameters bit for
+    bit? K3 adds dQ in whatever order its key blocks finish, so two runs
+    never read the same gradient bits; this feeds them the same."""
+    import re
+
+    import torch
+
+    from ltx2_tpu_torch import train as T
+    from ltx2_tpu_torch.parallel.mesh import axis_of, create_mesh
+    from ltx2_tpu_torch.training import AdamW, trainable_mask, zero1_opt_state_shardings
+
+    model = T.make_model(DP_TRAIN_LAYERS, torch.device("cuda"), 0)
+    pattern = re.compile(DP_TRAINABLE)
+    trainable_mask(model, lambda name: bool(pattern.search(name)))
+    params = [p for p in model.parameters() if p.requires_grad]
+    axis = axis_of(create_mesh(data=world, model=1), "data")
+    opt = AdamW(params, tc)
+    opt.shard_(zero1_opt_state_shardings(params, axis), axis)
+    for grads in grads_by_step:
+        opt.step([g.to(p.device) for g, p in zip(grads, params)])
+    return len(params) == len(dp_params) and all(torch.equal(a.cpu(), b) for a, b in zip(params, dp_params))
+
+
+def _train_dp_rank(rank: int, world: int, npz: str, directory: str) -> dict:
+    """One rank of phase_train_dp: each configuration through train.main
+    --dp-devices, ZeRO-1's optimizer replaying plain DP's gradients, then
+    LoRA on the fp8 base under --zero2 with --save."""
+    import torch
+
+    out = {}
+    dp_params = dp_grads = None
+    for name, (flags, batch) in DP_TRAIN_CONFIGS.items():
+        t0 = time.perf_counter()
+        rec = _dp_train_run(_dp_argv(npz, batch, ["--dp-devices", str(world), *flags]), record_grads=name == "dp")
+        params, grads, tc = rec.pop("params"), rec.pop("grads"), rec.pop("tc")
+        if name == "dp":
+            dp_params, dp_grads, dp_tc = [p.cpu() for p in params], grads, tc
+        elif name == "zero1":
+            rec["max_abs_vs_dp_run"] = max(float((a.float() - b.to(a.device).float()).abs().max())
+                                           for a, b in zip(params, dp_params))
+        del params, grads
+        rec["seconds"] = time.perf_counter() - t0
+        out[name] = rec
+        if name == "zero1":
+            gc.collect()
+            t0 = time.perf_counter()
+            out["zero1_replay"] = {"equals_dp_bitwise": _zero1_replay(world, dp_tc, dp_grads, dp_params),
+                                   "seconds": time.perf_counter() - t0}
+            dp_params = dp_grads = None
+    t0 = time.perf_counter()
+    rec = _dp_train_run(_dp_argv(npz, 2, ["--dp-devices", str(world), "--zero2", "--save",
+                                          f"{directory}/adapter.safetensors"], steps=DP_LORA_STEPS, lora=True))
+    for key in ("params", "grads", "tc"):
+        rec.pop(key)
+    rec["seconds"] = time.perf_counter() - t0
+    out["lora_fp8_zero2"] = rec
+    return out
+
+
+def _dp_expected(accum: int, steps: int) -> dict:
+    """A rank's K1 / K3 launches: every attention of every block needs its
+    gradient (attn1's projections train; attn2's queries follow from them),
+    so each microbatch of a step runs 2 forward launches a block, 2 more in
+    the remat recompute and 2 fused backward ones."""
+    return {"fwd": steps * accum * 4 * DP_TRAIN_LAYERS, "bwd": steps * accum * 2 * DP_TRAIN_LAYERS}
+
+
+def phase_train_dp(smi: str) -> tuple:
+    """Data-parallel training on the card through `train.main`: world 1's
+    runs here, then DP_TRAIN_WORLD ranks (`spawn_ranks`) for plain DP,
+    --zero1 and --zero2 --accum-steps 2 (DP_TRAINABLE at DP_TRAIN_LAYERS
+    full-width blocks, bench_train's 6144 tokens and 1024 text tokens,
+    DP_TRAIN_STEPS steps), and LoRA on the fp8 base with --zero2 --save.
+    Fails unless every rank's parameters are identical after every step,
+    ZeRO-1's optimizer fed plain DP's recorded gradients gives plain DP's
+    parameters bit for bit (`_zero1_replay`), the losses are within
+    TOL_DP_LOSS_REL of world 1's, ZeRO-1 holds half of plain DP's moment
+    bytes and ZeRO-2 half of world 1's gradient bytes a rank, the launches
+    are as reckoned and only rank 0 writes the --save file. Returns (record,
+    the K1 / K3 launches by path, summed over the ranks)."""
+    import datetime
+    import os
+    import tempfile
+
+    import torch
+
+    from ltx2_tpu_torch import train as T
+    from ltx2_tpu_torch.models.transformer.model import LTXModelConfig
+    from ltx2_tpu_torch.parallel.runtime import spawn_ranks
+
+    t_phase = time.perf_counter()
+    directory = tempfile.mkdtemp(prefix="ltx2_train_dp_")
+    try:
+        arrays = T.synthetic_dataset(*T.BENCH_SHAPE, DP_TRAIN_SAMPLES, LTXModelConfig(), seed=3,
+                                     context_tokens=T.BENCH_CONTEXT_TOKENS)
+        npz = _write_npz(directory, "dp.npz", arrays)
+        world1 = {}
+        for batch, flags in ((2, []), (4, ["--accum-steps", "2"])):
+            rec = _dp_train_run(_dp_argv(npz, batch, flags))
+            for key in ("params", "grads", "tc"):
+                rec.pop(key)
+            world1[batch] = rec
+        gc.collect()
+        torch.cuda.empty_cache()
+        world1_s = time.perf_counter() - t_phase
+        routes = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= DP_TRAIN_WORLD else [])
+        record, counts = {"world_1": {b: {k: r[k] for k in ("losses", "step_s", "peak_gb", "moment_bytes",
+                                                            "grad_bytes", "launches")}
+                                      for b, r in world1.items()},
+                          "world_1_s": world1_s, "routes": {}}, {}
+        for backend in routes:
+            t0 = time.perf_counter()
+            ranks = spawn_ranks(_train_dp_rank, DP_TRAIN_WORLD, os.path.join(directory, backend), npz, directory,
+                                backend=backend, device="cuda", timeout=DP_TRAIN_TIMEOUT_S,
+                                collective_timeout=datetime.timedelta(seconds=DP_TRAIN_TIMEOUT_S))
+            wall = time.perf_counter() - t0
+            out = {"wall_s": wall}
+            for name, (flags, batch) in {**DP_TRAIN_CONFIGS, "lora_fp8_zero2": (None, 2)}.items():
+                per_rank = [r[name] for r in ranks]
+                for r in per_rank:
+                    r["hashes"] = [h.tolist() for h in r["hashes"]]
+                lora = name == "lora_fp8_zero2"
+                steps = DP_LORA_STEPS if lora else DP_TRAIN_STEPS
+                accum = 2 if name == "zero2_accum2" else 1
+                expected = _dp_expected(accum, steps)
+                rec = {"ranks": [{k: r[k] for k in ("losses", "step_s", "peak_gb", "moment_bytes", "grad_bytes",
+                                                    "bytes_by_route", "launches", "seconds", "max_abs_vs_dp_run")
+                                  if k in r} for r in per_rank],
+                       "launches_expected_per_rank": expected}
+                if not lora:
+                    ref = world1[batch]
+                    rec["world_1_losses"] = ref["losses"]
+                    rec["loss_rel_err_vs_world_1"] = max(abs(a - b) / abs(b) for a, b in
+                                                         zip(per_rank[0]["losses"], ref["losses"]))
+                log(f"train DP over {backend}, {name} ({DP_TRAIN_WORLD} ranks, {DP_TRAIN_LAYERS} layers, batch "
+                    f"{batch}): {json.dumps(rec)} | {smi}")
+                for i, r in enumerate(per_rank):
+                    if len(r["losses"]) != steps or not all(math.isfinite(x) for x in r["losses"]):
+                        raise AssertionError(f"DP {name} rank {i} losses {r['losses']}")
+                    if r["launches"] != expected:
+                        raise AssertionError(f"DP {name} rank {i} launches {r['launches']}, expected {expected}")
+                    if r["hashes"] != per_rank[0]["hashes"] or r["losses"] != per_rank[0]["losses"]:
+                        raise AssertionError(f"DP {name}: rank {i}'s parameters or losses differ from rank 0's")
+                if len(per_rank[0]["hashes"]) != steps:
+                    raise AssertionError(f"DP {name}: {len(per_rank[0]['hashes'])} parameter hashes")
+                if not lora and rec["loss_rel_err_vs_world_1"] > TOL_DP_LOSS_REL:
+                    raise AssertionError(f"DP {name} losses {per_rank[0]['losses']} against world 1's "
+                                         f"{world1[batch]['losses']} (limit {TOL_DP_LOSS_REL} relative)")
+                out[name] = rec
+                counts[f"train_dp_{backend}_{name}"] = {k: sum(r["launches"][k] for r in per_rank)
+                                                        for k in ("fwd", "bwd")}
+            dp, z1, z2 = (ranks[0][k] for k in DP_TRAIN_CONFIGS)
+            out["zero1_replay"] = [r["zero1_replay"] for r in ranks]
+            if not all(r["zero1_replay"]["equals_dp_bitwise"] for r in ranks):
+                raise AssertionError(f"DP over {backend}: ZeRO-1's optimizer on plain DP's gradients gave other "
+                                     "parameters than plain DP's")
+            if z1["moment_bytes"] * 2 != dp["moment_bytes"]:
+                raise AssertionError(f"ZeRO-1 moment bytes {z1['moment_bytes']} vs plain DP's {dp['moment_bytes']}")
+            if z2["grad_bytes"] * 2 != world1[4]["grad_bytes"]:
+                raise AssertionError(f"ZeRO-2 gradient bytes {z2['grad_bytes']} vs world 1's "
+                                     f"{world1[4]['grad_bytes']} at --accum-steps 2")
+            exports = [r["lora_fp8_zero2"]["exports"] for r in ranks]
+            if exports != [[f"{directory}/adapter.safetensors"]] + [[]] * (DP_TRAIN_WORLD - 1) \
+                    or not os.path.exists(f"{directory}/adapter.safetensors"):
+                raise AssertionError(f"DP LoRA --save: exports by rank {exports}")
+            os.remove(f"{directory}/adapter.safetensors")
+            out["memory_per_rank"] = {"moment_bytes": {k: ranks[0][k]["moment_bytes"] for k in DP_TRAIN_CONFIGS},
+                                      "grad_bytes": {k: ranks[0][k]["grad_bytes"] for k in DP_TRAIN_CONFIGS},
+                                      "world_1_grad_bytes_accum2": world1[4]["grad_bytes"],
+                                      "peak_gb": {k: [r[k]["peak_gb"] for r in ranks] for k in DP_TRAIN_CONFIGS}}
+            log(f"train DP over {backend}: ZeRO-1 on plain DP's gradients bit for bit plain DP "
+                f"{json.dumps(out['zero1_replay'])}, ranks identical every step, "
+                f"{json.dumps(out['memory_per_rank'])}, wall {wall:.1f} s | {smi}")
+            record["routes"][backend] = out
+        record["seconds"] = time.perf_counter() - t_phase
+        log(f"train DP phase: {record['seconds']:.1f} s, launches {json.dumps(counts)} | {smi}")
+        return record, counts
     finally:
         shutil.rmtree(directory, ignore_errors=True)
 
@@ -6146,6 +6442,8 @@ SCALE_OUT_WORLD = 2
 SCALE_OUT_SEED = 5
 # The phase's DiT depth, cut from 48 for the whole script's time (PR 24): the
 # SP, TP and PP runs and their world-1 references all take this many blocks.
+# Not fewer: a PP-2 rank holds half the blocks and all the shared weights,
+# 0.564 of world 1's at 12 blocks, past TOL_PP_WEIGHT_SHARE.
 SCALE_OUT_LAYERS = 24
 SCALE_OUT_TIMEOUT_S = 900  # the ranks' join; a collective waits at most PG_TIMEOUT_S
 SCALE_OUT_PG_TIMEOUT_S = 600
@@ -6856,8 +7154,9 @@ def main():
     clock.append(("two_stage_cfg_small", time.perf_counter()))
     av, av_counts, a2vid, a2vid_counts = phase_av_two_stage(smi)
     clock.append(("av_two_stage", time.perf_counter()))
-    av["av_step_vs_video_step_ms"] = {"av_fp8": av["av_step"]["device_ms"], "video_fp8": fp8_step["fp8"]["device_ms"]}
-    log(f"AV vs video-only fp8 DiT step ({LAYERS} layers, 6144 tokens): {json.dumps(av['av_step_vs_video_step_ms'])}"
+    av["av_step_vs_video_step_ms"] = {"av_fp8": av["av_step"]["device_ms"], "video_fp8": fp8_step["fp8"]["device_ms"],
+                                      "av_layers": AV_TWO_STAGE_LAYERS, "video_layers": LAYERS}
+    log(f"AV vs video-only fp8 DiT step (6144 tokens): {json.dumps(av['av_step_vs_video_step_ms'])}"
         f" | {smi}")
     av_files, av_file_counts = phase_av_files(smi)
     clock.append(("av_files", time.perf_counter()))
@@ -6900,6 +7199,8 @@ def main():
     clock.append(("train_gradcheck", time.perf_counter()))
     av_train = phase_training_av(smi)
     clock.append(("training_av", time.perf_counter()))
+    train_dp, dp_counts = phase_train_dp(smi)
+    clock.append(("train_dp", time.perf_counter()))
     # The training paths of the AV slice and their launch counts, each read
     # right after the path ran (the resume path's: the uninterrupted run).
     av_paths = {"train_av": av_train["train_av_counts"], "train_av_fp8": av_train["train_av_fp8_counts"],
@@ -6907,8 +7208,8 @@ def main():
     audio_only_counts, prep_counts = av_train["audio_only_counts"], av_train["prepare_data_counts"]
     log(f"AV LoRA step vs video-only step at 6144 video tokens (1024 text tokens): AV bf16 "
         f"{av_train['train_av']['timing']['ms_per_step']:.1f} ms, AV fp8 base "
-        f"{av_train['train_av_fp8']['timing']['ms_per_step']:.1f} ms, video-only bf16 {timing['ms_per_step']:.1f} ms "
-        f"| {smi}")
+        f"{av_train['train_av_fp8']['timing']['ms_per_step']:.1f} ms ({AV_TRAIN_LAYERS} blocks), video-only bf16 "
+        f"{timing['ms_per_step']:.1f} ms ({LAYERS} blocks) | {smi}")
 
     self_rec, self_bwd = recs[0], bwd[0]
     bf16_recs = [r for r in conv_recs if r["dtype"] == "bfloat16"]
@@ -6946,7 +7247,7 @@ def main():
                          + sum(c["fwd"] for c in av_paths.values()) + audio_only_counts["fwd"]
                          + int8_counts["fwd"] + temporal_counts["fwd"] + sum(c["fwd"] for c in kf_counts.values())
                          + sum(c["fwd"] for c in vp_counts.values()) + server_counts["fwd"]
-                         + sum(c["fwd"] for c in so_counts.values())),
+                         + sum(c["fwd"] for c in so_counts.values()) + sum(c["fwd"] for c in dp_counts.values())),
             "launches_by_path": {"serve": serve_counts["fwd"], "serve_two_stage": two_stage_counts["fwd"],
                                  "serve_two_stage_from_files": file_counts["fwd"],
                                  "serve_v2_two_stage_from_files": v2_counts["fwd"],
@@ -6960,7 +7261,8 @@ def main():
                                  "temporal_upscale": temporal_counts["fwd"],
                                  **{k: c["fwd"] for k, c in kf_counts.items()},
                                  **{k: c["fwd"] for k, c in vp_counts.items()}, "server": server_counts["fwd"],
-                                 **{f"scale_out_{b}": c["fwd"] for b, c in so_counts.items()}},
+                                 **{f"scale_out_{b}": c["fwd"] for b, c in so_counts.items()},
+                                 **{k: c["fwd"] for k, c in dp_counts.items()}},
             # The served .mp4 request (no ffmpeg: MJPEG .mp4, GIF, npz), counted in "server" too.
             "served_mp4_launches": served_mp4_counts["fwd"],
             # ic-lora's stage 1 over its 1536 tokens and the control's 1536
@@ -7009,8 +7311,10 @@ def main():
             "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941 (_flash_attention_bwd_dkv, "
                         "pallas_call :1121) and :1287 (_flash_attention_bwd_dq, pallas_call :1456); reached from "
                         "ltx2_tpu/ops/attention.py:188",
-            "launches": train_counts["bwd"] + sum(c["bwd"] for c in av_paths.values()),
-            "launches_by_path": {"train": train_counts["bwd"], **{k: c["bwd"] for k, c in av_paths.items()}},
+            "launches": (train_counts["bwd"] + sum(c["bwd"] for c in av_paths.values())
+                         + sum(c["bwd"] for c in dp_counts.values())),
+            "launches_by_path": {"train": train_counts["bwd"], **{k: c["bwd"] for k, c in av_paths.items()},
+                                 **{k: c["bwd"] for k, c in dp_counts.items()}},
             "launches_by_head_dim": {"train": train_counts["bwd_by_head_dim"],
                                      **{k: c["bwd_by_head_dim"] for k, c in av_paths.items()}},
             "max_abs_err": max(r["max_abs_err_grads"] for r in bwd),
@@ -7133,7 +7437,8 @@ def main():
             "cases": w_valid_recs,
         },
     ], "train": {"timing": timing, "gradcheck": gradcheck,
-                  "audio_video": {k: v for k, v in av_train.items() if not k.endswith("_counts")}},
+                  "audio_video": {k: v for k, v in av_train.items() if not k.endswith("_counts")},
+                  "data_parallel": train_dp},
         "bench_e2e": serve, "fp8_step": fp8_step, "checkpoint": checkpoint, "temporal_upscaler": temporal,
         "keyframe_and_ti2vid_hq": keyframe_hq, "video_paths": video_paths, "full_vae": full_vae, "webp": webp,
         "scale_out": scale_out, "stills": stills,

@@ -2996,3 +2996,5 @@ def _apply_reference_compat(args) -> None:
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():  # leave no backend threads running into the interpreter's exit
+        torch.distributed.destroy_process_group()

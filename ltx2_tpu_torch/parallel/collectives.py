@@ -11,20 +11,23 @@ inside shard_map.
 - `broadcast`: one rank's tensor to every rank of the axis (the last
   pipeline stage's output, where the JAX package psums a masked output);
 - `all_gather`: `all_gather(..., tiled=True)` along a tensor dim;
+- `reduce_scatter`: `psum_scatter(..., tiled=True)` along a tensor dim,
+  the sum taken in fp32 (ZeRO-2's gradient exchange);
 - `all_reduce`: `psum`, `dist.all_reduce` on an fp32 copy (every rank gets
   the same reduced bits from the backend);
 - `all_reduce_max`: `pmax`, `dist.all_reduce` with `ReduceOp.MAX`.
 
 Routes, by the world's backend and the tensor's device: "nccl" (CUDA
 tensors), "gloo" (CPU tensors, and CUDA tensors in the collectives, which
-gloo takes on the card) and "gloo_staged" (the point-to-point exchange of
-CUDA tensors under gloo, whose send/recv read host memory only: copied into
-pinned host buffers, exchanged there and copied back; how several ranks
-share one card). The staging is the named route, chosen before the call,
+gloo takes on the card) and "gloo_staged" (the point-to-point exchange and
+the reduce-scatter of CUDA tensors under gloo, which read host memory only:
+copied into pinned host buffers, exchanged there and copied back; how
+several ranks share one card). The staging is the named route, chosen before the call,
 never a fallback after a failure. Exchanges and gathers move their payload
 as its bytes (a uint8 view), so any dtype goes through any backend.
 `STATS` counts each rank's bytes sent and received (for an all-reduce the
-2(n-1)/n of the payload a ring all-reduce moves each way), in all and by
+2(n-1)/n of the payload a ring all-reduce moves each way, for a
+reduce-scatter the (n-1)/n of its input), in all and by
 "operation route", and its calls by operation and by route; `reset_stats`
 zeroes it.
 """
@@ -47,7 +50,8 @@ def reset_stats() -> None:
 
 def route(x: torch.Tensor, axis: Axis, point_to_point: bool = False) -> str:
     """"nccl", "gloo" or "gloo_staged" for an operation on x over `axis`:
-    a collective, or with `point_to_point` a send/recv."""
+    a collective, or with `point_to_point` a send/recv (or another
+    operation gloo takes from host memory only)."""
     if axis.backend == "nccl":
         if x.device.type != "cuda":
             raise ValueError(f"nccl collectives take CUDA tensors, got one on {x.device}")
@@ -219,3 +223,25 @@ def all_reduce_max(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
         return x
     acc = torch.promote_types(x.dtype, torch.float32)
     return _reduce(x, axis, acc, dist.ReduceOp.MAX, "all_reduce_max").to(x.dtype)
+
+
+def reduce_scatter(x: torch.Tensor, axis: Optional[Axis], dim: int) -> torch.Tensor:
+    """This rank's slice along `dim` of the sum of x over the axis's ranks,
+    the slices in axis order (`jax.lax.psum_scatter(..., tiled=True)`),
+    summed in fp32 (float64 stays float64) as `all_reduce` sums. x.shape[dim]
+    must divide by the axis size. Axis None or of size 1: x in that dtype."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    if axis is None or axis.size == 1:
+        return x.to(acc)
+    n = axis.size
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} does not divide over {n} ranks")
+    rt = route(x, axis, point_to_point=True)
+    parts = [c.to(acc, memory_format=torch.contiguous_format, copy=True) for c in x.chunk(n, dim)]
+    if rt == "gloo_staged":  # cast on the card, then a plain copy into pinned memory
+        parts = [_host_buffer(p.numel() * p.element_size()).view(acc).reshape(p.shape).copy_(p) for p in parts]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, op=dist.ReduceOp.SUM, group=axis.group)
+    moved = (n - 1) * out.numel() * out.element_size()
+    _count("reduce_scatter", rt, moved, moved)
+    return out.to(x.device) if out.device != x.device else out

@@ -416,4 +416,8 @@ def serve_http(args, models, ledger, control: Optional[Control] = None) -> None:
 
 
 if __name__ == "__main__":
+    import torch.distributed as dist
+
     main()
+    if dist.is_initialized():  # leave no backend threads running into the interpreter's exit
+        dist.destroy_process_group()

@@ -1,12 +1,15 @@
-"""Fine-tune the DiT with rectified flow on one GPU.
+"""Fine-tune the DiT with rectified flow on one GPU, or data-parallel on
+several ranks.
 
-The single-device surface of the JAX package's `scripts/train.py`: random
+The surface of the JAX package's `scripts/train.py`: random
 weights from `--seed` or a reference-format `--checkpoint`, LoRA adapters
 (`--lora-rank`) or a trainable regex (`--trainable`), AdamW with global-norm
 clipping, an optional LR warmup/decay, EMA, a held-out validation loss
 (`--val-fraction` or `--val-data`), per-block remat, joint audio-video
 training (`--audio`), the fp8 frozen base (`--fp8-serving`) and exact
-mid-run resume (`--save-state`, `--save-every`, `--resume`). Every attention
+mid-run resume (`--save-state`, `--save-every`, `--resume`), and data
+parallelism over `--dp-devices` ranks with the Adam moments (`--zero1`)
+and the gradients too (`--zero2`) sharded over 'data'. Every attention
 call of the forward, the remat recompute and the backward runs on the
 hand-written flash-attention kernels.
 
@@ -25,6 +28,15 @@ seconds and an 8-token audio context), drawn as scripts/train.py draws it.
     python -m ltx2_tpu_torch.train --audio --fp8-serving --data av.npz --lora-rank 16 --steps 100 \\
         --save-state state.safetensors --save-every 50
     python -m ltx2_tpu_torch.train ... --resume state.safetensors
+    torchrun --nproc-per-node 2 -m ltx2_tpu_torch.train --dp-devices 2 --zero2 --dist-backend gloo \\
+        --synthetic 16 16 24 --batch-size 2 --lora-rank 16 --steps 3
+
+Data parallelism runs one process per rank (torchrun, or
+`parallel.runtime.spawn_ranks`); `--dp-devices` must equal the world, and
+ranks that share one card name `--dist-backend gloo`. Every rank draws the
+same batch indices, sigmas and noise, takes its share of the rows of each
+microbatch, and holds the same parameters after every step; rank 0 alone
+logs and writes `--save` and `--save-state`.
 
 The model is the full-width LTX-2.0 DiT (`--layers` blocks, 48 by default;
 with `--audio` the audio-video one); `--placeholder` takes scripts/train.py's
@@ -36,8 +48,9 @@ checkpoint through `ModelLedger` (bf16, or its fp8 weights kept with
 dataset has its audio branch frozen. `--save` writes, with `--lora-rank`,
 the adapters as a reference-format LoRA file (`generate.py --lora` fuses it
 back), otherwise the trained DiT as a reference-format checkpoint carrying
-the source checkpoint's other tensors and metadata. Not ported: the
-TP/DP/ZeRO/FSDP mesh flags (they raise).
+the source checkpoint's other tensors and metadata. Not ported
+(ROADMAP.md §1, item 5b): `--tp-devices` (Megatron-TP training) and
+`--fsdp` (ZeRO-3); they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -59,6 +72,8 @@ from ltx2_tpu_torch.loader.safetensors_io import read_metadata
 from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelConfig
 from ltx2_tpu_torch.ops.attention import KERNEL_HEAD_DIMS
 from ltx2_tpu_torch.ops.rope import create_position_grid
+from ltx2_tpu_torch.parallel.mesh import axis_of, create_mesh
+from ltx2_tpu_torch.parallel.runtime import initialize_distributed, world
 from ltx2_tpu_torch.training import (
     TrainBatch,
     TrainConfig,
@@ -70,6 +85,8 @@ from ltx2_tpu_torch.training import (
     make_optimizer,
     make_train_step,
     trainable_mask,
+    zero1_opt_state_shardings,
+    zero2_grad_shardings,
 )
 from ltx2_tpu_torch.training.checkpoint import load_train_state, save_train_state
 from ltx2_tpu_torch.training.lora import add_lora_params_, export_lora_checkpoint, lora_trainable_mask
@@ -89,8 +106,8 @@ BENCH_SHAPE, BENCH_CONTEXT_TOKENS = (16, 16, 24), 1024
 BENCH_FRAMES, BENCH_AUDIO_TEXT_VALID = 121, 700
 VIDEO_KEYS = ("x0", "positions", "context")
 AUDIO_KEYS = ("audio_x0", "audio_positions", "audio_context", "audio_context_mask")
-# The JAX CLI's multi-device flags, refused: the port trains on one device.
-MESH_FLAGS = ("tp_devices", "dp_devices", "zero1", "zero2", "fsdp")
+# The JAX CLI's mesh flags that are not ported yet (ROADMAP.md §1, item 5b).
+UNPORTED_MESH_FLAGS = ("tp_devices", "fsdp")
 
 Arrays = Dict[str, np.ndarray]
 
@@ -142,10 +159,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--val-data", type=str, default=None,
                    help="a separate .npz (the same arrays as --data) used only for the validation loss")
     p.add_argument("--eval-every", type=int, default=50)
-    p.add_argument("--tp-devices", type=int, default=0, help="not ported (one device)")
-    p.add_argument("--dp-devices", type=int, default=0, help="not ported (one device)")
-    for flag in ("--zero1", "--zero2", "--fsdp"):
-        p.add_argument(flag, action="store_true", help="not ported (one device)")
+    p.add_argument("--dp-devices", type=int, default=0,
+                   help="data parallelism over this many ranks (the whole world; one process per rank); each "
+                        "rank takes its share of every microbatch, the gradients are averaged over 'data'")
+    p.add_argument("--zero1", action="store_true",
+                   help="shard the Adam moments over the 'data' axis (ZeRO-1): per-rank optimizer memory ~1/dp")
+    p.add_argument("--zero2", action="store_true",
+                   help="also reduce-scatter the gradients into each rank's slice (ZeRO-2; implies --zero1)")
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="torch.distributed backend (default: nccl when every rank has a card of its own, gloo on "
+                        "the CPU); gloo lets ranks share one card")
+    p.add_argument("--dist-init", default=None,
+                   help="the process group's init method (default env://, torchrun's environment)")
+    p.add_argument("--tp-devices", type=int, default=0, help="Megatron-TP training: not ported")
+    p.add_argument("--fsdp", action="store_true", help="ZeRO-3 / FSDP: not ported")
     return p
 
 
@@ -362,14 +389,27 @@ def select_trainable(model: LTXModel, args, device: torch.device) -> Tuple[list,
 
 
 def _log(rec: dict) -> None:
-    print(json.dumps(rec), flush=True)
+    if world()[0] == 0:  # rank 0 speaks for the data-parallel ranks
+        print(json.dumps(rec), flush=True)
 
 
 def _check_args(args) -> None:
-    for flag in MESH_FLAGS:
+    for flag in UNPORTED_MESH_FLAGS:
         if getattr(args, flag):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported: the port trains on one device "
-                                      "(ROADMAP.md §1, \"Scale-out\")")
+            raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported: Megatron-TP and ZeRO-3/FSDP "
+                                      "training wait for ROADMAP.md §1, item 5b")
+    dp = max(args.dp_devices, 1)
+    if dp > 1 and args.batch_size % dp != 0:
+        raise SystemExit(f"--batch-size {args.batch_size} must be divisible by --dp-devices {dp} (each data shard "
+                         "takes batch/dp samples)")
+    if args.zero1 or args.zero2:
+        which = "--zero2" if args.zero2 else "--zero1"
+        if dp <= 1:
+            raise SystemExit(f"{which} needs --dp-devices > 1 (a 'data' axis to shard over)")
+    if dp > 1 and args.batch_size % args.accum_steps == 0 and (args.batch_size // args.accum_steps) % dp:
+        raise SystemExit(f"--batch-size {args.batch_size} / --accum-steps {args.accum_steps} leaves microbatches "
+                         f"of {args.batch_size // args.accum_steps} samples, not divisible by --dp-devices {dp} "
+                         "(each rank takes its share of every microbatch)")
     if args.grad_clip < 0:
         raise SystemExit("--grad-clip must be >= 0 (0 disables clipping)")
     if args.ema_decay and not 0.0 < args.ema_decay < 1.0:
@@ -383,13 +423,32 @@ def _check_args(args) -> None:
         raise SystemExit("--save-every must be >= 1")
 
 
+def _data_axis(args):
+    """--dp-devices: join the world (its ranks already launched) and return
+    the 'data' axis over every rank; None on one device."""
+    dp = max(args.dp_devices, 1)
+    if dp == 1:
+        return None
+    initialize_distributed(init_method=args.dist_init, backend=args.dist_backend, device=args.device)
+    _, n_world = world()
+    if n_world < dp:
+        raise SystemExit(f"--dp-devices needs {dp} devices but only {n_world} ranks in the world")
+    if n_world != dp:
+        raise SystemExit(f"--dp-devices uses {dp} of the world's {n_world} ranks: the DiT's layout must use every "
+                         "rank")
+    return axis_of(create_mesh(data=dp, model=1), "data")
+
+
 def main(argv=None, on_step: Optional[Callable[[int, LTXModel, float], None]] = None) -> dict:
     """Train per the flags; returns {"model", "optimizer", "ema",
     "trainable", "adapters", "losses", "step_s", "val_losses", "start",
-    "state_save_s", "state_load_s"}. `on_step(i, model, loss)` runs after
-    every optimizer step."""
+    "state_save_s", "state_load_s", "rank", "world", "moment_bytes",
+    "grad_bytes"} (`grad_bytes`: what the last update read, the rank's
+    slices under --zero2). `on_step(i, model, loss)` runs after every
+    optimizer step, on every rank."""
     args = build_parser().parse_args(argv)
     _check_args(args)
+    data_axis = _data_axis(args)
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -421,12 +480,20 @@ def main(argv=None, on_step: Optional[Callable[[int, LTXModel, float], None]] = 
         warmup_steps=args.warmup_steps, lr_schedule=args.lr_schedule, total_steps=args.steps,
     )
     optimizer = make_optimizer(tc, params)
-    step = make_train_step(model, optimizer, tc, accum_steps=args.accum_steps)
+    layout = None
+    if args.zero1 or args.zero2:
+        layout = (zero2_grad_shardings if args.zero2 else zero1_opt_state_shardings)(params, data_axis)
+    step = make_train_step(model, optimizer, tc, accum_steps=args.accum_steps, data_axis=data_axis,
+                           opt_state_shardings=layout, grad_shardings=layout if args.zero2 else None)
+    if data_axis is not None:
+        _log({"data_parallel": data_axis.size, "zero": 2 if args.zero2 else 1 if args.zero1 else 0,
+              "sharded_tensors": sum(d is not None for d in optimizer.shard_dims),
+              "moment_bytes_per_rank": optimizer.moment_bytes()})
     ema = ema_update = None
     if args.ema_decay:
         ema, ema_update = init_ema(params), make_ema_update(args.ema_decay)
 
-    eval_step, val_losses = make_eval_step(model, tc), []
+    eval_step, val_losses = make_eval_step(model, tc, data_axis), []
 
     def eval_loss() -> float:
         vbs = args.batch_size
@@ -479,11 +546,16 @@ def main(argv=None, on_step: Optional[Callable[[int, LTXModel, float], None]] = 
         with torch.no_grad():
             for p, e in zip(params, ema_params(ema, params)):
                 p.copy_(e)
-    if args.save:
+    rank, n_world = world()
+    if args.save and rank == 0:
         save(args, model)
-    return {"model": model, "optimizer": optimizer, "ema": ema, "trainable": names, "adapters": n_adapters, "losses": losses, "step_s": step_s,
-            "val_losses": val_losses, "start": start, "state_save_s": state_save_s, "state_load_s": state_load_s}
+    return {"model": model, "optimizer": optimizer, "ema": ema, "trainable": names, "adapters": n_adapters,
+            "losses": losses, "step_s": step_s, "val_losses": val_losses, "start": start,
+            "state_save_s": state_save_s, "state_load_s": state_load_s, "rank": rank, "world": n_world,
+            "moment_bytes": optimizer.moment_bytes(), "grad_bytes": step.stats["grad_bytes"]}
 
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():  # leave no backend threads running into the interpreter's exit
+        torch.distributed.destroy_process_group()

@@ -17,6 +17,12 @@ name, shape and dtype, so another configuration (another LoRA rank, another
 `--trainable` regex, EMA on or off) fails loudly instead of loading
 tensors into the wrong places. The write goes to `path + ".tmp"` and is
 renamed over `path`, so a crash mid-save leaves the previous state whole.
+
+Under ZeRO (AdamW's moments sharded over 'data') every rank calls
+`save_train_state`: the moments' slices are all-gathered one tensor at a
+time and rank 0 writes the same file world 1 writes, whole arrays as the
+JAX state holds them (`device_get`); `load_train_state` takes each rank's
+slice of it. So a state saved at one world size resumes at another.
 """
 
 from __future__ import annotations
@@ -29,40 +35,58 @@ import torch
 import torch.nn as nn
 
 from ltx2_tpu_torch.loader.safetensors_io import SafetensorsFile, write_safetensors_streaming
+from ltx2_tpu_torch.parallel import collectives
+from ltx2_tpu_torch.parallel.runtime import world
 from ltx2_tpu_torch.training.trainer import AdamW
 
-StateEntry = Tuple[str, torch.Tensor]
+# (key, live tensor, the whole tensor's shape, the optimizer's index of the
+# parameter whose moment this rank holds a slice of, or None)
+StateEntry = Tuple[str, torch.Tensor, Tuple[int, ...], Optional[int]]
 
 
 def _entries(model: nn.Module, optimizer: AdamW, ema: Optional[Sequence[torch.Tensor]]) -> List[StateEntry]:
-    """(key, live tensor) of everything the state holds, in a fixed order."""
+    """Everything the state holds, in a fixed order."""
     by_id = {id(p): name for name, p in model.named_parameters()}
     names = [by_id.get(id(p)) for p in optimizer.params]
     if None in names:
         raise ValueError("train state: the optimizer holds a tensor that is not a parameter of the model")
-    out = [(f"param.{n}", p) for n, p in zip(names, optimizer.params)]
-    out += [(f"adam.mu.{n}", m) for n, m in zip(names, optimizer.mu)]
-    out += [(f"adam.nu.{n}", v) for n, v in zip(names, optimizer.nu)]
+    shapes = [tuple(p.shape) for p in optimizer.params]
+    out = [(f"param.{n}", p, s, None) for n, p, s in zip(names, optimizer.params, shapes)]
+    for kind, moments in (("mu", optimizer.mu), ("nu", optimizer.nu)):
+        out += [(f"adam.{kind}.{n}", m, s, None if d is None else i)
+                for i, (n, m, s, d) in enumerate(zip(names, moments, shapes, optimizer.shard_dims))]
     if ema is not None:
-        out += [(f"ema.{n}", e) for n, e in zip(names, ema)]
+        out += [(f"ema.{n}", e, s, None) for n, e, s in zip(names, ema, shapes)]
     return out
 
 
 def _fingerprint(entries: Sequence[StateEntry]) -> str:
-    """A hash of every key, shape and dtype of the state, in order."""
-    spec = "\n".join(f"{k}:{tuple(t.shape)}:{t.dtype}" for k, t in entries)
+    """A hash of every key, whole shape and dtype of the state, in order."""
+    spec = "\n".join(f"{k}:{shape}:{t.dtype}" for k, t, shape, _ in entries)
     return hashlib.sha256(spec.encode()).hexdigest()[:16]
 
 
 def save_train_state(path: str, step: int, model: nn.Module, optimizer: AdamW,
                      ema: Optional[Sequence[torch.Tensor]] = None, metadata: Optional[Dict[str, str]] = None) -> None:
     """Atomically write (step, trainable tensors, AdamW's moments and
-    count, EMA) to `path`; `step` is the index of the next step to run."""
+    count, EMA) to `path`; `step` is the index of the next step to run.
+    With sharded moments every rank calls it (each moment is gathered
+    whole as the writer reaches it) and rank 0 alone writes."""
     entries = _entries(model, optimizer, ema)
     meta = dict(metadata or {})
     meta.update(train_state_step=str(int(step)), train_state_adam_count=str(int(optimizer.count)),
                 train_state_fingerprint=_fingerprint(entries))
-    specs = [(k, t.dtype, tuple(t.shape), (lambda t=t: t.detach())) for k, t in entries]
+
+    def whole(t: torch.Tensor, i: Optional[int]) -> torch.Tensor:
+        return t.detach() if i is None else collectives.all_gather(t.detach(), optimizer.axis,
+                                                                   optimizer.shard_dims[i])
+
+    specs = [(k, t.dtype, shape, (lambda t=t, i=i: whole(t, i))) for k, t, shape, i in entries]
+    if world()[0] != 0:  # join the gathers in the writer's order; write nothing
+        for _, t, _, i in entries:
+            if i is not None:
+                whole(t, i)
+        return
     tmp = path + ".tmp"
     write_safetensors_streaming(tmp, specs, metadata=meta)
     os.replace(tmp, path)
@@ -73,8 +97,9 @@ def load_train_state(path: str, model: nn.Module, optimizer: AdamW,
                      ema: Optional[Sequence[torch.Tensor]] = None) -> int:
     """Restore a `save_train_state` file in place into the parameters,
     AdamW and the EMA of the current configuration (each tensor copied onto
-    its live tensor's device); returns the step to run next. Raises
-    ValueError when the file was saved under another configuration."""
+    its live tensor's device; a sharded moment takes this rank's slice);
+    returns the step to run next. Raises ValueError when the file was saved
+    under another configuration."""
     entries = _entries(model, optimizer, ema)
     f = SafetensorsFile(path)
     try:
@@ -83,14 +108,14 @@ def load_train_state(path: str, model: nn.Module, optimizer: AdamW,
             raise ValueError(
                 f"train state {path} was saved under a different configuration (fingerprint {got} != {want}): "
                 "check that --trainable, --lora-rank and --ema-decay match the original run")
-        for key, live in entries:
+        for key, live, shape, i in entries:
             if key not in f:
                 raise ValueError(f"train state {path} is missing {key}")
             stored = f.get(key)
-            if stored.dtype != live.dtype or tuple(stored.shape) != tuple(live.shape):
+            if stored.dtype != live.dtype or tuple(stored.shape) != shape:
                 raise ValueError(f"train state {key}: stored {stored.dtype}{tuple(stored.shape)} vs the current "
-                                 f"configuration's {live.dtype}{tuple(live.shape)}")
-            live.copy_(stored)
+                                 f"configuration's {live.dtype}{shape}")
+            live.copy_(stored if i is None else optimizer.local(i, stored))
         optimizer.count = int(f.metadata["train_state_adam_count"])
         return int(f.metadata["train_state_step"])
     finally:

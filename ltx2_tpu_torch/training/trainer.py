@@ -1,5 +1,5 @@
-"""Rectified-flow fine-tuning of the DiT on one device (counterpart of
-ltx2_tpu/training/trainer.py).
+"""Rectified-flow fine-tuning of the DiT on one device or data-parallel over
+the ranks of a 'data' mesh axis (counterpart of ltx2_tpu/training/trainer.py).
 
 Objective (rectified flow / flow matching): x_sigma = (1 - sigma) * x0 +
 sigma * noise, and the DiT predicts the velocity v = noise - x0; the loss is
@@ -19,8 +19,20 @@ What replaces the JAX machinery:
   decoupled weight decay, the learning rate of the step before the update).
 - `jax.random` keys -> explicit `torch.Generator`s.
 - Remat is `LTXModelConfig.remat` (per-block `torch.utils.checkpoint`).
-Not ported yet: the ZeRO-1/2/3 and FSDP sharding arguments of
-`make_train_step` (they raise NotImplementedError).
+- GSPMD's data parallelism -> one process per rank (parallel/runtime.py):
+  `make_train_step(..., data_axis=)` gives each rank its rows of every
+  microbatch, averages the gradients over 'data' after the backward
+  (`collectives.all_reduce`, fp32) and the loss over the ranks.
+- The ZeRO shardings -> the shard dim of each trainable parameter, or None
+  (`zero1_opt_state_shardings`, `zero2_grad_shardings`: the rule of
+  `_data_extended_sharding` without its TP part, on each block's own
+  dims). ZeRO-1: AdamW keeps its moments for this rank's slice, updates
+  the slice and all-gathers the updated bf16 bits, so every rank holds the
+  same parameters. ZeRO-2: each gradient is reduce-scattered into this
+  rank's slice as the backward produces it, the full-size `.grad` freed.
+Not ported yet (ROADMAP.md §1, item 5b): ZeRO-3/FSDP (`param_shardings`)
+and training under tensor or sequence parallelism; they raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,6 +46,8 @@ import torch
 import torch.nn as nn
 
 from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelType, Modality, ltx_model_apply
+from ltx2_tpu_torch.parallel import collectives
+from ltx2_tpu_torch.parallel.mesh import Axis
 
 
 @dataclasses.dataclass
@@ -93,6 +107,24 @@ def _sample_sigmas(generator: Optional[torch.Generator], batch: int, tc: TrainCo
     return torch.sigmoid(z)
 
 
+def draw_noise(batch: TrainBatch, generator: Optional[torch.Generator], tc: TrainConfig,
+               sigmas: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+               audio_noise: Optional[torch.Tensor] = None):
+    """(sigmas (B,), noise (B, N, C), audio_noise (B, Na, Ca) or None) in
+    fp32 for every row of `batch`: each one given, or drawn from `generator`
+    in that order. A data-parallel step draws them whole on every rank and
+    takes its own rows, so the ranks and world 1 draw the same numbers."""
+    x0 = batch.x0
+    b, device = x0.shape[0], x0.device
+    if sigmas is None:
+        sigmas = _sample_sigmas(generator, b, tc, device)
+    if noise is None:
+        noise = torch.randn(x0.shape, generator=generator, device=device)
+    if batch.audio_x0 is not None and audio_noise is None:
+        audio_noise = torch.randn(batch.audio_x0.shape, generator=generator, device=device)
+    return sigmas.float(), noise.float(), None if audio_noise is None else audio_noise.float()
+
+
 def rectified_flow_loss(
     model: LTXModel,
     batch: TrainBatch,
@@ -110,16 +142,10 @@ def rectified_flow_loss(
     the per-sample sigma and the loss is the sum of their MSEs."""
     cfg = model.cfg
     x0 = batch.x0.float()
-    b, device = x0.shape[0], x0.device
-    if sigmas is None:
-        sigmas = _sample_sigmas(generator, b, tc, device)
-    sigmas = sigmas.float()
+    sigmas, noise, audio_noise = draw_noise(batch, generator, tc, sigmas, noise, audio_noise)
     s = sigmas[:, None, None]
 
-    def noised(x0: torch.Tensor, eps: Optional[torch.Tensor]):
-        if eps is None:
-            eps = torch.randn(x0.shape, generator=generator, device=device)
-        eps = eps.float()
+    def noised(x0: torch.Tensor, eps: torch.Tensor):
         return eps, ((1.0 - s) * x0 + s * eps).to(cfg.dtype)
 
     noise, x_sigma = noised(x0, noise)
@@ -220,11 +246,48 @@ def learning_rate_schedule(tc: TrainConfig) -> Union[float, Callable[[int], floa
 ADAM_EPS = 1e-8  # optax.adamw's default, which the JAX trainer uses
 
 
+def data_shard_dim(shape: Sequence[int], size: int) -> Optional[int]:
+    """The dim a tensor of `shape` shards over a 'data' axis of `size`
+    ranks: the first at least `size` long that divides by it, where
+    `_data_extended_sharding` (ltx2_tpu/training/trainer.py) puts 'data'
+    when no TP spec holds a dim; None (kept whole) where no dim does, or at
+    size 1."""
+    if size > 1:
+        for i, n in enumerate(shape):
+            if n >= size and n % size == 0:
+                return i
+    return None
+
+
+def zero1_opt_state_shardings(params: Sequence[torch.Tensor], axis: Optional[Axis]) -> List[Optional[int]]:
+    """ZeRO-1: for each trainable parameter, the dim its Adam moments shard
+    over the 'data' `axis` (None: kept whole). Hand it with the axis to
+    `make_train_step(opt_state_shardings=..., data_axis=axis)`: AdamW then
+    keeps `mu` and `nu` for this rank's slice (1/D of their bytes), updates
+    the slice from the all-reduced gradient and all-gathers the updated
+    slices. The JAX package stacks the blocks into (L, ...) leaves and may
+    put 'data' on L; the port's blocks are separate modules, so the rule
+    runs on each block's own dims."""
+    size = 1 if axis is None else axis.size
+    return [data_shard_dim(tuple(p.shape), size) for p in params]
+
+
+def zero2_grad_shardings(params: Sequence[torch.Tensor], axis: Optional[Axis]) -> List[Optional[int]]:
+    """ZeRO-2: the same layout for the gradients. Hand it to
+    `make_train_step(grad_shardings=..., data_axis=axis)` (the moments take
+    it too): each gradient is reduce-scattered into this rank's slice as the
+    backward produces it, and under accumulation the fp32 accumulator holds
+    the slice only."""
+    return zero1_opt_state_shardings(params, axis)
+
+
 class AdamW:
     """optax.chain(clip_by_global_norm(tc.grad_clip_norm), adamw(schedule,
     b1, b2, eps=1e-8, weight_decay)) over `params`, updated in place from
-    their `.grad` (which `step` then clears). Moments are kept in the
-    parameters' dtype, as optax keeps them."""
+    the gradients handed to `step` or their `.grad` (which `step` then
+    clears). Moments are kept in the parameters' dtype, as optax keeps
+    them; after `shard_` (ZeRO-1), for this rank's slice of each sharded
+    parameter only."""
 
     def __init__(self, params: Sequence[torch.Tensor], tc: TrainConfig):
         self.params = list(params)
@@ -235,19 +298,74 @@ class AdamW:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+        self.axis: Optional[Axis] = None
+        self.shard_dims: List[Optional[int]] = [None] * len(self.params)
 
     def learning_rate(self, count: int) -> float:
         return self.schedule(count) if callable(self.schedule) else self.schedule
 
+    def shard_(self, dims: Sequence[Optional[int]], axis: Axis) -> None:
+        """ZeRO-1: keep the moments of this rank's slice of each parameter
+        along its dim in `dims` (None: whole) over the 'data' `axis`."""
+        if self.axis is not None:
+            raise ValueError("AdamW: the moments are sharded already")
+        if len(dims) != len(self.params):
+            raise ValueError(f"AdamW: {len(dims)} shard dims for {len(self.params)} parameters")
+        if any(d is not None for d in dims) and (axis is None or axis.size < 2):
+            raise ValueError("AdamW: sharded moments need a 'data' axis of more than one rank")
+        self.axis, self.shard_dims = axis, list(dims)
+        self.mu = [self.local(i, m).clone() for i, m in enumerate(self.mu)]
+        self.nu = [self.local(i, v).clone() for i, v in enumerate(self.nu)]
+
+    def local(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """This rank's slice (a view) of x, a tensor shaped as parameter i,
+        along the parameter's shard dim; x itself where it is not sharded."""
+        d = self.shard_dims[i]
+        if d is None:
+            return x
+        k = x.shape[d] // self.axis.size
+        return x.narrow(d, self.axis.index * k, k)
+
+    def moment_bytes(self) -> int:
+        """This rank's bytes of mu and nu."""
+        return sum(t.numel() * t.element_size() for t in (*self.mu, *self.nu))
+
+    def _global_norm(self, grads: List[torch.Tensor], sharded_grads: bool) -> torch.Tensor:
+        if not (sharded_grads and any(d is not None for d in self.shard_dims)):
+            return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        # ZeRO-2: the slices' squares summed over 'data', each whole leaf
+        # (the same on every rank) counted once.
+        def squares(gs: List[torch.Tensor]) -> torch.Tensor:
+            if not gs:
+                return torch.zeros((), device=grads[0].device)
+            return torch.stack(torch._foreach_norm(gs, 2, dtype=torch.float32)).square().sum()
+
+        parts = [g for g, d in zip(grads, self.shard_dims) if d is not None]
+        whole = [g for g, d in zip(grads, self.shard_dims) if d is None]
+        return (collectives.all_reduce(squares(parts), self.axis) + squares(whole)).sqrt()
+
     @torch.no_grad()
-    def step(self) -> None:
+    def step(self, grads: Optional[List[torch.Tensor]] = None, sharded_grads: bool = False) -> None:
+        """One update from `grads` (each parameter's gradient; default its
+        `.grad`, zeros where None). With `sharded_grads` (ZeRO-2) the
+        gradient of each sharded parameter is this rank's slice."""
         tc = self.tc
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+        if grads is None:
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+        grads = list(grads)
         if tc.grad_clip_norm is not None:
-            g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            g_norm = self._global_norm(grads, sharded_grads)
             clipped = torch._foreach_mul(torch._foreach_div(grads, g_norm), tc.grad_clip_norm)
             keep = g_norm < tc.grad_clip_norm
             grads = [torch.where(keep, g, c) for g, c in zip(grads, clipped)]
+        # Sharded moments: the update of this rank's slice (a view where the
+        # slice is contiguous, else a copy), gathered below.
+        sharded = [i for i, d in enumerate(self.shard_dims) if d is not None]
+        targets = list(self.params)
+        for i in sharded:
+            targets[i] = self.local(i, self.params[i]).contiguous()
+            if not sharded_grads:
+                grads[i] = self.local(i, grads[i]).contiguous()
         lr = self.learning_rate(self.count)
         self.count += 1
         torch._foreach_mul_(self.mu, tc.b1)
@@ -260,8 +378,10 @@ class AdamW:
         torch._foreach_add_(den, ADAM_EPS)
         updates = torch._foreach_div(mu_hat, den)
         if tc.weight_decay:
-            torch._foreach_add_(updates, self.params, alpha=tc.weight_decay)
-        torch._foreach_add_(self.params, updates, alpha=-lr)
+            torch._foreach_add_(updates, targets, alpha=tc.weight_decay)
+        torch._foreach_add_(targets, updates, alpha=-lr)
+        for i in sharded:  # the updated bits of every slice, so every rank holds the same parameters
+            self.params[i].copy_(collectives.all_gather(targets[i], self.axis, self.shard_dims[i]))
         for p in self.params:
             p.grad = None
 
@@ -272,26 +392,126 @@ def make_optimizer(tc: TrainConfig, params: Sequence[torch.Tensor]) -> AdamW:
     return AdamW(params, tc)
 
 
+def _rows_loss(model: LTXModel, batch: TrainBatch, generator: Optional[torch.Generator], tc: TrainConfig,
+               rows: slice, given=(None, None, None)) -> torch.Tensor:
+    """The loss over `rows` of `batch`, the sigmas and noise drawn (or
+    `given`) for every row of it first."""
+    draws = draw_noise(batch, generator, tc, *given)
+    return rectified_flow_loss(model, batch.map(lambda x: x[rows]), None, tc,
+                               *(None if x is None else x[rows] for x in draws))
+
+
+class _Gradients:
+    """Where a step's gradients gather. One microbatch without ZeRO-2: each
+    parameter's `.grad`, averaged over 'data' after the backward. Otherwise
+    post-accumulate hooks take each `.grad` as the backward produces it and
+    free it: under accumulation into an fp32 accumulator (JAX's
+    `_accumulated_value_and_grad`), under ZeRO-2 reduce-scattered first, so
+    that the store holds this rank's slice of each sharded parameter (in
+    the parameter's dtype for one microbatch)."""
+
+    def __init__(self, optimizer: AdamW, axis: Optional[Axis], accum_steps: int, zero2: bool):
+        self.opt, self.axis, self.accum, self.zero2 = optimizer, axis, accum_steps, zero2
+        self.size = 1 if axis is None else axis.size
+        self.hooked = zero2 or accum_steps > 1
+        self.store: List[Optional[torch.Tensor]] = [None] * len(optimizer.params)
+        self.active = False
+        if self.hooked:
+            for i, p in enumerate(optimizer.params):
+                p.register_post_accumulate_grad_hook(lambda p, i=i: self._take(i, p))
+
+    def _take(self, i: int, p: torch.Tensor) -> None:
+        if not self.active:
+            return
+        g, p.grad = p.grad, None
+        prev = self.store[i]
+        if self.zero2:
+            d = self.opt.shard_dims[i]
+            g = collectives.all_reduce(g, self.axis) if d is None else collectives.reduce_scatter(g, self.axis, d)
+            if self.accum == 1:  # this rank's slice of the mean gradient, in the parameter's dtype
+                g = g / self.size
+                self.store[i] = (g if prev is None else prev.float() + g).to(p.dtype)
+                return
+        else:
+            g = g.float()
+        if prev is None:
+            self.store[i] = g
+        else:
+            prev.add_(g)
+
+    def nbytes(self) -> int:
+        """The bytes of gradient the update will read, before any reduce."""
+        held = self.store if self.hooked else [p.grad for p in self.opt.params]
+        return sum(g.numel() * g.element_size() for g in held if g is not None)
+
+    def finish(self) -> List[torch.Tensor]:
+        """The update's gradients: the mean over the microbatches and the
+        ranks, in each parameter's dtype (ZeRO-2: this rank's slices)."""
+        opt, n = self.opt, self.size * self.accum
+        if not self.hooked:
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in opt.params]
+            if self.size > 1:
+                grads = [(collectives.all_reduce(g, self.axis) / self.size).to(g.dtype) for g in grads]
+            return grads
+        grads = []
+        for i, p in enumerate(opt.params):
+            g, self.store[i] = self.store[i], None
+            if g is None:
+                g = torch.zeros_like(opt.local(i, p) if self.zero2 else p)
+            elif self.accum > 1:
+                if not self.zero2 and self.size > 1:
+                    g = collectives.all_reduce(g, self.axis)
+                g = (g * (1.0 / n)).to(p.dtype)
+            grads.append(g)
+        return grads
+
+
 def make_train_step(
     model: LTXModel,
     optimizer: AdamW,
     tc: TrainConfig = TrainConfig(),
     accum_steps: int = 1,
-    opt_state_shardings=None,
-    grad_shardings=None,
+    opt_state_shardings: Optional[Sequence[Optional[int]]] = None,
+    grad_shardings: Optional[Sequence[Optional[int]]] = None,
     param_shardings=None,
+    data_axis: Optional[Axis] = None,
 ):
     """One step `(batch, generator, sigmas=None, noise=None, audio_noise=None)
-    -> loss`: loss, backward, optimizer update, on one device.
+    -> loss`: loss, backward, optimizer update.
 
     accum_steps > 1: the batch's leading dim splits into `accum_steps`
-    microbatches whose mean gradient feeds ONE update (each microbatch's
-    backward adds into the fp32 `.grad` of the trainable parameters).
-    The ZeRO / FSDP sharding arguments of the JAX step are not ported."""
-    for name, value in (("opt_state_shardings", opt_state_shardings), ("grad_shardings", grad_shardings),
-                        ("param_shardings", param_shardings)):
-        if value is not None:
-            raise NotImplementedError(f"{name}: ZeRO/FSDP sharding is not ported; the port trains on one device")
+    microbatches whose mean gradient, accumulated in fp32 as the JAX step
+    accumulates it, feeds ONE update.
+
+    data_axis, a 'data' mesh `Axis` of D ranks (every rank calls the step
+    with the same whole batch and generator): each rank takes its D-th of
+    the rows of every microbatch, the sigmas and noise drawn for the whole
+    microbatch (world 1's numbers); the gradients are averaged over 'data'
+    in fp32 after the backward, and the loss returned is the mean over the
+    ranks. opt_state_shardings (ZeRO-1, `zero1_opt_state_shardings`) shards
+    the optimizer's moments; grad_shardings (ZeRO-2, `zero2_grad_shardings`;
+    the moments take the same layout) reduce-scatters each gradient as the
+    backward produces it. param_shardings (ZeRO-3/FSDP) and a model under
+    tensor or sequence parallelism raise NotImplementedError.
+
+    `step.stats["grad_bytes"]`: the bytes of gradient the last update read
+    (full-size `.grad`s, the fp32 accumulator, or ZeRO-2's slices)."""
+    if param_shardings is not None:
+        raise NotImplementedError("param_shardings: ZeRO-3/FSDP training is not ported (ROADMAP.md §1, item 5b)")
+    for name in ("tp_axis", "sequence_axis"):
+        axis = getattr(model.cfg, name, None)
+        if axis is not None and axis.size > 1:
+            raise NotImplementedError(f"{name}: training under tensor or sequence parallelism is not ported "
+                                      "(ROADMAP.md §1, item 5b)")
+    if grad_shardings is not None:
+        if opt_state_shardings is not None and list(opt_state_shardings) != list(grad_shardings):
+            raise ValueError("ZeRO-2: the moments take the gradients' layout; pass one layout")
+        opt_state_shardings = grad_shardings
+    size, index = (1, 0) if data_axis is None else (data_axis.size, data_axis.index)
+    if opt_state_shardings is not None:
+        optimizer.shard_(opt_state_shardings, data_axis)
+    grads = _Gradients(optimizer, data_axis, accum_steps, zero2=grad_shardings is not None and size > 1)
+    stats = {"grad_bytes": 0}
 
     def step(batch: TrainBatch, generator: Optional[torch.Generator] = None,
              sigmas: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
@@ -300,18 +520,27 @@ def make_train_step(
         if b % accum_steps:
             raise ValueError(f"batch {b} must divide --accum-steps {accum_steps}")
         mb = b // accum_steps
+        if mb % size:
+            raise ValueError(f"a microbatch of {mb} rows (batch {b} / --accum-steps {accum_steps}) does not divide "
+                             f"over the {size} ranks of 'data'")
+        own = slice(index * (mb // size), (index + 1) * (mb // size))
         total = torch.zeros((), device=batch.x0.device)
-        for i in range(accum_steps):
-            part = slice(i * mb, (i + 1) * mb)
-            loss = rectified_flow_loss(
-                model, batch.map(lambda x: x[part]), generator, tc,
-                *(None if x is None else x[part] for x in (sigmas, noise, audio_noise)),
-            )
-            (loss / accum_steps).backward()
-            total += loss.detach()
-        optimizer.step()
-        return total / accum_steps
+        grads.active = True
+        try:
+            for i in range(accum_steps):
+                part = slice(i * mb, (i + 1) * mb)
+                loss = _rows_loss(model, batch.map(lambda x: x[part]), generator, tc, own,
+                                  [None if x is None else x[part] for x in (sigmas, noise, audio_noise)])
+                loss.backward()
+                total += loss.detach()
+        finally:
+            grads.active = False
+        stats["grad_bytes"] = grads.nbytes()
+        optimizer.step(grads.finish(), sharded_grads=grads.zero2)
+        loss = total / accum_steps
+        return loss if size == 1 else collectives.all_reduce(loss, data_axis) / size
 
+    step.stats = stats
     return step
 
 
@@ -342,13 +571,21 @@ def ema_params(ema: Sequence[torch.Tensor], like: Sequence[torch.Tensor]) -> Lis
     return [e.to(p.dtype) for e, p in zip(ema, like)]
 
 
-def make_eval_step(model: LTXModel, tc: TrainConfig = TrainConfig()):
+def make_eval_step(model: LTXModel, tc: TrainConfig = TrainConfig(), data_axis: Optional[Axis] = None):
     """Validation loss `(batch, generator) -> loss` without gradients, audio
     fields included. Pass a generator seeded per validation batch so
-    successive evaluations draw the same sigmas and noise."""
+    successive evaluations draw the same sigmas and noise. With a 'data'
+    `data_axis` each rank evaluates its share of the rows (the draws made
+    for the whole batch, as the train step makes them) and every rank gets
+    the mean."""
+    size, index = (1, 0) if data_axis is None else (data_axis.size, data_axis.index)
 
     @torch.no_grad()
     def eval_step(batch: TrainBatch, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return rectified_flow_loss(model, batch, generator, tc)
+        b = batch.x0.shape[0]
+        if b % size:
+            raise ValueError(f"a validation batch of {b} rows does not divide over the {size} ranks of 'data'")
+        loss = _rows_loss(model, batch, generator, tc, slice(index * (b // size), (index + 1) * (b // size)))
+        return loss if size == 1 else collectives.all_reduce(loss, data_axis) / size
 
     return eval_step

@@ -285,10 +285,10 @@ def test_unported_options_raise(lora_tree):
     tree, _ = lora_tree
     dit = _port(tree)
     opt = trainer.make_optimizer(trainer.TrainConfig(), [p for p in dit.parameters() if p.requires_grad])
-    with pytest.raises(NotImplementedError):
-        trainer.make_train_step(dit, opt, grad_shardings=object())
-    for flag in (["--fsdp"], ["--zero2"], ["--tp-devices", "2"], ["--dp-devices", "2"]):
-        with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(NotImplementedError, match="ZeRO-3/FSDP"):
+        trainer.make_train_step(dit, opt, param_shardings=object())
+    for flag in (["--fsdp"], ["--tp-devices", "2"]):
+        with pytest.raises(NotImplementedError, match=f"{flag[0]} is not ported"):
             train.main(["--placeholder", "--device", "cpu", "--synthetic", "1", "2", "2", *flag])
     # Audio fields on a video-only model: the JAX package's ValueError.
     _, pb = _batches(masked=False)
@@ -324,3 +324,36 @@ def test_train_entry_trainable_regex_on_cpu():
     fresh = dict(train.make_model(1, torch.device("cpu"), 0, placeholder=True).named_parameters())
     for name, p in res["model"].named_parameters():
         assert torch.equal(p, fresh[name]) != (name in res["trainable"]), name
+
+
+def test_accumulation_sums_microbatch_grads_in_fp32():
+    """Under accum_steps > 1 the update reads the microbatches' gradients
+    summed in fp32 and scaled by 1 / accum_steps, cast once to each
+    parameter's dtype, as the JAX step's `_accumulated_value_and_grad`
+    (ltx2_tpu/training/trainer.py:404-447) does; a bf16 `.grad` that each
+    microbatch's backward of loss / accum_steps added into rounded every
+    partial sum."""
+    dit = model.init_ltx_model_(model.LTXModel(dataclasses.replace(CFG, compute_dtype="bfloat16")),
+                                torch.Generator().manual_seed(0))
+    trainer.trainable_mask(dit, lambda name: "attn1" in name)
+    params = [p for p in dit.parameters() if p.requires_grad]
+    assert {p.dtype for p in params} == {torch.bfloat16}
+    _, pb = _batches(masked=False, batch=4)
+    rng = np.random.default_rng(8)
+    sigmas, noise = t(rng.uniform(0.1, 0.9, 4)), t(rng.standard_normal((4, 12, 16)))
+    tc = trainer.TrainConfig()
+    acc = None
+    for i in range(4):
+        part = slice(i, i + 1)
+        trainer.rectified_flow_loss(dit, pb.map(lambda x: x[part]), None, tc, sigmas[part], noise[part]).backward()
+        grads = [p.grad.float() for p in params]
+        acc = grads if acc is None else [a + g for a, g in zip(acc, grads)]
+        dit.zero_grad(set_to_none=True)
+    want = [(a * 0.25).to(torch.bfloat16) for a in acc]
+    opt = trainer.make_optimizer(tc, params)
+    seen, update = [], opt.step
+    opt.step = lambda grads=None, sharded_grads=False: (seen.extend(g.clone() for g in grads), update(grads))
+    trainer.make_train_step(dit, opt, tc, accum_steps=4)(pb, None, sigmas, noise)
+    assert len(seen) == len(want)
+    for got, ref in zip(seen, want):
+        assert torch.equal(got, ref)
