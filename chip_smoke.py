@@ -345,7 +345,18 @@ card and nvcc; it exits non-zero without them, and without the package
    of world 1's, ZeRO-1 half of plain DP's moment
    bytes and ZeRO-2 half of world 1's gradient bytes a rank, each rank's
    K1 and K3 launches as reckoned, only rank 0 writing the file; each
-   rank's peak memory, collective bytes by route and step seconds logged.
+   rank's peak memory, collective bytes by route and step seconds logged;
+   (k) Megatron-TP training (`phase_train_tp`): world 1's runs, then TP-2
+   on 2 ranks and TP-2 x DP-2 on 4 over gloo on the card (nccl too with a
+   card per rank) through `train.main --tp-devices 2 [--dp-devices 2]`
+   for 2 steps at batch 2 of attn1's projections and Q/K norms in 4
+   full-width blocks: TP-2, --zero2, and LoRA on the fp8 base with --zero1
+   --save; losses within 0.5 % of world 1's, the replicated leaves bit for
+   bit along 'model' and the slices along 'data' after each step, the
+   moment bytes the layout rule gives, K1 and K3 launches as reckoned at 16
+   of the 32 heads, only rank 0 writing a file of world 1's names and
+   shapes; each rank's step seconds, peak and bytes by operation, route and
+   axis logged.
 
 The line before the kernels' record gives the whole script's seconds. The
 second-to-last line of output is the kernels' JSON record (with the
@@ -5136,6 +5147,257 @@ def phase_train_dp(smi: str) -> tuple:
         shutil.rmtree(directory, ignore_errors=True)
 
 
+# ---- Megatron-TP training (train.py --tp-devices, alone and on a (data,
+# model) mesh with --dp-devices and ZeRO): TP-2 on 2 ranks and TP-2 x DP-2
+# on 4, sharing the card over gloo (and over nccl where the machine has a
+# card per rank), each against world 1's run of the same steps here.
+
+TP_TRAIN_LAYERS = 4  # cut from 48: four ranks share one card, and the script's time
+TP_TRAIN_STEPS = 2
+TP_TRAIN_BATCH = 2
+# attn1's column-parallel Q/K/V (weights and biases), its row-parallel out
+# (the weight split, the bias replicated) and the split Q/K norms.
+TP_TRAINABLE = r"transformer_blocks\.\d+\.attn1\.(to_q|to_k|to_v|to_out|q_norm|k_norm)\."
+TP_HEADS = 32  # LTX-2.0's heads; a TP-2 rank's launches carry 16
+# name -> (TP, DP, flags, LoRA on the fp8 base with --save)
+TP_TRAIN_CONFIGS = {"tp2": (2, 1, [], False), "tp2_dp2_zero2": (2, 2, ["--zero2"], False),
+                    "lora_fp8_tp2_dp2_zero1": (2, 2, ["--zero1"], True)}
+# Each rank's loss against world 1's, as TOL_DP_LOSS_REL: the same rows,
+# sigmas and noise; bf16 partial products summed over 'model' in fp32 where
+# world 1 sums one product.
+TOL_TP_LOSS_REL = 5e-3
+TP_TRAIN_TIMEOUT_S = 600
+
+
+def _tp_argv(npz: str, tp: int, dp: int, flags: list, lora: bool, save=None) -> list:
+    argv = ["--data", npz, "--layers", str(TP_TRAIN_LAYERS), "--batch-size", str(TP_TRAIN_BATCH), "--steps",
+            str(TP_TRAIN_STEPS), "--lr", DP_TRAIN_LR, "--device", "cuda", "--log-every", "1", *flags]
+    if tp > 1:
+        argv += ["--tp-devices", str(tp)]
+    if dp > 1:
+        argv += ["--dp-devices", str(dp)]
+    if save:
+        argv += ["--save", save]
+    return argv + (["--fp8-serving", "--lora-rank", "16"] if lora else ["--trainable", TP_TRAINABLE])
+
+
+def _tp_train_run(argv: list) -> dict:
+    """train.main(argv) on this rank: losses, step seconds, each step's
+    hashes of the replicated parameters and of all this rank's slices, peak
+    memory, moment bytes and the bytes the ZeRO rule expects of this rank,
+    collective bytes by operation and route (forward and backward apart)
+    and by axis (the run, and its last step), K1 / K3 launches and heads a
+    launch, the exports it called, the files it wrote."""
+    import torch
+
+    from ltx2_tpu_torch import train as T
+    from ltx2_tpu_torch.loader import export as E
+    from ltx2_tpu_torch.ops import attention as A
+    from ltx2_tpu_torch.parallel import collectives
+    from ltx2_tpu_torch.parallel.sharding import tp_split_dim
+    from ltx2_tpu_torch.training import checkpoint as C
+    from ltx2_tpu_torch.training import lora as L
+
+    hashes, calls, writes = [], [], []
+
+    def on_step(i, model, loss):
+        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        hashes.append({"replicated": _param_hash([p for n, p in named if tp_split_dim(n) is None]).tolist(),
+                       "all": _param_hash([p for _, p in named]).tolist()})
+
+    saved = (T.export_lora_checkpoint, L.write_safetensors, E.write_safetensors_streaming,
+             C.write_safetensors_streaming)
+    T.export_lora_checkpoint = lambda path, model, **kw: (calls.append(path), saved[0](path, model, **kw))
+    L.write_safetensors = lambda path, *a, **kw: (writes.append(path), saved[1](path, *a, **kw))
+    E.write_safetensors_streaming = lambda path, *a, **kw: (writes.append(path), saved[2](path, *a, **kw))
+    C.write_safetensors_streaming = lambda path, *a, **kw: (writes.append(path), saved[3](path, *a, **kw))
+    gc.collect()  # the last run's model: its gradient hooks and optimizer form a cycle
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    collectives.reset_stats()
+    _reset_counts()
+    A.flash_attention.launches_by_heads, A.flash_attention_bwd_kernel.launches_by_heads = {}, {}
+    try:
+        res = T.main(argv, on_step=on_step)
+    finally:
+        T.export_lora_checkpoint, L.write_safetensors, E.write_safetensors_streaming, \
+            C.write_safetensors_streaming = saved
+    torch.cuda.synchronize()
+    counts = _counts()
+    opt = res["optimizer"]
+    return {"losses": res["losses"], "step_s": res["step_s"], "hashes": hashes, "calls": calls, "writes": writes,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "moment_bytes": res["moment_bytes"],
+            "moment_bytes_expected": _tp_moment_bytes(res["model"], opt),
+            "bytes_by_route": copy.deepcopy(collectives.STATS["bytes"]),
+            "bytes_by_axis": copy.deepcopy(collectives.STATS["axes"]), "last_step_bytes": res["step_bytes"],
+            "launches": {"fwd": counts["fwd"], "bwd": counts["bwd"]},
+            "heads": {"fwd": dict(A.flash_attention.launches_by_heads),
+                      "bwd": dict(A.flash_attention_bwd_kernel.launches_by_heads)}}
+
+
+def _tp_moment_bytes(model, opt) -> int:
+    """The moment bytes the layout rule gives this rank, from the whole
+    leaves (world 1's shapes): mu and nu of each, its 1/TP where the TP
+    rules split it, then its 1/DP where ZeRO finds a dim other than the TP
+    one that divides."""
+    from ltx2_tpu_torch.parallel.sharding import tp_split_dim, whole_shape
+    from ltx2_tpu_torch.training import data_shard_dim, parameter_names
+
+    tp, dp = model.cfg.tp_axis, opt.axis
+    total = 0
+    for p, name in zip(opt.params, parameter_names(model, opt.params)):
+        whole = whole_shape(name, p.shape, tp)
+        split = tp is not None and tp_split_dim(name) is not None
+        local = tuple(n // tp.size if split and i == tp_split_dim(name) else n for i, n in enumerate(whole))
+        sliced = dp is not None and data_shard_dim(local, dp.size, tp_split_dim(name) if split else None) is not None
+        total += 2 * p.element_size() * math.prod(whole) // (tp.size if split else 1) // (dp.size if sliced else 1)
+    return total
+
+
+def _train_tp_rank(rank: int, world: int, npz: str, directory: str, jobs: list) -> dict:
+    """One rank of phase_train_tp: each of `jobs` (names of TP_TRAIN_CONFIGS
+    whose layout is this world) through train.main."""
+    out = {}
+    for name in jobs:
+        tp, dp, flags, lora = TP_TRAIN_CONFIGS[name]
+        t0 = time.perf_counter()
+        save = f"{directory}/{name}.safetensors" if lora else None
+        out[name] = _tp_train_run(_tp_argv(npz, tp, dp, flags, lora, save))
+        out[name]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _tp_expected() -> dict:
+    """A rank's K1 / K3 launches: every attention of every block needs its
+    gradient, so each step runs 2 forward launches a block, 2 more in the
+    remat recompute and 2 fused backward ones (over the rank's heads and
+    its 'data' share of the rows)."""
+    return {"fwd": TP_TRAIN_STEPS * 4 * TP_TRAIN_LAYERS, "bwd": TP_TRAIN_STEPS * 2 * TP_TRAIN_LAYERS}
+
+
+def _safetensors_shapes(path: str) -> dict:
+    from ltx2_tpu_torch.loader.safetensors_io import SafetensorsFile
+
+    f = SafetensorsFile(path)
+    try:
+        return {k: list(f.info(k)[1]) for k in f.keys()}
+    finally:
+        f.close()
+
+
+def phase_train_tp(smi: str) -> tuple:
+    """Megatron-TP training on the card through `train.main`: world 1's runs
+    here (TP_TRAINABLE, and LoRA on the fp8 base with --save), then TP-2 on
+    2 ranks and TP-2 x DP-2 on 4 (`spawn_ranks`): --zero2, and LoRA rank 16
+    on the fp8 base with --zero1 --save; TP_TRAIN_LAYERS full-width blocks,
+    bench_train's 6144 tokens and 1024 text tokens, batch TP_TRAIN_BATCH,
+    TP_TRAIN_STEPS steps. Fails unless each rank's losses are within
+    TOL_TP_LOSS_REL of world 1's, the ranks of each 'model' line hold the
+    same replicated parameters bit for bit after every step and the ranks of
+    each 'data' line the same slices, each rank's moment bytes are what the
+    layout rule gives (world 1's / TP for the split leaves, / DP more under
+    ZeRO where a dim divides), the K1 / K3 launches are as reckoned with
+    TP_HEADS / TP heads each, and only rank 0 writes the --save file, whose
+    names and shapes are world 1's. Returns (record, the K1 / K3 launches by
+    path, summed over the ranks)."""
+    import datetime
+    import os
+    import tempfile
+
+    import torch
+
+    from ltx2_tpu_torch import train as T
+    from ltx2_tpu_torch.models.transformer.model import LTXModelConfig
+    from ltx2_tpu_torch.parallel.runtime import spawn_ranks
+
+    t_phase = time.perf_counter()
+    directory = tempfile.mkdtemp(prefix="ltx2_train_tp_")
+    try:
+        arrays = T.synthetic_dataset(*T.BENCH_SHAPE, TP_TRAIN_BATCH, LTXModelConfig(), seed=4,
+                                     context_tokens=T.BENCH_CONTEXT_TOKENS)
+        npz = _write_npz(directory, "tp.npz", arrays)
+        world1 = {lora: _tp_train_run(_tp_argv(npz, 1, 1, [], lora, f"{directory}/world1.safetensors" if lora
+                                                else None)) for lora in (False, True)}
+        world1_lora_shapes = _safetensors_shapes(f"{directory}/world1.safetensors")
+        gc.collect()
+        torch.cuda.empty_cache()
+        record = {"world_1": {("lora_fp8" if k else "trainable"): {x: r[x] for x in (
+            "losses", "step_s", "peak_gb", "moment_bytes", "launches", "heads")} for k, r in world1.items()},
+            "world_1_s": time.perf_counter() - t_phase, "routes": {}}
+        log(f"train TP world 1 ({TP_TRAIN_LAYERS} layers, batch {TP_TRAIN_BATCH}): {json.dumps(record)} | {smi}")
+        for lora, r in world1.items():
+            if r["launches"] != _tp_expected() or r["heads"] != {
+                    k: {TP_HEADS: n} for k, n in r["launches"].items()}:
+                raise AssertionError(f"TP world 1 (lora {lora}) launches {r['launches']} heads {r['heads']}")
+        counts = {}
+        for backend in ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 4 else []):
+            out = {}
+            for world in (2, 4):
+                jobs = [k for k, (tp, dp, _, _) in TP_TRAIN_CONFIGS.items() if tp * dp == world]
+                t0 = time.perf_counter()
+                ranks = spawn_ranks(_train_tp_rank, world, os.path.join(directory, f"{backend}{world}"), npz,
+                                    directory, jobs, backend=backend, device="cuda", timeout=TP_TRAIN_TIMEOUT_S,
+                                    collective_timeout=datetime.timedelta(seconds=TP_TRAIN_TIMEOUT_S))
+                out[f"wall_s_world_{world}"] = time.perf_counter() - t0
+                for name in jobs:
+                    tp, dp, _, lora = TP_TRAIN_CONFIGS[name]
+                    per_rank = [r[name] for r in ranks]
+                    ref = world1[lora]
+                    expected = _tp_expected()
+                    rec = {"ranks": [{k: r[k] for k in ("losses", "step_s", "peak_gb", "moment_bytes",
+                                                        "moment_bytes_expected", "bytes_by_route", "bytes_by_axis",
+                                                        "last_step_bytes", "launches", "heads", "seconds")}
+                                     for r in per_rank],
+                           "world_1_losses": ref["losses"], "world_1_moment_bytes": ref["moment_bytes"],
+                           "loss_rel_err_vs_world_1": max(abs(a - b) / abs(b) for a, b in
+                                                          zip(per_rank[0]["losses"], ref["losses"])),
+                           "launches_expected_per_rank": expected}
+                    log(f"train TP over {backend}, {name} (TP {tp} x DP {dp}, {TP_TRAIN_LAYERS} layers, batch "
+                        f"{TP_TRAIN_BATCH}): {json.dumps(rec)} | {smi}")
+                    heads = {k: {TP_HEADS // tp: n} for k, n in expected.items()}
+                    for i, r in enumerate(per_rank):
+                        if len(r["losses"]) != TP_TRAIN_STEPS or not all(math.isfinite(x) for x in r["losses"]):
+                            raise AssertionError(f"TP {name} rank {i} losses {r['losses']}")
+                        if r["launches"] != expected or r["heads"] != heads:
+                            raise AssertionError(f"TP {name} rank {i} launches {r['launches']} heads {r['heads']}, "
+                                                 f"expected {expected} at {heads}")
+                        if r["moment_bytes"] != r["moment_bytes_expected"]:
+                            raise AssertionError(f"TP {name} rank {i} moment bytes {r['moment_bytes']}, the layout "
+                                                 f"rule gives {r['moment_bytes_expected']}")
+                        if len(r["hashes"]) != TP_TRAIN_STEPS or r["losses"] != per_rank[0]["losses"]:
+                            raise AssertionError(f"TP {name} rank {i}: {len(r['hashes'])} steps hashed, losses "
+                                                 f"{r['losses']} against rank 0's {per_rank[0]['losses']}")
+                    for d in range(dp):  # a 'model' line: the replicated leaves bit for bit
+                        line = [per_rank[d * tp + m]["hashes"] for m in range(tp)]
+                        if any([h["replicated"] for h in x] != [h["replicated"] for h in line[0]] for x in line):
+                            raise AssertionError(f"TP {name}: the replicated parameters differ along 'model'")
+                    for m in range(tp):  # a 'data' line: the same slices bit for bit
+                        line = [per_rank[d * tp + m]["hashes"] for d in range(dp)]
+                        if any([h["all"] for h in x] != [h["all"] for h in line[0]] for x in line):
+                            raise AssertionError(f"TP {name}: the slices differ along 'data'")
+                    if rec["loss_rel_err_vs_world_1"] > TOL_TP_LOSS_REL:
+                        raise AssertionError(f"TP {name} losses {per_rank[0]['losses']} against world 1's "
+                                             f"{ref['losses']} (limit {TOL_TP_LOSS_REL} relative)")
+                    if lora:
+                        path = f"{directory}/{name}.safetensors"
+                        writes, calls = [r["writes"] for r in per_rank], [r["calls"] for r in per_rank]
+                        want_calls = [[path] if i < tp else [] for i in range(world)]
+                        if writes != [[path]] + [[]] * (world - 1) or calls != want_calls:
+                            raise AssertionError(f"TP LoRA --save: writes by rank {writes}, exports by rank {calls}")
+                        if _safetensors_shapes(path) != world1_lora_shapes:
+                            raise AssertionError("TP LoRA --save: the file's names or shapes are not world 1's")
+                        os.remove(path)
+                    out[name] = rec
+                    counts[f"train_tp_{backend}_{name}"] = {k: sum(r["launches"][k] for r in per_rank)
+                                                            for k in ("fwd", "bwd")}
+            record["routes"][backend] = out
+        record["seconds"] = time.perf_counter() - t_phase
+        log(f"train TP phase: {record['seconds']:.1f} s, launches {json.dumps(counts)} | {smi}")
+        return record, counts
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
 # int8 W8A8 serving (phase 5b). The JAX package asks the int8 x0 to correlate
 # with bf16's above 0.999 on random weights (tests/test_int8.py:216).
 INT8_CORR_MIN = 0.999
@@ -7201,6 +7463,9 @@ def main():
     clock.append(("training_av", time.perf_counter()))
     train_dp, dp_counts = phase_train_dp(smi)
     clock.append(("train_dp", time.perf_counter()))
+    train_tp, tp_counts = phase_train_tp(smi)
+    clock.append(("train_tp", time.perf_counter()))
+    dp_counts = {**dp_counts, **tp_counts}  # the scale-out training paths, DP then TP
     # The training paths of the AV slice and their launch counts, each read
     # right after the path ran (the resume path's: the uninterrupted run).
     av_paths = {"train_av": av_train["train_av_counts"], "train_av_fp8": av_train["train_av_fp8_counts"],
@@ -7438,7 +7703,7 @@ def main():
         },
     ], "train": {"timing": timing, "gradcheck": gradcheck,
                   "audio_video": {k: v for k, v in av_train.items() if not k.endswith("_counts")},
-                  "data_parallel": train_dp},
+                  "data_parallel": train_dp, "tensor_parallel": train_tp},
         "bench_e2e": serve, "fp8_step": fp8_step, "checkpoint": checkpoint, "temporal_upscaler": temporal,
         "keyframe_and_ti2vid_hq": keyframe_hq, "video_paths": video_paths, "full_vae": full_vae, "webp": webp,
         "scale_out": scale_out, "stills": stills,

@@ -5,7 +5,10 @@ The inverse of the loader: module names through the inverse of
 KEY_REWRITE_RULES, prefixed with `model.diffusion_model.`, one tensor
 copied from the device to the host at a time, so a checkpoint fine-tuned on
 the card reloads through `load_transformer_params` and stays loadable by
-the reference implementation.
+the reference implementation. A DiT made a TP shard (its `cfg.tp_axis`
+set) exports whole tensors: each split one is all-gathered over 'model' as
+the writer reaches it, every rank of the axis joining, and world rank 0
+alone writes.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from ltx2_tpu_torch.loader.convert import to_dtype
 from ltx2_tpu_torch.loader.fp8 import is_quantized
 from ltx2_tpu_torch.loader.safetensors_io import DTYPES, SafetensorsFile, Spec, write_safetensors_streaming
 from ltx2_tpu_torch.loader.weight_loader import DIFFUSION_PREFIX
+from ltx2_tpu_torch.parallel.runtime import world
+from ltx2_tpu_torch.parallel.sharding import gather_tensor, model_tp_axis, tp_split_dim, whole_shape
 
 # Inverse of weight_loader's KEY_REWRITE_RULES: module name -> checkpoint key.
 INVERSE_KEY_RULES = [
@@ -45,15 +50,18 @@ def _tensors(model: nn.Module) -> Iterator:
 
 def iter_checkpoint_specs(model: nn.Module, dtype: torch.dtype = torch.float32) -> Iterator[Spec]:
     """Streaming-writer specs (name, dtype, shape, producer) of the DiT's
-    tensors in `dtype`, without touching their data. Refuses a model that
-    holds quantized weights: their codes written as values beside a stale
-    scale would reload corrupted."""
+    tensors in `dtype`, without touching their data; under TP each split
+    tensor's whole shape, its producer gathering it over 'model'. Refuses a
+    model that holds quantized weights: their codes written as values
+    beside a stale scale would reload corrupted."""
     if is_quantized(model):
         raise ValueError("cannot export a quantized (fp8-kept / int8) model as a reference checkpoint: load it with "
                          "keep_fp8=False before exporting")
+    tp = model_tp_axis(model)
     for name, t in _tensors(model):
-        yield (DIFFUSION_PREFIX + inverse_rewrite(name), dtype, tuple(t.shape),
-               (lambda t=t: to_dtype(t.detach().to("cpu", torch.float32), dtype)))
+        yield (DIFFUSION_PREFIX + inverse_rewrite(name), dtype, whole_shape(name, t.shape, tp),
+               (lambda t=t, name=name: to_dtype(gather_tensor(name, t.detach(), tp).to("cpu", torch.float32),
+                                                dtype)))
 
 
 def iter_fp8_checkpoint_specs(model: nn.Module) -> Iterator[Spec]:
@@ -83,8 +91,16 @@ def export_transformer_checkpoint(
     export byte for byte, so the file is complete on its own (the reference
     keeps every component in one file). A source `weight_scale` whose weight
     the export re-emits dequantized is dropped: on reload it would
-    "dequantize" the new weight again. Host memory: one tensor."""
+    "dequantize" the new weight again. Host memory: one tensor. Under TP
+    every rank of the 'model' line holding world rank 0 calls it; the
+    others join the gathers and write nothing."""
     specs = list(iter_checkpoint_specs(model, dtype))
+    tp = model_tp_axis(model)
+    if tp is not None and world()[0] != 0:  # join the gathers in the writer's order; write nothing
+        for (name, _t), spec in zip(_tensors(model), specs):
+            if tp_split_dim(name) is not None:
+                spec[3]()
+        return
     dit_keys = {name for name, _d, _s, _p in specs}
     src = SafetensorsFile(carry_from) if carry_from is not None else None
     try:

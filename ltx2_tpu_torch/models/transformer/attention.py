@@ -23,6 +23,11 @@ parallel/mesh.py; the JAX package's attention.py:33-43,90-124):
   are RMS-normed over the WHOLE inner dim (the sum of squares summed over
   the axis), RoPE and the V2 gates act on the rank's heads, and `to_out`'s
   partial products are summed over the axis (`linear_row_parallel`).
+  For training, Megatron's differentiable pair carries the gradients
+  (parallel/collectives.py): `copy_to_model` on `x` and `context` at the
+  top of `attention_apply` and on the FFN's input sums each rank's share
+  of their gradient over the axis; the norms' sum of squares is
+  `all_reduce_sum`, summed both ways.
 """
 
 from __future__ import annotations
@@ -71,13 +76,15 @@ def tp_size(axis) -> int:
 def rms_norm_tp(x: torch.Tensor, weight: torch.Tensor, eps: float, tp_axis) -> torch.Tensor:
     """`rms_norm` over a last dim split over `tp_axis`: the mean of squares
     over the whole dim (each rank's sum of squares summed over the axis),
-    this rank's slice of the weight. tp_axis None: `rms_norm`."""
+    this rank's slice of the weight. The sum is `all_reduce_sum`: every
+    rank's gradient of it is a share, summed over the axis backward.
+    tp_axis None: `rms_norm`."""
     if tp_axis is None or tp_axis.size == 1:
         return rms_norm(x, weight, eps)
-    from ltx2_tpu_torch.parallel.collectives import all_reduce
+    from ltx2_tpu_torch.parallel.collectives import all_reduce_sum
 
     xf = x.float()
-    ss = all_reduce(xf.pow(2).sum(dim=-1, keepdim=True), tp_axis)
+    ss = all_reduce_sum(xf.pow(2).sum(dim=-1, keepdim=True), tp_axis)
     out = xf * torch.rsqrt(ss / (x.shape[-1] * tp_axis.size) + eps)
     return (out * weight.float()).to(x.dtype)
 
@@ -129,8 +136,14 @@ def attention_apply(
     (applied only with `pe`, as in the JAX package). gather_context: under
     `cfg.sequence_axis`, the context is token-split too (cross-modal) and
     its K/V are all-gathered after RoPE. `pe`/`k_pe` are the tables of all
-    heads; under TP this rank takes its own."""
+    heads; under TP this rank takes its own, and `x` and `context` pass
+    `copy_to_model` (their gradients summed over the axis)."""
     tp = cfg.tp_axis
+    if tp is not None and tp.size > 1:
+        from ltx2_tpu_torch.parallel.collectives import copy_to_model
+
+        x = copy_to_model(x, tp)
+        context = None if context is None else copy_to_model(context, tp)
     q = rms_norm_tp(linear(p.to_q, x), p.q_norm.weight, cfg.norm_eps, tp)
     if cached_kv is not None:
         k, v = cached_kv
@@ -188,5 +201,10 @@ class FeedForward(nn.Module):
 
 def feed_forward_apply(p: FeedForward, x: torch.Tensor, tp_axis=None) -> torch.Tensor:
     """Linear -> gelu_tanh -> Linear; under `tp_axis` project_in is
-    column-parallel and project_out row-parallel."""
+    column-parallel (its input through `copy_to_model`) and project_out
+    row-parallel."""
+    if tp_axis is not None and tp_axis.size > 1:
+        from ltx2_tpu_torch.parallel.collectives import copy_to_model
+
+        x = copy_to_model(x, tp_axis)
     return linear_row_parallel(p.project_out, F.gelu(linear(p.project_in.proj, x), approximate="tanh"), tp_axis)

@@ -504,6 +504,14 @@ def ltx_model_apply(
                  None if vkv is None else (vkv[0][i], vkv[1][i]),
                  None if akv is None else (akv[0][i], akv[1][i]))
         if remat:
+            # Under TP the recompute re-issues the block's 'model'
+            # collectives inside the backward, among the backward's own and
+            # ZeRO-2's 'data' reduce-scatters (post-accumulate hooks). All of
+            # them run on the autograd engine's thread of the tensors'
+            # device, which walks every rank's graph (the same ops over each
+            # rank's slices) in the same order and stops each recompute at
+            # the same saved tensor, so every group's ranks issue its
+            # collectives in one order, under gloo as under nccl.
             vx, ax = checkpoint(_block_x, block, vx, ax, args, audio_args, cfg, *extra, use_reentrant=False)
         else:
             vx, ax = _block_x(block, vx, ax, args, audio_args, cfg, *extra)

@@ -24,10 +24,12 @@ ctypes (`ops/_build.py`, shared with the conv kernel). Each wrapper counts its
 launches in its `launches` attribute; the forward also counts those with a
 key-valid mask in `flash_attention.key_valid_launches`, each head dim's in
 `flash_attention.launches_by_head_dim`, each batch size's in
-`flash_attention.launches_by_batch` and each (query, key) length pair's in
+`flash_attention.launches_by_batch`, each head count's in
+`flash_attention.launches_by_heads` and each (query, key) length pair's in
 `flash_attention.launches_by_length`; `flash_attention_residuals.launches`
 counts those with residuals (the ring's inner; in `launches` too); the
-backward each head dim's in `flash_attention_bwd_kernel.launches_by_head_dim`.
+backward each head dim's in `flash_attention_bwd_kernel.launches_by_head_dim`
+and each head count's in `flash_attention_bwd_kernel.launches_by_heads`.
 
 `sdpa` sends a call to the kernels or to plain torch ops by contract alone
 (`attention_route`), never because a kernel failed: the plain route takes
@@ -228,6 +230,7 @@ def _launch_fwd(q, k, v, scale, kv_valid, residuals: bool):
     flash_attention.launches += 1
     flash_attention.launches_by_head_dim[d] = flash_attention.launches_by_head_dim.get(d, 0) + 1
     flash_attention.launches_by_batch[b] = flash_attention.launches_by_batch.get(b, 0) + 1
+    flash_attention.launches_by_heads[h] = flash_attention.launches_by_heads.get(h, 0) + 1
     lengths = (t_q, k.shape[2])
     flash_attention.launches_by_length[lengths] = flash_attention.launches_by_length.get(lengths, 0) + 1
     if kv_valid is not None:
@@ -299,11 +302,14 @@ def flash_attention_bwd_kernel(q, k, v, do, l, m, di, scale, kv_valid=None):
     flash_attention_bwd_kernel.launches += 1
     by_d = flash_attention_bwd_kernel.launches_by_head_dim
     by_d[d] = by_d.get(d, 0) + 1
+    by_h = flash_attention_bwd_kernel.launches_by_heads
+    by_h[h] = by_h.get(h, 0) + 1
     return dq_acc.to(torch.bfloat16).transpose(1, 2), dk, dv
 
 
 flash_attention_bwd_kernel.launches = 0
 flash_attention_bwd_kernel.launches_by_head_dim = {}  # {64: n, 128: n}, counted in `launches` too
+flash_attention_bwd_kernel.launches_by_heads = {}  # {heads: n} (a TP rank's share), counted in `launches` too
 
 
 def flash_attention_bwd(q, k, v, o, l, m, do, scale=None, kv_valid=None):
@@ -375,6 +381,7 @@ flash_attention.launches = 0
 flash_attention.key_valid_launches = 0  # the launches with a key-valid mask, counted in `launches` too
 flash_attention.launches_by_head_dim = {}  # {64: n, 128: n}, counted in `launches` too
 flash_attention.launches_by_batch = {}  # {batch size: n}, counted in `launches` too
+flash_attention.launches_by_heads = {}  # {heads: n} (a TP rank's share), counted in `launches` too
 flash_attention.launches_by_length = {}  # {(query tokens, key tokens): n}, counted in `launches` too
 
 

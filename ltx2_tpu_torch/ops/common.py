@@ -134,13 +134,23 @@ def linear_row_parallel(p: Linear, x: torch.Tensor, tp_axis=None) -> torch.Tenso
     """`linear` whose in-features (and x's last dim) are split over the
     mesh axis `tp_axis` (Megatron row-parallel; ltx2_tpu/ops/common.py:95-114):
     each rank's partial product (its LoRA delta included), summed over the
-    axis in fp32 (`collectives.all_reduce`), then the replicated bias added
-    once, cast to x's dtype. An int8 weight quantizes the activations with
-    the per-token amax over the whole in-features (the max over the axis),
-    as the unsplit product does. tp_axis None, or of one rank: `linear`."""
+    axis in fp32 (`collectives.reduce_from_model`: the gradient passes
+    through to each rank's partial product unchanged), then the replicated
+    bias added once, cast to x's dtype. An int8 weight quantizes the
+    activations with the per-token amax over the whole in-features (the max
+    over the axis), as the unsplit product does; it serves only, with no
+    gradient. tp_axis None, or of one rank: `linear`.
+
+    Where the LoRA factors' gradients are summed: this rank's `lora_A` is
+    its slice of the in-features and `lora_B` is whole (replicated), so the
+    low-rank term x_r A_r^T B^T is a partial product like the base's, and
+    each rank's gradient of B is its share, dy^T (x_r A_r^T), of the whole
+    one. The gradient store sums those shares over the axis
+    (training/trainer.py, `sharding.tp_partial_grad`); a column-parallel
+    linear's whole `lora_A` takes the same sum there."""
     if tp_axis is None or tp_axis.size == 1:
         return linear(p, x)
-    from ltx2_tpu_torch.parallel.collectives import all_reduce, all_reduce_max
+    from ltx2_tpu_torch.parallel.collectives import all_reduce_max, reduce_from_model
 
     cscale = getattr(p, "weight_cscale", None)
     if cscale is not None:
@@ -161,7 +171,7 @@ def linear_row_parallel(p: Linear, x: torch.Tensor, tp_axis=None) -> torch.Tenso
     if lora_a is not None:
         low = F.linear(F.linear(x, lora_a.to(x.dtype)), p.lora_B.to(x.dtype))
         y = y + low * p.lora_scale.to(x.dtype)
-    y = all_reduce(y, tp_axis)
+    y = reduce_from_model(y, tp_axis)
     if p.bias is not None:
         y = y + p.bias.float()
     return y.to(x.dtype)

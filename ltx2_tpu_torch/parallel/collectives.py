@@ -15,7 +15,18 @@ inside shard_map.
   the sum taken in fp32 (ZeRO-2's gradient exchange);
 - `all_reduce`: `psum`, `dist.all_reduce` on an fp32 copy (every rank gets
   the same reduced bits from the backend);
-- `all_reduce_max`: `pmax`, `dist.all_reduce` with `ReduceOp.MAX`.
+- `all_reduce_max`: `pmax`, `dist.all_reduce` with `ReduceOp.MAX`;
+- Megatron's differentiable pair over a 'model' axis, as autograd
+  Functions (`all_reduce` itself stays outside autograd: ZeRO, the clip
+  and the loss call it on values that carry no gradient):
+  `copy_to_model` (identity forward, all-reduce backward: the input of a
+  column-parallel product, whose gradient each rank holds only its heads'
+  share of), `reduce_from_model` (all-reduce forward, identity backward:
+  a row-parallel output, whose downstream is replicated) and
+  `all_reduce_sum` (all-reduce both ways: a sum every rank then uses for
+  its own part, the Q/K norms' sum of squares). Their backward sums are
+  taken in fp32 and counted as "all_reduce_bwd"; axis None or of one
+  rank: the identity.
 
 Routes, by the world's backend and the tensor's device: "nccl" (CUDA
 tensors), "gloo" (CPU tensors, and CUDA tensors in the collectives, which
@@ -27,9 +38,9 @@ never a fallback after a failure. Exchanges and gathers move their payload
 as its bytes (a uint8 view), so any dtype goes through any backend.
 `STATS` counts each rank's bytes sent and received (for an all-reduce the
 2(n-1)/n of the payload a ring all-reduce moves each way, for a
-reduce-scatter the (n-1)/n of its input), in all and by
-"operation route", and its calls by operation and by route; `reset_stats`
-zeroes it.
+reduce-scatter the (n-1)/n of its input), in all, by "operation route"
+and by "axis route" (the mesh axis's name: 'model' and 'data' apart), and
+its calls by operation and by route; `reset_stats` zeroes it.
 """
 
 from __future__ import annotations
@@ -41,11 +52,11 @@ import torch.distributed as dist
 
 from ltx2_tpu_torch.parallel.mesh import Axis
 
-STATS: Dict = {"bytes_sent": 0, "bytes_received": 0, "bytes": {}, "calls": {}, "routes": {}}
+STATS: Dict = {"bytes_sent": 0, "bytes_received": 0, "bytes": {}, "axes": {}, "calls": {}, "routes": {}}
 
 
 def reset_stats() -> None:
-    STATS.update(bytes_sent=0, bytes_received=0, bytes={}, calls={}, routes={})
+    STATS.update(bytes_sent=0, bytes_received=0, bytes={}, axes={}, calls={}, routes={})
 
 
 def route(x: torch.Tensor, axis: Axis, point_to_point: bool = False) -> str:
@@ -61,12 +72,13 @@ def route(x: torch.Tensor, axis: Axis, point_to_point: bool = False) -> str:
     return "gloo_staged" if point_to_point and x.device.type == "cuda" else "gloo"
 
 
-def _count(op: str, rt: str, sent: int, received: int) -> None:
+def _count(op: str, rt: str, sent: int, received: int, axis: Axis) -> None:
     STATS["bytes_sent"] += sent
     STATS["bytes_received"] += received
-    by = STATS["bytes"].setdefault(f"{op} {rt}", {"sent": 0, "received": 0})
-    by["sent"] += sent
-    by["received"] += received
+    for key, table in ((f"{op} {rt}", STATS["bytes"]), (f"{axis.name} {rt}", STATS["axes"])):
+        by = table.setdefault(key, {"sent": 0, "received": 0})
+        by["sent"] += sent
+        by["received"] += received
     STATS["calls"][op] = STATS["calls"].get(op, 0) + 1
     STATS["routes"][rt] = STATS["routes"].get(rt, 0) + 1
 
@@ -124,7 +136,7 @@ def ring_exchange_start(tensors: Sequence[torch.Tensor], axis: Axis, shift: int 
         recv = _host_buffer(send.numel()) if rt == "gloo_staged" else torch.empty_like(send)
         ops += [dist.P2POp(dist.isend, send, dst, axis.group), dist.P2POp(dist.irecv, recv, src, axis.group)]
         received.append(recv)
-        _count("ring_shift", rt, send.numel(), recv.numel())
+        _count("ring_shift", rt, send.numel(), recv.numel(), axis)
     return Pending(dist.batch_isend_irecv(ops), received, tensors)
 
 
@@ -145,7 +157,7 @@ def send_start(tensors: Sequence[torch.Tensor], axis: Axis, index: int) -> Pendi
         send = _wire(x, rt)
         ops.append(dist.P2POp(dist.isend, send, dst, axis.group))
         sent.append(send)
-        _count("send", rt, send.numel(), 0)
+        _count("send", rt, send.numel(), 0, axis)
     return Pending(dist.batch_isend_irecv(ops) if ops else [], [], [], sent)
 
 
@@ -162,7 +174,7 @@ def recv_start(like: Sequence[torch.Tensor], axis: Axis, index: int) -> Pending:
                                                                              device=x.device)
         ops.append(dist.P2POp(dist.irecv, recv, src, axis.group))
         received.append(recv)
-        _count("recv", rt, 0, nbytes)
+        _count("recv", rt, 0, nbytes, axis)
     return Pending(dist.batch_isend_irecv(ops) if ops else [], received, like)
 
 
@@ -179,7 +191,7 @@ def broadcast(x: torch.Tensor, axis: Optional[Axis], index: int) -> torch.Tensor
                                                    device=x.device)
     dist.broadcast(data, src=axis.ranks[index], group=axis.group)
     n = data.numel()
-    _count("broadcast", rt, n * (axis.size - 1) if source else 0, 0 if source else n)
+    _count("broadcast", rt, n * (axis.size - 1) if source else 0, 0 if source else n, axis)
     return _unwire(data, x)
 
 
@@ -193,7 +205,7 @@ def all_gather(x: torch.Tensor, axis: Optional[Axis], dim: int) -> torch.Tensor:
     send = _as_bytes(x)
     parts = [torch.empty_like(send) for _ in range(axis.size)]
     dist.all_gather(parts, send, group=axis.group)
-    _count("all_gather", rt, send.numel() * (axis.size - 1), send.numel() * (axis.size - 1))
+    _count("all_gather", rt, send.numel() * (axis.size - 1), send.numel() * (axis.size - 1), axis)
     return torch.cat([_unwire(p, x) for p in parts], dim=dim)
 
 
@@ -202,7 +214,7 @@ def _reduce(x: torch.Tensor, axis: Axis, dtype: torch.dtype, op, name: str) -> t
     rt = route(out, axis)
     dist.all_reduce(out, op=op, group=axis.group)
     moved = 2 * (axis.size - 1) * out.numel() * out.element_size() // axis.size
-    _count(name, rt, moved, moved)
+    _count(name, rt, moved, moved, axis)
     return out
 
 
@@ -243,5 +255,76 @@ def reduce_scatter(x: torch.Tensor, axis: Optional[Axis], dim: int) -> torch.Ten
     out = torch.empty_like(parts[0])
     dist.reduce_scatter(out, parts, op=dist.ReduceOp.SUM, group=axis.group)
     moved = (n - 1) * out.numel() * out.element_size()
-    _count("reduce_scatter", rt, moved, moved)
+    _count("reduce_scatter", rt, moved, moved, axis)
     return out.to(x.device) if out.device != x.device else out
+
+
+# ---------------------------------------------------------------------------
+# Megatron-TP's differentiable collectives over a 'model' axis.
+# ---------------------------------------------------------------------------
+
+
+def _sum_back(g: torch.Tensor, axis: Axis, like: torch.dtype) -> torch.Tensor:
+    """The backward's all-reduce: g summed over the axis in fp32 (float64
+    stays float64), counted as "all_reduce_bwd", cast to the input's dtype."""
+    acc = torch.promote_types(g.dtype, torch.float32)
+    return _reduce(g, axis, acc, dist.ReduceOp.SUM, "all_reduce_bwd").to(like)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis, ctx.dtype = axis, x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_back(g, ctx.axis, ctx.dtype), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.dtype = x.dtype
+        return all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis, ctx.dtype = axis, x.dtype
+        return all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_back(g, ctx.axis, ctx.dtype), None
+
+
+def _single(axis: Optional[Axis]) -> bool:
+    return axis is None or axis.size == 1
+
+
+def copy_to_model(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """x itself forward; its gradient summed over the axis backward (fp32).
+    At a column-parallel product's input: each rank's dx holds only its own
+    heads' or features' share. Axis None or of one rank: x."""
+    return x if _single(axis) else _CopyToModel.apply(x, axis)
+
+
+def reduce_from_model(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """`all_reduce` forward (the fp32 sum, the same bits on every rank); the
+    gradient passed through backward, cast to x's dtype. At a row-parallel
+    output, whose downstream is replicated. Axis None or of one rank: x."""
+    return x if _single(axis) else _ReduceFromModel.apply(x, axis)
+
+
+def all_reduce_sum(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """`all_reduce` forward and backward: a sum that every rank uses for
+    its own part (the Q/K norms' sum of squares over the split inner dim),
+    so each rank's gradient of it is a share to be summed. Axis None or of
+    one rank: x."""
+    return x if _single(axis) else _AllReduceSum.apply(x, axis)

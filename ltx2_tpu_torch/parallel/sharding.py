@@ -72,11 +72,29 @@ def _split_dim(spec: tuple) -> Optional[int]:
     return next((i for i, s in enumerate(spec) if s == MODEL_AXIS), None)
 
 
+def tp_split_dim(name: str, rules=DIT_SHARDING_RULES) -> Optional[int]:
+    """The dim of the tensor `name` (dotted) that the rules split over
+    'model', or None where it replicates."""
+    return _split_dim(spec_for_path(name, rules))
+
+
+def tp_partial_grad(name: str, rules=DIT_SHARDING_RULES) -> bool:
+    """Whether a rank's gradient of the parameter `name` under TP is only
+    its share of the whole one, to be summed over 'model': a LoRA factor
+    the rules replicate beside a split base weight (`lora_A` of a
+    column-parallel linear, `lora_B` of a row-parallel one; see
+    `ops.common.linear_row_parallel`). Every other replicated leaf's
+    gradient is whole on every rank already."""
+    owner, _, leaf = name.rpartition(".")
+    return (leaf in ("lora_A", "lora_B") and tp_split_dim(name, rules) is None
+            and tp_split_dim(f"{owner}.weight", rules) is not None)
+
+
 def shard_tensor(name: str, tensor: torch.Tensor, axis: Optional[Axis], rules=DIT_SHARDING_RULES) -> torch.Tensor:
     """This rank's slice of `tensor` (a view) under the rules: the axis's
     index-th 1/n of the split dim; the tensor itself when it replicates or
     the axis has one rank. Raises when the dim does not divide."""
-    dim = _split_dim(spec_for_path(name, rules))
+    dim = tp_split_dim(name, rules)
     if axis is None or axis.size == 1 or dim is None:
         return tensor
     size = tensor.shape[dim]
@@ -87,13 +105,59 @@ def shard_tensor(name: str, tensor: torch.Tensor, axis: Optional[Axis], rules=DI
     return tensor.narrow(dim, axis.index * part, part)
 
 
+def model_tp_axis(model: nn.Module) -> Optional[Axis]:
+    """The 'model' axis `model` was made a TP shard over (its
+    `cfg.tp_axis`), or None without one or at one rank."""
+    axis = getattr(getattr(model, "cfg", None), "tp_axis", None)
+    return axis if axis is not None and axis.size > 1 else None
+
+
+def gather_tensor(name: str, local: torch.Tensor, axis: Optional[Axis], rules=DIT_SHARDING_RULES) -> torch.Tensor:
+    """The whole tensor `name` from every rank's slice `local`, the inverse
+    of `shard_tensor`: an all-gather along the split dim in axis order
+    (every rank of the axis calls it, in the same order); `local` itself
+    where the tensor replicates or the axis has one rank. For saves and
+    exports."""
+    from ltx2_tpu_torch.parallel.collectives import all_gather
+
+    dim = tp_split_dim(name, rules)
+    if axis is None or axis.size == 1 or dim is None:
+        return local
+    return all_gather(local.contiguous(), axis, dim)
+
+
+def whole_shape(name: str, shape, axis: Optional[Axis], rules=DIT_SHARDING_RULES) -> tuple:
+    """The shape of the whole tensor `name` whose rank's slice has `shape`."""
+    dim = tp_split_dim(name, rules)
+    shape = tuple(shape)
+    if axis is None or axis.size == 1 or dim is None:
+        return shape
+    return shape[:dim] + (shape[dim] * axis.size,) + shape[dim + 1:]
+
+
+def tp_attention_heads(cfg) -> List[Tuple[str, int]]:
+    """(attention, heads) of every attention the DiT of `cfg` runs: the
+    video stream's self- and text attention, the audio stream's, and the
+    audio<->video attentions (at the audio heads)."""
+    out = []
+    if cfg.has_video:
+        out.append(("video", cfg.num_attention_heads))
+    if cfg.has_audio:
+        out.append(("audio", cfg.audio_heads))
+    if cfg.is_av:
+        out += [("audio_to_video", cfg.audio_heads), ("video_to_audio", cfg.audio_heads)]
+    return out
+
+
 def check_tp_heads(cfg, axis: Optional[Axis]) -> None:
     """The heads of every attention must split evenly over the axis."""
     if axis is None or axis.size == 1:
         return
-    heads = [cfg.num_attention_heads] + ([cfg.audio_heads] if cfg.has_audio else [])
-    if any(h % axis.size for h in heads):
-        raise ValueError(f"tensor parallelism over {axis.size} ranks needs heads divisible by it, got {heads}")
+    heads = tp_attention_heads(cfg)
+    bad = [f"{name} {h}" for name, h in heads if h % axis.size]
+    if bad:
+        raise ValueError(f"tensor parallelism over {axis.size} ranks needs heads divisible by it, got "
+                         f"{', '.join(f'{n} {h}' for n, h in heads)} ({', '.join(bad)} do not divide)")
 
 
 def _named_tensors(module: nn.Module):

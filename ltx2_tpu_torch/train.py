@@ -1,5 +1,5 @@
-"""Fine-tune the DiT with rectified flow on one GPU, or data-parallel on
-several ranks.
+"""Fine-tune the DiT with rectified flow on one GPU, or data- and
+tensor-parallel on several ranks.
 
 The surface of the JAX package's `scripts/train.py`: random
 weights from `--seed` or a reference-format `--checkpoint`, LoRA adapters
@@ -7,9 +7,11 @@ weights from `--seed` or a reference-format `--checkpoint`, LoRA adapters
 clipping, an optional LR warmup/decay, EMA, a held-out validation loss
 (`--val-fraction` or `--val-data`), per-block remat, joint audio-video
 training (`--audio`), the fp8 frozen base (`--fp8-serving`) and exact
-mid-run resume (`--save-state`, `--save-every`, `--resume`), and data
+mid-run resume (`--save-state`, `--save-every`, `--resume`), data
 parallelism over `--dp-devices` ranks with the Adam moments (`--zero1`)
-and the gradients too (`--zero2`) sharded over 'data'. Every attention
+and the gradients too (`--zero2`) sharded over 'data', and Megatron tensor
+parallelism over `--tp-devices` ranks, alone or on a (data, model) mesh
+with the data parallelism and ZeRO. Every attention
 call of the forward, the remat recompute and the backward runs on the
 hand-written flash-attention kernels.
 
@@ -30,13 +32,21 @@ seconds and an 8-token audio context), drawn as scripts/train.py draws it.
     python -m ltx2_tpu_torch.train ... --resume state.safetensors
     torchrun --nproc-per-node 2 -m ltx2_tpu_torch.train --dp-devices 2 --zero2 --dist-backend gloo \\
         --synthetic 16 16 24 --batch-size 2 --lora-rank 16 --steps 3
+    torchrun --nproc-per-node 4 -m ltx2_tpu_torch.train --tp-devices 2 --dp-devices 2 --zero2 \\
+        --dist-backend gloo --synthetic 16 16 24 --batch-size 2 --lora-rank 16 --steps 3
 
-Data parallelism runs one process per rank (torchrun, or
-`parallel.runtime.spawn_ranks`); `--dp-devices` must equal the world, and
+Data and tensor parallelism run one process per rank (torchrun, or
+`parallel.runtime.spawn_ranks`) on a (data, model) mesh, model innermost as
+in the JAX mesh: `--tp-devices` x `--dp-devices` must equal the world, and
 ranks that share one card name `--dist-backend gloo`. Every rank draws the
-same batch indices, sigmas and noise, takes its share of the rows of each
-microbatch, and holds the same parameters after every step; rank 0 alone
-logs and writes `--save` and `--save-state`.
+same batch indices, sigmas and noise and takes its 'data' share of the rows
+of each microbatch; the model is built whole, LoRA adapters attached, and
+then sliced into each rank's TP shard (`parallel.sharding.shard_model_`; a
+`--checkpoint` is sliced as it is read), so every rank starts from world
+1's weights. The ranks of a 'model' line hold the same replicated
+parameters after every step, and the 'data' ranks the same slices; rank 0
+alone logs and writes `--save` and `--save-state` (whole tensors, gathered
+over 'model' and 'data': the files world 1 writes).
 
 The model is the full-width LTX-2.0 DiT (`--layers` blocks, 48 by default;
 with `--audio` the audio-video one); `--placeholder` takes scripts/train.py's
@@ -49,8 +59,7 @@ dataset has its audio branch frozen. `--save` writes, with `--lora-rank`,
 the adapters as a reference-format LoRA file (`generate.py --lora` fuses it
 back), otherwise the trained DiT as a reference-format checkpoint carrying
 the source checkpoint's other tensors and metadata. Not ported
-(ROADMAP.md §1, item 5b): `--tp-devices` (Megatron-TP training) and
-`--fsdp` (ZeRO-3); they raise NotImplementedError.
+(ROADMAP.md §1, item 2): `--fsdp` (ZeRO-3); it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -74,6 +83,7 @@ from ltx2_tpu_torch.ops.attention import KERNEL_HEAD_DIMS
 from ltx2_tpu_torch.ops.rope import create_position_grid
 from ltx2_tpu_torch.parallel.mesh import axis_of, create_mesh
 from ltx2_tpu_torch.parallel.runtime import initialize_distributed, world
+from ltx2_tpu_torch.parallel.sharding import check_tp_heads, shard_model_
 from ltx2_tpu_torch.training import (
     TrainBatch,
     TrainConfig,
@@ -84,6 +94,7 @@ from ltx2_tpu_torch.training import (
     make_eval_step,
     make_optimizer,
     make_train_step,
+    parameter_names,
     trainable_mask,
     zero1_opt_state_shardings,
     zero2_grad_shardings,
@@ -106,8 +117,8 @@ BENCH_SHAPE, BENCH_CONTEXT_TOKENS = (16, 16, 24), 1024
 BENCH_FRAMES, BENCH_AUDIO_TEXT_VALID = 121, 700
 VIDEO_KEYS = ("x0", "positions", "context")
 AUDIO_KEYS = ("audio_x0", "audio_positions", "audio_context", "audio_context_mask")
-# The JAX CLI's mesh flags that are not ported yet (ROADMAP.md §1, item 5b).
-UNPORTED_MESH_FLAGS = ("tp_devices", "fsdp")
+# The JAX CLI's mesh flags that are not ported yet (ROADMAP.md §1, item 2).
+UNPORTED_MESH_FLAGS = ("fsdp",)
 
 Arrays = Dict[str, np.ndarray]
 
@@ -171,7 +182,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "the CPU); gloo lets ranks share one card")
     p.add_argument("--dist-init", default=None,
                    help="the process group's init method (default env://, torchrun's environment)")
-    p.add_argument("--tp-devices", type=int, default=0, help="Megatron-TP training: not ported")
+    p.add_argument("--tp-devices", type=int, default=0,
+                   help="Megatron tensor parallelism over this many ranks (the 'model' axis, innermost; "
+                        "--tp-devices x --dp-devices = the world): each rank holds its heads and features")
     p.add_argument("--fsdp", action="store_true", help="ZeRO-3 / FSDP: not ported")
     return p
 
@@ -193,14 +206,17 @@ def check_head_dims(cfg: LTXModelConfig, device: torch.device) -> None:
 
 
 def make_model(layers: Optional[int], device: torch.device, seed: int, placeholder: bool = False,
-               checkpoint: Optional[str] = None, audio: bool = False, fp8: bool = False) -> LTXModel:
+               checkpoint: Optional[str] = None, audio: bool = False, fp8: bool = False,
+               tp_axis=None) -> LTXModel:
     """The DiT to train, remat on: from `checkpoint` (bf16, or its fp8
-    weights kept with `fp8`), else full width (or the placeholder) with
-    random weights from `seed`, quantized to fp8 with `fp8`; audio-video
-    with `audio`."""
+    weights kept with `fp8`; with `tp_axis` this rank's TP shard, each
+    tensor sliced as it is read), else full width (or the placeholder) with
+    random weights from `seed`, quantized to fp8 with `fp8`, built whole
+    (`main` shards it after attaching any adapters); audio-video with
+    `audio`."""
     if checkpoint:
         model = ModelLedger(checkpoint_path=checkpoint, device=device, include_audio=audio,
-                            keep_fp8=fp8).transformer()
+                            keep_fp8=fp8, tp_axis=tp_axis).transformer()
         model.cfg = dataclasses.replace(model.cfg, remat=True)
         check_head_dims(model.cfg, device)
         return model
@@ -214,7 +230,8 @@ def make_model(layers: Optional[int], device: torch.device, seed: int, placehold
 def save(args, model: LTXModel) -> None:
     """--save: the adapters as a LoRA file with --lora-rank, else the whole
     DiT as a reference-format checkpoint carrying the source checkpoint's
-    other tensors and metadata."""
+    other tensors and metadata. Under TP every rank of rank 0's 'model'
+    line calls it (the split tensors are gathered) and rank 0 writes."""
     if args.lora_rank:
         export_lora_checkpoint(args.save, model)
     else:
@@ -379,6 +396,8 @@ def select_trainable(model: LTXModel, args, device: torch.device) -> Tuple[list,
         raise SystemExit("--trainable and --lora-rank are mutually exclusive")
     if args.lora_rank:
         alpha = args.lora_alpha if args.lora_alpha is not None else float(args.lora_rank)
+        # World 1's draw on every rank: on a whole model, or on a TP shard
+        # (a --checkpoint read sliced) drawn whole and sliced.
         n = add_lora_params_(model, torch.Generator(device=device).manual_seed(args.seed + 100),
                              rank=args.lora_rank, alpha=alpha)
         return lora_trainable_mask(model), n
@@ -389,15 +408,15 @@ def select_trainable(model: LTXModel, args, device: torch.device) -> Tuple[list,
 
 
 def _log(rec: dict) -> None:
-    if world()[0] == 0:  # rank 0 speaks for the data-parallel ranks
+    if world()[0] == 0:  # rank 0 speaks for the data- and tensor-parallel ranks
         print(json.dumps(rec), flush=True)
 
 
 def _check_args(args) -> None:
     for flag in UNPORTED_MESH_FLAGS:
         if getattr(args, flag):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported: Megatron-TP and ZeRO-3/FSDP "
-                                      "training wait for ROADMAP.md §1, item 5b")
+            raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported: ZeRO-3/FSDP training waits "
+                                      "for ROADMAP.md §1, item 2")
     dp = max(args.dp_devices, 1)
     if dp > 1 and args.batch_size % dp != 0:
         raise SystemExit(f"--batch-size {args.batch_size} must be divisible by --dp-devices {dp} (each data shard "
@@ -423,44 +442,52 @@ def _check_args(args) -> None:
         raise SystemExit("--save-every must be >= 1")
 
 
-def _data_axis(args):
-    """--dp-devices: join the world (its ranks already launched) and return
-    the 'data' axis over every rank; None on one device."""
-    dp = max(args.dp_devices, 1)
-    if dp == 1:
-        return None
+def _mesh_axes(args):
+    """--dp-devices / --tp-devices: join the world (its ranks already
+    launched) and return (the 'data' axis, the 'model' axis) of the
+    (data, model) mesh over every rank, each None at one rank; (None, None)
+    on one device."""
+    dp, tp = max(args.dp_devices, 1), max(args.tp_devices, 1)
+    if dp * tp == 1:
+        return None, None
     initialize_distributed(init_method=args.dist_init, backend=args.dist_backend, device=args.device)
     _, n_world = world()
-    if n_world < dp:
-        raise SystemExit(f"--dp-devices needs {dp} devices but only {n_world} ranks in the world")
-    if n_world != dp:
-        raise SystemExit(f"--dp-devices uses {dp} of the world's {n_world} ranks: the DiT's layout must use every "
+    flags = "--dp-devices" if tp == 1 else "--tp-devices" if dp == 1 else "--tp-devices x --dp-devices"
+    if n_world < dp * tp:
+        raise SystemExit(f"{flags} needs {dp * tp} devices but only {n_world} ranks in the world")
+    if n_world != dp * tp:
+        raise SystemExit(f"{flags} uses {dp * tp} of the world's {n_world} ranks: the DiT's layout must use every "
                          "rank")
-    return axis_of(create_mesh(data=dp, model=1), "data")
+    mesh = create_mesh(data=dp, model=tp)
+    return axis_of(mesh, "data"), axis_of(mesh, "model")
 
 
 def main(argv=None, on_step: Optional[Callable[[int, LTXModel, float], None]] = None) -> dict:
     """Train per the flags; returns {"model", "optimizer", "ema",
     "trainable", "adapters", "losses", "step_s", "val_losses", "start",
     "state_save_s", "state_load_s", "rank", "world", "moment_bytes",
-    "grad_bytes"} (`grad_bytes`: what the last update read, the rank's
-    slices under --zero2). `on_step(i, model, loss)` runs after every
-    optimizer step, on every rank."""
+    "grad_bytes", "step_bytes"} (`grad_bytes`: what the last update read,
+    the rank's slices under --zero2; `step_bytes`: the collective bytes of
+    the last step by "axis route"). `on_step(i, model, loss)` runs after
+    every optimizer step, on every rank."""
     args = build_parser().parse_args(argv)
     _check_args(args)
-    data_axis = _data_axis(args)
+    data_axis, model_axis = _mesh_axes(args)
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     model = make_model(args.layers, device, args.seed, args.placeholder, args.checkpoint, args.audio,
-                       args.fp8_serving)
+                       args.fp8_serving, tp_axis=model_axis)
+    check_tp_heads(model.cfg, model_axis)
     arrays = _dataset(args, model.cfg)
     has_audio = any(k in arrays for k in AUDIO_KEYS)
     if has_audio and not model.cfg.is_av:
         raise SystemExit("dataset carries audio arrays but the model is video-only: pass --audio (with an "
                          "audio-video checkpoint)")
     names, n_adapters = select_trainable(model, args, device)
+    if model.cfg.tp_axis is None:  # built whole, adapters on: now this rank's shard
+        shard_model_(model, model_axis)
     if model.cfg.is_av and not has_audio:
         # The loss never reaches the audio branch, but weight decay would
         # shrink it every step: freeze it (no moments, no decay).
@@ -482,12 +509,17 @@ def main(argv=None, on_step: Optional[Callable[[int, LTXModel, float], None]] = 
     optimizer = make_optimizer(tc, params)
     layout = None
     if args.zero1 or args.zero2:
-        layout = (zero2_grad_shardings if args.zero2 else zero1_opt_state_shardings)(params, data_axis)
+        # Under TP the rule skips each leaf's TP dim, as JAX's does.
+        layout = (zero2_grad_shardings if args.zero2 else zero1_opt_state_shardings)(
+            params, data_axis, None if model_axis is None else parameter_names(model, params))
     step = make_train_step(model, optimizer, tc, accum_steps=args.accum_steps, data_axis=data_axis,
                            opt_state_shardings=layout, grad_shardings=layout if args.zero2 else None)
-    if data_axis is not None:
-        _log({"data_parallel": data_axis.size, "zero": 2 if args.zero2 else 1 if args.zero1 else 0,
+    if data_axis is not None or model_axis is not None:
+        _log({"data_parallel": 1 if data_axis is None else data_axis.size,
+              "tensor_parallel": 1 if model_axis is None else model_axis.size,
+              "zero": 2 if args.zero2 else 1 if args.zero1 else 0,
               "sharded_tensors": sum(d is not None for d in optimizer.shard_dims),
+              "model_split_tensors": sum(optimizer.model_split),
               "moment_bytes_per_rank": optimizer.moment_bytes()})
     ema = ema_update = None
     if args.ema_decay:
@@ -547,12 +579,14 @@ def main(argv=None, on_step: Optional[Callable[[int, LTXModel, float], None]] = 
             for p, e in zip(params, ema_params(ema, params)):
                 p.copy_(e)
     rank, n_world = world()
-    if args.save and rank == 0:
+    # Rank 0 writes; under TP the rest of its 'model' line joins the gathers.
+    if args.save and (rank == 0 or (model_axis is not None and (data_axis is None or data_axis.index == 0))):
         save(args, model)
     return {"model": model, "optimizer": optimizer, "ema": ema, "trainable": names, "adapters": n_adapters,
             "losses": losses, "step_s": step_s, "val_losses": val_losses, "start": start,
             "state_save_s": state_save_s, "state_load_s": state_load_s, "rank": rank, "world": n_world,
-            "moment_bytes": optimizer.moment_bytes(), "grad_bytes": step.stats["grad_bytes"]}
+            "moment_bytes": optimizer.moment_bytes(), "grad_bytes": step.stats["grad_bytes"],
+            "step_bytes": step.stats["bytes"]}
 
 
 if __name__ == "__main__":

@@ -22,7 +22,11 @@ Under ZeRO (AdamW's moments sharded over 'data') every rank calls
 `save_train_state`: the moments' slices are all-gathered one tensor at a
 time and rank 0 writes the same file world 1 writes, whole arrays as the
 JAX state holds them (`device_get`); `load_train_state` takes each rank's
-slice of it. So a state saved at one world size resumes at another.
+slice of it. Under tensor parallelism (the model's `cfg.tp_axis` set) the
+parameters, both moments and the EMA are the rank's slices of the split
+leaves: they are gathered over 'model' too (after the 'data' gather of a
+ZeRO moment), and a load slices them again. So a state saved at one world
+size, TP or DP or both, resumes at another.
 """
 
 from __future__ import annotations
@@ -37,32 +41,32 @@ import torch.nn as nn
 from ltx2_tpu_torch.loader.safetensors_io import SafetensorsFile, write_safetensors_streaming
 from ltx2_tpu_torch.parallel import collectives
 from ltx2_tpu_torch.parallel.runtime import world
-from ltx2_tpu_torch.training.trainer import AdamW
+from ltx2_tpu_torch.parallel.sharding import gather_tensor, model_tp_axis, shard_tensor, tp_split_dim, whole_shape
+from ltx2_tpu_torch.training.trainer import AdamW, parameter_names
 
 # (key, live tensor, the whole tensor's shape, the optimizer's index of the
-# parameter whose moment this rank holds a slice of, or None)
-StateEntry = Tuple[str, torch.Tensor, Tuple[int, ...], Optional[int]]
+# parameter whose moment this rank holds a slice of over 'data', or None,
+# the parameter's dotted name: its TP spec)
+StateEntry = Tuple[str, torch.Tensor, Tuple[int, ...], Optional[int], str]
 
 
 def _entries(model: nn.Module, optimizer: AdamW, ema: Optional[Sequence[torch.Tensor]]) -> List[StateEntry]:
     """Everything the state holds, in a fixed order."""
-    by_id = {id(p): name for name, p in model.named_parameters()}
-    names = [by_id.get(id(p)) for p in optimizer.params]
-    if None in names:
-        raise ValueError("train state: the optimizer holds a tensor that is not a parameter of the model")
-    shapes = [tuple(p.shape) for p in optimizer.params]
-    out = [(f"param.{n}", p, s, None) for n, p, s in zip(names, optimizer.params, shapes)]
+    names = parameter_names(model, optimizer.params)
+    tp = model_tp_axis(model)
+    shapes = [whole_shape(n, p.shape, tp) for n, p in zip(names, optimizer.params)]
+    out = [(f"param.{n}", p, s, None, n) for n, p, s in zip(names, optimizer.params, shapes)]
     for kind, moments in (("mu", optimizer.mu), ("nu", optimizer.nu)):
-        out += [(f"adam.{kind}.{n}", m, s, None if d is None else i)
+        out += [(f"adam.{kind}.{n}", m, s, None if d is None else i, n)
                 for i, (n, m, s, d) in enumerate(zip(names, moments, shapes, optimizer.shard_dims))]
     if ema is not None:
-        out += [(f"ema.{n}", e, s, None) for n, e, s in zip(names, ema, shapes)]
+        out += [(f"ema.{n}", e, s, None, n) for n, e, s in zip(names, ema, shapes)]
     return out
 
 
 def _fingerprint(entries: Sequence[StateEntry]) -> str:
     """A hash of every key, whole shape and dtype of the state, in order."""
-    spec = "\n".join(f"{k}:{shape}:{t.dtype}" for k, t, shape, _ in entries)
+    spec = "\n".join(f"{k}:{shape}:{t.dtype}" for k, t, shape, *_ in entries)
     return hashlib.sha256(spec.encode()).hexdigest()[:16]
 
 
@@ -70,22 +74,29 @@ def save_train_state(path: str, step: int, model: nn.Module, optimizer: AdamW,
                      ema: Optional[Sequence[torch.Tensor]] = None, metadata: Optional[Dict[str, str]] = None) -> None:
     """Atomically write (step, trainable tensors, AdamW's moments and
     count, EMA) to `path`; `step` is the index of the next step to run.
-    With sharded moments every rank calls it (each moment is gathered
-    whole as the writer reaches it) and rank 0 alone writes."""
+    With sharded moments or under TP every rank calls it (each tensor is
+    gathered whole, over 'data' then 'model', as the writer reaches it) and
+    rank 0 alone writes."""
     entries = _entries(model, optimizer, ema)
     meta = dict(metadata or {})
     meta.update(train_state_step=str(int(step)), train_state_adam_count=str(int(optimizer.count)),
                 train_state_fingerprint=_fingerprint(entries))
+    tp = model_tp_axis(model)
 
-    def whole(t: torch.Tensor, i: Optional[int]) -> torch.Tensor:
-        return t.detach() if i is None else collectives.all_gather(t.detach(), optimizer.axis,
-                                                                   optimizer.shard_dims[i])
+    def gathered(i: Optional[int], name: str) -> bool:
+        return i is not None or (tp is not None and tp_split_dim(name) is not None)
 
-    specs = [(k, t.dtype, shape, (lambda t=t, i=i: whole(t, i))) for k, t, shape, i in entries]
+    def whole(t: torch.Tensor, i: Optional[int], name: str) -> torch.Tensor:
+        t = t.detach()
+        if i is not None:
+            t = collectives.all_gather(t, optimizer.axis, optimizer.shard_dims[i])
+        return gather_tensor(name, t, tp)
+
+    specs = [(k, t.dtype, shape, (lambda t=t, i=i, n=n: whole(t, i, n))) for k, t, shape, i, n in entries]
     if world()[0] != 0:  # join the gathers in the writer's order; write nothing
-        for _, t, _, i in entries:
-            if i is not None:
-                whole(t, i)
+        for _, t, _, i, n in entries:
+            if gathered(i, n):
+                whole(t, i, n)
         return
     tmp = path + ".tmp"
     write_safetensors_streaming(tmp, specs, metadata=meta)
@@ -97,10 +108,12 @@ def load_train_state(path: str, model: nn.Module, optimizer: AdamW,
                      ema: Optional[Sequence[torch.Tensor]] = None) -> int:
     """Restore a `save_train_state` file in place into the parameters,
     AdamW and the EMA of the current configuration (each tensor copied onto
-    its live tensor's device; a sharded moment takes this rank's slice);
+    its live tensor's device; under TP each split leaf takes this rank's
+    slice, and a sharded moment then its 'data' slice of that);
     returns the step to run next. Raises ValueError when the file was saved
     under another configuration."""
     entries = _entries(model, optimizer, ema)
+    tp = model_tp_axis(model)
     f = SafetensorsFile(path)
     try:
         want, got = _fingerprint(entries), f.metadata.get("train_state_fingerprint")
@@ -108,13 +121,14 @@ def load_train_state(path: str, model: nn.Module, optimizer: AdamW,
             raise ValueError(
                 f"train state {path} was saved under a different configuration (fingerprint {got} != {want}): "
                 "check that --trainable, --lora-rank and --ema-decay match the original run")
-        for key, live, shape, i in entries:
+        for key, live, shape, i, name in entries:
             if key not in f:
                 raise ValueError(f"train state {path} is missing {key}")
             stored = f.get(key)
             if stored.dtype != live.dtype or tuple(stored.shape) != shape:
                 raise ValueError(f"train state {key}: stored {stored.dtype}{tuple(stored.shape)} vs the current "
                                  f"configuration's {live.dtype}{shape}")
+            stored = shard_tensor(name, stored, tp)
             live.copy_(stored if i is None else optimizer.local(i, stored))
         optimizer.count = int(f.metadata["train_state_adam_count"])
         return int(f.metadata["train_state_step"])

@@ -8,6 +8,13 @@ model), A at N(0, 1/r). Linears are matched by their dotted module names,
 which are the checkpoint's names (`transformer_blocks.3.attn1.to_q`).
 `export_lora_checkpoint` writes trained adapters as a reference-format LoRA
 file, which `generate.py --lora` fuses back (loader/lora.py).
+
+Under tensor parallelism the adapters attach to the whole model before it
+is sharded, as the JAX CLI attaches them (scripts/train.py:244-257): every
+rank draws world 1's adapters from the same generator and the TP rules
+(parallel/sharding.py) then slice them with their base weights. The export
+gathers each split factor over 'model', and world rank 0 writes the file
+world 1 writes.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ import torch.nn as nn
 from ltx2_tpu_torch.loader.export import inverse_rewrite
 from ltx2_tpu_torch.loader.safetensors_io import write_safetensors
 from ltx2_tpu_torch.ops.common import Linear
+from ltx2_tpu_torch.parallel.runtime import world
+from ltx2_tpu_torch.parallel.sharding import gather_tensor, model_tp_axis, shard_tensor, whole_shape
 from ltx2_tpu_torch.training.trainer import trainable_mask
 
 # Default targets: every attention projection + FFN linears in the blocks.
@@ -50,13 +59,20 @@ def add_lora_params_(
 ) -> int:
     """Add adapters in place to every Linear whose dotted name matches
     `targets`: A ~ N(0, 1/rank) drawn from `generator` (on the model's
-    device), B = 0, scale = alpha / rank. Returns the number added."""
+    device), B = 0, scale = alpha / rank. Returns the number added. On a
+    model already made a TP shard (its `cfg.tp_axis` set; a checkpoint read
+    sliced) each A is drawn whole, as world 1 draws it, and this rank keeps
+    its slice."""
+    axis = model_tp_axis(model)
     pat = re.compile(targets)
     n = 0
     for name, mod in model.named_modules():
         if isinstance(mod, Linear) and pat.search(name):
             attach_lora_(mod, rank)
-            mod.lora_A.normal_(generator=generator).div_(math.sqrt(rank))
+            in_whole = whole_shape(f"{name}.weight", mod.weight.shape, axis)[1]
+            a = torch.empty(rank, in_whole, device=mod.lora_A.device, dtype=torch.float32)
+            a.normal_(generator=generator)
+            mod.lora_A.copy_(shard_tensor(f"{name}.lora_A", a.div_(math.sqrt(rank)), axis))
             mod.lora_B.zero_()
             mod.lora_scale.fill_(alpha / rank)
             n += 1
@@ -82,16 +98,21 @@ def export_lora_checkpoint(path: str, model: nn.Module, metadata: Optional[Dict[
     """Write the trained adapters as a reference-format LoRA file: keys
     `diffusion_model.<reference base key>.lora_A.weight` / `.lora_B.weight`,
     fp32, the alpha / rank scale baked into B, so that the standard fuse
-    W += strength * (B @ A) gives the trained model at strength 1."""
+    W += strength * (B @ A) gives the trained model at strength 1. A model
+    made a TP shard (its `cfg.tp_axis` set): every rank of the 'model' line
+    that holds world rank 0 calls it, each split factor is gathered over
+    the axis, and rank 0 alone writes the whole adapters."""
+    axis = model_tp_axis(model)
     tensors: Dict[str, torch.Tensor] = {}
     for name, mod in model.named_modules():
         if not (isinstance(mod, Linear) and hasattr(mod, "lora_A")):
             continue
+        a, b = (gather_tensor(f"{name}.{k}", getattr(mod, k).detach(), axis) for k in ("lora_A", "lora_B"))
         # The rewrite rules match with a trailing dot, as in full keys.
         base = f"diffusion_model.{inverse_rewrite(name + '.')[:-1]}"
-        tensors[f"{base}.lora_A.weight"] = mod.lora_A.detach().to("cpu", torch.float32, copy=True)
-        tensors[f"{base}.lora_B.weight"] = (mod.lora_B.detach().to("cpu", torch.float32)
-                                            * mod.lora_scale.to("cpu", torch.float32))
+        tensors[f"{base}.lora_A.weight"] = a.to("cpu", torch.float32, copy=True)
+        tensors[f"{base}.lora_B.weight"] = b.to("cpu", torch.float32) * mod.lora_scale.to("cpu", torch.float32)
     if not tensors:
         raise ValueError("no LoRA adapters found in the model")
-    write_safetensors(path, tensors, metadata=metadata)
+    if axis is None or world()[0] == 0:
+        write_safetensors(path, tensors, metadata=metadata)

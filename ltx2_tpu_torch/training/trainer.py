@@ -1,5 +1,6 @@
-"""Rectified-flow fine-tuning of the DiT on one device or data-parallel over
-the ranks of a 'data' mesh axis (counterpart of ltx2_tpu/training/trainer.py).
+"""Rectified-flow fine-tuning of the DiT on one device, data-parallel over
+the ranks of a 'data' mesh axis, tensor-parallel over a 'model' axis, or
+both (counterpart of ltx2_tpu/training/trainer.py).
 
 Objective (rectified flow / flow matching): x_sigma = (1 - sigma) * x0 +
 sigma * noise, and the DiT predicts the velocity v = noise - x0; the loss is
@@ -23,16 +24,30 @@ What replaces the JAX machinery:
   `make_train_step(..., data_axis=)` gives each rank its rows of every
   microbatch, averages the gradients over 'data' after the backward
   (`collectives.all_reduce`, fp32) and the loss over the ranks.
+- GSPMD's differentiation through the TP-sharded forward -> a model made
+  a TP shard (`parallel.sharding.shard_model_`: its `cfg.tp_axis` set,
+  each rank holding its heads and features), whose forward carries
+  Megatron's differentiable collectives (`copy_to_model` at each
+  column-parallel input, `reduce_from_model` at each row-parallel output,
+  `all_reduce_sum` in the Q/K norms): every gradient comes out of the
+  backward as this rank's slice of the whole one, or whole where the leaf
+  replicates, except the replicated LoRA factors beside a split base
+  (`sharding.tp_partial_grad`), whose shares the gradient store sums over
+  'model'. Nothing else is reduced over 'model'; the gradients are
+  averaged over 'data' and the loss is the mean over 'data' (it is the
+  same on every rank of a 'model' line).
 - The ZeRO shardings -> the shard dim of each trainable parameter, or None
   (`zero1_opt_state_shardings`, `zero2_grad_shardings`: the rule of
-  `_data_extended_sharding` without its TP part, on each block's own
-  dims). ZeRO-1: AdamW keeps its moments for this rank's slice, updates
-  the slice and all-gathers the updated bf16 bits, so every rank holds the
-  same parameters. ZeRO-2: each gradient is reduce-scattered into this
-  rank's slice as the backward produces it, the full-size `.grad` freed.
-Not ported yet (ROADMAP.md §1, item 5b): ZeRO-3/FSDP (`param_shardings`)
-and training under tensor or sequence parallelism; they raise
-NotImplementedError.
+  `_data_extended_sharding` on each block's own dims, skipping the dim the
+  TP spec holds when given the parameters' names). ZeRO-1: AdamW keeps its
+  moments for this rank's slice, updates the slice and all-gathers the
+  updated bf16 bits, so every rank holds the same parameters. ZeRO-2: each
+  gradient is reduce-scattered into this rank's slice as the backward
+  produces it, the full-size `.grad` freed. Under TP the slices are of the
+  rank's TP slice.
+Not ported yet (ROADMAP.md §1, item 2): ZeRO-3/FSDP (`param_shardings`);
+training under sequence parallelism is refused, as the JAX CLI's training
+mesh is (data, model) only. Both raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -48,6 +63,7 @@ import torch.nn as nn
 from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelType, Modality, ltx_model_apply
 from ltx2_tpu_torch.parallel import collectives
 from ltx2_tpu_torch.parallel.mesh import Axis
+from ltx2_tpu_torch.parallel.sharding import model_tp_axis, tp_partial_grad, tp_split_dim
 
 
 @dataclasses.dataclass
@@ -208,6 +224,16 @@ def trainable_mask(model: nn.Module, predicate: Callable[[str], bool]) -> List[s
     return names
 
 
+def parameter_names(model: nn.Module, params: Sequence[torch.Tensor]) -> List[str]:
+    """The dotted names of `params` (an optimizer's) in `model`; raises
+    ValueError where one is not a parameter of the model."""
+    by_id = {id(p): name for name, p in model.named_parameters()}
+    names = [by_id.get(id(p)) for p in params]
+    if None in names:
+        raise ValueError("the optimizer holds a tensor that is not a parameter of the model")
+    return names
+
+
 def _linear_schedule(init: float, end: float, steps: int) -> Callable[[int], float]:
     def f(count: int) -> float:
         frac = 1.0 - min(max(count, 0), steps) / steps
@@ -246,39 +272,47 @@ def learning_rate_schedule(tc: TrainConfig) -> Union[float, Callable[[int], floa
 ADAM_EPS = 1e-8  # optax.adamw's default, which the JAX trainer uses
 
 
-def data_shard_dim(shape: Sequence[int], size: int) -> Optional[int]:
+def data_shard_dim(shape: Sequence[int], size: int, skip: Optional[int] = None) -> Optional[int]:
     """The dim a tensor of `shape` shards over a 'data' axis of `size`
-    ranks: the first at least `size` long that divides by it, where
-    `_data_extended_sharding` (ltx2_tpu/training/trainer.py) puts 'data'
-    when no TP spec holds a dim; None (kept whole) where no dim does, or at
-    size 1."""
+    ranks: the first at least `size` long that divides by it, other than
+    `skip` (the dim a TP spec holds), where `_data_extended_sharding`
+    (ltx2_tpu/training/trainer.py) puts 'data'; None (kept whole) where no
+    dim does, or at size 1. A TP shard's own shape gives the same answer as
+    the whole one: only the skipped dim differs."""
     if size > 1:
         for i, n in enumerate(shape):
-            if n >= size and n % size == 0:
+            if i != skip and n >= size and n % size == 0:
                 return i
     return None
 
 
-def zero1_opt_state_shardings(params: Sequence[torch.Tensor], axis: Optional[Axis]) -> List[Optional[int]]:
+def zero1_opt_state_shardings(params: Sequence[torch.Tensor], axis: Optional[Axis],
+                              names: Optional[Sequence[str]] = None) -> List[Optional[int]]:
     """ZeRO-1: for each trainable parameter, the dim its Adam moments shard
     over the 'data' `axis` (None: kept whole). Hand it with the axis to
     `make_train_step(opt_state_shardings=..., data_axis=axis)`: AdamW then
     keeps `mu` and `nu` for this rank's slice (1/D of their bytes), updates
     the slice from the all-reduced gradient and all-gathers the updated
-    slices. The JAX package stacks the blocks into (L, ...) leaves and may
-    put 'data' on L; the port's blocks are separate modules, so the rule
+    slices. With the parameters' dotted `names` (under TP) the rule skips
+    the dim each one's TP spec holds, as JAX's does; without them it runs
+    on every dim. The JAX package stacks the blocks into (L, ...) leaves and
+    may put 'data' on L; the port's blocks are separate modules, so the rule
     runs on each block's own dims."""
     size = 1 if axis is None else axis.size
-    return [data_shard_dim(tuple(p.shape), size) for p in params]
+    skips = [None] * len(params) if names is None else [tp_split_dim(n) for n in names]
+    if len(skips) != len(params):
+        raise ValueError(f"ZeRO layout: {len(skips)} names for {len(params)} parameters")
+    return [data_shard_dim(tuple(p.shape), size, skip) for p, skip in zip(params, skips)]
 
 
-def zero2_grad_shardings(params: Sequence[torch.Tensor], axis: Optional[Axis]) -> List[Optional[int]]:
+def zero2_grad_shardings(params: Sequence[torch.Tensor], axis: Optional[Axis],
+                         names: Optional[Sequence[str]] = None) -> List[Optional[int]]:
     """ZeRO-2: the same layout for the gradients. Hand it to
     `make_train_step(grad_shardings=..., data_axis=axis)` (the moments take
     it too): each gradient is reduce-scattered into this rank's slice as the
     backward produces it, and under accumulation the fp32 accumulator holds
     the slice only."""
-    return zero1_opt_state_shardings(params, axis)
+    return zero1_opt_state_shardings(params, axis, names)
 
 
 class AdamW:
@@ -300,6 +334,10 @@ class AdamW:
         self.count = 0
         self.axis: Optional[Axis] = None
         self.shard_dims: List[Optional[int]] = [None] * len(self.params)
+        # Under TP: the 'model' axis and which parameters are this rank's
+        # slice of a split leaf (the clip sums their squares over it).
+        self.model_axis: Optional[Axis] = None
+        self.model_split: List[bool] = [False] * len(self.params)
 
     def learning_rate(self, count: int) -> float:
         return self.schedule(count) if callable(self.schedule) else self.schedule
@@ -317,6 +355,13 @@ class AdamW:
         self.mu = [self.local(i, m).clone() for i, m in enumerate(self.mu)]
         self.nu = [self.local(i, v).clone() for i, v in enumerate(self.nu)]
 
+    def split_over_model_(self, split: Sequence[bool], axis: Axis) -> None:
+        """Under TP: `split[i]` says parameter i is this rank's slice of a
+        leaf split over the 'model' `axis` (its moments are that slice's)."""
+        if len(split) != len(self.params):
+            raise ValueError(f"AdamW: {len(split)} split flags for {len(self.params)} parameters")
+        self.model_axis, self.model_split = axis, list(split)
+
     def local(self, i: int, x: torch.Tensor) -> torch.Tensor:
         """This rank's slice (a view) of x, a tensor shaped as parameter i,
         along the parameter's shard dim; x itself where it is not sharded."""
@@ -331,18 +376,22 @@ class AdamW:
         return sum(t.numel() * t.element_size() for t in (*self.mu, *self.nu))
 
     def _global_norm(self, grads: List[torch.Tensor], sharded_grads: bool) -> torch.Tensor:
-        if not (sharded_grads and any(d is not None for d in self.shard_dims)):
+        sliced = [sharded_grads and d is not None for d in self.shard_dims]
+        split = self.model_split
+        if not (any(sliced) or any(split)):
             return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        # ZeRO-2: the slices' squares summed over 'data', each whole leaf
-        # (the same on every rank) counted once.
-        def squares(gs: List[torch.Tensor]) -> torch.Tensor:
+        # The squares of ZeRO-2's slices summed over 'data', those of TP's
+        # slices over 'model' (both where both split the leaf), each leaf
+        # whole on every rank counted once.
+        def squares(data_sliced: bool, model_split: bool) -> torch.Tensor:
+            gs = [g for g, a, b in zip(grads, sliced, split) if a == data_sliced and b == model_split]
             if not gs:
                 return torch.zeros((), device=grads[0].device)
             return torch.stack(torch._foreach_norm(gs, 2, dtype=torch.float32)).square().sum()
 
-        parts = [g for g, d in zip(grads, self.shard_dims) if d is not None]
-        whole = [g for g, d in zip(grads, self.shard_dims) if d is None]
-        return (collectives.all_reduce(squares(parts), self.axis) + squares(whole)).sqrt()
+        over_data = collectives.all_reduce(torch.stack([squares(True, True), squares(True, False)]), self.axis)
+        over_model = collectives.all_reduce(over_data[0] + squares(False, True), self.model_axis)
+        return (over_model + over_data[1] + squares(False, False)).sqrt()
 
     @torch.no_grad()
     def step(self, grads: Optional[List[torch.Tensor]] = None, sharded_grads: bool = False) -> None:
@@ -408,11 +457,17 @@ class _Gradients:
     free it: under accumulation into an fp32 accumulator (JAX's
     `_accumulated_value_and_grad`), under ZeRO-2 reduce-scattered first, so
     that the store holds this rank's slice of each sharded parameter (in
-    the parameter's dtype for one microbatch)."""
+    the parameter's dtype for one microbatch). Under TP the gradients of
+    the parameters flagged in `partial` (each rank's share of a replicated
+    LoRA factor's gradient) are summed over the 'model' axis in fp32 first,
+    before the 'data' average; no other gradient is reduced over 'model'."""
 
-    def __init__(self, optimizer: AdamW, axis: Optional[Axis], accum_steps: int, zero2: bool):
+    def __init__(self, optimizer: AdamW, axis: Optional[Axis], accum_steps: int, zero2: bool,
+                 model_axis: Optional[Axis] = None, partial: Optional[Sequence[bool]] = None):
         self.opt, self.axis, self.accum, self.zero2 = optimizer, axis, accum_steps, zero2
         self.size = 1 if axis is None else axis.size
+        self.model_axis = model_axis
+        self.partial = [False] * len(optimizer.params) if partial is None else list(partial)
         self.hooked = zero2 or accum_steps > 1
         self.store: List[Optional[torch.Tensor]] = [None] * len(optimizer.params)
         self.active = False
@@ -420,10 +475,15 @@ class _Gradients:
             for i, p in enumerate(optimizer.params):
                 p.register_post_accumulate_grad_hook(lambda p, i=i: self._take(i, p))
 
+    def _whole(self, i: int, g: torch.Tensor) -> torch.Tensor:
+        """g, or for a partial leaf its sum over 'model' (fp32)."""
+        return collectives.all_reduce(g, self.model_axis) if self.partial[i] else g
+
     def _take(self, i: int, p: torch.Tensor) -> None:
         if not self.active:
             return
         g, p.grad = p.grad, None
+        g = self._whole(i, g)
         prev = self.store[i]
         if self.zero2:
             d = self.opt.shard_dims[i]
@@ -450,8 +510,9 @@ class _Gradients:
         opt, n = self.opt, self.size * self.accum
         if not self.hooked:
             grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in opt.params]
-            if self.size > 1:
-                grads = [(collectives.all_reduce(g, self.axis) / self.size).to(g.dtype) for g in grads]
+            grads = [self._whole(i, g).to(g.dtype) if self.size == 1 else
+                     (collectives.all_reduce(self._whole(i, g), self.axis) / self.size).to(g.dtype)
+                     for i, g in enumerate(grads)]
             return grads
         grads = []
         for i, p in enumerate(opt.params):
@@ -491,18 +552,36 @@ def make_train_step(
     ranks. opt_state_shardings (ZeRO-1, `zero1_opt_state_shardings`) shards
     the optimizer's moments; grad_shardings (ZeRO-2, `zero2_grad_shardings`;
     the moments take the same layout) reduce-scatters each gradient as the
-    backward produces it. param_shardings (ZeRO-3/FSDP) and a model under
-    tensor or sequence parallelism raise NotImplementedError.
+    backward produces it.
+
+    A model made a TP shard over a 'model' axis (`sharding.shard_model_`,
+    its `cfg.tp_axis` set; every rank of a 'model' line calls the step with
+    the same batch): each rank trains its slices of the split leaves and
+    its copy of the replicated ones, the gradients coming whole out of the
+    differentiable forward except the replicated LoRA factors', which are
+    summed over 'model' here; AdamW's moments are the rank's slices, and
+    its clip sums the split leaves' squares over 'model'. With a
+    `data_axis` this is TP x DP; the ZeRO layouts then take the parameters'
+    names (`zero1_opt_state_shardings(..., names)`). param_shardings
+    (ZeRO-3/FSDP) and a model under sequence parallelism raise
+    NotImplementedError.
 
     `step.stats["grad_bytes"]`: the bytes of gradient the last update read
-    (full-size `.grad`s, the fp32 accumulator, or ZeRO-2's slices)."""
+    (full-size `.grad`s, the fp32 accumulator, or ZeRO-2's slices);
+    `step.stats["bytes"]`: the collective bytes the last step moved, by
+    "axis route" (`collectives.STATS["axes"]`: 'model' and 'data' apart)."""
     if param_shardings is not None:
-        raise NotImplementedError("param_shardings: ZeRO-3/FSDP training is not ported (ROADMAP.md §1, item 5b)")
-    for name in ("tp_axis", "sequence_axis"):
-        axis = getattr(model.cfg, name, None)
-        if axis is not None and axis.size > 1:
-            raise NotImplementedError(f"{name}: training under tensor or sequence parallelism is not ported "
-                                      "(ROADMAP.md §1, item 5b)")
+        raise NotImplementedError("param_shardings: ZeRO-3/FSDP training is not ported (ROADMAP.md §1, item 2)")
+    seq = getattr(model.cfg, "sequence_axis", None)
+    if seq is not None and seq.size > 1:
+        raise NotImplementedError("sequence_axis: training under sequence parallelism is not supported (the "
+                                  "training mesh is (data, model), as the JAX CLI's)")
+    tp = model_tp_axis(model)
+    partial = None
+    if tp is not None:
+        names = parameter_names(model, optimizer.params)
+        optimizer.split_over_model_([tp_split_dim(n) is not None for n in names], tp)
+        partial = [tp_partial_grad(n) for n in names]
     if grad_shardings is not None:
         if opt_state_shardings is not None and list(opt_state_shardings) != list(grad_shardings):
             raise ValueError("ZeRO-2: the moments take the gradients' layout; pass one layout")
@@ -510,8 +589,9 @@ def make_train_step(
     size, index = (1, 0) if data_axis is None else (data_axis.size, data_axis.index)
     if opt_state_shardings is not None:
         optimizer.shard_(opt_state_shardings, data_axis)
-    grads = _Gradients(optimizer, data_axis, accum_steps, zero2=grad_shardings is not None and size > 1)
-    stats = {"grad_bytes": 0}
+    grads = _Gradients(optimizer, data_axis, accum_steps, zero2=grad_shardings is not None and size > 1,
+                       model_axis=tp, partial=partial)
+    stats = {"grad_bytes": 0, "bytes": {}}
 
     def step(batch: TrainBatch, generator: Optional[torch.Generator] = None,
              sigmas: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
@@ -524,6 +604,7 @@ def make_train_step(
             raise ValueError(f"a microbatch of {mb} rows (batch {b} / --accum-steps {accum_steps}) does not divide "
                              f"over the {size} ranks of 'data'")
         own = slice(index * (mb // size), (index + 1) * (mb // size))
+        before = {k: dict(v) for k, v in collectives.STATS["axes"].items()}
         total = torch.zeros((), device=batch.x0.device)
         grads.active = True
         try:
@@ -538,7 +619,10 @@ def make_train_step(
         stats["grad_bytes"] = grads.nbytes()
         optimizer.step(grads.finish(), sharded_grads=grads.zero2)
         loss = total / accum_steps
-        return loss if size == 1 else collectives.all_reduce(loss, data_axis) / size
+        loss = loss if size == 1 else collectives.all_reduce(loss, data_axis) / size
+        stats["bytes"] = {k: {d: n - before.get(k, {}).get(d, 0) for d, n in v.items()}
+                          for k, v in collectives.STATS["axes"].items()}
+        return loss
 
     step.stats = stats
     return step

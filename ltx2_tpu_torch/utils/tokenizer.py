@@ -68,6 +68,17 @@ def _refuse(kind: str, spec) -> NotImplementedError:
 # Symbols (category So) with the Alphabetic property: circled, parenthesized
 # and squared Latin letters.
 _ALPHABETIC_SYMBOLS = ((0x24B6, 0x24E9), (0x1F130, 0x1F149), (0x1F150, 0x1F169), (0x1F170, 0x1F189))
+# Word characters assigned in Unicode 15.1 and 16.0, which the regex crate's
+# tables hold and Python 3.12's unicodedata (Unicode 15.0) calls unassigned.
+_NEWER_WORD_CHARS = (
+    (0x897, 0x897), (0x1C89, 0x1C8A), (0xA7CB, 0xA7CD), (0xA7DA, 0xA7DC), (0x105C0, 0x105F3),
+    (0x10D40, 0x10D65), (0x10D69, 0x10D6D), (0x10D6F, 0x10D85), (0x10EC2, 0x10EC4), (0x10EFC, 0x10EFC),
+    (0x11380, 0x11389), (0x1138B, 0x1138B), (0x1138E, 0x1138E), (0x11390, 0x113B5), (0x113B7, 0x113C0),
+    (0x113C2, 0x113C2), (0x113C5, 0x113C5), (0x113C7, 0x113CA), (0x113CC, 0x113D3), (0x113E1, 0x113E2),
+    (0x116D0, 0x116E3), (0x11BC0, 0x11BE0), (0x11BF0, 0x11BF9), (0x11F5A, 0x11F5A), (0x13460, 0x143FA),
+    (0x16100, 0x16139), (0x16D40, 0x16D6C), (0x16D70, 0x16D79), (0x18CFF, 0x18CFF), (0x1CCF0, 0x1CCF9),
+    (0x1E5D0, 0x1E5FA), (0x2EBF0, 0x2EE5D),
+)
 
 
 def _is_word_char(c: str) -> bool:
@@ -77,7 +88,8 @@ def _is_word_char(c: str) -> bool:
     cat = unicodedata.category(c)
     if cat[0] in "LM" or cat in ("Nd", "Nl", "Pc") or c in "\u200c\u200d":
         return True
-    return any(lo <= ord(c) <= hi for lo, hi in _ALPHABETIC_SYMBOLS)
+    return any(lo <= ord(c) <= hi for lo, hi in _ALPHABETIC_SYMBOLS) or (
+        cat == "Cn" and any(lo <= ord(c) <= hi for lo, hi in _NEWER_WORD_CHARS))
 
 
 # ---- normalized strings: text with each character's original offset --------

@@ -246,8 +246,8 @@ UNPORTED = {
 
 @pytest.mark.parametrize("option", sorted(UNPORTED))
 def test_unported_options_raise(weights, option):
-    """The unported training mesh flags (--fsdp, --tp-devices) still raise
-    NotImplementedError naming themselves; --pp-stages exits at world 1 as
+    """The unported training mesh flag (--fsdp) still raises
+    NotImplementedError naming itself; --pp-stages exits at world 1 as
     the JAX CLI does; a pipeline mesh and the loops' pipeline axis are
     taken."""
     pipe = OneStagePipeline(_port(weights)[0])

@@ -205,3 +205,18 @@ def test_parsed_once_per_path(tmp_path_factory):
     directory, _ = load("replace", tmp_path_factory)
     assert port_tokenizer.load_tokenizer(directory) is port_tokenizer.load_tokenizer(directory)
     assert port_tokenizer.has_tokenizer(directory) and not port_tokenizer.has_tokenizer(None)
+
+
+@pytest.mark.parametrize("name", ["replace", "no_byte_fallback", "no_byte_fallback_fuse_unk"])
+def test_single_word_next_to_newer_unicode_letters(name, tmp_path_factory):
+    """A `single_word` added token glued to letters and digits of Unicode
+    15.1 and 16.0 (Egyptian hieroglyphs, Garay, Kirat Rai, CJK Ext. I), which
+    the `tokenizers` regex tables know and Python's unicodedata may not, is not
+    matched; next to an unassigned code point it is."""
+    directory, ref = load(name, tmp_path_factory)
+    prompts = [c + "fox" for c in "\U00013460\U000143fa\U00010d40\U00016d70\U0002ebf0ࢗ\U0001ccf9\U0003fffd"]
+    prompts += ["fox" + c for c in "\U00013460\U0001e5d0Ɤ\U000116e3"]
+    ids, mask = port_tokenizer.tokenize(directory, prompts, max_length=16)
+    want_ids, want_mask = reference(ref, prompts, 16)
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_array_equal(mask, want_mask)

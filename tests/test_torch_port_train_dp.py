@@ -485,12 +485,13 @@ def test_refusal_words_are_the_jax_clis():
 
 
 def test_sharding_arguments_refused_by_name(trees):
-    """ZeRO-3/FSDP and training under TP still raise, naming themselves."""
+    """ZeRO-3/FSDP and training under sequence parallelism still raise,
+    naming themselves (training under TP is ported)."""
     dit = dit_from_numpy(trees["video"], model.LTXModelConfig(**VIDEO))
     trainable_mask(dit, lambda name: "attn1" in name)
     opt = make_optimizer(TrainConfig(), [p for p in dit.parameters() if p.requires_grad])
     with pytest.raises(NotImplementedError, match="param_shardings: ZeRO-3/FSDP"):
         make_train_step(dit, opt, param_shardings=[0])
-    dit.cfg = dataclasses.replace(dit.cfg, tp_axis=Axis("model", 2, 0, (0, 1)))
-    with pytest.raises(NotImplementedError, match="tp_axis: training under tensor"):
+    dit.cfg = dataclasses.replace(dit.cfg, sequence_axis=Axis("seq", 2, 0, (0, 1)))
+    with pytest.raises(NotImplementedError, match="sequence_axis: training under sequence parallelism"):
         make_train_step(dit, opt)

@@ -287,9 +287,12 @@ def test_unported_options_raise(lora_tree):
     opt = trainer.make_optimizer(trainer.TrainConfig(), [p for p in dit.parameters() if p.requires_grad])
     with pytest.raises(NotImplementedError, match="ZeRO-3/FSDP"):
         trainer.make_train_step(dit, opt, param_shardings=object())
-    for flag in (["--fsdp"], ["--tp-devices", "2"]):
-        with pytest.raises(NotImplementedError, match=f"{flag[0]} is not ported"):
-            train.main(["--placeholder", "--device", "cpu", "--synthetic", "1", "2", "2", *flag])
+    with pytest.raises(NotImplementedError, match="--fsdp is not ported"):
+        train.main(["--placeholder", "--device", "cpu", "--synthetic", "1", "2", "2", "--fsdp"])
+    # --tp-devices is ported: at one rank it trains as world 1.
+    res = train.main(["--placeholder", "--device", "cpu", "--layers", "1", "--synthetic", "1", "2", "2",
+                      "--steps", "1", "--lora-rank", "2", "--tp-devices", "1"])
+    assert len(res["losses"]) == 1 and np.isfinite(res["losses"][0]) and res["world"] == 1
     # Audio fields on a video-only model: the JAX package's ValueError.
     _, pb = _batches(masked=False)
     with pytest.raises(ValueError, match="video-only"):
