@@ -5183,10 +5183,12 @@ def _tp_argv(npz: str, tp: int, dp: int, flags: list, lora: bool, save=None) -> 
 
 def _tp_train_run(argv: list) -> dict:
     """train.main(argv) on this rank: losses, step seconds, each step's
-    hashes of the replicated parameters and of all this rank's slices, peak
-    memory, moment bytes and the bytes the ZeRO rule expects of this rank,
-    collective bytes by operation and route (forward and backward apart)
-    and by axis (the run, and its last step), K1 / K3 launches and heads a
+    hashes of the replicated parameters and of all this rank's slices
+    (one a tensor; under --fsdp also each trainable tensor's hash gathered
+    over 'data'), peak memory, parameter and moment bytes and the bytes the
+    ZeRO (or FSDP) rule expects of this rank, collective bytes by operation
+    and route (forward and backward apart) and by axis (the run, and its
+    last step also by operation and axis), K1 / K3 launches and heads a
     launch, the exports it called, the files it wrote."""
     import torch
 
@@ -5194,6 +5196,7 @@ def _tp_train_run(argv: list) -> dict:
     from ltx2_tpu_torch.loader import export as E
     from ltx2_tpu_torch.ops import attention as A
     from ltx2_tpu_torch.parallel import collectives
+    from ltx2_tpu_torch.parallel.fsdp import fsdp_dim, model_fsdp_axis
     from ltx2_tpu_torch.parallel.sharding import tp_split_dim
     from ltx2_tpu_torch.training import checkpoint as C
     from ltx2_tpu_torch.training import lora as L
@@ -5202,8 +5205,15 @@ def _tp_train_run(argv: list) -> dict:
 
     def on_step(i, model, loss):
         named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-        hashes.append({"replicated": _param_hash([p for n, p in named if tp_split_dim(n) is None]).tolist(),
-                       "all": _param_hash([p for _, p in named]).tolist()})
+        rec = {"replicated": _param_hash([p for n, p in named if tp_split_dim(n) is None]).tolist(),
+               "all": _param_hash([p for _, p in named]).tolist()}
+        axis = model_fsdp_axis(model)
+        if axis is not None:  # every rank gathers, in one order
+            rec["sliced"] = [fsdp_dim(p) is not None for _, p in named]
+            rec["gathered"] = _param_hash([p if fsdp_dim(p) is None else
+                                           collectives.all_gather(p.detach(), axis, fsdp_dim(p))
+                                           for _, p in named]).tolist()
+        hashes.append(rec)
 
     saved = (T.export_lora_checkpoint, L.write_safetensors, E.write_safetensors_streaming,
              C.write_safetensors_streaming)
@@ -5225,11 +5235,16 @@ def _tp_train_run(argv: list) -> dict:
     torch.cuda.synchronize()
     counts = _counts()
     opt = res["optimizer"]
+    if model_fsdp_axis(res["model"]) is not None:
+        layout = _fsdp_layout_bytes(res["model"], opt)
+    else:
+        layout = {"moments": _tp_moment_bytes(res["model"], opt)}
     return {"losses": res["losses"], "step_s": res["step_s"], "hashes": hashes, "calls": calls, "writes": writes,
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "moment_bytes": res["moment_bytes"],
-            "moment_bytes_expected": _tp_moment_bytes(res["model"], opt),
-            "bytes_by_route": copy.deepcopy(collectives.STATS["bytes"]),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "param_bytes": res["param_bytes"],
+            "moment_bytes": res["moment_bytes"], "moment_bytes_expected": layout["moments"],
+            "layout_bytes": layout, "bytes_by_route": copy.deepcopy(collectives.STATS["bytes"]),
             "bytes_by_axis": copy.deepcopy(collectives.STATS["axes"]), "last_step_bytes": res["step_bytes"],
+            "last_step_op_bytes": res["step_op_bytes"],
             "launches": {"fwd": counts["fwd"], "bwd": counts["bwd"]},
             "heads": {"fwd": dict(A.flash_attention.launches_by_heads),
                       "bwd": dict(A.flash_attention_bwd_kernel.launches_by_heads)}}
@@ -5252,6 +5267,33 @@ def _tp_moment_bytes(model, opt) -> int:
         sliced = dp is not None and data_shard_dim(local, dp.size, tp_split_dim(name) if split else None) is not None
         total += 2 * p.element_size() * math.prod(whole) // (tp.size if split else 1) // (dp.size if sliced else 1)
     return total
+
+
+def _fsdp_layout_bytes(model, opt) -> dict:
+    """The bytes FSDP's rule gives this rank, from each leaf's whole shape
+    (world 1's): its 1/TP where the TP rules split it, then its 1/DP where
+    the first dim other than the TP one divides (failing where the model
+    sliced another dim): {"params": every parameter's, "moments": mu and nu
+    of the trainable ones, "whole": world 1's parameter bytes}."""
+    from ltx2_tpu_torch.parallel.fsdp import fsdp_dim, model_fsdp_axis
+    from ltx2_tpu_torch.parallel.sharding import tp_split_dim, whole_param_shape
+    from ltx2_tpu_torch.training import data_shard_dim
+
+    tp, dp = model.cfg.tp_axis, model_fsdp_axis(model)
+    trainable = {id(p) for p in opt.params}
+    out = {"params": 0, "moments": 0, "whole": 0}
+    for name, p in model.named_parameters():
+        whole, t = whole_param_shape(name, p.shape, model, fsdp_dim(p)), tp_split_dim(name)
+        split = tp is not None and t is not None
+        local = tuple(n // tp.size if split and i == t else n for i, n in enumerate(whole))
+        d = data_shard_dim(local, dp.size, t)
+        if d != fsdp_dim(p):
+            raise AssertionError(f"FSDP: {name} sliced along {fsdp_dim(p)}, the rule gives {d}")
+        held = math.prod(local) // (dp.size if d is not None else 1) * p.element_size()
+        out["params"] += held
+        out["moments"] += 2 * held if id(p) in trainable else 0
+        out["whole"] += math.prod(whole) * p.element_size()
+    return out
 
 
 def _train_tp_rank(rank: int, world: int, npz: str, directory: str, jobs: list) -> dict:
@@ -5299,23 +5341,20 @@ def phase_train_tp(smi: str) -> tuple:
     ZeRO where a dim divides), the K1 / K3 launches are as reckoned with
     TP_HEADS / TP heads each, and only rank 0 writes the --save file, whose
     names and shapes are world 1's. Returns (record, the K1 / K3 launches by
-    path, summed over the ranks)."""
+    path, summed over the ranks, world 1's runs for phase_train_fsdp:
+    {"runs": {lora: run}, "lora_shapes": the --save file's})."""
     import datetime
     import os
     import tempfile
 
     import torch
 
-    from ltx2_tpu_torch import train as T
-    from ltx2_tpu_torch.models.transformer.model import LTXModelConfig
     from ltx2_tpu_torch.parallel.runtime import spawn_ranks
 
     t_phase = time.perf_counter()
     directory = tempfile.mkdtemp(prefix="ltx2_train_tp_")
     try:
-        arrays = T.synthetic_dataset(*T.BENCH_SHAPE, TP_TRAIN_BATCH, LTXModelConfig(), seed=4,
-                                     context_tokens=T.BENCH_CONTEXT_TOKENS)
-        npz = _write_npz(directory, "tp.npz", arrays)
+        npz = _tp_npz(directory)
         world1 = {lora: _tp_train_run(_tp_argv(npz, 1, 1, [], lora, f"{directory}/world1.safetensors" if lora
                                                 else None)) for lora in (False, True)}
         world1_lora_shapes = _safetensors_shapes(f"{directory}/world1.safetensors")
@@ -5393,6 +5432,146 @@ def phase_train_tp(smi: str) -> tuple:
             record["routes"][backend] = out
         record["seconds"] = time.perf_counter() - t_phase
         log(f"train TP phase: {record['seconds']:.1f} s, launches {json.dumps(counts)} | {smi}")
+        return record, counts, {"runs": world1, "lora_shapes": world1_lora_shapes}
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def _tp_npz(directory: str) -> str:
+    """phase_train_tp's data (and phase_train_fsdp's): TP_TRAIN_BATCH
+    samples at bench_train's shape, 1024 text tokens, drawn from seed 4."""
+    from ltx2_tpu_torch import train as T
+    from ltx2_tpu_torch.models.transformer.model import LTXModelConfig
+
+    arrays = T.synthetic_dataset(*T.BENCH_SHAPE, TP_TRAIN_BATCH, LTXModelConfig(), seed=4,
+                                 context_tokens=T.BENCH_CONTEXT_TOKENS)
+    return _write_npz(directory, "tp.npz", arrays)
+
+
+# ---- ZeRO-3/FSDP training (train.py --fsdp): every parameter sliced over
+# 'data' (under TP, of the rank's TP slice), each block's weights gathered
+# inside its remat unit and its gradients reduce-scattered; DP-2 on 2 ranks
+# and TP-2 x DP-2 on 4, sharing the card over gloo (and over nccl where the
+# machine has a card per rank), against phase_train_tp's world-1 runs of
+# the same data and steps.
+
+# name -> (TP, DP, LoRA rank 16 on the fp8 base with --save; else a full
+# fine-tune of TP_TRAINABLE)
+FSDP_TRAIN_CONFIGS = {"dp2": (1, 2, False), "tp2_dp2_lora_fp8": (2, 2, True)}
+FSDP_TRAIN_TIMEOUT_S = 600
+
+
+def _train_fsdp_rank(rank: int, world: int, npz: str, directory: str, jobs: list) -> dict:
+    """One rank of phase_train_fsdp: each of `jobs` (names of
+    FSDP_TRAIN_CONFIGS whose layout is this world) through train.main
+    --fsdp."""
+    out = {}
+    for name in jobs:
+        tp, dp, lora = FSDP_TRAIN_CONFIGS[name]
+        t0 = time.perf_counter()
+        save = f"{directory}/{name}.safetensors" if lora else None
+        out[name] = _tp_train_run(_tp_argv(npz, tp, dp, ["--fsdp"], lora, save))
+        out[name]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _fsdp_checks(name: str, per_rank: list, ref: dict, tp: int, dp: int) -> None:
+    """phase_train_fsdp's gates on one job's ranks (see there)."""
+    expected = _tp_expected()
+    heads = {k: {TP_HEADS // tp: n} for k, n in expected.items()}
+    for i, r in enumerate(per_rank):
+        if len(r["losses"]) != TP_TRAIN_STEPS or not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"FSDP {name} rank {i} losses {r['losses']}")
+        if r["losses"] != per_rank[0]["losses"] or len(r["hashes"]) != TP_TRAIN_STEPS:
+            raise AssertionError(f"FSDP {name} rank {i}: losses {r['losses']} against rank 0's "
+                                 f"{per_rank[0]['losses']}, {len(r['hashes'])} steps hashed")
+        if r["launches"] != expected or r["heads"] != heads:
+            raise AssertionError(f"FSDP {name} rank {i} launches {r['launches']} heads {r['heads']}, expected "
+                                 f"{expected} at {heads}")
+        layout = r["layout_bytes"]
+        if (r["param_bytes"], r["moment_bytes"]) != (layout["params"], layout["moments"]) \
+                or layout["whole"] != ref["param_bytes"]:
+            raise AssertionError(f"FSDP {name} rank {i}: parameter and moment bytes {r['param_bytes']}, "
+                                 f"{r['moment_bytes']}; the layout gives {layout} (world 1 {ref['param_bytes']})")
+    for m in range(tp):  # a 'data' line: the same parameters gathered, other slices
+        line = [per_rank[d * tp + m]["hashes"] for d in range(dp)]
+        for step, first in enumerate(line[0]):
+            if any(x[step]["gathered"] != first["gathered"] for x in line):
+                raise AssertionError(f"FSDP {name} step {step}: the gathered parameters differ along 'data'")
+            for x in line[1:]:
+                if any(s and a == b for s, a, b in zip(first["sliced"], first["all"], x[step]["all"])):
+                    raise AssertionError(f"FSDP {name} step {step}: a rank holds its 'data' peer's slice")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(per_rank[0]["losses"], ref["losses"]))
+    if rel > TOL_TP_LOSS_REL:
+        raise AssertionError(f"FSDP {name} losses {per_rank[0]['losses']} against world 1's {ref['losses']} "
+                             f"(limit {TOL_TP_LOSS_REL} relative)")
+
+
+def phase_train_fsdp(smi: str, world1: dict) -> tuple:
+    """ZeRO-3/FSDP training on the card through `train.main --fsdp`, against
+    phase_train_tp's world-1 runs (`world1`; the same data, blocks and
+    steps, not run again): DP-2 on 2 ranks, a full fine-tune of
+    TP_TRAINABLE, and TP-2 x DP-2 on 4, LoRA rank 16 on the fp8 base with
+    --save (`spawn_ranks`). Fails unless each rank's losses are within
+    TOL_TP_LOSS_REL of world 1's, after each step the ranks of each 'data'
+    line hold the same parameters gathered and other slices, each rank's
+    parameter and moment bytes are what the FSDP rule gives from world 1's
+    leaves, the K1 / K3 launches are as reckoned with TP_HEADS / TP heads
+    each, and only rank 0 writes the --save file, whose names and shapes
+    are world 1's. Returns (record, the K1 / K3 launches by path, summed
+    over the ranks)."""
+    import datetime
+    import os
+    import tempfile
+
+    import torch
+
+    from ltx2_tpu_torch.parallel.runtime import spawn_ranks
+
+    t_phase = time.perf_counter()
+    directory = tempfile.mkdtemp(prefix="ltx2_train_fsdp_")
+    try:
+        npz = _tp_npz(directory)
+        record, counts = {"world_1_param_bytes": {("lora_fp8" if k else "trainable"): r["param_bytes"]
+                                                  for k, r in world1["runs"].items()}, "routes": {}}, {}
+        for backend in ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 4 else []):
+            out = {}
+            for world in (2, 4):
+                jobs = [k for k, (tp, dp, _) in FSDP_TRAIN_CONFIGS.items() if tp * dp == world]
+                t0 = time.perf_counter()
+                ranks = spawn_ranks(_train_fsdp_rank, world, os.path.join(directory, f"{backend}{world}"), npz,
+                                    directory, jobs, backend=backend, device="cuda", timeout=FSDP_TRAIN_TIMEOUT_S,
+                                    collective_timeout=datetime.timedelta(seconds=FSDP_TRAIN_TIMEOUT_S))
+                out[f"wall_s_world_{world}"] = time.perf_counter() - t0
+                for name in jobs:
+                    tp, dp, lora = FSDP_TRAIN_CONFIGS[name]
+                    per_rank, ref = [r[name] for r in ranks], world1["runs"][lora]
+                    rec = {"ranks": [{k: r[k] for k in ("losses", "step_s", "peak_gb", "param_bytes", "moment_bytes",
+                                                        "layout_bytes", "bytes_by_route", "bytes_by_axis",
+                                                        "last_step_bytes", "last_step_op_bytes", "launches",
+                                                        "heads", "seconds")} for r in per_rank],
+                           "world_1_losses": ref["losses"], "world_1_param_bytes": ref["param_bytes"],
+                           "world_1_moment_bytes": ref["moment_bytes"],
+                           "loss_rel_err_vs_world_1": max(abs(a - b) / abs(b) for a, b in
+                                                          zip(per_rank[0]["losses"], ref["losses"])),
+                           "launches_expected_per_rank": _tp_expected()}
+                    log(f"train FSDP over {backend}, {name} (TP {tp} x DP {dp}, {TP_TRAIN_LAYERS} layers, batch "
+                        f"{TP_TRAIN_BATCH}): {json.dumps(rec)} | {smi}")
+                    _fsdp_checks(name, per_rank, ref, tp, dp)
+                    if lora:
+                        path = f"{directory}/{name}.safetensors"
+                        writes, calls = [r["writes"] for r in per_rank], [r["calls"] for r in per_rank]
+                        if writes != [[path]] + [[]] * (world - 1) or calls != [[path]] * world:
+                            raise AssertionError(f"FSDP LoRA --save: writes by rank {writes}, exports by rank {calls}")
+                        if _safetensors_shapes(path) != world1["lora_shapes"]:
+                            raise AssertionError("FSDP LoRA --save: the file's names or shapes are not world 1's")
+                        os.remove(path)
+                    out[name] = rec
+                    counts[f"train_fsdp_{backend}_{name}"] = {k: sum(r["launches"][k] for r in per_rank)
+                                                              for k in ("fwd", "bwd")}
+            record["routes"][backend] = out
+        record["seconds"] = time.perf_counter() - t_phase
+        log(f"train FSDP phase: {record['seconds']:.1f} s, launches {json.dumps(counts)} | {smi}")
         return record, counts
     finally:
         shutil.rmtree(directory, ignore_errors=True)
@@ -7463,9 +7642,12 @@ def main():
     clock.append(("training_av", time.perf_counter()))
     train_dp, dp_counts = phase_train_dp(smi)
     clock.append(("train_dp", time.perf_counter()))
-    train_tp, tp_counts = phase_train_tp(smi)
+    train_tp, tp_counts, tp_world1 = phase_train_tp(smi)
     clock.append(("train_tp", time.perf_counter()))
-    dp_counts = {**dp_counts, **tp_counts}  # the scale-out training paths, DP then TP
+    train_fsdp, fsdp_counts = phase_train_fsdp(smi, tp_world1)
+    clock.append(("train_fsdp", time.perf_counter()))
+    del tp_world1
+    dp_counts = {**dp_counts, **tp_counts, **fsdp_counts}  # the scale-out training paths, DP, TP, FSDP
     # The training paths of the AV slice and their launch counts, each read
     # right after the path ran (the resume path's: the uninterrupted run).
     av_paths = {"train_av": av_train["train_av_counts"], "train_av_fp8": av_train["train_av_fp8_counts"],
@@ -7703,7 +7885,7 @@ def main():
         },
     ], "train": {"timing": timing, "gradcheck": gradcheck,
                   "audio_video": {k: v for k, v in av_train.items() if not k.endswith("_counts")},
-                  "data_parallel": train_dp, "tensor_parallel": train_tp},
+                  "data_parallel": train_dp, "tensor_parallel": train_tp, "fsdp": train_fsdp},
         "bench_e2e": serve, "fp8_step": fp8_step, "checkpoint": checkpoint, "temporal_upscaler": temporal,
         "keyframe_and_ti2vid_hq": keyframe_hq, "video_paths": video_paths, "full_vae": full_vae, "webp": webp,
         "scale_out": scale_out, "stills": stills,

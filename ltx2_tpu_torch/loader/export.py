@@ -8,7 +8,8 @@ the card reloads through `load_transformer_params` and stays loadable by
 the reference implementation. A DiT made a TP shard (its `cfg.tp_axis`
 set) exports whole tensors: each split one is all-gathered over 'model' as
 the writer reaches it, every rank of the axis joining, and world rank 0
-alone writes.
+alone writes. A DiT sliced for FSDP (its `cfg.fsdp_axis` set) gathers each
+sliced tensor over 'data' first, every rank joining.
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ from ltx2_tpu_torch.loader.convert import to_dtype
 from ltx2_tpu_torch.loader.fp8 import is_quantized
 from ltx2_tpu_torch.loader.safetensors_io import DTYPES, SafetensorsFile, Spec, write_safetensors_streaming
 from ltx2_tpu_torch.loader.weight_loader import DIFFUSION_PREFIX
+from ltx2_tpu_torch.parallel.fsdp import fsdp_dim, model_fsdp_axis
 from ltx2_tpu_torch.parallel.runtime import world
-from ltx2_tpu_torch.parallel.sharding import gather_tensor, model_tp_axis, tp_split_dim, whole_shape
+from ltx2_tpu_torch.parallel.sharding import gather_whole, model_tp_axis, tp_split_dim, whole_param_shape
 
 # Inverse of weight_loader's KEY_REWRITE_RULES: module name -> checkpoint key.
 INVERSE_KEY_RULES = [
@@ -50,18 +52,19 @@ def _tensors(model: nn.Module) -> Iterator:
 
 def iter_checkpoint_specs(model: nn.Module, dtype: torch.dtype = torch.float32) -> Iterator[Spec]:
     """Streaming-writer specs (name, dtype, shape, producer) of the DiT's
-    tensors in `dtype`, without touching their data; under TP each split
-    tensor's whole shape, its producer gathering it over 'model'. Refuses a
+    tensors in `dtype`, without touching their data; under TP and FSDP each
+    sliced tensor's whole shape, its producer gathering it over 'data' and
+    'model'. Refuses a
     model that holds quantized weights: their codes written as values
     beside a stale scale would reload corrupted."""
     if is_quantized(model):
         raise ValueError("cannot export a quantized (fp8-kept / int8) model as a reference checkpoint: load it with "
                          "keep_fp8=False before exporting")
-    tp = model_tp_axis(model)
     for name, t in _tensors(model):
-        yield (DIFFUSION_PREFIX + inverse_rewrite(name), dtype, whole_shape(name, t.shape, tp),
-               (lambda t=t, name=name: to_dtype(gather_tensor(name, t.detach(), tp).to("cpu", torch.float32),
-                                                dtype)))
+        d = fsdp_dim(t)
+        yield (DIFFUSION_PREFIX + inverse_rewrite(name), dtype, whole_param_shape(name, t.shape, model, d),
+               (lambda t=t, name=name, d=d: to_dtype(gather_whole(name, t.detach(), model, d).to("cpu", torch.float32),
+                                                     dtype)))
 
 
 def iter_fp8_checkpoint_specs(model: nn.Module) -> Iterator[Spec]:
@@ -92,13 +95,13 @@ def export_transformer_checkpoint(
     keeps every component in one file). A source `weight_scale` whose weight
     the export re-emits dequantized is dropped: on reload it would
     "dequantize" the new weight again. Host memory: one tensor. Under TP
-    every rank of the 'model' line holding world rank 0 calls it; the
-    others join the gathers and write nothing."""
+    every rank of the 'model' line holding world rank 0 calls it, under
+    FSDP every rank; the others join the gathers and write nothing."""
     specs = list(iter_checkpoint_specs(model, dtype))
-    tp = model_tp_axis(model)
-    if tp is not None and world()[0] != 0:  # join the gathers in the writer's order; write nothing
-        for (name, _t), spec in zip(_tensors(model), specs):
-            if tp_split_dim(name) is not None:
+    tp, fsdp = model_tp_axis(model), model_fsdp_axis(model)
+    if (tp is not None or fsdp is not None) and world()[0] != 0:  # join the gathers in the writer's order
+        for (name, t), spec in zip(_tensors(model), specs):
+            if (tp is not None and tp_split_dim(name) is not None) or fsdp_dim(t) is not None:
                 spec[3]()
         return
     dit_keys = {name for name, _d, _s, _p in specs}

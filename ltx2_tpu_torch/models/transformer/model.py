@@ -38,7 +38,10 @@ parallel/sequence_parallel.py, which sets it for one forward through
 `ltx_model_apply(..., cfg=)`) and `tp_axis` (the module holds this rank's
 TP shard: parallel/sharding.py::shard_dit_params sets it on `model.cfg`)
 reach every block's streams and attentions. The RoPE tables stay those of
-all heads; each attention takes its rank's.
+all heads; each attention takes its rank's. `fsdp_axis` (ZeRO-3/FSDP: the
+module holds this rank's slices over 'data', parallel/fsdp.py) makes the
+forward gather the non-block leaves once and each block's weights inside
+the unit remat recomputes, so only one block's whole weights live at a time.
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ from ltx2_tpu_torch.models.transformer.blocks import (
 from ltx2_tpu_torch.ops.common import Linear, dequantize_int8, init_linear_, layer_norm, linear
 from ltx2_tpu_torch.ops.rope import precompute_freqs_cis
 from ltx2_tpu_torch.ops.timestep_embedding import AdaLayerNormSingle, adaln_single_apply
+from ltx2_tpu_torch.parallel.fsdp import gathered
 
 
 class LTXModelType(Enum):
@@ -118,10 +122,12 @@ class LTXModelConfig:
     audio_in_channels: int = 128
     audio_out_channels: int = 128
     audio_cross_pe_max_pos: int = 20
-    # Scale-out: mesh axes (parallel/mesh.py) of the token split and of the
-    # head/feature split; None on one device.
+    # Scale-out: mesh axes (parallel/mesh.py) of the token split, of the
+    # head/feature split and of the parameters' FSDP slices; None on one
+    # device.
     sequence_axis: Optional[object] = None
     tp_axis: Optional[object] = None
+    fsdp_axis: Optional[object] = None
 
     @property
     def video_inner_dim(self) -> int:
@@ -450,12 +456,16 @@ def prepare_av_args(model: LTXModel, video: Optional[Modality], audio: Optional[
 def _block_x(block: nn.Module, x: Optional[torch.Tensor], ax: Optional[torch.Tensor], args: Optional[StreamArgs],
              audio: Optional[StreamArgs], cfg: LTXModelConfig, perturb=None, ca_scale=None, vkv=None, akv=None):
     """One block on hidden states `x` and the audio stream's `ax` (either
-    None where its stream does not run): the unit that remat recomputes."""
-    v, a = joint_block_apply(block, None if args is None else args.replace(x=x),
-                             None if audio is None else audio.replace(x=ax),
-                             cfg.video_stream_config() if args is not None else None,
-                             cfg.audio_stream_config() if audio is not None else None,
-                             cfg.norm_eps, perturb, ca_scale, vkv, akv)
+    None where its stream does not run): the unit that remat recomputes.
+    Under FSDP its weights are gathered first, inside the unit, so the
+    recompute gathers them again and nothing whole is saved for the
+    backward."""
+    with gathered(block, cfg.fsdp_axis):
+        v, a = joint_block_apply(block, None if args is None else args.replace(x=x),
+                                 None if audio is None else audio.replace(x=ax),
+                                 cfg.video_stream_config() if args is not None else None,
+                                 cfg.audio_stream_config() if audio is not None else None,
+                                 cfg.norm_eps, perturb, ca_scale, vkv, akv)
     return None if v is None else v.x, None if a is None else a.x
 
 
@@ -489,43 +499,50 @@ def ltx_model_apply(
         video = None
     elif video is None:
         raise ValueError("a video modality is required for a video-enabled model")
-    args, audio_args = prepare_av_args(model, video, audio, video_pe, audio_pe)
-    first = args if args is not None else audio_args
-    masks = None
-    if perturbations is not None:
-        masks = _perturbation_mask_array(perturbations, cfg.num_layers, first.x.shape[0], first.x.device)
-    vkv, akv = (text_kv or {}).get("video"), (text_kv or {}).get("audio")
-    remat = cfg.remat and torch.is_grad_enabled()
-    vx = None if args is None else args.x
-    ax = None if audio_args is None else audio_args.x
-    for i, block in enumerate(model.transformer_blocks):
-        extra = (None if masks is None else {name: m[i] for name, m in masks.items()},
-                 None if ca_scales is None else ca_scales[i],
-                 None if vkv is None else (vkv[0][i], vkv[1][i]),
-                 None if akv is None else (akv[0][i], akv[1][i]))
-        if remat:
-            # Under TP the recompute re-issues the block's 'model'
-            # collectives inside the backward, among the backward's own and
-            # ZeRO-2's 'data' reduce-scatters (post-accumulate hooks). All of
-            # them run on the autograd engine's thread of the tensors'
-            # device, which walks every rank's graph (the same ops over each
-            # rank's slices) in the same order and stops each recompute at
-            # the same saved tensor, so every group's ranks issue its
-            # collectives in one order, under gloo as under nccl.
-            vx, ax = checkpoint(_block_x, block, vx, ax, args, audio_args, cfg, *extra, use_reentrant=False)
-        else:
-            vx, ax = _block_x(block, vx, ax, args, audio_args, cfg, *extra)
-    velocity = audio_velocity = None
-    if args is not None:
-        velocity = _process_output(
-            model.scale_shift_table, cfg.norm_eps, model.proj_out, vx, args.embedded_timestep
-        ).float()
-    if audio_args is not None:
-        audio_velocity = _process_output(model.audio_scale_shift_table, cfg.norm_eps, model.audio_proj_out, ax,
-                                         audio_args.embedded_timestep).float()
-    if audio_args is None:
-        return velocity
-    return audio_velocity if args is None else (velocity, audio_velocity)
+    # Under FSDP the non-block leaves are gathered once a forward; each
+    # block gathers its own in `_block_x`.
+    with gathered(model, cfg.fsdp_axis, skip="transformer_blocks."):
+        args, audio_args = prepare_av_args(model, video, audio, video_pe, audio_pe)
+        first = args if args is not None else audio_args
+        masks = None
+        if perturbations is not None:
+            masks = _perturbation_mask_array(perturbations, cfg.num_layers, first.x.shape[0], first.x.device)
+        vkv, akv = (text_kv or {}).get("video"), (text_kv or {}).get("audio")
+        remat = cfg.remat and torch.is_grad_enabled()
+        vx = None if args is None else args.x
+        ax = None if audio_args is None else audio_args.x
+        for i, block in enumerate(model.transformer_blocks):
+            extra = (None if masks is None else {name: m[i] for name, m in masks.items()},
+                     None if ca_scales is None else ca_scales[i],
+                     None if vkv is None else (vkv[0][i], vkv[1][i]),
+                     None if akv is None else (akv[0][i], akv[1][i]))
+            if remat:
+                # Under TP the recompute re-issues the block's 'model'
+                # collectives inside the backward, among the backward's own
+                # and ZeRO-2's 'data' reduce-scatters (post-accumulate
+                # hooks); under FSDP it re-issues the block's 'data' gathers
+                # (all of them, first thing in the unit, in
+                # `named_parameters` order) and each gather's backward
+                # reduce-scatters its gradient. All of them run on the
+                # autograd engine's thread of the tensors' device, which
+                # walks every rank's graph (the same ops over each rank's
+                # slices) in the same order and stops each recompute at the
+                # same saved tensor, so every group's ranks issue its
+                # collectives in one order, under gloo as under nccl.
+                vx, ax = checkpoint(_block_x, block, vx, ax, args, audio_args, cfg, *extra, use_reentrant=False)
+            else:
+                vx, ax = _block_x(block, vx, ax, args, audio_args, cfg, *extra)
+        velocity = audio_velocity = None
+        if args is not None:
+            velocity = _process_output(
+                model.scale_shift_table, cfg.norm_eps, model.proj_out, vx, args.embedded_timestep
+            ).float()
+        if audio_args is not None:
+            audio_velocity = _process_output(model.audio_scale_shift_table, cfg.norm_eps, model.audio_proj_out, ax,
+                                             audio_args.embedded_timestep).float()
+        if audio_args is None:
+            return velocity
+        return audio_velocity if args is None else (velocity, audio_velocity)
 
 
 def _denoise(modality: Modality, velocity: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,11 @@ inside shard_map.
   `all_reduce_sum` (all-reduce both ways: a sum every rank then uses for
   its own part, the Q/K norms' sum of squares). Their backward sums are
   taken in fp32 and counted as "all_reduce_bwd"; axis None or of one
-  rank: the identity.
+  rank: the identity;
+- ZeRO-3/FSDP's differentiable gather over a 'data' axis,
+  `gather_from_data`: `all_gather` forward (a parameter's slices made
+  whole), the fp32 `reduce_scatter` of the whole gradient into this rank's
+  slice backward.
 
 Routes, by the world's backend and the tensor's device: "nccl" (CUDA
 tensors), "gloo" (CPU tensors, and CUDA tensors in the collectives, which
@@ -38,9 +42,10 @@ never a fallback after a failure. Exchanges and gathers move their payload
 as its bytes (a uint8 view), so any dtype goes through any backend.
 `STATS` counts each rank's bytes sent and received (for an all-reduce the
 2(n-1)/n of the payload a ring all-reduce moves each way, for a
-reduce-scatter the (n-1)/n of its input), in all, by "operation route"
-and by "axis route" (the mesh axis's name: 'model' and 'data' apart), and
-its calls by operation and by route; `reset_stats` zeroes it.
+reduce-scatter the (n-1)/n of its input), in all, by "operation route",
+by "axis route" (the mesh axis's name: 'model' and 'data' apart) and by
+"operation axis route", and its calls by operation and by route;
+`reset_stats` zeroes it.
 """
 
 from __future__ import annotations
@@ -52,11 +57,12 @@ import torch.distributed as dist
 
 from ltx2_tpu_torch.parallel.mesh import Axis
 
-STATS: Dict = {"bytes_sent": 0, "bytes_received": 0, "bytes": {}, "axes": {}, "calls": {}, "routes": {}}
+STATS: Dict = {"bytes_sent": 0, "bytes_received": 0, "bytes": {}, "axes": {}, "op_axes": {}, "calls": {},
+               "routes": {}}
 
 
 def reset_stats() -> None:
-    STATS.update(bytes_sent=0, bytes_received=0, bytes={}, axes={}, calls={}, routes={})
+    STATS.update(bytes_sent=0, bytes_received=0, bytes={}, axes={}, op_axes={}, calls={}, routes={})
 
 
 def route(x: torch.Tensor, axis: Axis, point_to_point: bool = False) -> str:
@@ -75,7 +81,8 @@ def route(x: torch.Tensor, axis: Axis, point_to_point: bool = False) -> str:
 def _count(op: str, rt: str, sent: int, received: int, axis: Axis) -> None:
     STATS["bytes_sent"] += sent
     STATS["bytes_received"] += received
-    for key, table in ((f"{op} {rt}", STATS["bytes"]), (f"{axis.name} {rt}", STATS["axes"])):
+    for key, table in ((f"{op} {rt}", STATS["bytes"]), (f"{axis.name} {rt}", STATS["axes"]),
+                       (f"{op} {axis.name} {rt}", STATS["op_axes"])):
         by = table.setdefault(key, {"sent": 0, "received": 0})
         by["sent"] += sent
         by["received"] += received
@@ -198,7 +205,9 @@ def broadcast(x: torch.Tensor, axis: Optional[Axis], index: int) -> torch.Tensor
 def all_gather(x: torch.Tensor, axis: Optional[Axis], dim: int) -> torch.Tensor:
     """Every rank's x along the axis, concatenated along `dim` in axis order
     (`jax.lax.all_gather(..., tiled=True)`). Shapes must agree on every
-    rank. Axis None or of size 1: x."""
+    rank. Axis None or of size 1: x. The parts are joined as bytes (each
+    element's bytes stay together along the last dim), so any dtype, fp8
+    codes included, goes through."""
     if axis is None or axis.size == 1:
         return x
     rt = route(x, axis)
@@ -206,7 +215,8 @@ def all_gather(x: torch.Tensor, axis: Optional[Axis], dim: int) -> torch.Tensor:
     parts = [torch.empty_like(send) for _ in range(axis.size)]
     dist.all_gather(parts, send, group=axis.group)
     _count("all_gather", rt, send.numel() * (axis.size - 1), send.numel() * (axis.size - 1), axis)
-    return torch.cat([_unwire(p, x) for p in parts], dim=dim)
+    rows = (*x.shape[:-1], x.shape[-1] * x.element_size())
+    return torch.cat([p.reshape(rows) for p in parts], dim=dim).view(x.dtype)
 
 
 def _reduce(x: torch.Tensor, axis: Axis, dtype: torch.dtype, op, name: str) -> torch.Tensor:
@@ -328,3 +338,29 @@ def all_reduce_sum(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
     so each rank's gradient of it is a share to be summed. Axis None or of
     one rank: x."""
     return x if _single(axis) else _AllReduceSum.apply(x, axis)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-3/FSDP's differentiable gather over a 'data' axis.
+# ---------------------------------------------------------------------------
+
+
+class _GatherFromData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.dtype = axis, dim, x.dtype
+        return all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.axis, ctx.dim).to(ctx.dtype), None, None
+
+
+def gather_from_data(x: torch.Tensor, axis: Optional[Axis], dim: Optional[int]) -> torch.Tensor:
+    """A parameter's slice `x` made whole along `dim` over the axis:
+    `all_gather` forward (every rank's bits, in axis order); backward, the
+    whole gradient's `reduce_scatter` into this rank's slice (the sum over
+    the axis's ranks in fp32, cast to x's dtype): the gradient of the
+    ranks' summed losses with respect to the slice. dim None, axis None or
+    of one rank: x."""
+    return x if dim is None or _single(axis) else _GatherFromData.apply(x, axis, dim)

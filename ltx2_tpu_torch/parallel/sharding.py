@@ -19,6 +19,10 @@ tensors the rank's shapes with `shard_module_` and slices each tensor with
 leaf.
 fp8 codes keep their per-tensor `weight_scale` (replicated), int8 codes
 split with their column-parallel `weight_cscale`.
+
+ZeRO-3/FSDP slices a (TP-sharded) model once more over 'data'
+(parallel/fsdp.py, `shard_model_fsdp_` re-exported here); `gather_whole`
+and `whole_param_shape` undo both slicings for saves and exports.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from ltx2_tpu_torch.parallel.collectives import all_gather
+from ltx2_tpu_torch.parallel.fsdp import model_fsdp_axis, shard_model_fsdp_  # noqa: F401 (re-exported)
 from ltx2_tpu_torch.parallel.mesh import MODEL_AXIS, Axis
 
 M = MODEL_AXIS
@@ -118,8 +124,6 @@ def gather_tensor(name: str, local: torch.Tensor, axis: Optional[Axis], rules=DI
     (every rank of the axis calls it, in the same order); `local` itself
     where the tensor replicates or the axis has one rank. For saves and
     exports."""
-    from ltx2_tpu_torch.parallel.collectives import all_gather
-
     dim = tp_split_dim(name, rules)
     if axis is None or axis.size == 1 or dim is None:
         return local
@@ -133,6 +137,27 @@ def whole_shape(name: str, shape, axis: Optional[Axis], rules=DIT_SHARDING_RULES
     if axis is None or axis.size == 1 or dim is None:
         return shape
     return shape[:dim] + (shape[dim] * axis.size,) + shape[dim + 1:]
+
+
+def gather_whole(name: str, local: torch.Tensor, model: nn.Module, data_dim: Optional[int] = None) -> torch.Tensor:
+    """The whole tensor `name` of `model` from this rank's `local`:
+    all-gathered over the model's FSDP 'data' axis along `data_dim` (None:
+    not sliced over 'data'), then over its 'model' axis where the TP rules
+    split it (`gather_tensor`). Every rank of the axes it gathers over calls
+    it, in the same order."""
+    if data_dim is not None:
+        local = all_gather(local.contiguous(), model_fsdp_axis(model), data_dim)
+    return gather_tensor(name, local, model_tp_axis(model))
+
+
+def whole_param_shape(name: str, shape, model: nn.Module, data_dim: Optional[int] = None) -> tuple:
+    """The shape of the whole tensor `name` whose rank's slice (over 'data'
+    along `data_dim`, and over 'model' by the TP rules) has `shape`."""
+    shape = tuple(shape)
+    axis = model_fsdp_axis(model)
+    if data_dim is not None and axis is not None:
+        shape = shape[:data_dim] + (shape[data_dim] * axis.size,) + shape[data_dim + 1:]
+    return whole_shape(name, shape, model_tp_axis(model))
 
 
 def tp_attention_heads(cfg) -> List[Tuple[str, int]]:

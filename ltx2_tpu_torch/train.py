@@ -1,5 +1,5 @@
 """Fine-tune the DiT with rectified flow on one GPU, or data- and
-tensor-parallel on several ranks.
+tensor-parallel on several ranks, with ZeRO-1/2 or ZeRO-3/FSDP.
 
 The surface of the JAX package's `scripts/train.py`: random
 weights from `--seed` or a reference-format `--checkpoint`, LoRA adapters
@@ -9,9 +9,10 @@ clipping, an optional LR warmup/decay, EMA, a held-out validation loss
 training (`--audio`), the fp8 frozen base (`--fp8-serving`) and exact
 mid-run resume (`--save-state`, `--save-every`, `--resume`), data
 parallelism over `--dp-devices` ranks with the Adam moments (`--zero1`)
-and the gradients too (`--zero2`) sharded over 'data', and Megatron tensor
-parallelism over `--tp-devices` ranks, alone or on a (data, model) mesh
-with the data parallelism and ZeRO. Every attention
+and the gradients too (`--zero2`) or the parameters as well (`--fsdp`,
+ZeRO-3) sharded over 'data', and Megatron tensor parallelism over
+`--tp-devices` ranks, alone or on a (data, model) mesh with the data
+parallelism and ZeRO. Every attention
 call of the forward, the remat recompute and the backward runs on the
 hand-written flash-attention kernels.
 
@@ -34,6 +35,8 @@ seconds and an 8-token audio context), drawn as scripts/train.py draws it.
         --synthetic 16 16 24 --batch-size 2 --lora-rank 16 --steps 3
     torchrun --nproc-per-node 4 -m ltx2_tpu_torch.train --tp-devices 2 --dp-devices 2 --zero2 \\
         --dist-backend gloo --synthetic 16 16 24 --batch-size 2 --lora-rank 16 --steps 3
+    torchrun --nproc-per-node 4 -m ltx2_tpu_torch.train --tp-devices 2 --dp-devices 2 --fsdp \\
+        --dist-backend gloo --synthetic 16 16 24 --batch-size 2 --steps 3
 
 Data and tensor parallelism run one process per rank (torchrun, or
 `parallel.runtime.spawn_ranks`) on a (data, model) mesh, model innermost as
@@ -43,10 +46,18 @@ same batch indices, sigmas and noise and takes its 'data' share of the rows
 of each microbatch; the model is built whole, LoRA adapters attached, and
 then sliced into each rank's TP shard (`parallel.sharding.shard_model_`; a
 `--checkpoint` is sliced as it is read), so every rank starts from world
-1's weights. The ranks of a 'model' line hold the same replicated
-parameters after every step, and the 'data' ranks the same slices; rank 0
-alone logs and writes `--save` and `--save-state` (whole tensors, gathered
-over 'model' and 'data': the files world 1 writes).
+1's weights. Under `--fsdp` every parameter (frozen, trainable, the
+adapters, fp8 codes) is then sliced once more over 'data'
+(`fsdp_param_shardings`, `shard_model_fsdp_`): between steps a rank holds
+about 1/(DP x TP) of the weights, the forward gathers each block's inside
+its remat unit (the recompute gathers again) and the gathers' backward
+reduce-scatters the gradients; the moments and gradients take the same
+layout (ZeRO-1/2 implied), and the slices are updated in place. The ranks
+of a 'model' line hold the same replicated parameters after every step,
+and the 'data' ranks the same slices (under `--fsdp` the same whole
+parameters, gathered); rank 0 alone logs and writes `--save` and
+`--save-state` (whole tensors, gathered over 'model' and 'data': the files
+world 1 writes).
 
 The model is the full-width LTX-2.0 DiT (`--layers` blocks, 48 by default;
 with `--audio` the audio-video one); `--placeholder` takes scripts/train.py's
@@ -58,8 +69,7 @@ checkpoint through `ModelLedger` (bf16, or its fp8 weights kept with
 dataset has its audio branch frozen. `--save` writes, with `--lora-rank`,
 the adapters as a reference-format LoRA file (`generate.py --lora` fuses it
 back), otherwise the trained DiT as a reference-format checkpoint carrying
-the source checkpoint's other tensors and metadata. Not ported
-(ROADMAP.md §1, item 2): `--fsdp` (ZeRO-3); it raises NotImplementedError.
+the source checkpoint's other tensors and metadata.
 """
 
 from __future__ import annotations
@@ -81,14 +91,16 @@ from ltx2_tpu_torch.loader.safetensors_io import read_metadata
 from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelConfig
 from ltx2_tpu_torch.ops.attention import KERNEL_HEAD_DIMS
 from ltx2_tpu_torch.ops.rope import create_position_grid
+from ltx2_tpu_torch.parallel.fsdp import resident_bytes
 from ltx2_tpu_torch.parallel.mesh import axis_of, create_mesh
 from ltx2_tpu_torch.parallel.runtime import initialize_distributed, world
-from ltx2_tpu_torch.parallel.sharding import check_tp_heads, shard_model_
+from ltx2_tpu_torch.parallel.sharding import check_tp_heads, shard_model_, shard_model_fsdp_
 from ltx2_tpu_torch.training import (
     TrainBatch,
     TrainConfig,
     ema_params,
     freeze_audio_branch_mask,
+    fsdp_param_shardings,
     init_ema,
     make_ema_update,
     make_eval_step,
@@ -117,8 +129,6 @@ BENCH_SHAPE, BENCH_CONTEXT_TOKENS = (16, 16, 24), 1024
 BENCH_FRAMES, BENCH_AUDIO_TEXT_VALID = 121, 700
 VIDEO_KEYS = ("x0", "positions", "context")
 AUDIO_KEYS = ("audio_x0", "audio_positions", "audio_context", "audio_context_mask")
-# The JAX CLI's mesh flags that are not ported yet (ROADMAP.md §1, item 2).
-UNPORTED_MESH_FLAGS = ("fsdp",)
 
 Arrays = Dict[str, np.ndarray]
 
@@ -185,7 +195,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tp-devices", type=int, default=0,
                    help="Megatron tensor parallelism over this many ranks (the 'model' axis, innermost; "
                         "--tp-devices x --dp-devices = the world): each rank holds its heads and features")
-    p.add_argument("--fsdp", action="store_true", help="ZeRO-3 / FSDP: not ported")
+    p.add_argument("--fsdp", action="store_true",
+                   help="shard the parameters over 'data' too (ZeRO-3 / FSDP): a rank holds ~1/(dp x tp) of the "
+                        "weights, each block's are all-gathered inside its remat unit and its gradients "
+                        "reduce-scattered (implies --zero1/2)")
     return p
 
 
@@ -231,7 +244,8 @@ def save(args, model: LTXModel) -> None:
     """--save: the adapters as a LoRA file with --lora-rank, else the whole
     DiT as a reference-format checkpoint carrying the source checkpoint's
     other tensors and metadata. Under TP every rank of rank 0's 'model'
-    line calls it (the split tensors are gathered) and rank 0 writes."""
+    line calls it (the split tensors are gathered), under --fsdp every
+    rank; rank 0 writes."""
     if args.lora_rank:
         export_lora_checkpoint(args.save, model)
     else:
@@ -413,16 +427,12 @@ def _log(rec: dict) -> None:
 
 
 def _check_args(args) -> None:
-    for flag in UNPORTED_MESH_FLAGS:
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported: ZeRO-3/FSDP training waits "
-                                      "for ROADMAP.md §1, item 2")
     dp = max(args.dp_devices, 1)
     if dp > 1 and args.batch_size % dp != 0:
         raise SystemExit(f"--batch-size {args.batch_size} must be divisible by --dp-devices {dp} (each data shard "
                          "takes batch/dp samples)")
-    if args.zero1 or args.zero2:
-        which = "--zero2" if args.zero2 else "--zero1"
+    if args.fsdp or args.zero1 or args.zero2:
+        which = "--fsdp" if args.fsdp else "--zero2" if args.zero2 else "--zero1"
         if dp <= 1:
             raise SystemExit(f"{which} needs --dp-devices > 1 (a 'data' axis to shard over)")
     if dp > 1 and args.batch_size % args.accum_steps == 0 and (args.batch_size // args.accum_steps) % dp:
@@ -465,11 +475,14 @@ def _mesh_axes(args):
 def main(argv=None, on_step: Optional[Callable[[int, LTXModel, float], None]] = None) -> dict:
     """Train per the flags; returns {"model", "optimizer", "ema",
     "trainable", "adapters", "losses", "step_s", "val_losses", "start",
-    "state_save_s", "state_load_s", "rank", "world", "moment_bytes",
-    "grad_bytes", "step_bytes"} (`grad_bytes`: what the last update read,
-    the rank's slices under --zero2; `step_bytes`: the collective bytes of
-    the last step by "axis route"). `on_step(i, model, loss)` runs after
-    every optimizer step, on every rank."""
+    "state_save_s", "state_load_s", "rank", "world", "param_bytes",
+    "moment_bytes", "grad_bytes", "step_bytes", "step_op_bytes"}
+    (`param_bytes`: the parameters this rank holds, its slices under TP and
+    --fsdp; `grad_bytes`: what the last update read, the rank's slices
+    under --zero2 and --fsdp; `step_bytes`, `step_op_bytes`: the collective
+    bytes of the last step by "axis route" and by "operation axis route").
+    `on_step(i, model, loss)` runs after every optimizer step, on every
+    rank."""
     args = build_parser().parse_args(argv)
     _check_args(args)
     data_axis, model_axis = _mesh_axes(args)
@@ -488,6 +501,8 @@ def main(argv=None, on_step: Optional[Callable[[int, LTXModel, float], None]] = 
     names, n_adapters = select_trainable(model, args, device)
     if model.cfg.tp_axis is None:  # built whole, adapters on: now this rank's shard
         shard_model_(model, model_axis)
+    if args.fsdp:  # then every parameter sliced over 'data'
+        shard_model_fsdp_(model, data_axis, fsdp_param_shardings(model, data_axis))
     if model.cfg.is_av and not has_audio:
         # The loss never reaches the audio branch, but weight decay would
         # shrink it every step: freeze it (no moments, no decay).
@@ -507,20 +522,25 @@ def main(argv=None, on_step: Optional[Callable[[int, LTXModel, float], None]] = 
         warmup_steps=args.warmup_steps, lr_schedule=args.lr_schedule, total_steps=args.steps,
     )
     optimizer = make_optimizer(tc, params)
-    layout = None
-    if args.zero1 or args.zero2:
-        # Under TP the rule skips each leaf's TP dim, as JAX's does.
-        layout = (zero2_grad_shardings if args.zero2 else zero1_opt_state_shardings)(
+    layout = param_layout = None
+    if args.fsdp or args.zero1 or args.zero2:
+        # Under TP the rule skips each leaf's TP dim, as JAX's does; under
+        # --fsdp the moments and gradients take the parameters' slices.
+        layout = (zero2_grad_shardings if args.zero2 or args.fsdp else zero1_opt_state_shardings)(
             params, data_axis, None if model_axis is None else parameter_names(model, params))
+    if args.fsdp:
+        param_layout = fsdp_param_shardings(model, data_axis, parameter_names(model, params))
     step = make_train_step(model, optimizer, tc, accum_steps=args.accum_steps, data_axis=data_axis,
-                           opt_state_shardings=layout, grad_shardings=layout if args.zero2 else None)
+                           opt_state_shardings=layout, grad_shardings=layout if args.zero2 or args.fsdp else None,
+                           param_shardings=param_layout)
+    param_bytes = resident_bytes(model)
     if data_axis is not None or model_axis is not None:
         _log({"data_parallel": 1 if data_axis is None else data_axis.size,
               "tensor_parallel": 1 if model_axis is None else model_axis.size,
-              "zero": 2 if args.zero2 else 1 if args.zero1 else 0,
+              "zero": 3 if args.fsdp else 2 if args.zero2 else 1 if args.zero1 else 0,
               "sharded_tensors": sum(d is not None for d in optimizer.shard_dims),
               "model_split_tensors": sum(optimizer.model_split),
-              "moment_bytes_per_rank": optimizer.moment_bytes()})
+              "param_bytes_per_rank": param_bytes, "moment_bytes_per_rank": optimizer.moment_bytes()})
     ema = ema_update = None
     if args.ema_decay:
         ema, ema_update = init_ema(params), make_ema_update(args.ema_decay)
@@ -579,14 +599,17 @@ def main(argv=None, on_step: Optional[Callable[[int, LTXModel, float], None]] = 
             for p, e in zip(params, ema_params(ema, params)):
                 p.copy_(e)
     rank, n_world = world()
-    # Rank 0 writes; under TP the rest of its 'model' line joins the gathers.
-    if args.save and (rank == 0 or (model_axis is not None and (data_axis is None or data_axis.index == 0))):
+    # Rank 0 writes; under TP the rest of its 'model' line joins the
+    # gathers, under --fsdp every rank.
+    if args.save and (rank == 0 or args.fsdp or (model_axis is not None and (data_axis is None
+                                                                            or data_axis.index == 0))):
         save(args, model)
     return {"model": model, "optimizer": optimizer, "ema": ema, "trainable": names, "adapters": n_adapters,
             "losses": losses, "step_s": step_s, "val_losses": val_losses, "start": start,
             "state_save_s": state_save_s, "state_load_s": state_load_s, "rank": rank, "world": n_world,
-            "moment_bytes": optimizer.moment_bytes(), "grad_bytes": step.stats["grad_bytes"],
-            "step_bytes": step.stats["bytes"]}
+            "param_bytes": param_bytes, "moment_bytes": optimizer.moment_bytes(),
+            "grad_bytes": step.stats["grad_bytes"], "step_bytes": step.stats["bytes"],
+            "step_op_bytes": step.stats["op_bytes"]}
 
 
 if __name__ == "__main__":

@@ -25,8 +25,10 @@ JAX state holds them (`device_get`); `load_train_state` takes each rank's
 slice of it. Under tensor parallelism (the model's `cfg.tp_axis` set) the
 parameters, both moments and the EMA are the rank's slices of the split
 leaves: they are gathered over 'model' too (after the 'data' gather of a
-ZeRO moment), and a load slices them again. So a state saved at one world
-size, TP or DP or both, resumes at another.
+ZeRO moment), and a load slices them again. Under ZeRO-3/FSDP the
+parameters and the EMA are 'data' slices as the moments are, and join
+their gathers. So a state saved at one world size, TP or DP or both, with
+or without FSDP, resumes at another.
 """
 
 from __future__ import annotations
@@ -45,8 +47,8 @@ from ltx2_tpu_torch.parallel.sharding import gather_tensor, model_tp_axis, shard
 from ltx2_tpu_torch.training.trainer import AdamW, parameter_names
 
 # (key, live tensor, the whole tensor's shape, the optimizer's index of the
-# parameter whose moment this rank holds a slice of over 'data', or None,
-# the parameter's dotted name: its TP spec)
+# parameter whose moment, EMA or (FSDP) self this rank holds a slice of over
+# 'data', or None, the parameter's dotted name: its TP spec)
 StateEntry = Tuple[str, torch.Tensor, Tuple[int, ...], Optional[int], str]
 
 
@@ -54,13 +56,14 @@ def _entries(model: nn.Module, optimizer: AdamW, ema: Optional[Sequence[torch.Te
     """Everything the state holds, in a fixed order."""
     names = parameter_names(model, optimizer.params)
     tp = model_tp_axis(model)
-    shapes = [whole_shape(n, p.shape, tp) for n, p in zip(names, optimizer.params)]
-    out = [(f"param.{n}", p, s, None, n) for n, p, s in zip(names, optimizer.params, shapes)]
+    shapes = [whole_shape(n, optimizer.unsliced_shape(i), tp) for i, n in enumerate(names)]
+    sliced = [None if d is None else i for i, d in enumerate(optimizer.shard_dims)]
+    own = sliced if optimizer.params_sliced else [None] * len(names)  # the parameters and EMA: FSDP slices
+    out = [(f"param.{n}", p, s, i, n) for n, p, s, i in zip(names, optimizer.params, shapes, own)]
     for kind, moments in (("mu", optimizer.mu), ("nu", optimizer.nu)):
-        out += [(f"adam.{kind}.{n}", m, s, None if d is None else i, n)
-                for i, (n, m, s, d) in enumerate(zip(names, moments, shapes, optimizer.shard_dims))]
+        out += [(f"adam.{kind}.{n}", m, s, i, n) for n, m, s, i in zip(names, moments, shapes, sliced)]
     if ema is not None:
-        out += [(f"ema.{n}", e, s, None, n) for n, e, s in zip(names, ema, shapes)]
+        out += [(f"ema.{n}", e, s, i, n) for n, e, s, i in zip(names, ema, shapes, own)]
     return out
 
 
@@ -74,7 +77,7 @@ def save_train_state(path: str, step: int, model: nn.Module, optimizer: AdamW,
                      ema: Optional[Sequence[torch.Tensor]] = None, metadata: Optional[Dict[str, str]] = None) -> None:
     """Atomically write (step, trainable tensors, AdamW's moments and
     count, EMA) to `path`; `step` is the index of the next step to run.
-    With sharded moments or under TP every rank calls it (each tensor is
+    With sharded moments, FSDP slices or under TP every rank calls it (each tensor is
     gathered whole, over 'data' then 'model', as the writer reaches it) and
     rank 0 alone writes."""
     entries = _entries(model, optimizer, ema)
@@ -109,7 +112,8 @@ def load_train_state(path: str, model: nn.Module, optimizer: AdamW,
     """Restore a `save_train_state` file in place into the parameters,
     AdamW and the EMA of the current configuration (each tensor copied onto
     its live tensor's device; under TP each split leaf takes this rank's
-    slice, and a sharded moment then its 'data' slice of that);
+    slice, and a sharded moment (under FSDP also the parameter and its
+    EMA) then its 'data' slice of that);
     returns the step to run next. Raises ValueError when the file was saved
     under another configuration."""
     entries = _entries(model, optimizer, ema)

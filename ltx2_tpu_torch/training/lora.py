@@ -12,8 +12,10 @@ file, which `generate.py --lora` fuses back (loader/lora.py).
 Under tensor parallelism the adapters attach to the whole model before it
 is sharded, as the JAX CLI attaches them (scripts/train.py:244-257): every
 rank draws world 1's adapters from the same generator and the TP rules
-(parallel/sharding.py) then slice them with their base weights. The export
-gathers each split factor over 'model', and world rank 0 writes the file
+(parallel/sharding.py) then slice them with their base weights. Under
+ZeRO-3/FSDP the adapters are then sliced over 'data' with every other
+parameter. The export gathers each factor over 'data' where FSDP slices
+it, then over 'model' where TP splits it, and world rank 0 writes the file
 world 1 writes.
 """
 
@@ -29,8 +31,9 @@ import torch.nn as nn
 from ltx2_tpu_torch.loader.export import inverse_rewrite
 from ltx2_tpu_torch.loader.safetensors_io import write_safetensors
 from ltx2_tpu_torch.ops.common import Linear
+from ltx2_tpu_torch.parallel.fsdp import fsdp_dim, model_fsdp_axis
 from ltx2_tpu_torch.parallel.runtime import world
-from ltx2_tpu_torch.parallel.sharding import gather_tensor, model_tp_axis, shard_tensor, whole_shape
+from ltx2_tpu_torch.parallel.sharding import gather_whole, model_tp_axis, shard_tensor, whole_shape
 from ltx2_tpu_torch.training.trainer import trainable_mask
 
 # Default targets: every attention projection + FFN linears in the blocks.
@@ -63,6 +66,8 @@ def add_lora_params_(
     model already made a TP shard (its `cfg.tp_axis` set; a checkpoint read
     sliced) each A is drawn whole, as world 1 draws it, and this rank keeps
     its slice."""
+    if model_fsdp_axis(model) is not None:
+        raise ValueError("attach LoRA adapters before the model is sliced for FSDP: the slices are of every parameter")
     axis = model_tp_axis(model)
     pat = re.compile(targets)
     n = 0
@@ -101,18 +106,21 @@ def export_lora_checkpoint(path: str, model: nn.Module, metadata: Optional[Dict[
     W += strength * (B @ A) gives the trained model at strength 1. A model
     made a TP shard (its `cfg.tp_axis` set): every rank of the 'model' line
     that holds world rank 0 calls it, each split factor is gathered over
-    the axis, and rank 0 alone writes the whole adapters."""
-    axis = model_tp_axis(model)
+    the axis, and rank 0 alone writes the whole adapters. Sliced for FSDP
+    (its `cfg.fsdp_axis` set): every rank calls it, each factor is
+    gathered over 'data' first."""
+    axis, fsdp = model_tp_axis(model), model_fsdp_axis(model)
     tensors: Dict[str, torch.Tensor] = {}
     for name, mod in model.named_modules():
         if not (isinstance(mod, Linear) and hasattr(mod, "lora_A")):
             continue
-        a, b = (gather_tensor(f"{name}.{k}", getattr(mod, k).detach(), axis) for k in ("lora_A", "lora_B"))
+        a, b = (gather_whole(f"{name}.{k}", getattr(mod, k).detach(), model, fsdp_dim(getattr(mod, k)))
+                for k in ("lora_A", "lora_B"))
         # The rewrite rules match with a trailing dot, as in full keys.
         base = f"diffusion_model.{inverse_rewrite(name + '.')[:-1]}"
         tensors[f"{base}.lora_A.weight"] = a.to("cpu", torch.float32, copy=True)
         tensors[f"{base}.lora_B.weight"] = b.to("cpu", torch.float32) * mod.lora_scale.to("cpu", torch.float32)
     if not tensors:
         raise ValueError("no LoRA adapters found in the model")
-    if axis is None or world()[0] == 0:
+    if (axis is None and fsdp is None) or world()[0] == 0:
         write_safetensors(path, tensors, metadata=metadata)

@@ -45,9 +45,20 @@ What replaces the JAX machinery:
   gradient is reduce-scattered into this rank's slice as the backward
   produces it, the full-size `.grad` freed. Under TP the slices are of the
   rank's TP slice.
-Not ported yet (ROADMAP.md §1, item 2): ZeRO-3/FSDP (`param_shardings`);
-training under sequence parallelism is refused, as the JAX CLI's training
-mesh is (data, model) only. Both raise NotImplementedError.
+- GSPMD's ZeRO-3/FSDP (`fsdp_param_shardings`, which GSPMD turns into
+  per-block all-gathers inside the remat'd scan body and reduce-scatters
+  of the gradients) -> the same rule on EVERY parameter (frozen, trainable,
+  LoRA factors, fp8 codes), always skipping the TP dim;
+  `parallel.fsdp.shard_model_fsdp_` slices the model in place, so between
+  steps a rank holds only slices, and the DiT's forward gathers the
+  non-block leaves once and each block's weights inside its remat unit
+  (`collectives.gather_from_data`: all-gather forward, fp32 reduce-scatter
+  of the gradient backward), the recompute gathering again. The step
+  (`make_train_step(param_shardings=...)`) updates the slices in place from
+  gradients the gathers' backward has already reduced: no second reduce, no
+  gather after the update; the ZeRO layouts pass the FSDP dims through.
+Training under sequence parallelism is refused (NotImplementedError), as
+the JAX CLI's training mesh is (data, model) only.
 """
 
 from __future__ import annotations
@@ -62,6 +73,7 @@ import torch.nn as nn
 
 from ltx2_tpu_torch.models.transformer.model import LTXModel, LTXModelType, Modality, ltx_model_apply
 from ltx2_tpu_torch.parallel import collectives
+from ltx2_tpu_torch.parallel.fsdp import fsdp_dim, is_fsdp, model_fsdp_axis
 from ltx2_tpu_torch.parallel.mesh import Axis
 from ltx2_tpu_torch.parallel.sharding import model_tp_axis, tp_partial_grad, tp_split_dim
 
@@ -286,6 +298,25 @@ def data_shard_dim(shape: Sequence[int], size: int, skip: Optional[int] = None) 
     return None
 
 
+def fsdp_param_shardings(model: nn.Module, axis: Optional[Axis],
+                         names: Optional[Sequence[str]] = None) -> List[Optional[int]]:
+    """ZeRO-3/FSDP: for each parameter of `model` named in `names` (default:
+    every one, in `named_parameters` order; frozen, trainable, LoRA
+    factors, fp8 codes alike), the dim it shards over the 'data' `axis`, or
+    None to keep it whole: the first dim other than its TP dim that divides
+    (`data_shard_dim`), JAX's `fsdp_param_shardings` on each block's own
+    leaf (the JAX package's stacked leaves start at dim 1, so 'data' never
+    lands on the scan axis L). On a model sliced already
+    (`parallel.fsdp.shard_model_fsdp_`) each parameter's recorded dim. Hand
+    the layout of the whole model to `shard_model_fsdp_`, that of the
+    trainable parameters to `make_train_step(param_shardings=...)`."""
+    size = 1 if axis is None else axis.size
+    params = dict(model.named_parameters())
+    names = list(params) if names is None else list(names)
+    return [fsdp_dim(params[n]) if is_fsdp(params[n]) else data_shard_dim(tuple(params[n].shape), size, tp_split_dim(n))
+            for n in names]
+
+
 def zero1_opt_state_shardings(params: Sequence[torch.Tensor], axis: Optional[Axis],
                               names: Optional[Sequence[str]] = None) -> List[Optional[int]]:
     """ZeRO-1: for each trainable parameter, the dim its Adam moments shard
@@ -297,12 +328,15 @@ def zero1_opt_state_shardings(params: Sequence[torch.Tensor], axis: Optional[Axi
     the dim each one's TP spec holds, as JAX's does; without them it runs
     on every dim. The JAX package stacks the blocks into (L, ...) leaves and
     may put 'data' on L; the port's blocks are separate modules, so the rule
-    runs on each block's own dims."""
+    runs on each block's own dims. A parameter that is an FSDP slice
+    already keeps its FSDP dim (JAX's helpers pass a spec that holds 'data'
+    through): the moments take the parameters' layout."""
     size = 1 if axis is None else axis.size
     skips = [None] * len(params) if names is None else [tp_split_dim(n) for n in names]
     if len(skips) != len(params):
         raise ValueError(f"ZeRO layout: {len(skips)} names for {len(params)} parameters")
-    return [data_shard_dim(tuple(p.shape), size, skip) for p, skip in zip(params, skips)]
+    return [fsdp_dim(p) if is_fsdp(p) else data_shard_dim(tuple(p.shape), size, skip)
+            for p, skip in zip(params, skips)]
 
 
 def zero2_grad_shardings(params: Sequence[torch.Tensor], axis: Optional[Axis],
@@ -321,7 +355,7 @@ class AdamW:
     the gradients handed to `step` or their `.grad` (which `step` then
     clears). Moments are kept in the parameters' dtype, as optax keeps
     them; after `shard_` (ZeRO-1), for this rank's slice of each sharded
-    parameter only."""
+    parameter only; under ZeRO-3/FSDP the parameters are those slices."""
 
     def __init__(self, params: Sequence[torch.Tensor], tc: TrainConfig):
         self.params = list(params)
@@ -334,6 +368,7 @@ class AdamW:
         self.count = 0
         self.axis: Optional[Axis] = None
         self.shard_dims: List[Optional[int]] = [None] * len(self.params)
+        self.params_sliced = False
         # Under TP: the 'model' axis and which parameters are this rank's
         # slice of a split leaf (the clip sums their squares over it).
         self.model_axis: Optional[Axis] = None
@@ -342,18 +377,22 @@ class AdamW:
     def learning_rate(self, count: int) -> float:
         return self.schedule(count) if callable(self.schedule) else self.schedule
 
-    def shard_(self, dims: Sequence[Optional[int]], axis: Axis) -> None:
+    def shard_(self, dims: Sequence[Optional[int]], axis: Axis, params_sliced: bool = False) -> None:
         """ZeRO-1: keep the moments of this rank's slice of each parameter
-        along its dim in `dims` (None: whole) over the 'data' `axis`."""
+        along its dim in `dims` (None: whole) over the 'data' `axis`. With
+        `params_sliced` (ZeRO-3/FSDP) each parameter with a dim is that
+        slice already, and so are its moments: the update reads sliced
+        gradients and leaves the slices as they are (no gather)."""
         if self.axis is not None:
             raise ValueError("AdamW: the moments are sharded already")
         if len(dims) != len(self.params):
             raise ValueError(f"AdamW: {len(dims)} shard dims for {len(self.params)} parameters")
         if any(d is not None for d in dims) and (axis is None or axis.size < 2):
             raise ValueError("AdamW: sharded moments need a 'data' axis of more than one rank")
-        self.axis, self.shard_dims = axis, list(dims)
-        self.mu = [self.local(i, m).clone() for i, m in enumerate(self.mu)]
-        self.nu = [self.local(i, v).clone() for i, v in enumerate(self.nu)]
+        self.axis, self.shard_dims, self.params_sliced = axis, list(dims), params_sliced
+        if not params_sliced:
+            self.mu = [self.local(i, m).clone() for i, m in enumerate(self.mu)]
+            self.nu = [self.local(i, v).clone() for i, v in enumerate(self.nu)]
 
     def split_over_model_(self, split: Sequence[bool], axis: Axis) -> None:
         """Under TP: `split[i]` says parameter i is this rank's slice of a
@@ -363,13 +402,22 @@ class AdamW:
         self.model_axis, self.model_split = axis, list(split)
 
     def local(self, i: int, x: torch.Tensor) -> torch.Tensor:
-        """This rank's slice (a view) of x, a tensor shaped as parameter i,
-        along the parameter's shard dim; x itself where it is not sharded."""
+        """This rank's slice (a view) of x, a tensor shaped as parameter i
+        before any 'data' slice (`unsliced_shape`), along the parameter's
+        shard dim; x itself where it is not sharded."""
         d = self.shard_dims[i]
         if d is None:
             return x
         k = x.shape[d] // self.axis.size
         return x.narrow(d, self.axis.index * k, k)
+
+    def unsliced_shape(self, i: int) -> tuple:
+        """Parameter i's shape before the FSDP 'data' slice (its own shape
+        unless the parameters are slices)."""
+        shape, d = tuple(self.params[i].shape), self.shard_dims[i]
+        if not self.params_sliced or d is None:
+            return shape
+        return shape[:d] + (shape[d] * self.axis.size,) + shape[d + 1:]
 
     def moment_bytes(self) -> int:
         """This rank's bytes of mu and nu."""
@@ -396,20 +444,22 @@ class AdamW:
     @torch.no_grad()
     def step(self, grads: Optional[List[torch.Tensor]] = None, sharded_grads: bool = False) -> None:
         """One update from `grads` (each parameter's gradient; default its
-        `.grad`, zeros where None). With `sharded_grads` (ZeRO-2) the
-        gradient of each sharded parameter is this rank's slice."""
+        `.grad`, zeros where None). With `sharded_grads` (ZeRO-2; always
+        under FSDP) the gradient of each sharded parameter is this rank's
+        slice."""
         tc = self.tc
         if grads is None:
             grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
         grads = list(grads)
         if tc.grad_clip_norm is not None:
-            g_norm = self._global_norm(grads, sharded_grads)
+            g_norm = self._global_norm(grads, sharded_grads or self.params_sliced)
             clipped = torch._foreach_mul(torch._foreach_div(grads, g_norm), tc.grad_clip_norm)
             keep = g_norm < tc.grad_clip_norm
             grads = [torch.where(keep, g, c) for g, c in zip(grads, clipped)]
         # Sharded moments: the update of this rank's slice (a view where the
-        # slice is contiguous, else a copy), gathered below.
-        sharded = [i for i, d in enumerate(self.shard_dims) if d is not None]
+        # slice is contiguous, else a copy), gathered below; under FSDP the
+        # parameters are the slices, updated in place.
+        sharded = [] if self.params_sliced else [i for i, d in enumerate(self.shard_dims) if d is not None]
         targets = list(self.params)
         for i in sharded:
             targets[i] = self.local(i, self.params[i]).contiguous()
@@ -460,7 +510,12 @@ class _Gradients:
     the parameter's dtype for one microbatch). Under TP the gradients of
     the parameters flagged in `partial` (each rank's share of a replicated
     LoRA factor's gradient) are summed over the 'model' axis in fp32 first,
-    before the 'data' average; no other gradient is reduced over 'model'."""
+    before the 'data' average; no other gradient is reduced over 'model'.
+    Under FSDP (the optimizer's parameters are slices) the gradient of
+    each sliced parameter arrives as its slice, summed over 'data' by the
+    gathers' backward: only the average is left to take (under
+    accumulation in the fp32 store); the leaves kept whole are all-reduced
+    as under plain DP."""
 
     def __init__(self, optimizer: AdamW, axis: Optional[Axis], accum_steps: int, zero2: bool,
                  model_axis: Optional[Axis] = None, partial: Optional[Sequence[bool]] = None):
@@ -478,6 +533,13 @@ class _Gradients:
     def _whole(self, i: int, g: torch.Tensor) -> torch.Tensor:
         """g, or for a partial leaf its sum over 'model' (fp32)."""
         return collectives.all_reduce(g, self.model_axis) if self.partial[i] else g
+
+    def _over_data(self, i: int, g: torch.Tensor) -> torch.Tensor:
+        """g summed over 'data' in fp32: all-reduced, or as it is where the
+        FSDP gathers' backward has reduce-scattered it into the slice."""
+        if self.opt.params_sliced and self.opt.shard_dims[i] is not None:
+            return g.float()
+        return collectives.all_reduce(g, self.axis)
 
     def _take(self, i: int, p: torch.Tensor) -> None:
         if not self.active:
@@ -511,7 +573,7 @@ class _Gradients:
         if not self.hooked:
             grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in opt.params]
             grads = [self._whole(i, g).to(g.dtype) if self.size == 1 else
-                     (collectives.all_reduce(self._whole(i, g), self.axis) / self.size).to(g.dtype)
+                     (self._over_data(i, self._whole(i, g)) / self.size).to(g.dtype)
                      for i, g in enumerate(grads)]
             return grads
         grads = []
@@ -521,10 +583,41 @@ class _Gradients:
                 g = torch.zeros_like(opt.local(i, p) if self.zero2 else p)
             elif self.accum > 1:
                 if not self.zero2 and self.size > 1:
-                    g = collectives.all_reduce(g, self.axis)
+                    g = self._over_data(i, g)
                 g = (g * (1.0 / n)).to(p.dtype)
             grads.append(g)
         return grads
+
+
+def _check_fsdp_layout(model: LTXModel, optimizer: AdamW, param_shardings, opt_state_shardings,
+                       data_axis: Optional[Axis]) -> bool:
+    """Whether the step trains FSDP slices: refuses a sliced model without
+    its layout, a layout without a sliced model, another axis than the
+    slices', and a layout (or ZeRO layout) that is not the one each
+    parameter was sliced with."""
+    axis = model_fsdp_axis(model)
+    if param_shardings is None:
+        if axis is not None:
+            raise ValueError("the model's parameters are FSDP slices over 'data': pass param_shardings "
+                             "(fsdp_param_shardings of the trainable parameters)")
+        return False
+    if axis is None:
+        raise ValueError("param_shardings: the model is not sliced over a 'data' axis "
+                         "(parallel.fsdp.shard_model_fsdp_)")
+    if data_axis is not axis:
+        raise ValueError("param_shardings: data_axis must be the 'data' axis the model is sliced over")
+    names = parameter_names(model, optimizer.params)
+    layout = list(param_shardings)
+    if len(layout) != len(names):
+        raise ValueError(f"param_shardings: {len(layout)} dims for {len(names)} parameters")
+    for name, p, d in zip(names, optimizer.params, layout):
+        if not is_fsdp(p) or fsdp_dim(p) != d:
+            raise ValueError(f"param_shardings: {name} is given dim {d}, but the model slices it along "
+                             f"{fsdp_dim(p)}")
+    if opt_state_shardings is not None and list(opt_state_shardings) != layout:
+        raise ValueError("ZeRO-3: the moments and gradients take the parameters' layout (the ZeRO helpers give "
+                         "it for sliced parameters)")
+    return True
 
 
 def make_train_step(
@@ -534,7 +627,7 @@ def make_train_step(
     accum_steps: int = 1,
     opt_state_shardings: Optional[Sequence[Optional[int]]] = None,
     grad_shardings: Optional[Sequence[Optional[int]]] = None,
-    param_shardings=None,
+    param_shardings: Optional[Sequence[Optional[int]]] = None,
     data_axis: Optional[Axis] = None,
 ):
     """One step `(batch, generator, sigmas=None, noise=None, audio_noise=None)
@@ -562,16 +655,25 @@ def make_train_step(
     summed over 'model' here; AdamW's moments are the rank's slices, and
     its clip sums the split leaves' squares over 'model'. With a
     `data_axis` this is TP x DP; the ZeRO layouts then take the parameters'
-    names (`zero1_opt_state_shardings(..., names)`). param_shardings
-    (ZeRO-3/FSDP) and a model under sequence parallelism raise
+    names (`zero1_opt_state_shardings(..., names)`).
+
+    param_shardings (ZeRO-3/FSDP): a model sliced over `data_axis`
+    (`parallel.fsdp.shard_model_fsdp_`) with, for each of the optimizer's
+    parameters, its 'data' dim (`fsdp_param_shardings(model, data_axis,
+    names)`; it must be the layout the model was sliced with, as JAX's
+    must be the placement's). The forward gathers the weights and the
+    gathers' backward reduce-scatters each gradient into its slice (the
+    leaves kept whole are all-reduced); AdamW keeps moments of the slices
+    and updates the slices in place, gathering nothing after; its clip sums
+    the sliced leaves' squares over 'data' (and 'model'). The ZeRO layouts,
+    if given, must be this one. A model under sequence parallelism raises
     NotImplementedError.
 
     `step.stats["grad_bytes"]`: the bytes of gradient the last update read
-    (full-size `.grad`s, the fp32 accumulator, or ZeRO-2's slices);
-    `step.stats["bytes"]`: the collective bytes the last step moved, by
-    "axis route" (`collectives.STATS["axes"]`: 'model' and 'data' apart)."""
-    if param_shardings is not None:
-        raise NotImplementedError("param_shardings: ZeRO-3/FSDP training is not ported (ROADMAP.md §1, item 2)")
+    (full-size `.grad`s, the fp32 accumulator, or ZeRO-2's and FSDP's
+    slices); `step.stats["bytes"]`: the collective bytes the last step
+    moved, by "axis route" (`collectives.STATS["axes"]`: 'model' and 'data'
+    apart), `step.stats["op_bytes"]` by "operation axis route"."""
     seq = getattr(model.cfg, "sequence_axis", None)
     if seq is not None and seq.size > 1:
         raise NotImplementedError("sequence_axis: training under sequence parallelism is not supported (the "
@@ -586,12 +688,15 @@ def make_train_step(
         if opt_state_shardings is not None and list(opt_state_shardings) != list(grad_shardings):
             raise ValueError("ZeRO-2: the moments take the gradients' layout; pass one layout")
         opt_state_shardings = grad_shardings
+    fsdp = _check_fsdp_layout(model, optimizer, param_shardings, opt_state_shardings, data_axis)
     size, index = (1, 0) if data_axis is None else (data_axis.size, data_axis.index)
-    if opt_state_shardings is not None:
+    if fsdp:
+        optimizer.shard_(param_shardings, data_axis, params_sliced=True)
+    elif opt_state_shardings is not None:
         optimizer.shard_(opt_state_shardings, data_axis)
-    grads = _Gradients(optimizer, data_axis, accum_steps, zero2=grad_shardings is not None and size > 1,
+    grads = _Gradients(optimizer, data_axis, accum_steps, zero2=not fsdp and grad_shardings is not None and size > 1,
                        model_axis=tp, partial=partial)
-    stats = {"grad_bytes": 0, "bytes": {}}
+    stats = {"grad_bytes": 0, "bytes": {}, "op_bytes": {}}
 
     def step(batch: TrainBatch, generator: Optional[torch.Generator] = None,
              sigmas: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
@@ -604,7 +709,7 @@ def make_train_step(
             raise ValueError(f"a microbatch of {mb} rows (batch {b} / --accum-steps {accum_steps}) does not divide "
                              f"over the {size} ranks of 'data'")
         own = slice(index * (mb // size), (index + 1) * (mb // size))
-        before = {k: dict(v) for k, v in collectives.STATS["axes"].items()}
+        before = {t: {k: dict(v) for k, v in collectives.STATS[t].items()} for t in ("axes", "op_axes")}
         total = torch.zeros((), device=batch.x0.device)
         grads.active = True
         try:
@@ -620,8 +725,9 @@ def make_train_step(
         optimizer.step(grads.finish(), sharded_grads=grads.zero2)
         loss = total / accum_steps
         loss = loss if size == 1 else collectives.all_reduce(loss, data_axis) / size
-        stats["bytes"] = {k: {d: n - before.get(k, {}).get(d, 0) for d, n in v.items()}
-                          for k, v in collectives.STATS["axes"].items()}
+        for key, table in (("bytes", "axes"), ("op_bytes", "op_axes")):
+            stats[key] = {k: {d: n - before[table].get(k, {}).get(d, 0) for d, n in v.items()}
+                          for k, v in collectives.STATS[table].items()}
         return loss
 
     step.stats = stats

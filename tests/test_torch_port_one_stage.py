@@ -236,8 +236,9 @@ def _pipeline_mesh_taken(p):
 # the option is now taken; the call)
 UNPORTED = {
     "prepare_data_videos": ((SystemExit, "--pp-stages needs 2 devices"), lambda p, c, x: _pp_stages()),
-    "train_mesh_flags": ((NotImplementedError, "--fsdp"), lambda p, c, x: train.main(
-        ["--placeholder", "--device", "cpu", "--synthetic", "1", "2", "2", "--fsdp"])),
+    "train_mesh_flags": ((SystemExit, "--fsdp needs --dp-devices > 1 (a 'data' axis to shard over)"),
+                         lambda p, c, x: train.main(["--placeholder", "--device", "cpu", "--synthetic", "1", "2", "2",
+                                                     "--fsdp"])),
     "meshes": (None, lambda p, c, x: _pipeline_mesh_taken(p)),
     "multimodal_loop_meshes": (None, lambda p, c, x: make_multimodal_av_denoise_loop(
         p.transformer.cfg, MultiModalLoopConfig(), mesh=_fake_pipe_mesh(), pipeline_axis="pipe")),
@@ -246,10 +247,9 @@ UNPORTED = {
 
 @pytest.mark.parametrize("option", sorted(UNPORTED))
 def test_unported_options_raise(weights, option):
-    """The unported training mesh flag (--fsdp) still raises
-    NotImplementedError naming itself; --pp-stages exits at world 1 as
-    the JAX CLI does; a pipeline mesh and the loops' pipeline axis are
-    taken."""
+    """--fsdp without a 'data' axis and --pp-stages at world 1 exit as the
+    JAX CLI does, naming themselves; a pipeline mesh and the loops'
+    pipeline axis are taken."""
     pipe = OneStagePipeline(_port(weights)[0])
     config = OneStageCFGConfig(height=HEIGHT, width=WIDTH, num_frames=FRAMES, latent_channels=16)
     expected, call = UNPORTED[option]

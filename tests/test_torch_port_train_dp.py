@@ -485,12 +485,13 @@ def test_refusal_words_are_the_jax_clis():
 
 
 def test_sharding_arguments_refused_by_name(trees):
-    """ZeRO-3/FSDP and training under sequence parallelism still raise,
-    naming themselves (training under TP is ported)."""
+    """Training under sequence parallelism still raises, naming itself
+    (training under TP and ZeRO-3/FSDP are ported); an FSDP layout for a
+    model that is not sliced over a 'data' axis is refused by name."""
     dit = dit_from_numpy(trees["video"], model.LTXModelConfig(**VIDEO))
     trainable_mask(dit, lambda name: "attn1" in name)
     opt = make_optimizer(TrainConfig(), [p for p in dit.parameters() if p.requires_grad])
-    with pytest.raises(NotImplementedError, match="param_shardings: ZeRO-3/FSDP"):
+    with pytest.raises(ValueError, match="param_shardings: the model is not sliced over a 'data' axis"):
         make_train_step(dit, opt, param_shardings=[0])
     dit.cfg = dataclasses.replace(dit.cfg, sequence_axis=Axis("seq", 2, 0, (0, 1)))
     with pytest.raises(NotImplementedError, match="sequence_axis: training under sequence parallelism"):

@@ -553,10 +553,11 @@ def test_tp_names_and_heads():
 
 
 def test_tp_world_refusals():
-    """tp x dp must be the world, and --fsdp still raises by name."""
+    """tp x dp must be the world, and --fsdp needs a 'data' axis (the JAX
+    CLI's words)."""
     with pytest.raises(SystemExit, match="--tp-devices needs 2 devices but only 1 ranks in the world"):
         train.main(CLI + ["--tp-devices", "2"])
     with pytest.raises(SystemExit, match=r"--tp-devices x --dp-devices needs 4 devices but only 1 ranks"):
         train.main(CLI + TP_CLI)
-    with pytest.raises(NotImplementedError, match="--fsdp is not ported"):
+    with pytest.raises(SystemExit, match=r"--fsdp needs --dp-devices > 1 \(a 'data' axis to shard over\)"):
         train.main(CLI + ["--tp-devices", "2", "--fsdp"])

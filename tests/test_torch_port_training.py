@@ -285,9 +285,11 @@ def test_unported_options_raise(lora_tree):
     tree, _ = lora_tree
     dit = _port(tree)
     opt = trainer.make_optimizer(trainer.TrainConfig(), [p for p in dit.parameters() if p.requires_grad])
-    with pytest.raises(NotImplementedError, match="ZeRO-3/FSDP"):
-        trainer.make_train_step(dit, opt, param_shardings=object())
-    with pytest.raises(NotImplementedError, match="--fsdp is not ported"):
+    # ZeRO-3/FSDP is ported: what stays refused is a layout for a model not
+    # sliced over a 'data' axis, and --fsdp without one (the JAX CLI's words).
+    with pytest.raises(ValueError, match="param_shardings: the model is not sliced"):
+        trainer.make_train_step(dit, opt, param_shardings=[None] * len(opt.params))
+    with pytest.raises(SystemExit, match=r"--fsdp needs --dp-devices > 1 \(a 'data' axis to shard over\)"):
         train.main(["--placeholder", "--device", "cpu", "--synthetic", "1", "2", "2", "--fsdp"])
     # --tp-devices is ported: at one rank it trains as world 1.
     res = train.main(["--placeholder", "--device", "cpu", "--layers", "1", "--synthetic", "1", "2", "2",

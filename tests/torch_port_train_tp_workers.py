@@ -20,8 +20,9 @@ import torch.distributed as dist
 from ltx2_tpu_torch.loader.from_numpy import dit_from_numpy
 from ltx2_tpu_torch.models.transformer import model
 from ltx2_tpu_torch.parallel import collectives
+from ltx2_tpu_torch.parallel.fsdp import fsdp_dim
 from ltx2_tpu_torch.parallel.mesh import Axis, axis_of, create_mesh
-from ltx2_tpu_torch.parallel.sharding import gather_tensor, shard_model_, shard_tensor, tp_split_dim
+from ltx2_tpu_torch.parallel.sharding import gather_tensor, gather_whole, shard_model_, shard_tensor, tp_split_dim
 from ltx2_tpu_torch.training import (
     AdamW, TrainBatch, TrainConfig, data_shard_dim, make_optimizer, make_train_step, trainable_mask,
     zero1_opt_state_shardings,
@@ -284,11 +285,12 @@ def cli(rank, world, argv):
         (T.export_lora_checkpoint, T.export_transformer_checkpoint, L.write_safetensors,
          E.write_safetensors_streaming, C.write_safetensors_streaming) = saved
     dit = res["model"]
-    trained = {n: gather_tensor(n, p.detach(), dit.cfg.tp_axis).float().numpy().copy()
+    # Whole tensors: over 'data' where FSDP slices them, then over 'model'.
+    trained = {n: gather_whole(n, p.detach(), dit, fsdp_dim(p)).float().numpy().copy()
                for n, p in dit.named_parameters() if p.requires_grad}
     return {"losses": res["losses"], "calls": calls, "writes": writes, "stdout": text.getvalue(),
-            "rank": res["rank"], "moment_bytes": res["moment_bytes"], "grad_bytes": res["grad_bytes"],
-            "step_bytes": res["step_bytes"], "trained": trained}
+            "rank": res["rank"], "param_bytes": res["param_bytes"], "moment_bytes": res["moment_bytes"],
+            "grad_bytes": res["grad_bytes"], "step_bytes": res["step_bytes"], "trained": trained}
 
 
 def run_jobs(rank, world, jobs):
